@@ -1,0 +1,44 @@
+"""waifu2x_torch and chip_smoke.py import neither JAX nor the JAX package.
+
+An AST scan of the sources: the test process itself has JAX loaded (the
+test suite and the host environment import it), so sys.modules cannot
+show what the port imports."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "waifu2x_tpu")
+SOURCES = sorted((ROOT / "waifu2x_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_scan_covers_the_package():
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {"waifu2x_torch/pipeline.py", "waifu2x_torch/ops/stack.py",
+            "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"

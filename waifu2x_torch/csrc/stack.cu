@@ -1,0 +1,337 @@
+// Hand-written Hopper (sm_90a) kernels for the waifu2x 7-layer conv stack,
+// scale path. Built with nvcc into a shared library with a plain C
+// interface and loaded with ctypes (waifu2x_torch/ops/_build.py); the
+// Python wrapper is waifu2x_torch/ops/stack.py:stack_scale.
+//
+// Replaces: waifu2x_tpu/ops/pallas_stack.py:_run_stack / _stack_body (the
+// Pallas kernel behind stack_scale, configuration B1) together with the
+// im2col build _xcol_scale in front of it.
+//
+// What it computes (the contract of pallas_stack.stack_scale):
+//   Y_s2d[n, i, j, A*2+B] = convert_plane(nearest2x(ylow))[n, 2i+A, 2j+B]
+// where convert_plane replicate-pads by 7 and runs 7 x (3x3 VALID
+// correlation + bias + LeakyReLU(0.1)), widths 1-32-32-64-64-128-128-1.
+// Storage type T is float or bf16; every product and sum is f32 FFMA (no
+// TF32, no tensor cores), bias and LeakyReLU are f32, and each layer's
+// output is rounded to T once when stored. The last layer's sum stays f32
+// until its single rounding to T.
+//
+// Design (right and simple first):
+//   * One launch per layer. Activations live in device memory as NHWC,
+//     ping-ponging between two scratch buffers the wrapper allocates.
+//   * conv3x3_bias_leaky<CI, CO, T, IN_MODE>: a block computes an 8 x 32
+//     output tile for 32 output channels. It stages the 10 x 34 input
+//     window for 16 input channels at a time, and that slice of weights,
+//     in shared memory as f32. Each thread owns one output column, 4 rows
+//     and 8 channels (32 f32 accumulators); per input channel and tap
+//     column it reads 6 window values and reuses them across the 3 tap
+//     rows, and the 8 weights it needs are a warp-wide broadcast.
+//   * IN_MODE = IN_LOWRES (layer 1) reads the low-res plane through the
+//     nearest-2x, replicate-pad-7 index map
+//       ylow[n, clamp(Y-7, 0, 2hl-1) >> 1, clamp(X-7, 0, 2wl-1) >> 1],
+//     so neither the upscale nor the pad is materialised (the counterpart
+//     of the L1 fold in waifu2x_tpu/ops/s2d.py:pack_l1_scale).
+//   * conv3x3_bias_leaky_s2d<CI, T> (layer 7, 128 -> 1) gives each thread
+//     one output pixel and writes it straight into the s2d layout
+//     [N, hl, wl, 4].
+//
+// What bounds it on an H100: operations. The stack needs 287,136 MAC per
+// output pixel; as FFMA at the card's 67 TFLOP/s f32 rate that is about
+// 144 ms per 16 x 1024^2 output pixels, against about 9.7 ms at the bf16
+// tensor-core peak. Per-layer launches also move every activation through
+// device memory: 448 channels written once and read once, about 30 GB per
+// 16 x 1024^2 batch in bf16, about 9 ms at 3.35 TB/s. This design spends
+// neither tensor cores nor on-chip fusion: it keeps the FFMA units fed
+// (12 shared-memory loads feed 96 FMAs per input channel and tap column)
+// and leaves tensor cores and a single fused launch to later work.
+//
+// Memory: the peak is two activation buffers of
+// N*(2hl+12)*(2wl+12)*128*sizeof(T) bytes each: about 8.8 GB together for
+// 16 x 512^2 frames in bf16, and about 36 GB for a full 2*1152*3840-pixel
+// band dispatch in f32. Both fit in the H100's 80 GB.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TH = 8;          // output tile rows
+constexpr int TW = 32;         // output tile columns: one lane per column
+constexpr int COB = 32;        // output channels per block
+constexpr int NTHREADS = 256;  // 8 warps: 2 row halves x 4 groups of 8 ch
+constexpr int S2D_THREADS = 256;
+
+enum { IN_ACT = 0, IN_LOWRES = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// 8 consecutive elements (16-byte aligned for bf16, 32-byte for f32).
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    __nv_bfloat162 h;
+    *reinterpret_cast<uint32_t*>(&h) = w[k];
+    const float2 f = __bfloat1622float2(h);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    w[k] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ float leaky(float x) {
+  return fmaxf(x, 0.0f) + 0.1f * fminf(x, 0.0f);
+}
+
+// One 3x3 VALID conv layer + bias + LeakyReLU, NHWC in and out.
+//   x: IN_ACT    -> [N, hin, win, CI] activations
+//      IN_LOWRES -> [N, hl, wl] low-res plane (CI == 1); the virtual input
+//                   is its nearest-2x upscale padded by 7: hin = 2hl + 14
+//   w: [CI][9][CO] (tap t = dy*3 + dx), b: [CO] f32
+//   y: [N, hin-2, win-2, CO]
+// Grid: one block per (image, tile row, tile col, 32-channel group),
+// flattened into blockIdx.x with the channel group fastest.
+template <int CI, int CO, typename T, int IN_MODE>
+__global__ void __launch_bounds__(NTHREADS)
+conv3x3_bias_leaky(const T* __restrict__ x, const T* __restrict__ w,
+                   const float* __restrict__ b, T* __restrict__ y,
+                   int hin, int win, int hl, int wl, int ntx, int nty) {
+  constexpr int KC = CI < 16 ? CI : 16;  // input channels per stage
+  constexpr int NCB = CO / COB;
+  static_assert(CO % COB == 0, "CO must be a multiple of 32");
+  static_assert(CI % KC == 0, "CI must be a multiple of the stage depth");
+  static_assert(IN_MODE == IN_ACT || CI == 1, "low-res input has 1 channel");
+  static_assert(IN_MODE == IN_LOWRES || KC % 8 == 0, "8-wide staging loads");
+
+  __shared__ float s_x[KC][TH + 2][TW + 2];
+  __shared__ __align__(16) float s_w[KC][9][COB];
+
+  unsigned bid = blockIdx.x;
+  const int cb = bid % NCB;  bid /= NCB;
+  const int tx = bid % ntx;  bid /= ntx;
+  const int ty = bid % nty;  bid /= nty;
+  const int n = bid;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = warp & 3;       // channels g*8 .. g*8+7 of this block's 32
+  const int half = warp >> 2;   // tile rows 4*half .. 4*half+3
+  const int oy0 = ty * TH, ox0 = tx * TW;
+  const int hout = hin - 2, wout = win - 2;
+
+  float acc[4][8];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[r][k] = 0.0f;
+
+  for (int c0 = 0; c0 < CI; c0 += KC) {
+    __syncthreads();  // the previous stage's reads are done
+    if constexpr (IN_MODE == IN_LOWRES) {
+      for (int p = tid; p < (TH + 2) * (TW + 2); p += NTHREADS) {
+        const int r = p / (TW + 2), col = p % (TW + 2);
+        const int iy = oy0 + r, ix = ox0 + col;
+        float v = 0.0f;
+        if (iy < hin && ix < win) {
+          const int sy = min(max(iy - 7, 0), 2 * hl - 1) >> 1;
+          const int sx = min(max(ix - 7, 0), 2 * wl - 1) >> 1;
+          v = to_f32(x[((size_t)n * hl + sy) * wl + sx]);
+        }
+        s_x[0][r][col] = v;
+      }
+    } else {
+      constexpr int G8 = KC / 8;
+      for (int i = tid; i < G8 * (TH + 2) * (TW + 2); i += NTHREADS) {
+        const int c8 = i % G8, p = i / G8;
+        const int r = p / (TW + 2), col = p % (TW + 2);
+        const int iy = oy0 + r, ix = ox0 + col;
+        float v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        if (iy < hin && ix < win)
+          load8(x + (((size_t)n * hin + iy) * win + ix) * CI + c0 + c8 * 8, v);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s_x[c8 * 8 + k][r][col] = v[k];
+      }
+    }
+    for (int i = tid; i < KC * 9 * COB; i += NTHREADS) {
+      const int j = i % COB, t = (i / COB) % 9, c = i / (9 * COB);
+      s_w[c][t][j] = to_f32(w[((size_t)(c0 + c) * 9 + t) * CO + cb * COB + j]);
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int c = 0; c < KC; ++c) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        float xin[6];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) xin[r] = s_x[c][4 * half + r][lane + dx];
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const float4* wp =
+              reinterpret_cast<const float4*>(&s_w[c][dy * 3 + dx][g * 8]);
+          const float4 wa = wp[0], wb = wp[1];
+          const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              acc[r][k] = fmaf(xin[r + dy], wv[k], acc[r][k]);
+        }
+      }
+    }
+  }
+
+  const int ox = ox0 + lane;
+  if (ox >= wout) return;
+  const int co0 = cb * COB + g * 8;
+  float bias[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) bias[k] = b[co0 + k];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int oy = oy0 + 4 * half + r;
+    if (oy >= hout) break;
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = leaky(acc[r][k] + bias[k]);
+    store8(y + (((size_t)n * hout + oy) * wout + ox) * CO + co0, v);
+  }
+}
+
+// The last layer (CI -> 1) + bias + LeakyReLU, written in s2d layout:
+// full-res (oy, ox) -> y[n, oy/2, ox/2, (oy&1)*2 + (ox&1)].
+//   x: [N, hin, win, CI], w: [CI][9][1], b: [1], y: [N, hl, wl, 4]
+// Grid: one block per (image, output row, 256-column chunk), flattened.
+template <int CI, typename T>
+__global__ void __launch_bounds__(S2D_THREADS)
+conv3x3_bias_leaky_s2d(const T* __restrict__ x, const T* __restrict__ w,
+                       const float* __restrict__ b, T* __restrict__ y,
+                       int hin, int win, int ncx) {
+  static_assert(CI % 8 == 0, "8-wide loads");
+  __shared__ __align__(16) float s_w[9][CI];
+  for (int i = threadIdx.x; i < 9 * CI; i += S2D_THREADS)
+    s_w[i % 9][i / 9] = to_f32(w[i]);
+  __syncthreads();
+
+  const int hout = hin - 2, wout = win - 2;
+  unsigned bid = blockIdx.x;
+  const int cx = bid % ncx;  bid /= ncx;
+  const int oy = bid % hout; bid /= hout;
+  const int n = bid;
+  const int ox = cx * S2D_THREADS + threadIdx.x;
+  if (ox >= wout) return;
+
+  float acc = 0.0f;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const T* px = x + (((size_t)n * hin + oy + dy) * win + ox + dx) * CI;
+      const float* wt = s_w[dy * 3 + dx];
+#pragma unroll 4
+      for (int c = 0; c < CI; c += 8) {
+        float v[8];
+        load8(px + c, v);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc = fmaf(v[k], wt[c + k], acc);
+      }
+    }
+  }
+  const int hl = hout / 2, wl = wout / 2;
+  store1(y + (((size_t)n * hl + (oy >> 1)) * wl + (ox >> 1)) * 4
+             + (oy & 1) * 2 + (ox & 1),
+         leaky(acc + b[0]));
+}
+
+template <int CI, int CO, typename T, int IN_MODE>
+cudaError_t launch_layer(const void* x, const void* w, const void* b, void* y,
+                         int n, int hin, int win, int hl, int wl,
+                         cudaStream_t s) {
+  const int ntx = (win - 2 + TW - 1) / TW, nty = (hin - 2 + TH - 1) / TH;
+  const long long blocks = (long long)ntx * nty * n * (CO / COB);
+  if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  conv3x3_bias_leaky<CI, CO, T, IN_MODE><<<(unsigned)blocks, NTHREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(b), static_cast<T*>(y), hin, win, hl, wl,
+      ntx, nty);
+  return cudaGetLastError();
+}
+
+template <int CI, typename T>
+cudaError_t launch_last(const void* x, const void* w, const void* b, void* y,
+                        int n, int hin, int win, cudaStream_t s) {
+  const int ncx = (win - 2 + S2D_THREADS - 1) / S2D_THREADS;
+  const long long blocks = (long long)ncx * (hin - 2) * n;
+  if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  conv3x3_bias_leaky_s2d<CI, T><<<(unsigned)blocks, S2D_THREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(b), static_cast<T*>(y), hin, win, ncx);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(int layer, const void* x, const void* w, const void* b,
+                   void* y, int n, int hl, int wl, cudaStream_t s) {
+  // layer k reads a (2hl + 14 - 2k) x (2wl + 14 - 2k) plane
+  const int hin = 2 * hl + 14 - 2 * layer, win = 2 * wl + 14 - 2 * layer;
+  switch (layer) {
+    case 0: return launch_layer<1, 32, T, IN_LOWRES>(x, w, b, y, n, hin, win, hl, wl, s);
+    case 1: return launch_layer<32, 32, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
+    case 2: return launch_layer<32, 64, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
+    case 3: return launch_layer<64, 64, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
+    case 4: return launch_layer<64, 128, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
+    case 5: return launch_layer<128, 128, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
+    case 6: return launch_last<128, T>(x, w, b, y, n, hin, win, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch layer `layer` (0..6) of the flagship stack on `stream`.
+// bf16 != 0 selects __nv_bfloat16 storage, else float. Returns the
+// cudaError_t of the launch (0 on success).
+int w2x_stack_layer(int bf16, int layer, const void* x, const void* w,
+                    const void* b, void* y, int n, int hl, int wl,
+                    void* stream) {
+  if (n <= 0 || hl <= 0 || wl <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? launch<__nv_bfloat16>(layer, x, w, b, y, n, hl, wl, s)
+                    : launch<float>(layer, x, w, b, y, n, hl, wl, s));
+}
+
+const char* w2x_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
