@@ -1,25 +1,48 @@
-"""GPU smoke run of the waifu2x_torch port: builds the CUDA kernel, holds it
-against its plain PyTorch version, drives the 2x scale main path at full
-model width and prints its numbers.
+"""GPU smoke run of the waifu2x_torch port: builds the CUDA kernel, holds its
+scale (B1) and noise (B2) input modes against their plain PyTorch versions,
+drives the scale, noise and noise->scale paths at full model width and
+prints their numbers.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
 Phases (any failure raises and exits non-zero):
   1. build csrc/stack.cu with nvcc for sm_90a (ops/_build.py);
-  2. f32 kernel vs plain version at small and odd shapes: max |diff| <= 3e-5;
-  3. the kernel vs its plain version at the main path's shape
+  2. f32 scale kernel vs plain version at small and odd shapes:
+     max |diff| <= 3e-5;
+  3. the scale kernel vs its plain version at the scale512 shape
      (16 x 512^2 low-res): f32 max |diff| <= 3e-5; bf16 max |diff| against
      the bf16 plain version <= 2^-4 (rounding ties flip a bf16 unit at
      some layer and propagate), and >= 50 dB PSNR (peak 1) against the
      f32 plain version;
-  4. the main path with the shipped scale2.0x weights on 16 seeded
-     512 x 512 BGR u8 frames: _to_yuv -> scale2x_batch_u8_fused ->
+  4. the scale512 main path with the shipped scale2.0x weights on 16
+     seeded 512 x 512 BGR u8 frames: _to_yuv -> scale2x_batch_u8_fused ->
      d2s_host_cmajor, with the launch counter read around it; frames 0-1
      >= 50 dB against the port's f32 non-kernel path; then
      Converter.process_bgr_u8 on a 720 x 1280 image against the f32
      non-kernel Converter: x2 (bf16 kernel) >= 50 dB, x4 (two chained bf16
-     stacks) >= 45 dB, x4 with f32 kernels >= 50 dB; then timings with
-     CUDA events.
+     stacks) >= 45 dB, x4 with f32 kernels >= 50 dB;
+  5. the f32 noise kernel (stack_noise, and stack_noise_s2d at even
+     shapes) vs its plain version at small and odd shapes: <= 3e-5; at the
+     noise256 shape with the shipped noise1 weights: f32 <= 3e-5, bf16
+     <= 2^-4 against the bf16 plain version and >= 50 dB against f32;
+  6. the noise256 main path: 256 seeded 256 x 256 u8 frames with the
+     noise1 weights, _to_yuv -> noise_batch_u8_fused -> d2s_host_cmajor at
+     7 launches; frames 0-1 >= 50 dB against the f32 non-kernel noise_batch;
+  7. the ns1080 chain: 4 seeded 1080 x 1920 frames with the noise2 and
+     scale2.0x weights, noise_y_batch_fast(out_dtype=None) handed to
+     scale2x_batch_u8_fused(y=...) at 14 launches; each of the 4 frames
+     against the f32 non-kernel chain: >= 45 dB with both stacks bf16,
+     >= 50 dB with an f32 noise stack and a bf16 scale stack (the
+     Converter's auto policy);
+  8. Converter mode="noise" (levels 1 and 2) and mode="noise_scale" under
+     compute_dtype="auto" on a 720 x 1280 and an odd 721 x 1279 image:
+     >= 50 dB against the f32 non-kernel Converter, launches a multiple of 7.
+In phases 4 and 6-8 every call that the run made to a kernel wrapper (one
+per wrapper, input shape, dtype and weights) is repeated on a copy of its
+input and held against the plain version: f32 max |diff| <= 3e-5; bf16 max
+|diff| <= 2^-4 against the bf16 plain version and >= 50 dB over all frames
+against the f32 plain version with the model's f32 weights. Then timings with CUDA events for scale512, noise256 and ns1080, and a cuDNN
+bf16 yardstick the port never calls.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the kernel table as JSON. Without a CUDA card it exits non-zero and
@@ -89,6 +112,136 @@ def structured_bgr(rng: np.random.Generator, n: int, h: int, w: int):
     return np.clip(np.round(img), 0, 255).astype(np.uint8)
 
 
+def check_max_err(what: str, err: float, tol: float) -> None:
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |diff| {err} > {tol}")
+
+
+WRAPPERS = ("stack_scale", "stack_noise_s2d", "stack_noise")
+
+
+def record_wrapper_calls(pipeline_mod, seen: dict):
+    """Route the pipeline's calls of the stack wrappers through a recorder
+    that keeps a copy of the first input at each (wrapper, shape, dtype,
+    weights) in `seen`. Returns a function that restores the wrappers."""
+    orig = {name: getattr(pipeline_mod, name) for name in WRAPPERS}
+
+    def recorder(name):
+        def call(x, sp, events=None):
+            key = (name, tuple(x.shape), x.dtype, id(sp))
+            if key not in seen:
+                seen[key] = (x.clone(), sp)
+            return orig[name](x, sp, events)
+        return call
+
+    for name in WRAPPERS:
+        setattr(pipeline_mod, name, recorder(name))
+    return lambda: [setattr(pipeline_mod, n, f) for n, f in orig.items()]
+
+
+def plain_in_chunks(plain, x: torch.Tensor, sp, scale: bool) -> torch.Tensor:
+    """plain(x, sp) as f32, computed a few frames at a time so that its
+    128-channel f32 activations stay near 4 GB (the plain version is
+    frame-independent)."""
+    out_px = x.shape[1] * x.shape[2] * (4 if scale else 1)
+    c = max(1, int(4e9 // (128 * 4 * out_px)))
+    return torch.cat([plain(x[i:i + c], sp).float()
+                      for i in range(0, x.shape[0], c)])
+
+
+def hold_seen(seen: dict, stack, f32_twin, max_err: dict) -> None:
+    """Repeat every recorded wrapper call on its input and hold the kernel
+    against its plain version: f32 max |diff| <= F32_TOL; bf16 max |diff|
+    <= BF16_TOL against the bf16 plain version and >= PSNR_BAR over all
+    frames against the f32 plain version with the model's f32 weights.
+    `max_err` collects the largest |diff| per wrapper."""
+    for (name, shape, dtype, _), (x, sp) in seen.items():
+        plain = getattr(stack, name + "_plain")
+        scale = name == "stack_scale"
+        got = getattr(stack, name)(x, sp).float()
+        err = (got - plain_in_chunks(plain, x, sp, scale)).abs().max().item()
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        msg = (f"  held {name} {shape} {dtype}: max|kernel - plain| = "
+               f"{err:.3e}")
+        if dtype == torch.float32:
+            check_max_err(f"{name} at {shape}", err, F32_TOL)
+        else:
+            db = psnr1(got, plain_in_chunks(plain, x.float(), f32_twin(sp),
+                                            scale))
+            msg += f"; vs f32 plain {db:.2f} dB"
+            if not (err <= BF16_TOL and db >= PSNR_BAR):
+                raise AssertionError(f"bf16 {name} at {shape}: {err} abs, "
+                                     f"{db} dB")
+        log(msg)
+        del got
+        torch.cuda.empty_cache()
+    seen.clear()
+
+
+def per_layer_ms(run, stack) -> np.ndarray:
+    """Per-layer device ms of run(events) (a wrapper call that records 8
+    CUDA events), averaged over 3 runs after the caller's warm-up."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    ms = np.zeros(len(stack.WIDTHS))
+    for _ in range(3):
+        run(events)
+        torch.cuda.synchronize()
+        ms += [events[k].elapsed_time(events[k + 1]) / 3
+               for k in range(len(stack.WIDTHS))]
+    return ms
+
+
+def layer_rates(ms_per_layer, stack, n, hl, wl, l1_in_px, itemsize=2):
+    """Per layer: FLOPs over the planes it really computes (the padded
+    borders included) and its activation bytes, read once + written once.
+    Returns (one-line report, activation bytes per call)."""
+    rates, act_bytes = [], 0
+    for k, (ms, (ci, co)) in enumerate(zip(ms_per_layer, stack.WIDTHS)):
+        hin, win = 2 * hl + 14 - 2 * k, 2 * wl + 14 - 2 * k
+        flop_k = 2 * n * (hin - 2) * (win - 2) * ci * co * 9
+        in_px = l1_in_px if k == 0 else hin * win
+        bytes_k = itemsize * n * (in_px * ci + (hin - 2) * (win - 2) * co)
+        act_bytes += bytes_k
+        rates.append(f"L{k + 1} {ms:.2f} ms {flop_k / ms / 1e9:.2f} TFLOP/s "
+                     f"{bytes_k / ms / 1e6:.1f} GB/s")
+    return "; ".join(rates), act_bytes
+
+
+def library_stack_ms(plane16: torch.Tensor, sp16) -> float:
+    """Library yardstick (never called by the port): the same 7-conv stack
+    as cuDNN bf16 channels_last on a plane already replicate-padded by 7
+    ([N, H, W] bf16)."""
+    layers = [(w.float().reshape(w.shape[0], 3, 3, w.shape[2])
+               .permute(3, 0, 1, 2).to(torch.bfloat16)
+               .contiguous(memory_format=torch.channels_last),
+               b.to(torch.bfloat16)) for w, b in sp16]
+    xpad = plane16[:, None].contiguous(memory_format=torch.channels_last)
+
+    def library_stack():
+        h = xpad
+        for w, b in layers:
+            h = F.leaky_relu(F.conv2d(h, w, b), 0.1)
+        return h
+
+    ms = timed_ms(library_stack)
+    del xpad, layers
+    torch.cuda.empty_cache()
+    return ms
+
+
+def stack_bound(plane: torch.Tensor, out_px: int, sp, maccs: int):
+    """(bound ms, bound_by, FLOPs) of one stack call: its FLOPs at the bf16 peak
+    against the bytes it must move (the input plane, the weights and Y,
+    each once) at the memory rate."""
+    item = plane.element_size()
+    flops = 2 * maccs * out_px
+    moved = plane.numel() * item + out_px * item + sum(
+        w.numel() * w.element_size() + b.numel() * 4 for w, b in sp)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -99,13 +252,16 @@ def main() -> int:
     from waifu2x_torch.models.srcnn import (
         SRCNN, count_maccs_per_pixel, init_params)
     from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch import pipeline as pipeline_mod
     from waifu2x_torch.ops import _build, stack
     from waifu2x_torch.ops.s2d import d2s_host_cmajor
     from waifu2x_torch.pipeline import (
-        Converter, FastStack, _to_bgr_u8, _to_yuv, scale2x_batch,
+        Converter, FastStack, _to_bgr_u8, _to_yuv, noise_batch,
+        noise_batch_u8_fused, noise_y_batch_fast, scale2x_batch,
         scale2x_batch_u8_fused)
     from waifu2x_torch.utils.metrics import psnr
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -134,13 +290,27 @@ def main() -> int:
         err = (stack.stack_scale(y, sp_rand)
                - stack.stack_scale_plain(y, sp_rand)).abs().max().item()
         log(f"phase 2 f32 {shape}: max|kernel - plain| = {err:.3e}")
-        if not err <= F32_TOL:
-            raise AssertionError(f"f32 kernel off by {err} at {shape}")
+        check_max_err(f"f32 scale kernel at {shape}", err, F32_TOL)
 
     # 3. the kernel vs its plain version at the main path's shape
     params = load_model_json(root / "models" / "scale2.0x_demo.json")
-    sp32 = stack.prep_params(params, torch.float32, dev)
-    sp16 = stack.prep_params(params, torch.bfloat16, dev)
+    params_n1 = load_model_json(root / "models" / "noise1_demo.json")
+    params_n2 = load_model_json(root / "models" / "noise2_demo.json")
+    # (bf16, f32) weights of each shipped model, for the held calls' f32
+    # comparison
+    twins = [(stack.prep_params(p, torch.bfloat16, dev),
+              stack.prep_params(p, torch.float32, dev))
+             for p in (params, params_n1, params_n2)]
+    (sp16, sp32), (spn16, spn32) = twins[0], twins[1]
+
+    def f32_twin(sp):
+        if sp[0][0].dtype == torch.float32:
+            return sp
+        for s16, s32 in twins:
+            if all(torch.equal(a[0], b[0]) for a, b in zip(sp, s16)):
+                return s32
+        raise AssertionError("bf16 weights of no shipped model")
+
     rng = np.random.default_rng(0)
     frames = structured_bgr(rng, 16, 512, 512)
     yuv = _to_yuv(torch.from_numpy(frames).to(dev))
@@ -155,10 +325,10 @@ def main() -> int:
     log(f"phase 3 {tuple(ylow.shape)}: f32 max|kernel - plain| = "
         f"{err32:.3e}; bf16 max|kernel - bf16 plain| = {err16:.3e}; "
         f"bf16 kernel vs f32 plain {db16:.2f} dB")
-    if not err32 <= F32_TOL:
-        raise AssertionError(f"f32 kernel off by {err32} at the main shape")
+    check_max_err("f32 scale kernel at the main shape", err32, F32_TOL)
     if not (err16 <= BF16_TOL and db16 >= PSNR_BAR):
         raise AssertionError(f"bf16 kernel: {err16} abs, {db16} dB")
+    max_err = {"stack_scale": max(err32, err16)}
     # the adversarial worst case for bf16 storage: a pure-random luma
     # plane, every pixel an edge (reported, not gated)
     noise = torch.rand((2, 512, 512), generator=gen).to(dev)
@@ -170,7 +340,11 @@ def main() -> int:
     del ref32, ref16, got16, noise
     torch.cuda.empty_cache()
 
-    # 4. the main path at full width
+    # 4. the main path at full width. From here to the end of phase 8 the
+    # pipeline's wrapper calls are recorded, and after each run every one
+    # is held against its plain version on the same input (hold_seen).
+    seen = {}
+    restore_wrappers = record_wrapper_calls(pipeline_mod, seen)
     fast = FastStack.build(params, True, dtype=torch.bfloat16, device=dev)
     stack.LAUNCHES = 0
     u8 = scale2x_batch_u8_fused(_to_yuv(torch.from_numpy(frames).to(dev)),
@@ -181,6 +355,7 @@ def main() -> int:
         f"{launches} kernel launches")
     if launches != 7 or out.shape != (16, 1024, 1024, 3):
         raise AssertionError(f"main path: {launches} launches, {out.shape}")
+    hold_seen(seen, stack, f32_twin, max_err)
     model32 = SRCNN.from_params(params).to(dev)
     cfg32 = Config(mode="scale", compute_dtype="float32")
     ref = _to_bgr_u8(scale2x_batch(yuv[:2], model32, cfg32)).cpu().numpy()
@@ -188,118 +363,288 @@ def main() -> int:
     log(f"  frames 0-1 vs f32 non-kernel path: {db_main:.2f} dB")
     if not db_main >= PSNR_BAR:
         raise AssertionError(f"main path at {db_main} dB")
+    del u8, out, ref
+    torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as mdir:
-        shutil.copy(root / "models" / "scale2.0x_demo.json",
-                    Path(mdir) / "scale2.0x_model.json")
-        img = structured_bgr(rng, 1, 720, 1280)[0]
-        refs = {}
-        for ratio, dtype, bar in ((2.0, "auto", PSNR_BAR),
-                                  (4.0, "auto", CHAIN_BAR),
-                                  (4.0, "float32", PSNR_BAR)):
-            if ratio not in refs:
-                refs[ratio] = Converter.from_config(Config(
-                    mode="scale", scale_ratio=ratio, model_dir=mdir,
-                    use_pallas=False, compute_dtype="float32"),
-                    dev).process_bgr_u8(img)
-            want = refs[ratio]
-            conv = Converter.from_config(Config(
-                mode="scale", scale_ratio=ratio, model_dir=mdir,
-                compute_dtype=dtype), dev)
-            stack.LAUNCHES = 0
-            got = conv.process_bgr_u8(img)
-            n_conv = stack.LAUNCHES   # 7 per dispatch; tall planes band
-            db = psnr(got, want)
-            log(f"  Converter x{ratio:g} {dtype} {img.shape} -> {got.shape}: "
-                f"{n_conv} launches, {db:.2f} dB vs f32 non-kernel path "
-                f"(bar {bar:g})")
-            if (n_conv < 7 * int(np.log2(ratio)) or n_conv % 7
-                    or got.shape != want.shape or not db >= bar):
-                raise AssertionError(f"Converter x{ratio} {dtype}: "
-                                     f"{n_conv} launches, {db} dB")
-            del conv, got
-            torch.cuda.empty_cache()
-        del refs
+    mdir_obj = tempfile.TemporaryDirectory()
+    mdir = mdir_obj.name
+    for demo, name in (("scale2.0x", "scale2.0x"), ("noise1", "noise1"),
+                       ("noise2", "noise2")):
+        shutil.copy(root / "models" / f"{demo}_demo.json",
+                    Path(mdir) / f"{name}_model.json")
+    img = structured_bgr(rng, 1, 720, 1280)[0]
 
-    # timings at the main path's shape (CUDA events, after a warm-up)
+    def converter_check(cfg_kw: dict, img: np.ndarray, bar: float,
+                        min_launches: int, ref: np.ndarray) -> float:
+        conv = Converter.from_config(Config(model_dir=mdir, **cfg_kw), dev)
+        stack.LAUNCHES = 0
+        got = conv.process_bgr_u8(img)
+        n_conv = stack.LAUNCHES   # 7 per dispatch; tall planes band
+        db = psnr(got, ref)
+        log(f"  Converter {cfg_kw} {img.shape} -> {got.shape}: {n_conv} "
+            f"launches, {db:.2f} dB vs f32 non-kernel path (bar {bar:g})")
+        if (n_conv < min_launches or n_conv % 7 or got.shape != ref.shape
+                or not db >= bar):
+            raise AssertionError(f"Converter {cfg_kw}: {n_conv} launches, "
+                                 f"{db} dB")
+        hold_seen(seen, stack, f32_twin, max_err)
+        del conv, got
+        torch.cuda.empty_cache()
+        return db
+
+    def converter_ref(cfg_kw: dict, img: np.ndarray) -> np.ndarray:
+        return Converter.from_config(Config(
+            model_dir=mdir, use_pallas=False, compute_dtype="float32",
+            **cfg_kw), dev).process_bgr_u8(img)
+
+    refs = {}
+    for ratio, dtype, bar in ((2.0, "auto", PSNR_BAR),
+                              (4.0, "auto", CHAIN_BAR),
+                              (4.0, "float32", PSNR_BAR)):
+        kw = dict(mode="scale", scale_ratio=ratio)
+        if ratio not in refs:
+            refs[ratio] = converter_ref(kw, img)
+        converter_check(dict(kw, compute_dtype=dtype), img, bar,
+                        7 * int(np.log2(ratio)), refs[ratio])
+    del refs
+
+    # 5. the noise kernel (B2) vs its plain version
+    for shape in [(1, 27, 38), (2, 37, 53), (1, 5, 300), (1, 8, 8)]:
+        y = torch.rand(shape, generator=gen).to(dev)
+        err = (stack.stack_noise(y, sp_rand)
+               - stack.stack_noise_plain(y, sp_rand)).abs().max().item()
+        msg = f"phase 5 f32 noise {shape}: max|kernel - plain| = {err:.3e}"
+        check_max_err(f"f32 noise kernel at {shape}", err, F32_TOL)
+        max_err["stack_noise"] = max(max_err.get("stack_noise", 0.0), err)
+        if shape[1] % 2 == 0 and shape[2] % 2 == 0:
+            err = (stack.stack_noise_s2d(y, sp_rand)
+                   - stack.stack_noise_s2d_plain(y, sp_rand)
+                   ).abs().max().item()
+            msg += f"; s2d {err:.3e}"
+            check_max_err(f"f32 noise_s2d kernel at {shape}", err, F32_TOL)
+            max_err["stack_noise_s2d"] = max(
+                max_err.get("stack_noise_s2d", 0.0), err)
+        log(msg)
+
+    frames_n = structured_bgr(rng, 256, 256, 256)
+    yuv_n = _to_yuv(torch.from_numpy(frames_n).to(dev))
+    yn = yuv_n[..., 0].contiguous()
+    yn16 = yn.to(torch.bfloat16)
+    ref32 = stack.stack_noise_s2d_plain(yn, spn32)
+    errn32 = (stack.stack_noise_s2d(yn, spn32) - ref32).abs().max().item()
+    got16 = stack.stack_noise_s2d(yn16, spn16)
+    errn16 = (got16.float() - stack.stack_noise_s2d_plain(yn16, spn16)
+              .float()).abs().max().item()
+    dbn16 = psnr1(got16.float(), ref32)
+    log(f"phase 5 noise {tuple(yn.shape)}: f32 max|kernel - plain| = "
+        f"{errn32:.3e}; bf16 max|kernel - bf16 plain| = {errn16:.3e}; "
+        f"bf16 kernel vs f32 plain {dbn16:.2f} dB")
+    check_max_err("f32 noise kernel at noise256", errn32, F32_TOL)
+    if not (errn16 <= BF16_TOL and dbn16 >= PSNR_BAR):
+        raise AssertionError(f"bf16 noise kernel: {errn16} abs, {dbn16} dB")
+    max_err["stack_noise_s2d"] = max(max_err.get("stack_noise_s2d", 0.0),
+                                     errn32, errn16)
+    del ref32, got16
+    torch.cuda.empty_cache()
+
+    # 6. the noise256 main path at full width
+    fast_n1 = FastStack.build(params_n1, False, dtype=torch.bfloat16,
+                              device=dev)
+    stack.LAUNCHES = 0
+    u8 = noise_batch_u8_fused(_to_yuv(torch.from_numpy(frames_n).to(dev)),
+                              fast_n1)
+    launches_n = stack.LAUNCHES
+    out = d2s_host_cmajor(u8.cpu().numpy())
+    log(f"phase 6 noise256 main path: {frames_n.shape} -> {out.shape} "
+        f"{out.dtype}, {launches_n} kernel launches")
+    if launches_n != 7 or out.shape != frames_n.shape:
+        raise AssertionError(f"noise256: {launches_n} launches, {out.shape}")
+    hold_seen(seen, stack, f32_twin, max_err)
+    modeln32 = SRCNN.from_params(params_n1).to(dev)
+    cfgn32 = Config(mode="noise", compute_dtype="float32")
+    ref = _to_bgr_u8(noise_batch(yuv_n[:2], modeln32, cfgn32)).cpu().numpy()
+    db_n256 = psnr(out[:2], ref)
+    log(f"  frames 0-1 vs f32 non-kernel noise_batch: {db_n256:.2f} dB")
+    if not db_n256 >= PSNR_BAR:
+        raise AssertionError(f"noise256 main path at {db_n256} dB")
+    del u8, out, ref
+    torch.cuda.empty_cache()
+
+    # 7. the ns1080 chain: noise2 -> scale2.0x on 4 1080p frames
+    frames_c = structured_bgr(rng, 4, 1080, 1920)
+    yuv_c = _to_yuv(torch.from_numpy(frames_c).to(dev))
+    modeln2_32 = SRCNN.from_params(params_n2).to(dev)
+    cfgn2_32 = Config(mode="noise", compute_dtype="float32")
+    ref = np.concatenate([_to_bgr_u8(scale2x_batch(
+        noise_batch(yuv_c[i:i + 1], modeln2_32, cfgn2_32), model32, cfg32))
+        .cpu().numpy() for i in range(len(frames_c))])   # a frame at a time
+    torch.cuda.empty_cache()
+    fast_n2 = {dt: FastStack.build(params_n2, False, dtype=dt, device=dev)
+               for dt in (torch.bfloat16, torch.float32)}
+
+    def chain(fast_noise):
+        y = noise_y_batch_fast(yuv_c[..., 0], fast_noise, out_dtype=None)
+        return scale2x_batch_u8_fused(yuv_c, fast, y=y)
+
+    db_chain = {}
+    for dt, bar in ((torch.bfloat16, CHAIN_BAR), (torch.float32, PSNR_BAR)):
+        stack.LAUNCHES = 0
+        u8 = chain(fast_n2[dt])
+        launches_c = stack.LAUNCHES
+        out = d2s_host_cmajor(u8.cpu().numpy())
+        db_frames = [psnr(out[i], ref[i]) for i in range(len(ref))]
+        db_chain[dt] = min(db_frames)
+        log(f"phase 7 ns1080 chain, {dt} noise / bf16 scale: "
+            f"{tuple(u8.shape)} u8, {launches_c} kernel launches, frames 0-3 "
+            + " / ".join(f"{db:.2f}" for db in db_frames)
+            + f" dB vs the f32 non-kernel chain (bar {bar:g} each)")
+        if (launches_c != 14 or tuple(u8.shape) != (4, 1080, 1920, 16)
+                or not db_chain[dt] >= bar):
+            raise AssertionError(f"ns1080 chain {dt}: {launches_c} launches, "
+                                 f"{db_frames} dB")
+        hold_seen(seen, stack, f32_twin, max_err)
+        del u8, out
+        torch.cuda.empty_cache()
+    del ref
+
+    # 8. Converter noise / noise_scale, auto policy, even and odd images
+    img_odd = structured_bgr(rng, 1, 721, 1279)[0]
+    for kw, min_l in ((dict(mode="noise", noise_level=1), 7),
+                      (dict(mode="noise", noise_level=2), 7),
+                      (dict(mode="noise_scale", noise_level=1), 14)):
+        for im in (img, img_odd):
+            converter_check(dict(kw, compute_dtype="auto"), im, PSNR_BAR,
+                            min_l, converter_ref(kw, im))
+    restore_wrappers()
+    mdir_obj.cleanup()
+    log(f"phases 1-8 passed in {time.perf_counter() - t_start:.1f} s")
+
+    maccs = count_maccs_per_pixel()
+
+    # timings, scale512 (CUDA events, after a warm-up)
     yuv16 = _to_yuv(torch.from_numpy(frames).to(dev))
     torch.cuda.reset_peak_memory_stats()
     step_ms = timed_ms(lambda: scale2x_batch_u8_fused(yuv16, fast))
     kernel_ms = timed_ms(lambda: stack.stack_scale(ylow16, sp16))
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-    per_layer = np.zeros(7)
-    for _ in range(3):
-        stack.stack_scale(ylow16, sp16, events=events)
-        torch.cuda.synchronize()
-        per_layer += [events[k].elapsed_time(events[k + 1]) / 3
-                      for k in range(7)]
+    per_layer = per_layer_ms(
+        lambda ev: stack.stack_scale(ylow16, sp16, events=ev), stack)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     plain_ms = timed_ms(lambda: stack.stack_scale_plain(ylow16, sp16))
     torch.cuda.empty_cache()
-    # library yardstick (never called by the port): the same 7-conv stack
-    # as cuDNN bf16 channels_last on the padded nearest-2x plane
-    layers = [(w.float().reshape(w.shape[0], 3, 3, w.shape[2])
-               .permute(3, 0, 1, 2).to(torch.bfloat16)
-               .contiguous(memory_format=torch.channels_last),
-               b.to(torch.bfloat16)) for w, b in sp16]
-    xpad = F.pad(
+    library_ms = library_stack_ms(F.pad(
         ylow16.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, None],
-        (7,) * 4, mode="replicate").contiguous(
-            memory_format=torch.channels_last)
-
-    def library_stack():
-        h = xpad
-        for w, b in layers:
-            h = F.leaky_relu(F.conv2d(h, w, b), 0.1)
-        return h
-
-    library_ms = timed_ms(library_stack)
-    del xpad, layers
-    torch.cuda.empty_cache()
+        (7,) * 4, mode="replicate")[:, 0], sp16)
 
     n, hl, wl = ylow16.shape
     out_px = n * 4 * hl * wl
-    flops = 2 * count_maccs_per_pixel() * out_px
-    moved = ylow16.numel() * 2 + out_px * 2 + sum(
-        w.numel() * 2 + b.numel() * 4 for w, b in sp16)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    log(f"timing {n} x {hl}x{wl} -> {2 * hl}x{2 * wl} bf16 on {smi}: "
-        f"step {step_ms:.2f} ms = {out_px / step_ms / 1e3:.2f} MP/s; "
+    bound_ms, bound_by, flops = stack_bound(ylow16, out_px, sp16, maccs)
+    log(f"timing scale512 {n} x {hl}x{wl} -> {2 * hl}x{2 * wl} bf16 on "
+        f"{smi}: step {step_ms:.2f} ms = {out_px / step_ms / 1e3:.2f} MP/s; "
         f"kernel {kernel_ms:.2f} ms "
         f"({flops / kernel_ms / 1e9:.2f} TFLOP/s, bound {bound_ms:.2f} ms = "
         f"{100 * bound_ms / kernel_ms:.2f}% of roofline; FFMA floor "
         f"{flops / PEAK_F32_FLOPS * 1e3:.2f} ms); plain {plain_ms:.2f} ms; "
         f"cuDNN bf16 library {library_ms:.2f} ms; "
         f"peak memory {peak_gb:.2f} GB")
-    # per layer: FLOPs over the planes it really computes (the padded
-    # borders included) and its activation bytes, read once + written once
-    rates, act_bytes = [], 0
-    for k, (ms, (ci, co)) in enumerate(zip(per_layer, stack.WIDTHS)):
-        hin, win = 2 * hl + 14 - 2 * k, 2 * wl + 14 - 2 * k
-        flop_k = 2 * n * (hin - 2) * (win - 2) * ci * co * 9
-        in_px = hl * wl if k == 0 else hin * win   # L1 reads the low-res
-        bytes_k = 2 * n * (in_px * ci + (hin - 2) * (win - 2) * co)
-        act_bytes += bytes_k
-        rates.append(f"L{k + 1} {ms:.2f} ms {flop_k / ms / 1e9:.2f} TFLOP/s "
-                     f"{bytes_k / ms / 1e6:.1f} GB/s")
-    log("  per layer: " + "; ".join(rates))
+    report, act_bytes = layer_rates(per_layer, stack, n, hl, wl, hl * wl)
+    log("  per layer: " + report)
     log(f"  activation traffic {act_bytes / 1e9:.2f} GB per batch = "
         f"{act_bytes / PEAK_BYTES * 1e3:.2f} ms at {PEAK_BYTES / 1e12} TB/s")
+    del yuv16
+    torch.cuda.empty_cache()
+
+    # timings, noise256
+    torch.cuda.reset_peak_memory_stats()
+    n_step_ms = timed_ms(lambda: noise_batch_u8_fused(yuv_n, fast_n1))
+    n_kernel_ms = timed_ms(lambda: stack.stack_noise_s2d(yn16, spn16))
+    n_per_layer = per_layer_ms(
+        lambda ev: stack.stack_noise_s2d(yn16, spn16, events=ev), stack)
+    n_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_plain_ms = timed_ms(lambda: stack.stack_noise_s2d_plain(yn16, spn16))
+    torch.cuda.empty_cache()
+    n_library_ms = library_stack_ms(
+        F.pad(yn16[:, None], (7,) * 4, mode="replicate")[:, 0], spn16)
+    nn_, hn, wn = yn16.shape
+    n_px = nn_ * hn * wn
+    n_bound_ms, n_bound_by, n_flops = stack_bound(yn16, n_px, spn16, maccs)
+    log(f"timing noise256 {nn_} x {hn}x{wn} bf16 on {smi}: step "
+        f"{n_step_ms:.2f} ms = {n_px / n_step_ms / 1e3:.2f} MP/s; kernel "
+        f"{n_kernel_ms:.2f} ms ({n_flops / n_kernel_ms / 1e9:.2f} TFLOP/s, "
+        f"bound {n_bound_ms:.2f} ms = "
+        f"{100 * n_bound_ms / n_kernel_ms:.2f}% of roofline; FFMA floor "
+        f"{n_flops / PEAK_F32_FLOPS * 1e3:.2f} ms); plain {n_plain_ms:.2f} "
+        f"ms; cuDNN bf16 library {n_library_ms:.2f} ms; peak memory "
+        f"{n_peak_gb:.2f} GB")
+    report, _ = layer_rates(n_per_layer, stack, nn_, hn // 2, wn // 2,
+                            hn * wn)
+    log("  per layer: " + report)
+    del yuv_n, yn, yn16
+    torch.cuda.empty_cache()
+
+    # timings, ns1080 (the bf16 throughput chain and the Converter's f32
+    # noise policy), with each stack's kernel alone at its shape
+    yc = yuv_c[..., 0].contiguous()
+    yc16 = yc.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    c_step = {dt: timed_ms(lambda dt=dt: chain(fast_n2[dt]))
+              for dt in (torch.bfloat16, torch.float32)}
+    c_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    yc_by_dtype = {torch.bfloat16: yc16, torch.float32: yc}
+    c_noise_ms = {dt: timed_ms(lambda dt=dt: stack.stack_noise(
+        yc_by_dtype[dt], fast_n2[dt].sp)) for dt in yc_by_dtype}
+    c_scale_ms = timed_ms(lambda: stack.stack_scale(yc16, sp16))
+    c_per_layer = per_layer_ms(
+        lambda ev: stack.stack_noise(yc16, fast_n2[torch.bfloat16].sp,
+                                     events=ev), stack)
+    c_plain_ms = timed_ms(lambda: stack.stack_noise_plain(
+        yc16, fast_n2[torch.bfloat16].sp))
+    torch.cuda.empty_cache()
+    nc, hc, wc = yc.shape
+    c_out_px = nc * 4 * hc * wc
+    c_bound = (2 * maccs * nc * hc * wc / PEAK_BF16_FLOPS * 1e3,
+               2 * maccs * c_out_px / PEAK_BF16_FLOPS * 1e3)
+    log(f"timing ns1080 {nc} x {hc}x{wc} -> {2 * hc}x{2 * wc} on {smi}: "
+        f"step bf16/bf16 {c_step[torch.bfloat16]:.2f} ms = "
+        f"{c_out_px / c_step[torch.bfloat16] / 1e3:.2f} MP/s; step "
+        f"f32/bf16 {c_step[torch.float32]:.2f} ms = "
+        f"{c_out_px / c_step[torch.float32] / 1e3:.2f} MP/s; noise kernel "
+        f"bf16 {c_noise_ms[torch.bfloat16]:.2f} ms, f32 "
+        f"{c_noise_ms[torch.float32]:.2f} ms (bound {c_bound[0]:.2f} ms); "
+        f"scale kernel bf16 {c_scale_ms:.2f} ms (bound {c_bound[1]:.2f} ms); "
+        f"noise plain bf16 {c_plain_ms:.2f} ms; peak memory "
+        f"{c_peak_gb:.2f} GB")
+    report, _ = layer_rates(c_per_layer, stack, nc, hc // 2, wc // 2,
+                            hc * wc)
+    log("  noise per layer (bf16): " + report)
 
     kernels = [{
-        "name": "conv3x3_bias_leaky (stack_scale, B1)",
+        "name": "conv3x3_bias_leaky, low-res L1 (stack_scale, B1)",
         "route": "cuda",
         "source": "waifu2x_torch/csrc/stack.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
         "launches": launches,
-        "max_abs_err": err16,
+        "max_abs_err": max_err["stack_scale"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "conv3x3_bias_leaky, full-res L1 (stack_noise_s2d / "
+                "stack_noise, B2)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/stack.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "launches": launches_n,
+        "max_abs_err": max(max_err["stack_noise"],
+                           max_err["stack_noise_s2d"]),
+        "ms": n_kernel_ms,
+        "plain_ms": n_plain_ms,
+        "bound_ms": n_bound_ms,
+        "bound_by": n_bound_by,
+        "library_ms": n_library_ms,
     }]
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

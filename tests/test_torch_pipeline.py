@@ -141,10 +141,20 @@ def test_cuda_default_raises_without_card(model_dir):
 
 
 @pytest.mark.parametrize("mode", ["noise", "noise_scale"])
-def test_noise_modes_not_ported(model_dir, mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pl.Converter.from_config(Config(mode=mode, model_dir=model_dir),
-                                 device="cpu")
+def test_noise_modes_not_ported(params_np, tmp_path, rng, mode):
+    """Named for the time when the noise modes were not ported; the name is
+    kept so that the test's history stays one record. It checks that they
+    are ported now: from_config loads the noise model and converts (the
+    comparisons with the JAX package are in tests/test_torch_noise.py)."""
+    save_model_json(tmp_path / "noise1_model.json", params_np)
+    save_model_json(tmp_path / "scale2.0x_model.json", params_np)
+    conv = pl.Converter.from_config(Config(mode=mode, model_dir=str(tmp_path)),
+                                    device="cpu")
+    assert conv.noise_model is not None
+    assert (conv.scale_model is not None) == (mode == "noise_scale")
+    img = rng.integers(0, 256, (10, 12, 3), dtype=np.uint8)
+    out = conv.process_bgr_u8(img)
+    assert out.shape == ((10, 12, 3) if mode == "noise" else (20, 24, 3))
 
 
 def test_faststack_rejects_non_flagship():

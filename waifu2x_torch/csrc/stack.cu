@@ -1,16 +1,21 @@
 // Hand-written Hopper (sm_90a) kernels for the waifu2x 7-layer conv stack,
-// scale path. Built with nvcc into a shared library with a plain C
-// interface and loaded with ctypes (waifu2x_torch/ops/_build.py); the
-// Python wrapper is waifu2x_torch/ops/stack.py:stack_scale.
+// scale and noise paths. Built with nvcc into a shared library with a plain
+// C interface and loaded with ctypes (waifu2x_torch/ops/_build.py); the
+// Python wrappers are waifu2x_torch/ops/stack.py:stack_scale (B1) and
+// stack_noise / stack_noise_s2d (B2).
 //
 // Replaces: waifu2x_tpu/ops/pallas_stack.py:_run_stack / _stack_body (the
-// Pallas kernel behind stack_scale, configuration B1) together with the
-// im2col build _xcol_scale in front of it.
+// one Pallas kernel behind stack_scale, configuration B1, and behind
+// stack_noise / stack_noise_s2d, configuration B2) together with the
+// im2col builds _xcol_scale and _xcol_noise in front of it.
 //
-// What it computes (the contract of pallas_stack.stack_scale):
-//   Y_s2d[n, i, j, A*2+B] = convert_plane(nearest2x(ylow))[n, 2i+A, 2j+B]
+// What it computes (the contracts of pallas_stack.stack_scale and
+// stack_noise_s2d):
+//   scale: Y_s2d[n, i, j, A*2+B] = convert_plane(nearest2x(ylow))[n, 2i+A, 2j+B]
+//   noise: Y_s2d[n, i, j, A*2+B] = convert_plane(edge_pad_even(y))[n, 2i+A, 2j+B]
 // where convert_plane replicate-pads by 7 and runs 7 x (3x3 VALID
-// correlation + bias + LeakyReLU(0.1)), widths 1-32-32-64-64-128-128-1.
+// correlation + bias + LeakyReLU(0.1)), widths 1-32-32-64-64-128-128-1, and
+// edge_pad_even replicates the last row/column of an odd-sized plane once.
 // Storage type T is float or bf16; every product and sum is f32 FFMA (no
 // TF32, no tensor cores), bias and LeakyReLU are f32, and each layer's
 // output is rounded to T once when stored. The last layer's sum stays f32
@@ -26,11 +31,21 @@
 //     and 8 channels (32 f32 accumulators); per input channel and tap
 //     column it reads 6 window values and reuses them across the 3 tap
 //     rows, and the 8 weights it needs are a warp-wide broadcast.
-//   * IN_MODE = IN_LOWRES (layer 1) reads the low-res plane through the
-//     nearest-2x, replicate-pad-7 index map
-//       ylow[n, clamp(Y-7, 0, 2hl-1) >> 1, clamp(X-7, 0, 2wl-1) >> 1],
-//     so neither the upscale nor the pad is materialised (the counterpart
-//     of the L1 fold in waifu2x_tpu/ops/s2d.py:pack_l1_scale).
+//   * Layer 1 reads its source plane through an index map, so neither the
+//     upscale nor any pad is materialised:
+//       IN_LOWRES (scale) reads the low-res plane [N, hl, wl] through the
+//         nearest-2x, replicate-pad-7 map
+//           ylow[n, clamp(Y-7, 0, 2hl-1) >> 1, clamp(X-7, 0, 2wl-1) >> 1]
+//         (the counterpart of the L1 fold in s2d.py:pack_l1_scale);
+//       IN_FULLRES (noise) reads the full-res plane [N, h, w] through
+//           y[n, clamp(Y-7, 0, h-1), clamp(X-7, 0, w-1)]
+//         over the even-rounded plane he = h + h%2, we = w + w%2: the
+//         edge pad to even followed by the replicate pad of 7 (the
+//         counterpart of _xcol_noise with s2d.py:pack_l1_noise). The clamp
+//         takes the raw h-1 / w-1, so an odd plane's extra row and column
+//         repeat its last ones.
+//     Layers 2-7 are the same template instances for both: they see a
+//     (2hl + 14 - 2k)-row plane, with hl = he/2 on the noise path.
 //   * conv3x3_bias_leaky_s2d<CI, T> (layer 7, 128 -> 1) gives each thread
 //     one output pixel and writes it straight into the s2d layout
 //     [N, hl, wl, 4].
@@ -63,7 +78,7 @@ constexpr int COB = 32;        // output channels per block
 constexpr int NTHREADS = 256;  // 8 warps: 2 row halves x 4 groups of 8 ch
 constexpr int S2D_THREADS = 256;
 
-enum { IN_ACT = 0, IN_LOWRES = 1 };
+enum { IN_ACT = 0, IN_LOWRES = 1, IN_FULLRES = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -112,9 +127,12 @@ __device__ __forceinline__ float leaky(float x) {
 }
 
 // One 3x3 VALID conv layer + bias + LeakyReLU, NHWC in and out.
-//   x: IN_ACT    -> [N, hin, win, CI] activations
-//      IN_LOWRES -> [N, hl, wl] low-res plane (CI == 1); the virtual input
-//                   is its nearest-2x upscale padded by 7: hin = 2hl + 14
+//   x: IN_ACT     -> [N, hin, win, CI] activations
+//      IN_LOWRES  -> [N, ph, pw] low-res plane (CI == 1); the virtual input
+//                    is its nearest-2x upscale padded by 7: hin = 2ph + 14
+//      IN_FULLRES -> [N, ph, pw] full-res plane (CI == 1); the virtual input
+//                    is it edge-padded to even, then by 7:
+//                    hin = ph + ph%2 + 14
 //   w: [CI][9][CO] (tap t = dy*3 + dx), b: [CO] f32
 //   y: [N, hin-2, win-2, CO]
 // Grid: one block per (image, tile row, tile col, 32-channel group),
@@ -123,13 +141,13 @@ template <int CI, int CO, typename T, int IN_MODE>
 __global__ void __launch_bounds__(NTHREADS)
 conv3x3_bias_leaky(const T* __restrict__ x, const T* __restrict__ w,
                    const float* __restrict__ b, T* __restrict__ y,
-                   int hin, int win, int hl, int wl, int ntx, int nty) {
+                   int hin, int win, int ph, int pw, int ntx, int nty) {
   constexpr int KC = CI < 16 ? CI : 16;  // input channels per stage
   constexpr int NCB = CO / COB;
   static_assert(CO % COB == 0, "CO must be a multiple of 32");
   static_assert(CI % KC == 0, "CI must be a multiple of the stage depth");
-  static_assert(IN_MODE == IN_ACT || CI == 1, "low-res input has 1 channel");
-  static_assert(IN_MODE == IN_LOWRES || KC % 8 == 0, "8-wide staging loads");
+  static_assert(IN_MODE == IN_ACT || CI == 1, "a plane input has 1 channel");
+  static_assert(IN_MODE != IN_ACT || KC % 8 == 0, "8-wide staging loads");
 
   __shared__ float s_x[KC][TH + 2][TW + 2];
   __shared__ __align__(16) float s_w[KC][9][COB];
@@ -155,15 +173,21 @@ conv3x3_bias_leaky(const T* __restrict__ x, const T* __restrict__ w,
 
   for (int c0 = 0; c0 < CI; c0 += KC) {
     __syncthreads();  // the previous stage's reads are done
-    if constexpr (IN_MODE == IN_LOWRES) {
+    if constexpr (IN_MODE != IN_ACT) {
       for (int p = tid; p < (TH + 2) * (TW + 2); p += NTHREADS) {
         const int r = p / (TW + 2), col = p % (TW + 2);
         const int iy = oy0 + r, ix = ox0 + col;
         float v = 0.0f;
         if (iy < hin && ix < win) {
-          const int sy = min(max(iy - 7, 0), 2 * hl - 1) >> 1;
-          const int sx = min(max(ix - 7, 0), 2 * wl - 1) >> 1;
-          v = to_f32(x[((size_t)n * hl + sy) * wl + sx]);
+          int sy, sx;
+          if constexpr (IN_MODE == IN_LOWRES) {
+            sy = min(max(iy - 7, 0), 2 * ph - 1) >> 1;
+            sx = min(max(ix - 7, 0), 2 * pw - 1) >> 1;
+          } else {
+            sy = min(max(iy - 7, 0), ph - 1);
+            sx = min(max(ix - 7, 0), pw - 1);
+          }
+          v = to_f32(x[((size_t)n * ph + sy) * pw + sx]);
         }
         s_x[0][r][col] = v;
       }
@@ -273,14 +297,14 @@ conv3x3_bias_leaky_s2d(const T* __restrict__ x, const T* __restrict__ w,
 
 template <int CI, int CO, typename T, int IN_MODE>
 cudaError_t launch_layer(const void* x, const void* w, const void* b, void* y,
-                         int n, int hin, int win, int hl, int wl,
+                         int n, int hin, int win, int ph, int pw,
                          cudaStream_t s) {
   const int ntx = (win - 2 + TW - 1) / TW, nty = (hin - 2 + TH - 1) / TH;
   const long long blocks = (long long)ntx * nty * n * (CO / COB);
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
   conv3x3_bias_leaky<CI, CO, T, IN_MODE><<<(unsigned)blocks, NTHREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(b), static_cast<T*>(y), hin, win, hl, wl,
+      static_cast<const float*>(b), static_cast<T*>(y), hin, win, ph, pw,
       ntx, nty);
   return cudaGetLastError();
 }
@@ -298,17 +322,25 @@ cudaError_t launch_last(const void* x, const void* w, const void* b, void* y,
 }
 
 template <typename T>
-cudaError_t launch(int layer, const void* x, const void* w, const void* b,
-                   void* y, int n, int hl, int wl, cudaStream_t s) {
+cudaError_t launch(int layer, int full_res, const void* x, const void* w,
+                   const void* b, void* y, int n, int ph, int pw,
+                   cudaStream_t s) {
+  // the stack's output plane is 2hl x 2wl: the nearest-2x upscale of a
+  // ph x pw low-res plane, or a ph x pw full-res plane rounded up to even
+  const int hl = full_res ? (ph + 1) / 2 : ph;
+  const int wl = full_res ? (pw + 1) / 2 : pw;
   // layer k reads a (2hl + 14 - 2k) x (2wl + 14 - 2k) plane
   const int hin = 2 * hl + 14 - 2 * layer, win = 2 * wl + 14 - 2 * layer;
   switch (layer) {
-    case 0: return launch_layer<1, 32, T, IN_LOWRES>(x, w, b, y, n, hin, win, hl, wl, s);
-    case 1: return launch_layer<32, 32, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
-    case 2: return launch_layer<32, 64, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
-    case 3: return launch_layer<64, 64, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
-    case 4: return launch_layer<64, 128, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
-    case 5: return launch_layer<128, 128, T, IN_ACT>(x, w, b, y, n, hin, win, hl, wl, s);
+    case 0:
+      return full_res
+          ? launch_layer<1, 32, T, IN_FULLRES>(x, w, b, y, n, hin, win, ph, pw, s)
+          : launch_layer<1, 32, T, IN_LOWRES>(x, w, b, y, n, hin, win, ph, pw, s);
+    case 1: return launch_layer<32, 32, T, IN_ACT>(x, w, b, y, n, hin, win, ph, pw, s);
+    case 2: return launch_layer<32, 64, T, IN_ACT>(x, w, b, y, n, hin, win, ph, pw, s);
+    case 3: return launch_layer<64, 64, T, IN_ACT>(x, w, b, y, n, hin, win, ph, pw, s);
+    case 4: return launch_layer<64, 128, T, IN_ACT>(x, w, b, y, n, hin, win, ph, pw, s);
+    case 5: return launch_layer<128, 128, T, IN_ACT>(x, w, b, y, n, hin, win, ph, pw, s);
     case 6: return launch_last<128, T>(x, w, b, y, n, hin, win, s);
     default: return cudaErrorInvalidValue;
   }
@@ -319,15 +351,20 @@ cudaError_t launch(int layer, const void* x, const void* w, const void* b,
 extern "C" {
 
 // Launch layer `layer` (0..6) of the flagship stack on `stream`.
-// bf16 != 0 selects __nv_bfloat16 storage, else float. Returns the
-// cudaError_t of the launch (0 on success).
-int w2x_stack_layer(int bf16, int layer, const void* x, const void* w,
-                    const void* b, void* y, int n, int hl, int wl,
-                    void* stream) {
-  if (n <= 0 || hl <= 0 || wl <= 0) return (int)cudaErrorInvalidValue;
+// bf16 != 0 selects __nv_bfloat16 storage, else float. full_res == 0 is
+// the scale stack (x of layer 0 is the low-res plane [n, ph, pw]);
+// full_res != 0 is the noise stack (x of layer 0 is the full-res plane
+// [n, ph, pw], any size). Returns the cudaError_t of the launch (0 on
+// success).
+int w2x_stack_layer(int bf16, int full_res, int layer, const void* x,
+                    const void* w, const void* b, void* y, int n, int ph,
+                    int pw, void* stream) {
+  if (n <= 0 || ph <= 0 || pw <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch<__nv_bfloat16>(layer, x, w, b, y, n, hl, wl, s)
-                    : launch<float>(layer, x, w, b, y, n, hl, wl, s));
+  return (int)(bf16 ? launch<__nv_bfloat16>(layer, full_res, x, w, b, y, n,
+                                            ph, pw, s)
+                    : launch<float>(layer, full_res, x, w, b, y, n, ph, pw,
+                                    s));
 }
 
 const char* w2x_error_string(int err) {
