@@ -1,7 +1,8 @@
 """GPU smoke run of the waifu2x_torch port: builds the CUDA kernel, holds its
-scale (B1) and noise (B2) input modes against their plain PyTorch versions,
-drives the scale, noise and noise->scale paths at full model width and
-prints their numbers.
+scale (B1) and noise (B2) input modes and its last layer's dense (B6) and
+u8 (B3) output forms against their plain PyTorch versions, drives the
+scale, noise and noise->scale paths and the frame-stream runtime at full
+model width and prints their numbers.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -37,16 +38,42 @@ Phases (any failure raises and exits non-zero):
   8. Converter mode="noise" (levels 1 and 2) and mode="noise_scale" under
      compute_dtype="auto" on a 720 x 1280 and an odd 721 x 1279 image:
      >= 50 dB against the f32 non-kernel Converter, launches a multiple of 7.
-In phases 4 and 6-8 every call that the run made to a kernel wrapper (one
-per wrapper, input shape, dtype and weights) is repeated on a copy of its
-input and held against the plain version: f32 max |diff| <= 3e-5; bf16 max
-|diff| <= 2^-4 against the bf16 plain version and >= 50 dB over all frames
-against the f32 plain version with the model's f32 weights. Then timings with CUDA events for scale512, noise256 and ns1080, and a cuDNN
-bf16 yardstick the port never calls.
+  9. the last layer's other output forms, f32 and bf16, at small and odd
+     shapes and at scale512: stack_scale_dense un-chunked bit-equal to
+     stack_scale, its pad columns zero, f32 within 3e-5 of its plain
+     version; stack_scale_fused_u8 against its plain version: f32 |diff|
+     <= 1 u8 level at < 0.5% of bytes, bf16 |diff| <= 15 levels (the 2^-4
+     of the Y forms) and at scale512 >= 50 dB against the f32 plain
+     version, lanes 12:16 zero; against the default tail on the scale512
+     frames: f32 |diff| <= 1 at < 0.5%, bf16 |diff| <= 1 (the two round
+     the same Y at another place) and PSNR against the f32 non-kernel
+     path no lower than the default tail's less 0.1 dB;
+ 10. the scale stream, StreamConverter.process_frames on 64 seeded 512 x
+     512 frames at batch 16, depth 2: with the default tail, with YDENSE
+     (equal to the default bit for bit) and with FUSED_TAIL="kernel" (the
+     stream's main path): every frame equal to the batch step's on the same
+     batch, 7 launches per dispatch, frames 0-1 >= 50 dB against the f32
+     non-kernel path;
+ 11. the noise stream (512 frames of 256 x 256 at batch 256, then an odd
+     255 x 257 frame among even ones), the noise_scale stream built by
+     from_params (8 frames of 1080 x 1920 at batch 8, which the volume cap
+     cuts to 4; f32 noise stack; each frame >= 50 dB against the f32
+     non-kernel chain) and a stream of three frame sizes interleaved
+     (tail batches padded, output order equal to input order).
+In phases 4, 6-8 and 10-11 every call that the run made to a kernel wrapper
+(one per wrapper, input shape, dtype and weights) is repeated on a copy of
+its input and held against the plain version: f32 max |diff| <= 3e-5; bf16
+max |diff| <= 2^-4 against the bf16 plain version and >= 50 dB against the
+f32 plain version with the model's f32 weights; the u8 wrapper at phase 9's
+bars; the dense wrapper also bit-equal to stack_scale.
+Calls on frames of more than 1 M pixels are held on their first frame. Then
+timings with CUDA events for scale512 (each tail, each last-layer form),
+noise256 and ns1080, cuDNN bf16 yardsticks the port never calls, and for
+each stream its wall time beside the sum of its device step times.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
-is the kernel table as JSON. Without a CUDA card it exits non-zero and
-prints no result.
+is the kernel table as JSON (u8 kernels give max_abs_err in u8 levels).
+Without a CUDA card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -76,6 +103,16 @@ PSNR_BAR = 50.0
 # bar does not apply to the chain. The same chain with f32 kernels is
 # held to 50 dB.
 CHAIN_BAR = 45.0
+# The u8 kernel and its plain version take the same f32 steps from Y to the
+# byte (the kernel's colour map is written without fmaf), so they differ
+# only where the convolutions' summation order moves a value across a
+# rounding tie: one level, at few bytes.
+U8_MAX = 1
+U8_FRAC = 0.005
+# In bf16 storage a tie flips a bf16 unit of some activation and the flip
+# propagates, as in the Y-output forms: their bar on Y, BF16_TOL, in u8
+# levels, with no bar on how many bytes differ (the count is printed).
+U8_BF16_MAX = int(BF16_TOL * 255)
 
 
 def log(*args):
@@ -117,21 +154,64 @@ def check_max_err(what: str, err: float, tol: float) -> None:
         raise AssertionError(f"{what}: max |diff| {err} > {tol}")
 
 
-WRAPPERS = ("stack_scale", "stack_noise_s2d", "stack_noise")
+def check_u8(what: str, got: torch.Tensor, ref: torch.Tensor,
+             max_level: int = U8_MAX, max_frac: float = U8_FRAC):
+    """Hold two u8 tensors to |diff| <= max_level at under max_frac of
+    bytes; returns (max |diff|, fraction of bytes that differ)."""
+    if (got.shape != ref.shape or got.dtype != torch.uint8
+            or ref.dtype != torch.uint8):
+        raise AssertionError(f"{what}: {got.shape} {got.dtype} against "
+                             f"{ref.shape} {ref.dtype}")
+    diff = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+    worst, frac = diff.max().item(), (diff != 0).float().mean().item()
+    if not (worst <= max_level and frac < max_frac):
+        raise AssertionError(f"{what}: max |diff| {worst}, {frac:.3%} of "
+                             f"bytes differ")
+    return worst, frac
+
+
+def check_u8_kernel(what: str, got, ref, dtype):
+    """check_u8 at the u8 kernel's bar against its plain version: f32 one
+    level at under U8_FRAC of bytes, bf16 U8_BF16_MAX levels."""
+    if dtype == torch.float32:
+        return check_u8(what, got, ref)
+    return check_u8(what, got, ref, U8_BF16_MAX, 1.01)
+
+
+def check_lanes_zero(what: str, u8: torch.Tensor) -> None:
+    if u8[..., 12:].any().item():
+        raise AssertionError(f"{what}: lanes 12:16 are not all zero")
+
+
+def check_dense_pad(what: str, ydense: torch.Tensor, tc: int, wl: int):
+    n, hl, wd = ydense.shape
+    nx = wd // (4 * tc)
+    pad = ydense.reshape(n, hl, nx, 4, tc)[:, :, -1, :, wl - (nx - 1) * tc:]
+    if nx != -(-wl // tc) or pad.any().item():
+        raise AssertionError(f"{what}: pad columns are not all zero")
+
+
+# wrapper -> position of the weights among its arguments
+WRAPPERS = {"stack_scale": 1, "stack_noise_s2d": 1, "stack_noise": 1,
+            "stack_scale_dense": 1, "stack_scale_fused_u8": 2}
+HOLD_PX = 1e6   # calls on larger frames are held on their first frame
 
 
 def record_wrapper_calls(pipeline_mod, seen: dict):
     """Route the pipeline's calls of the stack wrappers through a recorder
-    that keeps a copy of the first input at each (wrapper, shape, dtype,
-    weights) in `seen`. Returns a function that restores the wrappers."""
+    that keeps a copy of the first tensor arguments at each (wrapper,
+    shape, dtype, weights) in `seen`. Returns a function that restores the
+    wrappers."""
     orig = {name: getattr(pipeline_mod, name) for name in WRAPPERS}
 
     def recorder(name):
-        def call(x, sp, events=None):
+        def call(*args, **kw):
+            x, sp = args[0], args[WRAPPERS[name]]
             key = (name, tuple(x.shape), x.dtype, id(sp))
             if key not in seen:
-                seen[key] = (x.clone(), sp)
-            return orig[name](x, sp, events)
+                seen[key] = tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in args)
+            return orig[name](*args, **kw)
         return call
 
     for name in WRAPPERS:
@@ -139,43 +219,141 @@ def record_wrapper_calls(pipeline_mod, seen: dict):
     return lambda: [setattr(pipeline_mod, n, f) for n, f in orig.items()]
 
 
-def plain_in_chunks(plain, x: torch.Tensor, sp, scale: bool) -> torch.Tensor:
-    """plain(x, sp) as f32, computed a few frames at a time so that its
-    128-channel f32 activations stay near 4 GB (the plain version is
-    frame-independent)."""
+def in_chunks(fn, x: torch.Tensor, scale: bool) -> torch.Tensor:
+    """torch.cat of fn(i0, i1) over frame ranges sized so that a plain
+    version's 128-channel f32 activations stay near 4 GB (the plain
+    versions are frame-independent)."""
     out_px = x.shape[1] * x.shape[2] * (4 if scale else 1)
     c = max(1, int(4e9 // (128 * 4 * out_px)))
-    return torch.cat([plain(x[i:i + c], sp).float()
-                      for i in range(0, x.shape[0], c)])
+    return torch.cat([fn(i, i + c) for i in range(0, x.shape[0], c)])
+
+
+def plain_in_chunks(plain, x: torch.Tensor, sp, scale: bool) -> torch.Tensor:
+    """plain(x, sp) as f32, a few frames at a time."""
+    return in_chunks(lambda i, j: plain(x[i:j], sp).float(), x, scale)
 
 
 def hold_seen(seen: dict, stack, f32_twin, max_err: dict) -> None:
     """Repeat every recorded wrapper call on its input and hold the kernel
     against its plain version: f32 max |diff| <= F32_TOL; bf16 max |diff|
-    <= BF16_TOL against the bf16 plain version and >= PSNR_BAR over all
-    frames against the f32 plain version with the model's f32 weights.
-    `max_err` collects the largest |diff| per wrapper."""
-    for (name, shape, dtype, _), (x, sp) in seen.items():
-        plain = getattr(stack, name + "_plain")
-        scale = name == "stack_scale"
-        got = getattr(stack, name)(x, sp).float()
-        err = (got - plain_in_chunks(plain, x, sp, scale)).abs().max().item()
-        max_err[name] = max(max_err.get(name, 0.0), err)
-        msg = (f"  held {name} {shape} {dtype}: max|kernel - plain| = "
-               f"{err:.3e}")
-        if dtype == torch.float32:
-            check_max_err(f"{name} at {shape}", err, F32_TOL)
+    <= BF16_TOL against the bf16 plain version and >= PSNR_BAR against the
+    f32 plain version with the model's f32 weights. stack_scale_dense is
+    un-chunked first and must also equal stack_scale bit for bit;
+    stack_scale_fused_u8 is held by check_u8_kernel, its bf16 form also
+    to PSNR_BAR (peak 255) against the f32 plain version. Calls on frames of
+    more than HOLD_PX pixels are held on their first frame. `max_err` collects
+    the largest |diff| per wrapper."""
+    for (name, shape, dtype, _), args in seen.items():
+        x, sp = args[0], args[WRAPPERS[name]]
+        if x.shape[1] * x.shape[2] > HOLD_PX:
+            x = x[:1].contiguous()
+        n, hl, wl = x.shape
+        msg = f"  held {name} {tuple(x.shape)} of {shape} {dtype}: "
+        if name == "stack_scale_fused_u8":
+            uvp = args[1][:n].contiguous()
+            got = stack.stack_scale_fused_u8(x, uvp, sp)
+            check_lanes_zero(f"{name} at {shape}", got)
+            err, frac = check_u8_kernel(f"{name} at {shape}", got, in_chunks(
+                lambda i, j: stack.stack_scale_fused_u8_plain(
+                    x[i:j], uvp[i:j], sp), x, True), dtype)
+            msg += f"max|kernel - plain| = {err} level, {frac:.4%} of bytes"
+            if dtype != torch.float32:
+                sp32 = f32_twin(sp)
+                db = 20 * np.log10(255.0) + psnr1(got, in_chunks(
+                    lambda i, j: stack.stack_scale_fused_u8_plain(
+                        x[i:j].float(), uvp[i:j], sp32), x, True))
+                msg += f"; vs f32 plain {db:.2f} dB"
+                if not db >= PSNR_BAR:
+                    raise AssertionError(f"bf16 {name} at {shape}: {db} dB")
         else:
-            db = psnr1(got, plain_in_chunks(plain, x.float(), f32_twin(sp),
-                                            scale))
-            msg += f"; vs f32 plain {db:.2f} dB"
-            if not (err <= BF16_TOL and db >= PSNR_BAR):
-                raise AssertionError(f"bf16 {name} at {shape}: {err} abs, "
-                                     f"{db} dB")
+            plain_name, scale = name + "_plain", name == "stack_scale"
+            if name == "stack_scale_dense":
+                ydense, tc = stack.stack_scale_dense(x, sp, *args[2:])
+                check_dense_pad(f"{name} at {shape}", ydense, tc, wl)
+                got = stack.dense_to_s2d(ydense, tc, hl, wl)
+                if not torch.equal(got, stack.stack_scale(x, sp)):
+                    raise AssertionError(f"{name} at {shape}: un-chunked "
+                                         f"output differs from stack_scale")
+                msg += "bit-equal to stack_scale; "
+                plain_name, scale = "stack_scale_plain", True
+                got = got.float()
+            else:
+                got = getattr(stack, name)(x, sp).float()
+            plain = getattr(stack, plain_name)
+            err = (got - plain_in_chunks(plain, x, sp, scale)
+                   ).abs().max().item()
+            msg += f"max|kernel - plain| = {err:.3e}"
+            if dtype == torch.float32:
+                check_max_err(f"{name} at {shape}", err, F32_TOL)
+            else:
+                db = psnr1(got, plain_in_chunks(plain, x.float(),
+                                                f32_twin(sp), scale))
+                msg += f"; vs f32 plain {db:.2f} dB"
+                if not (err <= BF16_TOL and db >= PSNR_BAR):
+                    raise AssertionError(f"bf16 {name} at {shape}: {err} "
+                                         f"abs, {db} dB")
+        max_err[name] = max(max_err.get(name, 0.0), err)
         log(msg)
         del got
         torch.cuda.empty_cache()
     seen.clear()
+
+
+def run_stream(sc, frames, stack, label: str, smi: str):
+    """Drive sc.process_frames(frames) once with the launch counts set to
+    0 just before, timing each dispatch's device step with CUDA events and,
+    on the host's clock, the time spent inside _dispatch (the pinned fill
+    and every enqueue) and inside _interleave. Returns (outputs, launches
+    by kernel configuration, dispatches)."""
+    steps, host_s = [], {"dispatch": 0.0, "interleave": 0.0}
+    step, dispatch, interleave = sc._step, sc._dispatch, sc._interleave
+
+    def timed_step(yuv):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = step(yuv)
+        ev[1].record()
+        steps.append(ev)
+        return out
+
+    def on_host(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            host_s[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    sc._step = timed_step
+    sc._dispatch = on_host("dispatch", dispatch)
+    sc._interleave = on_host("interleave", interleave)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stack.reset_launches()
+    t0 = time.perf_counter()
+    outs = list(sc.process_frames(frames))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(stack.KERNEL_LAUNCHES)
+    sc._step, sc._dispatch, sc._interleave = step, dispatch, interleave
+    if sum(counts.values()) != stack.LAUNCHES:
+        raise AssertionError(f"{label}: launch counts {counts} do not add "
+                             f"up to {stack.LAUNCHES}")
+    dev_s = sum(a.elapsed_time(b) for a, b in steps) / 1e3
+    out_px = sum(o.shape[0] * o.shape[1] for o in outs)
+    log(f"stream {label} on {smi}: {len(frames)} frames in {len(steps)} "
+        f"dispatches, launches {counts}; wall {wall:.3f} s = "
+        f"{len(frames) / wall:.2f} frames/s = {out_px / wall / 1e6:.2f} "
+        f"output MP/s; device steps {dev_s:.3f} s "
+        f"({100 * dev_s / wall:.1f}% of wall, host share "
+        f"{wall - dev_s:.3f} s); host time in dispatch "
+        f"{host_s['dispatch']:.3f} s, in interleave "
+        f"{host_s['interleave']:.3f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if len(outs) != len(frames):
+        raise AssertionError(f"{label}: {len(outs)} outputs for "
+                             f"{len(frames)} frames")
+    return outs, counts, len(steps)
 
 
 def per_layer_ms(run, stack) -> np.ndarray:
@@ -207,10 +385,10 @@ def layer_rates(ms_per_layer, stack, n, hl, wl, l1_in_px, itemsize=2):
     return "; ".join(rates), act_bytes
 
 
-def library_stack_ms(plane16: torch.Tensor, sp16) -> float:
+def library_stack_ms(plane16: torch.Tensor, sp16, post=None) -> float:
     """Library yardstick (never called by the port): the same 7-conv stack
     as cuDNN bf16 channels_last on a plane already replicate-padded by 7
-    ([N, H, W] bf16)."""
+    ([N, H, W] bf16), followed by post(Y [N, H-14, W-14]) where given."""
     layers = [(w.float().reshape(w.shape[0], 3, 3, w.shape[2])
                .permute(3, 0, 1, 2).to(torch.bfloat16)
                .contiguous(memory_format=torch.channels_last),
@@ -221,7 +399,7 @@ def library_stack_ms(plane16: torch.Tensor, sp16) -> float:
         h = xpad
         for w, b in layers:
             h = F.leaky_relu(F.conv2d(h, w, b), 0.1)
-        return h
+        return h if post is None else post(h[:, 0])
 
     ms = timed_ms(library_stack)
     del xpad, layers
@@ -229,13 +407,17 @@ def library_stack_ms(plane16: torch.Tensor, sp16) -> float:
     return ms
 
 
-def stack_bound(plane: torch.Tensor, out_px: int, sp, maccs: int):
-    """(bound ms, bound_by, FLOPs) of one stack call: its FLOPs at the bf16 peak
-    against the bytes it must move (the input plane, the weights and Y,
-    each once) at the memory rate."""
+def stack_bound(plane: torch.Tensor, out_px: int, sp, maccs: int,
+                io_bytes: "int | None" = None):
+    """(bound ms, bound_by, FLOPs) of one stack call: its FLOPs at the bf16
+    peak against the bytes it must move (the input plane, the weights and Y,
+    each once) at the memory rate. `io_bytes` replaces the bytes of the
+    plane and Y where a call reads or writes other arrays."""
     item = plane.element_size()
     flops = 2 * maccs * out_px
-    moved = plane.numel() * item + out_px * item + sum(
+    if io_bytes is None:
+        io_bytes = plane.numel() * item + out_px * item
+    moved = io_bytes + sum(
         w.numel() * w.element_size() + b.numel() * 4 for w, b in sp)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -254,11 +436,12 @@ def main() -> int:
     from waifu2x_torch.models.weights import load_model_json
     from waifu2x_torch import pipeline as pipeline_mod
     from waifu2x_torch.ops import _build, stack
-    from waifu2x_torch.ops.s2d import d2s_host_cmajor
+    from waifu2x_torch.ops.s2d import d2s_host_cmajor, s2d
     from waifu2x_torch.pipeline import (
-        Converter, FastStack, _to_bgr_u8, _to_yuv, noise_batch,
-        noise_batch_u8_fused, noise_y_batch_fast, scale2x_batch,
-        scale2x_batch_u8_fused)
+        Converter, FastStack, _tail_u8_cmajor, _to_bgr_u8, _to_yuv,
+        _uv_phases_cmajor, noise_batch, noise_batch_u8_fused,
+        noise_y_batch_fast, scale2x_batch, scale2x_batch_u8_fused)
+    from waifu2x_torch.stream import StreamConverter
     from waifu2x_torch.utils.metrics import psnr
 
     t_start = time.perf_counter()
@@ -346,7 +529,7 @@ def main() -> int:
     seen = {}
     restore_wrappers = record_wrapper_calls(pipeline_mod, seen)
     fast = FastStack.build(params, True, dtype=torch.bfloat16, device=dev)
-    stack.LAUNCHES = 0
+    stack.reset_launches()
     u8 = scale2x_batch_u8_fused(_to_yuv(torch.from_numpy(frames).to(dev)),
                                 fast)
     launches = stack.LAUNCHES
@@ -358,12 +541,13 @@ def main() -> int:
     hold_seen(seen, stack, f32_twin, max_err)
     model32 = SRCNN.from_params(params).to(dev)
     cfg32 = Config(mode="scale", compute_dtype="float32")
-    ref = _to_bgr_u8(scale2x_batch(yuv[:2], model32, cfg32)).cpu().numpy()
-    db_main = psnr(out[:2], ref)
+    ref_main = _to_bgr_u8(scale2x_batch(yuv[:2], model32,
+                                        cfg32)).cpu().numpy()
+    db_main = psnr(out[:2], ref_main)
     log(f"  frames 0-1 vs f32 non-kernel path: {db_main:.2f} dB")
     if not db_main >= PSNR_BAR:
         raise AssertionError(f"main path at {db_main} dB")
-    del u8, out, ref
+    del u8, out
     torch.cuda.empty_cache()
 
     mdir_obj = tempfile.TemporaryDirectory()
@@ -377,7 +561,7 @@ def main() -> int:
     def converter_check(cfg_kw: dict, img: np.ndarray, bar: float,
                         min_launches: int, ref: np.ndarray) -> float:
         conv = Converter.from_config(Config(model_dir=mdir, **cfg_kw), dev)
-        stack.LAUNCHES = 0
+        stack.reset_launches()
         got = conv.process_bgr_u8(img)
         n_conv = stack.LAUNCHES   # 7 per dispatch; tall planes band
         db = psnr(got, ref)
@@ -450,7 +634,7 @@ def main() -> int:
     # 6. the noise256 main path at full width
     fast_n1 = FastStack.build(params_n1, False, dtype=torch.bfloat16,
                               device=dev)
-    stack.LAUNCHES = 0
+    stack.reset_launches()
     u8 = noise_batch_u8_fused(_to_yuv(torch.from_numpy(frames_n).to(dev)),
                               fast_n1)
     launches_n = stack.LAUNCHES
@@ -462,12 +646,13 @@ def main() -> int:
     hold_seen(seen, stack, f32_twin, max_err)
     modeln32 = SRCNN.from_params(params_n1).to(dev)
     cfgn32 = Config(mode="noise", compute_dtype="float32")
-    ref = _to_bgr_u8(noise_batch(yuv_n[:2], modeln32, cfgn32)).cpu().numpy()
-    db_n256 = psnr(out[:2], ref)
+    ref_n256 = _to_bgr_u8(noise_batch(yuv_n[:2], modeln32,
+                                      cfgn32)).cpu().numpy()
+    db_n256 = psnr(out[:2], ref_n256)
     log(f"  frames 0-1 vs f32 non-kernel noise_batch: {db_n256:.2f} dB")
     if not db_n256 >= PSNR_BAR:
         raise AssertionError(f"noise256 main path at {db_n256} dB")
-    del u8, out, ref
+    del u8, out
     torch.cuda.empty_cache()
 
     # 7. the ns1080 chain: noise2 -> scale2.0x on 4 1080p frames
@@ -475,9 +660,10 @@ def main() -> int:
     yuv_c = _to_yuv(torch.from_numpy(frames_c).to(dev))
     modeln2_32 = SRCNN.from_params(params_n2).to(dev)
     cfgn2_32 = Config(mode="noise", compute_dtype="float32")
-    ref = np.concatenate([_to_bgr_u8(scale2x_batch(
+    ref_chain = np.concatenate([_to_bgr_u8(scale2x_batch(
         noise_batch(yuv_c[i:i + 1], modeln2_32, cfgn2_32), model32, cfg32))
         .cpu().numpy() for i in range(len(frames_c))])   # a frame at a time
+    ref = ref_chain
     torch.cuda.empty_cache()
     fast_n2 = {dt: FastStack.build(params_n2, False, dtype=dt, device=dev)
                for dt in (torch.bfloat16, torch.float32)}
@@ -488,7 +674,7 @@ def main() -> int:
 
     db_chain = {}
     for dt, bar in ((torch.bfloat16, CHAIN_BAR), (torch.float32, PSNR_BAR)):
-        stack.LAUNCHES = 0
+        stack.reset_launches()
         u8 = chain(fast_n2[dt])
         launches_c = stack.LAUNCHES
         out = d2s_host_cmajor(u8.cpu().numpy())
@@ -503,6 +689,7 @@ def main() -> int:
             raise AssertionError(f"ns1080 chain {dt}: {launches_c} launches, "
                                  f"{db_frames} dB")
         hold_seen(seen, stack, f32_twin, max_err)
+        out_chain = out    # the f32-noise chain's frames, for phase 11
         del u8, out
         torch.cuda.empty_cache()
     del ref
@@ -515,9 +702,220 @@ def main() -> int:
         for im in (img, img_odd):
             converter_check(dict(kw, compute_dtype="auto"), im, PSNR_BAR,
                             min_l, converter_ref(kw, im))
+
+    # 9. the last layer's other output forms: dense Y (B6), u8 BGR (B3)
+    sp_rand16 = stack.prep_params(init_params(3), torch.bfloat16, dev)
+    cases = [(torch.rand(shape, generator=gen).to(dev), None)
+             for shape in [(2, 37, 53), (1, 8, 8), (1, 5, 300)]]
+    cases.append((ylow, _uv_phases_cmajor(yuv)))       # scale512
+    for y32, uvp in cases:
+        shape = tuple(y32.shape)
+        _, hl, wl = shape
+        main_shape = uvp is not None
+        if not main_shape:
+            uvp = _uv_phases_cmajor(
+                torch.rand((*shape, 3), generator=gen).to(dev))
+        for dt in (torch.float32, torch.bfloat16):
+            f32 = dt == torch.float32
+            sp = ((sp32 if f32 else sp16) if main_shape
+                  else (sp_rand if f32 else sp_rand16))
+            y = y32.to(dt)
+            ydense, tc = stack.stack_scale_dense(y, sp)
+            check_dense_pad(f"dense at {shape}", ydense, tc, wl)
+            y_s2d = stack.stack_scale(y, sp)
+            if not torch.equal(stack.dense_to_s2d(ydense, tc, hl, wl), y_s2d):
+                raise AssertionError(f"dense at {shape} {dt}: un-chunked "
+                                     f"output differs from stack_scale")
+            msg = (f"phase 9 {shape} {dt}: dense (tc {tc}) un-chunked == "
+                   f"stack_scale, pad zero")
+            if f32 and not main_shape:
+                err = (ydense - stack.stack_scale_dense_plain(y, sp, tc)[0]
+                       ).abs().max().item()
+                check_max_err(f"f32 dense kernel at {shape}", err, F32_TOL)
+                max_err["stack_scale_dense"] = max(
+                    max_err.get("stack_scale_dense", 0.0), err)
+                msg += f", max|kernel - plain| = {err:.3e}"
+            got = stack.stack_scale_fused_u8(y, uvp, sp)
+            check_lanes_zero(f"u8 kernel at {shape}", got)
+            worst, frac = check_u8_kernel(
+                f"u8 kernel at {shape} {dt}", got, in_chunks(
+                    lambda i, j: stack.stack_scale_fused_u8_plain(
+                        y[i:j], uvp[i:j], sp), y, True), dt)
+            max_err["stack_scale_fused_u8"] = max(
+                max_err.get("stack_scale_fused_u8", 0.0), worst)
+            msg += (f"; u8 max|kernel - plain| = {worst} level at "
+                    f"{frac:.4%} of bytes")
+            if main_shape:
+                tail = _tail_u8_cmajor(y_s2d, yuv)
+                if f32:
+                    worst, frac = check_u8("f32 kernel tail vs default tail",
+                                           got, tail)
+                    msg += (f"; vs the default tail {worst} level at "
+                            f"{frac:.4%} of bytes")
+                else:
+                    db = 20 * np.log10(255.0) + psnr1(got, in_chunks(
+                        lambda i, j: stack.stack_scale_fused_u8_plain(
+                            y32[i:j], uvp[i:j], sp32), y, True))
+                    msg += f"; vs f32 plain {db:.2f} dB"
+                    if not db >= PSNR_BAR:
+                        raise AssertionError(f"bf16 u8 kernel: {db} dB")
+                    # the default tail maps the bf16 rounding of the same
+                    # f32 Y: half a bf16 unit of Y, under one level
+                    worst, frac = check_u8("bf16 kernel tail vs default tail",
+                                           got, tail, 1, 1.01)
+                    msg += (f"; vs the default tail {worst} level at "
+                            f"{frac:.4%} of bytes")
+                    db_k, db_x = (psnr(d2s_host_cmajor(
+                        t[:2].cpu().numpy()), ref_main) for t in (got, tail))
+                    msg += (f"; frames 0-1 vs f32 non-kernel path: kernel "
+                            f"tail {db_k:.2f} dB, default tail {db_x:.2f} dB")
+                    if not db_k >= db_x - 0.1:
+                        raise AssertionError(f"bf16 kernel tail {db_k} dB, "
+                                             f"default tail {db_x} dB")
+                del tail
+            log(msg)
+            del ydense, y_s2d, got
+            torch.cuda.empty_cache()
+    del cases, uvp
+
+    def set_tail(tail: str, ydense: bool) -> None:
+        pipeline_mod.FUSED_TAIL, pipeline_mod.YDENSE = tail, ydense
+
+    def expect_counts(label, counts, dispatches, want_dispatches, **want):
+        want = {k: want.get(k, 0) for k in counts}
+        if dispatches != want_dispatches or counts != want:
+            raise AssertionError(f"{label}: {dispatches} dispatches, "
+                                 f"launches {counts}; want "
+                                 f"{want_dispatches}, {want}")
+
+    def expect_equal(label, outs, refs) -> None:
+        for k, (got, ref) in enumerate(zip(outs, refs, strict=True)):
+            if got.shape != ref.shape or not np.array_equal(got, ref):
+                raise AssertionError(f"{label}: frame {k} differs")
+
+    def to_yuv_dev(frames_u8) -> torch.Tensor:
+        return _to_yuv(torch.from_numpy(np.stack(frames_u8)).to(dev))
+
+    # 10. the scale stream in its three tails; the last is the main path
+    frames64 = list(frames) + list(structured_bgr(rng, 48, 512, 512))
+    # untimed: the first pinned host buffers and the allocator's blocks
+    list(StreamConverter(fast, batch=16, depth=2, device=dev)
+         .process_frames(frames64[:32]))
+    seen.clear()
+    stream_outs, stream_launches = {}, {}
+    for kind, tail, ydense in (("scale", "xla", False),
+                               ("dense", "xla", True),
+                               ("fused_u8", "kernel", False)):
+        label = f"phase 10 scale512, W2X_TAIL={tail} W2X_YDENSE={int(ydense)}"
+        set_tail(tail, ydense)
+        sc = StreamConverter(fast, batch=16, depth=2, device=dev)
+        outs, counts, nd = run_stream(sc, frames64, stack, label, smi)
+        expect_counts(label, counts, nd, 4, **{kind: 28})
+        for k in range(0, 64, 16):   # the batch step on the same batch
+            ref = d2s_host_cmajor(scale2x_batch_u8_fused(
+                to_yuv_dev(frames64[k:k + 16]), fast).cpu().numpy())
+            expect_equal(label + " vs the batch step", outs[k:k + 16], ref)
+        db = psnr(np.stack(outs[:2]), ref_main)
+        log(f"  in order, equal to the batch step; frames 0-1 vs f32 "
+            f"non-kernel path: {db:.2f} dB")
+        if outs[0].shape != (1024, 1024, 3) or not db >= PSNR_BAR:
+            raise AssertionError(f"{label}: {outs[0].shape}, {db} dB")
+        hold_seen(seen, stack, f32_twin, max_err)
+        stream_outs[kind], stream_launches[kind] = outs, counts[kind]
+    set_tail("xla", False)
+    expect_equal("YDENSE stream vs default tail", stream_outs["dense"],
+                 stream_outs["scale"])
+    # the two round Y at another place: a level at most, at any byte
+    worst, frac = check_u8(
+        "kernel-tail stream vs default tail",
+        torch.from_numpy(np.stack(stream_outs["fused_u8"][:16])),
+        torch.from_numpy(np.stack(stream_outs["scale"][:16])), 1, 1.01)
+    log(f"phase 10: YDENSE stream == default tail stream bit for bit; "
+        f"kernel tail vs default tail (bf16, frames 0-15): {worst} level "
+        f"at {frac:.4%} of bytes")
+    del stream_outs, outs, ref
+    torch.cuda.empty_cache()
+
+    # 11. the noise stream, an odd frame among even ones, the noise_scale
+    # stream of from_params, and mixed sizes
+    label = "phase 11 noise256"
+    sc = StreamConverter(None, batch=256, depth=2, fast_noise=fast_n1,
+                         mode="noise", device=dev)
+    outs_n, counts, nd = run_stream(
+        sc, list(frames_n) + list(frames_n[::-1]), stack, label, smi)
+    expect_counts(label, counts, nd, 2, noise=14)
+    ref = d2s_host_cmajor(noise_batch_u8_fused(yuv_n, fast_n1).cpu().numpy())
+    expect_equal(label + " vs the batch step", outs_n[:256], ref)
+    expect_equal(label + " second batch", outs_n[256:], ref[::-1])
+    db = psnr(np.stack(outs_n[:2]), ref_n256)
+    log(f"  in order, equal to the batch step; frames 0-1 vs f32 "
+        f"non-kernel noise_batch: {db:.2f} dB")
+    if not db >= PSNR_BAR:
+        raise AssertionError(f"{label}: {db} dB")
+    hold_seen(seen, stack, f32_twin, max_err)
+
+    label = "phase 11 noise, one odd 255x257 frame among 256x256"
+    odd = structured_bgr(rng, 1, 255, 257)[0]
+    mix = list(frames_n[:3]) + [odd] + list(frames_n[3:5])
+    sc = StreamConverter(None, batch=4, depth=2, fast_noise=fast_n1,
+                         mode="noise", device=dev)
+    outs, counts, nd = run_stream(sc, mix, stack, label, smi)
+    # 4 even frames, the fifth padded to 4, the odd one padded to 4
+    expect_counts(label, counts, nd, 3, noise=21)
+    expect_equal(label, outs[:3] + outs[4:], outs_n[:5])
+    ref_odd = _to_bgr_u8(noise_batch(to_yuv_dev([odd]), modeln32,
+                                     cfgn32)).cpu().numpy()[0]
+    db = psnr(outs[3], ref_odd)
+    log(f"  even frames equal the batch-256 stream's; odd frame "
+        f"{outs[3].shape} vs f32 non-kernel noise_batch: {db:.2f} dB")
+    if outs[3].shape != odd.shape or not db >= PSNR_BAR:
+        raise AssertionError(f"{label}: {outs[3].shape}, {db} dB")
+    hold_seen(seen, stack, f32_twin, max_err)
+    del outs_n, outs, ref
+
+    label = "phase 11 ns1080, from_params"
+    sc = StreamConverter.from_params(
+        scale_params=params, noise_params=params_n2, mode="noise_scale",
+        batch=8, depth=2, device=dev)
+    if (sc._shape_batch(1080, 1920) != 4
+            or sc.fast_noise.dtype != torch.float32
+            or sc.fast.dtype != torch.bfloat16):
+        raise AssertionError(f"{label}: batch "
+                             f"{sc._shape_batch(1080, 1920)}, dtypes "
+                             f"{sc.fast_noise.dtype} / {sc.fast.dtype}")
+    outs, counts, nd = run_stream(sc, list(frames_c) * 2, stack, label, smi)
+    expect_counts(label, counts, nd, 2, noise=14, scale=14)
+    expect_equal(label + " vs the phase 7 chain", outs, list(out_chain) * 2)
+    db_frames = [psnr(o, ref_chain[i % 4]) for i, o in enumerate(outs)]
+    log(f"  batch 8 cut to 4 by the volume cap, f32 noise stack; equal to "
+        f"the phase 7 chain; frames 0-7 "
+        + " / ".join(f"{db:.2f}" for db in db_frames)
+        + " dB vs the f32 non-kernel chain")
+    if not min(db_frames) >= PSNR_BAR:
+        raise AssertionError(f"{label}: {db_frames} dB")
+    hold_seen(seen, stack, f32_twin, max_err)
+    del outs, out_chain, ref_chain, sc
+    torch.cuda.empty_cache()
+
+    label = "phase 11 mixed sizes, W2X_TAIL=kernel"
+    sizes = [(360, 640), (270, 480), (512, 512)]
+    mixed = [structured_bgr(rng, 1, *sizes[k])[0]
+             for k in (0, 1, 0, 2, 1, 0, 0, 2, 1, 0, 2)]
+    set_tail("kernel", False)
+    sc = StreamConverter(fast, batch=2, depth=2, device=dev)
+    outs, counts, nd = run_stream(sc, mixed, stack, label, smi)
+    # 5 + 3 + 3 frames at batch 2: 4 full batches and 3 padded tails
+    expect_counts(label, counts, nd, 7, fused_u8=49)
+    expect_equal(label, outs, [d2s_host_cmajor(scale2x_batch_u8_fused(
+        to_yuv_dev([f]), fast).cpu().numpy())[0] for f in mixed])
+    log("  output order equals input order; every frame equal to its "
+        "single-frame batch step")
+    set_tail("xla", False)
+    hold_seen(seen, stack, f32_twin, max_err)
+    del outs
     restore_wrappers()
     mdir_obj.cleanup()
-    log(f"phases 1-8 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 1-11 passed in {time.perf_counter() - t_start:.1f} s")
 
     maccs = count_maccs_per_pixel()
 
@@ -525,15 +923,50 @@ def main() -> int:
     yuv16 = _to_yuv(torch.from_numpy(frames).to(dev))
     torch.cuda.reset_peak_memory_stats()
     step_ms = timed_ms(lambda: scale2x_batch_u8_fused(yuv16, fast))
+    set_tail("xla", True)
+    d_step_ms = timed_ms(lambda: scale2x_batch_u8_fused(yuv16, fast))
+    set_tail("kernel", False)
+    u_step_ms = timed_ms(lambda: scale2x_batch_u8_fused(yuv16, fast))
+    set_tail("xla", False)
+    uvp16 = _uv_phases_cmajor(yuv16)
     kernel_ms = timed_ms(lambda: stack.stack_scale(ylow16, sp16))
+    d_kernel_ms = timed_ms(lambda: stack.stack_scale_dense(ylow16, sp16))
+    u_kernel_ms = timed_ms(
+        lambda: stack.stack_scale_fused_u8(ylow16, uvp16, sp16))
     per_layer = per_layer_ms(
         lambda ev: stack.stack_scale(ylow16, sp16, events=ev), stack)
+    d_per_layer = per_layer_ms(
+        lambda ev: stack.stack_scale_dense(ylow16, sp16, events=ev), stack)
+    u_per_layer = per_layer_ms(
+        lambda ev: stack.stack_scale_fused_u8(ylow16, uvp16, sp16, events=ev),
+        stack)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the PyTorch pieces around the kernel in each tail
+    y_s2d16 = stack.stack_scale(ylow16, sp16)
+    ydense16, tc16 = stack.stack_scale_dense(ylow16, sp16)
+    tail_ms = timed_ms(lambda: _tail_u8_cmajor(y_s2d16, yuv16))
+    unchunk_ms = timed_ms(lambda: stack.dense_to_s2d(
+        ydense16, tc16, *ylow16.shape[1:]).contiguous())
+    uvp_ms = timed_ms(lambda: _uv_phases_cmajor(yuv16))
+    d_io_bytes = ylow16.numel() * 2 + ydense16.numel() * 2
+    del y_s2d16, ydense16
     plain_ms = timed_ms(lambda: stack.stack_scale_plain(ylow16, sp16))
+    d_plain_ms = timed_ms(
+        lambda: stack.stack_scale_dense_plain(ylow16, sp16), reps=2)
+    u_plain_ms = timed_ms(
+        lambda: stack.stack_scale_fused_u8_plain(ylow16, uvp16, sp16), reps=2)
     torch.cuda.empty_cache()
-    library_ms = library_stack_ms(F.pad(
+    xpad16 = F.pad(
         ylow16.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, None],
-        (7,) * 4, mode="replicate")[:, 0], sp16)
+        (7,) * 4, mode="replicate")[:, 0]
+    library_ms = library_stack_ms(xpad16, sp16)
+    # one library call sequence for the same function as each new form:
+    # the cuDNN bf16 stack, then the chunking / the PyTorch u8 tail
+    d_library_ms = library_stack_ms(xpad16, sp16, post=lambda y: (
+        stack.s2d_to_dense(s2d(y[..., None]), tc16)))
+    u_library_ms = library_stack_ms(xpad16, sp16, post=lambda y: (
+        _tail_u8_cmajor(s2d(y[..., None]), yuv16)))
+    del xpad16
 
     n, hl, wl = ylow16.shape
     out_px = n * 4 * hl * wl
@@ -548,6 +981,24 @@ def main() -> int:
         f"peak memory {peak_gb:.2f} GB")
     report, act_bytes = layer_rates(per_layer, stack, n, hl, wl, hl * wl)
     log("  per layer: " + report)
+    d_bound_ms, d_bound_by, _ = stack_bound(ylow16, out_px, sp16, maccs,
+                                            d_io_bytes)
+    u_bound_ms, u_bound_by, _ = stack_bound(
+        ylow16, out_px, sp16, maccs,
+        ylow16.numel() * 2 + uvp16.numel() * 4 + n * hl * wl * 16)
+    log(f"timing scale512 tails, bf16, on {smi}: last layer s2d (B1) "
+        f"{per_layer[6]:.2f} ms, dense (B6) {d_per_layer[6]:.2f} ms, u8 (B3) "
+        f"{u_per_layer[6]:.2f} ms; whole stack s2d {kernel_ms:.2f} ms, dense "
+        f"{d_kernel_ms:.2f} ms (bound {d_bound_ms:.2f} ms by {d_bound_by}), "
+        f"u8 {u_kernel_ms:.2f} ms (bound {u_bound_ms:.2f} ms by "
+        f"{u_bound_by}); step W2X_TAIL=xla {step_ms:.2f} ms, "
+        f"W2X_YDENSE=1 {d_step_ms:.2f} ms, W2X_TAIL=kernel "
+        f"{u_step_ms:.2f} ms = {out_px / u_step_ms / 1e3:.2f} MP/s; PyTorch "
+        f"pieces: u8 tail {tail_ms:.2f} ms, un-chunk {unchunk_ms:.2f} ms, "
+        f"uvp build {uvp_ms:.2f} ms; plain dense {d_plain_ms:.2f} ms, u8 "
+        f"{u_plain_ms:.2f} ms; cuDNN bf16 library + chunking "
+        f"{d_library_ms:.2f} ms, + PyTorch u8 tail {u_library_ms:.2f} ms")
+    del uvp16
     log(f"  activation traffic {act_bytes / 1e9:.2f} GB per batch = "
         f"{act_bytes / PEAK_BYTES * 1e3:.2f} ms at {PEAK_BYTES / 1e12} TB/s")
     del yuv16
@@ -643,6 +1094,33 @@ def main() -> int:
         "bound_ms": n_bound_ms,
         "bound_by": n_bound_by,
         "library_ms": n_library_ms,
+    }, {
+        "name": "conv3x3_bias_leaky_cell, u8 BGR out "
+                "(stack_scale_fused_u8, B3)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/stack.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "launches": stream_launches["fused_u8"],
+        "max_abs_err": max_err["stack_scale_fused_u8"],
+        "max_abs_err_unit": "u8 levels",
+        "ms": u_kernel_ms,
+        "plain_ms": u_plain_ms,
+        "bound_ms": u_bound_ms,
+        "bound_by": u_bound_by,
+        "library_ms": u_library_ms,
+    }, {
+        "name": "conv3x3_bias_leaky_cell, dense Y out "
+                "(stack_scale_dense, B6)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/stack.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "launches": stream_launches["dense"],
+        "max_abs_err": max_err["stack_scale_dense"],
+        "ms": d_kernel_ms,
+        "plain_ms": d_plain_ms,
+        "bound_ms": d_bound_ms,
+        "bound_by": d_bound_by,
+        "library_ms": d_library_ms,
     }]
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

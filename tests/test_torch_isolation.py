@@ -33,7 +33,17 @@ def _imported_modules(path: Path):
 def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"waifu2x_torch/pipeline.py", "waifu2x_torch/ops/stack.py",
-            "chip_smoke.py"} <= names
+            "waifu2x_torch/stream.py", "chip_smoke.py"} <= names
+
+
+def test_stream_module_imports_only_the_port():
+    """waifu2x_torch.stream reaches the rest of the system through the
+    port's own modules: every import of a waifu2x package names
+    waifu2x_torch."""
+    mods = list(_imported_modules(ROOT / "waifu2x_torch" / "stream.py"))
+    assert "torch" in mods
+    ours = [m for m in mods if m.startswith("waifu2x")]
+    assert ours and all(m.split(".")[0] == "waifu2x_torch" for m in ours)
 
 
 @pytest.mark.parametrize("path", SOURCES,

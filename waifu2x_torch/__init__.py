@@ -6,7 +6,8 @@ math as the JAX package, with the conv stack as a hand-written CUDA kernel
 It imports neither JAX nor waifu2x_tpu.
 
 Package layout:
-  config.py  pipeline.py       Config; the scale path and Converter
+  config.py  pipeline.py       Config; the noise and scale steps, Converter
+  stream.py                    batched, ordered frame-stream runtime
   models/    srcnn.py          architecture spec, validation, SRCNN module
              weights.py        reference JSON weight format load/save
              zoo.py            built-in model management

@@ -1,13 +1,17 @@
 // Hand-written Hopper (sm_90a) kernels for the waifu2x 7-layer conv stack,
 // scale and noise paths. Built with nvcc into a shared library with a plain
 // C interface and loaded with ctypes (waifu2x_torch/ops/_build.py); the
-// Python wrappers are waifu2x_torch/ops/stack.py:stack_scale (B1) and
-// stack_noise / stack_noise_s2d (B2).
+// Python wrappers are waifu2x_torch/ops/stack.py:stack_scale (B1),
+// stack_noise / stack_noise_s2d (B2), stack_scale_fused_u8 (B3) and
+// stack_scale_dense (B6).
 //
 // Replaces: waifu2x_tpu/ops/pallas_stack.py:_run_stack / _stack_body (the
-// one Pallas kernel behind stack_scale, configuration B1, and behind
-// stack_noise / stack_noise_s2d, configuration B2) together with the
-// im2col builds _xcol_scale and _xcol_noise in front of it.
+// one Pallas kernel behind stack_scale, configuration B1, behind
+// stack_noise / stack_noise_s2d, configuration B2, behind
+// stack_scale_fused_u8, configuration B3 with its in-kernel u8 epilogue,
+// and behind stack_scale_dense, configuration B6 with its phase-chunked
+// dense output) together with the im2col builds _xcol_scale and
+// _xcol_noise in front of it.
 //
 // What it computes (the contracts of pallas_stack.stack_scale and
 // stack_noise_s2d):
@@ -49,6 +53,28 @@
 //   * conv3x3_bias_leaky_s2d<CI, T> (layer 7, 128 -> 1) gives each thread
 //     one output pixel and writes it straight into the s2d layout
 //     [N, hl, wl, 4].
+//   * conv3x3_bias_leaky_cell<CI, T, OUT_MODE> is layer 7 in its two other
+//     output forms, one thread per s2d cell: it reads the cell's 4 x 4
+//     window of the layer-6 activation once (16 pixel loads for 4 output
+//     pixels, where the per-pixel kernel makes 36) and keeps the four
+//     phases' sums in four accumulators. Each phase's sum runs over
+//     (dy, dx, channel) in the per-pixel kernel's order with the same
+//     fmaf, so its Y equals that kernel's bit for bit.
+//       OUT_DENSE (B6) stores Y phase-chunked, [N, hl, nx*4*tc]:
+//         ydense[n, i, j*4tc + q*tc + c] = Y_s2d[n, i, j*tc + c, q]. tc is a
+//         multiple of 32, so a warp's store per phase is one contiguous
+//         run; columns past wl in the last chunk are written as zero here.
+//       OUT_U8 (B3) keeps Y in f32 (it is never rounded to T), reads the
+//         cell's 8 polyphase U/V values (uvp [N, hl, wl, 8] f32: u phases
+//         0:4, v phases 4:8), applies the YUV -> BGR map
+//           ((y*inv[c][0] + u*inv[c][1]) + v*inv[c][2]) + off[c]
+//         then * 255, round half to even, clamp to 0..255, and stores the
+//         cell's 16 bytes at once: lane c*4 + phase, lanes 12:16 zero. The
+//         map is written with __fmul_rn / __fadd_rn, so nvcc contracts no
+//         product and sum into an fmaf: for equal Y the bytes equal the
+//         plain PyTorch version's (ops/stack.py:stack_scale_fused_u8_plain)
+//         bit for bit, and the two differ only where the f32 summation
+//         order of the convolutions moves a value across a rounding tie.
 //
 // What bounds it on an H100: operations. The stack needs 287,136 MAC per
 // output pixel; as FFMA at the card's 67 TFLOP/s f32 rate that is about
@@ -77,8 +103,24 @@ constexpr int TW = 32;         // output tile columns: one lane per column
 constexpr int COB = 32;        // output channels per block
 constexpr int NTHREADS = 256;  // 8 warps: 2 row halves x 4 groups of 8 ch
 constexpr int S2D_THREADS = 256;
+constexpr int CELL_THREADS = 128;  // s2d cells (of one row) per block
 
 enum { IN_ACT = 0, IN_LOWRES = 1, IN_FULLRES = 2 };
+enum { OUT_S2D = 0, OUT_DENSE = 1, OUT_U8 = 2 };
+
+// YUV -> BGR: bgr[c] = ((y*inv[c][0] + u*inv[c][1]) + v*inv[c][2]) + off[c]
+struct ColorMap {
+  float inv[3][3];
+  float off[3];
+};
+
+// What the last layer writes (OUT_*), with what only some forms read.
+struct LastOut {
+  int mode;
+  const float* uvp;  // OUT_U8: [N, hl, wl, 8] f32
+  ColorMap cm;       // OUT_U8
+  int tc;            // OUT_DENSE: chunk width, a multiple of 32
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -295,6 +337,104 @@ conv3x3_bias_leaky_s2d(const T* __restrict__ x, const T* __restrict__ w,
          leaky(acc + b[0]));
 }
 
+// The last layer (CI -> 1) + bias + LeakyReLU with one thread per s2d cell
+// (i, j): the 4 x 4 window x[n, 2i..2i+3, 2j..2j+3, :] gives the cell's four
+// phases q = A*2 + B, full-res pixel (2i+A, 2j+B).
+//   x: [N, 2hl+2, 2wl+2, CI], w: [CI][9][1], b: [1]
+//   OUT_DENSE: y is T [N, hl, nx*4*tc], nx = ceil(wl / tc); `wcols` = nx*tc
+//   OUT_U8:    y is u8 [N, hl, wl, 16], uvp f32 [N, hl, wl, 8]; `wcols` = wl
+// Grid: one block per (image, cell row, CELL_THREADS-column chunk of
+// `wcols`), flattened.
+template <int CI, typename T, int OUT_MODE>
+__global__ void __launch_bounds__(CELL_THREADS)
+conv3x3_bias_leaky_cell(const T* __restrict__ x, const T* __restrict__ w,
+                        const float* __restrict__ b, void* __restrict__ y,
+                        const float* __restrict__ uvp, ColorMap cm, int hl,
+                        int wl, int tc, int wcols, int ncx) {
+  static_assert(CI % 8 == 0, "8-wide loads");
+  static_assert(OUT_MODE == OUT_DENSE || OUT_MODE == OUT_U8, "cell outputs");
+  __shared__ __align__(16) float s_w[9][CI];
+  for (int i = threadIdx.x; i < 9 * CI; i += CELL_THREADS)
+    s_w[i % 9][i / 9] = to_f32(w[i]);
+  __syncthreads();
+
+  unsigned bid = blockIdx.x;
+  const int cx = bid % ncx;  bid /= ncx;
+  const int i = bid % hl;    bid /= hl;
+  const int n = bid;
+  const int j = cx * CELL_THREADS + threadIdx.x;
+  if (j >= wcols) return;
+
+  if constexpr (OUT_MODE == OUT_DENSE) {
+    T* yd = static_cast<T*>(y) + ((size_t)n * hl + i) * wcols * 4
+            + (size_t)(j / tc) * 4 * tc + j % tc;
+    if (j >= wl) {  // the last chunk's pad columns read zero
+#pragma unroll
+      for (int q = 0; q < 4; ++q) store1(yd + (size_t)q * tc, 0.0f);
+      return;
+    }
+  }
+
+  const int hin = 2 * hl + 2, win = 2 * wl + 2;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const T* px = x + (((size_t)n * hin + 2 * i + r) * win + 2 * j + c) * CI;
+#pragma unroll 2
+      for (int ch = 0; ch < CI; ch += 8) {
+        float v[8];
+        load8(px + ch, v);
+#pragma unroll
+        for (int A = 0; A < 2; ++A) {
+#pragma unroll
+          for (int B = 0; B < 2; ++B) {
+            const int dy = r - A, dx = c - B;  // known at compile time
+            if (dy < 0 || dy > 2 || dx < 0 || dx > 2) continue;
+            const float* wt = s_w[dy * 3 + dx];
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              acc[A * 2 + B] = fmaf(v[k], wt[ch + k], acc[A * 2 + B]);
+          }
+        }
+      }
+    }
+  }
+  float yv[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) yv[q] = leaky(acc[q] + b[0]);
+
+  if constexpr (OUT_MODE == OUT_DENSE) {
+    T* yd = static_cast<T*>(y) + ((size_t)n * hl + i) * wcols * 4
+            + (size_t)(j / tc) * 4 * tc + j % tc;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) store1(yd + (size_t)q * tc, yv[q]);
+  } else {
+    const size_t cell = ((size_t)n * hl + i) * wl + j;
+    const float4 u4 = reinterpret_cast<const float4*>(uvp)[cell * 2];
+    const float4 v4 = reinterpret_cast<const float4*>(uvp)[cell * 2 + 1];
+    const float u[4] = {u4.x, u4.y, u4.z, u4.w};
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+    uint32_t word[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      word[c] = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        // no fmaf here: each product and sum is rounded on its own
+        float val = __fadd_rn(__fmul_rn(yv[q], cm.inv[c][0]),
+                              __fmul_rn(u[q], cm.inv[c][1]));
+        val = __fadd_rn(val, __fmul_rn(v[q], cm.inv[c][2]));
+        val = __fmul_rn(__fadd_rn(val, cm.off[c]), 255.0f);
+        val = fminf(fmaxf(rintf(val), 0.0f), 255.0f);  // half to even
+        word[c] |= static_cast<uint32_t>(val) << (8 * q);
+      }
+    }
+    static_cast<uint4*>(y)[cell] = make_uint4(word[0], word[1], word[2], 0u);
+  }
+}
+
 template <int CI, int CO, typename T, int IN_MODE>
 cudaError_t launch_layer(const void* x, const void* w, const void* b, void* y,
                          int n, int hin, int win, int ph, int pw,
@@ -321,10 +461,30 @@ cudaError_t launch_last(const void* x, const void* w, const void* b, void* y,
   return cudaGetLastError();
 }
 
+template <int CI, typename T, int OUT_MODE>
+cudaError_t launch_last_cell(const void* x, const void* w, const void* b,
+                             void* y, const LastOut& out, int n, int hl,
+                             int wl, cudaStream_t s) {
+  const int tc = OUT_MODE == OUT_DENSE ? out.tc : 0;
+  if (OUT_MODE == OUT_DENSE && (tc <= 0 || tc % 32))
+    return cudaErrorInvalidValue;
+  if (OUT_MODE == OUT_U8 && out.uvp == nullptr) return cudaErrorInvalidValue;
+  const int wcols = OUT_MODE == OUT_DENSE ? (wl + tc - 1) / tc * tc : wl;
+  const int ncx = (wcols + CELL_THREADS - 1) / CELL_THREADS;
+  const long long blocks = (long long)ncx * hl * n;
+  if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  conv3x3_bias_leaky_cell<CI, T, OUT_MODE>
+      <<<(unsigned)blocks, CELL_THREADS, 0, s>>>(
+          static_cast<const T*>(x), static_cast<const T*>(w),
+          static_cast<const float*>(b), y, out.uvp, out.cm, hl, wl, tc, wcols,
+          ncx);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(int layer, int full_res, const void* x, const void* w,
                    const void* b, void* y, int n, int ph, int pw,
-                   cudaStream_t s) {
+                   const LastOut& out, cudaStream_t s) {
   // the stack's output plane is 2hl x 2wl: the nearest-2x upscale of a
   // ph x pw low-res plane, or a ph x pw full-res plane rounded up to even
   const int hl = full_res ? (ph + 1) / 2 : ph;
@@ -341,7 +501,17 @@ cudaError_t launch(int layer, int full_res, const void* x, const void* w,
     case 3: return launch_layer<64, 64, T, IN_ACT>(x, w, b, y, n, hin, win, ph, pw, s);
     case 4: return launch_layer<64, 128, T, IN_ACT>(x, w, b, y, n, hin, win, ph, pw, s);
     case 5: return launch_layer<128, 128, T, IN_ACT>(x, w, b, y, n, hin, win, ph, pw, s);
-    case 6: return launch_last<128, T>(x, w, b, y, n, hin, win, s);
+    case 6:
+      switch (out.mode) {
+        case OUT_S2D: return launch_last<128, T>(x, w, b, y, n, hin, win, s);
+        case OUT_DENSE:
+          return launch_last_cell<128, T, OUT_DENSE>(x, w, b, y, out, n, hl,
+                                                     wl, s);
+        case OUT_U8:
+          return launch_last_cell<128, T, OUT_U8>(x, w, b, y, out, n, hl, wl,
+                                                  s);
+        default: return cudaErrorInvalidValue;
+      }
     default: return cudaErrorInvalidValue;
   }
 }
@@ -354,17 +524,34 @@ extern "C" {
 // bf16 != 0 selects __nv_bfloat16 storage, else float. full_res == 0 is
 // the scale stack (x of layer 0 is the low-res plane [n, ph, pw]);
 // full_res != 0 is the noise stack (x of layer 0 is the full-res plane
-// [n, ph, pw], any size). Returns the cudaError_t of the launch (0 on
-// success).
+// [n, ph, pw], any size). The last four arguments before the stream are
+// read by layer 6 only and choose what it writes to y:
+//   out_mode 0  Y in s2d layout [n, hl, wl, 4], storage type;
+//   out_mode 1  Y phase-chunked dense [n, hl, ceil(wl/tc)*4*tc], storage
+//               type, tc a multiple of 32;
+//   out_mode 2  u8 BGR [n, hl, wl, 16] from f32 Y, the device array
+//               uvp [n, hl, wl, 8] f32 and the host array cmap[12] (the
+//               3 x 3 YUV -> BGR matrix row by row, then its 3 offsets).
+// Returns the cudaError_t of the launch (0 on success).
 int w2x_stack_layer(int bf16, int full_res, int layer, const void* x,
                     const void* w, const void* b, void* y, int n, int ph,
-                    int pw, void* stream) {
+                    int pw, int out_mode, const void* uvp, const float* cmap,
+                    int tc, void* stream) {
   if (n <= 0 || ph <= 0 || pw <= 0) return (int)cudaErrorInvalidValue;
+  LastOut out = {};
+  out.mode = out_mode;
+  out.uvp = static_cast<const float*>(uvp);
+  out.tc = tc;
+  if (layer == 6 && out_mode == OUT_U8) {
+    if (cmap == nullptr) return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < 9; ++k) out.cm.inv[k / 3][k % 3] = cmap[k];
+    for (int k = 0; k < 3; ++k) out.cm.off[k] = cmap[9 + k];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(bf16 ? launch<__nv_bfloat16>(layer, full_res, x, w, b, y, n,
-                                            ph, pw, s)
+                                            ph, pw, out, s)
                     : launch<float>(layer, full_res, x, w, b, y, n, ph, pw,
-                                    s));
+                                    out, s));
 }
 
 const char* w2x_error_string(int err) {

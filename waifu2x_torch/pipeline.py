@@ -12,9 +12,11 @@ The kernel path runs both stacks through one hand-written CUDA kernel
 on the low-res grid. Both emit the converted luma in s2d layout; a dense
 PyTorch tail adds U/V (the polyphase bicubic of a scale step, the input's
 own phases for a noise step) and the u8 BGR conversion, and the host
-interleaves the u8 result (d2s_host_cmajor). Images below SMALL_IMG_PX take
-the f32 non-kernel path (F.conv2d, TF32 off), as the JAX package routes
-them.
+interleaves the u8 result (d2s_host_cmajor). W2X_TAIL=kernel moves the
+scale step's tail into the kernel's last layer, and W2X_YDENSE=1 has that
+layer store Y phase-chunked (see FUSED_TAIL and YDENSE below). Images below
+SMALL_IMG_PX take the f32 non-kernel path (F.conv2d, TF32 off), as the JAX
+package routes them.
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
 with no card and no CPU request they raise.
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -31,7 +34,6 @@ import torch
 from waifu2x_torch.config import Config
 from waifu2x_torch.models.srcnn import SRCNN, WAIFU2X_7LAYER, validate_params
 from waifu2x_torch.models.weights import load_model_json, model_file_for
-from waifu2x_torch.ops import color
 from waifu2x_torch.ops.color import (
     bgr_to_yuv,
     saturate_cast_u8,
@@ -47,10 +49,14 @@ from waifu2x_torch.ops.resize import (
 )
 from waifu2x_torch.ops.s2d import d2s, d2s_host_cmajor
 from waifu2x_torch.ops.stack import (
+    combine_u8_cmajor,
+    dense_to_s2d,
     prep_params,
     stack_noise,
     stack_noise_s2d,
     stack_scale,
+    stack_scale_dense,
+    stack_scale_fused_u8,
 )
 from waifu2x_torch.utils.logging import get_logger
 
@@ -176,6 +182,20 @@ class FastStack:
         [N, hl, wl, 4] (storage dtype)."""
         return stack_scale(ylow.to(self.dtype).contiguous(), self.sp)
 
+    def scale_dense(self, ylow: torch.Tensor) -> "tuple[torch.Tensor, int]":
+        """Low-res luma [N, hl, wl] -> (converted Y in the phase-chunked
+        dense layout [N, hl, nx*4*tc] (storage dtype), tc); un-chunk with
+        ops.stack.dense_to_s2d."""
+        return stack_scale_dense(ylow.to(self.dtype).contiguous(), self.sp)
+
+    def scale_fused_u8(self, ylow: torch.Tensor,
+                       uvp: torch.Tensor) -> torch.Tensor:
+        """Low-res luma [N, hl, wl] + polyphase U/V [N, hl, wl, 8] f32
+        (_uv_phases_cmajor) -> u8 BGR cmajor [N, hl, wl, 16]: the whole 2x
+        step, its tail inside the kernel's last layer."""
+        return stack_scale_fused_u8(ylow.to(self.dtype).contiguous(),
+                                    uvp.contiguous(), self.sp)
+
     def noise(self, y: torch.Tensor) -> torch.Tensor:
         """Full-res luma [N, h, w], any size -> denoised [N, h, w] (storage
         dtype)."""
@@ -199,17 +219,39 @@ def scale2x_yuv_s2d(yuv: torch.Tensor, fast: FastStack) -> torch.Tensor:
     return torch.cat([y_s2d[..., None], uv], dim=-1)
 
 
+def _uv_phases_cmajor(yuv: torch.Tensor) -> torch.Tensor:
+    """Channel-major polyphase U/V for the kernel's u8 tail: f32 YUV
+    [N, h, w, 3] -> [N, h, w, 8] (u phases 0:4, v phases 4:8). The JAX
+    package pads it to its kernel's tile grid; the port's kernel has no
+    grid."""
+    n, h, w, _ = yuv.shape
+    phases = resize2x_phases(yuv[..., 1:3], CUBIC, h_axis=1)  # [N,h,w,2,4]
+    return phases.reshape(n, h, w, 8)
+
+
+FUSED_TAIL = os.environ.get("W2X_TAIL", "xla")
+if FUSED_TAIL not in ("xla", "kernel"):   # fail fast on typos: a bad value
+    raise ValueError(                     # would silently select a tail
+        f"W2X_TAIL must be 'xla' or 'kernel', got {FUSED_TAIL!r}")
+YDENSE = os.environ.get("W2X_YDENSE", "") == "1"
+# The JAX package's two switches for the scale step, read from its own
+# environment variables so that a user's setting carries over.
+# "xla" (default): the conv stack emits Y (stack_scale) and the bicubic U/V
+# + YUV->BGR + saturating cast run as the dense PyTorch tail
+# (_tail_u8_cmajor); the name is the JAX package's, where that tail is an
+# XLA program. With YDENSE the stack's last layer stores Y phase-chunked
+# and dense (stack_scale_dense) and the tail un-chunks it: bit-equal output.
+# "kernel": the tail runs inside the kernel's last layer
+# (stack_scale_fused_u8), fed the polyphase U/V (_uv_phases_cmajor); Y goes
+# from the last LeakyReLU into the colour map in f32, so in bf16 storage it
+# is rounded once less than under "xla".
+
+
 def _combine_u8_cmajor(y2, u2, v2, n, h, w):
     """Flat [n, h, w*4] Y/U/V phase planes -> uint8 BGR in CHANNEL-MAJOR
     polyphase layout [n, h, w, 16] (lane c*4+phase, lanes 12:16 zero).
     Same math as yuv_to_bgr / saturate_cast_u8, in the same f32 order."""
-    inv, off = color._INV, color._INV_OFF
-    chans = []
-    for c in range(3):
-        val = (y2 * float(inv[c, 0]) + u2 * float(inv[c, 1])
-               + v2 * float(inv[c, 2]) + float(off[c])) * 255.0
-        chans.append(torch.clamp(torch.round(val), 0, 255)
-                     .to(torch.uint8).reshape(n, h, w, 4))
+    chans = [c.reshape(n, h, w, 4) for c in combine_u8_cmajor(y2, u2, v2)]
     chans.append(torch.zeros_like(chans[0]))
     return torch.cat(chans, dim=-1)                          # [n, h, w, 16]
 
@@ -226,13 +268,28 @@ def _tail_u8_cmajor(y_s2d: torch.Tensor, yuv: torch.Tensor) -> torch.Tensor:
     return _combine_u8_cmajor(y2, u2, v2, n, h, w)
 
 
+def _tail_u8_cmajor_dense(ydense: torch.Tensor, yuv: torch.Tensor,
+                          tc: int) -> torch.Tensor:
+    """The same tail fed by FastStack.scale_dense's phase-chunked layout:
+    un-chunk, then _tail_u8_cmajor."""
+    _, h, w, _ = yuv.shape
+    return _tail_u8_cmajor(dense_to_s2d(ydense, tc, h, w), yuv)
+
+
 def _fused_step(yuv: torch.Tensor, fast: FastStack,
                 y: "torch.Tensor | None" = None) -> torch.Tensor:
-    """Conv-stack kernel + dense tail. `y` overrides the luma plane
-    (chained steps pass a denoised plane; the tail reads only yuv's U/V)."""
+    """One 2x step to u8 BGR cmajor, by FUSED_TAIL and YDENSE: the
+    conv-stack kernel + the dense tail, or the kernel with the tail in its
+    last layer. `y` overrides the luma plane (chained steps pass a denoised
+    plane; the tail reads only yuv's U/V)."""
     if y is None:
         y = yuv[..., 0]
-    return _tail_u8_cmajor(fast.scale(y), yuv)
+    if FUSED_TAIL == "xla":
+        if YDENSE:
+            ydense, tc = fast.scale_dense(y)
+            return _tail_u8_cmajor_dense(ydense, yuv, tc)
+        return _tail_u8_cmajor(fast.scale(y), yuv)
+    return fast.scale_fused_u8(y, _uv_phases_cmajor(yuv))
 
 
 BAND_ROWS = 1152     # low-res rows per banded dispatch (large frames)
@@ -271,7 +328,8 @@ def scale2x_batch_u8_fused(yuv: torch.Tensor, fast: FastStack,
                            y: "torch.Tensor | None" = None) -> torch.Tensor:
     """Throughput 2x step: f32 YUV [N, h, w, 3] -> uint8 BGR in
     CHANNEL-MAJOR polyphase layout [N, h, w, 16] (lane c*4 + phase, lanes
-    12:16 zero). Interleave with d2s_host_cmajor.
+    12:16 zero). Interleave with d2s_host_cmajor. FUSED_TAIL and YDENSE
+    choose where the tail runs and how the kernel stores Y (_fused_step).
 
     Frames taller than the band limit run in row bands with a
     _BAND_HALO-row overlap each side; band outputs are exact (the step's
