@@ -3,7 +3,11 @@
 // C interface and loaded with ctypes (waifu2x_torch/ops/_build.py); the
 // Python wrappers are waifu2x_torch/ops/stack.py:stack_scale (B1),
 // stack_noise / stack_noise_s2d (B2), stack_scale_fused_u8 (B3) and
-// stack_scale_dense (B6).
+// stack_scale_dense (B6). The stack's three other configurations, the
+// truncated stack (B7), int8 layer 6 (B4) and Winograd layer 6 (B5), are
+// in l6.cu; they launch this file's layers 1-5 and, where layer 6's output
+// is one plane, its layer 7. common.cuh holds what the two files share,
+// conv3x3_bias_leaky_cell among it.
 //
 // Replaces: waifu2x_tpu/ops/pallas_stack.py:_run_stack / _stack_body (the
 // one Pallas kernel behind stack_scale, configuration B1, behind
@@ -53,8 +57,8 @@
 //   * conv3x3_bias_leaky_s2d<CI, T> (layer 7, 128 -> 1) gives each thread
 //     one output pixel and writes it straight into the s2d layout
 //     [N, hl, wl, 4].
-//   * conv3x3_bias_leaky_cell<CI, T, OUT_MODE> is layer 7 in its two other
-//     output forms, one thread per s2d cell: it reads the cell's 4 x 4
+//   * conv3x3_bias_leaky_cell<CI, T, OUT_MODE, TILED> (common.cuh) is layer
+//     7 in its two other output forms, one thread per s2d cell: it reads the cell's 4 x 4
 //     window of the layer-6 activation once (16 pixel loads for 4 output
 //     pixels, where the per-pixel kernel makes 36) and keeps the four
 //     phases' sums in four accumulators. Each phase's sum runs over
@@ -91,10 +95,7 @@
 // 16 x 512^2 frames in bf16, and about 36 GB for a full 2*1152*3840-pixel
 // band dispatch in f32. Both fit in the H100's 80 GB.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -103,70 +104,8 @@ constexpr int TW = 32;         // output tile columns: one lane per column
 constexpr int COB = 32;        // output channels per block
 constexpr int NTHREADS = 256;  // 8 warps: 2 row halves x 4 groups of 8 ch
 constexpr int S2D_THREADS = 256;
-constexpr int CELL_THREADS = 128;  // s2d cells (of one row) per block
 
 enum { IN_ACT = 0, IN_LOWRES = 1, IN_FULLRES = 2 };
-enum { OUT_S2D = 0, OUT_DENSE = 1, OUT_U8 = 2 };
-
-// YUV -> BGR: bgr[c] = ((y*inv[c][0] + u*inv[c][1]) + v*inv[c][2]) + off[c]
-struct ColorMap {
-  float inv[3][3];
-  float off[3];
-};
-
-// What the last layer writes (OUT_*), with what only some forms read.
-struct LastOut {
-  int mode;
-  const float* uvp;  // OUT_U8: [N, hl, wl, 8] f32
-  ColorMap cm;       // OUT_U8
-  int tc;            // OUT_DENSE: chunk width, a multiple of 32
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// 8 consecutive elements (16-byte aligned for bf16, 32-byte for f32).
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    __nv_bfloat162 h;
-    *reinterpret_cast<uint32_t*>(&h) = w[k];
-    const float2 f = __bfloat1622float2(h);
-    v[2 * k] = f.x;
-    v[2 * k + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
-  uint32_t w[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    w[k] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ float leaky(float x) {
-  return fmaxf(x, 0.0f) + 0.1f * fminf(x, 0.0f);
-}
 
 // One 3x3 VALID conv layer + bias + LeakyReLU, NHWC in and out.
 //   x: IN_ACT     -> [N, hin, win, CI] activations
@@ -337,104 +276,6 @@ conv3x3_bias_leaky_s2d(const T* __restrict__ x, const T* __restrict__ w,
          leaky(acc + b[0]));
 }
 
-// The last layer (CI -> 1) + bias + LeakyReLU with one thread per s2d cell
-// (i, j): the 4 x 4 window x[n, 2i..2i+3, 2j..2j+3, :] gives the cell's four
-// phases q = A*2 + B, full-res pixel (2i+A, 2j+B).
-//   x: [N, 2hl+2, 2wl+2, CI], w: [CI][9][1], b: [1]
-//   OUT_DENSE: y is T [N, hl, nx*4*tc], nx = ceil(wl / tc); `wcols` = nx*tc
-//   OUT_U8:    y is u8 [N, hl, wl, 16], uvp f32 [N, hl, wl, 8]; `wcols` = wl
-// Grid: one block per (image, cell row, CELL_THREADS-column chunk of
-// `wcols`), flattened.
-template <int CI, typename T, int OUT_MODE>
-__global__ void __launch_bounds__(CELL_THREADS)
-conv3x3_bias_leaky_cell(const T* __restrict__ x, const T* __restrict__ w,
-                        const float* __restrict__ b, void* __restrict__ y,
-                        const float* __restrict__ uvp, ColorMap cm, int hl,
-                        int wl, int tc, int wcols, int ncx) {
-  static_assert(CI % 8 == 0, "8-wide loads");
-  static_assert(OUT_MODE == OUT_DENSE || OUT_MODE == OUT_U8, "cell outputs");
-  __shared__ __align__(16) float s_w[9][CI];
-  for (int i = threadIdx.x; i < 9 * CI; i += CELL_THREADS)
-    s_w[i % 9][i / 9] = to_f32(w[i]);
-  __syncthreads();
-
-  unsigned bid = blockIdx.x;
-  const int cx = bid % ncx;  bid /= ncx;
-  const int i = bid % hl;    bid /= hl;
-  const int n = bid;
-  const int j = cx * CELL_THREADS + threadIdx.x;
-  if (j >= wcols) return;
-
-  if constexpr (OUT_MODE == OUT_DENSE) {
-    T* yd = static_cast<T*>(y) + ((size_t)n * hl + i) * wcols * 4
-            + (size_t)(j / tc) * 4 * tc + j % tc;
-    if (j >= wl) {  // the last chunk's pad columns read zero
-#pragma unroll
-      for (int q = 0; q < 4; ++q) store1(yd + (size_t)q * tc, 0.0f);
-      return;
-    }
-  }
-
-  const int hin = 2 * hl + 2, win = 2 * wl + 2;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const T* px = x + (((size_t)n * hin + 2 * i + r) * win + 2 * j + c) * CI;
-#pragma unroll 2
-      for (int ch = 0; ch < CI; ch += 8) {
-        float v[8];
-        load8(px + ch, v);
-#pragma unroll
-        for (int A = 0; A < 2; ++A) {
-#pragma unroll
-          for (int B = 0; B < 2; ++B) {
-            const int dy = r - A, dx = c - B;  // known at compile time
-            if (dy < 0 || dy > 2 || dx < 0 || dx > 2) continue;
-            const float* wt = s_w[dy * 3 + dx];
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-              acc[A * 2 + B] = fmaf(v[k], wt[ch + k], acc[A * 2 + B]);
-          }
-        }
-      }
-    }
-  }
-  float yv[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) yv[q] = leaky(acc[q] + b[0]);
-
-  if constexpr (OUT_MODE == OUT_DENSE) {
-    T* yd = static_cast<T*>(y) + ((size_t)n * hl + i) * wcols * 4
-            + (size_t)(j / tc) * 4 * tc + j % tc;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) store1(yd + (size_t)q * tc, yv[q]);
-  } else {
-    const size_t cell = ((size_t)n * hl + i) * wl + j;
-    const float4 u4 = reinterpret_cast<const float4*>(uvp)[cell * 2];
-    const float4 v4 = reinterpret_cast<const float4*>(uvp)[cell * 2 + 1];
-    const float u[4] = {u4.x, u4.y, u4.z, u4.w};
-    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
-    uint32_t word[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      word[c] = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        // no fmaf here: each product and sum is rounded on its own
-        float val = __fadd_rn(__fmul_rn(yv[q], cm.inv[c][0]),
-                              __fmul_rn(u[q], cm.inv[c][1]));
-        val = __fadd_rn(val, __fmul_rn(v[q], cm.inv[c][2]));
-        val = __fmul_rn(__fadd_rn(val, cm.off[c]), 255.0f);
-        val = fminf(fmaxf(rintf(val), 0.0f), 255.0f);  // half to even
-        word[c] |= static_cast<uint32_t>(val) << (8 * q);
-      }
-    }
-    static_cast<uint4*>(y)[cell] = make_uint4(word[0], word[1], word[2], 0u);
-  }
-}
-
 template <int CI, int CO, typename T, int IN_MODE>
 cudaError_t launch_layer(const void* x, const void* w, const void* b, void* y,
                          int n, int hin, int win, int ph, int pw,
@@ -458,26 +299,6 @@ cudaError_t launch_last(const void* x, const void* w, const void* b, void* y,
   conv3x3_bias_leaky_s2d<CI, T><<<(unsigned)blocks, S2D_THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(b), static_cast<T*>(y), hin, win, ncx);
-  return cudaGetLastError();
-}
-
-template <int CI, typename T, int OUT_MODE>
-cudaError_t launch_last_cell(const void* x, const void* w, const void* b,
-                             void* y, const LastOut& out, int n, int hl,
-                             int wl, cudaStream_t s) {
-  const int tc = OUT_MODE == OUT_DENSE ? out.tc : 0;
-  if (OUT_MODE == OUT_DENSE && (tc <= 0 || tc % 32))
-    return cudaErrorInvalidValue;
-  if (OUT_MODE == OUT_U8 && out.uvp == nullptr) return cudaErrorInvalidValue;
-  const int wcols = OUT_MODE == OUT_DENSE ? (wl + tc - 1) / tc * tc : wl;
-  const int ncx = (wcols + CELL_THREADS - 1) / CELL_THREADS;
-  const long long blocks = (long long)ncx * hl * n;
-  if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  conv3x3_bias_leaky_cell<CI, T, OUT_MODE>
-      <<<(unsigned)blocks, CELL_THREADS, 0, s>>>(
-          static_cast<const T*>(x), static_cast<const T*>(w),
-          static_cast<const float*>(b), y, out.uvp, out.cm, hl, wl, tc, wcols,
-          ncx);
   return cudaGetLastError();
 }
 
@@ -505,11 +326,11 @@ cudaError_t launch(int layer, int full_res, const void* x, const void* w,
       switch (out.mode) {
         case OUT_S2D: return launch_last<128, T>(x, w, b, y, n, hin, win, s);
         case OUT_DENSE:
-          return launch_last_cell<128, T, OUT_DENSE>(x, w, b, y, out, n, hl,
-                                                     wl, s);
+          return launch_last_cell<128, T, OUT_DENSE, false>(
+              x, w, b, y, out, Tiles{}, n, hl, wl, s);
         case OUT_U8:
-          return launch_last_cell<128, T, OUT_U8>(x, w, b, y, out, n, hl, wl,
-                                                  s);
+          return launch_last_cell<128, T, OUT_U8, false>(
+              x, w, b, y, out, Tiles{}, n, hl, wl, s);
         default: return cudaErrorInvalidValue;
       }
     default: return cudaErrorInvalidValue;
@@ -544,8 +365,7 @@ int w2x_stack_layer(int bf16, int full_res, int layer, const void* x,
   out.tc = tc;
   if (layer == 6 && out_mode == OUT_U8) {
     if (cmap == nullptr) return (int)cudaErrorInvalidValue;
-    for (int k = 0; k < 9; ++k) out.cm.inv[k / 3][k % 3] = cmap[k];
-    for (int k = 0; k < 3; ++k) out.cm.off[k] = cmap[9 + k];
+    out.cm = color_map(cmap);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(bf16 ? launch<__nv_bfloat16>(layer, full_res, x, w, b, y, n,

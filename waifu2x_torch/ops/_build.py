@@ -3,8 +3,9 @@ use and load them with ctypes.
 
 Each source has a plain C interface, so nvcc builds it in seconds without
 PyTorch's headers. The library lands in waifu2x_torch/build/ (git-ignored)
-under a name that carries a hash of the source and flags, so an edited
-source is rebuilt and a built one is reused. Nothing here runs at import
+under a name that carries a hash of the source, the headers beside it
+(csrc/*.cuh) and the flags, so an edited source is rebuilt and a built one
+is reused. Nothing here runs at import
 time: the CPU tests import every module on a host without nvcc.
 """
 
@@ -44,6 +45,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

@@ -1,9 +1,9 @@
-"""The conv stack's hand-written CUDA kernel: its wrappers for the scale
-path (`stack_scale`, and the last layer's two other output forms
-`stack_scale_dense` and `stack_scale_fused_u8`) and the noise path
-(`stack_noise_s2d`, `stack_noise`), their plain PyTorch versions
-(`*_plain`) and the device-ready weights they share (`prep_params`; one
-layout serves both paths).
+"""The conv stack's hand-written CUDA kernels: their wrappers for the scale
+path (`stack_scale`, the last layer's two other output forms
+`stack_scale_dense` and `stack_scale_fused_u8`, and the truncated stack
+`stack_scale_upto`) and the noise path (`stack_noise_s2d`, `stack_noise`),
+their plain PyTorch versions (`*_plain`) and the device-ready weights they
+share (`prep_params`; one layout serves both paths).
 
 Contracts (those of the JAX package's pallas_stack functions of the same
 names):
@@ -22,14 +22,45 @@ names):
         Y_s2d[n, i, j, A*2+B] = convert_plane(y)[n, 2i+A, 2j+B]
     stack_noise(y [N, h, w], sp) -> [N, h, w]  (any h, w)
         convert_plane of y edge-padded to even, cropped back to h x w
+    stack_scale_upto(ylow, sp, upto) -> [N, hl, wl, 4]
+        the scale stack stopped after layer `upto` (0..6): 4 values of
+        that stage per s2d cell (B7, see the function)
 
 in the input's dtype where not said otherwise. Storage is f32 or bf16.
 Products and sums are f32 (TF32 off); in bf16 each layer's activation is
 rounded to bf16 once after its LeakyReLU, and Y once at the end (not at
-all on its way into the u8 map). The kernel (csrc/stack.cu, which replaces
-waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body) launches once per
-layer, 7 times per call in every output form; see the note at the top of
-that file for its design and bound.
+all on its way into the u8 map).
+
+Layer 6 (128 -> 128, half of the stack's multiply-adds) has three forms,
+chosen by the arguments `l6_i8` and `l6_wino` of every wrapper; None, the
+default, reads the module switches L6_I8 and L6_WINO, which are set from
+the environment variables W2X_L6_I8=1 and W2X_L6_WINO=1 when this module
+is imported (the JAX package's names, so a user's setting carries over).
+Both at once raise ValueError.
+  direct  3x3 correlation in f32 FFMA, like every other layer (B1/B2).
+  wino    (B5) Winograd F(2x2, 3x3): the weights U = G g G^T (ops/s2d.py:
+          pack_wino) are rounded to the storage dtype as in the JAX
+          package; V = B^T d B is formed in f32 from the stored layer-5
+          activation. The JAX kernel forms V in the storage dtype (bf16
+          adds); the port differs there on purpose, it is one rounding
+          fewer.
+  i8      (B4) int8 x int8 with exact int32 sums. Weights: per output
+          channel sw = max(|w6|, 1e-12) / 127, w6q = clip(round(w6 / sw)).
+          Activations: per TILE of (tr, tc) s2d cells, over the tile's
+          window of layer 5's output, m = max |x5|, sx = max(m, 1e-8) *
+          (1/127), x5q = clip(round(x5 * (1/sx))), round half to even;
+          x6 = leaky(float(sum) * (sx * sw) + b6). The stack runs on the
+          plane edge-extended to the tile grid, each tile's Y comes from
+          layer 6 computed with that tile's own scale, and the result is
+          cropped to the image. `tile=(tr, tc)` sets the tile (the JAX
+          package's `tile` argument); None picks default_tile.
+
+The kernels (csrc/stack.cu and csrc/l6.cu, which replace
+waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
+configurations B1, B2, B3, B6 and B7, B4, B5) launch once per layer: 7
+times per call, 8 with `l6_i8` (the tile maxima are a launch of their
+own), upto + 1 for stack_scale_upto. See the notes at the top of those
+files for design and bounds.
 
 The wrappers take the plain version for a tensor on the CPU only. For a
 CUDA tensor they launch the kernel or raise; nothing falls back.
@@ -38,57 +69,137 @@ CUDA tensor they launch the kernel or raise; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from waifu2x_torch.ops import _build, color
 from waifu2x_torch.ops.convstack import leaky_relu, no_tf32, pad_replicate
-from waifu2x_torch.ops.s2d import d2s, s2d
+from waifu2x_torch.ops.s2d import (
+    _WINO_AT,
+    _WINO_BT_TAPS,
+    d2s,
+    pack_wino,
+    s2d,
+)
 
 # (cin, cout) of the flagship architecture, the only one the kernel takes
 WIDTHS = ((1, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128),
           (128, 1))
 DTYPES = (torch.float32, torch.bfloat16)
 
-LAUNCHES = 0   # kernel launches (one per layer); the plain version adds none
-# the same launches by the kernel configuration that made them: "scale"
-# (stack_scale), "noise" (stack_noise, stack_noise_s2d), "dense"
+# layer 6's form when a wrapper's l6_i8 / l6_wino argument is None
+L6_I8 = os.environ.get("W2X_L6_I8", "0") == "1"
+L6_WINO = os.environ.get("W2X_L6_WINO", "0") == "1"
+I8_TILE = (64, 128)   # largest default int8 tile, in s2d cells
+
+LAUNCHES = 0   # kernel launches; the plain versions add none
+# the same launches by the wrapper that made them: "scale" (stack_scale,
+# stack_scale_upto), "noise" (stack_noise, stack_noise_s2d), "dense"
 # (stack_scale_dense), "fused_u8" (stack_scale_fused_u8)
 KERNEL_LAUNCHES = {"scale": 0, "noise": 0, "dense": 0, "fused_u8": 0}
+# layer 6's launches by its form ("i8" counts two a call: the tile maxima
+# and the int8 layer), and under "upto" the launches of stack_scale_upto's
+# own last kernel
+L6_LAUNCHES = {"direct": 0, "i8": 0, "wino": 0, "upto": 0}
 
-# the last layer's output forms (csrc/stack.cu: OUT_*)
-_OUT_S2D, _OUT_DENSE, _OUT_U8 = 0, 1, 2
+# the last layer's output forms (csrc/common.cuh: OUT_*)
+_OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS = 0, 1, 2, 3
+_OUT_MODES = {"scale": _OUT_S2D, "noise": _OUT_S2D, "dense": _OUT_DENSE,
+              "fused_u8": _OUT_U8}
 DENSE_TC = 128   # widest dense chunk: four warps' contiguous stores per phase
+_INV127 = float(np.float32(1.0 / 127.0))
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
     global LAUNCHES
     LAUNCHES = 0
-    for kind in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[kind] = 0
+    for counts in (KERNEL_LAUNCHES, L6_LAUNCHES):
+        for kind in counts:
+            counts[kind] = 0
 
 
-def prep_params(params, dtype=torch.bfloat16, device="cuda"):
+class StackParams(tuple):
+    """prep_params' result: the seven (w, b) pairs, and as attributes layer
+    6's weights in its two other forms:
+      w6q  int32 [32, 9, 128]: w6 as int8, four input channels to a word
+           (byte k of word [c4, t, co] is channel 4*c4 + k; unpack_w6q)
+      w6s  f32 [128]: the int8 weights' scale per output channel
+      w6w  [16, 128, 128] in the storage dtype: pack_wino(w6)"""
+
+
+def unpack_w6q(w6q: torch.Tensor) -> torch.Tensor:
+    """StackParams.w6q -> int8 [128, 9, 128], the layout of the f32 w6."""
+    return (w6q.view(torch.int8).reshape(32, 9, 128, 4).permute(0, 3, 1, 2)
+            .reshape(128, 9, 128))
+
+
+def prep_params(params, dtype=torch.bfloat16, device="cuda") -> StackParams:
     """HWIO parameters -> the stack's weights: per layer (w [cin, 9, cout]
-    in the storage dtype, tap t = dy*3 + dx; b [cout] f32), on `device`."""
+    in the storage dtype, tap t = dy*3 + dx; b [cout] f32), on `device`,
+    with layer 6's int8 and Winograd forms as attributes (StackParams)."""
     if len(params) != len(WIDTHS):
         raise ValueError(f"the stack takes the {len(WIDTHS)}-layer flagship "
                          f"model, got {len(params)} layers")
-    sp = []
+    pairs = []
     for p, (ci, co) in zip(params, WIDTHS):
         w = torch.as_tensor(p["w"])
         if tuple(w.shape) != (3, 3, ci, co):
             raise ValueError(f"weight shape {tuple(w.shape)} != "
                              f"{(3, 3, ci, co)}")
         w = w.permute(2, 0, 1, 3).reshape(ci, 9, co)
-        sp.append((w.to(device, dtype).contiguous(),
-                   torch.as_tensor(p["b"]).to(device, torch.float32)))
-    return tuple(sp)
+        pairs.append((w.to(device, dtype).contiguous(),
+                      torch.as_tensor(p["b"]).to(device, torch.float32)))
+    sp = StackParams(pairs)
+    w6 = torch.as_tensor(params[5]["w"]).detach().cpu().numpy()
+    w6 = w6.astype(np.float32)
+    # symmetric int8 per output channel, from the f32 weights
+    sw = (np.maximum(np.abs(w6).max(axis=(0, 1, 2)), 1e-12)
+          / 127.0).astype(np.float32)
+    q = np.clip(np.round(w6 / sw), -127, 127).astype(np.int8)
+    words = (torch.from_numpy(q).permute(2, 0, 1, 3).reshape(32, 4, 9, 128)
+             .permute(0, 2, 3, 1).contiguous().view(torch.int32).squeeze(-1))
+    sp.w6q = words.to(device).contiguous()
+    sp.w6s = torch.from_numpy(sw).to(device)
+    sp.w6w = torch.from_numpy(pack_wino(w6)).to(device, dtype).contiguous()
+    return sp
 
 
-def _check(ylow: torch.Tensor, sp) -> None:
+def l6_form(l6_i8=None, l6_wino=None) -> str:
+    """Layer 6's form, "direct", "i8" or "wino", from a wrapper's two
+    arguments (None reads the module switch)."""
+    if l6_i8 is None:
+        l6_i8 = L6_I8
+    if l6_wino is None:
+        l6_wino = L6_WINO
+    if l6_i8 and l6_wino:
+        raise ValueError("l6_i8 and l6_wino are mutually exclusive")
+    return "i8" if l6_i8 else "wino" if l6_wino else "direct"
+
+
+def default_tile(hl: int, wl: int) -> tuple:
+    """The int8 tile for an hl x wl grid of s2d cells: the grid cut evenly
+    into the fewest tiles of at most I8_TILE cells each way, so that the
+    grid pads by less than one cell row and column per tile."""
+    return tuple(-(-size // -(-size // cap))
+                 for size, cap in zip((hl, wl), I8_TILE))
+
+
+def _tiling(hl: int, wl: int, form: str, tile):
+    """(tr, tc, ny, nx) of the int8 tile grid over hl x wl cells, or None
+    for the forms that have no tiles."""
+    if form != "i8":
+        return None
+    tr, tc = default_tile(hl, wl) if tile is None else tile
+    if int(tr) != tr or int(tc) != tc or tr < 1 or tc < 1:
+        raise ValueError(f"tile must be two positive ints, got {tile}")
+    return int(tr), int(tc), -(-hl // int(tr)), -(-wl // int(tc))
+
+
+def _check(ylow: torch.Tensor, sp, form: str = "direct") -> None:
     if ylow.dim() != 3 or min(ylow.shape) < 1:
         raise ValueError(f"the input must be a non-empty [N, h, w] plane, "
                          f"got shape {tuple(ylow.shape)}")
@@ -110,6 +221,16 @@ def _check(ylow: torch.Tensor, sp) -> None:
                              f"{ylow.device}")
         if not (w.is_contiguous() and b.is_contiguous()):
             raise ValueError(f"layer {k}: weights must be contiguous")
+    extras = {"i8": ("w6q", "w6s"), "wino": ("w6w",), "direct": ()}[form]
+    for name in extras:
+        t = getattr(sp, name, None)
+        if t is None:
+            raise ValueError(f"layer 6 as {form} needs prep_params' weights "
+                             f"(StackParams.{name})")
+        if t.device != ylow.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {ylow.device}")
+    if form == "wino" and sp.w6w.dtype != ylow.dtype:
+        raise TypeError(f"w6w must be {ylow.dtype}, got {sp.w6w.dtype}")
 
 
 def _check_even(y: torch.Tensor, fn: str) -> None:
@@ -140,35 +261,200 @@ def _dense_tc(wl: int, tc) -> int:
     return tc
 
 
-def _plain_stack(x: torch.Tensor, sp, dtype,
-                 round_last: bool = True) -> torch.Tensor:
-    """7 x (F.conv2d + bias + LeakyReLU) on the padded f32 plane x
-    [N, 1, H, W], f32 with TF32 off, each stored activation rounded to
-    `dtype` where the kernel rounds it -> [N, 1, H-14, W-14] (f32 values).
-    round_last=False leaves the last layer's output unrounded, as the u8
-    epilogue reads it."""
+def _edge_extend(y: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """[N, h, w] -> [N, rows, cols] (rows >= h, cols >= w), the last row
+    and column repeated: the JAX package's edge pad to its tile grid."""
+    n, h, w = y.shape
+    if (rows, cols) == (h, w):
+        return y
+    r = torch.arange(rows, device=y.device).clamp_(max=h - 1)
+    c = torch.arange(cols, device=y.device).clamp_(max=w - 1)
+    return y[:, r][:, :, c].contiguous()
+
+
+def _on_grid(x: torch.Tensor, full_res: bool, form: str, tile):
+    """The plane a stack call computes on -> (plane, hl, wl, tiling): x
+    itself and no tiling, or with form "i8" x edge-extended to the int8
+    tile grid and its (tr, tc, ny, nx). hl x wl are the s2d cells of x, the
+    low-res plane [N, hl, wl] or with full_res the full-res plane
+    [N, h, w]."""
+    _, ph, pw = x.shape
+    hl, wl = (-(-ph // 2), -(-pw // 2)) if full_res else (ph, pw)
+    tiling = _tiling(hl, wl, form, tile)
+    if tiling is not None:
+        rows, cols = tiling[0] * tiling[2], tiling[1] * tiling[3]
+        x = (_edge_extend(x, 2 * rows, 2 * cols) if full_res
+             else _edge_extend(x, rows, cols))
+    return x, hl, wl, tiling
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _plain_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype,
+                 round_out: bool = True) -> torch.Tensor:
+    """F.conv2d + bias + LeakyReLU on f32 values [N, ci, H, W], rounded to
+    `dtype` where the kernel rounds what it stores."""
+    ci, _, co = w.shape
+    w_oihw = w.float().reshape(ci, 3, 3, co).permute(3, 0, 1, 2)
+    x = leaky_relu(F.conv2d(x, w_oihw, b))
+    return x.to(dtype).float() if round_out else x
+
+
+def _l6_wino_plain(x5: torch.Tensor, sp, dtype) -> torch.Tensor:
+    """Layer 6 as Winograd F(2x2, 3x3) on f32 values [N, 128, H, W] (H, W
+    even) -> [N, 128, H-2, W-2]: V from four signed window slices per
+    position, M[p] = V[p] @ U[p] in f32, Y = A^T M A, bias, LeakyReLU."""
+    n, c, hin, win = x5.shape
+    hb, wb = (hin - 2) // 2, (win - 2) // 2
+    u, b6 = sp.w6w.float(), sp[5][1]
+    xs = x5.permute(0, 2, 3, 1)
+    y = [[None, None], [None, None]]
+    for py in range(4):
+        ms = []
+        for px in range(4):
+            v = None
+            for ty, sy in _WINO_BT_TAPS[py]:
+                for tx, sx in _WINO_BT_TAPS[px]:
+                    t = xs[:, ty:ty + 2 * hb:2, tx:tx + 2 * wb:2]
+                    if v is None:
+                        v = t if sy * sx > 0 else -t
+                    else:
+                        v = v + t if sy * sx > 0 else v - t
+            ms.append(v @ u[py * 4 + px])
+        nb = (ms[0] + ms[1] + ms[2], ms[1] - ms[2] - ms[3])
+        for a in (0, 1):
+            ca = _WINO_AT[a][py]
+            if ca == 0.0:
+                continue
+            for bb in (0, 1):
+                val = nb[bb] if ca > 0 else -nb[bb]
+                y[a][bb] = val if y[a][bb] is None else y[a][bb] + val
+    out = torch.stack([torch.stack(y[a], dim=3) for a in (0, 1)], dim=2)
+    out = leaky_relu(out.reshape(n, 2 * hb, 2 * wb, c) + b6)
+    return out.permute(0, 3, 1, 2).to(dtype).float()
+
+
+def _l6_i8_window_plain(x5w: torch.Tensor, sp, dtype):
+    """Layer 6 as int8 on one tile's window, f32 values
+    [N, 128, 2tr+4, 2tc+4] -> (x6 [N, 128, 2tr+2, 2tc+2], sx [N]). The
+    integer sums run in f64, where they are exact (1152 * 127^2 exceeds
+    f32's 2^24), and are rounded to f32 once, as the kernel converts its
+    int32 sum. The JAX kernel converts each group's int32 partial (K <= 512)
+    and adds those in f32: equal while the total stays under 2^24, else it
+    may differ in the last bit."""
+    m = x5w.abs().amax(dim=(1, 2, 3))
+    sx = torch.clamp(m, min=1e-8) * _INV127
+    inv = torch.ones_like(sx) / sx
+    q = torch.clamp(torch.round(x5w * inv[:, None, None, None]), -127, 127)
+    wq = (unpack_w6q(sp.w6q).double().reshape(128, 3, 3, 128)
+          .permute(3, 0, 1, 2))
+    acc = F.conv2d(q.double(), wq).float()
+    scale = sx[:, None] * sp.w6s[None, :]
+    x6 = leaky_relu(acc * scale[:, :, None, None]
+                    + sp[5][1][None, :, None, None])
+    return x6.to(dtype).float(), sx
+
+
+def _taps_plain(x6: torch.Tensor, w7: torch.Tensor, dtype) -> torch.Tensor:
+    """The same-cell tap partials of layer 7 on f32 values
+    [N, 128, 2R+2, 2C+2] -> [N, R, C, 4] (see stack_scale_upto, upto=6)."""
+    rows, cols = (x6.shape[2] - 2) // 2, (x6.shape[3] - 2) // 2
+    w7 = w7.float()[:, :, 0]                                  # [128, 9]
+    out = []
+    for a in (0, 1):
+        for b in (0, 1):
+            acc = 0.0
+            for dy in range(2 - a):
+                for dx in range(2 - b):
+                    win = x6[:, :, a + dy:a + dy + 2 * rows:2,
+                             b + dx:b + dx + 2 * cols:2]
+                    acc = acc + torch.einsum("nchw,c->nhw", win,
+                                             w7[:, dy * 3 + dx])
+            out.append(acc)
+    return torch.stack(out, dim=-1).to(dtype).float()
+
+
+def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
+                 form: str = "direct", tiling=None, upto=None):
+    """The stack on the padded f32 plane x [N, 1, 2hg+14, 2wg+14] ->
+    [N, hg, wg, 4] in s2d layout (f32 values): F.conv2d + bias + LeakyReLU
+    per layer in f32 with TF32 off, each stored activation rounded to
+    `dtype` where the kernel rounds it. round_last=False leaves the last
+    layer's output unrounded, as the u8 epilogue reads it. `form` is layer
+    6's; with "i8", `tiling` = (tr, tc, ny, nx) must cover hg x wg exactly.
+    upto (1..6) stops after that layer and gives its 4 values per cell
+    (stack_scale_upto)."""
+    hg, wg = (x.shape[2] - 14) // 2, (x.shape[3] - 14) // 2
+    w7, b7 = sp[6]
+
+    def last(x6):
+        if upto == 6:
+            return _taps_plain(x6, w7, dtype)
+        y = _plain_layer(x6, w7, b7, dtype, round_last)
+        return s2d(y[:, 0, :, :, None])
+
     with no_tf32():
-        for k, (w, b) in enumerate(sp):
-            ci, _, co = w.shape
-            w_oihw = w.float().reshape(ci, 3, 3, co).permute(3, 0, 1, 2)
-            x = leaky_relu(F.conv2d(x, w_oihw, b))
-            if round_last or k < len(sp) - 1:
-                x = x.to(dtype).float()
-    return x
+        for w, b in sp[:5 if upto is None else min(upto, 5)]:
+            x = _plain_layer(x, w, b, dtype)
+        if upto is not None and upto <= 5:
+            return x[:, :4, 0:2 * hg:2, 0:2 * wg:2].permute(0, 2, 3, 1)
+        if form == "wino":
+            return last(_l6_wino_plain(x, sp, dtype))
+        if form != "i8":
+            return last(_plain_layer(x, *sp[5], dtype))
+        tr, tc, ny, nx = tiling
+        out = x.new_empty((x.shape[0], hg, wg, 4))
+        for ti in range(ny):
+            for tj in range(nx):
+                x6, _ = _l6_i8_window_plain(
+                    x[:, :, 2 * ti * tr:2 * (ti + 1) * tr + 4,
+                      2 * tj * tc:2 * (tj + 1) * tc + 4], sp, dtype)
+                out[:, ti * tr:(ti + 1) * tr,
+                    tj * tc:(tj + 1) * tc] = last(x6)
+        return out
 
 
-def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True):
-    """nearest-2x, replicate pad 7, the stack (_plain_stack), then s2d ->
-    Y_s2d [N, hl, wl, 4] as f32 values."""
+def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
+                     form: str = "direct", tile=None, upto=None):
+    """nearest-2x (of the plane edge-extended to the int8 tile grid, where
+    there is one), replicate pad 7, the stack (_plain_stack), cropped ->
+    [N, hl, wl, 4] as f32 values."""
+    ylow, hl, wl, tiling = _on_grid(
+        ylow, False, form if upto in (None, 6) else "direct", tile)
     up = ylow.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-    x = _plain_stack(pad_replicate(up.float(), 7), sp, ylow.dtype, round_last)
-    return s2d(x[:, 0, :, :, None])
+    y = _plain_stack(pad_replicate(up.float(), 7), sp, ylow.dtype,
+                     round_last, form, tiling, upto)
+    return y[:, :hl, :wl]
 
 
-def stack_scale_plain(ylow: torch.Tensor, sp) -> torch.Tensor:
+def stack_scale_plain(ylow: torch.Tensor, sp, l6_i8=None, l6_wino=None,
+                      tile=None) -> torch.Tensor:
     """Plain PyTorch version of the scale kernel."""
-    _check(ylow, sp)
-    return _scale_plain_f32(ylow, sp).to(ylow.dtype)
+    form = l6_form(l6_i8, l6_wino)
+    _check(ylow, sp, form)
+    return _scale_plain_f32(ylow, sp, form=form, tile=tile).to(ylow.dtype)
+
+
+def stack_scale_upto_plain(ylow: torch.Tensor, sp, upto: int, l6_i8=None,
+                           l6_wino=None, tile=None) -> torch.Tensor:
+    """Plain PyTorch version of stack_scale_upto."""
+    form = l6_form(l6_i8, l6_wino)
+    _check(ylow, sp, form if upto == 6 else "direct")
+    _check_upto(upto)
+    if upto == 0:
+        _, hl, wl = ylow.shape
+        taps = []
+        for dy, dx in ((0, 0), (0, 1), (0, 2), (1, 0)):
+            r = (torch.arange(hl, device=ylow.device) + dy - 4).clamp_(
+                0, hl - 1)
+            c = (torch.arange(wl, device=ylow.device) + dx - 4).clamp_(
+                0, wl - 1)
+            taps.append(ylow[:, r][:, :, c])
+        return torch.stack(taps, dim=-1)
+    return _scale_plain_f32(ylow, sp, form=form, tile=tile,
+                            upto=upto).to(ylow.dtype)
 
 
 def s2d_to_dense(y_s2d: torch.Tensor, tc: int) -> torch.Tensor:
@@ -192,11 +478,12 @@ def dense_to_s2d(ydense: torch.Tensor, tc: int, hl: int,
     return y4[:, :hl, :wl, :]
 
 
-def stack_scale_dense_plain(ylow: torch.Tensor, sp, tc=None):
+def stack_scale_dense_plain(ylow: torch.Tensor, sp, tc=None, l6_i8=None,
+                            l6_wino=None, tile=None):
     """Plain PyTorch version of stack_scale_dense -> (ydense, tc)."""
-    _check(ylow, sp)
-    tc = _dense_tc(ylow.shape[2], tc)
-    return s2d_to_dense(stack_scale_plain(ylow, sp), tc), tc
+    tc = _dense_tc(ylow.shape[-1], tc)
+    y = stack_scale_plain(ylow, sp, l6_i8, l6_wino, tile)
+    return s2d_to_dense(y, tc), tc
 
 
 def combine_u8_cmajor(y: torch.Tensor, u: torch.Tensor,
@@ -214,168 +501,417 @@ def combine_u8_cmajor(y: torch.Tensor, u: torch.Tensor,
     return chans
 
 
-def stack_scale_fused_u8_plain(ylow: torch.Tensor, uvp: torch.Tensor,
-                               sp) -> torch.Tensor:
+def stack_scale_fused_u8_plain(ylow: torch.Tensor, uvp: torch.Tensor, sp,
+                               l6_i8=None, l6_wino=None,
+                               tile=None) -> torch.Tensor:
     """Plain PyTorch version of stack_scale_fused_u8: the stack with its
     last layer left in f32, then the colour map on Y and uvp."""
-    _check(ylow, sp)
+    form = l6_form(l6_i8, l6_wino)
+    _check(ylow, sp, form)
     _check_uvp(uvp, ylow)
-    y = _scale_plain_f32(ylow, sp, round_last=False)
+    y = _scale_plain_f32(ylow, sp, round_last=False, form=form, tile=tile)
     chans = combine_u8_cmajor(y, uvp[..., 0:4], uvp[..., 4:8])
     return torch.cat(chans + [torch.zeros_like(chans[0])], dim=-1)
 
 
-def _noise_plain_s2d(y: torch.Tensor, sp) -> torch.Tensor:
-    """Plain noise stack on any [N, h, w]: edge pad to even and replicate
-    pad 7 (one replicate pad does both), the stack, then s2d ->
-    [N, he/2, we/2, 4]."""
-    _check(y, sp)
+def _noise_plain_s2d(y: torch.Tensor, sp, l6_i8=None, l6_wino=None,
+                     tile=None) -> torch.Tensor:
+    """Plain noise stack on any [N, h, w]: edge pad to even (to the int8
+    tile grid, where there is one) and replicate pad 7, the stack, cropped
+    -> [N, ceil(h/2), ceil(w/2), 4]."""
+    form = l6_form(l6_i8, l6_wino)
+    _check(y, sp, form)
     h, w = y.shape[1:]
-    x = F.pad(y.float()[:, None], (7, 7 + w % 2, 7, 7 + h % 2),
-              mode="replicate")
-    x = _plain_stack(x, sp, y.dtype)
-    return s2d(x[:, 0, :, :, None]).to(y.dtype)
+    hl, wl = -(-h // 2), -(-w // 2)
+    tiling = _tiling(hl, wl, form, tile)
+    hg, wg = (hl, wl) if tiling is None else (tiling[0] * tiling[2],
+                                              tiling[1] * tiling[3])
+    x = pad_replicate(_edge_extend(y, 2 * hg, 2 * wg).float(), 7)
+    ys = _plain_stack(x, sp, y.dtype, form=form, tiling=tiling)
+    return ys[:, :hl, :wl].to(y.dtype)
 
 
-def stack_noise_s2d_plain(y: torch.Tensor, sp) -> torch.Tensor:
+def stack_noise_s2d_plain(y: torch.Tensor, sp, l6_i8=None, l6_wino=None,
+                          tile=None) -> torch.Tensor:
     """Plain PyTorch version of stack_noise_s2d (even dims only)."""
     _check_even(y, "stack_noise_s2d")
-    return _noise_plain_s2d(y, sp)
+    return _noise_plain_s2d(y, sp, l6_i8, l6_wino, tile)
 
 
-def stack_noise_plain(y: torch.Tensor, sp) -> torch.Tensor:
+def stack_noise_plain(y: torch.Tensor, sp, l6_i8=None, l6_wino=None,
+                      tile=None) -> torch.Tensor:
     """Plain PyTorch version of stack_noise (any dims)."""
-    ys = _noise_plain_s2d(y, sp)
+    ys = _noise_plain_s2d(y, sp, l6_i8, l6_wino, tile)
     h, w = y.shape[1:]
     return d2s(ys)[:, :h, :w, 0]
 
 
-def _lib() -> ctypes.CDLL:
-    (lib,) = _build.load("stack")
-    lib.w2x_stack_layer.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
-    lib.w2x_stack_layer.restype = ctypes.c_int
-    lib.w2x_error_string.argtypes = [ctypes.c_int]
-    lib.w2x_error_string.restype = ctypes.c_char_p
-    return lib
+def _check_x5(x5: torch.Tensor, sp, tile) -> tuple:
+    """Checks of l6_i8_layer's arguments -> (tr, tc, ny, nx)."""
+    tr, tc = tile
+    if x5.dim() != 4:
+        raise ValueError(f"x5 must be [N, H, W, 128], got {tuple(x5.shape)}")
+    ny, nx = (x5.shape[1] - 4) // (2 * tr), (x5.shape[2] - 4) // (2 * tc)
+    if min(ny, nx) < 1 or tuple(x5.shape[1:]) != (
+            2 * ny * tr + 4, 2 * nx * tc + 4, 128):
+        raise ValueError(f"x5 must be [N, 2*ny*{tr}+4, 2*nx*{tc}+4, 128], "
+                         f"got {tuple(x5.shape)}")
+    if x5.dtype not in DTYPES or not x5.is_contiguous():
+        raise TypeError(f"x5 must be contiguous float32 or bfloat16, got "
+                        f"{x5.dtype}")
+    for name in ("w6q", "w6s"):
+        t = getattr(sp, name, None)
+        if t is None or t.device != x5.device:
+            raise ValueError(f"StackParams.{name} must be on {x5.device}")
+    return tr, tc, ny, nx
 
 
-def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None,
-            tc: int = 0) -> torch.Tensor:
-    """The kernel's 7 launches on the current stream, no synchronisation:
-    x is the low-res plane [N, hl, wl] (kinds "scale", "dense",
-    "fused_u8") or the full-res plane [N, h, w] ("noise": any size,
-    computed on the even-rounded plane, hl = ceil(h/2)). The last layer
-    writes Y_s2d [N, hl, wl, 4], or for "dense" Y [N, hl, nx*4*tc], or for
-    "fused_u8" u8 BGR [N, hl, wl, 16] from `uvp`. `events`, a list of 8
-    timing-enabled CUDA events, is recorded before the first launch and
-    after each, for per-layer times."""
-    global LAUNCHES
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    lib = _lib()
+def l6_i8_layer_plain(x5: torch.Tensor, sp, tile):
+    """Plain PyTorch version of l6_i8_layer."""
+    tr, tc, ny, nx = _check_x5(x5, sp, tile)
+    n = x5.shape[0]
+    x = x5.float().permute(0, 3, 1, 2)
+    x6t = x5.new_empty((n, ny, nx, 2 * tr + 2, 2 * tc + 2, 128))
+    sx = torch.empty((n, ny, nx), dtype=torch.float32, device=x5.device)
+    for ti in range(ny):
+        for tj in range(nx):
+            x6, sx[:, ti, tj] = _l6_i8_window_plain(
+                x[:, :, 2 * ti * tr:2 * (ti + 1) * tr + 4,
+                  2 * tj * tc:2 * (tj + 1) * tc + 4], sp, x5.dtype)
+            x6t[:, ti, tj] = x6.permute(0, 2, 3, 1)
+    return x6t, sx
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+_INT, _PTR = ctypes.c_int, ctypes.c_void_p
+_FLOATS = ctypes.POINTER(ctypes.c_float)
+_ARGTYPES = {
+    "stack": {"w2x_stack_layer": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+                                  _INT, _INT, _INT, _INT, _PTR, _FLOATS, _INT,
+                                  _PTR]},
+    "l6": {"w2x_upto_gather": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                               _INT, _INT, _PTR],
+           "w2x_tile_absmax": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                               _PTR],
+           "w2x_l6_i8": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                         _INT, _INT, _INT, _PTR],
+           "w2x_l6_wino": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                           _PTR],
+           "w2x_last_cell": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                             _INT, _PTR, _FLOATS, _INT, _INT, _INT, _INT,
+                             _INT, _PTR]},
+}
+
+
+_LIBS: dict = {}
+
+
+def _libs() -> dict:
+    """The two kernel libraries by source name, built together at first
+    use and kept for the process."""
+    if not _LIBS:
+        libs = dict(zip(_ARGTYPES, _build.load(*_ARGTYPES)))
+        for name, fns in _ARGTYPES.items():
+            for fn, argtypes in fns.items():
+                getattr(libs[name], fn).argtypes = argtypes
+                getattr(libs[name], fn).restype = ctypes.c_int
+        libs["stack"].w2x_error_string.argtypes = [ctypes.c_int]
+        libs["stack"].w2x_error_string.restype = ctypes.c_char_p
+        _LIBS.update(libs)
+    return _LIBS
+
+
+class _Launcher:
+    """One wrapper call's launches on the current stream of `device`: runs
+    the C entries, raises on an error code, counts each launch and records
+    the caller's timing events."""
+
+    def __init__(self, kind: str, x: torch.Tensor, events):
+        if x.device.type != "cuda":
+            raise ValueError(f"no kernel for device {x.device}")
+        self.kind, self.events, self.step = kind, events, 0
+        self.libs = _libs()
+        self.bf16 = int(x.dtype == torch.bfloat16)
+        self.stream = torch.cuda.current_stream(x.device).cuda_stream
+        self.mark()
+
+    def mark(self) -> None:
+        """Record the next of the caller's events, if any."""
+        if self.events is not None:
+            self.events[self.step].record()
+        self.step += 1
+
+    def run(self, lib: str, fn: str, what: str, l6=None, *args) -> None:
+        global LAUNCHES
+        err = getattr(self.libs[lib], fn)(self.bf16, *args, self.stream)
+        if err:
+            msg = self.libs["stack"].w2x_error_string(err).decode()
+            raise RuntimeError(f"stack kernel, {what}: {msg}")
+        LAUNCHES += 1
+        KERNEL_LAUNCHES[self.kind] += 1
+        if l6 is not None:
+            L6_LAUNCHES[l6] += 1
+
+    def layer(self, k: int, full_res: bool, src, sp, dst, n, ph, pw,
+              out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0) -> None:
+        """Layer k + 1 of csrc/stack.cu."""
+        w, b = sp[k]
+        self.run("stack", "w2x_stack_layer", f"layer {k + 1}",
+                 "direct" if k == 5 else None, int(full_res), k,
+                 src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(),
+                 n, ph, pw, out_mode,
+                 None if uvp is None else uvp.data_ptr(), cmap, tc)
+
+    def l6_i8(self, x5, sp, n, tiling):
+        """The tile maxima and the int8 layer 6 -> (x6t tile-major, m)."""
+        tr, tc, ny, nx = tiling
+        m = torch.zeros((n, ny, nx), dtype=torch.float32, device=x5.device)
+        x6t = torch.empty((n, ny, nx, 2 * tr + 2, 2 * tc + 2, 128),
+                          dtype=x5.dtype, device=x5.device)
+        self.run("l6", "w2x_tile_absmax", "layer 6, tile maxima", "i8",
+                 x5.data_ptr(), m.data_ptr(), n, tr, tc, ny, nx)
+        self.run("l6", "w2x_l6_i8", "layer 6, int8", "i8", x5.data_ptr(),
+                 sp.w6q.data_ptr(), sp.w6s.data_ptr(), sp[5][1].data_ptr(),
+                 m.data_ptr(), x6t.data_ptr(), n, tr, tc, ny, nx)
+        return x6t, m
+
+
+def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
+            form: str = "direct", tile=None, upto=None) -> torch.Tensor:
+    """One call's launches on the current stream, no synchronisation: x is
+    the low-res plane [N, hl, wl] (kinds "scale", "dense", "fused_u8") or
+    the full-res plane [N, h, w] ("noise": any size, computed on the
+    even-rounded plane, hl = ceil(h/2)). The last layer writes Y_s2d
+    [N, hl, wl, 4], or for "dense" Y [N, hl, nx*4*tc], or for "fused_u8"
+    u8 BGR [N, hl, wl, 16] from `uvp`; with `upto` (0..6) the stack stops
+    after that layer and its 4 values per cell are written instead.
+    `form` is layer 6's; "i8" runs on the plane edge-extended to the tile
+    grid. `events`, a list of timing-enabled CUDA events, is recorded before
+    the first launch and after each layer's launches (8 events for a whole
+    stack, upto + 2 with `upto`)."""
     full_res = kind == "noise"
+    x, hl, wl, tiling = _on_grid(
+        x, full_res, form if upto in (None, 6) else "direct", tile)
     n, ph, pw = x.shape
-    hl, wl = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
-    act = n * (2 * hl + 12) * (2 * wl + 12) * 128   # layer 1-6 outputs fit
-    out_mode, cmap = _OUT_S2D, None
+    # the s2d cells of the plane the layers run on
+    hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
+    act = n * (2 * hg + 12) * (2 * wg + 12) * 128   # layer 1-6 outputs fit
+    out_mode, cmap = _OUT_MODES[kind], None
     with torch.cuda.device(x.device):
+        run = _Launcher(kind, x, events)
         bufs = [torch.empty(act, dtype=x.dtype, device=x.device)
-                for _ in range(2)]
+                for _ in range(0 if upto == 0 else 2)]
         # every element of each output form is written by the last launch
-        if kind == "dense":
-            out_mode = _OUT_DENSE
+        if kind == "dense" and upto is None:
             out = torch.empty((n, hl, -(-wl // tc) * 4 * tc), dtype=x.dtype,
                               device=x.device)
-        elif kind == "fused_u8":
-            out_mode = _OUT_U8
+        elif kind == "fused_u8" and upto is None:
             cmap = (ctypes.c_float * 12)(*color._INV.ravel().tolist(),
                                          *color._INV_OFF.tolist())
             out = torch.empty((n, hl, wl, 16), dtype=torch.uint8,
                               device=x.device)
         else:
             out = torch.empty((n, hl, wl, 4), dtype=x.dtype, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         src = x
-        if events is not None:
-            events[0].record()
-        for k, (w, b) in enumerate(sp):
-            dst = out if k == len(sp) - 1 else bufs[k % 2]
-            err = lib.w2x_stack_layer(
-                int(x.dtype == torch.bfloat16), int(full_res), k,
-                src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(),
-                n, ph, pw, out_mode,
-                None if uvp is None else uvp.data_ptr(), cmap, tc, stream)
-            if err:
-                raise RuntimeError(f"stack kernel, layer {k + 1}: "
-                                   f"{lib.w2x_error_string(err).decode()}")
-            LAUNCHES += 1
-            KERNEL_LAUNCHES[kind] += 1
-            if events is not None:
-                events[k + 1].record()
-            src = dst
+        for k in range(5 if upto is None else min(upto, 5)):
+            run.layer(k, full_res, src, sp, bufs[k % 2], n, ph, pw)
+            run.mark()
+            src = bufs[k % 2]
+        if upto is not None and upto <= 5:
+            hk = 2 * hl + 14 - 2 * upto      # layer `upto`'s output plane
+            run.run("l6", "w2x_upto_gather", f"upto {upto}", "upto",
+                    src.data_ptr(), out.data_ptr(), n, hl, wl, hk,
+                    2 * wl + 14 - 2 * upto, WIDTHS[upto - 1][1] if upto
+                    else 1, int(upto == 0))
+            run.mark()
+            return out
+        # layer 6 in its form, layer 5's output being in bufs[0]
+        if form == "i8":
+            x6, _ = run.l6_i8(src, sp, n, tiling)
+        elif form == "wino":
+            x6 = bufs[1]
+            run.run("l6", "w2x_l6_wino", "layer 6, Winograd", "wino",
+                    src.data_ptr(), sp.w6w.data_ptr(), sp[5][1].data_ptr(),
+                    x6.data_ptr(), n, 2 * hg + 4, 2 * wg + 4)
+        else:
+            x6 = bufs[1]
+            run.layer(5, full_res, src, sp, x6, n, ph, pw)
+        run.mark()
+        if form != "i8" and upto is None:
+            run.layer(6, full_res, x6, sp, out, n, ph, pw, out_mode, uvp,
+                      cmap, tc)
+        else:   # from the tile-major layer 6, or the same-cell taps
+            w7, b7 = sp[6]
+            run.run("l6", "w2x_last_cell",
+                    "layer 7" if upto is None else "upto 6",
+                    None if upto is None else "upto", x6.data_ptr(),
+                    w7.data_ptr(), b7.data_ptr(), out.data_ptr(), n, hl, wl,
+                    out_mode if upto is None else _OUT_TAPS,
+                    None if uvp is None else uvp.data_ptr(), cmap, tc,
+                    *(tiling or (0, 0, 0, 0)))
+        run.mark()
     return out
 
 
-def stack_scale(ylow: torch.Tensor, sp, events=None) -> torch.Tensor:
+def l6_i8_layer(x5: torch.Tensor, sp, tile):
+    """The int8 layer 6 alone: the stored layer-5 activation x5
+    [N, 2*ny*tr + 4, 2*nx*tc + 4, 128] (NHWC, f32 or bf16, contiguous) of a
+    plane that is a whole grid of tile = (tr, tc) cells -> (x6t
+    [N, ny, nx, 2tr+2, 2tc+2, 128] in x5's dtype: each tile's layer-6
+    activation with its one-pixel halo, quantised with that tile's scale;
+    sx [N, ny, nx] f32: the tiles' activation scales). CPU tensors take the
+    plain version; CUDA tensors take the kernels, whose two launches count
+    under KERNEL_LAUNCHES["scale"]."""
+    tiling = _check_x5(x5, sp, tile)
+    if x5.device.type == "cpu":
+        return l6_i8_layer_plain(x5, sp, tile)
+    with torch.cuda.device(x5.device):
+        x6t, m = _Launcher("scale", x5, None).l6_i8(x5, sp, x5.shape[0],
+                                                    tiling)
+    return x6t, torch.clamp(m, min=1e-8) * _INV127
+
+
+def layer5_plane(x: torch.Tensor, sp, tile=None,
+                 full_res: bool = False) -> torch.Tensor:
+    """What l6_i8_layer reads: the stored output of layers 1-5 on the
+    plane x edge-extended to the int8 tile grid, NHWC
+    [N, 2*ny*tr + 4, 2*nx*tc + 4, 128] in x's dtype. x is the low-res
+    plane [N, hl, wl] of the scale stack, or with full_res the noise
+    stack's plane [N, h, w]. CPU tensors take the plain layers; CUDA
+    tensors take the kernel's five launches."""
+    _check(x, sp)
+    x, _, _, (tr, tc, ny, nx) = _on_grid(x, full_res, "i8", tile)
+    n, hg, wg = x.shape[0], tr * ny, tc * nx
+    if x.device.type == "cpu":
+        if not full_res:
+            x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        a = pad_replicate(x.float(), 7)
+        with no_tf32():
+            for w, b in sp[:5]:
+                a = _plain_layer(a, w, b, x.dtype)
+        return a.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+    act = n * (2 * hg + 12) * (2 * wg + 12) * 128
+    with torch.cuda.device(x.device):
+        run = _Launcher("noise" if full_res else "scale", x, None)
+        bufs = [torch.empty(act, dtype=x.dtype, device=x.device)
+                for _ in range(2)]
+        src = x
+        for k in range(5):
+            run.layer(k, full_res, src, sp, bufs[k % 2], n, *x.shape[1:])
+            src = bufs[k % 2]
+    return src[:n * (2 * hg + 4) * (2 * wg + 4) * 128].view(
+        n, 2 * hg + 4, 2 * wg + 4, 128)
+
+
+def stack_scale(ylow: torch.Tensor, sp, events=None, l6_i8=None,
+                l6_wino=None, tile=None) -> torch.Tensor:
     """ylow [N, hl, wl] (f32 or bf16, contiguous) -> Y_s2d [N, hl, wl, 4].
     CPU tensors take the plain version; CUDA tensors take the kernel (see
-    _launch for `events`)."""
-    _check(ylow, sp)
+    _launch for `events`, the module docstring for layer 6's forms)."""
+    form = l6_form(l6_i8, l6_wino)
+    _check(ylow, sp, form)
     if ylow.device.type == "cpu":
-        return stack_scale_plain(ylow, sp)
-    return _launch(ylow, sp, "scale", events)
+        return stack_scale_plain(ylow, sp, l6_i8, l6_wino, tile)
+    return _launch(ylow, sp, "scale", events, form=form, tile=tile)
 
 
-def stack_scale_dense(ylow: torch.Tensor, sp, tc=None, events=None):
+def _check_upto(upto) -> None:
+    if upto not in range(7):
+        raise ValueError(f"upto must be 0..6, got {upto!r}")
+
+
+def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
+                     l6_i8=None, l6_wino=None, tile=None) -> torch.Tensor:
+    """The scale stack stopped after layer `upto` (B7): ylow [N, hl, wl] ->
+    [N, hl, wl, 4] in ylow's dtype, 4 values of that stage per s2d cell
+    (i, j), with act_k the output of layer k, whose row r is image row
+    r + k - 7:
+      upto = 1..5  out[n, i, j, c] = act_k[n, 2i, 2j, c], c = 0..3; layers
+                   k+1..7 are not launched.
+      upto = 6     the same-cell tap partials of layer 7, no bias, no
+                   LeakyReLU: out[n, i, j, A*2+B] = sum over dy < 2-A,
+                   dx < 2-B and c of act_6[n, 2i+A+dy, 2j+B+dx, c] *
+                   w7[dy, dx, c], after layer 6 in the form that l6_i8 /
+                   l6_wino select.
+      upto = 0     the low-res taps (0,0), (0,1), (0,2), (1,0) of the 3x3
+                   window at cell (i, j) of ylow edge-padded by 4, no
+                   convolution. The JAX kernel also adds to every value
+                   of a tile one sum over its three neighbour blocks,
+                   which it computes only to keep its compiler from
+                   dropping their fetches and which depends on its tile
+                   grid; the port leaves that constant out.
+    upto + 1 launches (one more with l6_i8 at upto = 6). CPU tensors take
+    the plain version; CUDA tensors take the kernels."""
+    _check_upto(upto)
+    form = l6_form(l6_i8, l6_wino)
+    _check(ylow, sp, form if upto == 6 else "direct")
+    if ylow.device.type == "cpu":
+        return stack_scale_upto_plain(ylow, sp, upto, l6_i8, l6_wino, tile)
+    return _launch(ylow, sp, "scale", events, form=form, tile=tile,
+                   upto=upto)
+
+
+def stack_scale_dense(ylow: torch.Tensor, sp, tc=None, events=None,
+                      l6_i8=None, l6_wino=None, tile=None):
     """ylow [N, hl, wl] -> (ydense [N, hl, nx*4*tc], tc): stack_scale's Y
     with the last layer storing it phase-chunked and dense (zeros past wl
     in the last chunk); dense_to_s2d(ydense, tc, hl, wl) gives stack_scale's
     output bit for bit. tc, a multiple of 32, defaults to the low-res
     width rounded up to 32, at most DENSE_TC. CPU tensors take the plain
     version; CUDA tensors take the kernel."""
-    _check(ylow, sp)
+    form = l6_form(l6_i8, l6_wino)
+    _check(ylow, sp, form)
     tc = _dense_tc(ylow.shape[2], tc)
     if ylow.device.type == "cpu":
-        return stack_scale_dense_plain(ylow, sp, tc)
-    return _launch(ylow, sp, "dense", events, tc=tc), tc
+        return stack_scale_dense_plain(ylow, sp, tc, l6_i8, l6_wino, tile)
+    return _launch(ylow, sp, "dense", events, tc=tc, form=form,
+                   tile=tile), tc
 
 
 def stack_scale_fused_u8(ylow: torch.Tensor, uvp: torch.Tensor, sp,
-                         events=None) -> torch.Tensor:
+                         events=None, l6_i8=None, l6_wino=None,
+                         tile=None) -> torch.Tensor:
     """ylow [N, hl, wl] + channel-major polyphase U/V uvp [N, hl, wl, 8]
     (f32, contiguous; u phases 0:4, v phases 4:8) -> u8 BGR
     [N, hl, wl, 16], lane c*4 + phase, lanes 12:16 zero: the whole 2x step's
     output, with the last layer's f32 Y going straight into the colour map.
     CPU tensors take the plain version; CUDA tensors take the kernel."""
-    _check(ylow, sp)
+    form = l6_form(l6_i8, l6_wino)
+    _check(ylow, sp, form)
     _check_uvp(uvp, ylow)
     if ylow.device.type == "cpu":
-        return stack_scale_fused_u8_plain(ylow, uvp, sp)
-    return _launch(ylow, sp, "fused_u8", events, uvp=uvp)
+        return stack_scale_fused_u8_plain(ylow, uvp, sp, l6_i8, l6_wino,
+                                          tile)
+    return _launch(ylow, sp, "fused_u8", events, uvp=uvp, form=form,
+                   tile=tile)
 
 
-def stack_noise_s2d(y: torch.Tensor, sp, events=None) -> torch.Tensor:
+def stack_noise_s2d(y: torch.Tensor, sp, events=None, l6_i8=None,
+                    l6_wino=None, tile=None) -> torch.Tensor:
     """y [N, h, w] (h, w even; f32 or bf16, contiguous) -> Y_s2d
     [N, h/2, w/2, 4]; raises on odd dims (stack_noise takes any size).
     CPU tensors take the plain version; CUDA tensors take the kernel."""
-    _check(y, sp)
+    form = l6_form(l6_i8, l6_wino)
+    _check(y, sp, form)
     _check_even(y, "stack_noise_s2d")
     if y.device.type == "cpu":
-        return stack_noise_s2d_plain(y, sp)
-    return _launch(y, sp, "noise", events)
+        return stack_noise_s2d_plain(y, sp, l6_i8, l6_wino, tile)
+    return _launch(y, sp, "noise", events, form=form, tile=tile)
 
 
-def stack_noise(y: torch.Tensor, sp, events=None) -> torch.Tensor:
+def stack_noise(y: torch.Tensor, sp, events=None, l6_i8=None, l6_wino=None,
+                tile=None) -> torch.Tensor:
     """y [N, h, w] (any h, w) -> the denoised plane [N, h, w]: the kernel
     runs on the plane edge-padded to even (in its layer-1 index map) and
     the s2d result is interleaved (d2s) and cropped. CPU tensors take the
     plain version; CUDA tensors take the kernel."""
-    _check(y, sp)
+    form = l6_form(l6_i8, l6_wino)
+    _check(y, sp, form)
     if y.device.type == "cpu":
-        return stack_noise_plain(y, sp)
+        return stack_noise_plain(y, sp, l6_i8, l6_wino, tile)
     h, w = y.shape[1:]
-    return d2s(_launch(y, sp, "noise", events))[:, :h, :w, 0]
+    ys = _launch(y, sp, "noise", events, form=form, tile=tile)
+    return d2s(ys)[:, :h, :w, 0]

@@ -14,7 +14,11 @@ PyTorch tail adds U/V (the polyphase bicubic of a scale step, the input's
 own phases for a noise step) and the u8 BGR conversion, and the host
 interleaves the u8 result (d2s_host_cmajor). W2X_TAIL=kernel moves the
 scale step's tail into the kernel's last layer, and W2X_YDENSE=1 has that
-layer store Y phase-chunked (see FUSED_TAIL and YDENSE below). Images below
+layer store Y phase-chunked (see FUSED_TAIL and YDENSE below). W2X_L6_I8=1
+and W2X_L6_WINO=1 run layer 6 of every stack here, scale and noise, as int8
+or as Winograd F(2x2, 3x3): they act inside ops/stack.py (L6_I8, L6_WINO,
+read when that module is imported), so FastStack and every step below follow
+them with no argument of their own, as in the JAX package. Images below
 SMALL_IMG_PX take the f32 non-kernel path (F.conv2d, TF32 off), as the JAX
 package routes them.
 
@@ -153,7 +157,8 @@ def _kernel_dtype(cfg: Config) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class FastStack:
-    """Device-ready conv-stack kernel weights for one model."""
+    """Device-ready conv-stack kernel weights for one model (with layer 6's
+    int8 and Winograd forms, which ops.stack's L6_I8 / L6_WINO select)."""
 
     sp: tuple
     dtype: torch.dtype

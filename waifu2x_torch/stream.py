@@ -20,7 +20,8 @@ memory to a later dispatch before the work that reads it.
 
 Modes mirror the reference CLI (main.cpp:82-169): "scale" (2x), "noise"
 (denoise only), "noise_scale" (denoise then 2x). The scale step follows
-pipeline.FUSED_TAIL / YDENSE (W2X_TAIL, W2X_YDENSE).
+pipeline.FUSED_TAIL / YDENSE (W2X_TAIL, W2X_YDENSE), and both stacks follow
+ops.stack's L6_I8 / L6_WINO (W2X_L6_I8, W2X_L6_WINO).
 
 Not here yet: process_paths and the frame cursor (they need file codecs,
 which come with the port's host I/O), and the multi-device mesh.
