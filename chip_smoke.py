@@ -1,15 +1,19 @@
 """GPU smoke run of the waifu2x_torch port: builds the CUDA kernels, holds
 the conv stack's scale (B1) and noise (B2) input modes, its last layer's
-dense (B6) and u8 (B3) output forms, its truncated form (B7) and layer 6 as
-int8 (B4) and as Winograd (B5) against their plain PyTorch versions, drives
-the scale, noise and noise->scale paths and the frame-stream runtime at full
-model width, with layer 6 in each of its forms, and prints their numbers.
+dense (B6) and u8 (B3) output forms, its truncated form (B7), layer 6 as
+int8 (B4) and as Winograd (B5) and the tensor-core kernel of layers 2-6
+against their plain PyTorch versions, drives the scale, noise and
+noise->scale paths and the frame-stream runtime at full model width, with
+layer 6 in each of its forms, and prints their numbers. In bf16 every stack
+call of every phase runs layers 2-6 on the tensor cores (csrc/mma.cu); the
+f32 calls and, where ops.stack.MID_MMA is set to False, the bf16 calls run
+them as FFMA (csrc/stack.cu).
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
 Phases (any failure raises and exits non-zero):
-  1. build csrc/stack.cu and csrc/l6.cu with nvcc for sm_90a, both at
-     once (ops/_build.py);
+  1. build csrc/stack.cu, csrc/l6.cu and csrc/mma.cu with nvcc for sm_90a,
+     all at once (ops/_build.py);
   2. f32 scale kernel vs plain version at small and odd shapes:
      max |diff| <= 3e-5;
   3. the scale kernel vs its plain version at the scale512 shape
@@ -94,6 +98,25 @@ Phases (any failure raises and exits non-zero):
      the two entry points that drive these configurations directly,
      tools.layer_time_probe (the upto ladder at the scale512 shape) and
      tools.i8_fidelity_probe.
+ 16. tools.mma_probe: the mma_chain kernel (64 back-to-back [M, 128] x
+     [128, 128] bf16 products, f32 sums in registers) against its plain
+     version, max |diff| <= 1e-4 of the largest output, and its TFLOP/s, the
+     ceiling of the layers' inner loop;
+ 17. the tensor-core kernel of layers 2-6 (ops.stack.mma_layer) against its
+     plain version from the packed weights (mma_layer_plain), in both of each
+     layer's compiled chunk plans: all five widths at (1,27,38), (2,37,53)
+     and (1,5,300) with random weights, and a chain of the five layers at
+     the scale512 and noise256 layer shapes with the shipped weights, each
+     layer fed the kernel's output of the one before: |diff| <= one bf16 ulp
+     at the output's magnitude (or 1e-5, the f32 sums' own spread, where the
+     terms cancel), the share of differing outputs printed. Then the old
+     bf16 FFMA layers against the new ones (MID_MMA False / True) over the
+     whole scale512 stack and main path: max |diff| <= 2^-4, both >= 50 dB
+     against the f32 path, launches counted by kernel (5 "mma" and no
+     "ffma" per bf16 stack call on the main paths); per-layer ms of both in
+     one run, in turns (old, new, new, old), with TFLOP/s and GB/s against
+     both peaks, each layer's bound and the cuDNN time of the same five
+     layers; the new layers 2-6 must be at least 2x faster than the old.
 In phases 4, 6-8, 10-11 and 15 every call that the run made to a kernel wrapper
 (one per wrapper, input shape, dtype and weights) is repeated on a copy of
 its input and held against the plain version: f32 max |diff| <= 3e-5; bf16
@@ -102,7 +125,8 @@ f32 plain version with the model's f32 weights; the u8 wrapper at phase 9's
 bars; the dense wrapper also bit-equal to stack_scale; under the int8 switch the
 bf16 bar against the f32 plain version is phase 15's 35 dB.
 Calls on frames of more than 1 M pixels are held on their first frame. Then
-timings with CUDA events for scale512 (each tail, each last-layer form,
+timings with CUDA events (bf16 stacks on the tensor-core layers) for
+scale512 (each tail, each last-layer form,
 each layer-6 form, the truncation's own launches), noise256 and ns1080,
 cuDNN bf16 yardsticks the port never calls, and for each stream its wall
 time beside the sum of its device step times.
@@ -392,6 +416,7 @@ def run_stream(sc, frames, stack, label: str, smi: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(stack.KERNEL_LAUNCHES)
+    mid = dict(stack.MID_LAUNCHES)
     sc._step, sc._dispatch, sc._interleave = step, dispatch, interleave
     if sum(counts.values()) != stack.LAUNCHES:
         raise AssertionError(f"{label}: launch counts {counts} do not add "
@@ -399,7 +424,8 @@ def run_stream(sc, frames, stack, label: str, smi: str):
     dev_s = sum(a.elapsed_time(b) for a, b in steps) / 1e3
     out_px = sum(o.shape[0] * o.shape[1] for o in outs)
     log(f"stream {label} on {smi}: {len(frames)} frames in {len(steps)} "
-        f"dispatches, launches {counts}; wall {wall:.3f} s = "
+        f"dispatches, launches {counts}, layers 2-6 by kernel {mid}; wall "
+        f"{wall:.3f} s = "
         f"{len(frames) / wall:.2f} frames/s = {out_px / wall / 1e6:.2f} "
         f"output MP/s; device steps {dev_s:.3f} s "
         f"({100 * dev_s / wall:.1f}% of wall, host share "
@@ -410,6 +436,13 @@ def run_stream(sc, frames, stack, label: str, smi: str):
     if len(outs) != len(frames):
         raise AssertionError(f"{label}: {len(outs)} outputs for "
                              f"{len(frames)} frames")
+    # layers 2-6 of every stack call (2-5 where layer 6 is int8 or
+    # Winograd), on the tensor cores unless the stack is f32
+    other_l6 = stack.L6_LAUNCHES["i8"] // 2 + stack.L6_LAUNCHES["wino"]
+    stacks = (stack.LAUNCHES - stack.L6_LAUNCHES["i8"] // 2) // 7
+    if mid["mma"] + mid["ffma"] != 5 * stacks - other_l6 or mid["chain"]:
+        raise AssertionError(f"{label}: layers 2-6 launches {mid} of "
+                             f"{stack.LAUNCHES}")
     return outs, counts, len(steps)
 
 
@@ -442,14 +475,96 @@ def layer_rates(ms_per_layer, stack, n, hl, wl, l1_in_px, itemsize=2):
     return "; ".join(rates), act_bytes
 
 
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One unit in the last place of bf16 (8 significant bits) at |v|."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126)))
+                      - 7)
+
+
+MMA_SUM_SPREAD = 1e-5   # what two f32 summation orders differ by at order 1
+
+
+def check_mma_layer(what: str, got: torch.Tensor, ref: torch.Tensor):
+    """Hold a tensor-core layer's bf16 output to its plain version's: the
+    two sum the same exact products in another order, so they differ by at
+    most one bf16 ulp at the output's magnitude, or by MMA_SUM_SPREAD where
+    the terms cancel to less than that. Returns (max |diff|, share of
+    outputs that differ)."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {got.shape} {got.dtype} against "
+                             f"{ref.shape} {ref.dtype}")
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    tol = bf16_ulp(torch.maximum(g.abs(), r.abs())).clamp_min(MMA_SUM_SPREAD)
+    if not bool((diff <= tol).all()) or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: max |diff| {diff.max().item()}, "
+                             f"{(diff > tol).float().mean().item():.3%} of "
+                             f"outputs over one bf16 ulp")
+    return diff.max().item(), (diff > 0).float().mean().item()
+
+
+def mma_plain_in_chunks(stack, x: torch.Tensor, wp, b) -> torch.Tensor:
+    """stack.mma_layer_plain a few frames at a time, so that its f32 copies
+    stay near 2 GB each."""
+    c = max(1, int(2e9 // (x[0].numel() // x.shape[3]
+                           * max(x.shape[3], wp.shape[2]) * 4)))
+    return torch.cat([stack.mma_layer_plain(x[i:i + c], wp, b)
+                      for i in range(0, x.shape[0], c)])
+
+
+def mid_bounds(stack, n: int, hl: int, wl: int):
+    """Per layer 2-6 at an [n, hl, wl] low-res batch: (FLOPs, bytes, bound
+    ms, bound_by), the bytes being the bf16 input, weights and output once
+    each, the bound the larger of FLOPs at the bf16 tensor-core peak and
+    bytes at the memory rate."""
+    out = []
+    for k in range(1, 6):
+        ci, co = stack.WIDTHS[k]
+        hin, win = 2 * hl + 14 - 2 * k, 2 * wl + 14 - 2 * k
+        flops = 2 * n * (hin - 2) * (win - 2) * ci * co * 9
+        moved = (2 * n * (hin * win * ci + (hin - 2) * (win - 2) * co)
+                 + 2 * 9 * ci * co + 4 * co)
+        t_ops, t_b = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+        out.append((flops, moved, max(t_ops, t_b),
+                    "operations" if t_ops >= t_b else "bytes"))
+    return out
+
+
+def cudnn_layers(pairs) -> list:
+    """(w OIHW channels_last, b) in bf16 of the stack's (w, b) pairs, as
+    the library yardsticks' F.conv2d takes them."""
+    return [(w.float().reshape(w.shape[0], 3, 3, w.shape[2])
+             .permute(3, 0, 1, 2).to(torch.bfloat16)
+             .contiguous(memory_format=torch.channels_last),
+             b.to(torch.bfloat16)) for w, b in pairs]
+
+
+def library_mid_ms(sp16, n: int, hl: int, wl: int) -> float:
+    """Library yardstick (never called by the port): layers 2-6 alone as
+    cuDNN bf16 channels_last convolutions + leaky_relu on a random layer-1
+    activation of the batch's shape."""
+    layers = cudnn_layers(sp16[1:6])
+    x1 = torch.rand((n, 32, 2 * hl + 12, 2 * wl + 12), device=sp16[0][0].device
+                    ).to(torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+
+    def library_mid():
+        h = x1
+        for w, b in layers:
+            h = F.leaky_relu(F.conv2d(h, w, b), 0.1)
+        return h
+
+    ms = timed_ms(library_mid)
+    del x1, layers
+    torch.cuda.empty_cache()
+    return ms
+
+
 def library_stack_ms(plane16: torch.Tensor, sp16, post=None) -> float:
     """Library yardstick (never called by the port): the same 7-conv stack
     as cuDNN bf16 channels_last on a plane already replicate-padded by 7
     ([N, H, W] bf16), followed by post(Y [N, H-14, W-14]) where given."""
-    layers = [(w.float().reshape(w.shape[0], 3, 3, w.shape[2])
-               .permute(3, 0, 1, 2).to(torch.bfloat16)
-               .contiguous(memory_format=torch.channels_last),
-               b.to(torch.bfloat16)) for w, b in sp16]
+    layers = cudnn_layers(sp16)
     xpad = plane16[:, None].contiguous(memory_format=torch.channels_last)
 
     def library_stack():
@@ -513,7 +628,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    _build.load("stack", "l6")
+    _build.load("stack", "l6", "mma")
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout
@@ -589,12 +704,14 @@ def main() -> int:
     stack.reset_launches()
     u8 = scale2x_batch_u8_fused(_to_yuv(torch.from_numpy(frames).to(dev)),
                                 fast)
-    launches = stack.LAUNCHES
+    launches, mid_launches = stack.LAUNCHES, dict(stack.MID_LAUNCHES)
     out = d2s_host_cmajor(u8.cpu().numpy())
     log(f"phase 4 main path: {frames.shape} -> {out.shape} {out.dtype}, "
-        f"{launches} kernel launches")
-    if launches != 7 or out.shape != (16, 1024, 1024, 3):
-        raise AssertionError(f"main path: {launches} launches, {out.shape}")
+        f"{launches} kernel launches, layers 2-6 by kernel {mid_launches}")
+    if (launches != 7 or out.shape != (16, 1024, 1024, 3)
+            or mid_launches != {"mma": 5, "ffma": 0, "chain": 0}):
+        raise AssertionError(f"main path: {launches} launches, "
+                             f"{mid_launches}, {out.shape}")
     hold_seen(seen, stack, f32_twin, max_err)
     model32 = SRCNN.from_params(params).to(dev)
     cfg32 = Config(mode="scale", compute_dtype="float32")
@@ -868,6 +985,9 @@ def main() -> int:
         sc = StreamConverter(fast, batch=16, depth=2, device=dev)
         outs, counts, nd = run_stream(sc, frames64, stack, label, smi)
         expect_counts(label, counts, nd, 4, **{kind: 28})
+        if stack.MID_LAUNCHES != {"mma": 20, "ffma": 0, "chain": 0}:
+            raise AssertionError(f"{label}: layers 2-6 launches "
+                                 f"{stack.MID_LAUNCHES}")
         for k in range(0, 64, 16):   # the batch step on the same batch
             ref = d2s_host_cmajor(scale2x_batch_u8_fused(
                 to_yuv_dev(frames64[k:k + 16]), fast).cpu().numpy())
@@ -1247,6 +1367,157 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phases 12-15 passed; {time.perf_counter() - t_start:.1f} s so far")
 
+    # 16. the probe of the tensor-core inner loop
+    from waifu2x_torch.tools import mma_probe
+    log("phase 16 tools.mma_probe:")
+    stack.reset_launches()
+    if mma_probe.main(["--iters", "2"]) != 0:
+        raise AssertionError("mma_probe failed")
+    chain_launches = stack.MID_LAUNCHES["chain"]
+    # one to compare, a warm-up and --iters timed
+    if chain_launches != 4 or stack.LAUNCHES:
+        raise AssertionError(f"mma_probe: launches {stack.MID_LAUNCHES}, "
+                             f"{stack.LAUNCHES}")
+    chain_r = mma_probe.run(256 * 132 * 8, 64, 5, 0, dev)
+    if not chain_r["ok"]:
+        raise AssertionError(f"mma_chain: max |diff| "
+                             f"{chain_r['max_abs_err']}")
+    torch.cuda.empty_cache()
+
+    # 17. the tensor-core kernel of layers 2-6 against its plain version
+    def mma_hold(x, sp, k, label, time_plain=False):
+        """Layer k on x against the plain version -> (the kernel's output,
+        max |diff|, plain ms or None)."""
+        ci, co = stack.WIDTHS[k - 1]
+        t0 = time.perf_counter()
+        ref = mma_plain_in_chunks(stack, x, sp.wm[k - 2], sp[k - 1][1])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 if time_plain else None
+        stack.reset_launches()
+        got = stack.mma_layer(x, sp, k)
+        torch.cuda.synchronize()
+        if (stack.MID_LAUNCHES != {"mma": 1, "ffma": 0, "chain": 0}
+                or stack.LAUNCHES or any(stack.KERNEL_LAUNCHES.values())):
+            raise AssertionError(f"mma_layer alone: launches "
+                                 f"{stack.MID_LAUNCHES}, {stack.LAUNCHES}")
+        err, share = check_mma_layer(f"mma layer {k} {label}", got, ref)
+        log(f"phase 17 mma layer {k} ({ci} -> {co}) {label}, largest output "
+            f"{ref.float().abs().max().item():.3f}: max|kernel - plain| "
+            f"{err:.3e}, {share:.4%} differ")
+        return got, err, plain_ms
+
+    max_err["mma"] = 0.0
+    dev_gen = torch.Generator(device=dev).manual_seed(0)
+    for shape in [(1, 27, 38), (2, 37, 53), (1, 5, 300)]:
+        for k in range(2, 7):
+            x = torch.randn((*shape, stack.WIDTHS[k - 1][0]),
+                            generator=gen).to(dev, torch.bfloat16)
+            _, err, _ = mma_hold(x, sp_rand16, k, f"{shape}")
+            max_err["mma"] = max(max_err["mma"], err)
+    mma_plain_ms = 0.0
+    for label, sp, (nb, hb) in (("scale512", sp16, (16, 512)),
+                                ("noise256", spn16, (256, 128))):
+        side = 2 * hb + 12       # layer 1's output plane, layer 2's input
+        x = torch.rand((nb, side, side, 32), device=dev,
+                       generator=dev_gen).to(torch.bfloat16)
+        for k in range(2, 7):    # each layer fed the kernel's output
+            x, err, ms = mma_hold(x, sp, k, f"{label} {tuple(x.shape)}",
+                                  label == "scale512")
+            max_err["mma"] = max(max_err["mma"], err)
+            mma_plain_ms += ms or 0.0
+            torch.cuda.empty_cache()
+        del x
+    torch.cuda.empty_cache()
+
+    # the old bf16 FFMA layers against the new ones, whole stack and main path
+    ref32 = stack.stack_scale_plain(ylow, sp32)
+    mid_y, mid_db, mid_main_db = {}, {}, {}
+    for flag, name in ((False, "ffma"), (True, "mma")):
+        stack.MID_MMA = flag
+        stack.reset_launches()
+        mid_y[name] = stack.stack_scale(ylow16, sp16)
+        want = {"mma": 5 * flag, "ffma": 5 * (not flag), "chain": 0}
+        if stack.MID_LAUNCHES != want or stack.LAUNCHES != 7:
+            raise AssertionError(f"MID_MMA={flag}: launches "
+                                 f"{stack.MID_LAUNCHES} of {stack.LAUNCHES}")
+        mid_db[name] = psnr1(mid_y[name].float(), ref32)
+        u8 = scale2x_batch_u8_fused(to_yuv_dev(frames[:2]), fast)
+        mid_main_db[name] = psnr(d2s_host_cmajor(u8.cpu().numpy()), ref_main)
+    stack.MID_MMA = True
+    mid_diff = (mid_y["mma"].float() - mid_y["ffma"].float()).abs()
+    max_err["mma_vs_ffma"] = mid_diff.max().item()
+    log(f"phase 17 scale512 stack, bf16, layers 2-6 as FFMA against tensor "
+        f"cores: max |diff| {max_err['mma_vs_ffma']:.3e}, "
+        f"{(mid_diff > 0).float().mean().item():.3%} of outputs differ; vs "
+        f"f32 plain FFMA {mid_db['ffma']:.2f} dB, tensor cores "
+        f"{mid_db['mma']:.2f} dB; main path frames 0-1 vs f32 non-kernel "
+        f"path FFMA {mid_main_db['ffma']:.2f} dB, tensor cores "
+        f"{mid_main_db['mma']:.2f} dB")
+    check_max_err("bf16 stack, tensor cores against FFMA",
+                  max_err["mma_vs_ffma"], BF16_TOL)
+    if not min(*mid_db.values(), *mid_main_db.values()) >= PSNR_BAR:
+        raise AssertionError(f"MID_MMA: {mid_db}, {mid_main_db} dB")
+    del ref32, mid_y, mid_diff, u8
+    torch.cuda.empty_cache()
+
+    # per-layer ms of both kernels in one run, in turns: old, new, new, old
+    mid_ms = {}
+    for shape_name, y16, spx, wrapper in (
+            ("scale512", ylow16, sp16, stack.stack_scale),
+            ("noise256", yn16, spn16, stack.stack_noise_s2d)):
+        turns = {"ffma": [], "mma": []}
+        for flag in (False, True, True, False):
+            stack.MID_MMA = flag
+            wrapper(y16, spx)      # warm-up
+            turns["mma" if flag else "ffma"].append(per_layer_ms(
+                lambda ev: wrapper(y16, spx, events=ev), stack))
+        stack.MID_MMA = True
+        mid_ms[shape_name] = {k: sum(v) / 2 for k, v in turns.items()}
+        nb, hb, wb = y16.shape
+        if wrapper is stack.stack_noise_s2d:
+            hb, wb = hb // 2, wb // 2
+        bounds = mid_bounds(stack, nb, hb, wb)
+        old, new = (mid_ms[shape_name][k][1:6] for k in ("ffma", "mma"))
+        log(f"timing {shape_name} layers 2-6, bf16, on {smi}: FFMA "
+            f"{old.sum():.2f} ms, tensor cores {new.sum():.2f} ms "
+            f"({old.sum() / new.sum():.2f}x), bound "
+            f"{sum(b[2] for b in bounds):.2f} ms; per layer: " + "; ".join(
+                f"L{k + 2} FFMA {old[k]:.2f} ms, tensor cores {new[k]:.2f} "
+                f"ms = {bounds[k][0] / new[k] / 1e9:.1f} TFLOP/s "
+                f"({100 * bounds[k][0] / new[k] / 1e-3 / PEAK_BF16_FLOPS:.1f}"
+                f"% of the bf16 peak), {bounds[k][1] / new[k] / 1e6:.0f} GB/s "
+                f"({100 * bounds[k][1] / new[k] / 1e-3 / PEAK_BYTES:.1f}% of "
+                f"the memory rate), bound {bounds[k][2]:.2f} ms by "
+                f"{bounds[k][3]}" for k in range(5))
+            + f"; the two turns of each: FFMA "
+            f"{turns['ffma'][0][1:6].sum():.2f} / "
+            f"{turns['ffma'][1][1:6].sum():.2f} ms, tensor cores "
+            f"{turns['mma'][0][1:6].sum():.2f} / "
+            f"{turns['mma'][1][1:6].sum():.2f} ms")
+        if not 2 * new.sum() <= old.sum():
+            raise AssertionError(f"{shape_name}: tensor-core layers 2-6 "
+                                 f"{new.sum()} ms, FFMA {old.sum()} ms")
+    mid_bound = mid_bounds(stack, *ylow16.shape)
+    mid_library_ms = library_mid_ms(sp16, *ylow16.shape)
+    # each layer alone at the scale512 shapes, with its plan
+    alone_ms = []
+    for k in range(2, 7):
+        ci, co = stack.WIDTHS[k - 1]
+        side = 2 * 512 + 16 - 2 * k
+        x = torch.rand((16, side, side, ci), device=dev,
+                       generator=dev_gen).to(torch.bfloat16)
+        plan = stack.mma_plan(ci, co)
+        ms = timed_ms(lambda: stack.mma_layer(x, sp16, k))
+        alone_ms.append(f"L{k} kc {plan.kc} x {plan.stages} "
+                        f"({plan.smem_bytes} B) {ms:.2f} ms")
+        del x
+        torch.cuda.empty_cache()
+    log(f"timing scale512 mma_layer alone, on {smi}: " + "; ".join(alone_ms)
+        + f"; cuDNN bf16 layers 2-6 {mid_library_ms:.2f} ms; "
+        f"mma_layer_plain layers 2-6 (in chunks, host clock) "
+        f"{mma_plain_ms:.2f} ms")
+    log(f"phases 16-17 passed; {time.perf_counter() - t_start:.1f} s so far")
+
     maccs = count_maccs_per_pixel()
 
     # timings, scale512 (CUDA events, after a warm-up)
@@ -1560,6 +1831,37 @@ def main() -> int:
         "bound_by": "operations" if ops_ms["wino"] >= io_ms else "bytes",
         "library_ms": library_ms,
         "psnr_db": l6_db["wino"],
+    }, {
+        "name": "conv3x3_bias_leaky_mma, layers 2-6 of every bf16 stack "
+                "call on the tensor cores (wgmma)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/mma.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "launches": mid_launches["mma"],
+        "max_abs_err": max_err["mma"],
+        "max_abs_err_vs_ffma_stack": max_err["mma_vs_ffma"],
+        "ms": float(mid_ms["scale512"]["mma"][1:6].sum()),
+        "ffma_ms": float(mid_ms["scale512"]["ffma"][1:6].sum()),
+        "layer_ms": [float(v) for v in mid_ms["scale512"]["mma"][1:6]],
+        "plain_ms": mma_plain_ms,
+        "bound_ms": sum(b[2] for b in mid_bound),
+        "bound_by": ("operations" if sum(
+            b[2] for b in mid_bound if b[3] == "operations") >= sum(
+            b[2] for b in mid_bound if b[3] == "bytes") else "bytes"),
+        "library_ms": mid_library_ms,
+        "psnr_db": mid_main_db["mma"],
+    }, {
+        "name": "mma_chain, the inner loop's probe (tools/mma_probe.py)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/mma.cu",
+        "replaces": "tools/vmem_bound_probe.py:80",
+        "launches": chain_launches,
+        "max_abs_err": chain_r["max_abs_err"],
+        "ms": chain_r["ms"],
+        "plain_ms": chain_r["plain_ms"],
+        "bound_ms": chain_r["bound_ms"],
+        "bound_by": chain_r["bound_by"],
+        "library_ms": chain_r["library_ms"],
     }]
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,0 +1,153 @@
+// Hopper (sm_90a) tensor-core building blocks for the conv stack's CUDA
+// sources: asynchronous 16-byte copies into shared memory (cp.async), the
+// proxy and warpgroup fences, shared-memory matrix descriptors without
+// swizzle, and the warpgroup product
+//   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16   (N = 32, 64, 128)
+// with both operands read from shared memory and the f32 sums kept in
+// registers. mma.cu builds the layers 2-6 kernel and the mma_chain probe
+// from them.
+//
+// Operand layout without swizzle ("interleaved"): an operand is cut into
+// core matrices of 8 rows x 16 bytes (8 bf16 along K), each stored as 128
+// contiguous bytes, row after row. A descriptor names the first core
+// matrix and two strides:
+//   LBO  bytes from a core matrix to the next one along K (the second 8 of
+//        an instruction's 16 K values);
+//   SBO  bytes from a core matrix to the next one along M (for A) or N (for
+//        B): from rows 0-7 to rows 8-15.
+// (Settled on the card with the mma_chain probe: with the two exchanged the
+// product is wrong.) Both operands are K-major: A is [M][K], B is [N][K].
+//
+// Accumulator fragment of m64nNk16, thread t of the warpgroup, warp
+// w = t / 32, lane l = t % 32: d[4j + 0, 1] are row 16w + l/4, columns
+// 8j + 2(l%4) + {0, 1}; d[4j + 2, 3] are row 16w + l/4 + 8, same columns;
+// j = 0 .. N/8 - 1.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; `valid` false writes 16 zero
+// bytes and reads nothing (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// Makes this thread's completed shared-memory writes (cp.async lands
+// through the generic proxy) visible to the async proxy that wgmma reads
+// through; a barrier between the writers and the readers follows it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING)
+               : "memory");
+}
+
+// The constant half of a descriptor without swizzle: strides in bytes,
+// multiples of 16. Add desc_addr(first core matrix) to it.
+__host__ __device__ constexpr uint64_t desc_strides(uint32_t lbo,
+                                                    uint32_t sbo) {
+  return (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+__device__ __forceinline__ uint64_t desc_addr(uint32_t shared_addr) {
+  return static_cast<uint64_t>((shared_addr & 0x3FFFF) >> 4);
+}
+
+#define W2X_ACC4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define W2X_ACC16(d, i) \
+  W2X_ACC4(d, i), W2X_ACC4(d, i + 4), W2X_ACC4(d, i + 8), W2X_ACC4(d, i + 12)
+
+// d[64 x N] += A[64 x 16] * B[N x 16]^T, one instruction; N / 2 sums a
+// thread. The caller brackets a run of them with wgmma_fence() before and
+// wgmma_commit(), wgmma_wait<0>() after.
+template <int N>
+__device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
+                                        uint64_t b);
+
+template <>
+__device__ __forceinline__ void mma_k16<32>(float (&d)[16], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : W2X_ACC16(d, 0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_k16<64>(float (&d)[32], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : W2X_ACC16(d, 0), W2X_ACC16(d, 16)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_k16<128>(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : W2X_ACC16(d, 0), W2X_ACC16(d, 16), W2X_ACC16(d, 32), W2X_ACC16(d, 48)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+#undef W2X_ACC16
+#undef W2X_ACC4
+
+}  // namespace

@@ -5,9 +5,9 @@
 // stack_noise / stack_noise_s2d (B2), stack_scale_fused_u8 (B3) and
 // stack_scale_dense (B6). The stack's three other configurations, the
 // truncated stack (B7), int8 layer 6 (B4) and Winograd layer 6 (B5), are
-// in l6.cu; they launch this file's layers 1-5 and, where layer 6's output
-// is one plane, its layer 7. common.cuh holds what the two files share,
-// conv3x3_bias_leaky_cell among it.
+// in l6.cu; they launch the layers 1-5 of the same stack and, where layer
+// 6's output is one plane, this file's layer 7. common.cuh holds what the
+// sources share, conv3x3_bias_leaky_cell among it.
 //
 // Replaces: waifu2x_tpu/ops/pallas_stack.py:_run_stack / _stack_body (the
 // one Pallas kernel behind stack_scale, configuration B1, behind
@@ -85,10 +85,15 @@
 // 144 ms per 16 x 1024^2 output pixels, against about 9.7 ms at the bf16
 // tensor-core peak. Per-layer launches also move every activation through
 // device memory: 448 channels written once and read once, about 30 GB per
-// 16 x 1024^2 batch in bf16, about 9 ms at 3.35 TB/s. This design spends
-// neither tensor cores nor on-chip fusion: it keeps the FFMA units fed
-// (12 shared-memory loads feed 96 FMAs per input channel and tap column)
-// and leaves tensor cores and a single fused launch to later work.
+// 16 x 1024^2 batch in bf16, about 9 ms at 3.35 TB/s. This file's layers
+// keep the FFMA units fed (12 shared-memory loads feed 96 FMAs per input
+// channel and tap column). They run layers 1 and 7 of every call and
+// layers 2-6 of an f32 call, where tensor cores would mean TF32; layers
+// 2-6 of a bf16 call run on the tensor cores in mma.cu
+// (conv3x3_bias_leaky_mma), and this file's bf16 instantiation of them
+// stays as the kernel to hold that one against (ops/stack.py:MID_MMA). A
+// single fused launch with the activations kept on chip is left to later
+// work.
 //
 // Memory: the peak is two activation buffers of
 // N*(2hl+12)*(2wl+12)*128*sizeof(T) bytes each: about 8.8 GB together for

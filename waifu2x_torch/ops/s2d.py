@@ -81,3 +81,26 @@ def pack_wino(w) -> np.ndarray:
         raise ValueError(f"pack_wino takes 3x3 kernels, got {w.shape}")
     u = np.einsum("ak,bl,klio->abio", _WINO_G, _WINO_G, w)
     return np.ascontiguousarray(u.reshape(16, w.shape[2], w.shape[3]))
+
+
+def pack_mma(w) -> torch.Tensor:
+    """One conv layer's weights in the order the tensor-core kernel reads
+    them (csrc/mma.cu): [kh, kw, ci, co] -> [ci/8, kh*kw, co, 8] with
+    out[c8, t, o, k] = w[t // kw, t % kw, 8*c8 + k, o]. Eight input
+    channels of one output channel are 16 contiguous bytes in bf16, eight
+    output channels of them one 128-byte core matrix of a K-major B
+    operand, and a chunk of input channels is one contiguous run."""
+    w = torch.as_tensor(w)
+    if w.dim() != 4 or w.shape[2] % 8:
+        raise ValueError(f"pack_mma takes [kh, kw, ci, co] with ci a "
+                         f"multiple of 8, got {tuple(w.shape)}")
+    kh, kw, ci, co = w.shape
+    return (w.reshape(kh * kw, ci // 8, 8, co).permute(1, 0, 3, 2)
+            .contiguous())
+
+
+def unpack_mma(wp: torch.Tensor) -> torch.Tensor:
+    """pack_mma's inverse up to the kernel's shape: [ci/8, taps, co, 8] ->
+    [taps, ci, co]."""
+    c8, taps, co, _ = wp.shape
+    return wp.permute(1, 0, 3, 2).reshape(taps, c8 * 8, co)

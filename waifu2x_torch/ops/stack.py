@@ -31,6 +31,19 @@ Products and sums are f32 (TF32 off); in bf16 each layer's activation is
 rounded to bf16 once after its LeakyReLU, and Y once at the end (not at
 all on its way into the u8 map).
 
+Layers 2-6 (widths 32-32-64-64-128-128, 99.5% of the stack's
+multiply-adds) have two kernels, chosen by the storage dtype. A bf16 call
+runs them on the tensor cores (csrc/mma.cu: conv3x3_bias_leaky_mma, bf16 x
+bf16 products, f32 sums, from weights packed by ops/s2d.py:pack_mma into
+StackParams.wm); an f32 call runs them as f32 FFMA (csrc/stack.cu), since
+tensor cores would mean TF32 there. The two sum in another order and round
+at the same places. MID_MMA = False sends bf16 calls to the FFMA kernel
+too; only tests and chip_smoke.py flip it, to hold one kernel against the
+other and time them in one run. mma_layer is one such layer alone,
+mma_layer_plain its plain version from the packed weights, mma_plan the
+kernel's tile, chunk and shared-memory plan; mma_chain is the probe of the
+kernel's inner loop (tools/mma_probe.py).
+
 Layer 6 (128 -> 128, half of the stack's multiply-adds) has three forms,
 chosen by the arguments `l6_i8` and `l6_wino` of every wrapper; None, the
 default, reads the module switches L6_I8 and L6_WINO, which are set from
@@ -55,7 +68,7 @@ Both at once raise ValueError.
           cropped to the image. `tile=(tr, tc)` sets the tile (the JAX
           package's `tile` argument); None picks default_tile.
 
-The kernels (csrc/stack.cu and csrc/l6.cu, which replace
+The kernels (csrc/stack.cu, csrc/mma.cu and csrc/l6.cu, which replace
 waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
 configurations B1, B2, B3, B6 and B7, B4, B5) launch once per layer: 7
 times per call, 8 with `l6_i8` (the tile maxima are a launch of their
@@ -70,6 +83,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -81,8 +95,10 @@ from waifu2x_torch.ops.s2d import (
     _WINO_AT,
     _WINO_BT_TAPS,
     d2s,
+    pack_mma,
     pack_wino,
     s2d,
+    unpack_mma,
 )
 
 # (cin, cout) of the flagship architecture, the only one the kernel takes
@@ -95,7 +111,9 @@ L6_I8 = os.environ.get("W2X_L6_I8", "0") == "1"
 L6_WINO = os.environ.get("W2X_L6_WINO", "0") == "1"
 I8_TILE = (64, 128)   # largest default int8 tile, in s2d cells
 
-LAUNCHES = 0   # kernel launches; the plain versions add none
+# launches of the stack wrappers' kernels; the plain versions add none, nor
+# do mma_layer and mma_chain alone (they count under MID_LAUNCHES only)
+LAUNCHES = 0
 # the same launches by the wrapper that made them: "scale" (stack_scale,
 # stack_scale_upto), "noise" (stack_noise, stack_noise_s2d), "dense"
 # (stack_scale_dense), "fused_u8" (stack_scale_fused_u8)
@@ -104,6 +122,12 @@ KERNEL_LAUNCHES = {"scale": 0, "noise": 0, "dense": 0, "fused_u8": 0}
 # and the int8 layer), and under "upto" the launches of stack_scale_upto's
 # own last kernel
 L6_LAUNCHES = {"direct": 0, "i8": 0, "wino": 0, "upto": 0}
+# layers 2-6 run on the tensor cores for bf16 storage; False sends them to
+# the f32 FFMA kernel like an f32 call (tests and chip_smoke.py only)
+MID_MMA = True
+# the launches of layers 2-6 by the kernel that ran them, and under "chain"
+# those of the mma_chain probe (which count nowhere else)
+MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0}
 
 # the last layer's output forms (csrc/common.cuh: OUT_*)
 _OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS = 0, 1, 2, 3
@@ -117,7 +141,7 @@ def reset_launches() -> None:
     """Set every launch count to 0."""
     global LAUNCHES
     LAUNCHES = 0
-    for counts in (KERNEL_LAUNCHES, L6_LAUNCHES):
+    for counts in (KERNEL_LAUNCHES, L6_LAUNCHES, MID_LAUNCHES):
         for kind in counts:
             counts[kind] = 0
 
@@ -128,7 +152,10 @@ class StackParams(tuple):
       w6q  int32 [32, 9, 128]: w6 as int8, four input channels to a word
            (byte k of word [c4, t, co] is channel 4*c4 + k; unpack_w6q)
       w6s  f32 [128]: the int8 weights' scale per output channel
-      w6w  [16, 128, 128] in the storage dtype: pack_wino(w6)"""
+      w6w  [16, 128, 128] in the storage dtype: pack_wino(w6)
+    and the weights of layers 2-6 as the tensor-core kernel reads them:
+      wm   five tensors [ci/8, 9, co, 8] in the storage dtype:
+           pack_mma(w_k) for k = 2..6"""
 
 
 def unpack_w6q(w6q: torch.Tensor) -> torch.Tensor:
@@ -165,7 +192,54 @@ def prep_params(params, dtype=torch.bfloat16, device="cuda") -> StackParams:
     sp.w6q = words.to(device).contiguous()
     sp.w6s = torch.from_numpy(sw).to(device)
     sp.w6w = torch.from_numpy(pack_wino(w6)).to(device, dtype).contiguous()
+    sp.wm = tuple(pack_mma(torch.as_tensor(p["w"])).to(device, dtype)
+                  .contiguous() for p in params[1:6])
     return sp
+
+
+class MmaPlan(NamedTuple):
+    """How csrc/mma.cu runs one of layers 2-6 (mma_plan)."""
+    tile: tuple        # output pixels (rows, cols) of one block
+    threads: int       # four warpgroups, one 8 x 8 m64 tile each
+    kc: int            # input channels per staged chunk
+    stages: int        # chunk buffers in the cp.async ring
+    win_stride: int    # the staged window's k8 stride, in 16-byte units
+    smem_bytes: int    # dynamic shared memory of the launch
+
+
+SMEM_MAX = 232448      # what one block may use on an H100 (227 KB)
+_MMA_TILE = 16
+# (kc, stages) per (ci, co), as csrc/mma.cu instantiates each layer (PERF.md
+# has the times of the other chunkings that were tried on an H100)
+_MMA_CHUNK = {(32, 32): (32, 1), (32, 64): (32, 1), (64, 64): (16, 2),
+              (64, 128): (32, 2), (128, 128): (16, 2)}
+
+
+def mma_plan(ci: int, co: int) -> MmaPlan:
+    """The tensor-core kernel's plan for a ci -> co layer: a 16 x 16 pixel
+    tile per block, its 18 x 18 window and the 9 taps' weights staged per
+    chunk of kc input channels in a ring of `stages` buffers, and the
+    shared memory that takes (the larger of the ring and the epilogue's
+    padded output tile). The C entry takes smem_bytes as an argument and
+    refuses bytes that differ from its own count."""
+    if (ci, co) not in _MMA_CHUNK:
+        raise ValueError(f"no tensor-core kernel for a {ci} -> {co} layer")
+    kc, stages = _MMA_CHUNK[(ci, co)]
+    k8c, win = kc // 8, _MMA_TILE + 2
+    stride = win * win + (8 // k8c - win * win % 8 + 8) % 8
+    ring = stages * k8c * (stride + 9 * co) * 16
+    smem = max(ring, _MMA_TILE * _MMA_TILE * (2 * co + 16))
+    if smem > SMEM_MAX:
+        raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
+    return MmaPlan((_MMA_TILE, _MMA_TILE), 512, kc, stages, stride, smem)
+
+
+def mma_grid(n: int, hin: int, win: int) -> tuple:
+    """(tile rows, tile columns, blocks) of the tensor-core kernel over an
+    [n, hin, win] input plane: 16 x 16 tiles that cover the (hin-2) x
+    (win-2) output, the ragged edge masked in the kernel."""
+    nty, ntx = -(-(hin - 2) // _MMA_TILE), -(-(win - 2) // _MMA_TILE)
+    return nty, ntx, n * nty * ntx
 
 
 def l6_form(l6_i8=None, l6_wino=None) -> str:
@@ -231,6 +305,24 @@ def _check(ylow: torch.Tensor, sp, form: str = "direct") -> None:
             raise ValueError(f"{name} must be contiguous on {ylow.device}")
     if form == "wino" and sp.w6w.dtype != ylow.dtype:
         raise TypeError(f"w6w must be {ylow.dtype}, got {sp.w6w.dtype}")
+    wm = getattr(sp, "wm", None)
+    if wm is not None:
+        _check_wm(wm, ylow)
+
+
+def _check_wm(wm, x: torch.Tensor) -> None:
+    """Checks of StackParams.wm against the tensor x it will meet."""
+    if len(wm) != 5:
+        raise ValueError(f"wm must hold layers 2-6, got {len(wm)} tensors")
+    for k, (t, (ci, co)) in enumerate(zip(wm, WIDTHS[1:6]), 2):
+        if tuple(t.shape) != (ci // 8, 9, co, 8):
+            raise ValueError(f"wm, layer {k}: {tuple(t.shape)}, want "
+                             f"{(ci // 8, 9, co, 8)}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"wm, layer {k}: {t.dtype} on {t.device}, want "
+                            f"{x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"wm, layer {k}: must be contiguous")
 
 
 def _check_even(y: torch.Tensor, fn: str) -> None:
@@ -300,6 +392,34 @@ def _plain_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype,
     w_oihw = w.float().reshape(ci, 3, 3, co).permute(3, 0, 1, 2)
     x = leaky_relu(F.conv2d(x, w_oihw, b))
     return x.to(dtype).float() if round_out else x
+
+
+def mma_layer_plain(x: torch.Tensor, wp: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the tensor-core layer (mma_layer), from the
+    PACKED weights: x [N, hin, win, ci] NHWC, wp [ci/8, 9, co, 8]
+    (pack_mma), b [co] f32 -> [N, hin-2, win-2, co] in x's dtype. The 9 taps
+    are 9 shifted [pixels, ci] x [ci, co] products summed in f32, then the
+    bias, LeakyReLU and the one rounding to x's dtype."""
+    w = unpack_mma(wp).float()
+    hout, wout = x.shape[1] - 2, x.shape[2] - 2
+    xf = x.float()
+    acc = None
+    with no_tf32():
+        for t in range(9):
+            term = xf[:, t // 3:t // 3 + hout, t % 3:t % 3 + wout] @ w[t]
+            acc = term if acc is None else acc.add_(term)
+    return leaky_relu(acc.add_(b)).to(x.dtype)
+
+
+def _plain_mid(x: torch.Tensor, sp, k: int, dtype, mma: bool) -> torch.Tensor:
+    """Layer k + 1 (k = 1..5) on f32 values [N, ci, H, W]: _plain_layer, or
+    with `mma` mma_layer_plain from the packed weights."""
+    if not mma:
+        return _plain_layer(x, *sp[k], dtype)
+    y = mma_layer_plain(x.permute(0, 2, 3, 1).to(dtype), sp.wm[k - 1],
+                        sp[k][1])
+    return y.float().permute(0, 3, 1, 2)
 
 
 def _l6_wino_plain(x5: torch.Tensor, sp, dtype) -> torch.Tensor:
@@ -377,7 +497,8 @@ def _taps_plain(x6: torch.Tensor, w7: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
-                 form: str = "direct", tiling=None, upto=None):
+                 form: str = "direct", tiling=None, upto=None,
+                 mma: bool = False):
     """The stack on the padded f32 plane x [N, 1, 2hg+14, 2wg+14] ->
     [N, hg, wg, 4] in s2d layout (f32 values): F.conv2d + bias + LeakyReLU
     per layer in f32 with TF32 off, each stored activation rounded to
@@ -385,7 +506,8 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
     layer's output unrounded, as the u8 epilogue reads it. `form` is layer
     6's; with "i8", `tiling` = (tr, tc, ny, nx) must cover hg x wg exactly.
     upto (1..6) stops after that layer and gives its 4 values per cell
-    (stack_scale_upto)."""
+    (stack_scale_upto). With `mma`, layers 2-6 are mma_layer_plain from the
+    packed weights sp.wm (layer 6 only in its direct form)."""
     hg, wg = (x.shape[2] - 14) // 2, (x.shape[3] - 14) // 2
     w7, b7 = sp[6]
 
@@ -396,14 +518,15 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
         return s2d(y[:, 0, :, :, None])
 
     with no_tf32():
-        for w, b in sp[:5 if upto is None else min(upto, 5)]:
-            x = _plain_layer(x, w, b, dtype)
+        for k in range(5 if upto is None else min(upto, 5)):
+            x = (_plain_mid(x, sp, k, dtype, mma) if k
+                 else _plain_layer(x, *sp[0], dtype))
         if upto is not None and upto <= 5:
             return x[:, :4, 0:2 * hg:2, 0:2 * wg:2].permute(0, 2, 3, 1)
         if form == "wino":
             return last(_l6_wino_plain(x, sp, dtype))
         if form != "i8":
-            return last(_plain_layer(x, *sp[5], dtype))
+            return last(_plain_mid(x, sp, 5, dtype, mma))
         tr, tc, ny, nx = tiling
         out = x.new_empty((x.shape[0], hg, wg, 4))
         for ti in range(ny):
@@ -417,7 +540,8 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
 
 
 def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
-                     form: str = "direct", tile=None, upto=None):
+                     form: str = "direct", tile=None, upto=None,
+                     mma: bool = False):
     """nearest-2x (of the plane edge-extended to the int8 tile grid, where
     there is one), replicate pad 7, the stack (_plain_stack), cropped ->
     [N, hl, wl, 4] as f32 values."""
@@ -425,16 +549,18 @@ def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
         ylow, False, form if upto in (None, 6) else "direct", tile)
     up = ylow.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     y = _plain_stack(pad_replicate(up.float(), 7), sp, ylow.dtype,
-                     round_last, form, tiling, upto)
+                     round_last, form, tiling, upto, mma)
     return y[:, :hl, :wl]
 
 
 def stack_scale_plain(ylow: torch.Tensor, sp, l6_i8=None, l6_wino=None,
-                      tile=None) -> torch.Tensor:
-    """Plain PyTorch version of the scale kernel."""
+                      tile=None, mma: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the scale kernel; with `mma`, layers 2-6
+    from the packed weights (mma_layer_plain)."""
     form = l6_form(l6_i8, l6_wino)
     _check(ylow, sp, form)
-    return _scale_plain_f32(ylow, sp, form=form, tile=tile).to(ylow.dtype)
+    return _scale_plain_f32(ylow, sp, form=form, tile=tile,
+                            mma=mma).to(ylow.dtype)
 
 
 def stack_scale_upto_plain(ylow: torch.Tensor, sp, upto: int, l6_i8=None,
@@ -515,7 +641,7 @@ def stack_scale_fused_u8_plain(ylow: torch.Tensor, uvp: torch.Tensor, sp,
 
 
 def _noise_plain_s2d(y: torch.Tensor, sp, l6_i8=None, l6_wino=None,
-                     tile=None) -> torch.Tensor:
+                     tile=None, mma: bool = False) -> torch.Tensor:
     """Plain noise stack on any [N, h, w]: edge pad to even (to the int8
     tile grid, where there is one) and replicate pad 7, the stack, cropped
     -> [N, ceil(h/2), ceil(w/2), 4]."""
@@ -527,21 +653,22 @@ def _noise_plain_s2d(y: torch.Tensor, sp, l6_i8=None, l6_wino=None,
     hg, wg = (hl, wl) if tiling is None else (tiling[0] * tiling[2],
                                               tiling[1] * tiling[3])
     x = pad_replicate(_edge_extend(y, 2 * hg, 2 * wg).float(), 7)
-    ys = _plain_stack(x, sp, y.dtype, form=form, tiling=tiling)
+    ys = _plain_stack(x, sp, y.dtype, form=form, tiling=tiling, mma=mma)
     return ys[:, :hl, :wl].to(y.dtype)
 
 
 def stack_noise_s2d_plain(y: torch.Tensor, sp, l6_i8=None, l6_wino=None,
-                          tile=None) -> torch.Tensor:
+                          tile=None, mma: bool = False) -> torch.Tensor:
     """Plain PyTorch version of stack_noise_s2d (even dims only)."""
     _check_even(y, "stack_noise_s2d")
-    return _noise_plain_s2d(y, sp, l6_i8, l6_wino, tile)
+    return _noise_plain_s2d(y, sp, l6_i8, l6_wino, tile, mma)
 
 
 def stack_noise_plain(y: torch.Tensor, sp, l6_i8=None, l6_wino=None,
-                      tile=None) -> torch.Tensor:
-    """Plain PyTorch version of stack_noise (any dims)."""
-    ys = _noise_plain_s2d(y, sp, l6_i8, l6_wino, tile)
+                      tile=None, mma: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of stack_noise (any dims); `mma` as in
+    stack_scale_plain."""
+    ys = _noise_plain_s2d(y, sp, l6_i8, l6_wino, tile, mma)
     h, w = y.shape[1:]
     return d2s(ys)[:, :h, :w, 0]
 
@@ -592,6 +719,9 @@ _ARGTYPES = {
     "stack": {"w2x_stack_layer": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
                                   _INT, _INT, _INT, _INT, _PTR, _FLOATS, _INT,
                                   _PTR]},
+    "mma": {"w2x_mma_layer": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                              _INT, _INT, _PTR],
+            "w2x_mma_chain": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR]},
     "l6": {"w2x_upto_gather": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                                _INT, _INT, _PTR],
            "w2x_tile_absmax": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
@@ -610,8 +740,8 @@ _LIBS: dict = {}
 
 
 def _libs() -> dict:
-    """The two kernel libraries by source name, built together at first
-    use and kept for the process."""
+    """The kernel libraries by source name, built together at first use
+    and kept for the process."""
     if not _LIBS:
         libs = dict(zip(_ARGTYPES, _build.load(*_ARGTYPES)))
         for name, fns in _ARGTYPES.items():
@@ -627,7 +757,8 @@ def _libs() -> dict:
 class _Launcher:
     """One wrapper call's launches on the current stream of `device`: runs
     the C entries, raises on an error code, counts each launch and records
-    the caller's timing events."""
+    the caller's timing events. `kind` is the wrapper's KERNEL_LAUNCHES key,
+    or None for a launch that is no part of a stack call."""
 
     def __init__(self, kind: str, x: torch.Tensor, events):
         if x.device.type != "cuda":
@@ -644,26 +775,52 @@ class _Launcher:
             self.events[self.step].record()
         self.step += 1
 
-    def run(self, lib: str, fn: str, what: str, l6=None, *args) -> None:
+    def run(self, lib: str, fn: str, what: str, l6=None, *args,
+            mid=None) -> None:
+        """Launch one kernel and count it, under L6_LAUNCHES[l6] and
+        MID_LAUNCHES[mid] too where given."""
         global LAUNCHES
         err = getattr(self.libs[lib], fn)(self.bf16, *args, self.stream)
         if err:
             msg = self.libs["stack"].w2x_error_string(err).decode()
             raise RuntimeError(f"stack kernel, {what}: {msg}")
-        LAUNCHES += 1
-        KERNEL_LAUNCHES[self.kind] += 1
+        if self.kind is not None:
+            LAUNCHES += 1
+            KERNEL_LAUNCHES[self.kind] += 1
         if l6 is not None:
             L6_LAUNCHES[l6] += 1
+        if mid is not None:
+            MID_LAUNCHES[mid] += 1
 
     def layer(self, k: int, full_res: bool, src, sp, dst, n, ph, pw,
               out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0) -> None:
-        """Layer k + 1 of csrc/stack.cu."""
+        """Layer k + 1: layers 2-6 of a bf16 call on the tensor cores
+        (csrc/mma.cu), everything else through csrc/stack.cu."""
         w, b = sp[k]
+        if 1 <= k <= 5 and self.bf16 and MID_MMA:
+            hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
+            self.mma_layer(k, src, sp, dst, n, 2 * hg + 14 - 2 * k,
+                           2 * wg + 14 - 2 * k, l6="direct" if k == 5
+                           else None)
+            return
         self.run("stack", "w2x_stack_layer", f"layer {k + 1}",
                  "direct" if k == 5 else None, int(full_res), k,
                  src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(),
                  n, ph, pw, out_mode,
-                 None if uvp is None else uvp.data_ptr(), cmap, tc)
+                 None if uvp is None else uvp.data_ptr(), cmap, tc,
+                 mid="ffma" if 1 <= k <= 5 else None)
+
+    def mma_layer(self, k: int, src, sp, dst, n, hin, win, l6=None) -> None:
+        """Layer k + 1 (k = 1..5) of csrc/mma.cu on an [n, hin, win, ci]
+        plane."""
+        wm = getattr(sp, "wm", None)
+        if wm is None:
+            raise ValueError("the tensor-core layers need prep_params' "
+                             "packed weights (StackParams.wm)")
+        self.run("mma", "w2x_mma_layer", f"layer {k + 1} (mma)", l6, k,
+                 src.data_ptr(), wm[k - 1].data_ptr(), sp[k][1].data_ptr(),
+                 dst.data_ptr(), n, hin, win,
+                 mma_plan(*WIDTHS[k]).smem_bytes, mid="mma")
 
     def l6_i8(self, x5, sp, n, tiling):
         """The tile maxima and the int8 layer 6 -> (x6t tile-major, m)."""
@@ -804,6 +961,89 @@ def layer5_plane(x: torch.Tensor, sp, tile=None,
             src = bufs[k % 2]
     return src[:n * (2 * hg + 4) * (2 * wg + 4) * 128].view(
         n, 2 * hg + 4, 2 * wg + 4, 128)
+
+
+def mma_layer(x: torch.Tensor, sp, k: int) -> torch.Tensor:
+    """Layer k (2..6) alone on the tensor cores: x [N, hin, win, ci] NHWC
+    bf16, contiguous -> [N, hin-2, win-2, co] bf16, from sp.wm[k-2] and
+    layer k's bias. CPU tensors take mma_layer_plain; CUDA tensors take the
+    kernel, whose launch counts under MID_LAUNCHES["mma"] only."""
+    if k not in range(2, 7):
+        raise ValueError(f"the tensor-core kernel runs layers 2..6, got {k}")
+    ci, co = WIDTHS[k - 1]
+    if x.dim() != 4 or x.shape[3] != ci or min(x.shape[1:3]) < 3:
+        raise ValueError(f"layer {k} takes [N, hin >= 3, win >= 3, {ci}], "
+                         f"got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise TypeError(f"x must be contiguous bfloat16, got {x.dtype}")
+    wm = getattr(sp, "wm", None)
+    if wm is None:
+        raise ValueError("mma_layer needs prep_params' packed weights "
+                         "(StackParams.wm)")
+    _check_wm(wm, x)
+    if x.device.type == "cpu":
+        return mma_layer_plain(x, wm[k - 2], sp[k - 1][1])
+    n, hin, win, _ = x.shape
+    with torch.cuda.device(x.device):
+        y = torch.empty((n, hin - 2, win - 2, co), dtype=x.dtype,
+                        device=x.device)
+        _Launcher(None, x, None).mma_layer(k - 1, x, sp, y, n, hin, win)
+    return y
+
+
+CHAIN_ROWS = 256   # rows of x per block of the probe kernel
+
+
+def pack_chain(w: torch.Tensor) -> torch.Tensor:
+    """The probe's weights [P, 128, 128] (w_p[k, n]) -> [P, 16, 1, 128, 8]:
+    pack_mma of each w_p as a 1 x 1 kernel."""
+    return torch.stack([pack_mma(wk[None, None]) for wk in w])
+
+
+def mma_chain_plain(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of mma_chain: the P products as torch.matmul
+    on f32 copies, summed in f32."""
+    xf, acc = x.float(), None
+    with no_tf32():
+        for wk in wp:
+            term = xf @ unpack_mma(wk)[0].float()
+            acc = term if acc is None else acc.add_(term)
+    return acc
+
+
+def mma_chain(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+    """The probe of the tensor-core kernel's inner loop: x [M, 128] bf16 and
+    wp = pack_chain(w [P, 128, 128]) -> out [M, 128] f32 = the sum over p of
+    x @ w_p, P back-to-back products through the layer kernel's device
+    functions with the sums kept in registers. M must be a multiple of
+    CHAIN_ROWS. CPU tensors take the plain version; CUDA tensors take the
+    kernel, whose launch counts under MID_LAUNCHES["chain"] only."""
+    if (x.dim() != 2 or x.shape[1] != 128 or x.shape[0] % CHAIN_ROWS
+            or x.shape[0] < CHAIN_ROWS):
+        raise ValueError(f"x must be [M, 128] with M a multiple of "
+                         f"{CHAIN_ROWS}, got {tuple(x.shape)}")
+    if wp.dim() != 5 or tuple(wp.shape[1:]) != (16, 1, 128, 8):
+        raise ValueError(f"wp must be pack_chain's [P, 16, 1, 128, 8], got "
+                         f"{tuple(wp.shape)}")
+    for name, t in (("x", x), ("wp", wp)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous bfloat16")
+    if wp.device != x.device:
+        raise ValueError(f"wp on {wp.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return mma_chain_plain(x, wp)
+    with torch.cuda.device(x.device):
+        out = torch.empty((x.shape[0], 128), dtype=torch.float32,
+                          device=x.device)
+        libs = _libs()
+        err = libs["mma"].w2x_mma_chain(
+            1, x.data_ptr(), wp.data_ptr(), out.data_ptr(), x.shape[0],
+            wp.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            msg = libs["stack"].w2x_error_string(err).decode()
+            raise RuntimeError(f"mma_chain: {msg}")
+        MID_LAUNCHES["chain"] += 1
+    return out
 
 
 def stack_scale(ylow: torch.Tensor, sp, events=None, l6_i8=None,
