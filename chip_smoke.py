@@ -4,7 +4,8 @@ dense (B6) and u8 (B3) output forms, its truncated form (B7), layer 6 as
 int8 (B4) and as Winograd (B5) and the tensor-core kernel of layers 2-6
 against their plain PyTorch versions, drives the scale, noise and
 noise->scale paths and the frame-stream runtime at full model width, with
-layer 6 in each of its forms, and prints their numbers. In bf16 every stack
+layer 6 in each of its forms, runs the data-movement probes (csrc/probe.cu)
+and prints their numbers. In bf16 every stack
 call of every phase runs layers 2-6 on the tensor cores (csrc/mma.cu); the
 f32 calls and, where ops.stack.MID_MMA is set to False, the bf16 calls run
 them as FFMA (csrc/stack.cu).
@@ -12,8 +13,8 @@ them as FFMA (csrc/stack.cu).
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
 Phases (any failure raises and exits non-zero):
-  1. build csrc/stack.cu, csrc/l6.cu and csrc/mma.cu with nvcc for sm_90a,
-     all at once (ops/_build.py);
+  1. build csrc/stack.cu, csrc/l6.cu, csrc/mma.cu and csrc/probe.cu with
+     nvcc for sm_90a, all at once (ops/_build.py);
   2. f32 scale kernel vs plain version at small and odd shapes:
      max |diff| <= 3e-5;
   3. the scale kernel vs its plain version at the scale512 shape
@@ -77,7 +78,9 @@ Phases (any failure raises and exits non-zero):
  14. int8 layer 6 (B4), l6_i8=True, at equal tile, scale and noise input
      modes, a grid that pads both ways, a single tile, scale512 and
      noise256: (a) layer 6 alone, kernel and plain version fed the same
-     stored layer-5 plane: the quantised values and the int32 sums are then
+     stored layer-5 plane (layer5_plane and l6_i8_layer, standalone
+     wrappers, leave the stack counts LAUNCHES and KERNEL_LAUNCHES as they
+     were): the quantised values and the int32 sums are then
      the same on both sides, so f32 <= 3e-5 and bf16 <= 2^-4 with no
      allowance for ties, and the tiles' scales equal bit for bit; (b) the
      whole stack: a quantiser tie that the f32 summation order of layers
@@ -117,6 +120,21 @@ Phases (any failure raises and exits non-zero):
      one run, in turns (old, new, new, old), with TFLOP/s and GB/s against
      both peaks, each layer's bound and the cuDNN time of the same five
      layers; the new layers 2-6 must be at least 2x faster than the old.
+ 18. the data-movement probes (ops/probe.py, csrc/probe.cu: probe_store,
+     probe_fetch_map, probe_fetch_reduce, probe_l1_mm; the counterparts of
+     13 pallas_call sites of the JAX package's tools/): every one of the 30
+     variants against its plain version at its JAX tool's grid (B = 16 or 4,
+     (8, 4) cells of (64, 128)), equal bit for bit (cin9mm and
+     grid_floor's 4-fetch, whose f32 sums the kernel takes in another order,
+     on inputs k / 256 that make every sum exact); then the slice's main
+     path, tools.stage_time, tools.grid_floor_probe and tools.dma_probe
+     (rounds 1-3), with the launch counts read around them (203 per
+     variant: a check, then a warm-up and 100 timed launches captured into
+     a CUDA graph, and the same issued one by one), each variant's bytes by
+     its BlockSpecs and distinct bytes (neighbouring cells' blocks overlap
+     in four variants), time (one replay of the graph, and one by one) and
+     GB/s; a variant that moves its distinct bytes faster than 3.35 TB/s
+     fails the phase (a fetch was dropped).
 In phases 4, 6-8, 10-11 and 15 every call that the run made to a kernel wrapper
 (one per wrapper, input shape, dtype and weights) is repeated on a copy of
 its input and held against the plain version: f32 max |diff| <= 3e-5; bf16
@@ -132,7 +150,9 @@ cuDNN bf16 yardsticks the port never calls, and for each stream its wall
 time beside the sum of its device step times.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
-is the kernel table as JSON (u8 kernels give max_abs_err in u8 levels).
+is the kernel table as JSON (u8 kernels give max_abs_err in u8 levels; a
+probe kernel's ms, plain_ms, bound_ms and library_ms are the sums over its
+variants, and "variants" lists each one's).
 Without a CUDA card it exits non-zero and prints no result.
 """
 
@@ -200,16 +220,8 @@ def log(*args):
 
 def timed_ms(fn, reps: int = 3) -> float:
     """Mean device time of fn() over `reps` runs after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    from waifu2x_torch.utils.timing import time_ms
+    return time_ms(lambda _: fn(), torch.device("cuda"), reps)
 
 
 def psnr1(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -560,23 +572,41 @@ def library_mid_ms(sp16, n: int, hl: int, wl: int) -> float:
     return ms
 
 
-def library_stack_ms(plane16: torch.Tensor, sp16, post=None) -> float:
+def library_stack_ms(plane16: torch.Tensor, sp16, post=None,
+                     upto: "int | None" = None) -> float:
     """Library yardstick (never called by the port): the same 7-conv stack
     as cuDNN bf16 channels_last on a plane already replicate-padded by 7
-    ([N, H, W] bf16), followed by post(Y [N, H-14, W-14]) where given."""
-    layers = cudnn_layers(sp16)
+    ([N, H, W] bf16), followed by post(Y [N, H-14, W-14]) where given. With
+    `upto` the chain stops after that layer and post gets its whole output
+    [N, C, H', W']."""
+    layers = cudnn_layers(sp16 if upto is None else sp16[:upto])
     xpad = plane16[:, None].contiguous(memory_format=torch.channels_last)
 
     def library_stack():
         h = xpad
         for w, b in layers:
             h = F.leaky_relu(F.conv2d(h, w, b), 0.1)
-        return h if post is None else post(h[:, 0])
+        if post is None:
+            return h
+        return post(h[:, 0] if upto is None else h)
 
     ms = timed_ms(library_stack)
     del xpad, layers
     torch.cuda.empty_cache()
     return ms
+
+
+def tap_kernel(w7: torch.Tensor) -> torch.Tensor:
+    """Layer 7's same-cell taps (stack_scale_upto at upto = 6) as one
+    stride-2 convolution: [4, 128, 2, 2] bf16, phase a*2+b holding tap
+    (dy, dx) of w7 [128, 9, 1] for dy < 2 - a, dx < 2 - b."""
+    k = torch.zeros((4, 128, 2, 2), device=w7.device)
+    for a in (0, 1):
+        for b in (0, 1):
+            for dy in range(2 - a):
+                for dx in range(2 - b):
+                    k[a * 2 + b, :, dy, dx] = w7[:, dy * 3 + dx, 0].float()
+    return k.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
 
 
 def stack_bound(plane: torch.Tensor, out_px: int, sp, maccs: int,
@@ -615,12 +645,10 @@ def main() -> int:
         noise_y_batch_fast, scale2x_batch, scale2x_batch_u8_fused)
     from waifu2x_torch.stream import StreamConverter
     from waifu2x_torch.utils.metrics import psnr
+    from waifu2x_torch.utils.timing import card_name
 
     t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     log(smi)
     dev = torch.device("cuda")
     log("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -628,7 +656,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    _build.load("stack", "l6", "mma")
+    _build.load("stack", "l6", "mma", "probe")
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout
@@ -1179,15 +1207,28 @@ def main() -> int:
     def rms(t: torch.Tensor) -> float:
         return t.double().pow(2).mean().sqrt().item()
 
+    def stacks_unchanged(what: str, call):
+        before = (stack.LAUNCHES, dict(stack.KERNEL_LAUNCHES))
+        out = call()
+        if (stack.LAUNCHES, stack.KERNEL_LAUNCHES) != before:
+            raise AssertionError(f"{what} alone moved the stack counts: "
+                                 f"{before} -> {stack.LAUNCHES}, "
+                                 f"{stack.KERNEL_LAUNCHES}")
+        return out
+
     def i8_layer_check(y32, sps, label, tile, noise, frames_a) -> float:
         """(a): layer 6 alone on the kernel's stored layer-5 plane."""
         worst = 0.0
         for sp, dt in zip(sps, (torch.float32, torch.bfloat16)):
             y = y32[:frames_a].to(dt).contiguous()
-            x5 = stack.layer5_plane(y, sp, tile, full_res=noise)
             tile_ = tile or stack.default_tile(*(
                 (-(-d // 2) for d in y.shape[1:]) if noise else y.shape[1:]))
-            x6k, sxk = stack.l6_i8_layer(x5, sp, tile_)
+            # two standalone wrappers: no stack ran, so neither adds to the
+            # stack counts (LAUNCHES, KERNEL_LAUNCHES)
+            x5 = stacks_unchanged("layer5_plane", lambda: stack.layer5_plane(
+                y, sp, tile, full_res=noise))
+            x6k, sxk = stacks_unchanged("l6_i8_layer", lambda: (
+                stack.l6_i8_layer(x5, sp, tile_)))
             x6p, sxp = stack.l6_i8_layer_plain(x5, sp, tile_)
             err = (x6k.float() - x6p.float()).abs().max().item()
             log(f"phase 14a i8 layer 6 alone {label} {dt}, tile {tile_}, "
@@ -1518,6 +1559,51 @@ def main() -> int:
         f"{mma_plain_ms:.2f} ms")
     log(f"phases 16-17 passed; {time.perf_counter() - t_start:.1f} s so far")
 
+    # 18. the data-movement probes (csrc/probe.cu): every variant against
+    # its plain version at its JAX tool's grid, then the three tools
+    from waifu2x_torch.ops import probe
+    from waifu2x_torch.tools import dma_probe, grid_floor_probe, stage_time
+    probe_err = {k: 0.0 for k in probe.LAUNCHES}
+    for tool, names in probe.TOOL_VARIANTS.items():
+        g = probe.Grid(4 if tool.startswith("dma") else 16, 8, 4)
+        for name in names:
+            v = probe.VARIANTS[name]
+            args = probe.make_inputs(v, g, 0, dev)
+            got = probe.run(v, g, args, device=dev)
+            ref = probe.plain(v, g, args, dev)
+            err, share, ok = probe.compare(got, ref)
+            log(f"phase 18 {name} ({v.site}, {v.kernel}) {tuple(got.shape)} "
+                f"{got.dtype}: max|kernel - plain| = {err:.3g}, "
+                f"{share:.5%} of outputs differ (bar: bit-equal"
+                f"{', exact sums' if name in probe.SUM_VARIANTS else ''})")
+            if not ok:
+                raise AssertionError(f"probe {name}: kernel != plain")
+            probe_err[v.kernel] = max(probe_err[v.kernel], err)
+            del args, got, ref
+    torch.cuda.empty_cache()
+    # the slice's main path: the three tools, counted
+    probe.reset_launches()
+    probe_rows = []
+    for tool, argv in ((stage_time, []), (grid_floor_probe, []),
+                       (dma_probe, [])):
+        if tool.main(argv, probe_rows) != 0:
+            raise AssertionError(f"{tool.__name__} failed")
+    probe_launches = dict(probe.LAUNCHES)
+    # per variant: the check, then a warm-up and the 100 timed launches
+    # twice, once captured into the graph and once issued one by one (the
+    # graph's replays run the captured launches and add no count)
+    per_kernel = {k: sum(r["kernel"] == k for r in probe_rows)
+                  for k in probe_launches}
+    if probe_launches != {k: 203 * n for k, n in per_kernel.items()}:
+        raise AssertionError(f"probe launches {probe_launches}, variants "
+                             f"{per_kernel}")
+    fast_rows = [r["name"] for r in probe_rows if not r["rate_ok"]]
+    if fast_rows:   # over the memory rate: a fetch was dropped
+        raise AssertionError(f"probes over {PEAK_BYTES / 1e12} TB/s: "
+                             f"{fast_rows}")
+    torch.cuda.empty_cache()
+    log(f"phase 18 passed; {time.perf_counter() - t_start:.1f} s so far")
+
     maccs = count_maccs_per_pixel()
 
     # timings, scale512 (CUDA events, after a warm-up)
@@ -1722,12 +1808,24 @@ def main() -> int:
         stack.stack_scale_upto(ylow16, sp16, k, events=ev)
         torch.cuda.synchronize()
         own[k] = ev[k].elapsed_time(ev[k + 1])
+    # the library's form: the cuDNN chain of layers 1-6, then the taps as
+    # one stride-2 convolution
+    taps16 = tap_kernel(sp16[6][0])
+    xpad16 = F.pad(
+        ylow16.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, None],
+        (7,) * 4, mode="replicate")[:, 0]
+    u6_library_ms = library_stack_ms(xpad16, sp16, upto=6, post=lambda h: (
+        F.conv2d(h, taps16, stride=2)))
+    del xpad16, taps16
+    torch.cuda.empty_cache()
     # layers 1-6 and the 9 same-cell taps of 128 channels per s2d cell
     u6_maccs = maccs - 128 * 9 + 128 * 9 // 4
     u6_bound_ms, u6_bound_by, _ = stack_bound(ylow16, out_px, sp16, u6_maccs)
     log(f"timing scale512 stack_scale_upto(6), bf16, on {smi}: "
         f"{u6_ms:.2f} ms (bound {u6_bound_ms:.2f} ms by {u6_bound_by}), "
-        f"plain (in chunks) {u6_plain_ms:.2f} ms; B7's own launch: upto 0 "
+        f"plain (in chunks) {u6_plain_ms:.2f} ms, cuDNN bf16 layers 1-6 + "
+        f"taps as one stride-2 conv {u6_library_ms:.2f} ms; B7's own "
+        f"launch: upto 0 "
         f"{own[0]:.3f} ms, upto 5 {own[5]:.3f} ms, upto 6 {own[6]:.3f} ms "
         f"(output {n * hl * wl * 8 / 1e6:.1f} MB)")
 
@@ -1797,7 +1895,7 @@ def main() -> int:
         "plain_ms": u6_plain_ms,
         "bound_ms": u6_bound_ms,
         "bound_by": u6_bound_by,
-        "library_ms": None,
+        "library_ms": u6_library_ms,
     }, {
         "name": "tile_absmax + l6_i8_conv, int8 layer 6 (l6_i8=True, B4)",
         "route": "cuda",
@@ -1863,6 +1961,39 @@ def main() -> int:
         "bound_by": chain_r["bound_by"],
         "library_ms": chain_r["library_ms"],
     }]
+    kernel_names = {
+        "store": "probe_store, a constant to every output block",
+        "fetch_map": "probe_fetch_map, 1 or 4 blocks fetched, a map out",
+        "fetch_reduce": "probe_fetch_reduce, 1 or 4 blocks fetched, "
+                        "reduced to one f32 per cell",
+        "l1_mm": "probe_l1_mm, 9-lane block x (9, 128) weight, lanes 0-3 "
+                 "planar"}
+    for k, name in kernel_names.items():
+        rows_k = [r for r in probe_rows if r["kernel"] == k]
+        kernels.append({
+            "name": name + " (tools/stage_time.py, grid_floor_probe.py, "
+                           "dma_probe.py)",
+            "route": "cuda",
+            "source": "waifu2x_torch/csrc/probe.cu",
+            "replaces": ", ".join(dict.fromkeys(r["site"] for r in rows_k)),
+            "launches": probe_launches[k],
+            "max_abs_err": probe_err[k],
+            # ms, plain_ms, bound_ms and library_ms: the sums over the
+            # kernel's variants, each at its tool's grid; "variants" has
+            # each one's
+            "ms": sum(r["ms"] for r in rows_k),
+            "plain_ms": sum(r["plain_ms"] for r in rows_k),
+            "bound_ms": sum(r["bound_ms"] for r in rows_k),
+            "bound_by": ("operations" if all(
+                r["bound_by"] == "operations" for r in rows_k) else "bytes"),
+            "library_ms": sum(r["library_ms"] for r in rows_k),
+            "variants": {r["name"]: {
+                key: r[key] for key in (
+                    "site", "bytes", "distinct_bytes", "ms", "eager_ms",
+                    "rate_gbs", "bound_ms", "ffma_floor_ms", "plain_ms",
+                    "library_ms", "max_abs_err")}
+                for r in rows_k},
+        })
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

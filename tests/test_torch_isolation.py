@@ -38,7 +38,13 @@ def test_scan_covers_the_package():
             "waifu2x_torch/tools/__init__.py",
             "waifu2x_torch/tools/layer_time_probe.py",
             "waifu2x_torch/tools/i8_fidelity_probe.py",
+            "waifu2x_torch/ops/probe.py",
+            "waifu2x_torch/tools/stage_time.py",
+            "waifu2x_torch/tools/grid_floor_probe.py",
+            "waifu2x_torch/tools/dma_probe.py",
+            "waifu2x_torch/utils/timing.py",
             "chip_smoke.py"} <= names
+    assert (ROOT / "waifu2x_torch" / "csrc" / "probe.cu").is_file()
 
 
 def test_stream_module_imports_only_the_port():

@@ -5,6 +5,8 @@ Bars: u8 outputs equal except |diff| <= 1 on < 0.2% of pixels where the two
 sides round the final u8 from f32 sums taken in another order; banding is
 exact; scale_plan is identical."""
 
+import logging
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,8 @@ from waifu2x_torch import pipeline as pl
 from waifu2x_torch.config import Config
 from waifu2x_torch.models.srcnn import SRCNN
 from waifu2x_torch.models.weights import params_from_numpy
+from waifu2x_torch.ops.s2d import d2s_host
+from waifu2x_torch.utils.metrics import psnr
 
 torch.set_num_threads(2)
 
@@ -191,3 +195,101 @@ def test_process_alpha_matches_jax(model_dir, rng):
             mode="scale", scale_ratio=ratio, model_dir=model_dir),
             device="cpu").process_alpha(alpha)
         _assert_u8_close(got, ref)
+
+
+def test_scale2x_batch_u8_s2d_matches_jax(params_np, fast32, rng):
+    """The pixel-major u8 polyphase step against the JAX function, both
+    through the plain stack on the CPU, at the u8 bar; its host interleave
+    (d2s_host) equals the port's own raster step bit for bit."""
+    yuv = rng.random((2, 24, 40, 3), dtype=np.float32)
+    jfast = jpl.FastStack.build(params_np, True, tile=(8, 16),
+                                dtype=jnp.float32, interpret=True)
+    ref = np.asarray(jpl.scale2x_batch_u8_s2d(jnp.asarray(yuv), jfast))
+    got = pl.scale2x_batch_u8_s2d(torch.from_numpy(yuv), fast32).numpy()
+    assert got.shape == (2, 24, 40, 12)
+    _assert_u8_close(got, ref)
+    raster = pl._to_bgr_u8(pl.scale2x_batch_fast(torch.from_numpy(yuv),
+                                                 fast32)).numpy()
+    np.testing.assert_array_equal(d2s_host(got), raster)
+
+
+@pytest.mark.parametrize("shape", [(40, 40), (21, 45)])
+def test_convert_y_bf16_matches_jax(params_np, rng, shape):
+    """The non-kernel path with compute_dtype="bfloat16" against the JAX
+    _convert_y in bf16 on the same plane: >= 50 dB (peak 1), the bf16 bar.
+    Both round activations to bf16 at each layer; the sums differ in order."""
+    plane = rng.random(shape, dtype=np.float32)
+    ref = np.asarray(jpl._convert_y(
+        jnp.asarray(plane), params_np,
+        JConfig(mode="scale", compute_dtype="bfloat16", block_size=0)))
+    model = SRCNN.from_params(params_from_numpy(params_np))
+    got = pl._convert_y(torch.from_numpy(plane)[None], model,
+                        Config(mode="scale", compute_dtype="bfloat16"))
+    assert got.dtype == torch.float32 and got.shape == (1, *shape)
+    assert psnr(got[0].numpy(), ref, peak=1.0) >= 50
+    f32 = pl._convert_y(torch.from_numpy(plane)[None], model,
+                        Config(mode="scale", compute_dtype="float32"))
+    assert not torch.equal(got, f32)   # the bf16 branch was taken
+
+
+@pytest.fixture
+def mesh_log(caplog):
+    """caplog on the port's logger, which does not propagate to the root."""
+    logger = logging.getLogger("waifu2x_torch.pipeline")
+    logger.addHandler(caplog.handler)
+    yield caplog
+    logger.removeHandler(caplog.handler)
+
+
+def _mesh_records(caplog):
+    return [r for r in caplog.records if "mesh" in r.getMessage()]
+
+
+def test_converter_mesh_needs_more_devices_warns_once(model_dir, rng,
+                                                      mesh_log):
+    conv = pl.Converter.from_config(Config(
+        mode="scale", model_dir=model_dir, mesh="2x1", use_pallas=True,
+        compute_dtype="float32"), device="cpu")
+    img = rng.integers(0, 256, (12, 10, 3), dtype=np.uint8)
+    for _ in range(2):
+        assert conv.process_bgr_u8(img).shape == (24, 20, 3)
+    recs = _mesh_records(mesh_log)
+    assert [r.getMessage() for r in recs] == [
+        "mesh (2, 1, 1) needs 2 devices, have 1; running single-device"]
+    assert recs[0].levelno == logging.WARNING
+
+
+@pytest.mark.parametrize("mesh", ["auto", "off", "1x1"])
+def test_converter_single_device_mesh_is_silent(model_dir, rng, mesh_log,
+                                                mesh):
+    conv = pl.Converter.from_config(Config(
+        mode="scale", model_dir=model_dir, mesh=mesh, use_pallas=True,
+        compute_dtype="float32"), device="cpu")
+    conv.process_bgr_u8(rng.integers(0, 256, (12, 10, 3), dtype=np.uint8))
+    assert not _mesh_records(mesh_log)
+
+
+def test_converter_mesh_without_kernel_stacks_warns_once(model_dir, rng,
+                                                         mesh_log):
+    """The non-kernel path cannot shard: one warning, as in the JAX
+    package, then a single-device conversion."""
+    conv = pl.Converter.from_config(Config(
+        mode="scale", model_dir=model_dir, mesh="2x1"), device="cpu")
+    assert conv.fast_scale is None
+    img = rng.integers(0, 256, (12, 10, 3), dtype=np.uint8)
+    for _ in range(2):
+        conv.process_bgr_u8(img)
+    recs = _mesh_records(mesh_log)
+    assert len(recs) == 1 and "kernel stacks" in recs[0].getMessage()
+
+
+def test_converter_mesh_the_cards_could_hold_raises(model_dir, rng,
+                                                    monkeypatch):
+    """A mesh that fits the host's devices would shard in the JAX package;
+    the port raises the stream's NotImplementedError instead."""
+    monkeypatch.setattr(pl, "_device_count", lambda device: 8)
+    conv = pl.Converter.from_config(Config(
+        mode="scale", model_dir=model_dir, mesh="2x4", use_pallas=True,
+        compute_dtype="float32"), device="cpu")
+    with pytest.raises(NotImplementedError, match="A item 5"):
+        conv.process_bgr_u8(rng.integers(0, 256, (12, 10, 3), np.uint8))

@@ -1,0 +1,771 @@
+"""The data-movement probes: counterparts of 13 pl.pallas_call sites of the
+JAX package's tools (stage_time.py, grid_floor_probe.py, dma_probe.py,
+dma_probe2.py, dma_probe3.py) as four CUDA kernels (csrc/probe.cu):
+
+  store         a constant written to every output block
+  fetch_map     1 or 4 input blocks, an elementwise map out
+  fetch_reduce  1 or 4 input blocks reduced to one f32 per cell, broadcast
+                to (or added to) the output block
+  l1_mm         a 9-lane block times a (9, 128) weight, lanes 0-3 planar
+
+Each JAX variant is a Variant below, under the name its script gives it,
+with its BlockSpecs as Block geometries over a Grid of cells (n, i, j) and
+tile (tr, tc). A probe's product is its traffic: the kernel reads every
+block a BlockSpec names whole, once per cell, and writes every output block
+whole. Beside each wrapper stands a plain PyTorch version of the whole output
+array built from views (as_strided, one per BlockSpec) and reshapes over the
+grid. A wrapper takes its plain version for CPU tensors and launches its
+kernel for CUDA tensors, counting the launch in LAUNCHES; no wrapper falls
+back to the plain version when a build or a launch fails.
+
+measure() holds a variant's kernel against its plain version and times the
+kernel (one replay of a CUDA graph of back-to-back launches, and the same
+launches issued one by one from Python), the plain version and one library
+call for the same data movement; the three tools under waifu2x_torch/tools/
+print its rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+
+from waifu2x_torch.ops import _build
+from waifu2x_torch.utils.timing import time_ms
+
+PEAK_BYTES = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense (same)
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (the same)
+# launches of each kernel by its wrapper; the plain versions add none
+LAUNCHES = {"store": 0, "fetch_map": 0, "fetch_reduce": 0, "l1_mm": 0}
+SEED_BYTES = 8 * 128 * 4   # stage_time's (1, 8, 128) f32 seed block
+ROTATE_BYTES = 400e6       # timed launches cycle through buffers of 8x L2
+_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "u8": torch.uint8}
+_DT_CODE = {"bf16": 0, "f32": 1, "u8": 2}
+_MAPS = {"copy": 0, "half": 1, "affine": 2, "zero": 3, "u8": 4,
+         "u8_zero": 5, "const0": 6}
+_REDUCTIONS = {"corner_max": 0, "lane0_sum": 1}
+_LANES = {"x16": 16, "x9": 9, "x128": 128, "raw": 1}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """The JAX tools' grid (batch, ny, nx) of (tr, tc) cells."""
+
+    batch: int
+    ny: int
+    nx: int
+    tr: int = 64
+    tc: int = 128
+
+    @property
+    def cells(self) -> int:
+        return self.batch * self.ny * self.nx
+
+
+def array_shape(kind: str, g: Grid) -> tuple:
+    """The input arrays of the tools: the block grid plus one cell each
+    way, as 16 lanes ("x16"), 9 ("x9"), the same bytes as 128-lane columns
+    ("x128") or a plane ("raw")."""
+    h, w = (g.ny + 1) * g.tr, (g.nx + 1) * g.tc
+    if kind == "x128":
+        return (g.batch, h, w * 16 // 128, 128)
+    if kind == "raw":
+        return (g.batch, h, w)
+    return (g.batch, h, w, _LANES[kind])
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """A BlockSpec: rows x cols x lanes of an input array whose origin in
+    cell (n, i, j) is row i*ra + rb, column j*ca + cb."""
+
+    array: str
+    rows: int
+    cols: int
+    lanes: int
+    ra: int
+    rb: int
+    ca: int
+    cb: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.rows * self.cols * self.lanes * 2
+
+
+def block(kind: str, array: str, g: Grid) -> Block:
+    """The tools' blocks: the tile, the tile one cell right, below or
+    diagonal ("tile01", "tile10", "tile11"), the 16-column (2 dense
+    columns) right stripe, the 8-row lower stripe, their 8 x 16 corner, and
+    dma_probe2's (tr, WD // nx, 128) block of the 128-lane array ("wide")."""
+    tr, lanes = g.tr, _LANES[array]
+    tca = g.tc // 8 if array == "x128" else g.tc   # a tile's array columns
+    sw = 2 if array == "x128" else 16              # a right stripe's
+    if kind == "wide":
+        wc = array_shape(array, g)[2] // g.nx
+        return Block(array, tr, wc, lanes, tr, 0, wc, 0)
+    di, dj = {"tile": (0, 0), "tile01": (0, 1), "tile10": (1, 0),
+              "tile11": (1, 1), "right": (0, 1), "below": (1, 0),
+              "diag": (1, 1)}[kind]
+    rows = 8 if kind in ("below", "diag") else tr
+    cols = sw if kind in ("right", "diag") else tca
+    return Block(array, rows, cols, lanes, tr, di * tr, tca, dj * tca)
+
+
+@dataclasses.dataclass(frozen=True)
+class OutSpec:
+    """An output block (rows, cols, lanes) of a [B, ny*rows, nx*cols(,
+    lanes)] array; its row holds xg pixels of lg lanes, lane-inner
+    (x * lg + c) or planar (c * xg + x)."""
+
+    rows: int
+    cols: int
+    lanes: int
+    dtype: str
+    form: str
+    lg: int
+    xg: int
+
+    def shape(self, g: Grid) -> tuple:
+        s = (g.batch, g.ny * self.rows, g.nx * self.cols)
+        return s + ((self.lanes,) if self.lanes > 1 else ())
+
+    @property
+    def nbytes(self) -> int:
+        return (self.rows * self.cols * self.lanes
+                * _DTYPES[self.dtype].itemsize)
+
+
+def out_spec(kind: str, g: Grid) -> OutSpec:
+    tr, tc = g.tr, g.tc
+    return {
+        "o4": OutSpec(tr, tc, 4, "bf16", "lanes", 4, tc),
+        "dense": OutSpec(tr, 4 * tc, 1, "bf16", "planar", 4, tc),
+        "y512r": OutSpec(tr, 4 * tc, 1, "bf16", "lanes", 4, tc),
+        "o128": OutSpec(tr, 4, 128, "bf16", "lanes", 128, 4),
+        "o2d": OutSpec(tr, tc, 1, "bf16", "lanes", 1, tc),
+        "o16c": OutSpec(tr, tc, 16, "u8", "lanes", 16, tc),
+        "u8r": OutSpec(tr, 16 * tc, 1, "u8", "lanes", 16, tc),
+        "o4f": OutSpec(tr, tc, 4, "f32", "lanes", 4, tc),
+        "o16f": OutSpec(tr, tc, 16, "f32", "lanes", 16, tc),
+    }[kind]
+
+
+@dataclasses.dataclass(frozen=True)
+class Variant:
+    """One probe of a JAX tool: `name` as the tool names it (`label` is
+    what it prints), `site` its pallas_call, `kernel` the CUDA kernel, the
+    input blocks `ins` of one array kind, the output block and what the
+    body computes (`op`; `rep` repeats each source pixel, `seed` reads the
+    (1, 8, 128) f32 seed block, `value` is the store's constant). `traces`
+    is False for the two dma_probe2.py bodies that JAX cannot trace; the
+    port fetches their block whole and writes the zero block."""
+
+    name: str
+    label: str
+    site: str
+    kernel: str
+    out: str
+    ins: tuple = ()
+    array: "str | None" = None
+    op: str = "copy"
+    rep: int = 1
+    seed: bool = False
+    value: float = 0.0
+    traces: bool = True
+
+
+_ST, _GF = "tools/stage_time.py", "tools/grid_floor_probe.py"
+_D1, _D2, _D3 = ("tools/dma_probe.py", "tools/dma_probe2.py",
+                 "tools/dma_probe3.py")
+_X4 = ("tile", "right", "below", "diag")
+VARIANTS = {v.name: v for v in (
+    Variant("c4", "outonly", f"{_ST}:82", "store", "o4", seed=True),
+    Variant("cd", "outdense", f"{_ST}:95", "store", "dense", seed=True),
+    Variant("out4f32", "out4f32", f"{_ST}:113", "store", "o4f", seed=True),
+    Variant("out16f32", "out16f32", f"{_ST}:113", "store", "o16f",
+            seed=True),
+    Variant("out16u8", "out16u8", f"{_ST}:113", "store", "o16c", seed=True),
+    Variant("cin1", "in16", f"{_ST}:172", "fetch_reduce", "dense", ("tile",),
+            "x16", "corner_max"),
+    Variant("cin4", "in16x4", f"{_ST}:187", "fetch_reduce", "dense", _X4,
+            "x16", "corner_max"),
+    Variant("ccat", "outcat", f"{_ST}:203", "fetch_map", "dense", ("tile",),
+            "x16", "half"),
+    Variant("cin9", "in9", f"{_ST}:220", "fetch_reduce", "dense", ("tile",),
+            "x9", "corner_max"),
+    Variant("cin9mm", "in9+l1", f"{_ST}:241", "l1_mm", "dense", ("tile",),
+            "x9"),
+    Variant("store-only", "store-only (0 inputs)", f"{_GF}:100", "store",
+            "o4", value=1.0),
+    Variant("1-fetch", "1 full fetch operand", f"{_GF}:100", "fetch_map",
+            "o4", ("tile",), "x16"),
+    Variant("4-fetch", "4 full fetch operands", f"{_GF}:100",
+            "fetch_reduce", "o4", ("tile", "tile01", "tile10", "tile11"),
+            "x16", "lane0_sum"),
+    Variant("lane16_x4", "lane16_x4", f"{_D1}:55", "fetch_map", "o4", _X4,
+            "x16"),
+    Variant("lane16_x1", "lane16_x1", f"{_D1}:55", "fetch_map", "o4",
+            ("tile",), "x16"),
+    Variant("lane128", "lane128", f"{_D1}:55", "fetch_map", "o4", ("tile",),
+            "x128", rep=8),
+    Variant("lane128_x4", "lane128_x4", f"{_D1}:55", "fetch_map", "o4", _X4,
+            "x128", rep=8),
+    Variant("raw2d", "raw2d", f"{_D1}:157", "fetch_map", "o4", ("tile",),
+            "raw"),
+    Variant("out4", "out4", f"{_D2}:50", "store", "o4"),
+    Variant("out128", "out128", f"{_D2}:50", "store", "o128"),
+    Variant("out2d", "out2d", f"{_D2}:50", "store", "o2d"),
+    Variant("in16+o128", "in16+o128", f"{_D2}:50", "fetch_map", "o128",
+            ("tile",), "x16", "const0", traces=False),
+    Variant("in128+o128", "in128+o128", f"{_D2}:50", "fetch_map", "o128",
+            ("wide",), "x128", "zero"),
+    Variant("raw+o128", "raw+o128", f"{_D2}:50", "fetch_map", "o128",
+            ("tile",), "raw", "const0", traces=False),
+    Variant("in16+o16c", "in16+o16c", f"{_D2}:50", "fetch_map", "o16c",
+            ("tile",), "x16", "u8_zero"),
+    Variant("y4", "y4", f"{_D3}:54", "fetch_map", "o4", ("tile",), "x16",
+            "affine"),
+    Variant("y512r", "y512r", f"{_D3}:54", "fetch_map", "y512r", ("tile",),
+            "x16", "affine"),
+    Variant("y512n", "y512n", f"{_D3}:54", "fetch_map", "dense", ("tile",),
+            "x16"),
+    Variant("u8_16", "u8_16", f"{_D3}:54", "fetch_map", "o16c", ("tile",),
+            "x16", "u8"),
+    Variant("u8_2048r", "u8_2048r", f"{_D3}:54", "fetch_map", "u8r",
+            ("tile",), "x16", "u8"),
+)}
+# each tool's variants, in its order
+TOOL_VARIANTS = {
+    "stage_time": ("c4", "cd", "out4f32", "out16f32", "out16u8", "cin1",
+                   "cin4", "ccat", "cin9", "cin9mm"),
+    "grid_floor_probe": ("store-only", "1-fetch", "4-fetch"),
+    "dma_probe 1": ("lane16_x4", "lane16_x1", "lane128", "lane128_x4",
+                    "raw2d"),
+    "dma_probe 2": ("out4", "out128", "out2d", "in16+o128", "in128+o128",
+                    "raw+o128", "in16+o16c"),
+    "dma_probe 3": ("y4", "y512r", "y512n", "u8_16", "u8_2048r"),
+}
+# the kernels take their f32 sums (9 products; 3 x tr x tc lane-0 terms) in
+# another order than the plain versions: make_inputs draws these variants'
+# inputs as k / 256 (k = 0..255), so that every sum is exact in any order and
+# they too are held bit for bit
+SUM_VARIANTS = ("cin9mm", "4-fetch")
+
+
+def traffic_bytes(v: Variant, g: Grid) -> int:
+    """The bytes the variant's BlockSpecs move: each input block read once
+    and the output block written once per cell (the seed and weight blocks
+    too)."""
+    per_cell = sum(block(k, v.array, g).nbytes for k in v.ins)
+    per_cell += out_spec(v.out, g).nbytes
+    per_cell += SEED_BYTES if v.seed else 0
+    per_cell += 9 * 128 * 2 if v.kernel == "l1_mm" else 0
+    return per_cell * g.cells
+
+
+def distinct_bytes(v: Variant, g: Grid) -> int:
+    """The bytes the function must move: each input byte that some cell's
+    block covers read once (neighbouring cells' blocks overlap in cin4,
+    lane16_x4, lane128_x4 and 4-fetch), the seed and weight once, the
+    output written once. The bound and the memory-rate check use these."""
+    n = out_spec(v.out, g).nbytes * g.cells
+    n += (SEED_BYTES if v.seed else 0) + (9 * 128 * 2 if v.kernel == "l1_mm"
+                                          else 0)
+    if v.ins:
+        _, h, w = array_shape(v.array, g)[:3]
+        mask = torch.zeros((h, w), dtype=torch.bool)
+        for k in v.ins:
+            b = block(k, v.array, g)
+            for i in range(g.ny):
+                for j in range(g.nx):
+                    r, c = i * b.ra + b.rb, j * b.ca + b.cb
+                    mask[r:r + b.rows, c:c + b.cols] = True
+        n += int(mask.sum()) * _LANES[v.array] * 2 * g.batch
+    return n
+
+
+def flops(v: Variant, g: Grid) -> int:
+    """The operations of l1_mm's bf16 x bf16 products with f32 sums into
+    the 128-lane scratch (2 x 9 x 128 per pixel), which the tensor cores
+    could do at PEAK_BF16_FLOPS; the other probes do a few per byte. Every
+    probe is bound by its bytes."""
+    return 2 * 9 * 128 * g.cells * g.tr * g.tc if v.kernel == "l1_mm" else 0
+
+
+def make_inputs(v: Variant, g: Grid, seed: int, device) -> dict:
+    """The variant's arguments: "x", uniform [0, 1) in bf16 as the tools
+    draw it (k / 256 for SUM_VARIANTS); "seed", stage_time's ones; "w", the
+    (9, 128) bf16 weight, drawn as k / 256."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, exact):
+        if exact:
+            return (torch.randint(0, 256, shape, generator=gen, device=dev)
+                    .to(torch.bfloat16) / 256)
+        return torch.rand(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    args = {}
+    if v.array is not None:
+        args["x"] = draw(array_shape(v.array, g), v.name in SUM_VARIANTS)
+    if v.seed:
+        args["seed"] = torch.ones((1, 8, 128), dtype=torch.float32,
+                                  device=dev)
+    if v.kernel == "l1_mm":
+        args["w"] = draw((9, 128), True)
+    return args
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def cells(x: torch.Tensor, b: Block, g: Grid) -> torch.Tensor:
+    """The block of every cell as one view [B, ny, nx, rows, cols, lanes]
+    of the contiguous array x."""
+    x4 = x.unsqueeze(-1) if x.dim() == 3 else x
+    sn, sh, sw, sl = x4.stride()
+    return x4.as_strided(
+        (g.batch, g.ny, g.nx, b.rows, b.cols, b.lanes),
+        (sn, b.ra * sh, b.ca * sw, sh, sw, sl),
+        x4.storage_offset() + b.rb * sh + b.cb * sw)
+
+
+def _assemble(blocks: torch.Tensor, o: OutSpec, g: Grid) -> torch.Tensor:
+    """[B, ny, nx, rows, cols*lanes (or rows, cols, lanes)] -> the array."""
+    return blocks.reshape(g.batch, g.ny, g.nx, o.rows, o.cols, o.lanes
+                          ).permute(0, 1, 3, 2, 4, 5).reshape(o.shape(g))
+
+
+def _store_value(v: Variant, seed: "torch.Tensor | None", dtype: str):
+    """The constant of a store: value, or 0 + seed[0, 0, 0] in f32 cast to
+    the output type (u8 through int32, as the JAX body casts)."""
+    if not v.seed:
+        return v.value
+    s = torch.zeros((), dtype=torch.float32) + seed[0, 0, 0].float().cpu()
+    if dtype == "u8":
+        return int(s.to(torch.int32).to(torch.uint8))
+    return float(s.to(_DTYPES[dtype]))
+
+
+def store_plain(v: Variant, g: Grid, seed=None, device="cpu"):
+    o = out_spec(v.out, g)
+    return torch.full(o.shape(g), _store_value(v, seed, o.dtype),
+                      dtype=_DTYPES[o.dtype], device=device)
+
+
+def _map(op: str, t: torch.Tensor) -> torch.Tensor:
+    if op == "half":
+        return t * 0.5
+    if op == "affine":
+        return t * 0.5 + 1.0
+    if op == "zero":
+        return t * 0
+    if op == "u8":
+        return torch.clamp(torch.round(t * 255.0), 0, 255)
+    if op == "u8_zero":
+        return (t * 0).to(torch.int32)
+    return t
+
+
+def fetch_map_plain(v: Variant, g: Grid, x: torch.Tensor) -> torch.Tensor:
+    o = out_spec(v.out, g)
+    if v.op == "const0":
+        return torch.zeros(o.shape(g), dtype=_DTYPES[o.dtype],
+                           device=x.device)
+    bs = [block(k, v.array, g) for k in v.ins]
+    xs, lanes = o.xg // v.rep, (o.lg if bs[0].lanes > 1 else 1)
+    t = cells(x, bs[0], g)[..., :xs, :lanes].float()
+    t = t.expand(*t.shape[:-1], o.lg)
+    if len(bs) == 4:   # the tile plus its right, lower and diagonal stripes
+        t = t + cells(x, bs[1], g)[..., :, 0:1, :o.lg].float()
+        t = t + cells(x, bs[2], g)[..., 0:1, :xs, :o.lg].float()
+        t = t + cells(x, bs[3], g)[..., 0:1, 0:1, :o.lg].float()
+    t = _map(v.op, t.repeat_interleave(v.rep, dim=-2) if v.rep > 1 else t)
+    if o.form == "planar":
+        t = t.transpose(-1, -2)
+    return _assemble(t.to(_DTYPES[o.dtype]), o, g)
+
+
+def fetch_reduce_plain(v: Variant, g: Grid, x: torch.Tensor) -> torch.Tensor:
+    o = out_spec(v.out, g)
+    bs = [block(k, v.array, g) for k in v.ins]
+    if v.op == "corner_max":
+        t = None
+        for b in bs:
+            m = cells(x, b, g)[..., 0:8, 0:8, :].float().amax(dim=(-3, -2,
+                                                                   -1))
+            t = m if t is None else t + m
+        t = torch.zeros_like(t) + t
+        blocks = t[..., None, None, None].expand(
+            *t.shape, o.rows, o.cols, o.lanes)
+    else:   # lane0_sum
+        s = torch.zeros((g.batch, g.ny, g.nx), dtype=torch.float32,
+                        device=x.device)
+        for b in bs[1:]:
+            s = s + cells(x, b, g)[..., 0].float().sum(dim=(-2, -1))
+        blocks = (cells(x, bs[0], g)[..., :o.lg].float()
+                  + s[..., None, None, None])
+    return _assemble(blocks.to(_DTYPES[o.dtype]), o, g)
+
+
+def l1_mm_plain(v: Variant, g: Grid, x: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """The nine products summed in f32 in tap order, the (tr, tc, 128)
+    scratch rounded to bf16, its lanes 0-3 planar."""
+    o = out_spec(v.out, g)
+    a = cells(x, block("tile", v.array, g), g)
+    wf = w.float()
+    acc = a[..., 0:1].float() * wf[0]
+    for k in range(1, 9):
+        acc.add_(a[..., k:k + 1].float() * wf[k])
+    scratch = acc.to(torch.bfloat16)
+    return _assemble(scratch[..., 0:4].transpose(-1, -2), o, g)
+
+
+def plain(v: Variant, g: Grid, args: dict, device=None) -> torch.Tensor:
+    """The plain version of any variant on make_inputs' arguments; a store
+    without a seed makes its output on `device` (default the CPU)."""
+    if v.kernel == "store":
+        dev = args["seed"].device if v.seed else (device or "cpu")
+        return store_plain(v, g, args.get("seed"), dev)
+    if v.kernel == "fetch_map":
+        return fetch_map_plain(v, g, args["x"])
+    if v.kernel == "fetch_reduce":
+        return fetch_reduce_plain(v, g, args["x"])
+    return l1_mm_plain(v, g, args["x"], args["w"])
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+_INT, _PTR = ctypes.c_int, ctypes.c_void_p
+_LLP, _PTRP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_PTR)
+_ARGTYPES = {
+    "w2x_probe_store": [_PTR, _LLP, _PTR, _INT, ctypes.c_float, _PTR],
+    "w2x_probe_fetch_map": [_PTRP, _LLP, _INT, _PTR, _LLP, _INT, _INT, _INT,
+                            _INT, _INT, _PTR],
+    "w2x_probe_fetch_reduce": [_PTRP, _LLP, _INT, _PTR, _LLP, _INT, _INT,
+                               _PTR],
+    "w2x_probe_l1_mm": [_PTR, _LLP, _PTR, _PTR, _LLP, _PTR],
+}
+_LIB: list = []
+
+
+def _lib() -> ctypes.CDLL:
+    """csrc/probe.cu's library, built at first use and kept for the
+    process."""
+    if not _LIB:
+        lib = _build.load("probe")[0]
+        for fn, argtypes in _ARGTYPES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.w2x_probe_error_string.argtypes = [ctypes.c_int]
+        lib.w2x_probe_error_string.restype = ctypes.c_char_p
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _lls(vals) -> ctypes.Array:
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _in_desc(bs, g: Grid) -> ctypes.Array:
+    vals = []
+    for b in bs:
+        _, h, w = array_shape(b.array, g)[:3]
+        vals += [h, w, b.lanes, b.rows, b.cols, b.ra, b.rb, b.ca, b.cb]
+    return _lls(vals)
+
+
+def _out_desc(o: OutSpec, g: Grid) -> ctypes.Array:
+    run = o.cols * o.lanes
+    return _lls([_DT_CODE[o.dtype], o.rows, run, g.nx * run,
+                 g.ny * o.rows * g.nx * run, g.batch, g.ny, g.nx])
+
+
+def _check_geometry(v: Variant, g: Grid) -> None:
+    """What the kernels take: whole 16-byte vectors in every block row and
+    output row, output rows in groups of 4, corners of 8 x 8."""
+    o = out_spec(v.out, g)
+    if g.tr % 8 or g.tc % 16:
+        raise ValueError(f"tile {(g.tr, g.tc)}: tr must be a multiple of 8 "
+                         f"and tc of 16")
+    if (o.cols * o.lanes * _DTYPES[o.dtype].itemsize) % 16:
+        raise ValueError(f"{v.name}: an output row of {o.cols * o.lanes} "
+                         f"{o.dtype} is not whole 16-byte vectors")
+    if v.kernel == "fetch_map" and any(
+            n & (n - 1) for n in (o.lg, o.xg, v.rep)):
+        raise ValueError(f"{v.name}: the map's lanes, pixels and repeat "
+                         f"{(o.lg, o.xg, v.rep)} must be powers of two")
+    for k in v.ins:
+        b = block(k, v.array, g)
+        if (b.cols * b.lanes) % 8 or b.cols == 0:
+            raise ValueError(f"{v.name}: a {k} block row of {b.cols} x "
+                             f"{b.lanes} bf16 is not whole 16-byte vectors")
+
+
+def _check(v: Variant, g: Grid, args: dict, out) -> torch.device:
+    """Types, shapes and devices of a wrapper's arguments -> the device."""
+    _check_geometry(v, g)
+    want = {}
+    if v.array is not None:
+        want["x"] = (array_shape(v.array, g), torch.bfloat16)
+    if v.seed:
+        want["seed"] = ((1, 8, 128), torch.float32)
+    if v.kernel == "l1_mm":
+        want["w"] = ((9, 128), torch.bfloat16)
+    if set(args) != set(want):
+        raise ValueError(f"{v.name} takes {sorted(want)}, got {sorted(args)}")
+    devs = set()
+    for k, (shape, dtype) in want.items():
+        t = args[k]
+        if tuple(t.shape) != shape or t.dtype != dtype or not (
+                t.is_contiguous()):
+            raise ValueError(f"{v.name}: {k} must be contiguous {dtype} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        devs.add(t.device)
+    if out is not None:
+        o = out_spec(v.out, g)
+        if (tuple(out.shape) != o.shape(g) or out.dtype != _DTYPES[o.dtype]
+                or not out.is_contiguous()):
+            raise ValueError(f"{v.name}: out must be contiguous "
+                             f"{_DTYPES[o.dtype]} {o.shape(g)}")
+        devs.add(out.device)
+    if len(devs) > 1:
+        raise ValueError(f"{v.name}: arguments on {sorted(map(str, devs))}")
+    return devs.pop() if devs else None
+
+
+def prepare(v: Variant, g: Grid, args: dict, out=None, device=None):
+    """Check the arguments once -> (out, launch) for a CUDA run: launch()
+    enqueues the kernel on the device's current stream, with its C
+    arguments built here, and counts it. The timing loops call launch()
+    alone, so that they time the card and not these checks."""
+    dev = _check(v, g, args, out) or torch.device(device or "cuda")
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    o = out_spec(v.out, g)
+    if out is None:
+        out = torch.empty(o.shape(g), dtype=_DTYPES[o.dtype], device=dev)
+    od, x = _out_desc(o, g), args.get("x")
+    bs = [block(k, v.array, g) for k in v.ins]
+    if v.kernel == "store":
+        seed = args.get("seed")
+        cargs = (out.data_ptr(), od, None if seed is None else
+                 seed.data_ptr(), 0 if seed is None else SEED_BYTES,
+                 float(v.value))
+    elif v.kernel == "l1_mm":
+        cargs = (x.data_ptr(), _in_desc(bs, g), args["w"].data_ptr(),
+                 out.data_ptr(), od)
+    else:
+        ins = (_PTR * len(bs))(*([x.data_ptr()] * len(bs)))
+        cargs = (ins, _in_desc(bs, g), len(bs), out.data_ptr(), od) + (
+            (int(o.form == "planar"), o.lg, o.xg, v.rep, _MAPS[v.op])
+            if v.kernel == "fetch_map" else (_REDUCTIONS[v.op], o.lg))
+    lib = _lib()
+    fn = getattr(lib, f"w2x_probe_{v.kernel}")
+
+    def launch(_keep=(out, args)) -> None:   # the tensors outlive launch
+        # on the stream current at the call, so that a graph captures it
+        err = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            msg = lib.w2x_probe_error_string(err).decode()
+            raise RuntimeError(f"probe kernel {v.kernel}, {v.name}: {msg}")
+        LAUNCHES[v.kernel] += 1
+
+    return out, launch
+
+
+def run(v: Variant, g: Grid, args: dict, out=None,
+        device=None) -> torch.Tensor:
+    """The variant on make_inputs' arguments: CPU tensors take the plain
+    version, CUDA tensors the kernel (`out`, if given, receives the
+    result). A store has no tensor argument but its seed: `device` says
+    where it runs (default the seed's, else the CPU)."""
+    dev = _check(v, g, args, out)
+    if dev is None:
+        dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cpu":
+        ref = plain(v, g, args)
+        return ref if out is None else out.copy_(ref)
+    with torch.cuda.device(dev):
+        out, launch = prepare(v, g, args, out, dev)
+        launch()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# holding and timing
+# ---------------------------------------------------------------------------
+
+def compare(got: torch.Tensor, ref: torch.Tensor):
+    """(max |got - ref|, share of outputs that differ, bit-equal): every
+    variant is held bit for bit (SUM_VARIANTS on exact inputs)."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return math.inf, 1.0, False
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    share = (diff > 0).float().mean().item() if diff.numel() else 0.0
+    itype = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        got.element_size()]
+    return err, share, torch.equal(got.view(itype), ref.view(itype))
+
+
+def library(v: Variant, g: Grid, args: dict, device):
+    """One PyTorch call for the same data movement, as a yardstick: fill_
+    of the output for a store; contiguous() of the view of the first
+    block's pixels and lanes that the output names, in the output's order,
+    for a map; amax of the corners (the first block's) or the sum of lane
+    0 (the second block's) for a reduction; for l1_mm the bf16 matmul of
+    the blocks with the weight's lanes 0-3, whose product is the one the
+    output holds (lane-inner, where the probe writes it planar)."""
+    o = out_spec(v.out, g)
+    if v.kernel == "store":
+        buf = torch.empty(o.shape(g), dtype=_DTYPES[o.dtype], device=device)
+        val = _store_value(v, args.get("seed"), o.dtype)
+        return lambda: buf.fill_(val)
+    x, b0 = args["x"], block(v.ins[0], v.array, g)
+    if v.kernel == "fetch_map":
+        a = cells(x, b0, g)[..., :o.xg // v.rep, :o.lg]
+        view = a.permute(0, 1, 3, 2, 4, 5) if o.form == "lanes" else (
+            a.permute(0, 1, 3, 5, 2, 4))
+        return view.contiguous
+    if v.kernel == "l1_mm":
+        a, w = cells(x, b0, g), args["w"]
+        return lambda: torch.matmul(a, w[:, :4])
+    if v.op == "corner_max":
+        a = cells(x, b0, g)[..., 0:8, 0:8, :]
+        return lambda: torch.amax(a, dim=(-3, -2, -1))
+    a = cells(x, block(v.ins[1], v.array, g), g)[..., 0]
+    return lambda: torch.sum(a, dim=(-2, -1), dtype=torch.float32)
+
+
+def measure(v: Variant, g: Grid, dev: torch.device, iters: int = 100,
+            seed: int = 0) -> dict:
+    """Hold the variant against its plain version and time it. On a card:
+    the kernel and the library call over `iters` back-to-back launches that
+    cycle through copies of the arguments and outputs of ROTATE_BYTES in
+    all (so that no launch finds its bytes in the 50 MB L2), captured in a
+    CUDA graph and timed over one replay ("ms", "library_ms"); the same
+    kernel launches issued one by one from Python ("eager_ms", which adds
+    the host's cost of a launch where that exceeds the kernel's); the plain
+    version over 2. On the CPU the wrapper is its plain version: the kernel
+    times are None and the other times are the host's."""
+    args = make_inputs(v, g, seed, dev)
+    got = run(v, g, args, device=dev)
+    ref = plain(v, g, args, dev)
+    err, share, ok = compare(got, ref)
+    del ref
+    nbytes, ops = traffic_bytes(v, g), flops(v, g)
+    distinct = distinct_bytes(v, g)
+    t_bytes = distinct / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_BF16_FLOPS * 1e3
+    row = {"name": v.name, "label": v.label, "site": v.site,
+           "kernel": v.kernel, "bytes": nbytes, "distinct_bytes": distinct,
+           "flops": ops,
+           "max_abs_err": err, "share_differ": share, "equal_ok": ok,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           # l1_mm's products as FFMA, the way csrc/probe.cu does them
+           "ffma_floor_ms": ops / PEAK_F32_FLOPS * 1e3 if ops else None}
+    if dev.type == "cuda":
+        sets = [args] + [{k: t.clone() for k, t in args.items()}
+                         for _ in range(min(16, math.ceil(
+                             ROTATE_BYTES / distinct)) - 1)]
+        n = len(sets)
+        with torch.cuda.device(dev):
+            launches = [prepare(v, g, s, got if k == 0 else None, dev)[1]
+                        for k, s in enumerate(sets)]
+            row["ms"] = time_ms(lambda k: launches[k % n](), dev, iters,
+                                graph=True)
+            row["eager_ms"] = time_ms(lambda k: launches[k % n](), dev,
+                                      iters)
+            libs = [library(v, g, s, dev) for s in sets]
+            row["library_ms"] = time_ms(lambda k: libs[k % n](), dev, iters,
+                                        graph=True)
+        del sets, launches, libs
+        # the distinct bytes' rate: over the memory's, a fetch was dropped
+        row["rate_gbs"] = distinct / row["ms"] / 1e6
+        row["spec_gbs"] = nbytes / row["ms"] / 1e6
+        row["rate_ok"] = row["rate_gbs"] * 1e9 <= PEAK_BYTES
+    else:
+        row["ms"], row["eager_ms"], row["rate_gbs"] = None, None, None
+        row["spec_gbs"], row["rate_ok"] = None, True
+        row["library_ms"] = time_ms(
+            lambda k: library(v, g, args, dev)(), dev, 1)
+    row["plain_ms"] = time_ms(lambda k: plain(v, g, args, dev), dev, 2)
+    row["ok"] = row["equal_ok"] and row["rate_ok"]
+    return row
+
+
+def format_row(r: dict) -> str:
+    """One printed line of measure()'s row."""
+    def ms(t):
+        return "not measured" if t is None else f"{t:.4f} ms"
+    rate = ("" if r["rate_gbs"] is None else
+            f" = {r['rate_gbs']:.0f} GB/s of distinct bytes "
+            f"({100 * r['rate_gbs'] * 1e9 / PEAK_BYTES:.1f}% of 3.35 TB/s; "
+            f"{r['spec_gbs']:.0f} GB/s by BlockSpecs)")
+    ffma = ("" if r["ffma_floor_ms"] is None else
+            f" (the products as FFMA: {r['ffma_floor_ms']:.4f} ms)")
+    return (f"{r['name']:11s} ({r['site']}, {r['kernel']}): "
+            f"{r['bytes'] / 1e6:.1f} MB by BlockSpecs, "
+            f"{r['distinct_bytes'] / 1e6:.1f} MB distinct, kernel "
+            f"{ms(r['ms'])} in a graph{rate}, {ms(r['eager_ms'])} launched "
+            f"one by one, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}{ffma}, plain {ms(r['plain_ms'])}, library "
+            f"{ms(r['library_ms'])}; max |kernel - plain| "
+            f"{r['max_abs_err']:.3g} ({100 * r['share_differ']:.4f}% differ, "
+            f"bar bit-equal){'' if r['ok'] else '  FAILED'}")
+
+
+def add_args(ap, batch: int) -> None:
+    """The tools' common arguments."""
+    ap.add_argument("--batch", type=int, default=batch)
+    ap.add_argument("--size", type=int, default=512,
+                    help="rows and columns of the output grid (ny * tr)")
+    ap.add_argument("--tile", type=int, nargs=2, default=(64, 128),
+                    metavar=("TR", "TC"))
+    ap.add_argument("--iters", type=int, default=100,
+                    help="timed launches of each kernel and library call")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+
+
+def grid_from_args(args, ap) -> Grid:
+    tr, tc = args.tile
+    if (args.batch < 1 or args.size % tr or args.size % tc or tr % 8
+            or tc % 16 or args.size < max(tr, tc)):
+        ap.error("--size must be a multiple of both tile sides, TR of 8 "
+                 "and TC of 16")
+    return Grid(args.batch, args.size // tr, args.size // tc, tr, tc)
+
+
+def run_variants(names, g: Grid, dev: torch.device, iters: int, seed: int,
+                 rows: "list | None" = None) -> bool:
+    """measure() and print each named variant; append the rows to `rows`
+    if given. True if every variant held its bar (and on a card stayed
+    under the memory rate)."""
+    ok = True
+    for name in names:
+        r = measure(VARIANTS[name], g, dev, iters, seed)
+        print(format_row(r), flush=True)
+        if rows is not None:
+            rows.append(r)
+        ok = ok and r["ok"]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return ok

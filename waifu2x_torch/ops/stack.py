@@ -112,7 +112,8 @@ L6_WINO = os.environ.get("W2X_L6_WINO", "0") == "1"
 I8_TILE = (64, 128)   # largest default int8 tile, in s2d cells
 
 # launches of the stack wrappers' kernels; the plain versions add none, nor
-# do mma_layer and mma_chain alone (they count under MID_LAUNCHES only)
+# do the standalone wrappers mma_layer, mma_chain, layer5_plane (these count
+# under MID_LAUNCHES only) and l6_i8_layer (L6_LAUNCHES only)
 LAUNCHES = 0
 # the same launches by the wrapper that made them: "scale" (stack_scale,
 # stack_scale_upto), "noise" (stack_noise, stack_noise_s2d), "dense"
@@ -921,13 +922,13 @@ def l6_i8_layer(x5: torch.Tensor, sp, tile):
     activation with its one-pixel halo, quantised with that tile's scale;
     sx [N, ny, nx] f32: the tiles' activation scales). CPU tensors take the
     plain version; CUDA tensors take the kernels, whose two launches count
-    under KERNEL_LAUNCHES["scale"]."""
+    under L6_LAUNCHES["i8"] only."""
     tiling = _check_x5(x5, sp, tile)
     if x5.device.type == "cpu":
         return l6_i8_layer_plain(x5, sp, tile)
     with torch.cuda.device(x5.device):
-        x6t, m = _Launcher("scale", x5, None).l6_i8(x5, sp, x5.shape[0],
-                                                    tiling)
+        x6t, m = _Launcher(None, x5, None).l6_i8(x5, sp, x5.shape[0],
+                                                 tiling)
     return x6t, torch.clamp(m, min=1e-8) * _INV127
 
 
@@ -938,7 +939,8 @@ def layer5_plane(x: torch.Tensor, sp, tile=None,
     [N, 2*ny*tr + 4, 2*nx*tc + 4, 128] in x's dtype. x is the low-res
     plane [N, hl, wl] of the scale stack, or with full_res the noise
     stack's plane [N, h, w]. CPU tensors take the plain layers; CUDA
-    tensors take the kernel's five launches."""
+    tensors take the kernel's five launches, which count under MID_LAUNCHES
+    only (no stack ran)."""
     _check(x, sp)
     x, _, _, (tr, tc, ny, nx) = _on_grid(x, full_res, "i8", tile)
     n, hg, wg = x.shape[0], tr * ny, tc * nx
@@ -952,7 +954,7 @@ def layer5_plane(x: torch.Tensor, sp, tile=None,
         return a.permute(0, 2, 3, 1).to(x.dtype).contiguous()
     act = n * (2 * hg + 12) * (2 * wg + 12) * 128
     with torch.cuda.device(x.device):
-        run = _Launcher("noise" if full_res else "scale", x, None)
+        run = _Launcher(None, x, None)
         bufs = [torch.empty(act, dtype=x.dtype, device=x.device)
                 for _ in range(2)]
         src = x

@@ -67,6 +67,10 @@ from waifu2x_torch.utils.logging import get_logger
 log = get_logger("pipeline")
 
 
+MESH_TODO = ("multi-device conversion and streams are not ported yet "
+             "(ROADMAP.md, A item 5: multi-device)")
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for an entry point; a CUDA request with no card raises
     (the port never carries on on the CPU unless asked to)."""
@@ -222,6 +226,15 @@ def scale2x_yuv_s2d(yuv: torch.Tensor, fast: FastStack) -> torch.Tensor:
     uv = resize2x_phases(yuv[..., 1:3], CUBIC, h_axis=1)     # [N, h, w, 2, 4]
     uv = uv.transpose(-1, -2)                                # [N, h, w, 4, 2]
     return torch.cat([y_s2d[..., None], uv], dim=-1)
+
+
+def scale2x_batch_u8_s2d(yuv: torch.Tensor, fast: FastStack) -> torch.Tensor:
+    """Throughput 2x step in the pixel-major polyphase layout: f32 YUV
+    [N, h, w, 3] -> u8 BGR [N, h, w, 12] (channel (A*2+B)*3 + c). The host
+    interleave to [N, 2h, 2w, 3] is a zero-flop u8 reshape (d2s_host)."""
+    u8 = saturate_cast_u8(yuv_to_bgr(scale2x_yuv_s2d(yuv, fast)))
+    n, h, w = u8.shape[:3]
+    return u8.reshape(n, h, w, 12)
 
 
 def _uv_phases_cmajor(yuv: torch.Tensor) -> torch.Tensor:
@@ -494,6 +507,11 @@ SMALL_IMG_PX = 96 * 1024
 # package routes them.
 
 
+def _device_count(device: torch.device) -> int:
+    """The devices a mesh could span: the host's cards, or one CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
 @dataclasses.dataclass
 class Converter:
     """Loaded-models pipeline front end (model resolution main.cpp:82-121
@@ -505,6 +523,40 @@ class Converter:
     scale_model: "SRCNN | None" = None
     fast_noise: "FastStack | None" = None
     fast_scale: "FastStack | None" = None
+    _mesh_warned: bool = dataclasses.field(default=False, repr=False)
+
+    def _mesh_warn_once(self, msg: str, *args) -> None:
+        if not self._mesh_warned:
+            self._mesh_warned = True
+            log.warning(msg, *args)
+
+    def _check_mesh(self) -> None:
+        """cfg.mesh as the JAX package's Converter._mesh_pipe resolves it,
+        up to the point where that builds a mesh. "off", "auto" and
+        (1, 1, 1) run on one card silently ("auto" is a no-op on one device
+        in JAX too); a spec that needs the kernel stacks this mode lacks, or
+        more devices than there are, logs once per Converter and runs on one
+        card; a larger spec that the cards could hold raises: sharding is
+        not ported (ROADMAP.md, A item 5)."""
+        spec = self.cfg.mesh_shape()
+        if spec in ("off", "auto", (1, 1, 1)):
+            return
+        need = []
+        if self.cfg.mode in ("scale", "noise_scale"):
+            need.append(self.fast_scale)
+        if self.cfg.mode in ("noise", "noise_scale"):
+            need.append(self.fast_noise)
+        if any(f is None for f in need):
+            self._mesh_warn_once("a mesh needs the kernel stacks (the "
+                                 "flagship 7-layer model, use_pallas not "
+                                 "False); running single-device")
+            return
+        n_need, have = math.prod(spec), _device_count(self.device)
+        if n_need > have:
+            self._mesh_warn_once("mesh %s needs %d devices, have %d; running "
+                                 "single-device", spec, n_need, have)
+            return
+        raise NotImplementedError(f"mesh {spec}: {MESH_TODO}")
 
     def _fast_ok(self, fast: "FastStack | None", px: int) -> bool:
         """Use the kernel for this plane? 'auto' keeps tiny images on the
@@ -594,6 +646,7 @@ class Converter:
 
     def process_bgr_u8(self, bgr_u8: np.ndarray) -> np.ndarray:
         """uint8 BGR in, uint8 BGR out — the whole main.cpp math path."""
+        self._check_mesh()
         img = torch.from_numpy(np.ascontiguousarray(bgr_u8)).to(self.device)
         yuv = _to_yuv(img)
         out = self._final_fast_u8(yuv)

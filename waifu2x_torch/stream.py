@@ -44,6 +44,7 @@ from waifu2x_torch.ops.color import (
 from waifu2x_torch.ops.s2d import d2s_host_cmajor
 from waifu2x_torch.pipeline import (
     BAND_PX,
+    MESH_TODO,
     FastStack,
     noise_batch_fast,
     noise_batch_u8_fused,
@@ -51,9 +52,6 @@ from waifu2x_torch.pipeline import (
     resolve_device,
     scale2x_batch_u8_fused,
 )
-
-_MESH_TODO = ("multi-device streams are not ported yet (ROADMAP.md, "
-              "A item 14: multi-device)")
 
 
 def _to_yuv_batch(bgr_u8: torch.Tensor) -> torch.Tensor:
@@ -71,7 +69,7 @@ def resolve_stream_mesh(spec):
     running on one device."""
     if spec in ("off", "auto", (1, 1, 1)):
         return None
-    raise NotImplementedError(f"mesh {spec}: {_MESH_TODO}")
+    raise NotImplementedError(f"mesh {spec}: {MESH_TODO}")
 
 
 @dataclasses.dataclass
@@ -133,7 +131,7 @@ class StreamConverter:
         if self.mode != "scale" and self.fast_noise is None:
             raise ValueError(f"mode {self.mode!r} needs a noise FastStack")
         if self.mesh is not None:
-            raise NotImplementedError(_MESH_TODO)
+            raise NotImplementedError(MESH_TODO)
         self.device = resolve_device(self.device)
 
     # -- per-shape batching ------------------------------------------------

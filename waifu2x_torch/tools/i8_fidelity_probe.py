@@ -20,7 +20,6 @@ fidelity half with the plain versions at a small size.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 from pathlib import Path
 
@@ -42,6 +41,7 @@ from waifu2x_torch.pipeline import (
     scale2x_batch_u8_fused,
 )
 from waifu2x_torch.train.qat import l6_quant_gap_db
+from waifu2x_torch.utils.timing import card_name, time_ms
 
 DEFAULT_MODEL = (Path(__file__).resolve().parents[2] / "models"
                  / "scale2.0x_demo.json")
@@ -84,19 +84,6 @@ def _psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
     return float(10 * np.log10(255.0 ** 2 / mse)) if mse else float("inf")
 
 
-def _step_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default=str(DEFAULT_MODEL))
@@ -132,12 +119,8 @@ def main(argv=None) -> int:
         got = with_i8(flag, lambda: scale2x_batch_u8_fused(yuv, fast))
         return _psnr_u8(d2s_host_cmajor(got.cpu().numpy()), ref)
 
-    where = "the plain versions on the CPU"
-    if dev.type == "cuda":
-        where = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip()
+    where = card_name() if dev.type == "cuda" else (
+        "the plain versions on the CPU")
     print(f"model {args.model}, 2 structured {args.size} x {args.size} "
           f"frames, seed {args.seed}, on {where}", flush=True)
     print(f"  bf16 kernel path, layer 6 direct, vs f32 non-kernel path: "
@@ -161,8 +144,8 @@ def main(argv=None) -> int:
         (args.batch, args.size, args.size, 3), dtype=np.float32)).to(dev)
     mp = args.batch * 4 * args.size * args.size / 1e6
     for name, flag in (("direct", False), ("int8", True)):
-        ms = with_i8(flag, lambda: _step_ms(
-            lambda: scale2x_batch_u8_fused(big, fast), args.iters))
+        ms = with_i8(flag, lambda: time_ms(
+            lambda _: scale2x_batch_u8_fused(big, fast), dev, args.iters))
         print(f"  scale step, {args.batch} x {args.size}^2, layer 6 {name}: "
               f"{ms:.2f} ms/batch = {mp / ms * 1e3:.1f} output MP/s",
               flush=True)

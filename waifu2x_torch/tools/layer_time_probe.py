@@ -20,37 +20,16 @@ clock, to rehearse the script at a small --size; those are no device times.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
-import time
 
 import torch
 
 from waifu2x_torch.models.srcnn import init_params
 from waifu2x_torch.ops import stack
 from waifu2x_torch.pipeline import resolve_device
+from waifu2x_torch.utils.timing import card_line, time_ms
 
 MODES = ["0", "1", "2", "3", "4", "5", "6", "full"]
-
-
-def _time_ms(fn, dev: torch.device, iters: int) -> float:
-    """Mean time of fn() over `iters` runs after one warm-up run: CUDA
-    events on a card, the host's clock on the CPU."""
-    fn()
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) / iters * 1e3
-    torch.cuda.synchronize(dev)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize(dev)
-    return start.elapsed_time(stop) / iters
 
 
 def _events_ms(run, iters: int) -> list:
@@ -91,16 +70,8 @@ def main(argv=None) -> int:
     ylow = torch.rand((args.batch, args.size, args.size),
                       generator=gen).to(dev, dtype)
     kw = {"l6_i8": args.l6 == "i8", "l6_wino": args.l6 == "wino"}
-    if dev.type == "cuda":
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip()
-        clock = f"CUDA events on {smi}"
-    else:
-        clock = "plain versions on the host's clock: no device time"
     print(f"scale stack, {args.batch} x {args.size}^2 low-res {args.dtype}, "
-          f"layer 6 {args.l6}; {clock}", flush=True)
+          f"layer 6 {args.l6}; {card_line(dev)}", flush=True)
 
     layer_ms = None
     if dev.type == "cuda" and "full" in args.modes:
@@ -111,10 +82,10 @@ def main(argv=None) -> int:
     prev = None
     for mode in args.modes:
         if mode == "full":
-            ms = _time_ms(lambda: stack.stack_scale(ylow, sp, **kw), dev,
+            ms = time_ms(lambda _: stack.stack_scale(ylow, sp, **kw), dev,
                           args.iters)
         else:
-            ms = _time_ms(lambda k=int(mode): stack.stack_scale_upto(
+            ms = time_ms(lambda _, k=int(mode): stack.stack_scale_upto(
                 ylow, sp, k, **kw), dev, args.iters)
         line = f"upto {mode:>4}: {ms:9.3f} ms"
         if prev is not None:

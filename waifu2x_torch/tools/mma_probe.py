@@ -32,38 +32,17 @@ to rehearse the script at a small size; those are no device times.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
-import time
 
 import torch
 
 from waifu2x_torch.ops import stack
 from waifu2x_torch.pipeline import resolve_device
+from waifu2x_torch.utils.timing import card_line, time_ms
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
 REL_TOL = 1e-4
-
-
-def _time_ms(fn, dev: torch.device, iters: int) -> float:
-    """Mean time of fn() over `iters` runs after one warm-up run: CUDA
-    events on a card, the host's clock on the CPU."""
-    fn()
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) / iters * 1e3
-    torch.cuda.synchronize(dev)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize(dev)
-    return start.elapsed_time(stop) / iters
 
 
 def make_inputs(rows: int, products: int, seed: int, dev: torch.device):
@@ -94,10 +73,10 @@ def run(rows: int, products: int, iters: int, seed: int,
     return {
         "rows": rows, "products": products, "max_abs_err": err,
         "max_abs_ref": scale, "ok": err <= REL_TOL * scale,
-        "ms": _time_ms(lambda: stack.mma_chain(x, wp), dev, iters),
-        "plain_ms": _time_ms(lambda: stack.mma_chain_plain(x, wp), dev,
+        "ms": time_ms(lambda _: stack.mma_chain(x, wp), dev, iters),
+        "plain_ms": time_ms(lambda _: stack.mma_chain_plain(x, wp), dev,
                              max(1, iters // 2)),
-        "library_ms": _time_ms(lambda: torch.matmul(xk, wk), dev, iters),
+        "library_ms": time_ms(lambda _: torch.matmul(xk, wk), dev, iters),
         "flops": flops, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
@@ -118,17 +97,9 @@ def main(argv=None) -> int:
                  "--products at least 1")
 
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip()
-        clock = f"CUDA events on {smi}"
-    else:
-        clock = "plain version on the host's clock: no device time"
     r = run(args.rows, args.products, args.iters, args.seed, dev)
     print(f"mma_chain, {r['rows']} x 128 times {r['products']} x [128, 128] "
-          f"bf16, f32 sums; {clock}", flush=True)
+          f"bf16, f32 sums; {card_line(dev)}", flush=True)
     print(f"max |kernel - plain| = {r['max_abs_err']:.3e} (largest output "
           f"{r['max_abs_ref']:.3f}, bar {REL_TOL:g} of it)", flush=True)
     if dev.type == "cuda":
