@@ -122,7 +122,7 @@ Phases (any failure raises and exits non-zero):
      layers; the new layers 2-6 must be at least 2x faster than the old.
  18. the data-movement probes (ops/probe.py, csrc/probe.cu: probe_store,
      probe_fetch_map, probe_fetch_reduce, probe_l1_mm; the counterparts of
-     13 pallas_call sites of the JAX package's tools/): every one of the 30
+     15 pallas_call sites of the JAX package's tools/): every one of the 32
      variants against its plain version at its JAX tool's grid (B = 16 or 4,
      (8, 4) cells of (64, 128)), equal bit for bit (cin9mm and
      grid_floor's 4-fetch, whose f32 sums the kernel takes in another order,
@@ -135,6 +135,17 @@ Phases (any failure raises and exits non-zero):
      in four variants), time (one replay of the graph, and one by one) and
      GB/s; a variant that moves its distinct bytes faster than 3.35 TB/s
      fails the phase (a fetch was dropped).
+ 19. the truncation probes and the four-tap layer (phase19 below): tap_mm
+     (csrc/tmm.cu, wgmma) in both layouts against its plain version bit for
+     bit on inputs k / 16 (every f32 sum exact), at two small grids and the
+     JAX tool's, and the two layouts equal on the same values permuted;
+     stack_scale_upto's forms out="whole" (upto 0..5), "lane0" (0) and
+     "phase_taps" (6, also after the Winograd layer 6) against their plain
+     versions, f32 <= 3e-5 and bf16 <= 2^-4, with their launches counted;
+     then the four tools (fused_strip_probe, k1_forensics, l14_probe,
+     tmm_probe) at their JAX grids with the stack's and the probes' launch
+     counts read around each (the probe variants oneblk and xonly, which
+     phase 18 held, are timed there).
 In phases 4, 6-8, 10-11 and 15 every call that the run made to a kernel wrapper
 (one per wrapper, input shape, dtype and weights) is repeated on a copy of
 its input and held against the plain version: f32 max |diff| <= 3e-5; bf16
@@ -626,6 +637,223 @@ def stack_bound(plane: torch.Tensor, out_px: int, sp, maccs: int,
                                  else "bytes"), flops
 
 
+def phase19(dev: torch.device, sp16) -> list:
+    """19. The truncation probes (tools/fused_strip_probe.py:134,162,
+    k1_forensics.py:136, l14_probe.py:145) and the four-tap layer
+    (tmm_probe.py:79,122): every new kernel and form against its plain
+    version (phase 18 holds the probe variants oneblk and xonly), then the
+    four tools at their JAX grids, counted. sp16 is the
+    shipped scale model in bf16 (for the library yardsticks). Returns the
+    kernel table's rows."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.ops import probe, stack
+    from waifu2x_torch.tools import (
+        fused_strip_probe, k1_forensics, l14_probe, tmm_probe)
+    from waifu2x_torch.tools.layer_time_probe import bound_ms
+
+    # tap_mm, both layouts, bit for bit, and chlane == poslane permuted
+    tmm_err = 0.0
+    for b, ny, nx, tr, tc in ((2, 2, 2, 8, 128), (1, 3, 1, 64, 256),
+                              (16, 8, 4, 64, 128)):
+        x, w = probe.tmm_inputs(
+            probe.tmm_input_shape("chlane", b, ny, nx, tr, tc), 0, dev)
+        outs = {}
+        for layout in probe.TMM_LAYOUTS:
+            xl = (x if layout == "chlane"
+                  else x.permute(0, 1, 3, 2).contiguous())
+            before = probe.LAUNCHES["tap_mm"]
+            got = probe.tap_mm(xl, w, layout, (tr, tc))
+            torch.cuda.synchronize()
+            if probe.LAUNCHES["tap_mm"] != before + 1:
+                raise AssertionError(f"tap_mm {layout}: launches "
+                                     f"{probe.LAUNCHES}")
+            err, share, ok = probe.compare(
+                got, probe.tap_mm_plain(xl, w, layout, (tr, tc)))
+            log(f"phase 19 tap_mm {layout} {tuple(xl.shape)}, tile "
+                f"{(tr, tc)} -> {tuple(got.shape)}: max|kernel - plain| = "
+                f"{err:.3g}, {share:.5%} differ (bar: bit-equal, exact sums)")
+            if not ok:
+                raise AssertionError(f"tap_mm {layout}: kernel != plain")
+            tmm_err = max(tmm_err, err)
+            outs[layout] = got
+        if not torch.equal(outs["poslane"].permute(0, 1, 3, 2),
+                           outs["chlane"]):
+            raise AssertionError("tap_mm: poslane != chlane permuted")
+        log("  poslane equals chlane on the same values permuted, bit for "
+            "bit")
+        del x, w, outs, got
+    torch.cuda.empty_cache()
+
+    # stack_scale_upto's three probe forms against their plain versions
+    forms = ([(k, "whole") for k in range(6)] + [(0, "lane0"),
+                                                 (6, "phase_taps")])
+    want_launches = {"whole": lambda k: max(k, 1), "lane0": lambda k: 1,
+                     "phase_taps": lambda k: 7}
+    sp_r = {dt: stack.prep_params(init_params(3), dt, dev)
+            for dt in (torch.float32, torch.bfloat16)}
+    gen = torch.Generator().manual_seed(19)
+    form_err = {out: 0.0 for _, out in forms}
+    for shape in ((2, 37, 53), (1, 5, 300), (4, 512, 512)):
+        y32 = torch.rand(shape, generator=gen).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            y, tol = y32.to(dt), F32_TOL if dt == torch.float32 else BF16_TOL
+            errs = []
+            for k, out in forms:
+                stack.reset_launches()
+                got = stack.stack_scale_upto(y, sp_r[dt], k, out=out)
+                n_launch = want_launches[out](k)
+                if stack.LAUNCHES != n_launch:
+                    raise AssertionError(f"upto {k} out={out}: "
+                                         f"{stack.LAUNCHES} launches")
+                ref = stack.stack_scale_upto_plain(y, sp_r[dt], k, out=out)
+                if got.shape != ref.shape or got.dtype != dt:
+                    raise AssertionError(f"upto {k} out={out}: "
+                                         f"{tuple(got.shape)} {got.dtype}")
+                errs.append((got.float() - ref.float()).abs().max().item())
+                check_max_err(f"upto {k} out={out} {shape} {dt}", errs[-1],
+                              tol)
+                form_err[out] = max(form_err[out], errs[-1])
+                del got, ref
+            log(f"phase 19 {shape} {dt}: max|kernel - plain| whole 0..5 "
+                + " ".join(f"{e:.2e}" for e in errs[:6])
+                + f", lane0 {errs[6]:.2e}, phase_taps {errs[7]:.2e}")
+        torch.cuda.empty_cache()
+    y = torch.rand((2, 37, 53), generator=gen).to(dev)
+    err = (stack.stack_scale_upto(y, sp_r[torch.float32], 6, l6_wino=True,
+                                  out="phase_taps")
+           - stack.stack_scale_upto_plain(y, sp_r[torch.float32], 6,
+                                          l6_wino=True, out="phase_taps")
+           ).abs().max().item()
+    check_max_err("phase_taps after the Winograd layer 6", err, F32_TOL)
+    form_err["phase_taps"] = max(form_err["phase_taps"], err)
+    log(f"phase 19 phase_taps after the Winograd layer 6, f32: "
+        f"max|kernel - plain| = {err:.2e}")
+
+    # the four tools at their JAX grids, the stack's and the probes'
+    # launches read around each tool's run
+    iters = 20   # the tools' default: a warm-up and 20 captured calls a mode
+    # stack launches a call, mode by mode: the cell form at upto k is k
+    # layers and the gather, "whole" max(k, 1), "lane0" the gather,
+    # "phase_taps" and the whole stack 7; the probe variants none
+    stack_calls = {"fused_strip_probe": (1, 2, 3, 4, 5, 6, 7, 7, 7, 7, 0),
+                   "k1_forensics": (1, 1, 2, 3, 4, 4, 4),
+                   "l14_probe": (0, 2, 3, 4, 5)}
+    rows, stack_launches = {}, {}
+    for tool, argv in (
+            (fused_strip_probe, fused_strip_probe.MODES),
+            (k1_forensics, k1_forensics.MODES), (l14_probe, []),
+            (tmm_probe, ["chlane"]), (tmm_probe, ["poslane"])):
+        before, stack_before = dict(probe.LAUNCHES), stack.LAUNCHES
+        key = tool.__name__.rsplit(".", 1)[1] + (
+            f" {argv[0]}" if tool is tmm_probe else "")
+        log(f"phase 19 tools.{key}:")
+        rows[key] = []
+        if tool.main(list(argv), rows[key]) != 0:
+            raise AssertionError(f"{key} failed")
+        rows[key + " launches"] = {k: probe.LAUNCHES[k] - before[k]
+                                   for k in before}
+        stack_launches[key] = stack.LAUNCHES - stack_before
+    want = {key: (iters + 1) * sum(stack_calls.get(key, ())) for key in
+            stack_launches}
+    per_variant = 1 + 2 * (iters + 1)   # measure(): check, graph, one by one
+    tmm_launches = {layout: rows[f"tmm_probe {layout} launches"]["tap_mm"]
+                    for layout in probe.TMM_LAYOUTS}
+    fetch = {"oneblk": rows["fused_strip_probe launches"]["fetch_map"],
+             "xonly": rows["l14_probe launches"]["fetch_map"]}
+    if (stack_launches != want or set(fetch.values()) != {per_variant}
+            or set(tmm_launches.values()) != {1 + iters + 1}):
+        raise AssertionError(f"phase 19 launches: stack {stack_launches} "
+                             f"(want {want}), probes {fetch}, tap_mm "
+                             f"{tmm_launches}")
+    log(f"phase 19 launches: stack by tool {stack_launches}, oneblk/xonly "
+        f"{fetch}, tap_mm {tmm_launches}")
+    # with each tool's total as counted, the forms' own launches: lane0 is
+    # fused_strip's mode 0, phase_taps its mode 6, whole all of k1's modes
+    form_launches = {"lane0": iters + 1, "phase_taps": 7 * (iters + 1),
+                     "whole": stack_launches["k1_forensics"]}
+
+    def mode(tool, label):
+        return next(r for r in rows[tool] if r["mode"] == label)
+
+    # plain and library times of the three stack forms at the tools' grid
+    gen = torch.Generator().manual_seed(0)
+    ylow = torch.rand((4, 512, 512), generator=gen).to(dev, torch.bfloat16)
+    sp = stack.prep_params(init_params(0), torch.bfloat16, dev)
+    plain = {out: timed_ms(lambda k=k, out=out: stack.stack_scale_upto_plain(
+        ylow, sp, k, out=out), reps=1)
+        for k, out in ((0, "lane0"), (4, "whole"), (6, "phase_taps"))}
+    xpad = F.pad(ylow.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, None],
+                 (7,) * 4, mode="replicate")[:, 0]
+    k4 = (sp[6][0][:, 0:4, 0].t().float().reshape(4, 128, 1, 1)
+          .to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+    library = {"whole": library_stack_ms(xpad, sp, upto=4),
+               "phase_taps": library_stack_ms(
+                   xpad, sp, upto=6,
+                   post=lambda h: F.conv2d(h, k4, stride=2))}
+    del xpad, ylow
+    torch.cuda.empty_cache()
+
+    def bound(k, out):
+        ms, by = bound_ms(torch.empty((4, 512, 512), dtype=torch.bfloat16),
+                          k, out)
+        return {"bound_ms": ms, "bound_by": by}
+
+    l6 = "waifu2x_torch/csrc/l6.cu"
+    out_rows = []
+    for layout in probe.TMM_LAYOUTS:
+        r = rows[f"tmm_probe {layout}"][0]
+        out_rows.append({
+            "name": f"tap_mm, four-tap 128 -> 128 layer, {layout} (wgmma, "
+                    f"{'B' if layout == 'poslane' else 'A'} the activation, "
+                    f"{'MN' if layout == 'poslane' else 'K'}-major)",
+            "route": "cuda", "source": "waifu2x_torch/csrc/tmm.cu",
+            "replaces": probe.TMM_SITES[layout],
+            "launches": tmm_launches[layout], "max_abs_err": tmm_err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "conv_ms": r["conv_ms"],
+            "tflops": r["tflops"]})
+    fs, k1 = "fused_strip_probe", "k1_forensics"
+    out_rows += [{
+        "name": "upto_gather GATHER_LANE0 (stack_scale_upto, upto 0, "
+                "out=\"lane0\")",
+        "route": "cuda", "source": l6,
+        "replaces": "tools/fused_strip_probe.py:162",
+        "launches": form_launches["lane0"], "max_abs_err": form_err["lane0"],
+        "ms": mode(fs, "upto0")["ms"], "plain_ms": plain["lane0"],
+        **bound(0, "lane0"), "library_ms": None,
+        "ladder_ms": {r["mode"]: r["ms"] for r in rows[fs]
+                      if "probe" not in r}}, {
+        "name": "conv3x3_bias_leaky_cell OUT_PTAPS (stack_scale_upto, upto 6, "
+                "out=\"phase_taps\")",
+        "route": "cuda", "source": "waifu2x_torch/csrc/common.cuh",
+        "replaces": "tools/fused_strip_probe.py:162",
+        "launches": form_launches["phase_taps"],
+        "max_abs_err": form_err["phase_taps"],
+        "ms": mode(fs, "upto6")["ms"], "plain_ms": plain["phase_taps"],
+        **bound(6, "phase_taps"), "library_ms": library["phase_taps"]}, {
+        "name": "stack_scale_upto out=\"whole\" (upto_gather GATHER_PAD at "
+                "upto 0; layer k's own buffer at 1-5)",
+        "route": "cuda", "source": l6,
+        "replaces": "tools/k1_forensics.py:136",
+        "launches": form_launches["whole"], "max_abs_err": form_err["whole"],
+        "ms": mode(k1, "+L4 (full K1)")["ms"], "plain_ms": plain["whole"],
+        **bound(4, "whole"), "library_ms": library["whole"],
+        "ladder_ms": {r["mode"]: r["ms"] for r in rows[k1]}}]
+    for tool, name in (("fused_strip_probe", "oneblk"),
+                       ("l14_probe", "xonly")):
+        r = mode(tool, name)["probe"]
+        out_rows.append({
+            "name": f"probe_fetch_map, {name}", "route": "cuda",
+            "source": "waifu2x_torch/csrc/probe.cu",
+            "replaces": r["site"], "launches": fetch[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    out_rows[-1]["ladder_ms"] = {r["mode"]: r["ms"] for r in rows["l14_probe"]}
+    return out_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -656,7 +884,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    _build.load("stack", "l6", "mma", "probe")
+    _build.load("stack", "l6", "mma", "probe", "tmm")
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout
@@ -1565,7 +1793,8 @@ def main() -> int:
     from waifu2x_torch.tools import dma_probe, grid_floor_probe, stage_time
     probe_err = {k: 0.0 for k in probe.LAUNCHES}
     for tool, names in probe.TOOL_VARIANTS.items():
-        g = probe.Grid(4 if tool.startswith("dma") else 16, 8, 4)
+        g = probe.Grid(16 if tool in ("stage_time", "grid_floor_probe")
+                       else 4, 8, 4)
         for name in names:
             v = probe.VARIANTS[name]
             args = probe.make_inputs(v, g, 0, dev)
@@ -1603,6 +1832,12 @@ def main() -> int:
                              f"{fast_rows}")
     torch.cuda.empty_cache()
     log(f"phase 18 passed; {time.perf_counter() - t_start:.1f} s so far")
+
+    t19 = time.perf_counter()
+    kernels19 = phase19(dev, sp16)
+    torch.cuda.empty_cache()
+    log(f"phase 19 passed in {time.perf_counter() - t19:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
     maccs = count_maccs_per_pixel()
 
@@ -1994,6 +2229,7 @@ def main() -> int:
                     "library_ms", "max_abs_err")}
                 for r in rows_k},
         })
+    kernels += kernels19
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

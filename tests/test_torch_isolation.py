@@ -42,9 +42,14 @@ def test_scan_covers_the_package():
             "waifu2x_torch/tools/stage_time.py",
             "waifu2x_torch/tools/grid_floor_probe.py",
             "waifu2x_torch/tools/dma_probe.py",
+            "waifu2x_torch/tools/fused_strip_probe.py",
+            "waifu2x_torch/tools/k1_forensics.py",
+            "waifu2x_torch/tools/l14_probe.py",
+            "waifu2x_torch/tools/tmm_probe.py",
             "waifu2x_torch/utils/timing.py",
             "chip_smoke.py"} <= names
     assert (ROOT / "waifu2x_torch" / "csrc" / "probe.cu").is_file()
+    assert (ROOT / "waifu2x_torch" / "csrc" / "tmm.cu").is_file()
 
 
 def test_stream_module_imports_only_the_port():

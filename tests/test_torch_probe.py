@@ -433,6 +433,9 @@ def test_reshaped_forms_are_the_same_bytes():
 
 # --- the table, the wrappers, the tools ----------------------------------------
 def test_variants_cover_the_13_sites():
+    """The 13 sites of stage_time, grid_floor_probe and dma_probe 1-3, and
+    the two fetches of the truncation probes (tests/test_torch_trunc.py
+    holds those two against their JAX bodies)."""
     sites = {v.site for v in probe.VARIANTS.values()}
     assert sites == {
         "tools/stage_time.py:82", "tools/stage_time.py:95",
@@ -441,7 +444,8 @@ def test_variants_cover_the_13_sites():
         "tools/stage_time.py:220", "tools/stage_time.py:241",
         "tools/grid_floor_probe.py:100", "tools/dma_probe.py:55",
         "tools/dma_probe.py:157", "tools/dma_probe2.py:50",
-        "tools/dma_probe3.py:54"}
+        "tools/dma_probe3.py:54", "tools/fused_strip_probe.py:134",
+        "tools/l14_probe.py:145"}
     listed = [n for names in probe.TOOL_VARIANTS.values() for n in names]
     assert sorted(listed) == sorted(probe.VARIANTS)
     assert {v.kernel for v in probe.VARIANTS.values()} == {

@@ -16,7 +16,7 @@ namespace {
 constexpr int CELL_THREADS = 128;  // s2d cells (of one row) per block
 
 // what the last layer writes
-enum { OUT_S2D = 0, OUT_DENSE = 1, OUT_U8 = 2, OUT_TAPS = 3 };
+enum { OUT_S2D = 0, OUT_DENSE = 1, OUT_U8 = 2, OUT_TAPS = 3, OUT_PTAPS = 4 };
 
 // YUV -> BGR: bgr[c] = ((y*inv[c][0] + u*inv[c][1]) + v*inv[c][2]) + off[c]
 struct ColorMap {
@@ -110,6 +110,11 @@ __device__ __forceinline__ float leaky(float x) {
 //   OUT_TAPS:  y is T [N, hl, wl, 4]; `wcols` = wl. No bias and no LeakyReLU:
 //              y[n, i, j, A*2+B] is the part of phase (A, B)'s sum whose taps
 //              lie in the cell's own 2 x 2 pixels (dy < 2-A, dx < 2-B).
+//   OUT_PTAPS: y is T [N, hl, wl, 4]; `wcols` = wl. No bias and no LeakyReLU:
+//              y[n, i, j, t] = sum over c of x[n, 2i, 2j, c] * w[c][t], the
+//              unfolded partials of the cell's pixel (0, 0) for taps
+//              t = dy*3 + dx = 0..3 (tools/fused_strip_probe.py:162 at
+//              upto 6: lanes 0-3 of pack_l7's per-phase tap partials).
 // Grid: one block per (image, cell row, CELL_THREADS-column chunk of
 // `wcols`), flattened.
 template <int CI, typename T, int OUT_MODE, bool TILED>
@@ -155,8 +160,21 @@ conv3x3_bias_leaky_cell(const T* __restrict__ x, const T* __restrict__ w,
   }
 
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (OUT_MODE == OUT_PTAPS) {
+    const T* px = x + base * CI;
+#pragma unroll 2
+    for (int ch = 0; ch < CI; ch += 8) {
+      float v[8];
+      load8(px + ch, v);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          acc[t] = fmaf(v[k], s_w[t][ch + k], acc[t]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < (OUT_MODE == OUT_PTAPS ? 0 : 4); ++r) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       // the same-cell taps read the cell's own 2 x 2 pixels only
@@ -182,7 +200,7 @@ conv3x3_bias_leaky_cell(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
   const size_t cell = ((size_t)n * hl + i) * wl + j;
-  if constexpr (OUT_MODE == OUT_TAPS) {
+  if constexpr (OUT_MODE == OUT_TAPS || OUT_MODE == OUT_PTAPS) {
     store4(static_cast<T*>(y) + cell * 4, acc);
     return;
   }

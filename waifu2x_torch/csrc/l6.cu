@@ -16,11 +16,17 @@
 // The activations are the NHWC planes of stack.cu: layer k's output has
 // 2hl + 14 - 2k rows and starts at image row -(7 - k).
 //
-// B7, upto_gather<T>: out[n, i, j, c] = act_k[n, 2i, 2j, c], c = 0..3, for
-//   k = 1..5 (one thread per s2d cell copies 4 values); for k = 0 the four
-//   low-res taps (0,0), (0,1), (0,2), (1,0) of the 3 x 3 window at cell
-//   (i, j) of the low-res plane edge-padded by 4, read through clamped
-//   indices. k = 6 is the OUT_TAPS form of conv3x3_bias_leaky_cell
+// B7, upto_gather<T>, one thread per output cell, by `mode`:
+//   GATHER_ACT    out[n, i, j, c] = act_k[n, 2i, 2j, c], c = 0..3, k = 1..5;
+//   GATHER_TAPS   (k = 0) the four low-res taps (0,0), (0,1), (0,2), (1,0) of
+//                 the 3 x 3 window at cell (i, j) of the low-res plane
+//                 edge-padded by 4, read through clamped indices;
+//   GATHER_LANE0  (k = 0) tap (0,0) of that window in all 4 lanes (the
+//                 counterpart of tools/fused_strip_probe.py:162 at upto 0);
+//   GATHER_PAD    (k = 0) the window itself, the low-res plane edge-padded
+//                 by 4 on every side, [n, hl+8, wl+8] (the counterpart of
+//                 tools/k1_forensics.py:136 at upto 0).
+//   k = 6 is the OUT_TAPS or OUT_PTAPS form of conv3x3_bias_leaky_cell
 //   (common.cuh). Bound by bytes: 4 values read and written per cell.
 //
 // B4, tile_absmax<T> and l6_i8_conv<T>. The stack runs on the plane
@@ -76,23 +82,33 @@ constexpr int C6 = 128;        // layer 6's input and output channels
 constexpr int GATHER_THREADS = 256;
 constexpr int ABSMAX_ROWS = 4;  // window rows per tile_absmax block
 
-// B7, k = 0..5. lowres != 0: x is the low-res plane [N, hl, wl];
-// else x is an activation [N, H, W, C] with H >= 2hl, W >= 2wl, C >= 4.
+enum { GATHER_ACT = 0, GATHER_TAPS = 1, GATHER_LANE0 = 2, GATHER_PAD = 3 };
+
+// B7, k = 0..5. GATHER_ACT: x is an activation [N, H, W, C] with H >= 2hl,
+// W >= 2wl, C >= 4; else x is the low-res plane [N, hl, wl]. The output has
+// `oh` x `ow` cells an image: hl x wl, or for GATHER_PAD hl+8 x wl+8.
 template <typename T>
 __global__ void __launch_bounds__(GATHER_THREADS)
 upto_gather(const T* __restrict__ x, T* __restrict__ y, long long cells,
-            int hl, int wl, int H, int W, int C, int lowres) {
+            int hl, int wl, int oh, int ow, int H, int W, int C, int mode) {
   const long long idx = (long long)blockIdx.x * GATHER_THREADS + threadIdx.x;
   if (idx >= cells) return;
-  const int j = idx % wl;
-  const int i = (idx / wl) % hl;
-  const long long n = idx / ((long long)wl * hl);
+  const int j = idx % ow;
+  const int i = (idx / ow) % oh;
+  const long long n = idx / ((long long)ow * oh);
+  if (mode == GATHER_PAD) {
+    const int sy = min(max(i - 4, 0), hl - 1);
+    const int sx = min(max(j - 4, 0), wl - 1);
+    y[idx] = x[(n * hl + sy) * wl + sx];
+    return;
+  }
   T* out = y + idx * 4;
-  if (lowres) {
+  if (mode != GATHER_ACT) {
     const T* p = x + n * hl * wl;
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      const int dy = t / 3, dx = t % 3;
+      const int dy = mode == GATHER_TAPS ? t / 3 : 0;
+      const int dx = mode == GATHER_TAPS ? t % 3 : 0;
       const int sy = min(max(i + dy - 4, 0), hl - 1);
       const int sx = min(max(j + dx - 4, 0), wl - 1);
       out[t] = p[(long long)sy * wl + sx];
@@ -390,15 +406,17 @@ bool tiles_ok(const Tiles& qt) {
 
 template <typename T>
 cudaError_t launch_gather(const void* x, void* y, int n, int hl, int wl,
-                          int H, int W, int C, int lowres, cudaStream_t s) {
-  if (!lowres && (H < 2 * hl || W < 2 * wl || C < 4))
+                          int H, int W, int C, int mode, cudaStream_t s) {
+  if (mode < GATHER_ACT || mode > GATHER_PAD ||
+      (mode == GATHER_ACT && (H < 2 * hl || W < 2 * wl || C < 4)))
     return cudaErrorInvalidValue;
-  const long long cells = (long long)n * hl * wl;
+  const int pad = mode == GATHER_PAD ? 8 : 0;
+  const long long cells = (long long)n * (hl + pad) * (wl + pad);
   const long long blocks = (cells + GATHER_THREADS - 1) / GATHER_THREADS;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
   upto_gather<T><<<(unsigned)blocks, GATHER_THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), cells, hl, wl, H, W, C,
-      lowres);
+      static_cast<const T*>(x), static_cast<T*>(y), cells, hl, wl, hl + pad,
+      wl + pad, H, W, C, mode);
   return cudaGetLastError();
 }
 
@@ -465,6 +483,9 @@ cudaError_t launch_last(const void* x, const void* w, const void* b, void* y,
     case OUT_TAPS:
       return launch_last_cell<C6, T, OUT_TAPS, true>(x, w, b, y, out, qt, n,
                                                      hl, wl, s);
+    case OUT_PTAPS:
+      return launch_last_cell<C6, T, OUT_PTAPS, true>(x, w, b, y, out, qt, n,
+                                                      hl, wl, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -476,15 +497,17 @@ extern "C" {
 // Every function launches on `stream`, takes bf16 != 0 for __nv_bfloat16
 // storage (else float) and returns the cudaError_t of the launch.
 
-// B7, k = 0..5: y [n, hl, wl, 4] from the low-res plane x [n, hl, wl]
-// (lowres != 0; H, W, C unused) or from the activation x [n, H, W, C].
+// B7, k = 0..5: y [n, hl, wl, 4] from the activation x [n, H, W, C]
+// (mode 0, GATHER_ACT) or from the low-res plane x [n, hl, wl] (H, W, C
+// unused): its taps (mode 1), tap (0,0) in every lane (mode 2), or y
+// [n, hl+8, wl+8], the plane edge-padded by 4 (mode 3).
 int w2x_upto_gather(int bf16, const void* x, void* y, int n, int hl, int wl,
-                    int H, int W, int C, int lowres, void* stream) {
+                    int H, int W, int C, int mode, void* stream) {
   if (n <= 0 || hl <= 0 || wl <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(bf16 ? launch_gather<__nv_bfloat16>(x, y, n, hl, wl, H, W, C,
-                                                   lowres, s)
-                    : launch_gather<float>(x, y, n, hl, wl, H, W, C, lowres,
+                                                   mode, s)
+                    : launch_gather<float>(x, y, n, hl, wl, H, W, C, mode,
                                            s));
 }
 
@@ -524,10 +547,11 @@ int w2x_l6_wino(int bf16, const void* x5, const void* u, const void* b,
 
 // Layer 7 with one thread per s2d cell, from a tile-major layer-6
 // activation [n, ny, nx, 2tr+2, 2tc+2, 128]: out_mode, uvp, cmap and
-// dense_tc as in stack.cu's w2x_stack_layer, and out_mode 3: the same-cell
-// tap partials [n, hl, wl, 4] in the storage type (B7, k = 6). With
-// tr == 0 the activation is one plane [n, 2hl+2, 2wl+2, 128] and out_mode
-// must be 3.
+// dense_tc as in stack.cu's w2x_stack_layer, out_mode 3: the same-cell
+// tap partials [n, hl, wl, 4] in the storage type (B7, k = 6), and out_mode
+// 4: the unfolded tap partials of phase (0, 0), taps 0-3 (common.cuh,
+// OUT_PTAPS). With tr == 0 the activation is one plane
+// [n, 2hl+2, 2wl+2, 128] and out_mode must be 3 or 4.
 int w2x_last_cell(int bf16, const void* x, const void* w, const void* b,
                   void* y, int n, int hl, int wl, int out_mode,
                   const void* uvp, const float* cmap, int dense_tc, int tr,
@@ -548,11 +572,17 @@ int w2x_last_cell(int bf16, const void* x, const void* w, const void* b,
                                                    wl, s)
                       : launch_last<float>(x, w, b, y, out, qt, n, hl, wl, s));
   // from one plane, stack.cu's layer 7 writes every form but the taps
-  if (out_mode != OUT_TAPS) return (int)cudaErrorInvalidValue;
-  return (int)(bf16 ? launch_last_cell<C6, __nv_bfloat16, OUT_TAPS, false>(
-                          x, w, b, y, out, qt, n, hl, wl, s)
-                    : launch_last_cell<C6, float, OUT_TAPS, false>(
-                          x, w, b, y, out, qt, n, hl, wl, s));
+  if (out_mode == OUT_TAPS)
+    return (int)(bf16 ? launch_last_cell<C6, __nv_bfloat16, OUT_TAPS, false>(
+                            x, w, b, y, out, qt, n, hl, wl, s)
+                      : launch_last_cell<C6, float, OUT_TAPS, false>(
+                            x, w, b, y, out, qt, n, hl, wl, s));
+  if (out_mode == OUT_PTAPS)
+    return (int)(bf16 ? launch_last_cell<C6, __nv_bfloat16, OUT_PTAPS, false>(
+                            x, w, b, y, out, qt, n, hl, wl, s)
+                      : launch_last_cell<C6, float, OUT_PTAPS, false>(
+                            x, w, b, y, out, qt, n, hl, wl, s));
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@
 //   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16   (N = 32, 64, 128)
 // with both operands read from shared memory and the f32 sums kept in
 // registers. mma.cu builds the layers 2-6 kernel and the mma_chain probe
-// from them.
+// from them, tmm.cu the four-tap probe layer (with B also MN-major).
 //
 // Operand layout without swizzle ("interleaved"): an operand is cut into
 // core matrices of 8 rows x 16 bytes (8 bf16 along K), each stored as 128
@@ -16,7 +16,8 @@
 //   SBO  bytes from a core matrix to the next one along M (for A) or N (for
 //        B): from rows 0-7 to rows 8-15.
 // (Settled on the card with the mma_chain probe: with the two exchanged the
-// product is wrong.) Both operands are K-major: A is [M][K], B is [N][K].
+// product is wrong.) mma_k16 reads A K-major, [M][K], and B K-major, [N][K],
+// or with TRANS_B = 1 MN-major, [K][N].
 //
 // Accumulator fragment of m64nNk16, thread t of the warpgroup, warp
 // w = t / 32, lane l = t % 32: d[4j + 0, 1] are row 16w + l/4, columns
@@ -86,65 +87,60 @@ __device__ __forceinline__ uint64_t desc_addr(uint32_t shared_addr) {
 
 // d[64 x N] += A[64 x 16] * B[N x 16]^T, one instruction; N / 2 sums a
 // thread. The caller brackets a run of them with wgmma_fence() before and
-// wgmma_commit(), wgmma_wait<0>() after.
-template <int N>
+// wgmma_commit(), wgmma_wait<0>() after. TRANS_B = 0 reads B K-major;
+// TRANS_B = 1 reads it MN-major (tmm.cu's positions-in-lanes form): its core
+// matrices are 8 K rows of 16 bytes, each row 8 consecutive N values, and the
+// two strides are as for K-major: LBO from a core matrix to the next one
+// along K, SBO to the next one along N.
+template <int N, int TRANS_B = 0>
 __device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
-                                        uint64_t b);
-
-template <>
-__device__ __forceinline__ void mma_k16<32>(float (&d)[16], uint64_t a,
-                                            uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : W2X_ACC16(d, 0)
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_k16<64>(float (&d)[32], uint64_t a,
-                                            uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : W2X_ACC16(d, 0), W2X_ACC16(d, 16)
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_k16<128>(float (&d)[64], uint64_t a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : W2X_ACC16(d, 0), W2X_ACC16(d, 16), W2X_ACC16(d, 32), W2X_ACC16(d, 48)
-      : "l"(a), "l"(b), "r"(1));
+                                        uint64_t b) {
+  static_assert(N == 32 || N == 64 || N == 128, "N is 32, 64 or 128");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, %19;\n"
+        "}\n"
+        : W2X_ACC16(d, 0)
+        : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n"
+        "}\n"
+        : W2X_ACC16(d, 0), W2X_ACC16(d, 16)
+        : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n"
+        "}\n"
+        : W2X_ACC16(d, 0), W2X_ACC16(d, 16), W2X_ACC16(d, 32), W2X_ACC16(d, 48)
+        : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+  }
 }
 
 #undef W2X_ACC16

@@ -1,12 +1,12 @@
 // Hand-written Hopper (sm_90a) kernels for the data-movement probes: the
-// counterparts of 13 pl.pallas_call sites under the root tools/ (PERF.md
+// counterparts of 15 pl.pallas_call sites under the root tools/ (PERF.md
 // §6), as four kernels. Built with nvcc into a shared library with a plain C
 // interface and loaded with ctypes (waifu2x_torch/ops/_build.py); the Python
 // wrappers and their plain PyTorch versions are in waifu2x_torch/ops/probe.py,
 // the entry points in waifu2x_torch/tools/{stage_time,grid_floor_probe,
-// dma_probe}.py.
+// dma_probe,fused_strip_probe,l14_probe}.py.
 //
-// Replaces:
+// Replaces (15 sites, PERF.md §6):
 //   probe_store         tools/stage_time.py:82 (c4), :95 (cd), :113 (mkout:
 //                       out4f32, out16f32, out16u8); grid_floor_probe.py:100
 //                       store-only; dma_probe2.py:50 out4, out128, out2d
@@ -15,7 +15,9 @@
 //                       (in16+o128, in128+o128, raw+o128, in16+o16c);
 //                       dma_probe3.py:54 (y4, y512r, y512n, u8_16,
 //                       u8_2048r); stage_time.py:203 (ccat);
-//                       grid_floor_probe.py:100 1-fetch
+//                       grid_floor_probe.py:100 1-fetch;
+//                       fused_strip_probe.py:134 (oneblk); l14_probe.py:145
+//                       (xonly)
 //   probe_fetch_reduce  stage_time.py:172 (cin1), :187 (cin4), :220 (cin9);
 //                       grid_floor_probe.py:100 4-fetch
 //   probe_l1_mm         stage_time.py:241 (cin9mm)
@@ -64,6 +66,7 @@ enum {
   MAP_U8 = 4,       // u8(clip(rint(x * 255), 0, 255))
   MAP_U8_ZERO = 5,  // u8(int32(x * 0))
   MAP_CONST0 = 6,   // 0, the block fetched all the same
+  MAP_LANE0 = 7,    // x at lane 0, whatever the output lane
 };
 enum { RED_CORNER_MAX = 0, RED_LANE0_SUM = 1 };
 
@@ -235,8 +238,8 @@ __global__ void __launch_bounds__(THREADS) probe_store(StoreArgs a) {
 //   t = a                          (one block), or
 //   t = ((a + b[r, 0]) + c[0, x]) + d[0, 0]   (the tile and its right,
 //                                  lower and diagonal stripes),
-// the source lane c (0 for a plane); the output row holds (x, c) lane-inner
-// (x * lg + c) or planar (c * xg + x).
+// the source lane c (0 for a plane and for MAP_LANE0); the output row holds
+// (x, c) lane-inner (x * lg + c) or planar (c * xg + x).
 struct MapArgs {
   In in[4];
   int nin;
@@ -283,7 +286,8 @@ __global__ void __launch_bounds__(THREADS) probe_fetch_map(MapArgs a) {
         x = qq & ((1 << a.xg) - 1);
       }
       if (a.op == MAP_CONST0) return 0.0f;
-      const int xs = x >> a.rep, lane = la > 1 ? c : 0;
+      const int xs = x >> a.rep;
+      const int lane = la > 1 && a.op != MAP_LANE0 ? c : 0;
       float s = bf(sa, (r * ca + xs) * la + lane);
       if (stripes) {
         s = __fadd_rn(s, bf(sb, r * a.in[1].cols * la + lane));

@@ -1,6 +1,7 @@
-"""The data-movement probes: counterparts of 13 pl.pallas_call sites of the
-JAX package's tools (stage_time.py, grid_floor_probe.py, dma_probe.py,
-dma_probe2.py, dma_probe3.py) as four CUDA kernels (csrc/probe.cu):
+"""The probes: counterparts of 17 pl.pallas_call sites of the JAX package's
+tools. Fifteen move data (stage_time.py, grid_floor_probe.py, dma_probe.py,
+dma_probe2.py, dma_probe3.py, fused_strip_probe.py:134, l14_probe.py:145) and
+are four CUDA kernels (csrc/probe.cu):
 
   store         a constant written to every output block
   fetch_map     1 or 4 input blocks, an elementwise map out
@@ -21,8 +22,12 @@ back to the plain version when a build or a launch fails.
 measure() holds a variant's kernel against its plain version and times the
 kernel (one replay of a CUDA graph of back-to-back launches, and the same
 launches issued one by one from Python), the plain version and one library
-call for the same data movement; the three tools under waifu2x_torch/tools/
-print its rows.
+call for the same data movement; the tools under waifu2x_torch/tools/ print
+its rows.
+
+The other two (tmm_probe.py:79 and :122) are one four-tap 128 -> 128 layer
+with channels or positions in the fast dimension, the tensor-core kernel of
+csrc/tmm.cu: tap_mm, tap_mm_plain and measure_tap_mm below.
 """
 
 from __future__ import annotations
@@ -32,21 +37,24 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from waifu2x_torch.ops import _build
+from waifu2x_torch.ops.convstack import no_tf32
 from waifu2x_torch.utils.timing import time_ms
 
 PEAK_BYTES = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense (same)
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (the same)
 # launches of each kernel by its wrapper; the plain versions add none
-LAUNCHES = {"store": 0, "fetch_map": 0, "fetch_reduce": 0, "l1_mm": 0}
+LAUNCHES = {"store": 0, "fetch_map": 0, "fetch_reduce": 0, "l1_mm": 0,
+            "tap_mm": 0}
 SEED_BYTES = 8 * 128 * 4   # stage_time's (1, 8, 128) f32 seed block
 ROTATE_BYTES = 400e6       # timed launches cycle through buffers of 8x L2
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "u8": torch.uint8}
 _DT_CODE = {"bf16": 0, "f32": 1, "u8": 2}
 _MAPS = {"copy": 0, "half": 1, "affine": 2, "zero": 3, "u8": 4,
-         "u8_zero": 5, "const0": 6}
+         "u8_zero": 5, "const0": 6, "lane0": 7}
 _REDUCTIONS = {"corner_max": 0, "lane0_sum": 1}
 _LANES = {"x16": 16, "x9": 9, "x128": 128, "raw": 1}
 
@@ -185,6 +193,7 @@ class Variant:
 
 
 _ST, _GF = "tools/stage_time.py", "tools/grid_floor_probe.py"
+_FS, _L14 = "tools/fused_strip_probe.py", "tools/l14_probe.py"
 _D1, _D2, _D3 = ("tools/dma_probe.py", "tools/dma_probe2.py",
                  "tools/dma_probe3.py")
 _X4 = ("tile", "right", "below", "diag")
@@ -243,6 +252,9 @@ VARIANTS = {v.name: v for v in (
             "x16", "u8"),
     Variant("u8_2048r", "u8_2048r", f"{_D3}:54", "fetch_map", "u8r",
             ("tile",), "x16", "u8"),
+    Variant("oneblk", "oneblk", f"{_FS}:134", "fetch_map", "o4", ("tile",),
+            "x16", "lane0"),
+    Variant("xonly", "xonly", f"{_L14}:145", "fetch_map", "o4", _X4, "x16"),
 )}
 # each tool's variants, in its order
 TOOL_VARIANTS = {
@@ -254,6 +266,8 @@ TOOL_VARIANTS = {
     "dma_probe 2": ("out4", "out128", "out2d", "in16+o128", "in128+o128",
                     "raw+o128", "in16+o16c"),
     "dma_probe 3": ("y4", "y512r", "y512n", "u8_16", "u8_2048r"),
+    "fused_strip_probe": ("oneblk",),
+    "l14_probe": ("xonly",),
 }
 # the kernels take their f32 sums (9 products; 3 x tr x tc lane-0 terms) in
 # another order than the plain versions: make_inputs draws these variants'
@@ -385,7 +399,8 @@ def fetch_map_plain(v: Variant, g: Grid, x: torch.Tensor) -> torch.Tensor:
         return torch.zeros(o.shape(g), dtype=_DTYPES[o.dtype],
                            device=x.device)
     bs = [block(k, v.array, g) for k in v.ins]
-    xs, lanes = o.xg // v.rep, (o.lg if bs[0].lanes > 1 else 1)
+    xs = o.xg // v.rep
+    lanes = o.lg if bs[0].lanes > 1 and v.op != "lane0" else 1
     t = cells(x, bs[0], g)[..., :xs, :lanes].float()
     t = t.expand(*t.shape[:-1], o.lg)
     if len(bs) == 4:   # the tile plus its right, lower and diagonal stripes
@@ -461,21 +476,24 @@ _ARGTYPES = {
                                _PTR],
     "w2x_probe_l1_mm": [_PTR, _LLP, _PTR, _PTR, _LLP, _PTR],
 }
-_LIB: list = []
+_TMM_ARGTYPES = {"w2x_tap_mm": [_INT, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR]}
+_LIBS: dict = {}
 
 
-def _lib() -> ctypes.CDLL:
-    """csrc/probe.cu's library, built at first use and kept for the
-    process."""
-    if not _LIB:
-        lib = _build.load("probe")[0]
-        for fn, argtypes in _ARGTYPES.items():
+def _lib(name: str = "probe") -> ctypes.CDLL:
+    """csrc/probe.cu's library (or csrc/tmm.cu's, name "tmm"), built at
+    first use and kept for the process."""
+    if name not in _LIBS:
+        lib = _build.load(name)[0]
+        fns = _ARGTYPES if name == "probe" else _TMM_ARGTYPES
+        for fn, argtypes in fns.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        lib.w2x_probe_error_string.argtypes = [ctypes.c_int]
-        lib.w2x_probe_error_string.restype = ctypes.c_char_p
-        _LIB.append(lib)
-    return _LIB[0]
+        err = getattr(lib, f"w2x_{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
 def _lls(vals) -> ctypes.Array:
@@ -640,6 +658,8 @@ def library(v: Variant, g: Grid, args: dict, device):
     x, b0 = args["x"], block(v.ins[0], v.array, g)
     if v.kernel == "fetch_map":
         a = cells(x, b0, g)[..., :o.xg // v.rep, :o.lg]
+        if v.op == "lane0":
+            a = a[..., 0:1].expand(a.shape)
         view = a.permute(0, 1, 3, 2, 4, 5) if o.form == "lanes" else (
             a.permute(0, 1, 3, 5, 2, 4))
         return view.contiguous
@@ -769,3 +789,275 @@ def run_variants(names, g: Grid, dev: torch.device, iters: int, seed: int,
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return ok
+
+
+# ---------------------------------------------------------------------------
+# tools/tmm_probe.py:79 (cch) and :122 (cpos): the four-tap 128 -> 128 layer
+# ---------------------------------------------------------------------------
+
+TMM_LAYOUTS = ("chlane", "poslane")
+TMM_SITES = {"chlane": "tools/tmm_probe.py:79",
+             "poslane": "tools/tmm_probe.py:122"}
+TMM_TAPS, TMM_CH = 4, 128
+
+
+def tmm_input_shape(layout: str, batch: int, ny: int, nx: int, tr: int = 64,
+                    tc: int = 128) -> tuple:
+    """The JAX tool's input array for its (batch, ny, nx) grid of (tr, tc)
+    cells: (ny+1) tr rows and (nx+1) tc columns (at least the cells' blocks,
+    ny (tr+8) x nx (tc+16), where the tile is small), channels last (chlane)
+    or before the columns (poslane)."""
+    rows = max((ny + 1) * tr, ny * (tr + 8))
+    cols = max((nx + 1) * tc, nx * (tc + 16))
+    if layout == "chlane":
+        return (batch, rows, cols, TMM_CH)
+    return (batch, rows, TMM_CH, cols)
+
+
+def _tmm_check(x: torch.Tensor, w: torch.Tensor, layout: str,
+               tile) -> tuple:
+    """tap_mm's arguments -> (ny, nx): as many disjoint (tr+8, tc+16) blocks
+    as the input holds each way."""
+    if layout not in TMM_LAYOUTS:
+        raise ValueError(f"layout must be one of {TMM_LAYOUTS}, got "
+                         f"{layout!r}")
+    tr, tc = tile
+    if int(tr) != tr or int(tc) != tc or tr < 1 or tc < 1:
+        raise ValueError(f"tile must be two positive ints, got {tile}")
+    ch_dim = 3 if layout == "chlane" else 2
+    if x.dim() != 4 or x.shape[ch_dim] != TMM_CH:
+        raise ValueError(f"{layout}: x must be 4-d with {TMM_CH} channels in "
+                         f"dim {ch_dim}, got {tuple(x.shape)}")
+    if tuple(w.shape) != (TMM_TAPS, TMM_CH, TMM_CH):
+        raise ValueError(f"w must be [{TMM_TAPS}, {TMM_CH}, {TMM_CH}], got "
+                         f"{tuple(w.shape)}")
+    for name, t in (("x", x), ("w", w)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous bfloat16, got "
+                            f"{t.dtype}")
+    if w.device != x.device:
+        raise ValueError(f"w on {w.device}, x on {x.device}")
+    rows, cols = x.shape[1], x.shape[5 - ch_dim]
+    ny, nx = rows // (tr + 8), cols // (tc + 16)
+    if ny < 1 or nx < 1:
+        raise ValueError(f"x of {rows} x {cols} positions holds no "
+                         f"({tr + 8}, {tc + 16}) block")
+    return ny, nx
+
+
+def _tmm_cells(xc: torch.Tensor, n0: int, nb: int, ny: int, nx: int, tr: int,
+               tc: int) -> torch.Tensor:
+    """The cells' input blocks as one view [nb, ny, nx, tr+8, tc+16, 128] of
+    a [B, R, C, 128] view xc (any strides), from image n0."""
+    sn, sr, sc, sch = xc.stride()
+    return xc.as_strided((nb, ny, nx, tr + 8, tc + 16, TMM_CH),
+                         (sn, (tr + 8) * sr, (tc + 16) * sc, sr, sc, sch),
+                         xc.storage_offset() + n0 * sn)
+
+
+def tap_mm_plain(x: torch.Tensor, w: torch.Tensor, layout: str,
+                 tile=(64, 128), chunk: int = 4) -> torch.Tensor:
+    """Plain PyTorch version of tap_mm: four shifted products of each cell's
+    block with w[t], summed in f32 (TF32 off) in tap order, rounded to bf16
+    once; `chunk` images at a time."""
+    ny, nx = _tmm_check(x, w, layout, tile)
+    tr, tc = tile
+    xc = x if layout == "chlane" else x.permute(0, 1, 3, 2)
+    b, wf = x.shape[0], w.float()
+    out = torch.empty((b, ny * tr, nx * tc, TMM_CH), dtype=torch.bfloat16,
+                      device=x.device)
+    with no_tf32():
+        for n0 in range(0, b, chunk):
+            nb = min(chunk, b - n0)
+            blocks = _tmm_cells(xc, n0, nb, ny, nx, tr, tc)
+            acc = None
+            for t in range(TMM_TAPS):
+                term = blocks[:, :, :, t:t + tr, t:t + tc].float() @ wf[t]
+                acc = term if acc is None else acc.add_(term)
+            out[n0:n0 + nb] = (acc.to(torch.bfloat16).permute(0, 1, 3, 2, 4, 5)
+                               .reshape(nb, ny * tr, nx * tc, TMM_CH))
+    return out if layout == "chlane" else out.permute(0, 1, 3, 2).contiguous()
+
+
+def pack_tap_mm(w: torch.Tensor) -> torch.Tensor:
+    """w [4, 128 in, 128 out] -> [16, 4, 128, 8], csrc/tmm.cu's operand
+    order: wp[k8, t, co, e] = w[t, 8 k8 + e, co]."""
+    return (w.reshape(TMM_TAPS, TMM_CH // 8, 8, TMM_CH).permute(1, 0, 3, 2)
+            .contiguous())
+
+
+def prepare_tap_mm(x: torch.Tensor, w: torch.Tensor, layout: str,
+                   tile=(64, 128)):
+    """Check the arguments and pack the weights once -> (out, launch) for a
+    CUDA run; launch() enqueues the kernel on the current stream and counts
+    it in LAUNCHES["tap_mm"]. The kernel takes an even tr, tc a multiple of
+    128 and columns a multiple of 8."""
+    ny, nx = _tmm_check(x, w, layout, tile)
+    tr, tc = tile
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    rows, cols = x.shape[1], x.shape[3 if layout == "poslane" else 2]
+    if tr % 2 or tc % 128 or cols % 8:
+        raise ValueError(f"the kernel takes an even tr, tc a multiple of 128 "
+                         f"and columns a multiple of 8, got tile {tile}, "
+                         f"{cols} columns")
+    b = x.shape[0]
+    shape = ((b, ny * tr, nx * tc, TMM_CH) if layout == "chlane"
+             else (b, ny * tr, TMM_CH, nx * tc))
+    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    wp = pack_tap_mm(w)
+    lib = _lib("tmm")
+    code = TMM_LAYOUTS.index(layout)
+
+    def launch(_keep=(x, wp, out)) -> None:   # the tensors outlive launch
+        err = lib.w2x_tap_mm(code, x.data_ptr(), wp.data_ptr(),
+                             out.data_ptr(), b, rows, cols, ny, nx, tr, tc,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            msg = lib.w2x_tmm_error_string(err).decode()
+            raise RuntimeError(f"tap_mm kernel, {layout}: {msg}")
+        LAUNCHES["tap_mm"] += 1
+
+    return out, launch
+
+
+def tap_mm(x: torch.Tensor, w: torch.Tensor, layout: str,
+           tile=(64, 128)) -> torch.Tensor:
+    """The four-tap 128 -> 128 layer of tools/tmm_probe.py on the grid of
+    (tr, tc) cells that the input holds, each reading its disjoint
+    (tr+8, tc+16) block (the JAX BlockSpecs):
+        out[n, i tr + y, j tc + x, co] = sum over t = 0..3 and ci of
+            in[n, i(tr+8) + y + t, j(tc+16) + x + t, ci] * w[t, ci, co]
+    with f32 sums rounded once to bf16. layout "chlane": x [B, R, C, 128] ->
+    [B, ny tr, nx tc, 128]; "poslane": x [B, R, 128, C] -> [B, ny tr, 128,
+    nx tc]. x and w [4, 128, 128] contiguous bf16. CPU tensors take the plain
+    version; CUDA tensors take the kernel (csrc/tmm.cu), or raise."""
+    _tmm_check(x, w, layout, tile)
+    if x.device.type == "cpu":
+        return tap_mm_plain(x, w, layout, tile)
+    with torch.cuda.device(x.device):
+        out, launch = prepare_tap_mm(x, w, layout, tile)
+        launch()
+    return out
+
+
+def tap_mm_bound(batch: int, ny: int, nx: int, tr: int, tc: int) -> dict:
+    """The bytes (the (tr+3, tc+3) positions of each cell's block that the
+    four taps read, once; the output written once; the weights once), the
+    operations and the least time of the layer on the card, the larger of
+    the two. The rest of a (tr+8, tc+16) block is never read."""
+    nbytes = 2 * (batch * ny * nx * ((tr + 3) * (tc + 3) + tr * tc) * TMM_CH
+                  + TMM_TAPS * TMM_CH * TMM_CH)
+    ops = 2 * TMM_TAPS * TMM_CH * TMM_CH * batch * ny * nx * tr * tc
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": ops, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def tmm_inputs(shape: tuple, seed: int, device) -> tuple:
+    """(x, w) drawn as k / 16, k = 0..15: every product is a multiple of
+    1/256 and a 512-term sum stays under 2^24 such units, so it is exact in
+    f32 in any order and the kernel equals the plain version bit for bit."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 16, shape, generator=gen, device=dev)
+    w = torch.randint(0, 16, (TMM_TAPS, TMM_CH, TMM_CH), generator=gen,
+                      device=dev)
+    return ((x.to(torch.bfloat16) / 16).contiguous(),
+            (w.to(torch.bfloat16) / 16).contiguous())
+
+
+def tap_mm_library(x: torch.Tensor, w: torch.Tensor, layout: str,
+                   tile=(64, 128)) -> dict:
+    """Two PyTorch yardsticks for the same layer, as callables: "matmul",
+    the sum of four bf16 torch.matmul over the shifted views of the blocks
+    (the views copied first); "conv", one cuDNN bf16 conv2d over the whole
+    input with a 4 x 4 kernel whose 12 off-diagonal taps are zero: 4x the
+    products, over every position of the plane (chlane: the input viewed
+    channels_last, no copy; poslane: the [B, R, 128, C] array viewed as
+    NCHW, which PyTorch copies to a standard layout first)."""
+    ny, nx = _tmm_check(x, w, layout, tile)
+    tr, tc = tile
+    if layout == "chlane":
+        v = _tmm_cells(x, 0, x.shape[0], ny, nx, tr, tc)
+        views = [v[:, :, :, t:t + tr, t:t + tc] for t in range(TMM_TAPS)]
+        mats = list(w)
+        xin = x.permute(0, 3, 1, 2)
+    else:
+        sn, sr, sch, sc = x.stride()
+        v = x.as_strided((x.shape[0], ny, nx, tr + 8, TMM_CH, tc + 16),
+                         (sn, (tr + 8) * sr, (tc + 16) * sc, sr, sch, sc))
+        views = [v[:, :, :, t:t + tr, :, t:t + tc] for t in range(TMM_TAPS)]
+        mats = [wt.t() for wt in w]
+        xin = x.permute(0, 2, 1, 3)
+    k = torch.zeros((TMM_CH, TMM_CH, TMM_TAPS, TMM_TAPS),
+                    dtype=torch.bfloat16, device=x.device)
+    for t in range(TMM_TAPS):
+        k[:, :, t, t] = w[t].t()
+    k = k.contiguous(memory_format=torch.channels_last)
+
+    def matmul():
+        acc = None
+        for vt, m in zip(views, mats):
+            term = vt @ m if layout == "chlane" else m @ vt
+            acc = term if acc is None else acc + term
+        return acc
+
+    return {"matmul": matmul, "conv": lambda: F.conv2d(xin, k)}
+
+
+def measure_tap_mm(layout: str, batch: int, ny: int, nx: int, tr: int,
+                   tc: int, dev: torch.device, iters: int = 20,
+                   seed: int = 0) -> dict:
+    """Hold tap_mm against its plain version (bit for bit on tmm_inputs)
+    at the JAX tool's input shape and time it: on a card the kernel's
+    launches (CUDA events around `iters` back to back), the plain version
+    once and the two library yardsticks; on the CPU the plain version only,
+    on the host's clock."""
+    x, w = tmm_inputs(tmm_input_shape(layout, batch, ny, nx, tr, tc), seed,
+                      dev)
+    got = tap_mm(x, w, layout, (tr, tc))
+    ref = tap_mm_plain(x, w, layout, (tr, tc))
+    err, share, ok = compare(got, ref)
+    del ref
+    row = {"name": layout, "site": TMM_SITES[layout], "kernel": "tap_mm",
+           "shape": tuple(x.shape), "max_abs_err": err,
+           "share_differ": share, "ok": ok,
+           **tap_mm_bound(batch, ny, nx, tr, tc)}
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            _, launch = prepare_tap_mm(x, w, layout, (tr, tc))
+            row["ms"] = time_ms(lambda k: launch(), dev, iters)
+            lib = tap_mm_library(x, w, layout, (tr, tc))
+            row["library_ms"] = time_ms(lambda k: lib["matmul"](), dev,
+                                        max(2, iters // 4))
+            row["conv_ms"] = time_ms(lambda k: lib["conv"](), dev,
+                                     max(2, iters // 4))
+            del lib
+        row["rate_gbs"] = row["bytes"] / row["ms"] / 1e6
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+    else:
+        row.update(ms=None, library_ms=None, conv_ms=None, rate_gbs=None,
+                   tflops=None)
+    row["plain_ms"] = time_ms(
+        lambda k: tap_mm_plain(x, w, layout, (tr, tc)), dev, 1)
+    return row
+
+
+def format_tap_mm_row(r: dict) -> str:
+    """One printed line of measure_tap_mm's row."""
+    def ms(t):
+        return "not measured" if t is None else f"{t:.4f} ms"
+    rate = ("" if r["ms"] is None else
+            f" = {r['rate_gbs']:.0f} GB/s ({100 * r['bound_ms'] / r['ms']:.1f}"
+            f"% of the bound), {r['tflops']:.1f} TFLOP/s")
+    return (f"{r['name']:8s} ({r['site']}, tap_mm) x {r['shape']}: "
+            f"{r['bytes'] / 1e9:.3f} GB, {r['flops'] / 1e12:.4f} TFLOP; "
+            f"kernel {ms(r['ms'])}{rate}; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} (bytes {r['bytes_ms']:.4f} ms, operations "
+            f"{r['ops_ms']:.4f} ms); plain {ms(r['plain_ms'])}; library: 4 "
+            f"bf16 matmul {ms(r['library_ms'])}, cuDNN 4x4 conv with zero "
+            f"off-diagonal taps {ms(r['conv_ms'])}; max |kernel - plain| "
+            f"{r['max_abs_err']:.3g} ({100 * r['share_differ']:.4f}% differ, "
+            f"bar bit-equal){'' if r['ok'] else '  FAILED'}")

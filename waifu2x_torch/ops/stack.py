@@ -24,7 +24,8 @@ names):
         convert_plane of y edge-padded to even, cropped back to h x w
     stack_scale_upto(ylow, sp, upto) -> [N, hl, wl, 4]
         the scale stack stopped after layer `upto` (0..6): 4 values of
-        that stage per s2d cell (B7, see the function)
+        that stage per s2d cell (B7, see the function); out="whole",
+        "lane0" and "phase_taps" are the truncation probes' other forms
 
 in the input's dtype where not said otherwise. Storage is f32 or bf16.
 Products and sums are f32 (TF32 off); in bf16 each layer's activation is
@@ -131,7 +132,12 @@ MID_MMA = True
 MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0}
 
 # the last layer's output forms (csrc/common.cuh: OUT_*)
-_OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS = 0, 1, 2, 3
+_OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS, _OUT_PTAPS = 0, 1, 2, 3, 4
+# stack_scale_upto's output forms -> the upto values that take each
+UPTO_OUTS = {"cell": range(7), "whole": range(6), "lane0": (0,),
+             "phase_taps": (6,)}
+# csrc/l6.cu:upto_gather's modes at upto = 0, by output form
+_GATHER_LOWRES = {"cell": 1, "lane0": 2, "whole": 3}
 _OUT_MODES = {"scale": _OUT_S2D, "noise": _OUT_S2D, "dense": _OUT_DENSE,
               "fused_u8": _OUT_U8}
 DENSE_TC = 128   # widest dense chunk: four warps' contiguous stores per phase
@@ -478,6 +484,17 @@ def _l6_i8_window_plain(x5w: torch.Tensor, sp, dtype):
     return x6.to(dtype).float(), sx
 
 
+def _phase_taps_plain(x6: torch.Tensor, w7: torch.Tensor,
+                      dtype) -> torch.Tensor:
+    """The unfolded tap partials of each cell's pixel (0, 0) on f32 values
+    [N, 128, 2R+2, 2C+2] -> [N, R, C, 4] (stack_scale_upto, upto=6,
+    out="phase_taps")."""
+    rows, cols = (x6.shape[2] - 2) // 2, (x6.shape[3] - 2) // 2
+    win = x6[:, :, 0:2 * rows:2, 0:2 * cols:2]
+    return torch.einsum("nchw,ct->nhwt", win,
+                        w7.float()[:, 0:4, 0]).to(dtype).float()
+
+
 def _taps_plain(x6: torch.Tensor, w7: torch.Tensor, dtype) -> torch.Tensor:
     """The same-cell tap partials of layer 7 on f32 values
     [N, 128, 2R+2, 2C+2] -> [N, R, C, 4] (see stack_scale_upto, upto=6)."""
@@ -499,7 +516,7 @@ def _taps_plain(x6: torch.Tensor, w7: torch.Tensor, dtype) -> torch.Tensor:
 
 def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
                  form: str = "direct", tiling=None, upto=None,
-                 mma: bool = False):
+                 mma: bool = False, out: str = "cell"):
     """The stack on the padded f32 plane x [N, 1, 2hg+14, 2wg+14] ->
     [N, hg, wg, 4] in s2d layout (f32 values): F.conv2d + bias + LeakyReLU
     per layer in f32 with TF32 off, each stored activation rounded to
@@ -507,14 +524,17 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
     layer's output unrounded, as the u8 epilogue reads it. `form` is layer
     6's; with "i8", `tiling` = (tr, tc, ny, nx) must cover hg x wg exactly.
     upto (1..6) stops after that layer and gives its 4 values per cell
-    (stack_scale_upto). With `mma`, layers 2-6 are mma_layer_plain from the
-    packed weights sp.wm (layer 6 only in its direct form)."""
+    (stack_scale_upto), in the form `out`: with "whole" (upto 1..5) the
+    layer's whole NHWC plane, with "phase_taps" (upto 6) the unfolded taps.
+    With `mma`, layers 2-6 are mma_layer_plain from the packed weights
+    sp.wm (layer 6 only in its direct form)."""
     hg, wg = (x.shape[2] - 14) // 2, (x.shape[3] - 14) // 2
     w7, b7 = sp[6]
 
     def last(x6):
         if upto == 6:
-            return _taps_plain(x6, w7, dtype)
+            return (_phase_taps_plain if out == "phase_taps"
+                    else _taps_plain)(x6, w7, dtype)
         y = _plain_layer(x6, w7, b7, dtype, round_last)
         return s2d(y[:, 0, :, :, None])
 
@@ -523,6 +543,8 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
             x = (_plain_mid(x, sp, k, dtype, mma) if k
                  else _plain_layer(x, *sp[0], dtype))
         if upto is not None and upto <= 5:
+            if out == "whole":
+                return x.permute(0, 2, 3, 1)
             return x[:, :4, 0:2 * hg:2, 0:2 * wg:2].permute(0, 2, 3, 1)
         if form == "wino":
             return last(_l6_wino_plain(x, sp, dtype))
@@ -542,16 +564,16 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
 
 def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
                      form: str = "direct", tile=None, upto=None,
-                     mma: bool = False):
+                     mma: bool = False, out: str = "cell"):
     """nearest-2x (of the plane edge-extended to the int8 tile grid, where
     there is one), replicate pad 7, the stack (_plain_stack), cropped ->
-    [N, hl, wl, 4] as f32 values."""
+    [N, hl, wl, 4] as f32 values (out="whole": the uncropped plane)."""
     ylow, hl, wl, tiling = _on_grid(
         ylow, False, form if upto in (None, 6) else "direct", tile)
     up = ylow.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     y = _plain_stack(pad_replicate(up.float(), 7), sp, ylow.dtype,
-                     round_last, form, tiling, upto, mma)
-    return y[:, :hl, :wl]
+                     round_last, form, tiling, upto, mma, out)
+    return y if out == "whole" else y[:, :hl, :wl]
 
 
 def stack_scale_plain(ylow: torch.Tensor, sp, l6_i8=None, l6_wino=None,
@@ -564,24 +586,32 @@ def stack_scale_plain(ylow: torch.Tensor, sp, l6_i8=None, l6_wino=None,
                             mma=mma).to(ylow.dtype)
 
 
+def _lowres_window(ylow: torch.Tensor, dy: int, dx: int, rows: int,
+                   cols: int) -> torch.Tensor:
+    """[N, rows, cols] of ylow edge-padded by 4, from its pixel (dy, dx)."""
+    _, hl, wl = ylow.shape
+    r = (torch.arange(rows, device=ylow.device) + dy - 4).clamp_(0, hl - 1)
+    c = (torch.arange(cols, device=ylow.device) + dx - 4).clamp_(0, wl - 1)
+    return ylow[:, r][:, :, c]
+
+
 def stack_scale_upto_plain(ylow: torch.Tensor, sp, upto: int, l6_i8=None,
-                           l6_wino=None, tile=None) -> torch.Tensor:
-    """Plain PyTorch version of stack_scale_upto."""
+                           l6_wino=None, tile=None,
+                           out: str = "cell") -> torch.Tensor:
+    """Plain PyTorch version of stack_scale_upto, in each output form."""
     form = l6_form(l6_i8, l6_wino)
     _check(ylow, sp, form if upto == 6 else "direct")
-    _check_upto(upto)
+    _check_upto(upto, out)
     if upto == 0:
         _, hl, wl = ylow.shape
-        taps = []
-        for dy, dx in ((0, 0), (0, 1), (0, 2), (1, 0)):
-            r = (torch.arange(hl, device=ylow.device) + dy - 4).clamp_(
-                0, hl - 1)
-            c = (torch.arange(wl, device=ylow.device) + dx - 4).clamp_(
-                0, wl - 1)
-            taps.append(ylow[:, r][:, :, c])
-        return torch.stack(taps, dim=-1)
-    return _scale_plain_f32(ylow, sp, form=form, tile=tile,
-                            upto=upto).to(ylow.dtype)
+        if out == "whole":
+            return _lowres_window(ylow, 0, 0, hl + 8, wl + 8)[..., None]
+        taps = ((0, 0),) * 4 if out == "lane0" else (
+            (0, 0), (0, 1), (0, 2), (1, 0))
+        return torch.stack([_lowres_window(ylow, dy, dx, hl, wl)
+                            for dy, dx in taps], dim=-1)
+    return _scale_plain_f32(ylow, sp, form=form, tile=tile, upto=upto,
+                            out=out).to(ylow.dtype)
 
 
 def s2d_to_dense(y_s2d: torch.Tensor, tc: int) -> torch.Tensor:
@@ -838,18 +868,20 @@ class _Launcher:
 
 
 def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
-            form: str = "direct", tile=None, upto=None) -> torch.Tensor:
+            form: str = "direct", tile=None, upto=None,
+            out_form: str = "cell") -> torch.Tensor:
     """One call's launches on the current stream, no synchronisation: x is
     the low-res plane [N, hl, wl] (kinds "scale", "dense", "fused_u8") or
     the full-res plane [N, h, w] ("noise": any size, computed on the
     even-rounded plane, hl = ceil(h/2)). The last layer writes Y_s2d
     [N, hl, wl, 4], or for "dense" Y [N, hl, nx*4*tc], or for "fused_u8"
     u8 BGR [N, hl, wl, 16] from `uvp`; with `upto` (0..6) the stack stops
-    after that layer and its 4 values per cell are written instead.
-    `form` is layer 6's; "i8" runs on the plane edge-extended to the tile
-    grid. `events`, a list of timing-enabled CUDA events, is recorded before
-    the first launch and after each layer's launches (8 events for a whole
-    stack, upto + 2 with `upto`)."""
+    after that layer and its 4 values per cell are written instead, or the
+    other form `out_form` of stack_scale_upto. `form` is layer 6's; "i8"
+    runs on the plane edge-extended to the tile grid. `events`, a list of
+    timing-enabled CUDA events, is recorded before the first launch and
+    after each layer's launches (8 events for a whole stack, upto + 2 with
+    `upto`)."""
     full_res = kind == "noise"
     x, hl, wl, tiling = _on_grid(
         x, full_res, form if upto in (None, 6) else "direct", tile)
@@ -863,7 +895,10 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
         bufs = [torch.empty(act, dtype=x.dtype, device=x.device)
                 for _ in range(0 if upto == 0 else 2)]
         # every element of each output form is written by the last launch
-        if kind == "dense" and upto is None:
+        if out_form == "whole":   # at upto >= 1, layer upto's buffer itself
+            out = (torch.empty((n, hl + 8, wl + 8, 1), dtype=x.dtype,
+                               device=x.device) if upto == 0 else None)
+        elif kind == "dense" and upto is None:
             out = torch.empty((n, hl, -(-wl // tc) * 4 * tc), dtype=x.dtype,
                               device=x.device)
         elif kind == "fused_u8" and upto is None:
@@ -880,10 +915,12 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             src = bufs[k % 2]
         if upto is not None and upto <= 5:
             hk = 2 * hl + 14 - 2 * upto      # layer `upto`'s output plane
+            wk, ck = 2 * wl + 14 - 2 * upto, WIDTHS[upto - 1][1] if upto else 1
+            if out is None:
+                return src[:n * hk * wk * ck].view(n, hk, wk, ck)
             run.run("l6", "w2x_upto_gather", f"upto {upto}", "upto",
-                    src.data_ptr(), out.data_ptr(), n, hl, wl, hk,
-                    2 * wl + 14 - 2 * upto, WIDTHS[upto - 1][1] if upto
-                    else 1, int(upto == 0))
+                    src.data_ptr(), out.data_ptr(), n, hl, wl, hk, wk, ck,
+                    _GATHER_LOWRES[out_form] if upto == 0 else 0)
             run.mark()
             return out
         # layer 6 in its form, layer 5's output being in bufs[0]
@@ -907,7 +944,8 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
                     "layer 7" if upto is None else "upto 6",
                     None if upto is None else "upto", x6.data_ptr(),
                     w7.data_ptr(), b7.data_ptr(), out.data_ptr(), n, hl, wl,
-                    out_mode if upto is None else _OUT_TAPS,
+                    out_mode if upto is None else
+                    _OUT_PTAPS if out_form == "phase_taps" else _OUT_TAPS,
                     None if uvp is None else uvp.data_ptr(), cmap, tc,
                     *(tiling or (0, 0, 0, 0)))
         run.mark()
@@ -1060,13 +1098,17 @@ def stack_scale(ylow: torch.Tensor, sp, events=None, l6_i8=None,
     return _launch(ylow, sp, "scale", events, form=form, tile=tile)
 
 
-def _check_upto(upto) -> None:
+def _check_upto(upto, out: str = "cell") -> None:
     if upto not in range(7):
         raise ValueError(f"upto must be 0..6, got {upto!r}")
+    if out not in UPTO_OUTS or upto not in UPTO_OUTS[out]:
+        raise ValueError(f"out={out!r} at upto {upto}: the forms are "
+                         f"{ {k: list(v) for k, v in UPTO_OUTS.items()} }")
 
 
 def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
-                     l6_i8=None, l6_wino=None, tile=None) -> torch.Tensor:
+                     l6_i8=None, l6_wino=None, tile=None,
+                     out: str = "cell") -> torch.Tensor:
     """The scale stack stopped after layer `upto` (B7): ylow [N, hl, wl] ->
     [N, hl, wl, 4] in ylow's dtype, 4 values of that stage per s2d cell
     (i, j), with act_k the output of layer k, whose row r is image row
@@ -1085,15 +1127,33 @@ def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
                    which it computes only to keep its compiler from
                    dropping their fetches and which depends on its tile
                    grid; the port leaves that constant out.
-    upto + 1 launches (one more with l6_i8 at upto = 6). CPU tensors take
-    the plain version; CUDA tensors take the kernels."""
-    _check_upto(upto)
+    upto + 1 launches (one more with l6_i8 at upto = 6). That is out="cell";
+    the truncation probes' other forms (tools/fused_strip_probe.py:162,
+    tools/k1_forensics.py:136) are:
+      out="whole"       upto = 1..5: act_k itself, [N, 2hl+14-2k,
+                        2wl+14-2k, C_k], halo and all: the buffer that
+                        layer k's launch wrote, returned as it is (no
+                        launch of its own, upto launches in all); upto = 0:
+                        the low-res input window, ylow edge-padded by 4 on
+                        every side, [N, hl+8, wl+8, 1] (one launch of
+                        upto_gather).
+      out="lane0"       upto = 0: the low-res tap (0,0) of the cell's
+                        window, ylow[clamp(i-4), clamp(j-4)], in all 4
+                        lanes, with no neighbour-sum constant (one launch).
+      out="phase_taps"  upto = 6: the unfolded layer-7 partials of the
+                        cell's pixel (0, 0): out[n, i, j, t] = sum over c of
+                        act_6[n, 2i, 2j, c] * w7[dy_t, dx_t, c], (dy, dx) =
+                        (0,0), (0,1), (0,2), (1,0), an f32 sum rounded once,
+                        no bias and no LeakyReLU (7 launches, 8 with l6_i8).
+    CPU tensors take the plain version; CUDA tensors take the kernels."""
+    _check_upto(upto, out)
     form = l6_form(l6_i8, l6_wino)
     _check(ylow, sp, form if upto == 6 else "direct")
     if ylow.device.type == "cpu":
-        return stack_scale_upto_plain(ylow, sp, upto, l6_i8, l6_wino, tile)
+        return stack_scale_upto_plain(ylow, sp, upto, l6_i8, l6_wino, tile,
+                                      out)
     return _launch(ylow, sp, "scale", events, form=form, tile=tile,
-                   upto=upto)
+                   upto=upto, out_form=out)
 
 
 def stack_scale_dense(ylow: torch.Tensor, sp, tc=None, events=None,

@@ -4,9 +4,11 @@ stack (the counterpart of the JAX package's tools/layer_time_probe.py).
 Runs ops.stack.stack_scale_upto for upto = 0..6 and the whole stack
 (stack_scale) on one batch of low-res planes in bf16 with random-init
 weights, times each with CUDA events after a warm-up run, and prints the
-cumulative time of every truncation with its delta to the one before:
-the cost that layer adds in place. Beside them it prints the per-layer
-times that the whole stack's own `events=` argument records. The port
+cumulative time of every truncation with its delta to the one before
+(the cost that layer adds in place) and its bound. Beside them it prints
+the per-layer times that the whole stack's own `events=` argument records.
+print_ladder and bound_ms serve the truncation probes too
+(fused_strip_probe, k1_forensics, l14_probe). The port
 launches one kernel per layer, so the two columns should agree; a fused
 kernel would only have the first.
 
@@ -26,10 +28,62 @@ import torch
 
 from waifu2x_torch.models.srcnn import init_params
 from waifu2x_torch.ops import stack
+from waifu2x_torch.ops.probe import PEAK_BF16_FLOPS, PEAK_BYTES
 from waifu2x_torch.pipeline import resolve_device
 from waifu2x_torch.utils.timing import card_line, time_ms
 
 MODES = ["0", "1", "2", "3", "4", "5", "6", "full"]
+
+
+def bound_ms(ylow: torch.Tensor, upto: int, out: str = "cell"):
+    """(least ms, "operations" or "bytes") of stack_scale_upto(ylow, sp,
+    upto, out=out) on the card, upto = 7 for the whole stack: layers 1..upto
+    at the bf16 peak over every full-res pixel (layer 7's taps: 9 a pixel,
+    or 4 a cell for "phase_taps"), against ylow, the weights of those layers
+    and the output, each once, at the memory rate."""
+    n, hl, wl = ylow.shape
+    item, px = ylow.element_size(), 4 * n * hl * wl
+    flops = sum(2 * 9 * ci * co * px for ci, co in stack.WIDTHS[:min(upto, 6)])
+    if upto == 6:
+        flops += 2 * 128 * (4 * n * hl * wl if out == "phase_taps" else 9 * px)
+    elif upto == 7:
+        flops += 2 * 9 * 128 * px
+    weights = sum(9 * ci * co * item + 4 * co
+                  for ci, co in stack.WIDTHS[:upto])
+    if out == "whole":
+        side = (lambda s: 2 * s + 14 - 2 * upto) if upto else (lambda s: s + 8)
+        outb = n * side(hl) * side(wl) * (stack.WIDTHS[upto - 1][1] if upto
+                                          else 1) * item
+    else:
+        outb = n * hl * wl * 4 * item
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (ylow.numel() * item + weights + outb) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def print_ladder(entries, dev: torch.device, iters: int,
+                 graph: bool = False, rows: "list | None" = None) -> list:
+    """Time each entry (label, fn, bound, note, in_ladder) with time_ms and
+    print its ms, for a rung of the ladder its delta to the rung before,
+    its bound ((ms, by) or None) and the note -> the times; each entry's
+    numbers are appended to `rows` as a dict where given."""
+    prev, times = None, []
+    for label, fn, bound, note, in_ladder in entries:
+        ms = time_ms(lambda _: fn(), dev, iters, graph)
+        line = f"{label}: {ms:9.3f} ms"
+        if in_ladder and prev is not None:
+            line += f"  delta {ms - prev:+9.3f} ms"
+        if bound is not None:
+            line += f"  bound {bound[0]:.3f} ms by {bound[1]}"
+        print(line + (f"  {note}" if note else ""), flush=True)
+        if in_ladder:
+            prev = ms
+        times.append(ms)
+        if rows is not None:
+            rows.append({"mode": label.strip(), "ms": ms,
+                         "bound_ms": bound and bound[0],
+                         "bound_by": bound and bound[1], "note": note})
+    return times
 
 
 def _events_ms(run, iters: int) -> list:
@@ -79,22 +133,15 @@ def main(argv=None) -> int:
         layer_ms = _events_ms(
             lambda ev: stack.stack_scale(ylow, sp, events=ev, **kw),
             args.iters)
-    prev = None
+    entries = []
     for mode in args.modes:
-        if mode == "full":
-            ms = time_ms(lambda _: stack.stack_scale(ylow, sp, **kw), dev,
-                          args.iters)
-        else:
-            ms = time_ms(lambda _, k=int(mode): stack.stack_scale_upto(
-                ylow, sp, k, **kw), dev, args.iters)
-        line = f"upto {mode:>4}: {ms:9.3f} ms"
-        if prev is not None:
-            line += f"  delta {ms - prev:+9.3f} ms"
-        if layer_ms is not None and mode != "0":
-            k = 6 if mode == "full" else int(mode) - 1
-            line += f"  events= layer {k + 1}: {layer_ms[k]:9.3f} ms"
-        print(line, flush=True)
-        prev = ms
+        k = 7 if mode == "full" else int(mode)
+        fn = ((lambda: stack.stack_scale(ylow, sp, **kw)) if k == 7 else
+              (lambda k=k: stack.stack_scale_upto(ylow, sp, k, **kw)))
+        note = (f"events= layer {k}: {layer_ms[k - 1]:9.3f} ms"
+                if layer_ms is not None and k else "")
+        entries.append((f"upto {mode:>4}", fn, bound_ms(ylow, k), note, True))
+    print_ladder(entries, dev, args.iters)
     return 0
 
 
