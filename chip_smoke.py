@@ -146,6 +146,17 @@ Phases (any failure raises and exits non-zero):
      tmm_probe) at their JAX grids with the stack's and the probes' launch
      counts read around each (the probe variants oneblk and xonly, which
      phase 18 held, are timed there).
+ 20. the last three probe sites (phase20 below): csrc/mma.cu's zero-shift
+     variants (ZS 1-3 of layers 2-6, all 15 built) against
+     mma_layer_plain(zs) at (1,27,38), (2,37,53) and (1,5,300) to one bf16
+     ulp, layer 7 under each mask (csrc/stack.cu) against its plain version
+     (f32 <= 3e-5, bf16 <= 2^-4), the two-accumulator variants (PP) bit for
+     bit against the one-accumulator kernel at the scale512 layer shapes;
+     the variants alone timed in turns at 4 x 512^2; stack_scale_pp,
+     shift_stack and l4_shift against their plain versions at 4 x 512^2
+     (bf16 <= 2^-4), stack_scale_pp against stack_scale bit for bit; then
+     tools.accpp_probe, shift_cost_probe and l4_shift_probe with every launch
+     count read around each, and stack_scale's counts checked unchanged.
 In phases 4, 6-8, 10-11 and 15 every call that the run made to a kernel wrapper
 (one per wrapper, input shape, dtype and weights) is repeated on a copy of
 its input and held against the plain version: f32 max |diff| <= 3e-5; bf16
@@ -854,6 +865,312 @@ def phase19(dev: torch.device, sp16) -> list:
     return out_rows
 
 
+def phase20(dev: torch.device) -> list:
+    """20. The last three probe sites (tools/accpp_probe.py:127,
+    shift_cost_probe.py:156, l4_shift_probe.py:130): csrc/mma.cu's
+    zero-shift (ZS) and two-accumulator (PP) variants of the tensor-core
+    layer and csrc/stack.cu's zero-shift layer 7 against their plain
+    versions, the three probe stacks against theirs at the JAX grid, then
+    the three tools with their launches counted, and the main path's counts
+    checked unchanged. Returns the kernel table's rows."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.ops import probe, stack
+    from waifu2x_torch.tools import (
+        accpp_probe, l4_shift_probe, shift_cost_probe)
+    from waifu2x_torch.utils.timing import card_name
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(20)
+    sp_r = {dt: stack.prep_params(init_params(3), dt, dev)
+            for dt in (torch.float32, torch.bfloat16)}
+
+    def mid_delta(before):
+        return {k: stack.MID_LAUNCHES[k] - before[k] for k in before}
+
+    # every instantiated ZS layer against mma_layer_plain(zs), one bf16 ulp
+    zs_err = 0.0
+    zs_keys = [key for key in sorted(stack._MMA_VARIANTS) if not key[3]]
+    for shape in ((1, 27, 38), (2, 37, 53), (1, 5, 300)):
+        for ci, co, zs, _ in zs_keys:
+            k = stack.WIDTHS.index((ci, co)) + 1
+            x = torch.randn((*shape, ci), generator=gen).to(dev,
+                                                            torch.bfloat16)
+            before = dict(stack.MID_LAUNCHES)
+            got = stack.mma_layer(x, sp_r[torch.bfloat16], k, zs=zs)
+            torch.cuda.synchronize()
+            if mid_delta(before)["mma_zs"] != 1 or sum(
+                    mid_delta(before).values()) != 1:
+                raise AssertionError(f"mma_layer zs {zs}: launches "
+                                     f"{mid_delta(before)}")
+            ref = stack.mma_layer_plain(x, sp_r[torch.bfloat16].wm[k - 2],
+                                        sp_r[torch.bfloat16][k - 1][1], zs)
+            err, _ = check_mma_layer(f"mma layer {k} zs {zs} {shape}", got,
+                                     ref)
+            zs_err = max(zs_err, err)
+    log(f"phase 20 ZS layers 2-6, zs 1-3, at (1,27,38), (2,37,53), "
+        f"(1,5,300): max|kernel - plain| {zs_err:.3e} (bar: one bf16 ulp)")
+
+    # layer 7 under each mask against its plain version, f32 and bf16
+    l7_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for n, hl, wl in ((2, 19, 26), (1, 3, 150)):
+        x6 = torch.rand((n, 2 * hl + 2, 2 * wl + 2, 128), generator=gen)
+        for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            x = x6.to(dev, dt)
+            for zs in range(4):
+                before = stack.L6_LAUNCHES["last_zs"]
+                got = stack.last_layer(x, sp_r[dt], zs)
+                if stack.L6_LAUNCHES["last_zs"] != before + (zs > 0):
+                    raise AssertionError(f"layer 7 zs {zs}: launches "
+                                         f"{stack.L6_LAUNCHES}")
+                ref = stack.last_layer_plain(x, *sp_r[dt][6], zs)
+                err = (got.float() - ref.float()).abs().max().item()
+                check_max_err(f"layer 7 zs {zs} {dt}", err, tol)
+                l7_err[dt] = max(l7_err[dt], err)
+    log(f"phase 20 layer 7 zs 0-3: max|kernel - plain| f32 "
+        f"{l7_err[torch.float32]:.2e}, bf16 {l7_err[torch.bfloat16]:.2e}")
+
+    # each PP layer bit-equal to the one-accumulator kernel, scale512 shapes
+    sp0 = stack.prep_params(init_params(0), torch.bfloat16, dev)
+    dev_gen = torch.Generator(device=dev).manual_seed(20)
+    for k in range(2, 7):
+        ci = stack.WIDTHS[k - 1][0]
+        side = 2 * 512 + 16 - 2 * k
+        x = torch.rand((16, side, side, ci), device=dev,
+                       generator=dev_gen).to(torch.bfloat16)
+        before = dict(stack.MID_LAUNCHES)
+        one, two = stack.mma_layer(x, sp0, k), stack.mma_layer(x, sp0, k,
+                                                               pp=True)
+        torch.cuda.synchronize()
+        if mid_delta(before) != {"mma": 1, "ffma": 0, "chain": 0,
+                                 "mma_zs": 0, "mma_pp": 1}:
+            raise AssertionError(f"pp layer {k}: launches {mid_delta(before)}")
+        if not torch.equal(one.view(torch.int16), two.view(torch.int16)):
+            diff = (one.float() - two.float()).abs()
+            raise AssertionError(f"pp layer {k}: {int((diff > 0).sum())} "
+                                 f"outputs differ, max {diff.max().item()}")
+        del x, one, two
+    torch.cuda.empty_cache()
+    log("phase 20 PP layers 2-6 at the scale512 layer shapes: equal to the "
+        "one-accumulator kernel bit for bit")
+
+    # the variants alone at the JAX grid's layer shapes (B = 4, 512^2), in
+    # turns (one accumulator and each variant, twice), beside their plain
+    # versions; layer 7 under each mask
+    n4 = 4
+    xs = {k: torch.rand((n4, 2 * 512 + 16 - 2 * k, 2 * 512 + 16 - 2 * k,
+                         stack.WIDTHS[k - 1][0]), device=dev,
+                        generator=dev_gen).to(torch.bfloat16)
+          for k in range(2, 7)}
+    variants = {"one": {}, "pp": {"pp": True}, **{
+        f"zs{z}": {"zs": z} for z in (1, 2, 3)}}
+    layer_ms = {name: [0.0] * 5 for name in variants}
+    for turn in (0, 1):
+        for name, kw in (variants.items() if turn == 0
+                         else reversed(variants.items())):
+            for k in range(2, 7):
+                layer_ms[name][k - 2] += timed_ms(
+                    lambda: stack.mma_layer(xs[k], sp0, k, **kw)) / 2
+    # the plain versions on the host's clock; PP held against them too
+    pp_err, plain_ms = 0.0, {"one": 0.0, "zs3": 0.0}
+    for name, zs in (("one", 0), ("zs3", 3)):
+        for k in range(2, 7):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref = stack.mma_layer_plain(xs[k], sp0.wm[k - 2], sp0[k - 1][1],
+                                        zs)
+            torch.cuda.synchronize()
+            plain_ms[name] += (time.perf_counter() - t1) * 1e3
+            if name == "one":
+                got = stack.mma_layer(xs[k], sp0, k, pp=True)
+                pp_err = max(pp_err, check_mma_layer(
+                    f"pp layer {k} B = 4", got, ref)[0])
+                del got
+            del ref
+        torch.cuda.empty_cache()
+    del xs
+    x6 = torch.rand((n4, 1026, 1026, 128), device=dev,
+                    generator=dev_gen).to(torch.bfloat16)
+    l7_ms = {zs: timed_ms(lambda: stack.last_layer(x6, sp0, zs))
+             for zs in (0, 1, 2, 3)}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stack.last_layer_plain(x6, *sp0[6], 3)
+    torch.cuda.synchronize()
+    l7_plain_ms = (time.perf_counter() - t1) * 1e3
+    l7_bytes = x6.numel() * 2 + n4 * 512 * 512 * 4 * 2 + 128 * 9 * 2 + 4
+    l7_ops = 2 * 9 * 128 * n4 * 1024 * 1024
+    del x6
+    torch.cuda.empty_cache()
+    mid4 = mid_bounds(stack, n4, 512, 512)
+    mid4_ms = sum(b[2] for b in mid4)
+    mid4_by = ("operations" if sum(b[2] for b in mid4 if b[3] == "operations")
+               >= sum(b[2] for b in mid4 if b[3] == "bytes") else "bytes")
+    mid4_library = library_mid_ms(sp0, n4, 512, 512)
+    log(f"timing B = 4, 512^2, layers 2-6 alone, bf16, on {card_name()} "
+        "(two turns): " + "; ".join(
+            f"{name} {sum(v):.3f} ms (" + " / ".join(f"{t:.3f}" for t in v)
+            + ")" for name, v in layer_ms.items())
+        + f"; bound {mid4_ms:.3f} ms; cuDNN bf16 {mid4_library:.3f} ms; "
+        f"plain (host clock) one {plain_ms['one']:.1f} ms, zs3 "
+        f"{plain_ms['zs3']:.1f} ms; layer 7 zs 0/1/2/3 "
+        + " / ".join(f"{l7_ms[z]:.3f}" for z in range(4))
+        + f" ms, plain zs3 {l7_plain_ms:.1f} ms")
+
+    # the three probe stacks against their plain versions at the JAX grid
+    ylow = torch.rand((4, 512, 512), generator=torch.Generator().manual_seed(
+        0)).to(dev, torch.bfloat16)
+    twin_err, twin_plain_ms = {}, {}
+    cases = [("pp", lambda: probe.stack_scale_pp(ylow, sp0),
+              lambda: probe.stack_scale_pp_plain(ylow, sp0))]
+    cases += [(m, lambda f=f: probe.shift_stack(ylow, sp0, *f),
+               lambda f=f: probe.shift_stack_plain(ylow, sp0, *f))
+              for m, f in probe.SHIFT_MODES.items() if m != "base"]
+    cases += [(m, lambda m=m: probe.l4_shift(ylow, sp0, m),
+               lambda m=m: probe.l4_shift_plain(ylow, sp0, m))
+              for m in ("l4", "zshift", "zdx")]
+    for name, fn, plain in cases:
+        got = fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = plain()
+        torch.cuda.synchronize()
+        twin_plain_ms[name] = (time.perf_counter() - t1) * 1e3
+        if got.shape != ref.shape or got.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype}")
+        twin_err[name] = (got.float() - ref.float()).abs().max().item()
+        check_max_err(f"probe stack {name}", twin_err[name], BF16_TOL)
+        del got, ref
+    if not torch.equal(probe.stack_scale_pp(ylow, sp0),
+                       stack.stack_scale(ylow, sp0)):
+        raise AssertionError("stack_scale_pp != stack_scale")
+    xpad = F.pad(ylow.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, None],
+                 (7,) * 4, mode="replicate")[:, 0]
+    stack_library_ms = library_stack_ms(xpad, sp0)
+    del xpad
+    torch.cuda.empty_cache()
+    log("phase 20 probe stacks at 4 x 512^2, bf16: max|kernel - plain| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in twin_err.items())
+        + " (bar 2^-4); stack_scale_pp == stack_scale bit for bit")
+
+    # the three tools, the launches read around each (a warm-up and 20
+    # captured calls a mode; accpp_probe makes one more call a mode for its
+    # comparison)
+    rows, counts = {}, {}
+    for tool, argv in ((accpp_probe, []),
+                       (shift_cost_probe, shift_cost_probe.MODES),
+                       (l4_shift_probe, l4_shift_probe.MODES)):
+        key = tool.__name__.rsplit(".", 1)[1]
+        log(f"phase 20 tools.{key}:")
+        stack.reset_launches()
+        probe.reset_launches()
+        rows[key] = []
+        if tool.main(list(argv), rows[key]) != 0:
+            raise AssertionError(f"{key} failed")
+        counts[key] = {"stack": stack.LAUNCHES, **stack.KERNEL_LAUNCHES,
+                       **stack.MID_LAUNCHES,
+                       "last_zs": stack.L6_LAUNCHES["last_zs"],
+                       "probe_kernels": sum(probe.LAUNCHES.values())}
+    calls = 21
+    want_l4 = {"stack": 0, "mma": 0, "mma_zs": 0}
+    for mode in l4_shift_probe.MODES:
+        upto, zs4, _ = probe.L4_MODES[mode]
+        want_l4["stack"] += calls * upto
+        want_l4["mma"] += calls * (upto - 1 - (zs4 > 0))
+        want_l4["mma_zs"] += calls * (zs4 > 0)
+    n_zs = len(shift_cost_probe.MODES) - 1
+    want = {
+        "accpp_probe": {"stack": 3 * (calls + 1) * 7, "scale": 2 * 22 * 7,
+                        "probe": 22 * 7, "mma": 2 * 22 * 5,
+                        "mma_pp": 22 * 5, "mma_zs": 0, "last_zs": 0},
+        "shift_cost_probe": {"stack": 4 * calls * 7, "probe": 4 * calls * 7,
+                             "mma": calls * 5, "mma_zs": n_zs * calls * 5,
+                             "mma_pp": 0, "last_zs": n_zs * calls},
+        "l4_shift_probe": {**want_l4, "probe": want_l4["stack"],
+                           "mma_pp": 0, "last_zs": 0}}
+    for key, w in want.items():
+        got = {k: counts[key][k] for k in w}
+        if got != w or counts[key]["ffma"] or counts[key]["probe_kernels"]:
+            raise AssertionError(f"phase 20 {key} launches {counts[key]}, "
+                                 f"want {w}")
+    log(f"phase 20 launches by tool: {counts}")
+
+    # the main path's counts are as they were
+    stack.reset_launches()
+    stack.stack_scale(ylow, sp0)
+    torch.cuda.synchronize()
+    if (stack.LAUNCHES != 7 or stack.KERNEL_LAUNCHES["scale"] != 7
+            or stack.MID_LAUNCHES != {"mma": 5, "ffma": 0, "chain": 0,
+                                      "mma_zs": 0, "mma_pp": 0}
+            or stack.L6_LAUNCHES["last_zs"] or stack.KERNEL_LAUNCHES["probe"]):
+        raise AssertionError(f"stack_scale after phase 20: {stack.LAUNCHES}, "
+                             f"{stack.MID_LAUNCHES}, {stack.L6_LAUNCHES}")
+    del ylow
+    torch.cuda.empty_cache()
+    serial = probe.ptxas_serialized()
+    log(f"phase 20: {accpp_probe.serialization_note(dev)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def ms_of(tool):
+        return {r["mode"]: r["ms"] for r in rows[tool]}
+
+    mma_src = "waifu2x_torch/csrc/mma.cu"
+    stack_bound4 = rows["accpp_probe"][0]
+    return [{
+        "name": "conv3x3_bias_leaky_mma ZS, layers 2-6 under a zero-shift "
+                "mask (wgmma; window copies with pixel pairs swapped)",
+        "route": "cuda", "source": mma_src,
+        "replaces": "tools/shift_cost_probe.py:156, "
+                    "tools/l4_shift_probe.py:130",
+        "launches": (counts["shift_cost_probe"]["mma_zs"]
+                     + counts["l4_shift_probe"]["mma_zs"]),
+        "max_abs_err": max(zs_err, *(twin_err[m] for m in (
+            "noshiftx", "noshifty", "noshift", "zshift", "zdx"))),
+        "ms": sum(layer_ms["zs3"]),
+        "layer_ms": {name: v for name, v in layer_ms.items()
+                     if name.startswith("zs") or name == "one"},
+        "plain_ms": plain_ms["zs3"], "bound_ms": mid4_ms,
+        "bound_by": mid4_by, "library_ms": None,
+        "tool_ms": {**{f"shift_cost {k}": v for k, v in
+                       ms_of("shift_cost_probe").items()},
+                    **{f"l4_shift {k}": v for k, v in
+                       ms_of("l4_shift_probe").items()}},
+        "stack_plain_ms": {k: twin_plain_ms[k] for k in (
+            "noshiftx", "noshifty", "noshift", "zshift", "zdx", "l4")},
+        "stack_bound_ms": {"shift_cost": stack_bound4["bound_ms"],
+                           "l4_shift": rows["l4_shift_probe"][1]["bound_ms"]},
+    }, {
+        "name": "conv3x3_bias_leaky_mma PP, layers 2-6 with two register "
+                "accumulators (wgmma, two commit groups)",
+        "route": "cuda", "source": mma_src,
+        "replaces": "tools/accpp_probe.py:127",
+        "launches": counts["accpp_probe"]["mma_pp"],
+        "max_abs_err": max(pp_err, twin_err["pp"]),
+        "ms": sum(layer_ms["pp"]), "one_acc_ms": sum(layer_ms["one"]),
+        "layer_ms": {"pp": layer_ms["pp"], "one": layer_ms["one"]},
+        "plain_ms": plain_ms["one"], "bound_ms": mid4_ms,
+        "bound_by": mid4_by, "library_ms": mid4_library,
+        "ptxas_serialized": serial,
+        "tool_ms": ms_of("accpp_probe") | {
+            "prod (both runs)": [r["ms"] for r in rows["accpp_probe"]
+                                 if r["mode"] == "prod"]},
+        "stack_plain_ms": twin_plain_ms["pp"],
+        "stack_library_ms": stack_library_ms,
+        "stack_bound_ms": stack_bound4["bound_ms"],
+    }, {
+        "name": "conv3x3_bias_leaky_s2d ZS, layer 7 under a zero-shift mask",
+        "route": "cuda", "source": "waifu2x_torch/csrc/stack.cu",
+        "replaces": "tools/shift_cost_probe.py:156",
+        "launches": counts["shift_cost_probe"]["last_zs"],
+        "max_abs_err": max(l7_err.values()),
+        "ms": l7_ms[3], "zs_ms": [l7_ms[z] for z in range(4)],
+        "plain_ms": l7_plain_ms,
+        "bound_ms": max(l7_bytes / PEAK_BYTES, l7_ops / PEAK_BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if l7_bytes / PEAK_BYTES
+                     >= l7_ops / PEAK_BF16_FLOPS else "operations"),
+        "library_ms": None,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -965,7 +1282,8 @@ def main() -> int:
     log(f"phase 4 main path: {frames.shape} -> {out.shape} {out.dtype}, "
         f"{launches} kernel launches, layers 2-6 by kernel {mid_launches}")
     if (launches != 7 or out.shape != (16, 1024, 1024, 3)
-            or mid_launches != {"mma": 5, "ffma": 0, "chain": 0}):
+            or mid_launches != {"mma": 5, "ffma": 0, "chain": 0,
+                                "mma_zs": 0, "mma_pp": 0}):
         raise AssertionError(f"main path: {launches} launches, "
                              f"{mid_launches}, {out.shape}")
     hold_seen(seen, stack, f32_twin, max_err)
@@ -1241,7 +1559,8 @@ def main() -> int:
         sc = StreamConverter(fast, batch=16, depth=2, device=dev)
         outs, counts, nd = run_stream(sc, frames64, stack, label, smi)
         expect_counts(label, counts, nd, 4, **{kind: 28})
-        if stack.MID_LAUNCHES != {"mma": 20, "ffma": 0, "chain": 0}:
+        if stack.MID_LAUNCHES != {"mma": 20, "ffma": 0, "chain": 0,
+                                  "mma_zs": 0, "mma_pp": 0}:
             raise AssertionError(f"{label}: layers 2-6 launches "
                                  f"{stack.MID_LAUNCHES}")
         for k in range(0, 64, 16):   # the batch step on the same batch
@@ -1665,7 +1984,8 @@ def main() -> int:
         stack.reset_launches()
         got = stack.mma_layer(x, sp, k)
         torch.cuda.synchronize()
-        if (stack.MID_LAUNCHES != {"mma": 1, "ffma": 0, "chain": 0}
+        if (stack.MID_LAUNCHES != {"mma": 1, "ffma": 0, "chain": 0,
+                                   "mma_zs": 0, "mma_pp": 0}
                 or stack.LAUNCHES or any(stack.KERNEL_LAUNCHES.values())):
             raise AssertionError(f"mma_layer alone: launches "
                                  f"{stack.MID_LAUNCHES}, {stack.LAUNCHES}")
@@ -1705,7 +2025,8 @@ def main() -> int:
         stack.MID_MMA = flag
         stack.reset_launches()
         mid_y[name] = stack.stack_scale(ylow16, sp16)
-        want = {"mma": 5 * flag, "ffma": 5 * (not flag), "chain": 0}
+        want = {"mma": 5 * flag, "ffma": 5 * (not flag), "chain": 0,
+                "mma_zs": 0, "mma_pp": 0}
         if stack.MID_LAUNCHES != want or stack.LAUNCHES != 7:
             raise AssertionError(f"MID_MMA={flag}: launches "
                                  f"{stack.MID_LAUNCHES} of {stack.LAUNCHES}")
@@ -1837,6 +2158,11 @@ def main() -> int:
     kernels19 = phase19(dev, sp16)
     torch.cuda.empty_cache()
     log(f"phase 19 passed in {time.perf_counter() - t19:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    t20 = time.perf_counter()
+    kernels19 += phase20(dev)
+    torch.cuda.empty_cache()
+    log(f"phase 20 passed in {time.perf_counter() - t20:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s so far")
 
     maccs = count_maccs_per_pixel()

@@ -46,6 +46,9 @@ def test_scan_covers_the_package():
             "waifu2x_torch/tools/k1_forensics.py",
             "waifu2x_torch/tools/l14_probe.py",
             "waifu2x_torch/tools/tmm_probe.py",
+            "waifu2x_torch/tools/accpp_probe.py",
+            "waifu2x_torch/tools/l4_shift_probe.py",
+            "waifu2x_torch/tools/shift_cost_probe.py",
             "waifu2x_torch/utils/timing.py",
             "chip_smoke.py"} <= names
     assert (ROOT / "waifu2x_torch" / "csrc" / "probe.cu").is_file()

@@ -290,7 +290,8 @@ def test_mid_mma_changes_no_cpu_result(sp16, sp32, rng, monkeypatch):
                       stack.stack_scale_fused_u8(y16, uvp, sp16),
                       stack.stack_scale_upto(y16, sp16, 4))
         assert stack.LAUNCHES == 0
-        assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0}
+        assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
+                                      "mma_zs": 0, "mma_pp": 0}
     for a, b in zip(outs[True], outs[False]):
         assert torch.equal(a, b)
 
@@ -333,12 +334,14 @@ def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
         run.layer(k, False, x, sp, x, n, ph, pw)
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["scale"] == 7
     assert stack.L6_LAUNCHES["direct"] == 1
-    assert stack.MID_LAUNCHES == {**want, "chain": 0}
+    assert stack.MID_LAUNCHES == {**want, "chain": 0, "mma_zs": 0,
+                                  "mma_pp": 0}
     assert [fn for fn, _ in calls] == [
         "w2x_mma_layer" if want["mma"] and 1 <= k <= 5 else "w2x_stack_layer"
         for k in range(7)]
     stack.reset_launches()
-    assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0}
+    assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
+                                  "mma_zs": 0, "mma_pp": 0}
     if not want["mma"]:
         return
     for k, (_, args) in list(enumerate(calls))[1:6]:
@@ -372,7 +375,8 @@ def test_failed_launch_counts_nowhere(sp16, sp32, monkeypatch, k):
         with pytest.raises(RuntimeError, match="invalid argument"):
             run.layer(k - 1, False, x, sp, x, 1, 10, 12)
         assert stack.LAUNCHES == 0 and not any(stack.L6_LAUNCHES.values())
-        assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0}
+        assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
+                                      "mma_zs": 0, "mma_pp": 0}
 
 
 def test_mma_layer_alone_counts_as_no_stack_launch(sp16):
@@ -385,7 +389,8 @@ def test_mma_layer_alone_counts_as_no_stack_launch(sp16):
     x = torch.zeros(1, dtype=torch.bfloat16)
     run.mma_layer(3, x, sp16, x, 1, 20, 24)
     assert [fn for fn, _ in calls] == ["w2x_mma_layer"]
-    assert stack.MID_LAUNCHES == {"mma": 1, "ffma": 0, "chain": 0}
+    assert stack.MID_LAUNCHES == {"mma": 1, "ffma": 0, "chain": 0,
+                                  "mma_zs": 0, "mma_pp": 0}
     assert stack.LAUNCHES == 0 and not any(stack.KERNEL_LAUNCHES.values())
     assert not any(stack.L6_LAUNCHES.values())
     stack.reset_launches()

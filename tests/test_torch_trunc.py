@@ -32,18 +32,14 @@ from jax.experimental.pallas import tpu as pltpu
 from waifu2x_tpu.models.srcnn import WAIFU2X_7LAYER as JFLAGSHIP
 from waifu2x_tpu.models.srcnn import as_numpy, init_params
 from waifu2x_tpu.ops import pallas_stack as ps
+from tests.jax_trunc_grid import (
+    B, F32, HL, NX, NY, TC, TOL, TR, W_KEYS, W_SPECS, WC, WL, _assemble,
+    _block4, _call, _full, _vmem, _xblk, jk1_on_port)
 from waifu2x_torch.models.weights import params_from_numpy
 from waifu2x_torch.ops import probe, stack
 from waifu2x_torch.tools import fused_strip_probe, k1_forensics, l14_probe
 
 torch.set_num_threads(2)
-
-B, TR, TC = 1, 8, 16
-HL, WL = 2 * TR, 2 * TC
-NY, NX = HL // TR, WL // TC
-WC = TC + 8
-F32 = jnp.float32
-TOL = 3e-5
 
 
 @pytest.fixture(scope="module")
@@ -65,46 +61,6 @@ def kp(params_np):
 @pytest.fixture(scope="module")
 def ylow():
     return np.random.default_rng(7).random((B, HL, WL), np.float32)
-
-
-def _vmem(shape, index_map):
-    return pl.BlockSpec(shape, index_map, memory_space=pltpu.VMEM)
-
-
-def _full(shape):
-    return _vmem(shape, lambda n, i, j: (0,) * len(shape))
-
-
-def _xblk(di, dj):
-    return _vmem((1, TR, TC, 16), lambda n, i, j: (n, i + di, j + dj, 0))
-
-
-W_SPECS = [_full((16, 128)), _full((1, 128)), _full((4, 128, 128)),
-           _full((1, 128)), _full((2, 384, 128)), _full((1, 256)),
-           _full((2, 768, 128)), _full((1, 256))]
-W_KEYS = ("l1", "b1", "w2a", "b2a", "w2b", "b2b", "w2c", "b2c")
-
-
-def _call(body, in_specs, out_spec, out_shape, scratch, *args):
-    return np.asarray(pl.pallas_call(
-        body, grid=(B, NY, NX), in_specs=in_specs, out_specs=out_spec,
-        out_shape=out_shape, scratch_shapes=scratch, interpret=True)(*args))
-
-
-def _block4(src, w_ref, b_ref, rows, acc):
-    a = acc.at[0:rows, 0:WC, 0:128]
-    a[...] = ps._dot3(src[0:rows, 0:WC, :], w_ref[0], F32)
-    a[...] += ps._dot3(src[0:rows, 1:WC + 1, :], w_ref[1], F32)
-    a[...] += ps._dot3(src[1:rows + 1, 0:WC, :], w_ref[2], F32)
-    a[...] += ps._dot3(src[1:rows + 1, 1:WC + 1, :], w_ref[3], F32)
-    return ps._leaky(a[...] + b_ref[0].astype(F32)).astype(F32)
-
-
-def _assemble(xin, xa, xb, xc, xd):
-    xin[0:TR, 0:TC, :] = xa[0]
-    xin[0:TR, TC:TC + 16, :] = xb[0][:, 0:16, :]
-    xin[TR:TR + 6, 0:TC, :] = xc[0][0:6, :, :]
-    xin[TR:TR + 6, TC:TC + 16, :] = xd[0][0:6, 0:16, :]
 
 
 # --- tools/fused_strip_probe.py:162 (body :32-122) ---------------------------
@@ -337,42 +293,6 @@ def jk1(kp, ylow, upto):
                  jax.ShapeDtypeStruct((B, NY * hb, NX * wb, 256), F32),
                  scratch, xcol, xcol, xcol, xcol,
                  *(arrays[k] for k in W_KEYS))
-
-
-def k1_defined(upto: int):
-    """(r, c, lanes) the JAX body writes from layers that read only written
-    scratch: its (tr+3) rows, tc+8 columns less the last k-2 from layer 3
-    on, and the 9 taps (k = 0) or 4 phases x C_k lanes."""
-    cols = WC - max(0, upto - 2)
-    lanes = 9 if upto == 0 else 4 * stack.WIDTHS[upto - 1][1]
-    return TR + 3, cols, lanes
-
-
-def jk1_on_port(jout: np.ndarray, whole: np.ndarray, upto: int):
-    """The JAX packed windows and the port's whole plane on the positions
-    both define -> (jax values, port values), 1-d."""
-    rows, cols, lanes = k1_defined(upto)
-    hb, wb = TR + 3, TC + 16
-    n, hk, wk, ck = whole.shape
-    got, ref = [], []
-    for b in range(n):
-        for i in range(NY):
-            for j in range(NX):
-                blk = jout[b, i * hb:i * hb + rows, j * wb:j * wb + cols,
-                           :lanes]
-                for r in range(rows):
-                    for c in range(cols):
-                        R, C = i * TR + r, j * TC + c
-                        for lane in range(lanes):
-                            if upto == 0:   # tap dy*3+dx of the window
-                                y, x, ch = R + lane // 3, C + lane % 3, 0
-                            else:           # phase (a, b), channel ch
-                                p, ch = divmod(lane, ck)
-                                y, x = 2 * R + p // 2, 2 * C + p % 2
-                            if y < hk and x < wk:
-                                ref.append(blk[r, c, lane])
-                                got.append(whole[b, y, x, ch])
-    return np.array(ref), np.array(got)
 
 
 @pytest.mark.parametrize("mode", range(7))

@@ -18,6 +18,12 @@
 // layers as f32 FFMA (stack.cu:conv3x3_bias_leaky, which stays for f32
 // storage, where tensor cores would mean TF32).
 //
+// The probes' variants (ops/probe.py; w2x_mma_layer_variant, never on a
+// product path): ZS, the layer with its cell offsets on one or both axes
+// forced to 0 (tools/shift_cost_probe.py:156, l4_shift_probe.py:130), and
+// PP, the layer with its outputs in two accumulators
+// (tools/accpp_probe.py:127); see the kernel's notes.
+//
 // What it computes: exactly conv3x3_bias_leaky<CI, CO, bf16, IN_ACT>:
 //   x [N, hin, win, CI] bf16 NHWC  ->  y [N, hin-2, win-2, CO] bf16,
 // 3x3 VALID correlation + f32 bias + LeakyReLU(0.1), bf16 x bf16 products
@@ -88,16 +94,51 @@ constexpr int MMA_THREADS = 512;   // four warpgroups, one 8 x 8 m64 tile each
 __host__ __device__ constexpr int win_stride(int k8c) {
   return WIN * WIN + ((8 / k8c) - (WIN * WIN) % 8 + 8) % 8;
 }
-// dynamic shared memory of one instantiation (mma_plan's `smem_bytes`)
-__host__ __device__ constexpr int mma_smem_bytes(int co, int kc, int stages) {
-  const int pipe = stages * (kc / 8) * (win_stride(kc / 8) + 9 * co) * 16;
+// copies of the window a chunk stages under zero-shift mask zs: the window
+// itself, and one with the pixel pairs of each zeroed axis (and of both)
+// swapped
+__host__ __device__ constexpr int zs_copies(int zs) {
+  return zs == 0 ? 1 : zs == 3 ? 4 : 2;
+}
+// dynamic shared memory of one instantiation (mma_plan's `smem_bytes`):
+// the ring and the epilogue's padded output tile, or under PP the ring (or
+// the second half's tile) and the first half's tile beside it
+__host__ __device__ constexpr int mma_smem_bytes(int co, int kc, int stages,
+                                                 int zs, bool pp) {
+  const int pipe = stages * (kc / 8) *
+                   (zs_copies(zs) * win_stride(kc / 8) + 9 * co) * 16;
+  if (pp) {
+    const int half = MT * MT * (co + 16);
+    return (pipe > half ? pipe : half) + half;
+  }
   const int tile = MT * MT * (co * 2 + 16);
   return pipe > tile ? pipe : tile;
 }
 
 // x [N, hin, win, CI], wp [CI/8][9][CO][8], b [CO] f32, y [N, hin-2, win-2, CO]
 // Grid: one block per (image, tile row, tile column), flattened.
-template <int CI, int CO, int KC, int STAGES>
+//
+// ZS (zero-shift mask; tools/shift_cost_probe.py, l4_shift_probe.py): bit 0
+// zeroes the column shifts, bit 1 the row shifts. On a zeroed axis tap
+// k = 0, 1, 2 of output position p reads r(p, k) = (p & ~1) | ((p + k) & 1),
+// the other pixel of p's own s2d cell for k = 1 and p itself for k = 0, 2:
+// the JAX stack with every cell offset D of that axis forced to 0. No
+// descriptor reaches p ^ 1 (a core matrix is 8 pixels of both parities), so
+// each chunk stages the window once more per zeroed axis (and once for both)
+// with that axis' pixel pairs swapped, from the same global addresses: tile
+// origins are even and the window 18 wide, so a pair never straddles it.
+// Taps 0 and 2 then read the plain copy at offset 0 on that axis, tap 1 the
+// swapped copy at offset 0.
+//
+// PP (two accumulators; tools/accpp_probe.py): the CO outputs in two halves,
+// each its own register accumulator and its own wgmma group, committed apart.
+// After the last chunk the first half's epilogue (bias, LeakyReLU, bf16 into
+// a tile region of its own, outside the ring) runs while the second half's
+// products finish. Between chunks both halves are waited for: the next
+// chunk's load refills the buffer that this chunk's products read. Each
+// output keeps its sum order over (chunk, tap, k16), so PP equals the
+// one-accumulator kernel bit for bit.
+template <int CI, int CO, int KC, int STAGES, int ZS, int PP>
 __global__ void __launch_bounds__(MMA_THREADS, (CO <= 64 ? 2 : 1))
 conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ wp,
@@ -106,12 +147,17 @@ conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
                        int ntx, int nty) {
   constexpr int K8C = KC / 8, NCHUNK = CI / KC;
   constexpr int S = win_stride(K8C);
-  constexpr uint32_t WIN_BYTES = K8C * S * 16;
+  constexpr int NCOPY = zs_copies(ZS);
+  constexpr uint32_t COPY_BYTES = K8C * S * 16;
+  constexpr uint32_t WIN_BYTES = NCOPY * COPY_BYTES;
   constexpr uint32_t W_BYTES = K8C * 9 * CO * 16;
   constexpr uint32_t STAGE_BYTES = WIN_BYTES + W_BYTES;
+  constexpr int NH = PP ? CO / 2 : CO;     // outputs of one accumulator
+  constexpr int NACC = PP ? 2 : 1;
   static_assert(CI % KC == 0 && KC % 16 == 0 && K8C <= 8, "chunk depth");
   static_assert(STAGES >= 1 && (STAGES == 1 || STAGES <= NCHUNK),
                 "more stages than chunks");
+  static_assert(ZS >= 0 && ZS <= 3 && !(ZS && PP), "one variant at a time");
 
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sbase = smem_addr(smem);
@@ -136,6 +182,14 @@ conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
       const __nv_bfloat16* src =
           ok ? xn + ((size_t)iy * win + ix) * CI + c * KC + k8 * 8 : x;
       cp_async16(sw + (k8 * S + p) * 16, src, ok);
+#pragma unroll
+      for (int cp = 1; cp < NCOPY; ++cp) {
+        // copy cp swaps the rows (sy) and / or the columns (sx) in pairs
+        const int sx = (ZS & 1) ? (ZS == 3 ? cp & 1 : cp) : 0;
+        const int sy = (ZS & 2) ? (ZS == 3 ? cp >> 1 : cp) : 0;
+        const int q = ((p / WIN) ^ sy) * WIN + ((p % WIN) ^ sx);
+        cp_async16(sw + cp * COPY_BYTES + (k8 * S + q) * 16, src, ok);
+      }
     }
     const uint4* wsrc =
         reinterpret_cast<const uint4*>(wp) + (size_t)c * (W_BYTES / 16);
@@ -143,9 +197,11 @@ conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
       cp_async16(sw + WIN_BYTES + i * 16, wsrc + i, true);
   };
 
-  float acc[CO / 2];
+  float acc[NACC][NH / 2];
 #pragma unroll
-  for (int i = 0; i < CO / 2; ++i) acc[i] = 0.0f;
+  for (int h = 0; h < NACC; ++h)
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) acc[h][i] = 0.0f;
 
   // (LBO: 8 channels on, SBO: 8 pixels = one output row on)
   constexpr uint64_t a_str = desc_strides(S * 16, WIN * 16);
@@ -176,47 +232,74 @@ conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
     const uint32_t sw = sbase + (c % STAGES) * STAGE_BYTES;
     wgmma_fence();
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
+    for (int h = 0; h < NACC; ++h) {
 #pragma unroll
-      for (int ks = 0; ks < KC / 16; ++ks) {
-        const uint32_t a = sw + a_off +
-            (2 * ks * S + (tap / 3) * WIN + tap % 3) * 16;
-        const uint32_t bw = sw + WIN_BYTES + ((2 * ks * 9 + tap) * CO) * 16;
-        mma_k16<CO>(acc, a_str | desc_addr(a), b_str | desc_addr(bw));
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+        // a zeroed axis: offset 0, tap 1 from the copy with that axis swapped
+        const int ry = (ZS & 2) ? 0 : dy, rx = (ZS & 1) ? 0 : dx;
+        const int sy = (ZS & 2) ? dy == 1 : 0, sx = (ZS & 1) ? dx == 1 : 0;
+        const int cp = ZS == 3 ? 2 * sy + sx : sy + sx;
+#pragma unroll
+        for (int ks = 0; ks < KC / 16; ++ks) {
+          const uint32_t a = sw + cp * COPY_BYTES + a_off +
+              (2 * ks * S + ry * WIN + rx) * 16;
+          const uint32_t bw = sw + WIN_BYTES +
+              ((2 * ks * 9 + tap) * CO + h * NH) * 16;
+          mma_k16<NH>(acc[h], a_str | desc_addr(a), b_str | desc_addr(bw));
+        }
       }
+      wgmma_commit();
     }
-    wgmma_commit();
-    wgmma_wait<0>();
+    if (!PP || c + 1 < NCHUNK) wgmma_wait<0>();
   }
 
-  // epilogue: bias, LeakyReLU, bf16 into a padded tile, 16-byte stores
-  constexpr int PITCH = CO * 2 + 16;
-  __syncthreads();   // every warpgroup is done reading the stages
-  {
-    const int lane = tid & 31, w4 = (tid >> 5) & 3;
-    const int col = 8 * tx8 + (lane >> 2);
+  // epilogue: bias, LeakyReLU, bf16 into a padded tile, 16-byte stores.
+  // Under PP half 0 goes to its own region past the ring while half 1's
+  // products may still run; half 1 then reuses the ring.
+  constexpr int PITCH = NH * 2 + 16;
+  constexpr uint32_t HALF0 =
+      PP ? mma_smem_bytes(CO, KC, STAGES, ZS, PP) - MT * MT * PITCH : 0;
+  const int lane = tid & 31, w4 = (tid >> 5) & 3;
+  const int col = 8 * tx8 + (lane >> 2);
+  auto epilogue = [&](const float (&d)[NH / 2], int h, uint32_t region) {
 #pragma unroll
-    for (int j = 0; j < CO / 8; ++j) {
+    for (int j = 0; j < NH / 8; ++j) {
       const int ch = 8 * j + 2 * (lane & 3);
-      const float2 bias = *reinterpret_cast<const float2*>(b + ch);
+      const float2 bias = *reinterpret_cast<const float2*>(b + h * NH + ch);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int pix = (8 * ty8 + 2 * w4 + h) * MT + col;
-        *reinterpret_cast<__nv_bfloat162*>(smem + pix * PITCH + ch * 2) =
-            __floats2bfloat162_rn(leaky(acc[4 * j + 2 * h] + bias.x),
-                                  leaky(acc[4 * j + 2 * h + 1] + bias.y));
+      for (int hh = 0; hh < 2; ++hh) {
+        const int pix = (8 * ty8 + 2 * w4 + hh) * MT + col;
+        *reinterpret_cast<__nv_bfloat162*>(smem + region + pix * PITCH +
+                                           ch * 2) =
+            __floats2bfloat162_rn(leaky(d[4 * j + 2 * hh] + bias.x),
+                                  leaky(d[4 * j + 2 * hh + 1] + bias.y));
       }
     }
+  };
+  if constexpr (PP) {
+    wgmma_wait<1>();                // half 0's group is done
+    fence_acc(acc[0]);
+    epilogue(acc[0], 0, HALF0);
+    wgmma_wait<0>();
+    fence_acc(acc[1]);
+    __syncthreads();                // every warpgroup is done with the ring
+    epilogue(acc[1], 1, 0);
+  } else {
+    __syncthreads();   // every warpgroup is done reading the stages
+    epilogue(acc[0], 0, 0);
   }
   __syncthreads();
-  constexpr int C8 = CO / 8;
+  constexpr int C8 = CO / 8, H8 = NH / 8;
   __nv_bfloat16* yn = y + (size_t)n * hout * wout * CO;
   for (int i = tid; i < MT * MT * C8; i += MMA_THREADS) {
     const int c8 = i % C8, pix = i / C8;
     const int oy = oy0 + pix / MT, ox = ox0 + pix % MT;
+    const uint32_t region = (PP && c8 < H8) ? HALF0 : 0;
     if (oy < hout && ox < wout)
       *reinterpret_cast<uint4*>(yn + ((size_t)oy * wout + ox) * CO + c8 * 8) =
-          *reinterpret_cast<const uint4*>(smem + pix * PITCH + c8 * 16);
+          *reinterpret_cast<const uint4*>(smem + region + pix * PITCH +
+                                          (c8 % H8) * 16);
   }
 }
 
@@ -293,16 +376,16 @@ mma_chain(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int CI, int CO, int KC, int STAGES>
+template <int CI, int CO, int KC, int STAGES, int ZS = 0, int PP = 0>
 cudaError_t launch_mma(const void* x, const void* wp, const void* b, void* y,
                        int n, int hin, int win, int smem_bytes,
                        cudaStream_t s) {
-  constexpr int need = mma_smem_bytes(CO, KC, STAGES);
+  constexpr int need = mma_smem_bytes(CO, KC, STAGES, ZS, PP);
   if (smem_bytes != need) return cudaErrorInvalidValue;
   const int ntx = (win - 2 + MT - 1) / MT, nty = (hin - 2 + MT - 1) / MT;
   const long long blocks = (long long)ntx * nty * n;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = conv3x3_bias_leaky_mma<CI, CO, KC, STAGES>;
+  auto kernel = conv3x3_bias_leaky_mma<CI, CO, KC, STAGES, ZS, PP>;
   // over 48 KB of dynamic shared memory is refused without this
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, need);
@@ -322,6 +405,12 @@ cudaError_t launch_mma(const void* x, const void* wp, const void* b, void* y,
   if (layer == L)                                                    \
     return (int)launch_mma<CI, CO, KC, ST>(x, wp, b, y, n, hin, win, \
                                            smem_bytes, s);
+// the variants the probes run: layer L under zero-shift mask ZS or with two
+// accumulators (ops/stack.py:_MMA_VARIANTS holds the same table)
+#define W2X_MMA_VARIANT(L, CI, CO, KC, ST, ZS, PP)                         \
+  if (layer == L && zs == ZS && pp == PP)                                  \
+    return (int)launch_mma<CI, CO, KC, ST, ZS, PP>(x, wp, b, y, n, hin,    \
+                                                   win, smem_bytes, s);
 
 extern "C" {
 
@@ -342,6 +431,41 @@ int w2x_mma_layer(int bf16, int layer, const void* x, const void* wp,
   W2X_MMA_CASE(3, 64, 64, 16, 2)
   W2X_MMA_CASE(4, 64, 128, 32, 2)
   W2X_MMA_CASE(5, 128, 128, 16, 2)
+  return (int)cudaErrorInvalidValue;
+}
+
+// Layer `layer` (1..5) as w2x_mma_layer launches it, under zero-shift mask
+// zs (1: columns, 2: rows, 3: both; see conv3x3_bias_leaky_mma) or with two
+// accumulators (pp != 0), for the (layer, zs, pp) that the probes run; any
+// other triple, zs and pp together, or bf16 == 0 (f32 layers 2-6 are FFMA)
+// gives cudaErrorInvalidValue. smem_bytes is mma_plan(ci, co, zs, pp)'s.
+int w2x_mma_layer_variant(int bf16, int layer, int zs, int pp, const void* x,
+                          const void* wp, const void* b, void* y, int n,
+                          int hin, int win, int smem_bytes, void* stream) {
+  if (!bf16 || n <= 0 || hin < 3 || win < 3)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  pp = pp != 0;
+  W2X_MMA_VARIANT(1, 32, 32, 32, 1, 1, 0)
+  W2X_MMA_VARIANT(1, 32, 32, 32, 1, 2, 0)
+  W2X_MMA_VARIANT(1, 32, 32, 32, 1, 3, 0)
+  W2X_MMA_VARIANT(1, 32, 32, 32, 1, 0, 1)
+  W2X_MMA_VARIANT(2, 32, 64, 32, 1, 1, 0)
+  W2X_MMA_VARIANT(2, 32, 64, 32, 1, 2, 0)
+  W2X_MMA_VARIANT(2, 32, 64, 32, 1, 3, 0)
+  W2X_MMA_VARIANT(2, 32, 64, 32, 1, 0, 1)
+  W2X_MMA_VARIANT(3, 64, 64, 16, 2, 1, 0)
+  W2X_MMA_VARIANT(3, 64, 64, 16, 2, 2, 0)
+  W2X_MMA_VARIANT(3, 64, 64, 16, 2, 3, 0)
+  W2X_MMA_VARIANT(3, 64, 64, 16, 2, 0, 1)
+  W2X_MMA_VARIANT(4, 64, 128, 32, 2, 1, 0)
+  W2X_MMA_VARIANT(4, 64, 128, 32, 2, 2, 0)
+  W2X_MMA_VARIANT(4, 64, 128, 16, 2, 3, 0)   // 32 x 2 would need 316 KB
+  W2X_MMA_VARIANT(4, 64, 128, 32, 2, 0, 1)
+  W2X_MMA_VARIANT(5, 128, 128, 16, 2, 1, 0)
+  W2X_MMA_VARIANT(5, 128, 128, 16, 2, 2, 0)
+  W2X_MMA_VARIANT(5, 128, 128, 16, 2, 3, 0)
+  W2X_MMA_VARIANT(5, 128, 128, 16, 2, 0, 1)
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,7 @@
 // sources: asynchronous 16-byte copies into shared memory (cp.async), the
 // proxy and warpgroup fences, shared-memory matrix descriptors without
 // swizzle, and the warpgroup product
-//   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16   (N = 32, 64, 128)
+//   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16   (N = 16 .. 128)
 // with both operands read from shared memory and the f32 sums kept in
 // registers. mma.cu builds the layers 2-6 kernel and the mma_chain probe
 // from them, tmm.cu the four-tap probe layer (with B also MN-major).
@@ -70,6 +70,15 @@ __device__ __forceinline__ void wgmma_wait() {
                : "memory");
 }
 
+// Pins the accumulator registers d at this point of the program: reads of
+// them after a wgmma_wait cannot be hoisted above it (the compiler takes
+// the registers as final once the last wgmma that writes them is issued).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
 // The constant half of a descriptor without swizzle: strides in bytes,
 // multiples of 16. Add desc_addr(first core matrix) to it.
 __host__ __device__ constexpr uint64_t desc_strides(uint32_t lbo,
@@ -95,8 +104,20 @@ __device__ __forceinline__ uint64_t desc_addr(uint32_t shared_addr) {
 template <int N, int TRANS_B = 0>
 __device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
                                         uint64_t b) {
-  static_assert(N == 32 || N == 64 || N == 128, "N is 32, 64 or 128");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "N is 16, 32, 64 or 128");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, %11;\n"
+        "}\n"
+        : W2X_ACC4(d, 0), W2X_ACC4(d, 4)
+        : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"

@@ -239,8 +239,12 @@ conv3x3_bias_leaky(const T* __restrict__ x, const T* __restrict__ w,
 // The last layer (CI -> 1) + bias + LeakyReLU, written in s2d layout:
 // full-res (oy, ox) -> y[n, oy/2, ox/2, (oy&1)*2 + (ox&1)].
 //   x: [N, hin, win, CI], w: [CI][9][1], b: [1], y: [N, hl, wl, 4]
+// ZS (zero-shift mask, mma.cu's): on a zeroed axis (bit 0 columns, bit 1
+// rows) tap k of output position p reads r(p, k) = (p & ~1) | ((p + k) & 1)
+// in place of p + k, the counterpart of tools/shift_cost_probe.py:139's
+// shifted reads of the folded layer 7's partials with Dx, Dy forced to 0.
 // Grid: one block per (image, output row, 256-column chunk), flattened.
-template <int CI, typename T>
+template <int CI, typename T, int ZS = 0>
 __global__ void __launch_bounds__(S2D_THREADS)
 conv3x3_bias_leaky_s2d(const T* __restrict__ x, const T* __restrict__ w,
                        const float* __restrict__ b, T* __restrict__ y,
@@ -262,9 +266,11 @@ conv3x3_bias_leaky_s2d(const T* __restrict__ x, const T* __restrict__ w,
   float acc = 0.0f;
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
+    const int iy = (ZS & 2) ? (oy & ~1) | ((oy + dy) & 1) : oy + dy;
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx) {
-      const T* px = x + (((size_t)n * hin + oy + dy) * win + ox + dx) * CI;
+      const int ix = (ZS & 1) ? (ox & ~1) | ((ox + dx) & 1) : ox + dx;
+      const T* px = x + (((size_t)n * hin + iy) * win + ix) * CI;
       const float* wt = s_w[dy * 3 + dx];
 #pragma unroll 4
       for (int c = 0; c < CI; c += 8) {
@@ -295,16 +301,29 @@ cudaError_t launch_layer(const void* x, const void* w, const void* b, void* y,
   return cudaGetLastError();
 }
 
-template <int CI, typename T>
+template <int CI, typename T, int ZS = 0>
 cudaError_t launch_last(const void* x, const void* w, const void* b, void* y,
                         int n, int hin, int win, cudaStream_t s) {
   const int ncx = (win - 2 + S2D_THREADS - 1) / S2D_THREADS;
   const long long blocks = (long long)ncx * (hin - 2) * n;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  conv3x3_bias_leaky_s2d<CI, T><<<(unsigned)blocks, S2D_THREADS, 0, s>>>(
+  conv3x3_bias_leaky_s2d<CI, T, ZS><<<(unsigned)blocks, S2D_THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(b), static_cast<T*>(y), hin, win, ncx);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_last_zs(int zs, const void* x, const void* w,
+                           const void* b, void* y, int n, int hin, int win,
+                           cudaStream_t s) {
+  switch (zs) {
+    case 0: return launch_last<128, T, 0>(x, w, b, y, n, hin, win, s);
+    case 1: return launch_last<128, T, 1>(x, w, b, y, n, hin, win, s);
+    case 2: return launch_last<128, T, 2>(x, w, b, y, n, hin, win, s);
+    case 3: return launch_last<128, T, 3>(x, w, b, y, n, hin, win, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -377,6 +396,21 @@ int w2x_stack_layer(int bf16, int full_res, int layer, const void* x,
                                             ph, pw, out, s)
                     : launch<float>(layer, full_res, x, w, b, y, n, ph, pw,
                                     out, s));
+}
+
+// Layer 7 (128 -> 1) in s2d layout under zero-shift mask zs (0..3; bit 0
+// columns, bit 1 rows; 0 is w2x_stack_layer's layer 6 with out_mode 0):
+// x [n, 2hl+2, 2wl+2, 128] -> y [n, hl, wl, 4], bf16 != 0 selecting
+// __nv_bfloat16 storage, else float. Returns the cudaError_t of the launch.
+int w2x_stack_last_zs(int bf16, int zs, const void* x, const void* w,
+                      const void* b, void* y, int n, int hl, int wl,
+                      void* stream) {
+  if (n <= 0 || hl <= 0 || wl <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hin = 2 * hl + 2, win = 2 * wl + 2;
+  return (int)(bf16 ? launch_last_zs<__nv_bfloat16>(zs, x, w, b, y, n, hin,
+                                                    win, s)
+                    : launch_last_zs<float>(zs, x, w, b, y, n, hin, win, s));
 }
 
 const char* w2x_error_string(int err) {

@@ -28,6 +28,14 @@ its rows.
 The other two (tmm_probe.py:79 and :122) are one four-tap 128 -> 128 layer
 with channels or positions in the fast dimension, the tensor-core kernel of
 csrc/tmm.cu: tap_mm, tap_mm_plain and measure_tap_mm below.
+
+The last three (accpp_probe.py:127, shift_cost_probe.py:156,
+l4_shift_probe.py:130) are the scale stack with variants of its
+tensor-core layer (csrc/mma.cu) and of layer 7 (csrc/stack.cu):
+stack_scale_pp (two accumulators per layer, B1's function), shift_stack
+(the cell offsets of layers 2-7 forced to 0 on one or both axes, wrong by
+design) and l4_shift (layers 1-3, then layer 4 by mode). Each has a plain
+twin (*_plain).
 """
 
 from __future__ import annotations
@@ -39,8 +47,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from waifu2x_torch.ops import _build
-from waifu2x_torch.ops.convstack import no_tf32
+from waifu2x_torch.ops import _build, stack
+from waifu2x_torch.ops.convstack import no_tf32, pad_replicate
 from waifu2x_torch.utils.timing import time_ms
 
 PEAK_BYTES = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
@@ -1061,3 +1069,184 @@ def format_tap_mm_row(r: dict) -> str:
             f"off-diagonal taps {ms(r['conv_ms'])}; max |kernel - plain| "
             f"{r['max_abs_err']:.3g} ({100 * r['share_differ']:.4f}% differ, "
             f"bar bit-equal){'' if r['ok'] else '  FAILED'}")
+
+
+# ---------------------------------------------------------------------------
+# tools/accpp_probe.py:127, shift_cost_probe.py:156, l4_shift_probe.py:130:
+# the stack with two accumulators or with its shifts forced to zero
+# ---------------------------------------------------------------------------
+
+VARIANT_SITES = {"accpp": "tools/accpp_probe.py:127",
+                 "shift_cost": "tools/shift_cost_probe.py:156",
+                 "l4_shift": "tools/l4_shift_probe.py:130"}
+# (fx, fy) of each shift_cost mode (tools/shift_cost_probe.py:188): a factor
+# 0 forces that axis' cell offsets Dx or Dy of layers 2-7 to 0
+SHIFT_MODES = {"base": (1, 1), "noshiftx": (0, 1), "noshifty": (1, 0),
+               "noshift": (0, 0)}
+# each l4_shift mode (tools/l4_shift_probe.py:40-117) -> (layers run, layer
+# 4's zero-shift mask, the layer whose whole plane is returned). preshift,
+# stage and stagep are Mosaic schedules of l4's function (a pre-shifted VPU
+# copy, layer 4 staged in VMEM before its store) and scratch computes layer 4
+# into a scratch and writes layer 3: on Hopper a shift is a descriptor offset
+# and the epilogue already stages its tile in shared memory, so they run
+# l4's kernels.
+L4_MODES = {"base": (3, 0, 3), "l4": (4, 0, 4), "zshift": (4, 3, 4),
+            "zdx": (4, 1, 4), "preshift": (4, 0, 4), "stage": (4, 0, 4),
+            "stagep": (4, 0, 4), "scratch": (4, 0, 3)}
+L4_SAME_AS_L4 = ("preshift", "stage", "stagep", "scratch")
+
+
+def shift_zs(fx: int, fy: int) -> int:
+    """The zero-shift mask of factors (fx, fy): bit 0 where fx = 0 (column
+    offsets), bit 1 where fy = 0 (row offsets)."""
+    if fx not in (0, 1) or fy not in (0, 1):
+        raise ValueError(f"fx and fy are 0 or 1, got {(fx, fy)}")
+    return (1 - fx) | 2 * (1 - fy)
+
+
+def _variant_layers_plain(ylow: torch.Tensor, sp, upto: int,
+                          zs: tuple) -> list:
+    """Plain layers 1..upto (7: the whole stack) of the scale stack, each
+    layer k + 1 under zero-shift mask zs[k] -> every layer's stored output:
+    the NHWC planes of layers 1-6 and layer 7's Y_s2d [N, hl, wl, 4], in
+    ylow's dtype."""
+    dt = ylow.dtype
+    up = ylow.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    with no_tf32():
+        x = stack._plain_layer(pad_replicate(up.float(), 7), *sp[0], dt)
+    outs = [x.permute(0, 2, 3, 1).to(dt)]
+    for k in range(1, min(upto, 6)):
+        outs.append(stack.mma_layer_plain(outs[-1], sp.wm[k - 1], sp[k][1],
+                                          zs[k]))
+    if upto == 7:
+        outs.append(stack.last_layer_plain(outs[-1], *sp[6], zs[6]))
+    return outs
+
+
+def _variant_layers(ylow: torch.Tensor, sp, upto: int, zs: tuple,
+                    pp: bool = False) -> list:
+    """The same on the card: one launch a layer (stack._Launcher, counted
+    under KERNEL_LAUNCHES["probe"]), layers 2-6 under zs[k] or with two
+    accumulators (pp) on csrc/mma.cu's variants, layer 7 under zs[6]."""
+    n, hl, wl = ylow.shape
+    outs, src = [], ylow
+    with torch.cuda.device(ylow.device):
+        run = stack._Launcher("probe", ylow, None)
+        for k in range(min(upto, 6)):
+            dst = torch.empty((n, 2 * hl + 12 - 2 * k, 2 * wl + 12 - 2 * k,
+                               stack.WIDTHS[k][1]), dtype=ylow.dtype,
+                              device=ylow.device)
+            run.layer(k, False, src, sp, dst, n, hl, wl, zs=zs[k],
+                      pp=pp and k > 0)
+            outs.append(dst)
+            src = dst
+        if upto == 7:
+            out = torch.empty((n, hl, wl, 4), dtype=ylow.dtype,
+                              device=ylow.device)
+            run.layer(6, False, src, sp, out, n, hl, wl, zs=zs[6])
+            outs.append(out)
+    return outs
+
+
+def _check_variant(ylow: torch.Tensor, sp) -> None:
+    stack._check(ylow, sp)
+    if getattr(sp, "wm", None) is None:
+        raise ValueError("the probes' stacks need prep_params' packed "
+                         "weights (StackParams.wm)")
+
+
+def _variant(ylow: torch.Tensor, sp, upto: int, zs: tuple,
+             pp: bool = False) -> list:
+    _check_variant(ylow, sp)
+    if ylow.device.type == "cpu":
+        return _variant_layers_plain(ylow, sp, upto, zs)
+    return _variant_layers(ylow, sp, upto, zs, pp)
+
+
+_NO_ZS = (0,) * 7
+
+
+def stack_scale_pp_plain(ylow: torch.Tensor, sp) -> torch.Tensor:
+    """Plain version of stack_scale_pp: stack_scale's plain version with
+    layers 2-6 from the packed weights (stack_scale_plain(mma=True)), the
+    function of the one-accumulator tensor-core layers."""
+    _check_variant(ylow, sp)
+    return stack.stack_scale_plain(ylow, sp, mma=True)
+
+
+def stack_scale_pp(ylow: torch.Tensor, sp) -> torch.Tensor:
+    """tools/accpp_probe.py's "pp": ylow [N, hl, wl] bf16 -> Y_s2d
+    [N, hl, wl, 4], stack_scale's function with each of layers 2-6 keeping
+    its outputs in two register accumulators (csrc/mma.cu PP), equal to
+    stack_scale's tensor-core layers bit for bit; 7 launches. CPU tensors
+    take the plain version; CUDA tensors take the kernels."""
+    if ylow.device.type == "cpu":
+        return stack_scale_pp_plain(ylow, sp)
+    return _variant(ylow, sp, 7, _NO_ZS, pp=True)[-1]
+
+
+def shift_stack_plain(ylow: torch.Tensor, sp, fx: int, fy: int):
+    """Plain version of shift_stack."""
+    zs = shift_zs(fx, fy)
+    _check_variant(ylow, sp)
+    return _variant_layers_plain(ylow, sp, 7, (0,) + (zs,) * 6)[-1]
+
+
+def shift_stack(ylow: torch.Tensor, sp, fx: int, fy: int) -> torch.Tensor:
+    """tools/shift_cost_probe.py's stack: ylow [N, hl, wl] -> [N, hl, wl, 4]
+    in s2d layout, layer 1 as in stack_scale, layers 2-7 under zero-shift
+    mask shift_zs(fx, fy): on a zeroed axis tap k of position p reads
+    (p & ~1) | ((p + k) & 1), its own s2d cell, where stack_scale reads
+    p + k (wrong by design; fx = fy = 1 is stack_scale). 7 launches. CPU
+    tensors take the plain version; CUDA tensors take the kernels (bf16
+    where a mask is set: the variants are tensor-core layers)."""
+    zs = shift_zs(fx, fy)
+    return _variant(ylow, sp, 7, (0,) + (zs,) * 6)[-1]
+
+
+def _l4_zs(mode: str) -> tuple:
+    if mode not in L4_MODES:
+        raise ValueError(f"mode must be one of {list(L4_MODES)}, got "
+                         f"{mode!r}")
+    upto, zs4, keep = L4_MODES[mode]
+    return upto, (0, 0, 0, zs4, 0, 0, 0), keep
+
+
+def l4_shift_plain(ylow: torch.Tensor, sp, mode: str) -> torch.Tensor:
+    """Plain version of l4_shift."""
+    upto, zs, keep = _l4_zs(mode)
+    _check_variant(ylow, sp)
+    return _variant_layers_plain(ylow, sp, upto, zs)[keep - 1]
+
+
+def l4_shift(ylow: torch.Tensor, sp, mode: str) -> torch.Tensor:
+    """tools/l4_shift_probe.py's body: layers 1-3 of the scale stack, then
+    layer 4 by mode (L4_MODES): "l4" as in production, "zshift" with all its
+    shifts zeroed (zero-shift mask 3), "zdx" its column shifts (mask 1);
+    "base" stops after layer 3. Returns the whole NHWC plane of layer 4
+    (base and scratch: of layer 3), halo and all, as stack_scale_upto(...,
+    out="whole") gives it: [N, 2hl+6, 2wl+6, 64] ([N, 2hl+8, 2wl+8, 64]).
+    3 or 4 launches. CPU tensors take the plain version; CUDA tensors take
+    the kernels."""
+    upto, zs, keep = _l4_zs(mode)
+    return _variant(ylow, sp, upto, zs)[keep - 1]
+
+
+def variant_plans(zs: int = 0, pp: bool = False, layers=range(2, 7)) -> str:
+    """The chunk plan of each tensor-core layer as a variant runs it, for
+    the tools to print: "L<k> kc x stages (smem bytes)"."""
+    plans = []
+    for k in layers:
+        plan = stack.mma_plan(*stack.WIDTHS[k - 1], zs, pp)
+        plans.append(f"L{k} {plan.kc} x {plan.stages} ({plan.smem_bytes} B)")
+    return ", ".join(plans)
+
+
+def ptxas_serialized() -> "list | None":
+    """ptxas' warnings that it serialized wgmma instructions in
+    csrc/mma.cu, from the build this process ran; None where the library
+    was built by another process (its output was not seen here)."""
+    log = _build.BUILD_LOG.get("mma")
+    if log is None:
+        return None
+    return [ln.strip() for ln in log[1].splitlines() if "serializ" in ln]

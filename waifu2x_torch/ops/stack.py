@@ -43,7 +43,11 @@ too; only tests and chip_smoke.py flip it, to hold one kernel against the
 other and time them in one run. mma_layer is one such layer alone,
 mma_layer_plain its plain version from the packed weights, mma_plan the
 kernel's tile, chunk and shared-memory plan; mma_chain is the probe of the
-kernel's inner loop (tools/mma_probe.py).
+kernel's inner loop (tools/mma_probe.py). The probes of ops/probe.py also
+run variants that no product path takes: the tensor-core layer under a
+zero-shift mask (zs: a tap on a zeroed axis reads its own s2d cell) or with
+two accumulators (pp: the same function), and layer 7 under a mask
+(mma_layer(zs=, pp=), last_layer(zs=), mma_plan(ci, co, zs, pp)).
 
 Layer 6 (128 -> 128, half of the stack's multiply-adds) has three forms,
 chosen by the arguments `l6_i8` and `l6_wino` of every wrapper; None, the
@@ -118,18 +122,22 @@ I8_TILE = (64, 128)   # largest default int8 tile, in s2d cells
 LAUNCHES = 0
 # the same launches by the wrapper that made them: "scale" (stack_scale,
 # stack_scale_upto), "noise" (stack_noise, stack_noise_s2d), "dense"
-# (stack_scale_dense), "fused_u8" (stack_scale_fused_u8)
-KERNEL_LAUNCHES = {"scale": 0, "noise": 0, "dense": 0, "fused_u8": 0}
+# (stack_scale_dense), "fused_u8" (stack_scale_fused_u8), "probe" (the
+# probes' stacks of ops/probe.py: stack_scale_pp, shift_stack, l4_shift)
+KERNEL_LAUNCHES = {"scale": 0, "noise": 0, "dense": 0, "fused_u8": 0,
+                   "probe": 0}
 # layer 6's launches by its form ("i8" counts two a call: the tile maxima
-# and the int8 layer), and under "upto" the launches of stack_scale_upto's
-# own last kernel
-L6_LAUNCHES = {"direct": 0, "i8": 0, "wino": 0, "upto": 0}
+# and the int8 layer), under "upto" the launches of stack_scale_upto's own
+# last kernel, and under "last_zs" those of layer 7 under a zero-shift mask
+L6_LAUNCHES = {"direct": 0, "i8": 0, "wino": 0, "upto": 0, "last_zs": 0}
 # layers 2-6 run on the tensor cores for bf16 storage; False sends them to
 # the f32 FFMA kernel like an f32 call (tests and chip_smoke.py only)
 MID_MMA = True
-# the launches of layers 2-6 by the kernel that ran them, and under "chain"
-# those of the mma_chain probe (which count nowhere else)
-MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0}
+# the launches of layers 2-6 by the kernel that ran them ("mma_zs" and
+# "mma_pp": the tensor-core kernel under a zero-shift mask or with two
+# accumulators, which only the probes run), and under "chain" those of the
+# mma_chain probe (which count nowhere else)
+MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0}
 
 # the last layer's output forms (csrc/common.cuh: OUT_*)
 _OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS, _OUT_PTAPS = 0, 1, 2, 3, 4
@@ -212,6 +220,8 @@ class MmaPlan(NamedTuple):
     stages: int        # chunk buffers in the cp.async ring
     win_stride: int    # the staged window's k8 stride, in 16-byte units
     smem_bytes: int    # dynamic shared memory of the launch
+    zs: int = 0        # zero-shift mask: 1 columns, 2 rows, 3 both
+    pp: bool = False   # two accumulators, half the outputs each
 
 
 SMEM_MAX = 232448      # what one block may use on an H100 (227 KB)
@@ -220,25 +230,48 @@ _MMA_TILE = 16
 # has the times of the other chunkings that were tried on an H100)
 _MMA_CHUNK = {(32, 32): (32, 1), (32, 64): (32, 1), (64, 64): (16, 2),
               (64, 128): (32, 2), (128, 128): (16, 2)}
+# (kc, stages) of the variants csrc/mma.cu instantiates for the probes, by
+# (ci, co, zs, pp): every layer under each zero-shift mask and with two
+# accumulators, in its own chunk plan but for 64 -> 128 under zs 3, whose
+# four window copies in chunks of 32 would need 316 KB
+_MMA_VARIANTS = {
+    **{(ci, co, zs, False): _MMA_CHUNK[(ci, co)]
+       for ci, co in _MMA_CHUNK for zs in (1, 2, 3)},
+    **{(ci, co, 0, True): _MMA_CHUNK[(ci, co)] for ci, co in _MMA_CHUNK},
+    (64, 128, 3, False): (16, 2)}
+_ZS_COPIES = {0: 1, 1: 2, 2: 2, 3: 4}   # window copies a chunk stages
 
 
-def mma_plan(ci: int, co: int) -> MmaPlan:
+def mma_plan(ci: int, co: int, zs: int = 0, pp: bool = False) -> MmaPlan:
     """The tensor-core kernel's plan for a ci -> co layer: a 16 x 16 pixel
     tile per block, its 18 x 18 window and the 9 taps' weights staged per
     chunk of kc input channels in a ring of `stages` buffers, and the
     shared memory that takes (the larger of the ring and the epilogue's
-    padded output tile). The C entry takes smem_bytes as an argument and
-    refuses bytes that differ from its own count."""
-    if (ci, co) not in _MMA_CHUNK:
-        raise ValueError(f"no tensor-core kernel for a {ci} -> {co} layer")
-    kc, stages = _MMA_CHUNK[(ci, co)]
+    padded output tile). Under zero-shift mask zs each chunk stages
+    _ZS_COPIES[zs] copies of the window; with pp the first half's output
+    tile has a region of its own beside the ring. The C entry takes
+    smem_bytes as an argument and refuses bytes that differ from its own
+    count."""
+    if (zs, pp) == (0, False):
+        chunk = _MMA_CHUNK.get((ci, co))
+    else:
+        chunk = _MMA_VARIANTS.get((ci, co, zs, bool(pp)))
+    if chunk is None:
+        raise ValueError(f"no tensor-core kernel for a {ci} -> {co} layer "
+                         f"with zs={zs!r}, pp={pp!r}")
+    kc, stages = chunk
     k8c, win = kc // 8, _MMA_TILE + 2
     stride = win * win + (8 // k8c - win * win % 8 + 8) % 8
-    ring = stages * k8c * (stride + 9 * co) * 16
-    smem = max(ring, _MMA_TILE * _MMA_TILE * (2 * co + 16))
+    ring = stages * k8c * (_ZS_COPIES[zs] * stride + 9 * co) * 16
+    if pp:
+        half = _MMA_TILE * _MMA_TILE * (co + 16)
+        smem = max(ring, half) + half
+    else:
+        smem = max(ring, _MMA_TILE * _MMA_TILE * (2 * co + 16))
     if smem > SMEM_MAX:
         raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
-    return MmaPlan((_MMA_TILE, _MMA_TILE), 512, kc, stages, stride, smem)
+    return MmaPlan((_MMA_TILE, _MMA_TILE), 512, kc, stages, stride, smem,
+                   zs, bool(pp))
 
 
 def mma_grid(n: int, hin: int, win: int) -> tuple:
@@ -401,22 +434,62 @@ def _plain_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype,
     return x.to(dtype).float() if round_out else x
 
 
-def mma_layer_plain(x: torch.Tensor, wp: torch.Tensor,
-                    b: torch.Tensor) -> torch.Tensor:
+def zs_index(n_out: int, k: int, device=None) -> torch.Tensor:
+    """The positions that tap k (0..2) of output positions 0..n_out-1 reads
+    on an axis whose shifts are zeroed: r(p, k) = (p & ~1) | ((p + k) & 1),
+    the output's own s2d cell (index 0 of every plane is a cell boundary),
+    in place of p + k."""
+    p = torch.arange(n_out, device=device)
+    return (p & ~1) | ((p + k) & 1)
+
+
+def _tap_view(x: torch.Tensor, dy: int, dx: int, hout: int, wout: int,
+              zs: int) -> torch.Tensor:
+    """[N, hout, wout, C] of the NHWC x that tap (dy, dx) reads: a slice, or
+    on each axis that the zero-shift mask zs zeroes (bit 0 columns, bit 1
+    rows) the positions zs_index gives."""
+    rows = (zs_index(hout, dy, x.device) if zs & 2
+            else slice(dy, dy + hout))
+    cols = (zs_index(wout, dx, x.device) if zs & 1
+            else slice(dx, dx + wout))
+    return x[:, rows][:, :, cols]
+
+
+def mma_layer_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
+                    zs: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the tensor-core layer (mma_layer), from the
     PACKED weights: x [N, hin, win, ci] NHWC, wp [ci/8, 9, co, 8]
     (pack_mma), b [co] f32 -> [N, hin-2, win-2, co] in x's dtype. The 9 taps
     are 9 shifted [pixels, ci] x [ci, co] products summed in f32, then the
-    bias, LeakyReLU and the one rounding to x's dtype."""
+    bias, LeakyReLU and the one rounding to x's dtype. zs, the zero-shift
+    mask (1 columns, 2 rows, 3 both), remaps each tap's positions on the
+    zeroed axes (_tap_view)."""
     w = unpack_mma(wp).float()
     hout, wout = x.shape[1] - 2, x.shape[2] - 2
     xf = x.float()
     acc = None
     with no_tf32():
         for t in range(9):
-            term = xf[:, t // 3:t // 3 + hout, t % 3:t % 3 + wout] @ w[t]
+            term = _tap_view(xf, t // 3, t % 3, hout, wout, zs) @ w[t]
             acc = term if acc is None else acc.add_(term)
     return leaky_relu(acc.add_(b)).to(x.dtype)
+
+
+def last_layer_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     zs: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of layer 7 in s2d layout (csrc/stack.cu:
+    conv3x3_bias_leaky_s2d) on the stored layer-6 plane: x [N, 2hl+2, 2wl+2,
+    128] NHWC, w [128, 9, 1], b [1] f32 -> [N, hl, wl, 4] in x's dtype: the 9
+    taps summed in f32, bias, LeakyReLU, one rounding; zs as in
+    mma_layer_plain."""
+    hout, wout = x.shape[1] - 2, x.shape[2] - 2
+    xf, wf = x.float(), w.float()[:, :, 0]
+    acc = None
+    with no_tf32():
+        for t in range(9):
+            term = _tap_view(xf, t // 3, t % 3, hout, wout, zs) @ wf[:, t]
+            acc = term if acc is None else acc.add_(term)
+    return s2d(leaky_relu(acc.add_(b))[..., None]).to(x.dtype)
 
 
 def _plain_mid(x: torch.Tensor, sp, k: int, dtype, mma: bool) -> torch.Tensor:
@@ -749,10 +822,15 @@ _FLOATS = ctypes.POINTER(ctypes.c_float)
 _ARGTYPES = {
     "stack": {"w2x_stack_layer": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
                                   _INT, _INT, _INT, _INT, _PTR, _FLOATS, _INT,
-                                  _PTR]},
+                                  _PTR],
+              "w2x_stack_last_zs": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT,
+                                    _INT, _INT, _PTR]},
     "mma": {"w2x_mma_layer": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
                               _INT, _INT, _PTR],
-            "w2x_mma_chain": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR]},
+            "w2x_mma_chain": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR],
+            "w2x_mma_layer_variant": [_INT, _INT, _INT, _INT, _PTR, _PTR,
+                                      _PTR, _PTR, _INT, _INT, _INT, _INT,
+                                      _PTR]},
     "l6": {"w2x_upto_gather": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                                _INT, _INT, _PTR],
            "w2x_tile_absmax": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
@@ -824,15 +902,30 @@ class _Launcher:
             MID_LAUNCHES[mid] += 1
 
     def layer(self, k: int, full_res: bool, src, sp, dst, n, ph, pw,
-              out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0) -> None:
+              out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0, zs: int = 0,
+              pp: bool = False) -> None:
         """Layer k + 1: layers 2-6 of a bf16 call on the tensor cores
-        (csrc/mma.cu), everything else through csrc/stack.cu."""
+        (csrc/mma.cu), everything else through csrc/stack.cu. zs, a
+        zero-shift mask, and pp, two accumulators, are the probes' variants
+        of the tensor-core layers (zs also of layer 7 in s2d layout)."""
         w, b = sp[k]
-        if 1 <= k <= 5 and self.bf16 and MID_MMA:
+        if zs or pp:
+            if k == 0 or (k == 6 and pp) or (k < 6 and not self.bf16):
+                raise ValueError(f"layer {k + 1}: no variant zs={zs}, "
+                                 f"pp={pp} (bf16 layers 2-6; zs on layer 7, "
+                                 f"f32 or bf16)")
+            if k == 6:
+                hg, wg = (((ph + 1) // 2, (pw + 1) // 2) if full_res
+                          else (ph, pw))
+                self.run("stack", "w2x_stack_last_zs", f"layer 7 (zs {zs})",
+                         "last_zs", zs, src.data_ptr(), w.data_ptr(),
+                         b.data_ptr(), dst.data_ptr(), n, hg, wg)
+                return
+        if 1 <= k <= 5 and ((self.bf16 and MID_MMA) or zs or pp):
             hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
             self.mma_layer(k, src, sp, dst, n, 2 * hg + 14 - 2 * k,
                            2 * wg + 14 - 2 * k, l6="direct" if k == 5
-                           else None)
+                           else None, zs=zs, pp=pp)
             return
         self.run("stack", "w2x_stack_layer", f"layer {k + 1}",
                  "direct" if k == 5 else None, int(full_res), k,
@@ -841,17 +934,25 @@ class _Launcher:
                  None if uvp is None else uvp.data_ptr(), cmap, tc,
                  mid="ffma" if 1 <= k <= 5 else None)
 
-    def mma_layer(self, k: int, src, sp, dst, n, hin, win, l6=None) -> None:
+    def mma_layer(self, k: int, src, sp, dst, n, hin, win, l6=None,
+                  zs: int = 0, pp: bool = False) -> None:
         """Layer k + 1 (k = 1..5) of csrc/mma.cu on an [n, hin, win, ci]
-        plane."""
+        plane; with zs or pp its probe variant (w2x_mma_layer_variant,
+        counted under MID_LAUNCHES "mma_zs" or "mma_pp")."""
         wm = getattr(sp, "wm", None)
         if wm is None:
             raise ValueError("the tensor-core layers need prep_params' "
                              "packed weights (StackParams.wm)")
-        self.run("mma", "w2x_mma_layer", f"layer {k + 1} (mma)", l6, k,
-                 src.data_ptr(), wm[k - 1].data_ptr(), sp[k][1].data_ptr(),
-                 dst.data_ptr(), n, hin, win,
-                 mma_plan(*WIDTHS[k]).smem_bytes, mid="mma")
+        smem = mma_plan(*WIDTHS[k], zs, pp).smem_bytes
+        args = (src.data_ptr(), wm[k - 1].data_ptr(), sp[k][1].data_ptr(),
+                dst.data_ptr(), n, hin, win, smem)
+        if not (zs or pp):
+            self.run("mma", "w2x_mma_layer", f"layer {k + 1} (mma)", l6, k,
+                     *args, mid="mma")
+            return
+        self.run("mma", "w2x_mma_layer_variant",
+                 f"layer {k + 1} (mma, zs {zs}, pp {int(pp)})", l6, k, zs,
+                 int(pp), *args, mid="mma_pp" if pp else "mma_zs")
 
     def l6_i8(self, x5, sp, n, tiling):
         """The tile maxima and the int8 layer 6 -> (x6t tile-major, m)."""
@@ -1003,14 +1104,18 @@ def layer5_plane(x: torch.Tensor, sp, tile=None,
         n, 2 * hg + 4, 2 * wg + 4, 128)
 
 
-def mma_layer(x: torch.Tensor, sp, k: int) -> torch.Tensor:
+def mma_layer(x: torch.Tensor, sp, k: int, zs: int = 0,
+              pp: bool = False) -> torch.Tensor:
     """Layer k (2..6) alone on the tensor cores: x [N, hin, win, ci] NHWC
     bf16, contiguous -> [N, hin-2, win-2, co] bf16, from sp.wm[k-2] and
-    layer k's bias. CPU tensors take mma_layer_plain; CUDA tensors take the
-    kernel, whose launch counts under MID_LAUNCHES["mma"] only."""
+    layer k's bias. zs (zero-shift mask) and pp (two accumulators, the same
+    function) select a probe variant (mma_plan). CPU tensors take
+    mma_layer_plain; CUDA tensors take the kernel, whose launch counts under
+    MID_LAUNCHES["mma"] ("mma_zs", "mma_pp") only."""
     if k not in range(2, 7):
         raise ValueError(f"the tensor-core kernel runs layers 2..6, got {k}")
     ci, co = WIDTHS[k - 1]
+    mma_plan(ci, co, zs, pp)   # raises for a variant that is not built
     if x.dim() != 4 or x.shape[3] != ci or min(x.shape[1:3]) < 3:
         raise ValueError(f"layer {k} takes [N, hin >= 3, win >= 3, {ci}], "
                          f"got {tuple(x.shape)}")
@@ -1022,12 +1127,41 @@ def mma_layer(x: torch.Tensor, sp, k: int) -> torch.Tensor:
                          "(StackParams.wm)")
     _check_wm(wm, x)
     if x.device.type == "cpu":
-        return mma_layer_plain(x, wm[k - 2], sp[k - 1][1])
+        return mma_layer_plain(x, wm[k - 2], sp[k - 1][1], zs)
     n, hin, win, _ = x.shape
     with torch.cuda.device(x.device):
         y = torch.empty((n, hin - 2, win - 2, co), dtype=x.dtype,
                         device=x.device)
-        _Launcher(None, x, None).mma_layer(k - 1, x, sp, y, n, hin, win)
+        _Launcher(None, x, None).mma_layer(k - 1, x, sp, y, n, hin, win,
+                                           zs=zs, pp=pp)
+    return y
+
+
+def last_layer(x: torch.Tensor, sp, zs: int = 0) -> torch.Tensor:
+    """Layer 7 alone in s2d layout under zero-shift mask zs (0..3; see
+    last_layer_plain): x [N, 2hl+2, 2wl+2, 128] NHWC (f32 or bf16,
+    contiguous) -> [N, hl, wl, 4] in x's dtype. CPU tensors take the plain
+    version; CUDA tensors take csrc/stack.cu's conv3x3_bias_leaky_s2d<ZS>,
+    whose launch counts under L6_LAUNCHES["last_zs"] (zs > 0) only."""
+    if zs not in range(4):
+        raise ValueError(f"zs must be 0..3, got {zs!r}")
+    if (x.dim() != 4 or x.shape[3] != 128 or x.shape[1] % 2
+            or x.shape[2] % 2 or min(x.shape[1:3]) < 4):
+        raise ValueError(f"x must be [N, 2hl+2, 2wl+2, 128], got "
+                         f"{tuple(x.shape)}")
+    n, hin, win = x.shape[:3]
+    if x.dtype not in DTYPES or not x.is_contiguous():
+        raise TypeError(f"x must be contiguous float32 or bfloat16, got "
+                        f"{x.dtype}")
+    w, b = sp[6]
+    if w.dtype != x.dtype or w.device != x.device:
+        raise TypeError(f"layer 7's weights are {w.dtype} on {w.device}")
+    if x.device.type == "cpu":
+        return last_layer_plain(x, w, b, zs)
+    hl, wl = (hin - 2) // 2, (win - 2) // 2
+    with torch.cuda.device(x.device):
+        y = torch.empty((n, hl, wl, 4), dtype=x.dtype, device=x.device)
+        _Launcher(None, x, None).layer(6, False, x, sp, y, n, hl, wl, zs=zs)
     return y
 
 
