@@ -13,8 +13,9 @@ them as FFMA (csrc/stack.cu).
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
 Phases (any failure raises and exits non-zero):
-  1. build csrc/stack.cu, csrc/l6.cu, csrc/mma.cu and csrc/probe.cu with
-     nvcc for sm_90a, all at once (ops/_build.py);
+  1. build csrc/stack.cu, csrc/l6.cu, csrc/mma.cu, csrc/wino.cu,
+     csrc/probe.cu and csrc/tmm.cu with nvcc for sm_90a, all at once
+     (ops/_build.py);
   2. f32 scale kernel vs plain version at small and odd shapes:
      max |diff| <= 3e-5;
   3. the scale kernel vs its plain version at the scale512 shape
@@ -70,11 +71,19 @@ Phases (any failure raises and exits non-zero):
  12. the truncated stack (B7), stack_scale_upto for upto = 0..6 at (2,37,53),
      (1,5,300) and scale512, f32 and bf16, against its plain version: f32
      <= 3e-5, bf16 <= 2^-4; upto + 1 launches per call;
- 13. Winograd layer 6 (B5), l6_wino=True, scale and noise input modes, at
-     the small and odd shapes, scale512 and noise256: f32 <= 3e-5 against
-     its plain version and <= 1e-4 against the direct kernel; bf16 <= 2^-4
-     against the bf16 plain version and, at the two main shapes, >= 50 dB
-     against the f32 plain version;
+ 13. Winograd layer 6 (B5), l6_wino=True: the tensor-core kernel alone
+     (csrc/wino.cu, stack.wino_layer) against the plain version of its
+     arithmetic (wino_layer_plain) at the layer-6 planes of (1,27,38),
+     (2,37,53), (1,5,300), scale512 and noise256, to one bf16 ulp at the
+     output's magnitude (the share of differing outputs printed); then the
+     stacks, scale and noise input modes, at the small and odd shapes,
+     scale512 and noise256: f32 (FFMA, csrc/l6.cu) <= 3e-5 against its
+     plain version and <= 1e-4 against the direct kernel; bf16 (tensor
+     cores) <= 2^-4 against the bf16 plain version and, at the two main
+     shapes, >= 50 dB against the f32 plain version; bf16 with MID_MMA
+     False (the FFMA kernel) <= 2^-4 against its plain version and against
+     the tensor-core stack; the kernel each call reached asserted from
+     stack.WINO_LAUNCHES; both forms' PSNR on a pure-random plane printed;
  14. int8 layer 6 (B4), l6_i8=True, at equal tile, scale and noise input
      modes, a grid that pads both ways, a single tile, scale512 and
      noise256: (a) layer 6 alone, kernel and plain version fed the same
@@ -91,7 +100,8 @@ Phases (any failure raises and exits non-zero):
  15. the product paths at full width under each layer-6 switch (stack.L6_WINO,
      stack.L6_I8): the scale512 batch step, the 64-frame scale512 stream
      under W2X_TAIL=kernel (equal to the batch step bit for bit, launches
-     counted by kind and by layer-6 form) and the noise256 batch step;
+     counted by kind, by layer-6 form and, for Winograd, by kernel: the
+     tensor-core one on every bf16 call) and the noise256 batch step;
      frames 0-1 against the f32 non-kernel path: Winograd no lower than the
      direct form on the same frames less 1.5 dB (its U is rounded to bf16,
      the one rounding the direct form lacks) and reported against the 50 dB
@@ -134,7 +144,8 @@ Phases (any failure raises and exits non-zero):
      its BlockSpecs and distinct bytes (neighbouring cells' blocks overlap
      in four variants), time (one replay of the graph, and one by one) and
      GB/s; a variant that moves its distinct bytes faster than 3.35 TB/s
-     fails the phase (a fetch was dropped).
+     fails the phase (a fetch was dropped); each probe_store variant's time
+     printed beside fill_'s.
  19. the truncation probes and the four-tap layer (phase19 below): tap_mm
      (csrc/tmm.cu, wgmma) in both layouts against its plain version bit for
      bit on inputs k / 16 (every f32 sum exact), at two small grids and the
@@ -167,7 +178,9 @@ bf16 bar against the f32 plain version is phase 15's 35 dB.
 Calls on frames of more than 1 M pixels are held on their first frame. Then
 timings with CUDA events (bf16 stacks on the tensor-core layers) for
 scale512 (each tail, each last-layer form,
-each layer-6 form, the truncation's own launches), noise256 and ns1080,
+each layer-6 form, layer 6 alone in its forms: the two Winograd kernels in
+turns, which must be 4x apart, beside the direct tensor-core layer and
+cuDNN's layer 6, the truncation's own launches), noise256 and ns1080,
 cuDNN bf16 yardsticks the port never calls, and for each stream its wall
 time beside the sum of its device step times.
 
@@ -590,6 +603,19 @@ def library_mid_ms(sp16, n: int, hl: int, wl: int) -> float:
 
     ms = timed_ms(library_mid)
     del x1, layers
+    torch.cuda.empty_cache()
+    return ms
+
+
+def library_l6_ms(x5: torch.Tensor, sp16) -> float:
+    """Library yardstick (never called by the port): layer 6 alone as one
+    cuDNN bf16 channels_last convolution + leaky_relu, TF32 off, on the
+    NHWC layer-5 plane x5 (a channels_last view, no copy)."""
+    from waifu2x_torch.ops.convstack import no_tf32
+    (w, b), = cudnn_layers(sp16[5:6])
+    xc = x5.permute(0, 3, 1, 2)
+    with no_tf32():
+        ms = timed_ms(lambda: F.leaky_relu(F.conv2d(xc, w, b), 0.1))
     torch.cuda.empty_cache()
     return ms
 
@@ -1707,6 +1733,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 13. Winograd layer 6 (B5)
+    t13 = time.perf_counter()
     def plain_kw(name, **kw):
         fn = getattr(stack, name)
         return lambda x, sp: fn(x, sp, **kw)
@@ -1717,27 +1744,98 @@ def main() -> int:
                 else "stack_noise_s2d" if noise else "stack_scale")
         kernel, plain = getattr(stack, name), plain_kw(name + "_plain",
                                                        l6_wino=True)
+        stack.reset_launches()
         got32 = kernel(y32, sps[0], l6_wino=True)
+        expect_wino(f"f32 {name} {label}", 0, 1)
         ref32 = plain_in_chunks(plain, y32, sps[0], not noise)
         err32 = (got32 - ref32).abs().max().item()
         vs_direct = (got32 - kernel(y32, sps[0], l6_wino=False)
                      ).abs().max().item()
         y16 = y32.to(torch.bfloat16)
+        stack.reset_launches()
         got16 = kernel(y16, sps[1], l6_wino=True).float()
+        expect_wino(f"bf16 {name} {label}", 1, 0)
         err16 = (got16 - plain_in_chunks(plain, y16, sps[1], not noise)
                  ).abs().max().item()
         db16 = psnr1(got16, ref32)
+        # the FFMA Winograd kernel on the same bf16 input (MID_MMA False),
+        # against its own plain version (V in f32)
+        stack.MID_MMA = False
+        stack.reset_launches()
+        ffma16 = kernel(y16, sps[1], l6_wino=True).float()
+        expect_wino(f"bf16 {name} {label}, MID_MMA False", 0, 1)
+        if label == "scale512":   # the FFMA row's one counted path run
+            wino_ffma["launches"] = stack.WINO_LAUNCHES["ffma"]
+        err_ffma = (ffma16 - plain_in_chunks(plain, y16, sps[1], not noise)
+                    ).abs().max().item()
+        stack.MID_MMA = True
+        vs_ffma = (got16 - ffma16).abs().max().item()
         log(f"phase 13 wino {name} {label}: f32 max|kernel - plain| = "
             f"{err32:.3e}, max|wino - direct kernel| = {vs_direct:.3e}; "
-            f"bf16 max|kernel - bf16 plain| = {err16:.3e}, bf16 kernel vs "
-            f"f32 plain {db16:.2f} dB")
+            f"bf16 (tensor cores) max|kernel - bf16 plain| = {err16:.3e}, "
+            f"vs f32 plain {db16:.2f} dB; bf16 FFMA (MID_MMA False) "
+            f"max|kernel - plain| = {err_ffma:.3e}, max|tensor cores - "
+            f"FFMA| = {vs_ffma:.3e}")
+        check_max_err(f"bf16 FFMA wino {name} {label}", err_ffma, BF16_TOL)
+        check_max_err(f"bf16 wino, tensor cores vs FFMA, {name} {label}",
+                      vs_ffma, BF16_TOL)
         check_max_err(f"f32 wino {name} {label}", err32, F32_TOL)
         check_max_err(f"f32 wino vs direct {name} {label}", vs_direct,
                       WINO_VS_DIRECT_TOL)
         check_max_err(f"bf16 wino {name} {label}", err16, BF16_TOL)
         if psnr_gate and not db16 >= PSNR_BAR:
             raise AssertionError(f"bf16 wino {name} {label}: {db16} dB")
+        wino_ffma["max_abs_err"] = max(wino_ffma["max_abs_err"], err32,
+                                       err_ffma)
         return max(err32, err16)
+
+    # the FFMA Winograd kernel (f32 calls, bf16 with MID_MMA False): its
+    # largest error over phase 13's checks, its launches in one path run
+    wino_ffma = {"max_abs_err": 0.0, "launches": 0}
+
+    def expect_wino(label, mma, ffma):
+        """The Winograd layer 6 ran on the kernel its dtype selects."""
+        want = {"mma": mma, "ffma": ffma}
+        if (stack.WINO_LAUNCHES != want
+                or stack.L6_LAUNCHES["wino"] != mma + ffma):
+            raise AssertionError(f"{label}: Winograd launches "
+                                 f"{stack.WINO_LAUNCHES}, want {want}")
+
+    def wino_layer_check(x5, label) -> float:
+        """The tensor-core Winograd layer alone against the plain version
+        of its arithmetic: one bf16 ulp at the output's magnitude."""
+        stack.reset_launches()
+        got = stack.wino_layer(x5, sp_l6)
+        torch.cuda.synchronize()
+        if (stack.WINO_LAUNCHES != {"mma": 1, "ffma": 0} or stack.LAUNCHES
+                or any(stack.L6_LAUNCHES.values())):
+            raise AssertionError(f"wino_layer alone {label}: launches "
+                                 f"{stack.WINO_LAUNCHES}, {stack.LAUNCHES}")
+        c = max(1, int(2e9 // (x5[0].numel() * 4 * 2)))
+        ref = torch.cat([stack.wino_layer_plain(x5[i:i + c], sp_l6.w6m,
+                                                sp_l6[5][1])
+                         for i in range(0, x5.shape[0], c)])
+        err, share = check_mma_layer(f"wino layer 6 {label}", got, ref)
+        log(f"phase 13 wino layer 6 alone (tensor cores) {label} "
+            f"{tuple(x5.shape)}, largest output "
+            f"{ref.float().abs().max().item():.3f}: max|kernel - plain| "
+            f"{err:.3e}, {share:.4%} of outputs differ")
+        return err
+
+    max_err["wino_layer"] = 0.0
+    dev_gen13 = torch.Generator(device=dev).manual_seed(13)
+    for sp_l6, shape in ((sp_rand16, (1, 27, 38)), (sp_rand16, (2, 37, 53)),
+                         (sp_rand16, (1, 5, 300)), (sp16, (16, 512, 512)),
+                         (spn16, (256, 128, 128))):
+        n_, h_, w_ = shape   # s2d cells; layer 5's plane is 2h + 4 square
+        x5 = torch.rand((n_, 2 * h_ + 4, 2 * w_ + 4, 128), device=dev,
+                        generator=dev_gen13).to(torch.bfloat16)
+        label = {(16, 512, 512): "scale512",
+                 (256, 128, 128): "noise256"}.get(shape, str(shape))
+        max_err["wino_layer"] = max(max_err["wino_layer"],
+                                    wino_layer_check(x5, label))
+        del x5
+        torch.cuda.empty_cache()
 
     max_err["wino"] = 0.0
     for y32 in l6_cases:
@@ -1748,7 +1846,18 @@ def main() -> int:
         max_err["wino"],
         wino_check(ylow, (sp32, sp16), "scale512", False, True),
         wino_check(yn, (spn32, spn16), "noise256", True, True))
+    # the pure-random plane of phase 3, now with V rounded once
+    noise = torch.rand((2, 512, 512), generator=gen).to(dev)
+    ref_noise = stack.stack_scale_plain(noise, sp32)
+    db_noise_l6 = {form: psnr1(stack.stack_scale(
+        noise.to(torch.bfloat16), sp16, l6_wino=form == "wino").float(),
+        ref_noise) for form in ("direct", "wino")}
+    log(f"phase 13 bf16 stack on a pure-random plane vs f32 plain: "
+        f"Winograd (tensor cores) {db_noise_l6['wino']:.2f} dB, direct "
+        f"{db_noise_l6['direct']:.2f} dB (reported, not gated)")
+    del noise, ref_noise
     torch.cuda.empty_cache()
+    log(f"phase 13 passed in {time.perf_counter() - t13:.1f} s")
 
     # 14. int8 layer 6 (B4), at equal tile on both sides
     def rms(t: torch.Tensor) -> float:
@@ -1858,6 +1967,11 @@ def main() -> int:
         if stack.L6_LAUNCHES != want:
             raise AssertionError(f"{label}: layer-6 launches "
                                  f"{stack.L6_LAUNCHES}, want {want}")
+        # bf16 stacks: the Winograd layer 6 on the tensor cores
+        wino = {"mma": calls if form == "wino" else 0, "ffma": 0}
+        if stack.WINO_LAUNCHES != wino:
+            raise AssertionError(f"{label}: Winograd launches by kernel "
+                                 f"{stack.WINO_LAUNCHES}, want {wino}")
 
     ypad = F.pad(yuv[:2, ..., 0][:, None].cpu(), (7,) * 4,
                  mode="replicate")[:, 0, :256, :256, None].contiguous()
@@ -1906,6 +2020,8 @@ def main() -> int:
         expect_counts(label, counts, nd, 4, fused_u8=4 * per_stack)
         expect_l6(label, form, 4, per_l6)
         l6_launches[form] = stack.L6_LAUNCHES[form]
+        if form == "wino":
+            wino_mma_launches = stack.WINO_LAUNCHES["mma"]
         for k in range(0, 64, 16):   # the batch step on the same batch
             ref = d2s_host_cmajor(scale2x_batch_u8_fused(
                 to_yuv_dev(frames64[k:k + 16]), fast).cpu().numpy())
@@ -2151,6 +2267,11 @@ def main() -> int:
     if fast_rows:   # over the memory rate: a fetch was dropped
         raise AssertionError(f"probes over {PEAK_BYTES / 1e12} TB/s: "
                              f"{fast_rows}")
+    # the store kernel beside fill_ of the same output (reported, not gated)
+    log(f"phase 18 probe_store against fill_, on {smi}: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} / {r['library_ms']:.4f} ms = "
+        f"{r['ms'] / r['library_ms']:.2f}x (bound {r['bound_ms']:.4f})"
+        for r in probe_rows if r["kernel"] == "store"))
     torch.cuda.empty_cache()
     log(f"phase 18 passed; {time.perf_counter() - t_start:.1f} s so far")
 
@@ -2356,6 +2477,83 @@ def main() -> int:
             for form, t in l6_t.items())
         + f"; int8 default tile {stack.default_tile(hl, wl)}")
 
+    # layer 6 alone at the scale512 shape, bf16: the FFMA and tensor-core
+    # Winograd kernels in turns (old, new, new, old), beside the direct
+    # tensor-core layer and cuDNN's layer 6 on the same x5
+    t_l6 = time.perf_counter()
+    x5 = torch.rand((n, 2 * hl + 4, 2 * wl + 4, 128), device=dev,
+                    generator=dev_gen).to(torch.bfloat16)
+    wino_turns = {"ffma": [], "mma": []}
+    for flag in (False, True, True, False):
+        stack.MID_MMA = flag
+        wino_turns["mma" if flag else "ffma"].append(
+            timed_ms(lambda: stack.wino_layer(x5, sp16)))
+    stack.MID_MMA = True
+    l6_alone = {k: sum(v) / 2 for k, v in wino_turns.items()}
+    l6_alone["direct"] = timed_ms(lambda: stack.mma_layer(x5, sp16, 6))
+    l6_alone["cudnn"] = library_l6_ms(x5, sp16)
+    t0 = time.perf_counter()
+    for i in range(0, n, 2):
+        stack.wino_layer_plain(x5[i:i + 2], sp16.w6m, sp16[5][1])
+    torch.cuda.synchronize()
+    l6_alone["plain"] = (time.perf_counter() - t0) * 1e3
+    stack.MID_MMA = False   # the FFMA form's plain version: V in f32
+    t0 = time.perf_counter()
+    for i in range(0, n, 2):
+        stack._l6_wino_plain(x5[i:i + 2].float().permute(0, 3, 1, 2), sp16,
+                             torch.bfloat16)
+    torch.cuda.synchronize()
+    stack.MID_MMA = True
+    l6_alone["plain_ffma"] = (time.perf_counter() - t0) * 1e3
+    del x5
+    torch.cuda.empty_cache()
+    wblocks = n * (hl + 1) * (wl + 1)   # 2 x 2 output blocks of layer 6
+    l6_flops = {  # per 2 x 2 block: the function's products as Winograd
+        # F(2x2, 3x3) (16) and as the direct form (36); the tensor-core
+        # kernel computes 24, its own register-budget choice
+        "wino16": 2 * wblocks * 16 * 128 * 128,
+        "mma": 2 * wblocks * 24 * 128 * 128,
+        "direct": 2 * wblocks * 4 * 9 * 128 * 128}
+    l6_bytes = 2 * 128 * (n * (2 * hl + 4) * (2 * wl + 4)
+                          + 4 * wblocks) + 2 * 16 * 128 * 128 + 4 * 128
+    l6_bound = {k: max(f / PEAK_BF16_FLOPS, l6_bytes / PEAK_BYTES) * 1e3
+                for k, f in l6_flops.items() if k != "mma"}
+    l6_bound_by = {k: "operations" if l6_flops[k] / PEAK_BF16_FLOPS
+                   >= l6_bytes / PEAK_BYTES else "bytes" for k in l6_bound}
+    ffma_floor = l6_flops["wino16"] / PEAK_F32_FLOPS * 1e3
+    log(f"timing scale512 layer 6 alone, bf16, x5 "
+        f"{(n, 2 * hl + 4, 2 * wl + 4, 128)}, on {smi}: Winograd FFMA "
+        f"{l6_alone['ffma']:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in wino_turns["ffma"])
+        + f"; {l6_flops['wino16'] / l6_alone['ffma'] / 1e9:.1f} TFLOP/s, "
+        f"FFMA floor {ffma_floor:.2f} ms), Winograd tensor cores "
+        f"{l6_alone['mma']:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in wino_turns["mma"])
+        + f"; {l6_flops['mma'] / l6_alone['mma'] / 1e9:.1f} TFLOP/s of its "
+        f"24 products a block = "
+        f"{100 * l6_flops['mma'] / l6_alone['mma'] / 1e-3 / PEAK_BF16_FLOPS:.1f}"
+        f"% of the bf16 peak, {l6_bytes / l6_alone['mma'] / 1e6:.0f} GB/s; "
+        f"bound {l6_bound['wino16']:.2f} ms by {l6_bound_by['wino16']}: "
+        f"the function's 16 products "
+        f"{l6_flops['wino16'] / PEAK_BF16_FLOPS * 1e3:.2f} ms, bytes "
+        f"{l6_bytes / PEAK_BYTES * 1e3:.2f} ms; the kernel's own 24 "
+        f"products would take {l6_flops['mma'] / PEAK_BF16_FLOPS * 1e3:.2f}"
+        f" ms), "
+        f"{l6_alone['ffma'] / l6_alone['mma']:.2f}x the FFMA form; direct "
+        f"tensor-core layer 6 {l6_alone['direct']:.3f} ms (bound "
+        f"{l6_bound['direct']:.2f} ms); cuDNN bf16 layer 6 "
+        f"{l6_alone['cudnn']:.3f} ms; plain versions (in chunks, host "
+        f"clock) wino_layer_plain {l6_alone['plain']:.1f} ms, FFMA form's "
+        f"{l6_alone['plain_ffma']:.1f} ms; the tensor-core Winograd "
+        f"{'beats' if l6_alone['mma'] < l6_alone['cudnn'] else 'loses to'} "
+        f"cuDNN's layer 6 and "
+        f"{'beats' if l6_alone['mma'] < l6_alone['direct'] else 'loses to'} "
+        f"the direct wgmma layer 6")
+    if not 4 * l6_alone["mma"] <= l6_alone["ffma"]:
+        raise AssertionError(f"tensor-core Winograd layer 6 "
+                             f"{l6_alone['mma']} ms, FFMA {l6_alone['ffma']}")
+    log(f"timing layer 6 alone took {time.perf_counter() - t_l6:.1f} s")
+
     # timings, the truncated stack (B7) at upto = 6 and its own launches
     u6_ms = timed_ms(lambda: stack.stack_scale_upto(ylow16, sp16, 6))
     u6_plain_ms = timed_ms(lambda: plain_in_chunks(
@@ -2473,11 +2671,13 @@ def main() -> int:
         "bound_ms": max(ops_ms["i8"], io_ms),
         "bound_by": "operations" if ops_ms["i8"] >= io_ms else "bytes",
         "library_ms": library_ms,
+        "library_layer6_ms": l6_alone["cudnn"],
         "psnr_db": l6_db["i8"],
     }, {
-        "name": "l6_wino, Winograd layer 6 (l6_wino=True, B5)",
+        "name": "Winograd layer 6 (l6_wino=True, B5): the bf16 stack, its "
+                "layer 6 on the tensor cores",
         "route": "cuda",
-        "source": "waifu2x_torch/csrc/l6.cu",
+        "source": "waifu2x_torch/csrc/wino.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
         "launches": l6_launches["wino"],
         "max_abs_err": max(max_err["wino"], *(
@@ -2489,7 +2689,42 @@ def main() -> int:
         "bound_ms": max(ops_ms["wino"], io_ms),
         "bound_by": "operations" if ops_ms["wino"] >= io_ms else "bytes",
         "library_ms": library_ms,
+        "library_layer6_ms": l6_alone["cudnn"],
         "psnr_db": l6_db["wino"],
+        "psnr_db_pure_random_plane": db_noise_l6["wino"],
+    }, {
+        "name": "l6_wino_mma, the Winograd layer 6 alone on the tensor "
+                "cores (wgmma; bf16 l6_wino=True)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/wino.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "launches": wino_mma_launches,
+        "max_abs_err": max_err["wino_layer"],
+        "ms": l6_alone["mma"],
+        "ffma_ms": l6_alone["ffma"],
+        "direct_mma_ms": l6_alone["direct"],
+        "plain_ms": l6_alone["plain"],
+        "bound_ms": l6_bound["wino16"],
+        "bound_by": l6_bound_by["wino16"],
+        "own_24_products_ms": l6_flops["mma"] / PEAK_BF16_FLOPS * 1e3,
+        "library_ms": l6_alone["cudnn"],
+    }, {
+        "name": "l6_wino<T>, the Winograd layer 6 as FFMA (f32 "
+                "l6_wino=True; bf16 with MID_MMA False), timed at bf16 "
+                "with MID_MMA False",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/l6.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "launches": wino_ffma["launches"],
+        "launches_of": "the scale512 bf16 stack_scale call with MID_MMA "
+                       "False (phase 13), counts reset just before",
+        "max_abs_err": wino_ffma["max_abs_err"],
+        "ms": l6_alone["ffma"],
+        "plain_ms": l6_alone["plain_ffma"],
+        "bound_ms": max(ffma_floor, l6_bytes / PEAK_BYTES * 1e3),
+        "bound_by": ("operations" if ffma_floor
+                     >= l6_bytes / PEAK_BYTES * 1e3 else "bytes"),
+        "library_ms": l6_alone["cudnn"],
     }, {
         "name": "conv3x3_bias_leaky_mma, layers 2-6 of every bf16 stack "
                 "call on the tensor cores (wgmma)",

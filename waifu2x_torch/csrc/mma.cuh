@@ -3,9 +3,11 @@
 // proxy and warpgroup fences, shared-memory matrix descriptors without
 // swizzle, and the warpgroup product
 //   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16   (N = 16 .. 128)
-// with both operands read from shared memory and the f32 sums kept in
-// registers. mma.cu builds the layers 2-6 kernel and the mma_chain probe
-// from them, tmm.cu the four-tap probe layer (with B also MN-major).
+// with both operands read from shared memory (mma_k16), or for N = 64 with
+// A from registers (mma_k16_rs64), and the f32 sums kept in registers.
+// mma.cu builds the layers 2-6 kernel and the mma_chain probe from them,
+// tmm.cu the four-tap probe layer (with B also MN-major), wino.cu the
+// Winograd layer 6 (A from registers).
 //
 // Operand layout without swizzle ("interleaved"): an operand is cut into
 // core matrices of 8 rows x 16 bytes (8 bf16 along K), each stored as 128
@@ -162,6 +164,32 @@ __device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
         : W2X_ACC16(d, 0), W2X_ACC16(d, 16), W2X_ACC16(d, 32), W2X_ACC16(d, 48)
         : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
   }
+}
+
+// d[64 x 64] += A[64 x 16] * B[64 x 16]^T with A from registers (wino.cu:
+// the kernel forms its A operand itself). a holds the thread's fragment as
+// bf16 pairs, lower k in the low half, warp w = t / 32 and lane l = t % 32
+// of the warpgroup: a[0] row 16w + l/4, k = 2(l%4) + {0, 1}; a[1] row + 8;
+// a[2] row 16w + l/4, k + 8; a[3] row + 8, k + 8 (the A fragment of
+// mma.m16n8k16 for each warp's 16 rows). B K-major from shared memory as in
+// mma_k16. The registers of a must not change until the wgmma that reads
+// them is waited for; a wgmma_fence() orders the writes before it.
+__device__ __forceinline__ void mma_k16_rs64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : W2X_ACC16(d, 0), W2X_ACC16(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 #undef W2X_ACC16

@@ -37,9 +37,10 @@
 // Bound by bytes, but for probe_l1_mm: the others do a few operations per
 // byte; probe_l1_mm does 18 f32 FLOP per output channel of a pixel, 0.14 ms
 // of FFMA at 16 x 512^2 against its bytes' 0.03 ms. Design: 16-byte loads and
-// stores, neighbouring threads on neighbouring addresses, ROWS rows of a
-// cell per CUDA block (several blocks per cell, so that a 128-cell grid
-// still fills 132 SMs), the rows staged through shared memory where the
+// stores, neighbouring threads on neighbouring addresses; probe_store as
+// one store a thread over the whole output (see there); the others ROWS
+// rows of a cell per CUDA block (several blocks per cell, so that a
+// 128-cell grid still fills 132 SMs), the rows staged through shared memory where the
 // output is a map of the input (a (64, 128, 16) bf16 block is 256 KB, over
 // a block's 227 KB). probe_fetch_reduce's lane-0 sums (grid_floor's 4-fetch)
 // need three whole blocks before the first output: one CUDA block per
@@ -49,6 +50,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -203,34 +205,39 @@ __device__ float block_sum(float v, float* red) {
 // ---------------------------------------------------------------------------
 // probe_store: a constant (value, or 0 + seed[0] where a seed block is
 // given) written to every output block; the (1, 8, 128) f32 seed block is
-// read whole once per cell.
+// read whole once per cell. The output blocks tile the output array
+// exactly, so writing every block whole is writing the array: thread k
+// stores the array's 16-byte vector k, with no division per block, and the
+// cells' seed reads (cells x seed_vecs vectors, the one seed block again
+// for each cell) are shared out over the same threads. (On an H100 one
+// store a thread over a grid as large as the output beat 2, 4 and 8 stores
+// a thread from grids of a few waves, as fill_ does.)
+
 struct StoreArgs {
-  Out out;
+  uint4* out;
+  long long vecs;         // the output's 16-byte vectors
   const uint4* seed;
-  int seed_vecs;
+  int seed_vecs;          // a power of two
+  long long seed_reads;   // cells * seed_vecs
+  int dtype;
   float value;
   uint32_t* sink;
 };
 
 __global__ void __launch_bounds__(THREADS) probe_store(StoreArgs a) {
-  const int splits = a.out.rows / ROWS;
-  int n, i, j;
-  cell_of(blockIdx.x / splits, a.out, n, i, j);
-  const int r0 = (blockIdx.x % splits) * ROWS;
+  const long long stride = (long long)gridDim.x * THREADS;
+  const long long t0 = (long long)blockIdx.x * THREADS + threadIdx.x;
   float v = a.value;
   if (a.seed != nullptr) {
     uint32_t f = 0;
-    if (r0 == 0)
-      for (int t = threadIdx.x; t < a.seed_vecs; t += blockDim.x)
-        f ^= fold(a.seed[t]);
+    for (long long k = t0; k < a.seed_reads; k += stride)
+      f ^= fold(a.seed[k & (a.seed_vecs - 1)]);
     keep(f, a.sink);
     v = __fadd_rn(0.0f, reinterpret_cast<const float*>(a.seed)[0]);
-    if (a.out.dtype == DT_U8) v = (float)((int)v & 0xff);
+    if (a.dtype == DT_U8) v = (float)((int)v & 0xff);
   }
-  const uint4 pat = pack(a.out.dtype, [&](int) { return v; });
-  const int q = a.out.row_vecs();
-  for (int t = threadIdx.x; t < ROWS * q; t += blockDim.x)
-    a.out.row(n, i, j, r0 + t / q)[t % q] = pat;
+  const uint4 pat = pack(a.dtype, [&](int) { return v; });
+  if (t0 < a.vecs) a.out[t0] = pat;
 }
 
 // ---------------------------------------------------------------------------
@@ -542,16 +549,26 @@ extern "C" {
 
 int w2x_probe_store(void* out, const long long* od, const void* seed,
                     int seed_bytes, float value, void* stream) {
-  StoreArgs a;
+  Out o;
   int cells;
-  if (!make_out(out, od, a.out, cells) || seed_bytes % 16 != 0 ||
-      (seed != nullptr && reinterpret_cast<uintptr_t>(seed) % 16 != 0))
-    return (int)cudaErrorInvalidValue;
-  a.seed = static_cast<const uint4*>(seed);
+  StoreArgs a;
   a.seed_vecs = seed_bytes / 16;
+  // the blocks must tile the array: rows of nx runs, images of ny * rows
+  if (!make_out(out, od, o, cells) || o.pitch != o.nx * o.run ||
+      o.image != o.ny * o.rows * o.pitch || seed_bytes % 16 != 0 ||
+      (seed != nullptr && (reinterpret_cast<uintptr_t>(seed) % 16 != 0 ||
+                           log2_of(a.seed_vecs) < 0)))
+    return (int)cudaErrorInvalidValue;
+  a.out = o.p;
+  a.vecs = od[5] * o.image * o.esize / 16;
+  a.seed = static_cast<const uint4*>(seed);
+  a.seed_reads = seed == nullptr ? 0 : (long long)cells * a.seed_vecs;
+  a.dtype = o.dtype;
   a.value = value;
   a.sink = nullptr;
-  probe_store<<<cells * (a.out.rows / ROWS), THREADS, 0,
+  const long long blocks = (a.vecs + THREADS - 1) / THREADS;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  probe_store<<<(unsigned)blocks, THREADS, 0,
                 static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

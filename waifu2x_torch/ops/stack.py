@@ -59,9 +59,14 @@ Both at once raise ValueError.
   wino    (B5) Winograd F(2x2, 3x3): the weights U = G g G^T (ops/s2d.py:
           pack_wino) are rounded to the storage dtype as in the JAX
           package; V = B^T d B is formed in f32 from the stored layer-5
-          activation. The JAX kernel forms V in the storage dtype (bf16
-          adds); the port differs there on purpose, it is one rounding
-          fewer.
+          activation. A bf16 call runs it on the tensor cores (csrc/wino.cu:
+          l6_wino_mma, from StackParams.w6m), with V rounded to bf16 once
+          before the products; an f32 call, or a bf16 call with MID_MMA
+          False, runs it as FFMA (csrc/l6.cu:l6_wino), with V kept in f32.
+          The JAX kernel forms V with bf16 adds, up to three roundings;
+          the port rounds it once on purpose. wino_layer is the tensor-core
+          form alone, wino_layer_plain the plain version of its arithmetic
+          (A^T folded per output row), wino_plan its plan.
   i8      (B4) int8 x int8 with exact int32 sums. Weights: per output
           channel sw = max(|w6|, 1e-12) / 127, w6q = clip(round(w6 / sw)).
           Activations: per TILE of (tr, tc) s2d cells, over the tile's
@@ -73,8 +78,8 @@ Both at once raise ValueError.
           cropped to the image. `tile=(tr, tc)` sets the tile (the JAX
           package's `tile` argument); None picks default_tile.
 
-The kernels (csrc/stack.cu, csrc/mma.cu and csrc/l6.cu, which replace
-waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
+The kernels (csrc/stack.cu, csrc/mma.cu, csrc/l6.cu and csrc/wino.cu,
+which replace waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
 configurations B1, B2, B3, B6 and B7, B4, B5) launch once per layer: 7
 times per call, 8 with `l6_i8` (the tile maxima are a launch of their
 own), upto + 1 for stack_scale_upto. See the notes at the top of those
@@ -130,14 +135,19 @@ KERNEL_LAUNCHES = {"scale": 0, "noise": 0, "dense": 0, "fused_u8": 0,
 # and the int8 layer), under "upto" the launches of stack_scale_upto's own
 # last kernel, and under "last_zs" those of layer 7 under a zero-shift mask
 L6_LAUNCHES = {"direct": 0, "i8": 0, "wino": 0, "upto": 0, "last_zs": 0}
-# layers 2-6 run on the tensor cores for bf16 storage; False sends them to
-# the f32 FFMA kernel like an f32 call (tests and chip_smoke.py only)
+# layers 2-6 and the Winograd layer 6 run on the tensor cores for bf16
+# storage; False sends them to the FFMA kernels like an f32 call (tests and
+# chip_smoke.py only)
 MID_MMA = True
 # the launches of layers 2-6 by the kernel that ran them ("mma_zs" and
 # "mma_pp": the tensor-core kernel under a zero-shift mask or with two
 # accumulators, which only the probes run), and under "chain" those of the
 # mma_chain probe (which count nowhere else)
 MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0}
+# the Winograd layer 6's launches by the kernel that ran them: "mma" the
+# tensor cores (csrc/wino.cu; also wino_layer alone, which counts here
+# only), "ffma" csrc/l6.cu; L6_LAUNCHES["wino"] counts the form
+WINO_LAUNCHES = {"mma": 0, "ffma": 0}
 
 # the last layer's output forms (csrc/common.cuh: OUT_*)
 _OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS, _OUT_PTAPS = 0, 1, 2, 3, 4
@@ -156,7 +166,7 @@ def reset_launches() -> None:
     """Set every launch count to 0."""
     global LAUNCHES
     LAUNCHES = 0
-    for counts in (KERNEL_LAUNCHES, L6_LAUNCHES, MID_LAUNCHES):
+    for counts in (KERNEL_LAUNCHES, L6_LAUNCHES, MID_LAUNCHES, WINO_LAUNCHES):
         for kind in counts:
             counts[kind] = 0
 
@@ -168,9 +178,28 @@ class StackParams(tuple):
            (byte k of word [c4, t, co] is channel 4*c4 + k; unpack_w6q)
       w6s  f32 [128]: the int8 weights' scale per output channel
       w6w  [16, 128, 128] in the storage dtype: pack_wino(w6)
+      w6m  [16, 16, 128, 8] in the storage dtype: pack_mma of the same U as
+           a 4 x 4 kernel (tap p = py*4 + px), its input channels in the
+           order WINO_CI_ORDER, as csrc/wino.cu reads it (unpack_w6m)
     and the weights of layers 2-6 as the tensor-core kernel reads them:
       wm   five tensors [ci/8, 9, co, 8] in the storage dtype:
            pack_mma(w_k) for k = 2..6"""
+
+
+# csrc/wino.cu reads input channels 4j .. 4j+3 of a chunk of 16 in one load
+# for the A fragment's k = 2j, 2j+1 and 2j+8, 2j+9: the weights' logical
+# channel 16c + 8h + 2j + e holds physical channel 16c + 4j + 2h + e
+WINO_CI_ORDER = torch.tensor([16 * c + 4 * ((k % 8) // 2) + 2 * (k // 8)
+                              + k % 2 for c in range(8) for k in range(16)])
+
+
+def unpack_w6m(w6m: torch.Tensor) -> torch.Tensor:
+    """StackParams.w6m -> U [16, 128, 128] in the natural channel order
+    (pack_wino's layout)."""
+    u = unpack_mma(w6m)
+    out = torch.empty_like(u)
+    out[:, WINO_CI_ORDER] = u
+    return out
 
 
 def unpack_w6q(w6q: torch.Tensor) -> torch.Tensor:
@@ -206,7 +235,10 @@ def prep_params(params, dtype=torch.bfloat16, device="cuda") -> StackParams:
              .permute(0, 2, 3, 1).contiguous().view(torch.int32).squeeze(-1))
     sp.w6q = words.to(device).contiguous()
     sp.w6s = torch.from_numpy(sw).to(device)
-    sp.w6w = torch.from_numpy(pack_wino(w6)).to(device, dtype).contiguous()
+    u = torch.from_numpy(pack_wino(w6))
+    sp.w6w = u.to(device, dtype).contiguous()
+    sp.w6m = (pack_mma(u[:, WINO_CI_ORDER].reshape(4, 4, 128, 128))
+              .to(device, dtype).contiguous())
     sp.wm = tuple(pack_mma(torch.as_tensor(p["w"])).to(device, dtype)
                   .contiguous() for p in params[1:6])
     return sp
@@ -280,6 +312,37 @@ def mma_grid(n: int, hin: int, win: int) -> tuple:
     (win-2) output, the ragged edge masked in the kernel."""
     nty, ntx = -(-(hin - 2) // _MMA_TILE), -(-(win - 2) // _MMA_TILE)
     return nty, ntx, n * nty * ntx
+
+
+class WinoPlan(NamedTuple):
+    """How csrc/wino.cu runs the Winograd layer 6 (wino_plan)."""
+    tile: tuple        # 2 x 2 output blocks (rows, cols) of one unit
+    co: int            # output channels of one unit (a half)
+    threads: int       # two warpgroups, one per output-transform row A
+    kc: int            # input channels per staged chunk
+    stages: int        # (window, U) buffers in the ring, 2 chunks ahead
+    smem_bytes: int    # dynamic shared memory of the launch
+
+
+_WINO_TILE, _WINO_CO, _WINO_KC, _WINO_STAGES = 8, 64, 16, 4
+
+
+def wino_plan() -> WinoPlan:
+    """The tensor-core Winograd kernel's plan: a unit is 8 x 8 output blocks
+    (16 x 16 pixels) and 64 of the 128 output channels, run in chunks of
+    16 input channels, each stage of the ring holding the chunk's 18 x 18
+    pixel window and U's chunk for the 64 channels, bf16 (V is formed in
+    registers, never stored), and beside the ring the epilogue's padded
+    output tile. The kernel is persistent: one CUDA block an SM walks over
+    the units. The C entry takes smem_bytes as an argument and refuses
+    bytes that differ from its own count."""
+    t, kc = _WINO_TILE, _WINO_KC
+    win = (2 * t + 2) ** 2 * kc * 2
+    u = (kc // 8) * 16 * _WINO_CO * 16
+    smem = _WINO_STAGES * (win + u) + (2 * t) ** 2 * (2 * _WINO_CO + 16)
+    if smem > SMEM_MAX:
+        raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
+    return WinoPlan((t, t), _WINO_CO, 256, kc, _WINO_STAGES, smem)
 
 
 def l6_form(l6_i8=None, l6_wino=None) -> str:
@@ -502,10 +565,13 @@ def _plain_mid(x: torch.Tensor, sp, k: int, dtype, mma: bool) -> torch.Tensor:
     return y.float().permute(0, 3, 1, 2)
 
 
-def _l6_wino_plain(x5: torch.Tensor, sp, dtype) -> torch.Tensor:
+def _l6_wino_plain(x5: torch.Tensor, sp, dtype,
+                   round_out: bool = True) -> torch.Tensor:
     """Layer 6 as Winograd F(2x2, 3x3) on f32 values [N, 128, H, W] (H, W
     even) -> [N, 128, H-2, W-2]: V from four signed window slices per
-    position, M[p] = V[p] @ U[p] in f32, Y = A^T M A, bias, LeakyReLU."""
+    position (rounded to bf16 where the kernel that bf16 calls run does:
+    dtype bf16 and MID_MMA on), M[p] = V[p] @ U[p] in f32, Y = A^T M A,
+    bias, LeakyReLU, rounded to `dtype` unless round_out is False."""
     n, c, hin, win = x5.shape
     hb, wb = (hin - 2) // 2, (win - 2) // 2
     u, b6 = sp.w6w.float(), sp[5][1]
@@ -522,6 +588,8 @@ def _l6_wino_plain(x5: torch.Tensor, sp, dtype) -> torch.Tensor:
                         v = t if sy * sx > 0 else -t
                     else:
                         v = v + t if sy * sx > 0 else v - t
+            if dtype == torch.bfloat16 and MID_MMA:
+                v = v.to(dtype).float()
             ms.append(v @ u[py * 4 + px])
         nb = (ms[0] + ms[1] + ms[2], ms[1] - ms[2] - ms[3])
         for a in (0, 1):
@@ -533,7 +601,62 @@ def _l6_wino_plain(x5: torch.Tensor, sp, dtype) -> torch.Tensor:
                 y[a][bb] = val if y[a][bb] is None else y[a][bb] + val
     out = torch.stack([torch.stack(y[a], dim=3) for a in (0, 1)], dim=2)
     out = leaky_relu(out.reshape(n, 2 * hb, 2 * wb, c) + b6)
-    return out.permute(0, 3, 1, 2).to(dtype).float()
+    out = out.permute(0, 3, 1, 2)
+    return out.to(dtype).float() if round_out else out
+
+
+# B^T's rows as d[r0] + d[r1] or d[r0] - d[r1] (the sign), in the order
+# csrc/wino.cu computes them
+_WINO_BT_ROWS = ((0, 2, -1), (1, 2, 1), (2, 1, -1), (1, 3, -1))
+
+
+def _bt_row(p: int, d: list) -> torch.Tensor:
+    """Row p of B^T applied to the four terms d, one f32 add or subtract."""
+    r0, r1, sign = _WINO_BT_ROWS[p]
+    return d[r0] + d[r1] if sign > 0 else d[r0] - d[r1]
+
+
+def wino_layer_plain(x5: torch.Tensor, um: torch.Tensor, b: torch.Tensor,
+                     round_out: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the tensor-core Winograd layer 6
+    (wino_layer), in that kernel's arithmetic: x5 [N, H5, W5, 128] NHWC
+    (H5, W5 even), um [16, 16, 128, 8] (StackParams.w6m), b [128] f32 ->
+    [N, H5-2, W5-2, 128] in x5's dtype. Per 2 x 2 output block: t = B^T d
+    along the window's rows, then V = t B along its columns, each one f32
+    add; V rounded to x5's dtype; R[A][px] = sum over py of A^T[A][py] *
+    (V[py, px] @ U[py, px]) in f32; Y[A][0] = (R0 + R1) + R2, Y[A][1] =
+    (R1 - R2) - R3; bias, LeakyReLU, one rounding (none, f32 out, with
+    round_out False)."""
+    n, h5, w5, c = x5.shape
+    hb, wb = (h5 - 2) // 2, (w5 - 2) // 2
+    xf, u = x5.float(), unpack_w6m(um).float()
+
+    def win(r, col):
+        return xf[:, r:r + 2 * hb:2, col:col + 2 * wb:2]
+
+    v = {}
+    for py in range(4):
+        t = [_bt_row(py, [win(r, col) for r in range(4)]) for col in range(4)]
+        for px in range(4):
+            v[py, px] = _bt_row(px, t).to(x5.dtype).float()
+    out = xf.new_empty((n, hb, 2, wb, 2, c))
+    with no_tf32():
+        for a in (0, 1):
+            r = [None] * 4
+            for py in range(4):
+                ca = _WINO_AT[a][py]
+                if ca == 0.0:
+                    continue
+                for px in range(4):
+                    term = v[py, px] @ u[py * 4 + px]
+                    if r[px] is None:
+                        r[px] = term if ca > 0 else -term
+                    else:
+                        r[px] = r[px] + term if ca > 0 else r[px] - term
+            out[:, :, a, :, 0] = leaky_relu((r[0] + r[1]) + r[2] + b)
+            out[:, :, a, :, 1] = leaky_relu((r[1] - r[2]) - r[3] + b)
+    out = out.reshape(n, 2 * hb, 2 * wb, c)
+    return out.to(x5.dtype) if round_out else out
 
 
 def _l6_i8_window_plain(x5w: torch.Tensor, sp, dtype):
@@ -842,6 +965,8 @@ _ARGTYPES = {
            "w2x_last_cell": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                              _INT, _PTR, _FLOATS, _INT, _INT, _INT, _INT,
                              _INT, _PTR]},
+    "wino": {"w2x_l6_wino_mma": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                                 _INT, _INT, _PTR]},
 }
 
 
@@ -885,9 +1010,9 @@ class _Launcher:
         self.step += 1
 
     def run(self, lib: str, fn: str, what: str, l6=None, *args,
-            mid=None) -> None:
-        """Launch one kernel and count it, under L6_LAUNCHES[l6] and
-        MID_LAUNCHES[mid] too where given."""
+            mid=None, wino=None) -> None:
+        """Launch one kernel and count it, under L6_LAUNCHES[l6],
+        MID_LAUNCHES[mid] and WINO_LAUNCHES[wino] too where given."""
         global LAUNCHES
         err = getattr(self.libs[lib], fn)(self.bf16, *args, self.stream)
         if err:
@@ -900,6 +1025,8 @@ class _Launcher:
             L6_LAUNCHES[l6] += 1
         if mid is not None:
             MID_LAUNCHES[mid] += 1
+        if wino is not None:
+            WINO_LAUNCHES[wino] += 1
 
     def layer(self, k: int, full_res: bool, src, sp, dst, n, ph, pw,
               out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0, zs: int = 0,
@@ -953,6 +1080,26 @@ class _Launcher:
         self.run("mma", "w2x_mma_layer_variant",
                  f"layer {k + 1} (mma, zs {zs}, pp {int(pp)})", l6, k, zs,
                  int(pp), *args, mid="mma_pp" if pp else "mma_zs")
+
+    def wino(self, x5, sp, y6, n, h5, w5, l6=None) -> None:
+        """Layer 6 as Winograd on an [n, h5, w5, 128] plane: on the tensor
+        cores (csrc/wino.cu) for bf16 while MID_MMA is on, else as FFMA
+        (csrc/l6.cu)."""
+        if self.bf16 and MID_MMA:
+            w6m = getattr(sp, "w6m", None)
+            if w6m is None or w6m.dtype != x5.dtype or (
+                    w6m.device != x5.device) or not w6m.is_contiguous():
+                raise ValueError("the tensor-core Winograd layer needs "
+                                 "prep_params' StackParams.w6m, contiguous, "
+                                 f"{x5.dtype} on {x5.device}")
+            self.run("wino", "w2x_l6_wino_mma", "layer 6, Winograd (mma)",
+                     l6, x5.data_ptr(), w6m.data_ptr(), sp[5][1].data_ptr(),
+                     y6.data_ptr(), n, h5, w5, wino_plan().smem_bytes,
+                     wino="mma")
+            return
+        self.run("l6", "w2x_l6_wino", "layer 6, Winograd", l6,
+                 x5.data_ptr(), sp.w6w.data_ptr(), sp[5][1].data_ptr(),
+                 y6.data_ptr(), n, h5, w5, wino="ffma")
 
     def l6_i8(self, x5, sp, n, tiling):
         """The tile maxima and the int8 layer 6 -> (x6t tile-major, m)."""
@@ -1029,9 +1176,7 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             x6, _ = run.l6_i8(src, sp, n, tiling)
         elif form == "wino":
             x6 = bufs[1]
-            run.run("l6", "w2x_l6_wino", "layer 6, Winograd", "wino",
-                    src.data_ptr(), sp.w6w.data_ptr(), sp[5][1].data_ptr(),
-                    x6.data_ptr(), n, 2 * hg + 4, 2 * wg + 4)
+            run.wino(src, sp, x6, n, 2 * hg + 4, 2 * wg + 4, "wino")
         else:
             x6 = bufs[1]
             run.layer(5, full_res, src, sp, x6, n, ph, pw)
@@ -1135,6 +1280,41 @@ def mma_layer(x: torch.Tensor, sp, k: int, zs: int = 0,
         _Launcher(None, x, None).mma_layer(k - 1, x, sp, y, n, hin, win,
                                            zs=zs, pp=pp)
     return y
+
+
+def wino_layer(x5: torch.Tensor, sp) -> torch.Tensor:
+    """The tensor-core Winograd layer 6 alone: x5 [N, H5, W5, 128] NHWC
+    bf16, contiguous, H5 and W5 even and >= 4 -> [N, H5-2, W5-2, 128] bf16,
+    from StackParams.w6m and layer 6's bias. CPU tensors take
+    wino_layer_plain; CUDA tensors take csrc/wino.cu, whose launch counts
+    under WINO_LAUNCHES["mma"] only. With MID_MMA False it is the FFMA form
+    instead (csrc/l6.cu, V in f32; _l6_wino_plain's on the CPU), counted
+    under WINO_LAUNCHES["ffma"]."""
+    if (x5.dim() != 4 or x5.shape[3] != 128 or x5.shape[1] % 2
+            or x5.shape[2] % 2 or min(x5.shape[1:3]) < 4):
+        raise ValueError(f"x5 must be [N, H5, W5, 128] with H5, W5 even "
+                         f"and >= 4, got {tuple(x5.shape)}")
+    if x5.dtype != torch.bfloat16 or not x5.is_contiguous():
+        raise TypeError(f"x5 must be contiguous bfloat16, got {x5.dtype}")
+    w6m, w6w = getattr(sp, "w6m", None), getattr(sp, "w6w", None)
+    if w6m is None or w6w is None or tuple(w6m.shape) != (16, 16, 128, 8):
+        raise ValueError("wino_layer needs prep_params' StackParams.w6m "
+                         "and w6w")
+    if any(t.dtype != x5.dtype or t.device != x5.device
+           for t in (w6m, w6w)) or sp[5][1].device != x5.device:
+        raise TypeError(f"w6m, w6w and layer 6's bias must be on "
+                        f"{x5.device}, the weights {x5.dtype}")
+    if x5.device.type == "cpu":
+        if not MID_MMA:
+            return _l6_wino_plain(x5.float().permute(0, 3, 1, 2), sp,
+                                  x5.dtype).permute(0, 2, 3, 1).to(x5.dtype)
+        return wino_layer_plain(x5, w6m, sp[5][1])
+    n, h5, w5, _ = x5.shape
+    with torch.cuda.device(x5.device):
+        y6 = torch.empty((n, h5 - 2, w5 - 2, 128), dtype=x5.dtype,
+                         device=x5.device)
+        _Launcher(None, x5, None).wino(x5, sp, y6, n, h5, w5)
+    return y6
 
 
 def last_layer(x: torch.Tensor, sp, zs: int = 0) -> torch.Tensor:
