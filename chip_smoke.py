@@ -8,14 +8,16 @@ layer 6 in each of its forms, runs the data-movement probes (csrc/probe.cu)
 and prints their numbers. In bf16 every stack
 call of every phase runs layers 2-6 on the tensor cores (csrc/mma.cu); the
 f32 calls and, where ops.stack.MID_MMA is set to False, the bf16 calls run
-them as FFMA (csrc/stack.cu).
+them as FFMA (csrc/stack.cu). Layer 7 of every bf16 stack call on a plane
+runs folded on the tensor cores (csrc/l7.cu), counted by kernel in
+ops.stack.L7_LAUNCHES, which phases 4, 6, 7, 10, 11 and 15 read.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
 Phases (any failure raises and exits non-zero):
   1. build csrc/stack.cu, csrc/l6.cu, csrc/mma.cu, csrc/wino.cu,
-     csrc/probe.cu and csrc/tmm.cu with nvcc for sm_90a, all at once
-     (ops/_build.py);
+     csrc/l7.cu, csrc/probe.cu and csrc/tmm.cu with nvcc for sm_90a, all at
+     once (ops/_build.py);
   2. f32 scale kernel vs plain version at small and odd shapes:
      max |diff| <= 3e-5;
   3. the scale kernel vs its plain version at the scale512 shape
@@ -145,7 +147,10 @@ Phases (any failure raises and exits non-zero):
      in four variants), time (one replay of the graph, and one by one) and
      GB/s; a variant that moves its distinct bytes faster than 3.35 TB/s
      fails the phase (a fetch was dropped); each probe_store variant's time
-     printed beside fill_'s.
+     printed beside fill_'s, each probe_fetch_map variant's beside
+     contiguous() of its view, which for the five maps that copy one block
+     (probe.library_is_the_map) is first held equal to the kernel's output
+     byte for byte.
  19. the truncation probes and the four-tap layer (phase19 below): tap_mm
      (csrc/tmm.cu, wgmma) in both layouts against its plain version bit for
      bit on inputs k / 16 (every f32 sum exact), at two small grids and the
@@ -168,6 +173,14 @@ Phases (any failure raises and exits non-zero):
      (bf16 <= 2^-4), stack_scale_pp against stack_scale bit for bit; then
      tools.accpp_probe, shift_cost_probe and l4_shift_probe with every launch
      count read around each, and stack_scale's counts checked unchanged.
+ 21. layer 7 folded on the tensor cores (phase21 below; csrc/l7.cu through
+     stack.last_layer) against its plain version in its three forms at
+     (1,27,38), (2,37,53), (1,5,300) and the scale512 and noise256 layer-7
+     planes: s2d and dense to one bf16 ulp, dense un-chunked equal to s2d
+     bit for bit, u8 by check_u8_kernel, one "fold" launch a call; then
+     timed alone at scale512 in each form in turns (old, new, new, old)
+     against the FFMA kernels a bf16 stack ran before, and at noise256,
+     beside cuDNN's layer 7 alone, the plain version and the bound.
 In phases 4, 6-8, 10-11 and 15 every call that the run made to a kernel wrapper
 (one per wrapper, input shape, dtype and weights) is repeated on a copy of
 its input and held against the plain version: f32 max |diff| <= 3e-5; bf16
@@ -464,6 +477,7 @@ def run_stream(sc, frames, stack, label: str, smi: str):
     wall = time.perf_counter() - t0
     counts = dict(stack.KERNEL_LAUNCHES)
     mid = dict(stack.MID_LAUNCHES)
+    l7 = dict(stack.L7_LAUNCHES)
     sc._step, sc._dispatch, sc._interleave = step, dispatch, interleave
     if sum(counts.values()) != stack.LAUNCHES:
         raise AssertionError(f"{label}: launch counts {counts} do not add "
@@ -471,7 +485,8 @@ def run_stream(sc, frames, stack, label: str, smi: str):
     dev_s = sum(a.elapsed_time(b) for a, b in steps) / 1e3
     out_px = sum(o.shape[0] * o.shape[1] for o in outs)
     log(f"stream {label} on {smi}: {len(frames)} frames in {len(steps)} "
-        f"dispatches, launches {counts}, layers 2-6 by kernel {mid}; wall "
+        f"dispatches, launches {counts}, layers 2-6 by kernel {mid}, layer "
+        f"7 by kernel {l7}; wall "
         f"{wall:.3f} s = "
         f"{len(frames) / wall:.2f} frames/s = {out_px / wall / 1e6:.2f} "
         f"output MP/s; device steps {dev_s:.3f} s "
@@ -490,6 +505,9 @@ def run_stream(sc, frames, stack, label: str, smi: str):
     if mid["mma"] + mid["ffma"] != 5 * stacks - other_l6 or mid["chain"]:
         raise AssertionError(f"{label}: layers 2-6 launches {mid} of "
                              f"{stack.LAUNCHES}")
+    if sum(l7.values()) != stacks:   # one layer 7 a stack call
+        raise AssertionError(f"{label}: layer-7 launches {l7} for "
+                             f"{stacks} stack calls")
     return outs, counts, len(steps)
 
 
@@ -944,7 +962,7 @@ def phase20(dev: torch.device) -> list:
             x = x6.to(dev, dt)
             for zs in range(4):
                 before = stack.L6_LAUNCHES["last_zs"]
-                got = stack.last_layer(x, sp_r[dt], zs)
+                got = stack.last_layer(x, sp_r[dt], zs, fold=False)
                 if stack.L6_LAUNCHES["last_zs"] != before + (zs > 0):
                     raise AssertionError(f"layer 7 zs {zs}: launches "
                                          f"{stack.L6_LAUNCHES}")
@@ -1016,7 +1034,7 @@ def phase20(dev: torch.device) -> list:
     del xs
     x6 = torch.rand((n4, 1026, 1026, 128), device=dev,
                     generator=dev_gen).to(torch.bfloat16)
-    l7_ms = {zs: timed_ms(lambda: stack.last_layer(x6, sp0, zs))
+    l7_ms = {zs: timed_ms(lambda: stack.last_layer(x6, sp0, zs, fold=False))
              for zs in (0, 1, 2, 3)}
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1197,6 +1215,189 @@ def phase20(dev: torch.device) -> list:
     }]
 
 
+L7_SHAPES = ((1, 27, 38), (2, 37, 53), (1, 5, 300))
+
+
+def expect_l7(stack, label: str, fold: int = 0, cell: int = 0,
+              pixel: int = 0) -> None:
+    """Layer 7's launches by kernel since the counts were last reset."""
+    want = {"fold": fold, "cell": cell, "pixel": pixel}
+    if stack.L7_LAUNCHES != want:
+        raise AssertionError(f"{label}: layer-7 launches "
+                             f"{stack.L7_LAUNCHES}, want {want}")
+
+
+def library_l7_ms(x6: torch.Tensor, sp16) -> float:
+    """Library yardstick (never called by the port): layer 7 alone as one
+    cuDNN bf16 channels_last convolution 128 -> 1 + leaky_relu, TF32 off,
+    on the NHWC layer-6 plane x6 (a channels_last view, no copy)."""
+    from waifu2x_torch.ops.convstack import no_tf32
+    (w, b), = cudnn_layers(sp16[6:7])
+    xc = x6.permute(0, 3, 1, 2)
+    with no_tf32():
+        ms = timed_ms(lambda: F.leaky_relu(F.conv2d(xc, w, b), 0.1))
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase21(dev: torch.device, main_launches: int) -> list:
+    """21. Layer 7 folded on the tensor cores (csrc/l7.cu, reached through
+    stack.last_layer as every bf16 stack reaches it) against its plain
+    version (l7_fold_plain, then last_out) in its three output forms, at
+    the layer-7 planes of L7_SHAPES (random weights) and of scale512 and
+    noise256 (the shipped weights): s2d and dense to one bf16 ulp at the
+    output's magnitude, dense un-chunked equal to s2d bit for bit and its
+    pad columns zero, u8 by check_u8_kernel, each call one launch under
+    L7_LAUNCHES["fold"]. Then layer 7 alone at scale512 in each form, in
+    turns (old, new, new, old) against the FFMA kernels a bf16 stack ran
+    before (fold=False), and at noise256 in s2d, beside cuDNN's layer 7
+    alone, the plain version and the bound. `main_launches` is the fold's
+    count in phase 4's main path. Returns the kernel table's row."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.utils.timing import card_name
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    sp_r = stack.prep_params(init_params(3), torch.bfloat16, dev)
+    sp_s = stack.prep_params(load_model_json(
+        root / "models" / "scale2.0x_demo.json"), torch.bfloat16, dev)
+    sp_n = stack.prep_params(load_model_json(
+        root / "models" / "noise1_demo.json"), torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    err = {"s2d": 0.0, "dense": 0.0, "u8": 0}
+    share = {"s2d": 0.0, "dense": 0.0, "u8": 0.0}
+    cases = [(shape, sp_r) for shape in L7_SHAPES]
+    cases += [((16, 512, 512), sp_s), ((256, 128, 128), sp_n)]
+    planes = {}
+    for (n, hl, wl), sp in cases:
+        x6 = torch.rand((n, 2 * hl + 2, 2 * wl + 2, 128), device=dev,
+                        generator=gen, dtype=torch.bfloat16)
+        uvp = torch.rand((n, hl, wl, 8), device=dev, generator=gen)
+        chunk = max(1, int(2e9 // (x6[0].numel() * 4)))
+        y32 = torch.cat([stack.l7_fold_plain(x6[i:i + chunk], sp.w7f,
+                                             sp[6][1])
+                         for i in range(0, n, chunk)])
+        stack.reset_launches()
+        got = stack.last_layer(x6, sp)
+        expect_l7(stack, f"layer 7 fold s2d {(n, hl, wl)}", fold=1)
+        e, sh = check_mma_layer(f"layer 7 fold s2d {(n, hl, wl)}", got,
+                                stack.last_out(y32, "s2d", torch.bfloat16))
+        err["s2d"], share["s2d"] = max(err["s2d"], e), max(share["s2d"], sh)
+        ydense, tc = stack.last_layer(x6, sp, out="dense")
+        check_dense_pad(f"layer 7 fold dense {(n, hl, wl)}", ydense, tc, wl)
+        if not torch.equal(stack.dense_to_s2d(ydense, tc, hl, wl), got):
+            raise AssertionError(f"layer 7 fold dense {(n, hl, wl)}: "
+                                 f"un-chunked output differs from s2d")
+        e, sh = check_mma_layer(
+            f"layer 7 fold dense {(n, hl, wl)}", ydense,
+            stack.last_out(y32, "dense", torch.bfloat16, tc=tc)[0])
+        err["dense"] = max(err["dense"], e)
+        share["dense"] = max(share["dense"], sh)
+        del ydense, got
+        got = stack.last_layer(x6, sp, out="u8", uvp=uvp)
+        check_lanes_zero(f"layer 7 fold u8 {(n, hl, wl)}", got)
+        e, sh = check_u8_kernel(f"layer 7 fold u8 {(n, hl, wl)}", got,
+                                stack.last_out(y32, "u8", torch.bfloat16,
+                                               uvp), torch.bfloat16)
+        err["u8"], share["u8"] = max(err["u8"], e), max(share["u8"], sh)
+        expect_l7(stack, f"layer 7 fold {(n, hl, wl)}", fold=3)
+        del got, y32
+        if n > 2:
+            planes[(n, hl, wl)] = (x6, uvp, sp)
+        else:
+            del x6, uvp
+        torch.cuda.empty_cache()
+    log(f"phase 21 layer 7 fold at {', '.join(map(str, L7_SHAPES))}, "
+        f"scale512 and noise256 x6 planes: max|kernel - plain| s2d "
+        f"{err['s2d']:.3e} ({share['s2d']:.4%} of outputs differ), dense "
+        f"{err['dense']:.3e} ({share['dense']:.4%}) (bar: one bf16 ulp), "
+        f"dense un-chunked == s2d bit for bit, u8 {err['u8']} level at "
+        f"{share['u8']:.4%} of bytes")
+
+    # layer 7 alone at scale512 in each form, in turns old, new, new, old
+    x6, uvp, sp = planes[(16, 512, 512)]
+    n, hl, wl = 16, 512, 512
+    kw = {"s2d": {}, "dense": {"out": "dense"},
+          "u8": {"out": "u8", "uvp": uvp}}
+    turns = {form: {True: [], False: []} for form in kw}
+    for form, args in kw.items():
+        for flag in (False, True, True, False):
+            turns[form][flag].append(timed_ms(
+                lambda: stack.last_layer(x6, sp, fold=flag, **args)))
+    ms = {form: {k: sum(v) / 2 for k, v in t.items()}
+          for form, t in turns.items()}
+    t1 = time.perf_counter()
+    for i in range(0, n, 2):
+        stack.l7_fold_plain(x6[i:i + 2], sp.w7f, sp[6][1]).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    lib_ms = library_l7_ms(x6, sp)
+    cells = n * (hl + 1) * (wl + 1)
+    ops = 2 * 512 * 16 * cells   # the fold's products (W holds zeros)
+    tc = stack._dense_tc(wl, None)
+    out_bytes = {"s2d": n * hl * wl * 4 * 2,
+                 "dense": n * hl * -(-wl // tc) * 4 * tc * 2,
+                 "u8": n * hl * wl * (16 + 8 * 4)}
+    in_bytes = x6.numel() * 2 + 512 * 16 * 2 + 4
+    bound = {f: max((in_bytes + b) / PEAK_BYTES, ops / PEAK_BF16_FLOPS) * 1e3
+             for f, b in out_bytes.items()}
+    bound_by = "bytes" if (in_bytes / PEAK_BYTES
+                           >= ops / PEAK_BF16_FLOPS) else "operations"
+    del planes[(16, 512, 512)], x6, uvp
+    torch.cuda.empty_cache()
+    x6n, _, spn = planes.pop((256, 128, 128))
+    noise_ms = {flag: timed_ms(lambda: stack.last_layer(x6n, spn, fold=flag))
+                for flag in (False, True)}
+    noise_bound = max((x6n.numel() * 2 + 256 * 128 * 128 * 8) / PEAK_BYTES,
+                      2 * 512 * 16 * 256 * 129 * 129 / PEAK_BF16_FLOPS) * 1e3
+    noise_lib_ms = library_l7_ms(x6n, spn)
+    del x6n
+    torch.cuda.empty_cache()
+    x6_shape = (n, 2 * hl + 2, 2 * wl + 2, 128)
+    log(f"phase 21 layer 7 alone, scale512 x6 {x6_shape} bf16, on "
+        f"{card_name()}: " + "; ".join(
+            f"{form} fold {ms[form][True]:.3f} ms (turns "
+            + " / ".join(f"{v:.3f}" for v in turns[form][True])
+            + f"; {(in_bytes + out_bytes[form]) / ms[form][True] / 1e6:.0f} "
+            f"GB/s = {100 * bound[form] / ms[form][True]:.1f}% of the bound "
+            f"{bound[form]:.3f} ms by {bound_by}), FFMA "
+            f"{ms[form][False]:.3f} ms (turns "
+            + " / ".join(f"{v:.3f}" for v in turns[form][False])
+            + f"), {ms[form][False] / ms[form][True]:.2f}x"
+            for form in kw)
+        + f"; plain (l7_fold_plain, in chunks, host clock) {plain_ms:.1f} ms;"
+        f" cuDNN bf16 layer 7 alone {lib_ms:.3f} ms; noise256 x6 s2d: fold "
+        f"{noise_ms[True]:.3f} ms, FFMA {noise_ms[False]:.3f} ms, bound "
+        f"{noise_bound:.3f} ms, cuDNN {noise_lib_ms:.3f} ms; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [{
+        "name": "l7_fold, layer 7 (128 -> 1) as the folded tap product on "
+                "the tensor cores (wgmma; every bf16 stack call on a plane)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/l7.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "replaces_part": "_stack_body's layer 7 with l7_fold, :489-508 and "
+                         ":603-655",
+        "launches": main_launches,
+        "max_abs_err": max(err["s2d"], err["dense"]),
+        "max_abs_err_u8_levels": err["u8"],
+        "ms": ms["s2d"][True],
+        "form_ms": {form: ms[form][True] for form in kw},
+        "ffma_ms": {form: ms[form][False] for form in kw},
+        "noise256_ms": noise_ms[True],
+        "noise256_ffma_ms": noise_ms[False],
+        "noise256_bound_ms": noise_bound,
+        "noise256_library_ms": noise_lib_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound["s2d"],
+        "form_bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1227,7 +1428,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    _build.load("stack", "l6", "mma", "probe", "tmm")
+    _build.load("stack", "l6", "mma", "wino", "l7", "probe", "tmm")
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout
@@ -1304,9 +1505,12 @@ def main() -> int:
     u8 = scale2x_batch_u8_fused(_to_yuv(torch.from_numpy(frames).to(dev)),
                                 fast)
     launches, mid_launches = stack.LAUNCHES, dict(stack.MID_LAUNCHES)
+    l7_main = stack.L7_LAUNCHES["fold"]
     out = d2s_host_cmajor(u8.cpu().numpy())
     log(f"phase 4 main path: {frames.shape} -> {out.shape} {out.dtype}, "
-        f"{launches} kernel launches, layers 2-6 by kernel {mid_launches}")
+        f"{launches} kernel launches, layers 2-6 by kernel {mid_launches}, "
+        f"layer 7 by kernel {stack.L7_LAUNCHES}")
+    expect_l7(stack, "phase 4 main path", fold=1)
     if (launches != 7 or out.shape != (16, 1024, 1024, 3)
             or mid_launches != {"mma": 5, "ffma": 0, "chain": 0,
                                 "mma_zs": 0, "mma_pp": 0}):
@@ -1414,7 +1618,9 @@ def main() -> int:
     launches_n = stack.LAUNCHES
     out = d2s_host_cmajor(u8.cpu().numpy())
     log(f"phase 6 noise256 main path: {frames_n.shape} -> {out.shape} "
-        f"{out.dtype}, {launches_n} kernel launches")
+        f"{out.dtype}, {launches_n} kernel launches, layer 7 by kernel "
+        f"{stack.L7_LAUNCHES}")
+    expect_l7(stack, "phase 6 noise256 main path", fold=1)
     if launches_n != 7 or out.shape != frames_n.shape:
         raise AssertionError(f"noise256: {launches_n} launches, {out.shape}")
     hold_seen(seen, stack, f32_twin, max_err)
@@ -1451,11 +1657,15 @@ def main() -> int:
         stack.reset_launches()
         u8 = chain(fast_n2[dt])
         launches_c = stack.LAUNCHES
+        # the noise stack's layer 7: folded in bf16, per pixel in f32
+        expect_l7(stack, f"phase 7 ns1080 chain, {dt} noise", **(
+            {"fold": 2} if dt == torch.bfloat16 else {"fold": 1, "pixel": 1}))
         out = d2s_host_cmajor(u8.cpu().numpy())
         db_frames = [psnr(out[i], ref[i]) for i in range(len(ref))]
         db_chain[dt] = min(db_frames)
         log(f"phase 7 ns1080 chain, {dt} noise / bf16 scale: "
-            f"{tuple(u8.shape)} u8, {launches_c} kernel launches, frames 0-3 "
+            f"{tuple(u8.shape)} u8, {launches_c} kernel launches (layer 7 "
+            f"{stack.L7_LAUNCHES}), frames 0-3 "
             + " / ".join(f"{db:.2f}" for db in db_frames)
             + f" dB vs the f32 non-kernel chain (bar {bar:g} each)")
         if (launches_c != 14 or tuple(u8.shape) != (4, 1080, 1920, 16)
@@ -1585,6 +1795,7 @@ def main() -> int:
         sc = StreamConverter(fast, batch=16, depth=2, device=dev)
         outs, counts, nd = run_stream(sc, frames64, stack, label, smi)
         expect_counts(label, counts, nd, 4, **{kind: 28})
+        expect_l7(stack, label, fold=4)
         if stack.MID_LAUNCHES != {"mma": 20, "ffma": 0, "chain": 0,
                                   "mma_zs": 0, "mma_pp": 0}:
             raise AssertionError(f"{label}: layers 2-6 launches "
@@ -1623,6 +1834,7 @@ def main() -> int:
     outs_n, counts, nd = run_stream(
         sc, list(frames_n) + list(frames_n[::-1]), stack, label, smi)
     expect_counts(label, counts, nd, 2, noise=14)
+    expect_l7(stack, label, fold=2)
     ref = d2s_host_cmajor(noise_batch_u8_fused(yuv_n, fast_n1).cpu().numpy())
     expect_equal(label + " vs the batch step", outs_n[:256], ref)
     expect_equal(label + " second batch", outs_n[256:], ref[::-1])
@@ -1641,6 +1853,7 @@ def main() -> int:
     outs, counts, nd = run_stream(sc, mix, stack, label, smi)
     # 4 even frames, the fifth padded to 4, the odd one padded to 4
     expect_counts(label, counts, nd, 3, noise=21)
+    expect_l7(stack, label, fold=3)
     expect_equal(label, outs[:3] + outs[4:], outs_n[:5])
     ref_odd = _to_bgr_u8(noise_batch(to_yuv_dev([odd]), modeln32,
                                      cfgn32)).cpu().numpy()[0]
@@ -1664,6 +1877,8 @@ def main() -> int:
                              f"{sc.fast_noise.dtype} / {sc.fast.dtype}")
     outs, counts, nd = run_stream(sc, list(frames_c) * 2, stack, label, smi)
     expect_counts(label, counts, nd, 2, noise=14, scale=14)
+    # the f32 noise stack's layer 7 per pixel, the bf16 scale stack's folded
+    expect_l7(stack, label, fold=2, pixel=2)
     expect_equal(label + " vs the phase 7 chain", outs, list(out_chain) * 2)
     db_frames = [psnr(o, ref_chain[i % 4]) for i, o in enumerate(outs)]
     log(f"  batch 8 cut to 4 by the volume cap, f32 noise stack; equal to "
@@ -1685,6 +1900,7 @@ def main() -> int:
     outs, counts, nd = run_stream(sc, mixed, stack, label, smi)
     # 5 + 3 + 3 frames at batch 2: 4 full batches and 3 padded tails
     expect_counts(label, counts, nd, 7, fused_u8=49)
+    expect_l7(stack, label, fold=7)
     expect_equal(label, outs, [d2s_host_cmajor(scale2x_batch_u8_fused(
         to_yuv_dev([f]), fast).cpu().numpy())[0] for f in mixed])
     log("  output order equals input order; every frame equal to its "
@@ -1972,6 +2188,9 @@ def main() -> int:
         if stack.WINO_LAUNCHES != wino:
             raise AssertionError(f"{label}: Winograd launches by kernel "
                                  f"{stack.WINO_LAUNCHES}, want {wino}")
+        # layer 7 folded after the Winograd layer 6's plane, on the cell
+        # kernel after the int8 layer 6's tile-major one
+        expect_l7(stack, label, **{"cell" if form == "i8" else "fold": calls})
 
     ypad = F.pad(yuv[:2, ..., 0][:, None].cpu(), (7,) * 4,
                  mode="replicate")[:, 0, :256, :256, None].contiguous()
@@ -2244,6 +2463,16 @@ def main() -> int:
                 f"{', exact sums' if name in probe.SUM_VARIANTS else ''})")
             if not ok:
                 raise AssertionError(f"probe {name}: kernel != plain")
+            if probe.library_is_the_map(v):
+                # the yardstick computes this map's own function
+                lib = probe.library(v, g, args, dev)()
+                if lib.numel() != got.numel() or not torch.equal(
+                        lib.reshape(got.shape), got):
+                    raise AssertionError(f"probe {name}: library output "
+                                         f"!= kernel output")
+                log(f"  {name}: library's contiguous() == kernel byte for "
+                    f"byte")
+                del lib
             probe_err[v.kernel] = max(probe_err[v.kernel], err)
             del args, got, ref
     torch.cuda.empty_cache()
@@ -2272,6 +2501,13 @@ def main() -> int:
         f"{r['name']} {r['ms']:.4f} / {r['library_ms']:.4f} ms = "
         f"{r['ms'] / r['library_ms']:.2f}x (bound {r['bound_ms']:.4f})"
         for r in probe_rows if r["kernel"] == "store"))
+    log(f"phase 18 probe_fetch_map against contiguous() of the view, on "
+        f"{smi}: " + "; ".join(
+            f"{r['name']} {r['ms']:.4f} / {r['library_ms']:.4f} ms = "
+            f"{r['ms'] / r['library_ms']:.2f}x (bound {r['bound_ms']:.4f}"
+            + ("" if probe.library_is_the_map(probe.VARIANTS[r['name']])
+               else "; the library copies, the map does more")
+            + ")" for r in probe_rows if r["kernel"] == "fetch_map"))
     torch.cuda.empty_cache()
     log(f"phase 18 passed; {time.perf_counter() - t_start:.1f} s so far")
 
@@ -2284,6 +2520,11 @@ def main() -> int:
     kernels19 += phase20(dev)
     torch.cuda.empty_cache()
     log(f"phase 20 passed in {time.perf_counter() - t20:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    t21 = time.perf_counter()
+    kernels19 += phase21(dev, l7_main)
+    torch.cuda.empty_cache()
+    log(f"phase 21 passed in {time.perf_counter() - t21:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s so far")
 
     maccs = count_maccs_per_pixel()

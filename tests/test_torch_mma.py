@@ -310,7 +310,8 @@ class _FakeLib:
 def _fake_launcher(calls, bf16: bool):
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = "scale", None, 0
-    run.libs = {name: _FakeLib(calls) for name in ("stack", "mma", "l6")}
+    run.libs = {name: _FakeLib(calls)
+                for name in ("stack", "mma", "l6", "l7")}
     run.bf16, run.stream = int(bf16), 0
     return run
 
@@ -322,7 +323,8 @@ def _fake_launcher(calls, bf16: bool):
     (False, False, {"mma": 0, "ffma": 5})])
 def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
     """Which C entry each of a whole stack's 7 layers goes to, by storage
-    dtype and MID_MMA, with the arguments the tensor-core entry gets."""
+    dtype and MID_MMA, with the arguments the tensor-core entry gets: layer
+    7 of a bf16 stack folded on the tensor cores whatever MID_MMA says."""
     monkeypatch.setattr(stack, "MID_MMA", mid_mma)
     stack.reset_launches()
     sp = sp16 if bf16 else sp32
@@ -337,8 +339,11 @@ def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
     assert stack.MID_LAUNCHES == {**want, "chain": 0, "mma_zs": 0,
                                   "mma_pp": 0}
     assert [fn for fn, _ in calls] == [
-        "w2x_mma_layer" if want["mma"] and 1 <= k <= 5 else "w2x_stack_layer"
+        "w2x_mma_layer" if want["mma"] and 1 <= k <= 5
+        else "w2x_l7_fold" if bf16 and k == 6 else "w2x_stack_layer"
         for k in range(7)]
+    assert stack.L7_LAUNCHES == {"fold": int(bf16), "cell": 0,
+                                 "pixel": int(not bf16)}
     stack.reset_launches()
     assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
                                   "mma_zs": 0, "mma_pp": 0}

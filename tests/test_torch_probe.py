@@ -86,7 +86,7 @@ def _hold(name: str, jax_fn):
     v = probe.VARIANTS[name]
     jargs, targs = _inputs(v)
     ref = jax_fn(**jargs)
-    got = probe.run(v, G, targs)
+    got = probe.run(v, G, targs, device="cpu")
     assert tuple(got.shape) == tuple(ref.shape)
     if got.dtype == torch.bfloat16:
         ref_np = np.array(ref.astype(jnp.float32))
@@ -369,7 +369,7 @@ def test_dma_probe2_50(name):
     jargs, targs = _inputs(v)
     with pytest.raises((ValueError, TypeError)):
         f(**jargs)
-    got = probe.run(v, G, targs)
+    got = probe.run(v, G, targs, device="cpu")
     assert tuple(got.shape) == oshape.shape and got.dtype == torch.bfloat16
     assert not got.float().abs().max()
 
@@ -501,9 +501,9 @@ def test_cpu_wrappers_launch_nothing():
     probe.reset_launches()
     for name, v in probe.VARIANTS.items():
         _, targs = _inputs(v)
-        out = probe.run(v, G, targs)
+        out = probe.run(v, G, targs, device="cpu")
         assert torch.equal(out, probe.run(v, G, targs, out=torch.empty_like(
-            out)))
+            out), device="cpu"))
     assert not any(probe.LAUNCHES.values())
 
 

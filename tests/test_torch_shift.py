@@ -638,7 +638,8 @@ class _FakeLib:
 def _fake_launcher(calls, bf16=True):
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = "probe", None, 0
-    run.libs = {name: _FakeLib(calls) for name in ("stack", "mma", "l6")}
+    run.libs = {name: _FakeLib(calls)
+                for name in ("stack", "mma", "l6", "l7")}
     run.bf16, run.stream = int(bf16), 0
     return run
 
@@ -648,9 +649,10 @@ def _fake_launcher(calls, bf16=True):
 def test_variant_launch_routing(sp16, zs, pp):
     """A whole stack under a variant: layer 1 on the stack entry, layers 2-6
     on w2x_mma_layer_variant with the variant's plan, layer 7 under zs on
-    w2x_stack_last_zs (under pp on the stack entry), each counted where its
-    kernel is: MID_LAUNCHES "mma_zs" / "mma_pp", L6_LAUNCHES "last_zs", and
-    7 launches of kind "probe"."""
+    w2x_stack_last_zs (under pp, with no mask, folded on w2x_l7_fold as in
+    stack_scale), each counted where its kernel is: MID_LAUNCHES "mma_zs" /
+    "mma_pp", L6_LAUNCHES "last_zs", L7_LAUNCHES, and 7 launches of kind
+    "probe"."""
     stack.reset_launches()
     calls = []
     run = _fake_launcher(calls)
@@ -661,7 +663,9 @@ def test_variant_launch_routing(sp16, zs, pp):
                   pp=pp and 1 <= k <= 5)
     names = [fn for fn, _ in calls]
     assert names == (["w2x_stack_layer"] + ["w2x_mma_layer_variant"] * 5
-                     + ["w2x_stack_last_zs" if zs else "w2x_stack_layer"])
+                     + ["w2x_stack_last_zs" if zs else "w2x_l7_fold"])
+    assert stack.L7_LAUNCHES == {"fold": int(not zs), "cell": 0,
+                                 "pixel": int(bool(zs))}
     for k, (_, args) in list(enumerate(calls))[1:6]:
         plan = stack.mma_plan(*stack.WIDTHS[k], zs, pp)
         # (bf16, layer, zs, pp, x, wp, b, y, n, hin, win, smem_bytes, stream)

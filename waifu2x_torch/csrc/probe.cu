@@ -38,20 +38,26 @@
 // byte; probe_l1_mm does 18 f32 FLOP per output channel of a pixel, 0.14 ms
 // of FFMA at 16 x 512^2 against its bytes' 0.03 ms. Design: 16-byte loads and
 // stores, neighbouring threads on neighbouring addresses; probe_store as
-// one store a thread over the whole output (see there); the others ROWS
-// rows of a cell per CUDA block (several blocks per cell, so that a
-// 128-cell grid still fills 132 SMs), the rows staged through shared memory where the
-// output is a map of the input (a (64, 128, 16) bf16 block is 256 KB, over
-// a block's 227 KB). probe_fetch_reduce's lane-0 sums (grid_floor's 4-fetch)
-// need three whole blocks before the first output: one CUDA block per
-// cell, summing in a fixed order, so the result does not vary from run to
-// run. f32 maps use __fmul_rn / __fadd_rn, never fmaf, so the plain version
-// computes the same values.
+// one store a thread over the whole output (see there); probe_fetch_map's
+// hot forms (one block, no repeat) compiled for their lanes, type and map:
+// lane-inner outputs with no shared memory (probe_map_direct), planar ones
+// through a padded shared-memory transpose fed by cp.async
+// (probe_map_planar); the others ROWS rows of a cell per CUDA block
+// (several blocks per cell, so that a 128-cell grid still fills 132 SMs),
+// the rows staged through shared memory where the output is a map of the
+// input (a (64, 128, 16) bf16 block is 256 KB, over a block's 227 KB).
+// probe_fetch_reduce's lane-0 sums (grid_floor's 4-fetch) need three whole
+// blocks before the first output: one CUDA block per cell, summing in a
+// fixed order, so the result does not vary from run to run. f32 maps use
+// __fmul_rn / __fadd_rn, never fmaf, so the plain version computes the same
+// values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "mma.cuh"   // cp.async
 
 namespace {
 
@@ -308,6 +314,138 @@ __global__ void __launch_bounds__(THREADS) probe_fetch_map(MapArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// probe_fetch_map's hot forms, compiled for their lanes, type and map (the
+// map's single-block, rep-1 forms whose output row holds every pixel of the
+// block row; probe_fetch_map above takes the rest):
+//
+// probe_map_direct<LA, LG, DT, OP>, output lane-inner: output pixel x takes
+// input pixel x, its lanes 0..LG-1 (lane 0 in all of them where LA is 1 or
+// the map is MAP_LANE0). The output keeps the input's pixel order, so no
+// shared memory: a thread loads the G pixels that make its whole 16-byte
+// output vectors (NL 16-byte loads of 16-byte-aligned input) and stores
+// them (NS stores), neighbouring threads on neighbouring addresses. Every
+// loaded word is folded into the sink word, so no load can be dropped.
+// One CUDA block is THREADS consecutive (row, pixel group) items of a cell.
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+template <int LA, int LG, int DT>
+struct DirectGeo {
+  static constexpr int ES = DT == DT_U8 ? 1 : 2;   // output element bytes
+  static constexpr int IN_PX = 2 * LA, OUT_PX = LG * ES;
+  static constexpr int G = imax(IN_PX >= 16 ? 1 : 16 / IN_PX,
+                                OUT_PX >= 16 ? 1 : 16 / OUT_PX);
+  static constexpr int NL = G * IN_PX / 16, NS = G * OUT_PX / 16;
+};
+
+template <int LA, int LG, int DT, int OP>
+__global__ void __launch_bounds__(THREADS) probe_map_direct(MapArgs a) {
+  using D = DirectGeo<LA, LG, DT>;
+  static_assert(D::NL >= 1 && D::NS >= 1 && (LA == 1 || LG <= LA),
+                "whole vectors in and out, lanes from the input's");
+  const In& b = a.in[0];
+  const int gpr = b.cols / D::G;                  // pixel groups a row
+  const int per_cell = a.out.rows * gpr / THREADS;
+  int n, i, j;
+  cell_of(blockIdx.x / per_cell, a.out, n, i, j);
+  const int item = (blockIdx.x % per_cell) * THREADS + threadIdx.x;
+  const int r = item / gpr, g = item % gpr;
+  const uint4* src = b.row(n, i, j, r) + g * D::NL;
+  uint32_t w[4 * D::NL];
+  uint32_t f = 0;
+#pragma unroll
+  for (int k = 0; k < D::NL; ++k) {
+    const uint4 v = src[k];
+    w[4 * k] = v.x;
+    w[4 * k + 1] = v.y;
+    w[4 * k + 2] = v.z;
+    w[4 * k + 3] = v.w;
+    f ^= fold(v);
+  }
+  keep(f, a.sink);
+  uint32_t o[4 * D::NS];
+#pragma unroll
+  for (int k = 0; k < 4 * D::NS; ++k) o[k] = 0;
+#pragma unroll
+  for (int px = 0; px < D::G; ++px) {
+#pragma unroll
+    for (int c = 0; c < LG; ++c) {
+      const int e = px * LA + (LA > 1 && OP != MAP_LANE0 ? c : 0);
+      const uint32_t bits = (w[e >> 1] >> (16 * (e & 1))) & 0xffffu;
+      const int oe = px * LG + c;
+      if constexpr (DT == DT_BF16) {
+        const uint32_t ob =
+            OP == MAP_COPY || OP == MAP_LANE0
+                ? bits : bf_bits(apply(OP, __uint_as_float(bits << 16)));
+        o[oe >> 1] |= ob << (16 * (oe & 1));
+      } else {
+        const uint32_t ob =
+            (uint32_t)(int)apply(OP, __uint_as_float(bits << 16)) & 0xffu;
+        o[oe >> 2] |= ob << (8 * (oe & 3));
+      }
+    }
+  }
+  uint4* dst = a.out.row(n, i, j, r) + g * D::NS;
+#pragma unroll
+  for (int k = 0; k < D::NS; ++k)
+    dst[k] = make_uint4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
+}
+
+// probe_map_planar<OP>, 16 input lanes, output planar (lanes 0-3, bf16):
+// out[r, c * cols + x] = OP(t[r, x, c]). Lanes leave the pixel order, so a
+// padded shared-memory transpose: PLANAR_ROWS rows of the block are staged
+// whole by cp.async (every fetched byte lands in shared memory, so none can
+// be dropped), each 8-pixel group 16 bytes past 256 so that the 8 16-byte
+// reads of a quarter-warp fall into 8 bank groups; then a thread reads
+// lanes 0-7 of 8 pixels and stores their lanes 0-3 as 4 vectors. Several
+// blocks an SM, so one block's copies run while another maps.
+constexpr int PLANAR_ROWS = 8;
+constexpr int PLANAR_THREADS = 128;
+constexpr int PLANAR_GROUP = 8 * 32 + 16;   // bytes of a staged pixel group
+
+template <int OP>
+__global__ void __launch_bounds__(PLANAR_THREADS)
+probe_map_planar(MapArgs a) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const In& b = a.in[0];
+  const int splits = a.out.rows / PLANAR_ROWS;
+  int n, i, j;
+  cell_of(blockIdx.x / splits, a.out, n, i, j);
+  const int r0 = (blockIdx.x % splits) * PLANAR_ROWS;
+  const int gpr = b.cols / 8, rowb = gpr * PLANAR_GROUP, q = 2 * b.cols;
+  const uint32_t s0 = smem_addr(sm);
+  for (int t = threadIdx.x; t < PLANAR_ROWS * q; t += PLANAR_THREADS) {
+    const int r = t / q, v = t % q, p = v >> 1;
+    cp_async16(s0 + r * rowb + (p >> 3) * PLANAR_GROUP + (p & 7) * 32 +
+                   (v & 1) * 16,
+               b.row(n, i, j, r0 + r) + v, true);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int t = threadIdx.x; t < PLANAR_ROWS * gpr; t += PLANAR_THREADS) {
+    const int r = t / gpr, g = t % gpr;
+    uint32_t o[4][4] = {};
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          sm + r * rowb + g * PLANAR_GROUP + m * 32);
+      const uint32_t lanes[4] = {v.x & 0xffffu, v.x >> 16, v.y & 0xffffu,
+                                 v.y >> 16};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float x = __uint_as_float(lanes[c] << 16);
+        const uint32_t ob = OP == MAP_COPY ? lanes[c] : bf_bits(apply(OP, x));
+        o[c][m >> 1] |= ob << (16 * (m & 1));
+      }
+    }
+    uint4* dst = a.out.row(n, i, j, r0 + r);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      dst[c * gpr + g] = make_uint4(o[c][0], o[c][1], o[c][2], o[c][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // probe_fetch_reduce:
 //   RED_CORNER_MAX: t = sum over the blocks (in order) of the max over the
 //     block's [0:8, 0:8, :] corner; every output element = bf16(0 + t).
@@ -531,13 +669,49 @@ bool make_in(const void* p, const long long* d, In& b) {
 }
 
 cudaError_t launch_dyn(const void* fn, int blocks, size_t smem,
-                       cudaStream_t s, void** args) {
+                       cudaStream_t s, void** args, int threads = THREADS) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  return cudaLaunchKernel(fn, dim3(blocks), dim3(THREADS), args, smem, s);
+  return cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, smem, s);
+}
+
+// The compiled lane-inner map for (input lanes, output lanes, type, map),
+// or null where probe_fetch_map takes the form.
+const void* direct_map(int la, int lg, int dtype, int op) {
+  if (la == 16 && lg == 4 && dtype == DT_BF16) {
+    switch (op) {
+      case MAP_COPY:
+        return (const void*)probe_map_direct<16, 4, DT_BF16, MAP_COPY>;
+      case MAP_HALF:
+        return (const void*)probe_map_direct<16, 4, DT_BF16, MAP_HALF>;
+      case MAP_AFFINE:
+        return (const void*)probe_map_direct<16, 4, DT_BF16, MAP_AFFINE>;
+      case MAP_LANE0:
+        return (const void*)probe_map_direct<16, 4, DT_BF16, MAP_LANE0>;
+      default: return nullptr;
+    }
+  }
+  if (la == 1 && lg == 4 && dtype == DT_BF16 && op == MAP_COPY)
+    return (const void*)probe_map_direct<1, 4, DT_BF16, MAP_COPY>;
+  if (la == 16 && lg == 16 && dtype == DT_U8) {
+    switch (op) {
+      case MAP_U8:
+        return (const void*)probe_map_direct<16, 16, DT_U8, MAP_U8>;
+      case MAP_U8_ZERO:
+        return (const void*)probe_map_direct<16, 16, DT_U8, MAP_U8_ZERO>;
+      default: return nullptr;
+    }
+  }
+  return nullptr;
+}
+
+// pixels a thread of probe_map_direct maps (DirectGeo::G)
+int direct_group(int la, int lg, int dtype) {
+  const int in_px = 2 * la, out_px = lg * esize_of(dtype);
+  return imax(in_px >= 16 ? 1 : 16 / in_px, out_px >= 16 ? 1 : 16 / out_px);
 }
 
 }  // namespace
@@ -599,9 +773,29 @@ int w2x_probe_fetch_map(const void* const* ins, const long long* id, int nin,
   a.op = op;
   a.sink = nullptr;
   void* args[] = {&a};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the hot forms: one block, no repeat, every pixel of the block row out
+  const In& b = a.in[0];
+  if (nin == 1 && rep == 1 && xg == b.cols && op != MAP_CONST0) {
+    const void* fn = form == FORM_LANES
+        ? direct_map(b.lanes, lg, a.out.dtype, op) : nullptr;
+    const int g = direct_group(b.lanes, lg, a.out.dtype);
+    if (fn != nullptr && b.cols % g == 0 &&
+        ((long long)a.out.rows * (b.cols / g)) % THREADS == 0)
+      return (int)launch_dyn(fn, cells * (a.out.rows * (b.cols / g) /
+                                          THREADS), 0, s, args);
+    if (form == FORM_PLANAR && b.lanes == 16 && lg == 4 &&
+        a.out.dtype == DT_BF16 && (op == MAP_COPY || op == MAP_HALF) &&
+        a.out.rows % PLANAR_ROWS == 0 && b.cols % 8 == 0)
+      return (int)launch_dyn(
+          op == MAP_COPY ? (const void*)probe_map_planar<MAP_COPY>
+                         : (const void*)probe_map_planar<MAP_HALF>,
+          cells * (a.out.rows / PLANAR_ROWS),
+          (size_t)PLANAR_ROWS * (b.cols / 8) * PLANAR_GROUP, s, args,
+          PLANAR_THREADS);
+  }
   return (int)launch_dyn(reinterpret_cast<const void*>(probe_fetch_map),
-                         cells * (a.out.rows / ROWS), smem,
-                         static_cast<cudaStream_t>(stream), args);
+                         cells * (a.out.rows / ROWS), smem, s, args);
 }
 
 int w2x_probe_fetch_reduce(const void* const* ins, const long long* id,

@@ -56,7 +56,10 @@
 //     (2hl + 14 - 2k)-row plane, with hl = he/2 on the noise path.
 //   * conv3x3_bias_leaky_s2d<CI, T> (layer 7, 128 -> 1) gives each thread
 //     one output pixel and writes it straight into the s2d layout
-//     [N, hl, wl, 4].
+//     [N, hl, wl, 4]. It and the cell kernel below run layer 7 of the f32
+//     calls and under a zero-shift mask; a bf16 call's layer 7 runs folded
+//     on the tensor cores in l7.cu, and these stay its FFMA counterparts
+//     (ops/stack.py:last_layer(fold=False)).
 //   * conv3x3_bias_leaky_cell<CI, T, OUT_MODE, TILED> (common.cuh) is layer
 //     7 in its two other output forms, one thread per s2d cell: it reads the cell's 4 x 4
 //     window of the layer-6 activation once (16 pixel loads for 4 output

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from waifu2x_torch.ops import _build, stack
 from waifu2x_torch.ops.convstack import no_tf32, pad_replicate
+from waifu2x_torch.pipeline import resolve_device
 from waifu2x_torch.utils.timing import time_ms
 
 PEAK_BYTES = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
@@ -381,10 +382,14 @@ def _store_value(v: Variant, seed: "torch.Tensor | None", dtype: str):
     return float(s.to(_DTYPES[dtype]))
 
 
-def store_plain(v: Variant, g: Grid, seed=None, device="cpu"):
+def store_plain(v: Variant, g: Grid, seed=None, device=None):
+    """A store's output on `device` (None: the card, as resolve_device
+    gives it)."""
     o = out_spec(v.out, g)
     return torch.full(o.shape(g), _store_value(v, seed, o.dtype),
-                      dtype=_DTYPES[o.dtype], device=device)
+                      dtype=_DTYPES[o.dtype],
+                      device=resolve_device("cuda" if device is None
+                                            else device))
 
 
 def _map(op: str, t: torch.Tensor) -> torch.Tensor:
@@ -459,9 +464,10 @@ def l1_mm_plain(v: Variant, g: Grid, x: torch.Tensor,
 
 def plain(v: Variant, g: Grid, args: dict, device=None) -> torch.Tensor:
     """The plain version of any variant on make_inputs' arguments; a store
-    without a seed makes its output on `device` (default the CPU)."""
+    without a seed makes its output on `device` (None: the card; the CPU
+    only when asked for)."""
     if v.kernel == "store":
-        dev = args["seed"].device if v.seed else (device or "cpu")
+        dev = args["seed"].device if v.seed else device
         return store_plain(v, g, args.get("seed"), dev)
     if v.kernel == "fetch_map":
         return fetch_map_plain(v, g, args["x"])
@@ -620,12 +626,13 @@ def run(v: Variant, g: Grid, args: dict, out=None,
     """The variant on make_inputs' arguments: CPU tensors take the plain
     version, CUDA tensors the kernel (`out`, if given, receives the
     result). A store has no tensor argument but its seed: `device` says
-    where it runs (default the seed's, else the CPU)."""
+    where it runs (default the seed's, else the card: with no card it
+    raises, and device="cpu" runs the plain version)."""
     dev = _check(v, g, args, out)
     if dev is None:
-        dev = torch.device("cpu" if device is None else device)
+        dev = resolve_device("cuda" if device is None else device)
     if dev.type == "cpu":
-        ref = plain(v, g, args)
+        ref = plain(v, g, args, dev)
         return ref if out is None else out.copy_(ref)
     with torch.cuda.device(dev):
         out, launch = prepare(v, g, args, out, dev)
@@ -650,12 +657,23 @@ def compare(got: torch.Tensor, ref: torch.Tensor):
     return err, share, torch.equal(got.view(itype), ref.view(itype))
 
 
+def library_is_the_map(v: Variant) -> bool:
+    """Whether library(v) computes the variant's own function: a map that
+    copies (or broadcasts lane 0 of) one block with no repeat, whose
+    contiguous() of the view is its output byte for byte."""
+    return (v.kernel == "fetch_map" and v.op in ("copy", "lane0")
+            and len(v.ins) == 1 and v.rep == 1)
+
+
 def library(v: Variant, g: Grid, args: dict, device):
     """One PyTorch call for the same data movement, as a yardstick: fill_
     of the output for a store; contiguous() of the view of the first
-    block's pixels and lanes that the output names, in the output's order,
-    for a map; amax of the corners (the first block's) or the sum of lane
-    0 (the second block's) for a reduction; for l1_mm the bf16 matmul of
+    block's pixels and lanes that the output names, in the output's order
+    (lane 0 in every lane where the map broadcasts it or the input is a
+    plane), for a map: the map's own function, byte for byte, where it
+    copies one block with no repeat (library_is_the_map); amax of the
+    corners (the first block's) or the sum of lane 0 (the second block's)
+    for a reduction; for l1_mm the bf16 matmul of
     the blocks with the weight's lanes 0-3, whose product is the one the
     output holds (lane-inner, where the probe writes it planar)."""
     o = out_spec(v.out, g)
@@ -666,10 +684,10 @@ def library(v: Variant, g: Grid, args: dict, device):
     x, b0 = args["x"], block(v.ins[0], v.array, g)
     if v.kernel == "fetch_map":
         a = cells(x, b0, g)[..., :o.xg // v.rep, :o.lg]
-        if v.op == "lane0":
-            a = a[..., 0:1].expand(a.shape)
+        if v.op == "lane0" or b0.lanes == 1:   # lane 0 in every lane
+            a = a[..., 0:1].expand(*a.shape[:-1], o.lg)
         view = a.permute(0, 1, 3, 2, 4, 5) if o.form == "lanes" else (
-            a.permute(0, 1, 3, 5, 2, 4))
+            a.permute(0, 1, 3, 2, 5, 4))
         return view.contiguous
     if v.kernel == "l1_mm":
         a, w = cells(x, b0, g), args["w"]
@@ -1105,11 +1123,12 @@ def shift_zs(fx: int, fy: int) -> int:
 
 
 def _variant_layers_plain(ylow: torch.Tensor, sp, upto: int,
-                          zs: tuple) -> list:
+                          zs: tuple, fold=None) -> list:
     """Plain layers 1..upto (7: the whole stack) of the scale stack, each
     layer k + 1 under zero-shift mask zs[k] -> every layer's stored output:
     the NHWC planes of layers 1-6 and layer 7's Y_s2d [N, hl, wl, 4], in
-    ylow's dtype."""
+    ylow's dtype; layer 7 on the kernel stack.last_layer picks with
+    `fold`."""
     dt = ylow.dtype
     up = ylow.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     with no_tf32():
@@ -1119,15 +1138,16 @@ def _variant_layers_plain(ylow: torch.Tensor, sp, upto: int,
         outs.append(stack.mma_layer_plain(outs[-1], sp.wm[k - 1], sp[k][1],
                                           zs[k]))
     if upto == 7:
-        outs.append(stack.last_layer_plain(outs[-1], *sp[6], zs[6]))
+        outs.append(stack.last_layer(outs[-1], sp, zs[6], fold=fold))
     return outs
 
 
 def _variant_layers(ylow: torch.Tensor, sp, upto: int, zs: tuple,
-                    pp: bool = False) -> list:
+                    pp: bool = False, fold=None) -> list:
     """The same on the card: one launch a layer (stack._Launcher, counted
     under KERNEL_LAUNCHES["probe"]), layers 2-6 under zs[k] or with two
-    accumulators (pp) on csrc/mma.cu's variants, layer 7 under zs[6]."""
+    accumulators (pp) on csrc/mma.cu's variants, layer 7 under zs[6] (with
+    `fold` as in stack.last_layer)."""
     n, hl, wl = ylow.shape
     outs, src = [], ylow
     with torch.cuda.device(ylow.device):
@@ -1143,7 +1163,8 @@ def _variant_layers(ylow: torch.Tensor, sp, upto: int, zs: tuple,
         if upto == 7:
             out = torch.empty((n, hl, wl, 4), dtype=ylow.dtype,
                               device=ylow.device)
-            run.layer(6, False, src, sp, out, n, hl, wl, zs=zs[6])
+            run.layer(6, False, src, sp, out, n, hl, wl, zs=zs[6],
+                      fold=fold)
             outs.append(out)
     return outs
 
@@ -1156,11 +1177,11 @@ def _check_variant(ylow: torch.Tensor, sp) -> None:
 
 
 def _variant(ylow: torch.Tensor, sp, upto: int, zs: tuple,
-             pp: bool = False) -> list:
+             pp: bool = False, fold=None) -> list:
     _check_variant(ylow, sp)
     if ylow.device.type == "cpu":
-        return _variant_layers_plain(ylow, sp, upto, zs)
-    return _variant_layers(ylow, sp, upto, zs, pp)
+        return _variant_layers_plain(ylow, sp, upto, zs, fold)
+    return _variant_layers(ylow, sp, upto, zs, pp, fold)
 
 
 _NO_ZS = (0,) * 7
@@ -1189,7 +1210,8 @@ def shift_stack_plain(ylow: torch.Tensor, sp, fx: int, fy: int):
     """Plain version of shift_stack."""
     zs = shift_zs(fx, fy)
     _check_variant(ylow, sp)
-    return _variant_layers_plain(ylow, sp, 7, (0,) + (zs,) * 6)[-1]
+    return _variant_layers_plain(ylow, sp, 7, (0,) + (zs,) * 6,
+                                 fold=False)[-1]
 
 
 def shift_stack(ylow: torch.Tensor, sp, fx: int, fy: int) -> torch.Tensor:
@@ -1197,11 +1219,15 @@ def shift_stack(ylow: torch.Tensor, sp, fx: int, fy: int) -> torch.Tensor:
     in s2d layout, layer 1 as in stack_scale, layers 2-7 under zero-shift
     mask shift_zs(fx, fy): on a zeroed axis tap k of position p reads
     (p & ~1) | ((p + k) & 1), its own s2d cell, where stack_scale reads
-    p + k (wrong by design; fx = fy = 1 is stack_scale). 7 launches. CPU
-    tensors take the plain version; CUDA tensors take the kernels (bf16
-    where a mask is set: the variants are tensor-core layers)."""
+    p + k (wrong by design; fx = fy = 1 is stack_scale's function). 7
+    launches. CPU tensors take the plain version; CUDA tensors take the
+    kernels (bf16 where a mask is set: the variants are tensor-core layers).
+    Layer 7 runs on csrc/stack.cu's per-pixel kernel in every mode, base
+    too (stack.last_layer with fold=False): the folded layer 7 of
+    csrc/l7.cu has no zero-shift form, and the modes differ in the masks
+    alone."""
     zs = shift_zs(fx, fy)
-    return _variant(ylow, sp, 7, (0,) + (zs,) * 6)[-1]
+    return _variant(ylow, sp, 7, (0,) + (zs,) * 6, fold=False)[-1]
 
 
 def _l4_zs(mode: str) -> tuple:

@@ -104,3 +104,35 @@ def unpack_mma(wp: torch.Tensor) -> torch.Tensor:
     [taps, ci, co]."""
     c8, taps, co, _ = wp.shape
     return wp.permute(1, 0, 3, 2).reshape(taps, c8 * 8, co)
+
+
+def pack_l7_fold(w7) -> np.ndarray:
+    """The last layer (3x3, ci -> 1) as one folded tap product (csrc/l7.cu):
+    [3, 3, ci, 1] -> W [4*ci, 16].
+
+    An input pixel of phase (a, b) (row and column parity) feeds, through
+    tap (dy, dx), exactly one output phase (A, B) = ((a - dy) mod 2,
+    (b - dx) mod 2) of the s2d cell (Dy, Dx) = ((A + dy) // 2, (B + dx) // 2)
+    cells above and left of the input's own. So with the 4*ci values of
+    s2d cell (I, J) of the layer-6 activation in lanes (a*2 + b)*ci + c:
+
+        Zt[I, J, s*4 + q] = sum over k of X6_s2d[I, J, k] * W[k, s*4 + q]
+        Y_s2d[i, j, q]    = sum over s = Dy*2 + Dx of Zt[i + Dy, j + Dx,
+                                                         s*4 + q]
+
+    with q = A*2 + B. Each entry of W is one weight or zero."""
+    w7 = np.asarray(w7, np.float32)
+    if w7.ndim != 4 or w7.shape[:2] != (3, 3) or w7.shape[3] != 1:
+        raise ValueError(f"pack_l7_fold takes [3, 3, ci, 1], got "
+                         f"{w7.shape}")
+    ci = w7.shape[2]
+    blk = np.zeros((4 * ci, 16), np.float32)
+    for a in range(2):
+        for b in range(2):
+            for dy in range(3):
+                for dx in range(3):
+                    qa, qb = (a - dy) % 2, (b - dx) % 2
+                    s = ((qa + dy) // 2) * 2 + (qb + dx) // 2
+                    rows = slice((a * 2 + b) * ci, (a * 2 + b + 1) * ci)
+                    blk[rows, s * 4 + qa * 2 + qb] += w7[dy, dx, :, 0]
+    return blk

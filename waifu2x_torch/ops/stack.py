@@ -49,6 +49,18 @@ zero-shift mask (zs: a tap on a zeroed axis reads its own s2d cell) or with
 two accumulators (pp: the same function), and layer 7 under a mask
 (mma_layer(zs=, pp=), last_layer(zs=), mma_plan(ci, co, zs, pp)).
 
+Layer 7 (128 -> 1) of a bf16 call whose layer-6 output is one plane (every
+form but i8) is the JAX body's folded tap product on the tensor cores
+(csrc/l7.cu, from StackParams.w7f = pack_l7_fold(w7)): per s2d cell of the
+layer-6 plane one f32 product [512] x [512, 16], then Y as four shifted
+4-lane slices of those partials added in order, the bias, LeakyReLU and the
+output form; l7_fold_plain is its plain version. The f32
+calls, the int8 layer 6's tile-major plane, the truncation's tap forms and
+the zero-shift masks keep the FFMA kernels (csrc/stack.cu per pixel,
+common.cuh per cell), as does last_layer(fold=False), layer 7 alone in
+either kernel (l7_fold_chosen decides). L7_LAUNCHES counts every layer-7
+launch by kernel.
+
 Layer 6 (128 -> 128, half of the stack's multiply-adds) has three forms,
 chosen by the arguments `l6_i8` and `l6_wino` of every wrapper; None, the
 default, reads the module switches L6_I8 and L6_WINO, which are set from
@@ -78,9 +90,10 @@ Both at once raise ValueError.
           cropped to the image. `tile=(tr, tc)` sets the tile (the JAX
           package's `tile` argument); None picks default_tile.
 
-The kernels (csrc/stack.cu, csrc/mma.cu, csrc/l6.cu and csrc/wino.cu,
-which replace waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
-configurations B1, B2, B3, B6 and B7, B4, B5) launch once per layer: 7
+The kernels (csrc/stack.cu, csrc/mma.cu, csrc/l6.cu, csrc/wino.cu and
+csrc/l7.cu, which replace waifu2x_tpu/ops/pallas_stack.py:_run_stack/
+_stack_body in its configurations B1, B2, B3, B6 and B7, B4, B5) launch once
+per layer: 7
 times per call, 8 with `l6_i8` (the tile maxima are a launch of their
 own), upto + 1 for stack_scale_upto. See the notes at the top of those
 files for design and bounds.
@@ -105,6 +118,7 @@ from waifu2x_torch.ops.s2d import (
     _WINO_AT,
     _WINO_BT_TAPS,
     d2s,
+    pack_l7_fold,
     pack_mma,
     pack_wino,
     s2d,
@@ -148,6 +162,12 @@ MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0}
 # tensor cores (csrc/wino.cu; also wino_layer alone, which counts here
 # only), "ffma" csrc/l6.cu; L6_LAUNCHES["wino"] counts the form
 WINO_LAUNCHES = {"mma": 0, "ffma": 0}
+# every launch of a layer-7 kernel (of a stack, of last_layer alone, of the
+# probes' stacks, and the truncation's tap forms) by the kernel that ran it:
+# "fold" the tensor-core fold (csrc/l7.cu, bf16 on a plane), "cell"
+# common.cuh's cell kernel (f32 dense and u8, int8 tile-major, taps),
+# "pixel" stack.cu's per-pixel kernel (f32 s2d, the zero-shift masks)
+L7_LAUNCHES = {"fold": 0, "cell": 0, "pixel": 0}
 
 # the last layer's output forms (csrc/common.cuh: OUT_*)
 _OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS, _OUT_PTAPS = 0, 1, 2, 3, 4
@@ -166,7 +186,8 @@ def reset_launches() -> None:
     """Set every launch count to 0."""
     global LAUNCHES
     LAUNCHES = 0
-    for counts in (KERNEL_LAUNCHES, L6_LAUNCHES, MID_LAUNCHES, WINO_LAUNCHES):
+    for counts in (KERNEL_LAUNCHES, L6_LAUNCHES, MID_LAUNCHES, WINO_LAUNCHES,
+                   L7_LAUNCHES):
         for kind in counts:
             counts[kind] = 0
 
@@ -183,7 +204,9 @@ class StackParams(tuple):
            order WINO_CI_ORDER, as csrc/wino.cu reads it (unpack_w6m)
     and the weights of layers 2-6 as the tensor-core kernel reads them:
       wm   five tensors [ci/8, 9, co, 8] in the storage dtype:
-           pack_mma(w_k) for k = 2..6"""
+           pack_mma(w_k) for k = 2..6
+    and layer 7's as its folded tap product (csrc/l7.cu) reads them:
+      w7f  [512, 16] in the storage dtype: pack_l7_fold(w7)"""
 
 
 # csrc/wino.cu reads input channels 4j .. 4j+3 of a chunk of 16 in one load
@@ -241,6 +264,9 @@ def prep_params(params, dtype=torch.bfloat16, device="cuda") -> StackParams:
               .to(device, dtype).contiguous())
     sp.wm = tuple(pack_mma(torch.as_tensor(p["w"])).to(device, dtype)
                   .contiguous() for p in params[1:6])
+    w7 = torch.as_tensor(params[6]["w"]).detach().cpu().float().numpy()
+    sp.w7f = (torch.from_numpy(pack_l7_fold(w7)).to(device, dtype)
+              .contiguous())
     return sp
 
 
@@ -345,6 +371,19 @@ def wino_plan() -> WinoPlan:
     return WinoPlan((t, t), _WINO_CO, 256, kc, _WINO_STAGES, smem)
 
 
+def l7_fold_chosen(dtype, zs: int = 0, fold=None) -> bool:
+    """Whether layer 7 runs folded on the tensor cores (csrc/l7.cu): by
+    default on every bf16 plane with no zero-shift mask; fold=False asks for
+    the FFMA kernels, fold=True for the fold (raising where it does not
+    apply: f32, or a zero-shift mask)."""
+    if fold is None:
+        return dtype == torch.bfloat16 and not zs
+    if fold and (dtype != torch.bfloat16 or zs):
+        raise ValueError(f"the folded layer 7 takes bf16 and no zero-shift "
+                         f"mask, got {dtype}, zs={zs}")
+    return bool(fold)
+
+
 def l6_form(l6_i8=None, l6_wino=None) -> str:
     """Layer 6's form, "direct", "i8" or "wino", from a wrapper's two
     arguments (None reads the module switch)."""
@@ -426,6 +465,19 @@ def _check_wm(wm, x: torch.Tensor) -> None:
                             f"{x.dtype} on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"wm, layer {k}: must be contiguous")
+
+
+def _w7f(sp, x: torch.Tensor) -> torch.Tensor:
+    """StackParams.w7f, checked against the layer-6 plane x it will meet."""
+    w7f = getattr(sp, "w7f", None)
+    if w7f is None or tuple(w7f.shape) != (512, 16):
+        raise ValueError("the folded layer 7 needs prep_params' "
+                         "StackParams.w7f [512, 16]")
+    if (w7f.device != x.device or not w7f.is_contiguous()
+            or w7f.dtype != sp[6][0].dtype):
+        raise TypeError(f"w7f must be contiguous {sp[6][0].dtype} on "
+                        f"{x.device}, got {w7f.dtype} on {w7f.device}")
+    return w7f
 
 
 def _check_even(y: torch.Tensor, fn: str) -> None:
@@ -538,13 +590,9 @@ def mma_layer_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
     return leaky_relu(acc.add_(b)).to(x.dtype)
 
 
-def last_layer_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     zs: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of layer 7 in s2d layout (csrc/stack.cu:
-    conv3x3_bias_leaky_s2d) on the stored layer-6 plane: x [N, 2hl+2, 2wl+2,
-    128] NHWC, w [128, 9, 1], b [1] f32 -> [N, hl, wl, 4] in x's dtype: the 9
-    taps summed in f32, bias, LeakyReLU, one rounding; zs as in
-    mma_layer_plain."""
+def _last_layer_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    zs: int = 0) -> torch.Tensor:
+    """last_layer_plain's Y before its rounding, f32 [N, hl, wl, 4]."""
     hout, wout = x.shape[1] - 2, x.shape[2] - 2
     xf, wf = x.float(), w.float()[:, :, 0]
     acc = None
@@ -552,7 +600,50 @@ def last_layer_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         for t in range(9):
             term = _tap_view(xf, t // 3, t % 3, hout, wout, zs) @ wf[:, t]
             acc = term if acc is None else acc.add_(term)
-    return s2d(leaky_relu(acc.add_(b))[..., None]).to(x.dtype)
+    return s2d(leaky_relu(acc.add_(b))[..., None])
+
+
+def last_layer_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     zs: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of layer 7 in s2d layout (csrc/stack.cu:
+    conv3x3_bias_leaky_s2d) on the stored layer-6 plane: x [N, 2hl+2, 2wl+2,
+    128] NHWC, w [128, 9, 1], b [1] f32 -> [N, hl, wl, 4] in x's dtype: the 9
+    taps summed in f32, bias, LeakyReLU, one rounding; zs as in
+    mma_layer_plain."""
+    return _last_layer_f32(x, w, b, zs).to(x.dtype)
+
+
+def l7_fold_plain(x6: torch.Tensor, w7f: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the folded layer 7 (csrc/l7.cu) on the
+    stored layer-6 plane: x6 [N, 2hl+2, 2wl+2, 128] NHWC, w7f [512, 16]
+    (pack_l7_fold), b [1] f32 -> Y f32 [N, hl, wl, 4], not rounded. Zt is
+    one f32 product of x6's s2d cells [N, hl+1, wl+1, 512] and w7f, TF32
+    off; Y the four shifted 4-lane slices of Zt added in the order
+    s = 0, 1, 2, 3, then the bias and LeakyReLU."""
+    n, h6, w6, c = x6.shape
+    hl, wl = (h6 - 2) // 2, (w6 - 2) // 2
+    cells = (x6.float().reshape(n, hl + 1, 2, wl + 1, 2, c)
+             .permute(0, 1, 3, 2, 4, 5).reshape(n, hl + 1, wl + 1, 4 * c))
+    with no_tf32():
+        zt = cells @ w7f.float()
+    y = (zt[:, :hl, :wl, 0:4] + zt[:, :hl, 1:, 4:8] + zt[:, 1:, :wl, 8:12]
+         + zt[:, 1:, 1:, 12:16])
+    return leaky_relu(y + b)
+
+
+def last_out(y: torch.Tensor, out: str, dtype, uvp=None, tc=None):
+    """Layer 7's f32 Y [N, hl, wl, 4] in the output form `out`: "s2d" Y
+    rounded to `dtype`; "dense" the same phase-chunked, (ydense, tc);
+    "u8" the u8 BGR [N, hl, wl, 16] of the colour map on the unrounded Y
+    and uvp [N, hl, wl, 8] (u phases 0:4, v phases 4:8)."""
+    if out == "s2d":
+        return y.to(dtype)
+    if out == "dense":
+        tc = _dense_tc(y.shape[2], tc)
+        return s2d_to_dense(y.to(dtype), tc), tc
+    chans = combine_u8_cmajor(y, uvp[..., 0:4], uvp[..., 4:8])
+    return torch.cat(chans + [torch.zeros_like(chans[0])], dim=-1)
 
 
 def _plain_mid(x: torch.Tensor, sp, k: int, dtype, mma: bool) -> torch.Tensor:
@@ -723,14 +814,20 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
     (stack_scale_upto), in the form `out`: with "whole" (upto 1..5) the
     layer's whole NHWC plane, with "phase_taps" (upto 6) the unfolded taps.
     With `mma`, layers 2-6 are mma_layer_plain from the packed weights
-    sp.wm (layer 6 only in its direct form)."""
+    sp.wm (layer 6 only in its direct form). Layer 7 of a bf16 stack is
+    the folded tap product (l7_fold_plain) where layer 6's output is one
+    plane (not with "i8"), as csrc/l7.cu computes it."""
     hg, wg = (x.shape[2] - 14) // 2, (x.shape[3] - 14) // 2
     w7, b7 = sp[6]
+    fold = l7_fold_chosen(dtype) and form != "i8"
 
     def last(x6):
         if upto == 6:
             return (_phase_taps_plain if out == "phase_taps"
                     else _taps_plain)(x6, w7, dtype)
+        if fold:
+            y = l7_fold_plain(x6.permute(0, 2, 3, 1), _w7f(sp, x6), b7)
+            return y.to(dtype).float() if round_last else y
         y = _plain_layer(x6, w7, b7, dtype, round_last)
         return s2d(y[:, 0, :, :, None])
 
@@ -967,6 +1064,8 @@ _ARGTYPES = {
                              _INT, _PTR]},
     "wino": {"w2x_l6_wino_mma": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
                                  _INT, _INT, _PTR]},
+    "l7": {"w2x_l7_fold": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                           _INT, _PTR, _FLOATS, _INT, _PTR]},
 }
 
 
@@ -1010,9 +1109,10 @@ class _Launcher:
         self.step += 1
 
     def run(self, lib: str, fn: str, what: str, l6=None, *args,
-            mid=None, wino=None) -> None:
+            mid=None, wino=None, l7=None) -> None:
         """Launch one kernel and count it, under L6_LAUNCHES[l6],
-        MID_LAUNCHES[mid] and WINO_LAUNCHES[wino] too where given."""
+        MID_LAUNCHES[mid], WINO_LAUNCHES[wino] and L7_LAUNCHES[l7] too where
+        given."""
         global LAUNCHES
         err = getattr(self.libs[lib], fn)(self.bf16, *args, self.stream)
         if err:
@@ -1027,29 +1127,35 @@ class _Launcher:
             MID_LAUNCHES[mid] += 1
         if wino is not None:
             WINO_LAUNCHES[wino] += 1
+        if l7 is not None:
+            L7_LAUNCHES[l7] += 1
 
     def layer(self, k: int, full_res: bool, src, sp, dst, n, ph, pw,
               out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0, zs: int = 0,
-              pp: bool = False) -> None:
+              pp: bool = False, fold=None) -> None:
         """Layer k + 1: layers 2-6 of a bf16 call on the tensor cores
-        (csrc/mma.cu), everything else through csrc/stack.cu. zs, a
-        zero-shift mask, and pp, two accumulators, are the probes' variants
-        of the tensor-core layers (zs also of layer 7 in s2d layout)."""
+        (csrc/mma.cu), layer 7 of a bf16 call folded on the tensor cores
+        (csrc/l7.cu; l7_fold_chosen with `fold`), everything else through
+        csrc/stack.cu. zs, a zero-shift mask, and pp, two accumulators, are
+        the probes' variants of the tensor-core layers (zs also of layer 7
+        in s2d layout, on stack.cu's kernel)."""
         w, b = sp[k]
+        hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
+        if k == 6 and not pp and l7_fold_chosen(src.dtype, zs, fold):
+            self.l7_fold(src, sp, dst, n, hg, wg, out_mode, uvp, cmap, tc)
+            return
         if zs or pp:
             if k == 0 or (k == 6 and pp) or (k < 6 and not self.bf16):
                 raise ValueError(f"layer {k + 1}: no variant zs={zs}, "
                                  f"pp={pp} (bf16 layers 2-6; zs on layer 7, "
                                  f"f32 or bf16)")
             if k == 6:
-                hg, wg = (((ph + 1) // 2, (pw + 1) // 2) if full_res
-                          else (ph, pw))
                 self.run("stack", "w2x_stack_last_zs", f"layer 7 (zs {zs})",
                          "last_zs", zs, src.data_ptr(), w.data_ptr(),
-                         b.data_ptr(), dst.data_ptr(), n, hg, wg)
+                         b.data_ptr(), dst.data_ptr(), n, hg, wg,
+                         l7="pixel")
                 return
         if 1 <= k <= 5 and ((self.bf16 and MID_MMA) or zs or pp):
-            hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
             self.mma_layer(k, src, sp, dst, n, 2 * hg + 14 - 2 * k,
                            2 * wg + 14 - 2 * k, l6="direct" if k == 5
                            else None, zs=zs, pp=pp)
@@ -1059,7 +1165,19 @@ class _Launcher:
                  src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(),
                  n, ph, pw, out_mode,
                  None if uvp is None else uvp.data_ptr(), cmap, tc,
-                 mid="ffma" if 1 <= k <= 5 else None)
+                 mid="ffma" if 1 <= k <= 5 else None,
+                 l7=None if k < 6 else "pixel" if out_mode == _OUT_S2D
+                 else "cell")
+
+    def l7_fold(self, x6, sp, y, n, hl, wl, out_mode=_OUT_S2D, uvp=None,
+                cmap=None, tc=0) -> None:
+        """Layer 7 folded on the tensor cores (csrc/l7.cu) from the
+        [n, 2hl+2, 2wl+2, 128] plane x6 into y in the form out_mode."""
+        self.run("l7", "w2x_l7_fold", "layer 7 (fold)", None,
+                 x6.data_ptr(), _w7f(sp, x6).data_ptr(), sp[6][1].data_ptr(),
+                 y.data_ptr(), n, hl, wl, out_mode,
+                 None if uvp is None else uvp.data_ptr(), cmap, tc,
+                 l7="fold")
 
     def mma_layer(self, k: int, src, sp, dst, n, hin, win, l6=None,
                   zs: int = 0, pp: bool = False) -> None:
@@ -1115,6 +1233,23 @@ class _Launcher:
         return x6t, m
 
 
+def _last_buffer(out_mode: int, x: torch.Tensor, n: int, hl: int, wl: int,
+                 tc: int):
+    """The last layer's output for out_mode on x's device -> (y, cmap): Y
+    in x's dtype, [n, hl, wl, 4] or dense [n, hl, ceil(wl/tc)*4*tc], or u8
+    [n, hl, wl, 16] with the colour map as the C entry takes it (cmap[12]:
+    the YUV -> BGR matrix row by row, then its offsets; None otherwise)."""
+    if out_mode == _OUT_DENSE:
+        return torch.empty((n, hl, -(-wl // tc) * 4 * tc), dtype=x.dtype,
+                           device=x.device), None
+    if out_mode == _OUT_U8:
+        cmap = (ctypes.c_float * 12)(*color._INV.ravel().tolist(),
+                                     *color._INV_OFF.tolist())
+        return torch.empty((n, hl, wl, 16), dtype=torch.uint8,
+                           device=x.device), cmap
+    return torch.empty((n, hl, wl, 4), dtype=x.dtype, device=x.device), None
+
+
 def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             form: str = "direct", tile=None, upto=None,
             out_form: str = "cell") -> torch.Tensor:
@@ -1146,16 +1281,8 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
         if out_form == "whole":   # at upto >= 1, layer upto's buffer itself
             out = (torch.empty((n, hl + 8, wl + 8, 1), dtype=x.dtype,
                                device=x.device) if upto == 0 else None)
-        elif kind == "dense" and upto is None:
-            out = torch.empty((n, hl, -(-wl // tc) * 4 * tc), dtype=x.dtype,
-                              device=x.device)
-        elif kind == "fused_u8" and upto is None:
-            cmap = (ctypes.c_float * 12)(*color._INV.ravel().tolist(),
-                                         *color._INV_OFF.tolist())
-            out = torch.empty((n, hl, wl, 16), dtype=torch.uint8,
-                              device=x.device)
         else:
-            out = torch.empty((n, hl, wl, 4), dtype=x.dtype, device=x.device)
+            out, cmap = _last_buffer(out_mode, x, n, hl, wl, tc)
         src = x
         for k in range(5 if upto is None else min(upto, 5)):
             run.layer(k, full_res, src, sp, bufs[k % 2], n, ph, pw)
@@ -1193,7 +1320,7 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
                     out_mode if upto is None else
                     _OUT_PTAPS if out_form == "phase_taps" else _OUT_TAPS,
                     None if uvp is None else uvp.data_ptr(), cmap, tc,
-                    *(tiling or (0, 0, 0, 0)))
+                    *(tiling or (0, 0, 0, 0)), l7="cell")
         run.mark()
     return out
 
@@ -1317,32 +1444,58 @@ def wino_layer(x5: torch.Tensor, sp) -> torch.Tensor:
     return y6
 
 
-def last_layer(x: torch.Tensor, sp, zs: int = 0) -> torch.Tensor:
-    """Layer 7 alone in s2d layout under zero-shift mask zs (0..3; see
-    last_layer_plain): x [N, 2hl+2, 2wl+2, 128] NHWC (f32 or bf16,
-    contiguous) -> [N, hl, wl, 4] in x's dtype. CPU tensors take the plain
-    version; CUDA tensors take csrc/stack.cu's conv3x3_bias_leaky_s2d<ZS>,
-    whose launch counts under L6_LAUNCHES["last_zs"] (zs > 0) only."""
-    if zs not in range(4):
-        raise ValueError(f"zs must be 0..3, got {zs!r}")
+_LAST_OUTS = {"s2d": _OUT_S2D, "dense": _OUT_DENSE, "u8": _OUT_U8}
+
+
+def last_layer(x: torch.Tensor, sp, zs: int = 0, out: str = "s2d",
+               uvp=None, tc=None, fold=None):
+    """Layer 7 alone on the stored layer-6 plane x [N, 2hl+2, 2wl+2, 128]
+    NHWC (f32 or bf16, contiguous), in the output form `out` of last_out:
+    "s2d" [N, hl, wl, 4] in x's dtype, "dense" (ydense, tc), "u8"
+    [N, hl, wl, 16] from uvp [N, hl, wl, 8] f32. The kernel is the stack's
+    (l7_fold_chosen): a bf16 plane with no zero-shift mask runs folded on
+    the tensor cores (csrc/l7.cu) unless fold=False, which takes the FFMA
+    kernels a bf16 stack ran before (csrc/stack.cu's per-pixel kernel for
+    s2d, common.cuh's cell kernel for the other forms); zs (0..3, s2d
+    only; see last_layer_plain) takes the per-pixel kernel. CPU tensors
+    take the plain version of the kernel chosen (l7_fold_plain or
+    last_layer_plain's f32 Y, then last_out); CUDA tensors take the kernel,
+    whose launch counts under L7_LAUNCHES (and L6_LAUNCHES["last_zs"] for
+    zs > 0) only."""
+    if zs not in range(4) or (zs and out != "s2d"):
+        raise ValueError(f"zs must be 0..3, and 0 for out={out!r}; got "
+                         f"{zs!r}")
+    if out not in _LAST_OUTS:
+        raise ValueError(f"out must be one of {sorted(_LAST_OUTS)}, got "
+                         f"{out!r}")
     if (x.dim() != 4 or x.shape[3] != 128 or x.shape[1] % 2
             or x.shape[2] % 2 or min(x.shape[1:3]) < 4):
         raise ValueError(f"x must be [N, 2hl+2, 2wl+2, 128], got "
                          f"{tuple(x.shape)}")
     n, hin, win = x.shape[:3]
+    hl, wl = (hin - 2) // 2, (win - 2) // 2
     if x.dtype not in DTYPES or not x.is_contiguous():
         raise TypeError(f"x must be contiguous float32 or bfloat16, got "
                         f"{x.dtype}")
     w, b = sp[6]
     if w.dtype != x.dtype or w.device != x.device:
         raise TypeError(f"layer 7's weights are {w.dtype} on {w.device}")
+    if out == "u8":
+        if uvp is None:
+            raise ValueError("out='u8' needs uvp [N, hl, wl, 8]")
+        _check_uvp(uvp, x[..., :hl, :wl, 0])
+    folded = l7_fold_chosen(x.dtype, zs, fold)
     if x.device.type == "cpu":
-        return last_layer_plain(x, w, b, zs)
-    hl, wl = (hin - 2) // 2, (win - 2) // 2
+        y = (l7_fold_plain(x, _w7f(sp, x), b) if folded
+             else _last_layer_f32(x, w, b, zs))
+        return last_out(y, out, x.dtype, uvp, tc)
+    tc = _dense_tc(wl, tc) if out == "dense" else 0
     with torch.cuda.device(x.device):
-        y = torch.empty((n, hl, wl, 4), dtype=x.dtype, device=x.device)
-        _Launcher(None, x, None).layer(6, False, x, sp, y, n, hl, wl, zs=zs)
-    return y
+        y, cmap = _last_buffer(_LAST_OUTS[out], x, n, hl, wl, tc)
+        _Launcher(None, x, None).layer(
+            6, False, x, sp, y, n, hl, wl, _LAST_OUTS[out], uvp, cmap, tc,
+            zs=zs, fold=folded)
+    return (y, tc) if out == "dense" else y
 
 
 CHAIN_ROWS = 256   # rows of x per block of the probe kernel

@@ -3,7 +3,8 @@ package's tools/shift_cost_probe.py).
 
 B = 4 low-res planes of 512^2 in bf16, random-init weights at full width.
 Modes, by the JAX names (each is ops/probe.py:shift_stack(ylow, sp, fx, fy)):
-  base      fx = fy = 1: stack_scale's function and kernels
+  base      fx = fy = 1: stack_scale's function and kernels, but layer 7
+            on stack.cu's per-pixel kernel as in the twins
   noshiftx  fx = 0: the column offsets Dx of layers 2-7 forced to 0
   noshifty  fy = 0: the row offsets Dy forced to 0
   noshift   both
