@@ -5,19 +5,21 @@ int8 (B4) and as Winograd (B5) and the tensor-core kernel of layers 2-6
 against their plain PyTorch versions, drives the scale, noise and
 noise->scale paths and the frame-stream runtime at full model width, with
 layer 6 in each of its forms, runs the data-movement probes (csrc/probe.cu)
-and prints their numbers. In bf16 every stack
-call of every phase runs layers 2-6 on the tensor cores (csrc/mma.cu); the
-f32 calls and, where ops.stack.MID_MMA is set to False, the bf16 calls run
-them as FFMA (csrc/stack.cu). Layer 7 of every bf16 stack call on a plane
-runs folded on the tensor cores (csrc/l7.cu), counted by kernel in
-ops.stack.L7_LAUNCHES, which phases 4, 6, 7, 10, 11 and 15 read.
+and prints their numbers. Layer 1 of every stack call runs on csrc/l1.cu
+(ops.stack.L1_LAUNCHES). Every stack call of every phase runs layers 2-6 on
+the tensor cores, in bf16 on csrc/mma.cu and in f32 as 3xTF32 on
+csrc/mma_tf32.cu; where ops.stack.MID_MMA is set to False both run them as
+FFMA (csrc/stack.cu). Layer 7 of every bf16 stack call on a plane runs
+folded on the tensor cores (csrc/l7.cu), counted by kernel in
+ops.stack.L7_LAUNCHES, which phases 4, 6, 7, 10, 11 and 15 read, as they
+and every stream read L1_LAUNCHES.
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
 Phases (any failure raises and exits non-zero):
   1. build csrc/stack.cu, csrc/l6.cu, csrc/mma.cu, csrc/wino.cu,
-     csrc/l7.cu, csrc/probe.cu and csrc/tmm.cu with nvcc for sm_90a, all at
-     once (ops/_build.py);
+     csrc/l7.cu, csrc/probe.cu, csrc/tmm.cu, csrc/l1.cu and
+     csrc/mma_tf32.cu with nvcc for sm_90a, all at once (ops/_build.py);
   2. f32 scale kernel vs plain version at small and odd shapes:
      max |diff| <= 3e-5;
   3. the scale kernel vs its plain version at the scale512 shape
@@ -181,6 +183,22 @@ Phases (any failure raises and exits non-zero):
      timed alone at scale512 in each form in turns (old, new, new, old)
      against the FFMA kernels a bf16 stack ran before, and at noise256,
      beside cuDNN's layer 7 alone, the plain version and the bound.
+ 22. the f32 layers 2-6 as 3xTF32 (phase22 below; csrc/mma_tf32.cu through
+     stack.mma_layer) against the f32 plain version, each alone at
+     (1,27,38), (2,37,53), (1,5,300) and chained at the ns1080 noise
+     stack's layer shapes, max |diff| <= 3e-5, one "mma_tf32" launch a
+     call; the f32 noise stack at ns1080 with 5 "mma_tf32" launches, timed
+     layer by layer and whole in turns FFMA / 3xTF32 / 3xTF32 / FFMA
+     against the 3xTF32 bound and the FFMA floor, beside cuDNN's f32 layers
+     2-6 and f32 stack (TF32 off);
+ 23. layer 1 (phase23 below; csrc/l1.cu through stack.l1_layer) against
+     l1_plain, scale and noise, f32 and bf16, at three small shapes and at
+     scale512 and noise256: bf16 to one bf16 ulp, f32 <= 3e-5; then timed
+     in turns against stack.cu's FFMA plane modes, with GB/s against the
+     byte bound and cuDNN's layer 1 on the padded plane.
+In phase 7 the f32-noise chain's layers 2-6 count 5 "mma_tf32" (the noise
+stack) and 5 "mma" (the bf16 scale stack), and the ns1080 timings put the
+f32-noise step and stack beside their FFMA times in turns.
 In phases 4, 6-8, 10-11 and 15 every call that the run made to a kernel wrapper
 (one per wrapper, input shape, dtype and weights) is repeated on a copy of
 its input and held against the plain version: f32 max |diff| <= 3e-5; bf16
@@ -499,15 +517,17 @@ def run_stream(sc, frames, stack, label: str, smi: str):
         raise AssertionError(f"{label}: {len(outs)} outputs for "
                              f"{len(frames)} frames")
     # layers 2-6 of every stack call (2-5 where layer 6 is int8 or
-    # Winograd), on the tensor cores unless the stack is f32
+    # Winograd), on the tensor cores (as 3xTF32 where the stack is f32)
     other_l6 = stack.L6_LAUNCHES["i8"] // 2 + stack.L6_LAUNCHES["wino"]
     stacks = (stack.LAUNCHES - stack.L6_LAUNCHES["i8"] // 2) // 7
-    if mid["mma"] + mid["ffma"] != 5 * stacks - other_l6 or mid["chain"]:
+    if (mid["mma"] + mid["ffma"] + mid["mma_tf32"] != 5 * stacks - other_l6
+            or mid["chain"]):
         raise AssertionError(f"{label}: layers 2-6 launches {mid} of "
                              f"{stack.LAUNCHES}")
     if sum(l7.values()) != stacks:   # one layer 7 a stack call
         raise AssertionError(f"{label}: layer-7 launches {l7} for "
                              f"{stacks} stack calls")
+    expect_l1(stack, label, stacks)   # and one layer 1, on csrc/l1.cu
     return outs, counts, len(steps)
 
 
@@ -986,7 +1006,7 @@ def phase20(dev: torch.device) -> list:
                                                                pp=True)
         torch.cuda.synchronize()
         if mid_delta(before) != {"mma": 1, "ffma": 0, "chain": 0,
-                                 "mma_zs": 0, "mma_pp": 1}:
+                                 "mma_zs": 0, "mma_pp": 1, "mma_tf32": 0}:
             raise AssertionError(f"pp layer {k}: launches {mid_delta(before)}")
         if not torch.equal(one.view(torch.int16), two.view(torch.int16)):
             diff = (one.float() - two.float()).abs()
@@ -1144,7 +1164,7 @@ def phase20(dev: torch.device) -> list:
     torch.cuda.synchronize()
     if (stack.LAUNCHES != 7 or stack.KERNEL_LAUNCHES["scale"] != 7
             or stack.MID_LAUNCHES != {"mma": 5, "ffma": 0, "chain": 0,
-                                      "mma_zs": 0, "mma_pp": 0}
+                                      "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}
             or stack.L6_LAUNCHES["last_zs"] or stack.KERNEL_LAUNCHES["probe"]):
         raise AssertionError(f"stack_scale after phase 20: {stack.LAUNCHES}, "
                              f"{stack.MID_LAUNCHES}, {stack.L6_LAUNCHES}")
@@ -1398,6 +1418,410 @@ def phase21(dev: torch.device, main_launches: int) -> list:
     }]
 
 
+PEAK_TF32_FLOPS = 494.7e12   # dense TF32 (NVIDIA data sheet, 700 W)
+NS1080 = (4, 1080, 1920)     # the chain's full-res frames: the noise stack
+
+
+def expect_l1(stack, label: str, l1: int) -> None:
+    """Layer 1's launches by kernel since the counts were last reset: every
+    stack call's on csrc/l1.cu."""
+    want = {"l1": l1, "ffma": 0}
+    if stack.L1_LAUNCHES != want:
+        raise AssertionError(f"{label}: layer-1 launches "
+                             f"{stack.L1_LAUNCHES}, want {want}")
+
+
+def check_f32(what: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """An f32 kernel's output against its plain version's: finite, same
+    shape, max |diff| <= F32_TOL. Returns max |diff|."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {got.shape} {got.dtype} against "
+                             f"{ref.shape} {ref.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = (got - ref).abs().max().item()
+    check_max_err(what, err, F32_TOL)
+    return err
+
+
+def tf32_layer_bounds(stack, n: int, hg: int, wg: int):
+    """Per layer 2-6 of a stack on an [n, hg, wg] grid of s2d cells: (FLOPs
+    of the function, f32 bytes (input, weights, output once each), bound ms
+    of the 3xTF32 kernel (three TF32 products a term at the TF32 peak, or
+    the bytes), FFMA floor ms (one f32 product a term at 67 TFLOP/s))."""
+    out = []
+    for k in range(1, 6):
+        ci, co = stack.WIDTHS[k]
+        hin, win = 2 * hg + 14 - 2 * k, 2 * wg + 14 - 2 * k
+        flops = 2 * n * (hin - 2) * (win - 2) * ci * co * 9
+        moved = (4 * n * (hin * win * ci + (hin - 2) * (win - 2) * co)
+                 + 4 * 9 * ci * co + 4 * co)
+        out.append((flops, moved, max(3 * flops / PEAK_TF32_FLOPS,
+                                      moved / PEAK_BYTES) * 1e3,
+                    flops / PEAK_F32_FLOPS * 1e3))
+    return out
+
+
+def cudnn_f32(pairs) -> list:
+    """(w OIHW channels_last, b) in f32 of the stack's (w, b) pairs."""
+    return [(w.float().reshape(w.shape[0], 3, 3, w.shape[2])
+             .permute(3, 0, 1, 2)
+             .contiguous(memory_format=torch.channels_last), b.float())
+            for w, b in pairs]
+
+
+def library_f32_ms(x: torch.Tensor, pairs) -> float:
+    """Library yardstick (never called by the port): the layers `pairs` as
+    cuDNN f32 channels_last convolutions + leaky_relu with TF32 off, on
+    x [N, C, H, W] f32."""
+    from waifu2x_torch.ops.convstack import no_tf32
+    layers = cudnn_f32(pairs)
+    xc = x.contiguous(memory_format=torch.channels_last)
+
+    def run():
+        h = xc
+        for w, b in layers:
+            h = F.leaky_relu(F.conv2d(h, w, b), 0.1)
+        return h
+
+    with no_tf32():
+        ms = timed_ms(run)
+    del xc, layers
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase22(dev: torch.device, main_launches: int) -> list:
+    """22. Layers 2-6 of the f32 stacks as 3xTF32 on the tensor cores
+    (csrc/mma_tf32.cu, through stack.mma_layer as every f32 stack reaches
+    it) against the f32 plain version (mma_layer_plain from the f32
+    weights): each layer alone at L7_SHAPES (random weights, randn input)
+    and the five chained at the ns1080 noise stack's layer shapes (the
+    shipped noise2 weights, each layer fed the kernel's output of the one
+    before), max |diff| <= 3e-5, one "mma_tf32" launch a call. Then the f32
+    noise stack at ns1080 layer by layer, in turns FFMA (MID_MMA False) /
+    3xTF32 / 3xTF32 / FFMA, with TFLOP/s against the 3xTF32 bound and the
+    FFMA floor, beside cuDNN's f32 layers 2-6 and f32 stack (TF32 off).
+    `main_launches` is the "mma_tf32" count of phase 7's f32-noise chain.
+    Returns the kernel table's rows (the layers, the f32 stack)."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.ops.convstack import pad_replicate
+    from waifu2x_torch.utils.timing import card_name
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    sp_r = stack.prep_params(init_params(3), torch.float32, dev)
+    sp_n = stack.prep_params(load_model_json(
+        root / "models" / "noise2_demo.json"), torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    only_tf32 = {k: 0 for k in stack.MID_LAUNCHES}
+    only_tf32["mma_tf32"] = 1
+
+    def hold(x, sp, k, label, time_plain=False):
+        ci, co = stack.WIDTHS[k - 1]
+        t1 = time.perf_counter()
+        ref = mma_plain_in_chunks(stack, x, sp.wm[k - 2], sp[k - 1][1])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        stack.reset_launches()
+        got = stack.mma_layer(x, sp, k)
+        torch.cuda.synchronize()
+        if stack.MID_LAUNCHES != only_tf32 or stack.LAUNCHES:
+            raise AssertionError(f"3xTF32 layer {k} alone: launches "
+                                 f"{stack.MID_LAUNCHES}, {stack.LAUNCHES}")
+        err = check_f32(f"3xTF32 layer {k} {label}", got, ref)
+        log(f"phase 22 3xTF32 layer {k} ({ci} -> {co}) {label}, largest "
+            f"output {ref.abs().max().item():.3f}: max|kernel - plain| "
+            f"{err:.3e}")
+        return got, err, plain_ms if time_plain else 0.0
+
+    err = 0.0
+    for shape in L7_SHAPES:
+        for k in range(2, 7):
+            x = torch.randn((*shape, stack.WIDTHS[k - 1][0]), device=dev,
+                            generator=gen)
+            err = max(err, hold(x, sp_r, k, f"{shape}")[1])
+    n, h, w = NS1080
+    hg, wg = h // 2, w // 2
+    x = torch.rand((n, 2 * hg + 12, 2 * wg + 12, 32), device=dev,
+                   generator=gen)
+    plain_ms = 0.0
+    for k in range(2, 7):
+        x, e, ms = hold(x, sp_n, k, f"ns1080 {tuple(x.shape)}", True)
+        err, plain_ms = max(err, e), plain_ms + ms
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+
+    # the f32 noise stack at ns1080 layer by layer, in turns
+    y = torch.rand(NS1080, device=dev, generator=gen)
+    turns = {False: [], True: []}
+    whole = {False: [], True: []}
+    for flag in (False, True, True, False):
+        stack.MID_MMA = flag
+        whole[flag].append(timed_ms(lambda: stack.stack_noise(y, sp_n)))
+        turns[flag].append(per_layer_ms(
+            lambda ev: stack.stack_noise(y, sp_n, events=ev), stack))
+    stack.MID_MMA = True
+    stack.reset_launches()
+    stack.stack_noise(y, sp_n)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in stack.MID_LAUNCHES}
+    want["mma_tf32"] = 5
+    if stack.MID_LAUNCHES != want:
+        raise AssertionError(f"f32 noise stack: layers 2-6 launches "
+                             f"{stack.MID_LAUNCHES}, want {want}")
+    mid = {f: (t[0][1:6] + t[1][1:6]) / 2 for f, t in turns.items()}
+    stack_ms = {f: sum(v) / 2 for f, v in whole.items()}
+    bounds = tf32_layer_bounds(stack, n, hg, wg)
+    bound = sum(b[2] for b in bounds)
+    floor = sum(b[3] for b in bounds)
+    flops = sum(b[0] for b in bounds)
+    x1 = torch.rand((n, 32, 2 * hg + 12, 2 * wg + 12), device=dev,
+                    generator=gen)
+    lib_mid = library_f32_ms(x1, sp_n[1:6])
+    del x1
+    torch.cuda.empty_cache()
+    xpad = pad_replicate(y, 7)
+    lib_stack = library_f32_ms(xpad, sp_n)
+    del xpad
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    for i in range(n):
+        stack.stack_noise_plain(y[i:i + 1], sp_n)
+    torch.cuda.synchronize()
+    stack_plain_ms = (time.perf_counter() - t1) * 1e3
+    # the f32 stack's bound: layers 2-6 at 3xTF32, layers 1 and 7 at the
+    # FFMA peak, or its plane in and out
+    maccs_17 = 9 * 32 + 9 * 128
+    px = n * h * w
+    stack_bound = max(
+        bound + 2 * maccs_17 * px / PEAK_F32_FLOPS * 1e3,
+        4 * 2 * px / PEAK_BYTES * 1e3)
+    stack_floor = floor + 2 * maccs_17 * px / PEAK_F32_FLOPS * 1e3
+    smi = card_name()
+    log(f"phase 22 f32 noise stack at ns1080 {NS1080}, layers 2-6, on {smi}: "
+        f"3xTF32 {mid[True].sum():.2f} ms = "
+        f"{3 * flops / mid[True].sum() / 1e9:.1f} TFLOP/s of TF32 products "
+        f"({100 * bound / mid[True].sum():.1f}% of the bound {bound:.2f} ms),"
+        f" FFMA {mid[False].sum():.2f} ms "
+        f"({mid[False].sum() / mid[True].sum():.2f}x; FFMA floor "
+        f"{floor:.2f} ms); per layer " + "; ".join(
+            f"L{k + 2} {mid[True][k]:.2f} / FFMA {mid[False][k]:.2f} ms, "
+            f"bound {bounds[k][2]:.2f}" for k in range(5))
+        + "; the two turns of each: 3xTF32 "
+        + " / ".join(f"{t[1:6].sum():.2f}" for t in turns[True])
+        + ", FFMA " + " / ".join(f"{t[1:6].sum():.2f}" for t in turns[False])
+        + f" ms; cuDNN f32 layers 2-6 (TF32 off) {lib_mid:.2f} ms; "
+        f"mma_layer_plain layers 2-6 (host clock) {plain_ms:.1f} ms")
+    log(f"phase 22 f32 noise stack at ns1080, whole: 3xTF32 "
+        f"{stack_ms[True]:.2f} ms, FFMA {stack_ms[False]:.2f} ms (turns "
+        + " / ".join(f"{v:.2f}" for v in whole[True]) + " and "
+        + " / ".join(f"{v:.2f}" for v in whole[False])
+        + f"), bound {stack_bound:.2f} ms (FFMA floor {stack_floor:.2f}), "
+        f"cuDNN f32 stack (TF32 off) {lib_stack:.2f} ms, plain (a frame at "
+        f"a time, host clock) {stack_plain_ms:.1f} ms; max|kernel - plain| "
+        f"of the layers {err:.3e}; {time.perf_counter() - t0:.1f} s")
+    if not mid[True].sum() < mid[False].sum():
+        raise AssertionError(f"3xTF32 layers 2-6 {mid[True].sum()} ms, FFMA "
+                             f"{mid[False].sum()} ms")
+    del y
+    torch.cuda.empty_cache()
+    return [{
+        "name": "conv3x3_bias_leaky_tf32, layers 2-6 of every f32 stack call "
+                "as 3xTF32 on the tensor cores (wgmma)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/mma_tf32.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "launches": main_launches,
+        "launches_of": "phase 7's ns1080 chain with an f32 noise stack",
+        "max_abs_err": err,
+        "ms": float(mid[True].sum()),
+        "layer_ms": [float(v) for v in mid[True]],
+        "ffma_ms": float(mid[False].sum()),
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "operations",
+        "ffma_floor_ms": floor,
+        "library_ms": lib_mid,
+    }, {
+        "name": "the f32 noise stack at ns1080 (stack_noise, f32: layers 2-6 "
+                "3xTF32, layers 1 and 7 csrc/l1.cu and stack.cu)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/mma_tf32.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "launches": main_launches,
+        "launches_of": "phase 7's ns1080 chain with an f32 noise stack "
+                       "(3xTF32 launches)",
+        "max_abs_err": err,
+        "ms": stack_ms[True],
+        "ffma_ms": stack_ms[False],
+        "plain_ms": stack_plain_ms,
+        "bound_ms": stack_bound,
+        "bound_by": "operations",
+        "ffma_floor_ms": stack_floor,
+        "library_ms": lib_stack,
+    }]
+
+
+def library_l1_ms(x: torch.Tensor, sp, full_res: bool) -> float:
+    """Library yardstick (never called by the port): layer 1 as one cuDNN
+    channels_last convolution 1 -> 32 + leaky_relu, TF32 off, in x's dtype,
+    on the plane the stack reads: the nearest-2x upscale replicate-padded by
+    7 (scale), or the plane padded by 7 (noise; even sizes)."""
+    from waifu2x_torch.ops.convstack import no_tf32
+    w, b = sp[0]
+    wc = (w.float().reshape(1, 3, 3, 32).permute(3, 0, 1, 2).to(x.dtype)
+          .contiguous(memory_format=torch.channels_last))
+    bc = b.to(x.dtype)
+    up = x if full_res else x.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    xpad = F.pad(up[:, None], (7,) * 4, mode="replicate").contiguous(
+        memory_format=torch.channels_last)
+    with no_tf32():
+        ms = timed_ms(lambda: F.leaky_relu(F.conv2d(xpad, wc, bc), 0.1), 20)
+    del xpad, up
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase23(dev: torch.device, main_launches: int) -> list:
+    """23. Layer 1 (csrc/l1.cu, through stack.l1_layer as every stack call
+    reaches it) against its plain version (l1_plain), scale and noise, f32
+    and bf16, at L7_SHAPES (random weights) and at scale512 and noise256
+    (the shipped scale2.0x and noise1 weights): bf16 to one bf16 ulp, f32
+    <= 3e-5, one "l1" launch a call. Then timed at scale512 and noise256
+    in turns (old, new, new, old) against stack.cu's FFMA plane modes
+    (l1_layer(ffma=True)), with GB/s against the byte bound, beside cuDNN's
+    layer 1 on the padded plane. `main_launches` is the "l1" count of phase
+    4's main path. Returns the kernel table's row."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.utils.timing import card_name
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    gen = torch.Generator(device=dev).manual_seed(23)
+    sps = {}
+    for dt in (torch.float32, torch.bfloat16):
+        sps[dt] = {"rand": stack.prep_params(init_params(3), dt, dev)}
+        for name, model in (("scale", "scale2.0x"), ("noise", "noise1")):
+            sps[dt][name] = stack.prep_params(load_model_json(
+                root / "models" / f"{model}_demo.json"), dt, dev)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    share = 0.0
+    main = {False: (16, 512, 512), True: (256, 256, 256)}
+    for dt in err:
+        for full_res in (False, True):
+            for shape in (*L7_SHAPES, main[full_res]):
+                is_main = shape == main[full_res]
+                sp = sps[dt]["noise" if full_res else "scale"] if is_main \
+                    else sps[dt]["rand"]
+                x = torch.rand(shape, device=dev, generator=gen).to(dt)
+                stack.reset_launches()
+                got = stack.l1_layer(x, sp, full_res)
+                torch.cuda.synchronize()
+                expect_l1(stack, f"layer 1 alone {shape}", 1)
+                if stack.LAUNCHES:
+                    raise AssertionError("layer 1 alone counted as a stack")
+                c = 2 if is_main and shape[0] > 16 else 1
+                ref = torch.cat([stack.l1_plain(x[i:i + c], sp, full_res)
+                                 for i in range(0, shape[0], c)])
+                what = (f"layer 1 {'noise' if full_res else 'scale'} "
+                        f"{shape} {dt}")
+                if dt == torch.float32:
+                    e = check_f32(what, got, ref)
+                else:
+                    e, sh = check_mma_layer(what, got, ref)
+                    share = max(share, sh)
+                err[dt] = max(err[dt], e)
+                del got, ref, x
+        torch.cuda.empty_cache()
+    log(f"phase 23 layer 1 (csrc/l1.cu) against l1_plain at "
+        f"{', '.join(map(str, L7_SHAPES))}, scale512 and noise256, scale and "
+        f"noise: f32 max|diff| {err[torch.float32]:.3e} (bar 3e-5), bf16 "
+        f"{err[torch.bfloat16]:.3e} ({share:.4%} of outputs differ; bar one "
+        f"bf16 ulp)")
+
+    # timed in turns against the FFMA plane modes, beside cuDNN
+    rows = {}
+    for full_res in (False, True):
+        for dt in (torch.bfloat16, torch.float32):
+            shape = main[full_res]
+            sp = sps[dt]["noise" if full_res else "scale"]
+            x = torch.rand(shape, device=dev, generator=gen).to(dt)
+            t = {False: [], True: []}
+            for flag in (True, False, False, True):
+                # 20 calls back to back: at a few tenths of a ms each, the
+                # host's launch of the first would weigh in a mean of 3
+                t[flag].append(timed_ms(
+                    lambda: stack.l1_layer(x, sp, full_res, ffma=flag), 20))
+            n, ph, pw = shape
+            hg, wg = (ph // 2, pw // 2) if full_res else (ph, pw)
+            size = x.element_size()
+            out_b = n * (2 * hg + 12) * (2 * wg + 12) * 32 * size
+            in_b = x.numel() * size + 32 * 4 + (9 * 32 if full_res
+                                                 else 9 * 128) * size
+            macs = (9 if full_res else 4) * 32 * n * (2 * hg + 12) * (
+                2 * wg + 12)
+            bound = max((in_b + out_b) / PEAK_BYTES,
+                        2 * macs / PEAK_F32_FLOPS) * 1e3
+            rows[(full_res, dt)] = {
+                "new": sum(t[False]) / 2, "old": sum(t[True]) / 2,
+                "turns": t, "bound": bound, "bytes": in_b + out_b,
+                "library": library_l1_ms(x, sp, full_res)}
+            if dt == torch.bfloat16 and not full_res:
+                t1 = time.perf_counter()
+                for i in range(n):
+                    stack.l1_plain(x[i:i + 1], sp)
+                torch.cuda.synchronize()
+                rows[(full_res, dt)]["plain"] = (
+                    time.perf_counter() - t1) * 1e3
+            del x
+            torch.cuda.empty_cache()
+    def tag(fr, dt):
+        return (f"{'noise256' if fr else 'scale512'} "
+                f"{'f32' if dt == torch.float32 else 'bf16'}")
+
+    log(f"phase 23 layer 1 alone on {card_name()}: " + "; ".join(
+        f"{tag(fr, dt)} l1.cu {r['new']:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in r["turns"][False])
+        + f"; {r['bytes'] / r['new'] / 1e6:.0f} GB/s = "
+        f"{100 * r['bound'] / r['new']:.1f}% of the bound {r['bound']:.3f} ms"
+        f" by bytes), FFMA plane mode {r['old']:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in r["turns"][True])
+        + f"), {r['old'] / r['new']:.2f}x; cuDNN {r['library']:.3f} ms"
+        for (fr, dt), r in rows.items())
+        + f"; plain (scale512 bf16, a frame at a time, host clock) "
+        f"{rows[(False, torch.bfloat16)]['plain']:.1f} ms; "
+        f"{time.perf_counter() - t0:.1f} s")
+    r = rows[(False, torch.bfloat16)]
+    return [{
+        "name": "l1_conv, layer 1 (1 -> 32) of every stack call: the scale "
+                "stack's phase sums on the low-res plane, the noise stack's "
+                "9 taps on the full-res plane",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/l1.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "replaces_part": "_stack_body's layer 1 (l1q, :395-421)",
+        "launches": main_launches,
+        "max_abs_err": max(err.values()),
+        "ms": r["new"],
+        "ffma_ms": r["old"],
+        "form_ms": {tag(*key): v["new"] for key, v in rows.items()},
+        "form_ffma_ms": {tag(*key): v["old"] for key, v in rows.items()},
+        "form_bound_ms": {tag(*key): v["bound"] for key, v in rows.items()},
+        "form_library_ms": {tag(*key): v["library"]
+                            for key, v in rows.items()},
+        "plain_ms": r["plain"],
+        "bound_ms": r["bound"],
+        "bound_by": "bytes",
+        "library_ms": r["library"],
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1428,7 +1852,8 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    _build.load("stack", "l6", "mma", "wino", "l7", "probe", "tmm")
+    _build.load("stack", "l6", "mma", "wino", "l7", "probe", "tmm", "l1",
+                "mma_tf32")
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout
@@ -1506,14 +1931,16 @@ def main() -> int:
                                 fast)
     launches, mid_launches = stack.LAUNCHES, dict(stack.MID_LAUNCHES)
     l7_main = stack.L7_LAUNCHES["fold"]
+    l1_main = stack.L1_LAUNCHES["l1"]
     out = d2s_host_cmajor(u8.cpu().numpy())
     log(f"phase 4 main path: {frames.shape} -> {out.shape} {out.dtype}, "
         f"{launches} kernel launches, layers 2-6 by kernel {mid_launches}, "
         f"layer 7 by kernel {stack.L7_LAUNCHES}")
     expect_l7(stack, "phase 4 main path", fold=1)
+    expect_l1(stack, "phase 4 main path", 1)
     if (launches != 7 or out.shape != (16, 1024, 1024, 3)
             or mid_launches != {"mma": 5, "ffma": 0, "chain": 0,
-                                "mma_zs": 0, "mma_pp": 0}):
+                                "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}):
         raise AssertionError(f"main path: {launches} launches, "
                              f"{mid_launches}, {out.shape}")
     hold_seen(seen, stack, f32_twin, max_err)
@@ -1621,6 +2048,7 @@ def main() -> int:
         f"{out.dtype}, {launches_n} kernel launches, layer 7 by kernel "
         f"{stack.L7_LAUNCHES}")
     expect_l7(stack, "phase 6 noise256 main path", fold=1)
+    expect_l1(stack, "phase 6 noise256 main path", 1)
     if launches_n != 7 or out.shape != frames_n.shape:
         raise AssertionError(f"noise256: {launches_n} launches, {out.shape}")
     hold_seen(seen, stack, f32_twin, max_err)
@@ -1660,12 +2088,24 @@ def main() -> int:
         # the noise stack's layer 7: folded in bf16, per pixel in f32
         expect_l7(stack, f"phase 7 ns1080 chain, {dt} noise", **(
             {"fold": 2} if dt == torch.bfloat16 else {"fold": 1, "pixel": 1}))
+        expect_l1(stack, f"phase 7 ns1080 chain, {dt} noise", 2)
+        # layers 2-6: the bf16 scale stack's on csrc/mma.cu, the noise
+        # stack's there too in bf16, as 3xTF32 (csrc/mma_tf32.cu) in f32
+        f32_noise = dt == torch.float32
+        want = {k: 0 for k in stack.MID_LAUNCHES}
+        want.update(mma=5 if f32_noise else 10, mma_tf32=5 * f32_noise)
+        if stack.MID_LAUNCHES != want:
+            raise AssertionError(f"ns1080 chain {dt}: layers 2-6 launches "
+                                 f"{stack.MID_LAUNCHES}, want {want}")
+        if f32_noise:
+            tf32_main = stack.MID_LAUNCHES["mma_tf32"]
         out = d2s_host_cmajor(u8.cpu().numpy())
         db_frames = [psnr(out[i], ref[i]) for i in range(len(ref))]
         db_chain[dt] = min(db_frames)
         log(f"phase 7 ns1080 chain, {dt} noise / bf16 scale: "
-            f"{tuple(u8.shape)} u8, {launches_c} kernel launches (layer 7 "
-            f"{stack.L7_LAUNCHES}), frames 0-3 "
+            f"{tuple(u8.shape)} u8, {launches_c} kernel launches (layers "
+            f"2-6 {stack.MID_LAUNCHES}, layer 7 {stack.L7_LAUNCHES}), frames "
+            f"0-3 "
             + " / ".join(f"{db:.2f}" for db in db_frames)
             + f" dB vs the f32 non-kernel chain (bar {bar:g} each)")
         if (launches_c != 14 or tuple(u8.shape) != (4, 1080, 1920, 16)
@@ -1797,7 +2237,7 @@ def main() -> int:
         expect_counts(label, counts, nd, 4, **{kind: 28})
         expect_l7(stack, label, fold=4)
         if stack.MID_LAUNCHES != {"mma": 20, "ffma": 0, "chain": 0,
-                                  "mma_zs": 0, "mma_pp": 0}:
+                                  "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}:
             raise AssertionError(f"{label}: layers 2-6 launches "
                                  f"{stack.MID_LAUNCHES}")
         for k in range(0, 64, 16):   # the batch step on the same batch
@@ -2320,7 +2760,7 @@ def main() -> int:
         got = stack.mma_layer(x, sp, k)
         torch.cuda.synchronize()
         if (stack.MID_LAUNCHES != {"mma": 1, "ffma": 0, "chain": 0,
-                                   "mma_zs": 0, "mma_pp": 0}
+                                   "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}
                 or stack.LAUNCHES or any(stack.KERNEL_LAUNCHES.values())):
             raise AssertionError(f"mma_layer alone: launches "
                                  f"{stack.MID_LAUNCHES}, {stack.LAUNCHES}")
@@ -2361,7 +2801,7 @@ def main() -> int:
         stack.reset_launches()
         mid_y[name] = stack.stack_scale(ylow16, sp16)
         want = {"mma": 5 * flag, "ffma": 5 * (not flag), "chain": 0,
-                "mma_zs": 0, "mma_pp": 0}
+                "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}
         if stack.MID_LAUNCHES != want or stack.LAUNCHES != 7:
             raise AssertionError(f"MID_MMA={flag}: launches "
                                  f"{stack.MID_LAUNCHES} of {stack.LAUNCHES}")
@@ -2526,6 +2966,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 21 passed in {time.perf_counter() - t21:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s so far")
+    t22 = time.perf_counter()
+    kernels19 += phase22(dev, tf32_main)
+    log(f"phase 22 passed in {time.perf_counter() - t22:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    t23 = time.perf_counter()
+    kernels19 += phase23(dev, l1_main)
+    log(f"phase 23 passed in {time.perf_counter() - t23:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
     maccs = count_maccs_per_pixel()
 
@@ -2650,6 +3098,26 @@ def main() -> int:
     c_step = {dt: timed_ms(lambda dt=dt: chain(fast_n2[dt]))
               for dt in (torch.bfloat16, torch.float32)}
     c_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the f32-noise step and stack with the noise stack's layers 2-6 as
+    # 3xTF32 and as FFMA (MID_MMA False while the noise stack launches; the
+    # bf16 scale stack stays on the tensor cores), in turns
+    def chain_mid(mid_mma: bool):
+        stack.MID_MMA = mid_mma
+        y = noise_y_batch_fast(yuv_c[..., 0], fast_n2[torch.float32],
+                               out_dtype=None)
+        stack.MID_MMA = True
+        return scale2x_batch_u8_fused(yuv_c, fast, y=y)
+
+    def noise_mid(mid_mma: bool):
+        stack.MID_MMA = mid_mma
+        y = stack.stack_noise(yc, fast_n2[torch.float32].sp)
+        stack.MID_MMA = True
+        return y
+
+    c_turns = {True: [], False: []}
+    for flag in (False, True, True, False):
+        c_turns[flag].append((timed_ms(lambda: chain_mid(flag)),
+                              timed_ms(lambda: noise_mid(flag))))
     yc_by_dtype = {torch.bfloat16: yc16, torch.float32: yc}
     c_noise_ms = {dt: timed_ms(lambda dt=dt: stack.stack_noise(
         yc_by_dtype[dt], fast_n2[dt].sp)) for dt in yc_by_dtype}
@@ -2677,6 +3145,15 @@ def main() -> int:
     report, _ = layer_rates(c_per_layer, stack, nc, hc // 2, wc // 2,
                             hc * wc)
     log("  noise per layer (bf16): " + report)
+    log(f"timing ns1080 f32 noise stack, layers 2-6 3xTF32 against FFMA "
+        f"(MID_MMA False for the noise stack only), in turns, on {smi}: "
+        f"step " + " / ".join(
+            f"{c_turns[f][i][0]:.2f}" for f, i in
+            ((False, 0), (True, 0), (True, 1), (False, 1)))
+        + " ms, noise stack " + " / ".join(
+            f"{c_turns[f][i][1]:.2f}" for f, i in
+            ((False, 0), (True, 0), (True, 1), (False, 1)))
+        + " ms (FFMA, 3xTF32, 3xTF32, FFMA)")
 
     # timings, layer 6's three forms at scale512 in bf16, beside B1's
     yuv16 = _to_yuv(torch.from_numpy(frames).to(dev))
@@ -2830,9 +3307,9 @@ def main() -> int:
         f"(output {n * hl * wl * 8 / 1e6:.1f} MB)")
 
     kernels = [{
-        "name": "conv3x3_bias_leaky, low-res L1 (stack_scale, B1)",
+        "name": "the scale stack, low-res layer 1 (stack_scale, B1)",
         "route": "cuda",
-        "source": "waifu2x_torch/csrc/stack.cu",
+        "source": "waifu2x_torch/csrc/l1.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
         "launches": launches,
         "max_abs_err": max_err["stack_scale"],
@@ -2842,10 +3319,10 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }, {
-        "name": "conv3x3_bias_leaky, full-res L1 (stack_noise_s2d / "
+        "name": "the noise stack, full-res layer 1 (stack_noise_s2d / "
                 "stack_noise, B2)",
         "route": "cuda",
-        "source": "waifu2x_torch/csrc/stack.cu",
+        "source": "waifu2x_torch/csrc/l1.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
         "launches": launches_n,
         "max_abs_err": max(max_err["stack_noise"],

@@ -291,7 +291,8 @@ def test_mid_mma_changes_no_cpu_result(sp16, sp32, rng, monkeypatch):
                       stack.stack_scale_upto(y16, sp16, 4))
         assert stack.LAUNCHES == 0
         assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
-                                      "mma_zs": 0, "mma_pp": 0}
+                                      "mma_zs": 0, "mma_pp": 0,
+                                      "mma_tf32": 0}
     for a, b in zip(outs[True], outs[False]):
         assert torch.equal(a, b)
 
@@ -311,20 +312,22 @@ def _fake_launcher(calls, bf16: bool):
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = "scale", None, 0
     run.libs = {name: _FakeLib(calls)
-                for name in ("stack", "mma", "l6", "l7")}
+                for name in ("stack", "mma", "l6", "l7", "l1", "mma_tf32")}
     run.bf16, run.stream = int(bf16), 0
     return run
 
 
 @pytest.mark.parametrize("bf16,mid_mma,want", [
-    (True, True, {"mma": 5, "ffma": 0}),
-    (True, False, {"mma": 0, "ffma": 5}),
-    (False, True, {"mma": 0, "ffma": 5}),
-    (False, False, {"mma": 0, "ffma": 5})])
+    (True, True, {"mma": 5, "ffma": 0, "mma_tf32": 0}),
+    (True, False, {"mma": 0, "ffma": 5, "mma_tf32": 0}),
+    (False, True, {"mma": 0, "ffma": 0, "mma_tf32": 5}),
+    (False, False, {"mma": 0, "ffma": 5, "mma_tf32": 0})])
 def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
     """Which C entry each of a whole stack's 7 layers goes to, by storage
-    dtype and MID_MMA, with the arguments the tensor-core entry gets: layer
-    7 of a bf16 stack folded on the tensor cores whatever MID_MMA says."""
+    dtype and MID_MMA, with the arguments the tensor-core entries get:
+    layer 1 on csrc/l1.cu and layer 7 of a bf16 stack folded on the tensor
+    cores whatever MID_MMA says; layers 2-6 of an f32 stack as 3xTF32 while
+    MID_MMA is on."""
     monkeypatch.setattr(stack, "MID_MMA", mid_mma)
     stack.reset_launches()
     sp = sp16 if bf16 else sp32
@@ -338,15 +341,28 @@ def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
     assert stack.L6_LAUNCHES["direct"] == 1
     assert stack.MID_LAUNCHES == {**want, "chain": 0, "mma_zs": 0,
                                   "mma_pp": 0}
+    assert stack.L1_LAUNCHES == {"l1": 1, "ffma": 0}
     assert [fn for fn, _ in calls] == [
-        "w2x_mma_layer" if want["mma"] and 1 <= k <= 5
+        "w2x_l1" if k == 0
+        else "w2x_mma_layer" if want["mma"] and 1 <= k <= 5
+        else "w2x_tf32_layer" if want["mma_tf32"] and 1 <= k <= 5
         else "w2x_l7_fold" if bf16 and k == 6 else "w2x_stack_layer"
         for k in range(7)]
     assert stack.L7_LAUNCHES == {"fold": int(bf16), "cell": 0,
                                  "pixel": int(not bf16)}
     stack.reset_launches()
     assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
-                                  "mma_zs": 0, "mma_pp": 0}
+                                  "mma_zs": 0, "mma_pp": 0,
+                                      "mma_tf32": 0}
+    if want["mma_tf32"]:
+        for k, (_, args) in list(enumerate(calls))[1:6]:
+            # (bf16, layer, x, whi, wlo, b, y, n, hin, win, smem, stream)
+            assert args[:2] == (0, k)
+            assert args[3:5] == tuple(t.data_ptr() for t in sp.wt[k - 1])
+            assert args[5] == sp[k][1].data_ptr()
+            assert args[7:] == (n, 2 * ph + 14 - 2 * k, 2 * pw + 14 - 2 * k,
+                                stack.tf32_plan(*stack.WIDTHS[k]).smem_bytes,
+                                0)
     if not want["mma"]:
         return
     for k, (_, args) in list(enumerate(calls))[1:6]:
@@ -376,12 +392,14 @@ def test_failed_launch_counts_nowhere(sp16, sp32, monkeypatch, k):
         monkeypatch.setattr(stack, "MID_MMA", True)
         stack.reset_launches()
         run = _fake_launcher([], bf16)
-        run.libs = {name: _FailingLib() for name in ("stack", "mma", "l6")}
+        run.libs = {name: _FailingLib()
+                    for name in ("stack", "mma", "l6", "mma_tf32")}
         with pytest.raises(RuntimeError, match="invalid argument"):
             run.layer(k - 1, False, x, sp, x, 1, 10, 12)
         assert stack.LAUNCHES == 0 and not any(stack.L6_LAUNCHES.values())
         assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
-                                      "mma_zs": 0, "mma_pp": 0}
+                                      "mma_zs": 0, "mma_pp": 0,
+                                      "mma_tf32": 0}
 
 
 def test_mma_layer_alone_counts_as_no_stack_launch(sp16):
@@ -395,7 +413,8 @@ def test_mma_layer_alone_counts_as_no_stack_launch(sp16):
     run.mma_layer(3, x, sp16, x, 1, 20, 24)
     assert [fn for fn, _ in calls] == ["w2x_mma_layer"]
     assert stack.MID_LAUNCHES == {"mma": 1, "ffma": 0, "chain": 0,
-                                  "mma_zs": 0, "mma_pp": 0}
+                                  "mma_zs": 0, "mma_pp": 0,
+                                      "mma_tf32": 0}
     assert stack.LAUNCHES == 0 and not any(stack.KERNEL_LAUNCHES.values())
     assert not any(stack.L6_LAUNCHES.values())
     stack.reset_launches()

@@ -639,7 +639,7 @@ def _fake_launcher(calls, bf16=True):
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = "probe", None, 0
     run.libs = {name: _FakeLib(calls)
-                for name in ("stack", "mma", "l6", "l7")}
+                for name in ("stack", "mma", "l6", "l7", "l1", "mma_tf32")}
     run.bf16, run.stream = int(bf16), 0
     return run
 
@@ -647,7 +647,7 @@ def _fake_launcher(calls, bf16=True):
 @pytest.mark.parametrize("zs,pp", [(1, False), (2, False), (3, False),
                                    (0, True)])
 def test_variant_launch_routing(sp16, zs, pp):
-    """A whole stack under a variant: layer 1 on the stack entry, layers 2-6
+    """A whole stack under a variant: layer 1 on csrc/l1.cu, layers 2-6
     on w2x_mma_layer_variant with the variant's plan, layer 7 under zs on
     w2x_stack_last_zs (under pp, with no mask, folded on w2x_l7_fold as in
     stack_scale), each counted where its kernel is: MID_LAUNCHES "mma_zs" /
@@ -662,7 +662,7 @@ def test_variant_launch_routing(sp16, zs, pp):
         run.layer(k, False, x, sp16, x, n, hl, wl, zs=zs if k else 0,
                   pp=pp and 1 <= k <= 5)
     names = [fn for fn, _ in calls]
-    assert names == (["w2x_stack_layer"] + ["w2x_mma_layer_variant"] * 5
+    assert names == (["w2x_l1"] + ["w2x_mma_layer_variant"] * 5
                      + ["w2x_stack_last_zs" if zs else "w2x_l7_fold"])
     assert stack.L7_LAUNCHES == {"fold": int(not zs), "cell": 0,
                                  "pixel": int(bool(zs))}
@@ -678,7 +678,7 @@ def test_variant_launch_routing(sp16, zs, pp):
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["probe"] == 7
     assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
                                   "mma_zs": 0 if pp else 5,
-                                  "mma_pp": 5 if pp else 0}
+                                  "mma_pp": 5 if pp else 0, "mma_tf32": 0}
     assert stack.L6_LAUNCHES["last_zs"] == (1 if zs else 0)
     assert stack.L6_LAUNCHES["direct"] == 1
     stack.reset_launches()

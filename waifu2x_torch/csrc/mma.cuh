@@ -4,8 +4,10 @@
 // swizzle, and the warpgroup product
 //   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16   (N = 16 .. 128)
 // with both operands read from shared memory (mma_k16), or for N = 64 with
-// A from registers (mma_k16_rs64), and the f32 sums kept in registers.
-// mma.cu builds the layers 2-6 kernel and the mma_chain probe from them,
+// A from registers (mma_k16_rs64), and the f32 sums kept in registers; and
+//   wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32    (N = 32 .. 128)
+// (mma_k8_tf32). mma.cu builds the bf16 layers 2-6 kernel and the
+// mma_chain probe from them, mma_tf32.cu the f32 layers 2-6 as 3xTF32,
 // tmm.cu the four-tap probe layer (with B also MN-major), wino.cu the
 // Winograd layer 6 (A from registers).
 //
@@ -163,6 +165,65 @@ __device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
         "}\n"
         : W2X_ACC16(d, 0), W2X_ACC16(d, 16), W2X_ACC16(d, 32), W2X_ACC16(d, 48)
         : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+  }
+}
+
+// d[64 x N] += A[64 x 8] * B[N x 8]^T in TF32, one instruction
+// (wgmma.mma_async m64nNk8.f32.tf32.tf32); both operands K-major from shared
+// memory, f32 values of which the tensor cores keep 10 mantissa bits. A core
+// matrix is 8 rows x 16 bytes (4 values along K), so one instruction spans
+// two core matrices along K, LBO apart; SBO steps along M or N as in
+// mma_k16. TF32 has no transpose bit. The accumulator fragment is
+// m64nNk16's. `add` 0 overwrites d with the product instead of adding to
+// it. mma_tf32.cu's 3xTF32 layers issue it.
+template <int N>
+__device__ __forceinline__ void mma_k8_tf32(float (&d)[N / 2], uint64_t a,
+                                            uint64_t b, int add = 1) {
+  static_assert(N == 32 || N == 64 || N == 128, "N is 32, 64 or 128");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n"
+        "}\n"
+        : W2X_ACC16(d, 0)
+        : "l"(a), "l"(b), "r"(add));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n"
+        "}\n"
+        : W2X_ACC16(d, 0), W2X_ACC16(d, 16)
+        : "l"(a), "l"(b), "r"(add));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n"
+        "}\n"
+        : W2X_ACC16(d, 0), W2X_ACC16(d, 16), W2X_ACC16(d, 32), W2X_ACC16(d, 48)
+        : "l"(a), "l"(b), "r"(add));
   }
 }
 

@@ -40,11 +40,14 @@
 //     column it reads 6 window values and reuses them across the 3 tap
 //     rows, and the 8 weights it needs are a warp-wide broadcast.
 //   * Layer 1 reads its source plane through an index map, so neither the
-//     upscale nor any pad is materialised:
+//     upscale nor any pad is materialised. Every stack call's layer 1 now
+//     runs on l1.cu; these two modes stay as its FFMA yardstick
+//     (ops/stack.py:l1_layer(ffma=True)):
 //       IN_LOWRES (scale) reads the low-res plane [N, hl, wl] through the
 //         nearest-2x, replicate-pad-7 map
 //           ylow[n, clamp(Y-7, 0, 2hl-1) >> 1, clamp(X-7, 0, 2wl-1) >> 1]
-//         (the counterpart of the L1 fold in s2d.py:pack_l1_scale);
+//         with each of w1's 9 taps rounded to T apart (l1.cu applies the
+//         JAX body's phase sums of them, s2d.py:pack_l1_scale, instead);
 //       IN_FULLRES (noise) reads the full-res plane [N, h, w] through
 //           y[n, clamp(Y-7, 0, h-1), clamp(X-7, 0, w-1)]
 //         over the even-rounded plane he = h + h%2, we = w + w%2: the
@@ -90,13 +93,12 @@
 // device memory: 448 channels written once and read once, about 30 GB per
 // 16 x 1024^2 batch in bf16, about 9 ms at 3.35 TB/s. This file's layers
 // keep the FFMA units fed (12 shared-memory loads feed 96 FMAs per input
-// channel and tap column). They run layers 1 and 7 of every call and
-// layers 2-6 of an f32 call, where tensor cores would mean TF32; layers
-// 2-6 of a bf16 call run on the tensor cores in mma.cu
-// (conv3x3_bias_leaky_mma), and this file's bf16 instantiation of them
-// stays as the kernel to hold that one against (ops/stack.py:MID_MMA). A
-// single fused launch with the activations kept on chip is left to later
-// work.
+// channel and tap column). They run layer 7 of the f32 calls; layers 2-6
+// run on the tensor cores, a bf16 call's in mma.cu (conv3x3_bias_leaky_mma)
+// and an f32 call's as 3xTF32 in mma_tf32.cu, and this file's
+// instantiations of them stay as the kernels to hold those against
+// (ops/stack.py:MID_MMA). A single fused launch with the activations kept
+// on chip is left to later work.
 //
 // Memory: the peak is two activation buffers of
 // N*(2hl+12)*(2wl+12)*128*sizeof(T) bytes each: about 8.8 GB together for

@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from waifu2x_torch.ops import _build, stack
-from waifu2x_torch.ops.convstack import no_tf32, pad_replicate
+from waifu2x_torch.ops.convstack import no_tf32
 from waifu2x_torch.pipeline import resolve_device
 from waifu2x_torch.utils.timing import time_ms
 
@@ -1129,11 +1129,7 @@ def _variant_layers_plain(ylow: torch.Tensor, sp, upto: int,
     the NHWC planes of layers 1-6 and layer 7's Y_s2d [N, hl, wl, 4], in
     ylow's dtype; layer 7 on the kernel stack.last_layer picks with
     `fold`."""
-    dt = ylow.dtype
-    up = ylow.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-    with no_tf32():
-        x = stack._plain_layer(pad_replicate(up.float(), 7), *sp[0], dt)
-    outs = [x.permute(0, 2, 3, 1).to(dt)]
+    outs = [stack.l1_plain(ylow, sp)]
     for k in range(1, min(upto, 6)):
         outs.append(stack.mma_layer_plain(outs[-1], sp.wm[k - 1], sp[k][1],
                                           zs[k]))

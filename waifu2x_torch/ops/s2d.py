@@ -83,6 +83,62 @@ def pack_wino(w) -> np.ndarray:
     return np.ascontiguousarray(u.reshape(16, w.shape[2], w.shape[3]))
 
 
+def pack_w2(w) -> np.ndarray:
+    """[3,3,ci,co] -> [2,2,4ci,4co] weights of the s2d-space 2x2 conv:
+    W2[Dy, Dx, (a, b, ci), (A, B, co)] = W[2Dy + a - A, 2Dx + b - B, ci, co],
+    zero where the tap falls outside the 3 x 3 kernel."""
+    w = np.asarray(w, np.float32)
+    kh, kw, ci, co = w.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"pack_w2 takes 3x3 kernels, got {w.shape}")
+    # axes Dy Dx a b ci A B co
+    out = np.zeros((2, 2, 2, 2, ci, 2, 2, co), np.float32)
+    for Dy in range(2):
+        for Dx in range(2):
+            for a in range(2):
+                for b in range(2):
+                    for A in range(2):
+                        for B in range(2):
+                            dy = 2 * Dy + a - A
+                            dx = 2 * Dx + b - B
+                            if 0 <= dy < 3 and 0 <= dx < 3:
+                                out[Dy, Dx, a, b, :, A, B, :] = w[dy, dx]
+    return out.reshape(2, 2, 4 * ci, 4 * co)
+
+
+def pack_l1_scale(w1) -> np.ndarray:
+    """Layer 1 of the scale stack in the low-res plane's terms:
+    [3,3,1,co] -> [9, 4co] f32, row t = dy'*3 + dx', lane (A*2 + B)*co + c.
+
+    The stack's input is nearest-2x(ylow) edge-padded by 7, so s2d cell
+    (K, J) of it holds pad4(ylow)[K + a, J + b] in phase (a, b), with
+    pad4(ylow)[p, q] = ylow[clamp(p - 4), clamp(q - 4)]. Output phase
+    (A, B) of layer 1's s2d cell (K, J), full-res pixel (2K + A, 2J + B),
+    is then a 3 x 3 window of pad4(ylow) at (K, J) with the weights
+        Weff[dy', dx'] = sum over Dy + a = dy', Dx + b = dx' of
+                         W2[Dy, Dx, (a, b, 0), (A, B, c)]
+    summed in f32 in this order; only the four rows dy' in {A, A+1},
+    dx' in {B, B+1} are non-zero for phase (A, B). The storage dtype rounds
+    each sum once (the JAX package's own packer and rounding point)."""
+    w2 = pack_w2(np.asarray(w1, np.float32)).reshape(2, 2, 2, 2, -1)
+    co4 = w2.shape[-1]
+    eff = np.zeros((3, 3, co4), np.float32)
+    for Dy in range(2):
+        for Dx in range(2):
+            for a in range(2):
+                for b in range(2):
+                    eff[Dy + a, Dx + b] += w2[Dy, Dx, a, b]
+    return eff.reshape(9, co4)
+
+
+def _k_major(w: torch.Tensor, k: int) -> torch.Tensor:
+    """[kh, kw, ci, co] -> [ci/k, kh*kw, co, k]: out[c, t, o, j] =
+    w[t // kw, t % kw, k*c + j, o]."""
+    kh, kw, ci, co = w.shape
+    return (w.reshape(kh * kw, ci // k, k, co).permute(1, 0, 3, 2)
+            .contiguous())
+
+
 def pack_mma(w) -> torch.Tensor:
     """One conv layer's weights in the order the tensor-core kernel reads
     them (csrc/mma.cu): [kh, kw, ci, co] -> [ci/8, kh*kw, co, 8] with
@@ -94,16 +150,40 @@ def pack_mma(w) -> torch.Tensor:
     if w.dim() != 4 or w.shape[2] % 8:
         raise ValueError(f"pack_mma takes [kh, kw, ci, co] with ci a "
                          f"multiple of 8, got {tuple(w.shape)}")
-    kh, kw, ci, co = w.shape
-    return (w.reshape(kh * kw, ci // 8, 8, co).permute(1, 0, 3, 2)
-            .contiguous())
+    return _k_major(w, 8)
 
 
 def unpack_mma(wp: torch.Tensor) -> torch.Tensor:
-    """pack_mma's inverse up to the kernel's shape: [ci/8, taps, co, 8] ->
-    [taps, ci, co]."""
-    c8, taps, co, _ = wp.shape
-    return wp.permute(1, 0, 3, 2).reshape(taps, c8 * 8, co)
+    """pack_mma's (and pack_mma_tf32's) inverse up to the kernel's shape:
+    [ci/k, taps, co, k] -> [taps, ci, co]."""
+    ck, taps, co, k = wp.shape
+    return wp.permute(1, 0, 3, 2).reshape(taps, ck * k, co)
+
+
+_TF32_DROP = 0x1FFF   # the f32 mantissa bits a TF32 operand does not keep
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: cvt.rna.tf32.f32. Finite inputs only."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + (_TF32_DROP + 1) // 2) & ~_TF32_DROP).view(torch.float32)
+
+
+def pack_mma_tf32(w) -> tuple:
+    """One f32 conv layer's weights as the 3xTF32 kernel reads them
+    (csrc/mma_tf32.cu): [kh, kw, ci, co] -> (hi, lo), each f32
+    [ci/4, kh*kw, co, 4] laid out as pack_mma's with four input channels
+    (16 bytes) to a core-matrix row. hi = tf32_round(w), lo =
+    tf32_round(w - hi): both are TF32 values, which the tensor cores read
+    whole, and hi + lo equals w to 2^-21 relative."""
+    w = torch.as_tensor(w).float()
+    if w.dim() != 4 or w.shape[2] % 4:
+        raise ValueError(f"pack_mma_tf32 takes [kh, kw, ci, co] with ci a "
+                         f"multiple of 4, got {tuple(w.shape)}")
+    hi = tf32_round(w)
+    lo = tf32_round(w - hi)
+    return _k_major(hi, 4), _k_major(lo, 4)
 
 
 def pack_l7_fold(w7) -> np.ndarray:

@@ -28,22 +28,31 @@ names):
         "lane0" and "phase_taps" are the truncation probes' other forms
 
 in the input's dtype where not said otherwise. Storage is f32 or bf16.
-Products and sums are f32 (TF32 off); in bf16 each layer's activation is
-rounded to bf16 once after its LeakyReLU, and Y once at the end (not at
+Products and sums are f32 (TF32 off, but for the f32 calls' layers 2-6,
+three TF32 products a term held to 3e-5); in bf16 each layer's activation
+is rounded to bf16 once after its LeakyReLU, and Y once at the end (not at
 all on its way into the u8 map).
 
+Layer 1 (1 -> 32) of every call runs on csrc/l1.cu (l1_layer alone,
+l1_plain its plain version): the scale stack's from the low-res plane with
+the JAX body's phase-summed weights (StackParams.w1s = ops/s2d.py:
+pack_l1_scale, each sum rounded once to the storage dtype), the noise
+stack's from the full-res plane with w1's 9 taps.
+
 Layers 2-6 (widths 32-32-64-64-128-128, 99.5% of the stack's
-multiply-adds) have two kernels, chosen by the storage dtype. A bf16 call
-runs them on the tensor cores (csrc/mma.cu: conv3x3_bias_leaky_mma, bf16 x
-bf16 products, f32 sums, from weights packed by ops/s2d.py:pack_mma into
-StackParams.wm); an f32 call runs them as f32 FFMA (csrc/stack.cu), since
-tensor cores would mean TF32 there. The two sum in another order and round
-at the same places. MID_MMA = False sends bf16 calls to the FFMA kernel
-too; only tests and chip_smoke.py flip it, to hold one kernel against the
-other and time them in one run. mma_layer is one such layer alone,
+multiply-adds) run on the tensor cores, by storage dtype. A bf16 call runs
+them on csrc/mma.cu (conv3x3_bias_leaky_mma, bf16 x bf16 products, f32
+sums, from weights packed by ops/s2d.py:pack_mma into StackParams.wm); an
+f32 call as 3xTF32 on csrc/mma_tf32.cu (conv3x3_bias_leaky_tf32: each
+product a*w as a_lo*w_hi + a_hi*w_lo + a_hi*w_hi in TF32, within 3e-5 of
+f32, from StackParams.wt = pack_mma_tf32; tf32_plan its plan). The f32 FFMA
+kernel of csrc/stack.cu computes the same layers with no tensor cores;
+MID_MMA = False sends both dtypes' calls there; only tests and
+chip_smoke.py flip it, to hold one kernel against the other and time them
+in one run. mma_layer is one such layer alone (either dtype),
 mma_layer_plain its plain version from the packed weights, mma_plan the
-kernel's tile, chunk and shared-memory plan; mma_chain is the probe of the
-kernel's inner loop (tools/mma_probe.py). The probes of ops/probe.py also
+bf16 kernel's tile, chunk and shared-memory plan; mma_chain is the probe
+of its inner loop (tools/mma_probe.py). The probes of ops/probe.py also
 run variants that no product path takes: the tensor-core layer under a
 zero-shift mask (zs: a tap on a zeroed axis reads its own s2d cell) or with
 two accumulators (pp: the same function), and layer 7 under a mask
@@ -90,10 +99,10 @@ Both at once raise ValueError.
           cropped to the image. `tile=(tr, tc)` sets the tile (the JAX
           package's `tile` argument); None picks default_tile.
 
-The kernels (csrc/stack.cu, csrc/mma.cu, csrc/l6.cu, csrc/wino.cu and
-csrc/l7.cu, which replace waifu2x_tpu/ops/pallas_stack.py:_run_stack/
-_stack_body in its configurations B1, B2, B3, B6 and B7, B4, B5) launch once
-per layer: 7
+The kernels (csrc/l1.cu, csrc/stack.cu, csrc/mma.cu, csrc/mma_tf32.cu,
+csrc/l6.cu, csrc/wino.cu and csrc/l7.cu, which replace
+waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
+configurations B1, B2, B3, B6 and B7, B4, B5) launch once per layer: 7
 times per call, 8 with `l6_i8` (the tile maxima are a launch of their
 own), upto + 1 for stack_scale_upto. See the notes at the top of those
 files for design and bounds.
@@ -118,8 +127,10 @@ from waifu2x_torch.ops.s2d import (
     _WINO_AT,
     _WINO_BT_TAPS,
     d2s,
+    pack_l1_scale,
     pack_l7_fold,
     pack_mma,
+    pack_mma_tf32,
     pack_wino,
     s2d,
     unpack_mma,
@@ -136,8 +147,9 @@ L6_WINO = os.environ.get("W2X_L6_WINO", "0") == "1"
 I8_TILE = (64, 128)   # largest default int8 tile, in s2d cells
 
 # launches of the stack wrappers' kernels; the plain versions add none, nor
-# do the standalone wrappers mma_layer, mma_chain, layer5_plane (these count
-# under MID_LAUNCHES only) and l6_i8_layer (L6_LAUNCHES only)
+# do the standalone wrappers mma_layer, mma_chain (these count under
+# MID_LAUNCHES only), layer5_plane (MID_LAUNCHES and L1_LAUNCHES), l1_layer
+# (L1_LAUNCHES only) and l6_i8_layer (L6_LAUNCHES only)
 LAUNCHES = 0
 # the same launches by the wrapper that made them: "scale" (stack_scale,
 # stack_scale_upto), "noise" (stack_noise, stack_noise_s2d), "dense"
@@ -153,11 +165,18 @@ L6_LAUNCHES = {"direct": 0, "i8": 0, "wino": 0, "upto": 0, "last_zs": 0}
 # storage; False sends them to the FFMA kernels like an f32 call (tests and
 # chip_smoke.py only)
 MID_MMA = True
-# the launches of layers 2-6 by the kernel that ran them ("mma_zs" and
-# "mma_pp": the tensor-core kernel under a zero-shift mask or with two
+# the launches of layers 2-6 by the kernel that ran them ("mma": bf16 on
+# the tensor cores, csrc/mma.cu; "mma_tf32": f32 on the tensor cores as
+# 3xTF32, csrc/mma_tf32.cu; "ffma": csrc/stack.cu; "mma_zs" and "mma_pp":
+# the bf16 tensor-core kernel under a zero-shift mask or with two
 # accumulators, which only the probes run), and under "chain" those of the
 # mma_chain probe (which count nowhere else)
-MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0}
+MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0,
+                "mma_tf32": 0}
+# the launches of layer 1 by the kernel that ran them: "l1" csrc/l1.cu (every
+# stack call, l1_layer alone), "ffma" stack.cu's plane modes (l1_layer with
+# ffma=True only, the timing yardstick)
+L1_LAUNCHES = {"l1": 0, "ffma": 0}
 # the Winograd layer 6's launches by the kernel that ran them: "mma" the
 # tensor cores (csrc/wino.cu; also wino_layer alone, which counts here
 # only), "ffma" csrc/l6.cu; L6_LAUNCHES["wino"] counts the form
@@ -187,7 +206,7 @@ def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
     for counts in (KERNEL_LAUNCHES, L6_LAUNCHES, MID_LAUNCHES, WINO_LAUNCHES,
-                   L7_LAUNCHES):
+                   L7_LAUNCHES, L1_LAUNCHES):
         for kind in counts:
             counts[kind] = 0
 
@@ -206,7 +225,15 @@ class StackParams(tuple):
       wm   five tensors [ci/8, 9, co, 8] in the storage dtype:
            pack_mma(w_k) for k = 2..6
     and layer 7's as its folded tap product (csrc/l7.cu) reads them:
-      w7f  [512, 16] in the storage dtype: pack_l7_fold(w7)"""
+      w7f  [512, 16] in the storage dtype: pack_l7_fold(w7)
+    and layer 1's of the scale stack (csrc/l1.cu and every plain scale
+    stack):
+      w1s  [9, 128] in the storage dtype: pack_l1_scale(w1), each phase sum
+           rounded once
+    and, for f32 storage only (None for bf16), the 3xTF32 kernel's weights
+    of layers 2-6 (csrc/mma_tf32.cu):
+      wt   five (hi, lo) pairs of f32 [ci/4, 9, co, 4]: pack_mma_tf32(w_k)
+           for k = 2..6"""
 
 
 # csrc/wino.cu reads input channels 4j .. 4j+3 of a chunk of 16 in one load
@@ -267,6 +294,13 @@ def prep_params(params, dtype=torch.bfloat16, device="cuda") -> StackParams:
     w7 = torch.as_tensor(params[6]["w"]).detach().cpu().float().numpy()
     sp.w7f = (torch.from_numpy(pack_l7_fold(w7)).to(device, dtype)
               .contiguous())
+    w1 = torch.as_tensor(params[0]["w"]).detach().cpu().float().numpy()
+    sp.w1s = (torch.from_numpy(pack_l1_scale(w1)).to(device, dtype)
+              .contiguous())
+    sp.wt = None if dtype != torch.float32 else tuple(
+        tuple(t.to(device).contiguous()
+              for t in pack_mma_tf32(torch.as_tensor(p["w"])))
+        for p in params[1:6])
     return sp
 
 
@@ -330,6 +364,30 @@ def mma_plan(ci: int, co: int, zs: int = 0, pp: bool = False) -> MmaPlan:
         raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
     return MmaPlan((_MMA_TILE, _MMA_TILE), 512, kc, stages, stride, smem,
                    zs, bool(pp))
+
+
+_TF32_KC, _TF32_STAGES = 8, 2
+
+
+def tf32_plan(ci: int, co: int) -> MmaPlan:
+    """The 3xTF32 kernel's plan for a ci -> co layer (csrc/mma_tf32.cu):
+    mma_plan's 16 x 16 tile and four warpgroups, chunks of 8 input channels
+    in a ring of 2 stages, each the chunk's 18 x 18 window [k4][row][col][4]
+    f32 (k4 stride win_stride 16-byte units) and its w_hi and w_lo, beside
+    the ring one a_lo window; the epilogue's padded f32 output tile reuses
+    the ring. The C entry takes smem_bytes and refuses bytes that differ
+    from its own count."""
+    if (ci, co) not in _MMA_CHUNK:
+        raise ValueError(f"no 3xTF32 kernel for a {ci} -> {co} layer")
+    k4c, win = _TF32_KC // 4, _MMA_TILE + 2
+    stride = win * win + (8 // k4c - win * win % 8 + 8) % 8
+    ring = (_TF32_STAGES * k4c * (stride + 2 * 9 * co) * 16
+            + k4c * stride * 16)
+    smem = max(ring, _MMA_TILE * _MMA_TILE * (4 * co + 16))
+    if smem > SMEM_MAX:
+        raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
+    return MmaPlan((_MMA_TILE, _MMA_TILE), 512, _TF32_KC, _TF32_STAGES,
+                   stride, smem)
 
 
 def mma_grid(n: int, hin: int, win: int) -> tuple:
@@ -467,6 +525,46 @@ def _check_wm(wm, x: torch.Tensor) -> None:
             raise ValueError(f"wm, layer {k}: must be contiguous")
 
 
+def _w1s(sp, x: torch.Tensor) -> torch.Tensor:
+    """StackParams.w1s, checked against the low-res plane x it will meet.
+    Weights without that field (a bare tuple of (w, b) pairs, or
+    StackParams built by hand) have their phase sums formed from the stored
+    layer-1 weights (prep_params forms them from the f32 weights, so in
+    bf16 the two round differently)."""
+    w1s = getattr(sp, "w1s", None)
+    if w1s is None:
+        w1 = sp[0][0].detach().float().cpu().reshape(1, 3, 3, 32)
+        w1s = (torch.from_numpy(pack_l1_scale(w1.permute(1, 2, 0, 3)
+                                              .numpy()))
+               .to(sp[0][0].device, sp[0][0].dtype))
+    if tuple(w1s.shape) != (9, 128):
+        raise ValueError(f"StackParams.w1s must be [9, 128], got "
+                         f"{tuple(w1s.shape)}")
+    if (w1s.device != x.device or not w1s.is_contiguous()
+            or w1s.dtype != sp[0][0].dtype):
+        raise TypeError(f"w1s must be contiguous {sp[0][0].dtype} on "
+                        f"{x.device}, got {w1s.dtype} on {w1s.device}")
+    return w1s
+
+
+def _wt(sp, x: torch.Tensor, k: int) -> tuple:
+    """StackParams.wt's (hi, lo) pair of layer k + 1 (k = 1..5), checked
+    against the f32 plane x it will meet."""
+    wt = getattr(sp, "wt", None)
+    if wt is None or len(wt) != 5:
+        raise ValueError("the 3xTF32 layers need prep_params' f32 "
+                         "StackParams.wt")
+    ci, co = WIDTHS[k]
+    for t in wt[k - 1]:
+        if tuple(t.shape) != (ci // 4, 9, co, 4) or t.dtype != torch.float32:
+            raise ValueError(f"wt, layer {k + 1}: {tuple(t.shape)} "
+                             f"{t.dtype}, want f32 {(ci // 4, 9, co, 4)}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"wt, layer {k + 1}: must be contiguous on "
+                             f"{x.device}")
+    return wt[k - 1]
+
+
 def _w7f(sp, x: torch.Tensor) -> torch.Tensor:
     """StackParams.w7f, checked against the layer-6 plane x it will meet."""
     w7f = getattr(sp, "w7f", None)
@@ -547,6 +645,72 @@ def _plain_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype,
     w_oihw = w.float().reshape(ci, 3, 3, co).permute(3, 0, 1, 2)
     x = leaky_relu(F.conv2d(x, w_oihw, b))
     return x.to(dtype).float() if round_out else x
+
+
+def _l1_values(x: torch.Tensor, sp, full_res: bool = False) -> torch.Tensor:
+    """Layer 1 (csrc/l1.cu) as f32 values rounded where the kernel rounds:
+    x [N, ph, pw] -> x1 [N, 2hg+12, 2wg+12, 32] NHWC. Scale (x the low-res
+    plane, hg = ph): phase (A, B) of s2d cell (K, J) is the sum over
+    (r, s) = (0,0), (0,1), (1,0), (1,1) of pad4(x)[K+A+r, J+B+s] *
+    w1s[(A+r)*3 + (B+s), (A*2+B)*32 + c], pad4 the plane edge-padded by 4
+    (each position its own clamp). Noise (x the full-res plane, hg =
+    ceil(ph/2)): the taps t = 0..8 of w1 over the plane clamped to its
+    raw size, as the index y[clamp(Y-7, 0, ph-1), clamp(X-7, 0, pw-1)].
+    Each sum in f32 from the bias, in that order, then LeakyReLU and one
+    rounding to x's dtype."""
+    n, ph, pw = x.shape
+    b1 = sp[0][1]
+    if full_res:
+        hg, wg = -(-ph // 2), -(-pw // 2)
+        r = (torch.arange(2 * hg + 14, device=x.device) - 7).clamp_(0, ph - 1)
+        c = (torch.arange(2 * wg + 14, device=x.device) - 7).clamp_(0, pw - 1)
+        v = x[:, r][:, :, c].float()[..., None]
+        w = sp[0][0].float()[0]                               # [9, 32]
+        h1, w1 = 2 * hg + 12, 2 * wg + 12
+        acc = b1
+        for t in range(9):
+            acc = acc + v[:, t // 3:t // 3 + h1, t % 3:t % 3 + w1] * w[t]
+    else:
+        yp = _lowres_window(x, 0, 0, ph + 8, pw + 8).float()[..., None]
+        w = _w1s(sp, x).float()
+        phases = []
+        for q in range(4):
+            a, b = divmod(q, 2)
+            acc = b1
+            for rs in range(4):
+                r, s = divmod(rs, 2)
+                acc = acc + (yp[:, a + r:a + r + ph + 6, b + s:b + s + pw + 6]
+                             * w[(a + r) * 3 + b + s, q * 32:(q + 1) * 32])
+            phases.append(acc)
+        acc = (torch.stack(phases, dim=3).reshape(n, ph + 6, pw + 6, 2, 2, 32)
+               .permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * ph + 12,
+                                                  2 * pw + 12, 32))
+    return leaky_relu(acc).to(x.dtype).float()
+
+
+def _l1_ffma_values(x: torch.Tensor, sp, full_res: bool = False):
+    """stack.cu's layer 1 (l1_layer(ffma=True)) as f32 values: the 9 taps of
+    w1 over the nearest-2x upscale padded by 7 (scale; w1's own weights, each
+    rounded to the storage dtype apart) or over the full-res plane padded to
+    even and by 7 (noise; l1.cu's function), F.conv2d with TF32 off ->
+    [N, 2hg+12, 2wg+12, 32] NHWC."""
+    if full_res:
+        n, ph, pw = x.shape
+        x = _edge_extend(x, 2 * -(-ph // 2), 2 * -(-pw // 2))
+    else:
+        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    with no_tf32():
+        y = _plain_layer(pad_replicate(x.float(), 7), *sp[0], x.dtype)
+    return y.permute(0, 2, 3, 1)
+
+
+def l1_plain(x: torch.Tensor, sp, full_res: bool = False,
+             ffma: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of layer 1 (l1_layer): x [N, ph, pw] -> x1
+    [N, 2hg+12, 2wg+12, 32] NHWC in x's dtype (_l1_values; with ffma,
+    stack.cu's plane modes, _l1_ffma_values)."""
+    vals = (_l1_ffma_values if ffma else _l1_values)(x, sp, full_res)
+    return vals.to(x.dtype)
 
 
 def zs_index(n_out: int, k: int, device=None) -> torch.Tensor:
@@ -801,14 +965,15 @@ def _taps_plain(x6: torch.Tensor, w7: torch.Tensor, dtype) -> torch.Tensor:
     return torch.stack(out, dim=-1).to(dtype).float()
 
 
-def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
+def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
                  form: str = "direct", tiling=None, upto=None,
                  mma: bool = False, out: str = "cell"):
-    """The stack on the padded f32 plane x [N, 1, 2hg+14, 2wg+14] ->
-    [N, hg, wg, 4] in s2d layout (f32 values): F.conv2d + bias + LeakyReLU
-    per layer in f32 with TF32 off, each stored activation rounded to
-    `dtype` where the kernel rounds it. round_last=False leaves the last
-    layer's output unrounded, as the u8 epilogue reads it. `form` is layer
+    """The stack from layer 1's output x1 [N, 32, 2hg+12, 2wg+12] (f32
+    values, _l1_values) -> [N, hg, wg, 4] in s2d layout (f32 values):
+    F.conv2d + bias + LeakyReLU per layer in f32 with TF32 off, each stored
+    activation rounded to `dtype` where the kernel rounds it.
+    round_last=False leaves the last layer's output unrounded, as the u8
+    epilogue reads it. `form` is layer
     6's; with "i8", `tiling` = (tr, tc, ny, nx) must cover hg x wg exactly.
     upto (1..6) stops after that layer and gives its 4 values per cell
     (stack_scale_upto), in the form `out`: with "whole" (upto 1..5) the
@@ -817,7 +982,7 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
     sp.wm (layer 6 only in its direct form). Layer 7 of a bf16 stack is
     the folded tap product (l7_fold_plain) where layer 6's output is one
     plane (not with "i8"), as csrc/l7.cu computes it."""
-    hg, wg = (x.shape[2] - 14) // 2, (x.shape[3] - 14) // 2
+    hg, wg = (x1.shape[2] - 12) // 2, (x1.shape[3] - 12) // 2
     w7, b7 = sp[6]
     fold = l7_fold_chosen(dtype) and form != "i8"
 
@@ -831,10 +996,10 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
         y = _plain_layer(x6, w7, b7, dtype, round_last)
         return s2d(y[:, 0, :, :, None])
 
+    x = x1
     with no_tf32():
-        for k in range(5 if upto is None else min(upto, 5)):
-            x = (_plain_mid(x, sp, k, dtype, mma) if k
-                 else _plain_layer(x, *sp[0], dtype))
+        for k in range(1, 5 if upto is None else min(upto, 5)):
+            x = _plain_mid(x, sp, k, dtype, mma)
         if upto is not None and upto <= 5:
             if out == "whole":
                 return x.permute(0, 2, 3, 1)
@@ -858,14 +1023,14 @@ def _plain_stack(x: torch.Tensor, sp, dtype, round_last: bool = True,
 def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
                      form: str = "direct", tile=None, upto=None,
                      mma: bool = False, out: str = "cell"):
-    """nearest-2x (of the plane edge-extended to the int8 tile grid, where
-    there is one), replicate pad 7, the stack (_plain_stack), cropped ->
+    """Layer 1 on the low-res plane (edge-extended to the int8 tile grid,
+    where there is one; _l1_values), the stack (_plain_stack), cropped ->
     [N, hl, wl, 4] as f32 values (out="whole": the uncropped plane)."""
     ylow, hl, wl, tiling = _on_grid(
         ylow, False, form if upto in (None, 6) else "direct", tile)
-    up = ylow.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-    y = _plain_stack(pad_replicate(up.float(), 7), sp, ylow.dtype,
-                     round_last, form, tiling, upto, mma, out)
+    x1 = _l1_values(ylow, sp).permute(0, 3, 1, 2)
+    y = _plain_stack(x1, sp, ylow.dtype, round_last, form, tiling, upto, mma,
+                     out)
     return y if out == "whole" else y[:, :hl, :wl]
 
 
@@ -966,9 +1131,9 @@ def stack_scale_fused_u8_plain(ylow: torch.Tensor, uvp: torch.Tensor, sp,
 
 def _noise_plain_s2d(y: torch.Tensor, sp, l6_i8=None, l6_wino=None,
                      tile=None, mma: bool = False) -> torch.Tensor:
-    """Plain noise stack on any [N, h, w]: edge pad to even (to the int8
-    tile grid, where there is one) and replicate pad 7, the stack, cropped
-    -> [N, ceil(h/2), ceil(w/2), 4]."""
+    """Plain noise stack on any [N, h, w]: layer 1 on the plane edge-padded
+    to even (to the int8 tile grid, where there is one) and by 7
+    (_l1_values), the stack, cropped -> [N, ceil(h/2), ceil(w/2), 4]."""
     form = l6_form(l6_i8, l6_wino)
     _check(y, sp, form)
     h, w = y.shape[1:]
@@ -976,8 +1141,9 @@ def _noise_plain_s2d(y: torch.Tensor, sp, l6_i8=None, l6_wino=None,
     tiling = _tiling(hl, wl, form, tile)
     hg, wg = (hl, wl) if tiling is None else (tiling[0] * tiling[2],
                                               tiling[1] * tiling[3])
-    x = pad_replicate(_edge_extend(y, 2 * hg, 2 * wg).float(), 7)
-    ys = _plain_stack(x, sp, y.dtype, form=form, tiling=tiling, mma=mma)
+    x1 = _l1_values(_edge_extend(y, 2 * hg, 2 * wg), sp, True)
+    ys = _plain_stack(x1.permute(0, 3, 1, 2), sp, y.dtype, form=form,
+                      tiling=tiling, mma=mma)
     return ys[:, :hl, :wl].to(y.dtype)
 
 
@@ -1066,6 +1232,10 @@ _ARGTYPES = {
                                  _INT, _INT, _PTR]},
     "l7": {"w2x_l7_fold": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                            _INT, _PTR, _FLOATS, _INT, _PTR]},
+    "l1": {"w2x_l1": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                      _PTR]},
+    "mma_tf32": {"w2x_tf32_layer": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                    _INT, _INT, _INT, _INT, _PTR]},
 }
 
 
@@ -1109,10 +1279,10 @@ class _Launcher:
         self.step += 1
 
     def run(self, lib: str, fn: str, what: str, l6=None, *args,
-            mid=None, wino=None, l7=None) -> None:
+            mid=None, wino=None, l7=None, l1=None) -> None:
         """Launch one kernel and count it, under L6_LAUNCHES[l6],
-        MID_LAUNCHES[mid], WINO_LAUNCHES[wino] and L7_LAUNCHES[l7] too where
-        given."""
+        MID_LAUNCHES[mid], WINO_LAUNCHES[wino], L7_LAUNCHES[l7] and
+        L1_LAUNCHES[l1] too where given."""
         global LAUNCHES
         err = getattr(self.libs[lib], fn)(self.bf16, *args, self.stream)
         if err:
@@ -1129,15 +1299,19 @@ class _Launcher:
             WINO_LAUNCHES[wino] += 1
         if l7 is not None:
             L7_LAUNCHES[l7] += 1
+        if l1 is not None:
+            L1_LAUNCHES[l1] += 1
 
     def layer(self, k: int, full_res: bool, src, sp, dst, n, ph, pw,
               out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0, zs: int = 0,
               pp: bool = False, fold=None) -> None:
-        """Layer k + 1: layers 2-6 of a bf16 call on the tensor cores
-        (csrc/mma.cu), layer 7 of a bf16 call folded on the tensor cores
-        (csrc/l7.cu; l7_fold_chosen with `fold`), everything else through
-        csrc/stack.cu. zs, a zero-shift mask, and pp, two accumulators, are
-        the probes' variants of the tensor-core layers (zs also of layer 7
+        """Layer k + 1: layer 1 on csrc/l1.cu; layers 2-6 on the tensor
+        cores, a bf16 call's on csrc/mma.cu and an f32 call's as 3xTF32 on
+        csrc/mma_tf32.cu (both on stack.cu's FFMA kernel with MID_MMA
+        False); layer 7 of a bf16 call folded on the tensor cores
+        (csrc/l7.cu; l7_fold_chosen with `fold`), of an f32 call on
+        stack.cu. zs, a zero-shift mask, and pp, two accumulators, are the
+        probes' variants of the bf16 tensor-core layers (zs also of layer 7
         in s2d layout, on stack.cu's kernel)."""
         w, b = sp[k]
         hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
@@ -1155,10 +1329,13 @@ class _Launcher:
                          b.data_ptr(), dst.data_ptr(), n, hg, wg,
                          l7="pixel")
                 return
-        if 1 <= k <= 5 and ((self.bf16 and MID_MMA) or zs or pp):
-            self.mma_layer(k, src, sp, dst, n, 2 * hg + 14 - 2 * k,
-                           2 * wg + 14 - 2 * k, l6="direct" if k == 5
-                           else None, zs=zs, pp=pp)
+        if k == 0:
+            self.l1(full_res, src, sp, dst, n, ph, pw)
+            return
+        if 1 <= k <= 5 and (MID_MMA or zs or pp):
+            (self.mma_layer if self.bf16 else self.tf32_layer)(
+                k, src, sp, dst, n, 2 * hg + 14 - 2 * k, 2 * wg + 14 - 2 * k,
+                l6="direct" if k == 5 else None, zs=zs, pp=pp)
             return
         self.run("stack", "w2x_stack_layer", f"layer {k + 1}",
                  "direct" if k == 5 else None, int(full_res), k,
@@ -1168,6 +1345,36 @@ class _Launcher:
                  mid="ffma" if 1 <= k <= 5 else None,
                  l7=None if k < 6 else "pixel" if out_mode == _OUT_S2D
                  else "cell")
+
+    def l1(self, full_res: bool, x, sp, y, n, ph, pw,
+           ffma: bool = False) -> None:
+        """Layer 1 from the [n, ph, pw] plane x (low-res, or full-res with
+        full_res) into y [n, 2hg+12, 2wg+12, 32] on csrc/l1.cu, or with
+        ffma on stack.cu's plane modes (l1_layer's yardstick)."""
+        if ffma:
+            self.run("stack", "w2x_stack_layer", "layer 1 (FFMA)", None,
+                     int(full_res), 0, x.data_ptr(), sp[0][0].data_ptr(),
+                     sp[0][1].data_ptr(), y.data_ptr(), n, ph, pw, _OUT_S2D,
+                     None, None, 0, l1="ffma")
+            return
+        w = sp[0][0] if full_res else _w1s(sp, x)
+        self.run("l1", "w2x_l1", "layer 1", None, int(full_res),
+                 x.data_ptr(), w.data_ptr(), sp[0][1].data_ptr(),
+                 y.data_ptr(), n, ph, pw, l1="l1")
+
+    def tf32_layer(self, k: int, src, sp, dst, n, hin, win, l6=None,
+                   zs: int = 0, pp: bool = False) -> None:
+        """Layer k + 1 (k = 1..5) of an f32 call as 3xTF32 on the tensor
+        cores (csrc/mma_tf32.cu) on an [n, hin, win, ci] plane, counted
+        under MID_LAUNCHES["mma_tf32"]. It has no zs / pp variant."""
+        if zs or pp:
+            raise ValueError(f"layer {k + 1}: no variant zs={zs}, pp={pp} "
+                             f"of the f32 layers")
+        whi, wlo = _wt(sp, src, k)
+        self.run("mma_tf32", "w2x_tf32_layer", f"layer {k + 1} (3xTF32)",
+                 l6, k, src.data_ptr(), whi.data_ptr(), wlo.data_ptr(),
+                 sp[k][1].data_ptr(), dst.data_ptr(), n, hin, win,
+                 tf32_plan(*WIDTHS[k]).smem_bytes, mid="mma_tf32")
 
     def l7_fold(self, x6, sp, y, n, hl, wl, out_mode=_OUT_S2D, uvp=None,
                 cmap=None, tc=0) -> None:
@@ -1350,17 +1557,15 @@ def layer5_plane(x: torch.Tensor, sp, tile=None,
     [N, 2*ny*tr + 4, 2*nx*tc + 4, 128] in x's dtype. x is the low-res
     plane [N, hl, wl] of the scale stack, or with full_res the noise
     stack's plane [N, h, w]. CPU tensors take the plain layers; CUDA
-    tensors take the kernel's five launches, which count under MID_LAUNCHES
-    only (no stack ran)."""
+    tensors take the kernel's five launches, which count under L1_LAUNCHES
+    and MID_LAUNCHES only (no stack ran)."""
     _check(x, sp)
     x, _, _, (tr, tc, ny, nx) = _on_grid(x, full_res, "i8", tile)
     n, hg, wg = x.shape[0], tr * ny, tc * nx
     if x.device.type == "cpu":
-        if not full_res:
-            x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        a = pad_replicate(x.float(), 7)
+        a = _l1_values(x, sp, full_res).permute(0, 3, 1, 2)
         with no_tf32():
-            for w, b in sp[:5]:
+            for w, b in sp[1:5]:
                 a = _plain_layer(a, w, b, x.dtype)
         return a.permute(0, 2, 3, 1).to(x.dtype).contiguous()
     act = n * (2 * hg + 12) * (2 * wg + 12) * 128
@@ -1378,21 +1583,30 @@ def layer5_plane(x: torch.Tensor, sp, tile=None,
 
 def mma_layer(x: torch.Tensor, sp, k: int, zs: int = 0,
               pp: bool = False) -> torch.Tensor:
-    """Layer k (2..6) alone on the tensor cores: x [N, hin, win, ci] NHWC
-    bf16, contiguous -> [N, hin-2, win-2, co] bf16, from sp.wm[k-2] and
-    layer k's bias. zs (zero-shift mask) and pp (two accumulators, the same
-    function) select a probe variant (mma_plan). CPU tensors take
-    mma_layer_plain; CUDA tensors take the kernel, whose launch counts under
-    MID_LAUNCHES["mma"] ("mma_zs", "mma_pp") only."""
+    """Layer k (2..6) alone on the tensor cores: x [N, hin, win, ci] NHWC,
+    contiguous -> [N, hin-2, win-2, co] in x's dtype, with layer k's bias.
+    bf16 takes csrc/mma.cu from sp.wm[k-2]; zs (zero-shift mask) and pp
+    (two accumulators, the same function) select a probe variant
+    (mma_plan). f32 takes the 3xTF32 kernel (csrc/mma_tf32.cu, tf32_plan)
+    from sp.wt[k-2], and no variant. CPU tensors take mma_layer_plain (from
+    sp.wm, which for f32 storage holds the f32 weights); CUDA tensors take
+    the kernel, whose launch counts under MID_LAUNCHES["mma"] ("mma_zs",
+    "mma_pp"; "mma_tf32" for f32) only."""
     if k not in range(2, 7):
         raise ValueError(f"the tensor-core kernel runs layers 2..6, got {k}")
     ci, co = WIDTHS[k - 1]
-    mma_plan(ci, co, zs, pp)   # raises for a variant that is not built
+    if x.dtype == torch.float32:
+        if zs or pp:
+            raise ValueError(f"no f32 variant zs={zs!r}, pp={pp!r}")
+        tf32_plan(ci, co)
+    else:
+        mma_plan(ci, co, zs, pp)   # raises for a variant that is not built
     if x.dim() != 4 or x.shape[3] != ci or min(x.shape[1:3]) < 3:
         raise ValueError(f"layer {k} takes [N, hin >= 3, win >= 3, {ci}], "
                          f"got {tuple(x.shape)}")
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise TypeError(f"x must be contiguous bfloat16, got {x.dtype}")
+    if x.dtype not in DTYPES or not x.is_contiguous():
+        raise TypeError(f"x must be contiguous float32 or bfloat16, got "
+                        f"{x.dtype}")
     wm = getattr(sp, "wm", None)
     if wm is None:
         raise ValueError("mma_layer needs prep_params' packed weights "
@@ -1404,8 +1618,31 @@ def mma_layer(x: torch.Tensor, sp, k: int, zs: int = 0,
     with torch.cuda.device(x.device):
         y = torch.empty((n, hin - 2, win - 2, co), dtype=x.dtype,
                         device=x.device)
-        _Launcher(None, x, None).mma_layer(k - 1, x, sp, y, n, hin, win,
-                                           zs=zs, pp=pp)
+        run = _Launcher(None, x, None)
+        (run.mma_layer if run.bf16 else run.tf32_layer)(
+            k - 1, x, sp, y, n, hin, win, zs=zs, pp=pp)
+    return y
+
+
+def l1_layer(x: torch.Tensor, sp, full_res: bool = False,
+             ffma: bool = False) -> torch.Tensor:
+    """Layer 1 alone: x [N, ph, pw] (f32 or bf16, contiguous; the low-res
+    plane, or with full_res the noise stack's full-res plane, any size) ->
+    x1 [N, 2hg+12, 2wg+12, 32] NHWC in x's dtype, what the stack's layer 2
+    reads (hg = ph, or ceil(ph/2) with full_res). The kernel is csrc/l1.cu,
+    the stack's; ffma=True takes stack.cu's FFMA plane modes instead, the
+    timing yardstick, whose scale mode applies w1's taps apart on the
+    nearest-2x upscale. CPU tensors take l1_plain; CUDA tensors take the
+    kernel, whose launch counts under L1_LAUNCHES only."""
+    _check(x, sp)
+    if x.device.type == "cpu":
+        return l1_plain(x, sp, full_res, ffma)
+    n, ph, pw = x.shape
+    hg, wg = (-(-ph // 2), -(-pw // 2)) if full_res else (ph, pw)
+    with torch.cuda.device(x.device):
+        y = torch.empty((n, 2 * hg + 12, 2 * wg + 12, 32), dtype=x.dtype,
+                        device=x.device)
+        _Launcher(None, x, None).l1(full_res, x, sp, y, n, ph, pw, ffma)
     return y
 
 
