@@ -9,17 +9,18 @@ and prints their numbers. Layer 1 of every stack call runs on csrc/l1.cu
 (ops.stack.L1_LAUNCHES). Every stack call of every phase runs layers 2-6 on
 the tensor cores, in bf16 on csrc/mma.cu and in f32 as 3xTF32 on
 csrc/mma_tf32.cu; where ops.stack.MID_MMA is set to False both run them as
-FFMA (csrc/stack.cu). Layer 7 of every bf16 stack call on a plane runs
-folded on the tensor cores (csrc/l7.cu), counted by kernel in
-ops.stack.L7_LAUNCHES, which phases 4, 6, 7, 10, 11 and 15 read, as they
-and every stream read L1_LAUNCHES.
+FFMA (csrc/stack.cu). Layer 7 of every stack call on a plane runs folded
+(csrc/l7.cu: bf16 on the tensor cores, f32 with FFMA), counted by kernel in
+ops.stack.L7_LAUNCHES, which phases 4, 6-8, 10, 11 and 15 read, as they
+and every stream read L1_LAUNCHES. Under the int8 switch layer 6 runs on
+the int8 tensor cores (csrc/i8.cu, ops.stack.I8_LAUNCHES).
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
 Phases (any failure raises and exits non-zero):
   1. build csrc/stack.cu, csrc/l6.cu, csrc/mma.cu, csrc/wino.cu,
-     csrc/l7.cu, csrc/probe.cu, csrc/tmm.cu, csrc/l1.cu and
-     csrc/mma_tf32.cu with nvcc for sm_90a, all at once (ops/_build.py);
+     csrc/l7.cu, csrc/probe.cu, csrc/tmm.cu, csrc/l1.cu, csrc/mma_tf32.cu
+     and csrc/i8.cu with nvcc for sm_90a, all at once (ops/_build.py);
   2. f32 scale kernel vs plain version at small and odd shapes:
      max |diff| <= 3e-5;
   3. the scale kernel vs its plain version at the scale512 shape
@@ -90,12 +91,13 @@ Phases (any failure raises and exits non-zero):
      stack.WINO_LAUNCHES; both forms' PSNR on a pure-random plane printed;
  14. int8 layer 6 (B4), l6_i8=True, at equal tile, scale and noise input
      modes, a grid that pads both ways, a single tile, scale512 and
-     noise256: (a) layer 6 alone, kernel and plain version fed the same
-     stored layer-5 plane (layer5_plane and l6_i8_layer, standalone
-     wrappers, leave the stack counts LAUNCHES and KERNEL_LAUNCHES as they
-     were): the quantised values and the int32 sums are then
-     the same on both sides, so f32 <= 3e-5 and bf16 <= 2^-4 with no
-     allowance for ties, and the tiles' scales equal bit for bit; (b) the
+     noise256: (a) layer 6 alone, the int8 tensor-core kernel (csrc/i8.cu,
+     one I8_LAUNCHES["mma"] a call), the __dp4a kernel (MID_MMA False) and
+     the plain version fed the same stored layer-5 plane (layer5_plane and
+     l6_i8_layer, standalone wrappers, leave the stack counts LAUNCHES and
+     KERNEL_LAUNCHES as they were): the quantised values and the int32 sums
+     are then the same on all sides, so the three are held equal bit for
+     bit, f32 and bf16, the tiles' scales too; (b) the
      whole stack: a quantiser tie that the f32 summation order of layers
      1-5 flips moves one int8 step, so in f32 kernel - plain is held
      against int8 - direct on the same input, its rms to a tenth and its
@@ -196,9 +198,29 @@ Phases (any failure raises and exits non-zero):
      scale512 and noise256: bf16 to one bf16 ulp, f32 <= 3e-5; then timed
      in turns against stack.cu's FFMA plane modes, with GB/s against the
      byte bound and cuDNN's layer 1 on the padded plane.
+ 24. layer 7 of the f32 stacks folded with FFMA (phase24 below; csrc/l7.cu's
+     l7_fold_f32 through stack.last_layer) against l7_fold_plain in its
+     three forms at three small shapes and the ns1080 and scale512 f32
+     layer-7 planes: s2d and dense <= 3e-5, dense un-chunked equal to s2d
+     bit for bit, u8 one level at < 0.5% of bytes, one "fold_f32" launch a
+     call; then timed alone in turns against the FFMA kernels
+     (fold=False, each form held against last_layer_plain first), which it
+     must beat, beside the byte bound, cuDNN's f32 layer 7 (TF32 off) and
+     the plain version.
+ 25. B4's int8 layer 6 on the int8 tensor cores (phase25 below; csrc/i8.cu
+     through stack.l6_i8_layer) timed alone at scale512 with the default
+     tile, in turns against the __dp4a kernel (MID_MMA False), which it
+     must beat, beside its bound, the plain version and cuDNN's bf16 layer
+     6 (a different function); the timed plane's output equals the plain
+     version's bit for bit.
 In phase 7 the f32-noise chain's layers 2-6 count 5 "mma_tf32" (the noise
-stack) and 5 "mma" (the bf16 scale stack), and the ns1080 timings put the
-f32-noise step and stack beside their FFMA times in turns.
+stack) and 5 "mma" (the bf16 scale stack), its layer 7 one "fold_f32" and
+one "fold", and the ns1080 timings put the f32-noise step and stack beside
+their times with FFMA layers 2-6, in turns, with the noise stack's
+per-layer events and their times with the FFMA layer 7 derived from phase
+24's turns of layer 7 alone (the FFMA kernel's time less the fold's). Phase 8
+holds every Converter call's layer 7 to the folds (f32 for the noise stack
+of the default noise_scale policy), no per-pixel or cell launch.
 In phases 4, 6-8, 10-11 and 15 every call that the run made to a kernel wrapper
 (one per wrapper, input shape, dtype and weights) is repeated on a copy of
 its input and held against the plain version: f32 max |diff| <= 3e-5; bf16
@@ -1239,9 +1261,9 @@ L7_SHAPES = ((1, 27, 38), (2, 37, 53), (1, 5, 300))
 
 
 def expect_l7(stack, label: str, fold: int = 0, cell: int = 0,
-              pixel: int = 0) -> None:
+              pixel: int = 0, fold_f32: int = 0) -> None:
     """Layer 7's launches by kernel since the counts were last reset."""
-    want = {"fold": fold, "cell": cell, "pixel": pixel}
+    want = {"fold": fold, "fold_f32": fold_f32, "cell": cell, "pixel": pixel}
     if stack.L7_LAUNCHES != want:
         raise AssertionError(f"{label}: layer-7 launches "
                              f"{stack.L7_LAUNCHES}, want {want}")
@@ -1574,6 +1596,7 @@ def phase22(dev: torch.device, main_launches: int) -> list:
         raise AssertionError(f"f32 noise stack: layers 2-6 launches "
                              f"{stack.MID_LAUNCHES}, want {want}")
     mid = {f: (t[0][1:6] + t[1][1:6]) / 2 for f, t in turns.items()}
+    ends = (turns[True][0] + turns[True][1]) / 2   # layers 1 and 7: [0], [6]
     stack_ms = {f: sum(v) / 2 for f, v in whole.items()}
     bounds = tf32_layer_bounds(stack, n, hg, wg)
     bound = sum(b[2] for b in bounds)
@@ -1611,6 +1634,8 @@ def phase22(dev: torch.device, main_launches: int) -> list:
         f"{floor:.2f} ms); per layer " + "; ".join(
             f"L{k + 2} {mid[True][k]:.2f} / FFMA {mid[False][k]:.2f} ms, "
             f"bound {bounds[k][2]:.2f}" for k in range(5))
+        + f"; layer 1 (csrc/l1.cu) {ends[0]:.2f} ms, layer 7 (csrc/l7.cu, "
+        f"the f32 fold) {ends[6]:.2f} ms"
         + "; the two turns of each: 3xTF32 "
         + " / ".join(f"{t[1:6].sum():.2f}" for t in turns[True])
         + ", FFMA " + " / ".join(f"{t[1:6].sum():.2f}" for t in turns[False])
@@ -1648,7 +1673,7 @@ def phase22(dev: torch.device, main_launches: int) -> list:
         "library_ms": lib_mid,
     }, {
         "name": "the f32 noise stack at ns1080 (stack_noise, f32: layers 2-6 "
-                "3xTF32, layers 1 and 7 csrc/l1.cu and stack.cu)",
+                "3xTF32, layers 1 and 7 csrc/l1.cu and csrc/l7.cu)",
         "route": "cuda",
         "source": "waifu2x_torch/csrc/mma_tf32.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
@@ -1822,6 +1847,315 @@ def phase23(dev: torch.device, main_launches: int) -> list:
     }]
 
 
+def library_l7_f32_ms(x6: torch.Tensor, sp32) -> float:
+    """Library yardstick (never called by the port): layer 7 alone as one
+    cuDNN f32 channels_last convolution 128 -> 1 + leaky_relu, TF32 off, on
+    the NHWC f32 layer-6 plane x6 (a channels_last view, no copy)."""
+    from waifu2x_torch.ops.convstack import no_tf32
+    (w, b), = cudnn_f32(sp32[6:7])
+    xc = x6.permute(0, 3, 1, 2)
+    with no_tf32():
+        ms = timed_ms(lambda: F.leaky_relu(F.conv2d(xc, w, b), 0.1))
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase24(dev: torch.device, main_launches: int) -> list:
+    """24. Layer 7 of the f32 stacks folded with FFMA (csrc/l7.cu's
+    l7_fold_f32, reached through stack.last_layer as every f32 stack
+    reaches it) against its plain version (l7_fold_plain, then last_out) in
+    its three output forms, at the layer-7 planes of L7_SHAPES (random
+    weights) and of ns1080's noise stack and scale512 (the shipped noise2
+    and scale2.0x weights, f32): s2d and dense within 3e-5, dense
+    un-chunked equal to s2d bit for bit and its pad columns zero, u8 by
+    check_u8_kernel, each call one launch under L7_LAUNCHES["fold_f32"].
+    Then timed alone at ns1080 (s2d) and scale512 (each form), in turns
+    (FFMA, fold, fold, FFMA) against the FFMA kernels the f32 stacks ran
+    before (fold=False; each form first held against last_layer_plain's Y
+    at the same bars), beside cuDNN's f32 layer 7 alone (TF32 off), the
+    plain version and the byte bound; the fold must be the faster in every
+    form. `main_launches` is the fold's f32 count in phase 7's f32-noise
+    chain. Returns the kernel table's row."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.utils.timing import card_name
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    sp_r = stack.prep_params(init_params(3), torch.float32, dev)
+    sp_n = stack.prep_params(load_model_json(
+        root / "models" / "noise2_demo.json"), torch.float32, dev)
+    sp_s = stack.prep_params(load_model_json(
+        root / "models" / "scale2.0x_demo.json"), torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    ns = (NS1080[0], NS1080[1] // 2, NS1080[2] // 2)
+    cases = [(shape, sp_r) for shape in L7_SHAPES]
+    cases += [(ns, sp_n), ((16, 512, 512), sp_s)]
+    err = {"s2d": 0.0, "dense": 0.0, "u8": 0}
+    share = 0.0
+    planes = {}
+    for (n, hl, wl), sp in cases:
+        x6 = torch.rand((n, 2 * hl + 2, 2 * wl + 2, 128), device=dev,
+                        generator=gen)
+        uvp = torch.rand((n, hl, wl, 8), device=dev, generator=gen)
+        chunk = max(1, int(2e9 // (x6[0].numel() * 4)))
+        y32 = torch.cat([stack.l7_fold_plain(x6[i:i + chunk], sp.w7f,
+                                             sp[6][1])
+                         for i in range(0, n, chunk)])
+        label = f"f32 layer 7 fold {(n, hl, wl)}"
+        stack.reset_launches()
+        got = stack.last_layer(x6, sp)
+        torch.cuda.synchronize()
+        expect_l7(stack, label + " s2d", fold_f32=1)
+        err["s2d"] = max(err["s2d"], check_f32(label + " s2d", got, y32))
+        ydense, tc = stack.last_layer(x6, sp, out="dense")
+        check_dense_pad(label + " dense", ydense, tc, wl)
+        if not torch.equal(stack.dense_to_s2d(ydense, tc, hl, wl), got):
+            raise AssertionError(f"{label} dense: un-chunked output "
+                                 f"differs from s2d")
+        err["dense"] = max(err["dense"], check_f32(
+            label + " dense", ydense,
+            stack.last_out(y32, "dense", torch.float32, tc=tc)[0]))
+        del ydense, got
+        got = stack.last_layer(x6, sp, out="u8", uvp=uvp)
+        check_lanes_zero(label + " u8", got)
+        e, sh = check_u8_kernel(label + " u8", got,
+                                stack.last_out(y32, "u8", torch.float32,
+                                               uvp), torch.float32)
+        err["u8"], share = max(err["u8"], e), max(share, sh)
+        expect_l7(stack, label, fold_f32=3)
+        del got, y32
+        if n > 2:
+            planes[(n, hl, wl)] = (x6, uvp, sp)
+        else:
+            del x6, uvp
+        torch.cuda.empty_cache()
+    log(f"phase 24 f32 layer 7 fold at {', '.join(map(str, L7_SHAPES))}, "
+        f"ns1080 {ns} and scale512 x6 planes: max|kernel - plain| s2d "
+        f"{err['s2d']:.3e}, dense {err['dense']:.3e} (bar 3e-5), dense "
+        f"un-chunked == s2d bit for bit, u8 {err['u8']} level at "
+        f"{share:.4%} of bytes")
+
+    def bound_ms(x6, out_bytes):
+        """Bytes: x6 read once, w7 and b, the output written once; the
+        operations: the 4 x 9 x 128 FMA a cell that w7f does not hold as
+        zeros, at the f32 peak."""
+        n, h6, w6, _ = x6.shape
+        cells = n * (h6 // 2) * (w6 // 2)
+        moved = x6.numel() * 4 + 128 * 9 * 4 + 4 + out_bytes
+        ops = 2 * 4 * 9 * 128 * cells
+        return (max(moved / PEAK_BYTES, ops / PEAK_F32_FLOPS) * 1e3,
+                "bytes" if moved / PEAK_BYTES >= ops / PEAK_F32_FLOPS
+                else "operations", moved)
+
+    rows = {}
+    ffma_err = {"s2d": 0.0, "dense": 0.0, "u8": 0}
+    for key, forms in ((ns, ("s2d",)), ((16, 512, 512),
+                                        ("s2d", "dense", "u8"))):
+        x6, uvp, sp = planes.pop(key)
+        n, hl, wl = key
+        kw = {"s2d": {}, "dense": {"out": "dense"},
+              "u8": {"out": "u8", "uvp": uvp}}
+        tc = stack._dense_tc(wl, None)
+        # the yardstick computes the same function: each FFMA form timed
+        # below against its plain version (last_layer_plain's f32 Y)
+        yf = torch.cat([stack.last_layer_plain(x6[i:i + 2], sp[6][0],
+                                               sp[6][1])
+                        for i in range(0, n, 2)])
+        label = f"f32 layer 7 FFMA (fold=False) {key}"
+        for form in forms:
+            got = stack.last_layer(x6, sp, fold=False, **kw[form])
+            if form == "s2d":
+                e = check_f32(label + " s2d", got, yf)
+            elif form == "dense":
+                e = check_f32(label + " dense", got[0], stack.last_out(
+                    yf, "dense", torch.float32, tc=got[1])[0])
+            else:
+                e = check_u8_kernel(label + " u8", got, stack.last_out(
+                    yf, "u8", torch.float32, uvp), torch.float32)[0]
+            ffma_err[form] = max(ffma_err[form], e)
+            del got
+        del yf
+        torch.cuda.empty_cache()
+        out_bytes = {"s2d": n * hl * wl * 4 * 4,
+                     "dense": n * hl * -(-wl // tc) * 4 * tc * 4,
+                     "u8": n * hl * wl * (16 + 8 * 4)}
+        for form in forms:
+            turns = {True: [], False: []}
+            for flag in (False, True, True, False):
+                turns[flag].append(timed_ms(
+                    lambda: stack.last_layer(x6, sp, fold=flag, **kw[form])))
+            b, by, moved = bound_ms(x6, out_bytes[form])
+            rows[(key, form)] = {
+                "fold": sum(turns[True]) / 2, "ffma": sum(turns[False]) / 2,
+                "turns": turns, "bound": b, "bound_by": by, "moved": moved}
+        rows[(key, "s2d")]["library"] = library_l7_f32_ms(x6, sp)
+        t1 = time.perf_counter()
+        for i in range(0, n, 2):
+            stack.l7_fold_plain(x6[i:i + 2], sp.w7f, sp[6][1])
+        torch.cuda.synchronize()
+        rows[(key, "s2d")]["plain"] = (time.perf_counter() - t1) * 1e3
+        del x6, uvp
+        torch.cuda.empty_cache()
+
+    def tag(key):
+        return "ns1080" if key == ns else "scale512"
+
+    log(f"phase 24 f32 layer 7 alone on {card_name()}: " + "; ".join(
+        f"{tag(key)} {form} fold {r['fold']:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in r["turns"][True])
+        + f"; {r['moved'] / r['fold'] / 1e6:.0f} GB/s = "
+        f"{100 * r['bound'] / r['fold']:.1f}% of the bound {r['bound']:.3f} "
+        f"ms by {r['bound_by']}), FFMA {r['ffma']:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in r["turns"][False])
+        + f"), {r['ffma'] / r['fold']:.2f}x"
+        + (f"; cuDNN f32 layer 7 alone (TF32 off) {r['library']:.3f} ms; "
+           f"plain (l7_fold_plain, two frames at a time, host clock) "
+           f"{r['plain']:.1f} ms" if "library" in r else "")
+        for (key, form), r in rows.items())
+        + f"; the FFMA kernels timed against last_layer_plain: max|diff| "
+        f"s2d {ffma_err['s2d']:.3e}, dense {ffma_err['dense']:.3e} (bar "
+        f"3e-5), u8 {ffma_err['u8']} level; {time.perf_counter() - t0:.1f} s")
+    for (key, form), r in rows.items():
+        if not r["fold"] < r["ffma"]:
+            raise AssertionError(f"f32 layer 7 {tag(key)} {form}: fold "
+                                 f"{r['fold']} ms, FFMA {r['ffma']} ms")
+    r = rows[(ns, "s2d")]
+    s512 = rows[((16, 512, 512), "s2d")]
+    return [{
+        "name": "l7_fold_f32, layer 7 (128 -> 1) of every f32 stack call on "
+                "a plane as the folded tap product, FFMA on the w7 taps that "
+                "w7f holds (L7-32)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/l7.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "replaces_part": "_stack_body's layer 7 with l7_fold in f32, "
+                         ":489-508 and :603-655",
+        "launches": main_launches,
+        "launches_of": "phase 7's ns1080 chain with an f32 noise stack",
+        "max_abs_err": max(err["s2d"], err["dense"]),
+        "max_abs_err_u8_levels": err["u8"],
+        "ms": r["fold"],
+        "ffma_ms": r["ffma"],
+        "ffma_max_abs_err": max(ffma_err["s2d"], ffma_err["dense"]),
+        "ffma_max_abs_err_u8_levels": ffma_err["u8"],
+        "plain_ms": r["plain"],
+        "bound_ms": r["bound"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library"],
+        "scale512_ms": {form: rows[((16, 512, 512), form)]["fold"]
+                        for form in ("s2d", "dense", "u8")},
+        "scale512_ffma_ms": {form: rows[((16, 512, 512), form)]["ffma"]
+                             for form in ("s2d", "dense", "u8")},
+        "scale512_bound_ms": s512["bound"],
+        "scale512_library_ms": s512["library"],
+        "scale512_plain_ms": s512["plain"],
+    }]
+
+
+def phase25(dev: torch.device, main_launches: int) -> list:
+    """25. The int8 layer 6 (B4) on the int8 tensor cores (csrc/i8.cu,
+    reached through stack.l6_i8_layer as every stack under l6_i8 reaches
+    it; phase 14a held it bit for bit) timed alone at scale512 with the
+    default tile, in turns (__dp4a, wgmma, wgmma, __dp4a: MID_MMA False /
+    True), each call the tile maxima and the layer, beside its bound (the
+    int8 multiply-adds of the tile windows at the int8 peak, or x5 read and
+    the tile-major x6 written once), the plain version and cuDNN's bf16
+    layer 6 on the same plane (a different function: no quantisation, no
+    tiles); the wgmma kernel must be the faster, and its output on the
+    timed plane equal the plain version's bit for bit (the row's
+    max_abs_err). `main_launches` is the
+    layer's I8_LAUNCHES["mma"] count in phase 15's scale512 stream. Returns
+    the kernel table's row."""
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.utils.timing import card_name
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    sp = stack.prep_params(load_model_json(
+        root / "models" / "scale2.0x_demo.json"), torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    n, hl, wl = 16, 512, 512
+    tile = stack.default_tile(hl, wl)
+    ylow = torch.rand((n, hl, wl), device=dev, generator=gen).to(
+        torch.bfloat16)
+    x5 = stack.layer5_plane(ylow, sp, tile)
+    del ylow
+    tr, tc = tile
+    ny, nx = (x5.shape[1] - 4) // (2 * tr), (x5.shape[2] - 4) // (2 * tc)
+    turns = {True: [], False: []}
+    for flag in (False, True, True, False):
+        stack.MID_MMA = flag
+        turns[flag].append(timed_ms(lambda: stack.l6_i8_layer(x5, sp, tile)))
+    stack.MID_MMA = True
+    ms = {k: sum(v) / 2 for k, v in turns.items()}
+    stack.reset_launches()
+    x6t, sx = stack.l6_i8_layer(x5, sp, tile)
+    torch.cuda.synchronize()
+    if stack.I8_LAUNCHES != {"mma": 1, "dp4a": 0}:
+        raise AssertionError(f"int8 layer 6 alone: {stack.I8_LAUNCHES}")
+    lib_ms = library_l6_ms(x5, sp)
+    t1 = time.perf_counter()
+    plain = [stack.l6_i8_layer_plain(x5[i:i + 1], sp, tile)
+             for i in range(n)]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    # the timed plane's output against the plain version's: bit for bit
+    err = max(max((x6t[i:i + 1].float() - p6.float()).abs().max().item(),
+                  (sx[i:i + 1] - psx).abs().max().item())
+              for i, (p6, psx) in enumerate(plain))
+    del plain, x6t, sx
+    if err != 0.0:
+        raise AssertionError(f"int8 layer 6 alone at scale512: max|wgmma - "
+                             f"plain| {err}, want bit for bit")
+    tiles = n * ny * nx
+    outputs = tiles * (2 * tr + 2) * (2 * tc + 2)
+    macs = outputs * 128 * 9 * 128
+    moved = x5.numel() * 2 + outputs * 128 * 2 + 128 * 9 * 128 + 4 * 128 * 2
+    ops_ms = 2 * macs / PEAK_INT8_OPS * 1e3
+    bytes_ms = moved / PEAK_BYTES * 1e3
+    bound = max(ops_ms, bytes_ms)
+    log(f"phase 25 int8 layer 6 alone (tile maxima + layer) at scale512, x5 "
+        f"{tuple(x5.shape)} bf16, tile {tile} ({tiles} tiles), on "
+        f"{card_name()}: wgmma {ms[True]:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in turns[True])
+        + f"; {2 * macs / ms[True] / 1e9:.1f} TOPS = "
+        f"{100 * bound / ms[True]:.1f}% of the bound {bound:.3f} ms: int8 "
+        f"products {ops_ms:.3f} ms, bytes {bytes_ms:.3f} ms), __dp4a "
+        f"{ms[False]:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in turns[False])
+        + f"), {ms[False] / ms[True]:.2f}x; cuDNN bf16 layer 6 on the same "
+        f"plane (a different function) {lib_ms:.3f} ms; plain "
+        f"(l6_i8_layer_plain, a frame at a time, host clock) "
+        f"{plain_ms:.1f} ms; max|wgmma - plain| on this plane {err} (bit for "
+        f"bit); {time.perf_counter() - t0:.1f} s")
+    if not ms[True] < ms[False]:
+        raise AssertionError(f"int8 layer 6: wgmma {ms[True]} ms, __dp4a "
+                             f"{ms[False]} ms")
+    del x5
+    torch.cuda.empty_cache()
+    return [{
+        "name": "l6_i8_mma, B4's int8 layer 6 on the int8 tensor cores "
+                "(wgmma s8 x s8 -> s32; with tile_absmax)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/i8.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "replaces_part": "_stack_body's layer 6 with l6_i8=True",
+        "launches": main_launches,
+        "launches_of": "phase 15's scale512 stream under W2X_L6_I8",
+        "max_abs_err": err,
+        "ms": ms[True],
+        "dp4a_ms": ms[False],
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": lib_ms,
+        "library_is": "cuDNN bf16 layer 6, no quantisation",
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1969,9 +2303,22 @@ def main() -> int:
         stack.reset_launches()
         got = conv.process_bgr_u8(img)
         n_conv = stack.LAUNCHES   # 7 per dispatch; tall planes band
+        # every layer 7 folded: bf16 on the tensor cores, f32 with FFMA (the
+        # f32 stacks: compute_dtype float32, and the noise stack of the
+        # default noise_scale policy)
+        l7 = dict(stack.L7_LAUNCHES)
+        f32_stacks = cfg_kw.get("compute_dtype") == "float32" or (
+            cfg_kw.get("mode") == "noise_scale"
+            and cfg_kw.get("compute_dtype") == "auto")
+        if (l7["cell"] or l7["pixel"]
+                or l7["fold"] + l7["fold_f32"] != n_conv // 7
+                or bool(l7["fold_f32"]) != f32_stacks):
+            raise AssertionError(f"Converter {cfg_kw}: layer-7 launches "
+                                 f"{l7} for {n_conv} launches")
         db = psnr(got, ref)
         log(f"  Converter {cfg_kw} {img.shape} -> {got.shape}: {n_conv} "
-            f"launches, {db:.2f} dB vs f32 non-kernel path (bar {bar:g})")
+            f"launches (layer 7 {l7}), {db:.2f} dB vs f32 non-kernel path "
+            f"(bar {bar:g})")
         if (n_conv < min_launches or n_conv % 7 or got.shape != ref.shape
                 or not db >= bar):
             raise AssertionError(f"Converter {cfg_kw}: {n_conv} launches, "
@@ -2085,9 +2432,13 @@ def main() -> int:
         stack.reset_launches()
         u8 = chain(fast_n2[dt])
         launches_c = stack.LAUNCHES
-        # the noise stack's layer 7: folded in bf16, per pixel in f32
+        # the noise stack's layer 7: folded on the tensor cores in bf16,
+        # folded with FFMA in f32
         expect_l7(stack, f"phase 7 ns1080 chain, {dt} noise", **(
-            {"fold": 2} if dt == torch.bfloat16 else {"fold": 1, "pixel": 1}))
+            {"fold": 2} if dt == torch.bfloat16
+            else {"fold": 1, "fold_f32": 1}))
+        if dt == torch.float32:
+            l7_f32_main = stack.L7_LAUNCHES["fold_f32"]
         expect_l1(stack, f"phase 7 ns1080 chain, {dt} noise", 2)
         # layers 2-6: the bf16 scale stack's on csrc/mma.cu, the noise
         # stack's there too in bf16, as 3xTF32 (csrc/mma_tf32.cu) in f32
@@ -2317,8 +2668,9 @@ def main() -> int:
                              f"{sc.fast_noise.dtype} / {sc.fast.dtype}")
     outs, counts, nd = run_stream(sc, list(frames_c) * 2, stack, label, smi)
     expect_counts(label, counts, nd, 2, noise=14, scale=14)
-    # the f32 noise stack's layer 7 per pixel, the bf16 scale stack's folded
-    expect_l7(stack, label, fold=2, pixel=2)
+    # the f32 noise stack's layer 7 folded with FFMA, the bf16 scale stack's
+    # on the tensor cores
+    expect_l7(stack, label, fold=2, fold_f32=2)
     expect_equal(label + " vs the phase 7 chain", outs, list(out_chain) * 2)
     db_frames = [psnr(o, ref_chain[i % 4]) for i, o in enumerate(outs)]
     log(f"  batch 8 cut to 4 by the volume cap, f32 noise stack; equal to "
@@ -2539,18 +2891,31 @@ def main() -> int:
             # stack counts (LAUNCHES, KERNEL_LAUNCHES)
             x5 = stacks_unchanged("layer5_plane", lambda: stack.layer5_plane(
                 y, sp, tile, full_res=noise))
+            stack.reset_launches()
             x6k, sxk = stacks_unchanged("l6_i8_layer", lambda: (
                 stack.l6_i8_layer(x5, sp, tile_)))
+            if stack.I8_LAUNCHES != {"mma": 1, "dp4a": 0}:
+                raise AssertionError(f"i8 layer 6 {label} {dt}: launches "
+                                     f"{stack.I8_LAUNCHES}")
+            stack.MID_MMA = False   # the __dp4a yardstick on the same plane
+            x6d, sxd = stack.l6_i8_layer(x5, sp, tile_)
+            stack.MID_MMA = True
             x6p, sxp = stack.l6_i8_layer_plain(x5, sp, tile_)
             err = (x6k.float() - x6p.float()).abs().max().item()
             log(f"phase 14a i8 layer 6 alone {label} {dt}, tile {tile_}, "
                 f"{tuple(sxk.shape)} tiles: max|kernel - plain| = {err:.3e}, "
-                f"scales equal: {torch.equal(sxk, sxp)}")
-            check_max_err(f"i8 layer 6 {label} {dt}", err,
-                          F32_TOL if dt == torch.float32 else BF16_TOL)
-            if not torch.equal(sxk, sxp):
+                f"wgmma == plain bit for bit: {torch.equal(x6k, x6p)}, "
+                f"wgmma == __dp4a: {torch.equal(x6k, x6d)}, scales equal: "
+                f"{torch.equal(sxk, sxp) and torch.equal(sxd, sxp)}")
+            # the int32 sums are exact and the epilogue's f32 steps the
+            # same: bit for bit, no allowance
+            if not (torch.equal(x6k, x6p) and torch.equal(x6k, x6d)):
+                raise AssertionError(f"i8 layer 6 {label} {dt}: the kernels "
+                                     f"and the plain version differ")
+            if not (torch.equal(sxk, sxp) and torch.equal(sxd, sxp)):
                 raise AssertionError(f"i8 layer 6 {label} {dt}: the tiles' "
                                      f"scales differ")
+            del x6d
             worst = max(worst, err)
             del x5, x6k, x6p
             torch.cuda.empty_cache()
@@ -2628,6 +2993,11 @@ def main() -> int:
         if stack.WINO_LAUNCHES != wino:
             raise AssertionError(f"{label}: Winograd launches by kernel "
                                  f"{stack.WINO_LAUNCHES}, want {wino}")
+        # the int8 layer on the int8 tensor cores (csrc/i8.cu) every call
+        i8 = {"mma": calls if form == "i8" else 0, "dp4a": 0}
+        if stack.I8_LAUNCHES != i8:
+            raise AssertionError(f"{label}: int8 layer launches by kernel "
+                                 f"{stack.I8_LAUNCHES}, want {i8}")
         # layer 7 folded after the Winograd layer 6's plane, on the cell
         # kernel after the int8 layer 6's tile-major one
         expect_l7(stack, label, **{"cell" if form == "i8" else "fold": calls})
@@ -2681,6 +3051,8 @@ def main() -> int:
         l6_launches[form] = stack.L6_LAUNCHES[form]
         if form == "wino":
             wino_mma_launches = stack.WINO_LAUNCHES["mma"]
+        else:
+            i8_mma_launches = stack.I8_LAUNCHES["mma"]
         for k in range(0, 64, 16):   # the batch step on the same batch
             ref = d2s_host_cmajor(scale2x_batch_u8_fused(
                 to_yuv_dev(frames64[k:k + 16]), fast).cpu().numpy())
@@ -2974,6 +3346,14 @@ def main() -> int:
     kernels19 += phase23(dev, l1_main)
     log(f"phase 23 passed in {time.perf_counter() - t23:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s so far")
+    t24 = time.perf_counter()
+    kernels19 += phase24(dev, l7_f32_main)
+    log(f"phase 24 passed in {time.perf_counter() - t24:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    t25 = time.perf_counter()
+    kernels19 += phase25(dev, i8_mma_launches)
+    log(f"phase 25 passed in {time.perf_counter() - t25:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
     maccs = count_maccs_per_pixel()
 
@@ -3118,6 +3498,17 @@ def main() -> int:
     for flag in (False, True, True, False):
         c_turns[flag].append((timed_ms(lambda: chain_mid(flag)),
                               timed_ms(lambda: noise_mid(flag))))
+
+    # the f32-noise step and stack as the product runs them (layer 7
+    # folded), with the noise stack's per-layer events; their times with the
+    # FFMA layer 7 are derived from phase 24's turns of layer 7 alone at
+    # this plane (the stack plus the FFMA kernel's time less the fold's)
+    l7_chain = {"step": sum(t[0] for t in c_turns[True]) / 2,
+                "stack": sum(t[1] for t in c_turns[True]) / 2,
+                "layers": per_layer_ms(lambda ev: stack.stack_noise(
+                    yc, fast_n2[torch.float32].sp, events=ev), stack)}
+    l7_row = next(r for r in kernels19 if r["name"].startswith("l7_fold_f32"))
+    l7_delta = l7_row["ffma_ms"] - l7_row["ms"]
     yc_by_dtype = {torch.bfloat16: yc16, torch.float32: yc}
     c_noise_ms = {dt: timed_ms(lambda dt=dt: stack.stack_noise(
         yc_by_dtype[dt], fast_n2[dt].sp)) for dt in yc_by_dtype}
@@ -3154,6 +3545,15 @@ def main() -> int:
             f"{c_turns[f][i][1]:.2f}" for f, i in
             ((False, 0), (True, 0), (True, 1), (False, 1)))
         + " ms (FFMA, 3xTF32, 3xTF32, FFMA)")
+    log(f"timing ns1080 f32 noise stack, layer 7 folded (csrc/l7.cu), on "
+        f"{smi}: step {l7_chain['step']:.2f} ms, noise stack "
+        f"{l7_chain['stack']:.2f} ms (the 3xTF32 turns above); per layer "
+        + ", ".join(f"L{k + 1} {v:.2f}"
+                    for k, v in enumerate(l7_chain["layers"]))
+        + f" ms; with the FFMA layer 7 (derived: phase 24's turns at this "
+        f"plane, FFMA {l7_row['ffma_ms']:.3f} - fold {l7_row['ms']:.3f} = "
+        f"{l7_delta:.3f} ms more) stack {l7_chain['stack'] + l7_delta:.2f} "
+        f"ms, step {l7_chain['step'] + l7_delta:.2f} ms")
 
     # timings, layer 6's three forms at scale512 in bf16, beside B1's
     yuv16 = _to_yuv(torch.from_numpy(frames).to(dev))
@@ -3333,10 +3733,10 @@ def main() -> int:
         "bound_by": n_bound_by,
         "library_ms": n_library_ms,
     }, {
-        "name": "conv3x3_bias_leaky_cell, u8 BGR out "
+        "name": "layer 7's u8 BGR out, the fold's OUT_U8 epilogue "
                 "(stack_scale_fused_u8, B3)",
         "route": "cuda",
-        "source": "waifu2x_torch/csrc/stack.cu",
+        "source": "waifu2x_torch/csrc/l7.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
         "launches": stream_launches["fused_u8"],
         "max_abs_err": max_err["stack_scale_fused_u8"],
@@ -3347,10 +3747,10 @@ def main() -> int:
         "bound_by": u_bound_by,
         "library_ms": u_library_ms,
     }, {
-        "name": "conv3x3_bias_leaky_cell, dense Y out "
+        "name": "layer 7's dense Y out, the fold's OUT_DENSE epilogue "
                 "(stack_scale_dense, B6)",
         "route": "cuda",
-        "source": "waifu2x_torch/csrc/stack.cu",
+        "source": "waifu2x_torch/csrc/l7.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
         "launches": stream_launches["dense"],
         "max_abs_err": max_err["stack_scale_dense"],
@@ -3508,6 +3908,13 @@ def main() -> int:
                     "library_ms", "max_abs_err")}
                 for r in rows_k},
         })
+    l7_row.update({   # the f32 fold's row: the stack and step it ends
+        "ns1080_noise_stack_ms": l7_chain["stack"],
+        "ns1080_step_ms": l7_chain["step"],
+        "ns1080_stack_layer_ms": list(map(float, l7_chain["layers"])),
+        "ns1080_ffma_l7_delta_ms": l7_delta,
+        "ffma_l7_delta_is": "phase 24's FFMA layer 7 alone less the fold's, "
+                            "at ns1080, in turns"})
     kernels += kernels19
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

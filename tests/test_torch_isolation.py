@@ -53,9 +53,11 @@ def test_scan_covers_the_package():
             "chip_smoke.py"} <= names
     assert (ROOT / "waifu2x_torch" / "csrc" / "probe.cu").is_file()
     assert (ROOT / "waifu2x_torch" / "csrc" / "tmm.cu").is_file()
-    # the Python callers of l1.cu and mma_tf32.cu are in ops/stack.py, above
+    # the Python callers of l1.cu, mma_tf32.cu and i8.cu are in ops/stack.py,
+    # above
     assert (ROOT / "waifu2x_torch" / "csrc" / "l1.cu").is_file()
     assert (ROOT / "waifu2x_torch" / "csrc" / "mma_tf32.cu").is_file()
+    assert (ROOT / "waifu2x_torch" / "csrc" / "i8.cu").is_file()
 
 
 def test_stream_module_imports_only_the_port():

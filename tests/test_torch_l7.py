@@ -260,9 +260,9 @@ def test_last_layer_refuses_what_it_does_not_take(sp16, sp32):
         stack.last_layer(x6, sp16, out="planar")
     with pytest.raises(ValueError, match="uvp"):
         stack.last_layer(x6, sp16, out="u8")
-    with pytest.raises(ValueError, match="folded layer 7 takes bf16"):
-        stack.last_layer(x6.float(), sp32, fold=True)
-    with pytest.raises(ValueError, match="folded layer 7 takes bf16"):
+    with pytest.raises(ValueError, match="takes no zero-shift mask"):
+        stack.last_layer(x6.float(), sp32, zs=1, fold=True)
+    with pytest.raises(ValueError, match="takes no zero-shift mask"):
         stack.last_layer(x6, sp16, zs=2, fold=True)
     with pytest.raises(ValueError, match="w7f"):
         stack.last_layer(x6, stack.StackParams(list(sp16)))
@@ -274,11 +274,13 @@ def test_last_layer_refuses_what_it_does_not_take(sp16, sp32):
 # --- the dispatch ------------------------------------------------------------
 
 def test_fold_is_chosen_for_bf16_without_a_mask():
-    assert stack.l7_fold_chosen(torch.bfloat16)
-    assert not stack.l7_fold_chosen(torch.float32)
-    assert not stack.l7_fold_chosen(torch.bfloat16, zs=3)
-    assert not stack.l7_fold_chosen(torch.bfloat16, fold=False)
-    assert stack.l7_fold_chosen(torch.bfloat16, fold=True)
+    """The fold is the default on every plane with no zero-shift mask, in
+    both storage types (the choice reads no dtype); fold=False asks for the
+    FFMA kernels."""
+    assert stack.l7_fold_chosen()
+    assert not stack.l7_fold_chosen(zs=3)
+    assert not stack.l7_fold_chosen(fold=False)
+    assert stack.l7_fold_chosen(fold=True)
 
 
 class _FakeLib:
@@ -297,13 +299,17 @@ class _FakeLib:
     (torch.bfloat16, 2, None, "w2x_l7_fold", "fold"),
     (torch.bfloat16, 0, False, "w2x_stack_layer", "pixel"),
     (torch.bfloat16, 2, False, "w2x_stack_layer", "cell"),
-    (torch.float32, 0, None, "w2x_stack_layer", "pixel"),
-    (torch.float32, 1, None, "w2x_stack_layer", "cell")])
+    (torch.float32, 0, None, "w2x_l7_fold", "fold_f32"),
+    (torch.float32, 1, None, "w2x_l7_fold", "fold_f32"),
+    (torch.float32, 2, None, "w2x_l7_fold", "fold_f32"),
+    (torch.float32, 0, False, "w2x_stack_layer", "pixel"),
+    (torch.float32, 1, False, "w2x_stack_layer", "cell")])
 def test_layer7_dispatch(sp16, sp32, dtype, out_mode, fold, entry, kernel):
-    """Layer 7 of a stack reaches the fold for bf16 (in every output form)
-    unless fold=False, the FFMA kernels for f32; each launch counts once
-    under L7_LAUNCHES by kernel, and the fold's entry gets w7f, the cells
-    of the plane and the form."""
+    """Layer 7 of a stack reaches the fold in both storage types (in every
+    output form) unless fold=False, which takes the FFMA kernels; each
+    launch counts once under L7_LAUNCHES by kernel, and the fold's entry
+    gets the weights of its type (bf16 w7f, f32 w7's taps), the cells of
+    the plane and the form."""
     stack.reset_launches()
     sp = sp16 if dtype == torch.bfloat16 else sp32
     calls = []
@@ -315,18 +321,21 @@ def test_layer7_dispatch(sp16, sp32, dtype, out_mode, fold, entry, kernel):
     run.layer(6, False, x, sp, x, 3, 20, 36, out_mode, None, None, 32,
               fold=fold)
     assert [fn for fn, _ in calls] == [entry]
-    assert stack.L7_LAUNCHES == {k: int(k == kernel)
-                                 for k in ("fold", "cell", "pixel")}
+    assert stack.L7_LAUNCHES == {k: int(k == kernel) for k in
+                                 ("fold", "fold_f32", "cell", "pixel")}
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["scale"] == 1
     args = calls[0][1]
-    if kernel == "fold":
-        # (bf16, x6, w7f, b, y, n, hl, wl, out_mode, uvp, cmap, tc, stream)
-        assert args[0] == 1 and args[2] == sp.w7f.data_ptr()
+    if kernel.startswith("fold"):
+        # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, tc, stream)
+        bf16 = dtype == torch.bfloat16
+        assert args[0] == int(bf16)
+        assert args[2] == (sp.w7f if bf16 else sp[6][0]).data_ptr()
         assert args[3] == sp[6][1].data_ptr()
         assert args[5:9] == (3, 20, 36, out_mode)
         assert args[11:] == (32, 0)
     stack.reset_launches()
-    assert stack.L7_LAUNCHES == {"fold": 0, "cell": 0, "pixel": 0}
+    assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 0,
+                                 "pixel": 0}
 
 
 def test_noise_stack_layer7_gets_the_even_cells(sp16):
@@ -354,7 +363,8 @@ def test_cpu_calls_launch_nothing(sp16, rng):
     stack.stack_scale_fused_u8(y, uvp, sp16)
     stack.stack_noise(y, sp16)
     stack.last_layer(_x6((1, 2, 3), 1, torch.bfloat16), sp16)
-    assert stack.L7_LAUNCHES == {"fold": 0, "cell": 0, "pixel": 0}
+    assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 0,
+                                 "pixel": 0}
     assert stack.LAUNCHES == 0 and not any(stack.KERNEL_LAUNCHES.values())
 
 

@@ -325,9 +325,9 @@ def _fake_launcher(calls, bf16: bool):
 def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
     """Which C entry each of a whole stack's 7 layers goes to, by storage
     dtype and MID_MMA, with the arguments the tensor-core entries get:
-    layer 1 on csrc/l1.cu and layer 7 of a bf16 stack folded on the tensor
-    cores whatever MID_MMA says; layers 2-6 of an f32 stack as 3xTF32 while
-    MID_MMA is on."""
+    layer 1 on csrc/l1.cu and layer 7 folded on csrc/l7.cu (bf16 on the
+    tensor cores, f32 with FFMA) whatever MID_MMA says; layers 2-6 of an
+    f32 stack as 3xTF32 while MID_MMA is on."""
     monkeypatch.setattr(stack, "MID_MMA", mid_mma)
     stack.reset_launches()
     sp = sp16 if bf16 else sp32
@@ -346,10 +346,10 @@ def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
         "w2x_l1" if k == 0
         else "w2x_mma_layer" if want["mma"] and 1 <= k <= 5
         else "w2x_tf32_layer" if want["mma_tf32"] and 1 <= k <= 5
-        else "w2x_l7_fold" if bf16 and k == 6 else "w2x_stack_layer"
+        else "w2x_l7_fold" if k == 6 else "w2x_stack_layer"
         for k in range(7)]
-    assert stack.L7_LAUNCHES == {"fold": int(bf16), "cell": 0,
-                                 "pixel": int(not bf16)}
+    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16),
+                                 "cell": 0, "pixel": 0}
     stack.reset_launches()
     assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
                                   "mma_zs": 0, "mma_pp": 0,

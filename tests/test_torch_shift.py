@@ -534,8 +534,10 @@ def test_mma_layer_plain_zero_shift(sp32, k, zs):
 
 @pytest.mark.parametrize("zs", [0, 1, 2, 3])
 def test_last_layer_plain_zero_shift(sp32, zs):
-    """Layer 7 in s2d layout with r(p, k) on each zeroed axis; zs = 0 is the
-    stack's own layer 7 (F.conv2d) within 1e-5."""
+    """Layer 7 in s2d layout with r(p, k) on each zeroed axis, the per-pixel
+    kernel's function (last_layer with fold=False); zs = 0 is the stack's
+    own layer 7 (F.conv2d, and the fold that an f32 stack runs) within
+    1e-5."""
     x = np.random.default_rng(20).standard_normal((2, 10, 14, 128))
     w7, b7 = sp32[6]
     w9 = w7.double().numpy().transpose(1, 0, 2)             # [9, 128, 1]
@@ -544,13 +546,16 @@ def test_last_layer_plain_zero_shift(sp32, zs):
     got = stack.last_layer_plain(torch.from_numpy(x).float(), w7, b7, zs)
     assert got.shape == (2, 4, 6, 4)
     assert torch.equal(stack.last_layer(torch.from_numpy(x).float(), sp32,
-                                        zs), got)
+                                        zs, fold=False), got)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
     if zs == 0:
         xt = torch.from_numpy(x).float().permute(0, 3, 1, 2)
         plain = stack._plain_layer(xt, w7, b7, torch.float32)
         torch.testing.assert_close(got, stack.s2d(plain[:, 0, :, :, None]),
                                    rtol=0, atol=1e-5)
+        torch.testing.assert_close(
+            stack.last_layer(torch.from_numpy(x).float(), sp32), got,
+            rtol=0, atol=1e-5)
 
 
 # --- plans, C entries, routing -----------------------------------------------
@@ -664,8 +669,8 @@ def test_variant_launch_routing(sp16, zs, pp):
     names = [fn for fn, _ in calls]
     assert names == (["w2x_l1"] + ["w2x_mma_layer_variant"] * 5
                      + ["w2x_stack_last_zs" if zs else "w2x_l7_fold"])
-    assert stack.L7_LAUNCHES == {"fold": int(not zs), "cell": 0,
-                                 "pixel": int(bool(zs))}
+    assert stack.L7_LAUNCHES == {"fold": int(not zs), "fold_f32": 0,
+                                 "cell": 0, "pixel": int(bool(zs))}
     for k, (_, args) in list(enumerate(calls))[1:6]:
         plan = stack.mma_plan(*stack.WIDTHS[k], zs, pp)
         # (bf16, layer, zs, pp, x, wp, b, y, n, hin, win, smem_bytes, stream)

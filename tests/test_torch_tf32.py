@@ -130,14 +130,14 @@ def _emulated_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _stack(plane: torch.Tensor, sp, full_res: bool, mode: str):
     """The f32 stack from layer 1's plain output, layers 2-6 exact f32
-    (stack._plain_layer) or emulated, layer 7 f32 -> Y s2d [N, hg, wg, 4]."""
+    (stack._plain_layer) or emulated, layer 7 the f32 fold that the f32
+    stacks end in (l7_fold_plain) -> Y s2d [N, hg, wg, 4]."""
     x = stack._l1_values(plane, sp, full_res).permute(0, 3, 1, 2)
     with torch.no_grad():
         for k in range(1, 6):
             x = (stack._plain_layer(x, *sp[k], torch.float32) if mode == "f32"
                  else _emulated_layer(x, *sp[k], mode))
-        y = stack._plain_layer(x, *sp[6], torch.float32)
-    return s2d.s2d(y[:, 0, :, :, None])
+        return stack.l7_fold_plain(x.permute(0, 2, 3, 1), sp.w7f, sp[6][1])
 
 
 @pytest.mark.parametrize("model,full_res", [("noise2", True),
@@ -215,7 +215,8 @@ def test_f32_noise_stack_dispatch(sp32, monkeypatch, mid_mma):
     """Layers 2-6 of an f32 noise stack (any plane size, rounded up to
     even) on w2x_tf32_layer while MID_MMA is on, 5 launches under
     MID_LAUNCHES["mma_tf32"] and none under "ffma"; with MID_MMA off all 5 on
-    stack.cu's FFMA layers. Layer 6 counts as the direct form either way."""
+    stack.cu's FFMA layers. Layer 6 counts as the direct form either way,
+    and layer 7 runs folded (csrc/l7.cu, FFMA) either way."""
     monkeypatch.setattr(stack, "MID_MMA", mid_mma)
     stack.reset_launches()
     calls = []
@@ -226,7 +227,8 @@ def test_f32_noise_stack_dispatch(sp32, monkeypatch, mid_mma):
         run.layer(k, True, x, sp32, x, n, ph, pw)
     names = [fn for fn, _ in calls]
     mid = "w2x_tf32_layer" if mid_mma else "w2x_stack_layer"
-    assert names == ["w2x_l1"] + [mid] * 5 + ["w2x_stack_layer"]
+    assert names == ["w2x_l1"] + [mid] * 5 + ["w2x_l7_fold"]
+    assert stack.L7_LAUNCHES["fold_f32"] == 1
     assert stack.MID_LAUNCHES["mma_tf32"] == 5 * mid_mma
     assert stack.MID_LAUNCHES["ffma"] == 5 * (not mid_mma)
     assert stack.MID_LAUNCHES["mma"] == 0

@@ -1,6 +1,7 @@
-// Shared by the conv stack's CUDA sources (stack.cu, l6.cu): storage-type
-// loads and stores, LeakyReLU, the YUV -> BGR map, and the last layer with
-// one thread per s2d cell (conv3x3_bias_leaky_cell) in all its output forms.
+// Shared by the conv stack's CUDA sources (stack.cu, l6.cu, i8.cu, ...):
+// storage-type loads and stores, LeakyReLU, the YUV -> BGR map, the int8
+// layer 6's tiles and scale, and the last layer with one thread per s2d cell
+// (conv3x3_bias_leaky_cell) in all its output forms.
 // Everything lives in an anonymous namespace: each source that includes
 // this file gets its own copy and instantiates only what it launches.
 
@@ -42,6 +43,15 @@ struct Tiles {
   int tr, tc, ny, nx;
 };
 
+inline bool tiles_ok(const Tiles& qt) {
+  return qt.tr > 0 && qt.tc > 0 && qt.ny > 0 && qt.nx > 0;
+}
+
+// The int8 layer 6's activation scale of a tile from its max |x5|.
+__device__ __forceinline__ float i8_scale(float m) {
+  return __fmul_rn(fmaxf(m, 1e-8f), (float)(1.0 / 127.0));
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -61,6 +71,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint2*>(p) =
       make_uint2(*reinterpret_cast<const uint32_t*>(&a),
                  *reinterpret_cast<const uint32_t*>(&b));
+}
+
+// 2 consecutive elements (4-byte aligned for bf16, 8-byte for f32).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // 8 consecutive elements (16-byte aligned for bf16, 32-byte for f32).

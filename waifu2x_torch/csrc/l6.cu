@@ -52,7 +52,10 @@
 //   (ops/stack.py:l6_i8_layer_plain) computes the same f32 values.
 //   Bound by operations: 1152 int8 multiply-adds per output value; as
 //   __dp4a that is a quarter as many instructions as stack.cu's FFMA layer.
-//   The int8 tensor cores (wgmma) are left to later work.
+//   The stacks run B4's layer on the int8 tensor cores (csrc/i8.cu, the same
+//   function bit for bit); l6_i8_conv stays as the timing yardstick that
+//   ops/stack.py reaches with MID_MMA False, tile_absmax as the maxima of
+//   both.
 //
 // B5, l6_wino<T>. Per 2 x 2 output block and input channel:
 //     V = B^T d B  (d the block's 4 x 4 window of x5, formed in f32)
@@ -159,11 +162,6 @@ tile_absmax(const T* __restrict__ x5, unsigned* __restrict__ m, int H5,
     atomicMax(m + ((size_t)n * qt.ny + ti) * qt.nx + tj,
               __float_as_uint(best));
   }
-}
-
-// The activation scale of a tile from its max |x5|.
-__device__ __forceinline__ float i8_scale(float m) {
-  return __fmul_rn(fmaxf(m, 1e-8f), (float)(1.0 / 127.0));
 }
 
 // B4: layer 6 of one tile as int8 x int8 -> int32, dequantised, + bias,
@@ -398,10 +396,6 @@ l6_wino(const T* __restrict__ x5, const T* __restrict__ u,
     for (int B = 0; B < 2; ++B)
       store8(y6 + (((size_t)n * H6 + 2 * brow + A) * W6 + 2 * bcol + B) * C6
                  + co0, out[A][B]);
-}
-
-bool tiles_ok(const Tiles& qt) {
-  return qt.tr > 0 && qt.tc > 0 && qt.ny > 0 && qt.nx > 0;
 }
 
 template <typename T>

@@ -1,66 +1,88 @@
-// Layer 7 (128 -> 1) of every bf16 stack call whose layer-6 output is one
-// plane, as the JAX body's folded tap product on Hopper's tensor cores
-// (sm_90a). Built with nvcc into a shared library with a plain C interface
-// and loaded with ctypes (waifu2x_torch/ops/_build.py); the Python side is
-// ops/stack.py (_Launcher.l7_fold, last_layer, l7_fold_plain).
+// Layer 7 (128 -> 1) of every stack call whose layer-6 output is one
+// plane, as the JAX body's folded tap product, on Hopper (sm_90a): in bf16
+// on the tensor cores (l7_fold), in f32 with FFMA (l7_fold_f32). Built with
+// nvcc into a shared library with a plain C interface and loaded with
+// ctypes (waifu2x_torch/ops/_build.py); the Python side is ops/stack.py
+// (_Launcher.l7_fold, last_layer, l7_fold_plain).
 //
 // Replaces: waifu2x_tpu/ops/pallas_stack.py:_stack_body's layer 7 with
 // l7_fold (the tap product of each layer-6 phase, :489-508, and the
 // shift-sum and the three epilogues, :603-655), for configurations B1, B2,
-// B3, B6 and B5's stack in bf16. f32 calls, the int8 layer 6's tile-major
-// input, the truncation's tap forms and the zero-shift variant stay on
-// stack.cu's and common.cuh's FFMA kernels.
+// B3, B6 and B5's stack, in both storage types. The int8 layer 6's
+// tile-major input, the truncation's tap forms and the zero-shift variant
+// stay on stack.cu's and common.cuh's FFMA kernels, as does
+// last_layer(fold=False), the timing yardstick.
 //
-// What it computes, on x6 [N, 2hl+2, 2wl+2, 128] (bf16, NHWC) and the
-// folded weights W [512, 16] (ops/s2d.py:pack_l7_fold):
+// What it computes, on x6 [N, 2hl+2, 2wl+2, 128] (NHWC, bf16 or f32) and
+// the folded weights W [512, 16] (ops/s2d.py:pack_l7_fold) in x6's type:
 //   the x6 cell (I, J), 0 <= I <= hl, 0 <= J <= wl, is pixels
 //   2I..2I+1 x 2J..2J+1, its 512 values in lanes (a*2 + b)*128 + c;
 //   Zt[I, J, s*4 + q] = sum over the 512 of cell[k] * W[k, s*4 + q]
-//                       (bf16 x bf16 products, f32 sums);
+//                       (exact products, f32 sums);
 //   Y[i, j, q] = ((Zt[i, j, q] + Zt[i, j+1, 4+q]) + Zt[i+1, j, 8+q])
 //                + Zt[i+1, j+1, 12+q]              (s = Dy*2 + Dx in order)
 //   then the bias and LeakyReLU in f32, and one of three epilogues on that
 //   one f32 Y:
-//     OUT_S2D    Y rounded to bf16 once, [N, hl, wl, 4];
+//     OUT_S2D    Y in x6's type (bf16 rounded once), [N, hl, wl, 4];
 //     OUT_DENSE  the same phase-chunked, [N, hl, nx*4*tc], zeros in the
 //                last chunk's columns past wl (common.cuh's layout);
 //     OUT_U8     Y never rounded: the YUV -> BGR map of common.cuh with
 //                __fmul_rn / __fadd_rn and the cell's 8 U/V phases,
 //                16 bytes a cell, lanes 12:16 zero.
 //
-// What bounds it on an H100: the bytes. x6 is read once (1 KB a cell:
-// 4.31 GB at scale512, 1.29 ms at 3.35 TB/s); Y is 1/128 of that. The
-// products are 2 x 512 x 16 per cell, 0.07 ms of the bf16 peak. The FFMA
-// kernels it replaces read each pixel in 16-byte pieces 256-512 bytes apart
-// from their neighbours' and ran at about a tenth of the memory rate.
+// What bounds it on an H100: the bytes. x6 is read once (1 KB a cell in
+// bf16: 4.31 GB at scale512, 1.29 ms at 3.35 TB/s; 2 KB in f32: 4.26 GB at
+// ns1080, 1.27 ms); Y is 1/128 of that. The products are 2 x 512 x 16 per
+// cell, 0.07 ms of the bf16 peak; in f32 only the 4 x 9 x 128 that W does
+// not hold as zeros are issued, 0.29 ms of the 67 TFLOP/s FFMA peak at
+// ns1080. The FFMA kernels they replace read each pixel in 16-32-byte
+// pieces 512 bytes apart from their neighbours' and ran at about a tenth
+// of the memory rate.
 //
-// Design:
-//   * A tile is 64 consecutive cells of one cell row: the two pixel rows'
-//     128 pixels, 64 KB, contiguous in x6. The Tensor Memory Accelerator
-//     copies it into shared memory as eight boxes of 64 cells x 64
-//     channels, one per pixel row a, column parity b and half of the
-//     channels: x6 seen as the 4-d tensor (channel, parity, cell column,
-//     pixel row) with the 128-byte swizzle, which is a K-major wgmma
-//     operand as it lands (cells the M rows, 64 inputs of K a box). One
-//     thread issues a tile's eight copies on an mbarrier that counts its
-//     bytes; cells past the plane's edge read zero.
-//   * One warpgroup multiplies the tile by W, resident in shared memory, as
-//     32 wgmma m64n16k16 (f32 sums in 8 registers a thread) and writes Zt,
-//     64 B a cell, to one of two shared buffers: this cell row's and the
-//     previous one's. Y of cell row i is formed from the two.
-//   * A strip is 63 output cells wide (the 64th tile cell is its column
+// Design (both types):
+//   * A tile is a run of consecutive cells of one cell row: the two pixel
+//     rows' pixels, contiguous in x6. The Tensor Memory Accelerator copies
+//     it into shared memory as boxes of 128-byte rows with the 128-byte
+//     swizzle: x6 seen as the 4-d tensor (channel, column parity, cell
+//     column, pixel row of all images), one box for each pixel row a,
+//     column parity b and 128 bytes of channels. One thread issues a
+//     tile's copies on an mbarrier that counts its bytes; cells past the
+//     plane's edge read zero.
+//   * Zt of a tile, 64 B a cell, goes to one of two shared buffers: this
+//     cell row's and the previous one's. Y of cell row i is formed from the
+//     two.
+//   * A strip is a tile's width less one cell (its last cell is the column
 //     halo). The strips of all images, cut into output rows, are one list
 //     of rows shared out evenly over a persistent grid of one block an SM:
 //     a block walks down its rows, each run of rows of one strip starting
 //     with one halo tile row, so that every x6 byte is read once but for
 //     the halo column and a row at each run's start. A ring of 3 tiles
 //     keeps two tiles in flight while the third is multiplied. (Staged by
-//     16-byte cp.async copies from the block's four warps instead, the tile
-//     ran at about half the memory rate, with or without the products: the
-//     copies in flight bound that form.)
+//     16-byte cp.async copies from the block's four warps instead, the bf16
+//     tile ran at about half the memory rate, with or without the products:
+//     the copies in flight bound that form.)
 //   * The tensor map is made at each launch (cuTensorMapEncodeTiled, reached
 //     through the runtime's driver entry point, so the library links no
 //     libcuda) and passed as a __grid_constant__ parameter.
+// bf16 (l7_fold): a tile is 64 cells, eight boxes of 64 cells x 64
+//   channels, which as they land are a K-major wgmma operand (cells the M
+//   rows, 64 inputs of K a box). One warpgroup multiplies the tile by W,
+//   resident in shared memory, as 32 wgmma m64n16k16 (f32 sums in 8
+//   registers a thread).
+// f32 (l7_fold_f32): a tile of 64 f32 cells would be 128 KB, and a ring of
+//   three would not fit the 227 KB a block may use, so a tile is 32 cells
+//   (64 KB), 16 boxes of 32 cells x 32 channels. The tensor cores are not
+//   needed (the FFMA floor is under the byte bound) and W is mostly zeros,
+//   so the products are FFMA on the 9 taps of w7 that a pixel feeds: a
+//   pixel (a, b) of the cell, through tap (dy, dx), feeds lane s*4 + q with
+//   dy = 2Dy + a - A, dx = 2Dx + b - B (pack_l7_fold's rule), 36 FFMA a
+//   channel, 4608 a cell. Eight warps split the 128 channels, 16 each; a
+//   lane is a cell, so a warp's 16-byte reads of one channel chunk of 32
+//   cells hit 32 different banks through the swizzle, and w7's taps are
+//   read as broadcasts. Each warp's 16 partial sums a cell go to shared
+//   memory and are added in warp order, then Y follows as in bf16. The
+//   partial sums are the fold's, in another order than l7_fold_plain's
+//   f32 product: within 3e-5 of it.
 
 #include <cuda.h>
 #include <limits.h>
@@ -70,24 +92,35 @@
 
 namespace {
 
-constexpr int L7_THREADS = 128;              // one warpgroup
-constexpr int L7_CELLS = 64;                 // cells a tile: one m64 block
-constexpr int L7_OUT = L7_CELLS - 1;         // output cells of a strip
-constexpr int L7_K8 = 4 * 128 / 8;           // k8 groups of a cell: 64
 constexpr int L7_STAGES = 3;
 constexpr int L7_ZP = 20;                    // a cell's Zt row, floats
+// bf16
+constexpr int L7_THREADS = 128;              // one warpgroup
+constexpr int L7_CELLS = 64;                 // cells a tile: one m64 block
+constexpr int L7_K8 = 4 * 128 / 8;           // k8 groups of a cell: 64
 constexpr uint32_t L7_BOX_BYTES = L7_CELLS * 128;   // 64 cells x 64 channels
 constexpr uint32_t L7_TILE_BYTES = 8 * L7_BOX_BYTES;
 constexpr uint32_t L7_W_BYTES = L7_K8 * 16 * 16;
-constexpr uint32_t L7_ZT_BYTES = L7_CELLS * L7_ZP * 4;
 // the ring's tiles start 1024-byte aligned (the 128-byte swizzle's period);
 // the dynamic window is aligned up to that first
 constexpr uint32_t L7_SMEM = 1024 + L7_STAGES * L7_TILE_BYTES + L7_W_BYTES +
-                             2 * L7_ZT_BYTES + L7_STAGES * 8;
+                             2 * L7_CELLS * L7_ZP * 4 + L7_STAGES * 8;
 static_assert(L7_SMEM <= 232448, "over the 227 KB a block may use");
+// f32
+constexpr int F7_THREADS = 256;              // eight warps, 16 channels each
+constexpr int F7_CELLS = 32;                 // cells a tile: one a lane
+constexpr uint32_t F7_BOX_BYTES = F7_CELLS * 128;   // 32 cells x 32 channels
+constexpr uint32_t F7_TILE_BYTES = 16 * F7_BOX_BYTES;
+constexpr uint32_t F7_W_BYTES = 32 * 9 * 16;        // w7 as [c4][tap][4]
+constexpr uint32_t F7_PART_BYTES = 8 * F7_CELLS * L7_ZP * 4;
+constexpr uint32_t F7_SMEM = 1024 + L7_STAGES * F7_TILE_BYTES + F7_W_BYTES +
+                             F7_PART_BYTES + 2 * F7_CELLS * L7_ZP * 4 +
+                             L7_STAGES * 8;
+static_assert(F7_SMEM <= 232448, "over the 227 KB a block may use");
 
+template <typename T>
 struct L7Args {
-  const __nv_bfloat16* w;   // [512][16]
+  const T* w;               // bf16: W [512][16]; f32: w7 [128][9]
   const float* b;           // [1]
   void* y;
   const float* uvp;         // OUT_U8: [n, hl, wl, 8]
@@ -104,7 +137,40 @@ struct L7Args {
 struct Cursor {
   int u, row, strip, n;
   bool head;
+
+  __device__ Cursor(int u0, int hl, int nstrips)
+      : u(u0), row(u0 % hl), strip((u0 / hl) % nstrips),
+        n(u0 / hl / nstrips), head(true) {}
+
+  __device__ void advance(int hl, int nstrips) {
+    if (head) {
+      head = false;
+      return;
+    }
+    ++u;
+    if (++row == hl) {   // the next strip's run starts with its halo
+      row = 0;
+      head = true;
+      if (++strip == nstrips) {
+        strip = 0;
+        ++n;
+      }
+    }
+  }
+  // the first pixel row of the tile's cell row, in x6 seen as one plane of
+  // n * (2hl + 2) rows
+  __device__ int pixel_row(int hl) const {
+    return n * (2 * hl + 2) + 2 * (row + (head ? 0 : 1));
+  }
 };
+
+// this block's output rows [u0, u1) of the list
+__device__ __forceinline__ void block_rows(int rows, int& u0, int& u1) {
+  const int per = rows / (int)gridDim.x, extra = rows % (int)gridDim.x;
+  const int bid = blockIdx.x;
+  u0 = bid * per + min(bid, extra);
+  u1 = u0 + per + (bid < extra ? 1 : 0);
+}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar)
@@ -135,16 +201,67 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
          "r"(c2), "r"(c3), "r"(bar) : "memory");
 }
 
+// Y of output cell (i, j) of image n from Zt of cell row i (zp) and i + 1
+// (z), both at column j's cell, then the bias, LeakyReLU and the form.
+template <int OUT_MODE, typename T>
+__device__ __forceinline__ void l7_out(const L7Args<T>& a, const float* zp,
+                                       const float* z, int n, int i, int j,
+                                       float bias) {
+  const float4 z0 = *reinterpret_cast<const float4*>(zp);
+  const float4 z1 = *reinterpret_cast<const float4*>(zp + L7_ZP + 4);
+  const float4 z2 = *reinterpret_cast<const float4*>(z + 8);
+  const float4 z3 = *reinterpret_cast<const float4*>(z + L7_ZP + 12);
+  float yv[4] = {((z0.x + z1.x) + z2.x) + z3.x,
+                 ((z0.y + z1.y) + z2.y) + z3.y,
+                 ((z0.z + z1.z) + z2.z) + z3.z,
+                 ((z0.w + z1.w) + z2.w) + z3.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) yv[q] = leaky(yv[q] + bias);
+  const size_t cell = ((size_t)n * a.hl + i) * a.wl + j;
+  if constexpr (OUT_MODE == OUT_S2D) {
+    store4(static_cast<T*>(a.y) + cell * 4, yv);
+  } else if constexpr (OUT_MODE == OUT_DENSE) {
+    T* yd = static_cast<T*>(a.y) + ((size_t)n * a.hl + i) * a.wcols * 4 +
+            (size_t)(j / a.tc) * 4 * a.tc + j % a.tc;
+    const bool pad = j >= a.wl;   // the last chunk's pad columns
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      store1(yd + (size_t)q * a.tc, pad ? 0.0f : yv[q]);
+  } else {
+    const float4 u4 = reinterpret_cast<const float4*>(a.uvp)[cell * 2];
+    const float4 v4 = reinterpret_cast<const float4*>(a.uvp)[cell * 2 + 1];
+    const float u[4] = {u4.x, u4.y, u4.z, u4.w};
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+    uint32_t word[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      word[c] = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        // no fmaf: each product and sum rounded on its own
+        float val = __fadd_rn(__fmul_rn(yv[q], a.cm.inv[c][0]),
+                              __fmul_rn(u[q], a.cm.inv[c][1]));
+        val = __fadd_rn(val, __fmul_rn(v[q], a.cm.inv[c][2]));
+        val = __fmul_rn(__fadd_rn(val, a.cm.off[c]), 255.0f);
+        val = fminf(fmaxf(rintf(val), 0.0f), 255.0f);
+        word[c] |= static_cast<uint32_t>(val) << (8 * q);
+      }
+    }
+    static_cast<uint4*>(a.y)[cell] = make_uint4(word[0], word[1], word[2], 0u);
+  }
+}
+
 template <int OUT_MODE>
 __global__ void __launch_bounds__(L7_THREADS, 1)
-l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args a) {
+l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
+  constexpr int OUT = L7_CELLS - 1;   // output cells of a strip
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   const uint32_t sbase = smem_addr(smem);
   const uint32_t s_w = sbase + L7_STAGES * L7_TILE_BYTES;
   float* zt = reinterpret_cast<float*>(smem + L7_STAGES * L7_TILE_BYTES +
                                        L7_W_BYTES);
-  const uint32_t s_bar = s_w + L7_W_BYTES + 2 * L7_ZT_BYTES;
+  const uint32_t s_bar = s_w + L7_W_BYTES + 2 * L7_CELLS * L7_ZP * 4;
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < L7_STAGES; ++s) mbar_init(s_bar + 8 * s);
@@ -161,28 +278,8 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args a) {
       ws[((i >> 7) * 16 + (i & 15)) * 8 + ((i >> 4) & 7)] = wg[i];
   }
 
-  // this block's output rows [u0, u1) of the list
-  const int per = a.rows / (int)gridDim.x, extra = a.rows % (int)gridDim.x;
-  const int bid = blockIdx.x;
-  const int u0 = bid * per + min(bid, extra);
-  const int u1 = u0 + per + (bid < extra ? 1 : 0);
-  const int h6 = 2 * a.hl + 2;
-
-  auto advance = [&](Cursor& c) {
-    if (c.head) {
-      c.head = false;
-      return;
-    }
-    ++c.u;
-    if (++c.row == a.hl) {   // the next strip's run starts with its halo
-      c.row = 0;
-      c.head = true;
-      if (++c.strip == a.nstrips) {
-        c.strip = 0;
-        ++c.n;
-      }
-    }
-  };
+  int u0, u1;
+  block_rows(a.rows, u0, u1);
   // the tile at c into ring stage st (nothing past the list's end): eight
   // boxes of 64 cells x 64 channels, one for each pixel row a, column
   // parity b and half of the channels, box (a*2 + b)*2 + h holding inputs
@@ -191,26 +288,21 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args a) {
     if (tid == 0 && c.u < u1) {
       const uint32_t bar = s_bar + 8 * st;
       mbar_expect(bar, L7_TILE_BYTES);
-      const int row = c.n * h6 + 2 * (c.row + (c.head ? 0 : 1));
+      const int row = c.pixel_row(a.hl);
       for (int box = 0; box < 8; ++box)
         tma_load(sbase + st * L7_TILE_BYTES + box * L7_BOX_BYTES, &xmap,
-                 64 * (box & 1), (box >> 1) & 1, c.strip * L7_OUT,
+                 64 * (box & 1), (box >> 1) & 1, c.strip * OUT,
                  row + (box >> 2), bar);
     }
   };
 
-  Cursor pc;
-  pc.u = u0;
-  pc.row = u0 % a.hl;
-  pc.strip = (u0 / a.hl) % a.nstrips;
-  pc.n = u0 / a.hl / a.nstrips;
-  pc.head = true;
+  Cursor pc(u0, a.hl, a.nstrips);
   Cursor cc = pc;
   fence_proxy_async();   // W's stores, before the products read them
   __syncthreads();       // and the barriers' initialisation
   for (int s = 0; s < L7_STAGES - 1; ++s) {
     load(pc, s);
-    advance(pc);
+    pc.advance(a.hl, a.nstrips);
   }
   // A: K-major, 128-byte swizzle (layout type 1), SBO 8 cells (1024 B) on;
   // B: no swizzle, LBO a k8 group (16 lanes x 16 B) on, SBO 8 lanes on
@@ -223,7 +315,7 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args a) {
     const int st = t % L7_STAGES;
     __syncthreads();   // every thread is done with stage t-1's tile
     load(pc, (t + L7_STAGES - 1) % L7_STAGES);
-    advance(pc);
+    pc.advance(a.hl, a.nstrips);
     mbar_wait(s_bar + 8 * st, (t / L7_STAGES) & 1);   // tile t has landed
 
     float acc[8];
@@ -253,64 +345,146 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args a) {
                                           acc[4 * j + 2 * h + 1]);
     __syncthreads();
 
-    if (!cc.head && tid < L7_OUT) {
-      const int i = cc.row, n = cc.n;
-      const int j = cc.strip * L7_OUT + tid;
-      const float* zp = zt + (zb ^ 1) * L7_CELLS * L7_ZP;   // cell row i
-      if (j < a.wcols) {
-        const float4 z0 = *reinterpret_cast<const float4*>(zp + tid * L7_ZP);
-        const float4 z1 = *reinterpret_cast<const float4*>(
-            zp + (tid + 1) * L7_ZP + 4);
-        const float4 z2 = *reinterpret_cast<const float4*>(
-            z + tid * L7_ZP + 8);
-        const float4 z3 = *reinterpret_cast<const float4*>(
-            z + (tid + 1) * L7_ZP + 12);
-        float yv[4] = {((z0.x + z1.x) + z2.x) + z3.x,
-                       ((z0.y + z1.y) + z2.y) + z3.y,
-                       ((z0.z + z1.z) + z2.z) + z3.z,
-                       ((z0.w + z1.w) + z2.w) + z3.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) yv[q] = leaky(yv[q] + bias);
-        const size_t cell = ((size_t)n * a.hl + i) * a.wl + j;
-        if constexpr (OUT_MODE == OUT_S2D) {
-          store4(static_cast<__nv_bfloat16*>(a.y) + cell * 4, yv);
-        } else if constexpr (OUT_MODE == OUT_DENSE) {
-          __nv_bfloat16* yd = static_cast<__nv_bfloat16*>(a.y) +
-                              ((size_t)n * a.hl + i) * a.wcols * 4 +
-                              (size_t)(j / a.tc) * 4 * a.tc + j % a.tc;
-          const bool pad = j >= a.wl;   // the last chunk's pad columns
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            store1(yd + (size_t)q * a.tc, pad ? 0.0f : yv[q]);
-        } else {
-          const float4 u4 = reinterpret_cast<const float4*>(a.uvp)[cell * 2];
-          const float4 v4 =
-              reinterpret_cast<const float4*>(a.uvp)[cell * 2 + 1];
-          const float u[4] = {u4.x, u4.y, u4.z, u4.w};
-          const float v[4] = {v4.x, v4.y, v4.z, v4.w};
-          uint32_t word[3];
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            word[c] = 0;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              // no fmaf: each product and sum rounded on its own
-              float val = __fadd_rn(__fmul_rn(yv[q], a.cm.inv[c][0]),
-                                    __fmul_rn(u[q], a.cm.inv[c][1]));
-              val = __fadd_rn(val, __fmul_rn(v[q], a.cm.inv[c][2]));
-              val = __fmul_rn(__fadd_rn(val, a.cm.off[c]), 255.0f);
-              val = fminf(fmaxf(rintf(val), 0.0f), 255.0f);
-              word[c] |= static_cast<uint32_t>(val) << (8 * q);
-            }
-          }
-          static_cast<uint4*>(a.y)[cell] =
-              make_uint4(word[0], word[1], word[2], 0u);
-        }
-      }
-    }
+    const int j = cc.strip * OUT + tid;
+    if (!cc.head && tid < OUT && j < a.wcols)
+      l7_out<OUT_MODE>(a, zt + (zb ^ 1) * L7_CELLS * L7_ZP + tid * L7_ZP,
+                       z + tid * L7_ZP, cc.n, cc.row, j, bias);
     zb ^= 1;
     ++t;
-    advance(cc);
+    cc.advance(a.hl, a.nstrips);
+  }
+}
+
+// One lane of a float4 by a compile-time index.
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+template <int OUT_MODE>
+__global__ void __launch_bounds__(F7_THREADS, 1)
+l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
+  constexpr int OUT = F7_CELLS - 1;   // output cells of a strip
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  const uint32_t sbase = smem_addr(smem);
+  float4* s_w = reinterpret_cast<float4*>(smem + L7_STAGES * F7_TILE_BYTES);
+  float* part = reinterpret_cast<float*>(smem + L7_STAGES * F7_TILE_BYTES +
+                                         F7_W_BYTES);
+  float* zt = part + F7_PART_BYTES / 4;
+  const uint32_t s_bar = sbase + L7_STAGES * F7_TILE_BYTES + F7_W_BYTES +
+                         F7_PART_BYTES + 2 * F7_CELLS * L7_ZP * 4;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < L7_STAGES; ++s) mbar_init(s_bar + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // w7 [128][9] -> [c4][tap][4]: the taps of four channels in one float4
+  for (int i = tid; i < 128 * 9; i += F7_THREADS)
+    reinterpret_cast<float*>(s_w)[((i / 36) * 9 + i % 9) * 4 + (i / 9) % 4] =
+        a.w[i];
+
+  int u0, u1;
+  block_rows(a.rows, u0, u1);
+  // the tile at c into ring stage st: sixteen boxes of 32 cells x 32
+  // channels, box (a*2 + b)*4 + h holding channels 32h .. 32h + 31 of pixel
+  // (a, b) of the cells, issued by one thread
+  auto load = [&](const Cursor& c, int st) {
+    if (tid == 0 && c.u < u1) {
+      const uint32_t bar = s_bar + 8 * st;
+      mbar_expect(bar, F7_TILE_BYTES);
+      const int row = c.pixel_row(a.hl);
+      for (int box = 0; box < 16; ++box)
+        tma_load(sbase + st * F7_TILE_BYTES + box * F7_BOX_BYTES, &xmap,
+                 32 * (box & 3), (box >> 2) & 1, c.strip * OUT,
+                 row + (box >> 3), bar);
+    }
+  };
+
+  Cursor pc(u0, a.hl, a.nstrips);
+  Cursor cc = pc;
+  __syncthreads();       // w7's stores and the barriers' initialisation
+  for (int s = 0; s < L7_STAGES - 1; ++s) {
+    load(pc, s);
+    pc.advance(a.hl, a.nstrips);
+  }
+  const float bias = a.b[0];
+  const int lane = tid & 31, warp = tid >> 5;
+  // warp w: channels 16w .. 16w + 15, the 16-byte chunks (w & 1) * 4 + jj
+  // of the 128-byte rows of the boxes of channel quarter w / 2; lane: cell
+  const uint32_t row_off = (warp >> 1) * F7_BOX_BYTES + lane * 128;
+  int t = 0, zb = 0;
+  while (cc.u < u1) {
+    const int st = t % L7_STAGES;
+    __syncthreads();   // every thread is done with stage t-1's tile
+    load(pc, (t + L7_STAGES - 1) % L7_STAGES);
+    pc.advance(a.hl, a.nstrips);
+    mbar_wait(s_bar + 8 * st, (t / L7_STAGES) & 1);   // tile t has landed
+
+    const uint8_t* tile = smem + st * F7_TILE_BYTES + row_off;
+    float acc[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) acc[k] = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int chunk = ((warp & 1) * 4 + jj) ^ (lane & 7);   // swizzled
+      float4 xv[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)   // pixel (a, b) = (p / 2, p % 2)
+        xv[p] = *reinterpret_cast<const float4*>(
+            tile + p * 4 * F7_BOX_BYTES + chunk * 16);
+      float4 wv[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) wv[k] = s_w[(4 * warp + jj) * 9 + k];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const float x = lane4(xv[p], e);
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              // known at compile time: the tap of pixel p into lane s*4+q
+              const int dy = 2 * (s >> 1) + (p >> 1) - (q >> 1);
+              const int dx = 2 * (s & 1) + (p & 1) - (q & 1);
+              if (dy < 0 || dy > 2 || dx < 0 || dx > 2) continue;
+              acc[s * 4 + q] =
+                  fmaf(x, lane4(wv[dy * 3 + dx], e), acc[s * 4 + q]);
+            }
+        }
+    }
+    float* pw = part + (warp * F7_CELLS + lane) * L7_ZP;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      *reinterpret_cast<float4*>(pw + 4 * k) =
+          make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2],
+                      acc[4 * k + 3]);
+    __syncthreads();
+
+    // Zt of this tile: the eight warps' partial sums added in warp order,
+    // two lanes of one cell a thread
+    float* z = zt + zb * F7_CELLS * L7_ZP;
+    {
+      const int cell = tid >> 3, k = 2 * (tid & 7);
+      float2 sum = *reinterpret_cast<const float2*>(part + cell * L7_ZP + k);
+#pragma unroll
+      for (int w = 1; w < 8; ++w) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            part + (w * F7_CELLS + cell) * L7_ZP + k);
+        sum.x += v.x;
+        sum.y += v.y;
+      }
+      *reinterpret_cast<float2*>(z + cell * L7_ZP + k) = sum;
+    }
+    __syncthreads();
+
+    const int j = cc.strip * OUT + tid;
+    if (!cc.head && tid < OUT && j < a.wcols)
+      l7_out<OUT_MODE>(a, zt + (zb ^ 1) * F7_CELLS * L7_ZP + tid * L7_ZP,
+                       z + tid * L7_ZP, cc.n, cc.row, j, bias);
+    zb ^= 1;
+    ++t;
+    cc.advance(a.hl, a.nstrips);
   }
 }
 
@@ -323,10 +497,11 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // x [n, 2hl+2, 2wl+2, 128] as the 4-d tensor (channel, column parity, cell
-// column, pixel row of all images), boxes of 64 channels x 1 x 64 cells x 1
-// row with the 128-byte swizzle; cells past wl read zero
-cudaError_t make_map(CUtensorMap* map, const void* x, int n, int hl,
-                     int wl) {
+// column, pixel row of all images), boxes of 128 bytes of channels x 1 x
+// `cells` cells x 1 row with the 128-byte swizzle (64 channels in bf16, 32
+// in f32); cells past wl read zero
+cudaError_t make_map(CUtensorMap* map, const void* x, int bf16, int n, int hl,
+                     int wl, int cells) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -338,61 +513,53 @@ cudaError_t make_map(CUtensorMap* map, const void* x, int n, int hl,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const uint64_t w6 = 2 * (uint64_t)wl + 2;
+  const uint64_t size = bf16 ? 2 : 4, w6 = 2 * (uint64_t)wl + 2;
   const cuuint64_t dims[4] = {128, 2, (cuuint64_t)wl + 1,
                               (cuuint64_t)n * (2 * hl + 2)};
-  const cuuint64_t strides[3] = {256, 512, w6 * 256};
-  const cuuint32_t box[4] = {64, 1, L7_CELLS, 1};
+  const cuuint64_t strides[3] = {128 * size, 256 * size, w6 * 128 * size};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / size), 1, (cuuint32_t)cells,
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      4, const_cast<void*>(x), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int OUT_MODE>
-cudaError_t launch(const void* x, int n, const L7Args& a, cudaStream_t s) {
+// One launch of `kernel` over a.rows output rows on a persistent grid (no
+// more blocks than SMs), x's tensor map in tiles of `cells` cells.
+template <typename T>
+cudaError_t launch(void (*kernel)(const CUtensorMap, L7Args<T>),
+                   uint32_t smem, int threads, int cells, const void* x,
+                   int n, const L7Args<T>& a, cudaStream_t s) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  auto kernel = l7_fold<OUT_MODE>;
   // over 48 KB of dynamic shared memory is refused without this
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)L7_SMEM);
+                             (int)smem);
   if (err != cudaSuccess) return err;
   CUtensorMap map;
-  err = make_map(&map, x, n, a.hl, a.wl);
+  err = make_map(&map, x, sizeof(T) == 2, n, a.hl, a.wl, cells);
   if (err != cudaSuccess) return err;
   const int blocks = a.rows < sms ? a.rows : sms;
-  kernel<<<(unsigned)blocks, L7_THREADS, L7_SMEM, s>>>(map, a);
+  kernel<<<(unsigned)blocks, threads, smem, s>>>(map, a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Layer 7 of a bf16 stack (bf16 must be 1) on `stream`: x [n, 2hl+2,
-// 2wl+2, 128], w the folded weights [512, 16], b [1] f32, and out_mode 0
-// (y [n, hl, wl, 4] bf16), 1 (y [n, hl, ceil(wl/tc)*4*tc] bf16, tc a
-// multiple of 32) or 2 (y u8 [n, hl, wl, 16] from the device array uvp
-// [n, hl, wl, 8] f32 and the host array cmap[12], w2x_stack_layer's). x, w,
-// y and uvp 16-byte aligned. Returns the cudaError_t of the launch.
-int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
-                void* y, int n, int hl, int wl, int out_mode,
-                const void* uvp, const float* cmap, int tc, void* stream) {
-  if (!bf16 || n <= 0 || hl <= 0 || wl <= 0 ||
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-       reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(uvp)) %
-          16)
-    return (int)cudaErrorInvalidValue;
-  L7Args a = {};
-  a.w = static_cast<const __nv_bfloat16*>(w);
+// The checks and the launch arguments of both types; `cells` is the tile's
+// width, one more than a strip's.
+template <typename T>
+cudaError_t fold_args(L7Args<T>& a, const void* w, const void* b, void* y,
+                      int n, int hl, int wl, int out_mode, const void* uvp,
+                      const float* cmap, int tc, int cells) {
+  a.w = static_cast<const T*>(w);
   a.b = static_cast<const float*>(b);
   a.y = y;
   a.uvp = static_cast<const float*>(uvp);
@@ -401,24 +568,60 @@ int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
   a.tc = tc;
   a.wcols = wl;
   if (out_mode == OUT_DENSE) {
-    if (tc <= 0 || tc % 32) return (int)cudaErrorInvalidValue;
+    if (tc <= 0 || tc % 32) return cudaErrorInvalidValue;
     a.wcols = (wl + tc - 1) / tc * tc;
   } else if (out_mode == OUT_U8) {
-    if (uvp == nullptr || cmap == nullptr) return (int)cudaErrorInvalidValue;
+    if (uvp == nullptr || cmap == nullptr) return cudaErrorInvalidValue;
     a.cm = color_map(cmap);
   } else if (out_mode != OUT_S2D) {
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   }
-  a.nstrips = (a.wcols + L7_OUT - 1) / L7_OUT;
+  a.nstrips = (a.wcols + cells - 2) / (cells - 1);
   const long long rows = (long long)n * a.nstrips * hl;
-  if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (rows > INT_MAX) return cudaErrorInvalidValue;
   a.rows = (int)rows;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Layer 7 on `stream`: x [n, 2hl+2, 2wl+2, 128] in the storage type (bf16
+// != 0: bf16, else f32), for bf16 w the folded weights [512, 16] bf16, for
+// f32 w the layer's weights [128, 9] f32 (w2x_stack_layer's), b [1] f32,
+// and out_mode 0 (y [n, hl, wl, 4] in the storage type), 1 (y [n, hl,
+// ceil(wl/tc)*4*tc] in the storage type, tc a multiple of 32) or 2 (y u8
+// [n, hl, wl, 16] from the device array uvp [n, hl, wl, 8] f32 and the host
+// array cmap[12], w2x_stack_layer's). x, w, y and uvp 16-byte aligned.
+// Returns the cudaError_t of the launch.
+int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
+                void* y, int n, int hl, int wl, int out_mode,
+                const void* uvp, const float* cmap, int tc, void* stream) {
+  if (n <= 0 || hl <= 0 || wl <= 0 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(uvp)) %
+          16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (out_mode) {
-    case OUT_S2D: return (int)launch<OUT_S2D>(x, n, a, s);
-    case OUT_DENSE: return (int)launch<OUT_DENSE>(x, n, a, s);
-    default: return (int)launch<OUT_U8>(x, n, a, s);
+  cudaError_t err;
+  if (bf16) {
+    L7Args<__nv_bfloat16> a = {};
+    err = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap, tc,
+                    L7_CELLS);
+    if (err != cudaSuccess) return (int)err;
+    auto kernel = out_mode == OUT_S2D     ? l7_fold<OUT_S2D>
+                  : out_mode == OUT_DENSE ? l7_fold<OUT_DENSE>
+                                          : l7_fold<OUT_U8>;
+    return (int)launch(kernel, L7_SMEM, L7_THREADS, L7_CELLS, x, n, a, s);
   }
+  L7Args<float> a = {};
+  err = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap, tc, F7_CELLS);
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = out_mode == OUT_S2D     ? l7_fold_f32<OUT_S2D>
+                : out_mode == OUT_DENSE ? l7_fold_f32<OUT_DENSE>
+                                        : l7_fold_f32<OUT_U8>;
+  return (int)launch(kernel, F7_SMEM, F7_THREADS, F7_CELLS, x, n, a, s);
 }
 
 }  // extern "C"

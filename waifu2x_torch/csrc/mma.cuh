@@ -6,10 +6,12 @@
 // with both operands read from shared memory (mma_k16), or for N = 64 with
 // A from registers (mma_k16_rs64), and the f32 sums kept in registers; and
 //   wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32    (N = 32 .. 128)
-// (mma_k8_tf32). mma.cu builds the bf16 layers 2-6 kernel and the
-// mma_chain probe from them, mma_tf32.cu the f32 layers 2-6 as 3xTF32,
-// tmm.cu the four-tap probe layer (with B also MN-major), wino.cu the
-// Winograd layer 6 (A from registers).
+// (mma_k8_tf32); and
+//   wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8
+// (mma_k32_s8, exact int32 sums). mma.cu builds the bf16 layers 2-6 kernel
+// and the mma_chain probe from them, mma_tf32.cu the f32 layers 2-6 as
+// 3xTF32, tmm.cu the four-tap probe layer (with B also MN-major), wino.cu
+// the Winograd layer 6 (A from registers), i8.cu the int8 layer 6.
 //
 // Operand layout without swizzle ("interleaved"): an operand is cut into
 // core matrices of 8 rows x 16 bytes (8 bf16 along K), each stored as 128
@@ -81,6 +83,11 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // The constant half of a descriptor without swizzle: strides in bytes,
@@ -253,6 +260,40 @@ __device__ __forceinline__ void mma_k16_rs64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define W2X_IACC4(d, i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define W2X_IACC16(d, i) \
+  W2X_IACC4(d, i), W2X_IACC4(d, i + 4), W2X_IACC4(d, i + 8), W2X_IACC4(d, i + 12)
+
+// d[64 x 128] += A[64 x 32] * B[128 x 32]^T in int8 with int32 sums, one
+// instruction (wgmma.mma_async m64n128k32.s32.s8.s8); both operands K-major
+// from shared memory (8-bit types have no transpose). A core matrix is 8
+// rows x 16 bytes (16 int8 along K), so one instruction spans two core
+// matrices along K, LBO apart, exactly as a bf16 k16 step does; SBO steps
+// along M or N. The accumulator fragment is m64nNk16's, in int32.
+__device__ __forceinline__ void mma_k32_s8(int (&d)[64], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : W2X_IACC16(d, 0), W2X_IACC16(d, 16), W2X_IACC16(d, 32),
+        W2X_IACC16(d, 48)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+#undef W2X_IACC16
+#undef W2X_IACC4
 #undef W2X_ACC16
 #undef W2X_ACC4
 

@@ -153,6 +153,22 @@ def pack_mma(w) -> torch.Tensor:
     return _k_major(w, 8)
 
 
+def pack_mma_i8(q) -> torch.Tensor:
+    """The int8 layer 6's weights as its tensor-core kernel reads them
+    (csrc/i8.cu): int8 [ci, taps, co] (stack.unpack_w6q's layout) ->
+    [ci/16, taps, co, 16] with out[c16, t, o, k] = q[16*c16 + k, t, o].
+    Sixteen input channels of one output channel are 16 contiguous bytes,
+    eight output channels of them one 128-byte core matrix of a K-major B
+    operand: pack_mma's layout with a k32 step of int8 in place of a k16
+    step of bf16. unpack_mma inverts it up to the order [taps, ci, co]."""
+    q = torch.as_tensor(q)
+    if q.dim() != 3 or q.shape[0] % 16 or q.dtype != torch.int8:
+        raise ValueError(f"pack_mma_i8 takes int8 [ci, taps, co] with ci a "
+                         f"multiple of 16, got {q.dtype} {tuple(q.shape)}")
+    ci, taps, co = q.shape
+    return q.reshape(ci // 16, 16, taps, co).permute(0, 2, 3, 1).contiguous()
+
+
 def unpack_mma(wp: torch.Tensor) -> torch.Tensor:
     """pack_mma's (and pack_mma_tf32's) inverse up to the kernel's shape:
     [ci/k, taps, co, k] -> [taps, ci, co]."""

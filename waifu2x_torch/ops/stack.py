@@ -58,17 +58,19 @@ zero-shift mask (zs: a tap on a zeroed axis reads its own s2d cell) or with
 two accumulators (pp: the same function), and layer 7 under a mask
 (mma_layer(zs=, pp=), last_layer(zs=), mma_plan(ci, co, zs, pp)).
 
-Layer 7 (128 -> 1) of a bf16 call whose layer-6 output is one plane (every
-form but i8) is the JAX body's folded tap product on the tensor cores
-(csrc/l7.cu, from StackParams.w7f = pack_l7_fold(w7)): per s2d cell of the
-layer-6 plane one f32 product [512] x [512, 16], then Y as four shifted
-4-lane slices of those partials added in order, the bias, LeakyReLU and the
-output form; l7_fold_plain is its plain version. The f32
-calls, the int8 layer 6's tile-major plane, the truncation's tap forms and
-the zero-shift masks keep the FFMA kernels (csrc/stack.cu per pixel,
-common.cuh per cell), as does last_layer(fold=False), layer 7 alone in
-either kernel (l7_fold_chosen decides). L7_LAUNCHES counts every layer-7
-launch by kernel.
+Layer 7 (128 -> 1) of a call whose layer-6 output is one plane (every
+form but i8) is the JAX body's folded tap product (csrc/l7.cu): per s2d
+cell of the layer-6 plane one f32 product [512] x [512, 16] with
+StackParams.w7f = pack_l7_fold(w7), then Y as four shifted 4-lane slices of
+those partials added in order, the bias, LeakyReLU and the output form;
+l7_fold_plain is its plain version. A bf16 call runs it on the tensor cores
+(l7_fold), an f32 call with FFMA on the 4 x 9 x 128 entries of w7f that are
+not zero, read from w7 itself (l7_fold_f32). The int8 layer 6's tile-major
+plane, the truncation's tap forms and the zero-shift masks keep the FFMA
+kernels (csrc/stack.cu per pixel, common.cuh per cell), as does
+last_layer(fold=False), layer 7 alone in either kernel (l7_fold_chosen
+decides), the timing yardstick. L7_LAUNCHES counts every layer-7 launch by
+kernel.
 
 Layer 6 (128 -> 128, half of the stack's multiply-adds) has three forms,
 chosen by the arguments `l6_i8` and `l6_wino` of every wrapper; None, the
@@ -97,10 +99,16 @@ Both at once raise ValueError.
           plane edge-extended to the tile grid, each tile's Y comes from
           layer 6 computed with that tile's own scale, and the result is
           cropped to the image. `tile=(tr, tc)` sets the tile (the JAX
-          package's `tile` argument); None picks default_tile.
+          package's `tile` argument); None picks default_tile. The tile
+          maxima are csrc/l6.cu's tile_absmax; the layer runs on the int8
+          tensor cores (csrc/i8.cu: l6_i8_mma, wgmma s8 x s8 -> s32, from
+          StackParams.w6i = pack_mma_i8), or with
+          MID_MMA False on csrc/l6.cu's __dp4a kernel (l6_i8_conv), the
+          timing yardstick; both give l6_i8_layer_plain's values bit for
+          bit. I8_LAUNCHES counts the layer's launches by kernel.
 
 The kernels (csrc/l1.cu, csrc/stack.cu, csrc/mma.cu, csrc/mma_tf32.cu,
-csrc/l6.cu, csrc/wino.cu and csrc/l7.cu, which replace
+csrc/l6.cu, csrc/i8.cu, csrc/wino.cu and csrc/l7.cu, which replace
 waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
 configurations B1, B2, B3, B6 and B7, B4, B5) launch once per layer: 7
 times per call, 8 with `l6_i8` (the tile maxima are a launch of their
@@ -130,6 +138,7 @@ from waifu2x_torch.ops.s2d import (
     pack_l1_scale,
     pack_l7_fold,
     pack_mma,
+    pack_mma_i8,
     pack_mma_tf32,
     pack_wino,
     s2d,
@@ -181,12 +190,17 @@ L1_LAUNCHES = {"l1": 0, "ffma": 0}
 # tensor cores (csrc/wino.cu; also wino_layer alone, which counts here
 # only), "ffma" csrc/l6.cu; L6_LAUNCHES["wino"] counts the form
 WINO_LAUNCHES = {"mma": 0, "ffma": 0}
+# the int8 layer 6's launches by the kernel that ran them: "mma" the int8
+# tensor cores (csrc/i8.cu), "dp4a" csrc/l6.cu (MID_MMA False);
+# L6_LAUNCHES["i8"] counts the form (with the tile maxima)
+I8_LAUNCHES = {"mma": 0, "dp4a": 0}
 # every launch of a layer-7 kernel (of a stack, of last_layer alone, of the
 # probes' stacks, and the truncation's tap forms) by the kernel that ran it:
-# "fold" the tensor-core fold (csrc/l7.cu, bf16 on a plane), "cell"
-# common.cuh's cell kernel (f32 dense and u8, int8 tile-major, taps),
-# "pixel" stack.cu's per-pixel kernel (f32 s2d, the zero-shift masks)
-L7_LAUNCHES = {"fold": 0, "cell": 0, "pixel": 0}
+# "fold" the tensor-core fold (csrc/l7.cu, bf16 on a plane), "fold_f32" the
+# FFMA fold (csrc/l7.cu, f32 on a plane), "cell" common.cuh's cell kernel
+# (int8 tile-major, taps; dense and u8 with fold=False), "pixel" stack.cu's
+# per-pixel kernel (the zero-shift masks; s2d with fold=False)
+L7_LAUNCHES = {"fold": 0, "fold_f32": 0, "cell": 0, "pixel": 0}
 
 # the last layer's output forms (csrc/common.cuh: OUT_*)
 _OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS, _OUT_PTAPS = 0, 1, 2, 3, 4
@@ -206,7 +220,7 @@ def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
     for counts in (KERNEL_LAUNCHES, L6_LAUNCHES, MID_LAUNCHES, WINO_LAUNCHES,
-                   L7_LAUNCHES, L1_LAUNCHES):
+                   L7_LAUNCHES, L1_LAUNCHES, I8_LAUNCHES):
         for kind in counts:
             counts[kind] = 0
 
@@ -217,6 +231,8 @@ class StackParams(tuple):
       w6q  int32 [32, 9, 128]: w6 as int8, four input channels to a word
            (byte k of word [c4, t, co] is channel 4*c4 + k; unpack_w6q)
       w6s  f32 [128]: the int8 weights' scale per output channel
+      w6i  int8 [8, 9, 128, 16]: w6q as the int8 tensor-core kernel reads
+           it, pack_mma_i8(unpack_w6q(w6q))
       w6w  [16, 128, 128] in the storage dtype: pack_wino(w6)
       w6m  [16, 16, 128, 8] in the storage dtype: pack_mma of the same U as
            a 4 x 4 kernel (tap p = py*4 + px), its input channels in the
@@ -284,6 +300,8 @@ def prep_params(params, dtype=torch.bfloat16, device="cuda") -> StackParams:
     words = (torch.from_numpy(q).permute(2, 0, 1, 3).reshape(32, 4, 9, 128)
              .permute(0, 2, 3, 1).contiguous().view(torch.int32).squeeze(-1))
     sp.w6q = words.to(device).contiguous()
+    sp.w6i = pack_mma_i8(torch.from_numpy(q).permute(2, 0, 1, 3)
+                         .reshape(128, 9, 128)).to(device)
     sp.w6s = torch.from_numpy(sw).to(device)
     u = torch.from_numpy(pack_wino(w6))
     sp.w6w = u.to(device, dtype).contiguous()
@@ -429,16 +447,17 @@ def wino_plan() -> WinoPlan:
     return WinoPlan((t, t), _WINO_CO, 256, kc, _WINO_STAGES, smem)
 
 
-def l7_fold_chosen(dtype, zs: int = 0, fold=None) -> bool:
-    """Whether layer 7 runs folded on the tensor cores (csrc/l7.cu): by
-    default on every bf16 plane with no zero-shift mask; fold=False asks for
-    the FFMA kernels, fold=True for the fold (raising where it does not
-    apply: f32, or a zero-shift mask)."""
+def l7_fold_chosen(zs: int = 0, fold=None) -> bool:
+    """Whether layer 7 runs folded (csrc/l7.cu: on the tensor cores in bf16,
+    with FFMA in f32): by default on every plane with no zero-shift mask,
+    in both types; fold=False asks for the per-pixel and per-cell FFMA
+    kernels, fold=True for the fold (raising where it does not apply: a
+    zero-shift mask)."""
     if fold is None:
-        return dtype == torch.bfloat16 and not zs
-    if fold and (dtype != torch.bfloat16 or zs):
-        raise ValueError(f"the folded layer 7 takes bf16 and no zero-shift "
-                         f"mask, got {dtype}, zs={zs}")
+        return not zs
+    if fold and zs:
+        raise ValueError(f"the folded layer 7 takes no zero-shift mask, got "
+                         f"zs={zs}")
     return bool(fold)
 
 
@@ -495,7 +514,8 @@ def _check(ylow: torch.Tensor, sp, form: str = "direct") -> None:
                              f"{ylow.device}")
         if not (w.is_contiguous() and b.is_contiguous()):
             raise ValueError(f"layer {k}: weights must be contiguous")
-    extras = {"i8": ("w6q", "w6s"), "wino": ("w6w",), "direct": ()}[form]
+    extras = {"i8": ("w6q", "w6s", "w6i"), "wino": ("w6w",),
+              "direct": ()}[form]
     for name in extras:
         t = getattr(sp, name, None)
         if t is None:
@@ -566,8 +586,16 @@ def _wt(sp, x: torch.Tensor, k: int) -> tuple:
 
 
 def _w7f(sp, x: torch.Tensor) -> torch.Tensor:
-    """StackParams.w7f, checked against the layer-6 plane x it will meet."""
+    """StackParams.w7f, checked against the layer-6 plane x it will meet.
+    f32 weights without that field (a bare tuple of (w, b) pairs, which
+    every wrapper takes in the direct form, as _w1s does for layer 1) have
+    it packed from the stored w7, which in f32 is prep_params' own pack;
+    bf16 weights need prep_params' (packed from the f32 weights, then
+    rounded)."""
     w7f = getattr(sp, "w7f", None)
+    if w7f is None and sp[6][0].dtype == torch.float32:
+        w7 = sp[6][0].detach().cpu().reshape(128, 3, 3, 1).permute(1, 2, 0, 3)
+        w7f = torch.from_numpy(pack_l7_fold(w7.numpy())).to(sp[6][0].device)
     if w7f is None or tuple(w7f.shape) != (512, 16):
         raise ValueError("the folded layer 7 needs prep_params' "
                          "StackParams.w7f [512, 16]")
@@ -979,12 +1007,12 @@ def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
     (stack_scale_upto), in the form `out`: with "whole" (upto 1..5) the
     layer's whole NHWC plane, with "phase_taps" (upto 6) the unfolded taps.
     With `mma`, layers 2-6 are mma_layer_plain from the packed weights
-    sp.wm (layer 6 only in its direct form). Layer 7 of a bf16 stack is
-    the folded tap product (l7_fold_plain) where layer 6's output is one
-    plane (not with "i8"), as csrc/l7.cu computes it."""
+    sp.wm (layer 6 only in its direct form). Layer 7 is the folded tap
+    product (l7_fold_plain) where layer 6's output is one plane (not with
+    "i8"), as csrc/l7.cu computes it."""
     hg, wg = (x1.shape[2] - 12) // 2, (x1.shape[3] - 12) // 2
     w7, b7 = sp[6]
-    fold = l7_fold_chosen(dtype) and form != "i8"
+    fold = form != "i8"
 
     def last(x6):
         if upto == 6:
@@ -1176,7 +1204,7 @@ def _check_x5(x5: torch.Tensor, sp, tile) -> tuple:
     if x5.dtype not in DTYPES or not x5.is_contiguous():
         raise TypeError(f"x5 must be contiguous float32 or bfloat16, got "
                         f"{x5.dtype}")
-    for name in ("w6q", "w6s"):
+    for name in ("w6q", "w6s", "w6i"):
         t = getattr(sp, name, None)
         if t is None or t.device != x5.device:
             raise ValueError(f"StackParams.{name} must be on {x5.device}")
@@ -1228,6 +1256,8 @@ _ARGTYPES = {
            "w2x_last_cell": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                              _INT, _PTR, _FLOATS, _INT, _INT, _INT, _INT,
                              _INT, _PTR]},
+    "i8": {"w2x_l6_i8_mma": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
+                             _INT, _INT, _INT, _INT, _PTR]},
     "wino": {"w2x_l6_wino_mma": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
                                  _INT, _INT, _PTR]},
     "l7": {"w2x_l7_fold": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
@@ -1279,10 +1309,10 @@ class _Launcher:
         self.step += 1
 
     def run(self, lib: str, fn: str, what: str, l6=None, *args,
-            mid=None, wino=None, l7=None, l1=None) -> None:
+            mid=None, wino=None, l7=None, l1=None, i8=None) -> None:
         """Launch one kernel and count it, under L6_LAUNCHES[l6],
-        MID_LAUNCHES[mid], WINO_LAUNCHES[wino], L7_LAUNCHES[l7] and
-        L1_LAUNCHES[l1] too where given."""
+        MID_LAUNCHES[mid], WINO_LAUNCHES[wino], L7_LAUNCHES[l7],
+        L1_LAUNCHES[l1] and I8_LAUNCHES[i8] too where given."""
         global LAUNCHES
         err = getattr(self.libs[lib], fn)(self.bf16, *args, self.stream)
         if err:
@@ -1301,6 +1331,8 @@ class _Launcher:
             L7_LAUNCHES[l7] += 1
         if l1 is not None:
             L1_LAUNCHES[l1] += 1
+        if i8 is not None:
+            I8_LAUNCHES[i8] += 1
 
     def layer(self, k: int, full_res: bool, src, sp, dst, n, ph, pw,
               out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0, zs: int = 0,
@@ -1308,14 +1340,14 @@ class _Launcher:
         """Layer k + 1: layer 1 on csrc/l1.cu; layers 2-6 on the tensor
         cores, a bf16 call's on csrc/mma.cu and an f32 call's as 3xTF32 on
         csrc/mma_tf32.cu (both on stack.cu's FFMA kernel with MID_MMA
-        False); layer 7 of a bf16 call folded on the tensor cores
-        (csrc/l7.cu; l7_fold_chosen with `fold`), of an f32 call on
-        stack.cu. zs, a zero-shift mask, and pp, two accumulators, are the
-        probes' variants of the bf16 tensor-core layers (zs also of layer 7
-        in s2d layout, on stack.cu's kernel)."""
+        False); layer 7 folded (csrc/l7.cu, on the tensor cores in bf16,
+        FFMA in f32; l7_fold_chosen with `fold`), or on stack.cu's FFMA
+        kernels with fold=False. zs, a zero-shift mask, and pp, two
+        accumulators, are the probes' variants of the bf16 tensor-core
+        layers (zs also of layer 7 in s2d layout, on stack.cu's kernel)."""
         w, b = sp[k]
         hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
-        if k == 6 and not pp and l7_fold_chosen(src.dtype, zs, fold):
+        if k == 6 and not pp and l7_fold_chosen(zs, fold):
             self.l7_fold(src, sp, dst, n, hg, wg, out_mode, uvp, cmap, tc)
             return
         if zs or pp:
@@ -1378,13 +1410,17 @@ class _Launcher:
 
     def l7_fold(self, x6, sp, y, n, hl, wl, out_mode=_OUT_S2D, uvp=None,
                 cmap=None, tc=0) -> None:
-        """Layer 7 folded on the tensor cores (csrc/l7.cu) from the
-        [n, 2hl+2, 2wl+2, 128] plane x6 into y in the form out_mode."""
-        self.run("l7", "w2x_l7_fold", "layer 7 (fold)", None,
-                 x6.data_ptr(), _w7f(sp, x6).data_ptr(), sp[6][1].data_ptr(),
+        """Layer 7 folded (csrc/l7.cu) from the [n, 2hl+2, 2wl+2, 128]
+        plane x6 into y in the form out_mode: bf16 on the tensor cores from
+        StackParams.w7f, f32 with FFMA from w7's taps [128, 9] (w7f's
+        entries that are not zero)."""
+        w = _w7f(sp, x6) if self.bf16 else sp[6][0]
+        self.run("l7", "w2x_l7_fold",
+                 f"layer 7 (fold{'' if self.bf16 else ', f32'})", None,
+                 x6.data_ptr(), w.data_ptr(), sp[6][1].data_ptr(),
                  y.data_ptr(), n, hl, wl, out_mode,
                  None if uvp is None else uvp.data_ptr(), cmap, tc,
-                 l7="fold")
+                 l7="fold" if self.bf16 else "fold_f32")
 
     def mma_layer(self, k: int, src, sp, dst, n, hin, win, l6=None,
                   zs: int = 0, pp: bool = False) -> None:
@@ -1427,16 +1463,30 @@ class _Launcher:
                  y6.data_ptr(), n, h5, w5, wino="ffma")
 
     def l6_i8(self, x5, sp, n, tiling):
-        """The tile maxima and the int8 layer 6 -> (x6t tile-major, m)."""
+        """The tile maxima (csrc/l6.cu) and the int8 layer 6 on the tensor
+        cores (csrc/i8.cu), or with MID_MMA False on csrc/l6.cu's __dp4a
+        kernel -> (x6t tile-major, m)."""
         tr, tc, ny, nx = tiling
         m = torch.zeros((n, ny, nx), dtype=torch.float32, device=x5.device)
         x6t = torch.empty((n, ny, nx, 2 * tr + 2, 2 * tc + 2, 128),
                           dtype=x5.dtype, device=x5.device)
         self.run("l6", "w2x_tile_absmax", "layer 6, tile maxima", "i8",
                  x5.data_ptr(), m.data_ptr(), n, tr, tc, ny, nx)
-        self.run("l6", "w2x_l6_i8", "layer 6, int8", "i8", x5.data_ptr(),
-                 sp.w6q.data_ptr(), sp.w6s.data_ptr(), sp[5][1].data_ptr(),
-                 m.data_ptr(), x6t.data_ptr(), n, tr, tc, ny, nx)
+        args = (sp.w6s.data_ptr(), sp[5][1].data_ptr(), m.data_ptr(),
+                x6t.data_ptr(), n, tr, tc, ny, nx)
+        if MID_MMA:
+            w6i = getattr(sp, "w6i", None)
+            if w6i is None or tuple(w6i.shape) != (8, 9, 128, 16) or (
+                    w6i.dtype != torch.int8 or w6i.device != x5.device
+                    or not w6i.is_contiguous()):
+                raise ValueError("the int8 tensor-core layer needs "
+                                 "prep_params' StackParams.w6i, contiguous "
+                                 f"int8 on {x5.device}")
+            self.run("i8", "w2x_l6_i8_mma", "layer 6, int8 (mma)", "i8",
+                     x5.data_ptr(), w6i.data_ptr(), *args, i8="mma")
+        else:
+            self.run("l6", "w2x_l6_i8", "layer 6, int8 (dp4a)", "i8",
+                     x5.data_ptr(), sp.w6q.data_ptr(), *args, i8="dp4a")
         return x6t, m
 
 
@@ -1539,8 +1589,10 @@ def l6_i8_layer(x5: torch.Tensor, sp, tile):
     [N, ny, nx, 2tr+2, 2tc+2, 128] in x5's dtype: each tile's layer-6
     activation with its one-pixel halo, quantised with that tile's scale;
     sx [N, ny, nx] f32: the tiles' activation scales). CPU tensors take the
-    plain version; CUDA tensors take the kernels, whose two launches count
-    under L6_LAUNCHES["i8"] only."""
+    plain version; CUDA tensors take the kernels (the tile maxima, then
+    csrc/i8.cu on the int8 tensor cores, or with MID_MMA False csrc/l6.cu's
+    __dp4a kernel), whose two launches count under L6_LAUNCHES["i8"] and
+    the layer's under I8_LAUNCHES only."""
     tiling = _check_x5(x5, sp, tile)
     if x5.device.type == "cpu":
         return l6_i8_layer_plain(x5, sp, tile)
@@ -1690,15 +1742,15 @@ def last_layer(x: torch.Tensor, sp, zs: int = 0, out: str = "s2d",
     NHWC (f32 or bf16, contiguous), in the output form `out` of last_out:
     "s2d" [N, hl, wl, 4] in x's dtype, "dense" (ydense, tc), "u8"
     [N, hl, wl, 16] from uvp [N, hl, wl, 8] f32. The kernel is the stack's
-    (l7_fold_chosen): a bf16 plane with no zero-shift mask runs folded on
-    the tensor cores (csrc/l7.cu) unless fold=False, which takes the FFMA
-    kernels a bf16 stack ran before (csrc/stack.cu's per-pixel kernel for
-    s2d, common.cuh's cell kernel for the other forms); zs (0..3, s2d
-    only; see last_layer_plain) takes the per-pixel kernel. CPU tensors
-    take the plain version of the kernel chosen (l7_fold_plain or
-    last_layer_plain's f32 Y, then last_out); CUDA tensors take the kernel,
-    whose launch counts under L7_LAUNCHES (and L6_LAUNCHES["last_zs"] for
-    zs > 0) only."""
+    (l7_fold_chosen): a plane with no zero-shift mask runs folded
+    (csrc/l7.cu: bf16 on the tensor cores, f32 with FFMA) unless
+    fold=False, which takes the FFMA kernels the stacks ran before
+    (csrc/stack.cu's per-pixel kernel for s2d, common.cuh's cell kernel for
+    the other forms); zs (0..3, s2d only; see last_layer_plain) takes the
+    per-pixel kernel. CPU tensors take the plain version of the kernel
+    chosen (l7_fold_plain or last_layer_plain's f32 Y, then last_out); CUDA
+    tensors take the kernel, whose launch counts under L7_LAUNCHES (and
+    L6_LAUNCHES["last_zs"] for zs > 0) only."""
     if zs not in range(4) or (zs and out != "s2d"):
         raise ValueError(f"zs must be 0..3, and 0 for out={out!r}; got "
                          f"{zs!r}")
@@ -1721,7 +1773,7 @@ def last_layer(x: torch.Tensor, sp, zs: int = 0, out: str = "s2d",
         if uvp is None:
             raise ValueError("out='u8' needs uvp [N, hl, wl, 8]")
         _check_uvp(uvp, x[..., :hl, :wl, 0])
-    folded = l7_fold_chosen(x.dtype, zs, fold)
+    folded = l7_fold_chosen(zs, fold)
     if x.device.type == "cpu":
         y = (l7_fold_plain(x, _w7f(sp, x), b) if folded
              else _last_layer_f32(x, w, b, zs))
