@@ -9,11 +9,14 @@ and prints their numbers. Layer 1 of every stack call runs on csrc/l1.cu
 (ops.stack.L1_LAUNCHES). Every stack call of every phase runs layers 2-6 on
 the tensor cores, in bf16 on csrc/mma.cu and in f32 as 3xTF32 on
 csrc/mma_tf32.cu; where ops.stack.MID_MMA is set to False both run them as
-FFMA (csrc/stack.cu). Layer 7 of every stack call on a plane runs folded
-(csrc/l7.cu: bf16 on the tensor cores, f32 with FFMA), counted by kernel in
-ops.stack.L7_LAUNCHES, which phases 4, 6-8, 10, 11 and 15 read, as they
-and every stream read L1_LAUNCHES. Under the int8 switch layer 6 runs on
-the int8 tensor cores (csrc/i8.cu, ops.stack.I8_LAUNCHES).
+FFMA (csrc/stack.cu). Layer 7 of every stack call runs folded (csrc/l7.cu:
+bf16 on the tensor cores, f32 with FFMA; on the int8 layer 6's tile-major
+planes too), counted by kernel in ops.stack.L7_LAUNCHES, which phases 4,
+6-8, 10, 11 and 15 read, as they and every stream read L1_LAUNCHES; no
+stream counts a cell or per-pixel layer 7. Under the int8 switch layer 6
+runs on the int8 tensor cores (csrc/i8.cu, ops.stack.I8_LAUNCHES); under
+the Winograd switch on the tensor cores in both types (csrc/wino.cu,
+ops.stack.WINO_LAUNCHES: f32 as 3xTF32).
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -82,7 +85,7 @@ Phases (any failure raises and exits non-zero):
      (2,37,53), (1,5,300), scale512 and noise256, to one bf16 ulp at the
      output's magnitude (the share of differing outputs printed); then the
      stacks, scale and noise input modes, at the small and odd shapes,
-     scale512 and noise256: f32 (FFMA, csrc/l6.cu) <= 3e-5 against its
+     scale512 and noise256: f32 (3xTF32, csrc/wino.cu) <= 3e-5 against its
      plain version and <= 1e-4 against the direct kernel; bf16 (tensor
      cores) <= 2^-4 against the bf16 plain version and, at the two main
      shapes, >= 50 dB against the f32 plain version; bf16 with MID_MMA
@@ -213,6 +216,24 @@ Phases (any failure raises and exits non-zero):
      must beat, beside its bound, the plain version and cuDNN's bf16 layer
      6 (a different function); the timed plane's output equals the plain
      version's bit for bit.
+ 26. B4's layer 7 folded on the int8 layer 6's tile-major planes (phase26
+     below; csrc/l7.cu through stack.last_layer_tiles) against
+     l7_tiles_plain in its three forms and both types at three odd shapes
+     and scale512 (bf16 one ulp, f32 3e-5, u8 by check_u8_kernel, dense ==
+     s2d bit for bit), then timed alone at scale512 in turns against the
+     cell kernel (fold=False, held first), which it must beat, beside the
+     byte bound, cuDNN's layer 7 on the tile batch and the plain version.
+ 27. B5's f32 Winograd layer 6 as 3xTF32 (phase27 below; csrc/wino.cu's
+     l6_wino_tf32 through stack.wino_layer) against _l6_wino_plain at 3e-5
+     at three odd shapes and the ns1080 and scale512 layer-5 planes, the
+     f32 dense and u8 stacks under l6_wino against theirs, then timed alone
+     in turns against l6_wino<float> (MID_MMA False, held first), which it
+     must beat, beside the direct 3xTF32 layer 6, cuDNN's f32 layer 6 and
+     the bound; and the ns1080 f32 noise stack and f32-noise step under
+     l6_wino against the direct form.
+Phase 15 also runs the ns1080 chain with its f32 noise stack under the
+Winograd switch (the f32 stack on l6_wino_tf32, the bf16 one on
+l6_wino_mma) and gates the scale512 int8 step and stream at 50 dB.
 In phase 7 the f32-noise chain's layers 2-6 count 5 "mma_tf32" (the noise
 stack) and 5 "mma" (the bf16 scale stack), its layer 7 one "fold_f32" and
 one "fold", and the ns1080 timings put the f32-noise step and stack beside
@@ -546,7 +567,9 @@ def run_stream(sc, frames, stack, label: str, smi: str):
             or mid["chain"]):
         raise AssertionError(f"{label}: layers 2-6 launches {mid} of "
                              f"{stack.LAUNCHES}")
-    if sum(l7.values()) != stacks:   # one layer 7 a stack call
+    # one layer 7 a stack call, folded (no stream takes the cell kernel,
+    # the int8 layer 6's tile-major planes included)
+    if sum(l7.values()) != stacks or l7["cell"] or l7["pixel"]:
         raise AssertionError(f"{label}: layer-7 launches {l7} for "
                              f"{stacks} stack calls")
     expect_l1(stack, label, stacks)   # and one layer 1, on csrc/l1.cu
@@ -2156,6 +2179,415 @@ def phase25(dev: torch.device, main_launches: int) -> list:
     }]
 
 
+def phase26(dev: torch.device, main_launches: int) -> list:
+    """26. B4's layer 7 folded on the int8 layer 6's tile-major planes
+    (csrc/l7.cu with a tiling, reached through stack.last_layer_tiles as
+    every int8 stack reaches it) against its plain version (l7_tiles_plain
+    cropped, then last_out) in its three output forms and both types, at the
+    image shapes of L7_SHAPES with tiles (8, 16), (8, 16), (3, 5) (random
+    weights) and at scale512 with the default tile (the shipped scale2.0x
+    weights): bf16 s2d and dense to one bf16 ulp, f32 within 3e-5, dense
+    un-chunked equal to s2d bit for bit and its pad columns zero, u8 by
+    check_u8_kernel, each call one launch under L7_LAUNCHES["fold"] or
+    ["fold_f32"]. Then timed alone at scale512 in each form and type, in
+    turns (cell, fold, fold, cell) against the cell kernel the int8 stacks
+    ran before (fold=False, held against its plain version first), beside
+    the byte bound, cuDNN's layer 7 on the tile batch as one convolution and
+    the plain version; the fold must be the faster. `main_launches` is the
+    fold's count in phase 15's scale512 stream under int8. Returns the
+    kernel table's row."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.utils.timing import card_name
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    params_s = load_model_json(root / "models" / "scale2.0x_demo.json")
+    sps = {dt: (stack.prep_params(init_params(3), dt, dev),
+                stack.prep_params(params_s, dt, dev))
+           for dt in (torch.bfloat16, torch.float32)}
+    gen = torch.Generator(device=dev).manual_seed(26)
+    kernel = {torch.bfloat16: "fold", torch.float32: "fold_f32"}
+    scale512 = (16, 512, 512)
+    cases = [(shape, tile, 0) for shape, tile in
+             zip(L7_SHAPES, ((8, 16), (8, 16), (3, 5)))]
+    cases.append((scale512, stack.default_tile(*scale512[1:]), 1))
+    err = {(dt, f): 0 for dt in sps for f in ("s2d", "dense", "u8")}
+    share = 0.0
+    planes = {}
+
+    def x6t_of(n, hl, wl, tile, dt):
+        tr, tc = tile
+        ny, nx = -(-hl // tr), -(-wl // tc)
+        return torch.rand((n, ny, nx, 2 * tr + 2, 2 * tc + 2, 128),
+                          device=dev, generator=gen, dtype=dt)
+
+    def plain_y(x6t, sp, hl, wl):
+        """l7_tiles_plain, cropped, a few images at a time."""
+        c = max(1, int(2e9 // (x6t[0].numel() * 4)))
+        return torch.cat([stack.l7_tiles_plain(
+            x6t[i:i + c], sp.w7f, sp[6][1])[:, :hl, :wl]
+            for i in range(0, x6t.shape[0], c)])
+
+    for dt, (sp_r, sp_s) in sps.items():
+        for (n, hl, wl), tile, shipped in cases:
+            sp = sp_s if shipped else sp_r
+            x6t = x6t_of(n, hl, wl, tile, dt)
+            uvp = torch.rand((n, hl, wl, 8), device=dev, generator=gen)
+            y32 = plain_y(x6t, sp, hl, wl)
+            label = f"int8 layer 7 fold {dt} {(n, hl, wl)} tile {tile}"
+            stack.reset_launches()
+            got = stack.last_layer_tiles(x6t, sp, hl, wl)
+            torch.cuda.synchronize()
+            expect_l7(stack, label + " s2d", **{kernel[dt]: 1})
+            ref = stack.last_out(y32, "s2d", dt)
+            e = (check_f32(label + " s2d", got, ref) if dt == torch.float32
+                 else check_mma_layer(label + " s2d", got, ref)[0])
+            err[dt, "s2d"] = max(err[dt, "s2d"], e)
+            ydense, tc = stack.last_layer_tiles(x6t, sp, hl, wl, out="dense")
+            check_dense_pad(label + " dense", ydense, tc, wl)
+            if not torch.equal(stack.dense_to_s2d(ydense, tc, hl, wl), got):
+                raise AssertionError(f"{label} dense: un-chunked output "
+                                     f"differs from s2d")
+            ref = stack.last_out(y32, "dense", dt, tc=tc)[0]
+            e = (check_f32(label + " dense", ydense, ref)
+                 if dt == torch.float32
+                 else check_mma_layer(label + " dense", ydense, ref)[0])
+            err[dt, "dense"] = max(err[dt, "dense"], e)
+            del ydense, got
+            got = stack.last_layer_tiles(x6t, sp, hl, wl, out="u8", uvp=uvp)
+            check_lanes_zero(label + " u8", got)
+            e, sh = check_u8_kernel(label + " u8", got, stack.last_out(
+                y32, "u8", dt, uvp), dt)
+            err[dt, "u8"], share = max(err[dt, "u8"], e), max(share, sh)
+            expect_l7(stack, label, **{kernel[dt]: 3})
+            del got, y32
+            if shipped:
+                planes[dt] = (x6t, uvp, sp, tile)
+            else:
+                del x6t, uvp
+            torch.cuda.empty_cache()
+    log(f"phase 26 int8 layer 7 fold on the tile-major planes at "
+        f"{', '.join(map(str, L7_SHAPES))} (tiles (8, 16), (8, 16), (3, 5)) "
+        f"and scale512 (tile {stack.default_tile(512, 512)}): max|kernel - "
+        f"plain| " + "; ".join(
+            f"{'bf16' if dt == torch.bfloat16 else 'f32'} s2d "
+            f"{err[dt, 's2d']:.3e}, dense {err[dt, 'dense']:.3e}, u8 "
+            f"{err[dt, 'u8']} level" for dt in sps)
+        + f" (bars: bf16 one ulp, f32 3e-5; u8 bytes differing at most "
+        f"{share:.4%}); dense un-chunked == s2d bit for bit")
+
+    rows = {}
+    cell_err = {}
+    for dt, (x6t, uvp, sp, tile) in planes.items():
+        n, hl, wl = scale512
+        kw = {"s2d": {}, "dense": {"out": "dense"},
+              "u8": {"out": "u8", "uvp": uvp}}
+        # the yardstick computes the same function: the cell kernel's
+        # output against the plain 9-tap sum of each tile, s2d
+        label = f"int8 layer 7 cell kernel (fold=False) {dt} scale512"
+        got = stack.last_layer_tiles(x6t, sp, hl, wl, fold=False)
+        yf = torch.cat([stack._tiles_image(stack._last_layer_f32(
+            x6t[i:i + 1].reshape(-1, *x6t.shape[3:]), sp[6][0], sp[6][1]),
+            1, *x6t.shape[1:3])[:, :hl, :wl] for i in range(n)])
+        ref = stack.last_out(yf, "s2d", dt)
+        cell_err[dt] = (check_f32(label, got, ref) if dt == torch.float32
+                        else check_mma_layer(label, got, ref)[0])
+        del got, yf, ref
+        torch.cuda.empty_cache()
+        size = 2 if dt == torch.bfloat16 else 4
+        tc = stack._dense_tc(wl, None)
+        out_bytes = {"s2d": n * hl * wl * 4 * size,
+                     "dense": n * hl * -(-wl // tc) * 4 * tc * size,
+                     "u8": n * hl * wl * (16 + 8 * 4)}
+        tiles = x6t.shape[0] * x6t.shape[1] * x6t.shape[2]
+        cells = tiles * (tile[0] + 1) * (tile[1] + 1)
+        ops = (2 * 512 * 16 * cells if dt == torch.bfloat16
+               else 2 * 4 * 9 * 128 * cells)
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+        in_bytes = x6t.numel() * size + 4
+        for form in kw:
+            turns = {True: [], False: []}
+            for flag in (False, True, True, False):
+                turns[flag].append(timed_ms(lambda: stack.last_layer_tiles(
+                    x6t, sp, hl, wl, fold=flag, **kw[form])))
+            moved = in_bytes + out_bytes[form]
+            rows[dt, form] = {
+                "fold": sum(turns[True]) / 2, "cell": sum(turns[False]) / 2,
+                "turns": turns, "moved": moved,
+                "bound": max(moved / PEAK_BYTES, ops / peak) * 1e3,
+                "bound_by": ("bytes" if moved / PEAK_BYTES >= ops / peak
+                             else "operations")}
+        lib = library_l7_ms if dt == torch.bfloat16 else library_l7_f32_ms
+        rows[dt, "s2d"]["library"] = lib(
+            x6t.view(-1, *x6t.shape[3:]), sp)
+        t1 = time.perf_counter()
+        for i in range(n):
+            stack.last_out(stack.l7_tiles_plain(
+                x6t[i:i + 1], sp.w7f, sp[6][1])[:, :hl, :wl], "s2d", dt)
+        torch.cuda.synchronize()
+        rows[dt, "s2d"]["plain"] = (time.perf_counter() - t1) * 1e3
+        del x6t, uvp
+        torch.cuda.empty_cache()
+    planes.clear()
+    log(f"phase 26 int8 layer 7 alone at scale512 (16 x {8} x {4} tiles of "
+        f"130 x 258 x 128), on {card_name()}: " + "; ".join(
+            f"{'bf16' if dt == torch.bfloat16 else 'f32'} {form} fold "
+            f"{r['fold']:.3f} ms (turns "
+            + " / ".join(f"{v:.3f}" for v in r["turns"][True])
+            + f"; {r['moved'] / r['fold'] / 1e6:.0f} GB/s = "
+            f"{100 * r['bound'] / r['fold']:.1f}% of the bound "
+            f"{r['bound']:.3f} ms by {r['bound_by']}), cell kernel "
+            f"{r['cell']:.3f} ms (turns "
+            + " / ".join(f"{v:.3f}" for v in r["turns"][False])
+            + f"), {r['cell'] / r['fold']:.2f}x"
+            + (f"; cuDNN layer 7 on the tile batch {r['library']:.3f} ms; "
+               f"plain (l7_tiles_plain, a frame at a time, host clock) "
+               f"{r['plain']:.1f} ms" if "library" in r else "")
+            for (dt, form), r in rows.items())
+        + f"; the cell kernels held against the 9-tap plain version: bf16 "
+        f"{cell_err[torch.bfloat16]:.3e}, f32 {cell_err[torch.float32]:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for (dt, form), r in rows.items():
+        if not r["fold"] < r["cell"]:
+            raise AssertionError(f"int8 layer 7 {dt} {form}: fold "
+                                 f"{r['fold']} ms, cell kernel {r['cell']}")
+    r16, r32 = rows[torch.bfloat16, "s2d"], rows[torch.float32, "s2d"]
+    return [{
+        "name": "l7_fold on the int8 layer 6's tile-major planes, layer 7 "
+                "of every int8 stack call (B4-L7; bf16 l7_fold, f32 "
+                "l7_fold_f32, with a tiling)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/l7.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "replaces_part": "_stack_body's int8 branch, then l7_tap and the "
+                         "shift-sum, :551-585, :491-508, :603-655",
+        "launches": main_launches,
+        "launches_of": "phase 15's scale512 stream under W2X_L6_I8",
+        "max_abs_err": max(err[torch.bfloat16, "s2d"],
+                           err[torch.bfloat16, "dense"]),
+        "max_abs_err_f32": max(err[torch.float32, "s2d"],
+                               err[torch.float32, "dense"]),
+        "max_abs_err_u8_levels": max(err[torch.bfloat16, "u8"],
+                                     err[torch.float32, "u8"]),
+        "ms": r16["fold"],
+        "cell_ms": r16["cell"],
+        "plain_ms": r16["plain"],
+        "bound_ms": r16["bound"],
+        "bound_by": r16["bound_by"],
+        "library_ms": r16["library"],
+        "form_ms": {f"{'bf16' if dt == torch.bfloat16 else 'f32'} {form}":
+                    r["fold"] for (dt, form), r in rows.items()},
+        "form_cell_ms": {f"{'bf16' if dt == torch.bfloat16 else 'f32'} "
+                         f"{form}": r["cell"] for (dt, form), r in
+                         rows.items()},
+        "f32_ms": r32["fold"],
+        "f32_bound_ms": r32["bound"],
+        "f32_plain_ms": r32["plain"],
+        "f32_library_ms": r32["library"],
+    }]
+
+
+def library_l6_f32_ms(x5: torch.Tensor, sp32) -> float:
+    """Library yardstick (never called by the port): layer 6 alone as one
+    cuDNN f32 channels_last convolution + leaky_relu, TF32 off, on the NHWC
+    f32 layer-5 plane x5 (a channels_last view, no copy)."""
+    from waifu2x_torch.ops.convstack import no_tf32
+    (w, b), = cudnn_f32(sp32[5:6])
+    xc = x5.permute(0, 3, 1, 2)
+    with no_tf32():
+        ms = timed_ms(lambda: F.leaky_relu(F.conv2d(xc, w, b), 0.1))
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase27(dev: torch.device, main_launches: int, step=None) -> list:
+    """27. B5's Winograd layer 6 in f32 on the tensor cores as 3xTF32
+    (csrc/wino.cu's l6_wino_tf32, reached through stack.wino_layer as every
+    f32 stack under l6_wino reaches it) against its plain version
+    (_l6_wino_plain, V in f32) within 3e-5: alone at the layer-5 planes of
+    L7_SHAPES (random weights) and at the ns1080 noise stack's and scale512's
+    real f32 layer-5 planes (the shipped noise2 and scale2.0x weights, from
+    layer5_plane), one WINO_LAUNCHES["mma_tf32"] launch a call; the f32
+    dense and u8 stacks under l6_wino against theirs. Then timed alone at
+    ns1080 and scale512 in turns (FFMA, 3xTF32, 3xTF32, FFMA: MID_MMA
+    False / True) against l6.cu's l6_wino<float> (held against the same
+    plain version first), which it must beat, beside the direct 3xTF32
+    layer 6, cuDNN's f32 layer 6 (TF32 off), the bound (three TF32 products
+    of the function's 16 a block), the FFMA floor and the plain version; and
+    the f32 noise stack at ns1080 under l6_wino against the direct one, with
+    the f32-noise step where `step(l6_wino)` runs it. `main_launches` is
+    the kernel's count in phase 15's ns1080 f32-noise chain under
+    W2X_L6_WINO. Returns the kernel table's row."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.utils.timing import card_name
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    sp_r = stack.prep_params(init_params(3), torch.float32, dev)
+    sp_n = stack.prep_params(load_model_json(
+        root / "models" / "noise2_demo.json"), torch.float32, dev)
+    sp_s = stack.prep_params(load_model_json(
+        root / "models" / "scale2.0x_demo.json"), torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def plain(x5, sp):
+        """_l6_wino_plain (V in f32, TF32 off), a frame at a time, NHWC."""
+        from waifu2x_torch.ops.convstack import no_tf32
+        with no_tf32():
+            return torch.cat([stack._l6_wino_plain(
+                x5[i:i + 1].permute(0, 3, 1, 2), sp, torch.float32
+            ).permute(0, 2, 3, 1) for i in range(x5.shape[0])])
+
+    def alone(x5, sp, label, ffma=False) -> float:
+        stack.MID_MMA = not ffma
+        stack.reset_launches()
+        got = stack.wino_layer(x5, sp)
+        torch.cuda.synchronize()
+        stack.MID_MMA = True
+        want = {"mma": 0, "mma_tf32": int(not ffma), "ffma": int(ffma)}
+        if stack.WINO_LAUNCHES != want or stack.LAUNCHES:
+            raise AssertionError(f"{label}: launches {stack.WINO_LAUNCHES}, "
+                                 f"{stack.LAUNCHES}, want {want}")
+        return check_f32(label, got, plain(x5, sp))
+
+    err = 0.0
+    for n, hl, wl in L7_SHAPES:
+        x5 = torch.rand((n, 2 * hl + 4, 2 * wl + 4, 128), device=dev,
+                        generator=gen)
+        err = max(err, alone(x5, sp_r, f"f32 wino layer 6 {(n, hl, wl)}"))
+    y = torch.rand(L7_SHAPES[0], device=dev, generator=gen)
+    uvp = torch.rand((*L7_SHAPES[0], 8), device=dev, generator=gen)
+    ydense, tc = stack.stack_scale_dense(y, sp_r, l6_wino=True)
+    check_f32("f32 wino dense stack", ydense, stack.stack_scale_dense_plain(
+        y, sp_r, tc, l6_wino=True)[0])
+    check_u8_kernel("f32 wino u8 stack", stack.stack_scale_fused_u8(
+        y, uvp, sp_r, l6_wino=True), stack.stack_scale_fused_u8_plain(
+        y, uvp, sp_r, l6_wino=True), torch.float32)
+    ns = (NS1080[0], NS1080[1] // 2, NS1080[2] // 2)
+    yc = torch.rand(NS1080, device=dev, generator=gen)
+    ylow = torch.rand((16, 512, 512), device=dev, generator=gen)
+    real = {"ns1080": (stack.layer5_plane(yc, sp_n, full_res=True), sp_n),
+            "scale512": (stack.layer5_plane(ylow, sp_s), sp_s)}
+    del ylow
+    ffma_err = 0.0
+    for key, (x5, sp) in real.items():
+        err = max(err, alone(x5, sp, f"f32 wino layer 6 {key}"))
+        ffma_err = max(ffma_err, alone(x5, sp, f"f32 wino layer 6 FFMA "
+                                               f"(MID_MMA False) {key}",
+                                       ffma=True))
+        torch.cuda.empty_cache()
+    log(f"phase 27 f32 Winograd layer 6 (3xTF32) at "
+        f"{', '.join(map(str, L7_SHAPES))} and the ns1080 "
+        f"{tuple(real['ns1080'][0].shape)} and scale512 "
+        f"{tuple(real['scale512'][0].shape)} layer-5 planes: "
+        f"max|kernel - plain| {err:.3e} (bar 3e-5); l6_wino<float> (FFMA) "
+        f"{ffma_err:.3e}; the f32 dense and u8 stacks under l6_wino hold")
+
+    rows = {}
+    plan = stack.wino_plan(torch.float32)
+    for key, (x5, sp) in real.items():
+        n, h5, w5, _ = x5.shape
+        turns = {True: [], False: []}
+        for flag in (False, True, True, False):
+            stack.MID_MMA = flag
+            turns[flag].append(timed_ms(lambda: stack.wino_layer(x5, sp)))
+        stack.MID_MMA = True
+        blocks = n * ((h5 - 2) // 2) * ((w5 - 2) // 2)
+        flops = 2 * blocks * 16 * 128 * 128   # the function's products
+        moved = (x5.numel() + n * (h5 - 2) * (w5 - 2) * 128 + 2 * 16 * 128
+                 * 128 + 128) * 4
+        ops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        bytes_ms = moved / PEAK_BYTES * 1e3
+        # the kernel's units, each of which stages U's share for its
+        # channels (hi and lo) from L2 once
+        tile = plan.tile[0]
+        units = (n * -(-((h5 - 2) // 2) // tile) * -(-((w5 - 2) // 2) // tile)
+                 * (128 // plan.co))
+        r = {"tf32": sum(turns[True]) / 2, "ffma": sum(turns[False]) / 2,
+             "turns": turns, "flops": flops,
+             "u_gb": units * 16 * 128 * plan.co * 8 / 1e9,
+             "bound": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+             "bytes_ms": bytes_ms,
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+             "floor": flops / PEAK_F32_FLOPS * 1e3,
+             "direct": timed_ms(lambda: stack.mma_layer(x5, sp, 6)),
+             "library": library_l6_f32_ms(x5, sp)}
+        t1 = time.perf_counter()
+        plain(x5, sp)
+        torch.cuda.synchronize()
+        r["plain"] = (time.perf_counter() - t1) * 1e3
+        rows[key] = r
+        torch.cuda.empty_cache()
+    del real
+    torch.cuda.empty_cache()
+    # the f32 noise stack at ns1080 with each layer-6 form, and the step
+    stack_ms = {w: timed_ms(lambda: stack.stack_noise(yc, sp_n, l6_wino=w))
+                for w in (False, True)}
+    step_ms = ({w: timed_ms(lambda: step(w)) for w in (False, True)}
+               if step is not None else None)
+    del yc
+    torch.cuda.empty_cache()
+    log(f"phase 27 f32 Winograd layer 6 alone on {card_name()}: " + "; ".join(
+        f"{key} 3xTF32 {r['tf32']:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in r["turns"][True])
+        + f"; {3 * r['flops'] / r['tf32'] / 1e9:.1f} TFLOP/s of TF32 "
+        f"products = {100 * r['bound'] / r['tf32']:.1f}% of the bound "
+        f"{r['bound']:.3f} ms by {r['bound_by']}: three TF32 products "
+        f"{r['ops_ms']:.3f} ms, bytes {r['bytes_ms']:.3f} ms; FFMA floor "
+        f"{r['floor']:.3f} ms; units of {plan.tile[0]} x {plan.tile[1]} "
+        f"blocks x {plan.co} channels in chunks of {plan.kc}, U's halves "
+        f"staged from L2 {r['u_gb']:.1f} GB = "
+        f"{r['u_gb'] / r['tf32']:.2f} TB/s), l6_wino<float> FFMA "
+        f"{r['ffma']:.3f} ms "
+        f"(turns " + " / ".join(f"{v:.3f}" for v in r["turns"][False])
+        + f"), {r['ffma'] / r['tf32']:.2f}x; direct 3xTF32 layer 6 "
+        f"{r['direct']:.3f} ms; cuDNN f32 layer 6 (TF32 off) "
+        f"{r['library']:.3f} ms; plain (_l6_wino_plain, a frame at a time, "
+        f"host clock) {r['plain']:.1f} ms" for key, r in rows.items())
+        + f"; ns1080 f32 noise stack {stack_ms[True]:.2f} ms under l6_wino, "
+        f"{stack_ms[False]:.2f} ms direct"
+        + (f"; f32-noise step {step_ms[True]:.2f} ms under l6_wino, "
+           f"{step_ms[False]:.2f} ms direct" if step_ms else "")
+        + f"; {time.perf_counter() - t0:.1f} s")
+    for key, r in rows.items():
+        if not r["tf32"] < r["ffma"]:
+            raise AssertionError(f"f32 Winograd layer 6 {key}: 3xTF32 "
+                                 f"{r['tf32']} ms, FFMA {r['ffma']} ms")
+    r, s = rows["ns1080"], rows["scale512"]
+    return [{
+        "name": "l6_wino_tf32, B5's Winograd layer 6 in f32 on the tensor "
+                "cores as 3xTF32 (wgmma m64n32k8, A from registers; B5-32)",
+        "route": "cuda",
+        "source": "waifu2x_torch/csrc/wino.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
+        "replaces_part": "_stack_body's layer 6 with l6_wino=True in f32, "
+                         ":509-550",
+        "launches": main_launches,
+        "launches_of": "phase 15's ns1080 f32-noise chain under W2X_L6_WINO",
+        "max_abs_err": err,
+        "ms": r["tf32"],
+        "ffma_ms": r["ffma"],
+        "ffma_max_abs_err": ffma_err,
+        "plain_ms": r["plain"],
+        "bound_ms": r["bound"],
+        "bound_by": r["bound_by"],
+        "ffma_floor_ms": r["floor"],
+        "library_ms": r["library"],
+        "direct_tf32_ms": r["direct"],
+        "scale512_ms": s["tf32"],
+        "scale512_ffma_ms": s["ffma"],
+        "scale512_bound_ms": s["bound"],
+        "scale512_library_ms": s["library"],
+        "scale512_direct_tf32_ms": s["direct"],
+        "ns1080_noise_stack_ms": stack_ms,
+        "ns1080_step_ms": step_ms,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2680,7 +3112,7 @@ def main() -> int:
     if not min(db_frames) >= PSNR_BAR:
         raise AssertionError(f"{label}: {db_frames} dB")
     hold_seen(seen, stack, f32_twin, max_err)
-    del outs, out_chain, ref_chain, sc
+    del outs, out_chain, sc   # ref_chain: phase 15 reads it again
     torch.cuda.empty_cache()
 
     label = "phase 11 mixed sizes, W2X_TAIL=kernel"
@@ -2754,7 +3186,7 @@ def main() -> int:
                                                        l6_wino=True)
         stack.reset_launches()
         got32 = kernel(y32, sps[0], l6_wino=True)
-        expect_wino(f"f32 {name} {label}", 0, 1)
+        expect_wino(f"f32 {name} {label}", 0, 0, tf32=1)
         ref32 = plain_in_chunks(plain, y32, sps[0], not noise)
         err32 = (got32 - ref32).abs().max().item()
         vs_direct = (got32 - kernel(y32, sps[0], l6_wino=False)
@@ -2793,19 +3225,18 @@ def main() -> int:
         check_max_err(f"bf16 wino {name} {label}", err16, BF16_TOL)
         if psnr_gate and not db16 >= PSNR_BAR:
             raise AssertionError(f"bf16 wino {name} {label}: {db16} dB")
-        wino_ffma["max_abs_err"] = max(wino_ffma["max_abs_err"], err32,
-                                       err_ffma)
+        wino_ffma["max_abs_err"] = max(wino_ffma["max_abs_err"], err_ffma)
         return max(err32, err16)
 
-    # the FFMA Winograd kernel (f32 calls, bf16 with MID_MMA False): its
-    # largest error over phase 13's checks, its launches in one path run
+    # the FFMA Winograd kernel (MID_MMA False): its largest error over
+    # phase 13's checks, its launches in one path run
     wino_ffma = {"max_abs_err": 0.0, "launches": 0}
 
-    def expect_wino(label, mma, ffma):
+    def expect_wino(label, mma, ffma, tf32=0):
         """The Winograd layer 6 ran on the kernel its dtype selects."""
-        want = {"mma": mma, "ffma": ffma}
+        want = {"mma": mma, "mma_tf32": tf32, "ffma": ffma}
         if (stack.WINO_LAUNCHES != want
-                or stack.L6_LAUNCHES["wino"] != mma + ffma):
+                or stack.L6_LAUNCHES["wino"] != mma + ffma + tf32):
             raise AssertionError(f"{label}: Winograd launches "
                                  f"{stack.WINO_LAUNCHES}, want {want}")
 
@@ -2815,7 +3246,8 @@ def main() -> int:
         stack.reset_launches()
         got = stack.wino_layer(x5, sp_l6)
         torch.cuda.synchronize()
-        if (stack.WINO_LAUNCHES != {"mma": 1, "ffma": 0} or stack.LAUNCHES
+        if (stack.WINO_LAUNCHES != {"mma": 1, "mma_tf32": 0, "ffma": 0}
+                or stack.LAUNCHES
                 or any(stack.L6_LAUNCHES.values())):
             raise AssertionError(f"wino_layer alone {label}: launches "
                                  f"{stack.WINO_LAUNCHES}, {stack.LAUNCHES}")
@@ -2989,7 +3421,8 @@ def main() -> int:
             raise AssertionError(f"{label}: layer-6 launches "
                                  f"{stack.L6_LAUNCHES}, want {want}")
         # bf16 stacks: the Winograd layer 6 on the tensor cores
-        wino = {"mma": calls if form == "wino" else 0, "ffma": 0}
+        wino = {"mma": calls if form == "wino" else 0, "mma_tf32": 0,
+                "ffma": 0}
         if stack.WINO_LAUNCHES != wino:
             raise AssertionError(f"{label}: Winograd launches by kernel "
                                  f"{stack.WINO_LAUNCHES}, want {wino}")
@@ -2998,9 +3431,9 @@ def main() -> int:
         if stack.I8_LAUNCHES != i8:
             raise AssertionError(f"{label}: int8 layer launches by kernel "
                                  f"{stack.I8_LAUNCHES}, want {i8}")
-        # layer 7 folded after the Winograd layer 6's plane, on the cell
-        # kernel after the int8 layer 6's tile-major one
-        expect_l7(stack, label, **{"cell" if form == "i8" else "fold": calls})
+        # layer 7 folded, on the Winograd layer 6's plane and on the int8
+        # layer 6's tile-major planes alike
+        expect_l7(stack, label, fold=calls)
 
     ypad = F.pad(yuv[:2, ..., 0][:, None].cpu(), (7,) * 4,
                  mode="replicate")[:, 0, :256, :256, None].contiguous()
@@ -3014,8 +3447,10 @@ def main() -> int:
         hold_bar = I8_BAR if form == "i8" else PSNR_BAR
         l6_err[form] = {}
 
-        def gate(label, db, db_direct):
-            bar = I8_BAR if form == "i8" else db_direct - WINO_DB_SLACK
+        def gate(label, db, db_direct, product=False):
+            # int8 on the scale512 step and stream: the product bar
+            bar = ((PSNR_BAR if product else I8_BAR) if form == "i8"
+                   else db_direct - WINO_DB_SLACK)
             log(f"  {label}: frames 0-1 vs f32 non-kernel path {db:.2f} dB "
                 f"(direct form {db_direct:.2f} dB; held to {bar:.2f}; the "
                 f"product bar is {PSNR_BAR:g})"
@@ -3038,7 +3473,7 @@ def main() -> int:
                                  f"{out.shape}")
         expect_l6(label, form, 1, per_l6)
         db_step = psnr(out[:2], ref_main)
-        gate(label, db_step, db_main)
+        gate(label, db_step, db_main, product=True)
         hold_seen(seen, stack, f32_twin, l6_err[form], hold_bar)
         del u8, out
 
@@ -3053,13 +3488,14 @@ def main() -> int:
             wino_mma_launches = stack.WINO_LAUNCHES["mma"]
         else:
             i8_mma_launches = stack.I8_LAUNCHES["mma"]
+            i8_l7_launches = stack.L7_LAUNCHES["fold"]
         for k in range(0, 64, 16):   # the batch step on the same batch
             ref = d2s_host_cmajor(scale2x_batch_u8_fused(
                 to_yuv_dev(frames64[k:k + 16]), fast).cpu().numpy())
             expect_equal(label + " vs the batch step", outs[k:k + 16], ref)
         l6_db[form] = psnr(np.stack(outs[:2]), ref_main)
         log("  in order, equal to the batch step bit for bit")
-        gate(label, l6_db[form], stream_db["fused_u8"])
+        gate(label, l6_db[form], stream_db["fused_u8"], product=True)
         hold_seen(seen, stack, f32_twin, l6_err[form], hold_bar)
         set_tail("xla", False)
         del outs, ref
@@ -3080,6 +3516,27 @@ def main() -> int:
         hold_seen(seen, stack, f32_twin, l6_err[form], hold_bar)
         del u8, out
         torch.cuda.empty_cache()
+    # the ns1080 chain with its f32 noise stack (the default noise_scale
+    # surface) under W2X_L6_WINO: layer 6 of the f32 noise stack on the
+    # 3xTF32 Winograd kernel, of the bf16 scale stack on the bf16 one
+    label = "phase 15 ns1080 chain, f32 noise / bf16 scale, layer 6 wino"
+    set_l6("wino")
+    stack.reset_launches()
+    u8 = chain(fast_n2[torch.float32])
+    if stack.WINO_LAUNCHES != {"mma": 1, "mma_tf32": 1, "ffma": 0}:
+        raise AssertionError(f"{label}: Winograd launches "
+                             f"{stack.WINO_LAUNCHES}")
+    expect_l7(stack, label, fold=1, fold_f32=1)
+    wino_tf32_launches = stack.WINO_LAUNCHES["mma_tf32"]
+    out = d2s_host_cmajor(u8.cpu().numpy())
+    db_wino_chain = min(psnr(out[i], ref_chain[i]) for i in range(len(out)))
+    log(f"{label}: launches {stack.KERNEL_LAUNCHES}, Winograd by kernel "
+        f"{stack.WINO_LAUNCHES}; frames 0-3 vs the f32 non-kernel chain "
+        f"{db_wino_chain:.2f} dB (direct {db_chain[torch.float32]:.2f} dB)")
+    if not db_wino_chain >= db_chain[torch.float32] - WINO_DB_SLACK:
+        raise AssertionError(f"{label}: {db_wino_chain} dB")
+    hold_seen(seen, stack, f32_twin, l6_err["wino"])
+    del u8, out
     set_l6("direct")
     restore_wrappers()
 
@@ -3354,6 +3811,24 @@ def main() -> int:
     kernels19 += phase25(dev, i8_mma_launches)
     log(f"phase 25 passed in {time.perf_counter() - t25:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s so far")
+    t26 = time.perf_counter()
+    kernels19 += phase26(dev, i8_l7_launches)
+    log(f"phase 26 passed in {time.perf_counter() - t26:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
+    def f32_noise_step(l6_wino: bool):
+        """The ns1080 f32-noise step with the noise stack's layer 6 as
+        Winograd or direct (the bf16 scale stack direct)."""
+        stack.L6_WINO = l6_wino
+        y = noise_y_batch_fast(yuv_c[..., 0], fast_n2[torch.float32],
+                               out_dtype=None)
+        stack.L6_WINO = False
+        return scale2x_batch_u8_fused(yuv_c, fast, y=y)
+
+    t27 = time.perf_counter()
+    kernels19 += phase27(dev, wino_tf32_launches, f32_noise_step)
+    log(f"phase 27 passed in {time.perf_counter() - t27:.1f} s; "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
     maccs = count_maccs_per_pixel()
 
@@ -3615,13 +4090,11 @@ def main() -> int:
         stack.wino_layer_plain(x5[i:i + 2], sp16.w6m, sp16[5][1])
     torch.cuda.synchronize()
     l6_alone["plain"] = (time.perf_counter() - t0) * 1e3
-    stack.MID_MMA = False   # the FFMA form's plain version: V in f32
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()   # the FFMA form's plain version: V in f32
     for i in range(0, n, 2):
         stack._l6_wino_plain(x5[i:i + 2].float().permute(0, 3, 1, 2), sp16,
                              torch.bfloat16)
     torch.cuda.synchronize()
-    stack.MID_MMA = True
     l6_alone["plain_ffma"] = (time.perf_counter() - t0) * 1e3
     del x5
     torch.cuda.empty_cache()
@@ -3827,9 +4300,8 @@ def main() -> int:
         "own_24_products_ms": l6_flops["mma"] / PEAK_BF16_FLOPS * 1e3,
         "library_ms": l6_alone["cudnn"],
     }, {
-        "name": "l6_wino<T>, the Winograd layer 6 as FFMA (f32 "
-                "l6_wino=True; bf16 with MID_MMA False), timed at bf16 "
-                "with MID_MMA False",
+        "name": "l6_wino<T>, the Winograd layer 6 as FFMA (both types "
+                "with MID_MMA False: the yardstick), timed at bf16",
         "route": "cuda",
         "source": "waifu2x_torch/csrc/l6.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",

@@ -326,13 +326,14 @@ def test_layer7_dispatch(sp16, sp32, dtype, out_mode, fold, entry, kernel):
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["scale"] == 1
     args = calls[0][1]
     if kernel.startswith("fold"):
-        # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, tc, stream)
+        # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
+        #  tr, tc, ny, nx, stream): one plane an image, no tiling
         bf16 = dtype == torch.bfloat16
         assert args[0] == int(bf16)
         assert args[2] == (sp.w7f if bf16 else sp[6][0]).data_ptr()
         assert args[3] == sp[6][1].data_ptr()
         assert args[5:9] == (3, 20, 36, out_mode)
-        assert args[11:] == (32, 0)
+        assert args[11:] == (32, 0, 0, 0, 0, 0)
     stack.reset_launches()
     assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 0,
                                  "pixel": 0}

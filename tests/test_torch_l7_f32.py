@@ -251,16 +251,16 @@ def fake_card(monkeypatch):
     ("dense", "direct", None, "w2x_l7_fold", "fold_f32"),
     ("fused_u8", "direct", None, "w2x_l7_fold", "fold_f32"),
     ("scale", "wino", None, "w2x_l7_fold", "fold_f32"),
-    ("scale", "i8", None, "w2x_last_cell", "cell"),
-    ("fused_u8", "i8", None, "w2x_last_cell", "cell"),
+    ("scale", "i8", None, "w2x_l7_fold", "fold_f32"),
+    ("fused_u8", "i8", None, "w2x_l7_fold", "fold_f32"),
     ("scale", "direct", 6, "w2x_last_cell", "cell")],
     ids=["scale", "noise", "dense", "u8", "wino", "i8", "i8-u8", "taps"])
 def test_f32_stack_dispatch(sp32, fake_card, kind, form, upto, l7_entry,
                             l7_kernel):
     """A whole f32 stack call's last launch: the fold (csrc/l7.cu, counted
     under L7_LAUNCHES["fold_f32"], with w7's taps and bf16 = 0) on every
-    plane; the cell kernel on the int8 layer's tile-major plane and for the
-    truncation's taps."""
+    plane and on the int8 layer's tile-major planes (with their tiling);
+    the cell kernel for the truncation's taps."""
     n, h, w = 1, 20, 36
     x = torch.zeros((n, h, w))
     uvp = torch.zeros((n, h // 2 if kind == "noise" else h,
@@ -274,10 +274,12 @@ def test_f32_stack_dispatch(sp32, fake_card, kind, form, upto, l7_entry,
     want[l7_kernel] = 1
     assert stack.L7_LAUNCHES == want
     if fn == "w2x_l7_fold":
-        # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, tc)
+        # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
+        #  tr, tc, ny, nx, stream)
         assert args[0] == 0 and args[2] == sp32[6][0].data_ptr()
         hl, wl = (h // 2, w // 2) if kind == "noise" else (h, w)
         assert args[5:9] == (n, hl, wl, stack._OUT_MODES[kind])
+        assert args[12:16] == ((8, 16, 3, 3) if form == "i8" else (0,) * 4)
 
 
 @pytest.mark.parametrize("zs", [1, 2, 3])

@@ -116,7 +116,7 @@ def test_wino_layer_plain_matches_l6_wino_plain(shape, monkeypatch):
                           ).to(torch.bfloat16)
     got = stack.wino_layer_plain(x5, sp.w6m, sp[5][1], round_out=False)
     ref = stack._l6_wino_plain(x5.float().permute(0, 3, 1, 2), sp,
-                               torch.bfloat16, round_out=False
+                               torch.bfloat16, round_out=False, round_v=True
                                ).permute(0, 2, 3, 1)
     assert got.shape == (shape[0], shape[1] - 2, shape[2] - 2, 128)
     scale = ref.abs().max().item()
@@ -129,9 +129,11 @@ def test_wino_layer_plain_matches_l6_wino_plain(shape, monkeypatch):
 
 
 def test_v_rounding_follows_the_kernel(monkeypatch):
-    """_l6_wino_plain rounds V to bf16 only where bf16 calls reach the
-    tensor-core kernel (MID_MMA on); in f32, and for the FFMA kernel, V
-    stays f32. Rounding V moves the output, within the bf16 bar."""
+    """_l6_wino_plain rounds V to its dtype only with round_v, whatever
+    MID_MMA says; the plain stacks pass it where bf16 calls reach the
+    tensor-core kernel (MID_MMA on), and never in f32, where both the
+    3xTF32 and the FFMA kernels keep V in f32. Rounding V moves the output,
+    within the bf16 bar."""
     sp = _random_sp(13, torch.bfloat16)
     rng = np.random.default_rng(14)
     x5 = torch.from_numpy(rng.random((1, 128, 10, 12), dtype=np.float32)
@@ -139,14 +141,33 @@ def test_v_rounding_follows_the_kernel(monkeypatch):
     out = {}
     for mid in (True, False):
         monkeypatch.setattr(stack, "MID_MMA", mid)
-        out[mid] = stack._l6_wino_plain(x5, sp, torch.bfloat16,
-                                        round_out=False)
+        for rv in (True, False):
+            out[mid, rv] = stack._l6_wino_plain(x5, sp, torch.bfloat16,
+                                                round_out=False, round_v=rv)
         out[mid, "f32"] = stack._l6_wino_plain(x5, sp, torch.float32,
                                                round_out=False)
     assert torch.equal(out[True, "f32"], out[False, "f32"])
-    assert torch.equal(out[False], out[False, "f32"])
-    d = (out[True] - out[False]).abs().max().item()
+    assert torch.equal(out[True, True], out[False, True])
+    assert torch.equal(out[True, False], out[False, "f32"])
+    d = (out[True, True] - out[True, False]).abs().max().item()
     assert 0 < d <= 2.0 ** -4
+    # the stacks' plain versions: V rounded only under MID_MMA in bf16
+    seen = []
+    plain = stack._l6_wino_plain
+
+    def spy(*args, **kw):
+        seen.append((args[2], kw.get("round_v", False)))
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(stack, "_l6_wino_plain", spy)
+    sp32 = _random_sp(13, torch.float32)
+    y = torch.from_numpy(rng.random((1, 6, 7), dtype=np.float32))
+    for mid in (True, False):
+        monkeypatch.setattr(stack, "MID_MMA", mid)
+        stack.stack_scale(y.to(torch.bfloat16), sp, l6_wino=True)
+        stack.stack_scale(y, sp32, l6_wino=True)
+    assert seen == [(torch.bfloat16, True), (torch.float32, False),
+                    (torch.bfloat16, False), (torch.float32, False)]
 
 
 def test_v_rounded_once_is_exact_for_bf16_sums(monkeypatch):
@@ -195,24 +216,33 @@ def test_wino_bf16_stack_matches_pallas_interpret(params_np, sp16, sp32,
 # --- the plan, the grid and the dispatch ------------------------------------
 
 def test_wino_plan_matches_the_kernel():
-    """wino_plan's tile, channels, chunk, threads and shared memory are the
-    constants csrc/wino.cu compiles with (the C entry refuses other bytes)."""
+    """wino_plan's tile, unit channels and chunk are, for each storage
+    dtype, the constants its csrc/wino.cu kernel compiles with; each kernel
+    owns its shared memory (no count crosses to the C entries), and the
+    ring that these constants give fits the card."""
     src = WINO_CU.read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = ([^;]+);",
-                             src).group(1).split("*")[-1])
+                             src).group(1).split("*")[-1].split("/")[-1])
 
-    plan = stack.wino_plan()
-    assert plan.tile == (const("WT"), const("WT")) == (8, 8)
-    assert plan.co == const("WN") == 64
-    assert plan.kc == const("WKC") == 16
-    assert plan.threads == const("WTHREADS") == 256
-    assert plan.stages == const("WSTAGES") == 4
-    out_tile = (2 * plan.tile[0]) ** 2 * (2 * plan.co + 16)
-    assert plan.smem_bytes == 4 * (10368 + 32768) + out_tile
-    assert plan.smem_bytes == 209408 <= stack.SMEM_MAX
-    assert "WSMEM = WSTAGES * STAGE_BYTES + OUT_BYTES" in src
+    for dtype, (co, kc, stages, elem) in {
+            torch.bfloat16: ("WN", "WKC", "WSTAGES", 2),
+            torch.float32: ("QN", "QKC", "QSTAGES", 4)}.items():
+        plan = stack.wino_plan(dtype)
+        assert plan.tile == (const("WT"), const("WT")) == (8, 8)
+        assert (plan.co, plan.kc) == (const(co), const(kc))
+        win = (2 * plan.tile[0] + 2) ** 2 * plan.kc * elem
+        # U's chunk for the unit's channels: bf16 once, f32 hi and lo
+        u = (plan.kc // 8) * 16 * plan.co * 16 * (1 if elem == 2 else 2)
+        out_tile = (2 * plan.tile[0]) ** 2 * (plan.co * elem + 16)
+        assert const(stages) * (win + u) + out_tile <= stack.SMEM_MAX
+    assert stack.wino_plan() == stack.wino_plan(torch.bfloat16)
+    assert (stack.wino_plan().co, stack.wino_plan(torch.float32).co) == (
+        64, 32)
+    assert "smem_bytes" not in src
+    for name in ("WSMEM", "QSMEM"):
+        assert f"static_assert({name} <= 232448" in src
 
 
 class _FakeLib:
@@ -228,13 +258,14 @@ class _FakeLib:
 @pytest.mark.parametrize("bf16,mid_mma,entry,kind", [
     (True, True, "w2x_l6_wino_mma", "mma"),
     (True, False, "w2x_l6_wino", "ffma"),
-    (False, True, "w2x_l6_wino", "ffma"),
+    (False, True, "w2x_l6_wino_tf32", "mma_tf32"),
     (False, False, "w2x_l6_wino", "ffma")])
 def test_wino_dispatch(sp16, sp32, monkeypatch, bf16, mid_mma, entry, kind):
-    """bf16 calls reach the tensor-core Winograd kernel while MID_MMA is
-    on; f32 calls, and bf16 with MID_MMA off, the FFMA one. Each launch
-    counts under L6_LAUNCHES["wino"] (the form) and WINO_LAUNCHES by
-    kernel, and the tensor-core entry gets w6m and wino_plan's bytes."""
+    """While MID_MMA is on, bf16 calls reach the bf16 tensor-core Winograd
+    kernel and f32 calls the 3xTF32 one; with it off both reach the FFMA
+    one. Each launch counts under L6_LAUNCHES["wino"] (the form) and
+    WINO_LAUNCHES by kernel; the tensor-core entries get w6m or w6t's two
+    halves and no shared-memory count."""
     monkeypatch.setattr(stack, "MID_MMA", mid_mma)
     stack.reset_launches()
     sp = sp16 if bf16 else sp32
@@ -247,17 +278,23 @@ def test_wino_dispatch(sp16, sp32, monkeypatch, bf16, mid_mma, entry, kind):
     run.wino(x, sp, x, 3, 20, 36, "wino")
     assert [fn for fn, _ in calls] == [entry]
     assert stack.L6_LAUNCHES["wino"] == 1 and stack.LAUNCHES == 1
-    assert stack.WINO_LAUNCHES == {"mma": int(kind == "mma"),
-                                   "ffma": int(kind == "ffma")}
+    assert stack.WINO_LAUNCHES == {k: int(k == kind)
+                                   for k in ("mma", "mma_tf32", "ffma")}
     args = calls[0][1]
     if kind == "mma":
-        # (bf16, x5, um, b, y6, n, H5, W5, smem_bytes, stream)
+        # (bf16, x5, um, b, y6, n, H5, W5, stream)
         assert args[0] == 1 and args[2] == sp.w6m.data_ptr()
-        assert args[5:] == (3, 20, 36, stack.wino_plan().smem_bytes, 0)
+        assert args[5:] == (3, 20, 36, 0)
+    elif kind == "mma_tf32":
+        # (bf16, x5, uhi, ulo, b, y6, n, H5, W5, stream)
+        assert args[0] == 0 and args[2:4] == tuple(
+            t.data_ptr() for t in sp.w6t)
+        assert args[4] == sp[5][1].data_ptr()
+        assert args[6:] == (3, 20, 36, 0)
     else:
         assert args[2] == sp.w6w.data_ptr() and args[5:] == (3, 20, 36, 0)
     stack.reset_launches()
-    assert stack.WINO_LAUNCHES == {"mma": 0, "ffma": 0}
+    assert stack.WINO_LAUNCHES == {"mma": 0, "mma_tf32": 0, "ffma": 0}
 
 
 def test_wino_layer_on_cpu(monkeypatch):
@@ -277,12 +314,14 @@ def test_wino_layer_on_cpu(monkeypatch):
     ref = stack._l6_wino_plain(x5.float().permute(0, 3, 1, 2), sp,
                                torch.bfloat16).permute(0, 2, 3, 1)
     assert torch.equal(ffma.float(), ref)
-    assert stack.WINO_LAUNCHES == {"mma": 0, "ffma": 0}
+    assert stack.WINO_LAUNCHES == {"mma": 0, "mma_tf32": 0, "ffma": 0}
     assert stack.LAUNCHES == 0
     with pytest.raises(ValueError, match="even"):
         stack.wino_layer(x5[:, :7], sp)
     with pytest.raises(TypeError, match="bfloat16"):
-        stack.wino_layer(x5.float(), sp)
+        stack.wino_layer(x5.float(), sp)   # f32 values, bf16 weights
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        stack.wino_layer(x5.half(), sp)
     with pytest.raises(ValueError, match="w6m"):
         stack.wino_layer(x5, stack.StackParams(list(sp)))
 

@@ -1,7 +1,8 @@
 // Shared by the conv stack's CUDA sources (stack.cu, l6.cu, i8.cu, ...):
 // storage-type loads and stores, LeakyReLU, the YUV -> BGR map, the int8
 // layer 6's tiles and scale, and the last layer with one thread per s2d cell
-// (conv3x3_bias_leaky_cell) in all its output forms.
+// (conv3x3_bias_leaky_cell) in all its output forms: the truncation's taps,
+// and the FFMA yardstick of l7.cu's fold, which every stack's layer 7 runs.
 // Everything lives in an anonymous namespace: each source that includes
 // this file gets its own copy and instantiates only what it launches.
 
@@ -38,7 +39,8 @@ struct LastOut {
 // tile (ti, tj) holding the activation of s2d cells [ti*tr, (ti+1)*tr] x
 // [tj*tc, (tj+1)*tc] with its own one-pixel halo (the int8 layer 6 gives
 // each tile its own quantisation scale, so neighbouring tiles hold
-// different values for the pixels they share).
+// different values for the pixels they share). csrc/l7.cu's fold reads it as
+// N*ny*nx planes of tr x tc cells.
 struct Tiles {
   int tr, tc, ny, nx;
 };

@@ -4,8 +4,9 @@
 // library with a plain C interface and loaded with ctypes
 // (waifu2x_torch/ops/_build.py); the Python wrappers are in
 // waifu2x_torch/ops/stack.py: stack_scale_upto (B7) and the l6_i8= (B4)
-// and l6_wino= (B5) arguments of every stack wrapper. Layers 1-5 and, in
-// the plane forms, layer 7 are the launches of stack.cu.
+// and l6_wino= (B5) arguments of every stack wrapper. The stacks' other
+// layers are l1.cu's, mma.cu's or mma_tf32.cu's, and l7.cu's fold (the
+// int8 layer 6's tile-major planes included).
 //
 // Replaces: waifu2x_tpu/ops/pallas_stack.py:_run_stack / _stack_body with
 // upto=k (B7: the body returns after layer k and stores 4 lanes of that
@@ -27,7 +28,10 @@
 //                 by 4 on every side, [n, hl+8, wl+8] (the counterpart of
 //                 tools/k1_forensics.py:136 at upto 0).
 //   k = 6 is the OUT_TAPS or OUT_PTAPS form of conv3x3_bias_leaky_cell
-//   (common.cuh). Bound by bytes: 4 values read and written per cell.
+//   (common.cuh), w2x_last_cell. Bound by bytes: 4 values read and written
+//   per cell. w2x_last_cell's other forms, layer 7 per cell on the int8
+//   layer 6's tiles, are the timing yardstick of l7.cu's fold on them
+//   (stack.last_layer_tiles(fold=False)); no stack launches them.
 //
 // B4, tile_absmax<T> and l6_i8_conv<T>. The stack runs on the plane
 //   edge-extended to a grid of (tr, tc)-cell tiles. Tile (ti, tj) reads the
@@ -71,7 +75,10 @@
 //   stride-2 reads hit 32 banks. 16 FFMA per block, input and output
 //   channel where the direct form takes 36; the transforms add 32 adds
 //   per block and input channel, shared by the thread's 8 channels.
-//   Bound by operations.
+//   Bound by operations. The stacks run B5's layer on the tensor cores in
+//   both types (csrc/wino.cu: bf16 products, and f32 as 3xTF32); l6_wino
+//   stays as the timing yardstick that ops/stack.py reaches with MID_MMA
+//   False.
 
 #include "common.cuh"
 
@@ -539,7 +546,8 @@ int w2x_l6_wino(int bf16, const void* x5, const void* u, const void* b,
                     : launch_wino<float>(x5, u, b, y6, n, H5, W5, s));
 }
 
-// Layer 7 with one thread per s2d cell, from a tile-major layer-6
+// Layer 7 with one thread per s2d cell (the truncation's taps; in the
+// other forms the yardstick of l7.cu's fold), from a tile-major layer-6
 // activation [n, ny, nx, 2tr+2, 2tc+2, 128]: out_mode, uvp, cmap and
 // dense_tc as in stack.cu's w2x_stack_layer, out_mode 3: the same-cell
 // tap partials [n, hl, wl, 4] in the storage type (B7, k = 6), and out_mode

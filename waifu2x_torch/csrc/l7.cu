@@ -1,19 +1,21 @@
-// Layer 7 (128 -> 1) of every stack call whose layer-6 output is one
-// plane, as the JAX body's folded tap product, on Hopper (sm_90a): in bf16
-// on the tensor cores (l7_fold), in f32 with FFMA (l7_fold_f32). Built with
-// nvcc into a shared library with a plain C interface and loaded with
-// ctypes (waifu2x_torch/ops/_build.py); the Python side is ops/stack.py
-// (_Launcher.l7_fold, last_layer, l7_fold_plain).
+// Layer 7 (128 -> 1) of every stack call as the JAX body's folded tap
+// product, on Hopper (sm_90a): in bf16 on the tensor cores (l7_fold), in f32
+// with FFMA (l7_fold_f32), from one layer-6 plane an image or from the int8
+// layer 6's tile-major planes. Built with nvcc into a shared library with a
+// plain C interface and loaded with ctypes (waifu2x_torch/ops/_build.py); the
+// Python side is ops/stack.py (_Launcher.l7_fold, last_layer,
+// last_layer_tiles, l7_fold_plain, l7_tiles_plain).
 //
 // Replaces: waifu2x_tpu/ops/pallas_stack.py:_stack_body's layer 7 with
 // l7_fold (the tap product of each layer-6 phase, :489-508, and the
 // shift-sum and the three epilogues, :603-655), for configurations B1, B2,
-// B3, B6 and B5's stack, in both storage types. The int8 layer 6's
-// tile-major input, the truncation's tap forms and the zero-shift variant
-// stay on stack.cu's and common.cuh's FFMA kernels, as does
-// last_layer(fold=False), the timing yardstick.
+// B3, B6, B5's stack and B4's (the int8 branch, :551-585, ends in the same
+// l7_tap), in both storage types. The truncation's tap forms and the
+// zero-shift variant stay on stack.cu's and common.cuh's FFMA kernels, as
+// do last_layer(fold=False) and last_layer_tiles(fold=False), the timing
+// yardsticks.
 //
-// What it computes, on x6 [N, 2hl+2, 2wl+2, 128] (NHWC, bf16 or f32) and
+// What it computes, on x6 [P, 2hl+2, 2wl+2, 128] (NHWC, bf16 or f32) and
 // the folded weights W [512, 16] (ops/s2d.py:pack_l7_fold) in x6's type:
 //   the x6 cell (I, J), 0 <= I <= hl, 0 <= J <= wl, is pixels
 //   2I..2I+1 x 2J..2J+1, its 512 values in lanes (a*2 + b)*128 + c;
@@ -22,29 +24,38 @@
 //   Y[i, j, q] = ((Zt[i, j, q] + Zt[i, j+1, 4+q]) + Zt[i+1, j, 8+q])
 //                + Zt[i+1, j+1, 12+q]              (s = Dy*2 + Dx in order)
 //   then the bias and LeakyReLU in f32, and one of three epilogues on that
-//   one f32 Y:
-//     OUT_S2D    Y in x6's type (bf16 rounded once), [N, hl, wl, 4];
-//     OUT_DENSE  the same phase-chunked, [N, hl, nx*4*tc], zeros in the
-//                last chunk's columns past wl (common.cuh's layout);
+//   one f32 Y, at the image's cell:
+//     OUT_S2D    Y in x6's type (bf16 rounded once), [N, oh, ow, 4];
+//     OUT_DENSE  the same phase-chunked, [N, oh, ceil(ow/tc)*4*tc], zeros in
+//                the last chunk's columns past ow (common.cuh's layout; tc
+//                the dense chunk);
 //     OUT_U8     Y never rounded: the YUV -> BGR map of common.cuh with
-//                __fmul_rn / __fadd_rn and the cell's 8 U/V phases,
+//                __fmul_rn / __fadd_rn and the image cell's 8 U/V phases,
 //                16 bytes a cell, lanes 12:16 zero.
+//   One plane an image: P = N, hl x wl = oh x ow. The int8 layer 6's
+//   tile-major x6t [N, ny, nx, 2tr+2, 2tc+2, 128] (common.cuh: Tiles) is,
+//   byte for byte, P = N*ny*nx planes of hl x wl = tr x tc cells: plane
+//   (b, ty, tx)'s cell (i, j) is the image's cell (ty*tr + i, tx*tc + j),
+//   and cells past oh or ow (the stack ran on the plane edge-extended to the
+//   tile grid) are not written: the crop. Only the output address differs;
+//   the reading, the products and the walk below are the same.
 //
 // What bounds it on an H100: the bytes. x6 is read once (1 KB a cell in
-// bf16: 4.31 GB at scale512, 1.29 ms at 3.35 TB/s; 2 KB in f32: 4.26 GB at
-// ns1080, 1.27 ms); Y is 1/128 of that. The products are 2 x 512 x 16 per
-// cell, 0.07 ms of the bf16 peak; in f32 only the 4 x 9 x 128 that W does
-// not hold as zeros are issued, 0.29 ms of the 67 TFLOP/s FFMA peak at
-// ns1080. The FFMA kernels they replace read each pixel in 16-32-byte
-// pieces 512 bytes apart from their neighbours' and ran at about a tenth
-// of the memory rate.
+// bf16: 4.31 GB at scale512, 1.29 ms at 3.35 TB/s; the int8 stack's
+// tile-major planes at scale512, 16 x 8 x 4 tiles of 130 x 258 pixels, 4.40
+// GB, 1.31 ms; 2 KB in f32: 4.26 GB at ns1080, 1.27 ms); Y is 1/128 of that.
+// The products are 2 x 512 x 16 per cell, 0.07 ms of the bf16 peak; in f32
+// only the 4 x 9 x 128 that W does not hold as zeros are issued, 0.29 ms of
+// the 67 TFLOP/s FFMA peak at ns1080. The FFMA kernels they replace read
+// each pixel in 16-32-byte pieces 512 bytes apart from their neighbours'
+// and ran at about a tenth of the memory rate.
 //
 // Design (both types):
 //   * A tile is a run of consecutive cells of one cell row: the two pixel
 //     rows' pixels, contiguous in x6. The Tensor Memory Accelerator copies
 //     it into shared memory as boxes of 128-byte rows with the 128-byte
 //     swizzle: x6 seen as the 4-d tensor (channel, column parity, cell
-//     column, pixel row of all images), one box for each pixel row a,
+//     column, pixel row of all planes), one box for each pixel row a,
 //     column parity b and 128 bytes of channels. One thread issues a
 //     tile's copies on an mbarrier that counts its bytes; cells past the
 //     plane's edge read zero.
@@ -52,7 +63,7 @@
 //     cell row's and the previous one's. Y of cell row i is formed from the
 //     two.
 //   * A strip is a tile's width less one cell (its last cell is the column
-//     halo). The strips of all images, cut into output rows, are one list
+//     halo). The strips of all planes, cut into output rows, are one list
 //     of rows shared out evenly over a persistent grid of one block an SM:
 //     a block walks down its rows, each run of rows of one strip starting
 //     with one halo tile row, so that every x6 byte is read once but for
@@ -60,7 +71,10 @@
 //     keeps two tiles in flight while the third is multiplied. (Staged by
 //     16-byte cp.async copies from the block's four warps instead, the bf16
 //     tile ran at about half the memory rate, with or without the products:
-//     the copies in flight bound that form.)
+//     the copies in flight bound that form.) On the int8 tile-major planes
+//     a tile row of tc = 128 cells is 63 + 63 + 2 output cells (bf16) or
+//     31 x 4 + 4 (f32): the last strip's tile reads a few cells and zero
+//     fill, and costs a loop iteration (PERF.md has its price).
 //   * The tensor map is made at each launch (cuTensorMapEncodeTiled, reached
 //     through the runtime's driver entry point, so the library links no
 //     libcuda) and passed as a __grid_constant__ parameter.
@@ -123,17 +137,25 @@ struct L7Args {
   const T* w;               // bf16: W [512][16]; f32: w7 [128][9]
   const float* b;           // [1]
   void* y;
-  const float* uvp;         // OUT_U8: [n, hl, wl, 8]
+  const float* uvp;         // OUT_U8: [N, oh, ow, 8]
   ColorMap cm;              // OUT_U8
-  int hl, wl, tc, wcols, nstrips;
-  int rows;                 // n * nstrips * hl output rows in all
+  int hl, wl;               // a plane's output cells: the image's, or a tile's
+  int nstrips;              // strips a plane row
+  int rows;                 // planes * nstrips * hl output rows in all
+  int ny, nx;               // the tile grid of an image (1 x 1: one plane)
+  int wlast;                // cells a strip walk of the last tile column
+                            // writes (the dense pad columns included)
+  int oh, ow;               // the image's cells
+  int ocols;                // columns written a row: ow, or the dense
+                            // chunks' nx_d * tc
+  int tc;                   // OUT_DENSE: the chunk width
 };
 
 // A position in a block's list of tiles: output row u = ((n * nstrips +
-// strip) * hl + row), and whether this is the halo tile of a run's start
-// (cell row `row`, no output) or the tile that completes output row `row`
-// (cell row row + 1). Kept as its parts, so that walking the list takes no
-// division.
+// strip) * hl + row) of plane n, and whether this is the halo tile of a
+// run's start (cell row `row`, no output) or the tile that completes output
+// row `row` (cell row row + 1). Kept as its parts, so that walking the list
+// takes no division.
 struct Cursor {
   int u, row, strip, n;
   bool head;
@@ -201,8 +223,9 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
          "r"(c2), "r"(c3), "r"(bar) : "memory");
 }
 
-// Y of output cell (i, j) of image n from Zt of cell row i (zp) and i + 1
-// (z), both at column j's cell, then the bias, LeakyReLU and the form.
+// Y of a plane's output cell from Zt of its cell row (zp) and the next
+// (z), both at its column's cell, then the bias, LeakyReLU and the form, at
+// the image's cell (i, j) of image n.
 template <int OUT_MODE, typename T>
 __device__ __forceinline__ void l7_out(const L7Args<T>& a, const float* zp,
                                        const float* z, int n, int i, int j,
@@ -217,13 +240,13 @@ __device__ __forceinline__ void l7_out(const L7Args<T>& a, const float* zp,
                  ((z0.w + z1.w) + z2.w) + z3.w};
 #pragma unroll
   for (int q = 0; q < 4; ++q) yv[q] = leaky(yv[q] + bias);
-  const size_t cell = ((size_t)n * a.hl + i) * a.wl + j;
+  const size_t cell = ((size_t)n * a.oh + i) * a.ow + j;
   if constexpr (OUT_MODE == OUT_S2D) {
     store4(static_cast<T*>(a.y) + cell * 4, yv);
   } else if constexpr (OUT_MODE == OUT_DENSE) {
-    T* yd = static_cast<T*>(a.y) + ((size_t)n * a.hl + i) * a.wcols * 4 +
+    T* yd = static_cast<T*>(a.y) + ((size_t)n * a.oh + i) * a.ocols * 4 +
             (size_t)(j / a.tc) * 4 * a.tc + j % a.tc;
-    const bool pad = j >= a.wl;   // the last chunk's pad columns
+    const bool pad = j >= a.ow;   // the last chunk's pad columns
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       store1(yd + (size_t)q * a.tc, pad ? 0.0f : yv[q]);
@@ -249,6 +272,22 @@ __device__ __forceinline__ void l7_out(const L7Args<T>& a, const float* zp,
     }
     static_cast<uint4*>(a.y)[cell] = make_uint4(word[0], word[1], word[2], 0u);
   }
+}
+
+// Output cell `col` (0 .. OUT-1) of strip cc's row, from Zt of the tile's
+// cell row (z) and the one above (zp), written at its image cell unless it
+// lies past the image (the crop) or, in a tile that is not its grid row's
+// last, past the tile (the next tile's cell).
+template <int OUT_MODE, int OUT, typename T>
+__device__ __forceinline__ void l7_cell(const L7Args<T>& a, const Cursor& cc,
+                                        int col, const float* zp,
+                                        const float* z, float bias) {
+  const int j = cc.strip * OUT + col;
+  const int tx = cc.n % a.nx, rest = cc.n / a.nx;
+  const int ty = rest % a.ny, img = rest / a.ny;
+  const int I = ty * a.hl + cc.row, J = tx * a.wl + j;
+  if (j < (tx == a.nx - 1 ? a.wlast : a.wl) && I < a.oh && J < a.ocols)
+    l7_out<OUT_MODE>(a, zp, z, img, I, J, bias);
 }
 
 template <int OUT_MODE>
@@ -345,10 +384,10 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
                                           acc[4 * j + 2 * h + 1]);
     __syncthreads();
 
-    const int j = cc.strip * OUT + tid;
-    if (!cc.head && tid < OUT && j < a.wcols)
-      l7_out<OUT_MODE>(a, zt + (zb ^ 1) * L7_CELLS * L7_ZP + tid * L7_ZP,
-                       z + tid * L7_ZP, cc.n, cc.row, j, bias);
+    if (!cc.head && tid < OUT)
+      l7_cell<OUT_MODE, OUT>(a, cc, tid,
+                             zt + (zb ^ 1) * L7_CELLS * L7_ZP + tid * L7_ZP,
+                             z + tid * L7_ZP, bias);
     zb ^= 1;
     ++t;
     cc.advance(a.hl, a.nstrips);
@@ -478,10 +517,10 @@ l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
     }
     __syncthreads();
 
-    const int j = cc.strip * OUT + tid;
-    if (!cc.head && tid < OUT && j < a.wcols)
-      l7_out<OUT_MODE>(a, zt + (zb ^ 1) * F7_CELLS * L7_ZP + tid * L7_ZP,
-                       z + tid * L7_ZP, cc.n, cc.row, j, bias);
+    if (!cc.head && tid < OUT)
+      l7_cell<OUT_MODE, OUT>(a, cc, tid,
+                             zt + (zb ^ 1) * F7_CELLS * L7_ZP + tid * L7_ZP,
+                             z + tid * L7_ZP, bias);
     zb ^= 1;
     ++t;
     cc.advance(a.hl, a.nstrips);
@@ -497,7 +536,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // x [n, 2hl+2, 2wl+2, 128] as the 4-d tensor (channel, column parity, cell
-// column, pixel row of all images), boxes of 128 bytes of channels x 1 x
+// column, pixel row of all n planes), boxes of 128 bytes of channels x 1 x
 // `cells` cells x 1 row with the 128-byte swizzle (64 channels in bf16, 32
 // in f32); cells past wl read zero
 cudaError_t make_map(CUtensorMap* map, const void* x, int bf16, int n, int hl,
@@ -530,11 +569,12 @@ cudaError_t make_map(CUtensorMap* map, const void* x, int bf16, int n, int hl,
 }
 
 // One launch of `kernel` over a.rows output rows on a persistent grid (no
-// more blocks than SMs), x's tensor map in tiles of `cells` cells.
+// more blocks than SMs), the tensor map of x's `planes` planes in tiles of
+// `cells` cells.
 template <typename T>
 cudaError_t launch(void (*kernel)(const CUtensorMap, L7Args<T>),
                    uint32_t smem, int threads, int cells, const void* x,
-                   int n, const L7Args<T>& a, cudaStream_t s) {
+                   int planes, const L7Args<T>& a, cudaStream_t s) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -546,82 +586,105 @@ cudaError_t launch(void (*kernel)(const CUtensorMap, L7Args<T>),
                              (int)smem);
   if (err != cudaSuccess) return err;
   CUtensorMap map;
-  err = make_map(&map, x, sizeof(T) == 2, n, a.hl, a.wl, cells);
+  err = make_map(&map, x, sizeof(T) == 2, planes, a.hl, a.wl, cells);
   if (err != cudaSuccess) return err;
   const int blocks = a.rows < sms ? a.rows : sms;
   kernel<<<(unsigned)blocks, threads, smem, s>>>(map, a);
   return cudaGetLastError();
 }
 
-// The checks and the launch arguments of both types; `cells` is the tile's
-// width, one more than a strip's.
+// The checks and the launch arguments of both types -> the planes of x
+// (0 on a bad argument); `cells` is the tile's width, one more than a
+// strip's. qt.tr == 0: one plane an image.
 template <typename T>
-cudaError_t fold_args(L7Args<T>& a, const void* w, const void* b, void* y,
-                      int n, int hl, int wl, int out_mode, const void* uvp,
-                      const float* cmap, int tc, int cells) {
+int fold_args(L7Args<T>& a, const void* w, const void* b, void* y, int n,
+              int hl, int wl, int out_mode, const void* uvp,
+              const float* cmap, int tc, const Tiles& qt, int cells) {
   a.w = static_cast<const T*>(w);
   a.b = static_cast<const float*>(b);
   a.y = y;
   a.uvp = static_cast<const float*>(uvp);
-  a.hl = hl;
-  a.wl = wl;
+  a.oh = hl;
+  a.ow = wl;
   a.tc = tc;
-  a.wcols = wl;
+  a.ocols = wl;
   if (out_mode == OUT_DENSE) {
-    if (tc <= 0 || tc % 32) return cudaErrorInvalidValue;
-    a.wcols = (wl + tc - 1) / tc * tc;
+    if (tc <= 0 || tc % 32) return 0;
+    a.ocols = (wl + tc - 1) / tc * tc;
   } else if (out_mode == OUT_U8) {
-    if (uvp == nullptr || cmap == nullptr) return cudaErrorInvalidValue;
+    if (uvp == nullptr || cmap == nullptr) return 0;
     a.cm = color_map(cmap);
   } else if (out_mode != OUT_S2D) {
-    return cudaErrorInvalidValue;
+    return 0;
   }
-  a.nstrips = (a.wcols + cells - 2) / (cells - 1);
-  const long long rows = (long long)n * a.nstrips * hl;
-  if (rows > INT_MAX) return cudaErrorInvalidValue;
+  if (qt.tr == 0) {
+    a.ny = a.nx = 1;
+    a.hl = hl;
+    a.wl = wl;
+  } else {
+    if (!tiles_ok(qt) || (long long)qt.ny * qt.tr < hl ||
+        (long long)qt.nx * qt.tc < wl)
+      return 0;
+    a.ny = qt.ny;
+    a.nx = qt.nx;
+    a.hl = qt.tr;
+    a.wl = qt.tc;
+  }
+  // the last tile column also writes the dense pad columns past the grid
+  const int last = a.ocols - (a.nx - 1) * a.wl;
+  a.wlast = last > a.wl ? last : a.wl;
+  a.nstrips = (a.wlast + cells - 2) / (cells - 1);
+  const long long planes = (long long)n * a.ny * a.nx;
+  const long long rows = planes * a.nstrips * a.hl;
+  if (planes > INT_MAX || rows > INT_MAX) return 0;
   a.rows = (int)rows;
-  return cudaSuccess;
+  return (int)planes;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Layer 7 on `stream`: x [n, 2hl+2, 2wl+2, 128] in the storage type (bf16
-// != 0: bf16, else f32), for bf16 w the folded weights [512, 16] bf16, for
-// f32 w the layer's weights [128, 9] f32 (w2x_stack_layer's), b [1] f32,
-// and out_mode 0 (y [n, hl, wl, 4] in the storage type), 1 (y [n, hl,
-// ceil(wl/tc)*4*tc] in the storage type, tc a multiple of 32) or 2 (y u8
+// Layer 7 on `stream`: x [n, 2hl+2, 2wl+2, 128] (tr == 0), or the int8
+// layer 6's tile-major x [n, ny, nx, 2tr+2, 2tc+2, 128] with ny*tr >= hl and
+// nx*tc >= wl (tr > 0), in the storage type (bf16 != 0: bf16, else f32),
+// for bf16 w the folded weights [512, 16] bf16, for f32 w the layer's
+// weights [128, 9] f32 (w2x_stack_layer's), b [1] f32, and out_mode 0 (y
+// [n, hl, wl, 4] in the storage type), 1 (y [n, hl, ceil(wl/dense_tc)*4*
+// dense_tc] in the storage type, dense_tc a multiple of 32) or 2 (y u8
 // [n, hl, wl, 16] from the device array uvp [n, hl, wl, 8] f32 and the host
 // array cmap[12], w2x_stack_layer's). x, w, y and uvp 16-byte aligned.
 // Returns the cudaError_t of the launch.
 int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
                 void* y, int n, int hl, int wl, int out_mode,
-                const void* uvp, const float* cmap, int tc, void* stream) {
+                const void* uvp, const float* cmap, int dense_tc, int tr,
+                int tc, int ny, int nx, void* stream) {
   if (n <= 0 || hl <= 0 || wl <= 0 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
        reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(uvp)) %
           16)
     return (int)cudaErrorInvalidValue;
+  const Tiles qt = {tr, tc, ny, nx};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (bf16) {
     L7Args<__nv_bfloat16> a = {};
-    err = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap, tc,
-                    L7_CELLS);
-    if (err != cudaSuccess) return (int)err;
+    const int planes = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap,
+                                 dense_tc, qt, L7_CELLS);
+    if (planes == 0) return (int)cudaErrorInvalidValue;
     auto kernel = out_mode == OUT_S2D     ? l7_fold<OUT_S2D>
                   : out_mode == OUT_DENSE ? l7_fold<OUT_DENSE>
                                           : l7_fold<OUT_U8>;
-    return (int)launch(kernel, L7_SMEM, L7_THREADS, L7_CELLS, x, n, a, s);
+    return (int)launch(kernel, L7_SMEM, L7_THREADS, L7_CELLS, x, planes, a,
+                       s);
   }
   L7Args<float> a = {};
-  err = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap, tc, F7_CELLS);
-  if (err != cudaSuccess) return (int)err;
+  const int planes = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap,
+                               dense_tc, qt, F7_CELLS);
+  if (planes == 0) return (int)cudaErrorInvalidValue;
   auto kernel = out_mode == OUT_S2D     ? l7_fold_f32<OUT_S2D>
                 : out_mode == OUT_DENSE ? l7_fold_f32<OUT_DENSE>
                                         : l7_fold_f32<OUT_U8>;
-  return (int)launch(kernel, F7_SMEM, F7_THREADS, F7_CELLS, x, n, a, s);
+  return (int)launch(kernel, F7_SMEM, F7_THREADS, F7_CELLS, x, planes, a, s);
 }
 
 }  // extern "C"

@@ -6,12 +6,14 @@
 // with both operands read from shared memory (mma_k16), or for N = 64 with
 // A from registers (mma_k16_rs64), and the f32 sums kept in registers; and
 //   wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32    (N = 32 .. 128)
-// (mma_k8_tf32); and
+// (mma_k8_tf32, and for N = 32 with A from registers, mma_k8_tf32_rs32);
+// and
 //   wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8
 // (mma_k32_s8, exact int32 sums). mma.cu builds the bf16 layers 2-6 kernel
 // and the mma_chain probe from them, mma_tf32.cu the f32 layers 2-6 as
 // 3xTF32, tmm.cu the four-tap probe layer (with B also MN-major), wino.cu
-// the Winograd layer 6 (A from registers), i8.cu the int8 layer 6.
+// the Winograd layer 6 in both types (A from registers), i8.cu the int8
+// layer 6.
 //
 // Operand layout without swizzle ("interleaved"): an operand is cut into
 // core matrices of 8 rows x 16 bytes (8 bf16 along K), each stored as 128
@@ -88,6 +90,14 @@ template <int N>
 __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// f32 -> the nearest TF32 value (10 mantissa bits), ties away from zero
+// (cvt.rna.tf32.f32; the same integer form as ops/s2d.py:tf32_round): the
+// split of an operand into two TF32 halves, hi = rna(v), lo = rna(v - hi),
+// that the 3xTF32 kernels take (mma_tf32.cu, wino.cu).
+__device__ __forceinline__ float tf32_rna(float v) {
+  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xFFFFE000u);
 }
 
 // The constant half of a descriptor without swizzle: strides in bytes,
@@ -258,6 +268,31 @@ __device__ __forceinline__ void mma_k16_rs64(float (&d)[32],
       "}\n"
       : W2X_ACC16(d, 0), W2X_ACC16(d, 16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 8] * B[32 x 8]^T in TF32 with A from registers
+// (wino.cu's f32 form: the kernel forms its A operand itself). a holds the
+// thread's fragment as f32 values (TF32 values, whose low 13 mantissa bits
+// the tensor cores drop), warp w = t / 32, lane l = t % 32 of the
+// warpgroup: a[0] row 16w + l/4, k = l%4; a[1] row + 8; a[2] row 16w + l/4,
+// k + 4; a[3] row + 8, k + 4 (the A fragment of mma.m16n8k8.tf32 for each
+// warp's 16 rows). B K-major from shared memory as in mma_k8_tf32. `add` 0
+// overwrites d. The registers of a must not change until the wgmma that
+// reads them is waited for.
+__device__ __forceinline__ void mma_k8_tf32_rs32(float (&d)[16],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int add = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : W2X_ACC16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
 }
 
 #define W2X_IACC4(d, i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])

@@ -78,13 +78,6 @@ namespace {
 constexpr int TT = 16;            // the block's output tile: TT x TT pixels
 constexpr int TWIN = TT + 2;      // window rows and columns
 constexpr int TF_THREADS = 512;   // four warpgroups, one 8 x 8 m64 tile each
-constexpr uint32_t TF_KEEP = 0xFFFFE000u;   // the mantissa bits TF32 keeps
-
-// f32 -> the nearest TF32 value, ties away from zero (cvt.rna.tf32.f32; the
-// same integer form as ops/s2d.py:tf32_round)
-__device__ __forceinline__ float tf32_rna(float v) {
-  return __uint_as_float((__float_as_uint(v) + 0x1000u) & TF_KEEP);
-}
 
 // the staged window's k4 stride in 16-byte units (tf32_plan's
 // `win_stride`): the k4 slices of one pixel fall into different 16-byte

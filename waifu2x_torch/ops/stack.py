@@ -58,19 +58,20 @@ zero-shift mask (zs: a tap on a zeroed axis reads its own s2d cell) or with
 two accumulators (pp: the same function), and layer 7 under a mask
 (mma_layer(zs=, pp=), last_layer(zs=), mma_plan(ci, co, zs, pp)).
 
-Layer 7 (128 -> 1) of a call whose layer-6 output is one plane (every
-form but i8) is the JAX body's folded tap product (csrc/l7.cu): per s2d
-cell of the layer-6 plane one f32 product [512] x [512, 16] with
-StackParams.w7f = pack_l7_fold(w7), then Y as four shifted 4-lane slices of
-those partials added in order, the bias, LeakyReLU and the output form;
-l7_fold_plain is its plain version. A bf16 call runs it on the tensor cores
-(l7_fold), an f32 call with FFMA on the 4 x 9 x 128 entries of w7f that are
-not zero, read from w7 itself (l7_fold_f32). The int8 layer 6's tile-major
-plane, the truncation's tap forms and the zero-shift masks keep the FFMA
-kernels (csrc/stack.cu per pixel, common.cuh per cell), as does
-last_layer(fold=False), layer 7 alone in either kernel (l7_fold_chosen
-decides), the timing yardstick. L7_LAUNCHES counts every layer-7 launch by
-kernel.
+Layer 7 (128 -> 1) of every stack call is the JAX body's folded tap
+product (csrc/l7.cu): per s2d cell of the layer-6 plane one f32 product
+[512] x [512, 16] with StackParams.w7f = pack_l7_fold(w7), then Y as four
+shifted 4-lane slices of those partials added in order, the bias, LeakyReLU
+and the output form; l7_fold_plain is its plain version. A bf16 call runs it
+on the tensor cores (l7_fold), an f32 call with FFMA on the 4 x 9 x 128
+entries of w7f that are not zero, read from w7 itself (l7_fold_f32). The
+int8 layer 6's tile-major planes take the same kernels, each tile a plane,
+its Y written at the image's cells and cropped (l7_tiles_plain;
+last_layer_tiles alone). The truncation's tap forms and the zero-shift
+masks keep the FFMA kernels (csrc/stack.cu per pixel, common.cuh per cell),
+as do last_layer(fold=False) and last_layer_tiles(fold=False), layer 7
+alone in either kernel (l7_fold_chosen decides), the timing yardsticks.
+L7_LAUNCHES counts every layer-7 launch by kernel.
 
 Layer 6 (128 -> 128, half of the stack's multiply-adds) has three forms,
 chosen by the arguments `l6_i8` and `l6_wino` of every wrapper; None, the
@@ -82,14 +83,17 @@ Both at once raise ValueError.
   wino    (B5) Winograd F(2x2, 3x3): the weights U = G g G^T (ops/s2d.py:
           pack_wino) are rounded to the storage dtype as in the JAX
           package; V = B^T d B is formed in f32 from the stored layer-5
-          activation. A bf16 call runs it on the tensor cores (csrc/wino.cu:
-          l6_wino_mma, from StackParams.w6m), with V rounded to bf16 once
-          before the products; an f32 call, or a bf16 call with MID_MMA
-          False, runs it as FFMA (csrc/l6.cu:l6_wino), with V kept in f32.
-          The JAX kernel forms V with bf16 adds, up to three roundings;
-          the port rounds it once on purpose. wino_layer is the tensor-core
-          form alone, wino_layer_plain the plain version of its arithmetic
-          (A^T folded per output row), wino_plan its plan.
+          activation. Both dtypes run it on the tensor cores (csrc/wino.cu):
+          a bf16 call on l6_wino_mma from StackParams.w6m, with V rounded to
+          bf16 once before the products; an f32 call on l6_wino_tf32 from
+          StackParams.w6t, V kept in f32 and each product V*U taken as three
+          TF32 products (the split of the f32 layers 2-6), within 3e-5 of
+          f32. With MID_MMA False both run it as FFMA (csrc/l6.cu:l6_wino),
+          with V kept in f32, the yardstick. The JAX kernel forms V with
+          bf16 adds, up to three roundings; the port rounds it once on
+          purpose. wino_layer is layer 6 alone in either kernel,
+          wino_layer_plain the plain version of their arithmetic (A^T folded
+          per output row), wino_plan their units and chunks.
   i8      (B4) int8 x int8 with exact int32 sums. Weights: per output
           channel sw = max(|w6|, 1e-12) / 127, w6q = clip(round(w6 / sw)).
           Activations: per TILE of (tr, tc) s2d cells, over the tile's
@@ -186,20 +190,23 @@ MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0,
 # stack call, l1_layer alone), "ffma" stack.cu's plane modes (l1_layer with
 # ffma=True only, the timing yardstick)
 L1_LAUNCHES = {"l1": 0, "ffma": 0}
-# the Winograd layer 6's launches by the kernel that ran them: "mma" the
-# tensor cores (csrc/wino.cu; also wino_layer alone, which counts here
-# only), "ffma" csrc/l6.cu; L6_LAUNCHES["wino"] counts the form
-WINO_LAUNCHES = {"mma": 0, "ffma": 0}
+# the Winograd layer 6's launches by the kernel that ran them: "mma" bf16 on
+# the tensor cores, "mma_tf32" f32 on them as 3xTF32 (both csrc/wino.cu;
+# also wino_layer alone, which counts here only), "ffma" csrc/l6.cu (MID_MMA
+# False); L6_LAUNCHES["wino"] counts the form
+WINO_LAUNCHES = {"mma": 0, "mma_tf32": 0, "ffma": 0}
 # the int8 layer 6's launches by the kernel that ran them: "mma" the int8
 # tensor cores (csrc/i8.cu), "dp4a" csrc/l6.cu (MID_MMA False);
 # L6_LAUNCHES["i8"] counts the form (with the tile maxima)
 I8_LAUNCHES = {"mma": 0, "dp4a": 0}
-# every launch of a layer-7 kernel (of a stack, of last_layer alone, of the
-# probes' stacks, and the truncation's tap forms) by the kernel that ran it:
-# "fold" the tensor-core fold (csrc/l7.cu, bf16 on a plane), "fold_f32" the
-# FFMA fold (csrc/l7.cu, f32 on a plane), "cell" common.cuh's cell kernel
-# (int8 tile-major, taps; dense and u8 with fold=False), "pixel" stack.cu's
-# per-pixel kernel (the zero-shift masks; s2d with fold=False)
+# every launch of a layer-7 kernel (of a stack, of last_layer and
+# last_layer_tiles alone, of the probes' stacks, and the truncation's tap
+# forms) by the kernel that ran it: "fold" the tensor-core fold (csrc/l7.cu,
+# bf16, on a plane or the int8 layer's tiles), "fold_f32" the FFMA fold
+# (csrc/l7.cu, f32, likewise), "cell" common.cuh's cell kernel (the taps;
+# dense and u8 with fold=False, and every form of last_layer_tiles with
+# fold=False), "pixel" stack.cu's per-pixel kernel (the zero-shift masks; s2d
+# with fold=False)
 L7_LAUNCHES = {"fold": 0, "fold_f32": 0, "cell": 0, "pixel": 0}
 
 # the last layer's output forms (csrc/common.cuh: OUT_*)
@@ -237,6 +244,10 @@ class StackParams(tuple):
       w6m  [16, 16, 128, 8] in the storage dtype: pack_mma of the same U as
            a 4 x 4 kernel (tap p = py*4 + px), its input channels in the
            order WINO_CI_ORDER, as csrc/wino.cu reads it (unpack_w6m)
+      w6t  for f32 storage only (None for bf16): (hi, lo), each f32
+           [32, 16, 128, 4], pack_mma_tf32 of the same U as a 4 x 4 kernel,
+           its input channels in the order WINO_TF32_CI_ORDER, as
+           csrc/wino.cu's f32 kernel reads it (unpack_w6t)
     and the weights of layers 2-6 as the tensor-core kernel reads them:
       wm   five tensors [ci/8, 9, co, 8] in the storage dtype:
            pack_mma(w_k) for k = 2..6
@@ -257,6 +268,22 @@ class StackParams(tuple):
 # channel 16c + 8h + 2j + e holds physical channel 16c + 4j + 2h + e
 WINO_CI_ORDER = torch.tensor([16 * c + 4 * ((k % 8) // 2) + 2 * (k // 8)
                               + k % 2 for c in range(8) for k in range(16)])
+
+
+# csrc/wino.cu's f32 kernel reads input channels 2t, 2t+1 of a chunk of 8
+# in one load for the A fragment's k = t and t + 4: the weights' logical
+# channel 8c + 4e + t holds physical channel 8c + 2t + e
+WINO_TF32_CI_ORDER = torch.tensor([8 * c + 2 * (k % 4) + k // 4
+                                   for c in range(16) for k in range(8)])
+
+
+def unpack_w6t(w6t) -> torch.Tensor:
+    """StackParams.w6t -> U [16, 128, 128] as hi + lo in the natural channel
+    order (pack_wino's layout, to 2^-21 relative)."""
+    u = unpack_mma(w6t[0]) + unpack_mma(w6t[1])
+    out = torch.empty_like(u)
+    out[:, WINO_TF32_CI_ORDER] = u
+    return out
 
 
 def unpack_w6m(w6m: torch.Tensor) -> torch.Tensor:
@@ -307,6 +334,9 @@ def prep_params(params, dtype=torch.bfloat16, device="cuda") -> StackParams:
     sp.w6w = u.to(device, dtype).contiguous()
     sp.w6m = (pack_mma(u[:, WINO_CI_ORDER].reshape(4, 4, 128, 128))
               .to(device, dtype).contiguous())
+    sp.w6t = None if dtype != torch.float32 else tuple(
+        t.to(device).contiguous() for t in pack_mma_tf32(
+            u[:, WINO_TF32_CI_ORDER].reshape(4, 4, 128, 128)))
     sp.wm = tuple(pack_mma(torch.as_tensor(p["w"])).to(device, dtype)
                   .contiguous() for p in params[1:6])
     w7 = torch.as_tensor(params[6]["w"]).detach().cpu().float().numpy()
@@ -417,34 +447,25 @@ def mma_grid(n: int, hin: int, win: int) -> tuple:
 
 
 class WinoPlan(NamedTuple):
-    """How csrc/wino.cu runs the Winograd layer 6 (wino_plan)."""
+    """How a csrc/wino.cu kernel cuts the Winograd layer 6 (wino_plan)."""
     tile: tuple        # 2 x 2 output blocks (rows, cols) of one unit
-    co: int            # output channels of one unit (a half)
-    threads: int       # two warpgroups, one per output-transform row A
+    co: int            # output channels of one unit
     kc: int            # input channels per staged chunk
-    stages: int        # (window, U) buffers in the ring, 2 chunks ahead
-    smem_bytes: int    # dynamic shared memory of the launch
 
 
-_WINO_TILE, _WINO_CO, _WINO_KC, _WINO_STAGES = 8, 64, 16, 4
+# (tile side, unit channels, chunk channels) of csrc/wino.cu's kernels
+_WINO_PLANS = {torch.bfloat16: (8, 64, 16), torch.float32: (8, 32, 8)}
 
 
-def wino_plan() -> WinoPlan:
-    """The tensor-core Winograd kernel's plan: a unit is 8 x 8 output blocks
-    (16 x 16 pixels) and 64 of the 128 output channels, run in chunks of
-    16 input channels, each stage of the ring holding the chunk's 18 x 18
-    pixel window and U's chunk for the 64 channels, bf16 (V is formed in
-    registers, never stored), and beside the ring the epilogue's padded
-    output tile. The kernel is persistent: one CUDA block an SM walks over
-    the units. The C entry takes smem_bytes as an argument and refuses
-    bytes that differ from its own count."""
-    t, kc = _WINO_TILE, _WINO_KC
-    win = (2 * t + 2) ** 2 * kc * 2
-    u = (kc // 8) * 16 * _WINO_CO * 16
-    smem = _WINO_STAGES * (win + u) + (2 * t) ** 2 * (2 * _WINO_CO + 16)
-    if smem > SMEM_MAX:
-        raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
-    return WinoPlan((t, t), _WINO_CO, 256, kc, _WINO_STAGES, smem)
+def wino_plan(dtype=torch.bfloat16) -> WinoPlan:
+    """The tensor-core Winograd kernel's plan for a storage dtype: a unit is
+    8 x 8 output blocks (16 x 16 pixels) and a share of the 128 output
+    channels (bf16: a half; f32: a quarter, whose sums and 3xTF32 partials
+    fit the registers), run in chunks of input channels (bf16 16, f32 8:
+    one k8 step). The kernels are persistent, one CUDA block an SM walking
+    over the units, and each owns its shared-memory plan."""
+    t, co, kc = _WINO_PLANS[dtype]
+    return WinoPlan((t, t), co, kc)
 
 
 def l7_fold_chosen(zs: int = 0, fold=None) -> bool:
@@ -604,6 +625,22 @@ def _w7f(sp, x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"w7f must be contiguous {sp[6][0].dtype} on "
                         f"{x.device}, got {w7f.dtype} on {w7f.device}")
     return w7f
+
+
+def _w6t(sp, x: torch.Tensor) -> tuple:
+    """StackParams.w6t's (hi, lo), checked against the f32 plane x it will
+    meet."""
+    w6t = getattr(sp, "w6t", None)
+    if w6t is None or len(w6t) != 2:
+        raise ValueError("the f32 tensor-core Winograd layer needs "
+                         "prep_params' f32 StackParams.w6t")
+    for t in w6t:
+        if (tuple(t.shape) != (32, 16, 128, 4) or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"w6t must be two contiguous f32 "
+                             f"[32, 16, 128, 4] on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return w6t
 
 
 def _check_even(y: torch.Tensor, fn: str) -> None:
@@ -824,6 +861,26 @@ def l7_fold_plain(x6: torch.Tensor, w7f: torch.Tensor,
     return leaky_relu(y + b)
 
 
+def l7_tiles_plain(x6t: torch.Tensor, w7f: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the folded layer 7 on the int8 layer 6's
+    tile-major planes (csrc/l7.cu with a tiling): x6t [N, ny, nx, 2tr+2,
+    2tc+2, 128] NHWC -> Y f32 [N, ny*tr, nx*tc, 4], l7_fold_plain of each
+    tile placed at its cells of the tile grid, not rounded (the caller crops
+    to the image)."""
+    n, ny, nx = x6t.shape[:3]
+    return _tiles_image(l7_fold_plain(x6t.reshape(-1, *x6t.shape[3:]), w7f,
+                                      b), n, ny, nx)
+
+
+def _tiles_image(y: torch.Tensor, n: int, ny: int, nx: int) -> torch.Tensor:
+    """Per-tile cells [n*ny*nx, tr, tc, C] -> the tile grid's cells
+    [n, ny*tr, nx*tc, C]."""
+    _, tr, tc, c = y.shape
+    return (y.reshape(n, ny, nx, tr, tc, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(n, ny * tr, nx * tc, c))
+
+
 def last_out(y: torch.Tensor, out: str, dtype, uvp=None, tc=None):
     """Layer 7's f32 Y [N, hl, wl, 4] in the output form `out`: "s2d" Y
     rounded to `dtype`; "dense" the same phase-chunked, (ydense, tc);
@@ -848,13 +905,13 @@ def _plain_mid(x: torch.Tensor, sp, k: int, dtype, mma: bool) -> torch.Tensor:
     return y.float().permute(0, 3, 1, 2)
 
 
-def _l6_wino_plain(x5: torch.Tensor, sp, dtype,
-                   round_out: bool = True) -> torch.Tensor:
+def _l6_wino_plain(x5: torch.Tensor, sp, dtype, round_out: bool = True,
+                   round_v: bool = False) -> torch.Tensor:
     """Layer 6 as Winograd F(2x2, 3x3) on f32 values [N, 128, H, W] (H, W
     even) -> [N, 128, H-2, W-2]: V from four signed window slices per
-    position (rounded to bf16 where the kernel that bf16 calls run does:
-    dtype bf16 and MID_MMA on), M[p] = V[p] @ U[p] in f32, Y = A^T M A,
-    bias, LeakyReLU, rounded to `dtype` unless round_out is False."""
+    position (rounded to `dtype` with round_v, as the bf16 tensor-core
+    kernel rounds it), M[p] = V[p] @ U[p] in f32, Y = A^T M A, bias,
+    LeakyReLU, rounded to `dtype` unless round_out is False."""
     n, c, hin, win = x5.shape
     hb, wb = (hin - 2) // 2, (win - 2) // 2
     u, b6 = sp.w6w.float(), sp[5][1]
@@ -871,7 +928,7 @@ def _l6_wino_plain(x5: torch.Tensor, sp, dtype,
                         v = t if sy * sx > 0 else -t
                     else:
                         v = v + t if sy * sx > 0 else v - t
-            if dtype == torch.bfloat16 and MID_MMA:
+            if round_v:
                 v = v.to(dtype).float()
             ms.append(v @ u[py * 4 + px])
         nb = (ms[0] + ms[1] + ms[2], ms[1] - ms[2] - ms[3])
@@ -1008,21 +1065,22 @@ def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
     layer's whole NHWC plane, with "phase_taps" (upto 6) the unfolded taps.
     With `mma`, layers 2-6 are mma_layer_plain from the packed weights
     sp.wm (layer 6 only in its direct form). Layer 7 is the folded tap
-    product (l7_fold_plain) where layer 6's output is one plane (not with
-    "i8"), as csrc/l7.cu computes it."""
+    product, as csrc/l7.cu computes it: l7_fold_plain on layer 6's plane,
+    l7_tiles_plain on the int8 layer's tile-major planes. With "wino", V is
+    rounded where the kernel that the call reaches rounds it (bf16 and
+    MID_MMA on)."""
     hg, wg = (x1.shape[2] - 12) // 2, (x1.shape[3] - 12) // 2
     w7, b7 = sp[6]
-    fold = form != "i8"
 
     def last(x6):
         if upto == 6:
             return (_phase_taps_plain if out == "phase_taps"
                     else _taps_plain)(x6, w7, dtype)
-        if fold:
+        if x6.dim() == 6:
+            y = l7_tiles_plain(x6, _w7f(sp, x6), b7)
+        else:
             y = l7_fold_plain(x6.permute(0, 2, 3, 1), _w7f(sp, x6), b7)
-            return y.to(dtype).float() if round_last else y
-        y = _plain_layer(x6, w7, b7, dtype, round_last)
-        return s2d(y[:, 0, :, :, None])
+        return y.to(dtype).float() if round_last else y
 
     x = x1
     with no_tf32():
@@ -1033,19 +1091,26 @@ def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
                 return x.permute(0, 2, 3, 1)
             return x[:, :4, 0:2 * hg:2, 0:2 * wg:2].permute(0, 2, 3, 1)
         if form == "wino":
-            return last(_l6_wino_plain(x, sp, dtype))
+            return last(_l6_wino_plain(
+                x, sp, dtype, round_v=dtype == torch.bfloat16 and MID_MMA))
         if form != "i8":
             return last(_plain_mid(x, sp, 5, dtype, mma))
         tr, tc, ny, nx = tiling
-        out = x.new_empty((x.shape[0], hg, wg, 4))
+        # the tile-major planes, layer 7's input; or the taps tile by tile
+        taps = upto is not None
+        res = x.new_empty((x.shape[0], hg, wg, 4) if taps else
+                          (x.shape[0], ny, nx, 2 * tr + 2, 2 * tc + 2, 128))
         for ti in range(ny):
             for tj in range(nx):
                 x6, _ = _l6_i8_window_plain(
                     x[:, :, 2 * ti * tr:2 * (ti + 1) * tr + 4,
                       2 * tj * tc:2 * (tj + 1) * tc + 4], sp, dtype)
-                out[:, ti * tr:(ti + 1) * tr,
-                    tj * tc:(tj + 1) * tc] = last(x6)
-        return out
+                if taps:
+                    res[:, ti * tr:(ti + 1) * tr,
+                        tj * tc:(tj + 1) * tc] = last(x6)
+                else:
+                    res[:, ti, tj] = x6.permute(0, 2, 3, 1)
+        return res if taps else last(res)
 
 
 def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
@@ -1259,9 +1324,12 @@ _ARGTYPES = {
     "i8": {"w2x_l6_i8_mma": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
                              _INT, _INT, _INT, _INT, _PTR]},
     "wino": {"w2x_l6_wino_mma": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                                 _INT, _INT, _PTR]},
+                                 _INT, _PTR],
+             "w2x_l6_wino_tf32": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
+                                  _INT, _INT, _PTR]},
     "l7": {"w2x_l7_fold": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                           _INT, _PTR, _FLOATS, _INT, _PTR]},
+                           _INT, _PTR, _FLOATS, _INT, _INT, _INT, _INT, _INT,
+                           _PTR]},
     "l1": {"w2x_l1": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                       _PTR]},
     "mma_tf32": {"w2x_tf32_layer": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
@@ -1409,17 +1477,20 @@ class _Launcher:
                  tf32_plan(*WIDTHS[k]).smem_bytes, mid="mma_tf32")
 
     def l7_fold(self, x6, sp, y, n, hl, wl, out_mode=_OUT_S2D, uvp=None,
-                cmap=None, tc=0) -> None:
+                cmap=None, tc=0, tiling=None) -> None:
         """Layer 7 folded (csrc/l7.cu) from the [n, 2hl+2, 2wl+2, 128]
-        plane x6 into y in the form out_mode: bf16 on the tensor cores from
-        StackParams.w7f, f32 with FFMA from w7's taps [128, 9] (w7f's
-        entries that are not zero)."""
+        plane x6, or with tiling = (tr, tc, ny, nx) from the int8 layer's
+        tile-major x6 [n, ny, nx, 2tr+2, 2tc+2, 128] cropped to hl x wl, into
+        y in the form out_mode (tc: the dense chunk): bf16 on the tensor
+        cores from StackParams.w7f, f32 with FFMA from w7's taps [128, 9]
+        (w7f's entries that are not zero)."""
         w = _w7f(sp, x6) if self.bf16 else sp[6][0]
         self.run("l7", "w2x_l7_fold",
                  f"layer 7 (fold{'' if self.bf16 else ', f32'})", None,
                  x6.data_ptr(), w.data_ptr(), sp[6][1].data_ptr(),
                  y.data_ptr(), n, hl, wl, out_mode,
                  None if uvp is None else uvp.data_ptr(), cmap, tc,
+                 *(tiling or (0, 0, 0, 0)),
                  l7="fold" if self.bf16 else "fold_f32")
 
     def mma_layer(self, k: int, src, sp, dst, n, hin, win, l6=None,
@@ -1444,8 +1515,8 @@ class _Launcher:
 
     def wino(self, x5, sp, y6, n, h5, w5, l6=None) -> None:
         """Layer 6 as Winograd on an [n, h5, w5, 128] plane: on the tensor
-        cores (csrc/wino.cu) for bf16 while MID_MMA is on, else as FFMA
-        (csrc/l6.cu)."""
+        cores (csrc/wino.cu; bf16 from w6m, f32 as 3xTF32 from w6t) while
+        MID_MMA is on, else as FFMA (csrc/l6.cu)."""
         if self.bf16 and MID_MMA:
             w6m = getattr(sp, "w6m", None)
             if w6m is None or w6m.dtype != x5.dtype or (
@@ -1455,8 +1526,14 @@ class _Launcher:
                                  f"{x5.dtype} on {x5.device}")
             self.run("wino", "w2x_l6_wino_mma", "layer 6, Winograd (mma)",
                      l6, x5.data_ptr(), w6m.data_ptr(), sp[5][1].data_ptr(),
-                     y6.data_ptr(), n, h5, w5, wino_plan().smem_bytes,
-                     wino="mma")
+                     y6.data_ptr(), n, h5, w5, wino="mma")
+            return
+        if MID_MMA:
+            uhi, ulo = _w6t(sp, x5)
+            self.run("wino", "w2x_l6_wino_tf32",
+                     "layer 6, Winograd (3xTF32)", l6, x5.data_ptr(),
+                     uhi.data_ptr(), ulo.data_ptr(), sp[5][1].data_ptr(),
+                     y6.data_ptr(), n, h5, w5, wino="mma_tf32")
             return
         self.run("l6", "w2x_l6_wino", "layer 6, Winograd", l6,
                  x5.data_ptr(), sp.w6w.data_ptr(), sp[5][1].data_ptr(),
@@ -1568,16 +1645,15 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
         if form != "i8" and upto is None:
             run.layer(6, full_res, x6, sp, out, n, ph, pw, out_mode, uvp,
                       cmap, tc)
-        else:   # from the tile-major layer 6, or the same-cell taps
+        elif upto is None:   # folded, from the tile-major layer 6
+            run.l7_fold(x6, sp, out, n, hl, wl, out_mode, uvp, cmap, tc,
+                        tiling)
+        else:   # the same-cell taps
             w7, b7 = sp[6]
-            run.run("l6", "w2x_last_cell",
-                    "layer 7" if upto is None else "upto 6",
-                    None if upto is None else "upto", x6.data_ptr(),
+            run.run("l6", "w2x_last_cell", "upto 6", "upto", x6.data_ptr(),
                     w7.data_ptr(), b7.data_ptr(), out.data_ptr(), n, hl, wl,
-                    out_mode if upto is None else
                     _OUT_PTAPS if out_form == "phase_taps" else _OUT_TAPS,
-                    None if uvp is None else uvp.data_ptr(), cmap, tc,
-                    *(tiling or (0, 0, 0, 0)), l7="cell")
+                    None, None, 0, *(tiling or (0, 0, 0, 0)), l7="cell")
         run.mark()
     return out
 
@@ -1699,19 +1775,22 @@ def l1_layer(x: torch.Tensor, sp, full_res: bool = False,
 
 
 def wino_layer(x5: torch.Tensor, sp) -> torch.Tensor:
-    """The tensor-core Winograd layer 6 alone: x5 [N, H5, W5, 128] NHWC
-    bf16, contiguous, H5 and W5 even and >= 4 -> [N, H5-2, W5-2, 128] bf16,
-    from StackParams.w6m and layer 6's bias. CPU tensors take
-    wino_layer_plain; CUDA tensors take csrc/wino.cu, whose launch counts
-    under WINO_LAUNCHES["mma"] only. With MID_MMA False it is the FFMA form
-    instead (csrc/l6.cu, V in f32; _l6_wino_plain's on the CPU), counted
-    under WINO_LAUNCHES["ffma"]."""
+    """The Winograd layer 6 alone: x5 [N, H5, W5, 128] NHWC, bf16 or f32,
+    contiguous, H5 and W5 even and >= 4 -> [N, H5-2, W5-2, 128] in x5's
+    dtype, with layer 6's bias. CUDA tensors take the tensor cores
+    (csrc/wino.cu: bf16 from StackParams.w6m, counted under
+    WINO_LAUNCHES["mma"]; f32 as 3xTF32 from StackParams.w6t, under
+    "mma_tf32") and count nowhere else; CPU tensors take wino_layer_plain
+    (from w6m, which for f32 storage holds the f32 U: the f32 function).
+    With MID_MMA False it is the FFMA form instead (csrc/l6.cu, V in f32;
+    _l6_wino_plain's on the CPU), counted under WINO_LAUNCHES["ffma"]."""
     if (x5.dim() != 4 or x5.shape[3] != 128 or x5.shape[1] % 2
             or x5.shape[2] % 2 or min(x5.shape[1:3]) < 4):
         raise ValueError(f"x5 must be [N, H5, W5, 128] with H5, W5 even "
                          f"and >= 4, got {tuple(x5.shape)}")
-    if x5.dtype != torch.bfloat16 or not x5.is_contiguous():
-        raise TypeError(f"x5 must be contiguous bfloat16, got {x5.dtype}")
+    if x5.dtype not in DTYPES or not x5.is_contiguous():
+        raise TypeError(f"x5 must be contiguous float32 or bfloat16, got "
+                        f"{x5.dtype}")
     w6m, w6w = getattr(sp, "w6m", None), getattr(sp, "w6w", None)
     if w6m is None or w6w is None or tuple(w6m.shape) != (16, 16, 128, 8):
         raise ValueError("wino_layer needs prep_params' StackParams.w6m "
@@ -1719,7 +1798,8 @@ def wino_layer(x5: torch.Tensor, sp) -> torch.Tensor:
     if any(t.dtype != x5.dtype or t.device != x5.device
            for t in (w6m, w6w)) or sp[5][1].device != x5.device:
         raise TypeError(f"w6m, w6w and layer 6's bias must be on "
-                        f"{x5.device}, the weights {x5.dtype}")
+                        f"{x5.device}, the weights {x5.dtype}; got "
+                        f"{w6m.dtype} on {w6m.device}")
     if x5.device.type == "cpu":
         if not MID_MMA:
             return _l6_wino_plain(x5.float().permute(0, 3, 1, 2), sp,
@@ -1785,6 +1865,61 @@ def last_layer(x: torch.Tensor, sp, zs: int = 0, out: str = "s2d",
             6, False, x, sp, y, n, hl, wl, _LAST_OUTS[out], uvp, cmap, tc,
             zs=zs, fold=folded)
     return (y, tc) if out == "dense" else y
+
+
+def last_layer_tiles(x6t: torch.Tensor, sp, hl: int, wl: int,
+                     out: str = "s2d", uvp=None, tc=None, fold=None):
+    """Layer 7 alone on the int8 layer 6's tile-major planes x6t [N, ny, nx,
+    2tr+2, 2tc+2, 128] NHWC (f32 or bf16, contiguous: what l6_i8_layer
+    returns), each tile's Y at its cells of the image, cropped to hl x wl
+    (ny*tr >= hl > (ny-1)*tr, likewise wl), in the output form `out` of
+    last_out ("dense" with the chunk tc). The kernel is the int8 stacks':
+    the fold (csrc/l7.cu) unless fold=False, which takes common.cuh's cell
+    kernel, the FFMA layer 7 they ran before (the yardstick). CPU tensors
+    take the plain version of the kernel chosen (l7_tiles_plain, or the
+    9-tap sum of each tile), then last_out; CUDA tensors take the kernel,
+    whose launch counts under L7_LAUNCHES only."""
+    if out not in _LAST_OUTS:
+        raise ValueError(f"out must be one of {sorted(_LAST_OUTS)}, got "
+                         f"{out!r}")
+    if (x6t.dim() != 6 or x6t.shape[5] != 128 or x6t.shape[3] % 2
+            or x6t.shape[4] % 2 or min(x6t.shape[3:5]) < 4):
+        raise ValueError(f"x6t must be [N, ny, nx, 2tr+2, 2tc+2, 128], got "
+                         f"{tuple(x6t.shape)}")
+    n, ny, nx, h6, w6, _ = x6t.shape
+    tr, ttc = (h6 - 2) // 2, (w6 - 2) // 2
+    if not ((ny - 1) * tr < hl <= ny * tr and (nx - 1) * ttc < wl <= nx * ttc):
+        raise ValueError(f"{hl} x {wl} cells are not the image of a {ny} x "
+                         f"{nx} grid of {tr} x {ttc} tiles")
+    if x6t.dtype not in DTYPES or not x6t.is_contiguous():
+        raise TypeError(f"x6t must be contiguous float32 or bfloat16, got "
+                        f"{x6t.dtype}")
+    w, b = sp[6]
+    if w.dtype != x6t.dtype or w.device != x6t.device:
+        raise TypeError(f"layer 7's weights are {w.dtype} on {w.device}")
+    if out == "u8":
+        if uvp is None:
+            raise ValueError("out='u8' needs uvp [N, hl, wl, 8]")
+        _check_uvp(uvp, x6t.new_empty(1).expand(n, hl, wl))
+    folded = l7_fold_chosen(0, fold)
+    if x6t.device.type == "cpu":
+        y = (l7_tiles_plain(x6t, _w7f(sp, x6t), b) if folded
+             else _tiles_image(_last_layer_f32(
+                 x6t.reshape(-1, h6, w6, 128), w, b), n, ny, nx))
+        return last_out(y[:, :hl, :wl], out, x6t.dtype, uvp, tc)
+    dtc = _dense_tc(wl, tc) if out == "dense" else 0
+    mode, tiling = _LAST_OUTS[out], (tr, ttc, ny, nx)
+    with torch.cuda.device(x6t.device):
+        y, cmap = _last_buffer(mode, x6t, n, hl, wl, dtc)
+        run = _Launcher(None, x6t, None)
+        if folded:
+            run.l7_fold(x6t, sp, y, n, hl, wl, mode, uvp, cmap, dtc, tiling)
+        else:
+            run.run("l6", "w2x_last_cell", "layer 7 (cell)", None,
+                    x6t.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                    n, hl, wl, mode, None if uvp is None else uvp.data_ptr(),
+                    cmap, dtc, *tiling, l7="cell")
+    return (y, dtc) if out == "dense" else y
 
 
 CHAIN_ROWS = 256   # rows of x per block of the probe kernel
