@@ -157,7 +157,11 @@ Phases (any failure raises and exits non-zero):
      printed beside fill_'s, each probe_fetch_map variant's beside
      contiguous() of its view, which for the five maps that copy one block
      (probe.library_is_the_map) is first held equal to the kernel's output
-     byte for byte.
+     byte for byte. probe_fetch_reduce's traffic sum (every word its
+     whole-block pass lands, mod 2^32) is held equal to
+     probe.traffic_sum_plain for cin1, cin4, cin9 and 4-fetch; that kernel's
+     and probe_l1_mm's variants are printed against their bounds, beside
+     the library call and their first kernels' times (PERF.md section 6).
  19. the truncation probes and the four-tap layer (phase19 below): tap_mm
      (csrc/tmm.cu, wgmma) in both layouts against its plain version bit for
      bit on inputs k / 16 (every f32 sum exact), at two small grids and the
@@ -309,6 +313,11 @@ U8_BF16_MAX = int(BF16_TOL * 255)
 WINO_VS_DIRECT_TOL = 1e-4
 WINO_DB_SLACK = 1.5   # dB under the direct form on the same frames
 I8_BAR = 35.0         # dB, int8 with weights that were not trained for it
+# probe_fetch_reduce's and probe_l1_mm's first kernels, ms at the tools'
+# grids on an H100 80GB HBM3 at 700 W (PERF.md section 6), printed beside
+# the present kernels' times
+PROBE_FIRST_FORM_MS = {"cin1": 0.0986, "cin4": 0.1862, "cin9": 0.0769,
+                       "4-fetch": 0.2333, "cin9mm": 0.4055}
 # The int8 kernel against its plain version over a whole stack, in f32: the
 # two quantise the same layer-5 values except where the summation order of
 # layers 1-5 moves one across a rounding tie of the quantiser, and such a
@@ -3717,6 +3726,7 @@ def main() -> int:
     from waifu2x_torch.ops import probe
     from waifu2x_torch.tools import dma_probe, grid_floor_probe, stage_time
     probe_err = {k: 0.0 for k in probe.LAUNCHES}
+    traffic_checked = []
     for tool, names in probe.TOOL_VARIANTS.items():
         g = probe.Grid(16 if tool in ("stage_time", "grid_floor_probe")
                        else 4, 8, 4)
@@ -3742,8 +3752,21 @@ def main() -> int:
                 log(f"  {name}: library's contiguous() == kernel byte for "
                     f"byte")
                 del lib
+            if v.kernel == "fetch_reduce":
+                # the whole-block pass: every word that lands in shared
+                # memory, once a cell (a block dropped or read twice shows)
+                got_sum = probe.traffic_sum(v, g, args)
+                want_sum = probe.traffic_sum_plain(v, g, args["x"])
+                log(f"  {name}: traffic sum {got_sum:#010x}, plain "
+                    f"{want_sum:#010x}")
+                if got_sum != want_sum:
+                    raise AssertionError(f"probe {name}: traffic sum "
+                                         f"{got_sum:#x} != {want_sum:#x}")
+                traffic_checked.append(name)
             probe_err[v.kernel] = max(probe_err[v.kernel], err)
             del args, got, ref
+    if traffic_checked != ["cin1", "cin4", "cin9", "4-fetch"]:
+        raise AssertionError(f"traffic sums checked for {traffic_checked}")
     torch.cuda.empty_cache()
     # the slice's main path: the three tools, counted
     probe.reset_launches()
@@ -3777,6 +3800,17 @@ def main() -> int:
             + ("" if probe.library_is_the_map(probe.VARIANTS[r['name']])
                else "; the library copies, the map does more")
             + ")" for r in probe_rows if r["kernel"] == "fetch_map"))
+    # the two redesigned kernels: each variant's share of its bound, beside
+    # the library call and the first form's time
+    for kernel, what in (("fetch_reduce", "amax / sum over a view"),
+                         ("l1_mm", "bf16 matmul, weight lanes 0-3")):
+        parts = [f"{r['name']} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                 f"({100 * r['bound_ms'] / r['ms']:.1f}% of it), library "
+                 f"{r['library_ms']:.4f} ({what}), first form "
+                 f"{PROBE_FIRST_FORM_MS[r['name']]:.4f}"
+                 for r in probe_rows if r["kernel"] == kernel]
+        log(f"phase 18 probe_{kernel} against its bound, on {smi}: "
+            + "; ".join(parts))
     torch.cuda.empty_cache()
     log(f"phase 18 passed; {time.perf_counter() - t_start:.1f} s so far")
 
@@ -4350,10 +4384,11 @@ def main() -> int:
     kernel_names = {
         "store": "probe_store, a constant to every output block",
         "fetch_map": "probe_fetch_map, 1 or 4 blocks fetched, a map out",
-        "fetch_reduce": "probe_fetch_reduce, 1 or 4 blocks fetched, "
-                        "reduced to one f32 per cell",
-        "l1_mm": "probe_l1_mm, 9-lane block x (9, 128) weight, lanes 0-3 "
-                 "planar"}
+        "fetch_reduce": "probe_fetch_reduce, 1 or 4 blocks fetched whole "
+                        "by TMA into a ring, reduced to one f32 per cell "
+                        "(persistent)",
+        "l1_mm": "probe_l1_mm, 9-lane block x (9, 128) weight on the "
+                 "tensor cores (mma.sync), lanes 0-3 planar (persistent)"}
     for k, name in kernel_names.items():
         rows_k = [r for r in probe_rows if r["kernel"] == k]
         kernels.append({

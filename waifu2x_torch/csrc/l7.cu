@@ -194,23 +194,6 @@ __device__ __forceinline__ void block_rows(int rows, int& u0, int& u1) {
   u1 = u0 + per + (bid < extra ? 1 : 0);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
 // One box of the tensor map (coordinates innermost first) into shared
 // memory, its bytes counted on the barrier.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,

@@ -13,7 +13,8 @@
 // and the mma_chain probe from them, mma_tf32.cu the f32 layers 2-6 as
 // 3xTF32, tmm.cu the four-tap probe layer (with B also MN-major), wino.cu
 // the Winograd layer 6 in both types (A from registers), i8.cu the int8
-// layer 6.
+// layer 6. Also the mbarrier and bulk-copy (TMA) steps of l7.cu's and
+// probe.cu's rings.
 //
 // Operand layout without swizzle ("interleaved"): an operand is cut into
 // core matrices of 8 rows x 16 bytes (8 bf16 along K), each stored as 128
@@ -58,6 +59,42 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// mbarriers in shared memory (l7.cu's and probe.cu's TMA rings): init with
+// the arrivals a phase takes, an arrival that also expects `bytes` of
+// asynchronous copies, a plain arrival, and a wait for the phase of the
+// given parity to complete.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+// `bytes` contiguous bytes global -> shared by the TMA unit (a bulk copy, no
+// tensor map), counted on the barrier; both addresses and the size are
+// multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // Makes this thread's completed shared-memory writes (cp.async lands

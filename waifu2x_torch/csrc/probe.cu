@@ -30,27 +30,31 @@
 // plane has one lane) whose origin in cell (n, i, j) is row i*ra + rb,
 // column j*ca + cb (struct In); an output block is `rows` runs of `run`
 // elements, one per row of a [b, ny*rows, nx*run] array (struct Out). The
-// reads whose values are not used are folded (xor) into a word that each
-// thread stores to `sink` where that is not null; the wrappers pass null,
-// but the compiler cannot know it, so it cannot drop a load.
+// store and map kernels fold (xor) the reads whose values are not used into
+// a word that each thread stores to `sink` where that is not null; the
+// wrappers pass null, but the compiler cannot know it, so it cannot drop a
+// load. probe_fetch_reduce lands every block in shared memory and, where
+// `sink` is given (ops/probe.py:traffic_sum), adds every word that landed
+// into it (mod 2^32), which a plain sum over the blocks must equal.
 //
-// Bound by bytes, but for probe_l1_mm: the others do a few operations per
-// byte; probe_l1_mm does 18 f32 FLOP per output channel of a pixel, 0.14 ms
-// of FFMA at 16 x 512^2 against its bytes' 0.03 ms. Design: 16-byte loads and
-// stores, neighbouring threads on neighbouring addresses; probe_store as
-// one store a thread over the whole output (see there); probe_fetch_map's
-// hot forms (one block, no repeat) compiled for their lanes, type and map:
-// lane-inner outputs with no shared memory (probe_map_direct), planar ones
-// through a padded shared-memory transpose fed by cp.async
-// (probe_map_planar); the others ROWS rows of a cell per CUDA block
-// (several blocks per cell, so that a 128-cell grid still fills 132 SMs),
-// the rows staged through shared memory where the output is a map of the
-// input (a (64, 128, 16) bf16 block is 256 KB, over a block's 227 KB).
-// probe_fetch_reduce's lane-0 sums (grid_floor's 4-fetch) need three whole
-// blocks before the first output: one CUDA block per cell, summing in a
-// fixed order, so the result does not vary from run to run. f32 maps use
-// __fmul_rn / __fadd_rn, never fmaf, so the plain version computes the same
-// values.
+// All are bound by bytes: the stores, maps and reductions do a few
+// operations a byte, and probe_l1_mm's 2 x 9 x 128 FLOP a pixel take a third
+// of its bytes' time on the tensor cores. Design: 16-byte loads and stores,
+// neighbouring threads on neighbouring addresses; probe_store as one store
+// a thread over the whole output (see there); probe_fetch_map's hot forms
+// (one block, no repeat) compiled for their lanes, type and map: lane-inner
+// outputs with no shared memory (probe_map_direct), planar ones through a
+// padded shared-memory transpose fed by cp.async (probe_map_planar); the
+// others ROWS rows of a cell per CUDA block (several blocks per cell, so
+// that a 128-cell grid still fills 132 SMs), the rows staged through shared
+// memory where the output is a map of the input (a (64, 128, 16) bf16 block
+// is 256 KB, over a block's 227 KB). probe_fetch_reduce and probe_l1_mm
+// are persistent, one CUDA block an SM, a producer warp streaming block rows
+// into a ring of shared memory by the TMA unit (cp.async.bulk) ahead of the
+// consumer warps; probe_l1_mm's product is on the tensor cores (mma.sync, A
+// formed in registers). Sums are taken in a fixed order, so no result varies
+// from run to run. f32 maps use __fmul_rn / __fadd_rn, never
+// fmaf, so the plain version computes the same values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -191,21 +195,6 @@ __device__ __forceinline__ float apply(int op, float v) {
     case MAP_CONST0: return 0.0f;
     default: return v;
   }
-}
-
-// The sum of v over the CUDA block, in a fixed order; every thread gets
-// the result. red[] holds a float per warp.
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, d));
-  __syncthreads();   // red[] may still be read from an earlier call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int k = 1; k < (int)(blockDim.x >> 5); ++k)
-    r = __fadd_rn(r, red[k]);
-  return r;
 }
 
 // ---------------------------------------------------------------------------
@@ -446,176 +435,430 @@ probe_map_planar(MapArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// probe_fetch_reduce:
+// probe_fetch_reduce (tools/stage_time.py:172 cin1, :187 cin4, :220 cin9;
+// tools/grid_floor_probe.py:100 4-fetch):
 //   RED_CORNER_MAX: t = sum over the blocks (in order) of the max over the
 //     block's [0:8, 0:8, :] corner; every output element = bf16(0 + t).
 //   RED_LANE0_SUM: s = ((0 + S1) + S2) + S3, S_k the sum of lane 0 over all
-//     of block k; out[r, x, c] = bf16(a[r, x, c] + s), c < lg. One CUDA
-//     block per cell (splits 1).
+//     of block k; out[r, x, c] = bf16(a[r, x, c] + s), c < 4.
+//
+// Bound by bytes (a few operations a byte). The design: a persistent grid,
+// one CUDA block an SM walking whole cells (cell blockIdx.x + k * gridDim.x,
+// so the cells in flight at a time are consecutive and share their
+// neighbours' blocks through L2). The producer warp copies the cell's blocks
+// row by row, a lane a row, into a ring of 16 KB slots by the TMA unit
+// (cp.async.bulk, a slot's rows counted on its mbarrier), ahead of the
+// consumers by the ring's depth (13 slots; 9 beside the lane-0 sums' stash);
+// eight consumer warps take each slot as it lands and hand it back (a lane a
+// row: one thread's address arithmetic for every row would hold the ring
+// back). Corner maxima: the consumers read each block's 8 x 8 corner once
+// per cell from device memory as 16-byte vectors (L2 hits: the ring fetches
+// the same rows), reduce one max a block across the warps, and store the
+// cell's constant block with 16-byte stores while the ring streams the
+// cell's rows and the next cell's. Lane-0 sums: cell (n, i, j) reads its
+// four tiles at the steps set by the tiles' own row and column parities
+// (red_order), so that the four cells that read a tile all read it at the
+// same step of their walk and it need stay in L2 for one step only; each
+// thread sums lane 0 of the pixels it owns in a register a tile and keeps
+// the tile's lanes 0-3 in a shared-memory stash; after the cell's last slot
+// the three sums are reduced in a fixed order (the warp's lanes by an xor
+// tree, then the warps in order), and each thread writes the stashed pixels
+// it owns, + s, as 8-byte stores. The result does not vary from run to run.
+// The kernel is compiled for each op, so that the ring's depth is a
+// constant. Every 32-bit word that lands in a slot is added (mod 2^32) into
+// the thread's sink word where `sink` is given: the traffic check
+// (ops/probe.py:traffic_sum).
+constexpr int RED_WARPS = 8;                           // consumer warps
+constexpr int RED_CONS = 32 * RED_WARPS;
+constexpr int RED_THREADS = RED_CONS + 32;             // + the producer warp
+static_assert((RED_CONS & (RED_CONS - 1)) == 0, "a power of two");
+constexpr int RED_SLOT = 16 * 1024;                    // bytes of a slot
+constexpr int RED_STASH = 64 * 1024;                   // bytes of the stash
+// slots of the ring: the corner maxima's, and the lane-0 sums' beside the
+// stash; a slot and its two barriers
+constexpr int RED_SLOTS_MAX = 13, RED_SLOTS_SUM = 9;
+__host__ __device__ constexpr int red_ring(int slots) {
+  return slots * (RED_SLOT + 16);
+}
+static_assert(red_ring(RED_SLOTS_MAX) <= 232448 - 256 &&
+                  red_ring(RED_SLOTS_SUM) + RED_STASH <= 232448 - 256,
+              "over a block's shared memory");
+
 struct RedArgs {
   In in[4];
   int nin;
   Out out;
-  int op, lg;
+  int rpc[4];   // rows of block k in a slot
+  int cells;
   uint32_t* sink;
 };
 
-__global__ void __launch_bounds__(THREADS) probe_fetch_reduce(RedArgs a) {
-  extern __shared__ uint4 smem[];
-  __shared__ float red[THREADS / 32];
-  const bool sum_op = a.op == RED_LANE0_SUM;
-  const int splits = sum_op ? 1 : a.out.rows / ROWS;
-  int n, i, j;
-  cell_of(blockIdx.x / splits, a.out, n, i, j);
-  const int r0 = (blockIdx.x % splits) * ROWS;
-  const int q = a.out.row_vecs();
+// Step s of cell (i, j) reads block s ^ red_order(op, i, j): the corner
+// maxima in order; the lane-0 sums' tiles (i + di, j + dj), block 2 di + dj,
+// by the tile's row and column parity, 2 ((i + di) & 1) + ((j + dj) & 1).
+__device__ __forceinline__ int red_order(int op, int i, int j) {
+  return op == RED_LANE0_SUM ? ((i & 1) << 1) | (j & 1) : 0;
+}
 
-  if (!sum_op) {
-    // each block whole: a full-height block by this CUDA block's rows, a
-    // shorter one (the lower stripes) shared out among the cell's blocks
-    // (their corner rows are read below)
-    uint32_t f = 0;
-    float m[4];
+__device__ __forceinline__ uint32_t word_sum(uint4 v) {
+  return v.x + v.y + v.z + v.w;
+}
+
+__device__ __forceinline__ float max8(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float m = __uint_as_float(w[0] << 16);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      m[k] = __int_as_float(0xff800000);   // -inf
-      if (k >= a.nin) continue;
-      const In& b = a.in[k];
-      f ^= b.rows == a.out.rows
-               ? touch(b, n, i, j, r0, ROWS)
-               : touch_share(b, n, i, j, 0, blockIdx.x % splits, splits);
-      const int per_row = 8 * b.lanes;
-      for (int e = threadIdx.x; e < 8 * per_row; e += blockDim.x) {
-        const __nv_bfloat16* row = reinterpret_cast<const __nv_bfloat16*>(
-            b.row(n, i, j, e / per_row));
-        m[k] = fmaxf(m[k], __bfloat162float(row[e % per_row]));
-      }
-    }
-    keep(f, a.sink);
-    // the corners' maxima, all in one pass over the warps
-    __shared__ float red4[4][THREADS / 32];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1)
-        m[k] = fmaxf(m[k], __shfl_xor_sync(0xffffffffu, m[k], d));
-      if ((threadIdx.x & 31) == 0) red4[k][threadIdx.x >> 5] = m[k];
-    }
-    __syncthreads();
-    float t = 0.0f;
-    for (int k = 0; k < a.nin; ++k) {
-      float mk = red4[k][0];
-      for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-        mk = fmaxf(mk, red4[k][w]);
-      t = k == 0 ? mk : __fadd_rn(t, mk);
-    }
-    const float v = __fadd_rn(0.0f, t);
-    const uint4 pat = pack(a.out.dtype, [&](int) { return v; });
-    for (int t2 = threadIdx.x; t2 < ROWS * q; t2 += blockDim.x)
-      a.out.row(n, i, j, r0 + t2 / q)[t2 % q] = pat;
-    return;
+  for (int k = 0; k < 4; ++k) {
+    m = fmaxf(m, __uint_as_float(w[k] << 16));
+    m = fmaxf(m, __uint_as_float(w[k] & 0xffff0000u));
   }
+  return m;
+}
 
-  float s = 0.0f;
-  for (int k = 1; k < a.nin; ++k) {
-    const In& b = a.in[k];
-    const int rq = b.row_vecs();
-    float acc = 0.0f;
-    const int lmask = b.lanes - 1;   // a power of two (checked)
-    // a thread owns a column of 16-byte vectors (the same lanes in every
-    // row) in one of `groups` interleaved sets of rows, and sums it down
-    // the rows
-    const int groups = max(1, (int)blockDim.x / rq);
-    for (int t = threadIdx.x; t < rq * groups; t += blockDim.x) {
-      const int col = t % rq;
-#pragma unroll 8
-      for (int r = t / rq; r < b.rows; r += groups) {
-        const uint4 v = b.row(n, i, j, r)[col];
-        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// The consumers' corner maxima of cell (n, i, j), one a block, and the
+// cell's constant output block.
+__device__ __forceinline__ void corner_out(const RedArgs& a, int n, int i,
+                                           int j, float (*red)[RED_WARPS]) {
+  const int tid = threadIdx.x;
+  float m[4];
 #pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          if (((col * 8 + m) & lmask) == 0) {
-            const uint32_t h = (w[m >> 1] >> (16 * (m & 1))) & 0xffffu;
-            acc = __fadd_rn(acc, __uint_as_float(h << 16));
-          }
+  for (int k = 0; k < 4; ++k) {
+    m[k] = __int_as_float(0xff800000);   // -inf
+    if (k >= a.nin) continue;
+    const In& b = a.in[k];
+    // 8 rows of 8 pixels x lanes bf16: `lanes` 16-byte vectors a row
+    for (int e = tid; e < 8 * b.lanes; e += RED_CONS)
+      m[k] = fmaxf(m[k], max8(b.row(n, i, j, e / b.lanes)[e % b.lanes]));
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      m[k] = fmaxf(m[k], __shfl_xor_sync(0xffffffffu, m[k], d));
+    if ((tid & 31) == 0) red[k][tid >> 5] = m[k];
+  }
+  bar_sync(1, RED_CONS);
+  float t = 0.0f;
+  for (int k = 0; k < a.nin; ++k) {
+    float mk = red[k][0];
+    for (int w = 1; w < RED_WARPS; ++w) mk = fmaxf(mk, red[k][w]);
+    t = k == 0 ? mk : __fadd_rn(t, mk);
+  }
+  const float v = __fadd_rn(0.0f, t);
+  const uint4 pat = pack(a.out.dtype, [&](int) { return v; });
+  const int q = a.out.row_vecs();
+#ifndef W2X_RED_NO_OUT
+  for (int e = tid; e < a.out.rows * q; e += RED_CONS)
+    a.out.row(n, i, j, e / q)[e % q] = pat;
+#else
+  if (v == -1.0f) a.out.row(n, i, j, 0)[tid] = pat;   // keeps v live
+#endif
+}
+
+template <int OP>
+__global__ void __launch_bounds__(RED_THREADS, 1)
+probe_fetch_reduce(RedArgs a) {
+  constexpr bool SUM = OP == RED_LANE0_SUM;
+  constexpr int SLOTS = SUM ? RED_SLOTS_SUM : RED_SLOTS_MAX;
+  extern __shared__ __align__(16) uint8_t sm[];
+  __shared__ float red[2][4][RED_WARPS];   // by cell parity
+  const uint32_t ring = smem_addr(sm);
+  const uint32_t full = ring + SLOTS * RED_SLOT;
+  const uint32_t empty = full + 8 * SLOTS;
+  uint2* stash = reinterpret_cast<uint2*>(sm + red_ring(SLOTS));
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, RED_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= RED_CONS) {   // the producer warp: a lane a block row
+    int t = 0;
+    for (int c = blockIdx.x; c < a.cells; c += gridDim.x) {
+      int n, i, j;
+      cell_of(c, a.out, n, i, j);
+      const int order = red_order(OP, i, j);
+      for (int s = 0; s < a.nin; ++s) {
+        const In& b = a.in[s ^ order];
+        const int rb = b.cols * b.lanes * 2, rpc = a.rpc[s ^ order];
+        const uint4* base = b.row(n, i, j, 0);
+        const long long pitch = b.w * b.lanes / 8;   // vectors an array row
+        for (int r0 = 0; r0 < b.rows; r0 += rpc, ++t) {
+          const int slot = t % SLOTS, nr = min(rpc, b.rows - r0);
+          if (t >= SLOTS)   // the slot's last use handed back
+            mbar_wait(empty + 8 * slot, (t / SLOTS - 1) & 1);
+          if (lane == 0) mbar_expect(full + 8 * slot, nr * rb);
+          __syncwarp();
+          if (lane < nr)
+            bulk_load(ring + slot * RED_SLOT + lane * rb,
+                      base + (r0 + lane) * pitch, rb, full + 8 * slot);
         }
       }
     }
-    s = __fadd_rn(s, block_sum(acc, red));
+    if (a.sink != nullptr) a.sink[blockIdx.x * RED_THREADS + tid] = 0u;
+    return;
   }
-  const In& A = a.in[0];
-  const int la = A.lanes, ca = A.cols, E = 16 / a.out.esize;
-  for (int rr = 0; rr < a.out.rows; rr += ROWS) {
-    stage(A, n, i, j, rr, ROWS, smem);
-    __syncthreads();
-    for (int t = threadIdx.x; t < ROWS * q; t += blockDim.x) {
-      const int r = t / q, k = t % q;
-      a.out.row(n, i, j, rr + r)[k] = pack(a.out.dtype, [&](int e) {
-        const int qq = k * E + e;
-        return __fadd_rn(bf(smem, (r * ca + qq / a.lg) * la + qq % a.lg), s);
-      });
+
+  uint32_t words = 0;
+  int t = 0, cb = 0;
+  for (int c = blockIdx.x; c < a.cells; c += gridDim.x, cb ^= 1) {
+    int n, i, j;
+    cell_of(c, a.out, n, i, j);
+    const int order = red_order(OP, i, j);
+#ifndef W2X_RED_RING
+    if (!SUM) corner_out(a, n, i, j, red[cb]);
+#endif
+    float sk[3] = {0.0f, 0.0f, 0.0f};   // lane-0 sums of blocks 1-3
+    for (int s = 0; s < a.nin; ++s) {
+      const int k = s ^ order;
+      const In& b = a.in[k];
+      const int rb = b.cols * b.lanes * 2, rpc = a.rpc[k];
+      const int vpp = b.lanes / 8;   // vectors a pixel (lane-0 sums)
+      float part = 0.0f;
+      for (int r0 = 0; r0 < b.rows; r0 += rpc, ++t) {
+        const int slot = t % SLOTS, nr = min(rpc, b.rows - r0);
+        mbar_wait(full + 8 * slot, (t / SLOTS) & 1);
+        const uint4* sv =
+            reinterpret_cast<const uint4*>(sm + slot * RED_SLOT);
+#ifndef W2X_RED_RING
+        if (SUM) {   // lane 0 (and 1-3) in a pixel's first vector
+          // pixel r0 * cols + p of the block is thread (r0 * cols + p) %
+          // RED_CONS's, the owner of that stash entry in the output below
+          for (int p = (tid - r0 * b.cols) & (RED_CONS - 1); p < nr * b.cols;
+               p += RED_CONS) {
+            const uint4 v = sv[p * vpp];
+            if (k == 0)
+              stash[r0 * b.cols + p] = make_uint2(v.x, v.y);   // lanes 0-3
+            else
+              part = __fadd_rn(part, __uint_as_float(v.x << 16));
+            if (a.sink != nullptr) {
+              words += word_sum(v);
+              for (int e = 1; e < vpp; ++e) words += word_sum(sv[p * vpp + e]);
+            }
+          }
+        } else if (a.sink != nullptr) {
+          for (int v = tid; v < nr * rb / 16; v += RED_CONS)
+            words += word_sum(sv[v]);
+        }
+#endif
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * slot);
+      }
+      if (k == 1) sk[0] = part;
+      if (k == 2) sk[1] = part;
+      if (k == 3) sk[2] = part;
     }
-    __syncthreads();
+#ifdef W2X_RED_RING
+    continue;
+#endif
+    if (!SUM) continue;
+
+    // s = ((0 + S1) + S2) + S3, each S_k over the warp's lanes by an xor
+    // tree, then over the warps in order
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1)
+        sk[k] = __fadd_rn(sk[k], __shfl_xor_sync(0xffffffffu, sk[k], d));
+      if (lane == 0) red[cb][k][tid >> 5] = sk[k];
+    }
+    bar_sync(1, RED_CONS);
+    float sum = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      float tk = red[cb][k][0];
+      for (int w = 1; w < RED_WARPS; ++w) tk = __fadd_rn(tk, red[cb][k][w]);
+      sum = __fadd_rn(sum, tk);
+    }
+#ifdef W2X_RED_NO_OUT
+    if (sum != -1.0f) continue;
+#endif
+    // the stashed pixels this thread wrote (pixel q = tid + RED_CONS m of
+    // the tile: row r, column x), + s, as 8-byte stores; no other thread
+    // reads them, so the next cell may stash before all threads are here
+    const int cols = a.in[0].cols;
+    uint2* const out0 = reinterpret_cast<uint2*>(a.out.row(n, i, j, 0));
+    const long long pitch = a.out.pitch / 4;   // 4 bf16 a uint2
+    int r = tid / cols, x = tid % cols;
+    for (int q = tid; q < a.in[0].rows * cols; q += RED_CONS) {
+      const uint2 v = stash[q];
+      const uint32_t h[4] = {v.x << 16, v.x & 0xffff0000u, v.y << 16,
+                             v.y & 0xffff0000u};
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = bf_bits(__fadd_rn(__uint_as_float(h[e]), sum));
+      out0[r * pitch + x] =
+          make_uint2(o[0] | (o[1] << 16), o[2] | (o[3] << 16));
+      for (x += RED_CONS; x >= cols; x -= cols) ++r;
+    }
   }
+  if (a.sink != nullptr) a.sink[blockIdx.x * RED_THREADS + tid] = words;
 }
 
 // ---------------------------------------------------------------------------
-// probe_l1_mm: one row of a cell per CUDA block. The row's (tc, 9) bf16
-// pixels times the (9, 128) bf16 weight, f32 sums, rounded to a bf16
-// (tc, 128) scratch in shared memory; lanes 0-3 of the scratch written
-// planar, out[r, c * tc + x] = scratch[x, c]. A warp owns a pixel at a time,
-// a lane 4 of its 128 output channels, so the scratch stores are one
-// contiguous 256-byte run a warp. K = 9 is no tensor-core product: FFMA (a
-// bf16 x bf16 product is exact in f32, so fmaf rounds as a multiply and an
-// add would).
-__global__ void __launch_bounds__(THREADS) probe_l1_mm(In x, const uint4* w,
-                                                      Out out) {
-  extern __shared__ uint4 smem[];
-  const int tr = out.rows, tc = x.cols;
-  int n, i, j;
-  cell_of(blockIdx.x / tr, out, n, i, j);
-  const int r = blockIdx.x % tr;
-  uint4* sx = smem;                            // tc * 9 bf16
-  uint4* sw = sx + x.row_vecs();               // 9 * 128 bf16
-  uint4* ss = sw + 9 * 128 / 8;                // tc * 128 bf16
-  stage(x, n, i, j, r, 1, sx);
-  for (int t = threadIdx.x; t < 9 * 128 / 8; t += blockDim.x)
-    sw[t] = w[t];
-  __syncthreads();
-  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(sx);
-  const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(sw);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float wr[9][4];   // this lane's 4 output channels of the weight
-#pragma unroll
-  for (int k = 0; k < 9; ++k)
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      wr[k][m] = __bfloat162float(wb[k * 128 + 4 * lane + m]);
-  for (int p = warp; p < tc; p += THREADS / 32) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const float xv = __bfloat162float(xb[p * 9 + k]);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) acc[m] = fmaf(xv, wr[k][m], acc[m]);
+// probe_l1_mm (tools/stage_time.py:241, cin9mm): the JAX body's (tr, tc, 9) x
+// (9, 128) product, f32 sums rounded to a bf16 (tc, 128) scratch, whose lanes
+// 0-3 are written planar, out[r, c * tc + x] = scratch[x, c].
+//
+// Bound by bytes: on the tensor cores the products take about half the time
+// of the bytes. The design: a persistent grid, one CUDA block an SM walking
+// cell rows (row blockIdx.x + k * gridDim.x); the producer warp's lanes each
+// copy one cell row (tc x 9 bf16, 16-byte aligned and contiguous) by one
+// bulk copy (TMA) into a ring of MM_SLOTS rows, and put the row's output
+// address beside it; four teams of four consumer warps take the rows in
+// turn, a warp 16-pixel strips of the row. The 128-lane product is whole, on
+// the tensor cores: for 16 pixels, 16 mma.sync m16n8k16, one an n-tile of 8
+// channels, with K padded from 9 to 16 by zeros. A pixel is 18 bytes, which
+// no K-major operand layout can name, so A is formed in registers from the
+// staged row (two bf16 at a time by a funnel shift, the 9th alone); B, the
+// weight packed by the wrapper as [k8][n][8] with k >= 9 zero
+// (ops/probe.py:pack_l1_mm), sits in registers, 32 a thread. Only lanes 0-3
+// of the products leave the registers (the 128-lane scratch is not written):
+// rounded to bf16 once, as the scratch rounds them, into the warp's planar
+// staging, then stored as four 32-byte runs; no barrier couples the warps
+// (mma.sync rather than wgmma: a warpgroup's product ties its four warps to
+// one wait before the epilogue). On k / 256 inputs every sum is exact, so
+// the result equals the plain version bit for bit.
+constexpr int MM_TEAMS = 4;                      // teams of 4 warps
+constexpr int MM_THREADS = 128 * MM_TEAMS + 32;  // + the producer warp
+constexpr int MM_SLOTS = 64;                     // ring of cell rows
+constexpr int MM_W_BYTES = 2 * 128 * 8 * 2;      // B: [k8][n][8] bf16
+constexpr int MM_STAGE = 4 * 16 * 2;             // a warp's 16 px x 4 lanes
+
+// shared memory: the ring, B, the warps' staging, each slot's output row,
+// the full and empty barriers
+__host__ __device__ constexpr int mm_smem(int tc) {
+  return MM_SLOTS * 18 * tc + MM_W_BYTES + 4 * MM_TEAMS * MM_STAGE +
+         3 * MM_SLOTS * 8;
+}
+
+struct MmArgs {
+  In x;
+  const uint4* w;   // pack_l1_mm's [2][128][8] bf16
+  Out out;
+  int units;        // cell rows: cells * tr
+};
+
+// The two bf16 at `byte` (even) of a staged row, the lower address low.
+__device__ __forceinline__ uint32_t bf_pair(const uint8_t* row, int byte) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row + (byte & ~3));
+  return (byte & 2) ? __funnelshift_r(w[0], w[1], 16) : w[0];
+}
+
+__global__ void __launch_bounds__(MM_THREADS, 1) probe_l1_mm(MmArgs a) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int tc = a.x.cols, rb = 18 * tc;   // a cell row's bytes
+  const uint32_t ring = smem_addr(sm);
+  uint8_t* stage_all = sm + MM_SLOTS * rb + MM_W_BYTES;
+  uint4** dsts =
+      reinterpret_cast<uint4**>(stage_all + 4 * MM_TEAMS * MM_STAGE);
+  const uint32_t full = smem_addr(dsts + MM_SLOTS);
+  const uint32_t empty = full + 8 * MM_SLOTS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < MM_SLOTS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);   // the warps of a team
     }
-    uint2 v;
-    v.x = bf_bits(acc[0]) | (bf_bits(acc[1]) << 16);
-    v.y = bf_bits(acc[2]) | (bf_bits(acc[3]) << 16);
-    reinterpret_cast<uint2*>(ss)[p * 32 + lane] = v;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  for (int e = tid; e < MM_W_BYTES / 16; e += MM_THREADS)
+    reinterpret_cast<uint4*>(sm + MM_SLOTS * rb)[e] = a.w[e];
   __syncthreads();
-  const int q = out.row_vecs();
-  for (int t = threadIdx.x; t < q; t += blockDim.x) {
-    uint32_t h[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int qq = t * 8 + e;
-      h[e] = reinterpret_cast<const uint16_t*>(ss)[(qq % tc) * 128 + qq / tc];
+
+  if (warp == 4 * MM_TEAMS) {   // the producer warp: a lane a row
+    for (int t = lane;; t += 32) {
+      const int u = blockIdx.x + t * gridDim.x;
+      if (u >= a.units) break;
+      const int slot = t % MM_SLOTS, r = u % a.out.rows;
+      if (t >= MM_SLOTS)   // the slot's last use handed back
+        mbar_wait(empty + 8 * slot, (t / MM_SLOTS - 1) & 1);
+      int n, i, j;
+      cell_of(u / a.out.rows, a.out, n, i, j);
+      dsts[slot] = a.out.row(n, i, j, r);   // released by the arrival
+      mbar_expect(full + 8 * slot, rb);
+      bulk_load(ring + slot * rb, a.x.row(n, i, j, r), rb, full + 8 * slot);
     }
-    out.row(n, i, j, r)[t] = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
-                                        h[4] | (h[5] << 16), h[6] | (h[7] << 16));
+    return;
   }
+
+  const int g = warp >> 2, wl = warp & 3;   // team, its warp
+  const int q = lane & 3, pl = lane >> 2;   // k pair / column pair, pixel
+  uint16_t* ws = reinterpret_cast<uint16_t*>(stage_all + warp * MM_STAGE);
+  // B fragments of mma.m16n8k16 for the 16 n-tiles, resident in registers:
+  // k = 2q, 2q + 1 (and + 8), n = 8 nt + pl
+  uint32_t bfr[16][2];
+  const uint32_t* wsm = reinterpret_cast<const uint32_t*>(sm + MM_SLOTS * rb);
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    bfr[nt][0] = wsm[(8 * (8 * nt + pl) + 2 * q) / 2];
+    bfr[nt][1] = wsm[(1024 + 8 * (8 * nt + pl) + 2 * q) / 2];
+  }
+  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int u = blockIdx.x + g * gridDim.x, t = g; u < a.units;
+       u += MM_TEAMS * gridDim.x, t += MM_TEAMS) {
+    const int slot = t % MM_SLOTS;
+    mbar_wait(full + 8 * slot, (t / MM_SLOTS) & 1);
+    const uint8_t* row = sm + slot * rb;
+    uint4* dst = dsts[slot];
+    for (int xs = 16 * wl; xs < tc; xs += 64) {
+      // A: pixels xs + pl and xs + pl + 8 of this warp's strip, k = 2q,
+      // 2q + 1 (and + 8: only k = 8 is not zero)
+      const int x = xs + pl;
+      uint32_t af[4] = {0u, 0u, 0u, 0u};
+#ifndef W2X_L1MM_NO_FORM
+      af[0] = bf_pair(row, 18 * x + 4 * q);
+      af[1] = bf_pair(row, 18 * (x + 8) + 4 * q);
+      if (q == 0) {
+        af[2] = *reinterpret_cast<const uint16_t*>(row + 18 * x + 16);
+        af[3] = *reinterpret_cast<const uint16_t*>(row + 18 * (x + 8) + 16);
+      }
+#else
+      af[0] = (uint32_t)(x * 0x00010001u);
+#endif
+#ifndef W2X_L1MM_NO_MMA
+      // all 128 channels: 16 n-tiles, lanes 0-3 in the last one's d
+#pragma unroll
+      for (int nt = 15; nt >= 0; --nt)
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%10, %10, %10, %10};\n"
+            : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+            : "r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]),
+              "r"(bfr[nt][0]), "r"(bfr[nt][1]), "f"(0.0f));
+#else
+#pragma unroll
+      for (int k = 0; k < 4; ++k) d[k] = __uint_as_float(af[k]);
+#endif
+#ifndef W2X_L1MM_NO_OUT
+      // lanes 2q, 2q + 1 of pixels pl (d 0-1) and pl + 8 (d 2-3), rounded
+      // once, into the warp's planar [4][16] staging; then eight lanes
+      // store its four 32-byte runs
+      __syncwarp();   // the warp's last reads of its staging are done
+      if (q < 2) {
+        ws[2 * q * 16 + pl] = (uint16_t)bf_bits(d[0]);
+        ws[(2 * q + 1) * 16 + pl] = (uint16_t)bf_bits(d[1]);
+        ws[2 * q * 16 + pl + 8] = (uint16_t)bf_bits(d[2]);
+        ws[(2 * q + 1) * 16 + pl + 8] = (uint16_t)bf_bits(d[3]);
+      }
+      __syncwarp();
+      if (lane < 8)
+        dst[((lane >> 1) * tc + xs) / 8 + (lane & 1)] =
+            reinterpret_cast<const uint4*>(ws)[lane];
+#endif
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);   // the row is read
+  }
+#ifdef W2X_L1MM_NO_OUT
+  if (d[0] == -1.0f) ws[lane] = (uint16_t)d[1];   // keeps d live
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -676,6 +919,20 @@ cudaError_t launch_dyn(const void* fn, int blocks, size_t smem,
     if (err != cudaSuccess) return err;
   }
   return cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, smem, s);
+}
+
+// A launch's error, else cudaGetLastError() (which it also clears).
+int launched(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// The number of SMs of the current device (the persistent grids' size).
+cudaError_t sm_count(int& sms) {
+  int dev;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 // The compiled lane-inner map for (input lanes, output lanes, type, map),
@@ -798,53 +1055,74 @@ int w2x_probe_fetch_map(const void* const* ins, const long long* id, int nin,
                          cells * (a.out.rows / ROWS), smem, s, args);
 }
 
+// `sink`, where not null, holds one word a thread of the grid (the grid is
+// at most one CUDA block a cell): sink_words >= cells * RED_THREADS.
 int w2x_probe_fetch_reduce(const void* const* ins, const long long* id,
                            int nin, void* out, const long long* od, int op,
-                           int lg, void* stream) {
+                           int lg, void* sink, long long sink_words,
+                           void* stream) {
   RedArgs a;
   int cells;
   if (nin < 1 || nin > 4 || !make_out(out, od, a.out, cells) ||
-      a.out.dtype != DT_BF16 || (op == RED_LANE0_SUM && nin != 4))
+      a.out.dtype != DT_BF16 || (op != RED_CORNER_MAX && op != RED_LANE0_SUM) ||
+      (op == RED_LANE0_SUM && (nin != 4 || lg != 4)) ||
+      (sink != nullptr && (sink_words < (long long)cells * RED_THREADS ||
+                           reinterpret_cast<uintptr_t>(sink) % 4 != 0)))
     return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < nin; ++k)
-    if (!make_in(ins[k], id + 9 * k, a.in[k]) || a.in[k].rows < 8 ||
-        a.in[k].cols < 8)
+  for (int k = 0; k < nin; ++k) {
+    In& b = a.in[k];
+    if (!make_in(ins[k], id + 9 * k, b) || b.rows < 8 || b.cols < 8 ||
+        2 * b.cols * b.lanes > RED_SLOT ||
+        (op == RED_LANE0_SUM && b.lanes % 8 != 0))
       return (int)cudaErrorInvalidValue;
+    // rows of a slot, one a lane of the producer warp
+    a.rpc[k] = RED_SLOT / (2 * b.cols * b.lanes) < 32
+                   ? RED_SLOT / (2 * b.cols * b.lanes) : 32;
+  }
+  const In& A = a.in[0];
   if (op == RED_LANE0_SUM &&
-      (a.in[0].rows != a.out.rows || a.out.run % lg != 0 ||
-       log2_of(a.in[1].lanes) < 0 || log2_of(a.in[2].lanes) < 0 ||
-       log2_of(a.in[3].lanes) < 0))
+      (A.rows != a.out.rows || a.out.run != 4LL * A.cols ||
+       (long long)A.rows * A.cols * 8 > RED_STASH))
     return (int)cudaErrorInvalidValue;
+  int sms;
+  const cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return (int)err;
   a.nin = nin;
-  a.op = op;
-  a.lg = lg;
-  a.sink = nullptr;
-  const size_t smem = op == RED_LANE0_SUM
-      ? (size_t)ROWS * a.in[0].cols * a.in[0].lanes * 2 : 0;
-  const int blocks = op == RED_LANE0_SUM ? cells
-                                         : cells * (a.out.rows / ROWS);
+  a.cells = cells;
+  a.sink = static_cast<uint32_t*>(sink);
+  const bool sum = op == RED_LANE0_SUM;
+  const size_t smem =
+      sum ? red_ring(RED_SLOTS_SUM) + RED_STASH : red_ring(RED_SLOTS_MAX);
   void* args[] = {&a};
-  return (int)launch_dyn(reinterpret_cast<const void*>(probe_fetch_reduce),
-                         blocks, smem, static_cast<cudaStream_t>(stream),
-                         args);
+  const void* fn = sum ? (const void*)probe_fetch_reduce<RED_LANE0_SUM>
+                       : (const void*)probe_fetch_reduce<RED_CORNER_MAX>;
+  return launched(launch_dyn(fn, cells < sms ? cells : sms, smem,
+                             static_cast<cudaStream_t>(stream), args,
+                             RED_THREADS));
 }
 
+// w: pack_l1_mm's [2][128][8] bf16 (the (9, 128) weight, K padded to 16).
 int w2x_probe_l1_mm(const void* x, const long long* id, const void* w,
                     void* out, const long long* od, void* stream) {
-  In b;
-  Out o;
+  MmArgs a;
   int cells;
-  if (!make_in(x, id, b) || !make_out(out, od, o, cells) ||
-      o.dtype != DT_BF16 || b.lanes != 9 || o.run != 4LL * b.cols ||
-      b.rows != o.rows || reinterpret_cast<uintptr_t>(w) % 16 != 0)
+  if (!make_in(x, id, a.x) || !make_out(out, od, a.out, cells) ||
+      a.out.dtype != DT_BF16 || a.x.lanes != 9 || a.x.cols % 16 != 0 ||
+      a.out.run != 4LL * a.x.cols || a.x.rows != a.out.rows ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      mm_smem(a.x.cols) > 232448 || (long long)cells * a.out.rows > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)b.cols * 9 * 2 + 9 * 128 * 2 +
-                      (size_t)b.cols * 128 * 2;
-  const uint4* wv = static_cast<const uint4*>(w);
-  void* args[] = {&b, (void*)&wv, &o};
-  return (int)launch_dyn(reinterpret_cast<const void*>(probe_l1_mm),
-                         cells * o.rows, smem,
-                         static_cast<cudaStream_t>(stream), args);
+  int sms;
+  const cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return (int)err;
+  a.w = static_cast<const uint4*>(w);
+  a.units = cells * a.out.rows;
+  void* args[] = {&a};
+  return launched(launch_dyn(reinterpret_cast<const void*>(probe_l1_mm),
+                             a.units < sms ? a.units : sms,
+                             mm_smem(a.x.cols),
+                             static_cast<cudaStream_t>(stream), args,
+                             MM_THREADS));
 }
 
 const char* w2x_probe_error_string(int err) {

@@ -60,6 +60,7 @@ LAUNCHES = {"store": 0, "fetch_map": 0, "fetch_reduce": 0, "l1_mm": 0,
             "tap_mm": 0}
 SEED_BYTES = 8 * 128 * 4   # stage_time's (1, 8, 128) f32 seed block
 ROTATE_BYTES = 400e6       # timed launches cycle through buffers of 8x L2
+RED_THREADS = 288          # csrc/probe.cu's probe_fetch_reduce block
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "u8": torch.uint8}
 _DT_CODE = {"bf16": 0, "f32": 1, "u8": 2}
 _MAPS = {"copy": 0, "half": 1, "affine": 2, "zero": 3, "u8": 4,
@@ -487,7 +488,7 @@ _ARGTYPES = {
     "w2x_probe_fetch_map": [_PTRP, _LLP, _INT, _PTR, _LLP, _INT, _INT, _INT,
                             _INT, _INT, _PTR],
     "w2x_probe_fetch_reduce": [_PTRP, _LLP, _INT, _PTR, _LLP, _INT, _INT,
-                               _PTR],
+                               _PTR, ctypes.c_longlong, _PTR],
     "w2x_probe_l1_mm": [_PTR, _LLP, _PTR, _PTR, _LLP, _PTR],
 }
 _TMM_ARGTYPES = {"w2x_tap_mm": [_INT, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR]}
@@ -581,36 +582,58 @@ def _check(v: Variant, g: Grid, args: dict, out) -> torch.device:
     return devs.pop() if devs else None
 
 
-def prepare(v: Variant, g: Grid, args: dict, out=None, device=None):
-    """Check the arguments once -> (out, launch) for a CUDA run: launch()
-    enqueues the kernel on the device's current stream, with its C
-    arguments built here, and counts it. The timing loops call launch()
-    alone, so that they time the card and not these checks."""
+def pack_l1_mm(w: torch.Tensor) -> torch.Tensor:
+    """The (9, 128) weight as probe_l1_mm's resident B operand: K padded to
+    16 by zeros, [k8][n][8] (wp[k8, n, e] = w[8 k8 + e, n]), 4096 bytes."""
+    if tuple(w.shape) != (9, 128):
+        raise ValueError(f"w must be (9, 128), got {tuple(w.shape)}")
+    wk = torch.zeros((16, 128), dtype=w.dtype, device=w.device)
+    wk[:9] = w
+    return wk.reshape(2, 8, 128).permute(0, 2, 1).contiguous()
+
+
+def _c_args(v: Variant, g: Grid, args: dict, out: torch.Tensor, sink=None,
+            keep: "list | None" = None) -> tuple:
+    """The C entry's arguments but the stream; tensors made here (the
+    packed weight) are appended to `keep`."""
+    o = out_spec(v.out, g)
+    od, x = _out_desc(o, g), args.get("x")
+    bs = [block(k, v.array, g) for k in v.ins]
+    if v.kernel == "store":
+        seed = args.get("seed")
+        return (out.data_ptr(), od, None if seed is None else
+                seed.data_ptr(), 0 if seed is None else SEED_BYTES,
+                float(v.value))
+    if v.kernel == "l1_mm":
+        wp = pack_l1_mm(args["w"])
+        if keep is not None:
+            keep.append(wp)
+        return (x.data_ptr(), _in_desc(bs, g), wp.data_ptr(), out.data_ptr(),
+                od)
+    ins = (_PTR * len(bs))(*([x.data_ptr()] * len(bs)))
+    head = (ins, _in_desc(bs, g), len(bs), out.data_ptr(), od)
+    if v.kernel == "fetch_map":
+        return head + (int(o.form == "planar"), o.lg, o.xg, v.rep,
+                       _MAPS[v.op])
+    return head + (_REDUCTIONS[v.op], o.lg,
+                   None if sink is None else sink.data_ptr(),
+                   0 if sink is None else sink.numel())
+
+
+def _prepare(v: Variant, g: Grid, args: dict, out=None, device=None,
+             sink=None):
     dev = _check(v, g, args, out) or torch.device(device or "cuda")
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     o = out_spec(v.out, g)
     if out is None:
         out = torch.empty(o.shape(g), dtype=_DTYPES[o.dtype], device=dev)
-    od, x = _out_desc(o, g), args.get("x")
-    bs = [block(k, v.array, g) for k in v.ins]
-    if v.kernel == "store":
-        seed = args.get("seed")
-        cargs = (out.data_ptr(), od, None if seed is None else
-                 seed.data_ptr(), 0 if seed is None else SEED_BYTES,
-                 float(v.value))
-    elif v.kernel == "l1_mm":
-        cargs = (x.data_ptr(), _in_desc(bs, g), args["w"].data_ptr(),
-                 out.data_ptr(), od)
-    else:
-        ins = (_PTR * len(bs))(*([x.data_ptr()] * len(bs)))
-        cargs = (ins, _in_desc(bs, g), len(bs), out.data_ptr(), od) + (
-            (int(o.form == "planar"), o.lg, o.xg, v.rep, _MAPS[v.op])
-            if v.kernel == "fetch_map" else (_REDUCTIONS[v.op], o.lg))
+    keep = [out, args, sink]
+    cargs = _c_args(v, g, args, out, sink, keep)
     lib = _lib()
     fn = getattr(lib, f"w2x_probe_{v.kernel}")
 
-    def launch(_keep=(out, args)) -> None:   # the tensors outlive launch
+    def launch(_keep=keep) -> None:   # the tensors outlive launch
         # on the stream current at the call, so that a graph captures it
         err = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
         if err:
@@ -619,6 +642,47 @@ def prepare(v: Variant, g: Grid, args: dict, out=None, device=None):
         LAUNCHES[v.kernel] += 1
 
     return out, launch
+
+
+def prepare(v: Variant, g: Grid, args: dict, out=None, device=None):
+    """Check the arguments once -> (out, launch) for a CUDA run: launch()
+    enqueues the kernel on the device's current stream, with its C
+    arguments built here, and counts it. The timing loops call launch()
+    alone, so that they time the card and not these checks."""
+    return _prepare(v, g, args, out, device)
+
+
+def traffic_sum_plain(v: Variant, g: Grid, x: torch.Tensor) -> int:
+    """The sum mod 2^32 of every 32-bit word (two bf16, the lower address
+    in the low half) of every block a BlockSpec names, once per cell: what
+    probe_fetch_reduce's whole-block pass lands in shared memory. A block
+    dropped or read twice changes it (an xor would cancel a block read
+    twice)."""
+    total = 0
+    for k in v.ins:
+        b = block(k, v.array, g)
+        words = cells(x, b, g).reshape(-1, b.cols * b.lanes).view(
+            torch.int32)
+        total += int(words.to(torch.int64).sum())
+    return total % 2**32
+
+
+def traffic_sum(v: Variant, g: Grid, args: dict) -> int:
+    """probe_fetch_reduce's own traffic sum on make_inputs' arguments: the
+    kernel launched with a sink of one word a thread (counted in
+    LAUNCHES), the words summed mod 2^32. CPU tensors take
+    traffic_sum_plain."""
+    if v.kernel != "fetch_reduce":
+        raise ValueError(f"{v.name}: the traffic sum is probe_fetch_reduce's, "
+                         f"not {v.kernel}'s")
+    dev = _check(v, g, args, None)
+    if dev.type == "cpu":
+        return traffic_sum_plain(v, g, args["x"])
+    with torch.cuda.device(dev):
+        sink = torch.zeros(g.cells * RED_THREADS, dtype=torch.int32,
+                           device=dev)
+        _prepare(v, g, args, None, dev, sink)[1]()
+        return int(sink.to(torch.int64).sum()) % 2**32
 
 
 def run(v: Variant, g: Grid, args: dict, out=None,
@@ -725,7 +789,8 @@ def measure(v: Variant, g: Grid, dev: torch.device, iters: int = 100,
            "max_abs_err": err, "share_differ": share, "equal_ok": ok,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-           # l1_mm's products as FFMA, the way csrc/probe.cu does them
+           # l1_mm's products as FFMA, for comparison (the kernel does
+           # them on the tensor cores)
            "ffma_floor_ms": ops / PEAK_F32_FLOPS * 1e3 if ops else None}
     if dev.type == "cuda":
         sets = [args] + [{k: t.clone() for k, t in args.items()}
