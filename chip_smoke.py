@@ -163,9 +163,11 @@ Phases (any failure raises and exits non-zero):
      and probe_l1_mm's variants are printed against their bounds, beside
      the library call and their first kernels' times (PERF.md section 6).
  19. the truncation probes and the four-tap layer (phase19 below): tap_mm
-     (csrc/tmm.cu, wgmma) in both layouts against its plain version bit for
-     bit on inputs k / 16 (every f32 sum exact), at two small grids and the
-     JAX tool's, and the two layouts equal on the same values permuted;
+     (csrc/tmm.cu, wgmma, persistent) in both layouts against its plain
+     version bit for bit on inputs k / 16 (every f32 sum exact), at two
+     small grids, the JAX tool's and one (odd tr, two segments a cell row)
+     whose rows leave every block partial work units, and the two layouts
+     equal on the same values permuted;
      stack_scale_upto's forms out="whole" (upto 0..5), "lane0" (0) and
      "phase_taps" (6, also after the Winograd layer 6) against their plain
      versions, f32 <= 3e-5 and bf16 <= 2^-4, with their launches counted;
@@ -176,14 +178,19 @@ Phases (any failure raises and exits non-zero):
  20. the last three probe sites (phase20 below): csrc/mma.cu's zero-shift
      variants (ZS 1-3 of layers 2-6, all 15 built) against
      mma_layer_plain(zs) at (1,27,38), (2,37,53) and (1,5,300) to one bf16
-     ulp, layer 7 under each mask (csrc/stack.cu) against its plain version
+     ulp, layer 7 under each mask folded (csrc/l7.cu) against
+     l7_fold_plain(zs) (one bf16 ulp, f32 <= 3e-5) and per pixel
+     (csrc/stack.cu, fold=False, the yardstick) against last_layer_plain(zs)
      (f32 <= 3e-5, bf16 <= 2^-4), the two-accumulator variants (PP) bit for
      bit against the one-accumulator kernel at the scale512 layer shapes;
-     the variants alone timed in turns at 4 x 512^2; stack_scale_pp,
-     shift_stack and l4_shift against their plain versions at 4 x 512^2
-     (bf16 <= 2^-4), stack_scale_pp against stack_scale bit for bit; then
-     tools.accpp_probe, shift_cost_probe and l4_shift_probe with every launch
-     count read around each, and stack_scale's counts checked unchanged.
+     the variants alone timed in turns at 4 x 512^2, layer 7 under each mask
+     in turns (per pixel, fold, fold, per pixel) beside cuDNN's layer 7;
+     stack_scale_pp, shift_stack and l4_shift against their plain versions
+     at 4 x 512^2 (bf16 <= 2^-4), stack_scale_pp and shift_stack's base
+     against stack_scale bit for bit; then tools.accpp_probe,
+     shift_cost_probe (every mode's layer 7 on the fold: 84 fold launches,
+     none per pixel) and l4_shift_probe with every launch count read around
+     each, and stack_scale's counts checked unchanged.
  21. layer 7 folded on the tensor cores (phase21 below; csrc/l7.cu through
      stack.last_layer) against its plain version in its three forms at
      (1,27,38), (2,37,53), (1,5,300) and the scale512 and noise256 layer-7
@@ -780,10 +787,12 @@ def phase19(dev: torch.device, sp16) -> list:
         fused_strip_probe, k1_forensics, l14_probe, tmm_probe)
     from waifu2x_torch.tools.layer_time_probe import bound_ms
 
-    # tap_mm, both layouts, bit for bit, and chlane == poslane permuted
+    # tap_mm, both layouts, bit for bit, and chlane == poslane permuted; the
+    # fourth shape's 296 rows of work (odd tr, two segments a cell row) leave
+    # every block of the persistent grid partial work units
     tmm_err = 0.0
     for b, ny, nx, tr, tc in ((2, 2, 2, 8, 128), (1, 3, 1, 64, 256),
-                              (16, 8, 4, 64, 128)):
+                              (16, 8, 4, 64, 128), (2, 2, 1, 37, 256)):
         x, w = probe.tmm_inputs(
             probe.tmm_input_shape("chlane", b, ny, nx, tr, tc), 0, dev)
         outs = {}
@@ -933,8 +942,10 @@ def phase19(dev: torch.device, sp16) -> list:
         r = rows[f"tmm_probe {layout}"][0]
         out_rows.append({
             "name": f"tap_mm, four-tap 128 -> 128 layer, {layout} (wgmma, "
-                    f"{'B' if layout == 'poslane' else 'A'} the activation, "
-                    f"{'MN' if layout == 'poslane' else 'K'}-major)",
+                    f"the weights resident in registers as A, B the "
+                    f"activation K-major, a TMA-staged row a slot"
+                    + (", transposed there in shared memory"
+                       if layout == "poslane" else "") + "; persistent)",
             "route": "cuda", "source": "waifu2x_torch/csrc/tmm.cu",
             "replaces": probe.TMM_SITES[layout],
             "launches": tmm_launches[layout], "max_abs_err": tmm_err,
@@ -987,9 +998,11 @@ def phase20(dev: torch.device) -> list:
     """20. The last three probe sites (tools/accpp_probe.py:127,
     shift_cost_probe.py:156, l4_shift_probe.py:130): csrc/mma.cu's
     zero-shift (ZS) and two-accumulator (PP) variants of the tensor-core
-    layer and csrc/stack.cu's zero-shift layer 7 against their plain
-    versions, the three probe stacks against theirs at the JAX grid, then
-    the three tools with their launches counted, and the main path's counts
+    layer, layer 7 under each zero-shift mask folded (csrc/l7.cu, against
+    l7_fold_plain(zs)) and per pixel (csrc/stack.cu, the yardstick, against
+    last_layer_plain(zs)), the three probe stacks against theirs at the JAX
+    grid (shift_stack's base equal to stack_scale bit for bit), then the
+    three tools with their launches counted, and the main path's counts
     checked unchanged. Returns the kernel table's rows."""
     from waifu2x_torch.models.srcnn import init_params
     from waifu2x_torch.ops import probe, stack
@@ -1028,23 +1041,53 @@ def phase20(dev: torch.device) -> list:
     log(f"phase 20 ZS layers 2-6, zs 1-3, at (1,27,38), (2,37,53), "
         f"(1,5,300): max|kernel - plain| {zs_err:.3e} (bar: one bf16 ulp)")
 
-    # layer 7 under each mask against its plain version, f32 and bf16
+    # layer 7 under each mask against its plain version, f32 and bf16: the
+    # fold (csrc/l7.cu) against l7_fold_plain(zs), one bf16 ulp or 3e-5 in
+    # f32; the per-pixel yardstick (fold=False) against last_layer_plain(zs)
     l7_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for n, hl, wl in ((2, 19, 26), (1, 3, 150)):
+    fold_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    zs_fold_checks = pixel_launches = 0
+    for n, hl, wl in ((2, 19, 26), (1, 3, 150), (2, 64, 63)):
         x6 = torch.rand((n, 2 * hl + 2, 2 * wl + 2, 128), generator=gen)
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             x = x6.to(dev, dt)
             for zs in range(4):
-                before = stack.L6_LAUNCHES["last_zs"]
+                stack.reset_launches()
+                got = stack.last_layer(x, sp_r[dt], zs)
+                torch.cuda.synchronize()
+                kernel = "fold" if dt == torch.bfloat16 else "fold_f32"
+                expect_l7(stack, f"layer 7 fold zs {zs} {dt}", **{kernel: 1})
+                if stack.L6_LAUNCHES["last_zs"]:
+                    raise AssertionError(f"layer 7 fold zs {zs}: launches "
+                                         f"{stack.L6_LAUNCHES}")
+                y32 = stack.l7_fold_plain(x, stack._w7f(sp_r[dt], x),
+                                          sp_r[dt][6][1], zs)
+                if dt == torch.bfloat16:
+                    err, _ = check_mma_layer(
+                        f"layer 7 fold zs {zs} {(n, hl, wl)}", got,
+                        y32.to(dt))
+                else:
+                    err = (got - y32).abs().max().item()
+                    check_max_err(f"layer 7 fold zs {zs} {(n, hl, wl)} f32",
+                                  err, F32_TOL)
+                fold_err[dt] = max(fold_err[dt], err)
+                zs_fold_checks += 1
+                stack.reset_launches()
                 got = stack.last_layer(x, sp_r[dt], zs, fold=False)
-                if stack.L6_LAUNCHES["last_zs"] != before + (zs > 0):
+                expect_l7(stack, f"layer 7 zs {zs} per pixel", pixel=1)
+                pixel_launches += 1
+                if stack.L6_LAUNCHES["last_zs"] != (zs > 0):
                     raise AssertionError(f"layer 7 zs {zs}: launches "
                                          f"{stack.L6_LAUNCHES}")
                 ref = stack.last_layer_plain(x, *sp_r[dt][6], zs)
                 err = (got.float() - ref.float()).abs().max().item()
                 check_max_err(f"layer 7 zs {zs} {dt}", err, tol)
                 l7_err[dt] = max(l7_err[dt], err)
-    log(f"phase 20 layer 7 zs 0-3: max|kernel - plain| f32 "
+    stack.reset_launches()
+    log(f"phase 20 layer 7 zs 0-3 at (2,19,26), (1,3,150), (2,64,63): fold "
+        f"max|kernel - l7_fold_plain(zs)| f32 {fold_err[torch.float32]:.2e} "
+        f"(bar 3e-5), bf16 {fold_err[torch.bfloat16]:.2e} (bar one bf16 "
+        f"ulp); per pixel (fold=False) max|kernel - plain| f32 "
         f"{l7_err[torch.float32]:.2e}, bf16 {l7_err[torch.bfloat16]:.2e}")
 
     # each PP layer bit-equal to the one-accumulator kernel, scale512 shapes
@@ -1108,15 +1151,31 @@ def phase20(dev: torch.device) -> list:
     del xs
     x6 = torch.rand((n4, 1026, 1026, 128), device=dev,
                     generator=dev_gen).to(torch.bfloat16)
-    l7_ms = {zs: timed_ms(lambda: stack.last_layer(x6, sp0, zs, fold=False))
-             for zs in (0, 1, 2, 3)}
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    stack.last_layer_plain(x6, *sp0[6], 3)
-    torch.cuda.synchronize()
-    l7_plain_ms = (time.perf_counter() - t1) * 1e3
+    # layer 7 under each mask in turns: per pixel, fold, fold, per pixel
+    l7_turns = {zs: {False: [], True: []} for zs in range(4)}
+    stack.reset_launches()
+    for zs in range(4):
+        for flag in (False, True, True, False):
+            l7_turns[zs][flag].append(timed_ms(
+                lambda: stack.last_layer(x6, sp0, zs, fold=flag)))
+    pixel_launches += stack.L7_LAUNCHES["pixel"]
+    stack.reset_launches()
+    l7_ms = {zs: sum(t[False]) / 2 for zs, t in l7_turns.items()}
+    fold_ms = {zs: sum(t[True]) / 2 for zs, t in l7_turns.items()}
+    l7_plain_ms = {}
+    for name, plain in (("pixel", lambda: stack.last_layer_plain(
+            x6, *sp0[6], 3)), ("fold", lambda: stack.l7_fold_plain(
+                x6, sp0.w7f, sp0[6][1], 3))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        l7_plain_ms[name] = (time.perf_counter() - t1) * 1e3
+    l7_library_ms = library_l7_ms(x6, sp0)
     l7_bytes = x6.numel() * 2 + n4 * 512 * 512 * 4 * 2 + 128 * 9 * 2 + 4
     l7_ops = 2 * 9 * 128 * n4 * 1024 * 1024
+    # the fold's operations: the [n, 513, 513, 512] x [512, 16] product
+    fold_ops = 2 * 512 * 16 * n4 * 513 * 513
     del x6
     torch.cuda.empty_cache()
     mid4 = mid_bounds(stack, n4, 512, 512)
@@ -1130,9 +1189,20 @@ def phase20(dev: torch.device) -> list:
             + ")" for name, v in layer_ms.items())
         + f"; bound {mid4_ms:.3f} ms; cuDNN bf16 {mid4_library:.3f} ms; "
         f"plain (host clock) one {plain_ms['one']:.1f} ms, zs3 "
-        f"{plain_ms['zs3']:.1f} ms; layer 7 zs 0/1/2/3 "
-        + " / ".join(f"{l7_ms[z]:.3f}" for z in range(4))
-        + f" ms, plain zs3 {l7_plain_ms:.1f} ms")
+        f"{plain_ms['zs3']:.1f} ms")
+    log(f"timing B = 4, 512^2, layer 7 alone under zs 0/1/2/3, bf16, on "
+        f"{card_name()}, in turns (per pixel, fold, fold, per pixel): fold "
+        + " / ".join(f"{fold_ms[z]:.3f}" for z in range(4))
+        + " ms (turns " + "; ".join(
+            " ".join(f"{t:.3f}" for t in l7_turns[z][True]) for z in range(4))
+        + "), per pixel " + " / ".join(f"{l7_ms[z]:.3f}" for z in range(4))
+        + " ms (turns " + "; ".join(
+            " ".join(f"{t:.3f}" for t in l7_turns[z][False])
+            for z in range(4))
+        + f"); bound {max(l7_bytes / PEAK_BYTES, fold_ops / PEAK_BF16_FLOPS) * 1e3:.3f} ms; cuDNN "
+        f"layer 7 (zs 0) {l7_library_ms:.3f} ms; plain zs3 (host clock) "
+        f"fold {l7_plain_ms['fold']:.1f} ms, per pixel "
+        f"{l7_plain_ms['pixel']:.1f} ms")
 
     # the three probe stacks against their plain versions at the JAX grid
     ylow = torch.rand((4, 512, 512), generator=torch.Generator().manual_seed(
@@ -1142,7 +1212,7 @@ def phase20(dev: torch.device) -> list:
               lambda: probe.stack_scale_pp_plain(ylow, sp0))]
     cases += [(m, lambda f=f: probe.shift_stack(ylow, sp0, *f),
                lambda f=f: probe.shift_stack_plain(ylow, sp0, *f))
-              for m, f in probe.SHIFT_MODES.items() if m != "base"]
+              for m, f in probe.SHIFT_MODES.items()]
     cases += [(m, lambda m=m: probe.l4_shift(ylow, sp0, m),
                lambda m=m: probe.l4_shift_plain(ylow, sp0, m))
               for m in ("l4", "zshift", "zdx")]
@@ -1161,6 +1231,9 @@ def phase20(dev: torch.device) -> list:
     if not torch.equal(probe.stack_scale_pp(ylow, sp0),
                        stack.stack_scale(ylow, sp0)):
         raise AssertionError("stack_scale_pp != stack_scale")
+    if not torch.equal(probe.shift_stack(ylow, sp0, 1, 1),
+                       stack.stack_scale(ylow, sp0)):
+        raise AssertionError("shift_stack base != stack_scale")
     xpad = F.pad(ylow.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, None],
                  (7,) * 4, mode="replicate")[:, 0]
     stack_library_ms = library_stack_ms(xpad, sp0)
@@ -1168,7 +1241,8 @@ def phase20(dev: torch.device) -> list:
     torch.cuda.empty_cache()
     log("phase 20 probe stacks at 4 x 512^2, bf16: max|kernel - plain| "
         + ", ".join(f"{k} {v:.2e}" for k, v in twin_err.items())
-        + " (bar 2^-4); stack_scale_pp == stack_scale bit for bit")
+        + " (bar 2^-4); stack_scale_pp and shift_stack base == stack_scale "
+        "bit for bit")
 
     # the three tools, the launches read around each (a warm-up and 20
     # captured calls a mode; accpp_probe makes one more call a mode for its
@@ -1187,6 +1261,7 @@ def phase20(dev: torch.device) -> list:
         counts[key] = {"stack": stack.LAUNCHES, **stack.KERNEL_LAUNCHES,
                        **stack.MID_LAUNCHES,
                        "last_zs": stack.L6_LAUNCHES["last_zs"],
+                       **{f"l7_{k}": v for k, v in stack.L7_LAUNCHES.items()},
                        "probe_kernels": sum(probe.LAUNCHES.values())}
     calls = 21
     want_l4 = {"stack": 0, "mma": 0, "mma_zs": 0}
@@ -1196,13 +1271,17 @@ def phase20(dev: torch.device) -> list:
         want_l4["mma"] += calls * (upto - 1 - (zs4 > 0))
         want_l4["mma_zs"] += calls * (zs4 > 0)
     n_zs = len(shift_cost_probe.MODES) - 1
+    # every shift_cost mode ends in the fold (base too): 84 fold launches,
+    # none per pixel
     want = {
         "accpp_probe": {"stack": 3 * (calls + 1) * 7, "scale": 2 * 22 * 7,
                         "probe": 22 * 7, "mma": 2 * 22 * 5,
                         "mma_pp": 22 * 5, "mma_zs": 0, "last_zs": 0},
         "shift_cost_probe": {"stack": 4 * calls * 7, "probe": 4 * calls * 7,
                              "mma": calls * 5, "mma_zs": n_zs * calls * 5,
-                             "mma_pp": 0, "last_zs": n_zs * calls},
+                             "mma_pp": 0, "last_zs": 0,
+                             "l7_fold": len(shift_cost_probe.MODES) * calls,
+                             "l7_pixel": 0},
         "l4_shift_probe": {**want_l4, "probe": want_l4["stack"],
                            "mma_pp": 0, "last_zs": 0}}
     for key, w in want.items():
@@ -1275,17 +1354,41 @@ def phase20(dev: torch.device) -> list:
         "stack_library_ms": stack_library_ms,
         "stack_bound_ms": stack_bound4["bound_ms"],
     }, {
-        "name": "conv3x3_bias_leaky_s2d ZS, layer 7 under a zero-shift mask",
+        "name": "l7_fold ZS, layer 7 under a zero-shift mask, folded "
+                "(wgmma m64n16k16 on TMA-staged tiles; the shift-sum reads "
+                "a zeroed axis' own cell)",
+        "route": "cuda", "source": "waifu2x_torch/csrc/l7.cu",
+        "replaces": "tools/shift_cost_probe.py:156",
+        "launches": counts["shift_cost_probe"]["l7_fold"],
+        "max_abs_err": max(fold_err.values()),
+        "max_abs_err_f32": fold_err[torch.float32],
+        "checks": zs_fold_checks,
+        "ms": fold_ms[3], "zs_ms": [fold_ms[z] for z in range(4)],
+        "turns_ms": {z: l7_turns[z][True] for z in range(4)},
+        "per_pixel_zs_ms": [l7_ms[z] for z in range(4)],
+        "plain_ms": l7_plain_ms["fold"],
+        "bound_ms": max(l7_bytes / PEAK_BYTES,
+                        fold_ops / PEAK_BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if l7_bytes / PEAK_BYTES
+                     >= fold_ops / PEAK_BF16_FLOPS else "operations"),
+        "library_ms": l7_library_ms,
+        "library_is": "cuDNN bf16 conv 128 -> 1 + leaky, zs 0's function",
+    }, {
+        "name": "conv3x3_bias_leaky_s2d ZS, layer 7 under a zero-shift mask "
+                "per pixel (FFMA; fold=False, the yardstick)",
         "route": "cuda", "source": "waifu2x_torch/csrc/stack.cu",
         "replaces": "tools/shift_cost_probe.py:156",
-        "launches": counts["shift_cost_probe"]["last_zs"],
+        "launches": pixel_launches,
+        "launches_of": "phase 20's checks and timed turns, counted as they "
+                       "were made; no tool path takes it",
         "max_abs_err": max(l7_err.values()),
         "ms": l7_ms[3], "zs_ms": [l7_ms[z] for z in range(4)],
-        "plain_ms": l7_plain_ms,
+        "turns_ms": {z: l7_turns[z][False] for z in range(4)},
+        "plain_ms": l7_plain_ms["pixel"],
         "bound_ms": max(l7_bytes / PEAK_BYTES, l7_ops / PEAK_BF16_FLOPS) * 1e3,
         "bound_by": ("bytes" if l7_bytes / PEAK_BYTES
                      >= l7_ops / PEAK_BF16_FLOPS else "operations"),
-        "library_ms": None,
+        "library_ms": l7_library_ms,
     }]
 
 

@@ -236,6 +236,33 @@ def test_u8_form_is_the_colour_map_of_the_f32_y(sp16):
     assert not got[..., 12:].any()
 
 
+@pytest.mark.parametrize("zs", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_masked_fold_is_the_per_pixel_function(dtype, zs):
+    """l7_fold_plain under each zero-shift mask against last_layer_plain
+    under the same mask (the per-pixel 9-tap sum with r(p, k) on a zeroed
+    axis), bit for bit on exact inputs: x6 and w7 in sixteenths, the bias
+    in 256ths, so every f32 sum is exact in either order; the masks give
+    four different functions."""
+    rng = np.random.default_rng(30 + zs)
+    x6 = torch.from_numpy(rng.integers(0, 16, (2, 12, 16, 128)) / 16).to(
+        dtype)
+    w7 = torch.from_numpy((rng.integers(0, 16, (128, 9, 1)) - 8) / 16).to(
+        torch.float32)
+    b7 = torch.tensor([-37 / 256], dtype=torch.float32)
+    w7f = torch.from_numpy(s2d.pack_l7_fold(
+        w7.permute(1, 0, 2).reshape(3, 3, 128, 1).numpy())).to(dtype)
+    fold = stack.l7_fold_plain(x6, w7f, b7, zs)
+    per_pixel = stack._last_layer_f32(x6, w7.to(dtype), b7, zs)
+    assert fold.shape == (2, 5, 7, 4) and fold.dtype == torch.float32
+    assert torch.equal(fold, per_pixel)
+    assert torch.equal(fold.to(dtype),
+                       stack.last_layer_plain(x6, w7.to(dtype), b7, zs))
+    others = [stack.l7_fold_plain(x6, w7f, b7, z) for z in range(4) if z != zs]
+    assert all(not torch.equal(fold, o) for o in others)
+
+
 def test_fold_false_is_the_ffma_kernels_plain_version(sp16):
     """last_layer(fold=False) is the FFMA kernels' function: the per-pixel
     sum for s2d, the same f32 Y through last_out for dense and u8."""
@@ -260,10 +287,11 @@ def test_last_layer_refuses_what_it_does_not_take(sp16, sp32):
         stack.last_layer(x6, sp16, out="planar")
     with pytest.raises(ValueError, match="uvp"):
         stack.last_layer(x6, sp16, out="u8")
-    with pytest.raises(ValueError, match="takes no zero-shift mask"):
-        stack.last_layer(x6.float(), sp32, zs=1, fold=True)
-    with pytest.raises(ValueError, match="takes no zero-shift mask"):
-        stack.last_layer(x6, sp16, zs=2, fold=True)
+    with pytest.raises(ValueError, match="zs"):
+        stack.last_layer(x6.float(), sp32, zs=1, out="u8",
+                         uvp=torch.zeros((1, 3, 4, 8)))
+    with pytest.raises(ValueError, match="zs"):
+        stack.last_layer(x6, sp16, zs=4)
     with pytest.raises(ValueError, match="w7f"):
         stack.last_layer(x6, stack.StackParams(list(sp16)))
     with pytest.raises(ValueError, match="w7f"):
@@ -274,13 +302,16 @@ def test_last_layer_refuses_what_it_does_not_take(sp16, sp32):
 # --- the dispatch ------------------------------------------------------------
 
 def test_fold_is_chosen_for_bf16_without_a_mask():
-    """The fold is the default on every plane with no zero-shift mask, in
-    both storage types (the choice reads no dtype); fold=False asks for the
-    FFMA kernels."""
+    """The fold is the default on every plane, with or without a zero-shift
+    mask, in both storage types (the choice reads no dtype); fold=False asks
+    for the FFMA kernels, under a mask too."""
     assert stack.l7_fold_chosen()
-    assert not stack.l7_fold_chosen(zs=3)
+    assert stack.l7_fold_chosen(zs=3)
     assert not stack.l7_fold_chosen(fold=False)
-    assert stack.l7_fold_chosen(fold=True)
+    assert not stack.l7_fold_chosen(zs=2, fold=False)
+    assert stack.l7_fold_chosen(zs=1, fold=True)
+    with pytest.raises(ValueError, match="zs"):
+        stack.l7_fold_chosen(zs=4)
 
 
 class _FakeLib:
@@ -327,13 +358,14 @@ def test_layer7_dispatch(sp16, sp32, dtype, out_mode, fold, entry, kernel):
     args = calls[0][1]
     if kernel.startswith("fold"):
         # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
-        #  tr, tc, ny, nx, stream): one plane an image, no tiling
+        #  tr, tc, ny, nx, zs, stream): one plane an image, no tiling, no
+        #  mask
         bf16 = dtype == torch.bfloat16
         assert args[0] == int(bf16)
         assert args[2] == (sp.w7f if bf16 else sp[6][0]).data_ptr()
         assert args[3] == sp[6][1].data_ptr()
         assert args[5:9] == (3, 20, 36, out_mode)
-        assert args[11:] == (32, 0, 0, 0, 0, 0)
+        assert args[11:] == (32, 0, 0, 0, 0, 0, 0)
     stack.reset_launches()
     assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 0,
                                  "pixel": 0}
@@ -370,14 +402,22 @@ def test_cpu_calls_launch_nothing(sp16, rng):
 
 
 def test_shift_probe_keeps_one_layer7_kernel_across_modes(sp16, rng):
-    """shift_stack runs layer 7 per pixel in every mode (base too), so its
-    modes differ in the masks alone; stack_scale_pp ends in the fold, equal
-    to stack_scale's plain version with the packed weights."""
+    """shift_stack runs layer 7 folded in every mode (the JAX tool's
+    structure), under each mode's mask, so its modes differ in the masks
+    alone and base is stack_scale's function; stack_scale_pp ends in the
+    fold, equal to stack_scale's plain version with the packed weights."""
     y = torch.from_numpy(rng.random((1, 8, 10), dtype=np.float32)).to(
         torch.bfloat16)
     x6 = probe._variant_layers_plain(y, sp16, 6, (0,) * 7)[-1]
     assert torch.equal(probe.shift_stack(y, sp16, 1, 1),
-                       stack.last_layer_plain(x6, *sp16[6]))
+                       stack.l7_fold_plain(x6, sp16.w7f, sp16[6][1])
+                       .to(torch.bfloat16))
+    for mode, (fx, fy) in probe.SHIFT_MODES.items():
+        zs = probe.shift_zs(fx, fy)
+        x6z = probe._variant_layers_plain(y, sp16, 6, (0,) + (zs,) * 6)[-1]
+        assert torch.equal(probe.shift_stack(y, sp16, fx, fy),
+                           stack.l7_fold_plain(x6z, sp16.w7f, sp16[6][1], zs)
+                           .to(torch.bfloat16)), mode
     fold = stack.l7_fold_plain(x6, sp16.w7f, sp16[6][1])
     assert torch.equal(probe.stack_scale_pp(y, sp16),
                        fold.to(torch.bfloat16))

@@ -275,8 +275,9 @@ def test_f32_stack_dispatch(sp32, fake_card, kind, form, upto, l7_entry,
     assert stack.L7_LAUNCHES == want
     if fn == "w2x_l7_fold":
         # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
-        #  tr, tc, ny, nx, stream)
+        #  tr, tc, ny, nx, zs, stream)
         assert args[0] == 0 and args[2] == sp32[6][0].data_ptr()
+        assert args[16] == 0
         hl, wl = (h // 2, w // 2) if kind == "noise" else (h, w)
         assert args[5:9] == (n, hl, wl, stack._OUT_MODES[kind])
         assert args[12:16] == ((8, 16, 3, 3) if form == "i8" else (0,) * 4)
@@ -284,14 +285,64 @@ def test_f32_stack_dispatch(sp32, fake_card, kind, form, upto, l7_entry,
 
 @pytest.mark.parametrize("zs", [1, 2, 3])
 def test_f32_zero_shift_layer7_stays_per_pixel(sp32, fake_card, zs):
-    """A zero-shift mask keeps layer 7 on stack.cu's per-pixel kernel."""
+    """With fold=False a zero-shift mask keeps layer 7 on stack.cu's
+    per-pixel kernel (the yardstick the masked fold is timed against),
+    counted under L7_LAUNCHES["pixel"] and L6_LAUNCHES["last_zs"]."""
+    stack.reset_launches()
     x6 = torch.zeros((1, 10, 14, 128))
     run = stack._Launcher(None, x6, None)
     y = torch.empty((1, 4, 6, 4))
-    run.layer(6, False, x6, sp32, y, 1, 4, 6, zs=zs)
+    run.layer(6, False, x6, sp32, y, 1, 4, 6, zs=zs, fold=False)
     assert [fn for fn, _ in fake_card] == ["w2x_stack_last_zs"]
+    assert fake_card[0][1][:2] == (0, zs)
     assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 0,
                                  "pixel": 1}
+    assert stack.L6_LAUNCHES["last_zs"] == 1
+    stack.reset_launches()
+
+
+@pytest.mark.parametrize("zs", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_zero_shift_layer7_takes_the_fold(params_np, fake_card, dtype, zs):
+    """By default a zero-shift mask takes the fold (w2x_l7_fold with the
+    mask, in both types: bf16 with w7f, f32 with w7's taps), counted under
+    L7_LAUNCHES["fold"] or ["fold_f32"] and not under L6_LAUNCHES
+    ["last_zs"]."""
+    stack.reset_launches()
+    sp = stack.prep_params(params_from_numpy(params_np), dtype, "cpu")
+    x6 = torch.zeros((1, 10, 14, 128), dtype=dtype)
+    run = stack._Launcher(None, x6, None)
+    y = torch.empty((1, 4, 6, 4), dtype=dtype)
+    run.layer(6, False, x6, sp, y, 1, 4, 6, zs=zs)
+    assert [fn for fn, _ in fake_card] == ["w2x_l7_fold"]
+    args = fake_card[0][1]
+    bf16 = dtype == torch.bfloat16
+    # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
+    #  tr, tc, ny, nx, zs, stream)
+    assert args[0] == int(bf16)
+    assert args[2] == (sp.w7f if bf16 else sp[6][0]).data_ptr()
+    assert args[5:9] == (1, 4, 6, 0) and args[12:] == (0, 0, 0, 0, zs, 0)
+    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16),
+                                 "cell": 0, "pixel": 0}
+    assert stack.L6_LAUNCHES["last_zs"] == 0
+    stack.reset_launches()
+
+
+@pytest.mark.parametrize("form", ["dense", "u8", "tiles"])
+def test_masked_fold_refuses_other_forms(sp32, fake_card, form):
+    """The fold takes a mask on a plane in s2d layout only: with the dense
+    or u8 output, or on the int8 layer's tiles, it raises and launches
+    nothing."""
+    x6 = torch.zeros((1, 10, 14, 128))
+    run = stack._Launcher(None, x6, None)
+    y = torch.empty(1)
+    kw = {"dense": {"out_mode": stack._OUT_DENSE, "tc": 32},
+          "u8": {"out_mode": stack._OUT_U8, "uvp": torch.zeros(1)},
+          "tiles": {"tiling": (4, 6, 1, 1)}}[form]
+    with pytest.raises(ValueError, match="zero-shift mask"):
+        run.l7_fold(x6, sp32, y, 1, 4, 6, zs=2, **kw)
+    assert not fake_card
 
 
 @pytest.mark.parametrize("out", ["s2d", "dense", "u8"])

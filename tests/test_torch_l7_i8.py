@@ -287,12 +287,12 @@ def test_i8_stack_dispatch_reaches_the_fold(sps, fake_card, dtype, kind):
                                  "cell": 0, "pixel": 0}
     args = fake_card[-1][1]
     # (bf16, x6t, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
-    #  tr, tc, ny, nx, stream)
+    #  tr, tc, ny, nx, zs, stream)
     assert args[0] == int(bf16)
     assert args[2] == (sp.w7f if bf16 else sp[6][0]).data_ptr()
     assert args[5:9] == (n, hl, wl, stack._OUT_MODES[kind])
     assert args[11] == (32 if kind == "dense" else 0)
-    assert args[12:] == (4, 16, -(-hl // 4), -(-wl // 16), 0)
+    assert args[12:] == (4, 16, -(-hl // 4), -(-wl // 16), 0, 0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)

@@ -618,18 +618,20 @@ def test_unbuilt_variants_are_refused(sp32, zs, pp):
 
 
 def test_ctypes_signatures_of_the_new_entries():
-    """The two new C entries' argtypes against their C declarations."""
+    """The C entries of the variants (and the fold, which takes the mask
+    next to last) against their argtypes."""
     csrc = ROOT / "waifu2x_torch" / "csrc"
     decl = {}
-    for name in ("mma.cu", "stack.cu"):
+    for name in ("mma.cu", "stack.cu", "l7.cu"):
         for fn, args in re.findall(r"\bint (w2x_\w+)\(([^)]*)\)",
                                    (csrc / name).read_text()):
             decl[fn] = [a.split()[-1].lstrip("*") for a in args.split(",")]
     for lib, fn in (("mma", "w2x_mma_layer_variant"),
-                    ("stack", "w2x_stack_last_zs")):
+                    ("stack", "w2x_stack_last_zs"), ("l7", "w2x_l7_fold")):
         assert len(stack._ARGTYPES[lib][fn]) == len(decl[fn])
     assert decl["w2x_mma_layer_variant"][:4] == ["bf16", "layer", "zs", "pp"]
     assert decl["w2x_stack_last_zs"][:2] == ["bf16", "zs"]
+    assert decl["w2x_l7_fold"][-2:] == ["zs", "stream"]
 
 
 class _FakeLib:
@@ -653,10 +655,10 @@ def _fake_launcher(calls, bf16=True):
                                    (0, True)])
 def test_variant_launch_routing(sp16, zs, pp):
     """A whole stack under a variant: layer 1 on csrc/l1.cu, layers 2-6
-    on w2x_mma_layer_variant with the variant's plan, layer 7 under zs on
-    w2x_stack_last_zs (under pp, with no mask, folded on w2x_l7_fold as in
-    stack_scale), each counted where its kernel is: MID_LAUNCHES "mma_zs" /
-    "mma_pp", L6_LAUNCHES "last_zs", L7_LAUNCHES, and 7 launches of kind
+    on w2x_mma_layer_variant with the variant's plan, layer 7 folded on
+    w2x_l7_fold as in stack_scale (under zs with the mask), each counted
+    where its kernel is: MID_LAUNCHES "mma_zs" / "mma_pp", L7_LAUNCHES
+    "fold" (none under L6_LAUNCHES "last_zs"), and 7 launches of kind
     "probe"."""
     stack.reset_launches()
     calls = []
@@ -667,31 +669,33 @@ def test_variant_launch_routing(sp16, zs, pp):
         run.layer(k, False, x, sp16, x, n, hl, wl, zs=zs if k else 0,
                   pp=pp and 1 <= k <= 5)
     names = [fn for fn, _ in calls]
-    assert names == (["w2x_l1"] + ["w2x_mma_layer_variant"] * 5
-                     + ["w2x_stack_last_zs" if zs else "w2x_l7_fold"])
-    assert stack.L7_LAUNCHES == {"fold": int(not zs), "fold_f32": 0,
-                                 "cell": 0, "pixel": int(bool(zs))}
+    assert names == ["w2x_l1"] + ["w2x_mma_layer_variant"] * 5 + [
+        "w2x_l7_fold"]
+    assert stack.L7_LAUNCHES == {"fold": 1, "fold_f32": 0, "cell": 0,
+                                 "pixel": 0}
     for k, (_, args) in list(enumerate(calls))[1:6]:
         plan = stack.mma_plan(*stack.WIDTHS[k], zs, pp)
         # (bf16, layer, zs, pp, x, wp, b, y, n, hin, win, smem_bytes, stream)
         assert args[:4] == (1, k, zs, int(pp))
         assert args[8:] == (n, 2 * hl + 14 - 2 * k, 2 * wl + 14 - 2 * k,
                             plan.smem_bytes, 0)
-    if zs:
-        assert calls[6][1][:2] == (1, zs) and calls[6][1][6:] == (n, hl, wl,
-                                                                  0)
+    # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
+    #  tr, tc, ny, nx, zs, stream)
+    assert calls[6][1][0] == 1 and calls[6][1][5:9] == (n, hl, wl, 0)
+    assert calls[6][1][16:] == (zs, 0)
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["probe"] == 7
     assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
                                   "mma_zs": 0 if pp else 5,
                                   "mma_pp": 5 if pp else 0, "mma_tf32": 0}
-    assert stack.L6_LAUNCHES["last_zs"] == (1 if zs else 0)
+    assert stack.L6_LAUNCHES["last_zs"] == 0
     assert stack.L6_LAUNCHES["direct"] == 1
     stack.reset_launches()
 
 
 def test_f32_variants_are_refused(sp32):
     """f32 layers 2-6 are FFMA: no variant is launched for them, nor for
-    layer 1 or a two-accumulator layer 7; layer 7 under a mask takes f32."""
+    layer 1 or a two-accumulator layer 7; layer 7 under a mask takes f32,
+    folded (with fold=False per pixel)."""
     calls = []
     run = _fake_launcher(calls, bf16=False)
     x = torch.zeros(1)
@@ -701,8 +705,10 @@ def test_f32_variants_are_refused(sp32):
             run.layer(k, False, x, sp32, x, 1, 10, 12, zs=zs, pp=pp)
     assert not calls
     run.layer(6, False, x, sp32, x, 1, 10, 12, zs=3)
-    assert [fn for fn, _ in calls] == ["w2x_stack_last_zs"]
-    assert calls[0][1][:2] == (0, 3)
+    run.layer(6, False, x, sp32, x, 1, 10, 12, zs=3, fold=False)
+    assert [fn for fn, _ in calls] == ["w2x_l7_fold", "w2x_stack_last_zs"]
+    assert calls[0][1][0] == 0 and calls[0][1][16] == 3
+    assert calls[1][1][:2] == (0, 3)
     stack.reset_launches()
 
 

@@ -179,11 +179,132 @@ def test_bound_from_the_code():
 
 
 def test_pack_tap_mm_is_the_kernel_operand_order():
+    """pack_tap_mm is the register order csrc/tmm.cu loads: warpgroup h,
+    k16 step s, thread 32v + 4g + c, register r, half e holds
+    W^T[64h + 16v + g + 8(r % 2), 16s + 8(r // 2) + 2c + e] (mma.cuh's A
+    fragment), k = 128 t + ci; every weight exactly once."""
     w = torch.arange(4 * 128 * 128, dtype=torch.float32).reshape(4, 128, 128)
     wp = probe.pack_tap_mm(w)
-    assert tuple(wp.shape) == (16, 4, 128, 8)
-    for k8, t, co, e in ((0, 0, 0, 0), (3, 2, 77, 5), (15, 3, 127, 7)):
-        assert wp[k8, t, co, e] == w[t, 8 * k8 + e, co]
+    assert tuple(wp.shape) == (2, 32, 128, 8)
+    for h, s, v, g, c, r, e in ((0, 0, 0, 0, 0, 0, 0), (1, 19, 2, 5, 1, 3, 1),
+                                (0, 31, 3, 7, 3, 2, 0), (1, 8, 1, 0, 2, 1, 1)):
+        k = 16 * s + 8 * (r // 2) + 2 * c + e
+        co = 64 * h + 16 * v + g + 8 * (r % 2)
+        assert wp[h, s, 32 * v + 4 * g + c, 2 * r + e] == w[k // 128,
+                                                              k % 128, co]
+    assert torch.equal(wp.flatten().sort().values, w.flatten())
+
+
+@pytest.mark.parametrize("b,ny,nx,tr,tc,blocks", [
+    (16, 8, 4, 64, 128, 132),   # the JAX tool's grid on an H100
+    (2, 2, 1, 5, 256, 3),       # two segments a cell row, odd tr
+    (1, 3, 1, 37, 128, 132),    # fewer rows than blocks: one row each
+    (3, 1, 2, 13, 384, 7)])
+def test_walk_covers_every_row_once(b, ny, nx, tr, tc, blocks):
+    """tmm_walk (the kernel's walk): every row of work lies in exactly one
+    unit of one block, the blocks' shares differ by one row at most, a unit
+    stays inside one segment, and some unit is partial (shorter than tr);
+    chlane's units load ob - oa + 3 rows, 3 halo rows a unit."""
+    nseg = tc // 128
+    units = probe.tmm_walk(b, ny, nx, tr, tc, blocks)
+    total = b * ny * nx * nseg * tr
+    assert len(units) == min(total, blocks)
+    seen = [(s, o) for mine in units for s, oa, ob in mine
+            for o in range(oa, ob)]
+    assert sorted(seen) == [(s, o) for s in range(b * ny * nx * nseg)
+                            for o in range(tr)]
+    shares = [sum(ob - oa for _, oa, ob in mine) for mine in units]
+    assert max(shares) - min(shares) <= 1
+    assert all(0 <= oa < ob <= tr for mine in units for _, oa, ob in mine)
+    assert any(ob - oa < tr for mine in units for _, oa, ob in mine)
+
+
+def _emulate_tap_mm(x, w, layout, tr, tc, blocks):
+    """The kernel's arithmetic, block by block as csrc/tmm.cu orders it:
+    each unit's loads (its cell rows oa .. ob + 2, positions col0 ..) into
+    a ring of 5 slots, each written only once the rows that read the load 5
+    before it are done (else the kernel would stall for good); poslane's
+    row staged as 17 groups [128 ch][8 positions] and transposed into the
+    slot's [position][channel] layout; output row o's taps t reading load
+    L + o - oa + t from position t; W^T from pack_tap_mm's fragments by the
+    register map, f32 sums."""
+    b = x.shape[0]
+    rows, cols = (x.shape[1], x.shape[2]) if layout == "chlane" else (
+        x.shape[1], x.shape[3])
+    ny, nx = rows // (tr + 8), cols // (tc + 16)
+    nseg, stages = tc // 128, 5
+    xf = x.float()
+    wp = probe.pack_tap_mm(w).float()
+    wt = torch.zeros(2, 64, 512)    # W^T of each warpgroup from the registers
+    for s in range(32):
+        for th in range(128):
+            v, g, c = th // 32, (th % 32) // 4, th % 4
+            for r in range(4):
+                for e in range(2):
+                    wt[:, 16 * v + g + 8 * (r % 2),
+                       16 * s + 8 * (r // 2) + 2 * c + e] = wp[:, s, th,
+                                                               2 * r + e]
+    wt = wt.reshape(128, 4, 128)    # [co, t, ci]
+
+    def slot_of(n, row, col0):
+        """A load as its slot holds it: [136 positions, 128 channels]."""
+        if layout == "chlane":
+            return xf[n, row, col0:col0 + 136]
+        staged = torch.stack([xf[n, row, :, col0 + 8 * g:col0 + 8 * g + 8]
+                              for g in range(17)])        # [g][ch][pos]
+        return staged.permute(0, 2, 1).reshape(136, 128)  # [8g + p][ch]
+
+    out = torch.zeros(b, ny * tr, nx * tc, 128)
+    for mine in probe.tmm_walk(b, ny, nx, tr, tc, blocks):
+        loads, done, L, pending = [], set(), 0, []
+        for s, oa, ob in mine:
+            n, rest = divmod(s, ny * nx * nseg)
+            i, rest = divmod(rest, nx * nseg)
+            j, seg = divmod(rest, nseg)
+            pending += [(n, i * (tr + 8) + r, j * (tc + 16) + 128 * seg)
+                        for r in range(oa, ob + 3)]
+        n_loads, rows_lr, k0 = len(pending), set(), 0
+        for s, oa, ob in mine:      # each row's first load
+            rows_lr.update(range(k0, k0 + ob - oa))
+            k0 += ob - oa + 3
+        for s, oa, ob in mine:
+            n, rest = divmod(s, ny * nx * nseg)
+            i, rest = divmod(rest, nx * nseg)
+            j, seg = divmod(rest, nseg)
+            for o in range(oa, ob):
+                lr = L + o - oa
+                while len(loads) <= lr + 3:
+                    k = len(loads)
+                    # slot k % 5 held load k - 5: every row reading it done
+                    assert all(q in done for q in range(k - stages - 3,
+                                                        k - stages + 1)
+                               if q in rows_lr)
+                    loads.append(slot_of(*pending.pop(0)))
+                acc = torch.zeros(128, 128)
+                for t in range(4):
+                    acc += wt[:, t] @ loads[lr + t][t:t + 128].t()
+                done.add(lr)
+                out[n, i * tr + o, j * tc + 128 * seg:
+                    j * tc + 128 * seg + 128] = acc.t()
+            L += ob - oa + 3
+        assert not pending and len(loads) == n_loads == L
+    out = out.to(torch.bfloat16)
+    return out if layout == "chlane" else out.permute(0, 1, 3, 2)
+
+
+@pytest.mark.parametrize("layout", list(probe.TMM_LAYOUTS))
+@pytest.mark.parametrize("tr,tc,blocks", [(5, 256, 3), (7, 128, 4)],
+                         ids=["two_segments", "odd_rows"])
+def test_kernel_walk_and_packing_give_the_layer(layout, tr, tc, blocks):
+    """An emulation of csrc/tmm.cu's walk, ring, poslane's staging and
+    transposition and the register operands on k / 16 inputs equals
+    tap_mm_plain bit for bit, with partial units, and no load overwrites a
+    slot before the rows that read it are done."""
+    x, w = probe.tmm_inputs(probe.tmm_input_shape(layout, 2, 2, 1, tr, tc),
+                            3, "cpu")
+    got = _emulate_tap_mm(x, w, layout, tr, tc, blocks)
+    ref = probe.tap_mm_plain(x, w, layout, (tr, tc))
+    assert torch.equal(got, ref)
 
 
 def test_wrapper_refuses_bad_arguments(inputs):

@@ -10,9 +10,11 @@
 // l7_fold (the tap product of each layer-6 phase, :489-508, and the
 // shift-sum and the three epilogues, :603-655), for configurations B1, B2,
 // B3, B6, B5's stack and B4's (the int8 branch, :551-585, ends in the same
-// l7_tap), in both storage types. The truncation's tap forms and the
-// zero-shift variant stay on stack.cu's and common.cuh's FFMA kernels, as
-// do last_layer(fold=False) and last_layer_tiles(fold=False), the timing
+// l7_tap), in both storage types; and, under a zero-shift mask, the layer 7
+// of tools/shift_cost_probe.py:156 (its shift-sum :136-141 reads the cell
+// Dy*fy, Dx*fx: the same fold with a factor forced to 0). The truncation's
+// tap forms stay on stack.cu's and common.cuh's FFMA kernels, as do
+// last_layer(fold=False) and last_layer_tiles(fold=False), the timing
 // yardsticks.
 //
 // What it computes, on x6 [P, 2hl+2, 2wl+2, 128] (NHWC, bf16 or f32) and
@@ -23,6 +25,11 @@
 //                       (exact products, f32 sums);
 //   Y[i, j, q] = ((Zt[i, j, q] + Zt[i, j+1, 4+q]) + Zt[i+1, j, 8+q])
 //                + Zt[i+1, j+1, 12+q]              (s = Dy*2 + Dx in order)
+//   or, under the zero-shift mask ZS (s2d output on one plane an image
+//   only; bit 0 sets fx = 0, bit 1 fy = 0, else fx = fy = 1), the same sum
+//   of Zt[i + Dy*fy, j + Dx*fx, s*4 + q]: a zeroed axis reads the cell's
+//   own row or column of Zt. ZS is a template parameter; ZS = 0 is the
+//   code above.
 //   then the bias and LeakyReLU in f32, and one of three epilogues on that
 //   one f32 Y, at the image's cell:
 //     OUT_S2D    Y in x6's type (bf16 rounded once), [N, oh, ow, 4];
@@ -208,15 +215,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 
 // Y of a plane's output cell from Zt of its cell row (zp) and the next
 // (z), both at its column's cell, then the bias, LeakyReLU and the form, at
-// the image's cell (i, j) of image n.
-template <int OUT_MODE, typename T>
+// the image's cell (i, j) of image n. Under the mask ZS a zeroed axis reads
+// the cell's own column (zp, z in place of the next cell's) or row (zp in
+// place of z).
+template <int OUT_MODE, int ZS, typename T>
 __device__ __forceinline__ void l7_out(const L7Args<T>& a, const float* zp,
                                        const float* z, int n, int i, int j,
                                        float bias) {
+  constexpr int DX = (ZS & 1) ? 0 : L7_ZP;   // the cell j + fx
+  const float* zr = (ZS & 2) ? zp : z;       // the cell row i + fy
   const float4 z0 = *reinterpret_cast<const float4*>(zp);
-  const float4 z1 = *reinterpret_cast<const float4*>(zp + L7_ZP + 4);
-  const float4 z2 = *reinterpret_cast<const float4*>(z + 8);
-  const float4 z3 = *reinterpret_cast<const float4*>(z + L7_ZP + 12);
+  const float4 z1 = *reinterpret_cast<const float4*>(zp + DX + 4);
+  const float4 z2 = *reinterpret_cast<const float4*>(zr + 8);
+  const float4 z3 = *reinterpret_cast<const float4*>(zr + DX + 12);
   float yv[4] = {((z0.x + z1.x) + z2.x) + z3.x,
                  ((z0.y + z1.y) + z2.y) + z3.y,
                  ((z0.z + z1.z) + z2.z) + z3.z,
@@ -261,7 +272,7 @@ __device__ __forceinline__ void l7_out(const L7Args<T>& a, const float* zp,
 // cell row (z) and the one above (zp), written at its image cell unless it
 // lies past the image (the crop) or, in a tile that is not its grid row's
 // last, past the tile (the next tile's cell).
-template <int OUT_MODE, int OUT, typename T>
+template <int OUT_MODE, int ZS, int OUT, typename T>
 __device__ __forceinline__ void l7_cell(const L7Args<T>& a, const Cursor& cc,
                                         int col, const float* zp,
                                         const float* z, float bias) {
@@ -270,10 +281,10 @@ __device__ __forceinline__ void l7_cell(const L7Args<T>& a, const Cursor& cc,
   const int ty = rest % a.ny, img = rest / a.ny;
   const int I = ty * a.hl + cc.row, J = tx * a.wl + j;
   if (j < (tx == a.nx - 1 ? a.wlast : a.wl) && I < a.oh && J < a.ocols)
-    l7_out<OUT_MODE>(a, zp, z, img, I, J, bias);
+    l7_out<OUT_MODE, ZS>(a, zp, z, img, I, J, bias);
 }
 
-template <int OUT_MODE>
+template <int OUT_MODE, int ZS>
 __global__ void __launch_bounds__(L7_THREADS, 1)
 l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
   constexpr int OUT = L7_CELLS - 1;   // output cells of a strip
@@ -368,7 +379,7 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
     __syncthreads();
 
     if (!cc.head && tid < OUT)
-      l7_cell<OUT_MODE, OUT>(a, cc, tid,
+      l7_cell<OUT_MODE, ZS, OUT>(a, cc, tid,
                              zt + (zb ^ 1) * L7_CELLS * L7_ZP + tid * L7_ZP,
                              z + tid * L7_ZP, bias);
     zb ^= 1;
@@ -382,7 +393,7 @@ __device__ __forceinline__ float lane4(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-template <int OUT_MODE>
+template <int OUT_MODE, int ZS>
 __global__ void __launch_bounds__(F7_THREADS, 1)
 l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
   constexpr int OUT = F7_CELLS - 1;   // output cells of a strip
@@ -501,7 +512,7 @@ l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
     __syncthreads();
 
     if (!cc.head && tid < OUT)
-      l7_cell<OUT_MODE, OUT>(a, cc, tid,
+      l7_cell<OUT_MODE, ZS, OUT>(a, cc, tid,
                              zt + (zb ^ 1) * F7_CELLS * L7_ZP + tid * L7_ZP,
                              z + tid * L7_ZP, bias);
     zb ^= 1;
@@ -636,13 +647,15 @@ extern "C" {
 // [n, hl, wl, 4] in the storage type), 1 (y [n, hl, ceil(wl/dense_tc)*4*
 // dense_tc] in the storage type, dense_tc a multiple of 32) or 2 (y u8
 // [n, hl, wl, 16] from the device array uvp [n, hl, wl, 8] f32 and the host
-// array cmap[12], w2x_stack_layer's). x, w, y and uvp 16-byte aligned.
-// Returns the cudaError_t of the launch.
+// array cmap[12], w2x_stack_layer's); zs the zero-shift mask 0..3 (bit 0
+// columns, bit 1 rows), not 0 only with out_mode 0 and tr == 0. x, w, y and
+// uvp 16-byte aligned. Returns the cudaError_t of the launch.
 int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
                 void* y, int n, int hl, int wl, int out_mode,
                 const void* uvp, const float* cmap, int dense_tc, int tr,
-                int tc, int ny, int nx, void* stream) {
-  if (n <= 0 || hl <= 0 || wl <= 0 ||
+                int tc, int ny, int nx, int zs, void* stream) {
+  if (n <= 0 || hl <= 0 || wl <= 0 || zs < 0 || zs > 3 ||
+      (zs && (out_mode != OUT_S2D || tr != 0)) ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
        reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(uvp)) %
           16)
@@ -654,9 +667,12 @@ int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
     const int planes = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap,
                                  dense_tc, qt, L7_CELLS);
     if (planes == 0) return (int)cudaErrorInvalidValue;
-    auto kernel = out_mode == OUT_S2D     ? l7_fold<OUT_S2D>
-                  : out_mode == OUT_DENSE ? l7_fold<OUT_DENSE>
-                                          : l7_fold<OUT_U8>;
+    auto kernel = out_mode == OUT_DENSE ? l7_fold<OUT_DENSE, 0>
+                  : out_mode == OUT_U8  ? l7_fold<OUT_U8, 0>
+                  : zs == 1             ? l7_fold<OUT_S2D, 1>
+                  : zs == 2             ? l7_fold<OUT_S2D, 2>
+                  : zs == 3             ? l7_fold<OUT_S2D, 3>
+                                        : l7_fold<OUT_S2D, 0>;
     return (int)launch(kernel, L7_SMEM, L7_THREADS, L7_CELLS, x, planes, a,
                        s);
   }
@@ -664,9 +680,12 @@ int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
   const int planes = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap,
                                dense_tc, qt, F7_CELLS);
   if (planes == 0) return (int)cudaErrorInvalidValue;
-  auto kernel = out_mode == OUT_S2D     ? l7_fold_f32<OUT_S2D>
-                : out_mode == OUT_DENSE ? l7_fold_f32<OUT_DENSE>
-                                        : l7_fold_f32<OUT_U8>;
+  auto kernel = out_mode == OUT_DENSE ? l7_fold_f32<OUT_DENSE, 0>
+                : out_mode == OUT_U8  ? l7_fold_f32<OUT_U8, 0>
+                : zs == 1             ? l7_fold_f32<OUT_S2D, 1>
+                : zs == 2             ? l7_fold_f32<OUT_S2D, 2>
+                : zs == 3             ? l7_fold_f32<OUT_S2D, 3>
+                                      : l7_fold_f32<OUT_S2D, 0>;
   return (int)launch(kernel, F7_SMEM, F7_THREADS, F7_CELLS, x, planes, a, s);
 }
 

@@ -3,15 +3,16 @@
 // proxy and warpgroup fences, shared-memory matrix descriptors without
 // swizzle, and the warpgroup product
 //   wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16   (N = 16 .. 128)
-// with both operands read from shared memory (mma_k16), or for N = 64 with
-// A from registers (mma_k16_rs64), and the f32 sums kept in registers; and
+// with both operands read from shared memory (mma_k16), or for N = 64 and
+// N = 128 with A from registers (mma_k16_rs64, mma_k16_rs128), and the f32
+// sums kept in registers; and
 //   wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32    (N = 32 .. 128)
 // (mma_k8_tf32, and for N = 32 with A from registers, mma_k8_tf32_rs32);
 // and
 //   wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8
 // (mma_k32_s8, exact int32 sums). mma.cu builds the bf16 layers 2-6 kernel
 // and the mma_chain probe from them, mma_tf32.cu the f32 layers 2-6 as
-// 3xTF32, tmm.cu the four-tap probe layer (with B also MN-major), wino.cu
+// 3xTF32, tmm.cu the four-tap probe layer (A from registers), wino.cu
 // the Winograd layer 6 in both types (A from registers), i8.cu the int8
 // layer 6. Also the mbarrier and bulk-copy (TMA) steps of l7.cu's and
 // probe.cu's rings.
@@ -25,8 +26,7 @@
 //   SBO  bytes from a core matrix to the next one along M (for A) or N (for
 //        B): from rows 0-7 to rows 8-15.
 // (Settled on the card with the mma_chain probe: with the two exchanged the
-// product is wrong.) mma_k16 reads A K-major, [M][K], and B K-major, [N][K],
-// or with TRANS_B = 1 MN-major, [K][N].
+// product is wrong.) mma_k16 reads A K-major, [M][K], and B K-major, [N][K].
 //
 // Accumulator fragment of m64nNk16, thread t of the warpgroup, warp
 // w = t / 32, lane l = t % 32: d[4j + 0, 1] are row 16w + l/4, columns
@@ -154,12 +154,8 @@ __device__ __forceinline__ uint64_t desc_addr(uint32_t shared_addr) {
 
 // d[64 x N] += A[64 x 16] * B[N x 16]^T, one instruction; N / 2 sums a
 // thread. The caller brackets a run of them with wgmma_fence() before and
-// wgmma_commit(), wgmma_wait<0>() after. TRANS_B = 0 reads B K-major;
-// TRANS_B = 1 reads it MN-major (tmm.cu's positions-in-lanes form): its core
-// matrices are 8 K rows of 16 bytes, each row 8 consecutive N values, and the
-// two strides are as for K-major: LBO from a core matrix to the next one
-// along K, SBO to the next one along N.
-template <int N, int TRANS_B = 0>
+// wgmma_commit(), wgmma_wait<0>() after. Both operands K-major.
+template <int N>
 __device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
                                         uint64_t b) {
   static_assert(N == 16 || N == 32 || N == 64 || N == 128,
@@ -171,10 +167,10 @@ __device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
         "setp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "%8, %9, p, 1, 1, 0, %11;\n"
+        "%8, %9, p, 1, 1, 0, 0;\n"
         "}\n"
         : W2X_ACC4(d, 0), W2X_ACC4(d, 4)
-        : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+        : "l"(a), "l"(b), "r"(1));
   } else if constexpr (N == 32) {
     asm volatile(
         "{\n"
@@ -183,10 +179,10 @@ __device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, "
         " %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, %19;\n"
+        "%16, %17, p, 1, 1, 0, 0;\n"
         "}\n"
         : W2X_ACC16(d, 0)
-        : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+        : "l"(a), "l"(b), "r"(1));
   } else if constexpr (N == 64) {
     asm volatile(
         "{\n"
@@ -197,10 +193,10 @@ __device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
         " %8, %9, %10, %11, %12, %13, %14, %15, "
         " %16, %17, %18, %19, %20, %21, %22, %23, "
         " %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, %35;\n"
+        "%32, %33, p, 1, 1, 0, 0;\n"
         "}\n"
         : W2X_ACC16(d, 0), W2X_ACC16(d, 16)
-        : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+        : "l"(a), "l"(b), "r"(1));
   } else {
     asm volatile(
         "{\n"
@@ -215,10 +211,10 @@ __device__ __forceinline__ void mma_k16(float (&d)[N / 2], uint64_t a,
         " %40, %41, %42, %43, %44, %45, %46, %47, "
         " %48, %49, %50, %51, %52, %53, %54, %55, "
         " %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n"
+        "%64, %65, p, 1, 1, 0, 0;\n"
         "}\n"
         : W2X_ACC16(d, 0), W2X_ACC16(d, 16), W2X_ACC16(d, 32), W2X_ACC16(d, 48)
-        : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+        : "l"(a), "l"(b), "r"(1));
   }
 }
 
@@ -305,6 +301,33 @@ __device__ __forceinline__ void mma_k16_rs64(float (&d)[32],
       "}\n"
       : W2X_ACC16(d, 0), W2X_ACC16(d, 16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T with A from registers (tmm.cu:
+// the weights, resident in registers), the fragment of a as in
+// mma_k16_rs64; B K-major from shared memory as in mma_k16. `add` 0
+// overwrites d with the product. The registers of a must not change until
+// the wgmma that reads them is waited for.
+__device__ __forceinline__ void mma_k16_rs128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int add) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : W2X_ACC16(d, 0), W2X_ACC16(d, 16), W2X_ACC16(d, 32), W2X_ACC16(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
 }
 
 // d[64 x 32] += A[64 x 8] * B[32 x 8]^T in TF32 with A from registers

@@ -970,28 +970,66 @@ def tap_mm_plain(x: torch.Tensor, w: torch.Tensor, layout: str,
     return out if layout == "chlane" else out.permute(0, 1, 3, 2).contiguous()
 
 
+TMM_SMS = 132        # an H100's SMs: tmm_walk's default grid
+
+
 def pack_tap_mm(w: torch.Tensor) -> torch.Tensor:
-    """w [4, 128 in, 128 out] -> [16, 4, 128, 8], csrc/tmm.cu's operand
-    order: wp[k8, t, co, e] = w[t, 8 k8 + e, co]."""
-    return (w.reshape(TMM_TAPS, TMM_CH // 8, 8, TMM_CH).permute(1, 0, 3, 2)
-            .contiguous())
+    """w [4, 128 in, 128 out] -> [2, 32, 128, 8], csrc/tmm.cu's register
+    order: the weights are wgmma's A operand W^T [co, k] (k = 128 t + ci),
+    warpgroup h holding output channels 64h .. 64h + 63, k16 step s
+    covering k = 16s .. 16s + 15, and thread (warp v, lane 4g + c) of the
+    warpgroup loading its 16 bytes [h, s, 32v + 4g + c] as four registers of
+    two bf16 (lower k first): register r holds channel 64h + 16v + g +
+    8 (r % 2), k = 16s + 8 (r // 2) + 2c + {0, 1} (mma.m16n8k16's A
+    fragment, each warp 16 rows)."""
+    # w[t, ci, co] with ci = 16 kk + 8 rh + 2 c + e, co = 64 h + 16 v + 8 rl
+    # + g, as (h, t, kk, v, g, c, rh, rl, e); s = 8 t + kk, r = 2 rh + rl
+    return (w.reshape(TMM_TAPS, 8, 2, 4, 2, 2, 4, 2, 8)
+            .permute(5, 0, 1, 6, 8, 3, 2, 7, 4)
+            .reshape(2, TMM_TAPS * 8, 128, 8).contiguous())
+
+
+def tmm_walk(b: int, ny: int, nx: int, tr: int, tc: int,
+             blocks: int = TMM_SMS) -> list:
+    """csrc/tmm.cu's walk: the rows of work (128 positions of one cell row,
+    segment by segment: u = (((n ny + i) nx + j) nseg + seg) tr + o) cut
+    evenly over min(rows, blocks) blocks -> for each block its work units,
+    (segment, first row oa, end row ob) runs of consecutive rows of one
+    segment. A unit loads its cell rows oa .. ob + 2 once (ob - oa + 3
+    loads, into a ring of 5 slots; poslane's transposed there from a
+    staging slot)."""
+    nseg = tc // 128
+    total = b * ny * nx * nseg * tr
+    grid = min(total, blocks)
+    per, extra = divmod(total, grid)
+    units = []
+    for bid in range(grid):
+        u0 = bid * per + min(bid, extra)
+        u1 = u0 + per + (bid < extra)
+        mine = []
+        while u0 < u1:
+            oa = u0 % tr
+            ob = min(tr, oa + u1 - u0)
+            mine.append((u0 // tr, oa, ob))
+            u0 += ob - oa
+        units.append(mine)
+    return units
 
 
 def prepare_tap_mm(x: torch.Tensor, w: torch.Tensor, layout: str,
                    tile=(64, 128)):
     """Check the arguments and pack the weights once -> (out, launch) for a
     CUDA run; launch() enqueues the kernel on the current stream and counts
-    it in LAUNCHES["tap_mm"]. The kernel takes an even tr, tc a multiple of
-    128 and columns a multiple of 8."""
+    it in LAUNCHES["tap_mm"]. The kernel takes tc a multiple of 128 and
+    columns a multiple of 8 (any tr)."""
     ny, nx = _tmm_check(x, w, layout, tile)
     tr, tc = tile
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     rows, cols = x.shape[1], x.shape[3 if layout == "poslane" else 2]
-    if tr % 2 or tc % 128 or cols % 8:
-        raise ValueError(f"the kernel takes an even tr, tc a multiple of 128 "
-                         f"and columns a multiple of 8, got tile {tile}, "
-                         f"{cols} columns")
+    if tc % 128 or cols % 8:
+        raise ValueError(f"the kernel takes tc a multiple of 128 and columns "
+                         f"a multiple of 8, got tile {tile}, {cols} columns")
     b = x.shape[0]
     shape = ((b, ny * tr, nx * tc, TMM_CH) if layout == "chlane"
              else (b, ny * tr, TMM_CH, nx * tc))
@@ -1188,27 +1226,26 @@ def shift_zs(fx: int, fy: int) -> int:
 
 
 def _variant_layers_plain(ylow: torch.Tensor, sp, upto: int,
-                          zs: tuple, fold=None) -> list:
+                          zs: tuple) -> list:
     """Plain layers 1..upto (7: the whole stack) of the scale stack, each
     layer k + 1 under zero-shift mask zs[k] -> every layer's stored output:
-    the NHWC planes of layers 1-6 and layer 7's Y_s2d [N, hl, wl, 4], in
-    ylow's dtype; layer 7 on the kernel stack.last_layer picks with
-    `fold`."""
+    the NHWC planes of layers 1-6 and layer 7's Y_s2d [N, hl, wl, 4] (the
+    fold's), in ylow's dtype."""
     outs = [stack.l1_plain(ylow, sp)]
     for k in range(1, min(upto, 6)):
         outs.append(stack.mma_layer_plain(outs[-1], sp.wm[k - 1], sp[k][1],
                                           zs[k]))
     if upto == 7:
-        outs.append(stack.last_layer(outs[-1], sp, zs[6], fold=fold))
+        outs.append(stack.last_layer(outs[-1], sp, zs[6]))
     return outs
 
 
 def _variant_layers(ylow: torch.Tensor, sp, upto: int, zs: tuple,
-                    pp: bool = False, fold=None) -> list:
+                    pp: bool = False) -> list:
     """The same on the card: one launch a layer (stack._Launcher, counted
     under KERNEL_LAUNCHES["probe"]), layers 2-6 under zs[k] or with two
-    accumulators (pp) on csrc/mma.cu's variants, layer 7 under zs[6] (with
-    `fold` as in stack.last_layer)."""
+    accumulators (pp) on csrc/mma.cu's variants, layer 7 folded under
+    zs[6]."""
     n, hl, wl = ylow.shape
     outs, src = [], ylow
     with torch.cuda.device(ylow.device):
@@ -1224,8 +1261,7 @@ def _variant_layers(ylow: torch.Tensor, sp, upto: int, zs: tuple,
         if upto == 7:
             out = torch.empty((n, hl, wl, 4), dtype=ylow.dtype,
                               device=ylow.device)
-            run.layer(6, False, src, sp, out, n, hl, wl, zs=zs[6],
-                      fold=fold)
+            run.layer(6, False, src, sp, out, n, hl, wl, zs=zs[6])
             outs.append(out)
     return outs
 
@@ -1238,11 +1274,11 @@ def _check_variant(ylow: torch.Tensor, sp) -> None:
 
 
 def _variant(ylow: torch.Tensor, sp, upto: int, zs: tuple,
-             pp: bool = False, fold=None) -> list:
+             pp: bool = False) -> list:
     _check_variant(ylow, sp)
     if ylow.device.type == "cpu":
-        return _variant_layers_plain(ylow, sp, upto, zs, fold)
-    return _variant_layers(ylow, sp, upto, zs, pp, fold)
+        return _variant_layers_plain(ylow, sp, upto, zs)
+    return _variant_layers(ylow, sp, upto, zs, pp)
 
 
 _NO_ZS = (0,) * 7
@@ -1271,8 +1307,7 @@ def shift_stack_plain(ylow: torch.Tensor, sp, fx: int, fy: int):
     """Plain version of shift_stack."""
     zs = shift_zs(fx, fy)
     _check_variant(ylow, sp)
-    return _variant_layers_plain(ylow, sp, 7, (0,) + (zs,) * 6,
-                                 fold=False)[-1]
+    return _variant_layers_plain(ylow, sp, 7, (0,) + (zs,) * 6)[-1]
 
 
 def shift_stack(ylow: torch.Tensor, sp, fx: int, fy: int) -> torch.Tensor:
@@ -1283,12 +1318,12 @@ def shift_stack(ylow: torch.Tensor, sp, fx: int, fy: int) -> torch.Tensor:
     p + k (wrong by design; fx = fy = 1 is stack_scale's function). 7
     launches. CPU tensors take the plain version; CUDA tensors take the
     kernels (bf16 where a mask is set: the variants are tensor-core layers).
-    Layer 7 runs on csrc/stack.cu's per-pixel kernel in every mode, base
-    too (stack.last_layer with fold=False): the folded layer 7 of
-    csrc/l7.cu has no zero-shift form, and the modes differ in the masks
-    alone."""
+    Layer 7 runs folded in every mode (csrc/l7.cu, the JAX tool's
+    structure: its shift-sum reads the cell Dy*fy, Dx*fx), so base is
+    stack_scale's kernels, bit for bit on the card, and the modes differ
+    in the masks alone."""
     zs = shift_zs(fx, fy)
-    return _variant(ylow, sp, 7, (0,) + (zs,) * 6, fold=False)[-1]
+    return _variant(ylow, sp, 7, (0,) + (zs,) * 6)[-1]
 
 
 def _l4_zs(mode: str) -> tuple:

@@ -55,7 +55,7 @@ bf16 kernel's tile, chunk and shared-memory plan; mma_chain is the probe
 of its inner loop (tools/mma_probe.py). The probes of ops/probe.py also
 run variants that no product path takes: the tensor-core layer under a
 zero-shift mask (zs: a tap on a zeroed axis reads its own s2d cell) or with
-two accumulators (pp: the same function), and layer 7 under a mask
+two accumulators (pp: the same function), and layer 7 under a mask, folded
 (mma_layer(zs=, pp=), last_layer(zs=), mma_plan(ci, co, zs, pp)).
 
 Layer 7 (128 -> 1) of every stack call is the JAX body's folded tap
@@ -67,10 +67,12 @@ on the tensor cores (l7_fold), an f32 call with FFMA on the 4 x 9 x 128
 entries of w7f that are not zero, read from w7 itself (l7_fold_f32). The
 int8 layer 6's tile-major planes take the same kernels, each tile a plane,
 its Y written at the image's cells and cropped (l7_tiles_plain;
-last_layer_tiles alone). The truncation's tap forms and the zero-shift
-masks keep the FFMA kernels (csrc/stack.cu per pixel, common.cuh per cell),
-as do last_layer(fold=False) and last_layer_tiles(fold=False), layer 7
-alone in either kernel (l7_fold_chosen decides), the timing yardsticks.
+last_layer_tiles alone). Under a zero-shift mask (the probes' layer 7, s2d
+on a plane) the fold's shift-sum reads a zeroed axis' own cell of Zt
+(l7_fold_plain(zs=)). The truncation's tap forms keep the FFMA kernels
+(csrc/stack.cu per pixel, common.cuh per cell), as do last_layer(fold=False)
+and last_layer_tiles(fold=False), layer 7 alone in either kernel
+(l7_fold_chosen decides), the timing yardsticks.
 L7_LAUNCHES counts every layer-7 launch by kernel.
 
 Layer 6 (128 -> 128, half of the stack's multiply-adds) has three forms,
@@ -173,6 +175,7 @@ KERNEL_LAUNCHES = {"scale": 0, "noise": 0, "dense": 0, "fused_u8": 0,
 # layer 6's launches by its form ("i8" counts two a call: the tile maxima
 # and the int8 layer), under "upto" the launches of stack_scale_upto's own
 # last kernel, and under "last_zs" those of layer 7 under a zero-shift mask
+# on the per-pixel kernel (fold=False, the yardstick)
 L6_LAUNCHES = {"direct": 0, "i8": 0, "wino": 0, "upto": 0, "last_zs": 0}
 # layers 2-6 and the Winograd layer 6 run on the tensor cores for bf16
 # storage; False sends them to the FFMA kernels like an f32 call (tests and
@@ -203,10 +206,10 @@ I8_LAUNCHES = {"mma": 0, "dp4a": 0}
 # last_layer_tiles alone, of the probes' stacks, and the truncation's tap
 # forms) by the kernel that ran it: "fold" the tensor-core fold (csrc/l7.cu,
 # bf16, on a plane or the int8 layer's tiles), "fold_f32" the FFMA fold
-# (csrc/l7.cu, f32, likewise), "cell" common.cuh's cell kernel (the taps;
-# dense and u8 with fold=False, and every form of last_layer_tiles with
-# fold=False), "pixel" stack.cu's per-pixel kernel (the zero-shift masks; s2d
-# with fold=False)
+# (csrc/l7.cu, f32, likewise; both under a zero-shift mask too), "cell"
+# common.cuh's cell kernel (the taps; dense and u8 with fold=False, and every
+# form of last_layer_tiles with fold=False), "pixel" stack.cu's per-pixel
+# kernel (s2d with fold=False, under a mask or not)
 L7_LAUNCHES = {"fold": 0, "fold_f32": 0, "cell": 0, "pixel": 0}
 
 # the last layer's output forms (csrc/common.cuh: OUT_*)
@@ -470,16 +473,12 @@ def wino_plan(dtype=torch.bfloat16) -> WinoPlan:
 
 def l7_fold_chosen(zs: int = 0, fold=None) -> bool:
     """Whether layer 7 runs folded (csrc/l7.cu: on the tensor cores in bf16,
-    with FFMA in f32): by default on every plane with no zero-shift mask,
-    in both types; fold=False asks for the per-pixel and per-cell FFMA
-    kernels, fold=True for the fold (raising where it does not apply: a
-    zero-shift mask)."""
-    if fold is None:
-        return not zs
-    if fold and zs:
-        raise ValueError(f"the folded layer 7 takes no zero-shift mask, got "
-                         f"zs={zs}")
-    return bool(fold)
+    with FFMA in f32): by default on every plane, under a zero-shift mask
+    zs (0..3) too, in both types; fold=False asks for the per-pixel and
+    per-cell FFMA kernels, fold=True for the fold."""
+    if zs not in range(4):
+        raise ValueError(f"zs must be 0..3, got {zs!r}")
+    return True if fold is None else bool(fold)
 
 
 def l6_form(l6_i8=None, l6_wino=None) -> str:
@@ -842,22 +841,27 @@ def last_layer_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _last_layer_f32(x, w, b, zs).to(x.dtype)
 
 
-def l7_fold_plain(x6: torch.Tensor, w7f: torch.Tensor,
-                  b: torch.Tensor) -> torch.Tensor:
+def l7_fold_plain(x6: torch.Tensor, w7f: torch.Tensor, b: torch.Tensor,
+                  zs: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the folded layer 7 (csrc/l7.cu) on the
     stored layer-6 plane: x6 [N, 2hl+2, 2wl+2, 128] NHWC, w7f [512, 16]
     (pack_l7_fold), b [1] f32 -> Y f32 [N, hl, wl, 4], not rounded. Zt is
     one f32 product of x6's s2d cells [N, hl+1, wl+1, 512] and w7f, TF32
-    off; Y the four shifted 4-lane slices of Zt added in the order
-    s = 0, 1, 2, 3, then the bias and LeakyReLU."""
+    off; Y the four shifted 4-lane slices Zt[i + Dy*fy, j + Dx*fx, 4s:4s+4]
+    (s = 2Dy + Dx) added in the order s = 0, 1, 2, 3, then the bias and
+    LeakyReLU. fy = fx = 1, or under the zero-shift mask zs (bit 0 columns,
+    bit 1 rows) 0 on each zeroed axis: last_layer_plain(zs)'s function."""
+    if zs not in range(4):
+        raise ValueError(f"zs must be 0..3, got {zs!r}")
     n, h6, w6, c = x6.shape
     hl, wl = (h6 - 2) // 2, (w6 - 2) // 2
     cells = (x6.float().reshape(n, hl + 1, 2, wl + 1, 2, c)
              .permute(0, 1, 3, 2, 4, 5).reshape(n, hl + 1, wl + 1, 4 * c))
     with no_tf32():
         zt = cells @ w7f.float()
-    y = (zt[:, :hl, :wl, 0:4] + zt[:, :hl, 1:, 4:8] + zt[:, 1:, :wl, 8:12]
-         + zt[:, 1:, 1:, 12:16])
+    fx, fy = 1 - (zs & 1), 1 - (zs >> 1)
+    y = (zt[:, :hl, :wl, 0:4] + zt[:, :hl, fx:fx + wl, 4:8]
+         + zt[:, fy:fy + hl, :wl, 8:12] + zt[:, fy:fy + hl, fx:fx + wl, 12:16])
     return leaky_relu(y + b)
 
 
@@ -1329,7 +1333,7 @@ _ARGTYPES = {
                                   _INT, _INT, _PTR]},
     "l7": {"w2x_l7_fold": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                            _INT, _PTR, _FLOATS, _INT, _INT, _INT, _INT, _INT,
-                           _PTR]},
+                           _INT, _PTR]},
     "l1": {"w2x_l1": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                       _PTR]},
     "mma_tf32": {"w2x_tf32_layer": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
@@ -1412,11 +1416,13 @@ class _Launcher:
         FFMA in f32; l7_fold_chosen with `fold`), or on stack.cu's FFMA
         kernels with fold=False. zs, a zero-shift mask, and pp, two
         accumulators, are the probes' variants of the bf16 tensor-core
-        layers (zs also of layer 7 in s2d layout, on stack.cu's kernel)."""
+        layers (zs also of layer 7 in s2d layout, in either type: folded,
+        or with fold=False on stack.cu's per-pixel kernel)."""
         w, b = sp[k]
         hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
         if k == 6 and not pp and l7_fold_chosen(zs, fold):
-            self.l7_fold(src, sp, dst, n, hg, wg, out_mode, uvp, cmap, tc)
+            self.l7_fold(src, sp, dst, n, hg, wg, out_mode, uvp, cmap, tc,
+                         zs=zs)
             return
         if zs or pp:
             if k == 0 or (k == 6 and pp) or (k < 6 and not self.bf16):
@@ -1477,20 +1483,24 @@ class _Launcher:
                  tf32_plan(*WIDTHS[k]).smem_bytes, mid="mma_tf32")
 
     def l7_fold(self, x6, sp, y, n, hl, wl, out_mode=_OUT_S2D, uvp=None,
-                cmap=None, tc=0, tiling=None) -> None:
+                cmap=None, tc=0, tiling=None, zs: int = 0) -> None:
         """Layer 7 folded (csrc/l7.cu) from the [n, 2hl+2, 2wl+2, 128]
         plane x6, or with tiling = (tr, tc, ny, nx) from the int8 layer's
         tile-major x6 [n, ny, nx, 2tr+2, 2tc+2, 128] cropped to hl x wl, into
         y in the form out_mode (tc: the dense chunk): bf16 on the tensor
         cores from StackParams.w7f, f32 with FFMA from w7's taps [128, 9]
-        (w7f's entries that are not zero)."""
+        (w7f's entries that are not zero). zs, a zero-shift mask, applies to
+        s2d output on a plane only."""
+        if zs and (out_mode != _OUT_S2D or tiling is not None):
+            raise ValueError(f"the folded layer 7 takes a zero-shift mask "
+                             f"(zs={zs}) on a plane in s2d layout only")
         w = _w7f(sp, x6) if self.bf16 else sp[6][0]
         self.run("l7", "w2x_l7_fold",
                  f"layer 7 (fold{'' if self.bf16 else ', f32'})", None,
                  x6.data_ptr(), w.data_ptr(), sp[6][1].data_ptr(),
                  y.data_ptr(), n, hl, wl, out_mode,
                  None if uvp is None else uvp.data_ptr(), cmap, tc,
-                 *(tiling or (0, 0, 0, 0)),
+                 *(tiling or (0, 0, 0, 0)), zs,
                  l7="fold" if self.bf16 else "fold_f32")
 
     def mma_layer(self, k: int, src, sp, dst, n, hin, win, l6=None,
@@ -1822,15 +1832,15 @@ def last_layer(x: torch.Tensor, sp, zs: int = 0, out: str = "s2d",
     NHWC (f32 or bf16, contiguous), in the output form `out` of last_out:
     "s2d" [N, hl, wl, 4] in x's dtype, "dense" (ydense, tc), "u8"
     [N, hl, wl, 16] from uvp [N, hl, wl, 8] f32. The kernel is the stack's
-    (l7_fold_chosen): a plane with no zero-shift mask runs folded
-    (csrc/l7.cu: bf16 on the tensor cores, f32 with FFMA) unless
-    fold=False, which takes the FFMA kernels the stacks ran before
-    (csrc/stack.cu's per-pixel kernel for s2d, common.cuh's cell kernel for
-    the other forms); zs (0..3, s2d only; see last_layer_plain) takes the
-    per-pixel kernel. CPU tensors take the plain version of the kernel
-    chosen (l7_fold_plain or last_layer_plain's f32 Y, then last_out); CUDA
-    tensors take the kernel, whose launch counts under L7_LAUNCHES (and
-    L6_LAUNCHES["last_zs"] for zs > 0) only."""
+    (l7_fold_chosen): the fold (csrc/l7.cu: bf16 on the tensor cores, f32
+    with FFMA), under the zero-shift mask zs too (0..3, s2d only; see
+    l7_fold_plain), unless fold=False, which takes the FFMA kernels the
+    stacks ran before (csrc/stack.cu's per-pixel kernel for s2d, under zs
+    too, common.cuh's cell kernel for the other forms). CPU tensors take the
+    plain version of the kernel chosen (l7_fold_plain or
+    last_layer_plain's f32 Y, then last_out); CUDA tensors take the kernel,
+    whose launch counts under L7_LAUNCHES (and, per pixel under a mask,
+    L6_LAUNCHES["last_zs"]) only."""
     if zs not in range(4) or (zs and out != "s2d"):
         raise ValueError(f"zs must be 0..3, and 0 for out={out!r}; got "
                          f"{zs!r}")
@@ -1855,7 +1865,7 @@ def last_layer(x: torch.Tensor, sp, zs: int = 0, out: str = "s2d",
         _check_uvp(uvp, x[..., :hl, :wl, 0])
     folded = l7_fold_chosen(zs, fold)
     if x.device.type == "cpu":
-        y = (l7_fold_plain(x, _w7f(sp, x), b) if folded
+        y = (l7_fold_plain(x, _w7f(sp, x), b, zs) if folded
              else _last_layer_f32(x, w, b, zs))
         return last_out(y, out, x.dtype, uvp, tc)
     tc = _dense_tc(wl, tc) if out == "dense" else 0

@@ -3,8 +3,8 @@ package's tools/shift_cost_probe.py).
 
 B = 4 low-res planes of 512^2 in bf16, random-init weights at full width.
 Modes, by the JAX names (each is ops/probe.py:shift_stack(ylow, sp, fx, fy)):
-  base      fx = fy = 1: stack_scale's function and kernels, but layer 7
-            on stack.cu's per-pixel kernel as in the twins
+  base      fx = fy = 1: stack_scale's function and kernels (layer 7
+            folded, csrc/l7.cu, as in the twins)
   noshiftx  fx = 0: the column offsets Dx of layers 2-7 forced to 0
   noshifty  fy = 0: the row offsets Dy forced to 0
   noshift   both
@@ -15,8 +15,10 @@ What the deltas mean on this card: the JAX tool prices the relayout that a
 column-shifted operand costs Mosaic. Here a shift costs nothing (a tap is a
 descriptor offset into the staged window), and a twin reads p ^ 1, which no
 descriptor reaches: csrc/mma.cu stages the window once more per zeroed axis
-(three more copies for both) with that axis' pixel pairs swapped. So a twin's
-time minus base's is the price of those copies, not of a shift.
+(three more copies for both) with that axis' pixel pairs swapped. Layer 7's
+fold does the same work under every mask (its shift-sum reads another cell
+of the same partial sums). So a twin's time minus base's is the price of
+those copies, not of a shift.
 
 Each mode's time (CUDA events around back-to-back calls, captured in a CUDA
 graph), its delta to base, its bound and the chunk plan of layers 2-6 that ran.
