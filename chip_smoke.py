@@ -161,7 +161,14 @@ Phases (any failure raises and exits non-zero):
      whole-block pass lands, mod 2^32) is held equal to
      probe.traffic_sum_plain for cin1, cin4, cin9 and 4-fetch; that kernel's
      and probe_l1_mm's variants are printed against their bounds, beside
-     the library call and their first kernels' times (PERF.md section 6).
+     the library call and their first kernels' times (PERF.md section 6),
+     and so are the seven variants that the router gives
+     probe_fetch_map's persistent ring form (lane16_x4, lane128,
+     lane128_x4, in16+o128, in128+o128, raw+o128, xonly; each launch's
+     route as the C entry reports it, probe.MAP_ROUTES, held to be exactly
+     these seven), each against its aim of twice its bound; the ring form
+     in its wide geometry (rows wider than a slot, stripes wider than the
+     head buffer; MAP_WIDE) held bit-equal to its plain version too.
  19. the truncation probes and the four-tap layer (phase19 below): tap_mm
      (csrc/tmm.cu, wgmma, persistent) in both layouts against its plain
      version bit for bit on inputs k / 16 (every f32 sum exact), at two
@@ -171,10 +178,19 @@ Phases (any failure raises and exits non-zero):
      stack_scale_upto's forms out="whole" (upto 0..5), "lane0" (0) and
      "phase_taps" (6, also after the Winograd layer 6) against their plain
      versions, f32 <= 3e-5 and bf16 <= 2^-4, with their launches counted;
-     then the four tools (fused_strip_probe, k1_forensics, l14_probe,
-     tmm_probe) at their JAX grids with the stack's and the probes' launch
-     counts read around each (the probe variants oneblk and xonly, which
-     phase 18 held, are timed there).
+     the truncation's two tap forms alone on layer 7's fold (csrc/l7.cu,
+     launched as stack_scale_upto's upto 6 launches them: launch_taps)
+     against the fold's plain version at three odd shapes and the scale512
+     layer-6 plane and
+     on B4's tile-major planes, bf16 to one bf16 ulp and f32 <= 3e-5, then
+     timed alone at scale512 in both types in turns with the cell kernel
+     (fold=False: cell, fold, fold, cell) beside the byte bound and cuDNN's
+     stride-2 convolution; then the four tools (fused_strip_probe,
+     k1_forensics, l14_probe, tmm_probe) at their JAX grids with the
+     stack's, layer 7's (every launch on the fold, none on the cell kernel)
+     and the probes' launch counts read around each (the probe variants
+     oneblk and xonly, which phase 18 held, are timed there). Phase 15
+     reads layer 7's launches around tools.layer_time_probe the same way.
  20. the last three probe sites (phase20 below): csrc/mma.cu's zero-shift
      variants (ZS 1-3 of layers 2-6, all 15 built) against
      mma_layer_plain(zs) at (1,27,38), (2,37,53) and (1,5,300) to one bf16
@@ -324,7 +340,23 @@ I8_BAR = 35.0         # dB, int8 with weights that were not trained for it
 # grids on an H100 80GB HBM3 at 700 W (PERF.md section 6), printed beside
 # the present kernels' times
 PROBE_FIRST_FORM_MS = {"cin1": 0.0986, "cin4": 0.1862, "cin9": 0.0769,
-                       "4-fetch": 0.2333, "cin9mm": 0.4055}
+                       "4-fetch": 0.2333, "cin9mm": 0.4055,
+                       # probe_fetch_map's earlier row-split form, whose
+                       # variants now run on its persistent ring form
+                       "lane16_x4": 0.0351, "lane128": 0.0233,
+                       "lane128_x4": 0.0308, "in16+o128": 0.0197,
+                       "in128+o128": 0.0262, "raw+o128": 0.0085,
+                       "xonly": 0.0364}
+# the fetch_map variants on the ring form (csrc/probe.cu:
+# w2x_probe_fetch_map, which reports each launch's route)
+MAP_RING = ("lane16_x4", "lane128", "lane128_x4", "in16+o128", "in128+o128",
+            "raw+o128", "xonly")
+# the ring form's wide geometry (csrc/probe.cu: fm_geometry), at grids no
+# tool runs: a tile row and its right stripe's wider than a slot (tc 1024),
+# the stripes wider than the head buffer (tc 256), one block of 32 KB rows
+MAP_WIDE = (("lane16_x4", (1, 2, 3, 16, 1024)), ("xonly", (1, 3, 2, 64, 256)),
+            ("lane128", (1, 2, 3, 16, 1024)),
+            ("in16+o128", (1, 2, 3, 16, 1024)))
 # The int8 kernel against its plain version over a whole stack, in f32: the
 # two quantise the same layer-5 values except where the summation order of
 # layers 1-5 moves one across a rounding tie of the quantiser, and such a
@@ -773,14 +805,169 @@ def stack_bound(plane: torch.Tensor, out_px: int, sp, maccs: int,
                                  else "bytes"), flops
 
 
-def phase19(dev: torch.device, sp16) -> list:
+TAP_FORMS = ("cell", "phase_taps")   # stack_scale_upto's names at upto 6
+
+
+def launch_taps(stack, x: torch.Tensor, sp, out: str, fold=None,
+                image=None) -> torch.Tensor:
+    """stack_scale_upto's tap form `out` alone, launched as its upto 6
+    launches it (the stack's launcher, _Launcher.taps: the fold, or with
+    fold=False the cell kernel): x the layer-6 plane [N, 2hl+2, 2wl+2, 128],
+    or with image = (hl, wl) B4's tile-major planes [N, ny, nx, 2tr+2,
+    2tc+2, 128] -> [N, hl, wl, 4] in x's dtype."""
+    if image is None:
+        n, h6, w6 = x.shape[:3]
+        hl, wl, tiling = (h6 - 2) // 2, (w6 - 2) // 2, None
+    else:
+        (n, ny, nx, h6, w6), (hl, wl) = x.shape[:5], image
+        tiling = ((h6 - 2) // 2, (w6 - 2) // 2, ny, nx)
+    y = torch.empty((n, hl, wl, 4), dtype=x.dtype, device=x.device)
+    stack._Launcher(None, x, None).taps(x, sp, y, n, hl, wl, out, tiling,
+                                        fold)
+    return y
+
+
+def taps_alone(dev: torch.device) -> dict:
+    """Phase 19's tap forms (stack_scale_upto at upto 6 ends in them) alone
+    on the fold (csrc/l7.cu, launch_taps): held against the fold's plain
+    version (_last_taps_plain)
+    at (1,27,38), (2,37,53), (1,5,300) and the scale512 layer-6 plane, and
+    on B4's tile-major planes at (2,37,53) and scale512, bf16 to one bf16
+    ulp (check_mma_layer), f32 <= 3e-5, one "fold" / "fold_f32" launch a
+    call, counted under its form in TAP_LAUNCHES; then each form timed
+    alone at
+    scale512 in both types in turns with the cell kernel (fold=False: cell,
+    fold, fold, cell), beside the byte bound, one cuDNN call for the same
+    function (TF32 off) and the plain version. Returns the numbers by form
+    and type."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.ops.convstack import no_tf32
+    from waifu2x_torch.utils.timing import time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(16)   # planes made there
+    res = {(out, dt): {"max_abs_err": 0.0} for out in TAP_FORMS
+           for dt in ("bf16", "f32")}
+    for dt in (torch.bfloat16, torch.float32):
+        key = "bf16" if dt == torch.bfloat16 else "f32"
+        sp = stack.prep_params(init_params(3), dt, dev)
+        kern = "fold" if dt == torch.bfloat16 else "fold_f32"
+        for shape in ((1, 27, 38), (2, 37, 53), (1, 5, 300), (16, 512, 512)):
+            n, hl, wl = shape
+            x6 = (torch.rand((n, 2 * hl + 2, 2 * wl + 2, 128), generator=gen,
+                             device=dev) * 2 - 1).to(dt)
+            for out in TAP_FORMS:
+                stack.reset_launches()
+                got = launch_taps(stack, x6, sp, out)
+                torch.cuda.synchronize()
+                tap = "ptaps" if out == "phase_taps" else "taps"
+                if stack.L7_LAUNCHES != {k: int(k == kern) for k in
+                                         stack.L7_LAUNCHES} or (
+                        stack.TAP_LAUNCHES != {k: int(k == tap) for k in
+                                               stack.TAP_LAUNCHES}):
+                    raise AssertionError(f"{out} {shape}: "
+                                         f"{stack.L7_LAUNCHES} "
+                                         f"{stack.TAP_LAUNCHES}")
+                ref = stack._last_taps_plain(x6, sp, out, True)
+                what = f"phase 19 {out} alone {shape} {key}"
+                if dt == torch.bfloat16:
+                    err, share = check_mma_layer(what, got, ref.to(dt))
+                else:
+                    err, share = check_f32(what, got, ref), None
+                res[out, key]["max_abs_err"] = max(
+                    res[out, key]["max_abs_err"], err)
+                log(f"{what}: max|fold - plain| = {err:.3g}"
+                    + ("" if share is None else f", {share:.4%} differ"))
+                del got, ref
+            if shape[0] < 16:
+                continue
+            # timed alone at scale512, in turns with the cell kernel
+            w7 = sp[6][0]
+            k4 = (w7[:, 0:4, 0].t().float().reshape(4, 128, 1, 1).to(dt)
+                  .contiguous(memory_format=torch.channels_last))
+            kt = tap_kernel(w7).to(dt).contiguous(
+                memory_format=torch.channels_last)
+            xc = x6.permute(0, 3, 1, 2)
+            item = x6.element_size()
+            for out in TAP_FORMS:
+                runs = {"cell": lambda k, o=out: launch_taps(
+                            stack, x6, sp, o, fold=False),
+                        "fold": lambda k, o=out: launch_taps(
+                            stack, x6, sp, o)}
+                turns = {"cell": [], "fold": []}
+                for which in ("cell", "fold", "fold", "cell"):
+                    turns[which].append(time_ms(runs[which], dev, 10))
+                lib_k = k4 if out == "phase_taps" else kt
+                with no_tf32():
+                    lib = time_ms(lambda k, w=lib_k: F.conv2d(xc, w, stride=2),
+                                  dev, 10)
+                t0 = time.perf_counter()
+                stack._last_taps_plain(x6, sp, out, True).to(dt)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                # the pixels the function reads (pixel (0, 0) of each cell,
+                # or all four), once, and its output, once
+                px = n * hl * wl * (1 if out == "phase_taps" else 4)
+                bound = (px * 128 + n * hl * wl * 4) * item / PEAK_BYTES * 1e3
+                res[out, key].update({
+                    "ms": sum(turns["fold"]) / 2,
+                    "cell_ms": sum(turns["cell"]) / 2, "turns": turns,
+                    "bound_ms": bound, "library_ms": lib,
+                    "plain_ms": plain_ms})
+                log(f"phase 19 {out} alone at scale512 {key}, in turns "
+                    f"(cell, fold, fold, cell): "
+                    + " / ".join(f"{t:.4f}" for t in (
+                        turns["cell"][0], turns["fold"][0],
+                        turns["fold"][1], turns["cell"][1]))
+                    + f" ms; bound {bound:.4f} ms by bytes "
+                    f"({100 * bound / res[out, key]['ms']:.1f}% of it), "
+                    f"cuDNN stride-2 conv {lib:.4f} ms, plain "
+                    f"{plain_ms:.1f} ms (host clock)")
+            del x6, xc
+            torch.cuda.empty_cache()
+        # on B4's tile-major planes (the default tile at scale512)
+        for (n, hl, wl), tile in (((2, 37, 53), (8, 16)),
+                                  ((16, 512, 512), stack.default_tile(512,
+                                                                      512))):
+            tr, tc = tile
+            ny, nx = -(-hl // tr), -(-wl // tc)
+            x6t = (torch.rand((n, ny, nx, 2 * tr + 2, 2 * tc + 2, 128),
+                              generator=gen, device=dev) * 2 - 1).to(dt)
+            planes = x6t.reshape(-1, 2 * tr + 2, 2 * tc + 2, 128)
+            for out in TAP_FORMS:
+                stack.reset_launches()
+                got = launch_taps(stack, x6t, sp, out, image=(hl, wl))
+                torch.cuda.synchronize()
+                if (stack.L7_LAUNCHES[kern] != 1 or stack.L7_LAUNCHES["cell"]
+                        or sum(stack.TAP_LAUNCHES.values()) != 1):
+                    raise AssertionError(f"{out} tiles: {stack.L7_LAUNCHES} "
+                                         f"{stack.TAP_LAUNCHES}")
+                ref = stack._tiles_image(stack._last_taps_plain(
+                    planes, sp, out, True), n, ny, nx)[:, :hl, :wl]
+                what = f"phase 19 {out} on B4's tiles {(n, hl, wl)} {key}"
+                err = (check_mma_layer(what, got, ref.to(dt))[0]
+                       if dt == torch.bfloat16 else check_f32(what, got, ref))
+                res[out, key]["max_abs_err"] = max(
+                    res[out, key]["max_abs_err"], err)
+                log(f"{what}, tile {tile}: max|fold - plain| = {err:.3g}")
+                del got, ref
+            del x6t, planes
+            torch.cuda.empty_cache()
+    return res
+
+
+
+def phase19(dev: torch.device, sp16, taps_launches: dict) -> list:
     """19. The truncation probes (tools/fused_strip_probe.py:134,162,
     k1_forensics.py:136, l14_probe.py:145) and the four-tap layer
     (tmm_probe.py:79,122): every new kernel and form against its plain
-    version (phase 18 holds the probe variants oneblk and xonly), then the
-    four tools at their JAX grids, counted. sp16 is the
-    shipped scale model in bf16 (for the library yardsticks). Returns the
-    kernel table's rows."""
+    version (phase 18 holds the probe variants oneblk and xonly), the two
+    tap forms alone on the fold (taps_alone), then the four tools at their
+    JAX grids, counted, layer 7 on the fold only. sp16 is the shipped scale
+    model in bf16 (for the library yardsticks); taps_launches holds the
+    same-cell taps' launches ("cell") read around layer_time_probe's run
+    (phase 15, stack.TAP_LAUNCHES).
+    Returns the kernel table's rows."""
     from waifu2x_torch.models.srcnn import init_params
     from waifu2x_torch.ops import probe, stack
     from waifu2x_torch.tools import (
@@ -867,6 +1054,8 @@ def phase19(dev: torch.device, sp16) -> list:
     log(f"phase 19 phase_taps after the Winograd layer 6, f32: "
         f"max|kernel - plain| = {err:.2e}")
 
+    taps = taps_alone(dev)
+
     # the four tools at their JAX grids, the stack's and the probes'
     # launches read around each tool's run
     iters = 20   # the tools' default: a warm-up and 20 captured calls a mode
@@ -876,12 +1065,14 @@ def phase19(dev: torch.device, sp16) -> list:
     stack_calls = {"fused_strip_probe": (1, 2, 3, 4, 5, 6, 7, 7, 7, 7, 0),
                    "k1_forensics": (1, 1, 2, 3, 4, 4, 4),
                    "l14_probe": (0, 2, 3, 4, 5)}
-    rows, stack_launches = {}, {}
+    rows, stack_launches, l7_launches, tap_launches = {}, {}, {}, {}
     for tool, argv in (
             (fused_strip_probe, fused_strip_probe.MODES),
             (k1_forensics, k1_forensics.MODES), (l14_probe, []),
             (tmm_probe, ["chlane"]), (tmm_probe, ["poslane"])):
         before, stack_before = dict(probe.LAUNCHES), stack.LAUNCHES
+        l7_before = dict(stack.L7_LAUNCHES)
+        tap_before = dict(stack.TAP_LAUNCHES)
         key = tool.__name__.rsplit(".", 1)[1] + (
             f" {argv[0]}" if tool is tmm_probe else "")
         log(f"phase 19 tools.{key}:")
@@ -891,8 +1082,31 @@ def phase19(dev: torch.device, sp16) -> list:
         rows[key + " launches"] = {k: probe.LAUNCHES[k] - before[k]
                                    for k in before}
         stack_launches[key] = stack.LAUNCHES - stack_before
+        l7_launches[key] = {k: stack.L7_LAUNCHES[k] - l7_before[k]
+                            for k in l7_before}
+        tap_launches[key] = {k: stack.TAP_LAUNCHES[k] - tap_before[k]
+                             for k in tap_before}
     want = {key: (iters + 1) * sum(stack_calls.get(key, ())) for key in
             stack_launches}
+    # layer 7 on the fold only: fused_strip_probe's mode 6 (the phase taps)
+    # and its three whole-stack modes (7, 107, dimsem), each a warm-up and
+    # 20 captured calls; no other tool reaches layer 7
+    want_l7 = {key: {"fold": 4 * (iters + 1) if key == "fused_strip_probe"
+                     else 0, "fold_f32": 0, "cell": 0, "pixel": 0}
+               for key in l7_launches}
+    # of which the tap forms: mode 6's phase taps, a warm-up and 20 captured
+    want_taps = {key: {"taps": 0, "ptaps": iters + 1 if key == (
+        "fused_strip_probe") else 0} for key in tap_launches}
+    if l7_launches != want_l7 or tap_launches != want_taps:
+        raise AssertionError(f"phase 19 layer-7 launches {l7_launches}, "
+                             f"tap forms {tap_launches} (want {want_l7}, "
+                             f"{want_taps})")
+    log(f"phase 19 layer-7 launches by tool {l7_launches}: "
+        f"{tap_launches['fused_strip_probe']['ptaps']} of "
+        f"fused_strip_probe's are the phase taps on the fold "
+        f"(TAP_LAUNCHES), none on the cell kernel")
+    taps_launches = dict(taps_launches, phase_taps=tap_launches[
+        "fused_strip_probe"]["ptaps"])
     per_variant = 1 + 2 * (iters + 1)   # measure(): check, graph, one by one
     tmm_launches = {layout: rows[f"tmm_probe {layout} launches"]["tap_mm"]
                     for layout in probe.TMM_LAYOUTS}
@@ -964,9 +1178,9 @@ def phase19(dev: torch.device, sp16) -> list:
         **bound(0, "lane0"), "library_ms": None,
         "ladder_ms": {r["mode"]: r["ms"] for r in rows[fs]
                       if "probe" not in r}}, {
-        "name": "conv3x3_bias_leaky_cell OUT_PTAPS (stack_scale_upto, upto 6, "
-                "out=\"phase_taps\")",
-        "route": "cuda", "source": "waifu2x_torch/csrc/common.cuh",
+        "name": "stack_scale_upto, upto 6, out=\"phase_taps\" (layers 1-6, "
+                "then l7_fold OUT_PTAPS)",
+        "route": "cuda", "source": "waifu2x_torch/csrc/l7.cu",
         "replaces": "tools/fused_strip_probe.py:162",
         "launches": form_launches["phase_taps"],
         "max_abs_err": form_err["phase_taps"],
@@ -991,6 +1205,30 @@ def phase19(dev: torch.device, sp16) -> list:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     out_rows[-1]["ladder_ms"] = {r["mode"]: r["ms"] for r in rows["l14_probe"]}
+    # the two tap forms alone (bf16 the rows' numbers, f32 beside them),
+    # their launches on the tools' runs
+    for out, what, tool, run in (
+            ("cell", "OUT_TAPS, the same-cell taps (stack_scale_upto "
+             "upto 6)", "tools/layer_time_probe.py:78",
+             "layer_time_probe (phase 15)"),
+            ("phase_taps", "OUT_PTAPS, the phase taps, pixel (0, 0) alone "
+             "(stack_scale_upto upto 6, out=\"phase_taps\")",
+             "tools/fused_strip_probe.py:162",
+             "fused_strip_probe (phase 19)")):
+        b, f = taps[out, "bf16"], taps[out, "f32"]
+        out_rows.append({
+            "name": f"l7_fold {what}: the fold's Zt lanes 0-3 (wgmma; f32 "
+                    f"l7_fold_f32, FFMA)",
+            "route": "cuda", "source": "waifu2x_torch/csrc/l7.cu",
+            "replaces": tool, "launches": taps_launches[out],
+            "launches_of": f"stack.TAP_LAUNCHES read around {run}",
+            "max_abs_err": b["max_abs_err"], "ms": b["ms"],
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": "bytes", "library_ms": b["library_ms"],
+            "cell_kernel_ms": b["cell_ms"], "turns": b["turns"],
+            "f32": {k: f[k] for k in ("ms", "cell_ms", "bound_ms",
+                                      "library_ms", "plain_ms",
+                                      "max_abs_err")}})
     return out_rows
 
 
@@ -3663,6 +3901,18 @@ def main() -> int:
     if upto_launches != 7 * 4 or stack.L6_LAUNCHES["direct"] != 2 * 4 + 4:
         raise AssertionError(f"layer_time_probe: layer-6 launches "
                              f"{stack.L6_LAUNCHES}")
+    # layer 7 on the fold only: upto 6's taps 4 times (OUT_TAPS), the whole
+    # stack 8 (a warm-up, 3 with events, a warm-up and 3 timed)
+    taps_launches = {"cell": stack.TAP_LAUNCHES["taps"]}
+    if stack.L7_LAUNCHES != {"fold": 4 + 8, "fold_f32": 0, "cell": 0,
+                             "pixel": 0} or stack.TAP_LAUNCHES != {
+                                 "taps": 4, "ptaps": 0}:
+        raise AssertionError(f"layer_time_probe: layer-7 launches "
+                             f"{stack.L7_LAUNCHES}, taps "
+                             f"{stack.TAP_LAUNCHES}")
+    log(f"phase 15 layer_time_probe layer-7 launches {stack.L7_LAUNCHES} "
+        f"({taps_launches['cell']} of them upto 6's taps on the fold, as "
+        f"TAP_LAUNCHES counted them; none on the cell kernel)")
     log("phase 15 tools.i8_fidelity_probe:")
     stack.reset_launches()
     if (i8_fidelity_probe.main(["--iters", "2"]) != 0
@@ -3829,13 +4079,14 @@ def main() -> int:
     from waifu2x_torch.ops import probe
     from waifu2x_torch.tools import dma_probe, grid_floor_probe, stage_time
     probe_err = {k: 0.0 for k in probe.LAUNCHES}
-    traffic_checked = []
+    traffic_checked, ring_routes = [], {}
     for tool, names in probe.TOOL_VARIANTS.items():
         g = probe.Grid(16 if tool in ("stage_time", "grid_floor_probe")
                        else 4, 8, 4)
         for name in names:
             v = probe.VARIANTS[name]
             args = probe.make_inputs(v, g, 0, dev)
+            routes_before = dict(probe.MAP_ROUTES)
             got = probe.run(v, g, args, device=dev)
             ref = probe.plain(v, g, args, dev)
             err, share, ok = probe.compare(got, ref)
@@ -3845,6 +4096,14 @@ def main() -> int:
                 f"{', exact sums' if name in probe.SUM_VARIANTS else ''})")
             if not ok:
                 raise AssertionError(f"probe {name}: kernel != plain")
+            if v.kernel == "fetch_map":   # the route the C entry took
+                taken = [k for k, n in probe.MAP_ROUTES.items()
+                         if n != routes_before[k]]
+                if len(taken) != 1 or (probe.MAP_ROUTES[taken[0]]
+                                       != routes_before[taken[0]] + 1):
+                    raise AssertionError(f"probe {name}: routes "
+                                         f"{probe.MAP_ROUTES}")
+                ring_routes[name] = taken[0]
             if probe.library_is_the_map(v):
                 # the yardstick computes this map's own function
                 lib = probe.library(v, g, args, dev)()
@@ -3870,6 +4129,27 @@ def main() -> int:
             del args, got, ref
     if traffic_checked != ["cin1", "cin4", "cin9", "4-fetch"]:
         raise AssertionError(f"traffic sums checked for {traffic_checked}")
+    # the router sent exactly these seven to the ring form
+    if sorted(n for n, r in ring_routes.items() if r == "ring") != sorted(
+            MAP_RING):
+        raise AssertionError(f"probe_fetch_map routes {ring_routes}")
+    log(f"phase 18 probe_fetch_map routes, as the C entry reported them: "
+        f"{ring_routes}")
+    # the ring form's wide geometry, bit-equal to the plain version
+    for name, shape in MAP_WIDE:
+        v, g = probe.VARIANTS[name], probe.Grid(*shape)
+        args = probe.make_inputs(v, g, 1, dev)
+        ring_before = probe.MAP_ROUTES["ring"]
+        got = probe.run(v, g, args, device=dev)
+        err, share, ok = probe.compare(got, probe.plain(v, g, args, dev))
+        log(f"phase 18 {name} at grid {shape} (the ring form's wide "
+            f"geometry) {tuple(got.shape)}: max|kernel - plain| = {err:.3g}, "
+            f"{share:.5%} differ (bar: bit-equal)")
+        if not ok or probe.MAP_ROUTES["ring"] != ring_before + 1:
+            raise AssertionError(f"probe {name} wide: kernel != plain or "
+                                 f"routes {probe.MAP_ROUTES}")
+        probe_err["fetch_map"] = max(probe_err["fetch_map"], err)
+        del args, got
     torch.cuda.empty_cache()
     # the slice's main path: the three tools, counted
     probe.reset_launches()
@@ -3903,22 +4183,29 @@ def main() -> int:
             + ("" if probe.library_is_the_map(probe.VARIANTS[r['name']])
                else "; the library copies, the map does more")
             + ")" for r in probe_rows if r["kernel"] == "fetch_map"))
-    # the two redesigned kernels: each variant's share of its bound, beside
-    # the library call and the first form's time
+    # the three redesigned kernels: each variant's share of its bound,
+    # beside the library call and the first form's time (the ring form's
+    # aim: within twice the bound)
     for kernel, what in (("fetch_reduce", "amax / sum over a view"),
-                         ("l1_mm", "bf16 matmul, weight lanes 0-3")):
+                         ("l1_mm", "bf16 matmul, weight lanes 0-3"),
+                         ("fetch_map", "contiguous() of the view")):
         parts = [f"{r['name']} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-                 f"({100 * r['bound_ms'] / r['ms']:.1f}% of it), library "
-                 f"{r['library_ms']:.4f} ({what}), first form "
+                 f"({100 * r['bound_ms'] / r['ms']:.1f}% of it"
+                 + (f"; aim {2 * r['bound_ms']:.4f} "
+                    f"{'met' if r['ms'] <= 2 * r['bound_ms'] else 'missed'}"
+                    if kernel == "fetch_map" else "")
+                 + f"), library {r['library_ms']:.4f} ({what}), first form "
                  f"{PROBE_FIRST_FORM_MS[r['name']]:.4f}"
-                 for r in probe_rows if r["kernel"] == kernel]
-        log(f"phase 18 probe_{kernel} against its bound, on {smi}: "
-            + "; ".join(parts))
+                 for r in probe_rows if r["kernel"] == kernel
+                 and (kernel != "fetch_map" or r["name"] in MAP_RING)]
+        log(f"phase 18 probe_{kernel}"
+            + (" (ring form)" if kernel == "fetch_map" else "")
+            + f" against its bound, on {smi}: " + "; ".join(parts))
     torch.cuda.empty_cache()
     log(f"phase 18 passed; {time.perf_counter() - t_start:.1f} s so far")
 
     t19 = time.perf_counter()
-    kernels19 = phase19(dev, sp16)
+    kernels19 = phase19(dev, sp16, taps_launches)
     torch.cuda.empty_cache()
     log(f"phase 19 passed in {time.perf_counter() - t19:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s so far")
@@ -4486,7 +4773,10 @@ def main() -> int:
     }]
     kernel_names = {
         "store": "probe_store, a constant to every output block",
-        "fetch_map": "probe_fetch_map, 1 or 4 blocks fetched, a map out",
+        "fetch_map": "probe_fetch_map, 1 or 4 blocks fetched, a map out "
+                     "(one block, no repeat: probe_map_direct, "
+                     "probe_map_planar; the rest persistent, block rows by "
+                     "TMA into a ring)",
         "fetch_reduce": "probe_fetch_reduce, 1 or 4 blocks fetched whole "
                         "by TMA into a ring, reduced to one f32 per cell "
                         "(persistent)",
@@ -4512,10 +4802,12 @@ def main() -> int:
                 r["bound_by"] == "operations" for r in rows_k) else "bytes"),
             "library_ms": sum(r["library_ms"] for r in rows_k),
             "variants": {r["name"]: {
-                key: r[key] for key in (
+                **{key: r[key] for key in (
                     "site", "bytes", "distinct_bytes", "ms", "eager_ms",
                     "rate_gbs", "bound_ms", "ffma_floor_ms", "plain_ms",
-                    "library_ms", "max_abs_err")}
+                    "library_ms", "max_abs_err")},
+                **({"form": ring_routes[r["name"]]} if k == "fetch_map"
+                   else {})}
                 for r in rows_k},
         })
     l7_row.update({   # the f32 fold's row: the stack and step it ends

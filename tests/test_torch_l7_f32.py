@@ -253,14 +253,14 @@ def fake_card(monkeypatch):
     ("scale", "wino", None, "w2x_l7_fold", "fold_f32"),
     ("scale", "i8", None, "w2x_l7_fold", "fold_f32"),
     ("fused_u8", "i8", None, "w2x_l7_fold", "fold_f32"),
-    ("scale", "direct", 6, "w2x_last_cell", "cell")],
+    ("scale", "direct", 6, "w2x_l7_fold", "fold_f32")],
     ids=["scale", "noise", "dense", "u8", "wino", "i8", "i8-u8", "taps"])
 def test_f32_stack_dispatch(sp32, fake_card, kind, form, upto, l7_entry,
                             l7_kernel):
     """A whole f32 stack call's last launch: the fold (csrc/l7.cu, counted
     under L7_LAUNCHES["fold_f32"], with w7's taps and bf16 = 0) on every
-    plane and on the int8 layer's tile-major planes (with their tiling);
-    the cell kernel for the truncation's taps."""
+    plane and on the int8 layer's tile-major planes (with their tiling),
+    and the truncation's taps as the fold's tap form (OUT_TAPS)."""
     n, h, w = 1, 20, 36
     x = torch.zeros((n, h, w))
     uvp = torch.zeros((n, h // 2 if kind == "noise" else h,
@@ -279,7 +279,8 @@ def test_f32_stack_dispatch(sp32, fake_card, kind, form, upto, l7_entry,
         assert args[0] == 0 and args[2] == sp32[6][0].data_ptr()
         assert args[16] == 0
         hl, wl = (h // 2, w // 2) if kind == "noise" else (h, w)
-        assert args[5:9] == (n, hl, wl, stack._OUT_MODES[kind])
+        mode = stack._OUT_TAPS if upto == 6 else stack._OUT_MODES[kind]
+        assert args[5:9] == (n, hl, wl, mode)
         assert args[12:16] == ((8, 16, 3, 3) if form == "i8" else (0,) * 4)
 
 

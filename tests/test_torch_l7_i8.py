@@ -297,10 +297,11 @@ def test_i8_stack_dispatch_reaches_the_fold(sps, fake_card, dtype, kind):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
 def test_i8_truncation_keeps_the_cell_kernel(sps, fake_card, dtype):
-    """stack_scale_upto at 6 under int8 still ends in the cell kernel's
-    same-cell taps on the tiles (w2x_last_cell, counted under "cell")."""
+    """stack_scale_upto at 6 under int8 with fold=False (the yardstick)
+    still ends in the cell kernel's same-cell taps on the tiles
+    (w2x_last_cell, counted under "cell")."""
     stack._launch(torch.zeros((1, 20, 36), dtype=dtype), sps[dtype], "scale",
-                  None, form="i8", tile=(4, 16), upto=6)
+                  None, form="i8", tile=(4, 16), upto=6, fold=False)
     names = [fn for fn, _ in fake_card]
     assert names[-1] == "w2x_last_cell" and "w2x_l7_fold" not in names
     assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 1,

@@ -12,10 +12,13 @@
 // B3, B6, B5's stack and B4's (the int8 branch, :551-585, ends in the same
 // l7_tap), in both storage types; and, under a zero-shift mask, the layer 7
 // of tools/shift_cost_probe.py:156 (its shift-sum :136-141 reads the cell
-// Dy*fy, Dx*fx: the same fold with a factor forced to 0). The truncation's
-// tap forms stay on stack.cu's and common.cuh's FFMA kernels, as do
-// last_layer(fold=False) and last_layer_tiles(fold=False), the timing
-// yardsticks.
+// Dy*fy, Dx*fx: the same fold with a factor forced to 0); and the
+// truncation's two tap forms (stack_scale_upto at upto 6, the JAX body's
+// :600-601 with zt from l7_tap; tools/layer_time_probe.py:78,
+// fused_strip_probe.py:162), which the cell kernel of common.cuh computed
+// with FFMA before (now w2x_last_cell, stack_scale_upto(fold=False), the
+// timing yardstick, as are last_layer(fold=False) and
+// last_layer_tiles(fold=False)).
 //
 // What it computes, on x6 [P, 2hl+2, 2wl+2, 128] (NHWC, bf16 or f32) and
 // the folded weights W [512, 16] (ops/s2d.py:pack_l7_fold) in x6's type:
@@ -31,7 +34,17 @@
 //   own row or column of Zt. ZS is a template parameter; ZS = 0 is the
 //   code above.
 //   then the bias and LeakyReLU in f32, and one of three epilogues on that
-//   one f32 Y, at the image's cell:
+//   one f32 Y, at the image's cell; or one of the two tap forms:
+//     OUT_TAPS   Zt[i, j, 0:4] (s = 0: the taps that lie in the cell's own
+//                2 x 2 pixels), no shift-sum, no bias, no LeakyReLU, in x6's
+//                type (bf16 rounded once), [N, oh, ow, 4];
+//     OUT_PTAPS  the same from W = pack_l7_ptaps(w7) (bf16), whose rows
+//                0-127 hold w7's taps 0-3 and the rest zeros, or in f32 from
+//                w7's taps 0-3 directly: sum over c of x6[2i, 2j, c] *
+//                w7[c, t], the unfolded partials of the cell's pixel (0, 0).
+//                Only that pixel is read: the tile's boxes of pixel row 0 and
+//                column parity 0, a quarter of x6, and the products over
+//                its 128 inputs alone;
 //     OUT_S2D    Y in x6's type (bf16 rounded once), [N, oh, ow, 4];
 //     OUT_DENSE  the same phase-chunked, [N, oh, ceil(ow/tc)*4*tc], zeros in
 //                the last chunk's columns past ow (common.cuh's layout; tc
@@ -55,7 +68,11 @@
 // only the 4 x 9 x 128 that W does not hold as zeros are issued, 0.29 ms of
 // the 67 TFLOP/s FFMA peak at ns1080. The FFMA kernels they replace read
 // each pixel in 16-32-byte pieces 512 bytes apart from their neighbours'
-// and ran at about a tenth of the memory rate.
+// and ran at about a tenth of the memory rate. OUT_TAPS reads all of x6 as
+// the other forms do; OUT_PTAPS a quarter of it (pixel (0, 0) of each
+// cell: 256 contiguous bytes of every 512 in the even pixel rows, 0.33 ms
+// at scale512 in bf16), so its tiles are a quarter of the size and its ring
+// four times as deep (12 tiles, the same bytes in flight).
 //
 // Design (both types):
 //   * A tile is a run of consecutive cells of one cell row: the two pixel
@@ -114,6 +131,7 @@
 namespace {
 
 constexpr int L7_STAGES = 3;
+constexpr int L7_STAGES_PT = 12;             // OUT_PTAPS: quarter tiles
 constexpr int L7_ZP = 20;                    // a cell's Zt row, floats
 // bf16
 constexpr int L7_THREADS = 128;              // one warpgroup
@@ -124,8 +142,10 @@ constexpr uint32_t L7_TILE_BYTES = 8 * L7_BOX_BYTES;
 constexpr uint32_t L7_W_BYTES = L7_K8 * 16 * 16;
 // the ring's tiles start 1024-byte aligned (the 128-byte swizzle's period);
 // the dynamic window is aligned up to that first
-constexpr uint32_t L7_SMEM = 1024 + L7_STAGES * L7_TILE_BYTES + L7_W_BYTES +
-                             2 * L7_CELLS * L7_ZP * 4 + L7_STAGES * 8;
+constexpr uint32_t L7_RING = L7_STAGES * L7_TILE_BYTES;
+static_assert(L7_STAGES_PT * 2 * L7_BOX_BYTES == L7_RING, "one ring size");
+constexpr uint32_t L7_SMEM = 1024 + L7_RING + L7_W_BYTES +
+                             2 * L7_CELLS * L7_ZP * 4 + L7_STAGES_PT * 8;
 static_assert(L7_SMEM <= 232448, "over the 227 KB a block may use");
 // f32
 constexpr int F7_THREADS = 256;              // eight warps, 16 channels each
@@ -134,9 +154,10 @@ constexpr uint32_t F7_BOX_BYTES = F7_CELLS * 128;   // 32 cells x 32 channels
 constexpr uint32_t F7_TILE_BYTES = 16 * F7_BOX_BYTES;
 constexpr uint32_t F7_W_BYTES = 32 * 9 * 16;        // w7 as [c4][tap][4]
 constexpr uint32_t F7_PART_BYTES = 8 * F7_CELLS * L7_ZP * 4;
-constexpr uint32_t F7_SMEM = 1024 + L7_STAGES * F7_TILE_BYTES + F7_W_BYTES +
-                             F7_PART_BYTES + 2 * F7_CELLS * L7_ZP * 4 +
-                             L7_STAGES * 8;
+constexpr uint32_t F7_RING = L7_STAGES * F7_TILE_BYTES;
+static_assert(L7_STAGES_PT * 4 * F7_BOX_BYTES == F7_RING, "one ring size");
+constexpr uint32_t F7_SMEM = 1024 + F7_RING + F7_W_BYTES + F7_PART_BYTES +
+                             2 * F7_CELLS * L7_ZP * 4 + L7_STAGES_PT * 8;
 static_assert(F7_SMEM <= 232448, "over the 227 KB a block may use");
 
 template <typename T>
@@ -222,6 +243,14 @@ template <int OUT_MODE, int ZS, typename T>
 __device__ __forceinline__ void l7_out(const L7Args<T>& a, const float* zp,
                                        const float* z, int n, int i, int j,
                                        float bias) {
+  if constexpr (OUT_MODE == OUT_TAPS || OUT_MODE == OUT_PTAPS) {
+    // the tap forms: Zt's lanes 0-3 of the cell itself, rounded once
+    const float4 zc = *reinterpret_cast<const float4*>(zp);
+    const float yv[4] = {zc.x, zc.y, zc.z, zc.w};
+    store4(static_cast<T*>(a.y) + (((size_t)n * a.oh + i) * a.ow + j) * 4,
+           yv);
+    return;
+  }
   constexpr int DX = (ZS & 1) ? 0 : L7_ZP;   // the cell j + fx
   const float* zr = (ZS & 2) ? zp : z;       // the cell row i + fy
   const float4 z0 = *reinterpret_cast<const float4*>(zp);
@@ -288,16 +317,19 @@ template <int OUT_MODE, int ZS>
 __global__ void __launch_bounds__(L7_THREADS, 1)
 l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
   constexpr int OUT = L7_CELLS - 1;   // output cells of a strip
+  // OUT_PTAPS: the two boxes of pixel (0, 0), its 128 inputs' 8 k16 steps
+  constexpr bool PT = OUT_MODE == OUT_PTAPS;
+  constexpr int BOXES = PT ? 2 : 8, STAGES = PT ? L7_STAGES_PT : L7_STAGES;
+  constexpr uint32_t TILE = BOXES * L7_BOX_BYTES;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   const uint32_t sbase = smem_addr(smem);
-  const uint32_t s_w = sbase + L7_STAGES * L7_TILE_BYTES;
-  float* zt = reinterpret_cast<float*>(smem + L7_STAGES * L7_TILE_BYTES +
-                                       L7_W_BYTES);
+  const uint32_t s_w = sbase + L7_RING;
+  float* zt = reinterpret_cast<float*>(smem + L7_RING + L7_W_BYTES);
   const uint32_t s_bar = s_w + L7_W_BYTES + 2 * L7_CELLS * L7_ZP * 4;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int s = 0; s < L7_STAGES; ++s) mbar_init(s_bar + 8 * s);
+    for (int s = 0; s < STAGES; ++s) mbar_init(s_bar + 8 * s);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
@@ -305,8 +337,7 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
   // output lanes x 8 inputs
   {
     const uint16_t* wg = reinterpret_cast<const uint16_t*>(a.w);
-    uint16_t* ws = reinterpret_cast<uint16_t*>(smem + L7_STAGES *
-                                               L7_TILE_BYTES);
+    uint16_t* ws = reinterpret_cast<uint16_t*>(smem + L7_RING);
     for (int i = tid; i < 512 * 16; i += L7_THREADS)
       ws[((i >> 7) * 16 + (i & 15)) * 8 + ((i >> 4) & 7)] = wg[i];
   }
@@ -316,14 +347,15 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
   // the tile at c into ring stage st (nothing past the list's end): eight
   // boxes of 64 cells x 64 channels, one for each pixel row a, column
   // parity b and half of the channels, box (a*2 + b)*2 + h holding inputs
-  // k = ((a*2 + b)*2 + h)*64 + c of the cells, issued by one thread
+  // k = ((a*2 + b)*2 + h)*64 + c of the cells (OUT_PTAPS: boxes 0 and 1),
+  // issued by one thread
   auto load = [&](const Cursor& c, int st) {
     if (tid == 0 && c.u < u1) {
       const uint32_t bar = s_bar + 8 * st;
-      mbar_expect(bar, L7_TILE_BYTES);
+      mbar_expect(bar, TILE);
       const int row = c.pixel_row(a.hl);
-      for (int box = 0; box < 8; ++box)
-        tma_load(sbase + st * L7_TILE_BYTES + box * L7_BOX_BYTES, &xmap,
+      for (int box = 0; box < BOXES; ++box)
+        tma_load(sbase + st * TILE + box * L7_BOX_BYTES, &xmap,
                  64 * (box & 1), (box >> 1) & 1, c.strip * OUT,
                  row + (box >> 2), bar);
     }
@@ -333,7 +365,7 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
   Cursor cc = pc;
   fence_proxy_async();   // W's stores, before the products read them
   __syncthreads();       // and the barriers' initialisation
-  for (int s = 0; s < L7_STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     load(pc, s);
     pc.advance(a.hl, a.nstrips);
   }
@@ -345,19 +377,19 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
   const int lane = tid & 31, w4 = tid >> 5;
   int t = 0, zb = 0;
   while (cc.u < u1) {
-    const int st = t % L7_STAGES;
+    const int st = t % STAGES;
     __syncthreads();   // every thread is done with stage t-1's tile
-    load(pc, (t + L7_STAGES - 1) % L7_STAGES);
+    load(pc, (t + STAGES - 1) % STAGES);
     pc.advance(a.hl, a.nstrips);
-    mbar_wait(s_bar + 8 * st, (t / L7_STAGES) & 1);   // tile t has landed
+    mbar_wait(s_bar + 8 * st, (t / STAGES) & 1);   // tile t has landed
 
     float acc[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
-    const uint32_t ta = sbase + st * L7_TILE_BYTES;
+    const uint32_t ta = sbase + st * TILE;
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < L7_K8 / 2; ++ks)   // box ks / 4, 32 bytes a step
+    for (int ks = 0; ks < 4 * BOXES; ++ks)   // box ks / 4, 32 bytes a step
       mma_k16<16>(acc, a_str | desc_addr(ta + (ks >> 2) * L7_BOX_BYTES +
                                          (ks & 3) * 32),
                   b_str | desc_addr(s_w + 2 * ks * 16 * 16));
@@ -397,18 +429,22 @@ template <int OUT_MODE, int ZS>
 __global__ void __launch_bounds__(F7_THREADS, 1)
 l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
   constexpr int OUT = F7_CELLS - 1;   // output cells of a strip
+  // OUT_TAPS: lanes s = 0 only; OUT_PTAPS: the four boxes of pixel (0, 0)
+  // and its products with taps 0-3
+  constexpr bool TAPS = OUT_MODE == OUT_TAPS, PT = OUT_MODE == OUT_PTAPS;
+  constexpr int BOXES = PT ? 4 : 16, STAGES = PT ? L7_STAGES_PT : L7_STAGES;
+  constexpr uint32_t TILE = BOXES * F7_BOX_BYTES;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   const uint32_t sbase = smem_addr(smem);
-  float4* s_w = reinterpret_cast<float4*>(smem + L7_STAGES * F7_TILE_BYTES);
-  float* part = reinterpret_cast<float*>(smem + L7_STAGES * F7_TILE_BYTES +
-                                         F7_W_BYTES);
+  float4* s_w = reinterpret_cast<float4*>(smem + F7_RING);
+  float* part = reinterpret_cast<float*>(smem + F7_RING + F7_W_BYTES);
   float* zt = part + F7_PART_BYTES / 4;
-  const uint32_t s_bar = sbase + L7_STAGES * F7_TILE_BYTES + F7_W_BYTES +
-                         F7_PART_BYTES + 2 * F7_CELLS * L7_ZP * 4;
+  const uint32_t s_bar = sbase + F7_RING + F7_W_BYTES + F7_PART_BYTES +
+                         2 * F7_CELLS * L7_ZP * 4;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int s = 0; s < L7_STAGES; ++s) mbar_init(s_bar + 8 * s);
+    for (int s = 0; s < STAGES; ++s) mbar_init(s_bar + 8 * s);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // w7 [128][9] -> [c4][tap][4]: the taps of four channels in one float4
@@ -420,14 +456,14 @@ l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
   block_rows(a.rows, u0, u1);
   // the tile at c into ring stage st: sixteen boxes of 32 cells x 32
   // channels, box (a*2 + b)*4 + h holding channels 32h .. 32h + 31 of pixel
-  // (a, b) of the cells, issued by one thread
+  // (a, b) of the cells (OUT_PTAPS: boxes 0-3), issued by one thread
   auto load = [&](const Cursor& c, int st) {
     if (tid == 0 && c.u < u1) {
       const uint32_t bar = s_bar + 8 * st;
-      mbar_expect(bar, F7_TILE_BYTES);
+      mbar_expect(bar, TILE);
       const int row = c.pixel_row(a.hl);
-      for (int box = 0; box < 16; ++box)
-        tma_load(sbase + st * F7_TILE_BYTES + box * F7_BOX_BYTES, &xmap,
+      for (int box = 0; box < BOXES; ++box)
+        tma_load(sbase + st * TILE + box * F7_BOX_BYTES, &xmap,
                  32 * (box & 3), (box >> 2) & 1, c.strip * OUT,
                  row + (box >> 3), bar);
     }
@@ -436,7 +472,7 @@ l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
   Cursor pc(u0, a.hl, a.nstrips);
   Cursor cc = pc;
   __syncthreads();       // w7's stores and the barriers' initialisation
-  for (int s = 0; s < L7_STAGES - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     load(pc, s);
     pc.advance(a.hl, a.nstrips);
   }
@@ -447,22 +483,23 @@ l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
   const uint32_t row_off = (warp >> 1) * F7_BOX_BYTES + lane * 128;
   int t = 0, zb = 0;
   while (cc.u < u1) {
-    const int st = t % L7_STAGES;
+    const int st = t % STAGES;
     __syncthreads();   // every thread is done with stage t-1's tile
-    load(pc, (t + L7_STAGES - 1) % L7_STAGES);
+    load(pc, (t + STAGES - 1) % STAGES);
     pc.advance(a.hl, a.nstrips);
-    mbar_wait(s_bar + 8 * st, (t / L7_STAGES) & 1);   // tile t has landed
+    mbar_wait(s_bar + 8 * st, (t / STAGES) & 1);   // tile t has landed
 
-    const uint8_t* tile = smem + st * F7_TILE_BYTES + row_off;
+    const uint8_t* tile = smem + st * TILE + row_off;
     float acc[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k) acc[k] = 0.0f;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int chunk = ((warp & 1) * 4 + jj) ^ (lane & 7);   // swizzled
-      float4 xv[4];
+      constexpr int PX = PT ? 1 : 4;   // pixels read
+      float4 xv[PX];
 #pragma unroll
-      for (int p = 0; p < 4; ++p)   // pixel (a, b) = (p / 2, p % 2)
+      for (int p = 0; p < PX; ++p)   // pixel (a, b) = (p / 2, p % 2)
         xv[p] = *reinterpret_cast<const float4*>(
             tile + p * 4 * F7_BOX_BYTES + chunk * 16);
       float4 wv[9];
@@ -471,10 +508,16 @@ l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
+        for (int p = 0; p < PX; ++p) {
           const float x = lane4(xv[p], e);
+          if constexpr (PT) {   // lane t: pixel (0, 0) through tap t
 #pragma unroll
-          for (int s = 0; s < 4; ++s)
+            for (int q = 0; q < 4; ++q)
+              acc[q] = fmaf(x, lane4(wv[q], e), acc[q]);
+            continue;
+          }
+#pragma unroll
+          for (int s = 0; s < (TAPS ? 1 : 4); ++s)
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
               // known at compile time: the tap of pixel p into lane s*4+q
@@ -608,7 +651,8 @@ int fold_args(L7Args<T>& a, const void* w, const void* b, void* y, int n,
   } else if (out_mode == OUT_U8) {
     if (uvp == nullptr || cmap == nullptr) return 0;
     a.cm = color_map(cmap);
-  } else if (out_mode != OUT_S2D) {
+  } else if (out_mode != OUT_S2D && out_mode != OUT_TAPS &&
+             out_mode != OUT_PTAPS) {
     return 0;
   }
   if (qt.tr == 0) {
@@ -647,9 +691,11 @@ extern "C" {
 // [n, hl, wl, 4] in the storage type), 1 (y [n, hl, ceil(wl/dense_tc)*4*
 // dense_tc] in the storage type, dense_tc a multiple of 32) or 2 (y u8
 // [n, hl, wl, 16] from the device array uvp [n, hl, wl, 8] f32 and the host
-// array cmap[12], w2x_stack_layer's); zs the zero-shift mask 0..3 (bit 0
-// columns, bit 1 rows), not 0 only with out_mode 0 and tr == 0. x, w, y and
-// uvp 16-byte aligned. Returns the cudaError_t of the launch.
+// array cmap[12], w2x_stack_layer's), or the tap forms 3 (OUT_TAPS) and 4
+// (OUT_PTAPS: for bf16 w pack_l7_ptaps' [512, 16]), y [n, hl, wl, 4] in the
+// storage type; zs the zero-shift mask 0..3 (bit 0 columns, bit 1 rows),
+// not 0 only with out_mode 0 and tr == 0. x, w, y and uvp 16-byte aligned.
+// Returns the cudaError_t of the launch.
 int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
                 void* y, int n, int hl, int wl, int out_mode,
                 const void* uvp, const float* cmap, int dense_tc, int tr,
@@ -667,8 +713,10 @@ int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
     const int planes = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap,
                                  dense_tc, qt, L7_CELLS);
     if (planes == 0) return (int)cudaErrorInvalidValue;
-    auto kernel = out_mode == OUT_DENSE ? l7_fold<OUT_DENSE, 0>
+    auto kernel = out_mode == OUT_DENSE   ? l7_fold<OUT_DENSE, 0>
                   : out_mode == OUT_U8  ? l7_fold<OUT_U8, 0>
+                  : out_mode == OUT_TAPS  ? l7_fold<OUT_TAPS, 0>
+                  : out_mode == OUT_PTAPS ? l7_fold<OUT_PTAPS, 0>
                   : zs == 1             ? l7_fold<OUT_S2D, 1>
                   : zs == 2             ? l7_fold<OUT_S2D, 2>
                   : zs == 3             ? l7_fold<OUT_S2D, 3>
@@ -680,8 +728,10 @@ int w2x_l7_fold(int bf16, const void* x, const void* w, const void* b,
   const int planes = fold_args(a, w, b, y, n, hl, wl, out_mode, uvp, cmap,
                                dense_tc, qt, F7_CELLS);
   if (planes == 0) return (int)cudaErrorInvalidValue;
-  auto kernel = out_mode == OUT_DENSE ? l7_fold_f32<OUT_DENSE, 0>
+  auto kernel = out_mode == OUT_DENSE   ? l7_fold_f32<OUT_DENSE, 0>
                 : out_mode == OUT_U8  ? l7_fold_f32<OUT_U8, 0>
+                : out_mode == OUT_TAPS  ? l7_fold_f32<OUT_TAPS, 0>
+                : out_mode == OUT_PTAPS ? l7_fold_f32<OUT_PTAPS, 0>
                 : zs == 1             ? l7_fold_f32<OUT_S2D, 1>
                 : zs == 2             ? l7_fold_f32<OUT_S2D, 2>
                 : zs == 3             ? l7_fold_f32<OUT_S2D, 3>

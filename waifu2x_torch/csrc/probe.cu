@@ -44,17 +44,15 @@
 // a thread over the whole output (see there); probe_fetch_map's hot forms
 // (one block, no repeat) compiled for their lanes, type and map: lane-inner
 // outputs with no shared memory (probe_map_direct), planar ones through a
-// padded shared-memory transpose fed by cp.async (probe_map_planar); the
-// others ROWS rows of a cell per CUDA block (several blocks per cell, so
-// that a 128-cell grid still fills 132 SMs), the rows staged through shared
-// memory where the output is a map of the input (a (64, 128, 16) bf16 block
-// is 256 KB, over a block's 227 KB). probe_fetch_reduce and probe_l1_mm
-// are persistent, one CUDA block an SM, a producer warp streaming block rows
-// into a ring of shared memory by the TMA unit (cp.async.bulk) ahead of the
-// consumer warps; probe_l1_mm's product is on the tensor cores (mma.sync, A
-// formed in registers). Sums are taken in a fixed order, so no result varies
-// from run to run. f32 maps use __fmul_rn / __fadd_rn, never
-// fmaf, so the plain version computes the same values.
+// padded shared-memory transpose fed by cp.async (probe_map_planar).
+// probe_fetch_map's other forms (four blocks, a repeat, a constant output,
+// a block wider than the output: probe_fetch_map below), probe_fetch_reduce
+// and probe_l1_mm are persistent, one CUDA block an SM, a producer warp
+// streaming block rows into a ring of shared memory by the TMA unit
+// (cp.async.bulk) ahead of the consumer warps; probe_l1_mm's product is on
+// the tensor cores (mma.sync, A formed in registers). Sums are taken in a
+// fixed order, so no result varies from run to run. f32 maps use __fmul_rn
+// / __fadd_rn, never fmaf, so the plain version computes the same values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,7 +64,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ROWS = 4;      // output rows per CUDA block (row-split kernels)
 
 enum { DT_BF16 = 0, DT_F32 = 1, DT_U8 = 2 };
 enum { FORM_LANES = 0, FORM_PLANAR = 1 };
@@ -81,6 +78,7 @@ enum {
   MAP_LANE0 = 7,    // x at lane 0, whatever the output lane
 };
 enum { RED_CORNER_MAX = 0, RED_LANE0_SUM = 1 };
+enum { ROUTE_DIRECT = 0, ROUTE_PLANAR = 1, ROUTE_RING = 2 };
 
 // One input block (bf16 elements) as a BlockSpec names it.
 struct In {
@@ -118,45 +116,12 @@ __device__ __forceinline__ void cell_of(int c, const Out& o, int& n, int& i,
   j = c % o.nx;
 }
 
-// Rows [r0, r0 + nr) of block b in cell (n, i, j), whole, into s.
-__device__ void stage(const In& b, int n, int i, int j, int r0, int nr,
-                      uint4* s) {
-  const int q = b.row_vecs();
-  for (int t = threadIdx.x; t < nr * q; t += blockDim.x)
-    s[t] = b.row(n, i, j, r0 + t / q)[t % q];
-}
-
 __device__ __forceinline__ uint32_t fold(uint4 v) {
   return v.x ^ v.y ^ v.z ^ v.w;
 }
 
-// The same rows read for their traffic alone (the fetch that the BlockSpec
-// makes) -> their fold.
-__device__ uint32_t touch(const In& b, int n, int i, int j, int r0, int nr) {
-  const int q = b.row_vecs();
-  uint32_t f = 0;
-#pragma unroll 8
-  for (int t = threadIdx.x; t < nr * q; t += blockDim.x)
-    f ^= fold(b.row(n, i, j, r0 + t / q)[t % q]);
-  return f;
-}
-
-// Rows [first, rows) of a short block (the 8-row lower stripes), shared
-// out among the cell's `splits` CUDA blocks -> the fold of this one's share.
-__device__ uint32_t touch_share(const In& b, int n, int i, int j, int first,
-                                int part, int splits) {
-  const int per = (b.rows - first + splits - 1) / splits;
-  const int lo = first + part * per;
-  const int nr = min(per, b.rows - lo);
-  return nr > 0 ? touch(b, n, i, j, lo, nr) : 0u;
-}
-
 __device__ __forceinline__ void keep(uint32_t f, uint32_t* sink) {
   if (sink != nullptr) sink[blockIdx.x * blockDim.x + threadIdx.x] = f;
-}
-
-__device__ __forceinline__ float bf(const uint4* s, int idx) {
-  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(s)[idx]);
 }
 
 __device__ __forceinline__ uint32_t bf_bits(float v) {
@@ -249,63 +214,365 @@ struct MapArgs {
   int form, op;
   int lg, xg, rep;   // as log2: all three are powers of two
   uint32_t* sink;
+  // probe_fetch_map (the ring form, fm_geometry): block rows a ring slot
+  // holds, the grid's cells, a slot's bytes, the ring's slots, and whether
+  // the lower and diagonal stripes land whole in the head buffer
+  int rpc, cells, sb, nslots, head;
 };
 
-__global__ void __launch_bounds__(THREADS) probe_fetch_map(MapArgs a) {
-  extern __shared__ uint4 smem[];
-  const int splits = a.out.rows / ROWS;
-  int n, i, j;
-  cell_of(blockIdx.x / splits, a.out, n, i, j);
-  const int r0 = (blockIdx.x % splits) * ROWS;
-  const bool stripes = a.nin == 4;
-  uint4* sa = smem;
-  uint4* sb = sa + ROWS * a.in[0].row_vecs();
-  uint4* sc = sb + (stripes ? ROWS * a.in[1].row_vecs() : 0);
-  uint4* sd = sc + (stripes ? a.in[2].row_vecs() : 0);
-  stage(a.in[0], n, i, j, r0, ROWS, sa);
-  if (stripes) {
-    stage(a.in[1], n, i, j, r0, ROWS, sb);   // rows align with the tile's
-    stage(a.in[2], n, i, j, 0, 1, sc);       // the body reads row 0
-    stage(a.in[3], n, i, j, 0, 1, sd);
-    const int part = blockIdx.x % splits;    // the rest of the two blocks
-    keep(touch_share(a.in[2], n, i, j, 1, part, splits) ^
-             touch_share(a.in[3], n, i, j, 1, part, splits),
-         a.sink);
+// The map's persistent form, on a ring of TMA-staged rows (the Hopper
+// design of dma_probe.py:55 lane16_x4, lane128 and lane128_x4,
+// dma_probe2.py:50 in16+o128, in128+o128 and raw+o128, l14_probe.py:145
+// xonly, and of every input the hot forms below do not take). Bound by
+// bytes: a few adds a byte. One CUDA block an SM walks whole cells (cell
+// blockIdx.x + k gridDim.x, so the cells in flight at one time are
+// consecutive and share their neighbours' blocks through L2). The producer
+// warp copies, a lane a block row, by the TMA unit (cp.async.bulk, each
+// copy counted in bytes on its slot's mbarrier):
+//   * with four blocks, first the lower and diagonal stripes whole into the
+//     cell's half of a two-cell head buffer (the stripes are the first 8
+//     rows of the tiles below and below-right, which the cells there read
+//     as their own first rows at the same step of their walks, so one fetch
+//     through L2 serves both);
+//   * then the tile's rows, `rpc` a slot of FM_SLOT bytes, the right
+//     stripe's rows landing in the same slot as their tile rows (the cell to
+//     the right reads those rows at the same step too);
+// ahead of the consumers by the ring's depth (FM_SLOTS_4 slots beside the
+// head buffer, FM_SLOTS_1 with one block). Rows wider than a slot, or
+// stripes wider than the head buffer, take the wide geometry instead
+// (fm_geometry; no tool's grid reaches it): slots as wide as the widest
+// row, as many as shared memory holds, and the lower and diagonal stripes'
+// rows streamed through the ring after the tile's, each slot only landed
+// and handed back, the consumers reading the stripes' row 0 from device
+// memory (L2) instead. Eight consumer warps take each
+// slot as it lands: every output vector of its rows, neighbouring threads
+// on neighbouring 16-byte addresses, is built from 8- or 16-byte shared
+// reads of the staged lanes (a repeated pixel's lanes read once and copied
+// in registers; map_vec, compiled for the variant's shape and map, see
+// ring_map), summed with __fadd_rn in the plain version's order and mapped,
+// then the slot is handed back; after the cell's last slot the head buffer
+// is. A constant output (MAP_CONST0) is stored before the cell's
+// first slot lands and reads nothing staged; its blocks land all the same,
+// each slot waited for and handed back. Forms and maps that map_vec is not
+// compiled for (u8 output, planar, a plane, other lanes or maps) build each
+// element from scalar shared reads (map_any). tools/probe_parts.py times
+// builds that compile a part out: W2X_MAP_RING (the consumers only wait for
+// each slot and hand it back), W2X_MAP_NO_OUT (no output stores) and
+// W2X_MAP_OUT_ONLY (nothing is copied: the walk and the stores alone).
+#ifdef W2X_MAP_RING
+constexpr bool FM_WORK = false;
+#else
+constexpr bool FM_WORK = true;
+#endif
+#ifdef W2X_MAP_NO_OUT
+constexpr bool FM_STORE = false;
+#else
+constexpr bool FM_STORE = true;
+#endif
+#ifdef W2X_MAP_OUT_ONLY
+constexpr bool FM_LAND = false;
+#else
+constexpr bool FM_LAND = true;
+#endif
+constexpr int FM_WARPS = 8;                          // consumer warps
+constexpr int FM_CONS = 32 * FM_WARPS;
+constexpr int FM_THREADS = FM_CONS + 32;             // + the producer warp
+constexpr int FM_SLOT = 16 * 1024;                   // bytes of a slot
+constexpr int FM_HEAD = 36 * 1024;                   // a cell's two stripes
+constexpr int FM_SLOTS_1 = 13, FM_SLOTS_4 = 9;       // ring slots
+constexpr int FM_SMEM = 232448;                      // a block's at most
+// shared memory: the ring, the head buffer of two cells, the slots' full
+// and empty barriers and the head buffer's
+__host__ __device__ constexpr int fm_smem(int sb, int nslots, bool head) {
+  return nslots * sb + (head ? 2 * FM_HEAD : 0) + 8 * (2 * nslots + 4);
+}
+static_assert(fm_smem(FM_SLOT, FM_SLOTS_4, true) <= FM_SMEM &&
+                  fm_smem(FM_SLOT, FM_SLOTS_1, false) <= FM_SMEM,
+              "over a block's shared memory");
+
+// Lane e of a staged row, as a float.
+__device__ __forceinline__ float bf(const uint8_t* row, int e) {
+  return __uint_as_float(
+      (uint32_t)reinterpret_cast<const uint16_t*>(row)[e] << 16);
+}
+
+// N (4 or 8) bf16 lanes from lane c of pixel p of a staged row (la lanes a
+// pixel), as floats, by one 8- or 16-byte read.
+template <int N>
+__device__ __forceinline__ void lanes_of(const uint8_t* row, int p, int la,
+                                         int c, float* v) {
+  uint32_t w[N / 2];
+  if constexpr (N == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + 2 * (p * la + c));
+    w[0] = u.x;
+    w[1] = u.y;
+    w[2] = u.z;
+    w[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(row + 2 * (p * la + c));
+    w[0] = u.x;
+    w[1] = u.y;
+  }
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) {
+    v[2 * e] = __uint_as_float(w[e] << 16);
+    v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+}
+
+// The staged rows an output row reads: the tile's and, with four blocks,
+// the right stripe's row r and the lower and diagonal stripes' row 0.
+struct MapRows {
+  const uint8_t *a, *b, *c, *d;
+};
+
+// N lanes of t = ((a + b) + c) + d (or a) at source pixel xs, lane c0.
+template <int N, bool X4>
+__device__ __forceinline__ void term(const MapRows& s, int xs, int la, int c0,
+                                     float* v) {
+  lanes_of<N>(s.a, xs, la, c0, v);
+  if constexpr (X4) {
+    float b[N], c[N], d[N];
+    lanes_of<N>(s.b, 0, la, c0, b);
+    lanes_of<N>(s.c, xs, la, c0, c);
+    lanes_of<N>(s.d, 0, la, c0, d);
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      v[e] = __fadd_rn(__fadd_rn(__fadd_rn(v[e], b[e]), c[e]), d[e]);
+  }
+}
+
+// Output vector k of a row, bf16 lane-inner, the vector path compiled for
+// its shape LG and map OP: LG = 4 (pixels 2k and 2k + 1, lanes 0-3) or LG = 8
+// (lg >= 8: one pixel, lanes 8k mod lg on), each pixel's lanes read whole
+// from the input's (lg <= la, not a plane or MAP_LANE0).
+template <bool X4, int LG, int OP>
+__device__ __forceinline__ uint4 map_vec(const MapArgs& a, const MapRows& s,
+                                         int k) {
+  const int la = a.in[0].lanes;
+  float v[8];
+  if constexpr (LG == 8) {
+    const int e0 = 8 * k;
+    term<8, X4>(s, (e0 >> a.lg) >> a.rep, la, e0 & ((1 << a.lg) - 1), v);
+  } else {
+    const int xs0 = (2 * k) >> a.rep, xs1 = (2 * k + 1) >> a.rep;
+    term<4, X4>(s, xs0, la, 0, v);
+    if (xs1 == xs0) {   // a repeated pixel: its lanes copied in registers
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[4 + e] = v[e];
+    } else {
+      term<4, X4>(s, xs1, la, 0, v + 4);
+    }
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    w[e] = bf_bits(apply(OP, v[2 * e])) |
+           (bf_bits(apply(OP, v[2 * e + 1])) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The same element by element, for every form (u8 output, planar, any
+// lanes), from scalar shared reads.
+template <bool X4>
+__device__ __forceinline__ uint4 map_any(const MapArgs& a, const MapRows& s,
+                                         int k) {
+  const int la = a.in[0].lanes, E = 16 / a.out.esize;
+  return pack(a.out.dtype, [&](int e) {
+    const int qq = k * E + e;
+    int x, c;
+    if (a.form == FORM_LANES) {
+      x = qq >> a.lg;
+      c = qq & ((1 << a.lg) - 1);
+    } else {
+      c = qq >> a.xg;
+      x = qq & ((1 << a.xg) - 1);
+    }
+    const int xs = x >> a.rep;
+    const int lane = la > 1 && a.op != MAP_LANE0 ? c : 0;
+    float t = bf(s.a, xs * la + lane);
+    if constexpr (X4) {
+      t = __fadd_rn(t, bf(s.b, lane));
+      t = __fadd_rn(t, bf(s.c, xs * la + lane));
+      t = __fadd_rn(t, bf(s.d, lane));
+    }
+    return apply(a.op, t);
+  });
+}
+
+// LG = 0: every output vector by map_any (every form, and the constant
+// block, which forms nothing); LG = 4 or 8: by map_vec<X4, LG, OP>.
+template <bool X4, int LG, int OP>
+__global__ void __launch_bounds__(FM_THREADS, 1) probe_fetch_map(MapArgs a) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int slots = a.nslots, sb = a.sb;
+  const bool hd = X4 && a.head;   // the stripes whole in the head buffer
+  const uint32_t ring = smem_addr(sm);
+  uint8_t* const head = sm + slots * sb;   // hd: cell k's at k & 1
+  const uint32_t full = ring + slots * sb + (hd ? 2 * FM_HEAD : 0);
+  const uint32_t empty = full + 8 * slots;
+  const uint32_t hfull = empty + 8 * slots, hempty = hfull + 16;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, FM_WARPS);
+    }
+    if (hd) {
+      for (int h = 0; h < 2; ++h) {
+        mbar_init(hfull + 8 * h, 1);
+        mbar_init(hempty + 8 * h, FM_WARPS);
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int la = a.in[0].lanes, ca = a.in[0].cols;
-  const int E = 16 / a.out.esize, q = a.out.row_vecs();
-  for (int t = threadIdx.x; t < ROWS * q; t += blockDim.x) {
-    const int r = t / q, k = t % q;
-    const uint4 v = pack(a.out.dtype, [&](int e) {
-      const int qq = k * E + e;
-      int x, c;
-      if (a.form == FORM_LANES) {
-        x = qq >> a.lg;
-        c = qq & ((1 << a.lg) - 1);
-      } else {
-        c = qq >> a.xg;
-        x = qq & ((1 << a.xg) - 1);
+  const In& A = a.in[0];
+  const In& L = a.in[2];
+  const In& D = a.in[3];
+  const int rpc = a.rpc, rb0 = A.cols * A.lanes * 2;
+  const int rb1 = X4 ? a.in[1].cols * a.in[1].lanes * 2 : 0;
+  const int rbl = X4 ? L.cols * L.lanes * 2 : 0;
+  const int rbd = X4 ? D.cols * D.lanes * 2 : 0;
+  // the wide geometry's stripe rows a slot
+  const int pl = X4 ? min(32, sb / rbl) : 1, pd = X4 ? min(32, sb / rbd) : 1;
+
+  // the ring's position: the slot, its phase (the parity of its uses so
+  // far), and whether every slot has been used once (no divisions: a
+  // consumer takes a slot in a few dozen instructions)
+  int slot = 0, ph = 0;
+  bool wrapped = false;
+  auto next = [&]() {
+    if (++slot == slots) {
+      slot = 0;
+      ph ^= 1;
+      wrapped = true;
+    }
+  };
+  if (tid >= FM_CONS) {   // the producer warp: a lane a block row
+    // rows [0, rows) of block B, `per` a slot, into the ring (wide: the
+    // stripes after the tile)
+    auto stream = [&](const In& B, int n, int i, int j, int rb, int per) {
+      for (int r0 = 0; r0 < B.rows; r0 += per, next()) {
+        const int nr = min(per, B.rows - r0);
+        if (wrapped) mbar_wait(empty + 8 * slot, ph ^ 1);
+        if (lane == 0) mbar_expect(full + 8 * slot, nr * rb);
+        __syncwarp();
+        if (lane < nr)
+          bulk_load(ring + slot * sb + lane * rb, B.row(n, i, j, r0 + lane),
+                    rb, full + 8 * slot);
       }
-      if (a.op == MAP_CONST0) return 0.0f;
-      const int xs = x >> a.rep;
-      const int lane = la > 1 && a.op != MAP_LANE0 ? c : 0;
-      float s = bf(sa, (r * ca + xs) * la + lane);
-      if (stripes) {
-        s = __fadd_rn(s, bf(sb, r * a.in[1].cols * la + lane));
-        s = __fadd_rn(s, bf(sc, xs * la + lane));
-        s = __fadd_rn(s, bf(sd, lane));
+    };
+    for (int k = 0, c = blockIdx.x; FM_LAND && c < a.cells;
+         ++k, c += gridDim.x) {
+      int n, i, j;
+      cell_of(c, a.out, n, i, j);
+      if (hd) {   // the lower and diagonal stripes, whole
+        const int hb = k & 1;
+        if (k >= 2)   // the buffer's last cell handed back
+          mbar_wait(hempty + 8 * hb, ((k >> 1) - 1) & 1);
+        if (lane == 0)
+          mbar_expect(hfull + 8 * hb, L.rows * rbl + D.rows * rbd);
+        __syncwarp();
+        const uint32_t hs = smem_addr(head + hb * FM_HEAD);
+        for (int r = lane; r < L.rows + D.rows; r += 32) {
+          if (r < L.rows)
+            bulk_load(hs + r * rbl, L.row(n, i, j, r), rbl, hfull + 8 * hb);
+          else
+            bulk_load(hs + L.rows * rbl + (r - L.rows) * rbd,
+                      D.row(n, i, j, r - L.rows), rbd, hfull + 8 * hb);
+        }
       }
-      return apply(a.op, s);
-    });
-    a.out.row(n, i, j, r0 + r)[k] = v;
+      for (int r0 = 0; r0 < A.rows; r0 += rpc, next()) {
+        const int nr = min(rpc, A.rows - r0);
+        if (wrapped)   // the slot's last use handed back
+          mbar_wait(empty + 8 * slot, ph ^ 1);
+        if (lane == 0) mbar_expect(full + 8 * slot, nr * (rb0 + rb1));
+        __syncwarp();
+        if (lane < nr) {
+          const uint32_t dst = ring + slot * sb;
+          bulk_load(dst + lane * rb0, A.row(n, i, j, r0 + lane), rb0,
+                    full + 8 * slot);
+          if (X4)   // the right stripe's row beside its tile row
+            bulk_load(dst + rpc * rb0 + lane * rb1,
+                      a.in[1].row(n, i, j, r0 + lane), rb1, full + 8 * slot);
+        }
+      }
+      if (X4 && !hd) {   // wide: the stripes through the ring
+        stream(L, n, i, j, rbl, pl);
+        stream(D, n, i, j, rbd, pd);
+      }
+    }
+    return;
+  }
+
+  const int q = a.out.row_vecs();
+  const long long pitch = a.out.pitch * a.out.esize / 16;   // vectors a row
+  const bool zero = a.op == MAP_CONST0;
+  // a slot that holds nothing the consumers read: landed, handed back
+  auto pass = [&](int rows, int per) {
+    for (int r0 = 0; r0 < rows; r0 += per, next()) {
+      if (FM_LAND) mbar_wait(full + 8 * slot, ph);
+      __syncwarp();
+      if (lane == 0 && FM_LAND) mbar_arrive(empty + 8 * slot);
+    }
+  };
+  for (int k = 0, c = blockIdx.x; c < a.cells; ++k, c += gridDim.x) {
+    int n, i, j;
+    cell_of(c, a.out, n, i, j);
+    uint4* const out0 = a.out.row(n, i, j, 0);
+    MapRows s;
+    if (hd) {
+      s.c = head + (k & 1) * FM_HEAD;   // the lower stripe's row 0
+      s.d = s.c + L.rows * rbl;         // the diagonal stripe's row 0
+    } else if (X4) {   // wide: row 0 of each from device memory
+      s.c = reinterpret_cast<const uint8_t*>(L.row(n, i, j, 0));
+      s.d = reinterpret_cast<const uint8_t*>(D.row(n, i, j, 0));
+    }
+    if (zero) {   // the constant block, before anything lands
+      for (int e = tid; FM_WORK && FM_STORE && e < a.out.rows * q;
+           e += FM_CONS)
+        out0[(e / q) * pitch + e % q] = make_uint4(0u, 0u, 0u, 0u);
+    } else if (hd && FM_LAND) {
+      mbar_wait(hfull + 8 * (k & 1), (k >> 1) & 1);
+    }
+    for (int r0 = 0; r0 < A.rows; r0 += rpc, next()) {
+      const int nr = min(rpc, A.rows - r0);
+      if (FM_LAND) mbar_wait(full + 8 * slot, ph);
+      if (!zero && FM_WORK) {
+        const uint8_t* sv = sm + slot * sb;
+        for (int e = tid; e < nr * q; e += FM_CONS) {
+          const int r = e / q, kv = e % q;
+          s.a = sv + r * rb0;
+          s.b = sv + rpc * rb0 + r * rb1;
+          uint4 v;
+          if constexpr (LG == 0)
+            v = map_any<X4>(a, s, kv);
+          else
+            v = map_vec<X4, LG, OP>(a, s, kv);
+          if (FM_STORE || v.x == 0x7fc00001u)   // (keeps v live)
+            out0[(r0 + r) * pitch + kv] = v;
+        }
+      }
+      __syncwarp();
+      if (lane == 0 && FM_LAND) mbar_arrive(empty + 8 * slot);
+    }
+    if (X4 && !hd) {   // wide: the stripes' slots
+      pass(L.rows, pl);
+      pass(D.rows, pd);
+    } else if (hd && FM_LAND) {   // the stripes landed (a constant block
+                                  // waits here) and read
+      if (zero) mbar_wait(hfull + 8 * (k & 1), (k >> 1) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(hempty + 8 * (k & 1));
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // probe_fetch_map's hot forms, compiled for their lanes, type and map (the
 // map's single-block, rep-1 forms whose output row holds every pixel of the
-// block row; probe_fetch_map above takes the rest):
+// block row; probe_fetch_map above, the ring form, takes the rest):
 //
 // probe_map_direct<LA, LG, DT, OP>, output lane-inner: output pixel x takes
 // input pixel x, its lanes 0..LG-1 (lane 0 in all of them where LA is 1 or
@@ -889,7 +1156,7 @@ bool make_out(void* p, const long long* d, Out& o, int& cells) {
   o.ny = (int)d[6];
   o.nx = (int)d[7];
   cells = (int)(d[5] * d[6] * d[7]);
-  return o.dtype >= 0 && o.dtype <= DT_U8 && o.rows % ROWS == 0 &&
+  return o.dtype >= 0 && o.dtype <= DT_U8 && o.rows > 0 &&
          (o.run * o.esize) % 16 == 0 && (o.pitch * o.esize) % 16 == 0 &&
          (reinterpret_cast<uintptr_t>(p) % 16) == 0 && cells > 0;
 }
@@ -965,10 +1232,57 @@ const void* direct_map(int la, int lg, int dtype, int op) {
   return nullptr;
 }
 
+// probe_fetch_map's ring form for (four blocks, input lanes, output lanes,
+// map, type, form): the vector path where it is compiled for the variant's
+// shape and map (the four-block copies of lane16_x4, lane128_x4 and
+// xonly, lane128's repeated copy, in128+o128's zero map), else map_any.
+const void* ring_map(bool x4, int la, int lg, int op, int dtype, int form) {
+  const bool vec = dtype == DT_BF16 && form == FORM_LANES && la > 1 &&
+                   op != MAP_LANE0 && lg <= la;
+  if (vec && lg == 4 && la % 4 == 0 && op == MAP_COPY)
+    return x4 ? (const void*)probe_fetch_map<true, 4, MAP_COPY>
+              : (const void*)probe_fetch_map<false, 4, MAP_COPY>;
+  if (vec && lg >= 8 && la % 8 == 0 && op == MAP_ZERO && !x4)
+    return (const void*)probe_fetch_map<false, 8, MAP_ZERO>;
+  return x4 ? (const void*)probe_fetch_map<true, 0, MAP_COPY>
+            : (const void*)probe_fetch_map<false, 0, MAP_COPY>;
+}
+
 // pixels a thread of probe_map_direct maps (DirectGeo::G)
 int direct_group(int la, int lg, int dtype) {
   const int in_px = 2 * la, out_px = lg * esize_of(dtype);
   return imax(in_px >= 16 ? 1 : 16 / in_px, out_px >= 16 ? 1 : 16 / out_px);
+}
+
+// The ring form's geometry for block rows of rb[k] bytes (a.in filled):
+// FM_SLOT-byte slots, FM_SLOTS_1 or FM_SLOTS_4 of them, where a tile row
+// and its right stripe's fit a slot and (four blocks) the lower and
+// diagonal stripes a cell's half of the head buffer; else the wide
+// geometry, slots as wide as the widest block row, as many as a block's
+// shared memory holds, the stripes through the ring. False where no slot
+// fits (a row over FM_SMEM) or a block row holds no bytes.
+bool fm_geometry(MapArgs& a, const long long* rb) {
+  const bool x4 = a.nin == 4;
+  const long long row = rb[0] + rb[1];
+  for (int k = 0; k < a.nin; ++k)
+    if (rb[k] <= 0) return false;
+  const long long stripes =
+      x4 ? a.in[2].rows * rb[2] + a.in[3].rows * rb[3] : 0;
+  if (row <= FM_SLOT && stripes <= FM_HEAD) {
+    a.sb = FM_SLOT;
+    a.nslots = x4 ? FM_SLOTS_4 : FM_SLOTS_1;
+    a.head = x4;
+  } else {
+    long long sb = row > FM_SLOT ? row : FM_SLOT;
+    for (int k = 2; k < a.nin; ++k) sb = rb[k] > sb ? rb[k] : sb;
+    if (sb > FM_SMEM) return false;
+    a.sb = (int)sb;
+    a.nslots = (FM_SMEM - fm_smem(0, 0, false)) / (a.sb + 16);
+    a.head = 0;
+    if (a.nslots < 1) return false;
+  }
+  a.rpc = (int)(a.sb / row < 32 ? a.sb / row : 32);
+  return true;
 }
 
 }  // namespace
@@ -1004,21 +1318,23 @@ int w2x_probe_store(void* out, const long long* od, const void* seed,
   return (int)cudaGetLastError();
 }
 
+// `route`, where not null, is set to the kernel launched: ROUTE_DIRECT
+// (probe_map_direct), ROUTE_PLANAR (probe_map_planar) or ROUTE_RING
+// (probe_fetch_map).
 int w2x_probe_fetch_map(const void* const* ins, const long long* id, int nin,
                         void* out, const long long* od, int form, int lg,
-                        int xg, int rep, int op, void* stream) {
+                        int xg, int rep, int op, int* route, void* stream) {
   MapArgs a;
   int cells;
   if ((nin != 1 && nin != 4) || !make_out(out, od, a.out, cells) ||
       a.out.dtype == DT_F32 || log2_of(lg) < 0 || log2_of(xg) < 0 ||
       log2_of(rep) < 0 || (long long)lg * xg != a.out.run)
     return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
+  long long rbytes[4] = {0, 0, 0, 0};   // a block row's bytes
   for (int k = 0; k < nin; ++k) {
     if (!make_in(ins[k], id + 9 * k, a.in[k]))
       return (int)cudaErrorInvalidValue;
-    const size_t row = (size_t)a.in[k].cols * a.in[k].lanes * 2;
-    smem += (k < 2 ? ROWS : 1) * row;
+    rbytes[k] = 2LL * a.in[k].cols * a.in[k].lanes;
   }
   if (a.in[0].rows != a.out.rows || (nin == 4 && a.in[1].rows != a.out.rows))
     return (int)cudaErrorInvalidValue;
@@ -1038,21 +1354,38 @@ int w2x_probe_fetch_map(const void* const* ins, const long long* id, int nin,
         ? direct_map(b.lanes, lg, a.out.dtype, op) : nullptr;
     const int g = direct_group(b.lanes, lg, a.out.dtype);
     if (fn != nullptr && b.cols % g == 0 &&
-        ((long long)a.out.rows * (b.cols / g)) % THREADS == 0)
+        ((long long)a.out.rows * (b.cols / g)) % THREADS == 0) {
+      if (route != nullptr) *route = ROUTE_DIRECT;
       return (int)launch_dyn(fn, cells * (a.out.rows * (b.cols / g) /
                                           THREADS), 0, s, args);
+    }
     if (form == FORM_PLANAR && b.lanes == 16 && lg == 4 &&
         a.out.dtype == DT_BF16 && (op == MAP_COPY || op == MAP_HALF) &&
-        a.out.rows % PLANAR_ROWS == 0 && b.cols % 8 == 0)
+        a.out.rows % PLANAR_ROWS == 0 && b.cols % 8 == 0) {
+      if (route != nullptr) *route = ROUTE_PLANAR;
       return (int)launch_dyn(
           op == MAP_COPY ? (const void*)probe_map_planar<MAP_COPY>
                          : (const void*)probe_map_planar<MAP_HALF>,
           cells * (a.out.rows / PLANAR_ROWS),
           (size_t)PLANAR_ROWS * (b.cols / 8) * PLANAR_GROUP, s, args,
           PLANAR_THREADS);
+    }
   }
-  return (int)launch_dyn(reinterpret_cast<const void*>(probe_fetch_map),
-                         cells * (a.out.rows / ROWS), smem, s, args);
+  // the rest on the ring form: four blocks, a repeat, a constant block, an
+  // input row wider than the output's (dma_probe.py:55 lane16_x4, lane128,
+  // lane128_x4; dma_probe2.py:50 in16+o128, in128+o128, raw+o128;
+  // l14_probe.py:145 xonly)
+  if (!fm_geometry(a, rbytes)) return (int)cudaErrorInvalidValue;
+  a.cells = cells;
+  int sms;
+  const cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return (int)err;
+  const bool x4 = nin == 4;
+  if (route != nullptr) *route = ROUTE_RING;
+  return launched(launch_dyn(
+      ring_map(x4, a.in[0].lanes, lg, op, a.out.dtype, form),
+      cells < sms ? cells : sms, fm_smem(a.sb, a.nslots, a.head), s, args,
+      FM_THREADS));
 }
 
 // `sink`, where not null, holds one word a thread of the grid (the grid is

@@ -58,6 +58,11 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (the same)
 # launches of each kernel by its wrapper; the plain versions add none
 LAUNCHES = {"store": 0, "fetch_map": 0, "fetch_reduce": 0, "l1_mm": 0,
             "tap_mm": 0}
+# fetch_map's launches by the kernel that w2x_probe_fetch_map reports it
+# launched: "direct" (probe_map_direct), "planar" (probe_map_planar), "ring"
+# (probe_fetch_map, persistent on a TMA ring)
+MAP_ROUTES = {"direct": 0, "planar": 0, "ring": 0}
+_ROUTE_NAMES = ("direct", "planar", "ring")   # csrc/probe.cu: ROUTE_*
 SEED_BYTES = 8 * 128 * 4   # stage_time's (1, 8, 128) f32 seed block
 ROTATE_BYTES = 400e6       # timed launches cycle through buffers of 8x L2
 RED_THREADS = 288          # csrc/probe.cu's probe_fetch_reduce block
@@ -70,8 +75,9 @@ _LANES = {"x16": 16, "x9": 9, "x128": 128, "raw": 1}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, MAP_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -486,7 +492,7 @@ _LLP, _PTRP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_PTR)
 _ARGTYPES = {
     "w2x_probe_store": [_PTR, _LLP, _PTR, _INT, ctypes.c_float, _PTR],
     "w2x_probe_fetch_map": [_PTRP, _LLP, _INT, _PTR, _LLP, _INT, _INT, _INT,
-                            _INT, _INT, _PTR],
+                            _INT, _INT, ctypes.POINTER(_INT), _PTR],
     "w2x_probe_fetch_reduce": [_PTRP, _LLP, _INT, _PTR, _LLP, _INT, _INT,
                                _PTR, ctypes.c_longlong, _PTR],
     "w2x_probe_l1_mm": [_PTR, _LLP, _PTR, _PTR, _LLP, _PTR],
@@ -593,9 +599,10 @@ def pack_l1_mm(w: torch.Tensor) -> torch.Tensor:
 
 
 def _c_args(v: Variant, g: Grid, args: dict, out: torch.Tensor, sink=None,
-            keep: "list | None" = None) -> tuple:
+            keep: "list | None" = None, route=None) -> tuple:
     """The C entry's arguments but the stream; tensors made here (the
-    packed weight) are appended to `keep`."""
+    packed weight) are appended to `keep`. fetch_map's entry sets `route`,
+    a ctypes.c_int where given, to the kernel it launched (_ROUTE_NAMES)."""
     o = out_spec(v.out, g)
     od, x = _out_desc(o, g), args.get("x")
     bs = [block(k, v.array, g) for k in v.ins]
@@ -614,7 +621,8 @@ def _c_args(v: Variant, g: Grid, args: dict, out: torch.Tensor, sink=None,
     head = (ins, _in_desc(bs, g), len(bs), out.data_ptr(), od)
     if v.kernel == "fetch_map":
         return head + (int(o.form == "planar"), o.lg, o.xg, v.rep,
-                       _MAPS[v.op])
+                       _MAPS[v.op],
+                       None if route is None else ctypes.byref(route))
     return head + (_REDUCTIONS[v.op], o.lg,
                    None if sink is None else sink.data_ptr(),
                    0 if sink is None else sink.numel())
@@ -629,7 +637,8 @@ def _prepare(v: Variant, g: Grid, args: dict, out=None, device=None,
     if out is None:
         out = torch.empty(o.shape(g), dtype=_DTYPES[o.dtype], device=dev)
     keep = [out, args, sink]
-    cargs = _c_args(v, g, args, out, sink, keep)
+    route = ctypes.c_int(-1) if v.kernel == "fetch_map" else None
+    cargs = _c_args(v, g, args, out, sink, keep, route)
     lib = _lib()
     fn = getattr(lib, f"w2x_probe_{v.kernel}")
 
@@ -640,6 +649,8 @@ def _prepare(v: Variant, g: Grid, args: dict, out=None, device=None,
             msg = lib.w2x_probe_error_string(err).decode()
             raise RuntimeError(f"probe kernel {v.kernel}, {v.name}: {msg}")
         LAUNCHES[v.kernel] += 1
+        if route is not None:
+            MAP_ROUTES[_ROUTE_NAMES[route.value]] += 1
 
     return out, launch
 

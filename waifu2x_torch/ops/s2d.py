@@ -232,3 +232,23 @@ def pack_l7_fold(w7) -> np.ndarray:
                     rows = slice((a * 2 + b) * ci, (a * 2 + b + 1) * ci)
                     blk[rows, s * 4 + qa * 2 + qb] += w7[dy, dx, :, 0]
     return blk
+
+
+def pack_l7_ptaps(w7) -> np.ndarray:
+    """Taps 0-3 of the last layer, unfolded, as the fold's weight
+    (csrc/l7.cu's phase-taps form): [3, 3, ci, 1] -> W [4*ci, 16] with
+    W[c, t] = w7[dy_t, dx_t, c, 0] for t = dy*3 + dx = 0..3, (dy, dx) =
+    (0,0), (0,1), (0,2), (1,0), and every other entry zero. Rows 0..ci-1
+    are the inputs of pixel (0, 0) of an s2d cell (pack_l7_fold's lane
+    order), so Zt[I, J, t] = sum over c of X6[2I, 2J, c] * w7[dy_t, dx_t,
+    c]: the unfolded partials of the cell's pixel (0, 0), read from that
+    pixel alone."""
+    w7 = np.asarray(w7, np.float32)
+    if w7.ndim != 4 or w7.shape[:2] != (3, 3) or w7.shape[3] != 1:
+        raise ValueError(f"pack_l7_ptaps takes [3, 3, ci, 1], got "
+                         f"{w7.shape}")
+    ci = w7.shape[2]
+    blk = np.zeros((4 * ci, 16), np.float32)
+    for t in range(4):
+        blk[:ci, t] = w7[t // 3, t % 3, :, 0]
+    return blk

@@ -69,9 +69,13 @@ int8 layer 6's tile-major planes take the same kernels, each tile a plane,
 its Y written at the image's cells and cropped (l7_tiles_plain;
 last_layer_tiles alone). Under a zero-shift mask (the probes' layer 7, s2d
 on a plane) the fold's shift-sum reads a zeroed axis' own cell of Zt
-(l7_fold_plain(zs=)). The truncation's tap forms keep the FFMA kernels
-(csrc/stack.cu per pixel, common.cuh per cell), as do last_layer(fold=False)
-and last_layer_tiles(fold=False), layer 7 alone in either kernel
+(l7_fold_plain(zs=)). The truncation's two tap forms (stack_scale_upto at
+upto 6) are output forms of the same fold: out="cell" stores Zt's lanes 0-3
+(l7_fold_plain(taps=True)), out="phase_taps" the same lanes from
+StackParams.w7p = pack_l7_ptaps(w7), whose rows 0-127 hold w7's taps 0-3,
+the kernel reading pixel (0, 0) of each cell alone. fold=False keeps the FFMA
+kernels (csrc/stack.cu per pixel, common.cuh per cell) in stack_scale_upto,
+last_layer and last_layer_tiles, layer 7 alone in either kernel
 (l7_fold_chosen decides), the timing yardsticks.
 L7_LAUNCHES counts every layer-7 launch by kernel.
 
@@ -143,6 +147,7 @@ from waifu2x_torch.ops.s2d import (
     d2s,
     pack_l1_scale,
     pack_l7_fold,
+    pack_l7_ptaps,
     pack_mma,
     pack_mma_i8,
     pack_mma_tf32,
@@ -206,11 +211,15 @@ I8_LAUNCHES = {"mma": 0, "dp4a": 0}
 # last_layer_tiles alone, of the probes' stacks, and the truncation's tap
 # forms) by the kernel that ran it: "fold" the tensor-core fold (csrc/l7.cu,
 # bf16, on a plane or the int8 layer's tiles), "fold_f32" the FFMA fold
-# (csrc/l7.cu, f32, likewise; both under a zero-shift mask too), "cell"
-# common.cuh's cell kernel (the taps; dense and u8 with fold=False, and every
-# form of last_layer_tiles with fold=False), "pixel" stack.cu's per-pixel
-# kernel (s2d with fold=False, under a mask or not)
+# (csrc/l7.cu, f32, likewise; both under a zero-shift mask and in the tap
+# forms too), "cell" common.cuh's cell kernel (with fold=False: the taps,
+# dense and u8, and every form of last_layer_tiles), "pixel" stack.cu's
+# per-pixel kernel (s2d with fold=False, under a mask or not)
 L7_LAUNCHES = {"fold": 0, "fold_f32": 0, "cell": 0, "pixel": 0}
+# the fold's launches in the truncation's two tap forms (stack_scale_upto at
+# upto 6; counted under L7_LAUNCHES "fold" / "fold_f32" too): "taps"
+# OUT_TAPS, the same-cell taps, "ptaps" OUT_PTAPS, the phase taps
+TAP_LAUNCHES = {"taps": 0, "ptaps": 0}
 
 # the last layer's output forms (csrc/common.cuh: OUT_*)
 _OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS, _OUT_PTAPS = 0, 1, 2, 3, 4
@@ -230,7 +239,7 @@ def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
     for counts in (KERNEL_LAUNCHES, L6_LAUNCHES, MID_LAUNCHES, WINO_LAUNCHES,
-                   L7_LAUNCHES, L1_LAUNCHES, I8_LAUNCHES):
+                   L7_LAUNCHES, TAP_LAUNCHES, L1_LAUNCHES, I8_LAUNCHES):
         for kind in counts:
             counts[kind] = 0
 
@@ -256,6 +265,8 @@ class StackParams(tuple):
            pack_mma(w_k) for k = 2..6
     and layer 7's as its folded tap product (csrc/l7.cu) reads them:
       w7f  [512, 16] in the storage dtype: pack_l7_fold(w7)
+      w7p  [512, 16] in the storage dtype: pack_l7_ptaps(w7), the
+           truncation's phase taps on the bf16 fold
     and layer 1's of the scale stack (csrc/l1.cu and every plain scale
     stack):
       w1s  [9, 128] in the storage dtype: pack_l1_scale(w1), each phase sum
@@ -344,6 +355,8 @@ def prep_params(params, dtype=torch.bfloat16, device="cuda") -> StackParams:
                   .contiguous() for p in params[1:6])
     w7 = torch.as_tensor(params[6]["w"]).detach().cpu().float().numpy()
     sp.w7f = (torch.from_numpy(pack_l7_fold(w7)).to(device, dtype)
+              .contiguous())
+    sp.w7p = (torch.from_numpy(pack_l7_ptaps(w7)).to(device, dtype)
               .contiguous())
     w1 = torch.as_tensor(params[0]["w"]).detach().cpu().float().numpy()
     sp.w1s = (torch.from_numpy(pack_l1_scale(w1)).to(device, dtype)
@@ -605,23 +618,25 @@ def _wt(sp, x: torch.Tensor, k: int) -> tuple:
     return wt[k - 1]
 
 
-def _w7f(sp, x: torch.Tensor) -> torch.Tensor:
-    """StackParams.w7f, checked against the layer-6 plane x it will meet.
-    f32 weights without that field (a bare tuple of (w, b) pairs, which
-    every wrapper takes in the direct form, as _w1s does for layer 1) have
-    it packed from the stored w7, which in f32 is prep_params' own pack;
-    bf16 weights need prep_params' (packed from the f32 weights, then
-    rounded)."""
-    w7f = getattr(sp, "w7f", None)
+def _w7f(sp, x: torch.Tensor, phase_taps: bool = False) -> torch.Tensor:
+    """StackParams.w7f (with phase_taps, w7p: the truncation's phase taps),
+    checked against the layer-6 plane x it will meet. f32 weights without
+    that field (a bare tuple of (w, b) pairs, which every wrapper takes in
+    the direct form, as _w1s does for layer 1) have it packed from the
+    stored w7, which in f32 is prep_params' own pack; bf16 weights need
+    prep_params' (packed from the f32 weights, then rounded)."""
+    name, pack = ("w7p", pack_l7_ptaps) if phase_taps else ("w7f",
+                                                           pack_l7_fold)
+    w7f = getattr(sp, name, None)
     if w7f is None and sp[6][0].dtype == torch.float32:
         w7 = sp[6][0].detach().cpu().reshape(128, 3, 3, 1).permute(1, 2, 0, 3)
-        w7f = torch.from_numpy(pack_l7_fold(w7.numpy())).to(sp[6][0].device)
+        w7f = torch.from_numpy(pack(w7.numpy())).to(sp[6][0].device)
     if w7f is None or tuple(w7f.shape) != (512, 16):
-        raise ValueError("the folded layer 7 needs prep_params' "
-                         "StackParams.w7f [512, 16]")
+        raise ValueError(f"the folded layer 7 needs prep_params' "
+                         f"StackParams.{name} [512, 16]")
     if (w7f.device != x.device or not w7f.is_contiguous()
             or w7f.dtype != sp[6][0].dtype):
-        raise TypeError(f"w7f must be contiguous {sp[6][0].dtype} on "
+        raise TypeError(f"{name} must be contiguous {sp[6][0].dtype} on "
                         f"{x.device}, got {w7f.dtype} on {w7f.device}")
     return w7f
 
@@ -841,8 +856,8 @@ def last_layer_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _last_layer_f32(x, w, b, zs).to(x.dtype)
 
 
-def l7_fold_plain(x6: torch.Tensor, w7f: torch.Tensor, b: torch.Tensor,
-                  zs: int = 0) -> torch.Tensor:
+def l7_fold_plain(x6: torch.Tensor, w7f: torch.Tensor, b, zs: int = 0,
+                  taps: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the folded layer 7 (csrc/l7.cu) on the
     stored layer-6 plane: x6 [N, 2hl+2, 2wl+2, 128] NHWC, w7f [512, 16]
     (pack_l7_fold), b [1] f32 -> Y f32 [N, hl, wl, 4], not rounded. Zt is
@@ -850,14 +865,21 @@ def l7_fold_plain(x6: torch.Tensor, w7f: torch.Tensor, b: torch.Tensor,
     off; Y the four shifted 4-lane slices Zt[i + Dy*fy, j + Dx*fx, 4s:4s+4]
     (s = 2Dy + Dx) added in the order s = 0, 1, 2, 3, then the bias and
     LeakyReLU. fy = fx = 1, or under the zero-shift mask zs (bit 0 columns,
-    bit 1 rows) 0 on each zeroed axis: last_layer_plain(zs)'s function."""
-    if zs not in range(4):
-        raise ValueError(f"zs must be 0..3, got {zs!r}")
+    bit 1 rows) 0 on each zeroed axis: last_layer_plain(zs)'s function.
+    taps=True gives the tap forms instead: Zt[i, j, 0:4] alone, no
+    shift-sum, bias (b is not read) or LeakyReLU: the same-cell taps with
+    w7f, and with pack_l7_ptaps' weight the unfolded taps 0-3 of the cell's
+    pixel (0, 0), whose products involve that pixel alone (only its 128
+    rows of the weight are not zero; the kernel reads only those)."""
+    if zs not in range(4) or (zs and taps):
+        raise ValueError(f"zs must be 0..3, and 0 for the taps; got {zs!r}")
     n, h6, w6, c = x6.shape
     hl, wl = (h6 - 2) // 2, (w6 - 2) // 2
     cells = (x6.float().reshape(n, hl + 1, 2, wl + 1, 2, c)
              .permute(0, 1, 3, 2, 4, 5).reshape(n, hl + 1, wl + 1, 4 * c))
     with no_tf32():
+        if taps:
+            return cells[:, :hl, :wl] @ w7f.float()[:, 0:4]
         zt = cells @ w7f.float()
     fx, fy = 1 - (zs & 1), 1 - (zs >> 1)
     y = (zt[:, :hl, :wl, 0:4] + zt[:, :hl, fx:fx + wl, 4:8]
@@ -865,16 +887,16 @@ def l7_fold_plain(x6: torch.Tensor, w7f: torch.Tensor, b: torch.Tensor,
     return leaky_relu(y + b)
 
 
-def l7_tiles_plain(x6t: torch.Tensor, w7f: torch.Tensor,
-                   b: torch.Tensor) -> torch.Tensor:
+def l7_tiles_plain(x6t: torch.Tensor, w7f: torch.Tensor, b,
+                   taps: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the folded layer 7 on the int8 layer 6's
     tile-major planes (csrc/l7.cu with a tiling): x6t [N, ny, nx, 2tr+2,
     2tc+2, 128] NHWC -> Y f32 [N, ny*tr, nx*tc, 4], l7_fold_plain of each
-    tile placed at its cells of the tile grid, not rounded (the caller crops
-    to the image)."""
+    tile (its tap forms with taps=True) placed at its cells of the tile
+    grid, not rounded (the caller crops to the image)."""
     n, ny, nx = x6t.shape[:3]
     return _tiles_image(l7_fold_plain(x6t.reshape(-1, *x6t.shape[3:]), w7f,
-                                      b), n, ny, nx)
+                                      b, taps=taps), n, ny, nx)
 
 
 def _tiles_image(y: torch.Tensor, n: int, ny: int, nx: int) -> torch.Tensor:
@@ -1056,7 +1078,7 @@ def _taps_plain(x6: torch.Tensor, w7: torch.Tensor, dtype) -> torch.Tensor:
 
 def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
                  form: str = "direct", tiling=None, upto=None,
-                 mma: bool = False, out: str = "cell"):
+                 mma: bool = False, out: str = "cell", fold=None):
     """The stack from layer 1's output x1 [N, 32, 2hg+12, 2wg+12] (f32
     values, _l1_values) -> [N, hg, wg, 4] in s2d layout (f32 values):
     F.conv2d + bias + LeakyReLU per layer in f32 with TF32 off, each stored
@@ -1066,7 +1088,10 @@ def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
     6's; with "i8", `tiling` = (tr, tc, ny, nx) must cover hg x wg exactly.
     upto (1..6) stops after that layer and gives its 4 values per cell
     (stack_scale_upto), in the form `out`: with "whole" (upto 1..5) the
-    layer's whole NHWC plane, with "phase_taps" (upto 6) the unfolded taps.
+    layer's whole NHWC plane, with "phase_taps" (upto 6) the unfolded taps;
+    at upto 6 the fold's tap forms (l7_fold_plain(taps=True)) unless
+    fold=False, which takes the cell kernel's FFMA sums (_taps_plain,
+    _phase_taps_plain).
     With `mma`, layers 2-6 are mma_layer_plain from the packed weights
     sp.wm (layer 6 only in its direct form). Layer 7 is the folded tap
     product, as csrc/l7.cu computes it: l7_fold_plain on layer 6's plane,
@@ -1074,12 +1099,13 @@ def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
     rounded where the kernel that the call reaches rounds it (bf16 and
     MID_MMA on)."""
     hg, wg = (x1.shape[2] - 12) // 2, (x1.shape[3] - 12) // 2
-    w7, b7 = sp[6]
+    b7 = sp[6][1]
 
     def last(x6):
         if upto == 6:
-            return (_phase_taps_plain if out == "phase_taps"
-                    else _taps_plain)(x6, w7, dtype)
+            return _last_taps_plain(x6.permute(0, 2, 3, 1), sp, out,
+                                    l7_fold_chosen(0, fold)).to(
+                                        dtype).float()
         if x6.dim() == 6:
             y = l7_tiles_plain(x6, _w7f(sp, x6), b7)
         else:
@@ -1119,7 +1145,7 @@ def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
 
 def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
                      form: str = "direct", tile=None, upto=None,
-                     mma: bool = False, out: str = "cell"):
+                     mma: bool = False, out: str = "cell", fold=None):
     """Layer 1 on the low-res plane (edge-extended to the int8 tile grid,
     where there is one; _l1_values), the stack (_plain_stack), cropped ->
     [N, hl, wl, 4] as f32 values (out="whole": the uncropped plane)."""
@@ -1127,7 +1153,7 @@ def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
         ylow, False, form if upto in (None, 6) else "direct", tile)
     x1 = _l1_values(ylow, sp).permute(0, 3, 1, 2)
     y = _plain_stack(x1, sp, ylow.dtype, round_last, form, tiling, upto, mma,
-                     out)
+                     out, fold)
     return y if out == "whole" else y[:, :hl, :wl]
 
 
@@ -1151,9 +1177,10 @@ def _lowres_window(ylow: torch.Tensor, dy: int, dx: int, rows: int,
 
 
 def stack_scale_upto_plain(ylow: torch.Tensor, sp, upto: int, l6_i8=None,
-                           l6_wino=None, tile=None,
-                           out: str = "cell") -> torch.Tensor:
-    """Plain PyTorch version of stack_scale_upto, in each output form."""
+                           l6_wino=None, tile=None, out: str = "cell",
+                           fold=None) -> torch.Tensor:
+    """Plain PyTorch version of stack_scale_upto, in each output form, of
+    the kernel that `fold` chooses at upto 6."""
     form = l6_form(l6_i8, l6_wino)
     _check(ylow, sp, form if upto == 6 else "direct")
     _check_upto(upto, out)
@@ -1166,7 +1193,7 @@ def stack_scale_upto_plain(ylow: torch.Tensor, sp, upto: int, l6_i8=None,
         return torch.stack([_lowres_window(ylow, dy, dx, hl, wl)
                             for dy, dx in taps], dim=-1)
     return _scale_plain_f32(ylow, sp, form=form, tile=tile, upto=upto,
-                            out=out).to(ylow.dtype)
+                            out=out, fold=fold).to(ylow.dtype)
 
 
 def s2d_to_dense(y_s2d: torch.Tensor, tc: int) -> torch.Tensor:
@@ -1406,6 +1433,24 @@ class _Launcher:
         if i8 is not None:
             I8_LAUNCHES[i8] += 1
 
+    def taps(self, x6, sp, y, n, hl, wl, out: str = "cell", tiling=None,
+             fold=None, l6=None) -> None:
+        """stack_scale_upto's tap form `out` ("cell" or "phase_taps") from
+        the layer-6 plane x6 (tile-major with tiling, as l7_fold) into y
+        [n, hl, wl, 4]: the fold's tap form (l7_fold, _OUT_TAPS or
+        _OUT_PTAPS), or with fold=False common.cuh's cell kernel
+        (w2x_last_cell, counted L7_LAUNCHES["cell"]), the yardstick. l6 is
+        the launch's L6_LAUNCHES key, if any."""
+        mode = _OUT_PTAPS if out == "phase_taps" else _OUT_TAPS
+        if l7_fold_chosen(0, fold):
+            self.l7_fold(x6, sp, y, n, hl, wl, mode, tiling=tiling, l6=l6)
+        else:
+            w7, b7 = sp[6]
+            self.run("l6", "w2x_last_cell", "layer 7 (cell taps)", l6,
+                     x6.data_ptr(), w7.data_ptr(), b7.data_ptr(),
+                     y.data_ptr(), n, hl, wl, mode, None, None, 0,
+                     *(tiling or (0, 0, 0, 0)), l7="cell")
+
     def layer(self, k: int, full_res: bool, src, sp, dst, n, ph, pw,
               out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0, zs: int = 0,
               pp: bool = False, fold=None) -> None:
@@ -1483,25 +1528,30 @@ class _Launcher:
                  tf32_plan(*WIDTHS[k]).smem_bytes, mid="mma_tf32")
 
     def l7_fold(self, x6, sp, y, n, hl, wl, out_mode=_OUT_S2D, uvp=None,
-                cmap=None, tc=0, tiling=None, zs: int = 0) -> None:
+                cmap=None, tc=0, tiling=None, zs: int = 0, l6=None) -> None:
         """Layer 7 folded (csrc/l7.cu) from the [n, 2hl+2, 2wl+2, 128]
         plane x6, or with tiling = (tr, tc, ny, nx) from the int8 layer's
         tile-major x6 [n, ny, nx, 2tr+2, 2tc+2, 128] cropped to hl x wl, into
-        y in the form out_mode (tc: the dense chunk): bf16 on the tensor
-        cores from StackParams.w7f, f32 with FFMA from w7's taps [128, 9]
-        (w7f's entries that are not zero). zs, a zero-shift mask, applies to
-        s2d output on a plane only."""
+        y in the form out_mode (tc: the dense chunk; _OUT_TAPS and
+        _OUT_PTAPS the truncation's tap forms): bf16 on the tensor cores
+        from StackParams.w7f (w7p for _OUT_PTAPS), f32 with FFMA from w7's
+        taps [128, 9] (w7f's entries that are not zero). zs, a zero-shift
+        mask, applies to s2d output on a plane only; l6 is the launch's
+        L6_LAUNCHES key, if any."""
         if zs and (out_mode != _OUT_S2D or tiling is not None):
             raise ValueError(f"the folded layer 7 takes a zero-shift mask "
                              f"(zs={zs}) on a plane in s2d layout only")
-        w = _w7f(sp, x6) if self.bf16 else sp[6][0]
+        w = (_w7f(sp, x6, out_mode == _OUT_PTAPS) if self.bf16
+             else sp[6][0])
         self.run("l7", "w2x_l7_fold",
-                 f"layer 7 (fold{'' if self.bf16 else ', f32'})", None,
+                 f"layer 7 (fold{'' if self.bf16 else ', f32'})", l6,
                  x6.data_ptr(), w.data_ptr(), sp[6][1].data_ptr(),
                  y.data_ptr(), n, hl, wl, out_mode,
                  None if uvp is None else uvp.data_ptr(), cmap, tc,
                  *(tiling or (0, 0, 0, 0)), zs,
                  l7="fold" if self.bf16 else "fold_f32")
+        if out_mode in (_OUT_TAPS, _OUT_PTAPS):
+            TAP_LAUNCHES["ptaps" if out_mode == _OUT_PTAPS else "taps"] += 1
 
     def mma_layer(self, k: int, src, sp, dst, n, hin, win, l6=None,
                   zs: int = 0, pp: bool = False) -> None:
@@ -1596,7 +1646,7 @@ def _last_buffer(out_mode: int, x: torch.Tensor, n: int, hl: int, wl: int,
 
 def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             form: str = "direct", tile=None, upto=None,
-            out_form: str = "cell") -> torch.Tensor:
+            out_form: str = "cell", fold=None) -> torch.Tensor:
     """One call's launches on the current stream, no synchronisation: x is
     the low-res plane [N, hl, wl] (kinds "scale", "dense", "fused_u8") or
     the full-res plane [N, h, w] ("noise": any size, computed on the
@@ -1604,8 +1654,9 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
     [N, hl, wl, 4], or for "dense" Y [N, hl, nx*4*tc], or for "fused_u8"
     u8 BGR [N, hl, wl, 16] from `uvp`; with `upto` (0..6) the stack stops
     after that layer and its 4 values per cell are written instead, or the
-    other form `out_form` of stack_scale_upto. `form` is layer 6's; "i8"
-    runs on the plane edge-extended to the tile grid. `events`, a list of
+    other form `out_form` of stack_scale_upto (at upto 6 on the fold, or
+    with fold=False on the cell kernel). `form` is layer 6's; "i8" runs on
+    the plane edge-extended to the tile grid. `events`, a list of
     timing-enabled CUDA events, is recorded before the first launch and
     after each layer's launches (8 events for a whole stack, upto + 2 with
     `upto`)."""
@@ -1658,12 +1709,8 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
         elif upto is None:   # folded, from the tile-major layer 6
             run.l7_fold(x6, sp, out, n, hl, wl, out_mode, uvp, cmap, tc,
                         tiling)
-        else:   # the same-cell taps
-            w7, b7 = sp[6]
-            run.run("l6", "w2x_last_cell", "upto 6", "upto", x6.data_ptr(),
-                    w7.data_ptr(), b7.data_ptr(), out.data_ptr(), n, hl, wl,
-                    _OUT_PTAPS if out_form == "phase_taps" else _OUT_TAPS,
-                    None, None, 0, *(tiling or (0, 0, 0, 0)), l7="cell")
+        else:   # the tap forms, folded or on the cell kernel
+            run.taps(x6, sp, out, n, hl, wl, out_form, tiling, fold, "upto")
         run.mark()
     return out
 
@@ -1824,6 +1871,20 @@ def wino_layer(x5: torch.Tensor, sp) -> torch.Tensor:
 
 
 _LAST_OUTS = {"s2d": _OUT_S2D, "dense": _OUT_DENSE, "u8": _OUT_U8}
+
+
+def _last_taps_plain(x: torch.Tensor, sp, out: str,
+                     folded: bool) -> torch.Tensor:
+    """stack_scale_upto's tap form `out` at upto 6 ("cell", the same-cell
+    taps, or "phase_taps") as f32 partials [P, hl, wl, 4] on the planes x
+    [P, 2hl+2, 2wl+2, 128] NHWC: the fold's (l7_fold_plain(taps=True), from
+    w7f or, for "phase_taps", w7p) or, with folded False, the cell kernel's
+    FFMA sums (_taps_plain, _phase_taps_plain), not rounded."""
+    if folded:
+        return l7_fold_plain(x, _w7f(sp, x, out == "phase_taps"), None,
+                             taps=True)
+    fn = _phase_taps_plain if out == "phase_taps" else _taps_plain
+    return fn(x.permute(0, 3, 1, 2).float(), sp[6][0], torch.float32)
 
 
 def last_layer(x: torch.Tensor, sp, zs: int = 0, out: str = "s2d",
@@ -2009,7 +2070,7 @@ def _check_upto(upto, out: str = "cell") -> None:
 
 def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
                      l6_i8=None, l6_wino=None, tile=None,
-                     out: str = "cell") -> torch.Tensor:
+                     out: str = "cell", fold=None) -> torch.Tensor:
     """The scale stack stopped after layer `upto` (B7): ylow [N, hl, wl] ->
     [N, hl, wl, 4] in ylow's dtype, 4 values of that stage per s2d cell
     (i, j), with act_k the output of layer k, whose row r is image row
@@ -2046,15 +2107,24 @@ def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
                         act_6[n, 2i, 2j, c] * w7[dy_t, dx_t, c], (dy, dx) =
                         (0,0), (0,1), (0,2), (1,0), an f32 sum rounded once,
                         no bias and no LeakyReLU (7 launches, 8 with l6_i8).
-    CPU tensors take the plain version; CUDA tensors take the kernels."""
+    At upto 6 both tap forms are output forms of layer 7's fold (csrc/l7.cu:
+    bf16 on the tensor cores, f32 with FFMA; on a plane or, under l6_i8, on
+    the tile-major planes), Zt's lanes 0-3 of the cell, rounded once; the
+    phase taps read pixel (0, 0) of each cell alone (StackParams.w7p).
+    Their launches count under L7_LAUNCHES "fold" / "fold_f32" and
+    TAP_LAUNCHES. fold=False runs them on common.cuh's cell kernel instead,
+    one thread an s2d cell on FFMA (w2x_last_cell, L7_LAUNCHES["cell"]), the
+    timing yardstick; the two differ in the order of their f32 sums. CPU
+    tensors take the plain version of the kernel chosen; CUDA tensors take
+    the kernels."""
     _check_upto(upto, out)
     form = l6_form(l6_i8, l6_wino)
     _check(ylow, sp, form if upto == 6 else "direct")
     if ylow.device.type == "cpu":
         return stack_scale_upto_plain(ylow, sp, upto, l6_i8, l6_wino, tile,
-                                      out)
+                                      out, fold)
     return _launch(ylow, sp, "scale", events, form=form, tile=tile,
-                   upto=upto, out_form=out)
+                   upto=upto, out_form=out, fold=fold)
 
 
 def stack_scale_dense(ylow: torch.Tensor, sp, tc=None, events=None,

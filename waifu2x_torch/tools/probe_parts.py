@@ -1,5 +1,7 @@
-"""Where the time of probe_fetch_reduce and probe_l1_mm goes (csrc/probe.cu:
-stage_time's cin1, cin4, cin9 and cin9mm, grid_floor_probe's 4-fetch).
+"""Where the time of probe_fetch_reduce, probe_l1_mm and probe_fetch_map's
+ring form goes (csrc/probe.cu: stage_time's cin1, cin4, cin9 and cin9mm,
+grid_floor_probe's 4-fetch; dma_probe's lane16_x4, lane128 and lane128_x4,
+dma_probe2's in16+o128, in128+o128 and raw+o128, l14_probe's xonly).
 
 Each kernel is timed in turns with builds of the same source that compile a
 part out:
@@ -12,16 +14,25 @@ part out:
              forming and the products;
     ring     all three: the consumers only wait for each row and hand it
              back;
-  probe_fetch_reduce (the other four)
+  probe_fetch_reduce (cin1, cin4, cin9, 4-fetch)
     no_out   -DW2X_RED_NO_OUT: no output stores; the ring, the corner
              maxima or the lane-0 sums and the stash;
     ring     -DW2X_RED_RING: the consumers only wait for each slot and hand
-             it back.
+             it back;
+  probe_fetch_map, the ring form (the seven map variants)
+    no_out   -DW2X_MAP_NO_OUT: no output stores; the ring and the forming
+             of each output vector from the staged lanes;
+    ring     -DW2X_MAP_RING: the consumers only wait for each slot and hand
+             it back;
+    out_only -DW2X_MAP_OUT_ONLY: nothing is copied; the walk and the output
+             stores (of whatever the ring holds) alone.
 Their outputs mean nothing; only their times do. Each kernel is first held
 to its plain version bit for bit on make_inputs' inputs (k / 256 for the
-sums), at the tools' grid (16, 8, 4) of (64, 128) cells.
+sums), at the tools' grid of (64, 128) cells ((16, 8, 4) by default; the
+map variants' tools run (4, 8, 4): --batch 4).
 
     python3 -m waifu2x_torch.tools.probe_parts [variant ...]
+    python3 -m waifu2x_torch.tools.probe_parts --batch 4 lane16_x4 raw+o128
 
 Needs a CUDA card. --device cpu --batch 1 --size 32 --tile 16 32 rehearses:
 the wrappers' CPU paths against the plain versions, no build and no timing.
@@ -52,8 +63,17 @@ PARTS = {
         "no_out": ("-DW2X_RED_NO_OUT",),
         "ring": ("-DW2X_RED_RING",),
     },
+    "fetch_map": {
+        "no_out": ("-DW2X_MAP_NO_OUT",),
+        "ring": ("-DW2X_MAP_RING",),
+        "out_only": ("-DW2X_MAP_OUT_ONLY",),
+    },
 }
 NAMES = ("cin1", "cin4", "cin9", "4-fetch", "cin9mm")
+# the map variants on probe_fetch_map's ring form (csrc/probe.cu:
+# w2x_probe_fetch_map routes them there)
+MAP_NAMES = ("lane16_x4", "lane128", "lane128_x4", "in16+o128", "in128+o128",
+             "raw+o128", "xonly")
 
 
 def build_parts(kernels) -> dict:
@@ -85,10 +105,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     probe.add_args(ap, batch=16)
     ap.add_argument("names", nargs="*", metavar="variant",
-                    help=f"any of {', '.join(NAMES)} (default all)")
+                    help=f"any of {', '.join(NAMES + MAP_NAMES)} "
+                         f"(default: {', '.join(NAMES)})")
     args = ap.parse_args(argv)
-    if not set(args.names) <= set(NAMES):
-        ap.error(f"variants are {', '.join(NAMES)}")
+    if not set(args.names) <= set(NAMES + MAP_NAMES):
+        ap.error(f"variants are {', '.join(NAMES + MAP_NAMES)}")
     dev = resolve_device(args.device)
     g = probe.grid_from_args(args, ap)
     variants = [probe.VARIANTS[n] for n in args.names or NAMES]
