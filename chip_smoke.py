@@ -258,6 +258,24 @@ Phases (any failure raises and exits non-zero):
      must beat, beside the direct 3xTF32 layer 6, cuDNN's f32 layer 6 and
      the bound; and the ns1080 f32 noise stack and f32-noise step under
      l6_wino against the direct form.
+ 28. the command line (phase28 below; waifu2x_torch.cli.main in this
+     process, the shipped weights from the default model dir, the launch
+     counts set to 0 before each call and read after it): a 720 x 1280 PNG
+     in the default mode (noise_scale: the f32 noise stack, the bf16 scale
+     stack) and a 512 x 512 PNG in scale mode, each bit-equal to
+     Converter.process_bgr_u8 of the decoded file and >= 50 dB against the
+     f32 non-kernel path, layer 1, layers 2-6 on the tensor cores and
+     layer 7 folded launched, no FFMA, cell or per-pixel layer; four
+     512 x 512 PNGs in one call (the stream route), each at the u8 bar
+     (|diff| <= 1 at < 0.2% of bytes) against the one-file call; --profile;
+     StreamConverter.process_paths over the four with a frame cursor, then
+     again (nothing launched, nothing written); a 1024 x 1024 PNG with
+     --pallas off (the block tiler: its plane within 3e-5 of the monolithic
+     F.conv2d plane, its output >= 50 dB against the kernel route's). It
+     prints which codec each call used, the decode / convert / encode
+     split, the four-file MP/s and the tiles, with the card's name and
+     power limit, and adds each kernel's CLI launches to its row of the
+     kernel table ("cli_launches").
 Phase 15 also runs the ns1080 chain with its f32 noise stack under the
 Winograd switch (the f32 stack on l6_wino_tf32, the bf16 one on
 l6_wino_mma) and gates the scale512 int8 step and stream at 50 dB.
@@ -295,6 +313,7 @@ Without a CUDA card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import logging
 import shutil
 import subprocess
 import sys
@@ -2938,6 +2957,273 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
     }]
 
 
+# the u8 bar between two routes of one conversion (__graft_entry__.py's):
+# equal except |diff| <= 1 at under 0.2% of bytes
+CLI_U8_FRAC = 0.002
+
+
+class _RunRecords(logging.Handler):
+    """Keeps the run record (record.w2x_run) that cli.main logs at its end."""
+
+    def __init__(self):
+        super().__init__()
+        self.runs = []
+
+    def emit(self, record):
+        if hasattr(record, "w2x_run"):
+            self.runs.append(record.w2x_run)
+
+
+def cli_run(argv: list, what: str, totals: dict):
+    """cli.main(argv) in this process, every launch count set to 0 just
+    before it and read just after. Returns (the run record it logged, its
+    launches, the codec calls it made); adds the launches to `totals`."""
+    from waifu2x_torch import cli
+    from waifu2x_torch import io as w2x_io
+    from waifu2x_torch.ops import stack
+    handler = _RunRecords()
+    logger = logging.getLogger("waifu2x_torch.cli")
+    logger.addHandler(handler)
+    w2x_io.CODEC_CALLS.clear()
+    stack.reset_launches()
+    try:
+        rc = cli.main([str(a) for a in argv])
+    finally:
+        logger.removeHandler(handler)
+    launches = {"stack": stack.LAUNCHES, "l1": stack.L1_LAUNCHES["l1"],
+                "mma": stack.MID_LAUNCHES["mma"],
+                "mma_tf32": stack.MID_LAUNCHES["mma_tf32"],
+                "ffma": stack.MID_LAUNCHES["ffma"],
+                **{f"l7_{k}": v for k, v in stack.L7_LAUNCHES.items()}}
+    codecs = {f"{op} {codec}": n
+              for (op, codec), n in sorted(w2x_io.CODEC_CALLS.items())}
+    if rc != 0 or len(handler.runs) != 1:
+        raise AssertionError(f"phase 28 {what}: cli.main returned {rc}")
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    run = handler.runs[0]
+    log(f"phase 28 {what}: rc 0, route {run['route']}, codecs {codecs}, "
+        f"launches {launches}")
+    return run, launches, codecs
+
+
+def expect_cli_kernels(what: str, launches: dict, f32_noise: bool) -> None:
+    """The kernel route's launches: layer 1, layers 2-6 on the tensor cores
+    and layer 7 folded, in bf16, and with an f32 noise stack (the default
+    noise_scale policy) in f32 too; no FFMA layer 2-6, cell or per-pixel
+    layer 7."""
+    need = ["l1", "mma", "l7_fold"] + (
+        ["mma_tf32", "l7_fold_f32"] if f32_noise else [])
+    if (any(launches[k] == 0 for k in need) or launches["ffma"]
+            or launches["l7_cell"] or launches["l7_pixel"]
+            or bool(launches["mma_tf32"]) != f32_noise):
+        raise AssertionError(f"phase 28 {what}: launches {launches}")
+
+
+def phase28(dev: torch.device, smi: str) -> dict:
+    """The command line end to end on the card (waifu2x_torch.cli.main, in
+    this process, with the shipped weights from the default model dir):
+    one 720 x 1280 PNG in the default mode and one 512 x 512 PNG in scale
+    mode, each bit-equal to Converter.process_bgr_u8 of the decoded input
+    and >= 50 dB against the f32 non-kernel path; four 512 x 512 PNGs in one
+    call (the stream route), each at the u8 bar against the one-file call;
+    StreamConverter.process_paths over the same four with a frame cursor,
+    twice (the second run launches and writes nothing); a 1024 x 1024 PNG
+    with --pallas off (the block tiler: its plane within 3e-5 of the
+    monolithic F.conv2d plane, its output >= 50 dB against the kernel
+    route's). Returns the launches of every CLI run, summed by kernel."""
+    import dataclasses
+    from waifu2x_torch import cli, native
+    from waifu2x_torch import io as w2x_io
+    from waifu2x_torch import pipeline as pipeline_mod
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.ops.resize import NEAREST, resize
+    from waifu2x_torch.parallel import tiles
+    from waifu2x_torch.pipeline import Converter, _to_yuv
+    from waifu2x_torch.stream import StreamConverter
+    from waifu2x_torch.utils.metrics import psnr
+
+    t0 = time.perf_counter()
+    log(f"phase 28 cli: the native runtime (native/libw2x_host.so) loads: "
+        f"{native.available()}")
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    rng = np.random.default_rng(28)
+    totals = {}
+
+    def cfg_of(argv):
+        return cli.config_from_args(cli.build_parser().parse_args(
+            [str(a) for a in argv]))
+
+    def one_file(img, extra, what, f32_noise):
+        src, out = d / f"{what}.png", d / f"{what}_out.png"
+        w2x_io.imwrite_bgr(str(src), img)
+        argv = ["-i", src, "-o", out, *extra]
+        run, launches, codecs = cli_run(argv, what, totals)
+        expect_cli_kernels(what, launches, f32_noise)
+        decoded = w2x_io.imread_bgr(str(src))
+        if not np.array_equal(decoded, img):
+            raise AssertionError(f"phase 28 {what}: the PNG round trip "
+                                 f"changed the input")
+        got = w2x_io.imread_bgr(str(out))
+        cfg = cfg_of(argv)
+        want = Converter.from_config(cfg, dev).process_bgr_u8(decoded)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(
+                f"phase 28 {what}: the CLI's output is not "
+                f"Converter.process_bgr_u8's: {got.shape} {want.shape}, "
+                f"{int((got != want).sum()) if got.shape == want.shape else '-'}"
+                f" bytes differ")
+        ref = Converter.from_config(dataclasses.replace(
+            cfg, use_pallas=False, compute_dtype="float32"),
+            dev).process_bgr_u8(decoded)
+        db = psnr(got, ref)
+        log(f"phase 28 {what}: {img.shape} -> {got.shape}, bit-equal to "
+            f"Converter.process_bgr_u8, {db:.2f} dB against the f32 "
+            f"non-kernel path")
+        if not db >= PSNR_BAR:
+            raise AssertionError(f"phase 28 {what}: {db} dB")
+        log(f"phase 28 {what} wall time on {smi}, host clock: "
+            f"{run['seconds']:.3f} s (decode {run['decode']:.3f} s, convert "
+            f"{run['convert']:.3f} s, encode {run['encode']:.3f} s; "
+            f"Converter.from_config and model load the rest); codecs "
+            f"{codecs}")
+        return run, got
+
+    # 2. one file in the default mode (noise_scale: an f32 noise stack and
+    # a bf16 scale stack), then the scale512 frame in scale mode
+    one_run, _ = one_file(structured_bgr(rng, 1, 720, 1280)[0], [],
+                          "one file 720x1280 noise_scale", True)
+    one_file(structured_bgr(rng, 1, 512, 512)[0], ["-m", "scale"],
+             "one file 512x512 scale", False)
+
+    # 3. four files in one call: the stream route
+    frames4 = structured_bgr(rng, 4, 512, 512)
+    paths = [d / f"four{i}.png" for i in range(4)]
+    for p, f in zip(paths, frames4):
+        w2x_io.imwrite_bgr(str(p), f)
+    run4, launches4, _ = cli_run(["-i", *paths], "four files 512x512 "
+                                 "noise_scale", totals)
+    expect_cli_kernels("four files", launches4, True)
+    if run4["route"] != "stream":
+        raise AssertionError(f"phase 28 four files: route {run4['route']}")
+    stream_outs, n_diff = [], []
+    for i, p in enumerate(paths):
+        out = w2x_io.imread_bgr(w2x_io.auto_output_name(
+            str(p), "noise_scale", 1, 2.0))
+        single = d / f"single{i}.png"
+        cli_run(["-i", p, "-o", single], f"four files, file {i} alone",
+                totals)
+        worst, frac = check_u8(f"phase 28 four files, file {i}",
+                               torch.from_numpy(out),
+                               torch.from_numpy(w2x_io.imread_bgr(
+                                   str(single))), 1, CLI_U8_FRAC)
+        n_diff.append(int(round(frac * out.size)))
+        stream_outs.append(out)
+    log(f"phase 28 four files: stream against one file at a time, bytes "
+        f"that differ by 1 (of {stream_outs[0].size} each): {n_diff}")
+    log(f"phase 28 four files on {smi}: {run4['mp']:.2f} MP out in "
+        f"{run4['seconds']:.3f} s, {run4['mp'] / run4['seconds']:.2f} MP/s "
+        f"(host clock; decode {run4['decode']:.3f} s, convert "
+        f"{run4['convert']:.3f} s, encode {run4['encode']:.3f} s)")
+
+    # --profile: a torch.profiler Chrome trace (reported, not gated: CUPTI
+    # tracing on the card's machine is the profiler's to give)
+    trace_dir = d / "trace"
+    cli_run(["-i", paths[0], "-o", d / "prof.png", "-m", "scale",
+             "--profile", trace_dir], "--profile", totals)
+    (trace,) = trace_dir.iterdir()
+    events = json.loads(trace.read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") == "kernel"]
+    log(f"phase 28 --profile: {trace.name}, {len(events)} events, "
+        f"{len(device)} device kernel events, "
+        f"{sum(e.get('dur', 0) for e in device) / 1e3:.3f} ms of kernel "
+        f"time; kernels "
+        + ", ".join(sorted({e['name'].split('(')[0][:40] for e in device})))
+
+    # process_paths with a frame cursor, twice
+    conv = Converter.from_config(cfg_of(["-i", paths[0]]), dev)
+    sc = StreamConverter(fast=conv.fast_scale, fast_noise=conv.fast_noise,
+                         mode="noise_scale", device=dev)
+    outs, ckpt = [d / f"pp{i}.png" for i in range(4)], d / "cursor.json"
+    stack.reset_launches()
+    sc.process_paths([str(p) for p in paths], [str(o) for o in outs],
+                     checkpoint=str(ckpt))
+    pp_launches = stack.LAUNCHES
+    cursor = json.loads(ckpt.read_text())["cursor"]
+    for i, (o, want) in enumerate(zip(outs, stream_outs)):
+        check_u8(f"phase 28 process_paths, file {i}",
+                 torch.from_numpy(w2x_io.imread_bgr(str(o))),
+                 torch.from_numpy(want), 1, CLI_U8_FRAC)
+    mtimes = [o.stat().st_mtime_ns for o in outs]
+    w2x_io.CODEC_CALLS.clear()
+    stack.reset_launches()
+    sc.process_paths([str(p) for p in paths], [str(o) for o in outs],
+                     checkpoint=str(ckpt))
+    if (cursor != 4 or not pp_launches or stack.LAUNCHES
+            or w2x_io.CODEC_CALLS
+            or [o.stat().st_mtime_ns for o in outs] != mtimes):
+        raise AssertionError(
+            f"phase 28 process_paths: cursor {cursor}, launches "
+            f"{pp_launches} then {stack.LAUNCHES}, codec calls on the "
+            f"second run {dict(w2x_io.CODEC_CALLS)}")
+    log(f"phase 28 process_paths: 4 files, {pp_launches} launches, cursor "
+        f"{cursor}; the second run launched nothing and wrote nothing")
+
+    # 4. the tiled route: --pallas off on a plane over 1.5 blocks
+    big = structured_bgr(rng, 1, 1024, 1024)[0]
+    src_big, out_t, out_k = d / "big.png", d / "big_tiled.png", d / "big_k.png"
+    w2x_io.imwrite_bgr(str(src_big), big)
+    plans = []
+    orig = pipeline_mod.tiled_convert
+
+    def spy(y, model, plan, batch_tiles):
+        plans.append(plan)
+        return orig(y, model, plan, batch_tiles)
+
+    pipeline_mod.tiled_convert = spy
+    argv_t = ["-i", src_big, "-o", out_t, "-m", "scale", "--pallas", "off"]
+    try:
+        _, launches_t, _ = cli_run(argv_t, "1024x1024 scale --pallas off",
+                                   totals)
+    finally:
+        pipeline_mod.tiled_convert = orig
+    if len(plans) != 1 or launches_t["stack"]:
+        raise AssertionError(f"phase 28 tiled route: {len(plans)} tiled "
+                             f"calls, launches {launches_t}")
+    plan = plans[0]
+    cfg_t = cfg_of(argv_t)
+    model = Converter.from_config(cfg_t, dev).scale_model
+    yuv = _to_yuv(torch.from_numpy(w2x_io.imread_bgr(str(src_big))).to(dev))
+    h, w = yuv.shape[:2]
+    y_in = resize(yuv[None, ..., 0], (2 * h, 2 * w), NEAREST, h_axis=1)
+    tiled = tiles.tiled_convert(y_in[0], model, plan, cfg_t.batch_tiles)
+    mono = model.convert_plane(y_in)[0]
+    err = (tiled - mono).abs().max().item()
+    log(f"phase 28 tiled route: plane {tuple(mono.shape)}, max|tiled - "
+        f"monolithic| = {err:.3e} (f32, TF32 off)")
+    check_max_err("phase 28 tiled against monolithic", err, F32_TOL)
+    del tiled, mono, y_in, yuv
+    torch.cuda.empty_cache()
+    _, launches_k, _ = cli_run(["-i", src_big, "-o", out_k, "-m", "scale"],
+                               "1024x1024 scale, kernel route", totals)
+    expect_cli_kernels("1024x1024 kernel route", launches_k, False)
+    db = psnr(w2x_io.imread_bgr(str(out_t)), w2x_io.imread_bgr(str(out_k)))
+    log(f"phase 28 tiled route against the kernel route: {db:.2f} dB")
+    if not db >= PSNR_BAR:
+        raise AssertionError(f"phase 28 tiled against kernel: {db} dB")
+    log(f"phase 28 tiled_convert on {smi}: plane {plan.h} x {plan.w}, "
+        f"{plan.n_tiles} tiles of {plan.tile}^2 ({plan.ny} x {plan.nx}, "
+        f"stride {plan.stride}), batch_tiles {cfg_t.batch_tiles}, "
+        f"redundancy {plan.redundancy:.4f}")
+    tmp.cleanup()
+    log(f"phase 28 passed in {time.perf_counter() - t0:.1f} s; CLI launches "
+        f"by kernel {totals}; one file's decode/convert/encode "
+        f"{one_run['decode']:.3f}/{one_run['convert']:.3f}/"
+        f"{one_run['encode']:.3f} s")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4253,6 +4539,8 @@ def main() -> int:
     kernels19 += phase27(dev, wino_tf32_launches, f32_noise_step)
     log(f"phase 27 passed in {time.perf_counter() - t27:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s so far")
+    cli_launches = phase28(dev, smi)
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
 
     maccs = count_maccs_per_pixel()
 
@@ -4818,6 +5106,15 @@ def main() -> int:
         "ffma_l7_delta_is": "phase 24's FFMA layer 7 alone less the fold's, "
                             "at ns1080, in turns"})
     kernels += kernels19
+    # the kernels the command line reached (phase 28), by row
+    for prefix, key in (("l1_conv,", "l1"), ("conv3x3_bias_leaky_mma,", "mma"),
+                        ("conv3x3_bias_leaky_tf32,", "mma_tf32"),
+                        ("l7_fold, layer 7 (128 -> 1)", "l7_fold"),
+                        ("l7_fold_f32,", "l7_fold_f32")):
+        (row,) = [r for r in kernels if r["name"].startswith(prefix)]
+        row["cli_launches"] = cli_launches[key]
+        row["cli_launches_of"] = ("phase 28's command-line runs, the counts "
+                                  "set to 0 before each")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -291,5 +291,5 @@ def test_converter_mesh_the_cards_could_hold_raises(model_dir, rng,
     conv = pl.Converter.from_config(Config(
         mode="scale", model_dir=model_dir, mesh="2x4", use_pallas=True,
         compute_dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A item 5"):
+    with pytest.raises(NotImplementedError, match="A item 6"):
         conv.process_bgr_u8(rng.integers(0, 256, (12, 10, 3), np.uint8))

@@ -282,5 +282,5 @@ def test_resolve_stream_mesh_single_device(spec):
 
 @pytest.mark.parametrize("spec", [(2, 1, 1), (1, 2, 4)])
 def test_resolve_stream_mesh_rejects_larger_shapes(spec):
-    with pytest.raises(NotImplementedError, match="A item 5"):
+    with pytest.raises(NotImplementedError, match="A item 6"):
         resolve_stream_mesh(spec)

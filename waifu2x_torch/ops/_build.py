@@ -2,11 +2,12 @@
 use and load them with ctypes.
 
 Each source has a plain C interface, so nvcc builds it in seconds without
-PyTorch's headers. The library lands in waifu2x_torch/build/ (git-ignored)
-under a name that carries a hash of the source, the headers beside it
-(csrc/*.cuh) and the flags, so an edited source is rebuilt and a built one
-is reused. Nothing here runs at import
-time: the CPU tests import every module on a host without nvcc.
+PyTorch's headers. The library lands in BUILD_DIR (waifu2x_torch/build/,
+git-ignored, unless utils/cache.enable_compilation_cache moved it) under a
+name that carries a hash of the source, the headers beside it (csrc/*.cuh)
+and the flags, so an edited source is rebuilt and a built one is reused.
+Nothing here runs at import time: the CPU tests import every module on a
+host without nvcc.
 """
 
 from __future__ import annotations

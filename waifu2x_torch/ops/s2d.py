@@ -33,7 +33,13 @@ def d2s(x: torch.Tensor) -> torch.Tensor:
 
 
 def d2s_host(x: np.ndarray) -> np.ndarray:
-    """Host-side d2s (numpy) for u8 output images."""
+    """Host-side d2s for u8 output images (zero flops): the shared native
+    runtime's w2x_d2s_u8 for u8 input where it loads, else numpy."""
+    if x.dtype == np.uint8:
+        from waifu2x_torch import native
+        out = native.d2s_u8(x)
+        if out is not None:
+            return out
     *n, h2, w2, c4 = x.shape
     c = c4 // 4
     x = x.reshape(*n, h2, w2, 2, 2, c)

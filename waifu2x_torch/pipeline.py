@@ -20,7 +20,9 @@ or as Winograd F(2x2, 3x3): they act inside ops/stack.py (L6_I8, L6_WINO,
 read when that module is imported), so FastStack and every step below follow
 them with no argument of their own, as in the JAX package. Images below
 SMALL_IMG_PX take the f32 non-kernel path (F.conv2d, TF32 off), as the JAX
-package routes them.
+package routes them. On that path one image's plane larger than 1.5
+blocks (block_size squared) runs in batched halo tiles (parallel/tiles.py),
+under the JAX package's rule.
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
 with no card and no CPU request they raise.
@@ -62,13 +64,14 @@ from waifu2x_torch.ops.stack import (
     stack_scale_dense,
     stack_scale_fused_u8,
 )
+from waifu2x_torch.parallel.tiles import plan_tiles, tiled_convert
 from waifu2x_torch.utils.logging import get_logger
 
 log = get_logger("pipeline")
 
 
 MESH_TODO = ("multi-device conversion and streams are not ported yet "
-             "(ROADMAP.md, A item 5: multi-device)")
+             "(ROADMAP.md, A item 6: multi-device)")
 
 
 def resolve_device(device) -> torch.device:
@@ -98,15 +101,27 @@ def scale_plan(scale_ratio: float) -> tuple[int, float]:
 # Non-kernel path: F.conv2d stack on the full-res plane (TF32 off).
 # ---------------------------------------------------------------------------
 
-def _convert_y(y: torch.Tensor, model: SRCNN, cfg: Config) -> torch.Tensor:
-    """Run the conv stack on luma planes [N, H, W], monolithic (the JAX
-    package's block tiler is bit-equal to monolithic and is a later
-    slice). compute_dtype="bfloat16" runs it in bf16, as the JAX package
+def _convert_y(y: torch.Tensor, model: SRCNN, cfg: Config,
+               single: bool = False) -> torch.Tensor:
+    """Run the conv stack on luma planes [N, H, W]. `single` says the
+    planes are one image's ([1, H, W], from _noise_phase or _scale_step):
+    those tile by the reference's rule W*H > blockW*blockH*3/2
+    (convertRoutine.cpp:25-26) into cfg.tile_size tiles, cfg.batch_tiles at
+    a time (parallel/tiles.py), as the JAX package tiles its 2-D planes;
+    batches (noise_batch, scale2x_batch) run monolithic, as there.
+    compute_dtype="bfloat16" runs the stack in bf16, as the JAX package
     does on this path."""
     in_dtype = y.dtype
     if cfg.compute_dtype == "bfloat16":
         y = y.to(torch.bfloat16)
-    return model.convert_plane(y).to(in_dtype)
+    h, w = y.shape[-2:]
+    bs = cfg.block_size
+    if single and bs > 0 and h * w > bs * bs * 3 // 2:
+        plan = plan_tiles(h, w, cfg.tile_size, model.spec.offset)
+        out = tiled_convert(y[0], model, plan, cfg.batch_tiles)[None]
+    else:
+        out = model.convert_plane(y)
+    return out.to(in_dtype)
 
 
 def _with_y(yuv: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -125,7 +140,18 @@ def noise_batch(yuv: torch.Tensor, model: SRCNN,
 
 def _noise_phase(yuv: torch.Tensor, model: SRCNN,
                  cfg: Config) -> torch.Tensor:
-    return noise_batch(yuv[None], model, cfg)[0]
+    return _with_y(yuv, _convert_y(yuv[None, ..., 0], model, cfg,
+                                   single=True)[0])
+
+
+def _scale2x(yuv: torch.Tensor, model: SRCNN, cfg: Config,
+             single: bool) -> torch.Tensor:
+    n, h, w, _ = yuv.shape
+    dsize = (h * 2, w * 2)
+    y_in = resize(yuv[..., 0], dsize, NEAREST, h_axis=1)
+    out = resize(yuv, dsize, CUBIC, h_axis=1)
+    out[..., 0] = _convert_y(y_in, model, cfg, single)
+    return out
 
 
 def scale2x_batch(yuv: torch.Tensor, model: SRCNN,
@@ -133,16 +159,11 @@ def scale2x_batch(yuv: torch.Tensor, model: SRCNN,
     """One 2x iteration (main.cpp:126-156) on f32 YUV [N, H, W, 3] ->
     [N, 2H, 2W, 3]: CNN input Y from a NEAREST 2x resize, U/V (and the
     container) from a CUBIC 2x resize."""
-    n, h, w, _ = yuv.shape
-    dsize = (h * 2, w * 2)
-    y_in = resize(yuv[..., 0], dsize, NEAREST, h_axis=1)
-    out = resize(yuv, dsize, CUBIC, h_axis=1)
-    out[..., 0] = _convert_y(y_in, model, cfg)
-    return out
+    return _scale2x(yuv, model, cfg, single=False)
 
 
 def _scale_step(yuv: torch.Tensor, model: SRCNN, cfg: Config) -> torch.Tensor:
-    return scale2x_batch(yuv[None], model, cfg)[0]
+    return _scale2x(yuv[None], model, cfg, single=True)[0]
 
 
 def _shrink(yuv: torch.Tensor, dsize: tuple[int, int]) -> torch.Tensor:
@@ -537,7 +558,7 @@ class Converter:
         in JAX too); a spec that needs the kernel stacks this mode lacks, or
         more devices than there are, logs once per Converter and runs on one
         card; a larger spec that the cards could hold raises: sharding is
-        not ported (ROADMAP.md, A item 5)."""
+        not ported (ROADMAP.md, A item 6)."""
         spec = self.cfg.mesh_shape()
         if spec in ("off", "auto", (1, 1, 1)):
             return

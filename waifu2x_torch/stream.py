@@ -23,8 +23,9 @@ Modes mirror the reference CLI (main.cpp:82-169): "scale" (2x), "noise"
 pipeline.FUSED_TAIL / YDENSE (W2X_TAIL, W2X_YDENSE), and both stacks follow
 ops.stack's L6_I8 / L6_WINO (W2X_L6_I8, W2X_L6_WINO).
 
-Not here yet: process_paths and the frame cursor (they need file codecs,
-which come with the port's host I/O), and the multi-device mesh.
+process_paths converts image files through the port's host I/O (io.py)
+and can resume from a frame cursor (train/checkpoint.py). Not here yet:
+the multi-device mesh.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
+from waifu2x_torch import io as w2x_io
 from waifu2x_torch.ops.color import (
     bgr_to_yuv,
     saturate_cast_u8,
@@ -52,6 +54,7 @@ from waifu2x_torch.pipeline import (
     resolve_device,
     scale2x_batch_u8_fused,
 )
+from waifu2x_torch.train.checkpoint import load_frame_cursor, save_frame_cursor
 
 
 def _to_yuv_batch(bgr_u8: torch.Tensor) -> torch.Tensor:
@@ -241,3 +244,34 @@ class StreamConverter:
             retire(entry)
         yield from drain()
         assert not ready, "stream re-ordering left frames behind"
+
+    def process_paths(self, paths: Sequence[str], out_paths: Sequence[str],
+                      jobs: int = 4, checkpoint: str | None = None) -> None:
+        """Convert image files: threaded native decode, batched device
+        conversion (process_frames), PNG encode.
+
+        checkpoint: optional cursor-file path. The stream is stateless and
+        strictly ordered, so resuming is a frame index: after each encoded
+        output the cursor advances (atomic rename), and a restarted run
+        skips the frames already on disk. (SURVEY §5: the reference has no
+        checkpointing; a frame cursor is this pipeline's entire state.)
+        """
+        start = 0
+        if checkpoint is not None:
+            start = load_frame_cursor(checkpoint)
+            if start >= len(paths):
+                return
+
+        def decoded() -> Iterator[np.ndarray]:
+            # decode in batch-sized chunks (the native thread pool per
+            # chunk), so host memory holds O(batch * depth) frames, not the
+            # whole stream: process_frames consumes the iterator lazily
+            for c0 in range(start, len(paths), self.batch):
+                yield from w2x_io.imread_batch_bgr(
+                    list(paths[c0:c0 + self.batch]), jobs=jobs)
+
+        for idx, result in zip(range(start, len(paths)),
+                               self.process_frames(decoded())):
+            w2x_io.imwrite_bgr(out_paths[idx], result)
+            if checkpoint is not None:
+                save_frame_cursor(checkpoint, idx + 1)
