@@ -276,6 +276,20 @@ Phases (any failure raises and exits non-zero):
      split, the four-file MP/s and the tiles, with the card's name and
      power limit, and adds each kernel's CLI launches to its row of the
      kernel table ("cli_launches").
+ 29. the multi-device layer (phase29 below; waifu2x_torch/parallel/):
+     MeshPipeline over virtual meshes of the one card, (1, 1, 1),
+     (2, 2, 2) and (1, 2, 4), with the shipped weights, against the single
+     device: ns1080 noise_scale (the denoised plane bit-equal), scale512,
+     ratio 4 and ratio 3 at 512^2 and noise256, each at the u8 bar
+     (|diff| <= 1 at < 0.2% of bytes), the launch counts read around each
+     call (the hand kernels only, one stack call a position and stack), the
+     (2, 2, 2) shards' wrapper calls held against the plain versions; then
+     Converter.from_config(Config(mesh="1x1")), a StreamConverter on a
+     (1, 1, 1) mesh and the CLI with --mesh 1x1 against their one-device
+     runs; the mesh steps timed in turns against the single-device steps,
+     tools.scaling_probe's overhead, the halo redundancy and the peak
+     memory, with the card's name and power limit; each mesh-path kernel's
+     row gains "mesh_launches".
 Phase 15 also runs the ns1080 chain with its f32 noise stack under the
 Winograd switch (the f32 stack on l6_wino_tf32, the bf16 one on
 l6_wino_mma) and gates the scale512 int8 step and stream at 50 dB.
@@ -3224,6 +3238,332 @@ def phase28(dev: torch.device, smi: str) -> dict:
     return totals
 
 
+MESH_SHAPES = ((1, 1, 1), (2, 2, 2), (1, 2, 4))   # virtual meshes of a card
+
+
+def mesh_launches() -> dict:
+    """Every layer kernel's launch count since the last reset."""
+    from waifu2x_torch.ops import stack
+    return {"l1": stack.L1_LAUNCHES["l1"],
+            "l1_ffma": stack.L1_LAUNCHES["ffma"],
+            **{k: v for k, v in stack.MID_LAUNCHES.items()},
+            **{f"l7_{k}": v for k, v in stack.L7_LAUNCHES.items()},
+            "l6_other": sum(v for k, v in stack.L6_LAUNCHES.items()
+                            if k != "direct")}
+
+
+def expect_mesh(what: str, launches: dict, f32: int, bf16: int) -> None:
+    """`f32` and `bf16` stack calls, each on the hand kernels alone: one
+    layer 1 (csrc/l1.cu), five layers 2-6 on the tensor cores (3xTF32 for
+    f32) and one folded layer 7; no FFMA layer, cell or per-pixel layer 7
+    and no other layer-6 form."""
+    want = {"l1": f32 + bf16, "mma": 5 * bf16, "mma_tf32": 5 * f32,
+            "l7_fold": bf16, "l7_fold_f32": f32}
+    rest = {k: v for k, v in launches.items() if k not in want and v}
+    if {k: launches[k] for k in want} != want or rest:
+        raise AssertionError(f"phase 29 {what}: launches {launches}, want "
+                             f"{want} and nothing else")
+
+
+def phase29(dev: torch.device, smi: str) -> dict:
+    """The multi-device layer on the card (waifu2x_torch/parallel/), with the
+    shipped weights at full width and depth. MeshPipeline over virtual
+    meshes of the one card, (1, 1, 1), (2, 2, 2) and (1, 2, 4) (every
+    position on the card; the shards run one after another), against the
+    single-device path: ns1080 noise_scale (4 x 1080 x 1920, the f32 noise
+    stack and the bf16 scale stack; the denoised plane bit-equal, the u8
+    output at the u8 bar), scale512 (16 x 512^2), ratio 4 and ratio 3 at
+    512^2 and noise256 (256 x 256^2); the launch counts set to 0 before
+    each mesh call and read after it (the hand kernels only, one stack call
+    a position and stack); the (2, 2, 2) shards' wrapper calls held against
+    the plain versions. Then Converter.from_config(Config(mesh="1x1")), a
+    StreamConverter on a (1, 1, 1) mesh and the CLI with --mesh 1x1, each
+    against its one-device run; the mesh steps timed in turns against the
+    single-device steps (CUDA events, and the host's clock with the
+    transfers), scaling_probe's overhead, the halo redundancy and the peak
+    memory. Returns the mesh calls' launches, summed by kernel."""
+    import dataclasses
+    from waifu2x_torch import cli
+    from waifu2x_torch import io as w2x_io
+    from waifu2x_torch import pipeline as pipeline_mod
+    from waifu2x_torch.config import Config
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.models.zoo import ensure_default_models
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.ops.resize import LINEAR, resize
+    from waifu2x_torch.ops.s2d import d2s_host_cmajor
+    from waifu2x_torch.parallel import mesh as w2x_mesh
+    from waifu2x_torch.parallel.mesh_pipeline import (
+        HALO_NOISE, HALO_SCALE, MeshPipeline, make_mesh3)
+    from waifu2x_torch.pipeline import (
+        Converter, FastStack, _to_bgr_u8, _to_yuv, noise_batch_u8_fused,
+        noise_y_batch_fast, scale2x_batch_fast, scale2x_batch_u8_fused)
+    from waifu2x_torch.stream import StreamConverter, resolve_stream_mesh
+    from waifu2x_torch.tools import scaling_probe
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    p_s, p_n1, p_n2 = (load_model_json(root / "models" / f"{m}_demo.json")
+                       for m in ("scale2.0x", "noise1", "noise2"))
+    fs16 = FastStack.build(p_s, True, torch.bfloat16, dev)
+    fn2_32 = FastStack.build(p_n2, False, torch.float32, dev)
+    fn1_16 = FastStack.build(p_n1, False, torch.bfloat16, dev)
+    twins = [(fs16.sp, stack.prep_params(p_s, torch.float32, dev)),
+             (fn1_16.sp, stack.prep_params(p_n1, torch.float32, dev))]
+
+    def f32_twin(sp):
+        if sp[0][0].dtype == torch.float32:
+            return sp
+        for s16, s32 in twins:
+            if all(torch.equal(a[0], b[0]) for a, b in zip(sp, s16)):
+                return s32
+        raise AssertionError("phase 29: bf16 weights of no shipped model")
+
+    rng = np.random.default_rng(29)
+    ns_frames = structured_bgr(rng, 4, 1080, 1920)
+    s_frames = structured_bgr(rng, 16, 512, 512)
+    r_frames = structured_bgr(rng, 2, 512, 512)
+    n_frames = structured_bgr(rng, 256, 256, 256)
+
+    def up(frames):
+        return _to_yuv(torch.from_numpy(frames).to(dev))
+
+    def host(u8):
+        return d2s_host_cmajor(u8.cpu().numpy())
+
+    # the single-device references (the ns1080 one's peak memory beside the
+    # meshes')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    yuv = up(ns_frames)
+    y_ref = noise_y_batch_fast(yuv[..., 0], fn2_32, out_dtype=None)
+    ns_ref = host(scale2x_batch_u8_fused(yuv, fs16, y=y_ref))
+    del yuv
+    log(f"phase 29 ns1080 on one device: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    s_ref = host(scale2x_batch_u8_fused(up(s_frames), fs16))
+    mid = scale2x_batch_fast(up(r_frames), fs16)
+    r4_ref = host(scale2x_batch_u8_fused(mid, fs16))
+    full = scale2x_batch_fast(mid, fs16)
+    dsize = (int(full.shape[1] * 0.75), int(full.shape[2] * 0.75))
+    r3_ref = _to_bgr_u8(resize(full, dsize, LINEAR, h_axis=1)).cpu().numpy()
+    del mid, full
+    n_ref = host(noise_batch_u8_fused(up(n_frames), fn1_16))
+    torch.cuda.empty_cache()
+
+    cases = (  # name, pipeline arguments, frames, reference, f32 / bf16 stacks
+        ("ns1080", dict(fast_scale=fs16, fast_noise=fn2_32,
+                        mode="noise_scale"), ns_frames, ns_ref, 1, 1),
+        ("scale512", dict(fast_scale=fs16), s_frames, s_ref, 0, 1),
+        ("ratio 4 at 512^2", dict(fast_scale=fs16, scale_ratio=4.0),
+         r_frames, r4_ref, 0, 2),
+        ("ratio 3 at 512^2", dict(fast_scale=fs16, scale_ratio=3.0),
+         r_frames, r3_ref, 0, 2),
+        ("noise256", dict(fast_noise=fn1_16, mode="noise"), n_frames, n_ref,
+         0, 1))
+    totals, seen, max_err, timings = {}, {}, {}, []
+    for shape in MESH_SHAPES:
+        npos = int(np.prod(shape))
+        mesh = make_mesh3(shape, [dev] * npos)
+        for name, kw, frames, ref, n32, n16 in cases:
+            pipe = MeshPipeline(mesh, **kw)
+            restore = (record_wrapper_calls(pipeline_mod, seen)
+                       if shape == (2, 2, 2) else (lambda: None))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stack.reset_launches()
+            try:
+                got = pipe.convert_bgr_u8(frames)
+            finally:
+                restore()
+            torch.cuda.synchronize()
+            launches = mesh_launches()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            expect_mesh(f"{name} on {shape}", launches, n32 * npos,
+                        n16 * npos)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            worst, frac = check_u8(f"phase 29 {name} on {shape}",
+                                   torch.from_numpy(got),
+                                   torch.from_numpy(ref), 1, CLI_U8_FRAC)
+            log(f"phase 29 {name} on mesh {shape} ({npos} positions on one "
+                f"card): {got.shape}, {int(round(frac * got.size))} of "
+                f"{got.size} bytes differ from the single device (max "
+                f"{worst}), launches l1 {launches['l1']} mma "
+                f"{launches['mma']} mma_tf32 {launches['mma_tf32']} fold "
+                f"{launches['l7_fold']} fold_f32 {launches['l7_fold_f32']}; "
+                f"peak memory {peak:.2f} GB")
+            if name == "ns1080":   # the handoff plane, bit for bit
+                yuv = up(ns_frames)
+                n, h, w = ns_frames.shape[:3]
+                y_mesh = w2x_mesh.gather(
+                    pipe._noise_y(pipe.shard(yuv)))[:n, :h, :w]
+                if not torch.equal(y_mesh, y_ref):
+                    raise AssertionError(
+                        f"phase 29 ns1080 on {shape}: the denoised plane "
+                        f"differs from the single device's by up to "
+                        f"{(y_mesh - y_ref).abs().max()}")
+                del yuv, y_mesh
+            del got
+            torch.cuda.empty_cache()
+    hold_seen(seen, stack, f32_twin, max_err)
+    log(f"phase 29 (2, 2, 2) shards' wrapper calls held against the plain "
+        f"versions: max |kernel - plain| {max_err}")
+    del ns_ref, s_ref, r4_ref, r3_ref, n_ref
+
+    # the mesh steps in turns with the single-device steps (device-resident
+    # input, CUDA events: single, mesh, mesh, single), and the host's clock
+    # around convert_bgr_u8 (upload, shards, gather, host interleave)
+    steps = (
+        ("ns1080", ns_frames, lambda y: scale2x_batch_u8_fused(
+            y, fs16, y=noise_y_batch_fast(y[..., 0], fn2_32,
+                                          out_dtype=None)),
+         dict(fast_scale=fs16, fast_noise=fn2_32, mode="noise_scale")),
+        ("scale512", s_frames, lambda y: scale2x_batch_u8_fused(y, fs16),
+         dict(fast_scale=fs16)),
+        ("noise256", n_frames, lambda y: noise_batch_u8_fused(y, fn1_16),
+         dict(fast_noise=fn1_16, mode="noise")))
+    for name, frames, single, kw in steps:
+        yuv = up(frames)
+        n, h, w = frames.shape[:3]
+        parts = []
+        for shape in MESH_SHAPES:
+            npos = int(np.prod(shape))
+            pipe = MeshPipeline(make_mesh3(shape, [dev] * npos), **kw)
+            cur = pipe.shard(yuv)
+
+            def one_device():
+                return single(yuv)
+
+            def on_mesh():
+                return pipe._chain_u8(cur, (h, w))
+
+            ms = [timed_ms(one_device), timed_ms(on_mesh), timed_ms(on_mesh),
+                  timed_ms(one_device)]
+            one, sharded = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pipe.convert_bgr_u8(frames)
+            wall_mesh = time.perf_counter() - t
+            t = time.perf_counter()
+            d2s_host_cmajor(single(up(frames)).cpu().numpy())
+            wall_one = time.perf_counter() - t
+            _, dy, sp = shape
+            hs, ws = -(-h // (2 * dy)) * 2, -(-w // (2 * sp)) * 2
+            # the share of pixels each stage's halo adds to a shard
+            redundancy = {stage: ((hs + 2 * k) * (ws + 2 * k)) / (hs * ws) - 1
+                          for stage, k in (("noise", HALO_NOISE),
+                                           ("scale", HALO_SCALE))
+                          if stage in kw.get("mode", "scale")}
+            timings.append({"cell": name, "mesh": shape, "single_ms": one,
+                            "mesh_ms": sharded, "ratio": sharded / one,
+                            "turns_ms": ms, "wall_single_s": wall_one,
+                            "wall_mesh_s": wall_mesh,
+                            "halo_redundancy": redundancy})
+            parts.append(
+                f"{shape}: {sharded:.2f} ms = {sharded / one:.3f}x (turns "
+                f"{', '.join(f'{v:.2f}' for v in ms)}; the halo adds "
+                + ", ".join(f"{100 * v:.2f}% ({k})"
+                            for k, v in redundancy.items())
+                + f" of a shard's pixels; host clock with the transfers "
+                f"{wall_mesh:.3f} s against {wall_one:.3f} s)")
+            del cur, pipe
+            torch.cuda.empty_cache()
+        log(f"phase 29 timing {name} on {smi}: single device {one:.2f} ms; "
+            + "; ".join(parts))
+        del yuv
+        torch.cuda.empty_cache()
+    if "ns1080" in [t["cell"] for t in timings]:
+        ns = [t for t in timings if t["cell"] == "ns1080"
+              and t["mesh"] == (2, 2, 2)][0]
+        log(f"phase 29 prediction check, ns1080 on (2, 2, 2): "
+            f"{ns['ratio']:.3f}x the single-device step (PERF.md predicted "
+            f"1.04-1.12x)")
+
+    # scaling_probe: the F.conv2d plane and the kernel chain, 8 positions
+    probe = scaling_probe.run((1, 8), (512, 3840), 3, dev)
+    log(f"phase 29 scaling_probe (1 x 8 on one card, 512 x 3840) on {smi}: "
+        f"plane overhead {probe['plane']['overhead']:.4f} (analytic halo "
+        f"{probe['plane']['analytic_halo_recompute']:.4f}; "
+        f"{probe['plane']['t_single_ms']:.2f} -> "
+        f"{probe['plane']['t_sharded_ms']:.2f} ms), chain overhead "
+        f"{probe['chain']['overhead']:.4f} (analytic "
+        f"{probe['chain']['analytic_halo_recompute']:.4f}; "
+        f"{probe['chain']['t_single_ms']:.2f} -> "
+        f"{probe['chain']['t_sharded_ms']:.2f} ms)")
+
+    # the callers on the (1, 1, 1) mesh: Converter, StreamConverter, CLI
+    ensure_default_models(w2x_io.default_model_dir())
+    img = structured_bgr(rng, 1, 720, 1280)[0]
+    cfg = Config(mesh="1x1", model_dir=w2x_io.default_model_dir())
+    conv = Converter.from_config(cfg, dev)
+    stack.reset_launches()
+    got = conv.process_bgr_u8(img)
+    torch.cuda.synchronize()
+    launches = mesh_launches()
+    if list(conv._pipes) != [(1, 1, 1)]:
+        raise AssertionError(f"phase 29 Converter mesh='1x1': pipelines "
+                             f"{list(conv._pipes)}")
+    expect_mesh("Converter mesh='1x1'", launches, 1, 1)
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    want = Converter.from_config(dataclasses.replace(cfg, mesh="off"),
+                                 dev).process_bgr_u8(img)
+    worst, frac = check_u8("phase 29 Converter mesh='1x1'",
+                           torch.from_numpy(got), torch.from_numpy(want), 1,
+                           CLI_U8_FRAC)
+    log(f"phase 29 Converter.from_config(Config(mesh='1x1')) 720x1280 "
+        f"noise_scale: MeshPipeline (1, 1, 1), {int(round(frac * got.size))}"
+        f" bytes differ from mesh='off' (max {worst})")
+    if resolve_stream_mesh((1, 1, 1), dev) is not None:
+        raise AssertionError("phase 29: resolve_stream_mesh((1, 1, 1))")
+    frames4 = structured_bgr(rng, 4, 512, 512)
+    kw = dict(fast=conv.fast_scale, fast_noise=conv.fast_noise,
+              mode="noise_scale", device=dev, batch=2)
+    stack.reset_launches()
+    outs = list(StreamConverter(mesh=make_mesh3((1, 1, 1), [dev]), **kw)
+                .process_frames(frames4))
+    torch.cuda.synchronize()
+    launches = mesh_launches()
+    expect_mesh("StreamConverter on (1, 1, 1)", launches, 2, 2)
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    refs = list(StreamConverter(**kw).process_frames(frames4))
+    n_diff = [int(round(check_u8(f"phase 29 stream frame {i}",
+                                 torch.from_numpy(g), torch.from_numpy(r), 1,
+                                 CLI_U8_FRAC)[1] * g.size))
+              for i, (g, r) in enumerate(zip(outs, refs))]
+    log(f"phase 29 StreamConverter on a (1, 1, 1) mesh, 4 x 512^2 "
+        f"noise_scale in 2 dispatches: bytes that differ from the one-device "
+        f"stream {n_diff}")
+    d = Path(tempfile.mkdtemp())
+    src = d / "in.png"
+    w2x_io.imwrite_bgr(str(src), structured_bgr(rng, 1, 512, 512)[0])
+    files = {}
+    for spec in ("1x1", "off"):
+        stack.reset_launches()
+        if cli.main(["-i", str(src), "-o", str(d / f"{spec}.png"), "-m",
+                     "scale", "--mesh", spec, "--device", dev.type]) != 0:
+            raise AssertionError(f"phase 29 cli --mesh {spec}")
+        launches = mesh_launches()
+        expect_mesh(f"cli --mesh {spec}", launches, 0, 1)
+        if spec == "1x1":
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+        files[spec] = w2x_io.imread_bgr(str(d / f"{spec}.png"))
+    worst, frac = check_u8("phase 29 cli --mesh 1x1",
+                           torch.from_numpy(files["1x1"]),
+                           torch.from_numpy(files["off"]), 1, CLI_U8_FRAC)
+    shutil.rmtree(d)
+    log(f"phase 29 cli --mesh 1x1 512x512 scale: "
+        f"{int(round(frac * files['1x1'].size))} bytes differ from --mesh "
+        f"off (max {worst})")
+    log(f"phase 29 passed in {time.perf_counter() - t0:.1f} s; mesh "
+        f"launches by kernel {totals}")
+    log(json.dumps({"mesh_timings": timings, "scaling_probe": probe}))
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4541,6 +4881,9 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s so far")
     cli_launches = phase28(dev, smi)
     log(f"{time.perf_counter() - t_start:.1f} s so far")
+    mesh_totals = phase29(dev, smi)
+    torch.cuda.empty_cache()
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
 
     maccs = count_maccs_per_pixel()
 
@@ -5115,6 +5458,12 @@ def main() -> int:
         row["cli_launches"] = cli_launches[key]
         row["cli_launches_of"] = ("phase 28's command-line runs, the counts "
                                   "set to 0 before each")
+        row["mesh_launches"] = mesh_totals[key]
+        row["mesh_launches_of"] = ("phase 29's mesh calls (MeshPipeline on "
+                                   "three virtual meshes of the card, "
+                                   "Converter, StreamConverter and the CLI on "
+                                   "(1, 1, 1)), the counts set to 0 before "
+                                   "each")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -25,7 +25,6 @@ from waifu2x_tpu.models.srcnn import as_numpy
 from waifu2x_tpu.models.weights import save_model_json
 from waifu2x_torch import cli as tcli
 from waifu2x_torch import io as tio
-from waifu2x_torch import pipeline as tpl
 from waifu2x_torch.ops import _build
 from waifu2x_torch.utils.cache import enable_compilation_cache
 
@@ -242,23 +241,36 @@ def test_no_card_without_device_cpu(tmp_path, rng, logs, monkeypatch):
                if r.levelno == logging.ERROR)
 
 
-def test_mesh_the_port_cannot_shard(tmp_path, rng, logs, monkeypatch):
-    """A mesh the cards could hold ends in a logged error and rc 1; one
-    they cannot hold runs on one device with a warning, as the Converter
-    does."""
+def test_mesh_runs_on_cpu_positions(tmp_path, rng, logs, monkeypatch):
+    """--device cpu with an explicit mesh takes that many CPU positions for
+    the run (as the JAX package's CLI asks XLA for that many host devices):
+    --mesh 1x2 shards the conversion, writes the one-device run's file and
+    warns of nothing; the CPU position count is restored after the run."""
+    from waifu2x_torch.parallel import mesh as tmesh
+    from waifu2x_torch.parallel import mesh_pipeline
+    calls = []
+    orig = mesh_pipeline.MeshPipeline.convert_bgr_u8
+
+    def spy(self, bgr_u8):
+        calls.append(self.mesh.shape)
+        return orig(self, bgr_u8)
+
+    monkeypatch.setattr(mesh_pipeline.MeshPipeline, "convert_bgr_u8", spy)
     model_dir = _demo_models(str(tmp_path / "models"))
     src = str(tmp_path / "a.png")
-    tio.imwrite_bgr(src, rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
-    argv = ["-i", src, "-m", "scale", "--model_dir", model_dir, "--device",
-            "cpu", "--pallas", "on", "--mesh", "1x2"]
-    assert tcli.main(argv) == 0
-    assert any("single-device" in r.getMessage() for r in logs.records)
-    os.remove(str(tmp_path / "a(scale)(x2.000000).png"))
-    monkeypatch.setattr(tpl, "_device_count", lambda device: 8)
-    assert tcli.main(argv) == 1
-    assert sorted(os.listdir(tmp_path)) == ["a.png", "models"]
-    assert any("A item 6" in r.getMessage() for r in logs.records
-               if r.levelno == logging.ERROR)
+    tio.imwrite_bgr(src, rng.integers(0, 256, (16, 32, 3), dtype=np.uint8))
+    outs = {}
+    for mesh in ("1x2", "off"):
+        out = str(tmp_path / f"a_{mesh}.png")
+        assert tcli.main(["-i", src, "-o", out, "-m", "scale", "--model_dir",
+                          model_dir, "--device", "cpu", "--pallas", "on",
+                          "--mesh", mesh]) == 0
+        outs[mesh] = tio.imread_bgr(out)
+    assert calls == [(1, 1, 2)] and tmesh.CPU_DEVICES == 1
+    assert outs["1x2"].shape == (32, 64, 3)
+    np.testing.assert_array_equal(outs["1x2"], outs["off"])
+    assert not any("mesh" in r.getMessage() for r in logs.records
+                   if r.levelno >= logging.WARNING)
 
 
 def test_profile_writes_a_trace(tmp_path, rng):

@@ -53,6 +53,14 @@ def test_scan_covers_the_package():
             "waifu2x_torch/cli.py", "waifu2x_torch/io.py",
             "waifu2x_torch/native.py", "waifu2x_torch/pngcodec.py",
             "waifu2x_torch/parallel/tiles.py",
+            "waifu2x_torch/parallel/mesh.py",
+            "waifu2x_torch/parallel/sharded.py",
+            "waifu2x_torch/parallel/fast_sharded.py",
+            "waifu2x_torch/parallel/mesh_pipeline.py",
+            "waifu2x_torch/parallel/multihost.py",
+            "waifu2x_torch/tools/bench_sharded.py",
+            "waifu2x_torch/tools/scaling_probe.py",
+            "waifu2x_torch/tools/multiproc_worker.py",
             "waifu2x_torch/utils/cache.py",
             "waifu2x_torch/train/checkpoint.py",
             "chip_smoke.py"} <= names

@@ -283,13 +283,29 @@ def test_converter_mesh_without_kernel_stacks_warns_once(model_dir, rng,
     assert len(recs) == 1 and "kernel stacks" in recs[0].getMessage()
 
 
-def test_converter_mesh_the_cards_could_hold_raises(model_dir, rng,
-                                                    monkeypatch):
-    """A mesh that fits the host's devices would shard in the JAX package;
-    the port raises the stream's NotImplementedError instead."""
-    monkeypatch.setattr(pl, "_device_count", lambda device: 8)
-    conv = pl.Converter.from_config(Config(
-        mode="scale", model_dir=model_dir, mesh="2x4", use_pallas=True,
-        compute_dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A item 6"):
-        conv.process_bgr_u8(rng.integers(0, 256, (12, 10, 3), np.uint8))
+def test_converter_mesh_the_devices_hold_shards(model_dir, rng,
+                                               monkeypatch):
+    """A mesh that fits the host's devices (here 8 CPU positions) shards the
+    conversion, as in the JAX package: process_bgr_u8 runs MeshPipeline,
+    and the output equals the one-device conversion."""
+    from waifu2x_torch.parallel import mesh as tmesh
+    from waifu2x_torch.parallel import mesh_pipeline
+
+    monkeypatch.setattr(tmesh, "CPU_DEVICES", 8)
+    calls = []
+    orig = mesh_pipeline.MeshPipeline.convert_bgr_u8
+
+    def spy(self, bgr_u8):
+        calls.append(self.mesh.shape)
+        return orig(self, bgr_u8)
+
+    monkeypatch.setattr(mesh_pipeline.MeshPipeline, "convert_bgr_u8", spy)
+    kw = dict(mode="scale", model_dir=model_dir, use_pallas=True,
+              compute_dtype="float32")
+    conv = pl.Converter.from_config(Config(mesh="2x4", **kw), device="cpu")
+    img = rng.integers(0, 256, (24, 40, 3), np.uint8)
+    got = conv.process_bgr_u8(img)
+    assert calls == [(2, 1, 4)]
+    ref = pl.Converter.from_config(Config(mesh="off", **kw),
+                                   device="cpu").process_bgr_u8(img)
+    np.testing.assert_array_equal(got, ref)

@@ -213,8 +213,10 @@ def test_stream_mode_validation(fast):
         StreamConverter(fast, mode="noise_scale", device="cpu")
     with pytest.raises(ValueError):
         StreamConverter(None, mode="scale", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        StreamConverter(fast, device="cpu", mesh=object())
+    from waifu2x_torch.parallel.fast_sharded import make_mesh
+    with pytest.raises(ValueError, match="'dp','dy','sp'"):
+        StreamConverter(fast, device="cpu",
+                        mesh=make_mesh((1, 1), [torch.device("cpu")]))
     with pytest.raises(ValueError, match="scale_params"):
         StreamConverter.from_params(mode="scale", device="cpu")
     with pytest.raises(ValueError, match="noise_params"):
@@ -281,6 +283,11 @@ def test_resolve_stream_mesh_single_device(spec):
 
 
 @pytest.mark.parametrize("spec", [(2, 1, 1), (1, 2, 4)])
-def test_resolve_stream_mesh_rejects_larger_shapes(spec):
-    with pytest.raises(NotImplementedError, match="A item 6"):
-        resolve_stream_mesh(spec)
+def test_resolve_stream_mesh_builds_larger_shapes(spec, monkeypatch):
+    """A shape the devices hold (here 8 CPU positions) gives a
+    ("dp", "dy", "sp") mesh of that shape, as in the JAX package."""
+    from waifu2x_torch.parallel import mesh as tmesh
+    monkeypatch.setattr(tmesh, "CPU_DEVICES", 8)
+    mesh = resolve_stream_mesh(spec, "cpu")
+    assert mesh.axis_names == ("dp", "dy", "sp") and mesh.shape == spec
+    assert all(d == torch.device("cpu") for d in mesh.devices.flat)

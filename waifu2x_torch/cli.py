@@ -8,13 +8,15 @@ chooses between the CUDA card (the default) and the CPU.
 
     waifu2x-torch -i in.png [-o out.png] [-m noise|scale|noise_scale]
                   [--noise_level 1|2] [--scale_ratio 2.0] [--model_dir DIR]
-                  [-j 4] [--device cuda|cpu]
+                  [-j 4] [--mesh auto|off|DPxSP|DPxDYxSP]
+                  [--device cuda|cpu]
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import os
 import sys
 import time
@@ -87,10 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "white background before processing (the original "
                         "Lua loader's behavior, image_loader.lua:23-33)")
     p.add_argument("--mesh", default="auto",
-                   help="multi-device mesh: 'auto' (default) or 'off' run on "
-                        "one card; 'DPxSP' or 'DPxDYxSP' pins a shape, which "
-                        "the port cannot shard yet (one card, or an error "
-                        "where the cards could hold it)")
+                   help="multi-device mesh: 'auto' (default: every card on "
+                        "a host with two or more, else one), 'off', or "
+                        "'DPxSP' / 'DPxDYxSP' to pin a shape (frames x rows "
+                        "x columns). With --device cpu a pinned shape runs "
+                        "on that many CPU positions")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace to DIR")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -156,6 +159,20 @@ def main(argv: list[str] | None = None) -> int:
         log.warning("--pallas on the CPU runs the kernels' plain PyTorch "
                     "versions (slow; intended for debugging)")
 
+    from waifu2x_torch.parallel import mesh as w2x_mesh
+    shape = cfg.mesh_shape()
+    cpu_devices = w2x_mesh.CPU_DEVICES
+    if args.device == "cpu" and isinstance(shape, tuple):
+        # an explicit mesh on the CPU takes that many CPU positions, as the
+        # JAX package's CLI asks XLA for that many virtual host devices
+        w2x_mesh.CPU_DEVICES = max(cpu_devices, math.prod(shape))
+    try:
+        return _run(args, cfg)
+    finally:
+        w2x_mesh.CPU_DEVICES = cpu_devices
+
+
+def _run(args: argparse.Namespace, cfg: Config) -> int:
     from waifu2x_torch.utils.cache import enable_compilation_cache
     enable_compilation_cache()   # before Converter.from_config loads kernels
 
@@ -215,51 +232,48 @@ def main(argv: list[str] | None = None) -> int:
                     for im in imgs)))
 
     total_mp = 0.0
-    try:
-        with _profiled(args.profile, converter.device):
-            if stream_ok:
-                sc = StreamConverter(
-                    fast=converter.fast_scale,
-                    fast_noise=converter.fast_noise, mode=cfg.mode,
-                    device=converter.device,
-                    mesh=resolve_stream_mesh(cfg.mesh_shape()))
-                outs = iter(sc.process_frames(imgs))
-                for path in inputs:
-                    t = time.perf_counter()
-                    out = next(outs)
-                    secs["convert"] += time.perf_counter() - t
-                    total_mp += _write(w2x_io.auto_output_name(
-                        path, cfg.mode, cfg.noise_level, cfg.scale_ratio),
-                        out, secs)
-            else:
-                for path, img in zip(inputs, imgs):
-                    t = time.perf_counter()
-                    alpha = None
-                    if cfg.alpha == "bicubic":
-                        bgra = w2x_io.imread_bgra(path)
-                        if bgra is not None:
-                            alpha = bgra[:, :, 3]
-                    elif cfg.alpha == "flatten":
-                        bgra = w2x_io.imread_bgra(path)
-                        if bgra is not None:
-                            img = w2x_io.flatten_white(bgra)
-                    secs["decode"] += time.perf_counter() - t
+    with _profiled(args.profile, converter.device):
+        if stream_ok:
+            sc = StreamConverter(
+                fast=converter.fast_scale,
+                fast_noise=converter.fast_noise, mode=cfg.mode,
+                device=converter.device,
+                mesh=resolve_stream_mesh(cfg.mesh_shape(),
+                                         converter.device))
+            outs = iter(sc.process_frames(imgs))
+            for path in inputs:
+                t = time.perf_counter()
+                out = next(outs)
+                secs["convert"] += time.perf_counter() - t
+                total_mp += _write(w2x_io.auto_output_name(
+                    path, cfg.mode, cfg.noise_level, cfg.scale_ratio),
+                    out, secs)
+        else:
+            for path, img in zip(inputs, imgs):
+                t = time.perf_counter()
+                alpha = None
+                if cfg.alpha == "bicubic":
+                    bgra = w2x_io.imread_bgra(path)
+                    if bgra is not None:
+                        alpha = bgra[:, :, 3]
+                elif cfg.alpha == "flatten":
+                    bgra = w2x_io.imread_bgra(path)
+                    if bgra is not None:
+                        img = w2x_io.flatten_white(bgra)
+                secs["decode"] += time.perf_counter() - t
 
-                    t = time.perf_counter()
-                    out = converter.process_bgr_u8(img)
-                    if alpha is not None:
-                        a = converter.process_alpha(alpha)
-                        out = np.concatenate([out, a[:, :, None]], axis=2)
-                    secs["convert"] += time.perf_counter() - t
+                t = time.perf_counter()
+                out = converter.process_bgr_u8(img)
+                if alpha is not None:
+                    a = converter.process_alpha(alpha)
+                    out = np.concatenate([out, a[:, :, None]], axis=2)
+                secs["convert"] += time.perf_counter() - t
 
-                    out_name = args.output_file
-                    if out_name == "(auto)" or len(inputs) > 1:
-                        out_name = w2x_io.auto_output_name(
-                            path, cfg.mode, cfg.noise_level, cfg.scale_ratio)
-                    total_mp += _write(out_name, out, secs)
-    except NotImplementedError as e:   # a mesh the port cannot shard yet
-        log.error("%s", e)
-        return 1
+                out_name = args.output_file
+                if out_name == "(auto)" or len(inputs) > 1:
+                    out_name = w2x_io.auto_output_name(
+                        path, cfg.mode, cfg.noise_level, cfg.scale_ratio)
+                total_mp += _write(out_name, out, secs)
 
     dt = time.perf_counter() - t0
     log.info("%d file(s), %.2f MP in %.3fs (%.2f MP/s incl. kernel build; "

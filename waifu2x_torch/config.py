@@ -40,7 +40,8 @@ class Config:
     tile_size: int = 512               # device tile size for batched tiling
     batch_tiles: int = 8               # tiles batched per device step
     mesh: str = "auto"                 # multi-device mesh: "auto" | "off" |
-    #   "DPxSP" | "DPxDYxSP" (validated here; multi-device is a later slice)
+    #   "DPxSP" | "DPxDYxSP" (parallel/mesh_pipeline.py; "auto" shards only
+    #   on a host with two or more cards)
     alpha: str = "ignore"              # ignore (reference: IMREAD_COLOR
     #   drops alpha, main.cpp:74) | bicubic (resample alpha alongside,
     #   hints-jp.md:76-81) | flatten (composite onto white before

@@ -64,14 +64,11 @@ from waifu2x_torch.ops.stack import (
     stack_scale_dense,
     stack_scale_fused_u8,
 )
+from waifu2x_torch.parallel.mesh import local_devices
 from waifu2x_torch.parallel.tiles import plan_tiles, tiled_convert
 from waifu2x_torch.utils.logging import get_logger
 
 log = get_logger("pipeline")
-
-
-MESH_TODO = ("multi-device conversion and streams are not ported yet "
-             "(ROADMAP.md, A item 6: multi-device)")
 
 
 def resolve_device(device) -> torch.device:
@@ -528,11 +525,6 @@ SMALL_IMG_PX = 96 * 1024
 # package routes them.
 
 
-def _device_count(device: torch.device) -> int:
-    """The devices a mesh could span: the host's cards, or one CPU."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
 @dataclasses.dataclass
 class Converter:
     """Loaded-models pipeline front end (model resolution main.cpp:82-121
@@ -544,6 +536,8 @@ class Converter:
     scale_model: "SRCNN | None" = None
     fast_noise: "FastStack | None" = None
     fast_scale: "FastStack | None" = None
+    # MeshPipelines by mesh shape (parallel/mesh_pipeline.py), built lazily
+    _pipes: dict = dataclasses.field(default_factory=dict, repr=False)
     _mesh_warned: bool = dataclasses.field(default=False, repr=False)
 
     def _mesh_warn_once(self, msg: str, *args) -> None:
@@ -551,33 +545,55 @@ class Converter:
             self._mesh_warned = True
             log.warning(msg, *args)
 
-    def _check_mesh(self) -> None:
-        """cfg.mesh as the JAX package's Converter._mesh_pipe resolves it,
-        up to the point where that builds a mesh. "off", "auto" and
-        (1, 1, 1) run on one card silently ("auto" is a no-op on one device
-        in JAX too); a spec that needs the kernel stacks this mode lacks, or
-        more devices than there are, logs once per Converter and runs on one
-        card; a larger spec that the cards could hold raises: sharding is
-        not ported (ROADMAP.md, A item 6)."""
+    def _mesh_pipe(self, h: int, w: int):
+        """cfg.mesh resolved to a MeshPipeline for this image size, or None
+        (one device), by the JAX package's rules: "off" is None; the mesh
+        needs the kernel stacks this mode uses (else one warning, unless
+        "auto", and one device); "auto" acts only on a host with two or
+        more cards, the spatial split by auto_spatial_shape; an explicit
+        shape, (1, 1, 1) included, is built over the first devices of
+        parallel.mesh.local_devices (the cards, or the CPU positions), and
+        one that needs more devices than there are warns once and runs on
+        one device. Pipelines are cached by shape; an image smaller than
+        the mesh's min_image_hw runs on one device."""
         spec = self.cfg.mesh_shape()
-        if spec in ("off", "auto", (1, 1, 1)):
-            return
+        if spec == "off":
+            return None
         need = []
         if self.cfg.mode in ("scale", "noise_scale"):
             need.append(self.fast_scale)
         if self.cfg.mode in ("noise", "noise_scale"):
             need.append(self.fast_noise)
         if any(f is None for f in need):
-            self._mesh_warn_once("a mesh needs the kernel stacks (the "
-                                 "flagship 7-layer model, use_pallas not "
-                                 "False); running single-device")
-            return
-        n_need, have = math.prod(spec), _device_count(self.device)
-        if n_need > have:
+            if spec != "auto":
+                self._mesh_warn_once("a mesh needs the kernel stacks (the "
+                                     "flagship 7-layer model, use_pallas not "
+                                     "False); running single-device")
+            return None
+        from waifu2x_torch.parallel.mesh_pipeline import (
+            MeshPipeline, auto_spatial_shape, make_mesh3)
+        devices = local_devices(self.device)
+        if spec == "auto":
+            if self.device.type != "cuda" or len(devices) < 2:
+                return None
+            spec = auto_spatial_shape(len(devices), h, w)
+            if spec == (1, 1, 1):
+                return None
+        n_need = math.prod(spec)
+        if n_need > len(devices):
             self._mesh_warn_once("mesh %s needs %d devices, have %d; running "
-                                 "single-device", spec, n_need, have)
-            return
-        raise NotImplementedError(f"mesh {spec}: {MESH_TODO}")
+                                 "single-device", spec, n_need, len(devices))
+            return None
+        if spec not in self._pipes:
+            self._pipes[spec] = MeshPipeline(
+                make_mesh3(spec, devices[:n_need]),
+                fast_scale=self.fast_scale, fast_noise=self.fast_noise,
+                mode=self.cfg.mode, scale_ratio=self.cfg.scale_ratio)
+        pipe = self._pipes[spec]
+        mh, mw = pipe.min_image_hw()
+        if h < mh or w < mw:
+            return None
+        return pipe
 
     def _fast_ok(self, fast: "FastStack | None", px: int) -> bool:
         """Use the kernel for this plane? 'auto' keeps tiny images on the
@@ -666,8 +682,14 @@ class Converter:
         return d2s_host_cmajor(out.cpu().numpy())[0]
 
     def process_bgr_u8(self, bgr_u8: np.ndarray) -> np.ndarray:
-        """uint8 BGR in, uint8 BGR out — the whole main.cpp math path."""
-        self._check_mesh()
+        """uint8 BGR in, uint8 BGR out — the whole main.cpp math path. On a
+        mesh (cfg.mesh; _mesh_pipe) the whole chain runs sharded when the
+        image qualifies for the kernel path, else on one device."""
+        h, w = bgr_u8.shape[0], bgr_u8.shape[1]
+        pipe = self._mesh_pipe(h, w)
+        if pipe is not None and self._fast_ok(
+                self.fast_scale or self.fast_noise, h * w):
+            return pipe.convert_bgr_u8(bgr_u8[None])[0]
         img = torch.from_numpy(np.ascontiguousarray(bgr_u8)).to(self.device)
         yuv = _to_yuv(img)
         out = self._final_fast_u8(yuv)

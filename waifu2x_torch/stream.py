@@ -23,9 +23,15 @@ Modes mirror the reference CLI (main.cpp:82-169): "scale" (2x), "noise"
 pipeline.FUSED_TAIL / YDENSE (W2X_TAIL, W2X_YDENSE), and both stacks follow
 ops.stack's L6_I8 / L6_WINO (W2X_L6_I8, W2X_L6_WINO).
 
+With a mesh (mesh=, a parallel.mesh_pipeline.make_mesh3 mesh) every
+dispatch runs the composed chain sharded over it (MeshPipeline): frames
+over "dp", image rows and columns over "dy" and "sp". Each position's u8
+result copies into pinned host memory of its own, each card records an
+event after its copies, and a pending batch keeps those buffers until it is
+retired (mesh.HostCopy). Odd-sized frames ride the mesh padding.
+
 process_paths converts image files through the port's host I/O (io.py)
-and can resume from a frame cursor (train/checkpoint.py). Not here yet:
-the multi-device mesh.
+and can resume from a frame cursor (train/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -46,7 +52,6 @@ from waifu2x_torch.ops.color import (
 from waifu2x_torch.ops.s2d import d2s_host_cmajor
 from waifu2x_torch.pipeline import (
     BAND_PX,
-    MESH_TODO,
     FastStack,
     noise_batch_fast,
     noise_batch_u8_fused,
@@ -54,7 +59,11 @@ from waifu2x_torch.pipeline import (
     resolve_device,
     scale2x_batch_u8_fused,
 )
+from waifu2x_torch.parallel import mesh as w2x_mesh
 from waifu2x_torch.train.checkpoint import load_frame_cursor, save_frame_cursor
+from waifu2x_torch.utils.logging import get_logger
+
+log = get_logger("stream")
 
 
 def _to_yuv_batch(bgr_u8: torch.Tensor) -> torch.Tensor:
@@ -65,14 +74,27 @@ def _to_bgr_u8_batch(yuv: torch.Tensor) -> torch.Tensor:
     return saturate_cast_u8(yuv_to_bgr(yuv))
 
 
-def resolve_stream_mesh(spec):
-    """Config.mesh_shape() output -> a device mesh or None (one device).
-    "off", (1, 1, 1) and "auto" give None: the port runs on one card. An
-    explicit larger shape raises NotImplementedError rather than quietly
-    running on one device."""
-    if spec in ("off", "auto", (1, 1, 1)):
+def resolve_stream_mesh(spec, device="cuda"):
+    """Config.mesh_shape() output -> a ("dp", "dy", "sp") mesh or None (one
+    device), over parallel.mesh.local_devices(device). "auto" is pure frame
+    data-parallelism (dp = every card: no halo traffic, each card converts
+    whole frames) on a host with two or more cards, else None; "off" and
+    (1, 1, 1) give None; a shape that needs more devices than there are
+    logs a warning and gives None."""
+    if spec in ("off", (1, 1, 1)):
         return None
-    raise NotImplementedError(f"mesh {spec}: {MESH_TODO}")
+    from waifu2x_torch.parallel.mesh_pipeline import make_mesh3
+    devices = w2x_mesh.local_devices(device)
+    if spec == "auto":
+        if torch.device(device).type != "cuda" or len(devices) < 2:
+            return None
+        return make_mesh3((len(devices), 1, 1), devices)
+    n = spec[0] * spec[1] * spec[2]
+    if n > len(devices):
+        log.warning("mesh %s needs %d devices, have %d; running "
+                    "single-device", spec, n, len(devices))
+        return None
+    return make_mesh3(spec, devices[:n])
 
 
 @dataclasses.dataclass
@@ -85,8 +107,10 @@ class StreamConverter:
     depth:      dispatch-ahead depth (>=1; 2 overlaps host & device work).
     fast_noise: FastStack (noise model) for mode "noise"/"noise_scale".
     mode:       scale | noise | noise_scale (reference main.cpp modes).
-    device:     where dispatches run; the FastStacks' weights must be there.
-    mesh:       must be None (see resolve_stream_mesh).
+    device:     where dispatches run without a mesh; the FastStacks'
+                weights must be there.
+    mesh:       a make_mesh3 ("dp", "dy", "sp") mesh, or None: dispatches
+                then run the composed chain sharded over it (MeshPipeline).
     """
 
     fast: "FastStack | None"
@@ -133,9 +157,13 @@ class StreamConverter:
             raise ValueError(f"mode {self.mode!r} needs a scale FastStack")
         if self.mode != "scale" and self.fast_noise is None:
             raise ValueError(f"mode {self.mode!r} needs a noise FastStack")
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_TODO)
         self.device = resolve_device(self.device)
+        self._mesh_pipe = None
+        if self.mesh is not None:
+            from waifu2x_torch.parallel.mesh_pipeline import MeshPipeline
+            self._mesh_pipe = MeshPipeline(
+                self.mesh, fast_scale=self.fast, fast_noise=self.fast_noise,
+                mode=self.mode, scale_ratio=2.0)
 
     # -- per-shape batching ------------------------------------------------
 
@@ -148,7 +176,16 @@ class StreamConverter:
         Scale modes additionally prefer the largest batch that keeps the
         2x step unbanded (the band overlap is recomputed work), floored at
         2 frames so that 4K+ streams keep dispatch amortisation and just
-        band."""
+        band.
+
+        On a mesh the rule bounds each device's share: the cap grows with
+        the mesh's size, and a batch covers at least the "dp" axis (short
+        batches are frame-padded)."""
+        if self._mesh_pipe is not None:
+            dp = self.mesh.axis_size("dp")
+            cap = max(1, self.mesh.size * (4 if self.mode == "noise" else 1)
+                      * BAND_PX // max(1, h * w))
+            return max(dp, min(max(self.batch, dp), cap))
         if self.mode == "noise":
             return max(1, min(self.batch, 4 * BAND_PX // max(1, h * w)))
         unbanded = BAND_PX // max(1, h * w)
@@ -177,8 +214,10 @@ class StreamConverter:
 
     def _dispatch(self, frames: Sequence[np.ndarray], nbatch: int):
         """Enqueue one batch (padded to `nbatch` frames by repeating the
-        last) -> (u8 result on the host, the CUDA event after its copy or
-        None on the CPU, number of valid frames, the pinned input)."""
+        last) -> (wait, n valid frames, the pinned input, the crop of a
+        mesh's output or None). Nothing waits here: wait() waits for the u8
+        result's copy into pinned host memory (the CUDA event after it; on a
+        mesh, mesh.HostCopy's events) and returns it as numpy."""
         n = len(frames)
         on_card = self.device.type == "cuda"
         host_in = torch.empty((nbatch, *frames[0].shape), dtype=torch.uint8,
@@ -186,8 +225,18 @@ class StreamConverter:
         view = host_in.numpy()
         for k in range(nbatch):   # pad the tail batch with its last frame
             view[k] = frames[min(k, n - 1)]
+        if self._mesh_pipe is not None:
+            # place the u8 batch on the mesh first, then the YUV map and the
+            # chain run sharded; the mesh pads the frame, so retire crops
+            pipe = self._mesh_pipe
+            h, w = host_in.shape[1], host_in.shape[2]
+            out = pipe._chain_u8(pipe._to_yuv(pipe.shard(host_in)), (h, w))
+            s = 1 if self.mode == "noise" else 2
+            return (w2x_mesh.HostCopy(out).wait, n, host_in,
+                    (s * h, s * w))
         if not on_card:
-            return self._step(_to_yuv_batch(host_in)), None, n, host_in
+            out = self._step(_to_yuv_batch(host_in))
+            return out.numpy, n, host_in, None
         with torch.cuda.device(self.device):
             out = self._step(_to_yuv_batch(
                 host_in.to(self.device, non_blocking=True)))
@@ -196,7 +245,12 @@ class StreamConverter:
             host_out.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-        return host_out, done, n, host_in
+
+        def wait() -> np.ndarray:
+            done.synchronize()
+            return host_out.numpy()
+
+        return wait, n, host_in, None
 
     # -- ordered streaming -------------------------------------------------
 
@@ -207,15 +261,15 @@ class StreamConverter:
         batched separately, dispatch-ahead keeps the device busy, and
         outputs are re-ordered to input order."""
         bufs: dict[tuple, tuple[list[np.ndarray], list[int]]] = {}
-        pending: list[tuple] = []   # (host_out, done, n_valid, host_in, seqs)
+        pending: list[tuple] = []   # (wait, n_valid, host_in, crop, seqs)
         ready: dict[int, np.ndarray] = {}
         next_out = 0
 
         def retire(entry):
-            host_out, done, n_valid, _, seqs = entry
-            if done is not None:
-                done.synchronize()
-            host = self._interleave(host_out.numpy())
+            wait, n_valid, _, crop_hw, seqs = entry
+            host = self._interleave(wait())
+            if crop_hw is not None:   # mesh-padded dims back to the frame's
+                host = host[:, :crop_hw[0], :crop_hw[1]]
             for k, seq in enumerate(seqs[:n_valid]):
                 ready[seq] = host[k]
 
