@@ -290,6 +290,27 @@ Phases (any failure raises and exits non-zero):
      tools.scaling_probe's overhead, the halo redundancy and the peak
      memory, with the card's name and power limit; each mesh-path kernel's
      row gains "mesh_launches".
+ 30. training at full width (phase30 below; waifu2x_torch/train/, F.conv2d
+     under autograd and torch.optim.Adam: no TPU kernel is on the training
+     path): the 7-layer model at the reference's TrainConfig defaults
+     (batch 32, crop 128, "highest"); one step on the card against the
+     same step on the CPU (loss within 1e-6, params within 1e-5 but those
+     whose gradient is under 1e-6, held to 2 x lr: hold_step); the MSE
+     and QAT steps timed at "highest" and "default" with samples/s and
+     peak memory; 50 steps on one batch lower the loss; the sharded step
+     on the virtual meshes (2, 4) and (1, 8) against one device, MSE and
+     QAT (hold_step, loss within 1e-5); a checkpoint's 2 + 2 steps within
+     1e-5 of 4 straight; tools.train_demo warm-started from the shipped
+     scale2.0x_demo weights with their QAT recipe, its held-out dB before
+     and after, the layer-6 quantisation gap, the exported JSON through
+     Converter.from_config at >= 50 dB against the f32 non-kernel path on
+     the hand kernels only, and the scale512 int8 step's PSNR for the
+     trained and the shipped weights (measured, not gated);
+ 31. the three fidelity tools (phase31 below): chain_fidelity_probe at
+     512^2 (f32/f32 >= 50 dB), edge_error_probe at 512 and ns1080_probe at
+     --iters 2, each with the launch counts read around it (the hand
+     kernels only); their launches and phase 30's Converter run's go to
+     each kernel row as "train_tools_launches".
 Phase 15 also runs the ns1080 chain with its f32 noise stack under the
 Winograd switch (the f32 stack on l6_wino_tf32, the bf16 one on
 l6_wino_mma) and gates the scale512 int8 step and stream at 50 dB.
@@ -3021,17 +3042,19 @@ def cli_run(argv: list, what: str, totals: dict):
     return run, launches, codecs
 
 
-def expect_cli_kernels(what: str, launches: dict, f32_noise: bool) -> None:
-    """The kernel route's launches: layer 1, layers 2-6 on the tensor cores
-    and layer 7 folded, in bf16, and with an f32 noise stack (the default
-    noise_scale policy) in f32 too; no FFMA layer 2-6, cell or per-pixel
-    layer 7."""
-    need = ["l1", "mma", "l7_fold"] + (
-        ["mma_tf32", "l7_fold_f32"] if f32_noise else [])
-    if (any(launches[k] == 0 for k in need) or launches["ffma"]
-            or launches["l7_cell"] or launches["l7_pixel"]
-            or bool(launches["mma_tf32"]) != f32_noise):
-        raise AssertionError(f"phase 28 {what}: launches {launches}")
+def expect_hand_kernels(what: str, launches: dict, f32: bool) -> None:
+    """The kernel route's launches (cli_run's or mesh_launches()' counts):
+    layer 1, layers 2-6 on the tensor cores and layer 7 folded launched in
+    bf16, and in f32 (3xTF32, the f32 fold) exactly where `f32`; no FFMA
+    layer, cell or per-pixel layer 7, and no other layer-6 form."""
+    need = ["l1", "mma", "l7_fold"] + (["mma_tf32", "l7_fold_f32"]
+                                       if f32 else [])
+    banned = ("ffma", "l1_ffma", "chain", "mma_zs", "mma_pp", "l7_cell",
+              "l7_pixel", "l6_other") + (() if f32 else ("mma_tf32",
+                                                         "l7_fold_f32"))
+    if (any(launches[k] == 0 for k in need)
+            or any(launches.get(k, 0) for k in banned)):
+        raise AssertionError(f"{what}: launches {launches}")
 
 
 def phase28(dev: torch.device, smi: str) -> dict:
@@ -3074,7 +3097,7 @@ def phase28(dev: torch.device, smi: str) -> dict:
         w2x_io.imwrite_bgr(str(src), img)
         argv = ["-i", src, "-o", out, *extra]
         run, launches, codecs = cli_run(argv, what, totals)
-        expect_cli_kernels(what, launches, f32_noise)
+        expect_hand_kernels(f"phase 28 {what}", launches, f32_noise)
         decoded = w2x_io.imread_bgr(str(src))
         if not np.array_equal(decoded, img):
             raise AssertionError(f"phase 28 {what}: the PNG round trip "
@@ -3118,7 +3141,7 @@ def phase28(dev: torch.device, smi: str) -> dict:
         w2x_io.imwrite_bgr(str(p), f)
     run4, launches4, _ = cli_run(["-i", *paths], "four files 512x512 "
                                  "noise_scale", totals)
-    expect_cli_kernels("four files", launches4, True)
+    expect_hand_kernels("phase 28 four files", launches4, True)
     if run4["route"] != "stream":
         raise AssertionError(f"phase 28 four files: route {run4['route']}")
     stream_outs, n_diff = [], []
@@ -3221,7 +3244,8 @@ def phase28(dev: torch.device, smi: str) -> dict:
     torch.cuda.empty_cache()
     _, launches_k, _ = cli_run(["-i", src_big, "-o", out_k, "-m", "scale"],
                                "1024x1024 scale, kernel route", totals)
-    expect_cli_kernels("1024x1024 kernel route", launches_k, False)
+    expect_hand_kernels("phase 28 1024x1024 kernel route", launches_k,
+                        False)
     db = psnr(w2x_io.imread_bgr(str(out_t)), w2x_io.imread_bgr(str(out_k)))
     log(f"phase 28 tiled route against the kernel route: {db:.2f} dB")
     if not db >= PSNR_BAR:
@@ -3562,6 +3586,378 @@ def phase29(dev: torch.device, smi: str) -> dict:
         f"launches by kernel {totals}")
     log(json.dumps({"mesh_timings": timings, "scaling_probe": probe}))
     return totals
+
+
+# One train step against another run of it (phase 30): a param within
+# STEP_TOL after the step, the loss within STEP_LOSS_TOL of the CPU's (the
+# sharded steps' loss within STEP_TOL). Adam's first update is
+# lr * g / (|g| + 1e-8): where a gradient is near 1e-8 a last-bit
+# difference between two summation orders moves the update by up to lr
+# (measured on the CPU at full width, batch 8, crop 96: 2 of 155 k weights,
+# |g| 5e-9, 2.2e-5 and 4.7e-5 apart between the sharded and the one-device
+# step, every other weight within 1.5e-8), so the params whose gradient is
+# under SMALL_GRAD on either side are held within 2 x lr instead and
+# counted.
+STEP_TOL = 1e-5
+STEP_LOSS_TOL = 1e-6
+SMALL_GRAD = 1e-6
+# tools.train_demo in phase 30: the shipped scale2.0x_demo file's own
+# recipe (its provenance: --qat_mu 4 --lr 5e-5 --ema 0.999 --clip 1, batch
+# 32, crop 96), cut to these steps and synthetic images, evaluated every
+# DEMO_EVAL steps (300 steps: 13.3 s on an H100 80GB HBM3 at 700 W, and
+# neither variant beat the shipped weights at step 300)
+DEMO_STEPS = 1000
+DEMO_IMAGES = 64
+DEMO_EVAL = 250
+
+
+def train_flops(crop: int, batch: int, spec) -> float:
+    """About the operations of one train step on the valid stack: the
+    forward's multiply-adds x 2, times 3 (the backward's input-gradient and
+    weight-gradient products a layer; layer 1 has no input gradient, under
+    0.1% of the whole)."""
+    h, macs = crop, 0
+    for layer in spec.layers:
+        h -= layer.ksize - 1
+        macs += h * h * layer.ksize * layer.ksize * layer.cin * layer.cout
+    return 3 * 2 * macs * batch
+
+
+def hold_step(what: str, got, ref, loss_got: float, loss_ref: float,
+              loss_tol: float, lr: float) -> dict:
+    """One train step's params (autograd leaves, their .grad the step's
+    gradient) and loss against another run of the same step: the loss
+    within loss_tol, every param within STEP_TOL but those whose gradient
+    is under SMALL_GRAD on either side, which are held within 2 x lr.
+    Returns the errors."""
+    from waifu2x_torch.train.train import leaves
+    worst = worst_small = 0.0
+    n = n_small = 0
+    for a, b in zip(leaves(got), leaves(ref), strict=True):
+        d = (a.detach().cpu() - b.detach().cpu()).abs()
+        small = torch.minimum(a.grad.detach().cpu().abs(),
+                              b.grad.detach().cpu().abs()) < SMALL_GRAD
+        n += d.numel()
+        if (~small).any():
+            worst = max(worst, d[~small].max().item())
+        if small.any():
+            n_small += int(small.sum())
+            worst_small = max(worst_small, d[small].max().item())
+    dl = abs(loss_got - loss_ref)
+    log(f"{what}: loss {loss_got:.8f} against {loss_ref:.8f} (|diff| "
+        f"{dl:.3e}, bar {loss_tol:g}); params max |diff| {worst:.3e} over "
+        f"the {n - n_small} of {n} whose gradient is >= {SMALL_GRAD:g} (bar "
+        f"{STEP_TOL:g}), {worst_small:.3e} over the other {n_small} (bar "
+        f"2 x lr = {2 * lr:g})")
+    if not (dl <= loss_tol and worst <= STEP_TOL
+            and worst_small <= 2 * lr):
+        raise AssertionError(f"{what}: loss |diff| {dl}, params {worst}, "
+                             f"{worst_small} at small gradients")
+    return {"loss": dl, "params": worst, "params_small_grad": worst_small,
+            "small_grad_params": n_small}
+
+
+def phase30(dev: torch.device, smi: str, frames: np.ndarray) -> dict:
+    """30. Training at full width on the card (waifu2x_torch/train/: F.conv2d
+    under autograd and torch.optim.Adam, as the JAX package's training is
+    XLA's convolution under jax.grad, with no Pallas kernel): the
+    7-layer model 1-32-32-64-64-128-128-1 at the reference's TrainConfig
+    defaults (batch 32, crop 128, lr 2.5e-4, "highest"), on
+    train.data.make_batch pairs of synthetic images. One step on the card
+    against the same step on the CPU (hold_step); the MSE and QAT (mu 4)
+    steps timed at "highest" and "default" with CUDA events after a
+    warm-up, on batches resident on the card, with samples/s and peak
+    memory; 50 steps on one batch lower the loss; the sharded step on the
+    virtual meshes (2, 4) and (1, 8) of the card against the one-device
+    step, MSE and QAT (hold_step); a checkpoint's 2 + 2 steps against 4
+    straight (schedule and clipping on, cuDNN deterministic): within 1e-5.
+    Then tools.train_demo warm-started from models/scale2.0x_demo.json with
+    that file's recipe (DEMO_STEPS steps, DEMO_IMAGES images, evaluated
+    every DEMO_EVAL), its held-out dB before and after, its curve and the
+    layer-6 quantisation gap of the exported and the shipped weights; the exported JSON through
+    Converter.from_config on a 512 x 512 image (>= 50 dB against the f32
+    non-kernel path with the same weights, the hand kernels only); the
+    scale512 int8 step's PSNR (frames 0-1 of `frames`, phase 15's
+    measurement) for the trained and the shipped weights, measured, not
+    gated. Returns the numbers."""
+    from waifu2x_torch import pipeline as pipeline_mod
+    from waifu2x_torch.config import Config
+    from waifu2x_torch.models.srcnn import SRCNN, WAIFU2X_7LAYER, init_params
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.ops.s2d import d2s_host_cmajor
+    from waifu2x_torch.parallel import mesh as w2x_mesh
+    from waifu2x_torch.pipeline import (
+        Converter, FastStack, _to_bgr_u8, _to_yuv, scale2x_batch,
+        scale2x_batch_u8_fused)
+    from waifu2x_torch.tools import train_demo
+    from waifu2x_torch.train import checkpoint, data, qat, train
+    from waifu2x_torch.utils.metrics import psnr
+    from waifu2x_torch.utils.timing import time_ms
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    cfg = train.TrainConfig()
+    lr = cfg.learning_rate
+    rng = np.random.default_rng(30)
+    images = [train_demo.synth_image(rng, 192) for _ in range(8)]
+    opts = data.PairOptions(crop_size=cfg.crop_size)
+    batches = [data.make_batch(images, cfg.batch_size, "scale", rng, opts)
+               for _ in range(4)]
+    x, y = batches[0]
+    p0 = init_params(30)
+    opt = cfg.make_optimizer()
+    qat4 = qat.make_qat_l6_loss(4.0)
+    res = {"errors": {}}
+
+    def fresh(device):
+        p = train.trainable(p0, device)
+        return p, opt.init(p)
+
+    # 1. one "highest" step on the card and on the CPU, from equal params
+    # on equal data
+    p_cpu, st = fresh("cpu")
+    tc = time.perf_counter()
+    p_cpu, _, l_cpu = train.make_train_step(opt)(p_cpu, st, x, y)
+    cpu_s = time.perf_counter() - tc
+    p_card, st = fresh(dev)
+    p_card, _, l_card = train.make_train_step(opt)(p_card, st, x, y)
+    log(f"phase 30 model {[l.cout for l in WAIFU2X_7LAYER.layers]}, batch "
+        f"{cfg.batch_size} x {cfg.crop_size}^2 scale pairs, lr {lr}; the "
+        f"CPU step took {cpu_s:.2f} s on the host")
+    res["errors"]["card_vs_cpu"] = hold_step(
+        "phase 30 one step, card against the CPU", p_card, p_cpu,
+        float(l_card), float(l_cpu), STEP_LOSS_TOL, lr)
+    del p_cpu, p_card
+
+    # 2. step times, batches resident on the card
+    xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    flops = train_flops(cfg.crop_size, cfg.batch_size, WAIFU2X_7LAYER)
+    peaks = {"highest": PEAK_F32_FLOPS, "default": PEAK_TF32_FLOPS}
+    res["steps"] = {}
+    for lname, loss in (("mse", None), ("qat", qat4)):
+        for prec in ("highest", "default"):
+            p, st = fresh(dev)
+            step = train.make_train_step(opt, prec, loss)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda _: step(p, st, xd, yd), dev, 5)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            row = {"ms": ms, "samples_per_s": cfg.batch_size / ms * 1e3,
+                   "peak_gb": peak}
+            note = ""
+            if lname == "mse":
+                row["tflops"] = flops / ms / 1e9
+                row["bound_ms"] = flops / peaks[prec] * 1e3
+                note = (f", {row['tflops']:.1f} TFLOP/s (about "
+                        f"{flops / 1e12:.2f} TFLOP a step; bound "
+                        f"{row['bound_ms']:.2f} ms at the "
+                        f"{'f32 FFMA' if prec == 'highest' else 'TF32'} peak)")
+            res["steps"][f"{lname} {prec}"] = row
+            log(f"phase 30 {lname} step, precision {prec!r}, on {smi}: "
+                f"{ms:.2f} ms = {row['samples_per_s']:.1f} samples/s, peak "
+                f"memory {peak:.2f} GB{note}")
+            del p, st, step
+
+    # 3. 50 steps on one fixed batch lower the loss
+    p, st = fresh(dev)
+    step = train.make_train_step(opt)
+    losses = []
+    for _ in range(50):
+        p, st, value = step(p, st, xd, yd)
+        losses.append(value)
+    losses = torch.stack(losses).tolist()
+    log(f"phase 30 50 steps on one batch: loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 30: the loss did not fall: {losses}")
+    res["loss_first_last"] = (losses[0], losses[-1])
+    del p, st
+
+    # 4. the sharded step on virtual meshes of the card
+    for shape in ((2, 4), (1, 8)):
+        mesh = w2x_mesh.make_mesh(shape, ("dp", "sp"), [dev] * 8)
+        for lname, loss in (("mse", None), ("qat", qat4)):
+            p1, st = fresh(dev)
+            p1, _, l1 = train.make_train_step(opt, "highest", loss)(
+                p1, st, xd, yd)
+            ps, st = fresh(dev)
+            ps, _, ls = train.make_sharded_train_step(
+                mesh, opt, "highest", loss)(ps, st, xd, yd)
+            res["errors"][f"sharded {shape} {lname}"] = hold_step(
+                f"phase 30 sharded step {shape} {lname}, against one "
+                f"device", ps, p1, float(ls), float(l1), STEP_TOL, lr)
+            del p1, ps, st
+
+    # 5. checkpoints: 2 + 2 steps against 4 straight, with a schedule and
+    # clipping (44 leaves), cuDNN deterministic for both
+    ccfg = train.TrainConfig(decay_steps=8, warmup_steps=1, clip_norm=1.0)
+    copt = ccfg.make_optimizer()
+    dev_batches = [(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+                   for a, b in batches]
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+
+    def run(p, st, bs):
+        step = train.make_train_step(copt)
+        for xb, yb in bs:
+            p, st, _ = step(p, st, xb, yb)
+        return p, st
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        p = train.trainable(p0, dev)
+        straight, _ = run(p, copt.init(p), dev_batches)
+        p = train.trainable(p0, dev)
+        p, st = run(p, copt.init(p), dev_batches[:2])
+        path = str(d / "train.npz")
+        checkpoint.save_checkpoint(path, p, st, 2)
+        q = train.trainable(init_params(31), dev)
+        q, qst, at = checkpoint.load_checkpoint(path, q, copt.init(q))
+        q, _ = run(q, qst, dev_batches[2:])
+    with np.load(path) as f:
+        n_leaves = sum(k.startswith("leaf_") for k in f.files)
+    err = max((a - b).abs().max().item() for a, b in zip(
+        train.leaves(q), train.leaves(straight)))
+    log(f"phase 30 checkpoint: {n_leaves} leaves, "
+        f"{Path(path).stat().st_size / 1e6:.2f} MB, resumed at step {at}; "
+        f"2 + 2 steps against 4 straight: max |diff| {err:.3e} (bar "
+        f"{STEP_TOL:g})")
+    if not (at == 2 and n_leaves == 44 and err <= STEP_TOL):
+        raise AssertionError(f"phase 30 checkpoint: step {at}, {n_leaves} "
+                             f"leaves, {err}")
+    res["errors"]["resume"] = err
+    del p, q, straight, dev_batches, xd, yd
+    torch.cuda.empty_cache()
+
+    # 6. the demo tool, warm-started from the shipped weights with their
+    # own recipe; its JSON into a model dir of its own
+    mdir = d / "models"
+    mdir.mkdir()
+    out_json = mdir / "scale2.0x_model.json"
+    shipped_json = root / "models" / "scale2.0x_demo.json"
+    td = time.perf_counter()
+    if train_demo.main([
+            "--init", str(shipped_json), "--qat_mu", "4", "--lr", "5e-5",
+            "--ema", "0.999", "--clip", "1", "--batch", "32", "--crop", "96",
+            "--steps", str(DEMO_STEPS), "--images", str(DEMO_IMAGES),
+            "--eval_every", str(DEMO_EVAL), "--out", str(out_json),
+            "--device", str(dev)]) != 0:
+        raise AssertionError("phase 30: tools.train_demo failed")
+    demo_s = time.perf_counter() - td
+    prov = json.loads(Path(str(out_json) + ".provenance.json").read_text())
+    trained = load_model_json(out_json)
+    shipped = load_model_json(shipped_json)
+    xs, _ = train_demo.build_eval_set("scale", 1)
+    xg = torch.from_numpy(xs[:64]).to(dev)
+
+    def on_dev(prm):
+        return tuple({k: v.to(dev) for k, v in q.items()} for q in prm)
+
+    gap = {name: qat.l6_quant_gap_db(on_dev(prm), xg)
+           for name, prm in (("trained", trained), ("shipped", shipped))}
+    curve = ", ".join(f"{pt['variant']}@{pt['step']} {pt['db']} dB "
+                      f"(gap {pt['l6_quant_gap_db']})" for pt in prov["curve"])
+    log(f"phase 30 tools.train_demo ({DEMO_STEPS} steps, {DEMO_IMAGES} "
+        f"images, {demo_s:.1f} s): held-out "
+        f"{prov['heldout_y_psnr_untrained_db']} dB before (the shipped "
+        f"weights) -> {prov['heldout_y_psnr_db']} dB exported "
+        f"({prov['shipped_variant']}: the best evaluated point, the init "
+        f"where none beat it; input baseline "
+        f"{prov['heldout_input_baseline_db']} dB); the curve: {curve}; "
+        f"l6_quant_gap_db exported {gap['trained']:.2f} dB, shipped "
+        f"{gap['shipped']:.2f} dB")
+
+    img = structured_bgr(rng, 1, 512, 512)[0]
+    stack.reset_launches()
+    got = Converter.from_config(Config(mode="scale", model_dir=str(mdir)),
+                                dev).process_bgr_u8(img)
+    launches = mesh_launches()
+    expect_hand_kernels("phase 30 Converter on the trained weights",
+                        launches, f32=False)
+    ref = Converter.from_config(Config(
+        mode="scale", model_dir=str(mdir), use_pallas=False,
+        compute_dtype="float32"), dev).process_bgr_u8(img)
+    conv_db = psnr(got, ref)
+    log(f"phase 30 Converter.from_config(mode='scale') on the exported "
+        f"weights, 512 x 512: {conv_db:.2f} dB against the f32 non-kernel "
+        f"path with the same weights; launches {launches}")
+    if not conv_db >= PSNR_BAR:
+        raise AssertionError(f"phase 30 Converter: {conv_db} dB")
+
+    yuv = _to_yuv(torch.from_numpy(frames).to(dev))
+    tail = (pipeline_mod.FUSED_TAIL, pipeline_mod.YDENSE)
+    pipeline_mod.FUSED_TAIL, pipeline_mod.YDENSE = "xla", False
+
+    def i8_db(prm) -> float:
+        fast = FastStack.build(prm, True, torch.bfloat16, dev)
+        stack.L6_I8 = True
+        try:
+            u8 = scale2x_batch_u8_fused(yuv, fast)
+        finally:
+            stack.L6_I8 = False
+        outp = d2s_host_cmajor(u8.cpu().numpy())
+        want = _to_bgr_u8(scale2x_batch(
+            yuv[:2], SRCNN.from_params(prm).to(dev),
+            Config(mode="scale", compute_dtype="float32"))).cpu().numpy()
+        return psnr(outp[:2], want)
+
+    i8 = {name: i8_db(prm) for name, prm in (("trained", trained),
+                                              ("shipped", shipped))}
+    pipeline_mod.FUSED_TAIL, pipeline_mod.YDENSE = tail
+    log(f"phase 30 scale512 int8 step (l6_i8, frames 0-1 against the f32 "
+        f"non-kernel path) on {smi}: exported weights {i8['trained']:.2f} "
+        f"dB, shipped {i8['shipped']:.2f} dB (measured, not gated)")
+    tmp.cleanup()
+    res.update({"demo": {"steps": DEMO_STEPS, "images": DEMO_IMAGES,
+                         "seconds": demo_s, "curve": prov["curve"],
+                         "heldout_before_db": prov[
+                             "heldout_y_psnr_untrained_db"],
+                         "heldout_after_db": prov["heldout_y_psnr_db"],
+                         "shipped_variant": prov["shipped_variant"]},
+                "l6_quant_gap_db": gap, "converter_db": conv_db,
+                "i8_step_db": i8, "launches": launches,
+                "seconds": time.perf_counter() - t0})
+    log(f"phase 30 passed in {res['seconds']:.1f} s")
+    return res
+
+
+def phase31(dev: torch.device, smi: str) -> dict:
+    """31. The three fidelity tools on the card, the stack's launch counts
+    set to 0 before each and read after it (the hand kernels only):
+    tools.chain_fidelity_probe at 512^2 (the four noise -> scale chains'
+    PSNR; f32/f32 held to >= 50 dB), tools.edge_error_probe at 512 and
+    tools.ns1080_probe at --iters 2. Returns the launches summed by kernel
+    and the tools' numbers."""
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.tools import (
+        chain_fidelity_probe, edge_error_probe, ns1080_probe)
+
+    t0 = time.perf_counter()
+    totals, out = {}, {}
+    for tool, argv, f32 in ((chain_fidelity_probe, ["--size", "512"], True),
+                            (edge_error_probe, ["--size", "512"], False),
+                            (ns1080_probe, ["--iters", "2"], False)):
+        name = tool.__name__.rsplit(".", 1)[1]
+        log(f"phase 31 tools.{name} {' '.join(argv)} on {smi}:")
+        tt = time.perf_counter()
+        stack.reset_launches()
+        results = []
+        if tool.main(argv, results) != 0:
+            raise AssertionError(f"phase 31 {name} failed")
+        launches = mesh_launches()
+        expect_hand_kernels(f"phase 31 {name}", launches, f32)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        out[name] = results
+        log(f"phase 31 {name}: {time.perf_counter() - tt:.1f} s, launches "
+            f"{launches}")
+    dbs = out["chain_fidelity_probe"][0]
+    if not dbs["f32/f32"] >= PSNR_BAR:
+        raise AssertionError(f"phase 31 chain f32/f32: {dbs['f32/f32']} dB")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 31 passed in {out['seconds']:.1f} s")
+    return {"launches": totals, "results": out}
 
 
 def main() -> int:
@@ -4884,6 +5280,11 @@ def main() -> int:
     mesh_totals = phase29(dev, smi)
     torch.cuda.empty_cache()
     log(f"{time.perf_counter() - t_start:.1f} s so far")
+    trained = phase30(dev, smi, frames)
+    torch.cuda.empty_cache()
+    tools31 = phase31(dev, smi)
+    torch.cuda.empty_cache()
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
 
     maccs = count_maccs_per_pixel()
 
@@ -5464,6 +5865,11 @@ def main() -> int:
                                    "Converter, StreamConverter and the CLI on "
                                    "(1, 1, 1)), the counts set to 0 before "
                                    "each")
+        row["train_tools_launches"] = (trained["launches"][key]
+                                       + tools31["launches"][key])
+        row["train_tools_launches_of"] = (
+            "phase 30's Converter run of the trained weights and phase 31's "
+            "three fidelity tools, the counts set to 0 before each")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""waifu2x_torch and chip_smoke.py import neither JAX nor the JAX package.
+"""waifu2x_torch and chip_smoke.py import neither JAX (nor optax) nor the JAX
+package.
 
 An AST scan of the sources: the test process itself has JAX loaded (the
 test suite and the host environment import it), so sys.modules cannot
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "waifu2x_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "waifu2x_tpu")
 SOURCES = sorted((ROOT / "waifu2x_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -63,6 +64,11 @@ def test_scan_covers_the_package():
             "waifu2x_torch/tools/multiproc_worker.py",
             "waifu2x_torch/utils/cache.py",
             "waifu2x_torch/train/checkpoint.py",
+            "waifu2x_torch/train/data.py", "waifu2x_torch/train/train.py",
+            "waifu2x_torch/tools/train_demo.py",
+            "waifu2x_torch/tools/chain_fidelity_probe.py",
+            "waifu2x_torch/tools/edge_error_probe.py",
+            "waifu2x_torch/tools/ns1080_probe.py",
             "chip_smoke.py"} <= names
     assert (ROOT / "waifu2x_torch" / "csrc" / "probe.cu").is_file()
     assert (ROOT / "waifu2x_torch" / "csrc" / "tmm.cu").is_file()

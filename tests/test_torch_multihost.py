@@ -4,7 +4,8 @@ placed on its own positions, the scaling report; and a real 2-process gloo
 group on localhost (waifu2x_torch/tools/multiproc_worker.py), whose
 sharded 2x step, with "dp" and then "sp" across the two processes (a halo
 that crosses them), each process holds bit-equal to the single-process
-step."""
+step, and whose sharded train step ("dp" across the processes, gradients
+all-reduced) each holds within 1e-5 in loss of the single-process step."""
 
 import os
 import socket
@@ -126,3 +127,6 @@ def test_two_process_gloo_group():
         assert p.returncode == 0, f"rank {r} failed:\n{out}"
         assert f"rank {r}: OK (2 processes, 8 positions)" in out, out
         assert f"rank {r}: cross-process halo exchange OK" in out, out
+        assert f"rank {r}: train step loss" in out, out
+        print(next(line for line in out.splitlines()
+                   if "train step loss" in line))

@@ -1,6 +1,6 @@
-"""One process of a multi-process run of the sharded kernel step (the
-counterpart of the JAX package's tools/multiproc_worker.py, without its
-train step, which waits for the port's training).
+"""One process of a multi-process run of the sharded kernel step and the
+sharded train step (the counterpart of the JAX package's
+tools/multiproc_worker.py).
 
 Runs the multi-process branches of parallel/multihost.py that one process
 never reaches: initialize (torch.distributed.init_process_group) and
@@ -13,6 +13,12 @@ single-process step that each process computes alone. Then the mesh is
 rebuilt with "sp" across every process (1 x 4 * procs) and the step runs
 again: the halo between the last position of one process and the first of
 the next is a send/recv between processes (gloo on the CPU, NCCL on cards).
+Last, a train step (train.make_sharded_train_step, TrainConfig(batch_size=
+2 * procs, crop_size=32)) on the first mesh, each process feeding its own
+"dp" slice and the gradients all-reduced between the processes: its loss
+must be within 1e-5 of the single-process step on the whole batch, which
+each process computes itself, and the params that it leaves must be the
+same in every process, bit for bit.
 
     python -m waifu2x_torch.tools.multiproc_worker --coord localhost:PORT \\
         --procs 2 --rank R --device cpu
@@ -100,6 +106,7 @@ def main(argv=None) -> int:
     print(f"{tag}: cross-process halo exchange OK (sp="
           f"{per_proc * args.procs} spans {args.procs} processes, "
           f"bit-equal)", flush=True)
+    train_check(args, dev, mesh, rng, n_local, tag)
     print(f"{tag}: OK ({args.procs} processes, "
           f"{per_proc * args.procs} positions)", flush=True)
 
@@ -107,6 +114,41 @@ def main(argv=None) -> int:
     if dist.is_initialized():
         dist.destroy_process_group()
     return 0
+
+
+def train_check(args, dev, mesh, rng, n_local: int, tag: str) -> None:
+    """The sharded train step across the processes ("dp" over them) against
+    the single-process step on the whole batch."""
+    import torch.distributed as dist
+
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.train import train
+
+    cfg = train.TrainConfig(batch_size=2 * args.procs, crop_size=32)
+    opt = cfg.make_optimizer()
+    crop, off = cfg.crop_size, 7
+    xb = rng.random((cfg.batch_size, crop, crop, 1), dtype=np.float32)
+    yb = rng.random((cfg.batch_size, crop - 2 * off, crop - 2 * off, 1),
+                    dtype=np.float32)
+    mine = slice(args.rank * n_local, (args.rank + 1) * n_local)
+    p = train.trainable(init_params(5), dev)
+    p, _, loss = train.make_sharded_train_step(mesh, opt)(
+        p, opt.init(p), xb[mine], yb[mine])
+    loss = float(loss)
+    q = train.trainable(init_params(5), dev)
+    _, _, ref = train.make_train_step(opt)(q, opt.init(q), xb, yb)
+    ref = float(ref)
+    if not abs(loss - ref) <= 1e-5 * max(1.0, abs(ref)):
+        raise AssertionError(f"{tag}: sharded train loss {loss} != {ref}")
+    if dist.is_initialized():
+        flat = torch.cat([t.detach().reshape(-1) for t in train.leaves(p)])
+        first = flat.clone()
+        dist.broadcast(first, 0)
+        if not torch.equal(flat, first):
+            raise AssertionError(f"{tag}: the params differ from rank 0's "
+                                 f"after the step")
+    print(f"{tag}: train step loss {loss:.6f} (matches single-process "
+          f"{ref:.6f}; params equal in every process)", flush=True)
 
 
 if __name__ == "__main__":
