@@ -16,7 +16,11 @@ planes too), counted by kernel in ops.stack.L7_LAUNCHES, which phases 4,
 stream counts a cell or per-pixel layer 7. Under the int8 switch layer 6
 runs on the int8 tensor cores (csrc/i8.cu, ops.stack.I8_LAUNCHES); under
 the Winograd switch on the tensor cores in both types (csrc/wino.cu,
-ops.stack.WINO_LAUNCHES: f32 as 3xTF32).
+ops.stack.WINO_LAUNCHES: f32 as 3xTF32). Under the int8 switch layer 5
+takes the tiles' maxima in its epilogue (I8_LAUNCHES["l5max"]); no product
+path launches csrc/l6.cu's tile_absmax (I8_LAUNCHES["absmax"] stays 0).
+stack_scale_upto's gather at upto 0..5 is csrc/l6.cu's tiled one
+(ops.stack.GATHER_LAUNCHES).
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
@@ -238,8 +242,9 @@ Phases (any failure raises and exits non-zero):
      must beat, beside the byte bound, cuDNN's f32 layer 7 (TF32 off) and
      the plain version.
  25. B4's int8 layer 6 on the int8 tensor cores (phase25 below; csrc/i8.cu
-     through stack.l6_i8_layer) timed alone at scale512 with the default
-     tile, in turns against the __dp4a kernel (MID_MMA False), which it
+     through stack.l6_i8_layer, given the tiles' maxima) timed alone at
+     scale512 with the default tile, in turns against the __dp4a kernel
+     (MID_MMA False), which it
      must beat, beside its bound, the plain version and cuDNN's bf16 layer
      6 (a different function); the timed plane's output equals the plain
      version's bit for bit.
@@ -311,6 +316,22 @@ Phases (any failure raises and exits non-zero):
      --iters 2, each with the launch counts read around it (the hand
      kernels only); their launches and phase 30's Converter run's go to
      each kernel row as "train_tools_launches".
+ 32. the two redesigns of the port's first forms (phase32 below): B7's
+     gather (csrc/l6.cu:upto_gather_tiled) through stack_scale_upto at
+     upto 0..5 in every output form, f32 and bf16, at (1, 27, 38),
+     (2, 37, 53), (1, 5, 300), (1, 3, 2) and scale512, bit for bit against
+     its plain version on the input it read and against the
+     one-thread-a-cell form (tiled=False); each mode's launch alone at
+     scale512 in turns against that form, beside its byte bound, the plain
+     version and the one-call library form (checked equal) where there is
+     one. B4's tile maxima in layer 5's epilogue (stack.layer5_maxima:
+     csrc/mma.cu, mma_tf32.cu) at the default tile and tiles (1, 1),
+     (2, 3), (3, 5), a NaN among the inputs: x5 bit for bit the default
+     layer 5's, m bit for bit tile_absmax's and tile_max_plain's; at
+     scale512 layer 5 with and without them and tile_absmax alone in
+     turns; the B4 stack in turns against the tile_absmax route
+     (L5_MAXIMA False), both and the int8 step bit-equal; a (2, 1, 1)
+     mesh under l6_i8 byte-equal to one position, a maxima launch each.
 Phase 15 also runs the ns1080 chain with its f32 noise stack under the
 Winograd switch (the f32 stack on l6_wino_tf32, the bf16 one on
 l6_wino_mma) and gates the scale512 int8 step and stream at 50 dB.
@@ -663,8 +684,11 @@ def run_stream(sc, frames, stack, label: str, smi: str):
                              f"{len(frames)} frames")
     # layers 2-6 of every stack call (2-5 where layer 6 is int8 or
     # Winograd), on the tensor cores (as 3xTF32 where the stack is f32)
-    other_l6 = stack.L6_LAUNCHES["i8"] // 2 + stack.L6_LAUNCHES["wino"]
-    stacks = (stack.LAUNCHES - stack.L6_LAUNCHES["i8"] // 2) // 7
+    # (an int8 stack call is 7 launches, 8 where tile_absmax took the
+    # maxima; its layer 6 is the int8 layer's launch)
+    other_l6 = (stack.I8_LAUNCHES["mma"] + stack.I8_LAUNCHES["dp4a"]
+                + stack.L6_LAUNCHES["wino"])
+    stacks = (stack.LAUNCHES - stack.I8_LAUNCHES["absmax"]) // 7
     if (mid["mma"] + mid["ffma"] + mid["mma_tf32"] != 5 * stacks - other_l6
             or mid["chain"]):
         raise AssertionError(f"{label}: layers 2-6 launches {mid} of "
@@ -1223,7 +1247,7 @@ def phase19(dev: torch.device, sp16, taps_launches: dict) -> list:
             "tflops": r["tflops"]})
     fs, k1 = "fused_strip_probe", "k1_forensics"
     out_rows += [{
-        "name": "upto_gather GATHER_LANE0 (stack_scale_upto, upto 0, "
+        "name": "upto_gather_tiled GATHER_LANE0 (stack_scale_upto, upto 0, "
                 "out=\"lane0\")",
         "route": "cuda", "source": l6,
         "replaces": "tools/fused_strip_probe.py:162",
@@ -1240,8 +1264,8 @@ def phase19(dev: torch.device, sp16, taps_launches: dict) -> list:
         "max_abs_err": form_err["phase_taps"],
         "ms": mode(fs, "upto6")["ms"], "plain_ms": plain["phase_taps"],
         **bound(6, "phase_taps"), "library_ms": library["phase_taps"]}, {
-        "name": "stack_scale_upto out=\"whole\" (upto_gather GATHER_PAD at "
-                "upto 0; layer k's own buffer at 1-5)",
+        "name": "stack_scale_upto out=\"whole\" (upto_gather_tiled "
+                "GATHER_PAD at upto 0; layer k's own buffer at 1-5)",
         "route": "cuda", "source": l6,
         "replaces": "tools/k1_forensics.py:136",
         "launches": form_launches["whole"], "max_abs_err": form_err["whole"],
@@ -2486,7 +2510,9 @@ def phase25(dev: torch.device, main_launches: int) -> list:
     reached through stack.l6_i8_layer as every stack under l6_i8 reaches
     it; phase 14a held it bit for bit) timed alone at scale512 with the
     default tile, in turns (__dp4a, wgmma, wgmma, __dp4a: MID_MMA False /
-    True), each call the tile maxima and the layer, beside its bound (the
+    True), each call the layer alone from the tile maxima (taken once by
+    tile_maxima: on the stacks layer 5's epilogue takes them, phase 32),
+    beside its bound (the
     int8 multiply-adds of the tile windows at the int8 peak, or x5 read and
     the tile-major x6 written once), the plain version and cuDNN's bf16
     layer 6 on the same plane (a different function: no quantisation, no
@@ -2512,16 +2538,18 @@ def phase25(dev: torch.device, main_launches: int) -> list:
     del ylow
     tr, tc = tile
     ny, nx = (x5.shape[1] - 4) // (2 * tr), (x5.shape[2] - 4) // (2 * tc)
+    m = stack.tile_maxima(x5, tile)
     turns = {True: [], False: []}
     for flag in (False, True, True, False):
         stack.MID_MMA = flag
-        turns[flag].append(timed_ms(lambda: stack.l6_i8_layer(x5, sp, tile)))
+        turns[flag].append(timed_ms(
+            lambda: stack.l6_i8_layer(x5, sp, tile, m=m)))
     stack.MID_MMA = True
     ms = {k: sum(v) / 2 for k, v in turns.items()}
     stack.reset_launches()
-    x6t, sx = stack.l6_i8_layer(x5, sp, tile)
+    x6t, sx = stack.l6_i8_layer(x5, sp, tile, m=m)
     torch.cuda.synchronize()
-    if stack.I8_LAUNCHES != {"mma": 1, "dp4a": 0}:
+    if stack.I8_LAUNCHES != {"mma": 1, "dp4a": 0, "l5max": 0, "absmax": 0}:
         raise AssertionError(f"int8 layer 6 alone: {stack.I8_LAUNCHES}")
     lib_ms = library_l6_ms(x5, sp)
     t1 = time.perf_counter()
@@ -2544,7 +2572,7 @@ def phase25(dev: torch.device, main_launches: int) -> list:
     ops_ms = 2 * macs / PEAK_INT8_OPS * 1e3
     bytes_ms = moved / PEAK_BYTES * 1e3
     bound = max(ops_ms, bytes_ms)
-    log(f"phase 25 int8 layer 6 alone (tile maxima + layer) at scale512, x5 "
+    log(f"phase 25 int8 layer 6 alone (from the tile maxima) at scale512, x5 "
         f"{tuple(x5.shape)} bf16, tile {tile} ({tiles} tiles), on "
         f"{card_name()}: wgmma {ms[True]:.3f} ms (turns "
         + " / ".join(f"{v:.3f}" for v in turns[True])
@@ -2565,7 +2593,8 @@ def phase25(dev: torch.device, main_launches: int) -> list:
     torch.cuda.empty_cache()
     return [{
         "name": "l6_i8_mma, B4's int8 layer 6 on the int8 tensor cores "
-                "(wgmma s8 x s8 -> s32; with tile_absmax)",
+                "(wgmma s8 x s8 -> s32; the layer alone, from the tile "
+                "maxima)",
         "route": "cuda",
         "source": "waifu2x_torch/csrc/i8.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
@@ -3960,6 +3989,388 @@ def phase31(dev: torch.device, smi: str) -> dict:
     return {"launches": totals, "results": out}
 
 
+def gather_plain(stack, src: torch.Tensor, sp, upto: int, out: str,
+                 hl: int, wl: int) -> torch.Tensor:
+    """The gather's plain version on the input the kernel read: the low-res
+    plane's taps / lane 0 / padded window (stack_scale_upto_plain at upto
+    0), or the 4 lanes of the activation's even pixels (upto 1..5)."""
+    if upto == 0:
+        return stack.stack_scale_upto_plain(src, sp, 0, out=out)
+    return src[:, 0:2 * hl:2, 0:2 * wl:2, 0:4].contiguous()
+
+
+def gather_alone(stack, src: torch.Tensor, out: torch.Tensor, upto: int,
+                 mode: int, hl: int, wl: int, tiled=None) -> torch.Tensor:
+    """The gather's launch alone, as stack_scale_upto makes it: the tiled
+    form, or with tiled=False one thread a cell."""
+    hk, wk = 2 * hl + 14 - 2 * upto, 2 * wl + 14 - 2 * upto
+    ck = stack.WIDTHS[upto - 1][1] if upto else 1
+    stack._Launcher(None, src, None).gather(src, out, src.shape[0], hl, wl,
+                                            hk, wk, ck, mode, tiled)
+    return out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape, dtype and storage bits."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
+            i8_step, launches: dict) -> list:
+    """32. The last two kernels of the port's first forms, redesigned. B7's
+    gather (csrc/l6.cu:upto_gather_tiled) in all four modes and both types,
+    through stack_scale_upto, at (1, 27, 38), (2, 37, 53), (1, 5, 300),
+    (1, 3, 2) and scale512, bit for bit against its plain version on the
+    input it read and against the one-thread-a-cell form (tiled=False);
+    then at scale512 each mode's launch alone, in turns against that form,
+    beside its bound (bytes: the low-res modes read the plane and write y;
+    GATHER_ACT writes y and reads a 32-byte sector a cell) and the one-call
+    library form (GATHER_ACT a strided slice's contiguous(), GATHER_PAD
+    F.pad replicate; both checked equal). B4's tile maxima in layer 5's
+    epilogue (layer5_maxima: csrc/mma.cu in bf16, mma_tf32.cu in f32) at
+    the default tile and at tiles (1, 1), (2, 3), (3, 5), a NaN among the
+    inputs: x5 bit for bit the default layer 5's, m bit for bit
+    tile_absmax's (tile_maxima) and tile_max_plain's; at scale512 layer 5
+    with and without the maxima and tile_absmax alone, in turns; the B4
+    stack in turns against the tile_absmax route (L5_MAXIMA False), equal
+    bit for bit, and the int8 step under each; a (2, 1, 1) mesh under
+    l6_i8 against one position bit for bit, each position its own maxima.
+    sps = (f32, bf16) shipped scale weights, ylow16 the scale512 plane,
+    i8_step() the scale512 int8 batch step -> (u8 frames, dB against the
+    f32 path), `launches` the two kernels' counts on the main path (phase
+    15). Returns the kernel table's two rows."""
+    from waifu2x_torch.models.srcnn import init_params
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+    from waifu2x_torch.parallel.mesh_pipeline import MeshPipeline, make_mesh3
+    from waifu2x_torch.pipeline import FastStack
+
+    t0 = time.perf_counter()
+    sp_r = {dt: stack.prep_params(init_params(3), dt, dev)
+            for dt in (torch.float32, torch.bfloat16)}
+    sp_main = dict(zip((torch.float32, torch.bfloat16), sps))
+    gen = torch.Generator(device=dev).manual_seed(32)
+
+    # the gather: every form, both types, bit for bit
+    forms = [(k, "cell") for k in range(6)] + [(0, "lane0"), (0, "whole")]
+    for shape in ((1, 27, 38), (2, 37, 53), (1, 5, 300), (1, 3, 2),
+                  (16, 512, 512)):
+        main_shape = shape == (16, 512, 512)
+        for dt in (torch.float32, torch.bfloat16):
+            y = torch.rand(shape, device=dev, generator=gen).to(dt)
+            sp = (sp_main if main_shape else sp_r)[dt]
+            for k, out in forms:
+                src = y if k == 0 else stack.stack_scale_upto(y, sp, k,
+                                                              out="whole")
+                stack.reset_launches()
+                got = stack.stack_scale_upto(y, sp, k, out=out)
+                cell = stack.stack_scale_upto(y, sp, k, out=out, tiled=False)
+                torch.cuda.synchronize()
+                if (stack.GATHER_LAUNCHES != {"tiled": 1, "cell": 1}
+                        or stack.L6_LAUNCHES["upto"] != 2):
+                    raise AssertionError(f"gather upto {k} out={out}: "
+                                         f"{stack.GATHER_LAUNCHES}")
+                ref = gather_plain(stack, src, sp, k, out, *shape[1:])
+                if not (same_bits(got, ref) and same_bits(got, cell)):
+                    raise AssertionError(
+                        f"gather upto {k} out={out} {shape} {dt}: tiled == "
+                        f"plain {same_bits(got, ref)}, tiled == per-cell "
+                        f"{same_bits(got, cell)}")
+                del src, got, cell, ref
+            del y
+            torch.cuda.empty_cache()
+        log(f"phase 32 gather {shape}: upto 0..5 in every form, f32 and "
+            f"bf16, tiled == plain == per-cell bit for bit")
+
+    # each mode's launch alone at scale512, in turns against the per-cell
+    # form, beside its bound and its one-call library form
+    n, hl, wl = ylow16.shape
+    gather_rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        isz = 4 if dt == torch.float32 else 2
+        y = ylow16.to(dt)
+        sp = sp_main[dt]
+        # (csrc/l6.cu's mode, upto, stack_scale_upto's output form)
+        timed = [("GATHER_ACT", 5, "cell"), ("GATHER_ACT", 1, "cell"),
+                 ("GATHER_TAPS", 0, "cell"), ("GATHER_LANE0", 0, "lane0"),
+                 ("GATHER_PAD", 0, "whole")]
+        for name, k, out_form in timed:
+            mode = stack._GATHER_LOWRES[out_form] if k == 0 else 0
+            src = y if k == 0 else stack.stack_scale_upto(y, sp, k,
+                                                          out="whole")
+            pad = 8 if name == "GATHER_PAD" else 0
+            lanes = 1 if name == "GATHER_PAD" else 4
+            out = torch.empty((n, hl + pad, wl + pad, lanes), dtype=dt,
+                              device=dev)
+            turns = {True: [], False: []}
+            for tiled in (False, True, True, False):
+                turns[tiled].append(timed_ms(lambda: gather_alone(
+                    stack, src, out, k, mode, hl, wl,
+                    None if tiled else False)))
+            got = gather_alone(stack, src, out, k, mode, hl, wl).clone()
+            plain_ms = timed_ms(lambda: gather_plain(stack, src, sp, k,
+                                                     out_form, hl, wl),
+                                reps=1)
+            out_bytes = out.numel() * isz
+            if k:   # a 32-byte sector a cell, and y written
+                read_bytes = n * hl * wl * 32
+                library = (lambda: src[:, 0:2 * hl:2, 0:2 * wl:2,
+                                       0:4].contiguous())
+            else:
+                read_bytes = y.numel() * isz
+                library = ((lambda: F.pad(y[:, None], (4, 4, 4, 4),
+                                          mode="replicate"))
+                           if name == "GATHER_PAD" else None)
+            lib_ms = None
+            if library is not None:
+                lib_out = library()
+                if not same_bits(lib_out.reshape(got.shape), got):
+                    raise AssertionError(f"{name} upto {k} {dt}: the library "
+                                         f"form differs from the gather")
+                del lib_out
+                lib_ms = timed_ms(library)
+            ms = {t: sum(v) / 2 for t, v in turns.items()}
+            bound = (read_bytes + out_bytes) / PEAK_BYTES * 1e3
+            useful = (2 * out_bytes if k else read_bytes + out_bytes)
+            key = f"{name} upto {k}" if name == "GATHER_ACT" else name
+            gather_rows[key, dt] = {
+                "ms": ms[True], "cell_ms": ms[False],
+                "turns_ms": [turns[False][0], turns[True][0],
+                             turns[True][1], turns[False][1]],
+                "bound_ms": bound, "share_of_bound": bound / ms[True],
+                "kept_bytes_bound_ms": useful / PEAK_BYTES * 1e3,
+                "plain_ms": plain_ms, "library_ms": lib_ms}
+            log(f"phase 32 {key} {dt} at scale512 on {smi}: tiled "
+                f"{ms[True]:.4f} ms, per-cell {ms[False]:.4f} ms (turns "
+                + " / ".join(f"{v:.4f}" for v in
+                             gather_rows[key, dt]["turns_ms"])
+                + f"), bound {bound:.4f} ms by bytes ("
+                f"{(read_bytes + out_bytes) / 1e6:.1f} MB: "
+                + ("a 32-byte sector a cell read, y written; the bytes kept "
+                   if k else "the plane read once, y written; ")
+                + (f"{useful / PEAK_BYTES * 1e3:.4f} ms" if k else "")
+                + f") = {100 * bound / ms[True]:.1f}% of it, per-cell "
+                f"{100 * bound / ms[False]:.1f}%; library "
+                + (f"{lib_ms:.4f} ms" if lib_ms is not None else
+                   "none (no one PyTorch call builds the taps / lane 0)")
+                + f"; plain {plain_ms:.3f} ms")
+            del src, out, got
+            torch.cuda.empty_cache()
+
+    # B4's tile maxima in layer 5's epilogue
+    def maxima_check(x4, sp, tile, label) -> float:
+        stack.reset_launches()
+        x5, m = stack.layer5_maxima(x4, sp, tile)
+        torch.cuda.synchronize()
+        mid = "mma" if x4.dtype == torch.bfloat16 else "mma_tf32"
+        if (stack.I8_LAUNCHES != {"mma": 0, "dp4a": 0, "l5max": 1,
+                                  "absmax": 0}
+                or stack.MID_LAUNCHES[mid] != 1 or stack.LAUNCHES):
+            raise AssertionError(f"layer5_maxima {label}: "
+                                 f"{stack.I8_LAUNCHES}, {stack.MID_LAUNCHES}")
+        x5_ref = stack.mma_layer(x4, sp, 5)
+        m_pass = stack.tile_maxima(x5, tile)
+        m_plain = stack.tile_max_plain(x5, tile)
+        ok = (same_bits(x5, x5_ref), same_bits(m, m_pass),
+              same_bits(m, m_plain))
+        if not all(ok):
+            raise AssertionError(f"layer5_maxima {label}: x5 == default "
+                                 f"instance {ok[0]}, m == tile_absmax "
+                                 f"{ok[1]}, m == plain {ok[2]}")
+        c = 1   # the layer against its plain version, frame 0 (no NaN)
+        ref = stack.mma_layer_plain(x4[:c], sp.wm[3], sp[4][1])
+        err = (check_mma_layer(f"layer 5 {label}", x5[:c], ref)[0]
+               if x4.dtype == torch.bfloat16
+               else check_f32(f"layer 5 {label}", x5[:c], ref))
+        log(f"phase 32 layer5_maxima {label}: x5 == the default layer 5 "
+            f"bit for bit, max|x5 - plain| {err:.3e}; m {tuple(m.shape)} == "
+            f"tile_absmax == tile_max_plain bit for bit (largest "
+            f"{m.max().item():.4f})")
+        return err
+
+    l5_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for cells, tile in (((27, 38), None), ((37, 53), (1, 1)),
+                            ((37, 53), (2, 3)), ((37, 53), (3, 5))):
+            tile = tile or stack.default_tile(*cells)
+            ny, nx = -(-cells[0] // tile[0]), -(-cells[1] // tile[1])
+            x4 = torch.rand((2, 2 * ny * tile[0] + 6, 2 * nx * tile[1] + 6,
+                             64), device=dev, generator=gen).to(dt)
+            if tile == (1, 1):
+                x4[1, 9, 11, 5] = float("nan")   # fmaxf drops it, both ways
+            l5_err = max(l5_err, maxima_check(
+                x4, sp_r[dt], tile, f"{cells} tile {tile} {dt}"))
+    tile = stack.default_tile(hl, wl)
+    tr, tc = tile
+    ny, nx = -(-hl // tr), -(-wl // tc)
+    maxima_rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        sp, isz = sp_main[dt], 4 if dt == torch.float32 else 2
+        x4 = torch.rand((n, 2 * ny * tr + 6, 2 * nx * tc + 6, 64),
+                        device=dev, generator=gen).to(dt)
+        l5_err = max(l5_err, maxima_check(x4, sp, tile,
+                                          f"scale512 tile {tile} {dt}"))
+        x5 = stack.mma_layer(x4, sp, 5)
+        runs = {"l5": lambda: stack.mma_layer(x4, sp, 5),
+                "l5max": lambda: stack.layer5_maxima(x4, sp, tile),
+                "absmax": lambda: stack.tile_maxima(x5, tile)}
+        turns = {k: [] for k in runs}
+        for key in ("l5", "l5max", "absmax", "absmax", "l5max", "l5"):
+            turns[key].append(timed_ms(runs[key]))
+        ms = {k: sum(v) / 2 for k, v in turns.items()}
+        t1 = time.perf_counter()
+        for i in range(0, n, 2):
+            stack.layer5_maxima_plain(x4[i:i + 2], sp, tile)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        out_px = n * (x4.shape[1] - 2) * (x4.shape[2] - 2)
+        l5_ops = 2 * out_px * 9 * 64 * 128 / (
+            PEAK_BF16_FLOPS if dt == torch.bfloat16
+            else PEAK_TF32_FLOPS / 3) * 1e3
+        l5_bytes = (x4.numel() + x5.numel()) * isz / PEAK_BYTES * 1e3
+        m_bytes = n * ny * nx * 4
+        pass_bound = (x5.numel() * isz + m_bytes) / PEAK_BYTES * 1e3
+        maxima_rows[dt] = {
+            "ms": ms["l5max"], "layer5_ms": ms["l5"],
+            "epilogue_extra_ms": ms["l5max"] - ms["l5"],
+            "tile_absmax_ms": ms["absmax"],
+            "tile_absmax_bound_ms": pass_bound,
+            "maxima_extra_bytes": m_bytes,
+            "turns_ms": {k: v for k, v in turns.items()},
+            "plain_ms": plain_ms, "bound_ms": max(l5_ops, l5_bytes),
+            "bound_by": "operations" if l5_ops >= l5_bytes else "bytes"}
+        log(f"phase 32 scale512 layer 5 {tuple(x4.shape)} -> "
+            f"{tuple(x5.shape)} {dt}, tile {tile}, on {smi}: with the maxima "
+            f"in its epilogue {ms['l5max']:.3f} ms, without "
+            f"{ms['l5']:.3f} ms (epilogue +{ms['l5max'] - ms['l5']:.3f} ms, "
+            f"{m_bytes} bytes more written), tile_absmax alone "
+            f"{ms['absmax']:.3f} ms (bound {pass_bound:.3f} ms: x5 read "
+            f"once; {100 * pass_bound / ms['absmax']:.1f}% of it); turns "
+            + ", ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in t)
+                        for k, t in turns.items())
+            + f"; layer 5's bound {max(l5_ops, l5_bytes):.3f} ms "
+            f"(operations {l5_ops:.3f}, bytes {l5_bytes:.3f}); plain "
+            f"(layer5_maxima_plain, 2 frames at a time, host clock) "
+            f"{plain_ms:.1f} ms")
+        del x4, x5
+        torch.cuda.empty_cache()
+
+    # the B4 stack and the int8 step, in turns against the tile_absmax route
+    def b4():
+        return stack.stack_scale(ylow16, sps[1], l6_i8=True)
+
+    outs, stack_turns, step_db, steps = {}, {True: [], False: []}, {}, {}
+    for flag in (False, True, True, False):
+        stack.L5_MAXIMA = flag
+        stack_turns[flag].append(timed_ms(b4))
+    for flag in (False, True):
+        stack.L5_MAXIMA = flag
+        stack.reset_launches()
+        outs[flag] = b4()
+        torch.cuda.synchronize()
+        want = {"mma": 1, "dp4a": 0, "l5max": int(flag),
+                "absmax": int(not flag)}
+        if stack.I8_LAUNCHES != want or stack.LAUNCHES != 8 - flag:
+            raise AssertionError(f"B4 stack, L5_MAXIMA {flag}: "
+                                 f"{stack.I8_LAUNCHES}, {stack.LAUNCHES}")
+        steps[flag], step_db[flag] = i8_step()
+    stack.L5_MAXIMA = True
+    if not (same_bits(outs[True], outs[False])
+            and np.array_equal(steps[True], steps[False])):
+        raise AssertionError("B4: the maxima's two routes differ")
+    stack_ms = {k: sum(v) / 2 for k, v in stack_turns.items()}
+    log(f"phase 32 scale512 B4 stack (bf16, l6_i8) on {smi}: maxima in layer "
+        f"5's epilogue {stack_ms[True]:.3f} ms, tile_absmax route "
+        f"{stack_ms[False]:.3f} ms (turns "
+        + " / ".join(f"{v:.3f}" for v in (stack_turns[False][0],
+                                          stack_turns[True][0],
+                                          stack_turns[True][1],
+                                          stack_turns[False][1]))
+        + f"), {stack_ms[False] - stack_ms[True]:.3f} ms less; outputs "
+        f"equal bit for bit; the int8 step equal byte for byte, "
+        f"{step_db[True]:.2f} dB against the f32 path (tile_absmax route "
+        f"{step_db[False]:.2f} dB)")
+    del outs, steps
+
+    # the mesh: each position its own maxima
+    root = Path(__file__).resolve().parent
+    fs16 = FastStack.build(load_model_json(
+        root / "models" / "scale2.0x_demo.json"), True, torch.bfloat16, dev)
+    frames = structured_bgr(np.random.default_rng(32), 4, 512, 512)
+    mesh_out = {}
+    stack.L6_I8 = True
+    try:
+        for shape in ((1, 1, 1), (2, 1, 1)):
+            stack.reset_launches()
+            mesh_out[shape] = MeshPipeline(
+                make_mesh3(shape, [dev] * int(np.prod(shape))),
+                fast_scale=fs16).convert_bgr_u8(frames)
+            torch.cuda.synchronize()
+            npos = int(np.prod(shape))
+            if stack.I8_LAUNCHES != {"mma": npos, "dp4a": 0, "l5max": npos,
+                                     "absmax": 0}:
+                raise AssertionError(f"mesh {shape} under l6_i8: "
+                                     f"{stack.I8_LAUNCHES}")
+    finally:
+        stack.L6_I8 = False
+    if not np.array_equal(np.asarray(mesh_out[(1, 1, 1)]),
+                          np.asarray(mesh_out[(2, 1, 1)])):
+        raise AssertionError("mesh (2, 1, 1) under l6_i8 differs from one "
+                             "position")
+    log("phase 32 MeshPipeline under l6_i8, 4 x 512^2: (2, 1, 1) equal to "
+        "(1, 1, 1) byte for byte, one layer-5 maxima launch a position, no "
+        "tile_absmax")
+
+    rows = [{
+        "name": "upto_gather_tiled, B7's gather at upto 0..5 (a band of "
+                "rows a block, a warp a row, 16-byte vectors; the low-res "
+                "band staged in shared memory; persistent), GATHER_ACT at "
+                "upto 5 in the row's numbers",
+        "route": "cuda", "source": "waifu2x_torch/csrc/l6.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:380",
+        "launches": launches["gather"],
+        "launches_of": "stack.GATHER_LAUNCHES['tiled'] read around "
+                       "layer_time_probe (phase 15)",
+        "max_abs_err": 0.0,
+        **{k: gather_rows["GATHER_ACT upto 5", torch.bfloat16][k]
+           for k in ("ms", "cell_ms", "plain_ms", "bound_ms",
+                     "library_ms")},
+        "bound_by": "bytes",
+        "bound_is": "GATHER_ACT: a 32-byte sector read an output cell and "
+                    "y written; the low-res modes: the plane read once and "
+                    "y written",
+        "modes": {f"{key} {'bf16' if dt == torch.bfloat16 else 'f32'}": r
+                  for (key, dt), r in gather_rows.items()},
+        "library_is": "GATHER_ACT act[:, ::2, ::2, :4].contiguous(), "
+                      "GATHER_PAD F.pad replicate; none for GATHER_TAPS and "
+                      "GATHER_LANE0 (no one call builds the taps)"}, {
+        "name": "layer 5 with B4's tile maxima in its epilogue "
+                "(conv3x3_bias_leaky_mma / _tf32, the AM instance; "
+                "common.cuh:tile_max_block), bf16 in the row's numbers",
+        "route": "cuda", "source": "waifu2x_torch/csrc/mma.cu",
+        "replaces": "waifu2x_tpu/ops/pallas_stack.py:563",
+        "launches": launches["l5max"],
+        "launches_of": "stack.I8_LAUNCHES['l5max'] in phase 15's scale512 "
+                       "stream under W2X_L6_I8",
+        "max_abs_err": l5_err,
+        **{k: maxima_rows[torch.bfloat16][k] for k in (
+            "ms", "layer5_ms", "epilogue_extra_ms", "tile_absmax_ms",
+            "tile_absmax_bound_ms", "maxima_extra_bytes", "plain_ms",
+            "bound_ms", "bound_by")},
+        "library_ms": None,
+        "library_is": "none: no one PyTorch call gives layer 5 and the "
+                      "per-window max |x5|",
+        "f32": maxima_rows[torch.float32],
+        "b4_stack_ms": stack_ms[True], "b4_stack_tile_absmax_ms":
+            stack_ms[False],
+        "i8_step_db": step_db[True]}]
+    log(f"phase 32 passed in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4515,7 +4926,9 @@ def main() -> int:
         for k in range(7):
             stack.reset_launches()
             got = stack.stack_scale_upto(y, sp, k)
+            gathers = {"tiled": int(k < 6), "cell": 0}
             if (stack.LAUNCHES != k + 1 or stack.L6_LAUNCHES["upto"] != 1
+                    or stack.GATHER_LAUNCHES != gathers
                     or stack.KERNEL_LAUNCHES["scale"] != k + 1
                     or tuple(got.shape) != (*y.shape, 4)
                     or got.dtype != y.dtype):
@@ -4698,7 +5111,9 @@ def main() -> int:
             stack.reset_launches()
             x6k, sxk = stacks_unchanged("l6_i8_layer", lambda: (
                 stack.l6_i8_layer(x5, sp, tile_)))
-            if stack.I8_LAUNCHES != {"mma": 1, "dp4a": 0}:
+            # no layer 5 ran here: tile_absmax takes the maxima
+            if stack.I8_LAUNCHES != {"mma": 1, "dp4a": 0, "l5max": 0,
+                                     "absmax": 1}:
                 raise AssertionError(f"i8 layer 6 {label} {dt}: launches "
                                      f"{stack.I8_LAUNCHES}")
             stack.MID_MMA = False   # the __dp4a yardstick on the same plane
@@ -4798,8 +5213,11 @@ def main() -> int:
         if stack.WINO_LAUNCHES != wino:
             raise AssertionError(f"{label}: Winograd launches by kernel "
                                  f"{stack.WINO_LAUNCHES}, want {wino}")
-        # the int8 layer on the int8 tensor cores (csrc/i8.cu) every call
-        i8 = {"mma": calls if form == "i8" else 0, "dp4a": 0}
+        # the int8 layer on the int8 tensor cores (csrc/i8.cu) every call,
+        # the tile maxima in layer 5's epilogue: no tile_absmax launch on
+        # the product route
+        i8 = {"mma": calls if form == "i8" else 0, "dp4a": 0,
+              "l5max": calls if form == "i8" else 0, "absmax": 0}
         if stack.I8_LAUNCHES != i8:
             raise AssertionError(f"{label}: int8 layer launches by kernel "
                                  f"{stack.I8_LAUNCHES}, want {i8}")
@@ -4814,8 +5232,8 @@ def main() -> int:
     l6_launches, l6_db, l6_err = {}, {}, {}
     for form in ("wino", "i8"):
         set_l6(form)
-        per_stack = 8 if form == "i8" else 7      # launches per stack call
-        per_l6 = 2 if form == "i8" else 1         # of them, layer 6's
+        per_stack = 7      # launches per stack call (int8: the maxima in
+        per_l6 = 1         # layer 5), of them layer 6's
         hold_bar = I8_BAR if form == "i8" else PSNR_BAR
         l6_err[form] = {}
 
@@ -4861,6 +5279,7 @@ def main() -> int:
         else:
             i8_mma_launches = stack.I8_LAUNCHES["mma"]
             i8_l7_launches = stack.L7_LAUNCHES["fold"]
+            i8_l5max_launches = stack.I8_LAUNCHES["l5max"]
         for k in range(0, 64, 16):   # the batch step on the same batch
             ref = d2s_host_cmajor(scale2x_batch_u8_fused(
                 to_yuv_dev(frames64[k:k + 16]), fast).cpu().numpy())
@@ -4919,10 +5338,14 @@ def main() -> int:
     if layer_time_probe.main([]) != 0:
         raise AssertionError("layer_time_probe failed")
     upto_launches = stack.L6_LAUNCHES["upto"]
-    # upto 0..6, each once to warm up and --iters (3) times
-    if upto_launches != 7 * 4 or stack.L6_LAUNCHES["direct"] != 2 * 4 + 4:
+    # upto 0..6, each once to warm up and --iters (3) times; of them upto
+    # 0..5 on the tiled gather
+    gather_launches = stack.GATHER_LAUNCHES["tiled"]
+    if (upto_launches != 7 * 4 or stack.L6_LAUNCHES["direct"] != 2 * 4 + 4
+            or stack.GATHER_LAUNCHES != {"tiled": 6 * 4, "cell": 0}):
         raise AssertionError(f"layer_time_probe: layer-6 launches "
-                             f"{stack.L6_LAUNCHES}")
+                             f"{stack.L6_LAUNCHES}, gathers "
+                             f"{stack.GATHER_LAUNCHES}")
     # layer 7 on the fold only: upto 6's taps 4 times (OUT_TAPS), the whole
     # stack 8 (a warm-up, 3 with events, a warm-up and 3 timed)
     taps_launches = {"cell": stack.TAP_LAUNCHES["taps"]}
@@ -5275,6 +5698,23 @@ def main() -> int:
     kernels19 += phase27(dev, wino_tf32_launches, f32_noise_step)
     log(f"phase 27 passed in {time.perf_counter() - t27:.1f} s; "
         f"{time.perf_counter() - t_start:.1f} s so far")
+
+    def i8_step():
+        """The scale512 batch step under l6_i8 -> (u8 frames, frames 0-1
+        against the f32 path in dB)."""
+        set_l6("i8")
+        try:
+            out = d2s_host_cmajor(scale2x_batch_u8_fused(
+                to_yuv_dev(frames), fast).cpu().numpy())
+        finally:
+            set_l6("direct")
+        return out, psnr(out[:2], ref_main)
+
+    kernels19 += phase32(dev, smi, (sp32, sp16), ylow16, i8_step,
+                         {"gather": gather_launches,
+                          "l5max": i8_l5max_launches})
+    torch.cuda.empty_cache()
+    log(f"{time.perf_counter() - t_start:.1f} s so far")
     cli_launches = phase28(dev, smi)
     log(f"{time.perf_counter() - t_start:.1f} s so far")
     mesh_totals = phase29(dev, smi)
@@ -5689,7 +6129,7 @@ def main() -> int:
         "bound_by": d_bound_by,
         "library_ms": d_library_ms,
     }, {
-        "name": "upto_gather / conv3x3_bias_leaky_cell taps "
+        "name": "upto_gather_tiled / l7_fold's tap forms "
                 "(stack_scale_upto, B7)",
         "route": "cuda",
         "source": "waifu2x_torch/csrc/l6.cu",
@@ -5703,9 +6143,12 @@ def main() -> int:
         "bound_by": u6_bound_by,
         "library_ms": u6_library_ms,
     }, {
-        "name": "tile_absmax + l6_i8_conv, int8 layer 6 (l6_i8=True, B4)",
+        "name": "layer 5's tile-maxima epilogue + l6_i8_mma, the int8 "
+                "layer 6 stack (l6_i8=True, B4)",
         "route": "cuda",
-        "source": "waifu2x_torch/csrc/l6.cu",
+        "source": "waifu2x_torch/csrc/i8.cu",
+        "sources": ["waifu2x_torch/csrc/mma.cu", "waifu2x_torch/csrc/i8.cu",
+                    "waifu2x_torch/csrc/l7.cu"],
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
         "launches": l6_launches["i8"],
         "max_abs_err": max(max_err["i8"], *(

@@ -54,6 +54,59 @@ __device__ __forceinline__ float i8_scale(float m) {
   return __fmul_rn(fmaxf(m, 1e-8f), (float)(1.0 / 127.0));
 }
 
+// Where layer 5's tile-maxima epilogue (mma.cu, mma_tf32.cu) writes:
+// m [N, ny, nx], max |x5| of each tile window as the float's bits, zeros on
+// entry; x5 is the plane [N, 2 ny tr + 4, 2 nx tc + 4, 128].
+struct TileMax {
+  unsigned* m;
+  Tiles qt;
+};
+
+// B4's tile maxima from one 16 x 16 output block of layer 5: px holds the
+// max |x5| of each of the block's pixels, row-major; the block starts at
+// pixel (oy0, ox0) of the hout x wout plane and may run past its edge.
+// Window (ti, tj) covers rows [2 ti tr, 2 ti tr + 2 tr + 4) and columns
+// [2 tj tc, 2 tj tc + 2 tc + 4): windows overlap by 4 pixels, every pixel of
+// the plane lies in one to three windows a side, and the block meets the
+// windows ti0..ti1 x tj0..tj1 (1-4 at the default tile, a hundred at tile
+// (1, 1)). A unit is a window and 4 of the block's rows; one warp a unit,
+// a lane a column and every other row of the block's part of the window
+// (no pixel past the plane's edge is read), then one atomicMax on the
+// float's bits (non-negative floats order as unsigned integers, so the
+// result does not depend on the order; fmaxf drops a NaN, as csrc/l6.cu's
+// tile_absmax does). Needs every pixel of px written and a barrier before
+// the call.
+template <int B>
+__device__ void tile_max_block(const float* px, const TileMax& tm, int n,
+                               int oy0, int ox0, int hout, int wout) {
+  static_assert(B == 16, "a lane a column, two rows a step");
+  constexpr int GROUPS = B / 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sy = 2 * tm.qt.tr, sx = 2 * tm.qt.tc;
+  const int y1 = min(oy0 + B, hout) - 1, x1 = min(ox0 + B, wout) - 1;
+  const int ti0 = max(oy0 - 4, 0) / sy, ti1 = min(y1 / sy, tm.qt.ny - 1);
+  const int tj0 = max(ox0 - 4, 0) / sx, tj1 = min(x1 / sx, tm.qt.nx - 1);
+  const int nj = tj1 - tj0 + 1, units = (ti1 - ti0 + 1) * nj * GROUPS;
+  const int c = ox0 + (lane & 15);
+  for (int u = warp; u < units; u += blockDim.x >> 5) {
+    const int w = u / GROUPS, g = u % GROUPS;
+    const int ti = ti0 + w / nj, tj = tj0 + w % nj;
+    const int r0 = max(max(oy0 + 4 * g, oy0), ti * sy);
+    const int r1 = min(min(oy0 + 4 * g + 3, y1), ti * sy + sy + 3);
+    if (r0 > r1) continue;   // the window misses these rows
+    float best = 0.0f;
+    if (c >= max(ox0, tj * sx) && c <= min(x1, tj * sx + sx + 3))
+      for (int r = r0 + (lane >> 4); r <= r1; r += 2)
+        best = fmaxf(best, px[(r - oy0) * B + c - ox0]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
+    if (lane == 0)
+      atomicMax(tm.m + ((size_t)n * tm.qt.ny + ti) * tm.qt.nx + tj,
+                __float_as_uint(best));
+  }
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

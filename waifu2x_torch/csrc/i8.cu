@@ -2,8 +2,9 @@
 // int8 tensor cores (sm_90a). Built with nvcc into a shared library with a
 // plain C interface and loaded with ctypes (waifu2x_torch/ops/_build.py).
 // The Python side is waifu2x_torch/ops/stack.py: _Launcher.l6_i8 runs
-// l6.cu's tile_absmax and then this kernel for every stack call under
-// l6_i8 (and l6_i8_layer alone); l6_i8_layer_plain is the plain version,
+// this kernel for every stack call under l6_i8, from the tile maxima that
+// layer 5 took in its epilogue (and l6_i8_layer alone, after l6.cu's
+// tile_absmax unless it is given them); l6_i8_layer_plain is the plain version,
 // ops/s2d.py:pack_mma_i8 the weight packer. With
 // stack.MID_MMA False the same calls take l6.cu's __dp4a kernel
 // (l6_i8_conv), the timing yardstick.
@@ -16,7 +17,8 @@
 // reads the window of layer 5's output x5 at rows [2 ti tr, 2 ti tr + 2tr
 // + 4) and columns [2 tj tc, 2 tj tc + 2tc + 4):
 //   sx = max(m, 1e-8) * (1/127)  (m = max |x5| over the window, from
-//        tile_absmax),  x5q = clip(rint(x5 * (1/sx)), +-127)
+//        layer 5's epilogue or tile_absmax),  x5q = clip(rint(x5 * (1/sx)),
+//        +-127)
 //   x6 = leaky(float(sum_int32(x5q * w6q)) * (sx * sw[co]) + b6[co])
 // over the window's (2tr+2) x (2tc+2) outputs, rounded to the storage type
 // and stored tile-major, [N, ny, nx, 2tr+2, 2tc+2, 128]. rint is round half
@@ -376,7 +378,8 @@ extern "C" {
 // from x5 [n, 2 ny tr + 4, 2 nx tc + 4, 128] (bf16 != 0: bf16, else f32),
 // the packed int8 weights wp [8][9][128][16] (pack_mma_i8), their scales
 // sw [128] f32, the bias b [128] f32 and the tiles' max |x5| m [n, ny, nx]
-// f32 (l6.cu's w2x_tile_absmax). The kernel owns its geometry (Q_SMEM
+// f32 (w2x_mma_layer_max / w2x_tf32_layer_max, or l6.cu's
+// w2x_tile_absmax). The kernel owns its geometry (Q_SMEM
 // bytes of shared memory, Q_THREADS threads a block). Returns the
 // cudaError_t of the launch.
 int w2x_l6_i8_mma(int bf16, const void* x5, const void* wp, const void* sw,

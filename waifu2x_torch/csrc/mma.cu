@@ -87,6 +87,12 @@
 namespace {
 
 constexpr int MT = 16;             // the block's output tile: MT x MT pixels
+// AM's two parts, bit 0 the pixel maxima and bit 1 the windows' reduction
+// (tools/l5max_probe.py times builds that compile one out)
+#ifndef W2X_AM_PARTS
+#define W2X_AM_PARTS 3
+#endif
+
 constexpr int WIN = MT + 2;        // window rows and columns
 constexpr int MMA_THREADS = 512;   // four warpgroups, one 8 x 8 m64 tile each
 
@@ -130,6 +136,18 @@ __host__ __device__ constexpr int mma_smem_bytes(int co, int kc, int stages,
 // Taps 0 and 2 then read the plain copy at offset 0 on that axis, tap 1 the
 // swapped copy at offset 0.
 //
+// AM (B4's tile maxima, layer 5 under l6_i8 only; w2x_mma_layer_max): the
+// epilogue also takes max |x| of each pixel of the tile over its CO
+// channels from the f32 values it rounds to bf16 (a thread holds 2 pixels x
+// CO/4 channels; the 4 lanes of a pixel meet by shuffles), rounds that max
+// to bf16 once (rounding to nearest is monotonic and odd, so that is the
+// max of the stored values' |x|), into a 16 x 16 f32 array past the output
+// tile, and after the barrier, before the stores, reduces it per tile window
+// that the block meets and adds it to `tm` by atomicMax (common.cuh:
+// tile_max_block). That is csrc/l6.cu's tile_absmax without its second
+// read of x5: m is the same, bit for bit. The other instances take the
+// argument and do not read it.
+//
 // PP (two accumulators; tools/accpp_probe.py): the CO outputs in two halves,
 // each its own register accumulator and its own wgmma group, committed apart.
 // After the last chunk the first half's epilogue (bias, LeakyReLU, bf16 into
@@ -138,13 +156,13 @@ __host__ __device__ constexpr int mma_smem_bytes(int co, int kc, int stages,
 // chunk's load refills the buffer that this chunk's products read. Each
 // output keeps its sum order over (chunk, tap, k16), so PP equals the
 // one-accumulator kernel bit for bit.
-template <int CI, int CO, int KC, int STAGES, int ZS, int PP>
+template <int CI, int CO, int KC, int STAGES, int ZS, int PP, int AM>
 __global__ void __launch_bounds__(MMA_THREADS, (CO <= 64 ? 2 : 1))
 conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ wp,
                        const float* __restrict__ b,
                        __nv_bfloat16* __restrict__ y, int hin, int win,
-                       int ntx, int nty) {
+                       int ntx, int nty, TileMax tm) {
   constexpr int K8C = KC / 8, NCHUNK = CI / KC;
   constexpr int S = win_stride(K8C);
   constexpr int NCOPY = zs_copies(ZS);
@@ -157,7 +175,8 @@ conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
   static_assert(CI % KC == 0 && KC % 16 == 0 && K8C <= 8, "chunk depth");
   static_assert(STAGES >= 1 && (STAGES == 1 || STAGES <= NCHUNK),
                 "more stages than chunks");
-  static_assert(ZS >= 0 && ZS <= 3 && !(ZS && PP), "one variant at a time");
+  static_assert(ZS >= 0 && ZS <= 3 && !(ZS && PP) && !(AM && (ZS || PP)),
+                "one variant at a time");
 
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sbase = smem_addr(smem);
@@ -260,8 +279,13 @@ conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
   constexpr int PITCH = NH * 2 + 16;
   constexpr uint32_t HALF0 =
       PP ? mma_smem_bytes(CO, KC, STAGES, ZS, PP) - MT * MT * PITCH : 0;
+  constexpr uint32_t PIXMAX = MT * MT * PITCH;   // AM: the pixels' max |x|
+  static_assert(!AM || PIXMAX + MT * MT * 4 <=
+                           (uint32_t)mma_smem_bytes(CO, KC, STAGES, ZS, PP),
+                "the pixel maxima fit past the output tile");
   const int lane = tid & 31, w4 = (tid >> 5) & 3;
   const int col = 8 * tx8 + (lane >> 2);
+  float pmax[2] = {0.0f, 0.0f};   // AM: max |x| of this thread's 2 pixels
   auto epilogue = [&](const float (&d)[NH / 2], int h, uint32_t region) {
 #pragma unroll
     for (int j = 0; j < NH / 8; ++j) {
@@ -270,10 +294,13 @@ conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int pix = (8 * ty8 + 2 * w4 + hh) * MT + col;
+        const float v0 = leaky(d[4 * j + 2 * hh] + bias.x);
+        const float v1 = leaky(d[4 * j + 2 * hh + 1] + bias.y);
         *reinterpret_cast<__nv_bfloat162*>(smem + region + pix * PITCH +
                                            ch * 2) =
-            __floats2bfloat162_rn(leaky(d[4 * j + 2 * hh] + bias.x),
-                                  leaky(d[4 * j + 2 * hh + 1] + bias.y));
+            __floats2bfloat162_rn(v0, v1);
+        if constexpr (AM && (W2X_AM_PARTS & 1))
+          pmax[hh] = fmaxf(pmax[hh], fmaxf(fabsf(v0), fabsf(v1)));
       }
     }
   };
@@ -289,7 +316,23 @@ conv3x3_bias_leaky_mma(const __nv_bfloat16* __restrict__ x,
     __syncthreads();   // every warpgroup is done reading the stages
     epilogue(acc[0], 0, 0);
   }
+  if constexpr (AM) {   // the 4 lanes of a pixel hold CO/4 channels each
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      pmax[hh] = fmaxf(pmax[hh], __shfl_xor_sync(0xffffffffu, pmax[hh], 1));
+      pmax[hh] = fmaxf(pmax[hh], __shfl_xor_sync(0xffffffffu, pmax[hh], 2));
+      if ((lane & 3) == 0)   // the max of the stored (bf16) values
+        reinterpret_cast<float*>(smem + PIXMAX)[(8 * ty8 + 2 * w4 + hh) * MT +
+                                                col] =
+            __bfloat162float(__float2bfloat16_rn(pmax[hh]));
+    }
+  }
   __syncthreads();
+  // AM: the windows' maxima before the stores (after them the block's
+  // last warps wait on this reduction longer: tools/l5max_probe.py)
+  if constexpr (AM && (W2X_AM_PARTS & 2))
+    tile_max_block<MT>(reinterpret_cast<const float*>(smem + PIXMAX), tm, n,
+                       oy0, ox0, hout, wout);
   constexpr int C8 = CO / 8, H8 = NH / 8;
   __nv_bfloat16* yn = y + (size_t)n * hout * wout * CO;
   for (int i = tid; i < MT * MT * C8; i += MMA_THREADS) {
@@ -376,16 +419,17 @@ mma_chain(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int CI, int CO, int KC, int STAGES, int ZS = 0, int PP = 0>
+template <int CI, int CO, int KC, int STAGES, int ZS = 0, int PP = 0,
+          int AM = 0>
 cudaError_t launch_mma(const void* x, const void* wp, const void* b, void* y,
                        int n, int hin, int win, int smem_bytes,
-                       cudaStream_t s) {
+                       cudaStream_t s, TileMax tm = {}) {
   constexpr int need = mma_smem_bytes(CO, KC, STAGES, ZS, PP);
   if (smem_bytes != need) return cudaErrorInvalidValue;
   const int ntx = (win - 2 + MT - 1) / MT, nty = (hin - 2 + MT - 1) / MT;
   const long long blocks = (long long)ntx * nty * n;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = conv3x3_bias_leaky_mma<CI, CO, KC, STAGES, ZS, PP>;
+  auto kernel = conv3x3_bias_leaky_mma<CI, CO, KC, STAGES, ZS, PP, AM>;
   // over 48 KB of dynamic shared memory is refused without this
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, need);
@@ -393,7 +437,7 @@ cudaError_t launch_mma(const void* x, const void* wp, const void* b, void* y,
   kernel<<<(unsigned)blocks, MMA_THREADS, need, s>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(wp), static_cast<const float*>(b),
-      static_cast<__nv_bfloat16*>(y), hin, win, ntx, nty);
+      static_cast<__nv_bfloat16*>(y), hin, win, ntx, nty, tm);
   return cudaGetLastError();
 }
 
@@ -467,6 +511,25 @@ int w2x_mma_layer_variant(int bf16, int layer, int zs, int pp, const void* x,
   W2X_MMA_VARIANT(5, 128, 128, 16, 2, 3, 0)
   W2X_MMA_VARIANT(5, 128, 128, 16, 2, 0, 1)
   return (int)cudaErrorInvalidValue;
+}
+
+// Layer 5 (64 -> 128, `layer` 4 of w2x_mma_layer) with B4's tile maxima in
+// its epilogue (AM): as w2x_mma_layer launches it, and m [n, ny, nx] f32
+// (zeros on entry) gets max |x5| of each tile window of its output x5
+// [n, 2 ny tr + 4, 2 nx tc + 4, 128], as csrc/l6.cu's w2x_tile_absmax
+// computes it; x must be [n, 2 ny tr + 6, 2 nx tc + 6, 64]. smem_bytes is
+// mma_plan(64, 128)'s.
+int w2x_mma_layer_max(int bf16, const void* x, const void* wp, const void* b,
+                      void* y, int n, int hin, int win, int smem_bytes,
+                      void* m, int tr, int tc, int ny, int nx,
+                      void* stream) {
+  const Tiles qt = {tr, tc, ny, nx};
+  if (!bf16 || n <= 0 || m == nullptr || !tiles_ok(qt) ||
+      hin != 2 * ny * tr + 6 || win != 2 * nx * tc + 6)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_mma<64, 128, 32, 2, 0, 0, 1>(
+      x, wp, b, y, n, hin, win, smem_bytes, static_cast<cudaStream_t>(stream),
+      {static_cast<unsigned*>(m), qt});
 }
 
 // Launch the mma_chain probe: out [m, 128] f32 = sum over p of x [m, 128]

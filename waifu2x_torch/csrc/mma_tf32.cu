@@ -62,6 +62,13 @@
 //   * Epilogue: bias, LeakyReLU into a padded f32 tile in the ring's shared
 //     memory, then 16-byte stores along channels, the ragged edge masked.
 //     Deterministic: every output is one thread's sum in a fixed order.
+//   * AM (layer 5 under l6_i8 only; w2x_tf32_layer_max): the epilogue also
+//     takes each pixel's max |x| over its CO channels from the values it
+//     stores, into a 16 x 16 f32 array past the output tile, and after the
+//     barrier, before the stores, adds each tile window's max over the block
+//     to m by atomicMax (common.cuh: tile_max_block): B4's tile maxima,
+//     bit for bit those of csrc/l6.cu's tile_absmax, without its second
+//     read of x5. The other instances take the argument and do not read it.
 //
 // What bounds it on an H100: operations. Three TF32 products a term at the
 // 494.7 TFLOP/s dense TF32 peak are 3 x 2 x 9 x CI x CO FLOP a pixel: 28.7
@@ -99,13 +106,13 @@ __host__ __device__ constexpr int tf32_smem_bytes(int co, int kc,
 // x [N, hin, win, CI] f32, whi / wlo [CI/4][9][CO][4] f32, b [CO] f32,
 // y [N, hin-2, win-2, CO] f32. Grid: one block per (image, tile row, tile
 // column), flattened.
-template <int CI, int CO, int KC, int STAGES>
+template <int CI, int CO, int KC, int STAGES, int AM>
 __global__ void __launch_bounds__(TF_THREADS, (CO <= 32 ? 2 : 1))
 conv3x3_bias_leaky_tf32(const float* __restrict__ x,
                         const float* __restrict__ whi,
                         const float* __restrict__ wlo,
                         const float* __restrict__ b, float* __restrict__ y,
-                        int hin, int win, int ntx, int nty) {
+                        int hin, int win, int ntx, int nty, TileMax tm) {
   constexpr int K4C = KC / 4, NCHUNK = CI / KC, NPIX = TWIN * TWIN;
   constexpr int NP = CO < 64 ? CO : 64;   // outputs of one product pass
   constexpr int S = tf_win_stride(K4C);
@@ -224,8 +231,13 @@ conv3x3_bias_leaky_tf32(const float* __restrict__ x,
 
   // epilogue: bias, LeakyReLU into a padded f32 tile, 16-byte stores
   constexpr int PITCH = CO * 4 + 16;
+  constexpr uint32_t PIXMAX = TT * TT * PITCH;   // AM: the pixels' max |x|
+  static_assert(!AM || PIXMAX + TT * TT * 4 <=
+                           (uint32_t)tf32_smem_bytes(CO, KC, STAGES),
+                "the pixel maxima fit past the output tile");
   const int lane = tid & 31, w4 = (tid >> 5) & 3;
   const int col = 8 * tx8 + (lane >> 2);
+  float pmax[2] = {0.0f, 0.0f};   // AM: max |x| of this thread's 2 pixels
   __syncthreads();   // every warpgroup is done reading the stages
 #pragma unroll
   for (int j = 0; j < CO / 8; ++j) {
@@ -234,12 +246,27 @@ conv3x3_bias_leaky_tf32(const float* __restrict__ x,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int pix = (8 * ty8 + 2 * w4 + hh) * TT + col;
-      *reinterpret_cast<float2*>(smem + pix * PITCH + ch * 4) =
-          make_float2(leaky(acc[4 * j + 2 * hh] + bias.x),
-                      leaky(acc[4 * j + 2 * hh + 1] + bias.y));
+      const float2 v = make_float2(leaky(acc[4 * j + 2 * hh] + bias.x),
+                                   leaky(acc[4 * j + 2 * hh + 1] + bias.y));
+      *reinterpret_cast<float2*>(smem + pix * PITCH + ch * 4) = v;
+      if constexpr (AM)
+        pmax[hh] = fmaxf(pmax[hh], fmaxf(fabsf(v.x), fabsf(v.y)));
+    }
+  }
+  if constexpr (AM) {   // the 4 lanes of a pixel hold CO/4 channels each
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      pmax[hh] = fmaxf(pmax[hh], __shfl_xor_sync(0xffffffffu, pmax[hh], 1));
+      pmax[hh] = fmaxf(pmax[hh], __shfl_xor_sync(0xffffffffu, pmax[hh], 2));
+      if ((lane & 3) == 0)
+        reinterpret_cast<float*>(smem + PIXMAX)[(8 * ty8 + 2 * w4 + hh) * TT +
+                                                col] = pmax[hh];
     }
   }
   __syncthreads();
+  if constexpr (AM)   // the windows' maxima, before the stores (as mma.cu)
+    tile_max_block<TT>(reinterpret_cast<const float*>(smem + PIXMAX), tm, n,
+                       oy0, ox0, hout, wout);
   constexpr int C4 = CO / 4;
   float* yn = y + (size_t)n * hout * wout * CO;
   for (int i = tid; i < TT * TT * C4; i += TF_THREADS) {
@@ -251,16 +278,16 @@ conv3x3_bias_leaky_tf32(const float* __restrict__ x,
   }
 }
 
-template <int CI, int CO, int KC, int STAGES>
+template <int CI, int CO, int KC, int STAGES, int AM = 0>
 cudaError_t launch_tf32(const void* x, const void* whi, const void* wlo,
                         const void* b, void* y, int n, int hin, int win,
-                        int smem_bytes, cudaStream_t s) {
+                        int smem_bytes, cudaStream_t s, TileMax tm = {}) {
   constexpr int need = tf32_smem_bytes(CO, KC, STAGES);
   if (smem_bytes != need) return cudaErrorInvalidValue;
   const int ntx = (win - 2 + TT - 1) / TT, nty = (hin - 2 + TT - 1) / TT;
   const long long blocks = (long long)ntx * nty * n;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = conv3x3_bias_leaky_tf32<CI, CO, KC, STAGES>;
+  auto kernel = conv3x3_bias_leaky_tf32<CI, CO, KC, STAGES, AM>;
   // over 48 KB of dynamic shared memory is refused without this
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, need);
@@ -268,7 +295,7 @@ cudaError_t launch_tf32(const void* x, const void* whi, const void* wlo,
   kernel<<<(unsigned)blocks, TF_THREADS, need, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(whi),
       static_cast<const float*>(wlo), static_cast<const float*>(b),
-      static_cast<float*>(y), hin, win, ntx, nty);
+      static_cast<float*>(y), hin, win, ntx, nty, tm);
   return cudaGetLastError();
 }
 
@@ -301,6 +328,25 @@ int w2x_tf32_layer(int bf16, int layer, const void* x, const void* whi,
   W2X_TF32_CASE(4, 64, 128, 8, 2)
   W2X_TF32_CASE(5, 128, 128, 8, 2)
   return (int)cudaErrorInvalidValue;
+}
+
+// Layer 5 (64 -> 128, `layer` 4 of w2x_tf32_layer) with B4's tile maxima
+// in its epilogue (AM): as w2x_tf32_layer launches it, and m [n, ny, nx]
+// f32 (zeros on entry) gets max |x5| of each tile window of its output x5
+// [n, 2 ny tr + 4, 2 nx tc + 4, 128], as csrc/l6.cu's w2x_tile_absmax
+// computes it; x must be [n, 2 ny tr + 6, 2 nx tc + 6, 64]. smem_bytes is
+// tf32_plan(64, 128)'s.
+int w2x_tf32_layer_max(int bf16, const void* x, const void* whi,
+                       const void* wlo, const void* b, void* y, int n,
+                       int hin, int win, int smem_bytes, void* m, int tr,
+                       int tc, int ny, int nx, void* stream) {
+  const Tiles qt = {tr, tc, ny, nx};
+  if (bf16 || n <= 0 || m == nullptr || !tiles_ok(qt) ||
+      hin != 2 * ny * tr + 6 || win != 2 * nx * tc + 6)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_tf32<64, 128, 8, 2, 1>(
+      x, whi, wlo, b, y, n, hin, win, smem_bytes,
+      static_cast<cudaStream_t>(stream), {static_cast<unsigned*>(m), qt});
 }
 
 }  // extern "C"

@@ -110,20 +110,29 @@ Both at once raise ValueError.
           layer 6 computed with that tile's own scale, and the result is
           cropped to the image. `tile=(tr, tc)` sets the tile (the JAX
           package's `tile` argument); None picks default_tile. The tile
-          maxima are csrc/l6.cu's tile_absmax; the layer runs on the int8
+          maxima come from layer 5's epilogue, as the JAX body takes them
+          from the x5 it holds on chip: the layer-5 kernel's instance with
+          them (csrc/mma.cu in bf16, csrc/mma_tf32.cu in f32;
+          layer5_maxima alone, layer5_maxima_plain its plain version) adds
+          each block's share of every tile window to m by atomicMax. With
+          L5_MAXIMA False, or with MID_MMA False (layer 5 on FFMA), csrc/
+          l6.cu's tile_absmax takes them in a pass of its own that reads x5
+          again (tile_maxima alone), the timing yardstick; both give
+          tile_max_plain's maxima bit for bit. The layer runs on the int8
           tensor cores (csrc/i8.cu: l6_i8_mma, wgmma s8 x s8 -> s32, from
           StackParams.w6i = pack_mma_i8), or with
           MID_MMA False on csrc/l6.cu's __dp4a kernel (l6_i8_conv), the
           timing yardstick; both give l6_i8_layer_plain's values bit for
-          bit. I8_LAUNCHES counts the layer's launches by kernel.
+          bit. I8_LAUNCHES counts the layer's launches by kernel, and the
+          maxima's by where they were taken.
 
 The kernels (csrc/l1.cu, csrc/stack.cu, csrc/mma.cu, csrc/mma_tf32.cu,
 csrc/l6.cu, csrc/i8.cu, csrc/wino.cu and csrc/l7.cu, which replace
 waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
 configurations B1, B2, B3, B6 and B7, B4, B5) launch once per layer: 7
-times per call, 8 with `l6_i8` (the tile maxima are a launch of their
-own), upto + 1 for stack_scale_upto. See the notes at the top of those
-files for design and bounds.
+times per call (8 with `l6_i8` where tile_absmax takes the tile maxima),
+upto + 1 for stack_scale_upto. See the notes at the top of those files for
+design and bounds.
 
 The wrappers take the plain version for a tensor on the CPU only. For a
 CUDA tensor they launch the kernel or raise; nothing falls back.
@@ -204,9 +213,21 @@ L1_LAUNCHES = {"l1": 0, "ffma": 0}
 # False); L6_LAUNCHES["wino"] counts the form
 WINO_LAUNCHES = {"mma": 0, "mma_tf32": 0, "ffma": 0}
 # the int8 layer 6's launches by the kernel that ran them: "mma" the int8
-# tensor cores (csrc/i8.cu), "dp4a" csrc/l6.cu (MID_MMA False);
-# L6_LAUNCHES["i8"] counts the form (with the tile maxima)
-I8_LAUNCHES = {"mma": 0, "dp4a": 0}
+# tensor cores (csrc/i8.cu), "dp4a" csrc/l6.cu (MID_MMA False); and the
+# tile maxima's by where they were taken: "l5max" layer 5's instance with
+# them in its epilogue (csrc/mma.cu, mma_tf32.cu; counted under
+# MID_LAUNCHES too), "absmax" csrc/l6.cu's tile_absmax pass (L5_MAXIMA or
+# MID_MMA False, and l6_i8_layer or tile_maxima alone). L6_LAUNCHES["i8"]
+# counts the form (with a tile_absmax launch)
+I8_LAUNCHES = {"mma": 0, "dp4a": 0, "l5max": 0, "absmax": 0}
+# B4's tile maxima in layer 5's epilogue; False takes them in csrc/l6.cu's
+# tile_absmax pass after layer 5, the timing yardstick (chip_smoke.py and
+# the tests only, like MID_MMA)
+L5_MAXIMA = True
+# stack_scale_upto's gather (upto 0..5) by kernel: "tiled" csrc/l6.cu's
+# upto_gather_tiled, "cell" its one-thread-a-cell upto_gather (tiled=False,
+# the yardstick); counted under L6_LAUNCHES["upto"] too
+GATHER_LAUNCHES = {"tiled": 0, "cell": 0}
 # every launch of a layer-7 kernel (of a stack, of last_layer and
 # last_layer_tiles alone, of the probes' stacks, and the truncation's tap
 # forms) by the kernel that ran it: "fold" the tensor-core fold (csrc/l7.cu,
@@ -239,7 +260,8 @@ def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
     for counts in (KERNEL_LAUNCHES, L6_LAUNCHES, MID_LAUNCHES, WINO_LAUNCHES,
-                   L7_LAUNCHES, TAP_LAUNCHES, L1_LAUNCHES, I8_LAUNCHES):
+                   L7_LAUNCHES, TAP_LAUNCHES, L1_LAUNCHES, I8_LAUNCHES,
+                   GATHER_LAUNCHES):
         for kind in counts:
             counts[kind] = 0
 
@@ -1340,9 +1362,14 @@ _ARGTYPES = {
             "w2x_mma_chain": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR],
             "w2x_mma_layer_variant": [_INT, _INT, _INT, _INT, _PTR, _PTR,
                                       _PTR, _PTR, _INT, _INT, _INT, _INT,
-                                      _PTR]},
+                                      _PTR],
+            "w2x_mma_layer_max": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                                  _INT, _INT, _PTR, _INT, _INT, _INT, _INT,
+                                  _PTR]},
     "l6": {"w2x_upto_gather": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                                _INT, _INT, _PTR],
+           "w2x_upto_gather_cell": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                                    _INT, _INT, _INT, _PTR],
            "w2x_tile_absmax": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                                _PTR],
            "w2x_l6_i8": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
@@ -1364,7 +1391,10 @@ _ARGTYPES = {
     "l1": {"w2x_l1": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                       _PTR]},
     "mma_tf32": {"w2x_tf32_layer": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
-                                    _INT, _INT, _INT, _INT, _PTR]},
+                                    _INT, _INT, _INT, _INT, _PTR],
+                 "w2x_tf32_layer_max": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                        _INT, _INT, _INT, _INT, _PTR, _INT,
+                                        _INT, _INT, _INT, _PTR]},
 }
 
 
@@ -1599,16 +1629,61 @@ class _Launcher:
                  x5.data_ptr(), sp.w6w.data_ptr(), sp[5][1].data_ptr(),
                  y6.data_ptr(), n, h5, w5, wino="ffma")
 
-    def l6_i8(self, x5, sp, n, tiling):
-        """The tile maxima (csrc/l6.cu) and the int8 layer 6 on the tensor
-        cores (csrc/i8.cu), or with MID_MMA False on csrc/l6.cu's __dp4a
-        kernel -> (x6t tile-major, m)."""
+    def layer5_max(self, src, sp, dst, n, hin, win, m, tiling) -> None:
+        """Layer 5 on the [n, hin, win, 64] plane src into dst with B4's
+        tile maxima in its epilogue: m [n, ny, nx] f32 (zeros) gets max |x5|
+        of each tile window of tiling = (tr, tc, ny, nx). bf16 on csrc/
+        mma.cu, f32 as 3xTF32 on csrc/mma_tf32.cu; counted under
+        MID_LAUNCHES and I8_LAUNCHES["l5max"]."""
+        tile_args = (m.data_ptr(), *tiling)
+        if self.bf16:
+            wm = getattr(sp, "wm", None)
+            if wm is None:
+                raise ValueError("the tensor-core layers need prep_params' "
+                                 "packed weights (StackParams.wm)")
+            self.run("mma", "w2x_mma_layer_max", "layer 5 (mma, tile maxima)",
+                     None, src.data_ptr(), wm[3].data_ptr(),
+                     sp[4][1].data_ptr(), dst.data_ptr(), n, hin, win,
+                     mma_plan(*WIDTHS[4]).smem_bytes, *tile_args, mid="mma",
+                     i8="l5max")
+            return
+        whi, wlo = _wt(sp, src, 4)
+        self.run("mma_tf32", "w2x_tf32_layer_max",
+                 "layer 5 (3xTF32, tile maxima)", None, src.data_ptr(),
+                 whi.data_ptr(), wlo.data_ptr(), sp[4][1].data_ptr(),
+                 dst.data_ptr(), n, hin, win,
+                 tf32_plan(*WIDTHS[4]).smem_bytes, *tile_args,
+                 mid="mma_tf32", i8="l5max")
+
+    def tile_absmax(self, x5, n, tiling, l6=None) -> torch.Tensor:
+        """B4's tile maxima in a pass of their own (csrc/l6.cu:
+        tile_absmax, which reads x5 again) -> m [n, ny, nx] f32."""
+        m = torch.zeros((n, tiling[2], tiling[3]), dtype=torch.float32,
+                        device=x5.device)
+        self.run("l6", "w2x_tile_absmax", "layer 6, tile maxima", l6,
+                 x5.data_ptr(), m.data_ptr(), n, *tiling, i8="absmax")
+        return m
+
+    def gather(self, src, out, n, hl, wl, hk, wk, ck, mode: int,
+               tiled=None) -> None:
+        """stack_scale_upto's gather at upto 0..5 (csrc/l6.cu): the tiled
+        form, or with tiled=False one thread a cell, the yardstick."""
+        cell = tiled is not None and not tiled
+        self.run("l6", "w2x_upto_gather_cell" if cell else "w2x_upto_gather",
+                 f"upto gather, mode {mode}", "upto", src.data_ptr(),
+                 out.data_ptr(), n, hl, wl, hk, wk, ck, mode)
+        GATHER_LAUNCHES["cell" if cell else "tiled"] += 1
+
+    def l6_i8(self, x5, sp, n, tiling, m=None):
+        """The int8 layer 6 on the tensor cores (csrc/i8.cu), or with
+        MID_MMA False on csrc/l6.cu's __dp4a kernel -> (x6t tile-major, m),
+        from the tile maxima m that layer 5's epilogue took, or where m is
+        None after tile_absmax takes them."""
         tr, tc, ny, nx = tiling
-        m = torch.zeros((n, ny, nx), dtype=torch.float32, device=x5.device)
+        if m is None:
+            m = self.tile_absmax(x5, n, tiling, "i8")
         x6t = torch.empty((n, ny, nx, 2 * tr + 2, 2 * tc + 2, 128),
                           dtype=x5.dtype, device=x5.device)
-        self.run("l6", "w2x_tile_absmax", "layer 6, tile maxima", "i8",
-                 x5.data_ptr(), m.data_ptr(), n, tr, tc, ny, nx)
         args = (sp.w6s.data_ptr(), sp[5][1].data_ptr(), m.data_ptr(),
                 x6t.data_ptr(), n, tr, tc, ny, nx)
         if MID_MMA:
@@ -1644,9 +1719,15 @@ def _last_buffer(out_mode: int, x: torch.Tensor, n: int, hl: int, wl: int,
     return torch.empty((n, hl, wl, 4), dtype=x.dtype, device=x.device), None
 
 
+def l5_maxima_chosen() -> bool:
+    """Whether B4's tile maxima come from layer 5's epilogue: while layer 5
+    runs on the tensor cores (MID_MMA) and L5_MAXIMA is on."""
+    return MID_MMA and L5_MAXIMA
+
+
 def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             form: str = "direct", tile=None, upto=None,
-            out_form: str = "cell", fold=None) -> torch.Tensor:
+            out_form: str = "cell", fold=None, tiled=None) -> torch.Tensor:
     """One call's launches on the current stream, no synchronisation: x is
     the low-res plane [N, hl, wl] (kinds "scale", "dense", "fused_u8") or
     the full-res plane [N, h, w] ("noise": any size, computed on the
@@ -1656,10 +1737,13 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
     after that layer and its 4 values per cell are written instead, or the
     other form `out_form` of stack_scale_upto (at upto 6 on the fold, or
     with fold=False on the cell kernel). `form` is layer 6's; "i8" runs on
-    the plane edge-extended to the tile grid. `events`, a list of
+    the plane edge-extended to the tile grid, and there layer 5 also takes
+    the tile maxima (l5_maxima_chosen). `tiled` picks the gather's kernel
+    at upto 0..5 (stack_scale_upto). `events`, a list of
     timing-enabled CUDA events, is recorded before the first launch and
     after each layer's launches (8 events for a whole stack, upto + 2 with
     `upto`)."""
+    m = None   # B4's tile maxima, zeros for layer 5's atomicMax
     full_res = kind == "noise"
     x, hl, wl, tiling = _on_grid(
         x, full_res, form if upto in (None, 6) else "direct", tile)
@@ -1680,7 +1764,13 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             out, cmap = _last_buffer(out_mode, x, n, hl, wl, tc)
         src = x
         for k in range(5 if upto is None else min(upto, 5)):
-            run.layer(k, full_res, src, sp, bufs[k % 2], n, ph, pw)
+            if k == 4 and tiling is not None and l5_maxima_chosen():
+                m = torch.zeros((n, *tiling[2:]), dtype=torch.float32,
+                                device=x.device)
+                run.layer5_max(src, sp, bufs[0], n, 2 * hg + 6, 2 * wg + 6,
+                               m, tiling)
+            else:
+                run.layer(k, full_res, src, sp, bufs[k % 2], n, ph, pw)
             run.mark()
             src = bufs[k % 2]
         if upto is not None and upto <= 5:
@@ -1688,14 +1778,13 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             wk, ck = 2 * wl + 14 - 2 * upto, WIDTHS[upto - 1][1] if upto else 1
             if out is None:
                 return src[:n * hk * wk * ck].view(n, hk, wk, ck)
-            run.run("l6", "w2x_upto_gather", f"upto {upto}", "upto",
-                    src.data_ptr(), out.data_ptr(), n, hl, wl, hk, wk, ck,
-                    _GATHER_LOWRES[out_form] if upto == 0 else 0)
+            run.gather(src, out, n, hl, wl, hk, wk, ck,
+                       _GATHER_LOWRES[out_form] if upto == 0 else 0, tiled)
             run.mark()
             return out
         # layer 6 in its form, layer 5's output being in bufs[0]
         if form == "i8":
-            x6, _ = run.l6_i8(src, sp, n, tiling)
+            x6, _ = run.l6_i8(src, sp, n, tiling, m)
         elif form == "wino":
             x6 = bufs[1]
             run.wino(src, sp, x6, n, 2 * hg + 4, 2 * wg + 4, "wino")
@@ -1715,24 +1804,124 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
     return out
 
 
-def l6_i8_layer(x5: torch.Tensor, sp, tile):
+def l6_i8_layer(x5: torch.Tensor, sp, tile, m=None):
     """The int8 layer 6 alone: the stored layer-5 activation x5
     [N, 2*ny*tr + 4, 2*nx*tc + 4, 128] (NHWC, f32 or bf16, contiguous) of a
     plane that is a whole grid of tile = (tr, tc) cells -> (x6t
     [N, ny, nx, 2tr+2, 2tc+2, 128] in x5's dtype: each tile's layer-6
     activation with its one-pixel halo, quantised with that tile's scale;
-    sx [N, ny, nx] f32: the tiles' activation scales). CPU tensors take the
-    plain version; CUDA tensors take the kernels (the tile maxima, then
-    csrc/i8.cu on the int8 tensor cores, or with MID_MMA False csrc/l6.cu's
-    __dp4a kernel), whose two launches count under L6_LAUNCHES["i8"] and
-    the layer's under I8_LAUNCHES only."""
+    sx [N, ny, nx] f32: the tiles' activation scales). m, the tiles' max
+    |x5| [N, ny, nx] f32 as layer5_maxima gives them, spares the kernel
+    path its own maxima. CPU tensors take the plain version; CUDA tensors
+    take the kernels (without m csrc/l6.cu's tile_absmax, then csrc/i8.cu
+    on the int8 tensor cores, or with MID_MMA False csrc/l6.cu's __dp4a
+    kernel), whose launches count under L6_LAUNCHES["i8"] and
+    I8_LAUNCHES only."""
     tiling = _check_x5(x5, sp, tile)
+    if m is not None and (tuple(m.shape) != (x5.shape[0], *tiling[2:])
+                          or m.dtype != torch.float32
+                          or m.device != x5.device):
+        raise ValueError(f"m must be f32 [N, ny, nx] = "
+                         f"{(x5.shape[0], *tiling[2:])} on {x5.device}")
     if x5.device.type == "cpu":
         return l6_i8_layer_plain(x5, sp, tile)
     with torch.cuda.device(x5.device):
-        x6t, m = _Launcher(None, x5, None).l6_i8(x5, sp, x5.shape[0],
-                                                 tiling)
+        x6t, m = _Launcher(None, x5, None).l6_i8(
+            x5, sp, x5.shape[0], tiling,
+            None if m is None else m.contiguous())
     return x6t, torch.clamp(m, min=1e-8) * _INV127
+
+
+def tile_max_plain(x5: torch.Tensor, tile) -> torch.Tensor:
+    """Plain version of B4's tile maxima: x5 [N, 2*ny*tr + 4,
+    2*nx*tc + 4, C] -> m [N, ny, nx] f32, max |x5| over each tile window
+    (rows [2 ti tr, 2 ti tr + 2tr + 4), columns likewise). A NaN counts as
+    0, as the kernels' fmaxf drops it."""
+    tr, tc = tile
+    ny, nx = (x5.shape[1] - 4) // (2 * tr), (x5.shape[2] - 4) // (2 * tc)
+    a = x5.float().abs()
+    a = torch.where(torch.isnan(a), torch.zeros_like(a), a)
+    m = torch.empty((x5.shape[0], ny, nx), dtype=torch.float32,
+                    device=x5.device)
+    for ti in range(ny):
+        for tj in range(nx):
+            m[:, ti, tj] = a[:, 2 * ti * tr:2 * (ti + 1) * tr + 4,
+                             2 * tj * tc:2 * (tj + 1) * tc + 4].amax(
+                                 dim=(1, 2, 3))
+    return m
+
+
+def tile_maxima(x5: torch.Tensor, tile) -> torch.Tensor:
+    """B4's tile maxima in a pass of their own: x5 as l6_i8_layer takes
+    it -> m [N, ny, nx] f32. CPU tensors take tile_max_plain; CUDA tensors
+    csrc/l6.cu's tile_absmax (I8_LAUNCHES["absmax"] only), the yardstick of
+    layer 5's epilogue."""
+    tr, tc = tile
+    ny, nx = (x5.shape[1] - 4) // (2 * tr), (x5.shape[2] - 4) // (2 * tc)
+    if (x5.dim() != 4 or min(ny, nx) < 1 or tuple(x5.shape[1:]) != (
+            2 * ny * tr + 4, 2 * nx * tc + 4, 128)
+            or x5.dtype not in DTYPES or not x5.is_contiguous()):
+        raise ValueError(f"x5 must be contiguous f32 or bf16 [N, 2*ny*{tr}+4,"
+                         f" 2*nx*{tc}+4, 128], got {tuple(x5.shape)} "
+                         f"{x5.dtype}")
+    if x5.device.type == "cpu":
+        return tile_max_plain(x5, tile)
+    with torch.cuda.device(x5.device):
+        return _Launcher(None, x5, None).tile_absmax(
+            x5, x5.shape[0], (tr, tc, ny, nx))
+
+
+def _check_x4(x4: torch.Tensor, sp, tile) -> tuple:
+    """Checks of layer5_maxima's arguments -> (tr, tc, ny, nx)."""
+    tr, tc = tile
+    if x4.dim() != 4:
+        raise ValueError(f"x4 must be [N, H, W, 64], got {tuple(x4.shape)}")
+    ny, nx = (x4.shape[1] - 6) // (2 * tr), (x4.shape[2] - 6) // (2 * tc)
+    if min(ny, nx) < 1 or tuple(x4.shape[1:]) != (
+            2 * ny * tr + 6, 2 * nx * tc + 6, 64):
+        raise ValueError(f"x4 must be [N, 2*ny*{tr}+6, 2*nx*{tc}+6, 64], "
+                         f"got {tuple(x4.shape)}")
+    if x4.dtype not in DTYPES or not x4.is_contiguous():
+        raise TypeError(f"x4 must be contiguous float32 or bfloat16, got "
+                        f"{x4.dtype}")
+    wm = getattr(sp, "wm", None)
+    if wm is None:
+        raise ValueError("layer5_maxima needs prep_params' packed weights "
+                         "(StackParams.wm)")
+    _check_wm(wm, x4)
+    return tr, tc, ny, nx
+
+
+def layer5_maxima_plain(x4: torch.Tensor, sp, tile):
+    """Plain version of layer5_maxima -> (x5, m): layer 5 as
+    mma_layer_plain computes it, and tile_max_plain of that x5."""
+    _check_x4(x4, sp, tile)
+    x5 = mma_layer_plain(x4, sp.wm[3], sp[4][1])
+    return x5, tile_max_plain(x5, tile)
+
+
+def layer5_maxima(x4: torch.Tensor, sp, tile):
+    """Layer 5 alone with B4's tile maxima in its epilogue: x4, layer 4's
+    output [N, 2*ny*tr + 6, 2*nx*tc + 6, 64] of a plane that is a whole grid
+    of tile = (tr, tc) cells (NHWC, contiguous) -> (x5 [N, 2*ny*tr + 4,
+    2*nx*tc + 4, 128] in x4's dtype, as mma_layer(x4, sp, 5) computes it;
+    m [N, ny, nx] f32, max |x5| over each tile window, as tile_maxima(x5)
+    gives it). CPU tensors take the plain version; CUDA tensors the
+    layer-5 kernel's instance with the maxima (bf16 csrc/mma.cu, f32
+    csrc/mma_tf32.cu), counted under MID_LAUNCHES and I8_LAUNCHES["l5max"]
+    only."""
+    tiling = _check_x4(x4, sp, tile)
+    if x4.device.type == "cpu":
+        return layer5_maxima_plain(x4, sp, tile)
+    n, hin, win, _ = x4.shape
+    with torch.cuda.device(x4.device):
+        x5 = torch.empty((n, hin - 2, win - 2, 128), dtype=x4.dtype,
+                         device=x4.device)
+        m = torch.zeros((n, *tiling[2:]), dtype=torch.float32,
+                        device=x4.device)
+        _Launcher(None, x4, None).layer5_max(x4, sp, x5, n, hin, win, m,
+                                             tiling)
+    return x5, m
 
 
 def layer5_plane(x: torch.Tensor, sp, tile=None,
@@ -2070,7 +2259,8 @@ def _check_upto(upto, out: str = "cell") -> None:
 
 def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
                      l6_i8=None, l6_wino=None, tile=None,
-                     out: str = "cell", fold=None) -> torch.Tensor:
+                     out: str = "cell", fold=None,
+                     tiled=None) -> torch.Tensor:
     """The scale stack stopped after layer `upto` (B7): ylow [N, hl, wl] ->
     [N, hl, wl, 4] in ylow's dtype, 4 values of that stage per s2d cell
     (i, j), with act_k the output of layer k, whose row r is image row
@@ -2097,8 +2287,8 @@ def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
                         layer k's launch wrote, returned as it is (no
                         launch of its own, upto launches in all); upto = 0:
                         the low-res input window, ylow edge-padded by 4 on
-                        every side, [N, hl+8, wl+8, 1] (one launch of
-                        upto_gather).
+                        every side, [N, hl+8, wl+8, 1] (one launch of the
+                        gather).
       out="lane0"       upto = 0: the low-res tap (0,0) of the cell's
                         window, ylow[clamp(i-4), clamp(j-4)], in all 4
                         lanes, with no neighbour-sum constant (one launch).
@@ -2114,9 +2304,13 @@ def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
     Their launches count under L7_LAUNCHES "fold" / "fold_f32" and
     TAP_LAUNCHES. fold=False runs them on common.cuh's cell kernel instead,
     one thread an s2d cell on FFMA (w2x_last_cell, L7_LAUNCHES["cell"]), the
-    timing yardstick; the two differ in the order of their f32 sums. CPU
-    tensors take the plain version of the kernel chosen; CUDA tensors take
-    the kernels."""
+    timing yardstick; the two differ in the order of their f32 sums. At
+    upto 0..5 the last launch is csrc/l6.cu's tiled gather (a band of rows
+    a block, 16-byte vectors, the low-res modes staged in shared memory),
+    or with tiled=False its one-thread-a-cell form, the timing yardstick;
+    both only move values (GATHER_LAUNCHES counts them). CPU tensors take
+    the plain version of the kernel chosen; CUDA tensors take the
+    kernels."""
     _check_upto(upto, out)
     form = l6_form(l6_i8, l6_wino)
     _check(ylow, sp, form if upto == 6 else "direct")
@@ -2124,7 +2318,7 @@ def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
         return stack_scale_upto_plain(ylow, sp, upto, l6_i8, l6_wino, tile,
                                       out, fold)
     return _launch(ylow, sp, "scale", events, form=form, tile=tile,
-                   upto=upto, out_form=out, fold=fold)
+                   upto=upto, out_form=out, fold=fold, tiled=tiled)
 
 
 def stack_scale_dense(ylow: torch.Tensor, sp, tc=None, events=None,
