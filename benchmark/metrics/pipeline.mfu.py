@@ -1,0 +1,13 @@
+"""The model's operations done in the window over the window's length at
+the chip's peak: 2 x 287,136 FLOP for each pixel of each stack's output
+plane (the noise stack at the input's size, the scale stack at the
+output's), a bf16 stack at 989 TFLOP/s, an f32 stack at the TF32 rate,
+495 TFLOP/s (the highest rate of any f32 path on the chip)."""
+
+from benchmark import counts
+
+
+def read(run):
+    peak_s = sum(k * c.out_px() * counts.flops_per_px()
+                 / counts.PEAK_FLOPS[c.dtype] for c, k in run.calls.items())
+    return 100.0 * peak_s / run.window_s
