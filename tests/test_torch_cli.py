@@ -273,7 +273,9 @@ def test_mesh_runs_on_cpu_positions(tmp_path, rng, logs, monkeypatch):
                    if r.levelno >= logging.WARNING)
 
 
-def test_profile_writes_a_trace(tmp_path, rng):
+def test_profile_writes_a_trace(tmp_path, rng, logs):
+    """The Chrome trace holds the program's spans, and the run record their
+    sums by name."""
     model_dir = _write_models(str(tmp_path / "models"))
     src = str(tmp_path / "a.png")
     tio.imwrite_bgr(src, rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
@@ -283,6 +285,12 @@ def test_profile_writes_a_trace(tmp_path, rng):
     (trace,) = trace_dir.iterdir()
     events = json.loads(trace.read_text())["traceEvents"]
     assert any("conv" in str(e.get("name", "")) for e in events)
+    assert any(e.get("name") == "w2x.colour" for e in events)
+    (run,) = [r.w2x_run for r in logs.records if hasattr(r, "w2x_run")]
+    colour = run["spans"]["w2x.colour"]
+    assert colour["count"] >= 2 and colour["host_s"] > 0
+    assert colour["device_s"] is None
+    assert not any(k.startswith("w2x.setup.") for k in run["spans"])
 
 
 def test_run_record_splits_the_time(tmp_path, rng, logs):
@@ -297,6 +305,7 @@ def test_run_record_splits_the_time(tmp_path, rng, logs):
     assert run["mp"] == 16 * 16 / 1e6
     assert all(run[k] >= 0 for k in ("decode", "convert", "encode"))
     assert run["seconds"] >= run["decode"] + run["convert"] + run["encode"]
+    assert "spans" not in run
     assert tio.CODEC_CALLS == {("read", "native"): 1, ("write", "native"): 1}
 
 

@@ -26,6 +26,7 @@ import torch
 
 from waifu2x_torch import io as w2x_io
 from waifu2x_torch.config import Config
+from waifu2x_torch.utils import trace
 from waifu2x_torch.utils.logging import get_logger
 
 log = get_logger("cli")
@@ -122,17 +123,21 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 
 @contextlib.contextmanager
-def _profiled(trace_dir: "str | None", device: torch.device):
+def _profiled(trace_dir: "str | None", device: torch.device, spans: dict):
     """A torch.profiler trace of the block, written to trace_dir as a
-    Chrome trace (CPU activity, and CUDA activity on the card)."""
+    Chrome trace (CPU activity, and CUDA activity on the card), the
+    program's spans in it; `spans` gets their sums by name
+    (utils/trace.summary)."""
     if trace_dir is None:
         yield
         return
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    trace.reset()
     with torch.profiler.profile(activities=acts) as prof:
         yield
+    spans.update(trace.summary())
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, "waifu2x_torch.pt.trace.json")
     prof.export_chrome_trace(path)
@@ -232,7 +237,8 @@ def _run(args: argparse.Namespace, cfg: Config) -> int:
                     for im in imgs)))
 
     total_mp = 0.0
-    with _profiled(args.profile, converter.device):
+    spans = {}
+    with _profiled(args.profile, converter.device, spans):
         if stream_ok:
             sc = StreamConverter(
                 fast=converter.fast_scale,
@@ -276,13 +282,14 @@ def _run(args: argparse.Namespace, cfg: Config) -> int:
                 total_mp += _write(out_name, out, secs)
 
     dt = time.perf_counter() - t0
+    run = dict(secs, files=len(inputs), mp=total_mp, seconds=dt,
+               route="stream" if stream_ok else "per_image")
+    if args.profile is not None:
+        run["spans"] = spans
     log.info("%d file(s), %.2f MP in %.3fs (%.2f MP/s incl. kernel build; "
              "decode %.3fs, convert %.3fs, encode %.3fs)", len(inputs),
              total_mp, dt, total_mp / dt, secs["decode"], secs["convert"],
-             secs["encode"],
-             extra={"w2x_run": dict(secs, files=len(inputs), mp=total_mp,
-                                    seconds=dt, route="stream" if stream_ok
-                                    else "per_image")})
+             secs["encode"], extra={"w2x_run": run})
     log.info("process successfully done!")
     return 0
 

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from waifu2x_torch.utils import trace
+
 _R2Y, _G2Y, _B2Y = np.float32(0.299), np.float32(0.587), np.float32(0.114)
 _B2U, _R2V = np.float32(0.492), np.float32(0.877)
 _V2R, _U2G, _V2G, _U2B = (np.float32(1.140), np.float32(-0.395),
@@ -67,7 +69,8 @@ def _affine3(img: torch.Tensor, mat: np.ndarray,
 def bgr_to_yuv(img: torch.Tensor) -> torch.Tensor:
     """Apply OpenCV's RGB2YUV transform to a float [..., 3] image (BGR data
     on purpose, replicating main.cpp:74-76)."""
-    return _affine3(img, _FWD, _FWD_OFF)
+    with trace.span("w2x.colour", on=img):
+        return _affine3(img, _FWD, _FWD_OFF)
 
 
 def yuv_to_bgr(img: torch.Tensor) -> torch.Tensor:
@@ -85,4 +88,5 @@ def saturate_cast_u8(img: torch.Tensor) -> torch.Tensor:
 
 def u8_to_unit_f32(img: torch.Tensor) -> torch.Tensor:
     """uint8 -> float32 / 255 (convertTo(CV_32F, 1/255), main.cpp:75)."""
-    return img.to(torch.float32) * float(np.float32(1.0 / 255.0))
+    with trace.span("w2x.colour", on=img):
+        return img.to(torch.float32) * float(np.float32(1.0 / 255.0))

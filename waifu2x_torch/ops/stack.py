@@ -141,6 +141,7 @@ CUDA tensor they launch the kernel or raise; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import NamedTuple
 
@@ -164,6 +165,7 @@ from waifu2x_torch.ops.s2d import (
     s2d,
     unpack_mma,
 )
+from waifu2x_torch.utils import trace
 
 # (cin, cout) of the flagship architecture, the only one the kernel takes
 WIDTHS = ((1, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128),
@@ -2237,6 +2239,25 @@ def mma_chain(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _spanned(kind: str):
+    """Puts a stack entry inside a "w2x.stack" span (kernel and plain
+    routes alike), with the wrapper's KERNEL_LAUNCHES kind, the input's
+    dtype and shape, and the launches the call made (the change in
+    LAUNCHES)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entry(x, *args, **kwargs):
+            with trace.span("w2x.stack", on=x, kind=kind, dtype=x.dtype,
+                            shape=x.shape) as s:
+                before = LAUNCHES
+                out = fn(x, *args, **kwargs)
+                s.set(launches=LAUNCHES - before)
+            return out
+        return entry
+    return wrap
+
+
+@_spanned("scale")
 def stack_scale(ylow: torch.Tensor, sp, events=None, l6_i8=None,
                 l6_wino=None, tile=None) -> torch.Tensor:
     """ylow [N, hl, wl] (f32 or bf16, contiguous) -> Y_s2d [N, hl, wl, 4].
@@ -2321,6 +2342,7 @@ def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
                    upto=upto, out_form=out, fold=fold, tiled=tiled)
 
 
+@_spanned("dense")
 def stack_scale_dense(ylow: torch.Tensor, sp, tc=None, events=None,
                       l6_i8=None, l6_wino=None, tile=None):
     """ylow [N, hl, wl] -> (ydense [N, hl, nx*4*tc], tc): stack_scale's Y
@@ -2338,6 +2360,7 @@ def stack_scale_dense(ylow: torch.Tensor, sp, tc=None, events=None,
                    tile=tile), tc
 
 
+@_spanned("fused_u8")
 def stack_scale_fused_u8(ylow: torch.Tensor, uvp: torch.Tensor, sp,
                          events=None, l6_i8=None, l6_wino=None,
                          tile=None) -> torch.Tensor:
@@ -2356,6 +2379,7 @@ def stack_scale_fused_u8(ylow: torch.Tensor, uvp: torch.Tensor, sp,
                    tile=tile)
 
 
+@_spanned("noise")
 def stack_noise_s2d(y: torch.Tensor, sp, events=None, l6_i8=None,
                     l6_wino=None, tile=None) -> torch.Tensor:
     """y [N, h, w] (h, w even; f32 or bf16, contiguous) -> Y_s2d
@@ -2369,6 +2393,7 @@ def stack_noise_s2d(y: torch.Tensor, sp, events=None, l6_i8=None,
     return _launch(y, sp, "noise", events, form=form, tile=tile)
 
 
+@_spanned("noise")
 def stack_noise(y: torch.Tensor, sp, events=None, l6_i8=None, l6_wino=None,
                 tile=None) -> torch.Tensor:
     """y [N, h, w] (any h, w) -> the denoised plane [N, h, w]: the kernel

@@ -66,6 +66,7 @@ from waifu2x_torch.ops.stack import (
 )
 from waifu2x_torch.parallel.mesh import local_devices
 from waifu2x_torch.parallel.tiles import plan_tiles, tiled_convert
+from waifu2x_torch.utils import trace
 from waifu2x_torch.utils.logging import get_logger
 
 log = get_logger("pipeline")
@@ -202,7 +203,9 @@ class FastStack:
                 f"the conv-stack kernel supports only the flagship 7-layer "
                 f"architecture (widths 1/32/32/64/64/128/128/1, 3x3); got "
                 f"{[l.cout for l in spec.layers]} — use the non-kernel path")
-        return cls(prep_params(params, dtype, resolve_device(device)), dtype)
+        with trace.span("w2x.setup.prep", dtype=dtype):
+            return cls(prep_params(params, dtype, resolve_device(device)),
+                       dtype)
 
     def scale(self, ylow: torch.Tensor) -> torch.Tensor:
         """Low-res luma [N, hl, wl] -> converted Y in s2d layout
@@ -261,8 +264,9 @@ def _uv_phases_cmajor(yuv: torch.Tensor) -> torch.Tensor:
     package pads it to its kernel's tile grid; the port's kernel has no
     grid."""
     n, h, w, _ = yuv.shape
-    phases = resize2x_phases(yuv[..., 1:3], CUBIC, h_axis=1)  # [N,h,w,2,4]
-    return phases.reshape(n, h, w, 8)
+    with trace.span("w2x.tail", on=yuv):
+        phases = resize2x_phases(yuv[..., 1:3], CUBIC, h_axis=1)  # [N,h,w,2,4]
+        return phases.reshape(n, h, w, 8)
 
 
 FUSED_TAIL = os.environ.get("W2X_TAIL", "xla")
@@ -297,11 +301,12 @@ def _tail_u8_cmajor(y_s2d: torch.Tensor, yuv: torch.Tensor) -> torch.Tensor:
     [N,h,w,3] -> u8 BGR cmajor [N,h,w,16] (interleave with
     d2s_host_cmajor)."""
     n, h, w, _ = yuv.shape
-    ph = resize2x_phases(yuv[..., 1:3], CUBIC, h_axis=1)     # [n,h,w,2,4]
-    y2 = y_s2d[:, :h, :w, :].to(torch.float32).reshape(n, h, w * 4)
-    u2 = ph[..., 0, :].reshape(n, h, w * 4)
-    v2 = ph[..., 1, :].reshape(n, h, w * 4)
-    return _combine_u8_cmajor(y2, u2, v2, n, h, w)
+    with trace.span("w2x.tail", on=yuv):
+        ph = resize2x_phases(yuv[..., 1:3], CUBIC, h_axis=1)  # [n,h,w,2,4]
+        y2 = y_s2d[:, :h, :w, :].to(torch.float32).reshape(n, h, w * 4)
+        u2 = ph[..., 0, :].reshape(n, h, w * 4)
+        v2 = ph[..., 1, :].reshape(n, h, w * 4)
+        return _combine_u8_cmajor(y2, u2, v2, n, h, w)
 
 
 def _tail_u8_cmajor_dense(ydense: torch.Tensor, yuv: torch.Tensor,
@@ -372,15 +377,18 @@ def scale2x_batch_u8_fused(yuv: torch.Tensor, fast: FastStack,
     one-sided receptive radius is 4 low-res rows, true edges keep
     replicate semantics)."""
     n, h, w, _ = yuv.shape
-    band_rows = _band_rows(band_rows, n, w)
-    if h <= band_rows:
-        return _fused_step(yuv, fast, y=y)
-    outs = []
-    for s, size, lo, nrows in _bands(h, band_rows):
-        out = _fused_step(yuv[:, s:s + size], fast,
-                          y=None if y is None else y[:, s:s + size])
-        outs.append(out[:, lo:lo + nrows])
-    return torch.cat(outs, dim=1)
+    with trace.span("w2x.scale_step", on=yuv, n=n, size=(h, w),
+                    out_px=4 * n * h * w):
+        band_rows = _band_rows(band_rows, n, w)
+        if h <= band_rows:
+            return _fused_step(yuv, fast, y=y)
+        outs = []
+        for s, size, lo, nrows in _bands(h, band_rows):
+            with trace.span("w2x.band", on=yuv, rows=size, kept=nrows):
+                out = _fused_step(yuv[:, s:s + size], fast,
+                                  y=None if y is None else y[:, s:s + size])
+                outs.append(out[:, lo:lo + nrows])
+        return torch.cat(outs, dim=1)
 
 
 def scale2x_batch_fast(yuv: torch.Tensor, fast: FastStack,
@@ -420,15 +428,20 @@ def noise_y_batch_fast(y_in: torch.Tensor, fast: FastStack,
     def cast(y):
         return y if out_dtype is None else y.to(out_dtype)
 
-    band_rows = _noise_band_rows(band_rows, n, w)
-    if h <= band_rows:
-        return cast(fast.noise(y_in))
-    if h % 2:
-        y_in = torch.cat([y_in, y_in[:, -1:]], dim=1)
-    parts = [cast(fast.noise(y_in[:, s:s + size])[:, lo:lo + nrows])
-             for s, size, lo, nrows in _bands(y_in.shape[1], band_rows,
-                                              _NOISE_HALO, 2)]
-    return torch.cat(parts, dim=1)[:, :h]
+    with trace.span("w2x.noise_step", on=y_in, n=n, size=(h, w),
+                    out_px=n * h * w):
+        band_rows = _noise_band_rows(band_rows, n, w)
+        if h <= band_rows:
+            return cast(fast.noise(y_in))
+        if h % 2:
+            y_in = torch.cat([y_in, y_in[:, -1:]], dim=1)
+        parts = []
+        for s, size, lo, nrows in _bands(y_in.shape[1], band_rows,
+                                         _NOISE_HALO, 2):
+            with trace.span("w2x.band", on=y_in, rows=size, kept=nrows):
+                parts.append(
+                    cast(fast.noise(y_in[:, s:s + size])[:, lo:lo + nrows]))
+        return torch.cat(parts, dim=1)[:, :h]
 
 
 def noise_batch_fast(yuv: torch.Tensor, fast: FastStack,
@@ -447,13 +460,14 @@ def _tail_u8_cmajor_noise(ys: torch.Tensor, yuv: torch.Tensor) -> torch.Tensor:
     input planes."""
     n, h, w, _ = yuv.shape
     hl, wl = h // 2, w // 2
-    y2 = ys.to(torch.float32).reshape(n, hl, wl * 4)
-    uv = yuv[..., 1:3]
-    ph = torch.stack([uv[:, a::2, b::2, :] for a in (0, 1) for b in (0, 1)],
-                     dim=3)                                  # [n,hl,wl,4,2]
-    u2 = ph[..., 0].reshape(n, hl, wl * 4)
-    v2 = ph[..., 1].reshape(n, hl, wl * 4)
-    return _combine_u8_cmajor(y2, u2, v2, n, hl, wl)
+    with trace.span("w2x.tail", on=yuv):
+        y2 = ys.to(torch.float32).reshape(n, hl, wl * 4)
+        uv = yuv[..., 1:3]
+        ph = torch.stack([uv[:, a::2, b::2, :] for a in (0, 1)
+                          for b in (0, 1)], dim=3)           # [n,hl,wl,4,2]
+        u2 = ph[..., 0].reshape(n, hl, wl * 4)
+        v2 = ph[..., 1].reshape(n, hl, wl * 4)
+        return _combine_u8_cmajor(y2, u2, v2, n, hl, wl)
 
 
 def noise_batch_u8_fused(yuv: torch.Tensor, fast: FastStack,
@@ -467,15 +481,18 @@ def noise_batch_u8_fused(yuv: torch.Tensor, fast: FastStack,
     if h % 2 or w % 2:
         raise ValueError(f"noise_batch_u8_fused needs even dims, got "
                          f"{h}x{w} (use noise_batch_fast)")
-    band_rows = _noise_band_rows(band_rows, n, w)
-    if h <= band_rows:
-        return _tail_u8_cmajor_noise(fast.noise_s2d(yuv[..., 0]), yuv)
-    parts = []
-    for s, size, lo, nrows in _bands(h, band_rows, _NOISE_HALO, 2):
-        band = yuv[:, s:s + size]
-        u8 = _tail_u8_cmajor_noise(fast.noise_s2d(band[..., 0]), band)
-        parts.append(u8[:, lo // 2:(lo + nrows) // 2])
-    return torch.cat(parts, dim=1)
+    with trace.span("w2x.noise_step", on=yuv, n=n, size=(h, w),
+                    out_px=n * h * w):
+        band_rows = _noise_band_rows(band_rows, n, w)
+        if h <= band_rows:
+            return _tail_u8_cmajor_noise(fast.noise_s2d(yuv[..., 0]), yuv)
+        parts = []
+        for s, size, lo, nrows in _bands(h, band_rows, _NOISE_HALO, 2):
+            with trace.span("w2x.band", on=yuv, rows=size, kept=nrows):
+                band = yuv[:, s:s + size]
+                u8 = _tail_u8_cmajor_noise(fast.noise_s2d(band[..., 0]), band)
+                parts.append(u8[:, lo // 2:(lo + nrows) // 2])
+        return torch.cat(parts, dim=1)
 
 
 def _build_fast(params, scale_input: bool, cfg: Config, device: torch.device,

@@ -61,6 +61,7 @@ from waifu2x_torch.pipeline import (
 )
 from waifu2x_torch.parallel import mesh as w2x_mesh
 from waifu2x_torch.train.checkpoint import load_frame_cursor, save_frame_cursor
+from waifu2x_torch.utils import trace
 from waifu2x_torch.utils.logging import get_logger
 
 log = get_logger("stream")
@@ -217,7 +218,14 @@ class StreamConverter:
         last) -> (wait, n valid frames, the pinned input, the crop of a
         mesh's output or None). Nothing waits here: wait() waits for the u8
         result's copy into pinned host memory (the CUDA event after it; on a
-        mesh, mesh.HostCopy's events) and returns it as numpy."""
+        mesh, mesh.HostCopy's events) and returns it as numpy. A
+        "w2x.stream.dispatch" span holds it: frames valid and padded, bytes
+        copied to the device and back, pinned buffers allocated."""
+        with trace.span("w2x.stream.dispatch", on=self.device,
+                        frames=len(frames), padded=nbatch) as span:
+            return self._enqueue(frames, nbatch, span)
+
+    def _enqueue(self, frames, nbatch: int, span):
         n = len(frames)
         on_card = self.device.type == "cuda"
         host_in = torch.empty((nbatch, *frames[0].shape), dtype=torch.uint8,
@@ -231,11 +239,16 @@ class StreamConverter:
             pipe = self._mesh_pipe
             h, w = host_in.shape[1], host_in.shape[2]
             out = pipe._chain_u8(pipe._to_yuv(pipe.shard(host_in)), (h, w))
+            copy = w2x_mesh.HostCopy(out)
+            bufs = list(copy.bufs.values())
+            span.set(h2d_bytes=host_in.numel(),
+                     d2h_bytes=sum(b.numel() for b in bufs),
+                     pinned=sum(b.is_pinned() for b in [host_in, *bufs]))
             s = 1 if self.mode == "noise" else 2
-            return (w2x_mesh.HostCopy(out).wait, n, host_in,
-                    (s * h, s * w))
+            return copy.wait, n, host_in, (s * h, s * w)
         if not on_card:
             out = self._step(_to_yuv_batch(host_in))
+            span.set(h2d_bytes=0, d2h_bytes=0, pinned=0)
             return out.numpy, n, host_in, None
         with torch.cuda.device(self.device):
             out = self._step(_to_yuv_batch(
@@ -245,6 +258,8 @@ class StreamConverter:
             host_out.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
+        span.set(h2d_bytes=host_in.numel(), d2h_bytes=host_out.numel(),
+                 pinned=2)
 
         def wait() -> np.ndarray:
             done.synchronize()
@@ -267,7 +282,10 @@ class StreamConverter:
 
         def retire(entry):
             wait, n_valid, _, crop_hw, seqs = entry
-            host = self._interleave(wait())
+            with trace.span("w2x.stream.wait"):
+                out = wait()
+            with trace.span("w2x.stream.interleave"):
+                host = self._interleave(out)
             if crop_hw is not None:   # mesh-padded dims back to the frame's
                 host = host[:, :crop_hw[0], :crop_hw[1]]
             for k, seq in enumerate(seqs[:n_valid]):

@@ -1,5 +1,5 @@
-"""Quality + throughput metrics (the observability the reference lacks:
-the C++ tool only printed progress lines)."""
+"""Quality metrics (the observability the reference lacks: the C++ tool
+only printed progress lines); spans are utils/trace.py's."""
 
 from __future__ import annotations
 
@@ -23,18 +23,3 @@ def megapixels(shape) -> float:
     h, w = shape[:2]
     return h * w / 1e6
 
-
-class Throughput:
-    """Simple MP/s aggregator for pipeline stages."""
-
-    def __init__(self):
-        self.pixels = 0
-        self.seconds = 0.0
-
-    def add(self, n_pixels: int, seconds: float) -> None:
-        self.pixels += n_pixels
-        self.seconds += seconds
-
-    @property
-    def mp_per_s(self) -> float:
-        return self.pixels / self.seconds / 1e6 if self.seconds else 0.0
