@@ -331,7 +331,15 @@ Phases (any failure raises and exits non-zero):
      scale512 layer 5 with and without them and tile_absmax alone in
      turns; the B4 stack in turns against the tile_absmax route
      (L5_MAXIMA False), both and the int8 step bit-equal; a (2, 1, 1)
-     mesh under l6_i8 byte-equal to one position, a maxima launch each.
+     mesh under l6_i8 byte-equal to one position, a maxima launch each;
+ 33. layers 2-6 on csrc/mma.cu's persistent kernel (phase33 below: layers
+     2-5 with their weights resident, layer 6 split in two output halves)
+     bit for bit against the tile kernel (persistent=False) at the
+     benchmark cells' layer shapes (scale512, the chain's 2160 x 3840
+     scale step, the sweep's 1440p and 4K bands) and four ragged shapes,
+     each launch's route read in MID_LAUNCHES; each layer timed in turns
+     against the tile kernel at scale512 and the chain's shapes; the
+     plans' bytes staged from L2 a tile; one stack call's routes.
 Phase 15 also runs the ns1080 chain with its f32 noise stack under the
 Winograd switch (the f32 stack on l6_wino_tf32, the bf16 one on
 l6_wino_mma) and gates the scale512 int8 step and stream at 50 dB.
@@ -1419,7 +1427,10 @@ def phase20(dev: torch.device) -> list:
                                                                pp=True)
         torch.cuda.synchronize()
         if mid_delta(before) != {"mma": 1, "ffma": 0, "chain": 0,
-                                 "mma_zs": 0, "mma_pp": 1, "mma_tf32": 0}:
+                                 "mma_zs": 0, "mma_pp": 1, "mma_tf32": 0,
+                                 "mma_resident": int(k < 6),
+                                 "mma_split": int(k == 6),
+                                 "mma_tile": 0}:
             raise AssertionError(f"pp layer {k}: launches {mid_delta(before)}")
         if not torch.equal(one.view(torch.int16), two.view(torch.int16)):
             diff = (one.float() - two.float()).abs()
@@ -1613,7 +1624,9 @@ def phase20(dev: torch.device) -> list:
     torch.cuda.synchronize()
     if (stack.LAUNCHES != 7 or stack.KERNEL_LAUNCHES["scale"] != 7
             or stack.MID_LAUNCHES != {"mma": 5, "ffma": 0, "chain": 0,
-                                      "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}
+                                      "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
+                                      "mma_resident": 4, "mma_split": 1,
+                                      "mma_tile": 0}
             or stack.L6_LAUNCHES["last_zs"] or stack.KERNEL_LAUNCHES["probe"]):
         raise AssertionError(f"stack_scale after phase 20: {stack.LAUNCHES}, "
                              f"{stack.MID_LAUNCHES}, {stack.L6_LAUNCHES}")
@@ -3308,9 +3321,11 @@ def mesh_launches() -> dict:
 def expect_mesh(what: str, launches: dict, f32: int, bf16: int) -> None:
     """`f32` and `bf16` stack calls, each on the hand kernels alone: one
     layer 1 (csrc/l1.cu), five layers 2-6 on the tensor cores (3xTF32 for
-    f32) and one folded layer 7; no FFMA layer, cell or per-pixel layer 7
-    and no other layer-6 form."""
+    f32; bf16 on the persistent kernel's routes, four resident and one
+    split) and one folded layer 7; no FFMA layer, cell or per-pixel layer
+    7 and no other layer-6 form."""
     want = {"l1": f32 + bf16, "mma": 5 * bf16, "mma_tf32": 5 * f32,
+            "mma_resident": 4 * bf16, "mma_split": bf16,
             "l7_fold": bf16, "l7_fold_f32": f32}
     rest = {k: v for k, v in launches.items() if k not in want and v}
     if {k: launches[k] for k in want} != want or rest:
@@ -4371,6 +4386,136 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
     return rows
 
 
+def mma_route_shapes(stack) -> list:
+    """(label, layer k, input shape) of layers 2-6 as the benchmark's cells
+    run them: scale512 (16 x 512^2 low-res), the chain's scale step (4 x
+    1080 x 1920), the sweep's bands at 1440p and 4K (2 frames a band, band
+    rows as pipeline._bands cuts them), and the CPU tests' ragged shapes;
+    (3, 18, 18) and (1, 5, 300) give an odd tile count, and fewer tiles
+    than the card holds blocks."""
+    from waifu2x_torch import pipeline as pipeline_mod
+    shapes = []
+    for label, n, hl, wl in (("scale512", 16, 512, 512),
+                             ("chain 2160x3840", 4, 1080, 1920),
+                             ("sweep 1440p band", 2, 1440, 2560),
+                             ("sweep 4K band", 2, 2160, 3840)):
+        rows = pipeline_mod._band_rows(pipeline_mod.BAND_ROWS, n, wl)
+        if hl > rows:
+            hl = next(pipeline_mod._bands(hl, rows))[1]
+        for k in range(2, 7):
+            side = (2 * hl + 16 - 2 * k, 2 * wl + 16 - 2 * k)
+            shapes.append((f"{label} ({n} x {hl} x {wl} low-res)", k,
+                           (n, *side, stack.WIDTHS[k - 1][0])))
+    for shape in ((1, 27, 38), (1, 5, 300), (1, 19, 35), (3, 18, 18)):
+        for k in range(2, 7):
+            shapes.append(("ragged", k, (*shape, stack.WIDTHS[k - 1][0])))
+    return shapes
+
+
+def phase33(dev: torch.device, smi: str) -> list:
+    """33. Layers 2-6 on the persistent kernel (csrc/mma.cu:
+    conv3x3_bias_leaky_mma: layers 2-5 with their weights resident, layer 6
+    with its outputs split in two halves, a block keeping one half's
+    weights resident) against the tile kernel (persistent=False, the first
+    design and the timing yardstick),
+    bit for bit, at every shape of mma_route_shapes, each launch's route
+    checked in MID_LAUNCHES; the plans' bytes staged from L2 a tile; each
+    layer timed in turns against the tile kernel at scale512 and the
+    chain's 2160x3840 shapes; the routes one stack call takes. Returns the
+    timing rows."""
+    from waifu2x_torch.models.weights import load_model_json
+    from waifu2x_torch.ops import stack
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    sp = stack.prep_params(load_model_json(root / "models"
+                                           / "scale2.0x_demo.json"),
+                           torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    for k in range(2, 7):
+        ci, co = stack.WIDTHS[k - 1]
+        new, old = stack.mma_plan(ci, co), stack.mma_plan(ci, co,
+                                                          persistent=False)
+        log(f"phase 33 layer {k} ({ci} -> {co}): persistent route "
+            f"{new.route}, {new.groups} consumer group(s), {new.stages} slots, "
+            f"{new.smem_bytes} B shared, {new.resident_bytes} B of weights "
+            f"resident; staged from L2 a tile {new.l2_tile_bytes} B against "
+            f"the tile kernel's {old.l2_tile_bytes} B")
+
+    def both(x, k):
+        before = dict(stack.MID_LAUNCHES)
+        new = stack.mma_layer(x, sp, k)
+        old = stack.mma_layer(x, sp, k, persistent=False)
+        torch.cuda.synchronize()
+        delta = {r: stack.MID_LAUNCHES[r] - before[r]
+                 for r in stack.MID_LAUNCHES}
+        route = "mma_split" if k == 6 else "mma_resident"
+        want = {r: 0 for r in delta}
+        want.update({"mma": 2, route: 1, "mma_tile": 1})
+        if delta != want:
+            raise AssertionError(f"layer {k}: launches {delta}, want {want}")
+        return new, old
+
+    checks = 0
+    for label, k, shape in mma_route_shapes(stack):
+        x = (torch.rand(shape, device=dev, generator=gen,
+                        dtype=torch.bfloat16) - 0.25)
+        new, old = both(x, k)
+        if not same_bits(new, old):
+            diff = (new.float() - old.float()).abs()
+            raise AssertionError(
+                f"layer {k} {label} {shape}: {int((diff > 0).sum())} of "
+                f"{diff.numel()} outputs differ, max {diff.max().item()}")
+        checks += 1
+        del x, new, old
+        torch.cuda.empty_cache()
+    log(f"phase 33 persistent == tile kernel bit for bit: {checks} layer "
+        f"calls (5 layers x {checks // 5} shapes)")
+
+    rows = []
+    for label, n, hl, wl in (("scale512", 16, 512, 512),
+                             ("chain 2160x3840", 4, 1080, 1920)):
+        ms = {True: [], False: []}
+        for k in range(2, 7):
+            ci, co = stack.WIDTHS[k - 1]
+            x = torch.rand((n, 2 * hl + 16 - 2 * k, 2 * wl + 16 - 2 * k, ci),
+                           device=dev, generator=gen, dtype=torch.bfloat16)
+            got = {True: [], False: []}
+            for persistent in (False, True, True, False):
+                got[persistent].append(timed_ms(
+                    lambda: stack.mma_layer(x, sp, k,
+                                            persistent=persistent), 5))
+            for p in (True, False):
+                ms[p].append(sum(got[p]) / 2)
+            log(f"phase 33 {label} layer {k} ({ci} -> {co}) {tuple(x.shape)} "
+                f"on {smi}: persistent {got[True][0]:.4f} / "
+                f"{got[True][1]:.4f} ms, tile kernel {got[False][0]:.4f} / "
+                f"{got[False][1]:.4f} ms (in turns)")
+            del x
+            torch.cuda.empty_cache()
+        rows.append({"shape": label, "n": n, "hl": hl, "wl": wl,
+                     "persistent_ms": ms[True], "tile_ms": ms[False],
+                     "persistent_sum_ms": sum(ms[True]),
+                     "tile_sum_ms": sum(ms[False])})
+        log(f"phase 33 {label} layers 2-6: persistent "
+            f"{sum(ms[True]):.3f} ms, tile kernel {sum(ms[False]):.3f} ms")
+
+    ylow = torch.rand((16, 512, 512), device=dev, generator=gen,
+                      dtype=torch.bfloat16)
+    stack.reset_launches()
+    stack.stack_scale(ylow, sp)
+    torch.cuda.synchronize()
+    routes = {r: stack.MID_LAUNCHES[r] for r in ("mma", *stack.MID_ROUTES)}
+    if (stack.LAUNCHES != 7 or routes != {
+            "mma": 5, "mma_resident": 4, "mma_split": 1, "mma_tile": 0}):
+        raise AssertionError(f"stack_scale: {stack.LAUNCHES} launches, "
+                             f"routes {routes}")
+    log(f"phase 33 one scale512 stack call: {stack.LAUNCHES} launches, "
+        f"layers 2-6 by route {routes}; {time.perf_counter() - t0:.1f} s")
+    stack.reset_launches()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4489,7 +4634,9 @@ def main() -> int:
     expect_l1(stack, "phase 4 main path", 1)
     if (launches != 7 or out.shape != (16, 1024, 1024, 3)
             or mid_launches != {"mma": 5, "ffma": 0, "chain": 0,
-                                "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}):
+                                "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
+                                "mma_resident": 4, "mma_split": 1,
+                                "mma_tile": 0}):
         raise AssertionError(f"main path: {launches} launches, "
                              f"{mid_launches}, {out.shape}")
     hold_seen(seen, stack, f32_twin, max_err)
@@ -4659,7 +4806,9 @@ def main() -> int:
         # stack's there too in bf16, as 3xTF32 (csrc/mma_tf32.cu) in f32
         f32_noise = dt == torch.float32
         want = {k: 0 for k in stack.MID_LAUNCHES}
-        want.update(mma=5 if f32_noise else 10, mma_tf32=5 * f32_noise)
+        want.update(mma=5 if f32_noise else 10, mma_tf32=5 * f32_noise,
+                    mma_resident=4 if f32_noise else 8,
+                    mma_split=1 if f32_noise else 2)
         if stack.MID_LAUNCHES != want:
             raise AssertionError(f"ns1080 chain {dt}: layers 2-6 launches "
                                  f"{stack.MID_LAUNCHES}, want {want}")
@@ -4803,7 +4952,9 @@ def main() -> int:
         expect_counts(label, counts, nd, 4, **{kind: 28})
         expect_l7(stack, label, fold=4)
         if stack.MID_LAUNCHES != {"mma": 20, "ffma": 0, "chain": 0,
-                                  "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}:
+                                  "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
+                                  "mma_resident": 16, "mma_split": 4,
+                                  "mma_tile": 0}:
             raise AssertionError(f"{label}: layers 2-6 launches "
                                  f"{stack.MID_LAUNCHES}")
         for k in range(0, 64, 16):   # the batch step on the same batch
@@ -5396,7 +5547,10 @@ def main() -> int:
         got = stack.mma_layer(x, sp, k)
         torch.cuda.synchronize()
         if (stack.MID_LAUNCHES != {"mma": 1, "ffma": 0, "chain": 0,
-                                   "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}
+                                   "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
+                                   "mma_resident": int(k < 6),
+                                   "mma_split": int(k == 6),
+                                   "mma_tile": 0}
                 or stack.LAUNCHES or any(stack.KERNEL_LAUNCHES.values())):
             raise AssertionError(f"mma_layer alone: launches "
                                  f"{stack.MID_LAUNCHES}, {stack.LAUNCHES}")
@@ -5437,7 +5591,9 @@ def main() -> int:
         stack.reset_launches()
         mid_y[name] = stack.stack_scale(ylow16, sp16)
         want = {"mma": 5 * flag, "ffma": 5 * (not flag), "chain": 0,
-                "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0}
+                "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
+                "mma_resident": 4 * flag, "mma_split": int(flag),
+                "mma_tile": 0}
         if stack.MID_LAUNCHES != want or stack.LAUNCHES != 7:
             raise AssertionError(f"MID_MMA={flag}: launches "
                                  f"{stack.MID_LAUNCHES} of {stack.LAUNCHES}")
@@ -5713,6 +5869,8 @@ def main() -> int:
     kernels19 += phase32(dev, smi, (sp32, sp16), ylow16, i8_step,
                          {"gather": gather_launches,
                           "l5max": i8_l5max_launches})
+    torch.cuda.empty_cache()
+    mma_turns = phase33(dev, smi)
     torch.cuda.empty_cache()
     log(f"{time.perf_counter() - t_start:.1f} s so far")
     cli_launches = phase28(dev, smi)
@@ -6233,6 +6391,8 @@ def main() -> int:
             b[2] for b in mid_bound if b[3] == "bytes") else "bytes"),
         "library_ms": mid_library_ms,
         "psnr_db": mid_main_db["mma"],
+        "routes": "persistent: layers 2-5 resident, layer 6 split",
+        "tile_kernel_turns": mma_turns,
     }, {
         "name": "mma_chain, the inner loop's probe (tools/mma_probe.py)",
         "route": "cuda",

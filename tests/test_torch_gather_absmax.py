@@ -524,10 +524,12 @@ def test_layer5_maxima_alone_dispatch(sps, fake_card, dtype):
     assert fn == "w2x_mma_layer_max" if bf16 else "w2x_tf32_layer_max"
     assert args[-6] == m.data_ptr() and args[-5:-1] == (4, 8, 2, 3)
     assert args[-9:-7] == (22, 54)
-    assert args[-7] == (stack.mma_plan if bf16 else stack.tf32_plan)(
-        64, 128).smem_bytes
+    # the tile kernel's instance (the persistent kernel has no maxima)
+    assert args[-7] == (stack.mma_plan(64, 128, persistent=False) if bf16
+                        else stack.tf32_plan(64, 128)).smem_bytes
     assert stack.LAUNCHES == 0 and stack.I8_LAUNCHES["l5max"] == 1
     assert stack.MID_LAUNCHES["mma" if bf16 else "mma_tf32"] == 1
+    assert stack.MID_LAUNCHES["mma_tile"] == int(bf16)
     got = stack._Launcher(None, x5, None).tile_absmax(x5, 1, tiling)
     assert fake_card[-1][0] == "w2x_tile_absmax"
     assert fake_card[-1][1][2] == got.data_ptr()

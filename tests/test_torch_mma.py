@@ -1,7 +1,10 @@
 """Layers 2-6 on the tensor cores (waifu2x_torch/csrc/mma.cu) as far as the
 CPU reaches them: the weight packer, the plain version from the packed
-weights, the shared-memory plan the C entry is launched with, the dispatch
-by dtype and its launch counts, and the mma_chain probe's plain version.
+weights, the shared-memory plans the C entries are launched with (the
+persistent kernel's and the tile kernel's), the persistent kernel's walk
+over the tiles and an emulation of its staging, products and stores, the
+dispatch by dtype and route and its launch counts, and the mma_chain
+probe's plain version.
 
 Tolerances: in f32 the plain version from the packed weights is held to
 1e-5 against F.conv2d (a wrong tap or channel order is off by the size of
@@ -14,6 +17,7 @@ the JAX package at the bars of tests/test_torch_stack.py: f32 3e-5, bf16
 storage >= 50 dB (peak 1) against f32. The CUDA kernel itself is held
 against the plain version on the card by chip_smoke.py."""
 
+import re
 from pathlib import Path
 
 import jax
@@ -189,8 +193,63 @@ def test_bf16_stack_from_packed_weights_fidelity(rng, model, scale):
 
 @pytest.mark.parametrize("k", MID)
 def test_mma_plan_fits_shared_memory(k):
+    """The persistent kernel's plan: the resident weights, the ring of
+    window slots with their two mbarriers each, the weights' mbarrier and
+    128 bytes of alignment fit in the 232,448 bytes of one block an SM;
+    the epilogue stores from the registers and takes no shared memory; two
+    consumer groups where a warpgroup's two m64 accumulators (2 x n / 2
+    registers a thread) fit, that is at most 64 outputs a block."""
     ci, co = stack.WIDTHS[k - 1]
     plan = stack.mma_plan(ci, co)
+    kc, slots = plan.kc, plan.stages
+    assert plan.tile == (16, 16) and plan.threads == 544   # + producer warp
+    assert (kc, plan.zs, plan.pp) == (stack._MMA_CHUNK[(ci, co)][0], 0, False)
+    assert kc % 16 == 0 and ci % kc == 0
+    # each k8 slab of a window (18 x 18 pixels of 16 bytes, as one TMA box
+    # lands) starts 128-byte aligned
+    assert plan.win_stride >= 18 * 18 and plan.win_stride * 16 % 128 == 0
+    slot = kc // 8 * plan.win_stride * 16
+    halves = 2 if plan.route == "split" else 1
+    assert plan.resident_bytes == 9 * ci * co * 2 // halves
+    assert 3 <= slots <= 8
+    assert plan.smem_bytes == (128 + plan.resident_bytes + 8
+                               + slots * (slot + 16))
+    assert plan.smem_bytes <= stack.SMEM_MAX == 232448
+    assert plan.groups == (2 if co // halves <= 64 else 1)
+    # as many slots as fit, up to 8; a group's whole tile at least
+    assert slots == 8 or plan.smem_bytes + slot + 16 > stack.SMEM_MAX
+    assert slots >= ci // kc
+    # only the windows stream: each chunk's once a tile (a half's once)
+    assert plan.l2_tile_bytes == halves * ci // 8 * 18 * 18 * 16
+
+
+@pytest.mark.parametrize("k", MID)
+def test_mma_plan_route_follows_the_widths(k):
+    """Layers 2-5 keep all their weights (18 / 37 / 74 / 147 KB) beside a
+    ring of 3 slots; layer 6's 295 KB do not fit, so its outputs are split
+    in two halves of 147 KB each, which do; the tile kernel stages 39-378
+    KB a tile from L2 where the persistent kernel stages 21-166 KB."""
+    ci, co = stack.WIDTHS[k - 1]
+    plan = stack.mma_plan(ci, co)
+    slot = plan.kc // 8 * plan.win_stride * 16
+    whole = 128 + 9 * ci * co * 2 + 3 * (slot + 16) + 8
+    assert plan.route == ("resident" if whole <= stack.SMEM_MAX else "split")
+    assert plan.route == ("split" if k == 6 else "resident")
+    if plan.route == "split":
+        assert 128 + 9 * ci * co + 3 * (slot + 16) + 8 <= stack.SMEM_MAX
+    tile = stack.mma_plan(ci, co, persistent=False)
+    assert tile.route == "tile"
+    assert (tile.l2_tile_bytes, plan.l2_tile_bytes) == {
+        2: (39168, 20736), 3: (57600, 20736), 4: (115200, 41472),
+        5: (188928, 41472), 6: (377856, 165888)}[k]
+
+
+@pytest.mark.parametrize("k", MID)
+def test_mma_tile_plan_fits_shared_memory(k):
+    """The tile kernel's plan (persistent=False: the yardstick and every
+    probe variant's base)."""
+    ci, co = stack.WIDTHS[k - 1]
+    plan = stack.mma_plan(ci, co, persistent=False)
     kc, stages = plan.kc, plan.stages
     assert plan.tile == (16, 16) and plan.threads == 512
     # whole k16 steps, whole chunks, at most 8 channel groups a chunk, and
@@ -210,6 +269,26 @@ def test_mma_plan_fits_shared_memory(k):
     # two blocks of a CO <= 64 layer fit one SM (228 KB, 1 KB a block kept)
     if co <= 64:
         assert 2 * (plan.smem_bytes + 1024) <= 233472
+    # the window and all 9 taps' weights, once a chunk
+    assert plan.l2_tile_bytes == ci // kc * k8c * (18 * 18 + 9 * co) * 16
+
+
+def test_persistent_plan_matches_mma_cu():
+    """The constants and the chunk table that mma_plan shares with
+    csrc/mma.cu, read from the source."""
+    src = (Path(__file__).resolve().parents[1] / "waifu2x_torch" / "csrc"
+           / "mma.cu").read_text()
+    def const(name):
+        return int(re.search(rf"constexpr \w+ {name} = (\d+)", src).group(1))
+    assert const("RS") == stack._RES_STRIDE
+    assert const("RES_CONSUMERS") + 32 == stack._RES_THREADS
+    assert "RES_THREADS = RES_CONSUMERS + 32" in src
+    assert const("SMEM_MAX") == stack.SMEM_MAX
+    assert "SLOTS = FIT < 8 ? FIT : 8" in src and stack._RES_SLOTS == 8
+    table = re.findall(r"W2X_MMA_CASE\((\d), (\d+), (\d+), (\d+), (\d)\)",
+                       src)
+    assert {(int(ci), int(co)): (int(kc), int(st))
+            for _, ci, co, kc, st in table} == stack._MMA_CHUNK
 
 
 @pytest.mark.parametrize("ci,co", [(32, 48), (1, 32), (128, 1), (64, 32),
@@ -220,14 +299,169 @@ def test_mma_plan_rejects(ci, co):
         stack.mma_plan(ci, co)
 
 
-@pytest.mark.parametrize("n,hin,win", [(1, 27, 38), (2, 37, 53), (1, 5, 300),
-                                       (16, 1036, 1036), (256, 268, 268),
-                                       (3, 18, 18), (1, 19, 35)])
+GRID_SHAPES = [(1, 27, 38), (2, 37, 53), (1, 5, 300), (16, 1036, 1036),
+               (256, 268, 268), (3, 18, 18), (1, 19, 35)]
+
+
+@pytest.mark.parametrize("n,hin,win", GRID_SHAPES)
 def test_mma_grid_covers_ragged_shapes(n, hin, win):
     nty, ntx, blocks = stack.mma_grid(n, hin, win)
     assert blocks == n * nty * ntx
     for tiles, out in ((nty, hin - 2), (ntx, win - 2)):
         assert 16 * tiles >= out > 16 * (tiles - 1)
+
+
+@pytest.mark.parametrize("k", MID)
+@pytest.mark.parametrize("n,hin,win", GRID_SHAPES)
+def test_mma_walk_visits_every_tile_once(n, hin, win, k):
+    """The persistent kernel's walk (a mirror of launch_mma and the
+    kernel's loop) on a 132-SM card: every tile of the shape, each half of
+    it under the split, is computed by exactly one block; no block is
+    idle, none more than the card holds at once; blocks share the work to
+    one unit; under the split each block keeps one half (its resident
+    weights), and blocks 2p and 2p + 1 take the two halves of the same
+    tiles in the same order, so the second read of a window is an L2 hit."""
+    plan = stack.mma_plan(*stack.WIDTHS[k - 1])
+    tiles = stack.mma_grid(n, hin, win)[2]
+    walk = stack.mma_walk(tiles, plan, sms=132)
+    halves = 2 if plan.route == "split" else 1
+    assert 0 < len(walk) <= 132
+    assert len(walk) % halves == 0
+    seen = sorted(unit for block in walk for unit in block)
+    assert seen == [(t, h) for t in range(tiles) for h in range(halves)]
+    assert max(map(len, walk)) - min(map(len, walk)) <= 1
+    assert min(map(len, walk)) >= 1
+    for b, block in enumerate(walk):
+        assert {h for _, h in block} == {b % halves}
+        assert [t for t, _ in block] == sorted(t for t, _ in block)
+    if halves == 2:
+        for p in range(0, len(walk), 2):
+            assert [t for t, _ in walk[p]] == [t for t, _ in walk[p + 1]]
+
+
+def test_mma_walk_refuses_the_tile_kernel():
+    with pytest.raises(ValueError):
+        stack.mma_walk(10, stack.mma_plan(32, 32, persistent=False))
+
+
+def _emulate_persistent(x, wp, b, plan):
+    """csrc/mma.cu's persistent kernel, emulated in float64 from its
+    addresses: every window chunk landed as the TMA boxes land it (k8 slabs
+    of [18 rows][18 cols][8], RS apart, zero past the plane), the block's
+    resident weights as the producer's bulk copies lay them ([ci/8][9]
+    [nco][8], this half's rows), the A and B operands read through the
+    descriptors' strides (LBO / SBO) at every (chunk, tap, k16) step, the
+    accumulator fragment of each thread, and the epilogue's quad transpose
+    and 16-byte stores. Returns the f64 output before the rounding and how
+    often each output element was stored."""
+    n, hin, win, ci = x.shape
+    co = b.shape[0]
+    kc, rs = plan.kc, plan.win_stride
+    k8c, nchunk = kc // 8, ci // kc
+    halves = 2 if plan.route == "split" else 1
+    nco = co // halves
+    hout, wout = hin - 2, win - 2
+    nty, ntx, tiles = stack.mma_grid(n, hin, win)
+    xs = x.double().numpy()
+    wsrc = wp.double().numpy().reshape(-1)        # [ci/8][9][co][8] flat
+    y = np.zeros((n, hout, wout, co))
+    stored = np.zeros((n, hout, wout, co), dtype=np.int64)
+    # element offsets (2 bytes) of an operand from its descriptor fields
+    m, kk = np.arange(64)[:, None], np.arange(16)[None, :]
+    a_rel = (m // 8) * 18 * 8 + (m % 8) * 8 + (kk // 8) * rs * 8 + kk % 8
+    nn = np.arange(nco)[:, None]
+    b_rel = (nn // 8) * 64 + (nn % 8) * 8 + (kk // 8) * 9 * nco * 8 + kk % 8
+    for block in stack.mma_walk(tiles, plan):
+        for t, h in block:
+            # the resident weights of half h
+            res = np.concatenate([
+                wsrc[(r * co + h * nco) * 8:(r * co + h * nco + nco) * 8]
+                for r in range(ci // 8 * 9)])
+            img, rem = divmod(t, nty * ntx)
+            oy0, ox0 = 16 * (rem // ntx), 16 * (rem % ntx)
+            acc = np.zeros((4, 64, nco))
+            for c in range(nchunk):
+                slot = np.zeros(k8c * rs * 8)
+                for k8 in range(k8c):
+                    box = np.zeros((18, 18, 8))
+                    src = xs[img, oy0:oy0 + 18, ox0:ox0 + 18,
+                             c * kc + 8 * k8:c * kc + 8 * k8 + 8]
+                    box[:src.shape[0], :src.shape[1]] = src
+                    slot[k8 * rs * 8:k8 * rs * 8 + 18 * 18 * 8] = box.ravel()
+                wc = c * k8c * 9 * nco * 8
+                for wg in range(4):
+                    a_off = ((8 * (wg >> 1)) * 18 + 8 * (wg & 1)) * 8
+                    for tap in range(9):
+                        dy, dx = divmod(tap, 3)
+                        for ks in range(kc // 16):
+                            a = slot[a_off + (2 * ks * rs + dy * 18 + dx) * 8
+                                     + a_rel]
+                            bm = res[wc + (2 * ks * 9 + tap) * nco * 8
+                                     + b_rel]
+                            acc[wg] += a @ bm.T
+            # epilogue: thread (w4, lane) of warpgroup wg holds rows
+            # 16 w4 + lane / 4 (+ 8), columns 8j + 2 quad + {0, 1}
+            for wg in range(4):
+                ty8, tx8 = wg >> 1, wg & 1
+                for w4 in range(4):
+                    for hh in range(2):
+                        oy = oy0 + 8 * ty8 + 2 * w4 + hh
+                        words = {}
+                        for lane in range(32):
+                            q, r = lane & 3, 16 * w4 + (lane >> 2) + 8 * hh
+                            for j in range(nco // 8):
+                                ch = 8 * j + 2 * q
+                                v = acc[wg, r, ch:ch + 2] + b[h * nco + ch:
+                                                             h * nco + ch + 2]
+                                words[lane, j] = np.where(v > 0, v, 0.1 * v)
+                        for g in range(nco // 32):
+                            wd = {(ln, jj): words[ln, 4 * g + jj]
+                                  for ln in range(32) for jj in range(4)}
+                            for mk in (1, 2):
+                                new = dict(wd)
+                                for ln in range(32):
+                                    q = ln & 3
+                                    for jj in range(4):
+                                        if jj & mk:
+                                            continue
+                                        # lane ln sends, its partner gets
+                                        send = wd[ln, jj] if q & mk else \
+                                            wd[ln, jj | mk]
+                                        peer = ln ^ mk
+                                        if peer & 3 & mk:
+                                            new[peer, jj] = send
+                                        else:
+                                            new[peer, jj | mk] = send
+                                wd = new
+                            for lane in range(32):
+                                ox = ox0 + 8 * tx8 + (lane >> 2)
+                                if oy < hout and ox < wout:
+                                    c0 = h * nco + 8 * (4 * g + (lane & 3))
+                                    y[img, oy, ox, c0:c0 + 8] = np.concatenate(
+                                        [wd[lane, jj] for jj in range(4)])
+                                    stored[img, oy, ox, c0:c0 + 8] += 1
+    return y, stored
+
+
+@pytest.mark.parametrize("k", MID)
+def test_persistent_kernel_emulation_gives_the_layer(sp32, rng, k):
+    """The persistent kernel's addresses and data flow, emulated in float64
+    on a ragged shape with more tiles than one: every output stored once,
+    equal to the layer (bias and LeakyReLU of the 3x3 correlation) to
+    float64 rounding."""
+    ci, co = stack.WIDTHS[k - 1]
+    x = torch.from_numpy(rng.standard_normal((1, 19, 35, ci),
+                                             dtype=np.float32))
+    wp, b = sp32.wm[k - 2], sp32[k - 1][1]
+    got, stored = _emulate_persistent(x, wp, b.double().numpy(),
+                                      stack.mma_plan(ci, co))
+    assert (stored == 1).all()
+    w = unpack_mma(wp).double().numpy()               # [9, ci, co]
+    xd = x.double().numpy()
+    ref = sum(xd[:, t // 3:t // 3 + 17, t % 3:t % 3 + 33] @ w[t]
+              for t in range(9)) + b.double().numpy()
+    ref = np.where(ref > 0, ref, 0.1 * ref)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-9)
 
 
 def test_mma_chain_plain_matches_numpy(rng):
@@ -292,7 +526,8 @@ def test_mid_mma_changes_no_cpu_result(sp16, sp32, rng, monkeypatch):
         assert stack.LAUNCHES == 0
         assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
                                       "mma_zs": 0, "mma_pp": 0,
-                                      "mma_tf32": 0}
+                                      "mma_tf32": 0, "mma_resident": 0,
+                                      "mma_split": 0, "mma_tile": 0}
     for a, b in zip(outs[True], outs[False]):
         assert torch.equal(a, b)
 
@@ -318,16 +553,22 @@ def _fake_launcher(calls, bf16: bool):
 
 
 @pytest.mark.parametrize("bf16,mid_mma,want", [
-    (True, True, {"mma": 5, "ffma": 0, "mma_tf32": 0}),
-    (True, False, {"mma": 0, "ffma": 5, "mma_tf32": 0}),
-    (False, True, {"mma": 0, "ffma": 0, "mma_tf32": 5}),
-    (False, False, {"mma": 0, "ffma": 5, "mma_tf32": 0})])
+    (True, True, {"mma": 5, "ffma": 0, "mma_tf32": 0, "mma_resident": 4,
+                  "mma_split": 1}),
+    (True, False, {"mma": 0, "ffma": 5, "mma_tf32": 0, "mma_resident": 0,
+                   "mma_split": 0}),
+    (False, True, {"mma": 0, "ffma": 0, "mma_tf32": 5, "mma_resident": 0,
+                   "mma_split": 0}),
+    (False, False, {"mma": 0, "ffma": 5, "mma_tf32": 0, "mma_resident": 0,
+                    "mma_split": 0})])
 def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
     """Which C entry each of a whole stack's 7 layers goes to, by storage
     dtype and MID_MMA, with the arguments the tensor-core entries get:
     layer 1 on csrc/l1.cu and layer 7 folded on csrc/l7.cu (bf16 on the
     tensor cores, f32 with FFMA) whatever MID_MMA says; layers 2-6 of an
-    f32 stack as 3xTF32 while MID_MMA is on."""
+    f32 stack as 3xTF32 while MID_MMA is on; a bf16 stack's layers 2-5 on
+    the persistent kernel's resident route and layer 6 on its split route,
+    none on the tile kernel."""
     monkeypatch.setattr(stack, "MID_MMA", mid_mma)
     stack.reset_launches()
     sp = sp16 if bf16 else sp32
@@ -340,7 +581,7 @@ def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["scale"] == 7
     assert stack.L6_LAUNCHES["direct"] == 1
     assert stack.MID_LAUNCHES == {**want, "chain": 0, "mma_zs": 0,
-                                  "mma_pp": 0}
+                                  "mma_pp": 0, "mma_tile": 0}
     assert stack.L1_LAUNCHES == {"l1": 1, "ffma": 0}
     assert [fn for fn, _ in calls] == [
         "w2x_l1" if k == 0
@@ -352,8 +593,9 @@ def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
                                  "cell": 0, "pixel": 0}
     stack.reset_launches()
     assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
-                                  "mma_zs": 0, "mma_pp": 0,
-                                      "mma_tf32": 0}
+                                  "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
+                                  "mma_resident": 0, "mma_split": 0,
+                                  "mma_tile": 0}
     if want["mma_tf32"]:
         for k, (_, args) in list(enumerate(calls))[1:6]:
             # (bf16, layer, x, whi, wlo, b, y, n, hin, win, smem, stream)
@@ -397,9 +639,7 @@ def test_failed_launch_counts_nowhere(sp16, sp32, monkeypatch, k):
         with pytest.raises(RuntimeError, match="invalid argument"):
             run.layer(k - 1, False, x, sp, x, 1, 10, 12)
         assert stack.LAUNCHES == 0 and not any(stack.L6_LAUNCHES.values())
-        assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
-                                      "mma_zs": 0, "mma_pp": 0,
-                                      "mma_tf32": 0}
+        assert not any(stack.MID_LAUNCHES.values())
 
 
 def test_mma_layer_alone_counts_as_no_stack_launch(sp16):
@@ -413,10 +653,74 @@ def test_mma_layer_alone_counts_as_no_stack_launch(sp16):
     run.mma_layer(3, x, sp16, x, 1, 20, 24)
     assert [fn for fn, _ in calls] == ["w2x_mma_layer"]
     assert stack.MID_LAUNCHES == {"mma": 1, "ffma": 0, "chain": 0,
-                                  "mma_zs": 0, "mma_pp": 0,
-                                      "mma_tf32": 0}
+                                  "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
+                                  "mma_resident": 1, "mma_split": 0,
+                                  "mma_tile": 0}
     assert stack.LAUNCHES == 0 and not any(stack.KERNEL_LAUNCHES.values())
     assert not any(stack.L6_LAUNCHES.values())
+    stack.reset_launches()
+
+
+@pytest.mark.parametrize("k", MID)
+def test_tile_kernel_dispatch(sp16, k):
+    """persistent=False runs the same layer on the tile kernel: the variant
+    entry at zs = pp = 0 with the tile plan's shared memory, counted under
+    MID_LAUNCHES "mma" and "mma_tile"; the default runs w2x_mma_layer with
+    the persistent plan's, counted under "mma" and its route."""
+    calls = []
+    run = _fake_launcher(calls, True)
+    run.kind = None
+    x = torch.zeros(1, dtype=torch.bfloat16)
+    ci, co = stack.WIDTHS[k - 1]
+    for persistent in (False, True):
+        stack.reset_launches()
+        run.mma_layer(k - 1, x, sp16, x, 2, 20, 24, persistent=persistent)
+        route = stack.mma_plan(ci, co, persistent=persistent).route
+        assert stack.MID_LAUNCHES == {
+            **{key: 0 for key in stack.MID_LAUNCHES}, "mma": 1,
+            f"mma_{route}": 1}
+    (fn0, args0), (fn1, args1) = calls
+    # (bf16, layer, zs, pp, x, wp, b, y, n, hin, win, smem, stream)
+    assert fn0 == "w2x_mma_layer_variant" and args0[:4] == (1, k - 1, 0, 0)
+    assert args0[8:] == (2, 20, 24, stack.mma_plan(
+        ci, co, persistent=False).smem_bytes, 0)
+    # (bf16, layer, x, wp, b, y, n, hin, win, smem, stream)
+    assert fn1 == "w2x_mma_layer" and args1[6:] == (
+        2, 20, 24, stack.mma_plan(ci, co).smem_bytes, 0)
+    assert args0[5] == args1[3] == sp16.wm[k - 2].data_ptr()
+    stack.reset_launches()
+
+
+def test_stack_span_records_the_routes(sp16, monkeypatch):
+    """The w2x.stack span's mid_routes attribute names the routes a call's
+    layers 2-6 took, from the change in MID_LAUNCHES; a call that launched
+    nothing (a CPU tensor: the plain version) sets none."""
+    from waifu2x_torch.utils import trace
+    seen = {}
+
+    class Span:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def set(self, **attrs):
+            seen.update(attrs)
+
+    monkeypatch.setattr(trace, "span", lambda *a, **k: Span())
+
+    def five_layers(x, sp):
+        stack.MID_LAUNCHES["mma_resident"] += 4
+        stack.MID_LAUNCHES["mma_split"] += 1
+        return x
+    stack.reset_launches()
+    y = torch.zeros(1, 4, 4, dtype=torch.bfloat16)
+    stack._spanned("scale")(five_layers)(y, sp16)
+    assert seen == {"launches": 0, "mid_routes": "mma_resident:4 mma_split:1"}
+    seen.clear()
+    stack.stack_scale(y, sp16)
+    assert seen == {"launches": 0}
     stack.reset_launches()
 
 

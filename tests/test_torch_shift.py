@@ -686,7 +686,9 @@ def test_variant_launch_routing(sp16, zs, pp):
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["probe"] == 7
     assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
                                   "mma_zs": 0 if pp else 5,
-                                  "mma_pp": 5 if pp else 0, "mma_tf32": 0}
+                                  "mma_pp": 5 if pp else 0, "mma_tf32": 0,
+                                  "mma_resident": 0, "mma_split": 0,
+                                  "mma_tile": 0}
     assert stack.L6_LAUNCHES["last_zs"] == 0
     assert stack.L6_LAUNCHES["direct"] == 1
     stack.reset_launches()

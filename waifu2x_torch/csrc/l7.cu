@@ -222,18 +222,6 @@ __device__ __forceinline__ void block_rows(int rows, int& u0, int& u1) {
   u1 = u0 + per + (bid < extra ? 1 : 0);
 }
 
-// One box of the tensor map (coordinates innermost first) into shared
-// memory, its bytes counted on the barrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3), "r"(bar) : "memory");
-}
-
 // Y of a plane's output cell from Zt of its cell row (zp) and the next
 // (z), both at its column's cell, then the bias, LeakyReLU and the form, at
 // the image's cell (i, j) of image n. Under the mask ZS a zeroed axis reads
@@ -355,7 +343,7 @@ l7_fold(const __grid_constant__ CUtensorMap xmap, L7Args<__nv_bfloat16> a) {
       mbar_expect(bar, TILE);
       const int row = c.pixel_row(a.hl);
       for (int box = 0; box < BOXES; ++box)
-        tma_load(sbase + st * TILE + box * L7_BOX_BYTES, &xmap,
+        tma_load4(sbase + st * TILE + box * L7_BOX_BYTES, &xmap,
                  64 * (box & 1), (box >> 1) & 1, c.strip * OUT,
                  row + (box >> 2), bar);
     }
@@ -463,7 +451,7 @@ l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
       mbar_expect(bar, TILE);
       const int row = c.pixel_row(a.hl);
       for (int box = 0; box < BOXES; ++box)
-        tma_load(sbase + st * TILE + box * F7_BOX_BYTES, &xmap,
+        tma_load4(sbase + st * TILE + box * F7_BOX_BYTES, &xmap,
                  32 * (box & 3), (box >> 2) & 1, c.strip * OUT,
                  row + (box >> 3), bar);
     }
@@ -564,31 +552,15 @@ l7_fold_f32(const __grid_constant__ CUtensorMap xmap, L7Args<float> a) {
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
 // x [n, 2hl+2, 2wl+2, 128] as the 4-d tensor (channel, column parity, cell
 // column, pixel row of all n planes), boxes of 128 bytes of channels x 1 x
 // `cells` cells x 1 row with the 128-byte swizzle (64 channels in bf16, 32
 // in f32); cells past wl read zero
 cudaError_t make_map(CUtensorMap* map, const void* x, int bf16, int n, int hl,
                      int wl, int cells) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
-    if (err != cudaSuccess) return err;
-    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  EncodeTiled encode = nullptr;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
   const uint64_t size = bf16 ? 2 : 4, w6 = 2 * (uint64_t)wl + 2;
   const cuuint64_t dims[4] = {128, 2, (cuuint64_t)wl + 1,
                               (cuuint64_t)n * (2 * hl + 2)};

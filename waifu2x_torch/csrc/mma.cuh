@@ -14,8 +14,8 @@
 // and the mma_chain probe from them, mma_tf32.cu the f32 layers 2-6 as
 // 3xTF32, tmm.cu the four-tap probe layer (A from registers), wino.cu
 // the Winograd layer 6 in both types (A from registers), i8.cu the int8
-// layer 6. Also the mbarrier and bulk-copy (TMA) steps of l7.cu's and
-// probe.cu's rings.
+// layer 6. Also the mbarrier, bulk-copy and tensor-map (TMA) steps of
+// l7.cu's, mma.cu's, probe.cu's and tmm.cu's rings.
 //
 // Operand layout without swizzle ("interleaved"): an operand is cut into
 // core matrices of 8 rows x 16 bytes (8 bf16 along K), each stored as 128
@@ -35,6 +35,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +96,44 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// One box of a 4-d tensor map (coordinates innermost first) into shared
+// memory by the TMA unit, its bytes counted on the barrier (l7.cu's and
+// mma.cu's rings).
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2, int c3,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar) : "memory");
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda),
+// asked once a library: the host side of the tensor maps of l7.cu, mma.cu
+// and tmm.cu.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+inline cudaError_t encode_tiled(EncodeTiled* out) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  *out = encode;
+  return cudaSuccess;
 }
 
 // Makes this thread's completed shared-memory writes (cp.async lands

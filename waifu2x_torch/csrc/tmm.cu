@@ -435,30 +435,14 @@ tap_mm(const __grid_constant__ CUtensorMap xmap,
   if (wtid == 0) bulk_wait_read();   // shared memory outlives the stores
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
 // a bf16 tensor of dims (d0, d1, d2), innermost first, d1 and d2 s1 and s2
 // bytes apart, in boxes of (b0, b1, 1), with the 128-byte swizzle or none
 cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t d0,
                      uint64_t d1, uint64_t d2, uint64_t s1, uint64_t s2,
                      uint32_t b0, uint32_t b1, bool swizzle) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
-    if (err != cudaSuccess) return err;
-    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  EncodeTiled encode = nullptr;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {s1, s2};
   const cuuint32_t box[3] = {b0, b1, 1};

@@ -42,8 +42,11 @@ stack's from the full-res plane with w1's 9 taps.
 Layers 2-6 (widths 32-32-64-64-128-128, 99.5% of the stack's
 multiply-adds) run on the tensor cores, by storage dtype. A bf16 call runs
 them on csrc/mma.cu (conv3x3_bias_leaky_mma, bf16 x bf16 products, f32
-sums, from weights packed by ops/s2d.py:pack_mma into StackParams.wm); an
-f32 call as 3xTF32 on csrc/mma_tf32.cu (conv3x3_bias_leaky_tf32: each
+sums, from weights packed by ops/s2d.py:pack_mma into StackParams.wm: a
+persistent kernel, layers 2-5 with their weights resident in shared memory
+and layer 6 with its outputs in two halves, each block keeping one half's
+weights resident; its first form, one block a tile, is the timing
+yardstick, mma_layer(..., persistent=False)); an f32 call as 3xTF32 on csrc/mma_tf32.cu (conv3x3_bias_leaky_tf32: each
 product a*w as a_lo*w_hi + a_hi*w_lo + a_hi*w_hi in TF32, within 3e-5 of
 f32, from StackParams.wt = pack_mma_tf32; tf32_plan its plan). The f32 FFMA
 kernel of csrc/stack.cu computes the same layers with no tensor cores;
@@ -51,7 +54,8 @@ MID_MMA = False sends both dtypes' calls there; only tests and
 chip_smoke.py flip it, to hold one kernel against the other and time them
 in one run. mma_layer is one such layer alone (either dtype),
 mma_layer_plain its plain version from the packed weights, mma_plan the
-bf16 kernel's tile, chunk and shared-memory plan; mma_chain is the probe
+bf16 kernels' tile, chunk and shared-memory plan, mma_walk the persistent
+kernel's walk over the tiles; mma_chain is the probe
 of its inner loop (tools/mma_probe.py). The probes of ops/probe.py also
 run variants that no product path takes: the tensor-core layer under a
 zero-shift mask (zs: a tap on a zeroed axis reads its own s2d cell) or with
@@ -200,11 +204,18 @@ MID_MMA = True
 # the launches of layers 2-6 by the kernel that ran them ("mma": bf16 on
 # the tensor cores, csrc/mma.cu; "mma_tf32": f32 on the tensor cores as
 # 3xTF32, csrc/mma_tf32.cu; "ffma": csrc/stack.cu; "mma_zs" and "mma_pp":
-# the bf16 tensor-core kernel under a zero-shift mask or with two
-# accumulators, which only the probes run), and under "chain" those of the
-# mma_chain probe (which count nowhere else)
+# the bf16 tile kernel under a zero-shift mask or with two accumulators,
+# which only the probes run), and under "chain" those of the mma_chain
+# probe (which count nowhere else). Each "mma" launch also counts under its
+# route (MID_ROUTES): "mma_resident" the persistent kernel with all the
+# layer's weights resident (layers 2-5), "mma_split" the persistent kernel
+# with the outputs in two halves, a block keeping one half's weights
+# resident (layer 6), "mma_tile" the tile kernel (persistent=False, the
+# yardstick, and layer 5 with B4's tile maxima)
 MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0,
-                "mma_tf32": 0}
+                "mma_tf32": 0, "mma_resident": 0, "mma_split": 0,
+                "mma_tile": 0}
+MID_ROUTES = ("mma_resident", "mma_split", "mma_tile")
 # the launches of layer 1 by the kernel that ran them: "l1" csrc/l1.cu (every
 # stack call, l1_layer alone), "ffma" stack.cu's plane modes (l1_layer with
 # ffma=True only, the timing yardstick)
@@ -394,18 +405,31 @@ def prep_params(params, dtype=torch.bfloat16, device="cuda") -> StackParams:
 
 class MmaPlan(NamedTuple):
     """How csrc/mma.cu runs one of layers 2-6 (mma_plan)."""
-    tile: tuple        # output pixels (rows, cols) of one block
-    threads: int       # four warpgroups, one 8 x 8 m64 tile each
+    tile: tuple        # output pixels (rows, cols) of one tile
+    threads: int       # four warpgroups, one 8 x 8 m64 tile each (and, in
+                       # the persistent kernel, the producer warp)
     kc: int            # input channels per staged chunk
-    stages: int        # chunk buffers in the cp.async ring
+    stages: int        # ring slots (persistent) or chunk buffers (tile)
     win_stride: int    # the staged window's k8 stride, in 16-byte units
     smem_bytes: int    # dynamic shared memory of the launch
     zs: int = 0        # zero-shift mask: 1 columns, 2 rows, 3 both
     pp: bool = False   # two accumulators, half the outputs each
+    route: str = "tile"   # the MID_LAUNCHES route: "resident", "split"
+                          # (the persistent kernel) or "tile"
+    groups: int = 1       # consumer groups taking a block's tiles in turn
+    l2_tile_bytes: int = 0   # bytes staged from L2 into shared memory for
+                             # one tile: window copies (split: once a half)
+                             # and, in the tile kernel, weight chunks
+    resident_bytes: int = 0  # weights staged once a block (persistent)
 
 
 SMEM_MAX = 232448      # what one block may use on an H100 (227 KB)
 _MMA_TILE = 16
+_SLAB = 18 * 18 * 16   # a k8 slab of the 18 x 18 window, as TMA lands it
+# the persistent kernel: the window's k8 stride (16-byte units; 18 x 18
+# rounded up so that each slab starts 128-byte aligned), its threads (four
+# warpgroups and a producer warp) and the most ring slots it takes
+_RES_STRIDE, _RES_THREADS, _RES_SLOTS = 328, 544, 8
 # (kc, stages) per (ci, co), as csrc/mma.cu instantiates each layer (PERF.md
 # has the times of the other chunkings that were tried on an H100)
 _MMA_CHUNK = {(32, 32): (32, 1), (32, 64): (32, 1), (64, 64): (16, 2),
@@ -422,16 +446,46 @@ _MMA_VARIANTS = {
 _ZS_COPIES = {0: 1, 1: 2, 2: 2, 3: 4}   # window copies a chunk stages
 
 
-def mma_plan(ci: int, co: int, zs: int = 0, pp: bool = False) -> MmaPlan:
-    """The tensor-core kernel's plan for a ci -> co layer: a 16 x 16 pixel
-    tile per block, its 18 x 18 window and the 9 taps' weights staged per
-    chunk of kc input channels in a ring of `stages` buffers, and the
-    shared memory that takes (the larger of the ring and the epilogue's
-    padded output tile). Under zero-shift mask zs each chunk stages
-    _ZS_COPIES[zs] copies of the window; with pp the first half's output
-    tile has a region of its own beside the ring. The C entry takes
-    smem_bytes as an argument and refuses bytes that differ from its own
-    count."""
+def _persistent_plan(ci: int, co: int) -> MmaPlan:
+    """csrc/mma.cu's Res<ci, co, kc>: one block an SM; the layer's weights
+    resident beside a ring of at least 3 window slots where they fit in
+    SMEM_MAX (route "resident"), else the output channels in two halves, a
+    block keeping one half's weights resident and computing that half of
+    its tiles (route "split"); two consumer groups taking the block's tiles
+    in turn where a block computes at most 64 outputs, else one; as many
+    slots as fit, at most _RES_SLOTS, each with a full and an empty
+    mbarrier; 128 bytes to align the base and the weights' mbarrier."""
+    kc, _ = _MMA_CHUNK[(ci, co)]
+    k8c, nchunk = kc // 8, ci // kc
+    win_bytes = k8c * _RES_STRIDE * 16
+    fits = 128 + 9 * ci * co * 2 + 3 * (win_bytes + 16) + 8 <= SMEM_MAX
+    halves = 1 if fits else 2
+    w_all = 9 * ci * (co // halves) * 2
+    fixed = 128 + w_all + 8
+    slots = min(_RES_SLOTS, (SMEM_MAX - fixed) // (win_bytes + 16))
+    return MmaPlan((_MMA_TILE, _MMA_TILE), _RES_THREADS, kc, slots,
+                   _RES_STRIDE, fixed + slots * (win_bytes + 16),
+                   route="resident" if fits else "split",
+                   groups=2 if co // halves <= 64 else 1,
+                   l2_tile_bytes=halves * nchunk * k8c * _SLAB,
+                   resident_bytes=w_all)
+
+
+def mma_plan(ci: int, co: int, zs: int = 0, pp: bool = False,
+             persistent: bool = True) -> MmaPlan:
+    """The tensor-core kernels' plan for a ci -> co layer. The persistent
+    kernel (the main path; zs = 0, no pp, persistent): _persistent_plan.
+    The tile kernel (persistent=False, and every probe variant): a 16 x 16
+    pixel tile per block, its 18 x 18 window and the 9 taps' weights
+    staged per chunk of kc input channels in a ring of `stages` buffers,
+    and the shared memory that takes (the larger of the ring and the
+    epilogue's padded output tile). Under zero-shift mask zs each chunk
+    stages _ZS_COPIES[zs] copies of the window; with pp the first half's
+    output tile has a region of its own beside the ring. Both take the
+    same chunk depth kc. The C entries take smem_bytes as an argument and
+    refuse bytes that differ from their own count."""
+    if (zs, pp) == (0, False) and persistent and (ci, co) in _MMA_CHUNK:
+        return _persistent_plan(ci, co)
     if (zs, pp) == (0, False):
         chunk = _MMA_CHUNK.get((ci, co))
     else:
@@ -450,8 +504,10 @@ def mma_plan(ci: int, co: int, zs: int = 0, pp: bool = False) -> MmaPlan:
         smem = max(ring, _MMA_TILE * _MMA_TILE * (2 * co + 16))
     if smem > SMEM_MAX:
         raise ValueError(f"{smem} bytes of shared memory exceed {SMEM_MAX}")
+    window = k8c * win * win * 16 * _ZS_COPIES[zs]
     return MmaPlan((_MMA_TILE, _MMA_TILE), 512, kc, stages, stride, smem,
-                   zs, bool(pp))
+                   zs, bool(pp),
+                   l2_tile_bytes=ci // kc * (window + k8c * 9 * co * 16))
 
 
 _TF32_KC, _TF32_STAGES = 8, 2
@@ -479,11 +535,32 @@ def tf32_plan(ci: int, co: int) -> MmaPlan:
 
 
 def mma_grid(n: int, hin: int, win: int) -> tuple:
-    """(tile rows, tile columns, blocks) of the tensor-core kernel over an
+    """(tile rows, tile columns, tiles) of the tensor-core kernels over an
     [n, hin, win] input plane: 16 x 16 tiles that cover the (hin-2) x
-    (win-2) output, the ragged edge masked in the kernel."""
+    (win-2) output, the ragged edge masked in the kernel. The tile kernel
+    launches a block a tile."""
     nty, ntx = -(-(hin - 2) // _MMA_TILE), -(-(win - 2) // _MMA_TILE)
     return nty, ntx, n * nty * ntx
+
+
+def mma_walk(tiles: int, plan: MmaPlan, sms: int = 132) -> list:
+    """The persistent kernel's walk, as csrc/mma.cu's launch_mma and
+    conv3x3_bias_leaky_mma make it on a card of `sms` SMs: for each block
+    of the grid, the units it computes in order, as (tile, half) pairs
+    (tiles numbered column fastest, then row and image, as mma_grid counts
+    them; half 0 where the outputs are not split). The units: the tiles, or
+    under the split route each tile's two output halves, unit v = (v // 2,
+    v % 2). The grid: min(units, sms) blocks, rounded down to even under
+    the split; block b takes units b, b + grid, ... (its consumer groups
+    alternate: group g the entries g, g + groups, ... of its list)."""
+    if plan.route not in ("resident", "split"):
+        raise ValueError(f"no persistent walk for route {plan.route!r}")
+    halves = 2 if plan.route == "split" else 1
+    units = tiles * halves
+    grid = min(units, sms)
+    grid -= grid % halves
+    return [[divmod(v, halves) for v in range(b, units, grid)]
+            for b in range(grid)]
 
 
 class WinoPlan(NamedTuple):
@@ -1586,24 +1663,34 @@ class _Launcher:
             TAP_LAUNCHES["ptaps" if out_mode == _OUT_PTAPS else "taps"] += 1
 
     def mma_layer(self, k: int, src, sp, dst, n, hin, win, l6=None,
-                  zs: int = 0, pp: bool = False) -> None:
+                  zs: int = 0, pp: bool = False,
+                  persistent: bool = True) -> None:
         """Layer k + 1 (k = 1..5) of csrc/mma.cu on an [n, hin, win, ci]
-        plane; with zs or pp its probe variant (w2x_mma_layer_variant,
-        counted under MID_LAUNCHES "mma_zs" or "mma_pp")."""
+        plane: the persistent kernel (w2x_mma_layer, counted under
+        MID_LAUNCHES "mma" and its route), with persistent=False the tile
+        kernel (w2x_mma_layer_variant at zs 0, "mma" and "mma_tile"); with
+        zs or pp the tile kernel's probe variant (counted under "mma_zs" or
+        "mma_pp")."""
         wm = getattr(sp, "wm", None)
         if wm is None:
             raise ValueError("the tensor-core layers need prep_params' "
                              "packed weights (StackParams.wm)")
-        smem = mma_plan(*WIDTHS[k], zs, pp).smem_bytes
+        plan = mma_plan(*WIDTHS[k], zs, pp, persistent)
         args = (src.data_ptr(), wm[k - 1].data_ptr(), sp[k][1].data_ptr(),
-                dst.data_ptr(), n, hin, win, smem)
-        if not (zs or pp):
+                dst.data_ptr(), n, hin, win, plan.smem_bytes)
+        if zs or pp:
+            self.run("mma", "w2x_mma_layer_variant",
+                     f"layer {k + 1} (mma, zs {zs}, pp {int(pp)})", l6, k, zs,
+                     int(pp), *args, mid="mma_pp" if pp else "mma_zs")
+            return
+        if plan.route == "tile":
+            self.run("mma", "w2x_mma_layer_variant",
+                     f"layer {k + 1} (mma, tile kernel)", l6, k, 0, 0, *args,
+                     mid="mma")
+        else:
             self.run("mma", "w2x_mma_layer", f"layer {k + 1} (mma)", l6, k,
                      *args, mid="mma")
-            return
-        self.run("mma", "w2x_mma_layer_variant",
-                 f"layer {k + 1} (mma, zs {zs}, pp {int(pp)})", l6, k, zs,
-                 int(pp), *args, mid="mma_pp" if pp else "mma_zs")
+        MID_LAUNCHES["mma_" + plan.route] += 1
 
     def wino(self, x5, sp, y6, n, h5, w5, l6=None) -> None:
         """Layer 6 as Winograd on an [n, h5, w5, 128] plane: on the tensor
@@ -1646,8 +1733,9 @@ class _Launcher:
             self.run("mma", "w2x_mma_layer_max", "layer 5 (mma, tile maxima)",
                      None, src.data_ptr(), wm[3].data_ptr(),
                      sp[4][1].data_ptr(), dst.data_ptr(), n, hin, win,
-                     mma_plan(*WIDTHS[4]).smem_bytes, *tile_args, mid="mma",
-                     i8="l5max")
+                     mma_plan(*WIDTHS[4], persistent=False).smem_bytes,
+                     *tile_args, mid="mma", i8="l5max")
+            MID_LAUNCHES["mma_tile"] += 1
             return
         whi, wlo = _wt(sp, src, 4)
         self.run("mma_tf32", "w2x_tf32_layer_max",
@@ -1958,22 +2046,25 @@ def layer5_plane(x: torch.Tensor, sp, tile=None,
 
 
 def mma_layer(x: torch.Tensor, sp, k: int, zs: int = 0,
-              pp: bool = False) -> torch.Tensor:
+              pp: bool = False, persistent: bool = True) -> torch.Tensor:
     """Layer k (2..6) alone on the tensor cores: x [N, hin, win, ci] NHWC,
     contiguous -> [N, hin-2, win-2, co] in x's dtype, with layer k's bias.
-    bf16 takes csrc/mma.cu from sp.wm[k-2]; zs (zero-shift mask) and pp
-    (two accumulators, the same function) select a probe variant
-    (mma_plan). f32 takes the 3xTF32 kernel (csrc/mma_tf32.cu, tf32_plan)
-    from sp.wt[k-2], and no variant. CPU tensors take mma_layer_plain (from
-    sp.wm, which for f32 storage holds the f32 weights); CUDA tensors take
-    the kernel, whose launch counts under MID_LAUNCHES["mma"] ("mma_zs",
+    bf16 takes csrc/mma.cu from sp.wm[k-2]: the persistent kernel, or with
+    persistent=False the tile kernel (the same function, the timing
+    yardstick); zs (zero-shift mask) and pp (two accumulators, the same
+    function) select a probe variant of the tile kernel (mma_plan). f32
+    takes the 3xTF32 kernel (csrc/mma_tf32.cu, tf32_plan) from sp.wt[k-2],
+    and no variant. CPU tensors take mma_layer_plain (from sp.wm, which for
+    f32 storage holds the f32 weights); CUDA tensors take the kernel, whose
+    launch counts under MID_LAUNCHES["mma"] and its route ("mma_zs",
     "mma_pp"; "mma_tf32" for f32) only."""
     if k not in range(2, 7):
         raise ValueError(f"the tensor-core kernel runs layers 2..6, got {k}")
     ci, co = WIDTHS[k - 1]
     if x.dtype == torch.float32:
-        if zs or pp:
-            raise ValueError(f"no f32 variant zs={zs!r}, pp={pp!r}")
+        if zs or pp or not persistent:
+            raise ValueError(f"no f32 variant zs={zs!r}, pp={pp!r}, "
+                             f"persistent={persistent!r}")
         tf32_plan(ci, co)
     else:
         mma_plan(ci, co, zs, pp)   # raises for a variant that is not built
@@ -1995,8 +2086,11 @@ def mma_layer(x: torch.Tensor, sp, k: int, zs: int = 0,
         y = torch.empty((n, hin - 2, win - 2, co), dtype=x.dtype,
                         device=x.device)
         run = _Launcher(None, x, None)
-        (run.mma_layer if run.bf16 else run.tf32_layer)(
-            k - 1, x, sp, y, n, hin, win, zs=zs, pp=pp)
+        if run.bf16:
+            run.mma_layer(k - 1, x, sp, y, n, hin, win, zs=zs, pp=pp,
+                          persistent=persistent)
+        else:
+            run.tf32_layer(k - 1, x, sp, y, n, hin, win)
     return y
 
 
@@ -2242,16 +2336,24 @@ def mma_chain(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
 def _spanned(kind: str):
     """Puts a stack entry inside a "w2x.stack" span (kernel and plain
     routes alike), with the wrapper's KERNEL_LAUNCHES kind, the input's
-    dtype and shape, and the launches the call made (the change in
-    LAUNCHES)."""
+    dtype and shape, the launches the call made (the change in LAUNCHES)
+    and, where it made any, the routes its bf16 layers 2-6 took
+    (`mid_routes`, "route:count" for each MID_ROUTES count that changed,
+    e.g. "mma_resident:4 mma_split:1")."""
     def wrap(fn):
         @functools.wraps(fn)
         def entry(x, *args, **kwargs):
             with trace.span("w2x.stack", on=x, kind=kind, dtype=x.dtype,
                             shape=x.shape) as s:
                 before = LAUNCHES
+                routes = [MID_LAUNCHES[r] for r in MID_ROUTES]
                 out = fn(x, *args, **kwargs)
                 s.set(launches=LAUNCHES - before)
+                took = " ".join(f"{r}:{MID_LAUNCHES[r] - n}"
+                                for r, n in zip(MID_ROUTES, routes)
+                                if MID_LAUNCHES[r] != n)
+                if took:
+                    s.set(mid_routes=took)
             return out
         return entry
     return wrap
