@@ -10,15 +10,6 @@ import torch
 PSNR_CAP_MSE = 1e-10   # a frame equal to the reference reads 148 dB, not inf
 
 
-def interleave(out16: torch.Tensor) -> torch.Tensor:
-    """The scale step's u8 result [N, h, w, 16] (lane c*4 + a*2 + b is
-    channel c of output pixel (2i + a, 2j + b); lanes 12-15 unused) ->
-    u8 frames [N, 2h, 2w, 3]."""
-    n, h, w, _ = out16.shape
-    x = out16[..., :12].reshape(n, h, w, 3, 2, 2)
-    return x.permute(0, 1, 4, 2, 5, 3).reshape(n, 2 * h, 2 * w, 3)
-
-
 def psnr_db(mse: float) -> float:
     return 10.0 * math.log10(255.0 ** 2 / max(mse, PSNR_CAP_MSE))
 

@@ -59,6 +59,10 @@ class StackCall:
         hc, wc = self.cells
         return self.n * 4 * hc * wc
 
+    def flops(self) -> int:
+        """The model's operations over the whole output plane."""
+        return self.out_px() * flops_per_px()
+
     def layer_ops(self, k: int) -> float:
         """Operations of layer k (1..7) over its whole output plane."""
         ci, co = WIDTHS[k - 1]

@@ -2,20 +2,24 @@
 the check against the reference.
 
 The window drives the port's batched conversion step, the product's unit
-of work, as `StreamConverter` composes it from public entry points: a
-pinned u8 BGR batch is uploaded without blocking, mapped to YUV, converted
-by `scale2x_batch_u8_fused` (after `noise_y_batch_fast` in a chain), and
-its u8 result copied into pinned host memory without blocking; an event
-marks the dispatch's end. It is a closed loop with `depth` dispatches in
-flight: dispatch i is enqueued as soon as dispatch i - depth has ended.
-The host interleave of the stream (`d2s_host_cmajor`) is not in it.
+of work: a pinned u8 BGR batch is uploaded without blocking, prepared and
+converted by the program the configuration names, and its u8 result
+copied into pinned host memory without blocking; an event marks the
+dispatch's end. It is a closed loop with `depth` dispatches in flight:
+dispatch i is enqueued as soon as dispatch i - depth has ended.
+
+The architecture is the configuration's: its `program` (benchmark/
+families/<f>.py: `build`, `STRIP_ROWS`) builds the port's model by its
+public set-up and drives its step, and its `reference` (benchmark/
+reference/<f>.py: `weights`, `convert_by_role`, `LOWER`) makes the stacks'
+weights and the plain conversion the check compares with. This file names
+no architecture.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-import hashlib
 import importlib.util
 import json
 import os
@@ -29,7 +33,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 BENCH = ROOT / "benchmark"
 FORBIDDEN = ("jax", "jaxlib", "flax", "waifu2x_tpu")
-ROW_STRIP = 2       # output rows of one low-res (s2d) row: row_psnr_min_db
 
 
 def read_json(path: Path) -> dict:
@@ -127,83 +130,43 @@ def image_like(seed: int, n: int, h: int, w: int, device, pin: bool):
 
 # -- the program ----------------------------------------------------------
 
-def model_params(path: Path, sha256: str) -> list:
-    """A model file, checked against the digest the configuration states,
-    as the program's parameters ({"w": [kh, kw, cin, cout], "b": [cout]}
-    f32 CPU tensors)."""
-    from benchmark.reference import vgg7
-    data = path.read_bytes()
-    digest = hashlib.sha256(data).hexdigest()
-    if digest != sha256:
-        raise RuntimeError(f"{path}: sha256 {digest}, the configuration "
-                           f"states {sha256}")
-    return [{"w": w.permute(2, 3, 1, 0).contiguous(), "b": b}
-            for w, b in vgg7.load_model(str(path))]
+def load_module(path: str):
+    """The module at `path`, a file under benchmark/ named relative to the
+    checkout's root (a configuration's `program` or `reference`), loaded by
+    its path once a process."""
+    file = (ROOT / path).resolve()
+    if BENCH not in file.parents or file.suffix != ".py":
+        raise ValueError(f"{path}: not a Python file under benchmark/")
+    name = "bench_" + "_".join(file.relative_to(BENCH).with_suffix("").parts)
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, file)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod     # as an import would: dataclasses look
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[name]
+            raise
+    return sys.modules[name]
 
 
-class Program:
-    """The port's stacks, built by its public set-up
-    (`StreamConverter.from_params`, the product's precision policy), and
-    the conversion step the window drives, composed as the stream composes
-    it for the configuration's `mode`: "scale" (the 2x step), "noise" (the
-    noise step to u8; even frame sizes) or "noise_scale" (the noise stack's
-    plane handed to the 2x step)."""
+def stack_weights(cfg: dict, device) -> dict:
+    """role -> weights of each of the configuration's stacks, as its plain
+    reference makes them (`weights`: a model file held to its sha256, or
+    drawn from the stack's seed)."""
+    ref = load_module(cfg["reference"])
+    return {s["role"]: ref.weights(s, ROOT, device) for s in cfg["stacks"]}
 
-    def __init__(self, cfg: dict, device):
-        import torch
-        from waifu2x_torch import pipeline
-        from waifu2x_torch.stream import StreamConverter
-        from waifu2x_torch.utils.cache import enable_compilation_cache
-        enable_compilation_cache(str(ROOT / "waifu2x_torch" / "build"))
-        stacks = {s["role"]: s for s in cfg["stacks"]}
-        params = {role: model_params(ROOT / s["model"], s["sha256"])
-                  for role, s in stacks.items()}
-        self.mode = cfg["mode"]
-        conv = StreamConverter.from_params(
-            params.get("scale"), params.get("noise"), mode=self.mode,
-            device=device)
-        built = {"scale": conv.fast, "noise": conv.fast_noise}
-        for role, s in stacks.items():
-            got = str(built[role].dtype).replace("torch.", "")
-            if got != s["dtype"]:
-                raise RuntimeError(f"the {role} stack runs in {got}; the "
-                                   f"configuration states {s['dtype']}")
-        self.fast, self.fast_noise = conv.fast, conv.fast_noise
-        self.stacks = [(s["role"], s["dtype"]) for s in cfg["stacks"]]
-        self.device = torch.device(device)
-        self._noise = pipeline.noise_y_batch_fast
-        self._noise_u8 = pipeline.noise_batch_u8_fused
-        self._scale = pipeline.scale2x_batch_u8_fused
 
-    def step(self, yuv):
-        """f32 YUV [n, h, w, 3] -> (u8 [n, H, W, 16] with lane c*4 + a*2 + b
-        channel c of output pixel (2i + a, 2j + b), the denoised Y a chain
-        hands on or None)."""
-        if self.mode == "noise":
-            return self._noise_u8(yuv, self.fast_noise), None
-        y = None
-        if self.mode == "noise_scale":
-            y = self._noise(yuv[..., 0], self.fast_noise, out_dtype=None)
-        return self._scale(yuv, self.fast, y=y), y
-
-    def calls(self, batch: Batch) -> list:
-        """The stack calls of one dispatch, in the configuration's order,
-        as the yardstick counts them."""
-        from benchmark.counts import StackCall
-        return [StackCall(role, dtype, batch.n, batch.h, batch.w)
-                for role, dtype in self.stacks]
-
-    def out_px(self, batch: Batch) -> int:
-        """Pixels of the frames one dispatch returns."""
-        scale = 2 if self.fast is not None else 1
-        return batch.n * batch.h * batch.w * scale * scale
-
-    def out_shape(self, batch: Batch) -> tuple:
-        """The shape of step's u8 result for one dispatch: a cell of 16
-        lanes for each 2 x 2 output pixels."""
-        if self.fast is None:
-            return batch.n, batch.h // 2, batch.w // 2, 16
-        return batch.n, batch.h, batch.w, 16
+def program(cfg: dict, device):
+    """The program the window drives: the configuration's adapter
+    (`program`) built from its stacks' weights. It has `device` (a
+    `torch.device`), `prepare(x_u8)`, `step(prepared) -> (out, aux)`,
+    `out_shape(batch)`, `out_px(batch)`, `calls(batch)` (what the
+    yardstick counts: each with a `dtype` and `flops()`) and `frames(out)`
+    (u8 [n, H, W, 3] on the device)."""
+    return load_module(cfg["program"]).build(
+        cfg, stack_weights(cfg, device), device)
 
 
 # -- the window -----------------------------------------------------------
@@ -238,8 +201,8 @@ class Window:
     seconds: float              # host clock, first enqueue to last event
     order: list                 # batch index of each dispatch
     latency_ms: list            # each dispatch's, see run_window
-    outputs: dict               # checked batch -> u8 [n, h, w, 16] (host)
-    planes: dict                # checked batch -> denoised Y (device)
+    outputs: dict               # checked batch -> step's u8 result (host)
+    planes: dict                # checked batch -> step's aux (device)
 
 
 def span(name: str):
@@ -247,7 +210,7 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
-def run_window(prog: Program, traffic: Traffic, seconds: float, depth: int,
+def run_window(prog, traffic: Traffic, seconds: float, depth: int,
                step=None) -> Window:
     """The closed loop: dispatches until `seconds` have passed on the host's
     clock and every batch has run at least once, then waits for the last.
@@ -257,7 +220,6 @@ def run_window(prog: Program, traffic: Traffic, seconds: float, depth: int,
     copy their results into buffers of their own, which after the window
     hold each one's last dispatch."""
     import torch
-    from waifu2x_torch.ops.color import bgr_to_yuv, u8_to_unit_f32
     step = step or prog.step
     dev, clock = prog.device, Clock(prog.device)
     pin = dev.type == "cuda"
@@ -284,9 +246,9 @@ def run_window(prog: Program, traffic: Traffic, seconds: float, depth: int,
                 with span("bench.upload"):
                     x = batch.host.to(dev, non_blocking=True)
                 with span("bench.colour"):
-                    yuv = bgr_to_yuv(u8_to_unit_f32(x))
+                    xin = prog.prepare(x)
                 with span("bench.step"):
-                    out, y = step(yuv)
+                    out, aux = step(xin)
                 with span("bench.download"):
                     if b in outputs:
                         dst = outputs[b]
@@ -295,10 +257,10 @@ def run_window(prog: Program, traffic: Traffic, seconds: float, depth: int,
                             out.shape)
                     dst.copy_(out, non_blocking=True)
                     marks.append(clock.mark())
-                if b in outputs and y is not None:
-                    planes[b] = y
+                if b in outputs and aux is not None:
+                    planes[b] = aux
                 order.append(b)
-                del x, yuv, out, y
+                del x, xin, out, aux
             passes += 1
         with span("bench.wait"):
             clock.wait(marks[-1])
@@ -313,7 +275,8 @@ def run_window(prog: Program, traffic: Traffic, seconds: float, depth: int,
 @dataclasses.dataclass
 class Run:
     """What a metric's reader reads: the cell, the window's dispatches and
-    the stack calls they made (`calls`: StackCall -> count), its timings
+    the calls they made (`calls`: the program's calls, such as
+    `counts.StackCall`, -> count), its timings
     (`latency_ms` and `sizes`, the frames' (h, w), one of each a dispatch
     in the window's order), the program's counters over the window, and
     with --trace 1 the trace and the names of the program's kernels."""
@@ -368,57 +331,59 @@ def read_metrics(run: Run, entries: list) -> dict:
 
 def reference_outputs(cfg: dict, traffic: Traffic, device, batches,
                       precisions=None):
-    """Yields (batch, (u8 frames [n, H, W, 3], denoised Y or None)) of the
-    plain reference for each of `batches`, the configuration's stacks in
-    its mode; `precisions` (role -> precision, f32 where none is given)
-    puts a lower-precision control in the program's place."""
-    from benchmark.reference import vgg7
-    layers = {s["role"]: vgg7.load_model(str(ROOT / s["model"]))
-              for s in cfg["stacks"]}
+    """Yields (batch, (u8 frames [n, H, W, 3], aux or None)) of the plain
+    reference for each of `batches`, the configuration's stacks by role,
+    their weights made anew by the reference; `precisions` (role ->
+    precision, f32 where none is given) puts a lower-precision control in
+    the program's place."""
+    ref = load_module(cfg["reference"])
+    weights = stack_weights(cfg, device)
     for b in batches:
         x = traffic.batches[b].host.to(device)
-        yield b, vgg7.convert(x, layers.get("scale"), layers.get("noise"),
-                              precisions)
+        yield b, ref.convert_by_role(x, weights, precisions)
 
 
 def control_precisions(cfg: dict) -> dict:
     """role -> precision of the control: each stack one step below the
-    type the configuration states (f32 -> TF32, bf16 -> fp8)."""
-    from benchmark.reference.vgg7 import LOWER
-    return {s["role"]: LOWER[s["dtype"]] for s in cfg["stacks"]}
+    type the configuration states (the reference's `LOWER`)."""
+    lower = load_module(cfg["reference"]).LOWER
+    return {s["role"]: lower[s["dtype"]] for s in cfg["stacks"]}
 
 
 def control_outputs(cfg: dict, traffic: Traffic, device) -> dict:
-    """The control in the program's place: batch -> (u8 frames, denoised
-    Y or None) of the reference computed one precision lower."""
+    """The control in the program's place: batch -> (u8 frames, aux or
+    None) of the reference computed one precision lower."""
     return dict(reference_outputs(cfg, traffic, device, traffic.checked,
                                   control_precisions(cfg)))
 
 
 def check(cfg: dict, wl: dict, traffic: Traffic, got: dict, device):
-    """`got` (batch -> (u8 frames [n, H, W, 3], denoised Y or None)) for
-    every checked batch against the reference's, with the configuration's
-    and the workload's limits -> (the numbers over all of them, how many
-    batches failed a limit). A batch with no result fails."""
+    """`got` (batch -> (u8 frames [n, H, W, 3], aux or None)) for every
+    checked batch against the reference's, with the configuration's and the
+    workload's limits -> (the numbers over all of them, how many batches
+    failed a limit). A batch with no result fails. A strip is the
+    program's `STRIP_ROWS` output rows."""
     from benchmark.check import Numbers
+    strip = load_module(cfg["program"]).STRIP_ROWS
     limits = {"frame_psnr_min_db": cfg["fidelity_db"], **wl["limits"]}
     total, failed = Numbers(limits), 0
-    for b, (ref_frames, ref_y) in reference_outputs(cfg, traffic, device,
-                                                    traffic.checked):
+    for b, (ref_frames, ref_aux) in reference_outputs(cfg, traffic, device,
+                                                      traffic.checked):
         one = Numbers(limits)
         if b in got:
-            frames, y = got[b]
-            one.add_frames(frames.to(device), ref_frames, ROW_STRIP)
-            if ref_y is not None and y is not None:
-                one.add_plane(y.to(device), ref_y)
+            frames, aux = got[b]
+            one.add_frames(frames.to(device), ref_frames, strip)
+            if ref_aux is not None and aux is not None:
+                one.add_plane(aux.to(device), ref_aux)
         total.merge(one)
         failed += not one.ok()
     return total, failed
 
 
-def program_outputs(window: Window, device) -> dict:
-    from benchmark.check import interleave
-    return {b: (interleave(out.to(device)), window.planes.get(b))
+def program_outputs(prog, window: Window, device) -> dict:
+    """batch -> (u8 frames, aux or None) the window left for each checked
+    batch."""
+    return {b: (prog.frames(out.to(device)), window.planes.get(b))
             for b, out in window.outputs.items()}
 
 
@@ -444,7 +409,7 @@ def run_cell(wl: dict, seed: int, seconds: float, trace: bool, device,
     cfg = config(wl["config"])
     dev = torch.device(device)
     on_card = dev.type == "cuda"
-    prog = Program(cfg, dev)
+    prog = program(cfg, dev)
     t_prog = time.perf_counter()
     gen = (lambda s, n, h, w, d: image_like(s, n, h, w, d, on_card))
     traffic = Traffic(wl, seed, dev, gen)
@@ -508,7 +473,7 @@ def run_cell(wl: dict, seed: int, seconds: float, trace: bool, device,
         f"{out_px / 1e6:.3f} MP out; batch latency p95 over "
         f"{len(window.latency_ms)} dispatches; setup {setup_s:.4f} s")
     # the program's state goes before the reference runs on the device
-    got = program_outputs(window, dev)
+    got = program_outputs(prog, window, dev)
     del window, prog, step
     if on_card:
         torch.cuda.empty_cache()

@@ -47,7 +47,7 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda")
     cfg = harness.config(wl["config"])
-    prog = harness.Program(cfg, dev)
+    prog = harness.program(cfg, dev)
     card = harness.card_line()
     gen = (lambda s, n, h, w, d: harness.image_like(s, n, h, w, d, True))
 
@@ -63,7 +63,7 @@ def main(argv=None) -> int:
     def program(kind: str, seed: int):
         traffic = harness.Traffic(wl, seed, dev, gen)
         window = harness.run_window(prog, traffic, 0.0, int(wl["depth"]))
-        got = harness.program_outputs(window, dev)
+        got = harness.program_outputs(prog, window, dev)
         t = time.perf_counter()
         nums, failed = harness.check(cfg, wl, traffic, got, dev)
         torch.cuda.synchronize()

@@ -21,12 +21,18 @@ runs seven valid 3x3 correlations, each with its bias and LeakyReLU(0.1).
 rounds each layer's input and weights to float8 e4m3 (per-tensor scale on
 the activations, per-output-channel on the weights), "tf32" rounds them to
 TF32's 10-bit mantissa; accumulation stays f32.
+
+The harness reaches this module by a configuration's `reference` path and
+calls its hooks: `weights` (a stack's layers), `convert_by_role` (the
+conversion, models by role) and `LOWER` (the control's precisions).
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -57,6 +63,19 @@ def load_model(path: str) -> list:
                              f"{b.shape}, header {shape}")
         layers.append((torch.from_numpy(w), torch.from_numpy(b)))
     return layers
+
+
+def weights(stack: dict, root, device=None) -> list:
+    """A configuration's stack as `load_model`'s CPU layers: its model file
+    (`model`, under `root`) held to the digest it states (`sha256`). vgg_7's
+    configurations run the trained models, so it draws none from a seed,
+    and `device` is not used."""
+    path = Path(root) / stack["model"]
+    digest = hashlib.sha256(path.read_bytes()).hexdigest()
+    if digest != stack["sha256"]:
+        raise RuntimeError(f"{path}: sha256 {digest}, the configuration "
+                           f"states {stack['sha256']}")
+    return load_model(str(path))
 
 
 @contextlib.contextmanager
@@ -200,3 +219,10 @@ def convert(bgr_u8: torch.Tensor, scale_layers=None, noise_layers=None,
         y = run_stack(nearest2x(y).contiguous(), scale_layers, prec["scale"])
         u, v = cubic2x(u.contiguous()), cubic2x(v.contiguous())
     return to_u8(torch.stack([y, u, v], -1)), y_noise
+
+
+def convert_by_role(bgr_u8: torch.Tensor, layers: dict, precisions=None):
+    """`convert` with the models by role ("scale", "noise": `weights`'
+    layers) -> (u8 BGR frames, the denoised Y plane or None)."""
+    return convert(bgr_u8, layers.get("scale"), layers.get("noise"),
+                   precisions)

@@ -21,6 +21,14 @@ def test_scale512_batch_flops():
     assert tflop / 989 * 1e3 == pytest.approx(9.74, abs=5e-3)
 
 
+def test_a_calls_flops_are_its_output_times_the_rate():
+    for call in (StackCall("scale", "bfloat16", 16, 512, 512),
+                 StackCall("noise", "float32", 4, 1081, 1920)):
+        assert call.flops() == call.out_px() * 574272
+    assert StackCall("scale", "bfloat16", 16, 512, 512).flops() == \
+        9_634_685_386_752
+
+
 def test_planes_shrink_by_two_a_layer():
     call = StackCall("scale", "bfloat16", 1, 512, 512)
     assert [call.plane(k) for k in (1, 6, 7)] == [

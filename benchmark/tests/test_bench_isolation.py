@@ -1,6 +1,7 @@
-"""No run loads JAX or the JAX package; the reference loads nothing of the
-program. Each check runs in a fresh interpreter, so that what this test
-process imported counts for nothing."""
+"""No run loads JAX or the JAX package; no module of benchmark/reference/
+loads anything of the program, nor does running each configuration's
+reference through its hooks. Each check runs in a fresh interpreter, so
+that what this test process imported counts for nothing."""
 
 import json
 import subprocess
@@ -25,12 +26,22 @@ print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
 REFERENCE = r"""
-import json, sys
-sys.path.insert(0, sys.argv[1])
+import importlib, json, sys
+from pathlib import Path
+root = Path(sys.argv[1])
+sys.path.insert(0, str(root))
 import torch
 from benchmark.reference import vgg7
 layers = vgg7.load_model(sys.argv[1] + "/models/scale2.0x_demo.json")
 vgg7.convert(torch.zeros((1, 8, 8, 3), dtype=torch.uint8), layers, layers)
+for path in sorted((root / "benchmark" / "reference").glob("*.py")):
+    importlib.import_module("benchmark.reference." + path.stem)
+for path in sorted((root / "benchmark" / "configs").glob("*.json")):
+    cfg = json.loads(path.read_text())
+    ref = importlib.import_module(cfg["reference"][:-3].replace("/", "."))
+    weights = {s["role"]: ref.weights(s, root) for s in cfg["stacks"]}
+    ref.convert_by_role(torch.zeros((1, 8, 8, 3), dtype=torch.uint8),
+                        weights)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 

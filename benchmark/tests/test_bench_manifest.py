@@ -55,6 +55,33 @@ def test_names_are_unique_and_allowed():
     assert len(metrics) == len(set(metrics))
 
 
+def check_config_file(reduced, data):
+    """A configuration's file against its entry's `reduced`: the same list
+    in both; its program and reference Python files under benchmark/; each
+    stack's type, and its weights either a model file held to a sha256 or
+    a seed. A configuration of trained model files alone cuts nothing."""
+    assert data["reduced"] == reduced and len(reduced) <= 16
+    assert all(NAME.match(k) for k in reduced)
+    for key in ("program", "reference"):
+        path = data[key]
+        assert PATH.match(path) and ".." not in path
+        assert path.startswith("benchmark/") and path.endswith(".py")
+        assert (ROOT / path).is_file()
+    seeded = False
+    for stack in data["stacks"]:
+        assert stack["dtype"] in ("bfloat16", "float32")
+        if "seed" in stack:
+            assert not {"model", "sha256"} & set(stack)
+            assert isinstance(stack["seed"], int)
+            assert 0 <= stack["seed"] < 2 ** 63
+            seeded = True
+        else:
+            assert re.fullmatch(r"[0-9a-f]{64}", stack["sha256"])
+            assert (ROOT / stack["model"]).is_file()
+    if not seeded:
+        assert reduced == []
+
+
 @pytest.mark.parametrize("cfg", MAN["configs"], ids=lambda c: c["name"])
 def test_config_entry(cfg):
     assert set(cfg) == {"name", "source", "file", "reduced", "why"}
@@ -62,11 +89,25 @@ def test_config_entry(cfg):
     assert cfg["source"].startswith("https://")
     assert cfg["file"] == f"benchmark/configs/{cfg['name']}.json"
     data = json.loads((ROOT / cfg["file"]).read_text())
-    assert data["reduced"] == cfg["reduced"] == []
+    check_config_file(cfg["reduced"], data)
+    # the isolation test loads every module there
+    assert data["reference"].startswith("benchmark/reference/")
     assert any(w["config"] == cfg["name"] for w in MAN["workloads"])
-    for stack in data["stacks"]:
-        assert stack["dtype"] in ("bfloat16", "float32")
-        assert re.fullmatch(r"[0-9a-f]{64}", stack["sha256"])
+
+
+def test_a_config_of_seeded_stacks():
+    """The toy configuration (benchmark/tests/toy.json): a seed in place of
+    a model file, and a `reduced` list; refused where they disagree."""
+    toy = json.loads((ROOT / "benchmark" / "tests" / "toy.json").read_text())
+    check_config_file(["layers"], toy)
+    with pytest.raises(AssertionError):
+        check_config_file([], toy)
+    both = dict(toy, stacks=[dict(toy["stacks"][0], sha256="0" * 64)])
+    with pytest.raises(AssertionError):
+        check_config_file(["layers"], both)
+    for key in ("program", "reference"):
+        with pytest.raises(AssertionError):
+            check_config_file(["layers"], dict(toy, **{key: "run.py"}))
 
 
 @pytest.mark.parametrize("wl", MAN["workloads"], ids=lambda w: w["name"])

@@ -76,6 +76,19 @@ def test_mfu():
     assert read("pipeline.mfu", both) == pytest.approx(want)
 
 
+def test_mfu_of_another_architectures_calls():
+    """A call of the toy architecture counts its own operations."""
+    toy = harness.load_module("benchmark/tests/toy_family.py")
+    call = toy.ToyCall("bfloat16", 4, 24, 32)
+    want = 100 * 3 * call.flops() / 989e12 / 10.0
+    assert read("pipeline.mfu", canned(calls={call: 3})) == pytest.approx(
+        want)
+    mixed = canned(calls={SCALE: 1, toy.ToyCall("float32", 1, 8, 8): 2})
+    assert read("pipeline.mfu", mixed) == pytest.approx(
+        100 * (SCALE.flops() / 989e12
+               + 2 * 2 * 9 * 120 * 64 / 495e12) / 10.0)
+
+
 def test_nonstack_and_idle():
     run = canned()
     # the copy 0.5 s, the two PyTorch kernels 1.5 s: 2 s over 67.1 MP

@@ -130,3 +130,31 @@ def test_the_controls_fall_below_the_reference():
         mse = ((low.double() - ref.double()) ** 2).mean().item()
         assert mse > 0
         assert 10 * np.log10(255 ** 2 / mse) < most
+
+
+def test_weights_are_held_to_their_digest(tmp_path):
+    stack = {"role": "scale", "model": "models/scale2.0x_demo.json",
+             "sha256": "749580353f0bbc6025c00a4f8d664df7c90cec8cc2ec89cbc815"
+                       "c6d7d1bce26a", "dtype": "bfloat16"}
+    got = vgg7.weights(stack, ROOT)
+    assert all(torch.equal(w, v) and torch.equal(b, c) for (w, b), (v, c)
+               in zip(got, vgg7.load_model(SCALE)))
+    (tmp_path / "models").mkdir()
+    doc = (ROOT / stack["model"]).read_bytes()
+    (tmp_path / stack["model"]).write_bytes(doc.replace(b"]", b" ]", 1))
+    with pytest.raises(RuntimeError, match="sha256"):
+        vgg7.weights(stack, tmp_path)
+
+
+def test_convert_by_role_is_convert():
+    img = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (1, 10, 12, 3), np.uint8))
+    scale, noise = vgg7.load_model(SCALE), vgg7.load_model(NOISE)
+    for layers, args in (({"scale": scale}, (scale, None)),
+                         ({"noise": noise}, (None, noise)),
+                         ({"scale": scale, "noise": noise}, (scale, noise))):
+        got, y = vgg7.convert_by_role(img, layers, {"scale": "fp8"})
+        want, y_want = vgg7.convert(img, *args, {"scale": "fp8"})
+        assert torch.equal(got, want)
+        assert (y is None) == (y_want is None)
+        assert y is None or torch.equal(y, y_want)

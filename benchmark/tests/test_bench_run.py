@@ -2,7 +2,9 @@
 refusals, and `correct` coming out false under the control and under each
 fault the cells can have. Besides the configurations of the cells, a
 noise-only one ("noise2", the stream's third mode) runs through the same
-harness."""
+harness, and so does a second architecture ("toy": `toy.json`, its adapter
+`toy_family.py` and its reference `toy_reference.py`), brought in files of
+its own."""
 
 import json
 import os
@@ -21,20 +23,25 @@ GROUPS = [{"h": 24, "w": 32, "per_dispatch": 2, "frames": 4,
           {"h": 20, "w": 28, "per_dispatch": 2, "frames": 2,
            "check_per_group": 1}]
 SEED = 2 ** 31 + 77
-CONFIGS = ["scale2x", "noise2_scale2x", "noise2"]
+CONFIGS = ["scale2x", "noise2_scale2x", "noise2", "toy"]
+TOY = dict(harness.read_json(harness.BENCH / "tests" / "toy.json"),
+           name="toy")
 
 
 @pytest.fixture(autouse=True, scope="module")
 def noise_only_config():
     """harness.config also knows "noise2": the noise2 model alone, in the
-    stream's noise mode (a bf16 stack, StreamConverter.from_params)."""
+    stream's noise mode (a bf16 stack, StreamConverter.from_params); and
+    "toy", a configuration of another architecture than the cells'."""
     chain = harness.config("noise2_scale2x")
-    noise = dict(chain, name="noise2", mode="noise",
-                 stacks=[dict(chain["stacks"][0], dtype="bfloat16")])
+    extra = {"noise2": dict(chain, name="noise2", mode="noise",
+                            stacks=[dict(chain["stacks"][0],
+                                         dtype="bfloat16")]),
+             "toy": TOY}
     read = harness.config
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(harness, "config",
-                   lambda name: noise if name == "noise2" else read(name))
+                   lambda name: extra[name] if name in extra else read(name))
         yield
 
 
@@ -139,6 +146,46 @@ def altered(step):
 def test_each_fault_is_not_correct(config, fault):
     result = run(tiny(config), step_wrap=fault)
     assert not result["correct"] and result["failed"] >= 1
+
+
+def test_the_toy_adapter_on_weights_of_another_seed_is_not_correct(
+        monkeypatch):
+    """The adapter draws its own weights from the next seed, not the ones
+    the reference made for it: a fault the harness alone must catch."""
+    family = harness.load_module(TOY["program"])
+    ref = harness.load_module(TOY["reference"])
+    build = family.build
+
+    def own_weights(cfg, weights, device):
+        other = dict(cfg["stacks"][0], seed=cfg["stacks"][0]["seed"] + 1)
+        return build(cfg, {"sr": ref.weights(other, harness.ROOT, device)},
+                     device)
+
+    assert run(tiny("toy"))["correct"]
+    monkeypatch.setattr(family, "build", own_weights)
+    result = run(tiny("toy"))
+    assert not result["correct"] and result["failed"] >= 1
+    assert result["checks"]["frame_psnr_min_db"]["value"] < 40.0
+
+
+def test_the_toy_counts_its_own_operations():
+    """The window's calls are the adapter's, each with its own flops()."""
+    wl = tiny("toy")
+    cfg = harness.config("toy")
+    prog = harness.program(cfg, "cpu")
+    gen = (lambda s, n, h, w, d: harness.image_like(s, n, h, w, d, False))
+    traffic = harness.Traffic(wl, SEED, "cpu", gen)
+    (call,) = prog.calls(traffic.batches[0])
+    assert call.flops() == 2 * 9 * (3 * 8 + 8 * 12) * 2 * 24 * 32
+    assert prog.out_px(traffic.batches[0]) == 2 * 48 * 64
+
+
+@pytest.mark.parametrize("path", [
+    "waifu2x_torch/pipeline.py", "benchmark/../waifu2x_torch/pipeline.py",
+    "benchmark/configs/scale2x.json", "/benchmark/run.py"])
+def test_modules_load_from_the_benchmark_alone(path):
+    with pytest.raises(ValueError):
+        harness.load_module(path)
 
 
 SWEEP = "scale2x.sweep_720_4k"
