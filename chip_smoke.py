@@ -340,6 +340,14 @@ Phases (any failure raises and exits non-zero):
      each launch's route read in MID_LAUNCHES; each layer timed in turns
      against the tile kernel at scale512 and the chain's shapes; the
      plans' bytes staged from L2 a tile; one stack call's routes.
+ 34. UpCUNet's 3x3 layers on csrc/mma.cu (phase34 below; ops/stack.py:
+     conv3x3_mma, keyed by (ci, co)): each of the ten layers of a 436-px
+     tile that run there (32 -> 64, 64 -> 64, 64 -> 128 on vgg_7's
+     instances, 128 -> 64 on its own) at its plane in that tile, two
+     tiles, against mma_layer_plain within one bf16 ulp (check_mma_layer),
+     each call one launch on its plan's route by MMA_SHAPES; then one
+     upcunet2x_batch_u8 dispatch of a 1080p frame, its launches by (ci, co,
+     route) the ten layers' once a chunk of tiles.
 Phase 15 also runs the ns1080 chain with its f32 noise stack under the
 Winograd switch (the f32 stack on l6_wino_tf32, the bf16 one on
 l6_wino_mma) and gates the scale512 int8 step and stream at 50 dB.
@@ -4516,6 +4524,75 @@ def phase33(dev: torch.device, smi: str) -> list:
     return rows
 
 
+def phase34(dev: torch.device, smi: str) -> dict:
+    """34. UpCUNet's 3x3 layers on csrc/mma.cu through ops/stack.py:
+    conv3x3_mma, at the planes of a 436-px tile (models/cunet.py:
+    layer_sides), two tiles a call: each against mma_layer_plain within one
+    bf16 ulp at the output's magnitude (check_mma_layer), and one launch on
+    mma_plan's route, counted by (ci, co, route) in stack.MMA_SHAPES; then
+    one pipeline.upcunet2x_batch_u8 dispatch of a 1080p frame on seeded
+    weights, its MMA_SHAPES each such layer once a chunk of tiles. Returns
+    the dispatch's launches by shape and route."""
+    from waifu2x_torch import pipeline
+    from waifu2x_torch.models import cunet
+    from waifu2x_torch.ops import stack, unet
+    from waifu2x_torch.ops.s2d import pack_mma
+
+    t0 = time.perf_counter()
+    tile = 436
+    sides = cunet.layer_sides(tile)
+    layers = [k for k in cunet.LAYERS
+              if k.kind == "conv3" and stack.has_mma(k.cin, k.cout)]
+    gen = torch.Generator(device=dev).manual_seed(34)
+    for k in layers:
+        ci, co = k.cin, k.cout
+        side = sides[k.key][0]
+        x = torch.randn((2, side, side, ci), device=dev,
+                        generator=gen).to(torch.bfloat16)
+        w = torch.randn((co, ci, 3, 3), device=dev, generator=gen) * (
+            2.0 / (9 * ci)) ** 0.5
+        b = torch.randn((co,), device=dev, generator=gen) * 0.1
+        wp = pack_mma(w.permute(2, 3, 1, 0)).to(torch.bfloat16).contiguous()
+        stack.reset_launches()
+        got = stack.conv3x3_mma(x, wp, b)
+        torch.cuda.synchronize()
+        route = stack.mma_plan(ci, co).route
+        if stack.MMA_SHAPES != {(ci, co, route): 1}:
+            raise AssertionError(f"{k.key}: launches {stack.MMA_SHAPES}, "
+                                 f"want one on {route}")
+        worst, differ = check_mma_layer(
+            f"{k.key} {ci} -> {co} at {side} px", got,
+            mma_plain_in_chunks(stack, x, wp, b))
+        log(f"phase 34 {k.key} ({ci} -> {co}) {tuple(x.shape)}: route "
+            f"{route}, max |kernel - plain| {worst:.3e}, {differ:.3%} of "
+            f"outputs differ")
+        del x, got
+        torch.cuda.empty_cache()
+    model = unet.CunetModel.build(cunet.init_params(20181022),
+                                  torch.bfloat16, dev, tile)
+    rng = np.random.default_rng(34)
+    frame = torch.from_numpy(structured_bgr(rng, 1, 1080, 1920)).to(dev)
+    stack.reset_launches()
+    out = pipeline.upcunet2x_batch_u8(pipeline.unit_rgb(frame), model)
+    torch.cuda.synchronize()
+    step = tile - 2 * pipeline.CUNET_HALO
+    tiles = -(-1080 // step) * -(-1920 // step)
+    chunks = -(-tiles // pipeline.cunet_chunk(model))
+    want = {}
+    for k in layers:
+        key = (k.cin, k.cout, stack.mma_plan(k.cin, k.cout).route)
+        want[key] = want.get(key, 0) + chunks
+    if out.shape != (1, 2160, 3840, 3) or stack.MMA_SHAPES != want:
+        raise AssertionError(f"upcunet2x_batch_u8 {tuple(out.shape)}: "
+                             f"launches {stack.MMA_SHAPES}, want {want}")
+    got = {f"{a}>{c}:{r}": v for (a, c, r), v in stack.MMA_SHAPES.items()}
+    log(f"phase 34 one 1080p UpCUNet dispatch on {smi} ({tiles} tiles, "
+        f"{chunks} chunk(s)): csrc/mma.cu launches by shape and route "
+        f"{got}; {time.perf_counter() - t0:.1f} s")
+    stack.reset_launches()
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5871,6 +5948,8 @@ def main() -> int:
                           "l5max": i8_l5max_launches})
     torch.cuda.empty_cache()
     mma_turns = phase33(dev, smi)
+    torch.cuda.empty_cache()
+    phase34(dev, smi)
     torch.cuda.empty_cache()
     log(f"{time.perf_counter() - t_start:.1f} s so far")
     cli_launches = phase28(dev, smi)

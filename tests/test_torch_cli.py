@@ -54,8 +54,15 @@ def _actions(parser):
 
 
 def test_flags_equal_jax_except_device():
+    """Every flag of the JAX CLI, the same; --device differs; the port's
+    own --arch, --model_file and --model_seed (UpCUNet) are added, their
+    defaults the 7-layer model's path."""
     got, want = _actions(tcli.build_parser()), _actions(jcli.build_parser())
-    assert set(got) == set(want)
+    own = {"arch", "model_file", "model_seed"}
+    assert set(got) == set(want) | own and not own & set(want)
+    assert got["arch"].default == "vgg7"
+    assert got["arch"].choices == ["vgg7", "upcunet"]
+    assert got["model_file"].default is got["model_seed"].default is None
     for dest, a in want.items():
         b = got[dest]
         fields = ("option_strings", "nargs", "const", "required", "type",

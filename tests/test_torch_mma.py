@@ -285,16 +285,19 @@ def test_persistent_plan_matches_mma_cu():
     assert "RES_THREADS = RES_CONSUMERS + 32" in src
     assert const("SMEM_MAX") == stack.SMEM_MAX
     assert "SLOTS = FIT < 8 ? FIT : 8" in src and stack._RES_SLOTS == 8
-    table = re.findall(r"W2X_MMA_CASE\((\d), (\d+), (\d+), (\d+), (\d)\)",
-                       src)
-    assert {(int(ci), int(co)): (int(kc), int(st))
-            for _, ci, co, kc, st in table} == stack._MMA_CHUNK
+    table = re.findall(r"W2X_MMA_CASE\((\d+), (\d+), (\d+), (\d)\)", src)
+    alone = re.findall(r"W2X_MMA_PERSISTENT\((\d+), (\d+), (\d+)\)", src)
+    assert {**{(int(ci), int(co)): (int(kc), int(st))
+               for ci, co, kc, st in table},
+            **{(int(ci), int(co)): (int(kc), None)
+               for ci, co, kc in alone}} == stack._MMA_CHUNK
 
 
 @pytest.mark.parametrize("ci,co", [(32, 48), (1, 32), (128, 1), (64, 32),
-                                   (128, 64)])
+                                   (128, 256)])
 def test_mma_plan_rejects(ci, co):
-    """Only the five mid-layer widths have a tensor-core kernel."""
+    """Only vgg_7's five mid-layer widths and UpCUNet's 128 -> 64 have a
+    tensor-core kernel (UpCUNet's 128 -> 256 runs on cuDNN)."""
     with pytest.raises(ValueError):
         stack.mma_plan(ci, co)
 
@@ -609,10 +612,12 @@ def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
         return
     for k, (_, args) in list(enumerate(calls))[1:6]:
         plan = stack.mma_plan(*stack.WIDTHS[k])
-        # (bf16, layer, x, wp, b, y, n, hin, win, smem_bytes, stream)
-        assert args[:2] == (1, k) and args[3] == sp.wm[k - 1].data_ptr()
-        assert args[4] == sp[k][1].data_ptr()
-        assert args[6:] == (n, 2 * ph + 14 - 2 * k, 2 * pw + 14 - 2 * k,
+        # (bf16, ci, co, x, wp, b, y, n, hin, win, smem_bytes, stream): the
+        # entry is keyed by the layer's widths
+        assert args[:3] == (1, *stack.WIDTHS[k])
+        assert args[4] == sp.wm[k - 1].data_ptr()
+        assert args[5] == sp[k][1].data_ptr()
+        assert args[7:] == (n, 2 * ph + 14 - 2 * k, 2 * pw + 14 - 2 * k,
                             plan.smem_bytes, 0)
 
 
@@ -684,10 +689,10 @@ def test_tile_kernel_dispatch(sp16, k):
     assert fn0 == "w2x_mma_layer_variant" and args0[:4] == (1, k - 1, 0, 0)
     assert args0[8:] == (2, 20, 24, stack.mma_plan(
         ci, co, persistent=False).smem_bytes, 0)
-    # (bf16, layer, x, wp, b, y, n, hin, win, smem, stream)
-    assert fn1 == "w2x_mma_layer" and args1[6:] == (
-        2, 20, 24, stack.mma_plan(ci, co).smem_bytes, 0)
-    assert args0[5] == args1[3] == sp16.wm[k - 2].data_ptr()
+    # (bf16, ci, co, x, wp, b, y, n, hin, win, smem, stream)
+    assert fn1 == "w2x_mma_layer" and args1[:3] == (1, ci, co)
+    assert args1[7:] == (2, 20, 24, stack.mma_plan(ci, co).smem_bytes, 0)
+    assert args0[5] == args1[4] == sp16.wm[k - 2].data_ptr()
     stack.reset_launches()
 
 
@@ -732,5 +737,6 @@ def test_noise_stack_layer_planes_round_odd_sizes_up(sp16, monkeypatch):
     run = _fake_launcher(calls, True)
     x = torch.zeros(1, dtype=torch.bfloat16)
     run.layer(3, True, x, sp16, x, 1, 27, 38)
-    assert calls[0][1][6:9] == (1, 28 + 14 - 6, 38 + 14 - 6)
+    # (bf16, ci, co, x, wp, b, y, n, hin, win, smem, stream)
+    assert calls[0][1][7:10] == (1, 28 + 14 - 6, 38 + 14 - 6)
     stack.reset_launches()

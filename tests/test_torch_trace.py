@@ -167,3 +167,48 @@ def test_setup_span_records_without_profiler():
     assert trace.summary() == {"w2x.setup.prep": {
         "count": 1, "host_s": rec.host_ms * 1e-3, "device_s": None,
         "attrs": {"dtype": ["torch.bfloat16"]}}}
+
+
+def test_cunet_step_span_tree():
+    """UpCUNet's batched step under a CPU profiler: one w2x.cunet_step root
+    (n, size, tiles, out_px) over the pad-and-cut and the stitch
+    (w2x.cunet.tiles), w2x.cunet.unet1 and w2x.cunet.unet2; below the
+    U-Nets the SE blocks (w2x.cunet.se, with their channels) and each
+    csrc/mma.cu layer's w2x.stack (kind "cunet", ci, co: the plain route
+    on the CPU, so no launch and no route)."""
+    from waifu2x_torch.models import cunet
+    from waifu2x_torch.ops import stack, unet
+    model = unet.CunetModel.build(cunet.init_params(4), torch.bfloat16,
+                                  "cpu", 76)
+    x = torch.rand((1, 40, 70, 3))
+    stack.reset_launches()
+    with torch.profiler.profile(activities=ACTS):
+        out = pl.upcunet2x_batch_u8(x, model)
+    assert out.shape == (1, 80, 140, 3) and out.dtype == torch.uint8
+    recs = [r for r in trace.records() if not r.name.startswith(trace.SETUP)]
+    by_id = {r.id: r for r in recs}
+    (root,) = _named(recs, "w2x.cunet_step")
+    assert root.parent is None and {r.root for r in recs} == {root.id}
+    assert root.attrs == {"n": 1, "size": (40, 70), "tiles": 2,
+                          "out_px": 4 * 40 * 70}
+    tiles = _named(recs, "w2x.cunet.tiles")
+    (u1,) = _named(recs, "w2x.cunet.unet1")
+    (u2,) = _named(recs, "w2x.cunet.unet2")
+    assert len(tiles) == 2
+    assert all(r.parent == root.id for r in tiles + [u1, u2])
+    se = _named(recs, "w2x.cunet.se")
+    assert sorted((by_id[r.parent].name, r.attrs["channels"]) for r in se) \
+        == [("w2x.cunet.unet1", 64), ("w2x.cunet.unet2", 64),
+            ("w2x.cunet.unet2", 128), ("w2x.cunet.unet2", 128)]
+    stacks = _named(recs, "w2x.stack")
+    assert sorted((by_id[r.parent].name, r.attrs["ci"], r.attrs["co"])
+                  for r in stacks) == sorted(
+        [("w2x.cunet.unet1", 32, 64), ("w2x.cunet.unet1", 64, 128),
+         ("w2x.cunet.unet1", 128, 64), ("w2x.cunet.unet1", 64, 64),
+         ("w2x.cunet.unet2", 32, 64), ("w2x.cunet.unet2", 64, 64),
+         ("w2x.cunet.unet2", 64, 128), ("w2x.cunet.unet2", 128, 64),
+         ("w2x.cunet.unet2", 64, 64), ("w2x.cunet.unet2", 64, 64)])
+    assert all(r.attrs["kind"] == "cunet" and "route" not in r.attrs
+               for r in stacks)
+    assert stack.LAUNCHES == 0 and stack.MMA_SHAPES == {}
+    assert len(recs) == 1 + 2 + 2 + 4 + 10

@@ -10,6 +10,13 @@ chooses between the CUDA card (the default) and the CPU.
                   [--noise_level 1|2] [--scale_ratio 2.0] [--model_dir DIR]
                   [-j 4] [--mesh auto|off|DPxSP|DPxDYxSP]
                   [--device cuda|cpu]
+                  [--arch vgg7|upcunet [--model_file W.pt | --model_seed N]]
+
+--arch upcunet converts with waifu2x's UpCUNet (models/cunet.py), one RGB
+2x pass over 436-pixel tiles (bf16 on the card, f32 on the CPU), its
+weights from --model_file, a file in the port's own format (nunif's
+UpCUNet.state_dict() key names, saved by torch.save; models/cunet.py:
+save_params), or drawn from --model_seed.
 """
 
 from __future__ import annotations
@@ -95,6 +102,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "'DPxSP' / 'DPxDYxSP' to pin a shape (frames x rows "
                         "x columns). With --device cpu a pinned shape runs "
                         "on that many CPU positions")
+    p.add_argument("--arch", default="vgg7", choices=["vgg7", "upcunet"],
+                   help="the model: 'vgg7' (default), the reference's "
+                        "7-layer model from --model_dir, or 'upcunet', "
+                        "waifu2x's UpCUNet: one RGB 2x pass over 436-pixel "
+                        "tiles (-m scale or noise_scale, as its weights "
+                        "were trained; --scale_ratio 2)")
+    p.add_argument("--model_file", "--model-file", default=None,
+                   metavar="PATH",
+                   help="UpCUNet weights in the port's format: a dict "
+                        "under nunif's UpCUNet.state_dict() key names "
+                        "(unet1.conv1.conv.0.weight, ...) saved by "
+                        "torch.save (a checkpoint holding it under "
+                        "'state_dict' loads too)")
+    p.add_argument("--model_seed", "--model-seed", type=int, default=None,
+                   metavar="N",
+                   help="UpCUNet weights drawn from seed N (no trained "
+                        "file; for trials and benchmarks)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace to DIR")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -118,6 +142,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
         compute_dtype=args.compute_dtype,
         use_pallas={"auto": "auto", "on": True, "off": False}[args.pallas],
         mesh=args.mesh,
+        arch=args.arch,
+        model_file=args.model_file,
+        model_seed=args.model_seed,
         alpha=args.alpha,
     )
 
@@ -154,7 +181,11 @@ def _write(path: str, out: np.ndarray, secs: dict) -> float:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    cfg = config_from_args(args)
+    try:
+        cfg = config_from_args(args)
+    except ValueError as e:   # flags that no Config takes, e.g. UpCUNet x4
+        log.error("%s", e)
+        return 1
 
     if args.device == "cuda" and not torch.cuda.is_available():
         log.error("no CUDA device is available; pass --device cpu to "
@@ -226,26 +257,31 @@ def _run(args: argparse.Namespace, cfg: Config) -> int:
     # (a card, the flagship model), the scale part is one 2x iteration with
     # no shrink (the stream's contract), no alpha handling, and every image
     # big enough for the kernel path's fidelity gate (SMALL_IMG_PX) unless
-    # --pallas on forces it.
-    stream_ok = (
-        len(imgs) > 1 and cfg.alpha == "ignore"
-        and (cfg.mode == "noise" or scale_plan(cfg.scale_ratio) == (1, 0.0))
-        and (cfg.mode == "noise" or converter.fast_scale is not None)
-        and (cfg.mode == "scale" or converter.fast_noise is not None)
-        and (cfg.use_pallas is True
-             or all(im.shape[0] * im.shape[1] >= SMALL_IMG_PX
-                    for im in imgs)))
+    # --pallas on forces it. An UpCUNet always streams several inputs.
+    stream_ok = len(imgs) > 1 and cfg.alpha == "ignore" and (
+        converter.cunet is not None or (
+            (cfg.mode == "noise" or scale_plan(cfg.scale_ratio) == (1, 0.0))
+            and (cfg.mode == "noise" or converter.fast_scale is not None)
+            and (cfg.mode == "scale" or converter.fast_noise is not None)
+            and (cfg.use_pallas is True
+                 or all(im.shape[0] * im.shape[1] >= SMALL_IMG_PX
+                        for im in imgs))))
 
     total_mp = 0.0
     spans = {}
     with _profiled(args.profile, converter.device, spans):
         if stream_ok:
-            sc = StreamConverter(
-                fast=converter.fast_scale,
-                fast_noise=converter.fast_noise, mode=cfg.mode,
-                device=converter.device,
-                mesh=resolve_stream_mesh(cfg.mesh_shape(),
-                                         converter.device))
+            if converter.cunet is not None:
+                sc = StreamConverter(fast=None, mode="scale",
+                                     device=converter.device,
+                                     cunet=converter.cunet)
+            else:
+                sc = StreamConverter(
+                    fast=converter.fast_scale,
+                    fast_noise=converter.fast_noise, mode=cfg.mode,
+                    device=converter.device,
+                    mesh=resolve_stream_mesh(cfg.mesh_shape(),
+                                             converter.device))
             outs = iter(sc.process_frames(imgs))
             for path in inputs:
                 t = time.perf_counter()

@@ -6,7 +6,11 @@ modelUtility singleton carrying nJob + blockSplittingSize
 The port's own copy of the JAX package's Config: same fields, defaults and
 validation, so one Config value means the same conversion in both
 packages. `use_pallas` keeps its name for that reason; here it selects the
-hand-written CUDA conv-stack kernel (ops/stack.py)."""
+hand-written CUDA conv-stack kernel (ops/stack.py). Three fields are the
+port's own: `arch` chooses the model ("vgg7", the reference's 7-layer
+model, or "upcunet", waifu2x's UpCUNet, models/cunet.py), and an UpCUNet
+takes its weights from `model_file` (the port's format, models/cunet.py:
+save_params) or draws them from `model_seed`."""
 
 from __future__ import annotations
 
@@ -42,6 +46,12 @@ class Config:
     mesh: str = "auto"                 # multi-device mesh: "auto" | "off" |
     #   "DPxSP" | "DPxDYxSP" (parallel/mesh_pipeline.py; "auto" shards only
     #   on a host with two or more cards)
+    arch: str = "vgg7"                 # vgg7 | upcunet: the model. An
+    #   UpCUNet is one RGB 2x pass (mode scale or noise_scale, as its
+    #   weights were trained; scale_ratio 2) over 436-pixel tiles, bf16 on
+    #   the card under compute_dtype "auto", f32 on the CPU
+    model_file: "str | None" = None    # UpCUNet weights (models/cunet.py)
+    model_seed: "int | None" = None    # UpCUNet weights drawn from a seed
     alpha: str = "ignore"              # ignore (reference: IMREAD_COLOR
     #   drops alpha, main.cpp:74) | bicubic (resample alpha alongside,
     #   hints-jp.md:76-81) | flatten (composite onto white before
@@ -65,6 +75,12 @@ class Config:
             raise ValueError(f"invalid use_pallas: {self.use_pallas!r}")
         if self.alpha not in ("ignore", "bicubic", "flatten"):
             raise ValueError(f"invalid alpha: {self.alpha!r}")
+        if self.arch not in ("vgg7", "upcunet"):
+            raise ValueError(f"invalid arch: {self.arch!r}")
+        if self.arch == "upcunet" and (self.mode == "noise"
+                                       or self.scale_ratio != 2.0):
+            raise ValueError("an UpCUNet is one 2x pass: mode scale or "
+                             "noise_scale, scale_ratio 2")
         self.mesh_shape()   # validates the mesh spec
 
     def mesh_shape(self) -> "tuple[int, int, int] | str":

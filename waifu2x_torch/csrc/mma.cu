@@ -5,10 +5,11 @@
 // waifu2x_torch/ops/stack.py: _Launcher.layer sends layers 2-6 of every
 // bf16 stack call here (stack_scale, stack_scale_dense,
 // stack_scale_fused_u8, stack_noise_s2d, stack_noise, stack_scale_upto,
-// layer5_plane, and layers 2-5 under l6_i8 / l6_wino), mma_layer_plain is
-// the plain version, mma_plan the plan of both kernels below, mma_walk
-// the persistent kernel's tile walk, and ops/s2d.py:pack_mma the weight
-// packer.
+// layer5_plane, and layers 2-5 under l6_i8 / l6_wino) and conv3x3_mma
+// sends UpCUNet's 3x3 layers of the widths below (ops/unet.py): one entry,
+// w2x_mma_layer, keyed by (ci, co). mma_layer_plain is the plain version,
+// mma_plan the plan of both kernels below, mma_walk the persistent
+// kernel's tile walk, and ops/s2d.py:pack_mma the weight packer.
 //
 // Replaces: the mid layers of waifu2x_tpu/ops/pallas_stack.py:_stack_body
 // (the one Pallas kernel behind every stack configuration), whose 128-lane
@@ -791,15 +792,21 @@ cudaError_t launch_mma(const void* x, const void* wp, const void* b, void* y,
 
 }  // namespace
 
-// layer L as CI -> CO in chunks of KC input channels, on the persistent
-// kernel or (tile) on the tile kernel with a ring of ST buffers
-// (ops/stack.py:_MMA_CHUNK holds the same table)
-#define W2X_MMA_CASE(L, CI, CO, KC, ST)                                    \
-  if (layer == L)                                                          \
+// a CI -> CO layer in chunks of KC input channels, on the persistent kernel
+// or (tile) on the tile kernel with a ring of ST buffers (ops/stack.py:
+// _MMA_CHUNK holds the same table)
+#define W2X_MMA_CASE(CI, CO, KC, ST)                                       \
+  if (ci == CI && co == CO)                                                \
     return (int)(tile ? launch_mma_tile<CI, CO, KC, ST>(                   \
                             x, wp, b, y, n, hin, win, smem_bytes, s)       \
                       : launch_mma<CI, CO, KC>(x, wp, b, y, n, hin, win,   \
                                                smem_bytes, s));
+// a CI -> CO layer on the persistent kernel alone: no tile-kernel instance
+// (ops/stack.py:_MMA_CHUNK holds it with no ring)
+#define W2X_MMA_PERSISTENT(CI, CO, KC)                                     \
+  if (ci == CI && co == CO && !tile)                                       \
+    return (int)launch_mma<CI, CO, KC>(x, wp, b, y, n, hin, win,           \
+                                       smem_bytes, s);
 // the variants the probes run: layer L under zero-shift mask ZS or with two
 // accumulators (ops/stack.py:_MMA_VARIANTS holds the same table)
 #define W2X_MMA_VARIANT(L, CI, CO, KC, ST, ZS, PP)                         \
@@ -809,14 +816,19 @@ cudaError_t launch_mma(const void* x, const void* wp, const void* b, void* y,
 
 namespace {
 
-int mma_layer(int tile, int layer, const void* x, const void* wp,
-              const void* b, void* y, int n, int hin, int win, int smem_bytes,
-              cudaStream_t s) {
-  W2X_MMA_CASE(1, 32, 32, 32, 1)
-  W2X_MMA_CASE(2, 32, 64, 32, 1)
-  W2X_MMA_CASE(3, 64, 64, 16, 2)
-  W2X_MMA_CASE(4, 64, 128, 32, 2)
-  W2X_MMA_CASE(5, 128, 128, 16, 2)
+// vgg_7's layers 2-6 (`layer` 1..5 of the variant entry): (CI, CO)
+constexpr int VGG7_MID[6][2] = {{0, 0},   {32, 32},  {32, 64},
+                                {64, 64}, {64, 128}, {128, 128}};
+
+int mma_conv(int tile, int ci, int co, const void* x, const void* wp,
+             const void* b, void* y, int n, int hin, int win, int smem_bytes,
+             cudaStream_t s) {
+  W2X_MMA_CASE(32, 32, 32, 1)    // vgg_7 layer 2
+  W2X_MMA_CASE(32, 64, 32, 1)    // vgg_7 layer 3; UpCUNet's UNetConv(3, 32, 64)
+  W2X_MMA_CASE(64, 64, 16, 2)    // vgg_7 layer 4; UpCUNet's 64 -> 64 convs
+  W2X_MMA_CASE(64, 128, 32, 2)   // vgg_7 layer 5; UpCUNet's 64 -> 128 convs
+  W2X_MMA_CASE(128, 128, 16, 2)  // vgg_7 layer 6
+  W2X_MMA_PERSISTENT(128, 64, 16)  // UpCUNet's 128 -> 64 convs
   return (int)cudaErrorInvalidValue;
 }
 
@@ -824,20 +836,22 @@ int mma_layer(int tile, int layer, const void* x, const void* wp,
 
 extern "C" {
 
-// Launch layer `layer` (1..5: the stack's layers 2-6) on `stream` on the
-// persistent kernel: x [n, hin, win, CI] bf16 -> y [n, hin-2, win-2, CO]
-// bf16, with wp = pack_mma(w) and b [CO] f32, x, wp and y 16-byte aligned.
-// smem_bytes is mma_plan's count of the launch's shared memory; bytes that
-// disagree with the kernel's own count give cudaErrorInvalidValue. bf16
-// must be non-zero: f32 storage takes mma_tf32.cu. Returns the cudaError_t
-// of the launch (0 on success).
-int w2x_mma_layer(int bf16, int layer, const void* x, const void* wp,
+// Launch a ci -> co layer on `stream` on the persistent kernel: x [n, hin,
+// win, ci] bf16 -> y [n, hin-2, win-2, co] bf16, with wp = pack_mma(w) and
+// b [co] f32, x, wp and y 16-byte aligned. (ci, co) is one of the shapes of
+// mma_conv's table (vgg_7's layers 2-6 and UpCUNet's 3x3 layers of those
+// widths and 128 -> 64); any other gives cudaErrorInvalidValue. smem_bytes
+// is mma_plan's count of the launch's shared memory; bytes that disagree
+// with the kernel's own count give cudaErrorInvalidValue. bf16 must be
+// non-zero: f32 storage takes mma_tf32.cu. Returns the cudaError_t of the
+// launch (0 on success).
+int w2x_mma_layer(int bf16, int ci, int co, const void* x, const void* wp,
                   const void* b, void* y, int n, int hin, int win,
                   int smem_bytes, void* stream) {
   if (!bf16 || n <= 0 || hin < 3 || win < 3)
     return (int)cudaErrorInvalidValue;
-  return mma_layer(0, layer, x, wp, b, y, n, hin, win, smem_bytes,
-                   static_cast<cudaStream_t>(stream));
+  return mma_conv(0, ci, co, x, wp, b, y, n, hin, win, smem_bytes,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // Layer `layer` (1..5) on the tile kernel: zs = pp = 0 is the same function
@@ -854,7 +868,10 @@ int w2x_mma_layer_variant(int bf16, int layer, int zs, int pp, const void* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   pp = pp != 0;
   if (zs == 0 && !pp)
-    return mma_layer(1, layer, x, wp, b, y, n, hin, win, smem_bytes, s);
+    return layer >= 1 && layer <= 5
+               ? mma_conv(1, VGG7_MID[layer][0], VGG7_MID[layer][1], x, wp, b,
+                          y, n, hin, win, smem_bytes, s)
+               : (int)cudaErrorInvalidValue;
   W2X_MMA_VARIANT(1, 32, 32, 32, 1, 1, 0)
   W2X_MMA_VARIANT(1, 32, 32, 32, 1, 2, 0)
   W2X_MMA_VARIANT(1, 32, 32, 32, 1, 3, 0)
@@ -878,7 +895,7 @@ int w2x_mma_layer_variant(int bf16, int layer, int zs, int pp, const void* x,
   return (int)cudaErrorInvalidValue;
 }
 
-// Layer 5 (64 -> 128, `layer` 4 of w2x_mma_layer) with B4's tile maxima in
+// Layer 5 (64 -> 128, `layer` 4 of the variant entry) with B4's tile maxima in
 // its epilogue (AM), on the tile kernel, and m [n, ny, nx] f32
 // (zeros on entry) gets max |x5| of each tile window of its output x5
 // [n, 2 ny tr + 4, 2 nx tc + 4, 128], as csrc/l6.cu's w2x_tile_absmax

@@ -27,6 +27,10 @@ names):
         that stage per s2d cell (B7, see the function); out="whole",
         "lane0" and "phase_taps" are the truncation probes' other forms
 
+    conv3x3_mma(x [N, h, w, ci] bf16, wp, b) -> [N, h-2, w-2, co]
+        one 3x3 layer + bias + LeakyReLU on csrc/mma.cu, keyed by its
+        widths (ci, co) alone: the entry of UpCUNet's 3x3 layers
+
 in the input's dtype where not said otherwise. Storage is f32 or bf16.
 Products and sums are f32 (TF32 off, but for the f32 calls' layers 2-6,
 three TF32 products a term held to 3e-5); in bf16 each layer's activation
@@ -56,7 +60,11 @@ in one run. mma_layer is one such layer alone (either dtype),
 mma_layer_plain its plain version from the packed weights, mma_plan the
 bf16 kernels' tile, chunk and shared-memory plan, mma_walk the persistent
 kernel's walk over the tiles; mma_chain is the probe
-of its inner loop (tools/mma_probe.py). The probes of ops/probe.py also
+of its inner loop (tools/mma_probe.py). The C entry of the persistent
+kernel is keyed by the layer's widths (ci, co), not by vgg_7's layer index:
+vgg_7's layers and conv3x3_mma (UpCUNet's 3x3 layers of widths 32 -> 64,
+64 -> 64, 64 -> 128 and 128 -> 64) launch it alike, and MMA_SHAPES counts
+its launches by (ci, co, route). The probes of ops/probe.py also
 run variants that no product path takes: the tensor-core layer under a
 zero-shift mask (zs: a tap on a zeroed axis reads its own s2d cell) or with
 two accumulators (pp: the same function), and layer 7 under a mask, folded
@@ -171,7 +179,7 @@ from waifu2x_torch.ops.s2d import (
 )
 from waifu2x_torch.utils import trace
 
-# (cin, cout) of the flagship architecture, the only one the kernel takes
+# (cin, cout) of the flagship architecture, the only one the stack takes
 WIDTHS = ((1, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128),
           (128, 1))
 DTYPES = (torch.float32, torch.bfloat16)
@@ -216,6 +224,10 @@ MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0,
                 "mma_tf32": 0, "mma_resident": 0, "mma_split": 0,
                 "mma_tile": 0}
 MID_ROUTES = ("mma_resident", "mma_split", "mma_tile")
+# every launch of csrc/mma.cu's layer kernels without a probe variant (the
+# MID_LAUNCHES "mma" ones), by (ci, co, route): route "resident", "split"
+# or "tile" as MID_ROUTES less its "mma_"
+MMA_SHAPES: dict = {}
 # the launches of layer 1 by the kernel that ran them: "l1" csrc/l1.cu (every
 # stack call, l1_layer alone), "ffma" stack.cu's plane modes (l1_layer with
 # ffma=True only, the timing yardstick)
@@ -277,6 +289,7 @@ def reset_launches() -> None:
                    GATHER_LAUNCHES):
         for kind in counts:
             counts[kind] = 0
+    MMA_SHAPES.clear()
 
 
 class StackParams(tuple):
@@ -430,18 +443,28 @@ _SLAB = 18 * 18 * 16   # a k8 slab of the 18 x 18 window, as TMA lands it
 # rounded up so that each slab starts 128-byte aligned), its threads (four
 # warpgroups and a producer warp) and the most ring slots it takes
 _RES_STRIDE, _RES_THREADS, _RES_SLOTS = 328, 544, 8
-# (kc, stages) per (ci, co), as csrc/mma.cu instantiates each layer (PERF.md
-# has the times of the other chunkings that were tried on an H100)
+# (kc, stages) per (ci, co), as csrc/mma.cu instantiates each layer shape
+# (PERF.md has the times of the other chunkings that were tried on an H100):
+# vgg_7's layers 2-6 on both kernels, and UpCUNet's 128 -> 64 on the
+# persistent one alone (stages None: no tile kernel); UpCUNet's 32 -> 64,
+# 64 -> 64 and 64 -> 128 layers take vgg_7's instances
 _MMA_CHUNK = {(32, 32): (32, 1), (32, 64): (32, 1), (64, 64): (16, 2),
-              (64, 128): (32, 2), (128, 128): (16, 2)}
+              (64, 128): (32, 2), (128, 128): (16, 2), (128, 64): (16, None)}
+
+
+def has_mma(ci: int, co: int) -> bool:
+    """Whether csrc/mma.cu's persistent kernel (conv3x3_mma) takes a bf16
+    3x3 ci -> co layer: the routing of UpCUNet's 3x3 layers (ops/unet.py;
+    128 -> 256 and 256 -> 128 stay on cuDNN)."""
+    return (ci, co) in _MMA_CHUNK
 # (kc, stages) of the variants csrc/mma.cu instantiates for the probes, by
-# (ci, co, zs, pp): every layer under each zero-shift mask and with two
-# accumulators, in its own chunk plan but for 64 -> 128 under zs 3, whose
-# four window copies in chunks of 32 would need 316 KB
+# (ci, co, zs, pp): every vgg_7 layer 2-6 under each zero-shift mask and
+# with two accumulators, in its own chunk plan but for 64 -> 128 under zs 3,
+# whose four window copies in chunks of 32 would need 316 KB
 _MMA_VARIANTS = {
     **{(ci, co, zs, False): _MMA_CHUNK[(ci, co)]
-       for ci, co in _MMA_CHUNK for zs in (1, 2, 3)},
-    **{(ci, co, 0, True): _MMA_CHUNK[(ci, co)] for ci, co in _MMA_CHUNK},
+       for ci, co in WIDTHS[1:6] for zs in (1, 2, 3)},
+    **{(ci, co, 0, True): _MMA_CHUNK[(ci, co)] for ci, co in WIDTHS[1:6]},
     (64, 128, 3, False): (16, 2)}
 _ZS_COPIES = {0: 1, 1: 2, 2: 2, 3: 4}   # window copies a chunk stages
 
@@ -490,7 +513,7 @@ def mma_plan(ci: int, co: int, zs: int = 0, pp: bool = False,
         chunk = _MMA_CHUNK.get((ci, co))
     else:
         chunk = _MMA_VARIANTS.get((ci, co, zs, bool(pp)))
-    if chunk is None:
+    if chunk is None or chunk[1] is None:
         raise ValueError(f"no tensor-core kernel for a {ci} -> {co} layer "
                          f"with zs={zs!r}, pp={pp!r}")
     kc, stages = chunk
@@ -521,7 +544,7 @@ def tf32_plan(ci: int, co: int) -> MmaPlan:
     the ring one a_lo window; the epilogue's padded f32 output tile reuses
     the ring. The C entry takes smem_bytes and refuses bytes that differ
     from its own count."""
-    if (ci, co) not in _MMA_CHUNK:
+    if (ci, co) not in WIDTHS[1:6]:
         raise ValueError(f"no 3xTF32 kernel for a {ci} -> {co} layer")
     k4c, win = _TF32_KC // 4, _MMA_TILE + 2
     stride = win * win + (8 // k4c - win * win % 8 + 8) % 8
@@ -1436,8 +1459,8 @@ _ARGTYPES = {
                                   _PTR],
               "w2x_stack_last_zs": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT,
                                     _INT, _INT, _PTR]},
-    "mma": {"w2x_mma_layer": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                              _INT, _INT, _PTR],
+    "mma": {"w2x_mma_layer": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT,
+                              _INT, _INT, _INT, _PTR],
             "w2x_mma_chain": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR],
             "w2x_mma_layer_variant": [_INT, _INT, _INT, _INT, _PTR, _PTR,
                                       _PTR, _PTR, _INT, _INT, _INT, _INT,
@@ -1675,6 +1698,10 @@ class _Launcher:
         if wm is None:
             raise ValueError("the tensor-core layers need prep_params' "
                              "packed weights (StackParams.wm)")
+        if persistent and not (zs or pp):
+            self.mma(src, wm[k - 1], sp[k][1], dst, n, hin, win,
+                     f"layer {k + 1} (mma)", l6)
+            return
         plan = mma_plan(*WIDTHS[k], zs, pp, persistent)
         args = (src.data_ptr(), wm[k - 1].data_ptr(), sp[k][1].data_ptr(),
                 dst.data_ptr(), n, hin, win, plan.smem_bytes)
@@ -1683,14 +1710,30 @@ class _Launcher:
                      f"layer {k + 1} (mma, zs {zs}, pp {int(pp)})", l6, k, zs,
                      int(pp), *args, mid="mma_pp" if pp else "mma_zs")
             return
-        if plan.route == "tile":
-            self.run("mma", "w2x_mma_layer_variant",
-                     f"layer {k + 1} (mma, tile kernel)", l6, k, 0, 0, *args,
-                     mid="mma")
-        else:
-            self.run("mma", "w2x_mma_layer", f"layer {k + 1} (mma)", l6, k,
-                     *args, mid="mma")
-        MID_LAUNCHES["mma_" + plan.route] += 1
+        self.run("mma", "w2x_mma_layer_variant",
+                 f"layer {k + 1} (mma, tile kernel)", l6, k, 0, 0, *args,
+                 mid="mma")
+        self._route(*WIDTHS[k], plan.route)
+
+    def mma(self, src, wp, b, dst, n, hin, win, what: str, l6=None) -> str:
+        """A ci -> co layer on csrc/mma.cu's persistent kernel, its entry
+        keyed by the widths of wp = pack_mma(w) [ci/8, 9, co, 8]: src [n,
+        hin, win, ci] -> dst [n, hin-2, win-2, co], bias b [co] f32. Counted
+        under MID_LAUNCHES "mma" and the plan's route, and MMA_SHAPES.
+        Returns the route."""
+        ci, co = wp.shape[0] * 8, wp.shape[2]
+        plan = mma_plan(ci, co)
+        self.run("mma", "w2x_mma_layer", what, l6, ci, co, src.data_ptr(),
+                 wp.data_ptr(), b.data_ptr(), dst.data_ptr(), n, hin, win,
+                 plan.smem_bytes, mid="mma")
+        self._route(ci, co, plan.route)
+        return plan.route
+
+    @staticmethod
+    def _route(ci: int, co: int, route: str) -> None:
+        MID_LAUNCHES["mma_" + route] += 1
+        key = (ci, co, route)
+        MMA_SHAPES[key] = MMA_SHAPES.get(key, 0) + 1
 
     def wino(self, x5, sp, y6, n, h5, w5, l6=None) -> None:
         """Layer 6 as Winograd on an [n, h5, w5, 128] plane: on the tensor
@@ -2091,6 +2134,48 @@ def mma_layer(x: torch.Tensor, sp, k: int, zs: int = 0,
                           persistent=persistent)
         else:
             run.tf32_layer(k - 1, x, sp, y, n, hin, win)
+    return y
+
+
+def conv3x3_mma(x: torch.Tensor, wp: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """One 3x3 layer + bias + LeakyReLU(0.1) on csrc/mma.cu's persistent
+    kernel, keyed by its widths alone: x [N, h, w, ci] bf16 NHWC,
+    contiguous, h, w >= 3; wp = pack_mma(w) [ci/8, 9, co, 8] bf16; b [co]
+    f32 -> [N, h-2, w-2, co] bf16, f32 sums rounded once. (ci, co) is one
+    of the kernel's shapes (has_mma: vgg_7's layers 2-6 and 128 -> 64).
+    CPU tensors take mma_layer_plain; CUDA tensors one launch, which is no
+    stack call's (like mma_layer alone) and counts under MID_LAUNCHES "mma"
+    and its route, and MMA_SHAPES. A "w2x.stack" span (kind "cunet") holds
+    the call, with ci, co and the route it took."""
+    if x.dim() != 4 or wp.dim() != 4 or wp.shape[1] != 9 or wp.shape[3] != 8:
+        raise ValueError(f"conv3x3_mma takes x [N, h, w, ci] and wp [ci/8, "
+                         f"9, co, 8], got {tuple(x.shape)}, {tuple(wp.shape)}")
+    ci, co = wp.shape[0] * 8, wp.shape[2]
+    if not has_mma(ci, co):
+        raise ValueError(f"no tensor-core kernel for a {ci} -> {co} layer")
+    if x.shape[3] != ci or min(x.shape[1:3]) < 3:
+        raise ValueError(f"a {ci} -> {co} layer takes [N, h >= 3, w >= 3, "
+                         f"{ci}], got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16 or wp.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_mma runs bf16, got {x.dtype} x {wp.dtype}")
+    if not (x.is_contiguous() and wp.is_contiguous()):
+        raise ValueError("x and wp must be contiguous")
+    if wp.device != x.device or b.device != x.device or tuple(b.shape) != (
+            co,):
+        raise ValueError(f"wp and b [{co}] must be on {x.device}")
+    n, h, w, _ = x.shape
+    with trace.span("w2x.stack", on=x, kind="cunet", dtype=x.dtype,
+                    shape=x.shape, ci=ci, co=co) as s:
+        if x.device.type == "cpu":
+            return mma_layer_plain(x, wp, b)
+        with torch.cuda.device(x.device):
+            y = torch.empty((n, h - 2, w - 2, co), dtype=x.dtype,
+                            device=x.device)
+            route = _Launcher(None, x, None).mma(
+                x, wp, b.float().contiguous(), y, n, h, w,
+                f"{ci} -> {co} (mma)")
+        s.set(route=route, launches=1)
     return y
 
 

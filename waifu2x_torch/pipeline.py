@@ -36,8 +36,10 @@ import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from waifu2x_torch.config import Config
+from waifu2x_torch.models import cunet
 from waifu2x_torch.models.srcnn import SRCNN, WAIFU2X_7LAYER, validate_params
 from waifu2x_torch.models.weights import load_model_json, model_file_for
 from waifu2x_torch.ops.color import (
@@ -64,6 +66,7 @@ from waifu2x_torch.ops.stack import (
     stack_scale_dense,
     stack_scale_fused_u8,
 )
+from waifu2x_torch.ops.unet import CunetModel, upcunet_tiles_u8
 from waifu2x_torch.parallel.mesh import local_devices
 from waifu2x_torch.parallel.tiles import plan_tiles, tiled_convert
 from waifu2x_torch.utils import trace
@@ -495,6 +498,101 @@ def noise_batch_u8_fused(yuv: torch.Tensor, fast: FastStack,
         return torch.cat(parts, dim=1)
 
 
+# ---------------------------------------------------------------------------
+# UpCUNet (models/cunet.py): an RGB 2x step over fixed tiles.
+# ---------------------------------------------------------------------------
+
+CUNET_HALO = 18            # input pixels of context each side of a tile
+CUNET_CHUNK_BYTES = 24 << 30   # device bytes the tiles of one chunk may hold
+
+
+def cunet_tiles(x: torch.Tensor, tile: int) -> "tuple[torch.Tensor, int, int]":
+    """f32 RGB [n, h, w, 3] -> (tiles [n * ny * nx, tile, tile, 3], ny,
+    nx): the frame padded by CUNET_HALO pixels of edge replicate on every
+    side and its far sides further, replicate, to a multiple of the step
+    tile - 2 CUNET_HALO; tiles cut at that step, image-major, then row,
+    then column. Each tile's output covers 2 step pixels a side of the
+    output, with no overlap."""
+    n, h, w, c = x.shape
+    step = tile - 2 * CUNET_HALO
+    ny, nx = -(-h // step), -(-w // step)
+    xp = F.pad(x.permute(0, 3, 1, 2),
+               (CUNET_HALO, CUNET_HALO + nx * step - w,
+                CUNET_HALO, CUNET_HALO + ny * step - h), mode="replicate")
+    t = xp.unfold(2, tile, step).unfold(3, tile, step)   # [n,c,ny,nx,S,S]
+    return (t.permute(0, 2, 3, 4, 5, 1).reshape(n * ny * nx, tile, tile, c),
+            ny, nx)
+
+
+def cunet_stitch(out: torch.Tensor, n: int, ny: int, nx: int, h: int,
+                 w: int) -> torch.Tensor:
+    """Tile outputs [n * ny * nx, o, o, 3] RGB -> frames [n, h, w, 3] BGR:
+    laid side by side in cunet_tiles' order, cropped, channels reversed."""
+    o = out.shape[1]
+    frames = (out.reshape(n, ny, nx, o, o, 3).permute(0, 1, 3, 2, 4, 5)
+              .reshape(n, ny * o, nx * o, 3))
+    return frames[:, :h, :w].flip(-1)
+
+
+def cunet_chunk(model: CunetModel) -> int:
+    """Tiles one forward pass takes: as many as CUNET_CHUNK_BYTES holds at
+    about four 64-channel bf16 planes of the tile's output size each (the
+    live activations of UNet2's full-resolution end)."""
+    side = 2 * model.tile
+    per_tile = 4 * side * side * 64 * torch.finfo(model.dtype).bits // 8
+    return max(1, CUNET_CHUNK_BYTES // per_tile)
+
+
+def upcunet2x_batch_u8(x: torch.Tensor, model: CunetModel) -> torch.Tensor:
+    """UpCUNet's batched 2x step: f32 RGB in [0, 1], [n, h, w, 3] (the u8
+    BGR frame / 255, channels reversed) -> u8 BGR [n, 2h, 2w, 3]. The frame
+    is cut into model.tile-pixel tiles (cunet_tiles), each converted alone
+    (its SE means over itself; ops/unet.py), in chunks of cunet_chunk tiles,
+    and the tiles' u8 outputs stitched (cunet_stitch). Spans: the step
+    ("w2x.cunet_step": n, size, tiles, out_px), the pad and cut and the
+    stitch ("w2x.cunet.tiles"), and below the forward pass's own."""
+    n, h, w, _ = x.shape
+    with trace.span("w2x.cunet_step", on=x, n=n, size=(h, w),
+                    out_px=4 * n * h * w) as step:
+        with trace.span("w2x.cunet.tiles", on=x):
+            tiles, ny, nx = cunet_tiles(x, model.tile)
+            tiles = tiles.to(model.dtype).contiguous()
+        step.set(tiles=tiles.shape[0])
+        k = cunet_chunk(model)
+        out = torch.cat([upcunet_tiles_u8(tiles[i:i + k], model)
+                         for i in range(0, tiles.shape[0], k)])
+        with trace.span("w2x.cunet.tiles", on=x):
+            return cunet_stitch(out, n, ny, nx, 2 * h, 2 * w).contiguous()
+
+
+def unit_rgb(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """u8 BGR [..., 3] -> f32 RGB in [0, 1], UpCUNet's input."""
+    return u8_to_unit_f32(bgr_u8).flip(-1)
+
+
+def cunet_dtype(cfg: Config, device: torch.device) -> torch.dtype:
+    """An UpCUNet's storage dtype: compute_dtype where it is explicit; under
+    "auto" bf16 on the card (csrc/mma.cu's layers), f32 on the CPU."""
+    if cfg.compute_dtype == "float32" or (cfg.compute_dtype == "auto"
+                                          and device.type != "cuda"):
+        return torch.float32
+    return torch.bfloat16
+
+
+def cunet_params(cfg: Config) -> dict:
+    """cfg's UpCUNet parameters: its model_file (models/cunet.py:
+    load_params), else drawn from its model_seed."""
+    if cfg.model_file:
+        if not os.path.exists(cfg.model_file):
+            raise FileNotFoundError(f"UpCUNet weights not found: "
+                                    f"{cfg.model_file}")
+        return cunet.load_params(cfg.model_file)
+    if cfg.model_seed is not None:
+        return cunet.init_params(cfg.model_seed)
+    raise FileNotFoundError("an UpCUNet needs its weights: a model file "
+                            "(the port's format) or a model seed")
+
+
 def _build_fast(params, scale_input: bool, cfg: Config, device: torch.device,
                 dtype=None) -> "FastStack | None":
     """Resolve cfg.use_pallas to a FastStack or None (non-kernel path).
@@ -553,6 +651,8 @@ class Converter:
     scale_model: "SRCNN | None" = None
     fast_noise: "FastStack | None" = None
     fast_scale: "FastStack | None" = None
+    # cfg.arch "upcunet": the model, and every image takes its 2x step
+    cunet: "CunetModel | None" = None
     # MeshPipelines by mesh shape (parallel/mesh_pipeline.py), built lazily
     _pipes: dict = dataclasses.field(default_factory=dict, repr=False)
     _mesh_warned: bool = dataclasses.field(default=False, repr=False)
@@ -639,8 +739,20 @@ class Converter:
         return conv
 
     @classmethod
+    def from_cunet_params(cls, cfg: Config, params: dict,
+                          device="cuda") -> "Converter":
+        """A Converter over UpCUNet parameters (models/cunet.py), in the
+        dtype cunet_dtype gives."""
+        conv = cls(cfg, resolve_device(device))
+        conv.cunet = CunetModel.build(params, cunet_dtype(cfg, conv.device),
+                                      conv.device)
+        return conv
+
+    @classmethod
     def from_config(cls, cfg: Config, device="cuda") -> "Converter":
         resolve_device(device)   # no card: raise before loading anything
+        if cfg.arch == "upcunet":
+            return cls.from_cunet_params(cfg, cunet_params(cfg), device)
         noise_params = scale_params = None
         if cfg.mode in ("noise", "noise_scale"):
             noise_params = load_model_json(
@@ -663,6 +775,9 @@ class Converter:
         return _scale_step(yuv, self.scale_model, self.cfg)
 
     def process_yuv(self, yuv: torch.Tensor) -> torch.Tensor:
+        if self.cunet is not None:
+            raise ValueError("an UpCUNet converts RGB, not YUV: use "
+                             "process_bgr_u8")
         if self.noise_model is not None:
             yuv = self._apply_noise(yuv)
         if self.scale_model is not None:
@@ -702,6 +817,11 @@ class Converter:
         """uint8 BGR in, uint8 BGR out — the whole main.cpp math path. On a
         mesh (cfg.mesh; _mesh_pipe) the whole chain runs sharded when the
         image qualifies for the kernel path, else on one device."""
+        if self.cunet is not None:
+            img = torch.from_numpy(np.ascontiguousarray(bgr_u8)).to(
+                self.device)
+            return upcunet2x_batch_u8(unit_rgb(img)[None],
+                                      self.cunet)[0].cpu().numpy()
         h, w = bgr_u8.shape[0], bgr_u8.shape[1]
         pipe = self._mesh_pipe(h, w)
         if pipe is not None and self._fast_ok(
@@ -720,7 +840,7 @@ class Converter:
         itself drops alpha)."""
         a = u8_to_unit_f32(torch.from_numpy(np.ascontiguousarray(alpha_u8))
                            .to(self.device))
-        if self.scale_model is not None:
+        if self.scale_model is not None or self.cunet is not None:
             iters, shrink = scale_plan(self.cfg.scale_ratio)
             for _ in range(iters):
                 a = resize(a, (a.shape[0] * 2, a.shape[1] * 2), CUBIC)

@@ -30,6 +30,10 @@ result copies into pinned host memory of its own, each card records an
 event after its copies, and a pending batch keeps those buffers until it is
 retired (mesh.HostCopy). Odd-sized frames ride the mesh padding.
 
+With an UpCUNet (`cunet`, from_cunet_params) every dispatch runs its RGB 2x
+step (pipeline.upcunet2x_batch_u8: fixed tiles, u8 BGR frames out, so no
+host interleave), in mode "scale" and on one device.
+
 process_paths converts image files through the port's host I/O (io.py)
 and can resume from a frame cursor (train/checkpoint.py).
 """
@@ -58,7 +62,10 @@ from waifu2x_torch.pipeline import (
     noise_y_batch_fast,
     resolve_device,
     scale2x_batch_u8_fused,
+    unit_rgb,
+    upcunet2x_batch_u8,
 )
+from waifu2x_torch.ops.unet import CunetModel
 from waifu2x_torch.parallel import mesh as w2x_mesh
 from waifu2x_torch.train.checkpoint import load_frame_cursor, save_frame_cursor
 from waifu2x_torch.utils import trace
@@ -112,6 +119,8 @@ class StreamConverter:
                 weights must be there.
     mesh:       a make_mesh3 ("dp", "dy", "sp") mesh, or None: dispatches
                 then run the composed chain sharded over it (MeshPipeline).
+    cunet:      an UpCUNet (ops/unet.py:CunetModel) in place of the
+                FastStacks: mode "scale", no mesh.
     """
 
     fast: "FastStack | None"
@@ -121,6 +130,18 @@ class StreamConverter:
     mode: str = "scale"
     device: "torch.device | str" = "cuda"
     mesh: "object | None" = None
+    cunet: "CunetModel | None" = None
+
+    @classmethod
+    def from_cunet_params(cls, params: dict, batch: int = 8, depth: int = 2,
+                          dtype=torch.bfloat16, device="cuda",
+                          tile: int = 436) -> "StreamConverter":
+        """A stream of UpCUNet 2x steps over models/cunet.py's parameters,
+        in `dtype` (bf16, the product's: csrc/mma.cu's layers)."""
+        dev = resolve_device(device)
+        return cls(fast=None, batch=batch, depth=depth, mode="scale",
+                   device=dev, cunet=CunetModel.build(params, dtype, dev,
+                                                      tile))
 
     @classmethod
     def from_params(cls, scale_params=None, noise_params=None,
@@ -154,7 +175,11 @@ class StreamConverter:
     def __post_init__(self):
         if self.mode not in ("scale", "noise", "noise_scale"):
             raise ValueError(f"invalid mode: {self.mode!r}")
-        if self.mode != "noise" and self.fast is None:
+        if self.cunet is not None:
+            if self.mode != "scale" or self.mesh is not None:
+                raise ValueError("an UpCUNet stream runs mode 'scale' on "
+                                 "one device")
+        elif self.mode != "noise" and self.fast is None:
             raise ValueError(f"mode {self.mode!r} needs a scale FastStack")
         if self.mode != "scale" and self.fast_noise is None:
             raise ValueError(f"mode {self.mode!r} needs a noise FastStack")
@@ -192,7 +217,16 @@ class StreamConverter:
         unbanded = BAND_PX // max(1, h * w)
         return max(1, min(self.batch, max(2, unbanded)))
 
+    def _prepare(self, bgr_u8: torch.Tensor) -> torch.Tensor:
+        """u8 BGR on the device -> the step's input: unit RGB for an
+        UpCUNet, f32 YUV otherwise."""
+        if self.cunet is not None:
+            return unit_rgb(bgr_u8)
+        return _to_yuv_batch(bgr_u8)
+
     def _step(self, yuv: torch.Tensor) -> torch.Tensor:
+        if self.cunet is not None:
+            return upcunet2x_batch_u8(yuv, self.cunet)
         if self.mode == "noise":
             # even frames take the dense u8 cmajor tail; odd ones come back
             # as raster BGR through the plane-form noise step
@@ -247,11 +281,11 @@ class StreamConverter:
             s = 1 if self.mode == "noise" else 2
             return copy.wait, n, host_in, (s * h, s * w)
         if not on_card:
-            out = self._step(_to_yuv_batch(host_in))
+            out = self._step(self._prepare(host_in))
             span.set(h2d_bytes=0, d2h_bytes=0, pinned=0)
             return out.numpy, n, host_in, None
         with torch.cuda.device(self.device):
-            out = self._step(_to_yuv_batch(
+            out = self._step(self._prepare(
                 host_in.to(self.device, non_blocking=True)))
             host_out = torch.empty(out.shape, dtype=torch.uint8,
                                    pin_memory=True)
