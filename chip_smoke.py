@@ -348,6 +348,16 @@ Phases (any failure raises and exits non-zero):
      each call one launch on its plan's route by MMA_SHAPES; then one
      upcunet2x_batch_u8 dispatch of a 1080p frame, its launches by (ci, co,
      route) the ten layers' once a chunk of tiles.
+ 35. UpCUNet's library-layer epilogue on csrc/epi.cu (phase35 below;
+     ops/unet.py:cunet_epilogue): each of the twelve library layers of a
+     436-px tile, two tiles, its cuDNN output without the bias, bit for bit
+     against cunet_epilogue_plain (on the CPU) and against the three
+     PyTorch passes it replaces, on that output and as the layer computed
+     them (the bias in the cuDNN call); each launch counted by mode in
+     EPI_LAUNCHES; each layer timed at 16 tiles against its byte bound and
+     the three passes; then one upcunet2x_batch_u8 dispatch of a 1080p
+     frame, its launches 7 bias + leaky, 3 with the skip, 2 bias alone, its
+     u8 output bit for bit that of the same dispatch with the three passes.
 Phase 15 also runs the ns1080 chain with its f32 noise stack under the
 Winograd switch (the f32 stack on l6_wino_tf32, the bf16 one on
 l6_wino_mma) and gates the scale512 int8 step and stream at 50 dB.
@@ -4593,6 +4603,209 @@ def phase34(dev: torch.device, smi: str) -> dict:
     return got
 
 
+def _three_passes(x, model, key, leaky, skip=None, crop=0):
+    """ops/unet.py:_library as it was before csrc/epi.cu, on the card: the
+    bias in the cuDNN call, F.leaky_relu, crop_add."""
+    from waifu2x_torch.models import cunet
+    from waifu2x_torch.ops import unet
+    from waifu2x_torch.ops.convstack import no_tf32
+    w, b = model.conv[key]
+    kind = cunet.BY_KEY[key].kind
+    kw = {"down": {"stride": 2}, "up": {"stride": 2},
+          "up4": {"stride": 2, "padding": 3}}.get(kind, {})
+    op = F.conv_transpose2d if kind in ("up", "up4") else F.conv2d
+    with no_tf32():
+        y = op(x.permute(0, 3, 1, 2), w, b, **kw)
+    if leaky:
+        y = F.leaky_relu(y, unet.LEAKY)
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return y if skip is None else unet.crop_add(skip, crop, y)
+
+
+# UpCUNet's library layers in the forward pass's order: (key, LeakyReLU,
+# the key of the layer whose output is the skip, crop)
+CUNET_LIBRARY = (
+    ("unet1.conv1.conv.0", True, None, 0),
+    ("unet1.conv1_down", True, None, 0),
+    ("unet1.conv2_up", True, "unet1.conv1.conv.2", 4),
+    ("unet1.conv_bottom", False, None, 0),
+    ("unet2.conv1.conv.0", True, None, 0),
+    ("unet2.conv1_down", True, None, 0),
+    ("unet2.conv2_down", True, None, 0),
+    ("unet2.conv3.conv.0", True, None, 0),
+    ("unet2.conv3.conv.2", True, None, 0),
+    ("unet2.conv3_up", True, "unet2.conv2.conv.2", 4),
+    ("unet2.conv4_up", True, "unet2.conv1.conv.2", 16),
+    ("unet2.conv_bottom", False, None, 0))
+
+
+def phase35(dev: torch.device, smi: str, tile: int = 436,
+            timed_tiles: int = 16, frame_hw=(1080, 1920)) -> dict:
+    """35. UpCUNet's library-layer epilogue on csrc/epi.cu through
+    ops/unet.py:cunet_epilogue, at the twelve library layers of a 436-px
+    tile (models/cunet.py:layer_sides; `tile`), on seeded weights: two tiles of
+    random bf16 input a layer, the cuDNN output without the bias; the
+    kernel on it bit for bit against cunet_epilogue_plain (on the CPU, host
+    clock) and against the three PyTorch passes, both on the same output
+    and as the layer computed them (_three_passes: the bias in the cuDNN
+    call), one launch a call in EPI_LAUNCHES by mode. Each layer timed at
+    16 tiles (every plane above the 50 MB L2) with CUDA events against its
+    bytes (y read and written, the skip's crop read once) at 3.35 TB/s and
+    against the three passes, each timed alone (the library yardstick).
+    Then one pipeline.upcunet2x_batch_u8 dispatch of a 1080p frame: its
+    EPI_LAUNCHES 7 / 3 / 2 a chunk of tiles, its u8 output bit for bit the
+    same dispatch's with _three_passes in the place of the epilogue.
+    Returns the kernel-table row. (`tile`, `timed_tiles` and `frame_hw`
+    shrink it for a rehearsal.)"""
+    from waifu2x_torch import pipeline
+    from waifu2x_torch.models import cunet
+    from waifu2x_torch.ops import _build, unet
+    from waifu2x_torch.ops.convstack import no_tf32
+    from waifu2x_torch.utils.timing import time_ms
+
+    t0 = time.perf_counter()
+    hbm = 3.35e12
+    card = int(dev.type == "cuda")   # launches a call (none in a rehearsal)
+    sides = cunet.layer_sides(tile)
+    model = unet.CunetModel.build(cunet.init_params(20181022),
+                                  torch.bfloat16, dev, tile)
+    gen = torch.Generator(device=dev).manual_seed(35)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(
+            torch.bfloat16)
+
+    rows, plain_ms = [], 0.0
+    for key, leaky, skip_key, crop in CUNET_LIBRARY:
+        layer = cunet.BY_KEY[key]
+        s_in, s_out = sides[key]
+        w, b = model.conv[key]
+        x = rand(2, s_in, s_in, layer.cin)
+        kind = layer.kind
+        kw = {"down": {"stride": 2}, "up": {"stride": 2},
+              "up4": {"stride": 2, "padding": 3}}.get(kind, {})
+        op = F.conv_transpose2d if kind in ("up", "up4") else F.conv2d
+        with no_tf32():
+            y = op(x.permute(0, 3, 1, 2), w, None, **kw).permute(
+                0, 2, 3, 1).contiguous()
+        skip = None
+        if skip_key:
+            s_skip = sides[skip_key][1]
+            assert s_skip == s_out + 2 * crop, (key, s_skip, s_out)
+            skip = rand(2, s_skip, s_skip, layer.cout)
+        unet.reset_epi_launches()
+        got = unet.cunet_epilogue(y.clone(), b, leaky, skip, crop)
+        torch.cuda.synchronize()
+        mode = unet.epi_mode(leaky, skip is not None)
+        if unet.EPI_LAUNCHES[mode] != card or sum(
+                unet.EPI_LAUNCHES.values()) != card:
+            raise AssertionError(f"{key}: launches {unet.EPI_LAUNCHES}")
+        t1 = time.perf_counter()
+        plain = unet.cunet_epilogue_plain(
+            y.cpu(), b.cpu(), leaky, None if skip is None else skip.cpu(),
+            crop)
+        plain_ms += 1e3 * (time.perf_counter() - t1)
+        t = y + b
+        if leaky:
+            t = F.leaky_relu(t, unet.LEAKY)
+        passes = t if skip is None else unet.crop_add(skip, crop, t)
+        # (the CPU's bf16 convolution adds its bias in f32: the layer as it
+        # was is the card's alone)
+        layer_passes = (_three_passes(x, model, key, leaky, skip, crop)
+                        if card else passes)
+        bits = got.view(torch.int16)
+        for name, want in (("cunet_epilogue_plain", plain.to(dev)),
+                           ("the three passes", passes),
+                           ("the layer as it was", layer_passes)):
+            if not torch.equal(bits, want.view(torch.int16)):
+                differ = (bits != want.view(torch.int16)).float().mean()
+                raise AssertionError(f"phase 35 {key}: {differ.item():.3%} "
+                                     f"of values differ from {name}")
+        del x, y, got, plain, t, passes, layer_passes, skip
+        # timing: 16 tiles of the layer's output (and skip)
+        yt = rand(timed_tiles, s_out, s_out, layer.cout)
+        st = (rand(timed_tiles, s_out + 2 * crop, s_out + 2 * crop,
+                   layer.cout) if skip_key else None)
+        ms = time_ms(lambda _: unet.cunet_epilogue(yt, b, leaky, st, crop),
+                     dev, 10)
+        # the three passes apart, as the layer ran them: the bias added in
+        # place to the NCHW view (PyTorch's cuDNN route), F.leaky_relu,
+        # crop_add
+        nchw = yt.permute(0, 3, 1, 2)
+        passes_ms = [
+            time_ms(lambda _: nchw.add_(b.view(1, -1, 1, 1)), dev, 10),
+            time_ms(lambda _: F.leaky_relu(nchw, unet.LEAKY), dev, 10)
+            if leaky else 0.0,
+            time_ms(lambda _: unet.crop_add(st, crop, yt), dev, 10)
+            if skip_key else 0.0]
+        nbytes = 2 * timed_tiles * layer.cout * s_out ** 2 * (
+            3 if skip_key else 2)
+        bound = 1e3 * nbytes / hbm
+        rows.append((key, mode, layer.cout, ms, bound, sum(passes_ms),
+                     *passes_ms))
+        log(f"phase 35 {key} ({mode}, C {layer.cout}, {timed_tiles} x "
+            f"{s_out}^2): {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({100 * bound / ms:.1f}%), the three passes "
+            f"{sum(passes_ms):.4f} ms (bias add / LeakyReLU / skip add "
+            f"{' / '.join(f'{v:.4f}' for v in passes_ms)}); two tiles "
+            f"bit-equal to the plain version and the three passes")
+        del yt, st, nchw
+        torch.cuda.empty_cache()
+    total = [sum(r[k] for r in rows) for k in range(3, 9)]
+    log(f"phase 35 the twelve epilogues at {timed_tiles} tiles on {smi}: "
+        f"{total[0]:.3f} ms against a {total[1]:.3f} ms byte bound "
+        f"({100 * total[1] / total[0]:.1f}%), the three passes "
+        f"{total[2]:.3f} ms ({total[2] / total[0]:.2f}x: bias adds "
+        f"{total[3]:.3f}, LeakyReLU {total[4]:.3f}, skip adds "
+        f"{total[5]:.3f}); plain version, two tiles, host clock "
+        f"{plain_ms:.0f} ms")
+    report = _build.BUILD_LOG.get("epi", (0.0, ""))[1]
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"phase 35 ptxas: {line.strip()}")
+
+    rng = np.random.default_rng(35)
+    fh, fw = frame_hw
+    frame = torch.from_numpy(structured_bgr(rng, 1, fh, fw)).to(dev)
+    x = pipeline.unit_rgb(frame)
+    unet.reset_epi_launches()
+    out = pipeline.upcunet2x_batch_u8(x, model)
+    torch.cuda.synchronize()
+    step = tile - 2 * pipeline.CUNET_HALO
+    tiles = -(-fh // step) * -(-fw // step)
+    chunks = -(-tiles // pipeline.cunet_chunk(model))
+    want = {"bias": 2 * chunks * card, "bias_leaky": 7 * chunks * card,
+            "bias_skip": 0, "bias_leaky_skip": 3 * chunks * card}
+    if unet.EPI_LAUNCHES != want:
+        raise AssertionError(f"phase 35 dispatch: launches "
+                             f"{unet.EPI_LAUNCHES}, want {want}")
+    launches = dict(unet.EPI_LAUNCHES)
+    library = unet._library
+    unet._library = _three_passes if card else library
+    try:
+        ref = pipeline.upcunet2x_batch_u8(x, model)
+    finally:
+        unet._library = library
+    if not torch.equal(out, ref):
+        raise AssertionError(f"phase 35 dispatch: "
+                             f"{(out != ref).float().mean().item():.3%} of "
+                             f"u8 values differ from the three passes'")
+    log(f"phase 35 one {fh}x{fw} UpCUNet dispatch on {smi} ({tiles} tiles, "
+        f"{chunks} chunk(s)): csrc/epi.cu launches {launches}, u8 output "
+        f"bit-equal to the three passes'; {time.perf_counter() - t0:.1f} s")
+    unet.reset_epi_launches()
+    return {"name": "cunet_epilogue, UpCUNet's library-layer epilogue "
+                    f"(csrc/epi.cu), {timed_tiles} tiles of {tile} px",
+            "ms": total[0], "bound_ms": total[1],
+            "library_ms": total[2], "plain_ms": plain_ms,
+            "plain_ms_of": "the twelve layers at two tiles, host clock",
+            "library_parts_ms": dict(zip(("bias", "leaky", "skip"),
+                                         total[3:])),
+            "layers": [{"key": r[0], "mode": r[1], "channels": r[2],
+                        "ms": r[3], "bound_ms": r[4], "library_ms": r[5]}
+                       for r in rows]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5950,6 +6163,8 @@ def main() -> int:
     mma_turns = phase33(dev, smi)
     torch.cuda.empty_cache()
     phase34(dev, smi)
+    torch.cuda.empty_cache()
+    kernels19.append(phase35(dev, smi))
     torch.cuda.empty_cache()
     log(f"{time.perf_counter() - t_start:.1f} s so far")
     cli_launches = phase28(dev, smi)

@@ -8,9 +8,10 @@ Bars: the f32 model within 3e-5 of the reference's f32 values (the repo's
 f32 bar: the two sum the same products in another order); the bf16 model
 at the configuration's own limits (configs/upcunet2x.json `fidelity_db`
 for every frame, and the cell's `row_psnr_min_db` for every pair of output
-rows), which the fp8 control and the planted faults miss. The CUDA kernel
-behind the 3x3 layers is held against its plain version on the card by
-tools/cunet_probe.py."""
+rows), which the fp8 control and the planted faults miss. The CUDA kernels
+are held against their plain versions on the card: the 3x3 layers' by
+tools/cunet_probe.py and chip_smoke.py phase 34, the library layers'
+epilogue (csrc/epi.cu) by chip_smoke.py phase 35."""
 
 import importlib.util
 import json
@@ -432,3 +433,172 @@ def test_the_cli_converts_with_upcunet(tmp_path):
         assert d.max() <= 1 and (d > 0).mean() < 1e-3
     assert cli.main(["-i", paths[0], "-m", "noise", "--arch", "upcunet",
                      "--model_seed", "1", "--device", "cpu"]) == 1
+
+
+# -- the library layers' epilogue (csrc/epi.cu) -----------------------------
+
+# the forward pass's library layers in order: (key, mode, channels, crop)
+EPILOGUES = [
+    ("unet1.conv1.conv.0", "bias_leaky", 32, 0),
+    ("unet1.conv1_down", "bias_leaky", 64, 0),
+    ("unet1.conv2_up", "bias_leaky_skip", 64, 4),
+    ("unet1.conv_bottom", "bias", 3, 0),
+    ("unet2.conv1.conv.0", "bias_leaky", 32, 0),
+    ("unet2.conv1_down", "bias_leaky", 64, 0),
+    ("unet2.conv2_down", "bias_leaky", 128, 0),
+    ("unet2.conv3.conv.0", "bias_leaky", 256, 0),
+    ("unet2.conv3.conv.2", "bias_leaky", 128, 0),
+    ("unet2.conv3_up", "bias_leaky_skip", 128, 4),
+    ("unet2.conv4_up", "bias_leaky_skip", 64, 16),
+    ("unet2.conv_bottom", "bias", 3, 0)]
+
+
+def composite(y, b, leaky, skip=None, crop=0):
+    """The three PyTorch passes the epilogue replaces, on bf16 tensors: the
+    bias add, F.leaky_relu, crop_add."""
+    t = y + b
+    if leaky:
+        t = F.leaky_relu(t, unet.LEAKY)
+    return t if skip is None else unet.crop_add(skip, crop, t)
+
+
+def bf16_values(g, *shape, scale=1.0):
+    return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("c", unet.EPI_CHANNELS)
+@pytest.mark.parametrize("mode,crop", [("bias", 0), ("bias_leaky", 0),
+                                       ("bias_leaky_skip", 4),
+                                       ("bias_leaky_skip", 16)])
+def test_epilogue_plain_is_the_composite_bit_for_bit(mode, crop, c):
+    """cunet_epilogue_plain (and the wrapper on the CPU, in place) against
+    the bias add, LeakyReLU and crop_add on the same bf16 values: every bit
+    equal, at values whose sums round (a wide bias against a narrow y)."""
+    g = torch.Generator().manual_seed(c * 100 + crop)
+    y = bf16_values(g, 2, 7, 9, c, scale=3.0)
+    b = bf16_values(g, c, scale=0.7)
+    leaky = "leaky" in mode
+    skip = bf16_values(g, 2, 7 + 2 * crop, 9 + 2 * crop, c) if crop else None
+    want = composite(y, b, leaky, skip, crop).view(torch.int16)
+    plain = unet.cunet_epilogue_plain(y, b, leaky, skip, crop)
+    assert torch.equal(plain.view(torch.int16), want)
+    z = y.clone()
+    assert unet.cunet_epilogue(z, b, leaky, skip, crop) is z
+    assert torch.equal(z.view(torch.int16), want)
+    assert unet.epi_mode(leaky, skip is not None) == mode
+
+
+def _record_epilogues(monkeypatch):
+    calls = []
+    real = unet.cunet_epilogue
+
+    def record(y, b, leaky, skip=None, crop=0):
+        calls.append((b, unet.epi_mode(leaky, skip is not None), y.shape[3],
+                      crop))
+        return real(y, b, leaky, skip, crop)
+
+    monkeypatch.setattr(unet, "cunet_epilogue", record)
+    return calls
+
+
+def test_the_forward_pass_calls_the_epilogue_at_every_library_layer(
+        m16, params, monkeypatch):
+    """Two tiles through a bf16 forward pass: twelve epilogues, one a
+    library layer, each with its layer's bias, mode, width and crop (7
+    bias + leaky, 3 with the skip, 2 bias alone); the f32 model calls
+    none."""
+    calls = _record_epilogues(monkeypatch)
+    x = torch.rand((2, TILE, TILE, 3), generator=torch.Generator()
+                   .manual_seed(3)).to(torch.bfloat16)
+    unet.upcunet_tiles(x, m16)
+    assert [(mode, c, crop) for _, mode, c, crop in calls] == [
+        e[1:] for e in EPILOGUES]
+    assert all(b is m16.conv[key][1] for (b, *_), (key, *_) in
+               zip(calls, EPILOGUES))
+    assert sorted(m16.conv) == sorted(e[0] for e in EPILOGUES)
+    calls.clear()
+    m32 = unet.CunetModel.build(params, torch.float32, "cpu", TILE)
+    unet.upcunet_tiles(x.float(), m32)
+    assert calls == []
+
+
+def test_the_forward_pass_is_the_composites_bit_for_bit(m16, monkeypatch):
+    """The bf16 forward pass with the epilogue against the same pass with
+    the three PyTorch passes in its place: every output bit equal."""
+    x = torch.rand((2, TILE, TILE, 3), generator=torch.Generator()
+                   .manual_seed(4)).to(torch.bfloat16)
+    got = unet.upcunet_tiles(x, m16)
+    monkeypatch.setattr(unet, "cunet_epilogue",
+                        lambda y, b, leaky, skip=None, crop=0:
+                        composite(y, b, leaky, skip, crop))
+    want = unet.upcunet_tiles(x, m16)
+    assert torch.equal(got, want)
+
+
+def _bad(case):
+    g = torch.Generator().manual_seed(5)
+    y = bf16_values(g, 2, 6, 6, 64)
+    b = bf16_values(g, 64)
+    skip = bf16_values(g, 2, 14, 14, 64)
+    if case == "strided":
+        return dict(y=y.permute(0, 2, 1, 3), b=b)
+    if case == "f32":
+        return dict(y=y.float(), b=b)
+    if case == "bias":
+        return dict(y=y, b=b[:32])
+    if case == "skip":
+        return dict(y=y, b=b, skip=skip, crop=2)
+    if case == "width":
+        return dict(y=y[..., :48].contiguous(), b=b[:48])
+    return dict(y=y, b=b, crop=4)
+
+
+@pytest.mark.parametrize("case", ["strided", "f32", "bias", "skip", "width",
+                                  "crop_alone"])
+def test_the_epilogue_refuses(case):
+    """A non-contiguous or non-bf16 y, a bias of the wrong length, a skip
+    that is not y plus twice the crop, a width the kernel has no path for,
+    a crop with no skip."""
+    kw = _bad(case)
+    with pytest.raises((ValueError, TypeError)):
+        unet.cunet_epilogue(kw.pop("y"), kw.pop("b"), True, **kw)
+
+
+def test_epilogue_launches_are_counted_by_mode():
+    """EPI_LAUNCHES counts the card's launches only; its modes are
+    epi_mode's."""
+    unet.reset_epi_launches()
+    g = torch.Generator().manual_seed(6)
+    unet.cunet_epilogue(bf16_values(g, 1, 4, 4, 32), bf16_values(g, 32), True)
+    assert set(unet.EPI_LAUNCHES) == {
+        unet.epi_mode(a, b) for a in (False, True) for b in (False, True)}
+    assert not any(unet.EPI_LAUNCHES.values())
+
+
+def test_epilogue_roofline_reader():
+    """kern.cunet_epi_roofline: 43.0 GB a 4 x 1080p dispatch (the library
+    layers' 142.2 M outputs a tile read and written, the three skips' 74.0 M
+    read), over cunet_epilogue's device time; None where no trace holds
+    the kernel."""
+    from benchmark import cunet_counts, harness, trace as btrace
+    read = harness.load_reader("kern.cunet_epi_roofline")
+    call = cunet_counts.CunetCall("bfloat16", 4, 1080, 1920, 436)
+    mod = _load(ROOT / "benchmark" / "metrics" /
+                "kern.cunet_epi_roofline.py")
+    assert call.tiles * mod.tile_bytes(call) == 60 * 2 * (
+        2 * 142_197_440 + 73_975_296)
+    assert call.tiles * mod.tile_bytes(call) / 1e9 == pytest.approx(
+        43.0, abs=0.05)
+    epi = "void (anonymous namespace)::cunet_epilogue<64, 3>(" \
+          "__nv_bfloat16*, __nv_bfloat16 const*, __nv_bfloat16 const*, " \
+          "(anonymous namespace)::EpiShape)"
+    run = harness.Run(
+        cell="upcunet2x.b4_1080", config={}, workload={}, setup_s=1.0,
+        window_s=1.0, dispatches=2, out_px=1, latency_ms=[1.0],
+        calls={call: 2}, counters={}, peak_mem_bytes=1,
+        trace=btrace.Trace(1.0, [(epi, 0.0, 0.04)], []),
+        kernels=frozenset({"cunet_epilogue"}))
+    assert read(run) == pytest.approx(
+        100 * 2 * call.tiles * mod.tile_bytes(call) / 3.35e12 / 0.04)
+    run.trace = btrace.Trace(1.0, [], [])
+    assert read(run) is None

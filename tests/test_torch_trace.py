@@ -173,9 +173,10 @@ def test_cunet_step_span_tree():
     """UpCUNet's batched step under a CPU profiler: one w2x.cunet_step root
     (n, size, tiles, out_px) over the pad-and-cut and the stitch
     (w2x.cunet.tiles), w2x.cunet.unet1 and w2x.cunet.unet2; below the
-    U-Nets the SE blocks (w2x.cunet.se, with their channels) and each
+    U-Nets the SE blocks (w2x.cunet.se, with their channels), each
     csrc/mma.cu layer's w2x.stack (kind "cunet", ci, co: the plain route
-    on the CPU, so no launch and no route)."""
+    on the CPU, so no launch and no route) and each library layer's
+    epilogue (w2x.cunet.epi, with its mode and channels)."""
     from waifu2x_torch.models import cunet
     from waifu2x_torch.ops import stack, unet
     model = unet.CunetModel.build(cunet.init_params(4), torch.bfloat16,
@@ -211,4 +212,19 @@ def test_cunet_step_span_tree():
     assert all(r.attrs["kind"] == "cunet" and "route" not in r.attrs
                for r in stacks)
     assert stack.LAUNCHES == 0 and stack.MMA_SHAPES == {}
-    assert len(recs) == 1 + 2 + 2 + 4 + 10
+    epi = _named(recs, "w2x.cunet.epi")
+    assert sorted((by_id[r.parent].name, r.attrs["mode"], r.attrs["channels"])
+                  for r in epi) == sorted(
+        [("w2x.cunet.unet1", "bias_leaky", 32),
+         ("w2x.cunet.unet1", "bias_leaky", 64),
+         ("w2x.cunet.unet1", "bias_leaky_skip", 64),
+         ("w2x.cunet.unet1", "bias", 3),
+         ("w2x.cunet.unet2", "bias_leaky", 32),
+         ("w2x.cunet.unet2", "bias_leaky", 64),
+         ("w2x.cunet.unet2", "bias_leaky", 128),
+         ("w2x.cunet.unet2", "bias_leaky", 256),
+         ("w2x.cunet.unet2", "bias_leaky", 128),
+         ("w2x.cunet.unet2", "bias_leaky_skip", 128),
+         ("w2x.cunet.unet2", "bias_leaky_skip", 64),
+         ("w2x.cunet.unet2", "bias", 3)])
+    assert len(recs) == 1 + 2 + 2 + 4 + 10 + 12

@@ -144,7 +144,8 @@ waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
 configurations B1, B2, B3, B6 and B7, B4, B5) launch once per layer: 7
 times per call (8 with `l6_i8` where tile_absmax takes the tile maxima),
 upto + 1 for stack_scale_upto. See the notes at the top of those files for
-design and bounds.
+design and bounds. csrc/epi.cu, UpCUNet's library-layer epilogue
+(ops/unet.py:cunet_epilogue), is built and loaded with them.
 
 The wrappers take the plain version for a tensor on the CPU only. For a
 CUDA tensor they launch the kernel or raise; nothing falls back.
@@ -1497,6 +1498,8 @@ _ARGTYPES = {
                  "w2x_tf32_layer_max": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR,
                                         _INT, _INT, _INT, _INT, _PTR, _INT,
                                         _INT, _INT, _INT, _PTR]},
+    "epi": {"w2x_cunet_epilogue": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                                   _INT, _INT, _INT, _PTR]},
 }
 
 

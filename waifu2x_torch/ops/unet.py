@@ -1,31 +1,34 @@
 """UpCUNet's forward pass over a batch of tiles (models/cunet.py states the
 model): its 3x3 layers of widths 32 -> 64, 64 -> 64, 64 -> 128 and
 128 -> 64 on csrc/mma.cu (ops/stack.py:conv3x3_mma, keyed by the widths),
-the rest on library calls, the squeeze-and-excitation blocks, the crops and
-the skip adds.
+the rest on library calls with their epilogue on csrc/epi.cu
+(cunet_epilogue), the squeeze-and-excitation blocks, the crops and the skip
+adds.
 
 The precision policy of the bf16 model (the product's): activations are
 bf16 NHWC between layers; every convolution sums in f32. csrc/mma.cu adds
 its f32 bias and applies LeakyReLU in f32 before one rounding to bf16. The
 library layers (3 -> 32, 128 -> 256, 256 -> 128 and the two 64 -> 3 3x3
 and 4x4 ones; the 2x2 stride-2 and transposed convolutions) run as cuDNN
-bf16 convolutions, channels-last, their bias rounded to bf16: PyTorch adds
-it to the bf16 result and LeakyReLU follows on the bf16 values, so such a
-layer rounds up to three times. An SE block takes the tile's mean of each
+bf16 convolutions, channels-last, with no bias; csrc/epi.cu then adds the
+bias (rounded to bf16) to the bf16 result, applies LeakyReLU and, after the
+three transposed 2x2 layers, adds the cropped skip, in one pass that rounds
+each of the three steps to bf16 as PyTorch's bias add, F.leaky_relu and
+skip add did (bit for bit). An SE block takes the tile's mean of each
 channel in f32, its two 1x1 products, ReLU and sigmoid in f32 (TF32 off),
-and scales the bf16 activation by the f32 vector with one rounding. A skip
-add rounds the sum to bf16 once. UNet2's output and crop20 of UNet1's are
-added in f32, clamped to [0, 1], scaled by 255 and rounded half to even
-to u8. The f32 model (dtype float32) runs every layer as an f32 library
-convolution with TF32 off.
+and scales the bf16 activation by the f32 vector with one rounding.
+UNet2's output and crop20 of UNet1's are added in f32, clamped to [0, 1],
+scaled by 255 and rounded half to even to u8. The f32 model (dtype float32) runs every layer as an f32 library
+convolution with TF32 off, its bias in the library call, LeakyReLU and the
+skip adds in PyTorch.
 
 On the CPU the same arithmetic runs in plain PyTorch: csrc/mma.cu's layers
 as mma_layer_plain, the library layers as f32 convolutions of the bf16
-values with the bf16 rounding of each step applied where the card applies
-it.
+values rounded to bf16, their epilogue as cunet_epilogue_plain.
 
 Spans (utils/trace.py): "w2x.cunet.unet1", "w2x.cunet.unet2" around each
-U-Net, "w2x.cunet.se" around each SE block (`channels`), and csrc/mma.cu's
+U-Net, "w2x.cunet.se" around each SE block (`channels`), "w2x.cunet.epi"
+around each library layer's epilogue (`mode`, `channels`), and csrc/mma.cu's
 layers' "w2x.stack" (kind "cunet", `ci`, `co`, `route`) from conv3x3_mma.
 """
 
@@ -38,12 +41,18 @@ import torch.nn.functional as F
 
 from waifu2x_torch.models import cunet
 from waifu2x_torch.ops.convstack import no_tf32
+from waifu2x_torch.ops import stack
 from waifu2x_torch.ops.s2d import pack_mma
 from waifu2x_torch.ops.stack import conv3x3_mma, has_mma
 from waifu2x_torch.utils import trace
 
 LEAKY = cunet.LEAKY
 RESIDUAL_CROP = 20   # UNet1's output is 40 pixels wider than UNet2's
+EPI_CHANNELS = (3, 32, 64, 128, 256)   # the widths csrc/epi.cu takes
+# csrc/epi.cu's launches by mode (epi_mode); a bf16 forward pass makes 7
+# "bias_leaky", 3 "bias_leaky_skip" and 2 "bias" a chunk of tiles
+EPI_LAUNCHES = {"bias": 0, "bias_leaky": 0, "bias_skip": 0,
+                "bias_leaky_skip": 0}
 
 
 @dataclasses.dataclass
@@ -106,27 +115,103 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def _library(x: torch.Tensor, model: CunetModel, key: str,
-             leaky: bool) -> torch.Tensor:
+def epi_mode(leaky: bool, skip: bool) -> str:
+    """EPI_LAUNCHES' key of an epilogue."""
+    return "bias" + "_leaky" * bool(leaky) + "_skip" * bool(skip)
+
+
+def reset_epi_launches() -> None:
+    for mode in EPI_LAUNCHES:
+        EPI_LAUNCHES[mode] = 0
+
+
+def cunet_epilogue_plain(y: torch.Tensor, b: torch.Tensor, leaky: bool,
+                         skip: "torch.Tensor | None" = None,
+                         crop: int = 0) -> torch.Tensor:
+    """cunet_epilogue's arithmetic in PyTorch, as a new tensor: the bias
+    added and rounded to y's dtype, LeakyReLU in f32 rounded, crop_crop(skip)
+    added in f32 and rounded."""
+    t = (y.float() + b.float()).to(y.dtype)
+    if leaky:
+        t = torch.where(t > 0, t, (t.float() * LEAKY).to(y.dtype))
+    if skip is not None:
+        s = skip[:, crop:skip.shape[1] - crop, crop:skip.shape[2] - crop]
+        t = (s.float() + t.float()).to(y.dtype)
+    return t
+
+
+def cunet_epilogue(y: torch.Tensor, b: torch.Tensor, leaky: bool,
+                   skip: "torch.Tensor | None" = None,
+                   crop: int = 0) -> torch.Tensor:
+    """A library convolution's epilogue, in place on its output y [T, h, w,
+    C] (bf16 NHWC, contiguous, computed without the bias): y = crop_crop(
+    skip) + leaky(y + b), each of the three steps rounded to bf16, as the
+    bias add of PyTorch's cuDNN route, F.leaky_relu and crop_add round them.
+    b [C] bf16; skip, where given, [T, h + 2 crop, w + 2 crop, C] bf16
+    contiguous; C one of EPI_CHANNELS. CPU tensors take cunet_epilogue_plain;
+    CUDA tensors one launch of csrc/epi.cu's cunet_epilogue, counted in
+    EPI_LAUNCHES by mode. A "w2x.cunet.epi" span (mode, channels) holds the
+    call. Returns y."""
+    if y.dim() != 4 or y.shape[3] not in EPI_CHANNELS:
+        raise ValueError(f"the epilogue takes y [T, h, w, C], C in "
+                         f"{EPI_CHANNELS}, got {tuple(y.shape)}")
+    n, h, w, c = y.shape
+    if y.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or (
+            skip is not None and skip.dtype != torch.bfloat16):
+        raise TypeError("the epilogue runs bf16 y, b and skip")
+    if not (y.is_contiguous() and b.is_contiguous()) or tuple(b.shape) != (
+            c,) or b.device != y.device:
+        raise ValueError(f"y and b [{c}] must be contiguous, on {y.device}")
+    if skip is None and crop:
+        raise ValueError("a crop needs a skip")
+    if skip is not None and (
+            tuple(skip.shape) != (n, h + 2 * crop, w + 2 * crop, c)
+            or crop < 0 or not skip.is_contiguous()
+            or skip.device != y.device):
+        raise ValueError(f"skip must be contiguous [{n}, {h + 2 * crop}, "
+                         f"{w + 2 * crop}, {c}] on {y.device}, got "
+                         f"{tuple(skip.shape)}")
+    mode = epi_mode(leaky, skip is not None)
+    with trace.span("w2x.cunet.epi", on=y, mode=mode, channels=c):
+        if y.device.type == "cpu":
+            return y.copy_(cunet_epilogue_plain(y, b, leaky, skip, crop))
+        with torch.cuda.device(y.device):
+            stack._Launcher(None, y, None).run(
+                "epi", "w2x_cunet_epilogue", f"epilogue {mode}, C = {c}",
+                None, y.data_ptr(), b.data_ptr(),
+                None if skip is None else skip.data_ptr(), n, h, w, c, crop,
+                int(bool(leaky)))
+        EPI_LAUNCHES[mode] += 1
+    return y
+
+
+def _library(x: torch.Tensor, model: CunetModel, key: str, leaky: bool,
+             skip: "torch.Tensor | None" = None,
+             crop: int = 0) -> torch.Tensor:
     """One library convolution (models/cunet.py's kind of `key`) on NHWC
-    x -> NHWC, with LeakyReLU where `leaky`."""
+    x -> NHWC, with LeakyReLU where `leaky` and crop_crop(skip) added where
+    a skip is given. A bf16 model runs the convolution without its bias and
+    the rest in cunet_epilogue; an f32 model the bias in the convolution,
+    F.leaky_relu and crop_add."""
     w, b = model.conv[key]
     kind = cunet.BY_KEY[key].kind
     kw = {"down": {"stride": 2}, "up": {"stride": 2},
           "up4": {"stride": 2, "padding": 3}}.get(kind, {})
     op = F.conv_transpose2d if kind in ("up", "up4") else F.conv2d
     xin = _nchw(x)
+    bf16 = x.dtype == torch.bfloat16
     with no_tf32():
-        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-            # the card's arithmetic: f32 sums rounded to bf16, the bf16
-            # bias added with a second rounding
+        if x.device.type == "cpu" and bf16:
+            # the card's arithmetic: f32 sums rounded to bf16
             y = op(xin.float(), w.float(), None, **kw).to(x.dtype)
-            y = (y.float() + b.float()[:, None, None]).to(x.dtype)
         else:
-            y = op(xin, w, b, **kw)
+            y = op(xin, w, None if bf16 else b, **kw)
+    y = _nhwc(y)
+    if bf16:
+        return cunet_epilogue(y, b, leaky, skip, crop)
     if leaky:
         y = F.leaky_relu(y, LEAKY)
-    return _nhwc(y)
+    return y if skip is None else crop_add(skip, crop, y)
 
 
 def conv3(x: torch.Tensor, model: CunetModel, key: str,
@@ -170,8 +255,8 @@ def unet1(x: torch.Tensor, model: CunetModel) -> torch.Tensor:
         x1 = unetconv(x, model, "unet1.conv1")
         x2 = _library(x1, model, "unet1.conv1_down", True)
         x2 = unetconv(x2, model, "unet1.conv2")
-        x2 = _library(x2, model, "unet1.conv2_up", True)
-        x3 = conv3(crop_add(x1, 4, x2), model, "unet1.conv3")
+        x2 = _library(x2, model, "unet1.conv2_up", True, x1, 4)
+        x3 = conv3(x2, model, "unet1.conv3")
         del x1, x2
         return _library(x3, model, "unet1.conv_bottom", False)
 
@@ -183,11 +268,11 @@ def unet2(x: torch.Tensor, model: CunetModel) -> torch.Tensor:
         x2 = unetconv(x2, model, "unet2.conv2")
         x3 = _library(x2, model, "unet2.conv2_down", True)
         x3 = unetconv(x3, model, "unet2.conv3")
-        x3 = _library(x3, model, "unet2.conv3_up", True)
-        x4 = unetconv(crop_add(x2, 4, x3), model, "unet2.conv4")
+        x3 = _library(x3, model, "unet2.conv3_up", True, x2, 4)
+        x4 = unetconv(x3, model, "unet2.conv4")
         del x2, x3
-        x4 = _library(x4, model, "unet2.conv4_up", True)
-        x5 = conv3(crop_add(x1, 16, x4), model, "unet2.conv5")
+        x4 = _library(x4, model, "unet2.conv4_up", True, x1, 16)
+        x5 = conv3(x4, model, "unet2.conv5")
         del x1, x4
         return conv3(x5, model, "unet2.conv_bottom", leaky=False)
 
