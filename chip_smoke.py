@@ -8,26 +8,23 @@ layer 6 in each of its forms, runs the data-movement probes (csrc/probe.cu)
 and prints their numbers. Layer 1 of every stack call runs on csrc/l1.cu
 (ops.stack.L1_LAUNCHES). Every stack call of every phase runs layers 2-6 on
 the tensor cores, in bf16 on csrc/mma.cu and in f32 as 3xTF32 on
-csrc/mma_tf32.cu; where ops.stack.MID_MMA is set to False both run them as
-FFMA (csrc/stack.cu). Layer 7 of every stack call runs folded (csrc/l7.cu:
+csrc/mma_tf32.cu. Layer 7 of every stack call runs folded (csrc/l7.cu:
 bf16 on the tensor cores, f32 with FFMA; on the int8 layer 6's tile-major
 planes too), counted by kernel in ops.stack.L7_LAUNCHES, which phases 4,
-6-8, 10, 11 and 15 read, as they and every stream read L1_LAUNCHES; no
-stream counts a cell or per-pixel layer 7. Under the int8 switch layer 6
-runs on the int8 tensor cores (csrc/i8.cu, ops.stack.I8_LAUNCHES); under
-the Winograd switch on the tensor cores in both types (csrc/wino.cu,
-ops.stack.WINO_LAUNCHES: f32 as 3xTF32). Under the int8 switch layer 5
-takes the tiles' maxima in its epilogue (I8_LAUNCHES["l5max"]); no product
-path launches csrc/l6.cu's tile_absmax (I8_LAUNCHES["absmax"] stays 0).
-stack_scale_upto's gather at upto 0..5 is csrc/l6.cu's tiled one
-(ops.stack.GATHER_LAUNCHES).
+6-8, 10, 11 and 15 read, as they and every stream read L1_LAUNCHES. Under
+the int8 switch layer 6 runs on the int8 tensor cores (csrc/i8.cu,
+ops.stack.I8_LAUNCHES); under the Winograd switch on the tensor cores in
+both types (csrc/wino.cu, ops.stack.WINO_LAUNCHES: f32 as 3xTF32). Under
+the int8 switch layer 5 takes the tiles' maxima in its epilogue
+(I8_LAUNCHES["l5max"]). stack_scale_upto's gather at upto 0..5 is
+csrc/gather.cu's (ops.stack.GATHER_LAUNCHES).
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
 Phases (any failure raises and exits non-zero):
-  1. build csrc/stack.cu, csrc/l6.cu, csrc/mma.cu, csrc/wino.cu,
-     csrc/l7.cu, csrc/probe.cu, csrc/tmm.cu, csrc/l1.cu, csrc/mma_tf32.cu
-     and csrc/i8.cu with nvcc for sm_90a, all at once (ops/_build.py);
+  1. build csrc/gather.cu, csrc/mma.cu, csrc/wino.cu, csrc/l7.cu,
+     csrc/probe.cu, csrc/tmm.cu, csrc/l1.cu, csrc/mma_tf32.cu, csrc/i8.cu
+     and csrc/epi.cu with nvcc for sm_90a, all at once (ops/_build.py);
   2. f32 scale kernel vs plain version at small and odd shapes:
      max |diff| <= 3e-5;
   3. the scale kernel vs its plain version at the scale512 shape
@@ -92,18 +89,17 @@ Phases (any failure raises and exits non-zero):
      scale512 and noise256: f32 (3xTF32, csrc/wino.cu) <= 3e-5 against its
      plain version and <= 1e-4 against the direct kernel; bf16 (tensor
      cores) <= 2^-4 against the bf16 plain version and, at the two main
-     shapes, >= 50 dB against the f32 plain version; bf16 with MID_MMA
-     False (the FFMA kernel) <= 2^-4 against its plain version and against
-     the tensor-core stack; the kernel each call reached asserted from
-     stack.WINO_LAUNCHES; both forms' PSNR on a pure-random plane printed;
+     shapes, >= 50 dB against the f32 plain version; the kernel each call
+     reached asserted from stack.WINO_LAUNCHES; both forms' PSNR on a
+     pure-random plane printed;
  14. int8 layer 6 (B4), l6_i8=True, at equal tile, scale and noise input
      modes, a grid that pads both ways, a single tile, scale512 and
      noise256: (a) layer 6 alone, the int8 tensor-core kernel (csrc/i8.cu,
-     one I8_LAUNCHES["mma"] a call), the __dp4a kernel (MID_MMA False) and
-     the plain version fed the same stored layer-5 plane (layer5_plane and
+     one I8_LAUNCHES["mma"] a call, given the plane's tile maxima) and the
+     plain version fed the same stored layer-5 plane (layer5_plane and
      l6_i8_layer, standalone wrappers, leave the stack counts LAUNCHES and
      KERNEL_LAUNCHES as they were): the quantised values and the int32 sums
-     are then the same on all sides, so the three are held equal bit for
+     are then the same on both sides, so the two are held equal bit for
      bit, f32 and bf16, the tiles' scales too; (b) the
      whole stack: a quantiser tie that the f32 summation order of layers
      1-5 flips moves one int8 step, so in f32 kernel - plain is held
@@ -135,14 +131,11 @@ Phases (any failure raises and exits non-zero):
      the scale512 and noise256 layer shapes with the shipped weights, each
      layer fed the kernel's output of the one before: |diff| <= one bf16 ulp
      at the output's magnitude (or 1e-5, the f32 sums' own spread, where the
-     terms cancel), the share of differing outputs printed. Then the old
-     bf16 FFMA layers against the new ones (MID_MMA False / True) over the
-     whole scale512 stack and main path: max |diff| <= 2^-4, both >= 50 dB
-     against the f32 path, launches counted by kernel (5 "mma" and no
-     "ffma" per bf16 stack call on the main paths); per-layer ms of both in
-     one run, in turns (old, new, new, old), with TFLOP/s and GB/s against
-     both peaks, each layer's bound and the cuDNN time of the same five
-     layers; the new layers 2-6 must be at least 2x faster than the old.
+     terms cancel), the share of differing outputs printed. Then the whole
+     scale512 stack and main path >= 50 dB against the f32 path, launches
+     counted by kernel (5 "mma" per bf16 stack call); per-layer ms in two
+     runs, with TFLOP/s and GB/s against both peaks, each layer's bound and
+     the cuDNN time of the same five layers.
  18. the data-movement probes (ops/probe.py, csrc/probe.cu: probe_store,
      probe_fetch_map, probe_fetch_reduce, probe_l1_mm; the counterparts of
      15 pallas_call sites of the JAX package's tools/): every one of the 32
@@ -187,82 +180,73 @@ Phases (any failure raises and exits non-zero):
      against the fold's plain version at three odd shapes and the scale512
      layer-6 plane and
      on B4's tile-major planes, bf16 to one bf16 ulp and f32 <= 3e-5, then
-     timed alone at scale512 in both types in turns with the cell kernel
-     (fold=False: cell, fold, fold, cell) beside the byte bound and cuDNN's
-     stride-2 convolution; then the four tools (fused_strip_probe,
-     k1_forensics, l14_probe, tmm_probe) at their JAX grids with the
-     stack's, layer 7's (every launch on the fold, none on the cell kernel)
-     and the probes' launch counts read around each (the probe variants
+     timed alone at scale512 in both types, twice, beside the byte bound
+     and cuDNN's stride-2 convolution; then the four tools
+     (fused_strip_probe, k1_forensics, l14_probe, tmm_probe) at their JAX
+     grids with the stack's, layer 7's (every launch on the fold) and the
+     probes' launch counts read around each (the probe variants
      oneblk and xonly, which phase 18 held, are timed there). Phase 15
      reads layer 7's launches around tools.layer_time_probe the same way.
  20. the last three probe sites (phase20 below): csrc/mma.cu's zero-shift
      variants (ZS 1-3 of layers 2-6, all 15 built) against
      mma_layer_plain(zs) at (1,27,38), (2,37,53) and (1,5,300) to one bf16
      ulp, layer 7 under each mask folded (csrc/l7.cu) against
-     l7_fold_plain(zs) (one bf16 ulp, f32 <= 3e-5) and per pixel
-     (csrc/stack.cu, fold=False, the yardstick) against last_layer_plain(zs)
-     (f32 <= 3e-5, bf16 <= 2^-4), the two-accumulator variants (PP) bit for
-     bit against the one-accumulator kernel at the scale512 layer shapes;
-     the variants alone timed in turns at 4 x 512^2, layer 7 under each mask
-     in turns (per pixel, fold, fold, per pixel) beside cuDNN's layer 7;
+     l7_fold_plain(zs) (one bf16 ulp, f32 <= 3e-5), the two-accumulator
+     variants (PP) bit for bit against the one-accumulator kernel at the
+     scale512 layer shapes; the variants alone timed in turns at 4 x 512^2,
+     layer 7 under each mask twice beside cuDNN's layer 7;
      stack_scale_pp, shift_stack and l4_shift against their plain versions
      at 4 x 512^2 (bf16 <= 2^-4), stack_scale_pp and shift_stack's base
      against stack_scale bit for bit; then tools.accpp_probe,
-     shift_cost_probe (every mode's layer 7 on the fold: 84 fold launches,
-     none per pixel) and l4_shift_probe with every launch count read around
+     shift_cost_probe (every mode's layer 7 on the fold: 84 fold launches)
+     and l4_shift_probe with every launch count read around
      each, and stack_scale's counts checked unchanged.
  21. layer 7 folded on the tensor cores (phase21 below; csrc/l7.cu through
      stack.last_layer) against its plain version in its three forms at
      (1,27,38), (2,37,53), (1,5,300) and the scale512 and noise256 layer-7
      planes: s2d and dense to one bf16 ulp, dense un-chunked equal to s2d
      bit for bit, u8 by check_u8_kernel, one "fold" launch a call; then
-     timed alone at scale512 in each form in turns (old, new, new, old)
-     against the FFMA kernels a bf16 stack ran before, and at noise256,
-     beside cuDNN's layer 7 alone, the plain version and the bound.
+     timed alone at scale512 in each form, twice, and at noise256, beside
+     cuDNN's layer 7 alone, the plain version and the bound.
  22. the f32 layers 2-6 as 3xTF32 (phase22 below; csrc/mma_tf32.cu through
      stack.mma_layer) against the f32 plain version, each alone at
      (1,27,38), (2,37,53), (1,5,300) and chained at the ns1080 noise
      stack's layer shapes, max |diff| <= 3e-5, one "mma_tf32" launch a
      call; the f32 noise stack at ns1080 with 5 "mma_tf32" launches, timed
-     layer by layer and whole in turns FFMA / 3xTF32 / 3xTF32 / FFMA
-     against the 3xTF32 bound and the FFMA floor, beside cuDNN's f32 layers
-     2-6 and f32 stack (TF32 off);
+     layer by layer and whole, twice, against the 3xTF32 bound and the
+     FFMA floor, beside cuDNN's f32 layers 2-6 and f32 stack (TF32 off);
  23. layer 1 (phase23 below; csrc/l1.cu through stack.l1_layer) against
      l1_plain, scale and noise, f32 and bf16, at three small shapes and at
      scale512 and noise256: bf16 to one bf16 ulp, f32 <= 3e-5; then timed
-     in turns against stack.cu's FFMA plane modes, with GB/s against the
-     byte bound and cuDNN's layer 1 on the padded plane.
+     twice, with GB/s against the byte bound and cuDNN's layer 1 on the
+     padded plane.
  24. layer 7 of the f32 stacks folded with FFMA (phase24 below; csrc/l7.cu's
      l7_fold_f32 through stack.last_layer) against l7_fold_plain in its
      three forms at three small shapes and the ns1080 and scale512 f32
      layer-7 planes: s2d and dense <= 3e-5, dense un-chunked equal to s2d
      bit for bit, u8 one level at < 0.5% of bytes, one "fold_f32" launch a
-     call; then timed alone in turns against the FFMA kernels
-     (fold=False, each form held against last_layer_plain first), which it
-     must beat, beside the byte bound, cuDNN's f32 layer 7 (TF32 off) and
-     the plain version.
+     call; then each form held against last_layer_plain (the nine taps
+     summed per pixel) and timed alone, twice, beside the byte bound,
+     cuDNN's f32 layer 7 (TF32 off) and the plain version.
  25. B4's int8 layer 6 on the int8 tensor cores (phase25 below; csrc/i8.cu
      through stack.l6_i8_layer, given the tiles' maxima) timed alone at
-     scale512 with the default tile, in turns against the __dp4a kernel
-     (MID_MMA False), which it
-     must beat, beside its bound, the plain version and cuDNN's bf16 layer
-     6 (a different function); the timed plane's output equals the plain
-     version's bit for bit.
+     scale512 with the default tile, twice, beside its bound, the plain
+     version and cuDNN's bf16 layer 6 (a different function); the timed
+     plane's output equals the plain version's bit for bit.
  26. B4's layer 7 folded on the int8 layer 6's tile-major planes (phase26
      below; csrc/l7.cu through stack.last_layer_tiles) against
      l7_tiles_plain in its three forms and both types at three odd shapes
      and scale512 (bf16 one ulp, f32 3e-5, u8 by check_u8_kernel, dense ==
-     s2d bit for bit), then timed alone at scale512 in turns against the
-     cell kernel (fold=False, held first), which it must beat, beside the
-     byte bound, cuDNN's layer 7 on the tile batch and the plain version.
+     s2d bit for bit), then held in s2d against the nine taps summed per
+     pixel of each tile and timed alone at scale512, twice, beside the byte
+     bound, cuDNN's layer 7 on the tile batch and the plain version.
  27. B5's f32 Winograd layer 6 as 3xTF32 (phase27 below; csrc/wino.cu's
      l6_wino_tf32 through stack.wino_layer) against _l6_wino_plain at 3e-5
      at three odd shapes and the ns1080 and scale512 layer-5 planes, the
-     f32 dense and u8 stacks under l6_wino against theirs, then timed alone
-     in turns against l6_wino<float> (MID_MMA False, held first), which it
-     must beat, beside the direct 3xTF32 layer 6, cuDNN's f32 layer 6 and
-     the bound; and the ns1080 f32 noise stack and f32-noise step under
-     l6_wino against the direct form.
+     f32 dense and u8 stacks under l6_wino against theirs, then timed alone,
+     twice, beside the direct 3xTF32 layer 6, cuDNN's f32 layer 6 and the
+     bound; and the ns1080 f32 noise stack and f32-noise step under l6_wino
+     against the direct form.
  28. the command line (phase28 below; waifu2x_torch.cli.main in this
      process, the shipped weights from the default model dir, the launch
      counts set to 0 before each call and read after it): a 720 x 1280 PNG
@@ -270,7 +254,7 @@ Phases (any failure raises and exits non-zero):
      stack) and a 512 x 512 PNG in scale mode, each bit-equal to
      Converter.process_bgr_u8 of the decoded file and >= 50 dB against the
      f32 non-kernel path, layer 1, layers 2-6 on the tensor cores and
-     layer 7 folded launched, no FFMA, cell or per-pixel layer; four
+     layer 7 folded launched, no probe variant; four
      512 x 512 PNGs in one call (the stream route), each at the u8 bar
      (|diff| <= 1 at < 0.2% of bytes) against the one-file call; --profile;
      StreamConverter.process_paths over the four with a frame cursor, then
@@ -316,22 +300,19 @@ Phases (any failure raises and exits non-zero):
      --iters 2, each with the launch counts read around it (the hand
      kernels only); their launches and phase 30's Converter run's go to
      each kernel row as "train_tools_launches".
- 32. the two redesigns of the port's first forms (phase32 below): B7's
-     gather (csrc/l6.cu:upto_gather_tiled) through stack_scale_upto at
-     upto 0..5 in every output form, f32 and bf16, at (1, 27, 38),
-     (2, 37, 53), (1, 5, 300), (1, 3, 2) and scale512, bit for bit against
-     its plain version on the input it read and against the
-     one-thread-a-cell form (tiled=False); each mode's launch alone at
-     scale512 in turns against that form, beside its byte bound, the plain
-     version and the one-call library form (checked equal) where there is
-     one. B4's tile maxima in layer 5's epilogue (stack.layer5_maxima:
-     csrc/mma.cu, mma_tf32.cu) at the default tile and tiles (1, 1),
-     (2, 3), (3, 5), a NaN among the inputs: x5 bit for bit the default
-     layer 5's, m bit for bit tile_absmax's and tile_max_plain's; at
-     scale512 layer 5 with and without them and tile_absmax alone in
-     turns; the B4 stack in turns against the tile_absmax route
-     (L5_MAXIMA False), both and the int8 step bit-equal; a (2, 1, 1)
-     mesh under l6_i8 byte-equal to one position, a maxima launch each;
+ 32. B7's gather and B4's tile maxima (phase32 below): the gather
+     (csrc/gather.cu:upto_gather_tiled) through stack_scale_upto at upto
+     0..5 in every output form, f32 and bf16, at (1, 27, 38), (2, 37, 53),
+     (1, 5, 300), (1, 3, 2) and scale512, bit for bit against its plain
+     version on the input it read; each mode's launch alone at scale512,
+     twice, beside its byte bound, the plain version and the one-call
+     library form (checked equal) where there is one. The tile maxima in
+     layer 5's epilogue (stack.layer5_maxima: csrc/mma.cu, mma_tf32.cu) at
+     the default tile and tiles (1, 1), (2, 3), (3, 5), a NaN among the
+     inputs: x5 bit for bit the default layer 5's, m bit for bit
+     tile_max_plain's; at scale512 layer 5 with and without them in turns;
+     the B4 stack timed twice and the int8 step; a (2, 1, 1) mesh under
+     l6_i8 byte-equal to one position, a maxima launch each;
  33. layers 2-6 on csrc/mma.cu's persistent kernel (phase33 below: layers
      2-5 with their weights resident, layer 6 split in two output halves)
      bit for bit against the tile kernel (persistent=False) at the
@@ -363,12 +344,10 @@ Winograd switch (the f32 stack on l6_wino_tf32, the bf16 one on
 l6_wino_mma) and gates the scale512 int8 step and stream at 50 dB.
 In phase 7 the f32-noise chain's layers 2-6 count 5 "mma_tf32" (the noise
 stack) and 5 "mma" (the bf16 scale stack), its layer 7 one "fold_f32" and
-one "fold", and the ns1080 timings put the f32-noise step and stack beside
-their times with FFMA layers 2-6, in turns, with the noise stack's
-per-layer events and their times with the FFMA layer 7 derived from phase
-24's turns of layer 7 alone (the FFMA kernel's time less the fold's). Phase 8
-holds every Converter call's layer 7 to the folds (f32 for the noise stack
-of the default noise_scale policy), no per-pixel or cell launch.
+one "fold", and the ns1080 timings give the f32-noise step and stack,
+twice each, with the noise stack's per-layer events. Phase 8 holds every
+Converter call's layer 7 to the folds (f32 for the noise stack of the
+default noise_scale policy).
 In phases 4, 6-8, 10-11 and 15 every call that the run made to a kernel wrapper
 (one per wrapper, input shape, dtype and weights) is repeated on a copy of
 its input and held against the plain version: f32 max |diff| <= 3e-5; bf16
@@ -379,9 +358,9 @@ bf16 bar against the f32 plain version is phase 15's 35 dB.
 Calls on frames of more than 1 M pixels are held on their first frame. Then
 timings with CUDA events (bf16 stacks on the tensor-core layers) for
 scale512 (each tail, each last-layer form,
-each layer-6 form, layer 6 alone in its forms: the two Winograd kernels in
-turns, which must be 4x apart, beside the direct tensor-core layer and
-cuDNN's layer 6, the truncation's own launches), noise256 and ns1080,
+each layer-6 form, layer 6 alone: the tensor-core Winograd kernel twice,
+beside the direct tensor-core layer and cuDNN's layer 6, the truncation's
+own launches), noise256 and ns1080,
 cuDNN bf16 yardsticks the port never calls, and for each stream its wall
 time beside the sum of its device step times.
 
@@ -710,18 +689,16 @@ def run_stream(sc, frames, stack, label: str, smi: str):
                              f"{len(frames)} frames")
     # layers 2-6 of every stack call (2-5 where layer 6 is int8 or
     # Winograd), on the tensor cores (as 3xTF32 where the stack is f32)
-    # (an int8 stack call is 7 launches, 8 where tile_absmax took the
-    # maxima; its layer 6 is the int8 layer's launch)
-    other_l6 = (stack.I8_LAUNCHES["mma"] + stack.I8_LAUNCHES["dp4a"]
-                + stack.L6_LAUNCHES["wino"])
-    stacks = (stack.LAUNCHES - stack.I8_LAUNCHES["absmax"]) // 7
-    if (mid["mma"] + mid["ffma"] + mid["mma_tf32"] != 5 * stacks - other_l6
+    # (an int8 stack call's layer 6 is the int8 layer's launch)
+    other_l6 = stack.I8_LAUNCHES["mma"] + stack.L6_LAUNCHES["wino"]
+    stacks = stack.LAUNCHES // 7
+    if (mid["mma"] + mid["mma_tf32"] != 5 * stacks - other_l6
             or mid["chain"]):
         raise AssertionError(f"{label}: layers 2-6 launches {mid} of "
                              f"{stack.LAUNCHES}")
-    # one layer 7 a stack call, folded (no stream takes the cell kernel,
-    # the int8 layer 6's tile-major planes included)
-    if sum(l7.values()) != stacks or l7["cell"] or l7["pixel"]:
+    # one layer 7 a stack call, folded (the int8 layer 6's tile-major
+    # planes included)
+    if sum(l7.values()) != stacks:
         raise AssertionError(f"{label}: layer-7 launches {l7} for "
                              f"{stacks} stack calls")
     expect_l1(stack, label, stacks)   # and one layer 1, on csrc/l1.cu
@@ -912,11 +889,11 @@ def stack_bound(plane: torch.Tensor, out_px: int, sp, maccs: int,
 TAP_FORMS = ("cell", "phase_taps")   # stack_scale_upto's names at upto 6
 
 
-def launch_taps(stack, x: torch.Tensor, sp, out: str, fold=None,
+def launch_taps(stack, x: torch.Tensor, sp, out: str,
                 image=None) -> torch.Tensor:
     """stack_scale_upto's tap form `out` alone, launched as its upto 6
-    launches it (the stack's launcher, _Launcher.taps: the fold, or with
-    fold=False the cell kernel): x the layer-6 plane [N, 2hl+2, 2wl+2, 128],
+    launches it (the stack's launcher, _Launcher.taps: the fold): x the
+    layer-6 plane [N, 2hl+2, 2wl+2, 128],
     or with image = (hl, wl) B4's tile-major planes [N, ny, nx, 2tr+2,
     2tc+2, 128] -> [N, hl, wl, 4] in x's dtype."""
     if image is None:
@@ -926,8 +903,7 @@ def launch_taps(stack, x: torch.Tensor, sp, out: str, fold=None,
         (n, ny, nx, h6, w6), (hl, wl) = x.shape[:5], image
         tiling = ((h6 - 2) // 2, (w6 - 2) // 2, ny, nx)
     y = torch.empty((n, hl, wl, 4), dtype=x.dtype, device=x.device)
-    stack._Launcher(None, x, None).taps(x, sp, y, n, hl, wl, out, tiling,
-                                        fold)
+    stack._Launcher(None, x, None).taps(x, sp, y, n, hl, wl, out, tiling)
     return y
 
 
@@ -939,11 +915,9 @@ def taps_alone(dev: torch.device) -> dict:
     on B4's tile-major planes at (2,37,53) and scale512, bf16 to one bf16
     ulp (check_mma_layer), f32 <= 3e-5, one "fold" / "fold_f32" launch a
     call, counted under its form in TAP_LAUNCHES; then each form timed
-    alone at
-    scale512 in both types in turns with the cell kernel (fold=False: cell,
-    fold, fold, cell), beside the byte bound, one cuDNN call for the same
-    function (TF32 off) and the plain version. Returns the numbers by form
-    and type."""
+    alone at scale512 in both types, twice, beside the byte bound, one cuDNN
+    call for the same function (TF32 off) and the plain version. Returns
+    the numbers by form and type."""
     from waifu2x_torch.models.srcnn import init_params
     from waifu2x_torch.ops import stack
     from waifu2x_torch.ops.convstack import no_tf32
@@ -972,7 +946,7 @@ def taps_alone(dev: torch.device) -> dict:
                     raise AssertionError(f"{out} {shape}: "
                                          f"{stack.L7_LAUNCHES} "
                                          f"{stack.TAP_LAUNCHES}")
-                ref = stack._last_taps_plain(x6, sp, out, True)
+                ref = stack._last_taps_plain(x6, sp, out)
                 what = f"phase 19 {out} alone {shape} {key}"
                 if dt == torch.bfloat16:
                     err, share = check_mma_layer(what, got, ref.to(dt))
@@ -985,7 +959,7 @@ def taps_alone(dev: torch.device) -> dict:
                 del got, ref
             if shape[0] < 16:
                 continue
-            # timed alone at scale512, in turns with the cell kernel
+            # timed alone at scale512
             w7 = sp[6][0]
             k4 = (w7[:, 0:4, 0].t().float().reshape(4, 128, 1, 1).to(dt)
                   .contiguous(memory_format=torch.channels_last))
@@ -994,19 +968,14 @@ def taps_alone(dev: torch.device) -> dict:
             xc = x6.permute(0, 3, 1, 2)
             item = x6.element_size()
             for out in TAP_FORMS:
-                runs = {"cell": lambda k, o=out: launch_taps(
-                            stack, x6, sp, o, fold=False),
-                        "fold": lambda k, o=out: launch_taps(
-                            stack, x6, sp, o)}
-                turns = {"cell": [], "fold": []}
-                for which in ("cell", "fold", "fold", "cell"):
-                    turns[which].append(time_ms(runs[which], dev, 10))
+                turns = [time_ms(lambda k, o=out: launch_taps(
+                    stack, x6, sp, o), dev, 10) for _ in range(2)]
                 lib_k = k4 if out == "phase_taps" else kt
                 with no_tf32():
                     lib = time_ms(lambda k, w=lib_k: F.conv2d(xc, w, stride=2),
                                   dev, 10)
                 t0 = time.perf_counter()
-                stack._last_taps_plain(x6, sp, out, True).to(dt)
+                stack._last_taps_plain(x6, sp, out).to(dt)
                 torch.cuda.synchronize()
                 plain_ms = (time.perf_counter() - t0) * 1e3
                 # the pixels the function reads (pixel (0, 0) of each cell,
@@ -1014,15 +983,11 @@ def taps_alone(dev: torch.device) -> dict:
                 px = n * hl * wl * (1 if out == "phase_taps" else 4)
                 bound = (px * 128 + n * hl * wl * 4) * item / PEAK_BYTES * 1e3
                 res[out, key].update({
-                    "ms": sum(turns["fold"]) / 2,
-                    "cell_ms": sum(turns["cell"]) / 2, "turns": turns,
+                    "ms": sum(turns) / 2, "turns": turns,
                     "bound_ms": bound, "library_ms": lib,
                     "plain_ms": plain_ms})
-                log(f"phase 19 {out} alone at scale512 {key}, in turns "
-                    f"(cell, fold, fold, cell): "
-                    + " / ".join(f"{t:.4f}" for t in (
-                        turns["cell"][0], turns["fold"][0],
-                        turns["fold"][1], turns["cell"][1]))
+                log(f"phase 19 {out} alone at scale512 {key}, twice: "
+                    + " / ".join(f"{t:.4f}" for t in turns)
                     + f" ms; bound {bound:.4f} ms by bytes "
                     f"({100 * bound / res[out, key]['ms']:.1f}% of it), "
                     f"cuDNN stride-2 conv {lib:.4f} ms, plain "
@@ -1042,12 +1007,13 @@ def taps_alone(dev: torch.device) -> dict:
                 stack.reset_launches()
                 got = launch_taps(stack, x6t, sp, out, image=(hl, wl))
                 torch.cuda.synchronize()
-                if (stack.L7_LAUNCHES[kern] != 1 or stack.L7_LAUNCHES["cell"]
+                if (stack.L7_LAUNCHES != {k: int(k == kern) for k in
+                                          stack.L7_LAUNCHES}
                         or sum(stack.TAP_LAUNCHES.values()) != 1):
                     raise AssertionError(f"{out} tiles: {stack.L7_LAUNCHES} "
                                          f"{stack.TAP_LAUNCHES}")
                 ref = stack._tiles_image(stack._last_taps_plain(
-                    planes, sp, out, True), n, ny, nx)[:, :hl, :wl]
+                    planes, sp, out), n, ny, nx)[:, :hl, :wl]
                 what = f"phase 19 {out} on B4's tiles {(n, hl, wl)} {key}"
                 err = (check_mma_layer(what, got, ref.to(dt))[0]
                        if dt == torch.bfloat16 else check_f32(what, got, ref))
@@ -1196,7 +1162,7 @@ def phase19(dev: torch.device, sp16, taps_launches: dict) -> list:
     # and its three whole-stack modes (7, 107, dimsem), each a warm-up and
     # 20 captured calls; no other tool reaches layer 7
     want_l7 = {key: {"fold": 4 * (iters + 1) if key == "fused_strip_probe"
-                     else 0, "fold_f32": 0, "cell": 0, "pixel": 0}
+                     else 0, "fold_f32": 0}
                for key in l7_launches}
     # of which the tap forms: mode 6's phase taps, a warm-up and 20 captured
     want_taps = {key: {"taps": 0, "ptaps": iters + 1 if key == (
@@ -1208,7 +1174,7 @@ def phase19(dev: torch.device, sp16, taps_launches: dict) -> list:
     log(f"phase 19 layer-7 launches by tool {l7_launches}: "
         f"{tap_launches['fused_strip_probe']['ptaps']} of "
         f"fused_strip_probe's are the phase taps on the fold "
-        f"(TAP_LAUNCHES), none on the cell kernel")
+        f"(TAP_LAUNCHES)")
     taps_launches = dict(taps_launches, phase_taps=tap_launches[
         "fused_strip_probe"]["ptaps"])
     per_variant = 1 + 2 * (iters + 1)   # measure(): check, graph, one by one
@@ -1254,7 +1220,7 @@ def phase19(dev: torch.device, sp16, taps_launches: dict) -> list:
                           k, out)
         return {"bound_ms": ms, "bound_by": by}
 
-    l6 = "waifu2x_torch/csrc/l6.cu"
+    gather = "waifu2x_torch/csrc/gather.cu"
     out_rows = []
     for layout in probe.TMM_LAYOUTS:
         r = rows[f"tmm_probe {layout}"][0]
@@ -1275,7 +1241,7 @@ def phase19(dev: torch.device, sp16, taps_launches: dict) -> list:
     out_rows += [{
         "name": "upto_gather_tiled GATHER_LANE0 (stack_scale_upto, upto 0, "
                 "out=\"lane0\")",
-        "route": "cuda", "source": l6,
+        "route": "cuda", "source": gather,
         "replaces": "tools/fused_strip_probe.py:162",
         "launches": form_launches["lane0"], "max_abs_err": form_err["lane0"],
         "ms": mode(fs, "upto0")["ms"], "plain_ms": plain["lane0"],
@@ -1292,7 +1258,7 @@ def phase19(dev: torch.device, sp16, taps_launches: dict) -> list:
         **bound(6, "phase_taps"), "library_ms": library["phase_taps"]}, {
         "name": "stack_scale_upto out=\"whole\" (upto_gather_tiled "
                 "GATHER_PAD at upto 0; layer k's own buffer at 1-5)",
-        "route": "cuda", "source": l6,
+        "route": "cuda", "source": gather,
         "replaces": "tools/k1_forensics.py:136",
         "launches": form_launches["whole"], "max_abs_err": form_err["whole"],
         "ms": mode(k1, "+L4 (full K1)")["ms"], "plain_ms": plain["whole"],
@@ -1329,10 +1295,9 @@ def phase19(dev: torch.device, sp16, taps_launches: dict) -> list:
             "max_abs_err": b["max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": "bytes", "library_ms": b["library_ms"],
-            "cell_kernel_ms": b["cell_ms"], "turns": b["turns"],
-            "f32": {k: f[k] for k in ("ms", "cell_ms", "bound_ms",
-                                      "library_ms", "plain_ms",
-                                      "max_abs_err")}})
+            "turns": b["turns"],
+            "f32": {k: f[k] for k in ("ms", "bound_ms", "library_ms",
+                                      "plain_ms", "max_abs_err")}})
     return out_rows
 
 
@@ -1341,8 +1306,7 @@ def phase20(dev: torch.device) -> list:
     shift_cost_probe.py:156, l4_shift_probe.py:130): csrc/mma.cu's
     zero-shift (ZS) and two-accumulator (PP) variants of the tensor-core
     layer, layer 7 under each zero-shift mask folded (csrc/l7.cu, against
-    l7_fold_plain(zs)) and per pixel (csrc/stack.cu, the yardstick, against
-    last_layer_plain(zs)), the three probe stacks against theirs at the JAX
+    l7_fold_plain(zs)), the three probe stacks against theirs at the JAX
     grid (shift_stack's base equal to stack_scale bit for bit), then the
     three tools with their launches counted, and the main path's counts
     checked unchanged. Returns the kernel table's rows."""
@@ -1385,21 +1349,20 @@ def phase20(dev: torch.device) -> list:
 
     # layer 7 under each mask against its plain version, f32 and bf16: the
     # fold (csrc/l7.cu) against l7_fold_plain(zs), one bf16 ulp or 3e-5 in
-    # f32; the per-pixel yardstick (fold=False) against last_layer_plain(zs)
-    l7_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    # f32
     fold_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    zs_fold_checks = pixel_launches = 0
+    zs_fold_checks = 0
     for n, hl, wl in ((2, 19, 26), (1, 3, 150), (2, 64, 63)):
         x6 = torch.rand((n, 2 * hl + 2, 2 * wl + 2, 128), generator=gen)
-        for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dt in (torch.float32, torch.bfloat16):
             x = x6.to(dev, dt)
             for zs in range(4):
                 stack.reset_launches()
                 got = stack.last_layer(x, sp_r[dt], zs)
                 torch.cuda.synchronize()
-                kernel = "fold" if dt == torch.bfloat16 else "fold_f32"
-                expect_l7(stack, f"layer 7 fold zs {zs} {dt}", **{kernel: 1})
-                if stack.L6_LAUNCHES["last_zs"]:
+                expect_l7(stack, f"layer 7 fold zs {zs} {dt}",
+                          *((1, 0) if dt == torch.bfloat16 else (0, 1)))
+                if any(stack.L6_LAUNCHES.values()):
                     raise AssertionError(f"layer 7 fold zs {zs}: launches "
                                          f"{stack.L6_LAUNCHES}")
                 y32 = stack.l7_fold_plain(x, stack._w7f(sp_r[dt], x),
@@ -1414,23 +1377,11 @@ def phase20(dev: torch.device) -> list:
                                   err, F32_TOL)
                 fold_err[dt] = max(fold_err[dt], err)
                 zs_fold_checks += 1
-                stack.reset_launches()
-                got = stack.last_layer(x, sp_r[dt], zs, fold=False)
-                expect_l7(stack, f"layer 7 zs {zs} per pixel", pixel=1)
-                pixel_launches += 1
-                if stack.L6_LAUNCHES["last_zs"] != (zs > 0):
-                    raise AssertionError(f"layer 7 zs {zs}: launches "
-                                         f"{stack.L6_LAUNCHES}")
-                ref = stack.last_layer_plain(x, *sp_r[dt][6], zs)
-                err = (got.float() - ref.float()).abs().max().item()
-                check_max_err(f"layer 7 zs {zs} {dt}", err, tol)
-                l7_err[dt] = max(l7_err[dt], err)
     stack.reset_launches()
     log(f"phase 20 layer 7 zs 0-3 at (2,19,26), (1,3,150), (2,64,63): fold "
         f"max|kernel - l7_fold_plain(zs)| f32 {fold_err[torch.float32]:.2e} "
         f"(bar 3e-5), bf16 {fold_err[torch.bfloat16]:.2e} (bar one bf16 "
-        f"ulp); per pixel (fold=False) max|kernel - plain| f32 "
-        f"{l7_err[torch.float32]:.2e}, bf16 {l7_err[torch.bfloat16]:.2e}")
+        f"ulp)")
 
     # each PP layer bit-equal to the one-accumulator kernel, scale512 shapes
     sp0 = stack.prep_params(init_params(0), torch.bfloat16, dev)
@@ -1444,7 +1395,7 @@ def phase20(dev: torch.device) -> list:
         one, two = stack.mma_layer(x, sp0, k), stack.mma_layer(x, sp0, k,
                                                                pp=True)
         torch.cuda.synchronize()
-        if mid_delta(before) != {"mma": 1, "ffma": 0, "chain": 0,
+        if mid_delta(before) != {"mma": 1, "chain": 0,
                                  "mma_zs": 0, "mma_pp": 1, "mma_tf32": 0,
                                  "mma_resident": int(k < 6),
                                  "mma_split": int(k == 6),
@@ -1496,29 +1447,18 @@ def phase20(dev: torch.device) -> list:
     del xs
     x6 = torch.rand((n4, 1026, 1026, 128), device=dev,
                     generator=dev_gen).to(torch.bfloat16)
-    # layer 7 under each mask in turns: per pixel, fold, fold, per pixel
-    l7_turns = {zs: {False: [], True: []} for zs in range(4)}
+    # layer 7 under each mask, twice
+    l7_turns = {zs: [timed_ms(lambda: stack.last_layer(x6, sp0, zs))
+                     for _ in range(2)] for zs in range(4)}
     stack.reset_launches()
-    for zs in range(4):
-        for flag in (False, True, True, False):
-            l7_turns[zs][flag].append(timed_ms(
-                lambda: stack.last_layer(x6, sp0, zs, fold=flag)))
-    pixel_launches += stack.L7_LAUNCHES["pixel"]
-    stack.reset_launches()
-    l7_ms = {zs: sum(t[False]) / 2 for zs, t in l7_turns.items()}
-    fold_ms = {zs: sum(t[True]) / 2 for zs, t in l7_turns.items()}
-    l7_plain_ms = {}
-    for name, plain in (("pixel", lambda: stack.last_layer_plain(
-            x6, *sp0[6], 3)), ("fold", lambda: stack.l7_fold_plain(
-                x6, sp0.w7f, sp0[6][1], 3))):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        plain()
-        torch.cuda.synchronize()
-        l7_plain_ms[name] = (time.perf_counter() - t1) * 1e3
+    fold_ms = {zs: sum(t) / 2 for zs, t in l7_turns.items()}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stack.l7_fold_plain(x6, sp0.w7f, sp0[6][1], 3)
+    torch.cuda.synchronize()
+    l7_plain_ms = (time.perf_counter() - t1) * 1e3
     l7_library_ms = library_l7_ms(x6, sp0)
     l7_bytes = x6.numel() * 2 + n4 * 512 * 512 * 4 * 2 + 128 * 9 * 2 + 4
-    l7_ops = 2 * 9 * 128 * n4 * 1024 * 1024
     # the fold's operations: the [n, 513, 513, 512] x [512, 16] product
     fold_ops = 2 * 512 * 16 * n4 * 513 * 513
     del x6
@@ -1535,19 +1475,15 @@ def phase20(dev: torch.device) -> list:
         + f"; bound {mid4_ms:.3f} ms; cuDNN bf16 {mid4_library:.3f} ms; "
         f"plain (host clock) one {plain_ms['one']:.1f} ms, zs3 "
         f"{plain_ms['zs3']:.1f} ms")
+    l7_bound = max(l7_bytes / PEAK_BYTES, fold_ops / PEAK_BF16_FLOPS) * 1e3
     log(f"timing B = 4, 512^2, layer 7 alone under zs 0/1/2/3, bf16, on "
-        f"{card_name()}, in turns (per pixel, fold, fold, per pixel): fold "
+        f"{card_name()}, twice each: fold "
         + " / ".join(f"{fold_ms[z]:.3f}" for z in range(4))
-        + " ms (turns " + "; ".join(
-            " ".join(f"{t:.3f}" for t in l7_turns[z][True]) for z in range(4))
-        + "), per pixel " + " / ".join(f"{l7_ms[z]:.3f}" for z in range(4))
-        + " ms (turns " + "; ".join(
-            " ".join(f"{t:.3f}" for t in l7_turns[z][False])
-            for z in range(4))
-        + f"); bound {max(l7_bytes / PEAK_BYTES, fold_ops / PEAK_BF16_FLOPS) * 1e3:.3f} ms; cuDNN "
-        f"layer 7 (zs 0) {l7_library_ms:.3f} ms; plain zs3 (host clock) "
-        f"fold {l7_plain_ms['fold']:.1f} ms, per pixel "
-        f"{l7_plain_ms['pixel']:.1f} ms")
+        + " ms (runs " + "; ".join(
+            " ".join(f"{t:.3f}" for t in l7_turns[z]) for z in range(4))
+        + f"); bound {l7_bound:.3f} ms; cuDNN layer 7 (zs 0) "
+        f"{l7_library_ms:.3f} ms; plain zs3 (host clock) "
+        f"{l7_plain_ms:.1f} ms")
 
     # the three probe stacks against their plain versions at the JAX grid
     ylow = torch.rand((4, 512, 512), generator=torch.Generator().manual_seed(
@@ -1605,7 +1541,6 @@ def phase20(dev: torch.device) -> list:
             raise AssertionError(f"{key} failed")
         counts[key] = {"stack": stack.LAUNCHES, **stack.KERNEL_LAUNCHES,
                        **stack.MID_LAUNCHES,
-                       "last_zs": stack.L6_LAUNCHES["last_zs"],
                        **{f"l7_{k}": v for k, v in stack.L7_LAUNCHES.items()},
                        "probe_kernels": sum(probe.LAUNCHES.values())}
     calls = 21
@@ -1616,22 +1551,20 @@ def phase20(dev: torch.device) -> list:
         want_l4["mma"] += calls * (upto - 1 - (zs4 > 0))
         want_l4["mma_zs"] += calls * (zs4 > 0)
     n_zs = len(shift_cost_probe.MODES) - 1
-    # every shift_cost mode ends in the fold (base too): 84 fold launches,
-    # none per pixel
+    # every shift_cost mode ends in the fold (base too): 84 fold launches
     want = {
         "accpp_probe": {"stack": 3 * (calls + 1) * 7, "scale": 2 * 22 * 7,
                         "probe": 22 * 7, "mma": 2 * 22 * 5,
-                        "mma_pp": 22 * 5, "mma_zs": 0, "last_zs": 0},
+                        "mma_pp": 22 * 5, "mma_zs": 0},
         "shift_cost_probe": {"stack": 4 * calls * 7, "probe": 4 * calls * 7,
                              "mma": calls * 5, "mma_zs": n_zs * calls * 5,
-                             "mma_pp": 0, "last_zs": 0,
-                             "l7_fold": len(shift_cost_probe.MODES) * calls,
-                             "l7_pixel": 0},
+                             "mma_pp": 0,
+                             "l7_fold": len(shift_cost_probe.MODES) * calls},
         "l4_shift_probe": {**want_l4, "probe": want_l4["stack"],
-                           "mma_pp": 0, "last_zs": 0}}
+                           "mma_pp": 0}}
     for key, w in want.items():
         got = {k: counts[key][k] for k in w}
-        if got != w or counts[key]["ffma"] or counts[key]["probe_kernels"]:
+        if got != w or counts[key]["probe_kernels"]:
             raise AssertionError(f"phase 20 {key} launches {counts[key]}, "
                                  f"want {w}")
     log(f"phase 20 launches by tool: {counts}")
@@ -1641,11 +1574,13 @@ def phase20(dev: torch.device) -> list:
     stack.stack_scale(ylow, sp0)
     torch.cuda.synchronize()
     if (stack.LAUNCHES != 7 or stack.KERNEL_LAUNCHES["scale"] != 7
-            or stack.MID_LAUNCHES != {"mma": 5, "ffma": 0, "chain": 0,
+            or stack.MID_LAUNCHES != {"mma": 5, "chain": 0,
                                       "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
                                       "mma_resident": 4, "mma_split": 1,
                                       "mma_tile": 0}
-            or stack.L6_LAUNCHES["last_zs"] or stack.KERNEL_LAUNCHES["probe"]):
+            or stack.L6_LAUNCHES != {"direct": 1, "i8": 0, "wino": 0,
+                                     "upto": 0}
+            or stack.KERNEL_LAUNCHES["probe"]):
         raise AssertionError(f"stack_scale after phase 20: {stack.LAUNCHES}, "
                              f"{stack.MID_LAUNCHES}, {stack.L6_LAUNCHES}")
     del ylow
@@ -1711,41 +1646,23 @@ def phase20(dev: torch.device) -> list:
         "max_abs_err_f32": fold_err[torch.float32],
         "checks": zs_fold_checks,
         "ms": fold_ms[3], "zs_ms": [fold_ms[z] for z in range(4)],
-        "turns_ms": {z: l7_turns[z][True] for z in range(4)},
-        "per_pixel_zs_ms": [l7_ms[z] for z in range(4)],
-        "plain_ms": l7_plain_ms["fold"],
-        "bound_ms": max(l7_bytes / PEAK_BYTES,
-                        fold_ops / PEAK_BF16_FLOPS) * 1e3,
+        "turns_ms": l7_turns,
+        "plain_ms": l7_plain_ms,
+        "bound_ms": l7_bound,
         "bound_by": ("bytes" if l7_bytes / PEAK_BYTES
                      >= fold_ops / PEAK_BF16_FLOPS else "operations"),
         "library_ms": l7_library_ms,
         "library_is": "cuDNN bf16 conv 128 -> 1 + leaky, zs 0's function",
-    }, {
-        "name": "conv3x3_bias_leaky_s2d ZS, layer 7 under a zero-shift mask "
-                "per pixel (FFMA; fold=False, the yardstick)",
-        "route": "cuda", "source": "waifu2x_torch/csrc/stack.cu",
-        "replaces": "tools/shift_cost_probe.py:156",
-        "launches": pixel_launches,
-        "launches_of": "phase 20's checks and timed turns, counted as they "
-                       "were made; no tool path takes it",
-        "max_abs_err": max(l7_err.values()),
-        "ms": l7_ms[3], "zs_ms": [l7_ms[z] for z in range(4)],
-        "turns_ms": {z: l7_turns[z][False] for z in range(4)},
-        "plain_ms": l7_plain_ms["pixel"],
-        "bound_ms": max(l7_bytes / PEAK_BYTES, l7_ops / PEAK_BF16_FLOPS) * 1e3,
-        "bound_by": ("bytes" if l7_bytes / PEAK_BYTES
-                     >= l7_ops / PEAK_BF16_FLOPS else "operations"),
-        "library_ms": l7_library_ms,
     }]
 
 
 L7_SHAPES = ((1, 27, 38), (2, 37, 53), (1, 5, 300))
 
 
-def expect_l7(stack, label: str, fold: int = 0, cell: int = 0,
-              pixel: int = 0, fold_f32: int = 0) -> None:
-    """Layer 7's launches by kernel since the counts were last reset."""
-    want = {"fold": fold, "fold_f32": fold_f32, "cell": cell, "pixel": pixel}
+def expect_l7(stack, label: str, bf16: int = 0, f32: int = 0) -> None:
+    """Layer 7's launches by kernel since the counts were last reset: `bf16`
+    on the tensor-core fold, `f32` on the FFMA one."""
+    want = {"fold": bf16, "fold_f32": f32}
     if stack.L7_LAUNCHES != want:
         raise AssertionError(f"{label}: layer-7 launches "
                              f"{stack.L7_LAUNCHES}, want {want}")
@@ -1772,10 +1689,9 @@ def phase21(dev: torch.device, main_launches: int) -> list:
     noise256 (the shipped weights): s2d and dense to one bf16 ulp at the
     output's magnitude, dense un-chunked equal to s2d bit for bit and its
     pad columns zero, u8 by check_u8_kernel, each call one launch under
-    L7_LAUNCHES["fold"]. Then layer 7 alone at scale512 in each form, in
-    turns (old, new, new, old) against the FFMA kernels a bf16 stack ran
-    before (fold=False), and at noise256 in s2d, beside cuDNN's layer 7
-    alone, the plain version and the bound. `main_launches` is the fold's
+    L7_LAUNCHES["fold"]. Then layer 7 alone at scale512 in each form,
+    twice, and at noise256 in s2d, beside cuDNN's layer 7 alone, the plain
+    version and the bound. `main_launches` is the fold's
     count in phase 4's main path. Returns the kernel table's row."""
     from waifu2x_torch.models.srcnn import init_params
     from waifu2x_torch.models.weights import load_model_json
@@ -1805,7 +1721,7 @@ def phase21(dev: torch.device, main_launches: int) -> list:
                          for i in range(0, n, chunk)])
         stack.reset_launches()
         got = stack.last_layer(x6, sp)
-        expect_l7(stack, f"layer 7 fold s2d {(n, hl, wl)}", fold=1)
+        expect_l7(stack, f"layer 7 fold s2d {(n, hl, wl)}", bf16=1)
         e, sh = check_mma_layer(f"layer 7 fold s2d {(n, hl, wl)}", got,
                                 stack.last_out(y32, "s2d", torch.bfloat16))
         err["s2d"], share["s2d"] = max(err["s2d"], e), max(share["s2d"], sh)
@@ -1826,7 +1742,7 @@ def phase21(dev: torch.device, main_launches: int) -> list:
                                 stack.last_out(y32, "u8", torch.bfloat16,
                                                uvp), torch.bfloat16)
         err["u8"], share["u8"] = max(err["u8"], e), max(share["u8"], sh)
-        expect_l7(stack, f"layer 7 fold {(n, hl, wl)}", fold=3)
+        expect_l7(stack, f"layer 7 fold {(n, hl, wl)}", bf16=3)
         del got, y32
         if n > 2:
             planes[(n, hl, wl)] = (x6, uvp, sp)
@@ -1840,18 +1756,14 @@ def phase21(dev: torch.device, main_launches: int) -> list:
         f"dense un-chunked == s2d bit for bit, u8 {err['u8']} level at "
         f"{share['u8']:.4%} of bytes")
 
-    # layer 7 alone at scale512 in each form, in turns old, new, new, old
+    # layer 7 alone at scale512 in each form, twice
     x6, uvp, sp = planes[(16, 512, 512)]
     n, hl, wl = 16, 512, 512
     kw = {"s2d": {}, "dense": {"out": "dense"},
           "u8": {"out": "u8", "uvp": uvp}}
-    turns = {form: {True: [], False: []} for form in kw}
-    for form, args in kw.items():
-        for flag in (False, True, True, False):
-            turns[form][flag].append(timed_ms(
-                lambda: stack.last_layer(x6, sp, fold=flag, **args)))
-    ms = {form: {k: sum(v) / 2 for k, v in t.items()}
-          for form, t in turns.items()}
+    turns = {form: [timed_ms(lambda: stack.last_layer(x6, sp, **args))
+                    for _ in range(2)] for form, args in kw.items()}
+    ms = {form: sum(t) / 2 for form, t in turns.items()}
     t1 = time.perf_counter()
     for i in range(0, n, 2):
         stack.l7_fold_plain(x6[i:i + 2], sp.w7f, sp[6][1]).to(torch.bfloat16)
@@ -1872,8 +1784,7 @@ def phase21(dev: torch.device, main_launches: int) -> list:
     del planes[(16, 512, 512)], x6, uvp
     torch.cuda.empty_cache()
     x6n, _, spn = planes.pop((256, 128, 128))
-    noise_ms = {flag: timed_ms(lambda: stack.last_layer(x6n, spn, fold=flag))
-                for flag in (False, True)}
+    noise_ms = timed_ms(lambda: stack.last_layer(x6n, spn))
     noise_bound = max((x6n.numel() * 2 + 256 * 128 * 128 * 8) / PEAK_BYTES,
                       2 * 512 * 16 * 256 * 129 * 129 / PEAK_BF16_FLOPS) * 1e3
     noise_lib_ms = library_l7_ms(x6n, spn)
@@ -1882,18 +1793,15 @@ def phase21(dev: torch.device, main_launches: int) -> list:
     x6_shape = (n, 2 * hl + 2, 2 * wl + 2, 128)
     log(f"phase 21 layer 7 alone, scale512 x6 {x6_shape} bf16, on "
         f"{card_name()}: " + "; ".join(
-            f"{form} fold {ms[form][True]:.3f} ms (turns "
-            + " / ".join(f"{v:.3f}" for v in turns[form][True])
-            + f"; {(in_bytes + out_bytes[form]) / ms[form][True] / 1e6:.0f} "
-            f"GB/s = {100 * bound[form] / ms[form][True]:.1f}% of the bound "
-            f"{bound[form]:.3f} ms by {bound_by}), FFMA "
-            f"{ms[form][False]:.3f} ms (turns "
-            + " / ".join(f"{v:.3f}" for v in turns[form][False])
-            + f"), {ms[form][False] / ms[form][True]:.2f}x"
+            f"{form} fold {ms[form]:.3f} ms (runs "
+            + " / ".join(f"{v:.3f}" for v in turns[form])
+            + f"; {(in_bytes + out_bytes[form]) / ms[form] / 1e6:.0f} "
+            f"GB/s = {100 * bound[form] / ms[form]:.1f}% of the bound "
+            f"{bound[form]:.3f} ms by {bound_by})"
             for form in kw)
         + f"; plain (l7_fold_plain, in chunks, host clock) {plain_ms:.1f} ms;"
         f" cuDNN bf16 layer 7 alone {lib_ms:.3f} ms; noise256 x6 s2d: fold "
-        f"{noise_ms[True]:.3f} ms, FFMA {noise_ms[False]:.3f} ms, bound "
+        f"{noise_ms:.3f} ms, bound "
         f"{noise_bound:.3f} ms, cuDNN {noise_lib_ms:.3f} ms; "
         f"{time.perf_counter() - t0:.1f} s")
     return [{
@@ -1907,11 +1815,9 @@ def phase21(dev: torch.device, main_launches: int) -> list:
         "launches": main_launches,
         "max_abs_err": max(err["s2d"], err["dense"]),
         "max_abs_err_u8_levels": err["u8"],
-        "ms": ms["s2d"][True],
-        "form_ms": {form: ms[form][True] for form in kw},
-        "ffma_ms": {form: ms[form][False] for form in kw},
-        "noise256_ms": noise_ms[True],
-        "noise256_ffma_ms": noise_ms[False],
+        "ms": ms["s2d"],
+        "form_ms": ms,
+        "noise256_ms": noise_ms,
         "noise256_bound_ms": noise_bound,
         "noise256_library_ms": noise_lib_ms,
         "plain_ms": plain_ms,
@@ -1929,7 +1835,7 @@ NS1080 = (4, 1080, 1920)     # the chain's full-res frames: the noise stack
 def expect_l1(stack, label: str, l1: int) -> None:
     """Layer 1's launches by kernel since the counts were last reset: every
     stack call's on csrc/l1.cu."""
-    want = {"l1": l1, "ffma": 0}
+    want = {"l1": l1}
     if stack.L1_LAUNCHES != want:
         raise AssertionError(f"{label}: layer-1 launches "
                              f"{stack.L1_LAUNCHES}, want {want}")
@@ -2003,9 +1909,9 @@ def phase22(dev: torch.device, main_launches: int) -> list:
     and the five chained at the ns1080 noise stack's layer shapes (the
     shipped noise2 weights, each layer fed the kernel's output of the one
     before), max |diff| <= 3e-5, one "mma_tf32" launch a call. Then the f32
-    noise stack at ns1080 layer by layer, in turns FFMA (MID_MMA False) /
-    3xTF32 / 3xTF32 / FFMA, with TFLOP/s against the 3xTF32 bound and the
-    FFMA floor, beside cuDNN's f32 layers 2-6 and f32 stack (TF32 off).
+    noise stack at ns1080 layer by layer, twice, with TFLOP/s against the
+    3xTF32 bound and the FFMA floor, beside cuDNN's f32 layers 2-6 and f32
+    stack (TF32 off).
     `main_launches` is the "mma_tf32" count of phase 7's f32-noise chain.
     Returns the kernel table's rows (the layers, the f32 stack)."""
     from waifu2x_torch.models.srcnn import init_params
@@ -2059,16 +1965,13 @@ def phase22(dev: torch.device, main_launches: int) -> list:
     del x
     torch.cuda.empty_cache()
 
-    # the f32 noise stack at ns1080 layer by layer, in turns
+    # the f32 noise stack at ns1080 layer by layer, twice
     y = torch.rand(NS1080, device=dev, generator=gen)
-    turns = {False: [], True: []}
-    whole = {False: [], True: []}
-    for flag in (False, True, True, False):
-        stack.MID_MMA = flag
-        whole[flag].append(timed_ms(lambda: stack.stack_noise(y, sp_n)))
-        turns[flag].append(per_layer_ms(
+    turns, whole = [], []
+    for _ in range(2):
+        whole.append(timed_ms(lambda: stack.stack_noise(y, sp_n)))
+        turns.append(per_layer_ms(
             lambda ev: stack.stack_noise(y, sp_n, events=ev), stack))
-    stack.MID_MMA = True
     stack.reset_launches()
     stack.stack_noise(y, sp_n)
     torch.cuda.synchronize()
@@ -2077,9 +1980,9 @@ def phase22(dev: torch.device, main_launches: int) -> list:
     if stack.MID_LAUNCHES != want:
         raise AssertionError(f"f32 noise stack: layers 2-6 launches "
                              f"{stack.MID_LAUNCHES}, want {want}")
-    mid = {f: (t[0][1:6] + t[1][1:6]) / 2 for f, t in turns.items()}
-    ends = (turns[True][0] + turns[True][1]) / 2   # layers 1 and 7: [0], [6]
-    stack_ms = {f: sum(v) / 2 for f, v in whole.items()}
+    per_layer = (turns[0] + turns[1]) / 2   # layers 1 and 7: [0], [6]
+    mid = per_layer[1:6]
+    stack_ms = sum(whole) / 2
     bounds = tf32_layer_bounds(stack, n, hg, wg)
     bound = sum(b[2] for b in bounds)
     floor = sum(b[3] for b in bounds)
@@ -2108,32 +2011,23 @@ def phase22(dev: torch.device, main_launches: int) -> list:
     stack_floor = floor + 2 * maccs_17 * px / PEAK_F32_FLOPS * 1e3
     smi = card_name()
     log(f"phase 22 f32 noise stack at ns1080 {NS1080}, layers 2-6, on {smi}: "
-        f"3xTF32 {mid[True].sum():.2f} ms = "
-        f"{3 * flops / mid[True].sum() / 1e9:.1f} TFLOP/s of TF32 products "
-        f"({100 * bound / mid[True].sum():.1f}% of the bound {bound:.2f} ms),"
-        f" FFMA {mid[False].sum():.2f} ms "
-        f"({mid[False].sum() / mid[True].sum():.2f}x; FFMA floor "
-        f"{floor:.2f} ms); per layer " + "; ".join(
-            f"L{k + 2} {mid[True][k]:.2f} / FFMA {mid[False][k]:.2f} ms, "
-            f"bound {bounds[k][2]:.2f}" for k in range(5))
-        + f"; layer 1 (csrc/l1.cu) {ends[0]:.2f} ms, layer 7 (csrc/l7.cu, "
-        f"the f32 fold) {ends[6]:.2f} ms"
-        + "; the two turns of each: 3xTF32 "
-        + " / ".join(f"{t[1:6].sum():.2f}" for t in turns[True])
-        + ", FFMA " + " / ".join(f"{t[1:6].sum():.2f}" for t in turns[False])
+        f"3xTF32 {mid.sum():.2f} ms = "
+        f"{3 * flops / mid.sum() / 1e9:.1f} TFLOP/s of TF32 products "
+        f"({100 * bound / mid.sum():.1f}% of the bound {bound:.2f} ms; FFMA "
+        f"floor {floor:.2f} ms); per layer " + "; ".join(
+            f"L{k + 2} {mid[k]:.2f} ms, bound {bounds[k][2]:.2f}"
+            for k in range(5))
+        + f"; layer 1 (csrc/l1.cu) {per_layer[0]:.2f} ms, layer 7 "
+        f"(csrc/l7.cu, the f32 fold) {per_layer[6]:.2f} ms; the two runs: "
+        + " / ".join(f"{t[1:6].sum():.2f}" for t in turns)
         + f" ms; cuDNN f32 layers 2-6 (TF32 off) {lib_mid:.2f} ms; "
         f"mma_layer_plain layers 2-6 (host clock) {plain_ms:.1f} ms")
     log(f"phase 22 f32 noise stack at ns1080, whole: 3xTF32 "
-        f"{stack_ms[True]:.2f} ms, FFMA {stack_ms[False]:.2f} ms (turns "
-        + " / ".join(f"{v:.2f}" for v in whole[True]) + " and "
-        + " / ".join(f"{v:.2f}" for v in whole[False])
+        f"{stack_ms:.2f} ms (runs " + " / ".join(f"{v:.2f}" for v in whole)
         + f"), bound {stack_bound:.2f} ms (FFMA floor {stack_floor:.2f}), "
         f"cuDNN f32 stack (TF32 off) {lib_stack:.2f} ms, plain (a frame at "
         f"a time, host clock) {stack_plain_ms:.1f} ms; max|kernel - plain| "
         f"of the layers {err:.3e}; {time.perf_counter() - t0:.1f} s")
-    if not mid[True].sum() < mid[False].sum():
-        raise AssertionError(f"3xTF32 layers 2-6 {mid[True].sum()} ms, FFMA "
-                             f"{mid[False].sum()} ms")
     del y
     torch.cuda.empty_cache()
     return [{
@@ -2145,9 +2039,8 @@ def phase22(dev: torch.device, main_launches: int) -> list:
         "launches": main_launches,
         "launches_of": "phase 7's ns1080 chain with an f32 noise stack",
         "max_abs_err": err,
-        "ms": float(mid[True].sum()),
-        "layer_ms": [float(v) for v in mid[True]],
-        "ffma_ms": float(mid[False].sum()),
+        "ms": float(mid.sum()),
+        "layer_ms": [float(v) for v in mid],
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": "operations",
@@ -2163,8 +2056,7 @@ def phase22(dev: torch.device, main_launches: int) -> list:
         "launches_of": "phase 7's ns1080 chain with an f32 noise stack "
                        "(3xTF32 launches)",
         "max_abs_err": err,
-        "ms": stack_ms[True],
-        "ffma_ms": stack_ms[False],
+        "ms": stack_ms,
         "plain_ms": stack_plain_ms,
         "bound_ms": stack_bound,
         "bound_by": "operations",
@@ -2198,10 +2090,9 @@ def phase23(dev: torch.device, main_launches: int) -> list:
     reaches it) against its plain version (l1_plain), scale and noise, f32
     and bf16, at L7_SHAPES (random weights) and at scale512 and noise256
     (the shipped scale2.0x and noise1 weights): bf16 to one bf16 ulp, f32
-    <= 3e-5, one "l1" launch a call. Then timed at scale512 and noise256
-    in turns (old, new, new, old) against stack.cu's FFMA plane modes
-    (l1_layer(ffma=True)), with GB/s against the byte bound, beside cuDNN's
-    layer 1 on the padded plane. `main_launches` is the "l1" count of phase
+    <= 3e-5, one "l1" launch a call. Then timed at scale512 and noise256,
+    twice, with GB/s against the byte bound, beside cuDNN's layer 1 on the
+    padded plane. `main_launches` is the "l1" count of phase
     4's main path. Returns the kernel table's row."""
     from waifu2x_torch.models.srcnn import init_params
     from waifu2x_torch.models.weights import load_model_json
@@ -2252,19 +2143,17 @@ def phase23(dev: torch.device, main_launches: int) -> list:
         f"{err[torch.bfloat16]:.3e} ({share:.4%} of outputs differ; bar one "
         f"bf16 ulp)")
 
-    # timed in turns against the FFMA plane modes, beside cuDNN
+    # timed twice, beside cuDNN
     rows = {}
     for full_res in (False, True):
         for dt in (torch.bfloat16, torch.float32):
             shape = main[full_res]
             sp = sps[dt]["noise" if full_res else "scale"]
             x = torch.rand(shape, device=dev, generator=gen).to(dt)
-            t = {False: [], True: []}
-            for flag in (True, False, False, True):
-                # 20 calls back to back: at a few tenths of a ms each, the
-                # host's launch of the first would weigh in a mean of 3
-                t[flag].append(timed_ms(
-                    lambda: stack.l1_layer(x, sp, full_res, ffma=flag), 20))
+            # 20 calls back to back: at a few tenths of a ms each, the
+            # host's launch of the first would weigh in a mean of 3
+            t = [timed_ms(lambda: stack.l1_layer(x, sp, full_res), 20)
+                 for _ in range(2)]
             n, ph, pw = shape
             hg, wg = (ph // 2, pw // 2) if full_res else (ph, pw)
             size = x.element_size()
@@ -2276,8 +2165,8 @@ def phase23(dev: torch.device, main_launches: int) -> list:
             bound = max((in_b + out_b) / PEAK_BYTES,
                         2 * macs / PEAK_F32_FLOPS) * 1e3
             rows[(full_res, dt)] = {
-                "new": sum(t[False]) / 2, "old": sum(t[True]) / 2,
-                "turns": t, "bound": bound, "bytes": in_b + out_b,
+                "new": sum(t) / 2, "turns": t, "bound": bound,
+                "bytes": in_b + out_b,
                 "library": library_l1_ms(x, sp, full_res)}
             if dt == torch.bfloat16 and not full_res:
                 t1 = time.perf_counter()
@@ -2293,13 +2182,11 @@ def phase23(dev: torch.device, main_launches: int) -> list:
                 f"{'f32' if dt == torch.float32 else 'bf16'}")
 
     log(f"phase 23 layer 1 alone on {card_name()}: " + "; ".join(
-        f"{tag(fr, dt)} l1.cu {r['new']:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in r["turns"][False])
+        f"{tag(fr, dt)} l1.cu {r['new']:.3f} ms (runs "
+        + " / ".join(f"{v:.3f}" for v in r["turns"])
         + f"; {r['bytes'] / r['new'] / 1e6:.0f} GB/s = "
         f"{100 * r['bound'] / r['new']:.1f}% of the bound {r['bound']:.3f} ms"
-        f" by bytes), FFMA plane mode {r['old']:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in r["turns"][True])
-        + f"), {r['old'] / r['new']:.2f}x; cuDNN {r['library']:.3f} ms"
+        f" by bytes); cuDNN {r['library']:.3f} ms"
         for (fr, dt), r in rows.items())
         + f"; plain (scale512 bf16, a frame at a time, host clock) "
         f"{rows[(False, torch.bfloat16)]['plain']:.1f} ms; "
@@ -2316,9 +2203,7 @@ def phase23(dev: torch.device, main_launches: int) -> list:
         "launches": main_launches,
         "max_abs_err": max(err.values()),
         "ms": r["new"],
-        "ffma_ms": r["old"],
         "form_ms": {tag(*key): v["new"] for key, v in rows.items()},
-        "form_ffma_ms": {tag(*key): v["old"] for key, v in rows.items()},
         "form_bound_ms": {tag(*key): v["bound"] for key, v in rows.items()},
         "form_library_ms": {tag(*key): v["library"]
                             for key, v in rows.items()},
@@ -2351,12 +2236,10 @@ def phase24(dev: torch.device, main_launches: int) -> list:
     and scale2.0x weights, f32): s2d and dense within 3e-5, dense
     un-chunked equal to s2d bit for bit and its pad columns zero, u8 by
     check_u8_kernel, each call one launch under L7_LAUNCHES["fold_f32"].
-    Then timed alone at ns1080 (s2d) and scale512 (each form), in turns
-    (FFMA, fold, fold, FFMA) against the FFMA kernels the f32 stacks ran
-    before (fold=False; each form first held against last_layer_plain's Y
-    at the same bars), beside cuDNN's f32 layer 7 alone (TF32 off), the
-    plain version and the byte bound; the fold must be the faster in every
-    form. `main_launches` is the fold's f32 count in phase 7's f32-noise
+    Then at ns1080 (s2d) and scale512 (each form) each form held against
+    last_layer_plain's Y (the nine taps summed per pixel) at the same bars
+    and timed alone, twice, beside cuDNN's f32 layer 7 alone (TF32 off),
+    the plain version and the byte bound. `main_launches` is the fold's f32 count in phase 7's f32-noise
     chain. Returns the kernel table's row."""
     from waifu2x_torch.models.srcnn import init_params
     from waifu2x_torch.models.weights import load_model_json
@@ -2389,7 +2272,7 @@ def phase24(dev: torch.device, main_launches: int) -> list:
         stack.reset_launches()
         got = stack.last_layer(x6, sp)
         torch.cuda.synchronize()
-        expect_l7(stack, label + " s2d", fold_f32=1)
+        expect_l7(stack, label + " s2d", f32=1)
         err["s2d"] = max(err["s2d"], check_f32(label + " s2d", got, y32))
         ydense, tc = stack.last_layer(x6, sp, out="dense")
         check_dense_pad(label + " dense", ydense, tc, wl)
@@ -2406,7 +2289,7 @@ def phase24(dev: torch.device, main_launches: int) -> list:
                                 stack.last_out(y32, "u8", torch.float32,
                                                uvp), torch.float32)
         err["u8"], share = max(err["u8"], e), max(share, sh)
-        expect_l7(stack, label, fold_f32=3)
+        expect_l7(stack, label, f32=3)
         del got, y32
         if n > 2:
             planes[(n, hl, wl)] = (x6, uvp, sp)
@@ -2432,7 +2315,7 @@ def phase24(dev: torch.device, main_launches: int) -> list:
                 else "operations", moved)
 
     rows = {}
-    ffma_err = {"s2d": 0.0, "dense": 0.0, "u8": 0}
+    taps_err = {"s2d": 0.0, "dense": 0.0, "u8": 0}
     for key, forms in ((ns, ("s2d",)), ((16, 512, 512),
                                         ("s2d", "dense", "u8"))):
         x6, uvp, sp = planes.pop(key)
@@ -2440,14 +2323,14 @@ def phase24(dev: torch.device, main_launches: int) -> list:
         kw = {"s2d": {}, "dense": {"out": "dense"},
               "u8": {"out": "u8", "uvp": uvp}}
         tc = stack._dense_tc(wl, None)
-        # the yardstick computes the same function: each FFMA form timed
-        # below against its plain version (last_layer_plain's f32 Y)
+        # the same function summed tap by tap: each form timed below
+        # against last_layer_plain's f32 Y
         yf = torch.cat([stack.last_layer_plain(x6[i:i + 2], sp[6][0],
                                                sp[6][1])
                         for i in range(0, n, 2)])
-        label = f"f32 layer 7 FFMA (fold=False) {key}"
+        label = f"f32 layer 7 fold against the per-pixel sum {key}"
         for form in forms:
-            got = stack.last_layer(x6, sp, fold=False, **kw[form])
+            got = stack.last_layer(x6, sp, **kw[form])
             if form == "s2d":
                 e = check_f32(label + " s2d", got, yf)
             elif form == "dense":
@@ -2456,7 +2339,7 @@ def phase24(dev: torch.device, main_launches: int) -> list:
             else:
                 e = check_u8_kernel(label + " u8", got, stack.last_out(
                     yf, "u8", torch.float32, uvp), torch.float32)[0]
-            ffma_err[form] = max(ffma_err[form], e)
+            taps_err[form] = max(taps_err[form], e)
             del got
         del yf
         torch.cuda.empty_cache()
@@ -2464,14 +2347,12 @@ def phase24(dev: torch.device, main_launches: int) -> list:
                      "dense": n * hl * -(-wl // tc) * 4 * tc * 4,
                      "u8": n * hl * wl * (16 + 8 * 4)}
         for form in forms:
-            turns = {True: [], False: []}
-            for flag in (False, True, True, False):
-                turns[flag].append(timed_ms(
-                    lambda: stack.last_layer(x6, sp, fold=flag, **kw[form])))
+            turns = [timed_ms(lambda: stack.last_layer(x6, sp, **kw[form]))
+                     for _ in range(2)]
             b, by, moved = bound_ms(x6, out_bytes[form])
             rows[(key, form)] = {
-                "fold": sum(turns[True]) / 2, "ffma": sum(turns[False]) / 2,
-                "turns": turns, "bound": b, "bound_by": by, "moved": moved}
+                "fold": sum(turns) / 2, "turns": turns, "bound": b,
+                "bound_by": by, "moved": moved}
         rows[(key, "s2d")]["library"] = library_l7_f32_ms(x6, sp)
         t1 = time.perf_counter()
         for i in range(0, n, 2):
@@ -2485,24 +2366,18 @@ def phase24(dev: torch.device, main_launches: int) -> list:
         return "ns1080" if key == ns else "scale512"
 
     log(f"phase 24 f32 layer 7 alone on {card_name()}: " + "; ".join(
-        f"{tag(key)} {form} fold {r['fold']:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in r["turns"][True])
+        f"{tag(key)} {form} fold {r['fold']:.3f} ms (runs "
+        + " / ".join(f"{v:.3f}" for v in r["turns"])
         + f"; {r['moved'] / r['fold'] / 1e6:.0f} GB/s = "
         f"{100 * r['bound'] / r['fold']:.1f}% of the bound {r['bound']:.3f} "
-        f"ms by {r['bound_by']}), FFMA {r['ffma']:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in r["turns"][False])
-        + f"), {r['ffma'] / r['fold']:.2f}x"
+        f"ms by {r['bound_by']})"
         + (f"; cuDNN f32 layer 7 alone (TF32 off) {r['library']:.3f} ms; "
            f"plain (l7_fold_plain, two frames at a time, host clock) "
            f"{r['plain']:.1f} ms" if "library" in r else "")
         for (key, form), r in rows.items())
-        + f"; the FFMA kernels timed against last_layer_plain: max|diff| "
-        f"s2d {ffma_err['s2d']:.3e}, dense {ffma_err['dense']:.3e} (bar "
-        f"3e-5), u8 {ffma_err['u8']} level; {time.perf_counter() - t0:.1f} s")
-    for (key, form), r in rows.items():
-        if not r["fold"] < r["ffma"]:
-            raise AssertionError(f"f32 layer 7 {tag(key)} {form}: fold "
-                                 f"{r['fold']} ms, FFMA {r['ffma']} ms")
+        + f"; the fold against last_layer_plain: max|diff| "
+        f"s2d {taps_err['s2d']:.3e}, dense {taps_err['dense']:.3e} (bar "
+        f"3e-5), u8 {taps_err['u8']} level; {time.perf_counter() - t0:.1f} s")
     r = rows[(ns, "s2d")]
     s512 = rows[((16, 512, 512), "s2d")]
     return [{
@@ -2519,17 +2394,14 @@ def phase24(dev: torch.device, main_launches: int) -> list:
         "max_abs_err": max(err["s2d"], err["dense"]),
         "max_abs_err_u8_levels": err["u8"],
         "ms": r["fold"],
-        "ffma_ms": r["ffma"],
-        "ffma_max_abs_err": max(ffma_err["s2d"], ffma_err["dense"]),
-        "ffma_max_abs_err_u8_levels": ffma_err["u8"],
+        "per_pixel_max_abs_err": max(taps_err["s2d"], taps_err["dense"]),
+        "per_pixel_max_abs_err_u8_levels": taps_err["u8"],
         "plain_ms": r["plain"],
         "bound_ms": r["bound"],
         "bound_by": r["bound_by"],
         "library_ms": r["library"],
         "scale512_ms": {form: rows[((16, 512, 512), form)]["fold"]
                         for form in ("s2d", "dense", "u8")},
-        "scale512_ffma_ms": {form: rows[((16, 512, 512), form)]["ffma"]
-                             for form in ("s2d", "dense", "u8")},
         "scale512_bound_ms": s512["bound"],
         "scale512_library_ms": s512["library"],
         "scale512_plain_ms": s512["plain"],
@@ -2540,15 +2412,13 @@ def phase25(dev: torch.device, main_launches: int) -> list:
     """25. The int8 layer 6 (B4) on the int8 tensor cores (csrc/i8.cu,
     reached through stack.l6_i8_layer as every stack under l6_i8 reaches
     it; phase 14a held it bit for bit) timed alone at scale512 with the
-    default tile, in turns (__dp4a, wgmma, wgmma, __dp4a: MID_MMA False /
-    True), each call the layer alone from the tile maxima (taken once by
-    tile_maxima: on the stacks layer 5's epilogue takes them, phase 32),
-    beside its bound (the
-    int8 multiply-adds of the tile windows at the int8 peak, or x5 read and
-    the tile-major x6 written once), the plain version and cuDNN's bf16
-    layer 6 on the same plane (a different function: no quantisation, no
-    tiles); the wgmma kernel must be the faster, and its output on the
-    timed plane equal the plain version's bit for bit (the row's
+    default tile, twice, each call the layer alone from the tile maxima
+    (taken once by tile_max_plain: on the stacks layer 5's epilogue takes
+    them, phase 32), beside its bound (the int8 multiply-adds of the tile
+    windows at the int8 peak, or x5 read and the tile-major x6 written
+    once), the plain version and cuDNN's bf16 layer 6 on the same plane (a
+    different function: no quantisation, no tiles); its output on the timed
+    plane must equal the plain version's bit for bit (the row's
     max_abs_err). `main_launches` is the
     layer's I8_LAUNCHES["mma"] count in phase 15's scale512 stream. Returns
     the kernel table's row."""
@@ -2569,18 +2439,14 @@ def phase25(dev: torch.device, main_launches: int) -> list:
     del ylow
     tr, tc = tile
     ny, nx = (x5.shape[1] - 4) // (2 * tr), (x5.shape[2] - 4) // (2 * tc)
-    m = stack.tile_maxima(x5, tile)
-    turns = {True: [], False: []}
-    for flag in (False, True, True, False):
-        stack.MID_MMA = flag
-        turns[flag].append(timed_ms(
-            lambda: stack.l6_i8_layer(x5, sp, tile, m=m)))
-    stack.MID_MMA = True
-    ms = {k: sum(v) / 2 for k, v in turns.items()}
+    m = stack.tile_max_plain(x5, tile)
+    turns = [timed_ms(lambda: stack.l6_i8_layer(x5, sp, tile, m=m))
+             for _ in range(2)]
+    ms = sum(turns) / 2
     stack.reset_launches()
     x6t, sx = stack.l6_i8_layer(x5, sp, tile, m=m)
     torch.cuda.synchronize()
-    if stack.I8_LAUNCHES != {"mma": 1, "dp4a": 0, "l5max": 0, "absmax": 0}:
+    if stack.I8_LAUNCHES != {"mma": 1, "l5max": 0}:
         raise AssertionError(f"int8 layer 6 alone: {stack.I8_LAUNCHES}")
     lib_ms = library_l6_ms(x5, sp)
     t1 = time.perf_counter()
@@ -2605,21 +2471,16 @@ def phase25(dev: torch.device, main_launches: int) -> list:
     bound = max(ops_ms, bytes_ms)
     log(f"phase 25 int8 layer 6 alone (from the tile maxima) at scale512, x5 "
         f"{tuple(x5.shape)} bf16, tile {tile} ({tiles} tiles), on "
-        f"{card_name()}: wgmma {ms[True]:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in turns[True])
-        + f"; {2 * macs / ms[True] / 1e9:.1f} TOPS = "
-        f"{100 * bound / ms[True]:.1f}% of the bound {bound:.3f} ms: int8 "
-        f"products {ops_ms:.3f} ms, bytes {bytes_ms:.3f} ms), __dp4a "
-        f"{ms[False]:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in turns[False])
-        + f"), {ms[False] / ms[True]:.2f}x; cuDNN bf16 layer 6 on the same "
+        f"{card_name()}: wgmma {ms:.3f} ms (runs "
+        + " / ".join(f"{v:.3f}" for v in turns)
+        + f"; {2 * macs / ms / 1e9:.1f} TOPS = "
+        f"{100 * bound / ms:.1f}% of the bound {bound:.3f} ms: int8 "
+        f"products {ops_ms:.3f} ms, bytes {bytes_ms:.3f} ms); cuDNN bf16 "
+        f"layer 6 on the same "
         f"plane (a different function) {lib_ms:.3f} ms; plain "
         f"(l6_i8_layer_plain, a frame at a time, host clock) "
         f"{plain_ms:.1f} ms; max|wgmma - plain| on this plane {err} (bit for "
         f"bit); {time.perf_counter() - t0:.1f} s")
-    if not ms[True] < ms[False]:
-        raise AssertionError(f"int8 layer 6: wgmma {ms[True]} ms, __dp4a "
-                             f"{ms[False]} ms")
     del x5
     torch.cuda.empty_cache()
     return [{
@@ -2633,8 +2494,7 @@ def phase25(dev: torch.device, main_launches: int) -> list:
         "launches": main_launches,
         "launches_of": "phase 15's scale512 stream under W2X_L6_I8",
         "max_abs_err": err,
-        "ms": ms[True],
-        "dp4a_ms": ms[False],
+        "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -2653,11 +2513,11 @@ def phase26(dev: torch.device, main_launches: int) -> list:
     weights): bf16 s2d and dense to one bf16 ulp, f32 within 3e-5, dense
     un-chunked equal to s2d bit for bit and its pad columns zero, u8 by
     check_u8_kernel, each call one launch under L7_LAUNCHES["fold"] or
-    ["fold_f32"]. Then timed alone at scale512 in each form and type, in
-    turns (cell, fold, fold, cell) against the cell kernel the int8 stacks
-    ran before (fold=False, held against its plain version first), beside
-    the byte bound, cuDNN's layer 7 on the tile batch as one convolution and
-    the plain version; the fold must be the faster. `main_launches` is the
+    ["fold_f32"]. Then at scale512 held in s2d against the nine taps summed
+    per pixel of each tile (last_layer_plain's function) and timed alone in
+    each form and type, twice, beside the byte bound, cuDNN's layer 7 on
+    the tile batch as one convolution and the plain version. `main_launches`
+    is the
     fold's count in phase 15's scale512 stream under int8. Returns the
     kernel table's row."""
     from waifu2x_torch.models.srcnn import init_params
@@ -2672,7 +2532,8 @@ def phase26(dev: torch.device, main_launches: int) -> list:
                 stack.prep_params(params_s, dt, dev))
            for dt in (torch.bfloat16, torch.float32)}
     gen = torch.Generator(device=dev).manual_seed(26)
-    kernel = {torch.bfloat16: "fold", torch.float32: "fold_f32"}
+    # layer 7's launches (bf16, f32) a call, by storage type
+    kernel = {torch.bfloat16: (1, 0), torch.float32: (0, 1)}
     scale512 = (16, 512, 512)
     cases = [(shape, tile, 0) for shape, tile in
              zip(L7_SHAPES, ((8, 16), (8, 16), (3, 5)))]
@@ -2704,7 +2565,7 @@ def phase26(dev: torch.device, main_launches: int) -> list:
             stack.reset_launches()
             got = stack.last_layer_tiles(x6t, sp, hl, wl)
             torch.cuda.synchronize()
-            expect_l7(stack, label + " s2d", **{kernel[dt]: 1})
+            expect_l7(stack, label + " s2d", *kernel[dt])
             ref = stack.last_out(y32, "s2d", dt)
             e = (check_f32(label + " s2d", got, ref) if dt == torch.float32
                  else check_mma_layer(label + " s2d", got, ref)[0])
@@ -2725,7 +2586,7 @@ def phase26(dev: torch.device, main_launches: int) -> list:
             e, sh = check_u8_kernel(label + " u8", got, stack.last_out(
                 y32, "u8", dt, uvp), dt)
             err[dt, "u8"], share = max(err[dt, "u8"], e), max(share, sh)
-            expect_l7(stack, label, **{kernel[dt]: 3})
+            expect_l7(stack, label, *(3 * c for c in kernel[dt]))
             del got, y32
             if shipped:
                 planes[dt] = (x6t, uvp, sp, tile)
@@ -2743,20 +2604,20 @@ def phase26(dev: torch.device, main_launches: int) -> list:
         f"{share:.4%}); dense un-chunked == s2d bit for bit")
 
     rows = {}
-    cell_err = {}
+    taps_err = {}
     for dt, (x6t, uvp, sp, tile) in planes.items():
         n, hl, wl = scale512
         kw = {"s2d": {}, "dense": {"out": "dense"},
               "u8": {"out": "u8", "uvp": uvp}}
-        # the yardstick computes the same function: the cell kernel's
-        # output against the plain 9-tap sum of each tile, s2d
-        label = f"int8 layer 7 cell kernel (fold=False) {dt} scale512"
-        got = stack.last_layer_tiles(x6t, sp, hl, wl, fold=False)
+        # the same function summed tap by tap: the fold's output against
+        # the plain 9-tap sum of each tile, s2d
+        label = f"int8 layer 7 fold against the per-pixel sum {dt} scale512"
+        got = stack.last_layer_tiles(x6t, sp, hl, wl)
         yf = torch.cat([stack._tiles_image(stack._last_layer_f32(
             x6t[i:i + 1].reshape(-1, *x6t.shape[3:]), sp[6][0], sp[6][1]),
             1, *x6t.shape[1:3])[:, :hl, :wl] for i in range(n)])
         ref = stack.last_out(yf, "s2d", dt)
-        cell_err[dt] = (check_f32(label, got, ref) if dt == torch.float32
+        taps_err[dt] = (check_f32(label, got, ref) if dt == torch.float32
                         else check_mma_layer(label, got, ref)[0])
         del got, yf, ref
         torch.cuda.empty_cache()
@@ -2772,14 +2633,11 @@ def phase26(dev: torch.device, main_launches: int) -> list:
         peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
         in_bytes = x6t.numel() * size + 4
         for form in kw:
-            turns = {True: [], False: []}
-            for flag in (False, True, True, False):
-                turns[flag].append(timed_ms(lambda: stack.last_layer_tiles(
-                    x6t, sp, hl, wl, fold=flag, **kw[form])))
+            turns = [timed_ms(lambda: stack.last_layer_tiles(
+                x6t, sp, hl, wl, **kw[form])) for _ in range(2)]
             moved = in_bytes + out_bytes[form]
             rows[dt, form] = {
-                "fold": sum(turns[True]) / 2, "cell": sum(turns[False]) / 2,
-                "turns": turns, "moved": moved,
+                "fold": sum(turns) / 2, "turns": turns, "moved": moved,
                 "bound": max(moved / PEAK_BYTES, ops / peak) * 1e3,
                 "bound_by": ("bytes" if moved / PEAK_BYTES >= ops / peak
                              else "operations")}
@@ -2798,25 +2656,18 @@ def phase26(dev: torch.device, main_launches: int) -> list:
     log(f"phase 26 int8 layer 7 alone at scale512 (16 x {8} x {4} tiles of "
         f"130 x 258 x 128), on {card_name()}: " + "; ".join(
             f"{'bf16' if dt == torch.bfloat16 else 'f32'} {form} fold "
-            f"{r['fold']:.3f} ms (turns "
-            + " / ".join(f"{v:.3f}" for v in r["turns"][True])
+            f"{r['fold']:.3f} ms (runs "
+            + " / ".join(f"{v:.3f}" for v in r["turns"])
             + f"; {r['moved'] / r['fold'] / 1e6:.0f} GB/s = "
             f"{100 * r['bound'] / r['fold']:.1f}% of the bound "
-            f"{r['bound']:.3f} ms by {r['bound_by']}), cell kernel "
-            f"{r['cell']:.3f} ms (turns "
-            + " / ".join(f"{v:.3f}" for v in r["turns"][False])
-            + f"), {r['cell'] / r['fold']:.2f}x"
+            f"{r['bound']:.3f} ms by {r['bound_by']})"
             + (f"; cuDNN layer 7 on the tile batch {r['library']:.3f} ms; "
                f"plain (l7_tiles_plain, a frame at a time, host clock) "
                f"{r['plain']:.1f} ms" if "library" in r else "")
             for (dt, form), r in rows.items())
-        + f"; the cell kernels held against the 9-tap plain version: bf16 "
-        f"{cell_err[torch.bfloat16]:.3e}, f32 {cell_err[torch.float32]:.3e}; "
+        + f"; the fold held against the 9-tap plain version: bf16 "
+        f"{taps_err[torch.bfloat16]:.3e}, f32 {taps_err[torch.float32]:.3e}; "
         f"{time.perf_counter() - t0:.1f} s")
-    for (dt, form), r in rows.items():
-        if not r["fold"] < r["cell"]:
-            raise AssertionError(f"int8 layer 7 {dt} {form}: fold "
-                                 f"{r['fold']} ms, cell kernel {r['cell']}")
     r16, r32 = rows[torch.bfloat16, "s2d"], rows[torch.float32, "s2d"]
     return [{
         "name": "l7_fold on the int8 layer 6's tile-major planes, layer 7 "
@@ -2836,16 +2687,12 @@ def phase26(dev: torch.device, main_launches: int) -> list:
         "max_abs_err_u8_levels": max(err[torch.bfloat16, "u8"],
                                      err[torch.float32, "u8"]),
         "ms": r16["fold"],
-        "cell_ms": r16["cell"],
         "plain_ms": r16["plain"],
         "bound_ms": r16["bound"],
         "bound_by": r16["bound_by"],
         "library_ms": r16["library"],
         "form_ms": {f"{'bf16' if dt == torch.bfloat16 else 'f32'} {form}":
                     r["fold"] for (dt, form), r in rows.items()},
-        "form_cell_ms": {f"{'bf16' if dt == torch.bfloat16 else 'f32'} "
-                         f"{form}": r["cell"] for (dt, form), r in
-                         rows.items()},
         "f32_ms": r32["fold"],
         "f32_bound_ms": r32["bound"],
         "f32_plain_ms": r32["plain"],
@@ -2875,10 +2722,8 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
     real f32 layer-5 planes (the shipped noise2 and scale2.0x weights, from
     layer5_plane), one WINO_LAUNCHES["mma_tf32"] launch a call; the f32
     dense and u8 stacks under l6_wino against theirs. Then timed alone at
-    ns1080 and scale512 in turns (FFMA, 3xTF32, 3xTF32, FFMA: MID_MMA
-    False / True) against l6.cu's l6_wino<float> (held against the same
-    plain version first), which it must beat, beside the direct 3xTF32
-    layer 6, cuDNN's f32 layer 6 (TF32 off), the bound (three TF32 products
+    ns1080 and scale512, twice, beside the direct 3xTF32 layer 6, cuDNN's
+    f32 layer 6 (TF32 off), the bound (three TF32 products
     of the function's 16 a block), the FFMA floor and the plain version; and
     the f32 noise stack at ns1080 under l6_wino against the direct one, with
     the f32-noise step where `step(l6_wino)` runs it. `main_launches` is
@@ -2906,13 +2751,11 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
                 x5[i:i + 1].permute(0, 3, 1, 2), sp, torch.float32
             ).permute(0, 2, 3, 1) for i in range(x5.shape[0])])
 
-    def alone(x5, sp, label, ffma=False) -> float:
-        stack.MID_MMA = not ffma
+    def alone(x5, sp, label) -> float:
         stack.reset_launches()
         got = stack.wino_layer(x5, sp)
         torch.cuda.synchronize()
-        stack.MID_MMA = True
-        want = {"mma": 0, "mma_tf32": int(not ffma), "ffma": int(ffma)}
+        want = {"mma": 0, "mma_tf32": 1}
         if stack.WINO_LAUNCHES != want or stack.LAUNCHES:
             raise AssertionError(f"{label}: launches {stack.WINO_LAUNCHES}, "
                                  f"{stack.LAUNCHES}, want {want}")
@@ -2937,29 +2780,22 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
     real = {"ns1080": (stack.layer5_plane(yc, sp_n, full_res=True), sp_n),
             "scale512": (stack.layer5_plane(ylow, sp_s), sp_s)}
     del ylow
-    ffma_err = 0.0
     for key, (x5, sp) in real.items():
         err = max(err, alone(x5, sp, f"f32 wino layer 6 {key}"))
-        ffma_err = max(ffma_err, alone(x5, sp, f"f32 wino layer 6 FFMA "
-                                               f"(MID_MMA False) {key}",
-                                       ffma=True))
         torch.cuda.empty_cache()
     log(f"phase 27 f32 Winograd layer 6 (3xTF32) at "
         f"{', '.join(map(str, L7_SHAPES))} and the ns1080 "
         f"{tuple(real['ns1080'][0].shape)} and scale512 "
         f"{tuple(real['scale512'][0].shape)} layer-5 planes: "
-        f"max|kernel - plain| {err:.3e} (bar 3e-5); l6_wino<float> (FFMA) "
-        f"{ffma_err:.3e}; the f32 dense and u8 stacks under l6_wino hold")
+        f"max|kernel - plain| {err:.3e} (bar 3e-5); the f32 dense and u8 "
+        f"stacks under l6_wino hold")
 
     rows = {}
     plan = stack.wino_plan(torch.float32)
     for key, (x5, sp) in real.items():
         n, h5, w5, _ = x5.shape
-        turns = {True: [], False: []}
-        for flag in (False, True, True, False):
-            stack.MID_MMA = flag
-            turns[flag].append(timed_ms(lambda: stack.wino_layer(x5, sp)))
-        stack.MID_MMA = True
+        turns = [timed_ms(lambda: stack.wino_layer(x5, sp))
+                 for _ in range(2)]
         blocks = n * ((h5 - 2) // 2) * ((w5 - 2) // 2)
         flops = 2 * blocks * 16 * 128 * 128   # the function's products
         moved = (x5.numel() + n * (h5 - 2) * (w5 - 2) * 128 + 2 * 16 * 128
@@ -2971,8 +2807,7 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
         tile = plan.tile[0]
         units = (n * -(-((h5 - 2) // 2) // tile) * -(-((w5 - 2) // 2) // tile)
                  * (128 // plan.co))
-        r = {"tf32": sum(turns[True]) / 2, "ffma": sum(turns[False]) / 2,
-             "turns": turns, "flops": flops,
+        r = {"tf32": sum(turns) / 2, "turns": turns, "flops": flops,
              "u_gb": units * 16 * 128 * plan.co * 8 / 1e9,
              "bound": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
              "bytes_ms": bytes_ms,
@@ -2996,8 +2831,8 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
     del yc
     torch.cuda.empty_cache()
     log(f"phase 27 f32 Winograd layer 6 alone on {card_name()}: " + "; ".join(
-        f"{key} 3xTF32 {r['tf32']:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in r["turns"][True])
+        f"{key} 3xTF32 {r['tf32']:.3f} ms (runs "
+        + " / ".join(f"{v:.3f}" for v in r["turns"])
         + f"; {3 * r['flops'] / r['tf32'] / 1e9:.1f} TFLOP/s of TF32 "
         f"products = {100 * r['bound'] / r['tf32']:.1f}% of the bound "
         f"{r['bound']:.3f} ms by {r['bound_by']}: three TF32 products "
@@ -3005,10 +2840,7 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
         f"{r['floor']:.3f} ms; units of {plan.tile[0]} x {plan.tile[1]} "
         f"blocks x {plan.co} channels in chunks of {plan.kc}, U's halves "
         f"staged from L2 {r['u_gb']:.1f} GB = "
-        f"{r['u_gb'] / r['tf32']:.2f} TB/s), l6_wino<float> FFMA "
-        f"{r['ffma']:.3f} ms "
-        f"(turns " + " / ".join(f"{v:.3f}" for v in r["turns"][False])
-        + f"), {r['ffma'] / r['tf32']:.2f}x; direct 3xTF32 layer 6 "
+        f"{r['u_gb'] / r['tf32']:.2f} TB/s); direct 3xTF32 layer 6 "
         f"{r['direct']:.3f} ms; cuDNN f32 layer 6 (TF32 off) "
         f"{r['library']:.3f} ms; plain (_l6_wino_plain, a frame at a time, "
         f"host clock) {r['plain']:.1f} ms" for key, r in rows.items())
@@ -3017,10 +2849,6 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
         + (f"; f32-noise step {step_ms[True]:.2f} ms under l6_wino, "
            f"{step_ms[False]:.2f} ms direct" if step_ms else "")
         + f"; {time.perf_counter() - t0:.1f} s")
-    for key, r in rows.items():
-        if not r["tf32"] < r["ffma"]:
-            raise AssertionError(f"f32 Winograd layer 6 {key}: 3xTF32 "
-                                 f"{r['tf32']} ms, FFMA {r['ffma']} ms")
     r, s = rows["ns1080"], rows["scale512"]
     return [{
         "name": "l6_wino_tf32, B5's Winograd layer 6 in f32 on the tensor "
@@ -3034,8 +2862,6 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
         "launches_of": "phase 15's ns1080 f32-noise chain under W2X_L6_WINO",
         "max_abs_err": err,
         "ms": r["tf32"],
-        "ffma_ms": r["ffma"],
-        "ffma_max_abs_err": ffma_err,
         "plain_ms": r["plain"],
         "bound_ms": r["bound"],
         "bound_by": r["bound_by"],
@@ -3043,7 +2869,6 @@ def phase27(dev: torch.device, main_launches: int, step=None) -> list:
         "library_ms": r["library"],
         "direct_tf32_ms": r["direct"],
         "scale512_ms": s["tf32"],
-        "scale512_ffma_ms": s["ffma"],
         "scale512_bound_ms": s["bound"],
         "scale512_library_ms": s["library"],
         "scale512_direct_tf32_ms": s["direct"],
@@ -3088,7 +2913,6 @@ def cli_run(argv: list, what: str, totals: dict):
     launches = {"stack": stack.LAUNCHES, "l1": stack.L1_LAUNCHES["l1"],
                 "mma": stack.MID_LAUNCHES["mma"],
                 "mma_tf32": stack.MID_LAUNCHES["mma_tf32"],
-                "ffma": stack.MID_LAUNCHES["ffma"],
                 **{f"l7_{k}": v for k, v in stack.L7_LAUNCHES.items()}}
     codecs = {f"{op} {codec}": n
               for (op, codec), n in sorted(w2x_io.CODEC_CALLS.items())}
@@ -3105,13 +2929,12 @@ def cli_run(argv: list, what: str, totals: dict):
 def expect_hand_kernels(what: str, launches: dict, f32: bool) -> None:
     """The kernel route's launches (cli_run's or mesh_launches()' counts):
     layer 1, layers 2-6 on the tensor cores and layer 7 folded launched in
-    bf16, and in f32 (3xTF32, the f32 fold) exactly where `f32`; no FFMA
-    layer, cell or per-pixel layer 7, and no other layer-6 form."""
+    bf16, and in f32 (3xTF32, the f32 fold) exactly where `f32`; no probe
+    variant and no other layer-6 form."""
     need = ["l1", "mma", "l7_fold"] + (["mma_tf32", "l7_fold_f32"]
                                        if f32 else [])
-    banned = ("ffma", "l1_ffma", "chain", "mma_zs", "mma_pp", "l7_cell",
-              "l7_pixel", "l6_other") + (() if f32 else ("mma_tf32",
-                                                         "l7_fold_f32"))
+    banned = ("chain", "mma_zs", "mma_pp", "l6_other") + (
+        () if f32 else ("mma_tf32", "l7_fold_f32"))
     if (any(launches[k] == 0 for k in need)
             or any(launches.get(k, 0) for k in banned)):
         raise AssertionError(f"{what}: launches {launches}")
@@ -3329,7 +3152,6 @@ def mesh_launches() -> dict:
     """Every layer kernel's launch count since the last reset."""
     from waifu2x_torch.ops import stack
     return {"l1": stack.L1_LAUNCHES["l1"],
-            "l1_ffma": stack.L1_LAUNCHES["ffma"],
             **{k: v for k, v in stack.MID_LAUNCHES.items()},
             **{f"l7_{k}": v for k, v in stack.L7_LAUNCHES.items()},
             "l6_other": sum(v for k, v in stack.L6_LAUNCHES.items()
@@ -3340,8 +3162,8 @@ def expect_mesh(what: str, launches: dict, f32: int, bf16: int) -> None:
     """`f32` and `bf16` stack calls, each on the hand kernels alone: one
     layer 1 (csrc/l1.cu), five layers 2-6 on the tensor cores (3xTF32 for
     f32; bf16 on the persistent kernel's routes, four resident and one
-    split) and one folded layer 7; no FFMA layer, cell or per-pixel layer
-    7 and no other layer-6 form."""
+    split) and one folded layer 7; no other launch and no other layer-6
+    form."""
     want = {"l1": f32 + bf16, "mma": 5 * bf16, "mma_tf32": 5 * f32,
             "mma_resident": 4 * bf16, "mma_split": bf16,
             "l7_fold": bf16, "l7_fold_f32": f32}
@@ -4033,13 +3855,12 @@ def gather_plain(stack, src: torch.Tensor, sp, upto: int, out: str,
 
 
 def gather_alone(stack, src: torch.Tensor, out: torch.Tensor, upto: int,
-                 mode: int, hl: int, wl: int, tiled=None) -> torch.Tensor:
-    """The gather's launch alone, as stack_scale_upto makes it: the tiled
-    form, or with tiled=False one thread a cell."""
+                 mode: int, hl: int, wl: int) -> torch.Tensor:
+    """The gather's launch alone, as stack_scale_upto makes it."""
     hk, wk = 2 * hl + 14 - 2 * upto, 2 * wl + 14 - 2 * upto
     ck = stack.WIDTHS[upto - 1][1] if upto else 1
     stack._Launcher(None, src, None).gather(src, out, src.shape[0], hl, wl,
-                                            hk, wk, ck, mode, tiled)
+                                            hk, wk, ck, mode)
     return out
 
 
@@ -4053,24 +3874,21 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
             i8_step, launches: dict) -> list:
-    """32. The last two kernels of the port's first forms, redesigned. B7's
-    gather (csrc/l6.cu:upto_gather_tiled) in all four modes and both types,
-    through stack_scale_upto, at (1, 27, 38), (2, 37, 53), (1, 5, 300),
-    (1, 3, 2) and scale512, bit for bit against its plain version on the
-    input it read and against the one-thread-a-cell form (tiled=False);
-    then at scale512 each mode's launch alone, in turns against that form,
-    beside its bound (bytes: the low-res modes read the plane and write y;
-    GATHER_ACT writes y and reads a 32-byte sector a cell) and the one-call
-    library form (GATHER_ACT a strided slice's contiguous(), GATHER_PAD
-    F.pad replicate; both checked equal). B4's tile maxima in layer 5's
-    epilogue (layer5_maxima: csrc/mma.cu in bf16, mma_tf32.cu in f32) at
-    the default tile and at tiles (1, 1), (2, 3), (3, 5), a NaN among the
-    inputs: x5 bit for bit the default layer 5's, m bit for bit
-    tile_absmax's (tile_maxima) and tile_max_plain's; at scale512 layer 5
-    with and without the maxima and tile_absmax alone, in turns; the B4
-    stack in turns against the tile_absmax route (L5_MAXIMA False), equal
-    bit for bit, and the int8 step under each; a (2, 1, 1) mesh under
-    l6_i8 against one position bit for bit, each position its own maxima.
+    """32. B7's gather and B4's tile maxima in layer 5's epilogue. The
+    gather (csrc/gather.cu:upto_gather_tiled) in all four modes and both
+    types, through stack_scale_upto, at (1, 27, 38), (2, 37, 53),
+    (1, 5, 300), (1, 3, 2) and scale512, bit for bit against its plain
+    version on the input it read; then at scale512 each mode's launch
+    alone, twice, beside its bound (bytes: the low-res modes read the plane
+    and write y; GATHER_ACT writes y and reads a 32-byte sector a cell) and
+    the one-call library form (GATHER_ACT a strided slice's contiguous(),
+    GATHER_PAD F.pad replicate; both checked equal). The maxima
+    (layer5_maxima: csrc/mma.cu in bf16, mma_tf32.cu in f32) at the default
+    tile and at tiles (1, 1), (2, 3), (3, 5), a NaN among the inputs: x5
+    bit for bit the default layer 5's, m bit for bit tile_max_plain's; at
+    scale512 layer 5 with and without the maxima in turns; the B4 stack
+    timed twice and the int8 step; a (2, 1, 1) mesh under l6_i8 against one
+    position bit for bit, each position its own maxima.
     sps = (f32, bf16) shipped scale weights, ylow16 the scale512 plane,
     i8_step() the scale512 int8 batch step -> (u8 frames, dB against the
     f32 path), `launches` the two kernels' counts on the main path (phase
@@ -4100,33 +3918,31 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
                                                               out="whole")
                 stack.reset_launches()
                 got = stack.stack_scale_upto(y, sp, k, out=out)
-                cell = stack.stack_scale_upto(y, sp, k, out=out, tiled=False)
                 torch.cuda.synchronize()
-                if (stack.GATHER_LAUNCHES != {"tiled": 1, "cell": 1}
-                        or stack.L6_LAUNCHES["upto"] != 2):
+                if (stack.GATHER_LAUNCHES != {"tiled": 1}
+                        or stack.L6_LAUNCHES["upto"] != 1):
                     raise AssertionError(f"gather upto {k} out={out}: "
                                          f"{stack.GATHER_LAUNCHES}")
                 ref = gather_plain(stack, src, sp, k, out, *shape[1:])
-                if not (same_bits(got, ref) and same_bits(got, cell)):
+                if not same_bits(got, ref):
                     raise AssertionError(
-                        f"gather upto {k} out={out} {shape} {dt}: tiled == "
-                        f"plain {same_bits(got, ref)}, tiled == per-cell "
-                        f"{same_bits(got, cell)}")
-                del src, got, cell, ref
+                        f"gather upto {k} out={out} {shape} {dt}: differs "
+                        f"from its plain version")
+                del src, got, ref
             del y
             torch.cuda.empty_cache()
         log(f"phase 32 gather {shape}: upto 0..5 in every form, f32 and "
-            f"bf16, tiled == plain == per-cell bit for bit")
+            f"bf16, == plain bit for bit")
 
-    # each mode's launch alone at scale512, in turns against the per-cell
-    # form, beside its bound and its one-call library form
+    # each mode's launch alone at scale512, twice, beside its bound and its
+    # one-call library form
     n, hl, wl = ylow16.shape
     gather_rows = {}
     for dt in (torch.float32, torch.bfloat16):
         isz = 4 if dt == torch.float32 else 2
         y = ylow16.to(dt)
         sp = sp_main[dt]
-        # (csrc/l6.cu's mode, upto, stack_scale_upto's output form)
+        # (csrc/gather.cu's mode, upto, stack_scale_upto's output form)
         timed = [("GATHER_ACT", 5, "cell"), ("GATHER_ACT", 1, "cell"),
                  ("GATHER_TAPS", 0, "cell"), ("GATHER_LANE0", 0, "lane0"),
                  ("GATHER_PAD", 0, "whole")]
@@ -4138,11 +3954,9 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
             lanes = 1 if name == "GATHER_PAD" else 4
             out = torch.empty((n, hl + pad, wl + pad, lanes), dtype=dt,
                               device=dev)
-            turns = {True: [], False: []}
-            for tiled in (False, True, True, False):
-                turns[tiled].append(timed_ms(lambda: gather_alone(
-                    stack, src, out, k, mode, hl, wl,
-                    None if tiled else False)))
+            turns = [timed_ms(lambda: gather_alone(stack, src, out, k, mode,
+                                                   hl, wl))
+                     for _ in range(2)]
             got = gather_alone(stack, src, out, k, mode, hl, wl).clone()
             plain_ms = timed_ms(lambda: gather_plain(stack, src, sp, k,
                                                      out_form, hl, wl),
@@ -4165,28 +3979,24 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
                                          f"form differs from the gather")
                 del lib_out
                 lib_ms = timed_ms(library)
-            ms = {t: sum(v) / 2 for t, v in turns.items()}
+            ms = sum(turns) / 2
             bound = (read_bytes + out_bytes) / PEAK_BYTES * 1e3
             useful = (2 * out_bytes if k else read_bytes + out_bytes)
             key = f"{name} upto {k}" if name == "GATHER_ACT" else name
             gather_rows[key, dt] = {
-                "ms": ms[True], "cell_ms": ms[False],
-                "turns_ms": [turns[False][0], turns[True][0],
-                             turns[True][1], turns[False][1]],
-                "bound_ms": bound, "share_of_bound": bound / ms[True],
+                "ms": ms, "turns_ms": turns,
+                "bound_ms": bound, "share_of_bound": bound / ms,
                 "kept_bytes_bound_ms": useful / PEAK_BYTES * 1e3,
                 "plain_ms": plain_ms, "library_ms": lib_ms}
-            log(f"phase 32 {key} {dt} at scale512 on {smi}: tiled "
-                f"{ms[True]:.4f} ms, per-cell {ms[False]:.4f} ms (turns "
-                + " / ".join(f"{v:.4f}" for v in
-                             gather_rows[key, dt]["turns_ms"])
+            log(f"phase 32 {key} {dt} at scale512 on {smi}: "
+                f"{ms:.4f} ms (runs "
+                + " / ".join(f"{v:.4f}" for v in turns)
                 + f"), bound {bound:.4f} ms by bytes ("
                 f"{(read_bytes + out_bytes) / 1e6:.1f} MB: "
                 + ("a 32-byte sector a cell read, y written; the bytes kept "
                    if k else "the plane read once, y written; ")
                 + (f"{useful / PEAK_BYTES * 1e3:.4f} ms" if k else "")
-                + f") = {100 * bound / ms[True]:.1f}% of it, per-cell "
-                f"{100 * bound / ms[False]:.1f}%; library "
+                + f") = {100 * bound / ms:.1f}% of it; library "
                 + (f"{lib_ms:.4f} ms" if lib_ms is not None else
                    "none (no one PyTorch call builds the taps / lane 0)")
                 + f"; plain {plain_ms:.3f} ms")
@@ -4199,20 +4009,16 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
         x5, m = stack.layer5_maxima(x4, sp, tile)
         torch.cuda.synchronize()
         mid = "mma" if x4.dtype == torch.bfloat16 else "mma_tf32"
-        if (stack.I8_LAUNCHES != {"mma": 0, "dp4a": 0, "l5max": 1,
-                                  "absmax": 0}
+        if (stack.I8_LAUNCHES != {"mma": 0, "l5max": 1}
                 or stack.MID_LAUNCHES[mid] != 1 or stack.LAUNCHES):
             raise AssertionError(f"layer5_maxima {label}: "
                                  f"{stack.I8_LAUNCHES}, {stack.MID_LAUNCHES}")
         x5_ref = stack.mma_layer(x4, sp, 5)
-        m_pass = stack.tile_maxima(x5, tile)
         m_plain = stack.tile_max_plain(x5, tile)
-        ok = (same_bits(x5, x5_ref), same_bits(m, m_pass),
-              same_bits(m, m_plain))
+        ok = (same_bits(x5, x5_ref), same_bits(m, m_plain))
         if not all(ok):
             raise AssertionError(f"layer5_maxima {label}: x5 == default "
-                                 f"instance {ok[0]}, m == tile_absmax "
-                                 f"{ok[1]}, m == plain {ok[2]}")
+                                 f"instance {ok[0]}, m == plain {ok[1]}")
         c = 1   # the layer against its plain version, frame 0 (no NaN)
         ref = stack.mma_layer_plain(x4[:c], sp.wm[3], sp[4][1])
         err = (check_mma_layer(f"layer 5 {label}", x5[:c], ref)[0]
@@ -4220,7 +4026,7 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
                else check_f32(f"layer 5 {label}", x5[:c], ref))
         log(f"phase 32 layer5_maxima {label}: x5 == the default layer 5 "
             f"bit for bit, max|x5 - plain| {err:.3e}; m {tuple(m.shape)} == "
-            f"tile_absmax == tile_max_plain bit for bit (largest "
+            f"tile_max_plain bit for bit (largest "
             f"{m.max().item():.4f})")
         return err
 
@@ -4248,10 +4054,9 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
                                           f"scale512 tile {tile} {dt}"))
         x5 = stack.mma_layer(x4, sp, 5)
         runs = {"l5": lambda: stack.mma_layer(x4, sp, 5),
-                "l5max": lambda: stack.layer5_maxima(x4, sp, tile),
-                "absmax": lambda: stack.tile_maxima(x5, tile)}
+                "l5max": lambda: stack.layer5_maxima(x4, sp, tile)}
         turns = {k: [] for k in runs}
-        for key in ("l5", "l5max", "absmax", "absmax", "l5max", "l5"):
+        for key in ("l5", "l5max", "l5max", "l5"):
             turns[key].append(timed_ms(runs[key]))
         ms = {k: sum(v) / 2 for k, v in turns.items()}
         t1 = time.perf_counter()
@@ -4265,12 +4070,9 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
             else PEAK_TF32_FLOPS / 3) * 1e3
         l5_bytes = (x4.numel() + x5.numel()) * isz / PEAK_BYTES * 1e3
         m_bytes = n * ny * nx * 4
-        pass_bound = (x5.numel() * isz + m_bytes) / PEAK_BYTES * 1e3
         maxima_rows[dt] = {
             "ms": ms["l5max"], "layer5_ms": ms["l5"],
             "epilogue_extra_ms": ms["l5max"] - ms["l5"],
-            "tile_absmax_ms": ms["absmax"],
-            "tile_absmax_bound_ms": pass_bound,
             "maxima_extra_bytes": m_bytes,
             "turns_ms": {k: v for k, v in turns.items()},
             "plain_ms": plain_ms, "bound_ms": max(l5_ops, l5_bytes),
@@ -4279,9 +4081,7 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
             f"{tuple(x5.shape)} {dt}, tile {tile}, on {smi}: with the maxima "
             f"in its epilogue {ms['l5max']:.3f} ms, without "
             f"{ms['l5']:.3f} ms (epilogue +{ms['l5max'] - ms['l5']:.3f} ms, "
-            f"{m_bytes} bytes more written), tile_absmax alone "
-            f"{ms['absmax']:.3f} ms (bound {pass_bound:.3f} ms: x5 read "
-            f"once; {100 * pass_bound / ms['absmax']:.1f}% of it); turns "
+            f"{m_bytes} bytes more written); turns "
             + ", ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in t)
                         for k, t in turns.items())
             + f"; layer 5's bound {max(l5_ops, l5_bytes):.3f} ms "
@@ -4291,42 +4091,24 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
         del x4, x5
         torch.cuda.empty_cache()
 
-    # the B4 stack and the int8 step, in turns against the tile_absmax route
+    # the B4 stack, twice, and the int8 step
     def b4():
         return stack.stack_scale(ylow16, sps[1], l6_i8=True)
 
-    outs, stack_turns, step_db, steps = {}, {True: [], False: []}, {}, {}
-    for flag in (False, True, True, False):
-        stack.L5_MAXIMA = flag
-        stack_turns[flag].append(timed_ms(b4))
-    for flag in (False, True):
-        stack.L5_MAXIMA = flag
-        stack.reset_launches()
-        outs[flag] = b4()
-        torch.cuda.synchronize()
-        want = {"mma": 1, "dp4a": 0, "l5max": int(flag),
-                "absmax": int(not flag)}
-        if stack.I8_LAUNCHES != want or stack.LAUNCHES != 8 - flag:
-            raise AssertionError(f"B4 stack, L5_MAXIMA {flag}: "
-                                 f"{stack.I8_LAUNCHES}, {stack.LAUNCHES}")
-        steps[flag], step_db[flag] = i8_step()
-    stack.L5_MAXIMA = True
-    if not (same_bits(outs[True], outs[False])
-            and np.array_equal(steps[True], steps[False])):
-        raise AssertionError("B4: the maxima's two routes differ")
-    stack_ms = {k: sum(v) / 2 for k, v in stack_turns.items()}
+    stack_turns = [timed_ms(b4) for _ in range(2)]
+    stack.reset_launches()
+    b4()
+    torch.cuda.synchronize()
+    if stack.I8_LAUNCHES != {"mma": 1, "l5max": 1} or stack.LAUNCHES != 7:
+        raise AssertionError(f"B4 stack: {stack.I8_LAUNCHES}, "
+                             f"{stack.LAUNCHES}")
+    _, step_db = i8_step()
+    stack_ms = sum(stack_turns) / 2
     log(f"phase 32 scale512 B4 stack (bf16, l6_i8) on {smi}: maxima in layer "
-        f"5's epilogue {stack_ms[True]:.3f} ms, tile_absmax route "
-        f"{stack_ms[False]:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in (stack_turns[False][0],
-                                          stack_turns[True][0],
-                                          stack_turns[True][1],
-                                          stack_turns[False][1]))
-        + f"), {stack_ms[False] - stack_ms[True]:.3f} ms less; outputs "
-        f"equal bit for bit; the int8 step equal byte for byte, "
-        f"{step_db[True]:.2f} dB against the f32 path (tile_absmax route "
-        f"{step_db[False]:.2f} dB)")
-    del outs, steps
+        f"5's epilogue {stack_ms:.3f} ms (runs "
+        + " / ".join(f"{v:.3f}" for v in stack_turns)
+        + f"), 7 launches; the int8 step {step_db:.2f} dB against the f32 "
+        f"path")
 
     # the mesh: each position its own maxima
     root = Path(__file__).resolve().parent
@@ -4343,8 +4125,7 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
                 fast_scale=fs16).convert_bgr_u8(frames)
             torch.cuda.synchronize()
             npos = int(np.prod(shape))
-            if stack.I8_LAUNCHES != {"mma": npos, "dp4a": 0, "l5max": npos,
-                                     "absmax": 0}:
+            if stack.I8_LAUNCHES != {"mma": npos, "l5max": npos}:
                 raise AssertionError(f"mesh {shape} under l6_i8: "
                                      f"{stack.I8_LAUNCHES}")
     finally:
@@ -4354,23 +4135,21 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
         raise AssertionError("mesh (2, 1, 1) under l6_i8 differs from one "
                              "position")
     log("phase 32 MeshPipeline under l6_i8, 4 x 512^2: (2, 1, 1) equal to "
-        "(1, 1, 1) byte for byte, one layer-5 maxima launch a position, no "
-        "tile_absmax")
+        "(1, 1, 1) byte for byte, one layer-5 maxima launch a position")
 
     rows = [{
         "name": "upto_gather_tiled, B7's gather at upto 0..5 (a band of "
                 "rows a block, a warp a row, 16-byte vectors; the low-res "
                 "band staged in shared memory; persistent), GATHER_ACT at "
                 "upto 5 in the row's numbers",
-        "route": "cuda", "source": "waifu2x_torch/csrc/l6.cu",
+        "route": "cuda", "source": "waifu2x_torch/csrc/gather.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:380",
         "launches": launches["gather"],
         "launches_of": "stack.GATHER_LAUNCHES['tiled'] read around "
                        "layer_time_probe (phase 15)",
         "max_abs_err": 0.0,
         **{k: gather_rows["GATHER_ACT upto 5", torch.bfloat16][k]
-           for k in ("ms", "cell_ms", "plain_ms", "bound_ms",
-                     "library_ms")},
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",
         "bound_is": "GATHER_ACT: a 32-byte sector read an output cell and "
                     "y written; the low-res modes: the plane read once and "
@@ -4390,16 +4169,14 @@ def phase32(dev: torch.device, smi: str, sps, ylow16: torch.Tensor,
                        "stream under W2X_L6_I8",
         "max_abs_err": l5_err,
         **{k: maxima_rows[torch.bfloat16][k] for k in (
-            "ms", "layer5_ms", "epilogue_extra_ms", "tile_absmax_ms",
-            "tile_absmax_bound_ms", "maxima_extra_bytes", "plain_ms",
-            "bound_ms", "bound_by")},
+            "ms", "layer5_ms", "epilogue_extra_ms", "maxima_extra_bytes",
+            "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "library_is": "none: no one PyTorch call gives layer 5 and the "
                       "per-window max |x5|",
         "f32": maxima_rows[torch.float32],
-        "b4_stack_ms": stack_ms[True], "b4_stack_tile_absmax_ms":
-            stack_ms[False],
-        "i8_step_db": step_db[True]}]
+        "b4_stack_ms": stack_ms,
+        "i8_step_db": step_db}]
     log(f"phase 32 passed in {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -4836,8 +4613,8 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    _build.load("stack", "l6", "mma", "wino", "l7", "probe", "tmm", "l1",
-                "mma_tf32")
+    _build.load("gather", "mma", "wino", "l7", "probe", "tmm", "l1",
+                "mma_tf32", "i8", "epi")
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True).stdout
@@ -4920,10 +4697,10 @@ def main() -> int:
     log(f"phase 4 main path: {frames.shape} -> {out.shape} {out.dtype}, "
         f"{launches} kernel launches, layers 2-6 by kernel {mid_launches}, "
         f"layer 7 by kernel {stack.L7_LAUNCHES}")
-    expect_l7(stack, "phase 4 main path", fold=1)
+    expect_l7(stack, "phase 4 main path", bf16=1)
     expect_l1(stack, "phase 4 main path", 1)
     if (launches != 7 or out.shape != (16, 1024, 1024, 3)
-            or mid_launches != {"mma": 5, "ffma": 0, "chain": 0,
+            or mid_launches != {"mma": 5, "chain": 0,
                                 "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
                                 "mma_resident": 4, "mma_split": 1,
                                 "mma_tile": 0}):
@@ -4962,8 +4739,7 @@ def main() -> int:
         f32_stacks = cfg_kw.get("compute_dtype") == "float32" or (
             cfg_kw.get("mode") == "noise_scale"
             and cfg_kw.get("compute_dtype") == "auto")
-        if (l7["cell"] or l7["pixel"]
-                or l7["fold"] + l7["fold_f32"] != n_conv // 7
+        if (l7["fold"] + l7["fold_f32"] != n_conv // 7
                 or bool(l7["fold_f32"]) != f32_stacks):
             raise AssertionError(f"Converter {cfg_kw}: layer-7 launches "
                                  f"{l7} for {n_conv} launches")
@@ -5046,7 +4822,7 @@ def main() -> int:
     log(f"phase 6 noise256 main path: {frames_n.shape} -> {out.shape} "
         f"{out.dtype}, {launches_n} kernel launches, layer 7 by kernel "
         f"{stack.L7_LAUNCHES}")
-    expect_l7(stack, "phase 6 noise256 main path", fold=1)
+    expect_l7(stack, "phase 6 noise256 main path", bf16=1)
     expect_l1(stack, "phase 6 noise256 main path", 1)
     if launches_n != 7 or out.shape != frames_n.shape:
         raise AssertionError(f"noise256: {launches_n} launches, {out.shape}")
@@ -5086,9 +4862,8 @@ def main() -> int:
         launches_c = stack.LAUNCHES
         # the noise stack's layer 7: folded on the tensor cores in bf16,
         # folded with FFMA in f32
-        expect_l7(stack, f"phase 7 ns1080 chain, {dt} noise", **(
-            {"fold": 2} if dt == torch.bfloat16
-            else {"fold": 1, "fold_f32": 1}))
+        expect_l7(stack, f"phase 7 ns1080 chain, {dt} noise",
+                  *((2, 0) if dt == torch.bfloat16 else (1, 1)))
         if dt == torch.float32:
             l7_f32_main = stack.L7_LAUNCHES["fold_f32"]
         expect_l1(stack, f"phase 7 ns1080 chain, {dt} noise", 2)
@@ -5240,8 +5015,8 @@ def main() -> int:
         sc = StreamConverter(fast, batch=16, depth=2, device=dev)
         outs, counts, nd = run_stream(sc, frames64, stack, label, smi)
         expect_counts(label, counts, nd, 4, **{kind: 28})
-        expect_l7(stack, label, fold=4)
-        if stack.MID_LAUNCHES != {"mma": 20, "ffma": 0, "chain": 0,
+        expect_l7(stack, label, bf16=4)
+        if stack.MID_LAUNCHES != {"mma": 20, "chain": 0,
                                   "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
                                   "mma_resident": 16, "mma_split": 4,
                                   "mma_tile": 0}:
@@ -5281,7 +5056,7 @@ def main() -> int:
     outs_n, counts, nd = run_stream(
         sc, list(frames_n) + list(frames_n[::-1]), stack, label, smi)
     expect_counts(label, counts, nd, 2, noise=14)
-    expect_l7(stack, label, fold=2)
+    expect_l7(stack, label, bf16=2)
     ref = d2s_host_cmajor(noise_batch_u8_fused(yuv_n, fast_n1).cpu().numpy())
     expect_equal(label + " vs the batch step", outs_n[:256], ref)
     expect_equal(label + " second batch", outs_n[256:], ref[::-1])
@@ -5300,7 +5075,7 @@ def main() -> int:
     outs, counts, nd = run_stream(sc, mix, stack, label, smi)
     # 4 even frames, the fifth padded to 4, the odd one padded to 4
     expect_counts(label, counts, nd, 3, noise=21)
-    expect_l7(stack, label, fold=3)
+    expect_l7(stack, label, bf16=3)
     expect_equal(label, outs[:3] + outs[4:], outs_n[:5])
     ref_odd = _to_bgr_u8(noise_batch(to_yuv_dev([odd]), modeln32,
                                      cfgn32)).cpu().numpy()[0]
@@ -5326,7 +5101,7 @@ def main() -> int:
     expect_counts(label, counts, nd, 2, noise=14, scale=14)
     # the f32 noise stack's layer 7 folded with FFMA, the bf16 scale stack's
     # on the tensor cores
-    expect_l7(stack, label, fold=2, fold_f32=2)
+    expect_l7(stack, label, bf16=2, f32=2)
     expect_equal(label + " vs the phase 7 chain", outs, list(out_chain) * 2)
     db_frames = [psnr(o, ref_chain[i % 4]) for i, o in enumerate(outs)]
     log(f"  batch 8 cut to 4 by the volume cap, f32 noise stack; equal to "
@@ -5348,7 +5123,7 @@ def main() -> int:
     outs, counts, nd = run_stream(sc, mixed, stack, label, smi)
     # 5 + 3 + 3 frames at batch 2: 4 full batches and 3 padded tails
     expect_counts(label, counts, nd, 7, fused_u8=49)
-    expect_l7(stack, label, fold=7)
+    expect_l7(stack, label, bf16=7)
     expect_equal(label, outs, [d2s_host_cmajor(scale2x_batch_u8_fused(
         to_yuv_dev([f]), fast).cpu().numpy())[0] for f in mixed])
     log("  output order equals input order; every frame equal to its "
@@ -5367,7 +5142,7 @@ def main() -> int:
         for k in range(7):
             stack.reset_launches()
             got = stack.stack_scale_upto(y, sp, k)
-            gathers = {"tiled": int(k < 6), "cell": 0}
+            gathers = {"tiled": int(k < 6)}
             if (stack.LAUNCHES != k + 1 or stack.L6_LAUNCHES["upto"] != 1
                     or stack.GATHER_LAUNCHES != gathers
                     or stack.KERNEL_LAUNCHES["scale"] != k + 1
@@ -5412,7 +5187,7 @@ def main() -> int:
                                                        l6_wino=True)
         stack.reset_launches()
         got32 = kernel(y32, sps[0], l6_wino=True)
-        expect_wino(f"f32 {name} {label}", 0, 0, tf32=1)
+        expect_wino(f"f32 {name} {label}", 0, tf32=1)
         ref32 = plain_in_chunks(plain, y32, sps[0], not noise)
         err32 = (got32 - ref32).abs().max().item()
         vs_direct = (got32 - kernel(y32, sps[0], l6_wino=False)
@@ -5420,49 +5195,27 @@ def main() -> int:
         y16 = y32.to(torch.bfloat16)
         stack.reset_launches()
         got16 = kernel(y16, sps[1], l6_wino=True).float()
-        expect_wino(f"bf16 {name} {label}", 1, 0)
+        expect_wino(f"bf16 {name} {label}", 1)
         err16 = (got16 - plain_in_chunks(plain, y16, sps[1], not noise)
                  ).abs().max().item()
         db16 = psnr1(got16, ref32)
-        # the FFMA Winograd kernel on the same bf16 input (MID_MMA False),
-        # against its own plain version (V in f32)
-        stack.MID_MMA = False
-        stack.reset_launches()
-        ffma16 = kernel(y16, sps[1], l6_wino=True).float()
-        expect_wino(f"bf16 {name} {label}, MID_MMA False", 0, 1)
-        if label == "scale512":   # the FFMA row's one counted path run
-            wino_ffma["launches"] = stack.WINO_LAUNCHES["ffma"]
-        err_ffma = (ffma16 - plain_in_chunks(plain, y16, sps[1], not noise)
-                    ).abs().max().item()
-        stack.MID_MMA = True
-        vs_ffma = (got16 - ffma16).abs().max().item()
         log(f"phase 13 wino {name} {label}: f32 max|kernel - plain| = "
             f"{err32:.3e}, max|wino - direct kernel| = {vs_direct:.3e}; "
             f"bf16 (tensor cores) max|kernel - bf16 plain| = {err16:.3e}, "
-            f"vs f32 plain {db16:.2f} dB; bf16 FFMA (MID_MMA False) "
-            f"max|kernel - plain| = {err_ffma:.3e}, max|tensor cores - "
-            f"FFMA| = {vs_ffma:.3e}")
-        check_max_err(f"bf16 FFMA wino {name} {label}", err_ffma, BF16_TOL)
-        check_max_err(f"bf16 wino, tensor cores vs FFMA, {name} {label}",
-                      vs_ffma, BF16_TOL)
+            f"vs f32 plain {db16:.2f} dB")
         check_max_err(f"f32 wino {name} {label}", err32, F32_TOL)
         check_max_err(f"f32 wino vs direct {name} {label}", vs_direct,
                       WINO_VS_DIRECT_TOL)
         check_max_err(f"bf16 wino {name} {label}", err16, BF16_TOL)
         if psnr_gate and not db16 >= PSNR_BAR:
             raise AssertionError(f"bf16 wino {name} {label}: {db16} dB")
-        wino_ffma["max_abs_err"] = max(wino_ffma["max_abs_err"], err_ffma)
         return max(err32, err16)
 
-    # the FFMA Winograd kernel (MID_MMA False): its largest error over
-    # phase 13's checks, its launches in one path run
-    wino_ffma = {"max_abs_err": 0.0, "launches": 0}
-
-    def expect_wino(label, mma, ffma, tf32=0):
+    def expect_wino(label, mma, tf32=0):
         """The Winograd layer 6 ran on the kernel its dtype selects."""
-        want = {"mma": mma, "mma_tf32": tf32, "ffma": ffma}
+        want = {"mma": mma, "mma_tf32": tf32}
         if (stack.WINO_LAUNCHES != want
-                or stack.L6_LAUNCHES["wino"] != mma + ffma + tf32):
+                or stack.L6_LAUNCHES["wino"] != mma + tf32):
             raise AssertionError(f"{label}: Winograd launches "
                                  f"{stack.WINO_LAUNCHES}, want {want}")
 
@@ -5472,7 +5225,7 @@ def main() -> int:
         stack.reset_launches()
         got = stack.wino_layer(x5, sp_l6)
         torch.cuda.synchronize()
-        if (stack.WINO_LAUNCHES != {"mma": 1, "mma_tf32": 0, "ffma": 0}
+        if (stack.WINO_LAUNCHES != {"mma": 1, "mma_tf32": 0}
                 or stack.LAUNCHES
                 or any(stack.L6_LAUNCHES.values())):
             raise AssertionError(f"wino_layer alone {label}: launches "
@@ -5549,33 +5302,30 @@ def main() -> int:
             # stack counts (LAUNCHES, KERNEL_LAUNCHES)
             x5 = stacks_unchanged("layer5_plane", lambda: stack.layer5_plane(
                 y, sp, tile, full_res=noise))
+            # no layer 5 ran here: the maxima of the stored plane, as
+            # layer 5's epilogue takes them on the stacks (phase 32)
+            m = stack.tile_max_plain(x5, tile_)
             stack.reset_launches()
             x6k, sxk = stacks_unchanged("l6_i8_layer", lambda: (
-                stack.l6_i8_layer(x5, sp, tile_)))
-            # no layer 5 ran here: tile_absmax takes the maxima
-            if stack.I8_LAUNCHES != {"mma": 1, "dp4a": 0, "l5max": 0,
-                                     "absmax": 1}:
+                stack.l6_i8_layer(x5, sp, tile_, m=m)))
+            if stack.I8_LAUNCHES != {"mma": 1, "l5max": 0}:
                 raise AssertionError(f"i8 layer 6 {label} {dt}: launches "
                                      f"{stack.I8_LAUNCHES}")
-            stack.MID_MMA = False   # the __dp4a yardstick on the same plane
-            x6d, sxd = stack.l6_i8_layer(x5, sp, tile_)
-            stack.MID_MMA = True
             x6p, sxp = stack.l6_i8_layer_plain(x5, sp, tile_)
             err = (x6k.float() - x6p.float()).abs().max().item()
             log(f"phase 14a i8 layer 6 alone {label} {dt}, tile {tile_}, "
                 f"{tuple(sxk.shape)} tiles: max|kernel - plain| = {err:.3e}, "
                 f"wgmma == plain bit for bit: {torch.equal(x6k, x6p)}, "
-                f"wgmma == __dp4a: {torch.equal(x6k, x6d)}, scales equal: "
-                f"{torch.equal(sxk, sxp) and torch.equal(sxd, sxp)}")
+                f"scales equal: {torch.equal(sxk, sxp)}")
             # the int32 sums are exact and the epilogue's f32 steps the
             # same: bit for bit, no allowance
-            if not (torch.equal(x6k, x6p) and torch.equal(x6k, x6d)):
-                raise AssertionError(f"i8 layer 6 {label} {dt}: the kernels "
+            if not torch.equal(x6k, x6p):
+                raise AssertionError(f"i8 layer 6 {label} {dt}: the kernel "
                                      f"and the plain version differ")
-            if not (torch.equal(sxk, sxp) and torch.equal(sxd, sxp)):
+            if not torch.equal(sxk, sxp):
                 raise AssertionError(f"i8 layer 6 {label} {dt}: the tiles' "
                                      f"scales differ")
-            del x6d
+            del m
             worst = max(worst, err)
             del x5, x6k, x6p
             torch.cuda.empty_cache()
@@ -5649,22 +5399,20 @@ def main() -> int:
             raise AssertionError(f"{label}: layer-6 launches "
                                  f"{stack.L6_LAUNCHES}, want {want}")
         # bf16 stacks: the Winograd layer 6 on the tensor cores
-        wino = {"mma": calls if form == "wino" else 0, "mma_tf32": 0,
-                "ffma": 0}
+        wino = {"mma": calls if form == "wino" else 0, "mma_tf32": 0}
         if stack.WINO_LAUNCHES != wino:
             raise AssertionError(f"{label}: Winograd launches by kernel "
                                  f"{stack.WINO_LAUNCHES}, want {wino}")
         # the int8 layer on the int8 tensor cores (csrc/i8.cu) every call,
-        # the tile maxima in layer 5's epilogue: no tile_absmax launch on
-        # the product route
-        i8 = {"mma": calls if form == "i8" else 0, "dp4a": 0,
-              "l5max": calls if form == "i8" else 0, "absmax": 0}
+        # the tile maxima in layer 5's epilogue
+        i8 = {"mma": calls if form == "i8" else 0,
+              "l5max": calls if form == "i8" else 0}
         if stack.I8_LAUNCHES != i8:
             raise AssertionError(f"{label}: int8 layer launches by kernel "
                                  f"{stack.I8_LAUNCHES}, want {i8}")
         # layer 7 folded, on the Winograd layer 6's plane and on the int8
         # layer 6's tile-major planes alike
-        expect_l7(stack, label, fold=calls)
+        expect_l7(stack, label, bf16=calls)
 
     ypad = F.pad(yuv[:2, ..., 0][:, None].cpu(), (7,) * 4,
                  mode="replicate")[:, 0, :256, :256, None].contiguous()
@@ -5755,10 +5503,10 @@ def main() -> int:
     set_l6("wino")
     stack.reset_launches()
     u8 = chain(fast_n2[torch.float32])
-    if stack.WINO_LAUNCHES != {"mma": 1, "mma_tf32": 1, "ffma": 0}:
+    if stack.WINO_LAUNCHES != {"mma": 1, "mma_tf32": 1}:
         raise AssertionError(f"{label}: Winograd launches "
                              f"{stack.WINO_LAUNCHES}")
-    expect_l7(stack, label, fold=1, fold_f32=1)
+    expect_l7(stack, label, bf16=1, f32=1)
     wino_tf32_launches = stack.WINO_LAUNCHES["mma_tf32"]
     out = d2s_host_cmajor(u8.cpu().numpy())
     db_wino_chain = min(psnr(out[i], ref_chain[i]) for i in range(len(out)))
@@ -5783,22 +5531,21 @@ def main() -> int:
     # 0..5 on the tiled gather
     gather_launches = stack.GATHER_LAUNCHES["tiled"]
     if (upto_launches != 7 * 4 or stack.L6_LAUNCHES["direct"] != 2 * 4 + 4
-            or stack.GATHER_LAUNCHES != {"tiled": 6 * 4, "cell": 0}):
+            or stack.GATHER_LAUNCHES != {"tiled": 6 * 4}):
         raise AssertionError(f"layer_time_probe: layer-6 launches "
                              f"{stack.L6_LAUNCHES}, gathers "
                              f"{stack.GATHER_LAUNCHES}")
     # layer 7 on the fold only: upto 6's taps 4 times (OUT_TAPS), the whole
     # stack 8 (a warm-up, 3 with events, a warm-up and 3 timed)
     taps_launches = {"cell": stack.TAP_LAUNCHES["taps"]}
-    if stack.L7_LAUNCHES != {"fold": 4 + 8, "fold_f32": 0, "cell": 0,
-                             "pixel": 0} or stack.TAP_LAUNCHES != {
-                                 "taps": 4, "ptaps": 0}:
+    if stack.L7_LAUNCHES != {"fold": 4 + 8, "fold_f32": 0} or (
+            stack.TAP_LAUNCHES != {"taps": 4, "ptaps": 0}):
         raise AssertionError(f"layer_time_probe: layer-7 launches "
                              f"{stack.L7_LAUNCHES}, taps "
                              f"{stack.TAP_LAUNCHES}")
     log(f"phase 15 layer_time_probe layer-7 launches {stack.L7_LAUNCHES} "
         f"({taps_launches['cell']} of them upto 6's taps on the fold, as "
-        f"TAP_LAUNCHES counted them; none on the cell kernel)")
+        f"TAP_LAUNCHES counted them)")
     log("phase 15 tools.i8_fidelity_probe:")
     stack.reset_launches()
     if (i8_fidelity_probe.main(["--iters", "2"]) != 0
@@ -5836,7 +5583,7 @@ def main() -> int:
         stack.reset_launches()
         got = stack.mma_layer(x, sp, k)
         torch.cuda.synchronize()
-        if (stack.MID_LAUNCHES != {"mma": 1, "ffma": 0, "chain": 0,
+        if (stack.MID_LAUNCHES != {"mma": 1, "chain": 0,
                                    "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
                                    "mma_resident": int(k < 6),
                                    "mma_split": int(k == 6),
@@ -5873,77 +5620,52 @@ def main() -> int:
         del x
     torch.cuda.empty_cache()
 
-    # the old bf16 FFMA layers against the new ones, whole stack and main path
+    # the whole scale512 stack and main path against the f32 ones
     ref32 = stack.stack_scale_plain(ylow, sp32)
-    mid_y, mid_db, mid_main_db = {}, {}, {}
-    for flag, name in ((False, "ffma"), (True, "mma")):
-        stack.MID_MMA = flag
-        stack.reset_launches()
-        mid_y[name] = stack.stack_scale(ylow16, sp16)
-        want = {"mma": 5 * flag, "ffma": 5 * (not flag), "chain": 0,
-                "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
-                "mma_resident": 4 * flag, "mma_split": int(flag),
-                "mma_tile": 0}
-        if stack.MID_LAUNCHES != want or stack.LAUNCHES != 7:
-            raise AssertionError(f"MID_MMA={flag}: launches "
-                                 f"{stack.MID_LAUNCHES} of {stack.LAUNCHES}")
-        mid_db[name] = psnr1(mid_y[name].float(), ref32)
-        u8 = scale2x_batch_u8_fused(to_yuv_dev(frames[:2]), fast)
-        mid_main_db[name] = psnr(d2s_host_cmajor(u8.cpu().numpy()), ref_main)
-    stack.MID_MMA = True
-    mid_diff = (mid_y["mma"].float() - mid_y["ffma"].float()).abs()
-    max_err["mma_vs_ffma"] = mid_diff.max().item()
-    log(f"phase 17 scale512 stack, bf16, layers 2-6 as FFMA against tensor "
-        f"cores: max |diff| {max_err['mma_vs_ffma']:.3e}, "
-        f"{(mid_diff > 0).float().mean().item():.3%} of outputs differ; vs "
-        f"f32 plain FFMA {mid_db['ffma']:.2f} dB, tensor cores "
-        f"{mid_db['mma']:.2f} dB; main path frames 0-1 vs f32 non-kernel "
-        f"path FFMA {mid_main_db['ffma']:.2f} dB, tensor cores "
-        f"{mid_main_db['mma']:.2f} dB")
-    check_max_err("bf16 stack, tensor cores against FFMA",
-                  max_err["mma_vs_ffma"], BF16_TOL)
-    if not min(*mid_db.values(), *mid_main_db.values()) >= PSNR_BAR:
-        raise AssertionError(f"MID_MMA: {mid_db}, {mid_main_db} dB")
-    del ref32, mid_y, mid_diff, u8
+    stack.reset_launches()
+    mid_y = stack.stack_scale(ylow16, sp16)
+    want = {"mma": 5, "chain": 0, "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
+            "mma_resident": 4, "mma_split": 1, "mma_tile": 0}
+    if stack.MID_LAUNCHES != want or stack.LAUNCHES != 7:
+        raise AssertionError(f"scale512 stack: launches "
+                             f"{stack.MID_LAUNCHES} of {stack.LAUNCHES}")
+    mid_db = psnr1(mid_y.float(), ref32)
+    u8 = scale2x_batch_u8_fused(to_yuv_dev(frames[:2]), fast)
+    mid_main_db = psnr(d2s_host_cmajor(u8.cpu().numpy()), ref_main)
+    log(f"phase 17 scale512 stack, bf16, layers 2-6 on the tensor cores: "
+        f"{mid_db:.2f} dB vs f32 plain; main path frames 0-1 vs f32 "
+        f"non-kernel path {mid_main_db:.2f} dB")
+    if not min(mid_db, mid_main_db) >= PSNR_BAR:
+        raise AssertionError(f"scale512 stack: {mid_db}, {mid_main_db} dB")
+    del ref32, mid_y, u8
     torch.cuda.empty_cache()
 
-    # per-layer ms of both kernels in one run, in turns: old, new, new, old
+    # per-layer ms, two runs
     mid_ms = {}
     for shape_name, y16, spx, wrapper in (
             ("scale512", ylow16, sp16, stack.stack_scale),
             ("noise256", yn16, spn16, stack.stack_noise_s2d)):
-        turns = {"ffma": [], "mma": []}
-        for flag in (False, True, True, False):
-            stack.MID_MMA = flag
-            wrapper(y16, spx)      # warm-up
-            turns["mma" if flag else "ffma"].append(per_layer_ms(
-                lambda ev: wrapper(y16, spx, events=ev), stack))
-        stack.MID_MMA = True
-        mid_ms[shape_name] = {k: sum(v) / 2 for k, v in turns.items()}
+        wrapper(y16, spx)      # warm-up
+        turns = [per_layer_ms(lambda ev: wrapper(y16, spx, events=ev), stack)
+                 for _ in range(2)]
+        mid_ms[shape_name] = sum(turns) / 2
         nb, hb, wb = y16.shape
         if wrapper is stack.stack_noise_s2d:
             hb, wb = hb // 2, wb // 2
         bounds = mid_bounds(stack, nb, hb, wb)
-        old, new = (mid_ms[shape_name][k][1:6] for k in ("ffma", "mma"))
-        log(f"timing {shape_name} layers 2-6, bf16, on {smi}: FFMA "
-            f"{old.sum():.2f} ms, tensor cores {new.sum():.2f} ms "
-            f"({old.sum() / new.sum():.2f}x), bound "
+        new = mid_ms[shape_name][1:6]
+        log(f"timing {shape_name} layers 2-6, bf16, on {smi}: tensor cores "
+            f"{new.sum():.2f} ms, bound "
             f"{sum(b[2] for b in bounds):.2f} ms; per layer: " + "; ".join(
-                f"L{k + 2} FFMA {old[k]:.2f} ms, tensor cores {new[k]:.2f} "
+                f"L{k + 2} {new[k]:.2f} "
                 f"ms = {bounds[k][0] / new[k] / 1e9:.1f} TFLOP/s "
                 f"({100 * bounds[k][0] / new[k] / 1e-3 / PEAK_BF16_FLOPS:.1f}"
                 f"% of the bf16 peak), {bounds[k][1] / new[k] / 1e6:.0f} GB/s "
                 f"({100 * bounds[k][1] / new[k] / 1e-3 / PEAK_BYTES:.1f}% of "
                 f"the memory rate), bound {bounds[k][2]:.2f} ms by "
                 f"{bounds[k][3]}" for k in range(5))
-            + f"; the two turns of each: FFMA "
-            f"{turns['ffma'][0][1:6].sum():.2f} / "
-            f"{turns['ffma'][1][1:6].sum():.2f} ms, tensor cores "
-            f"{turns['mma'][0][1:6].sum():.2f} / "
-            f"{turns['mma'][1][1:6].sum():.2f} ms")
-        if not 2 * new.sum() <= old.sum():
-            raise AssertionError(f"{shape_name}: tensor-core layers 2-6 "
-                                 f"{new.sum()} ms, FFMA {old.sum()} ms")
+            + f"; the two runs: {turns[0][1:6].sum():.2f} / "
+            f"{turns[1][1:6].sum():.2f} ms")
     mid_bound = mid_bounds(stack, *ylow16.shape)
     mid_library_ms = library_mid_ms(sp16, *ylow16.shape)
     # each layer alone at the scale512 shapes, with its plan
@@ -6301,37 +6023,19 @@ def main() -> int:
     c_step = {dt: timed_ms(lambda dt=dt: chain(fast_n2[dt]))
               for dt in (torch.bfloat16, torch.float32)}
     c_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # the f32-noise step and stack with the noise stack's layers 2-6 as
-    # 3xTF32 and as FFMA (MID_MMA False while the noise stack launches; the
-    # bf16 scale stack stays on the tensor cores), in turns
-    def chain_mid(mid_mma: bool):
-        stack.MID_MMA = mid_mma
+    # the f32-noise step and stack as the product runs them, twice each,
+    # with the noise stack's per-layer events
+    def chain_f32():
         y = noise_y_batch_fast(yuv_c[..., 0], fast_n2[torch.float32],
                                out_dtype=None)
-        stack.MID_MMA = True
         return scale2x_batch_u8_fused(yuv_c, fast, y=y)
 
-    def noise_mid(mid_mma: bool):
-        stack.MID_MMA = mid_mma
-        y = stack.stack_noise(yc, fast_n2[torch.float32].sp)
-        stack.MID_MMA = True
-        return y
-
-    c_turns = {True: [], False: []}
-    for flag in (False, True, True, False):
-        c_turns[flag].append((timed_ms(lambda: chain_mid(flag)),
-                              timed_ms(lambda: noise_mid(flag))))
-
-    # the f32-noise step and stack as the product runs them (layer 7
-    # folded), with the noise stack's per-layer events; their times with the
-    # FFMA layer 7 are derived from phase 24's turns of layer 7 alone at
-    # this plane (the stack plus the FFMA kernel's time less the fold's)
-    l7_chain = {"step": sum(t[0] for t in c_turns[True]) / 2,
-                "stack": sum(t[1] for t in c_turns[True]) / 2,
+    c_turns = [(timed_ms(chain_f32), timed_ms(lambda: stack.stack_noise(
+        yc, fast_n2[torch.float32].sp))) for _ in range(2)]
+    l7_chain = {"step": sum(t[0] for t in c_turns) / 2,
+                "stack": sum(t[1] for t in c_turns) / 2,
                 "layers": per_layer_ms(lambda ev: stack.stack_noise(
                     yc, fast_n2[torch.float32].sp, events=ev), stack)}
-    l7_row = next(r for r in kernels19 if r["name"].startswith("l7_fold_f32"))
-    l7_delta = l7_row["ffma_ms"] - l7_row["ms"]
     yc_by_dtype = {torch.bfloat16: yc16, torch.float32: yc}
     c_noise_ms = {dt: timed_ms(lambda dt=dt: stack.stack_noise(
         yc_by_dtype[dt], fast_n2[dt].sp)) for dt in yc_by_dtype}
@@ -6359,24 +6063,13 @@ def main() -> int:
     report, _ = layer_rates(c_per_layer, stack, nc, hc // 2, wc // 2,
                             hc * wc)
     log("  noise per layer (bf16): " + report)
-    log(f"timing ns1080 f32 noise stack, layers 2-6 3xTF32 against FFMA "
-        f"(MID_MMA False for the noise stack only), in turns, on {smi}: "
-        f"step " + " / ".join(
-            f"{c_turns[f][i][0]:.2f}" for f, i in
-            ((False, 0), (True, 0), (True, 1), (False, 1)))
-        + " ms, noise stack " + " / ".join(
-            f"{c_turns[f][i][1]:.2f}" for f, i in
-            ((False, 0), (True, 0), (True, 1), (False, 1)))
-        + " ms (FFMA, 3xTF32, 3xTF32, FFMA)")
-    log(f"timing ns1080 f32 noise stack, layer 7 folded (csrc/l7.cu), on "
-        f"{smi}: step {l7_chain['step']:.2f} ms, noise stack "
-        f"{l7_chain['stack']:.2f} ms (the 3xTF32 turns above); per layer "
+    log(f"timing ns1080 f32-noise step and f32 noise stack (layers 2-6 "
+        f"3xTF32, layer 7 folded), on {smi}: step {l7_chain['step']:.2f} ms "
+        f"(runs " + " / ".join(f"{t[0]:.2f}" for t in c_turns)
+        + f"), noise stack {l7_chain['stack']:.2f} ms (runs "
+        + " / ".join(f"{t[1]:.2f}" for t in c_turns) + "); per layer "
         + ", ".join(f"L{k + 1} {v:.2f}"
-                    for k, v in enumerate(l7_chain["layers"]))
-        + f" ms; with the FFMA layer 7 (derived: phase 24's turns at this "
-        f"plane, FFMA {l7_row['ffma_ms']:.3f} - fold {l7_row['ms']:.3f} = "
-        f"{l7_delta:.3f} ms more) stack {l7_chain['stack'] + l7_delta:.2f} "
-        f"ms, step {l7_chain['step'] + l7_delta:.2f} ms")
+                    for k, v in enumerate(l7_chain["layers"])) + " ms")
 
     # timings, layer 6's three forms at scale512 in bf16, beside B1's
     yuv16 = _to_yuv(torch.from_numpy(frames).to(dev))
@@ -6418,19 +6111,15 @@ def main() -> int:
             for form, t in l6_t.items())
         + f"; int8 default tile {stack.default_tile(hl, wl)}")
 
-    # layer 6 alone at the scale512 shape, bf16: the FFMA and tensor-core
-    # Winograd kernels in turns (old, new, new, old), beside the direct
-    # tensor-core layer and cuDNN's layer 6 on the same x5
+    # layer 6 alone at the scale512 shape, bf16: the tensor-core Winograd
+    # kernel, twice, beside the direct tensor-core layer and cuDNN's layer
+    # 6 on the same x5
     t_l6 = time.perf_counter()
     x5 = torch.rand((n, 2 * hl + 4, 2 * wl + 4, 128), device=dev,
                     generator=dev_gen).to(torch.bfloat16)
-    wino_turns = {"ffma": [], "mma": []}
-    for flag in (False, True, True, False):
-        stack.MID_MMA = flag
-        wino_turns["mma" if flag else "ffma"].append(
-            timed_ms(lambda: stack.wino_layer(x5, sp16)))
-    stack.MID_MMA = True
-    l6_alone = {k: sum(v) / 2 for k, v in wino_turns.items()}
+    wino_turns = [timed_ms(lambda: stack.wino_layer(x5, sp16))
+                  for _ in range(2)]
+    l6_alone = {"mma": sum(wino_turns) / 2}
     l6_alone["direct"] = timed_ms(lambda: stack.mma_layer(x5, sp16, 6))
     l6_alone["cudnn"] = library_l6_ms(x5, sp16)
     t0 = time.perf_counter()
@@ -6438,12 +6127,6 @@ def main() -> int:
         stack.wino_layer_plain(x5[i:i + 2], sp16.w6m, sp16[5][1])
     torch.cuda.synchronize()
     l6_alone["plain"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()   # the FFMA form's plain version: V in f32
-    for i in range(0, n, 2):
-        stack._l6_wino_plain(x5[i:i + 2].float().permute(0, 3, 1, 2), sp16,
-                             torch.bfloat16)
-    torch.cuda.synchronize()
-    l6_alone["plain_ffma"] = (time.perf_counter() - t0) * 1e3
     del x5
     torch.cuda.empty_cache()
     wblocks = n * (hl + 1) * (wl + 1)   # 2 x 2 output blocks of layer 6
@@ -6459,15 +6142,10 @@ def main() -> int:
                 for k, f in l6_flops.items() if k != "mma"}
     l6_bound_by = {k: "operations" if l6_flops[k] / PEAK_BF16_FLOPS
                    >= l6_bytes / PEAK_BYTES else "bytes" for k in l6_bound}
-    ffma_floor = l6_flops["wino16"] / PEAK_F32_FLOPS * 1e3
     log(f"timing scale512 layer 6 alone, bf16, x5 "
-        f"{(n, 2 * hl + 4, 2 * wl + 4, 128)}, on {smi}: Winograd FFMA "
-        f"{l6_alone['ffma']:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in wino_turns["ffma"])
-        + f"; {l6_flops['wino16'] / l6_alone['ffma'] / 1e9:.1f} TFLOP/s, "
-        f"FFMA floor {ffma_floor:.2f} ms), Winograd tensor cores "
-        f"{l6_alone['mma']:.3f} ms (turns "
-        + " / ".join(f"{v:.3f}" for v in wino_turns["mma"])
+        f"{(n, 2 * hl + 4, 2 * wl + 4, 128)}, on {smi}: Winograd tensor "
+        f"cores {l6_alone['mma']:.3f} ms (runs "
+        + " / ".join(f"{v:.3f}" for v in wino_turns)
         + f"; {l6_flops['mma'] / l6_alone['mma'] / 1e9:.1f} TFLOP/s of its "
         f"24 products a block = "
         f"{100 * l6_flops['mma'] / l6_alone['mma'] / 1e-3 / PEAK_BF16_FLOPS:.1f}"
@@ -6477,20 +6155,16 @@ def main() -> int:
         f"{l6_flops['wino16'] / PEAK_BF16_FLOPS * 1e3:.2f} ms, bytes "
         f"{l6_bytes / PEAK_BYTES * 1e3:.2f} ms; the kernel's own 24 "
         f"products would take {l6_flops['mma'] / PEAK_BF16_FLOPS * 1e3:.2f}"
-        f" ms), "
-        f"{l6_alone['ffma'] / l6_alone['mma']:.2f}x the FFMA form; direct "
+        f" ms); direct "
         f"tensor-core layer 6 {l6_alone['direct']:.3f} ms (bound "
         f"{l6_bound['direct']:.2f} ms); cuDNN bf16 layer 6 "
         f"{l6_alone['cudnn']:.3f} ms; plain versions (in chunks, host "
-        f"clock) wino_layer_plain {l6_alone['plain']:.1f} ms, FFMA form's "
-        f"{l6_alone['plain_ffma']:.1f} ms; the tensor-core Winograd "
+        f"clock) wino_layer_plain {l6_alone['plain']:.1f} ms; the "
+        f"tensor-core Winograd "
         f"{'beats' if l6_alone['mma'] < l6_alone['cudnn'] else 'loses to'} "
         f"cuDNN's layer 6 and "
         f"{'beats' if l6_alone['mma'] < l6_alone['direct'] else 'loses to'} "
         f"the direct wgmma layer 6")
-    if not 4 * l6_alone["mma"] <= l6_alone["ffma"]:
-        raise AssertionError(f"tensor-core Winograd layer 6 "
-                             f"{l6_alone['mma']} ms, FFMA {l6_alone['ffma']}")
     log(f"timing layer 6 alone took {time.perf_counter() - t_l6:.1f} s")
 
     # timings, the truncated stack (B7) at upto = 6 and its own launches
@@ -6584,7 +6258,7 @@ def main() -> int:
         "name": "upto_gather_tiled / l7_fold's tap forms "
                 "(stack_scale_upto, B7)",
         "route": "cuda",
-        "source": "waifu2x_torch/csrc/l6.cu",
+        "source": "waifu2x_torch/csrc/gather.cu",
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
         "launches": upto_launches,
         "max_abs_err": max_err["upto"],
@@ -6643,28 +6317,11 @@ def main() -> int:
         "launches": wino_mma_launches,
         "max_abs_err": max_err["wino_layer"],
         "ms": l6_alone["mma"],
-        "ffma_ms": l6_alone["ffma"],
         "direct_mma_ms": l6_alone["direct"],
         "plain_ms": l6_alone["plain"],
         "bound_ms": l6_bound["wino16"],
         "bound_by": l6_bound_by["wino16"],
         "own_24_products_ms": l6_flops["mma"] / PEAK_BF16_FLOPS * 1e3,
-        "library_ms": l6_alone["cudnn"],
-    }, {
-        "name": "l6_wino<T>, the Winograd layer 6 as FFMA (both types "
-                "with MID_MMA False: the yardstick), timed at bf16",
-        "route": "cuda",
-        "source": "waifu2x_torch/csrc/l6.cu",
-        "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
-        "launches": wino_ffma["launches"],
-        "launches_of": "the scale512 bf16 stack_scale call with MID_MMA "
-                       "False (phase 13), counts reset just before",
-        "max_abs_err": wino_ffma["max_abs_err"],
-        "ms": l6_alone["ffma"],
-        "plain_ms": l6_alone["plain_ffma"],
-        "bound_ms": max(ffma_floor, l6_bytes / PEAK_BYTES * 1e3),
-        "bound_by": ("operations" if ffma_floor
-                     >= l6_bytes / PEAK_BYTES * 1e3 else "bytes"),
         "library_ms": l6_alone["cudnn"],
     }, {
         "name": "conv3x3_bias_leaky_mma, layers 2-6 of every bf16 stack "
@@ -6674,17 +6331,15 @@ def main() -> int:
         "replaces": "waifu2x_tpu/ops/pallas_stack.py:798",
         "launches": mid_launches["mma"],
         "max_abs_err": max_err["mma"],
-        "max_abs_err_vs_ffma_stack": max_err["mma_vs_ffma"],
-        "ms": float(mid_ms["scale512"]["mma"][1:6].sum()),
-        "ffma_ms": float(mid_ms["scale512"]["ffma"][1:6].sum()),
-        "layer_ms": [float(v) for v in mid_ms["scale512"]["mma"][1:6]],
+        "ms": float(mid_ms["scale512"][1:6].sum()),
+        "layer_ms": [float(v) for v in mid_ms["scale512"][1:6]],
         "plain_ms": mma_plain_ms,
         "bound_ms": sum(b[2] for b in mid_bound),
         "bound_by": ("operations" if sum(
             b[2] for b in mid_bound if b[3] == "operations") >= sum(
             b[2] for b in mid_bound if b[3] == "bytes") else "bytes"),
         "library_ms": mid_library_ms,
-        "psnr_db": mid_main_db["mma"],
+        "psnr_db": mid_main_db,
         "routes": "persistent: layers 2-5 resident, layer 6 split",
         "tile_kernel_turns": mma_turns,
     }, {
@@ -6739,13 +6394,11 @@ def main() -> int:
                    else {})}
                 for r in rows_k},
         })
+    l7_row = next(r for r in kernels19 if r["name"].startswith("l7_fold_f32"))
     l7_row.update({   # the f32 fold's row: the stack and step it ends
         "ns1080_noise_stack_ms": l7_chain["stack"],
         "ns1080_step_ms": l7_chain["step"],
-        "ns1080_stack_layer_ms": list(map(float, l7_chain["layers"])),
-        "ns1080_ffma_l7_delta_ms": l7_delta,
-        "ffma_l7_delta_is": "phase 24's FFMA layer 7 alone less the fold's, "
-                            "at ns1080, in turns"})
+        "ns1080_stack_layer_ms": list(map(float, l7_chain["layers"]))})
     kernels += kernels19
     # the kernels the command line reached (phase 28), by row
     for prefix, key in (("l1_conv,", "l1"), ("conv3x3_bias_leaky_mma,", "mma"),

@@ -365,8 +365,8 @@ def test_build_dir_follows_argument_then_env(tmp_path, monkeypatch):
     enable_compilation_cache(str(tmp_path / "arg"))
     assert _build.BUILD_DIR == tmp_path / "arg"
     # the library names keep their source hash under any directory
-    assert _build._lib_path("stack").parent == tmp_path / "arg"
-    assert _build._lib_path("stack").name.startswith("libstack-")
+    assert _build._lib_path("gather").parent == tmp_path / "arg"
+    assert _build._lib_path("gather").name.startswith("libgather-")
 
 
 def test_cli_reads_w2x_build_dir_and_builds_nothing_on_cpu(tmp_path, rng,

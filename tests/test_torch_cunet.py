@@ -381,7 +381,7 @@ def test_launch_counts_by_shape_and_route():
     calls = []
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = None, None, 0
-    run.libs = {"mma": _FakeLib(calls), "stack": _FakeLib(calls)}
+    run.libs = {"mma": _FakeLib(calls)}
     run.bf16, run.stream = 1, 0
     stack.reset_launches()
     x = torch.zeros(1, dtype=torch.bfloat16)

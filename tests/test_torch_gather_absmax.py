@@ -1,7 +1,6 @@
-"""The two kernels that replaced the port's first forms of B7's gather and of
-B4's tile maxima, on the CPU.
+"""B7's gather and B4's tile maxima in layer 5's epilogue, on the CPU.
 
-csrc/l6.cu:upto_gather_tiled (stack_scale_upto at upto 0..5): an emulation
+csrc/gather.cu:upto_gather_tiled (stack_scale_upto at upto 0..5): an emulation
 of its walk (bands of rows, a warp a row, the 16-byte vectors of a row
 segment and the elements before and after them, the low-res band staged
 with its clamped halo) writes every element of the output once and equals
@@ -12,16 +11,15 @@ storage types, at every upto and output form.
 Layer 5's tile-maxima epilogue (csrc/mma.cu, csrc/mma_tf32.cu, through
 common.cuh:tile_max_block): an emulation of the epilogue (the accumulator
 fragment's pixels and channels, the four lanes of a pixel, each 16 x 16
-block's share of every tile window it meets) gives the same maxima as an
-emulation of csrc/l6.cu:tile_absmax's walk and as tile_max_plain, bit for
-bit, at the default tile and at small tiles where a block meets many
-windows, with NaN dropped as fmaxf drops it. The B4 stack's plain version
-is held against the JAX kernel in interpret mode.
+block's share of every tile window it meets) gives tile_max_plain's
+maxima, bit for bit, at the default tile and at small tiles where a block
+meets many windows, with NaN dropped as fmaxf drops it. The B4 stack's
+plain version is held against the JAX kernel in interpret mode.
 
 Which C entry each call reaches is held with a fake library standing in for
 the card; each C entry's parameter count against the ctypes table. The CUDA
-kernels themselves are held bit for bit against the plain versions and the
-first forms on the card by chip_smoke.py (phase 32)."""
+kernels themselves are held bit for bit against the plain versions on the
+card by chip_smoke.py (phase 32)."""
 
 import contextlib
 import re
@@ -74,9 +72,8 @@ def _const(src: str, name: str) -> int:
 
 @pytest.fixture(scope="module")
 def geometry():
-    src = (CSRC / "l6.cu").read_text()
-    return {k: _const(src, k) for k in ("GT_ROWS", "GT_COLS", "GT_UNROLL",
-                                        "ABSMAX_ROWS")}
+    src = (CSRC / "gather.cu").read_text()
+    return {k: _const(src, k) for k in ("GT_ROWS", "GT_COLS", "GT_UNROLL")}
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:
@@ -191,26 +188,24 @@ def test_gather_walk_equals_plain(sps, geometry, shape, dtype, upto, out):
 
 @pytest.mark.parametrize("upto,out", GATHER_FORMS,
                          ids=[f"upto{k}-{o}" for k, o in GATHER_FORMS])
-@pytest.mark.parametrize("tiled", [None, False], ids=["tiled", "cell"])
-def test_gather_dispatch(sps, fake_card, tiled, upto, out):
-    """stack_scale_upto's last launch at upto 0..5: the tiled gather
-    (w2x_upto_gather), or with tiled=False the one-thread-a-cell form
-    (w2x_upto_gather_cell), with the mode its form takes and the layer's
-    plane; counted under GATHER_LAUNCHES by kernel and L6_LAUNCHES["upto"]."""
-    sp = sps[torch.bfloat16]
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["tiled", "tiled_f32"])
+def test_gather_dispatch(sps, fake_card, dtype, upto, out):
+    """stack_scale_upto's last launch at upto 0..5 in either storage type:
+    the gather (w2x_upto_gather), with the mode its form takes and the
+    layer's plane; counted under GATHER_LAUNCHES and L6_LAUNCHES["upto"]."""
     n, hl, wl = 1, 20, 36
-    stack._launch(torch.zeros((n, hl, wl), dtype=torch.bfloat16), sp,
-                  "scale", None, upto=upto, out_form=out, tiled=tiled)
+    stack._launch(torch.zeros((n, hl, wl), dtype=dtype), sps[dtype],
+                  "scale", None, upto=upto, out_form=out)
     fn, args = fake_card[-1]
-    assert fn == ("w2x_upto_gather_cell" if tiled is False
-                  else "w2x_upto_gather")
+    assert fn == "w2x_upto_gather"
     ck = stack.WIDTHS[upto - 1][1] if upto else 1
     # (bf16, x, y, n, hl, wl, H, W, C, mode, stream)
+    assert args[0] == int(dtype == torch.bfloat16)
     assert args[3:10] == (n, hl, wl, 2 * hl + 14 - 2 * upto,
                           2 * wl + 14 - 2 * upto, ck,
                           stack._GATHER_LOWRES[out] if upto == 0 else 0)
-    assert stack.GATHER_LAUNCHES == {"tiled": int(tiled is None),
-                                     "cell": int(tiled is False)}
+    assert stack.GATHER_LAUNCHES == {"tiled": 1}
     assert stack.L6_LAUNCHES["upto"] == 1 and stack.LAUNCHES == upto + 1
 
 
@@ -289,27 +284,6 @@ def emulate_epilogue(pre: np.ndarray, tile, dtype) -> np.ndarray:
     return m.view(np.float32)
 
 
-def emulate_tile_absmax(x5: np.ndarray, tile, chunk_rows: int) -> np.ndarray:
-    """csrc/l6.cu:tile_absmax's walk: a block per (image, tile, chunk of
-    window rows), fmaxf over its rows, one atomicMax per block."""
-    n, h5, w5, _ = x5.shape
-    tr, tc = tile
-    ny, nx = (h5 - 4) // (2 * tr), (w5 - 4) // (2 * tc)
-    m = np.zeros((n, ny, nx), np.uint32)
-    for img in range(n):
-        for ti in range(ny):
-            for tj in range(nx):
-                for r in range(0, 2 * tr + 4, chunk_rows):
-                    rows = x5[img, 2 * ti * tr + r:
-                              2 * ti * tr + min(r + chunk_rows, 2 * tr + 4),
-                              2 * tj * tc:2 * tj * tc + 2 * tc + 4]
-                    best = np.fmax.reduce(np.abs(rows), axis=None,
-                                          initial=0.0)
-                    m[img, ti, tj] = max(m[img, ti, tj],
-                                         np.float32(best).view(np.uint32))
-    return m.view(np.float32)
-
-
 # (image cells, tile): the default tile of a 70 x 140 grid (35, 70), and
 # tiles of 1-5 cells, where a 16 x 16 block meets up to a hundred windows
 MAX_CASES = (((70, 140), None), ((20, 13), (1, 1)), ((20, 13), (2, 3)),
@@ -319,9 +293,9 @@ MAX_CASES = (((70, 140), None), ((20, 13), (1, 1)), ((20, 13), (2, 3)),
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
 @pytest.mark.parametrize("cells,tile", MAX_CASES,
                          ids=["default", "1x1", "2x3", "3x5"])
-def test_epilogue_maxima_equal_tile_absmax(geometry, cells, tile, dtype):
-    """The epilogue's walk gives tile_absmax's maxima and tile_max_plain's,
-    bit for bit, in both storage types, NaN dropped by all three."""
+def test_epilogue_maxima_equal_tile_max_plain(cells, tile, dtype):
+    """The epilogue's walk gives tile_max_plain's maxima, bit for bit, in
+    both storage types, NaN dropped by both."""
     tile = tile or stack.default_tile(*cells)
     tr, tc = tile
     ny, nx = -(-cells[0] // tr), -(-cells[1] // tc)
@@ -333,16 +307,12 @@ def test_epilogue_maxima_equal_tile_absmax(geometry, cells, tile, dtype):
     pre[0, 5, 7, 3] = np.nan
     pre[0, -1, -1, :] = np.nan   # a pixel of nothing but NaN
     x5 = torch.from_numpy(pre).to(dtype)
-    vals = x5.float().numpy()
     cover = fragment_pixels()
     assert cover.min() == cover.max() == 1
     m = emulate_epilogue(pre, tile, dtype)
-    assert np.array_equal(m.view(np.uint32), emulate_tile_absmax(
-        vals, tile, geometry["ABSMAX_ROWS"]).view(np.uint32))
     ref = stack.tile_max_plain(x5, tile)
     assert ref.shape == (1, ny, nx) and not torch.isnan(ref).any()
     assert np.array_equal(m.view(np.uint32), ref.numpy().view(np.uint32))
-    assert torch.equal(stack.tile_maxima(x5, tile), ref)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
@@ -350,7 +320,7 @@ def test_epilogue_maxima_equal_tile_absmax(geometry, cells, tile, dtype):
                          ids=["4x8", "1x1", "3x5"])
 def test_layer5_maxima_plain(sps, dtype, tile):
     """layer5_maxima on the CPU: layer 5 as mma_layer computes it, and
-    tile_maxima of that x5; l6_i8_layer given those maxima equals it
+    tile_max_plain of that x5; l6_i8_layer given those maxima equals it
     without them; the scales are the maxima / 127 (max with 1e-8)."""
     sp = sps[dtype]
     tr, tc = tile
@@ -360,7 +330,7 @@ def test_layer5_maxima_plain(sps, dtype, tile):
         (2, 2 * ny * tr + 6, 2 * nx * tc + 6, 64), dtype=np.float32)).to(dtype)
     x5, m = stack.layer5_maxima(x4, sp, tile)
     assert torch.equal(x5, stack.mma_layer(x4, sp, 5))
-    assert torch.equal(m, stack.tile_maxima(x5, tile))
+    assert torch.equal(m, stack.tile_max_plain(x5, tile))
     x6t, sx = stack.l6_i8_layer(x5, sp, tile)
     x6m, sxm = stack.l6_i8_layer(x5, sp, tile, m=m)
     assert torch.equal(x6t, x6m) and torch.equal(sx, sxm)
@@ -374,10 +344,23 @@ def test_maxima_argument_checks(sps):
     with pytest.raises(ValueError, match="x4 must be"):
         stack.layer5_maxima(torch.zeros((1, 22, 38, 32)), sp, (4, 8))
     with pytest.raises(ValueError, match="x5 must be"):
-        stack.tile_maxima(torch.zeros((1, 21, 36, 128)), (4, 8))
+        stack.l6_i8_layer(torch.zeros((1, 21, 36, 128)), sp, (4, 8))
     x5 = torch.zeros((1, 20, 36, 128))
     with pytest.raises(ValueError, match="m must be"):
         stack.l6_i8_layer(x5, sp, (4, 8), m=torch.zeros((1, 2, 3)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_l6_i8_layer_off_the_cpu_needs_the_maxima(params_np, dtype):
+    """Off the CPU, l6_i8_layer takes the tile maxima from its caller (as
+    the stacks take them from layer 5's epilogue) and refuses m=None before
+    it launches anything; the CPU's plain version takes them itself."""
+    sp = stack.prep_params(params_from_numpy(params_np), dtype, "meta")
+    x5 = torch.zeros((1, 20, 36, 128), dtype=dtype, device="meta")
+    stack.reset_launches()
+    with pytest.raises(ValueError, match="needs the tile maxima m"):
+        stack.l6_i8_layer(x5, sp, (4, 8))
+    assert stack.LAUNCHES == 0 and not any(stack.I8_LAUNCHES.values())
 
 
 def test_stack_scale_i8_plain_matches_pallas_interpret(params_np, sps):
@@ -453,8 +436,7 @@ def fake_card(monkeypatch):
 
     def init(self, kind, x, events):
         self.kind, self.events, self.step = kind, events, 0
-        self.libs = {name: _FakeLib(calls)
-                     for name in ("stack", *stack._ARGTYPES)}
+        self.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
         self.bf16 = int(x.dtype == torch.bfloat16)
         self.stream = 0
 
@@ -466,42 +448,42 @@ def fake_card(monkeypatch):
     stack.reset_launches()
 
 
+# (shape, tile) of the int8 stack calls: a whole grid of (4, 16) tiles, and
+# an odd guard size on a tile that leaves ragged tiles at both edges
+I8_ROUTE_CASES = (((2, 20, 36), (4, 16)), ((2, 37, 53), (4, 16)))
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
-@pytest.mark.parametrize("l5_maxima", [True, False], ids=["epilogue", "pass"])
+@pytest.mark.parametrize("shape,tile", I8_ROUTE_CASES,
+                         ids=["epilogue", "odd"])
 @pytest.mark.parametrize("kind", ["scale", "noise", "dense", "fused_u8"])
-def test_i8_maxima_route(sps, fake_card, monkeypatch, dtype, l5_maxima,
-                         kind):
-    """Every int8 stack call takes the tile maxima in layer 5's epilogue (no
-    tile_absmax launch: 7 launches, I8_LAUNCHES["absmax"] 0) into a fresh
-    [n, ny, nx] buffer that the int8 layer then reads; L5_MAXIMA False
-    takes the tensor-core layer 5 without them and tile_absmax after it
-    (8 launches), the yardstick."""
-    monkeypatch.setattr(stack, "L5_MAXIMA", l5_maxima)
+def test_i8_maxima_route(sps, fake_card, dtype, shape, tile, kind):
+    """Every int8 stack call takes the tile maxima in layer 5's epilogue (7
+    launches) into a fresh [n, ny, nx] buffer that the int8 layer then
+    reads, over the plane edge-extended to the tile grid, at a whole grid
+    and at an odd size."""
     sp = sps[dtype]
-    n, h, w = 2, 20, 36
-    hl, wl = (h // 2, w // 2) if kind == "noise" else (h, w)
+    n, h, w = shape
+    tr, tc = tile
+    hl, wl = (-(-h // 2), -(-w // 2)) if kind == "noise" else (h, w)
     stack._launch(torch.zeros((n, h, w), dtype=dtype), sp, kind, None,
                   uvp=(torch.zeros((n, h, w, 8)) if kind == "fused_u8"
                        else None),
-                  tc=32 if kind == "dense" else 0, form="i8", tile=(4, 16))
+                  tc=32 if kind == "dense" else 0, form="i8", tile=tile)
     names = [fn for fn, _ in fake_card]
     bf16 = dtype == torch.bfloat16
     mid = "w2x_mma_layer" if bf16 else "w2x_tf32_layer"
-    ny, nx = -(-hl // 4), -(-wl // 16)
-    if l5_maxima:
-        assert names[4:6] == [mid + "_max", "w2x_l6_i8_mma"]
-        l5 = fake_card[4][1]
-        # ..., m, tr, tc, ny, nx, stream; layer 5's input plane
-        assert l5[-5:-1] == (4, 16, ny, nx)
-        assert l5[-9:-7] == (2 * 4 * ny + 6, 2 * 16 * nx + 6)
-        assert fake_card[5][1][5] == l5[-6]
-    else:
-        assert names[4:7] == [mid, "w2x_tile_absmax", "w2x_l6_i8_mma"]
-        assert fake_card[6][1][5] == fake_card[5][1][2]
-    assert len(names) == 7 + (not l5_maxima) == stack.LAUNCHES
-    assert stack.I8_LAUNCHES == {"mma": 1, "dp4a": 0,
-                                 "l5max": int(l5_maxima),
-                                 "absmax": int(not l5_maxima)}
+    ny, nx = -(-hl // tr), -(-wl // tc)
+    assert names[4:6] == [mid + "_max", "w2x_l6_i8_mma"]
+    l5 = fake_card[4][1]
+    # ..., m, tr, tc, ny, nx, stream; layer 5's input plane
+    assert l5[-5:-1] == (tr, tc, ny, nx)
+    assert l5[-9:-7] == (2 * tr * ny + 6, 2 * tc * nx + 6)
+    assert fake_card[5][1][5] == l5[-6]
+    # the int8 layer: (..., m, x6, n, tr, tc, ny, nx, stream)
+    assert fake_card[5][1][-6:-1] == (n, tr, tc, ny, nx)
+    assert len(names) == 7 == stack.LAUNCHES
+    assert stack.I8_LAUNCHES == {"mma": 1, "l5max": 1}
     assert stack.MID_LAUNCHES["mma" if bf16 else "mma_tf32"] == 4
 
 
@@ -509,8 +491,7 @@ def test_i8_maxima_route(sps, fake_card, monkeypatch, dtype, l5_maxima,
 def test_layer5_maxima_alone_dispatch(sps, fake_card, dtype):
     """Layer 5 with the maxima as layer5_maxima launches it on the card: one
     launch of the instance with them, m and the tiling passed, counted under
-    MID_LAUNCHES and I8_LAUNCHES["l5max"] only; tile_absmax as tile_maxima
-    launches it, under I8_LAUNCHES["absmax"] only."""
+    MID_LAUNCHES and I8_LAUNCHES["l5max"] only."""
     sp = sps[dtype]
     x4 = torch.zeros((1, 2 * 2 * 4 + 6, 2 * 3 * 8 + 6, 64), dtype=dtype)
     tiling = stack._check_x4(x4, sp, (4, 8))
@@ -530,13 +511,7 @@ def test_layer5_maxima_alone_dispatch(sps, fake_card, dtype):
     assert stack.LAUNCHES == 0 and stack.I8_LAUNCHES["l5max"] == 1
     assert stack.MID_LAUNCHES["mma" if bf16 else "mma_tf32"] == 1
     assert stack.MID_LAUNCHES["mma_tile"] == int(bf16)
-    got = stack._Launcher(None, x5, None).tile_absmax(x5, 1, tiling)
-    assert fake_card[-1][0] == "w2x_tile_absmax"
-    assert fake_card[-1][1][2] == got.data_ptr()
-    assert fake_card[-1][1][3:8] == (1, 4, 8, 2, 3)
-    assert got.shape == (1, 2, 3) and not got.any()
-    assert stack.I8_LAUNCHES == {"mma": 0, "dp4a": 0, "l5max": 1,
-                                 "absmax": 1}
+    assert stack.I8_LAUNCHES == {"mma": 0, "l5max": 1}
 
 
 def _entries() -> dict:
@@ -547,6 +522,25 @@ def _entries() -> dict:
                                        path.read_text(), re.M):
             out[name] = len(params.split(","))
     return out
+
+
+@pytest.mark.parametrize("src", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_c_source_answers_for_its_errors_and_asks_the_sms_once(src):
+    """Every CUDA source includes common.cuh, so its library exports
+    w2x_error_string for its own error codes (the wrappers read the
+    message from the library whose call failed), defines no error string
+    of its own, and asks the SM count of the current device only through
+    common.cuh's sm_count, at each launch (no count kept for the
+    process)."""
+    text = (CSRC / src).read_text()
+    assert re.search(r'^#include "common\.cuh"', text, re.M)
+    assert not re.search(r"\bw2x_\w*error_string\(int", text)
+    assert "cudaDevAttrMultiProcessorCount" not in text
+    assert not re.search(r"static int sms\b", text)
+    common = (CSRC / "common.cuh").read_text()
+    assert common.count("cudaDevAttrMultiProcessorCount") == 1
+    assert re.search(r'extern "C" \{\s*(//[^\n]*\n\s*)*const char\* '
+                     r"w2x_error_string\(int err\)", common)
 
 
 @pytest.mark.parametrize("lib,fn", [(lib, fn) for lib, fns in

@@ -232,8 +232,7 @@ def fake_card(monkeypatch):
 
     def init(self, kind, x, events):
         self.kind, self.events, self.step = kind, events, 0
-        self.libs = {name: _FakeLib(calls)
-                     for name in ("stack", *stack._ARGTYPES)}
+        self.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
         self.bf16 = int(x.dtype == torch.bfloat16)
         self.stream = 0
 
@@ -245,66 +244,55 @@ def fake_card(monkeypatch):
     stack.reset_launches()
 
 
-@pytest.mark.parametrize("mid_mma,entry,kernel", [
-    (True, "w2x_l6_i8_mma", "mma"), (False, "w2x_l6_i8", "dp4a")])
+@pytest.mark.parametrize("kind,shape", [("scale", (1, 20, 36)),
+                                        ("noise", (1, 27, 38))],
+                         ids=["scale", "noise"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_i8_stack_dispatch(sps, fake_card, monkeypatch, mid_mma, entry,
-                           kernel, dtype):
-    """A stack call under l6_i8: with the tensor-core layers (MID_MMA) layer
-    5 takes the tile maxima in its epilogue (csrc/mma.cu in bf16,
-    csrc/mma_tf32.cu in f32) into the m that the layer on the int8 tensor
-    cores (csrc/i8.cu, with w6i) reads, 7 launches in all; with MID_MMA
-    False layer 5 runs on FFMA, csrc/l6.cu's tile_absmax takes the maxima
-    and the __dp4a kernel (with w6q) the layer, 8 launches.
-    L6_LAUNCHES["i8"] counts layer 6's launches with tile_absmax,
-    I8_LAUNCHES the layer's by kernel and the maxima's by route."""
-    monkeypatch.setattr(stack, "MID_MMA", mid_mma)
+def test_i8_stack_dispatch(sps, fake_card, kind, shape, dtype):
+    """A stack call under l6_i8 (the scale stack on a whole tile grid, the
+    noise stack on an odd full-res plane): layer 5 takes the tile maxima in
+    its epilogue (csrc/mma.cu in bf16, csrc/mma_tf32.cu in f32) into the m
+    that the layer on the int8 tensor cores (csrc/i8.cu, with w6i) reads, 7
+    launches in all. L6_LAUNCHES["i8"] counts layer 6's launch, I8_LAUNCHES
+    the layer's and the maxima's."""
     sp = sps[dtype]
-    x = torch.zeros((1, 20, 36), dtype=dtype)
-    stack._launch(x, sp, "scale", None, form="i8", tile=(8, 16))
+    x = torch.zeros(shape, dtype=dtype)
+    stack._launch(x, sp, kind, None, form="i8", tile=(8, 16))
     names = [fn for fn, _ in fake_card]
-    if mid_mma:
-        l5 = ("w2x_mma_layer_max" if dtype == torch.bfloat16
-              else "w2x_tf32_layer_max")
-        assert names[4:6] == [l5, entry] and "w2x_tile_absmax" not in names
-    else:
-        assert names[4:7] == ["w2x_stack_layer", "w2x_tile_absmax", entry]
-    assert len(names) == 7 + (not mid_mma) == stack.LAUNCHES
-    assert stack.L6_LAUNCHES["i8"] == 1 + (not mid_mma)
-    assert stack.I8_LAUNCHES == {"mma": int(mid_mma), "dp4a": int(not mid_mma),
-                                 "l5max": int(mid_mma),
-                                 "absmax": int(not mid_mma)}
+    l5 = ("w2x_mma_layer_max" if dtype == torch.bfloat16
+          else "w2x_tf32_layer_max")
+    assert names[4:6] == [l5, "w2x_l6_i8_mma"]
+    assert len(names) == 7 == stack.LAUNCHES
+    assert stack.L6_LAUNCHES["i8"] == 1
+    assert stack.I8_LAUNCHES == {"mma": 1, "l5max": 1}
     # (bf16, x5, w, sw, b, m, x6, n, tr, tc, ny, nx, stream)
-    args = fake_card[names.index(entry)][1]
+    args = fake_card[5][1]
     assert len(args) == 13
     assert args[0] == int(dtype == torch.bfloat16)
-    assert args[2] == (sp.w6i if mid_mma else sp.w6q).data_ptr()
-    assert args[7:12] == (1, 8, 16, 3, 3)
+    assert args[2] == sp.w6i.data_ptr()
+    hl, wl = shape[1:] if kind == "scale" else (14, 19)
+    ny, nx = -(-hl // 8), -(-wl // 16)
+    assert args[7:12] == (1, 8, 16, ny, nx)
     # the layer reads the m that the maxima were written into
-    maxima = fake_card[4 if mid_mma else 5][1]
-    assert args[5] == maxima[-6 if mid_mma else 2]
-    if mid_mma:
-        assert maxima[-5:-1] == (8, 16, 3, 3)
+    maxima = fake_card[4][1]
+    assert args[5] == maxima[-6]
+    assert maxima[-5:-1] == (8, 16, ny, nx)
 
 
 def test_i8_layer_alone_counts_no_stack(sps, fake_card):
-    """The int8 layer alone, as l6_i8_layer launches it on the card: two
-    launches, the tile maxima's (tile_absmax: no layer 5 ran) under
-    I8_LAUNCHES["absmax"], the layer's under I8_LAUNCHES["mma"], no stack
-    count; given layer 5's maxima, the layer alone."""
+    """The int8 layer alone, as l6_i8_layer launches it on the card, from
+    layer 5's maxima m: one launch, the layer's, under I8_LAUNCHES["mma"],
+    no stack count."""
     sp = sps[torch.float32]
     x5 = torch.zeros((1, 2 * 8 + 4, 2 * 16 + 4, 128))
     tiling = stack._check_x5(x5, sp, (8, 16))
-    stack._Launcher(None, x5, None).l6_i8(x5, sp, 1, tiling)
-    assert [fn for fn, _ in fake_card] == ["w2x_tile_absmax", "w2x_l6_i8_mma"]
-    assert stack.I8_LAUNCHES == {"mma": 1, "dp4a": 0, "l5max": 0,
-                                 "absmax": 1}
-    assert stack.LAUNCHES == 0 and not any(stack.KERNEL_LAUNCHES.values())
     m = torch.zeros((1, 1, 1))
     stack._Launcher(None, x5, None).l6_i8(x5, sp, 1, tiling, m)
-    assert [fn for fn, _ in fake_card][2:] == ["w2x_l6_i8_mma"]
+    assert [fn for fn, _ in fake_card] == ["w2x_l6_i8_mma"]
     assert fake_card[-1][1][5] == m.data_ptr()
+    assert stack.I8_LAUNCHES == {"mma": 1, "l5max": 0}
+    assert stack.LAUNCHES == 0 and not any(stack.KERNEL_LAUNCHES.values())
 
 
 def test_i8_layer_needs_w6i(sps, fake_card):

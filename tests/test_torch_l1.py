@@ -2,9 +2,9 @@
 phase-summed weights (ops/s2d.py:pack_l1_scale, StackParams.w1s) against
 the JAX package's packer, the port's scale stack against the JAX kernel in
 interpret mode on the shipped scale2.0x weights, the plain version
-(stack.l1_plain) against loops over the clamped positions and against the
-FFMA plane modes' function, and which C entry each call reaches (a fake
-library stands in for the card).
+(stack.l1_plain) against loops over the clamped positions and against w1's
+nine taps by F.conv2d on the padded plane, and which C entry each call
+reaches (a fake library stands in for the card).
 
 Bars: the bf16 scale stack agrees with the JAX kernel at >= 60 dB and within
 2^-4, its PSNR against the port's f32 stack at most 0.1 dB under the JAX
@@ -27,6 +27,7 @@ from waifu2x_tpu.ops import pallas_stack as jps
 from waifu2x_tpu.ops import s2d as js2d
 from waifu2x_torch.models.weights import params_from_numpy
 from waifu2x_torch.ops import s2d, stack
+from waifu2x_torch.ops.convstack import no_tf32, pad_replicate
 
 torch.set_num_threads(2)
 
@@ -190,15 +191,29 @@ def test_l1_plain_scale_matches_loops(shipped, shape, dtype):
     assert torch.equal(got, ref)
 
 
+def _conv2d_layer1(x: torch.Tensor, sp, full_res: bool = False):
+    """Layer 1 as w1's 9 taps by F.conv2d (TF32 off) over the nearest-2x
+    upscale (scale) or the plane edge-padded to even (noise), replicate-
+    padded by 7, + bias, LeakyReLU -> [N, 2hg+12, 2wg+12, 32] NHWC f32."""
+    if full_res:
+        n, ph, pw = x.shape
+        x = stack._edge_extend(x, 2 * -(-ph // 2), 2 * -(-pw // 2))
+    else:
+        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    with no_tf32():
+        y = stack._plain_layer(pad_replicate(x.float(), 7), *sp[0], x.dtype)
+    return y.permute(0, 2, 3, 1)
+
+
 @pytest.mark.parametrize("shape", [(1, 5, 7), (2, 6, 9)])
-def test_l1_plain_noise_is_the_ffma_function(shipped, shape):
+def test_l1_plain_noise_is_the_conv2d_function(shipped, shape):
     """The noise layer 1: the 9 taps on the plane padded to even and by 7,
-    the function of stack.cu's plane mode (F.conv2d) to f32 rounding."""
+    F.conv2d's function to f32 rounding."""
     _, sp32, _ = shipped
     y = torch.from_numpy(np.random.default_rng(3).random(
         shape, dtype=np.float32))
     got = stack.l1_plain(y, sp32, full_res=True)
-    ref = stack.l1_plain(y, sp32, full_res=True, ffma=True)
+    ref = _conv2d_layer1(y, sp32, full_res=True)
     n, h, w = shape
     assert got.shape == (n, 2 * -(-h // 2) + 12, 2 * -(-w // 2) + 12, 32)
     assert (got - ref).abs().max().item() <= 1e-6
@@ -211,7 +226,7 @@ def test_l1_plain_scale_is_the_per_tap_function_in_f32(shipped):
     y = torch.from_numpy(np.random.default_rng(4).random((2, 7, 9),
                                                          dtype=np.float32))
     got = stack.l1_plain(y, sp32)
-    ref = stack.l1_plain(y, sp32, ffma=True)
+    ref = _conv2d_layer1(y, sp32)
     assert got.shape == ref.shape == (2, 26, 30, 32)
     assert (got - ref).abs().max().item() <= 1e-6
 
@@ -235,9 +250,8 @@ def test_l1_layer_on_cpu_is_the_plain_version(shipped):
     stack.reset_launches()
     for sp, x in ((sp32, y), (sp16, y.to(torch.bfloat16))):
         for full_res in (False, True):
-            for ffma in (False, True):
-                assert torch.equal(stack.l1_layer(x, sp, full_res, ffma),
-                                   stack.l1_plain(x, sp, full_res, ffma))
+            assert torch.equal(stack.l1_layer(x, sp, full_res),
+                               stack.l1_plain(x, sp, full_res))
     assert stack.LAUNCHES == 0 and not any(stack.L1_LAUNCHES.values())
 
 
@@ -256,8 +270,7 @@ class _FakeLib:
 def _fake_launcher(calls, bf16: bool, kind="scale"):
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = kind, None, 0
-    run.libs = {name: _FakeLib(calls)
-                for name in ("stack", "mma", "l6", "l7", "l1", "mma_tf32")}
+    run.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
     run.bf16, run.stream = int(bf16), 0
     return run
 
@@ -267,7 +280,7 @@ def _fake_launcher(calls, bf16: bool, kind="scale"):
 def test_layer1_dispatch(shipped, dtype, full_res):
     """Layer 1 of a stack reaches w2x_l1 with the phase sums (scale) or w1
     (noise), counted once under L1_LAUNCHES["l1"] and once as a stack
-    launch; l1(ffma=True) reaches stack.cu's layer 0 and counts "ffma"."""
+    launch; layer 1 alone (no stack kind) counts under L1_LAUNCHES only."""
     _, sp32, sp16 = shipped
     sp = sp32 if dtype == torch.float32 else sp16
     stack.reset_launches()
@@ -283,13 +296,12 @@ def test_layer1_dispatch(shipped, dtype, full_res):
     w = sp[0][0] if full_res else sp.w1s
     assert args[3] == w.data_ptr() and args[4] == sp[0][1].data_ptr()
     assert args[6:] == (3, 11, 14, 0)
-    assert stack.L1_LAUNCHES == {"l1": 1, "ffma": 0}
+    assert stack.L1_LAUNCHES == {"l1": 1}
     assert stack.LAUNCHES == 1 and not any(stack.MID_LAUNCHES.values())
     run.kind = None
-    run.l1(full_res, x, sp, x, 3, 11, 14, ffma=True)
-    fn, args = calls[1]
-    assert fn == "w2x_stack_layer" and args[1:3] == (int(full_res), 0)
-    assert stack.L1_LAUNCHES == {"l1": 1, "ffma": 1} and stack.LAUNCHES == 1
+    run.l1(full_res, x, sp, x, 3, 11, 14)
+    assert calls[1] == calls[0]
+    assert stack.L1_LAUNCHES == {"l1": 2} and stack.LAUNCHES == 1
     stack.reset_launches()
 
 

@@ -263,22 +263,6 @@ def test_masked_fold_is_the_per_pixel_function(dtype, zs):
     assert all(not torch.equal(fold, o) for o in others)
 
 
-def test_fold_false_is_the_ffma_kernels_plain_version(sp16):
-    """last_layer(fold=False) is the FFMA kernels' function: the per-pixel
-    sum for s2d, the same f32 Y through last_out for dense and u8."""
-    x6 = _x6((1, 4, 6), 8, torch.bfloat16)
-    uvp = torch.rand((1, 4, 6, 8), generator=torch.Generator().manual_seed(1))
-    y = stack._last_layer_f32(x6, *sp16[6])
-    assert torch.equal(stack.last_layer(x6, sp16, fold=False),
-                       stack.last_layer_plain(x6, *sp16[6]))
-    assert torch.equal(stack.last_layer(x6, sp16, out="dense",
-                                        fold=False)[0],
-                       stack.last_out(y, "dense", torch.bfloat16)[0])
-    assert torch.equal(stack.last_layer(x6, sp16, out="u8", uvp=uvp,
-                                        fold=False),
-                       stack.last_out(y, "u8", torch.bfloat16, uvp))
-
-
 def test_last_layer_refuses_what_it_does_not_take(sp16, sp32):
     x6 = _x6((1, 3, 4), 9, torch.bfloat16)
     with pytest.raises(ValueError, match="zs"):
@@ -301,19 +285,6 @@ def test_last_layer_refuses_what_it_does_not_take(sp16, sp32):
 
 # --- the dispatch ------------------------------------------------------------
 
-def test_fold_is_chosen_for_bf16_without_a_mask():
-    """The fold is the default on every plane, with or without a zero-shift
-    mask, in both storage types (the choice reads no dtype); fold=False asks
-    for the FFMA kernels, under a mask too."""
-    assert stack.l7_fold_chosen()
-    assert stack.l7_fold_chosen(zs=3)
-    assert not stack.l7_fold_chosen(fold=False)
-    assert not stack.l7_fold_chosen(zs=2, fold=False)
-    assert stack.l7_fold_chosen(zs=1, fold=True)
-    with pytest.raises(ValueError, match="zs"):
-        stack.l7_fold_chosen(zs=4)
-
-
 class _FakeLib:
     """Stands in for a ctypes library: records every C entry called."""
 
@@ -324,51 +295,85 @@ class _FakeLib:
         return lambda *args: self.calls.append((fn, args)) or 0
 
 
-@pytest.mark.parametrize("dtype,out_mode,fold,entry,kernel", [
-    (torch.bfloat16, 0, None, "w2x_l7_fold", "fold"),
-    (torch.bfloat16, 1, None, "w2x_l7_fold", "fold"),
-    (torch.bfloat16, 2, None, "w2x_l7_fold", "fold"),
-    (torch.bfloat16, 0, False, "w2x_stack_layer", "pixel"),
-    (torch.bfloat16, 2, False, "w2x_stack_layer", "cell"),
-    (torch.float32, 0, None, "w2x_l7_fold", "fold_f32"),
-    (torch.float32, 1, None, "w2x_l7_fold", "fold_f32"),
-    (torch.float32, 2, None, "w2x_l7_fold", "fold_f32"),
-    (torch.float32, 0, False, "w2x_stack_layer", "pixel"),
-    (torch.float32, 1, False, "w2x_stack_layer", "cell")])
-def test_layer7_dispatch(sp16, sp32, dtype, out_mode, fold, entry, kernel):
-    """Layer 7 of a stack reaches the fold in both storage types (in every
-    output form) unless fold=False, which takes the FFMA kernels; each
-    launch counts once under L7_LAUNCHES by kernel, and the fold's entry
-    gets the weights of its type (bf16 w7f, f32 w7's taps), the cells of
-    the plane and the form."""
+def _fake_launcher(calls, dtype, kind="scale"):
+    run = object.__new__(stack._Launcher)
+    run.kind, run.events, run.step = kind, None, 0
+    run.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
+    run.bf16, run.stream = int(dtype == torch.bfloat16), 0
+    return run
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_fold_is_chosen_for_bf16_without_a_mask(sp16, sp32, dtype):
+    """Layer 7 runs folded on every plane, with or without a zero-shift
+    mask, in both storage types, the mask passed to the fold's entry; a mask
+    outside 0..3 is refused before any launch."""
     stack.reset_launches()
     sp = sp16 if dtype == torch.bfloat16 else sp32
     calls = []
-    run = object.__new__(stack._Launcher)
-    run.kind, run.events, run.step = "scale", None, 0
-    run.libs = {name: _FakeLib(calls) for name in ("stack", "l6", "l7")}
-    run.bf16, run.stream = int(dtype == torch.bfloat16), 0
+    run = _fake_launcher(calls, dtype)
     x = torch.zeros(1, dtype=dtype)
-    run.layer(6, False, x, sp, x, 3, 20, 36, out_mode, None, None, 32,
-              fold=fold)
-    assert [fn for fn, _ in calls] == [entry]
-    assert stack.L7_LAUNCHES == {k: int(k == kernel) for k in
-                                 ("fold", "fold_f32", "cell", "pixel")}
-    assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["scale"] == 1
-    args = calls[0][1]
-    if kernel.startswith("fold"):
-        # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
-        #  tr, tc, ny, nx, zs, stream): one plane an image, no tiling, no
-        #  mask
-        bf16 = dtype == torch.bfloat16
-        assert args[0] == int(bf16)
-        assert args[2] == (sp.w7f if bf16 else sp[6][0]).data_ptr()
-        assert args[3] == sp[6][1].data_ptr()
-        assert args[5:9] == (3, 20, 36, out_mode)
-        assert args[11:] == (32, 0, 0, 0, 0, 0, 0)
+    for zs in range(4):
+        run.layer(6, False, x, sp, x, 1, 6, 10, zs=zs)
+    assert [fn for fn, _ in calls] == ["w2x_l7_fold"] * 4
+    assert [args[-2] for _, args in calls] == [0, 1, 2, 3]
+    with pytest.raises(ValueError, match="zs"):
+        run.layer(6, False, x, sp, x, 1, 6, 10, zs=4)
+    assert len(calls) == 4 and stack.LAUNCHES == 4
     stack.reset_launches()
-    assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 0,
-                                 "pixel": 0}
+
+
+# (dtype, out_mode, wrapper kind, (n, ph, pw)): every output form in both
+# storage types on the scale stack's plane, and the odd guard sizes on the
+# noise stack's (rounded up to even) and the scale stack's planes
+LAYER7_CASES = [
+    (torch.bfloat16, 0, "scale", (3, 20, 36)),
+    (torch.bfloat16, 1, "scale", (3, 20, 36)),
+    (torch.bfloat16, 2, "scale", (3, 20, 36)),
+    (torch.bfloat16, 0, "noise", (2, 37, 53)),
+    (torch.bfloat16, 2, "scale", (1, 5, 300)),
+    (torch.float32, 0, "scale", (3, 20, 36)),
+    (torch.float32, 1, "scale", (3, 20, 36)),
+    (torch.float32, 2, "scale", (3, 20, 36)),
+    (torch.float32, 0, "noise", (2, 37, 53)),
+    (torch.float32, 1, "scale", (1, 27, 38))]
+
+
+@pytest.mark.parametrize(
+    "dtype,out_mode,kind,shape", LAYER7_CASES,
+    ids=[f"{'bf16' if d == torch.bfloat16 else 'f32'}-{m}-{k}-"
+         f"{'x'.join(map(str, sh))}" for d, m, k, sh in LAYER7_CASES])
+def test_layer7_dispatch(sp16, sp32, dtype, out_mode, kind, shape):
+    """Layer 7 of a stack reaches the fold in both storage types, in every
+    output form and on either stack's plane; each launch counts once under
+    L7_LAUNCHES by kernel, and the fold's entry gets the weights of its type
+    (bf16 w7f, f32 w7's taps), the cells of the plane and the form."""
+    stack.reset_launches()
+    sp = sp16 if dtype == torch.bfloat16 else sp32
+    bf16 = dtype == torch.bfloat16
+    kernel = "fold" if bf16 else "fold_f32"
+    calls = []
+    run = _fake_launcher(calls, dtype, kind)
+    x = torch.zeros(1, dtype=dtype)
+    n, ph, pw = shape
+    run.layer(6, kind == "noise", x, sp, x, n, ph, pw, out_mode, None, None,
+              32)
+    assert [fn for fn, _ in calls] == ["w2x_l7_fold"]
+    assert stack.L7_LAUNCHES == {k: int(k == kernel) for k in
+                                 ("fold", "fold_f32")}
+    assert stack.LAUNCHES == stack.KERNEL_LAUNCHES[kind] == 1
+    hl, wl = (-(-ph // 2), -(-pw // 2)) if kind == "noise" else (ph, pw)
+    # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
+    #  tr, tc, ny, nx, zs, stream): one plane an image, no tiling, no mask
+    args = calls[0][1]
+    assert args[0] == int(bf16)
+    assert args[2] == (sp.w7f if bf16 else sp[6][0]).data_ptr()
+    assert args[3] == sp[6][1].data_ptr()
+    assert args[5:9] == (n, hl, wl, out_mode)
+    assert args[11:] == (32, 0, 0, 0, 0, 0, 0)
+    stack.reset_launches()
+    assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0}
 
 
 def test_noise_stack_layer7_gets_the_even_cells(sp16):
@@ -396,8 +401,7 @@ def test_cpu_calls_launch_nothing(sp16, rng):
     stack.stack_scale_fused_u8(y, uvp, sp16)
     stack.stack_noise(y, sp16)
     stack.last_layer(_x6((1, 2, 3), 1, torch.bfloat16), sp16)
-    assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 0,
-                                 "pixel": 0}
+    assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0}
     assert stack.LAUNCHES == 0 and not any(stack.KERNEL_LAUNCHES.values())
 
 

@@ -204,11 +204,12 @@ def test_f32_fold_reads_w7_itself(sp32):
 
 def test_default_conversion_runs_the_f32_fold():
     """The default Config (noise_scale, compute_dtype auto) builds the noise
-    stack in f32, whose layer 7 is the fold."""
+    stack in f32, whose layer 7 is the fold: every layer-7 launch is one of
+    the fold's two kernels."""
     cfg = Config()
     assert cfg.mode == "noise_scale" and cfg.compute_dtype == "auto"
     assert pl._noise_dtype_for(cfg) == torch.float32
-    assert stack.l7_fold_chosen()
+    assert set(stack.L7_LAUNCHES) == {"fold", "fold_f32"}
 
 
 # --- the dispatch of whole stack calls ---------------------------------------
@@ -232,8 +233,7 @@ def fake_card(monkeypatch):
 
     def init(self, kind, x, events):
         self.kind, self.events, self.step = kind, events, 0
-        self.libs = {name: _FakeLib(calls)
-                     for name in ("stack", *stack._ARGTYPES)}
+        self.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
         self.bf16 = int(x.dtype == torch.bfloat16)
         self.stream = 0
 
@@ -285,31 +285,12 @@ def test_f32_stack_dispatch(sp32, fake_card, kind, form, upto, l7_entry,
 
 
 @pytest.mark.parametrize("zs", [1, 2, 3])
-def test_f32_zero_shift_layer7_stays_per_pixel(sp32, fake_card, zs):
-    """With fold=False a zero-shift mask keeps layer 7 on stack.cu's
-    per-pixel kernel (the yardstick the masked fold is timed against),
-    counted under L7_LAUNCHES["pixel"] and L6_LAUNCHES["last_zs"]."""
-    stack.reset_launches()
-    x6 = torch.zeros((1, 10, 14, 128))
-    run = stack._Launcher(None, x6, None)
-    y = torch.empty((1, 4, 6, 4))
-    run.layer(6, False, x6, sp32, y, 1, 4, 6, zs=zs, fold=False)
-    assert [fn for fn, _ in fake_card] == ["w2x_stack_last_zs"]
-    assert fake_card[0][1][:2] == (0, zs)
-    assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 0,
-                                 "pixel": 1}
-    assert stack.L6_LAUNCHES["last_zs"] == 1
-    stack.reset_launches()
-
-
-@pytest.mark.parametrize("zs", [1, 2, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_zero_shift_layer7_takes_the_fold(params_np, fake_card, dtype, zs):
-    """By default a zero-shift mask takes the fold (w2x_l7_fold with the
-    mask, in both types: bf16 with w7f, f32 with w7's taps), counted under
-    L7_LAUNCHES["fold"] or ["fold_f32"] and not under L6_LAUNCHES
-    ["last_zs"]."""
+    """A zero-shift mask takes the fold (w2x_l7_fold with the mask, in both
+    types: bf16 with w7f, f32 with w7's taps), counted under
+    L7_LAUNCHES["fold"] or ["fold_f32"] and under no layer-6 key."""
     stack.reset_launches()
     sp = stack.prep_params(params_from_numpy(params_np), dtype, "cpu")
     x6 = torch.zeros((1, 10, 14, 128), dtype=dtype)
@@ -324,9 +305,8 @@ def test_zero_shift_layer7_takes_the_fold(params_np, fake_card, dtype, zs):
     assert args[0] == int(bf16)
     assert args[2] == (sp.w7f if bf16 else sp[6][0]).data_ptr()
     assert args[5:9] == (1, 4, 6, 0) and args[12:] == (0, 0, 0, 0, zs, 0)
-    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16),
-                                 "cell": 0, "pixel": 0}
-    assert stack.L6_LAUNCHES["last_zs"] == 0
+    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16)}
+    assert not any(stack.L6_LAUNCHES.values())
     stack.reset_launches()
 
 
@@ -344,26 +324,3 @@ def test_masked_fold_refuses_other_forms(sp32, fake_card, form):
     with pytest.raises(ValueError, match="zero-shift mask"):
         run.l7_fold(x6, sp32, y, 1, 4, 6, zs=2, **kw)
     assert not fake_card
-
-
-@pytest.mark.parametrize("out", ["s2d", "dense", "u8"])
-def test_ffma_yardstick_is_the_same_function(sp32, out):
-    """The FFMA kernels that the fold is timed against (fold=False)
-    compute the same layer 7: their plain version (the per-pixel 9-tap
-    sum) and the fold's agree within 1e-5 in s2d and dense, though their
-    f32 sums run in another order, and within one u8 level."""
-    x6 = _x6((2, 7, 9), 6)
-    kw = {"out": out}
-    if out == "u8":
-        kw["uvp"] = torch.from_numpy(np.random.default_rng(6).random(
-            (2, 7, 9, 8), dtype=np.float32))
-    ffma = stack.last_layer(x6, sp32, fold=False, **kw)
-    fold = stack.last_layer(x6, sp32, **kw)
-    if out == "dense":
-        assert ffma[1] == fold[1]
-        ffma, fold = ffma[0], fold[0]
-    if out == "u8":
-        assert (ffma.int() - fold.int()).abs().max() <= 1
-        return
-    assert not torch.equal(ffma, fold)
-    torch.testing.assert_close(ffma, fold, rtol=0, atol=1e-5)

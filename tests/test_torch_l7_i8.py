@@ -187,9 +187,10 @@ def test_kernel_tile_map_matches_the_plain_version(sps, shape, tile, out,
 def test_last_layer_tiles_forms(sps, dtype, shape, tile):
     """last_layer_tiles on CPU tensors: one Y in three forms (dense
     un-chunked equal to s2d bit for bit, its pad columns zero; u8 the
-    colour map of the unrounded Y); the yardstick (fold=False, the 9-tap sum
-    of each tile) is the same function within 1e-5 in f32 (another order of
-    f32 sums) and one bf16 ulp in bf16; no launch is counted."""
+    colour map of the unrounded Y); the 9-tap sum of each tile
+    (last_layer_plain's function) is the same function within 1e-5 in f32
+    (another order of f32 sums) and one bf16 ulp in bf16; no launch is
+    counted."""
     n, hl, wl = shape
     sp = sps[dtype]
     x6t = _x6t(n, hl, wl, tile, dtype, 10)
@@ -206,10 +207,11 @@ def test_last_layer_tiles_forms(sps, dtype, shape, tile):
     ytf = stack.l7_tiles_plain(x6t, stack._w7f(sp, x6t), sp[6][1])
     assert torch.equal(u8, stack.last_out(ytf[:, :hl, :wl], "u8", dtype,
                                           uvp))
-    ffma = stack.last_layer_tiles(x6t, sp, hl, wl, fold=False)
+    nine = stack._tiles_image(stack.last_layer_plain(
+        x6t.reshape(-1, *x6t.shape[3:]), *sp[6]), *x6t.shape[:3])
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * max(
         1.0, ys.float().abs().max().item())
-    assert (ffma.float() - ys.float()).abs().max().item() <= tol
+    assert (nine[:, :hl, :wl].float() - ys.float()).abs().max().item() <= tol
     assert all(v == 0 for v in stack.L7_LAUNCHES.values())
     assert stack.LAUNCHES == 0
 
@@ -252,8 +254,7 @@ def fake_card(monkeypatch):
 
     def init(self, kind, x, events):
         self.kind, self.events, self.step = kind, events, 0
-        self.libs = {name: _FakeLib(calls)
-                     for name in ("stack", *stack._ARGTYPES)}
+        self.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
         self.bf16 = int(x.dtype == torch.bfloat16)
         self.stream = 0
 
@@ -271,8 +272,8 @@ def test_i8_stack_dispatch_reaches_the_fold(sps, fake_card, dtype, kind):
     """Every int8 stack call, in both types and every output form, ends in
     w2x_l7_fold with the tiling (tr, tc, ny, nx), the image's cells and
     the form, counted under L7_LAUNCHES["fold"] (bf16) or ["fold_f32"]
-    (f32); none reaches w2x_last_cell, and 7 launches are made (the tile
-    maxima in layer 5's epilogue)."""
+    (f32), and 7 launches are made (the tile maxima in layer 5's
+    epilogue)."""
     sp = sps[dtype]
     n, h, w = 1, 20, 36
     hl, wl = (h // 2, w // 2) if kind == "noise" else (h, w)
@@ -281,11 +282,10 @@ def test_i8_stack_dispatch_reaches_the_fold(sps, fake_card, dtype, kind):
                        else None),
                   tc=32 if kind == "dense" else 0, form="i8", tile=(4, 16))
     names = [fn for fn, _ in fake_card]
-    assert "w2x_last_cell" not in names and names[-1] == "w2x_l7_fold"
+    assert names[-1] == "w2x_l7_fold"
     assert len(names) == 7 == stack.LAUNCHES
     bf16 = dtype == torch.bfloat16
-    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16),
-                                 "cell": 0, "pixel": 0}
+    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16)}
     args = fake_card[-1][1]
     # (bf16, x6t, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
     #  tr, tc, ny, nx, zs, stream)
@@ -294,20 +294,6 @@ def test_i8_stack_dispatch_reaches_the_fold(sps, fake_card, dtype, kind):
     assert args[5:9] == (n, hl, wl, stack._OUT_MODES[kind])
     assert args[11] == (32 if kind == "dense" else 0)
     assert args[12:] == (4, 16, -(-hl // 4), -(-wl // 16), 0, 0)
-
-
-@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
-def test_i8_truncation_keeps_the_cell_kernel(sps, fake_card, dtype):
-    """stack_scale_upto at 6 under int8 with fold=False (the yardstick)
-    still ends in the cell kernel's same-cell taps on the tiles
-    (w2x_last_cell, counted under "cell")."""
-    stack._launch(torch.zeros((1, 20, 36), dtype=dtype), sps[dtype], "scale",
-                  None, form="i8", tile=(4, 16), upto=6, fold=False)
-    names = [fn for fn, _ in fake_card]
-    assert names[-1] == "w2x_last_cell" and "w2x_l7_fold" not in names
-    assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 1,
-                                 "pixel": 0}
-    assert fake_card[-1][1][-5:] == (4, 16, 5, 3, 0)
 
 
 @pytest.mark.parametrize("out", ["cell", "phase_taps"])

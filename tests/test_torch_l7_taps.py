@@ -1,8 +1,9 @@
 """The truncation's two tap forms (stack_scale_upto at upto 6, out="cell"
 and "phase_taps") as output forms of layer 7's fold (csrc/l7.cu) on the
 CPU: the fold's tap partials (l7_fold_plain(taps=True), l7_tiles_plain on
-the int8 layer's tile-major planes) against the cell kernel's FFMA sums
-(_taps_plain, _phase_taps_plain) on planes, on tiles and at odd shapes; the
+the int8 layer's tile-major planes) against the same partials summed tap
+by tap (_taps_plain, _phase_taps_plain) on planes, on tiles and at odd
+shapes; the
 phase taps' packed weight (ops/s2d.py:pack_l7_ptaps) and the read of pixel
 (0, 0) alone that it allows; the launcher's tap launch (_Launcher.taps,
 which stack_scale_upto's upto 6 and chip_smoke.py call) and which C entry
@@ -137,16 +138,16 @@ def test_phase_taps_read_pixel_00_alone(sps, dtype):
         stack.l7_fold_plain(x6, sp.w7f, None, taps=True))
 
 
-# --- the fold's tap forms against the cell kernel's sums ---------------------
+# --- the fold's tap forms against the tap-by-tap sums ------------------------
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
 @pytest.mark.parametrize("shape", PLANES, ids=["27x38", "37x53", "5x300"])
 @pytest.mark.parametrize("out", FORMS)
 def test_fold_taps_on_planes(sps, dtype, shape, out):
     """l7_fold_plain(taps=True): Zt's lanes 0-3 of each cell, from w7f (the
-    same-cell taps) or w7p (the phase taps), equal the cell kernel's FFMA
-    sums (the 4 taps that lie in the cell, or pixel (0, 0) through taps
-    0-3) to the bars; no bias and no LeakyReLU."""
+    same-cell taps) or w7p (the phase taps), equal the tap-by-tap sums (the
+    4 taps that lie in the cell, or pixel (0, 0) through taps 0-3) to the
+    bars; no bias and no LeakyReLU."""
     sp = sps[dtype]
     x6 = _x6(shape, dtype, 7)
     got = stack.l7_fold_plain(x6, stack._w7f(sp, x6, out == "phase_taps"),
@@ -154,9 +155,8 @@ def test_fold_taps_on_planes(sps, dtype, shape, out):
     ref = TAPS[out](x6.permute(0, 3, 1, 2).float(), sp[6][0], torch.float32)
     assert got.shape == ref.shape == (*shape, 4)
     _hold(got, ref, dtype)
-    # the plain version of the kernel chosen, as the stack's takes it
-    assert torch.equal(stack._last_taps_plain(x6, sp, out, True), got)
-    assert torch.equal(stack._last_taps_plain(x6, sp, out, False), ref)
+    # the plain version of the kernel, as the stack's takes it
+    assert torch.equal(stack._last_taps_plain(x6, sp, out), got)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
@@ -167,9 +167,9 @@ def test_fold_taps_on_planes(sps, dtype, shape, out):
 @pytest.mark.parametrize("out", FORMS)
 def test_fold_taps_on_tiles(sps, dtype, shape, tile, out):
     """On B4's tile-major planes: l7_tiles_plain(taps=True), each tile's
-    partials at the image's cells, cropped, against the cell kernel's sums
-    tile by tile, to the bars; each tile's _last_taps_plain placed at its
-    cells is the same."""
+    partials at the image's cells, cropped, against the tap-by-tap sums tile
+    by tile, to the bars; each tile's _last_taps_plain placed at its cells
+    is the same."""
     sp = sps[dtype]
     n, hl, wl = shape
     tr, tc = tile
@@ -183,19 +183,17 @@ def test_fold_taps_on_tiles(sps, dtype, shape, tile, out):
     _hold(got, ref, dtype)
     planes = x6t.reshape(-1, *x6t.shape[3:])
     assert torch.equal(stack._tiles_image(stack._last_taps_plain(
-        planes, sp, out, True), n, ny, nx)[:, :hl, :wl], got)
-    assert torch.equal(stack._tiles_image(stack._last_taps_plain(
-        planes, sp, out, False), n, ny, nx)[:, :hl, :wl], ref)
+        planes, sp, out), n, ny, nx)[:, :hl, :wl], got)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
 @pytest.mark.parametrize("l6", ["direct", "i8", "wino"])
 @pytest.mark.parametrize("out", ["cell", "phase_taps"])
-def test_stack_scale_upto_folds_the_taps(sps, dtype, l6, out):
+def test_stack_scale_upto_folds_the_taps(sps, monkeypatch, dtype, l6, out):
     """stack_scale_upto at upto 6 on the CPU takes the plain version of the
-    kernel chosen: by default the fold's tap form, with fold=False the cell
-    kernel's; both stacks share layers 1-6, so the two differ by layer 7's
-    order of sums alone, within the bars."""
+    kernel: the fold's tap form; the same stack ending in the tap-by-tap
+    sums shares layers 1-6, so the two differ by layer 7's order of sums
+    alone, within the bars."""
     sp = sps[dtype]
     y = torch.rand((1, 11, 19), generator=torch.Generator().manual_seed(3)
                    ).to(dtype)
@@ -203,11 +201,16 @@ def test_stack_scale_upto_folds_the_taps(sps, dtype, l6, out):
     if l6 == "i8":
         kw["tile"] = (4, 8)
     got = stack.stack_scale_upto(y, sp, 6, out=out, **kw)
-    cell = stack.stack_scale_upto(y, sp, 6, out=out, fold=False, **kw)
-    assert got.shape == cell.shape == (1, 11, 19, 4) and got.dtype == dtype
-    _hold(got.float(), cell.float(), dtype)
     assert torch.equal(
         got, stack.stack_scale_upto_plain(y, sp, 6, out=out, **kw))
+
+    def tap_by_tap(x, sp, out):
+        return TAPS[out](x.permute(0, 3, 1, 2).float(), sp[6][0],
+                         torch.float32)
+    monkeypatch.setattr(stack, "_last_taps_plain", tap_by_tap)
+    cell = stack.stack_scale_upto(y, sp, 6, out=out, **kw)
+    assert got.shape == cell.shape == (1, 11, 19, 4) and got.dtype == dtype
+    _hold(got.float(), cell.float(), dtype)
 
 
 # --- the dispatch ---------------------------------------------------------
@@ -231,8 +234,7 @@ def fake_card(monkeypatch):
 
     def init(self, kind, x, events):
         self.kind, self.events, self.step = kind, events, 0
-        self.libs = {name: _FakeLib(calls)
-                     for name in ("stack", *stack._ARGTYPES)}
+        self.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
         self.bf16 = int(x.dtype == torch.bfloat16)
         self.stream = 0
 
@@ -251,7 +253,7 @@ def test_upto6_reaches_the_fold(sps, fake_card, dtype, form, out):
     """stack_scale_upto's last launch at upto 6: w2x_l7_fold in the tap
     form (3 OUT_TAPS, 4 OUT_PTAPS), bf16 from w7f / w7p, f32 from w7 itself,
     on a plane or with the int8 layer's tiling; counted under L7_LAUNCHES
-    "fold" / "fold_f32" and L6_LAUNCHES["upto"], no "cell" launch."""
+    "fold" / "fold_f32" and L6_LAUNCHES["upto"]."""
     sp = sps[dtype]
     stack._launch(torch.zeros((1, 20, 36), dtype=dtype), sp, "scale", None,
                   form=form, tile=(4, 16) if form == "i8" else None, upto=6,
@@ -259,7 +261,6 @@ def test_upto6_reaches_the_fold(sps, fake_card, dtype, form, out):
     fn, args = fake_card[-1]
     bf16 = dtype == torch.bfloat16
     assert fn == "w2x_l7_fold"
-    assert "w2x_last_cell" not in [f for f, _ in fake_card]
     # (bf16, x6, w, b, y, n, hl, wl, out_mode, uvp, cmap, dense_tc,
     #  tr, tc, ny, nx, zs, stream)
     want_w = ((sp.w7p if out == "phase_taps" else sp.w7f) if bf16
@@ -268,31 +269,11 @@ def test_upto6_reaches_the_fold(sps, fake_card, dtype, form, out):
     assert args[5:9] == (1, 20, 36, 4 if out == "phase_taps" else 3)
     assert args[12:17] == ((4, 16, 5, 3, 0) if form == "i8"
                            else (0, 0, 0, 0, 0))
-    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16),
-                                 "cell": 0, "pixel": 0}
+    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16)}
     assert stack.TAP_LAUNCHES == {"taps": int(out == "cell"),
                                   "ptaps": int(out == "phase_taps")}
     assert stack.L6_LAUNCHES["upto"] == 1
     assert stack.LAUNCHES == 7   # under i8, layer 5 takes the tile maxima
-
-
-@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
-@pytest.mark.parametrize("out", ["cell", "phase_taps"])
-def test_upto6_fold_false_names_the_cell_kernel(sps, fake_card, dtype, out):
-    """stack_scale_upto(..., fold=False) still reaches common.cuh's cell
-    kernel (w2x_last_cell in the tap form, from w7), counted under
-    L7_LAUNCHES["cell"]: the yardstick."""
-    sp = sps[dtype]
-    stack._launch(torch.zeros((1, 20, 36), dtype=dtype), sp, "scale", None,
-                  upto=6, out_form=out, fold=False)
-    fn, args = fake_card[-1]
-    assert fn == "w2x_last_cell" and args[2] == sp[6][0].data_ptr()
-    assert args[8] == (stack._OUT_PTAPS if out == "phase_taps"
-                       else stack._OUT_TAPS)
-    assert stack.L7_LAUNCHES == {"fold": 0, "fold_f32": 0, "cell": 1,
-                                 "pixel": 0}
-    assert set(stack.TAP_LAUNCHES.values()) == {0}
-    assert stack.L6_LAUNCHES["upto"] == 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
@@ -304,8 +285,7 @@ def test_fold_launch_takes_the_forms_weight(sps, fake_card, dtype, tiled,
     form, as stack_scale_upto and chip_smoke.py reach it): the fold in
     out_mode 3 or 4, bf16 from w7f or w7p, f32 from w7 itself, on a plane
     or with a tiling, counted under L7_LAUNCHES and TAP_LAUNCHES by form;
-    with fold=False the cell kernel, counted "cell" alone; the fold takes
-    no zero-shift mask with a tap form."""
+    the fold takes no zero-shift mask with a tap form."""
     sp = sps[dtype]
     x6 = torch.zeros((1, 10, 14, 128), dtype=dtype)
     tiling = (4, 6, 1, 1) if tiled else None
@@ -319,18 +299,10 @@ def test_fold_launch_takes_the_forms_weight(sps, fake_card, dtype, tiled,
     assert fn == "w2x_l7_fold" and args[8] == mode
     assert args[2] == want.data_ptr()
     assert args[12:17] == ((4, 6, 1, 1, 0) if tiled else (0, 0, 0, 0, 0))
-    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16),
-                                 "cell": 0, "pixel": 0}
+    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16)}
     tap = "ptaps" if out == "phase_taps" else "taps"
     assert stack.TAP_LAUNCHES == {k: int(k == tap) for k in
                                   stack.TAP_LAUNCHES}
     assert stack.LAUNCHES == 0 and stack.L6_LAUNCHES["upto"] == 0
-    stack.reset_launches()
-    run.taps(x6, sp, torch.empty(1), 1, 4, 6, out, tiling, fold=False)
-    fn, args = fake_card[-1]
-    assert fn == "w2x_last_cell" and args[2] == sp[6][0].data_ptr()
-    assert args[8] == mode
-    assert stack.L7_LAUNCHES["cell"] == 1
-    assert set(stack.TAP_LAUNCHES.values()) == {0}
     with pytest.raises(ValueError, match="zero-shift"):
         run.l7_fold(x6, sp, torch.empty(1), 1, 4, 6, mode, zs=1)

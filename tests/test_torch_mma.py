@@ -513,28 +513,6 @@ def test_probe_rehearsal_on_cpu(capsys):
     assert "no device time" in capsys.readouterr().out
 
 
-def test_mid_mma_changes_no_cpu_result(sp16, sp32, rng, monkeypatch):
-    ylow = torch.from_numpy(rng.random((1, 7, 9), dtype=np.float32))
-    uvp = torch.from_numpy(rng.random((1, 7, 9, 8), dtype=np.float32))
-    outs = {}
-    for flag in (True, False):
-        monkeypatch.setattr(stack, "MID_MMA", flag)
-        stack.reset_launches()
-        y16 = ylow.to(torch.bfloat16)
-        outs[flag] = (stack.stack_scale(y16, sp16),
-                      stack.stack_scale(ylow, sp32),
-                      stack.stack_noise(y16, sp16),
-                      stack.stack_scale_fused_u8(y16, uvp, sp16),
-                      stack.stack_scale_upto(y16, sp16, 4))
-        assert stack.LAUNCHES == 0
-        assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
-                                      "mma_zs": 0, "mma_pp": 0,
-                                      "mma_tf32": 0, "mma_resident": 0,
-                                      "mma_split": 0, "mma_tile": 0}
-    for a, b in zip(outs[True], outs[False]):
-        assert torch.equal(a, b)
-
-
 class _FakeLib:
     """Stands in for a ctypes library: records every C entry called with
     its arguments and reports success."""
@@ -549,63 +527,61 @@ class _FakeLib:
 def _fake_launcher(calls, bf16: bool):
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = "scale", None, 0
-    run.libs = {name: _FakeLib(calls)
-                for name in ("stack", "mma", "l6", "l7", "l1", "mma_tf32")}
+    run.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
     run.bf16, run.stream = int(bf16), 0
     return run
 
 
-@pytest.mark.parametrize("bf16,mid_mma,want", [
-    (True, True, {"mma": 5, "ffma": 0, "mma_tf32": 0, "mma_resident": 4,
-                  "mma_split": 1}),
-    (True, False, {"mma": 0, "ffma": 5, "mma_tf32": 0, "mma_resident": 0,
-                   "mma_split": 0}),
-    (False, True, {"mma": 0, "ffma": 0, "mma_tf32": 5, "mma_resident": 0,
-                   "mma_split": 0}),
-    (False, False, {"mma": 0, "ffma": 5, "mma_tf32": 0, "mma_resident": 0,
-                    "mma_split": 0})])
-def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
+_MMA_WANT = {"mma": 5, "mma_tf32": 0, "mma_resident": 4, "mma_split": 1}
+_TF32_WANT = {"mma": 0, "mma_tf32": 5, "mma_resident": 0, "mma_split": 0}
+
+
+@pytest.mark.parametrize("bf16,full_res,want", [
+    (True, False, _MMA_WANT), (True, True, _MMA_WANT),
+    (False, False, _TF32_WANT), (False, True, _TF32_WANT)],
+    ids=["bf16", "bf16-noise", "f32", "f32-noise"])
+def test_launch_count_table(sp16, sp32, bf16, full_res, want):
     """Which C entry each of a whole stack's 7 layers goes to, by storage
-    dtype and MID_MMA, with the arguments the tensor-core entries get:
-    layer 1 on csrc/l1.cu and layer 7 folded on csrc/l7.cu (bf16 on the
-    tensor cores, f32 with FFMA) whatever MID_MMA says; layers 2-6 of an
-    f32 stack as 3xTF32 while MID_MMA is on; a bf16 stack's layers 2-5 on
-    the persistent kernel's resident route and layer 6 on its split route,
-    none on the tile kernel."""
-    monkeypatch.setattr(stack, "MID_MMA", mid_mma)
+    dtype, on the scale stack's low-res plane and the noise stack's odd
+    full-res one, with the arguments the tensor-core entries get: layer 1
+    on csrc/l1.cu and layer 7 folded on csrc/l7.cu (bf16 on the tensor
+    cores, f32 with FFMA); layers 2-6 of an f32 stack as 3xTF32; a bf16
+    stack's layers 2-5 on the persistent kernel's resident route and layer
+    6 on its split route, none on the tile kernel."""
     stack.reset_launches()
     sp = sp16 if bf16 else sp32
     calls = []
     run = _fake_launcher(calls, bf16)
     x = torch.zeros(1, dtype=sp[0][0].dtype)
-    n, ph, pw = 2, 10, 12
+    n, ph, pw = (2, 19, 23) if full_res else (2, 10, 12)
     for k in range(7):
-        run.layer(k, False, x, sp, x, n, ph, pw)
+        run.layer(k, full_res, x, sp, x, n, ph, pw)
+    # the s2d cells of the plane the layers run on
+    hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["scale"] == 7
     assert stack.L6_LAUNCHES["direct"] == 1
     assert stack.MID_LAUNCHES == {**want, "chain": 0, "mma_zs": 0,
                                   "mma_pp": 0, "mma_tile": 0}
-    assert stack.L1_LAUNCHES == {"l1": 1, "ffma": 0}
+    assert stack.L1_LAUNCHES == {"l1": 1}
     assert [fn for fn, _ in calls] == [
-        "w2x_l1" if k == 0
-        else "w2x_mma_layer" if want["mma"] and 1 <= k <= 5
-        else "w2x_tf32_layer" if want["mma_tf32"] and 1 <= k <= 5
-        else "w2x_l7_fold" if k == 6 else "w2x_stack_layer"
+        "w2x_l1" if k == 0 else "w2x_l7_fold" if k == 6
+        else "w2x_mma_layer" if bf16 else "w2x_tf32_layer"
         for k in range(7)]
-    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16),
-                                 "cell": 0, "pixel": 0}
+    # (bf16, full_res, x, w, b, y, n, ph, pw, stream)
+    assert calls[0][1][:2] == (int(bf16), int(full_res))
+    assert calls[0][1][6:] == (n, ph, pw, 0)
+    # (bf16, x, w, b, y, n, hl, wl, ...): layer 7 writes the plane's cells
+    assert calls[6][1][5:8] == (n, hg, wg)
+    assert stack.L7_LAUNCHES == {"fold": int(bf16), "fold_f32": int(not bf16)}
     stack.reset_launches()
-    assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
-                                  "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
-                                  "mma_resident": 0, "mma_split": 0,
-                                  "mma_tile": 0}
+    assert not any(stack.MID_LAUNCHES.values())
     if want["mma_tf32"]:
         for k, (_, args) in list(enumerate(calls))[1:6]:
             # (bf16, layer, x, whi, wlo, b, y, n, hin, win, smem, stream)
             assert args[:2] == (0, k)
             assert args[3:5] == tuple(t.data_ptr() for t in sp.wt[k - 1])
             assert args[5] == sp[k][1].data_ptr()
-            assert args[7:] == (n, 2 * ph + 14 - 2 * k, 2 * pw + 14 - 2 * k,
+            assert args[7:] == (n, 2 * hg + 14 - 2 * k, 2 * wg + 14 - 2 * k,
                                 stack.tf32_plan(*stack.WIDTHS[k]).smem_bytes,
                                 0)
     if not want["mma"]:
@@ -617,30 +593,47 @@ def test_launch_count_table(sp16, sp32, monkeypatch, bf16, mid_mma, want):
         assert args[:3] == (1, *stack.WIDTHS[k])
         assert args[4] == sp.wm[k - 1].data_ptr()
         assert args[5] == sp[k][1].data_ptr()
-        assert args[7:] == (n, 2 * ph + 14 - 2 * k, 2 * pw + 14 - 2 * k,
+        assert args[7:] == (n, 2 * hg + 14 - 2 * k, 2 * wg + 14 - 2 * k,
                             plan.smem_bytes, 0)
 
 
 class _FailingLib:
-    """A ctypes library whose every entry reports a launch error."""
+    """A ctypes library whose every entry reports a launch error, and whose
+    own w2x_error_string names it."""
+
+    def __init__(self, name: str = "") -> None:
+        self.name = name
 
     def __getattr__(self, fn):
         if fn == "w2x_error_string":
-            return lambda err: b"invalid argument"
+            return lambda err: f"invalid argument{self.name}".encode()
         return lambda *args: 1
 
 
+@pytest.mark.parametrize("lib", list(stack._ARGTYPES))
+def test_error_string_is_the_failing_librarys(lib):
+    """A refused launch raises with the message of the library whose entry
+    failed (each library answers for its own error codes), and counts
+    nowhere."""
+    stack.reset_launches()
+    run = _fake_launcher([], True)
+    run.libs = {name: _FailingLib(f" ({name})") for name in stack._ARGTYPES}
+    fn = next(iter(stack._ARGTYPES[lib]))
+    with pytest.raises(RuntimeError, match=rf"^stack kernel, what: invalid "
+                                           rf"argument \({lib}\)$"):
+        run.run(lib, fn, "what", "direct")
+    assert stack.LAUNCHES == 0 and not any(stack.L6_LAUNCHES.values())
+
+
 @pytest.mark.parametrize("k", MID)
-def test_failed_launch_counts_nowhere(sp16, sp32, monkeypatch, k):
+def test_failed_launch_counts_nowhere(sp16, sp32, k):
     """A launch counts after its error code is read: one that is refused
     raises and leaves every count as it was, for either mid-layer kernel."""
     x = torch.zeros(1, dtype=torch.bfloat16)
     for bf16, sp in ((True, sp16), (False, sp32)):
-        monkeypatch.setattr(stack, "MID_MMA", True)
         stack.reset_launches()
         run = _fake_launcher([], bf16)
-        run.libs = {name: _FailingLib()
-                    for name in ("stack", "mma", "l6", "mma_tf32")}
+        run.libs = {name: _FailingLib() for name in stack._ARGTYPES}
         with pytest.raises(RuntimeError, match="invalid argument"):
             run.layer(k - 1, False, x, sp, x, 1, 10, 12)
         assert stack.LAUNCHES == 0 and not any(stack.L6_LAUNCHES.values())
@@ -657,8 +650,8 @@ def test_mma_layer_alone_counts_as_no_stack_launch(sp16):
     x = torch.zeros(1, dtype=torch.bfloat16)
     run.mma_layer(3, x, sp16, x, 1, 20, 24)
     assert [fn for fn, _ in calls] == ["w2x_mma_layer"]
-    assert stack.MID_LAUNCHES == {"mma": 1, "ffma": 0, "chain": 0,
-                                  "mma_zs": 0, "mma_pp": 0, "mma_tf32": 0,
+    assert stack.MID_LAUNCHES == {"mma": 1, "chain": 0, "mma_zs": 0,
+                                  "mma_pp": 0, "mma_tf32": 0,
                                   "mma_resident": 1, "mma_split": 0,
                                   "mma_tile": 0}
     assert stack.LAUNCHES == 0 and not any(stack.KERNEL_LAUNCHES.values())
@@ -729,10 +722,9 @@ def test_stack_span_records_the_routes(sp16, monkeypatch):
     stack.reset_launches()
 
 
-def test_noise_stack_layer_planes_round_odd_sizes_up(sp16, monkeypatch):
+def test_noise_stack_layer_planes_round_odd_sizes_up(sp16):
     """The noise stack runs on the plane rounded up to even: the tensor-core
     entry gets that plane's layer sizes."""
-    monkeypatch.setattr(stack, "MID_MMA", True)
     calls = []
     run = _fake_launcher(calls, True)
     x = torch.zeros(1, dtype=torch.bfloat16)

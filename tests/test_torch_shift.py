@@ -12,8 +12,8 @@ inputs with the JAX package's f32 weights, as tests/test_torch_trunc.py
 does. Bar: 3e-5, the JAX kernel suite's f32 bar. The zero-shift function
 is checked apart against numpy loops over r(p, k) = (p & ~1) | ((p + k) & 1),
 the position tap k of output position p reads on a zeroed axis. The CUDA
-kernels (csrc/mma.cu's ZS and PP variants, csrc/stack.cu's layer 7 under
-ZS) are held against these plain versions on the card by chip_smoke.py
+kernels (csrc/mma.cu's ZS and PP variants, csrc/l7.cu's fold under ZS)
+are held against these plain versions on the card by chip_smoke.py
 (phase 20)."""
 
 import ast
@@ -535,9 +535,9 @@ def test_mma_layer_plain_zero_shift(sp32, k, zs):
 @pytest.mark.parametrize("zs", [0, 1, 2, 3])
 def test_last_layer_plain_zero_shift(sp32, zs):
     """Layer 7 in s2d layout with r(p, k) on each zeroed axis, the per-pixel
-    kernel's function (last_layer with fold=False); zs = 0 is the stack's
-    own layer 7 (F.conv2d, and the fold that an f32 stack runs) within
-    1e-5."""
+    9-tap function, which the masked fold (last_layer under zs) computes in
+    another order of sums; zs = 0 is the stack's own layer 7 (F.conv2d, and
+    the fold that an f32 stack runs), each within 1e-5."""
     x = np.random.default_rng(20).standard_normal((2, 10, 14, 128))
     w7, b7 = sp32[6]
     w9 = w7.double().numpy().transpose(1, 0, 2)             # [9, 128, 1]
@@ -545,8 +545,9 @@ def test_last_layer_plain_zero_shift(sp32, zs):
     ref = y.reshape(2, 4, 2, 6, 2).transpose(0, 1, 3, 2, 4).reshape(2, 4, 6, 4)
     got = stack.last_layer_plain(torch.from_numpy(x).float(), w7, b7, zs)
     assert got.shape == (2, 4, 6, 4)
-    assert torch.equal(stack.last_layer(torch.from_numpy(x).float(), sp32,
-                                        zs, fold=False), got)
+    torch.testing.assert_close(
+        stack.last_layer(torch.from_numpy(x).float(), sp32, zs), got,
+        rtol=0, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
     if zs == 0:
         xt = torch.from_numpy(x).float().permute(0, 3, 1, 2)
@@ -622,15 +623,13 @@ def test_ctypes_signatures_of_the_new_entries():
     next to last) against their argtypes."""
     csrc = ROOT / "waifu2x_torch" / "csrc"
     decl = {}
-    for name in ("mma.cu", "stack.cu", "l7.cu"):
+    for name in ("mma.cu", "l7.cu"):
         for fn, args in re.findall(r"\bint (w2x_\w+)\(([^)]*)\)",
                                    (csrc / name).read_text()):
             decl[fn] = [a.split()[-1].lstrip("*") for a in args.split(",")]
-    for lib, fn in (("mma", "w2x_mma_layer_variant"),
-                    ("stack", "w2x_stack_last_zs"), ("l7", "w2x_l7_fold")):
+    for lib, fn in (("mma", "w2x_mma_layer_variant"), ("l7", "w2x_l7_fold")):
         assert len(stack._ARGTYPES[lib][fn]) == len(decl[fn])
     assert decl["w2x_mma_layer_variant"][:4] == ["bf16", "layer", "zs", "pp"]
-    assert decl["w2x_stack_last_zs"][:2] == ["bf16", "zs"]
     assert decl["w2x_l7_fold"][-2:] == ["zs", "stream"]
 
 
@@ -645,8 +644,7 @@ class _FakeLib:
 def _fake_launcher(calls, bf16=True):
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = "probe", None, 0
-    run.libs = {name: _FakeLib(calls)
-                for name in ("stack", "mma", "l6", "l7", "l1", "mma_tf32")}
+    run.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
     run.bf16, run.stream = int(bf16), 0
     return run
 
@@ -658,8 +656,7 @@ def test_variant_launch_routing(sp16, zs, pp):
     on w2x_mma_layer_variant with the variant's plan, layer 7 folded on
     w2x_l7_fold as in stack_scale (under zs with the mask), each counted
     where its kernel is: MID_LAUNCHES "mma_zs" / "mma_pp", L7_LAUNCHES
-    "fold" (none under L6_LAUNCHES "last_zs"), and 7 launches of kind
-    "probe"."""
+    "fold", and 7 launches of kind "probe"."""
     stack.reset_launches()
     calls = []
     run = _fake_launcher(calls)
@@ -671,8 +668,7 @@ def test_variant_launch_routing(sp16, zs, pp):
     names = [fn for fn, _ in calls]
     assert names == ["w2x_l1"] + ["w2x_mma_layer_variant"] * 5 + [
         "w2x_l7_fold"]
-    assert stack.L7_LAUNCHES == {"fold": 1, "fold_f32": 0, "cell": 0,
-                                 "pixel": 0}
+    assert stack.L7_LAUNCHES == {"fold": 1, "fold_f32": 0}
     for k, (_, args) in list(enumerate(calls))[1:6]:
         plan = stack.mma_plan(*stack.WIDTHS[k], zs, pp)
         # (bf16, layer, zs, pp, x, wp, b, y, n, hin, win, smem_bytes, stream)
@@ -684,33 +680,30 @@ def test_variant_launch_routing(sp16, zs, pp):
     assert calls[6][1][0] == 1 and calls[6][1][5:9] == (n, hl, wl, 0)
     assert calls[6][1][16:] == (zs, 0)
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["probe"] == 7
-    assert stack.MID_LAUNCHES == {"mma": 0, "ffma": 0, "chain": 0,
+    assert stack.MID_LAUNCHES == {"mma": 0, "chain": 0,
                                   "mma_zs": 0 if pp else 5,
                                   "mma_pp": 5 if pp else 0, "mma_tf32": 0,
                                   "mma_resident": 0, "mma_split": 0,
                                   "mma_tile": 0}
-    assert stack.L6_LAUNCHES["last_zs"] == 0
-    assert stack.L6_LAUNCHES["direct"] == 1
+    assert stack.L6_LAUNCHES == {"direct": 1, "i8": 0, "wino": 0, "upto": 0}
     stack.reset_launches()
 
 
 def test_f32_variants_are_refused(sp32):
-    """f32 layers 2-6 are FFMA: no variant is launched for them, nor for
-    layer 1 or a two-accumulator layer 7; layer 7 under a mask takes f32,
-    folded (with fold=False per pixel)."""
+    """f32 layers 2-6 have no variant, nor have layer 1 or a
+    two-accumulator layer 7, nor a mask outside 0..3: none is launched;
+    layer 7 under a mask takes f32, folded."""
     calls = []
     run = _fake_launcher(calls, bf16=False)
     x = torch.zeros(1)
     for k, zs, pp in ((2, 1, False), (3, 0, True), (6, 0, True),
-                      (0, 1, False)):
+                      (0, 1, False), (6, 4, False)):
         with pytest.raises(ValueError, match="no variant"):
             run.layer(k, False, x, sp32, x, 1, 10, 12, zs=zs, pp=pp)
     assert not calls
     run.layer(6, False, x, sp32, x, 1, 10, 12, zs=3)
-    run.layer(6, False, x, sp32, x, 1, 10, 12, zs=3, fold=False)
-    assert [fn for fn, _ in calls] == ["w2x_l7_fold", "w2x_stack_last_zs"]
+    assert [fn for fn, _ in calls] == ["w2x_l7_fold"]
     assert calls[0][1][0] == 0 and calls[0][1][16] == 3
-    assert calls[1][1][:2] == (0, 3)
     stack.reset_launches()
 
 

@@ -204,39 +204,35 @@ class _FakeLib:
 def _fake_launcher(calls, kind="noise"):
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = kind, None, 0
-    run.libs = {name: _FakeLib(calls)
-                for name in ("stack", "mma", "l6", "l7", "l1", "mma_tf32")}
+    run.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
     run.bf16, run.stream = 0, 0
     return run
 
 
-@pytest.mark.parametrize("mid_mma", [True, False])
-def test_f32_noise_stack_dispatch(sp32, monkeypatch, mid_mma):
+@pytest.mark.parametrize("shape", [(2, 27, 38), (1, 5, 300)],
+                         ids=["27x38", "5x300"])
+def test_f32_noise_stack_dispatch(sp32, shape):
     """Layers 2-6 of an f32 noise stack (any plane size, rounded up to
-    even) on w2x_tf32_layer while MID_MMA is on, 5 launches under
-    MID_LAUNCHES["mma_tf32"] and none under "ffma"; with MID_MMA off all 5 on
-    stack.cu's FFMA layers. Layer 6 counts as the direct form either way,
-    and layer 7 runs folded (csrc/l7.cu, FFMA) either way."""
-    monkeypatch.setattr(stack, "MID_MMA", mid_mma)
+    even) on w2x_tf32_layer, 5 launches under MID_LAUNCHES["mma_tf32"].
+    Layer 6 counts as the direct form, and layer 7 runs folded (csrc/l7.cu,
+    FFMA)."""
     stack.reset_launches()
     calls = []
     run = _fake_launcher(calls)
     x = torch.zeros(1)
-    n, ph, pw = 2, 27, 38
+    n, ph, pw = shape
+    hg, wg = -(-ph // 2), -(-pw // 2)
     for k in range(7):
         run.layer(k, True, x, sp32, x, n, ph, pw)
     names = [fn for fn, _ in calls]
-    mid = "w2x_tf32_layer" if mid_mma else "w2x_stack_layer"
-    assert names == ["w2x_l1"] + [mid] * 5 + ["w2x_l7_fold"]
+    assert names == ["w2x_l1"] + ["w2x_tf32_layer"] * 5 + ["w2x_l7_fold"]
     assert stack.L7_LAUNCHES["fold_f32"] == 1
-    assert stack.MID_LAUNCHES["mma_tf32"] == 5 * mid_mma
-    assert stack.MID_LAUNCHES["ffma"] == 5 * (not mid_mma)
+    assert stack.MID_LAUNCHES["mma_tf32"] == 5
     assert stack.MID_LAUNCHES["mma"] == 0
     assert stack.L6_LAUNCHES["direct"] == 1
     assert stack.LAUNCHES == stack.KERNEL_LAUNCHES["noise"] == 7
-    if mid_mma:
-        for k, (_, args) in list(enumerate(calls))[1:6]:
-            assert args[7:10] == (n, 2 * 14 + 14 - 2 * k, 2 * 19 + 14 - 2 * k)
+    for k, (_, args) in list(enumerate(calls))[1:6]:
+        assert args[7:10] == (n, 2 * hg + 14 - 2 * k, 2 * wg + 14 - 2 * k)
     stack.reset_launches()
 
 

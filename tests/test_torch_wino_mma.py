@@ -3,7 +3,7 @@ its weights (StackParams.w6m, pack_mma of pack_wino's U), the plain version
 of its arithmetic (wino_layer_plain: V rounded to bf16 once, A^T folded per
 output row, f32 sums) against _l6_wino_plain and the JAX Winograd body, its
 plan against the kernel's constants, and which C entry each storage dtype
-and MID_MMA reach (a fake library stands in for the card).
+reaches (a fake library stands in for the card).
 
 The JAX side runs its Pallas kernel in interpret mode, as the JAX suite does
 on the CPU."""
@@ -104,12 +104,11 @@ def test_wino_ci_order():
 
 @pytest.mark.parametrize("shape", [(1, 12, 14), (2, 26, 18)],
                          ids=["12x14", "2x26x18"])
-def test_wino_layer_plain_matches_l6_wino_plain(shape, monkeypatch):
+def test_wino_layer_plain_matches_l6_wino_plain(shape):
     """wino_layer_plain (A^T folded per output row, V in the kernel's add
     order) against _l6_wino_plain's bf16 form (V rounded once, M[p] then
     A^T M A) before the output's rounding: within 1e-5 of the output's
     magnitude, on random weights; rounded, within one bf16 ulp."""
-    monkeypatch.setattr(stack, "MID_MMA", True)
     sp = _random_sp(11, torch.bfloat16)
     rng = np.random.default_rng(12)
     x5 = torch.from_numpy(rng.random((*shape, 128), dtype=np.float32)
@@ -129,29 +128,21 @@ def test_wino_layer_plain_matches_l6_wino_plain(shape, monkeypatch):
 
 
 def test_v_rounding_follows_the_kernel(monkeypatch):
-    """_l6_wino_plain rounds V to its dtype only with round_v, whatever
-    MID_MMA says; the plain stacks pass it where bf16 calls reach the
-    tensor-core kernel (MID_MMA on), and never in f32, where both the
-    3xTF32 and the FFMA kernels keep V in f32. Rounding V moves the output,
-    within the bf16 bar."""
+    """_l6_wino_plain rounds V to its dtype only with round_v; the plain
+    stacks pass it where bf16 calls reach the tensor-core kernel, and never
+    in f32, where the 3xTF32 kernel keeps V in f32. Rounding V moves the
+    output, within the bf16 bar."""
     sp = _random_sp(13, torch.bfloat16)
     rng = np.random.default_rng(14)
     x5 = torch.from_numpy(rng.random((1, 128, 10, 12), dtype=np.float32)
                           ).to(torch.bfloat16).float()
-    out = {}
-    for mid in (True, False):
-        monkeypatch.setattr(stack, "MID_MMA", mid)
-        for rv in (True, False):
-            out[mid, rv] = stack._l6_wino_plain(x5, sp, torch.bfloat16,
-                                                round_out=False, round_v=rv)
-        out[mid, "f32"] = stack._l6_wino_plain(x5, sp, torch.float32,
-                                               round_out=False)
-    assert torch.equal(out[True, "f32"], out[False, "f32"])
-    assert torch.equal(out[True, True], out[False, True])
-    assert torch.equal(out[True, False], out[False, "f32"])
-    d = (out[True, True] - out[True, False]).abs().max().item()
+    out = {rv: stack._l6_wino_plain(x5, sp, torch.bfloat16, round_out=False,
+                                    round_v=rv) for rv in (True, False)}
+    out["f32"] = stack._l6_wino_plain(x5, sp, torch.float32, round_out=False)
+    assert torch.equal(out[False], out["f32"])
+    d = (out[True] - out[False]).abs().max().item()
     assert 0 < d <= 2.0 ** -4
-    # the stacks' plain versions: V rounded only under MID_MMA in bf16
+    # the stacks' plain versions: V rounded in bf16 only
     seen = []
     plain = stack._l6_wino_plain
 
@@ -162,24 +153,20 @@ def test_v_rounding_follows_the_kernel(monkeypatch):
     monkeypatch.setattr(stack, "_l6_wino_plain", spy)
     sp32 = _random_sp(13, torch.float32)
     y = torch.from_numpy(rng.random((1, 6, 7), dtype=np.float32))
-    for mid in (True, False):
-        monkeypatch.setattr(stack, "MID_MMA", mid)
-        stack.stack_scale(y.to(torch.bfloat16), sp, l6_wino=True)
-        stack.stack_scale(y, sp32, l6_wino=True)
-    assert seen == [(torch.bfloat16, True), (torch.float32, False),
-                    (torch.bfloat16, False), (torch.float32, False)]
+    stack.stack_scale(y.to(torch.bfloat16), sp, l6_wino=True)
+    stack.stack_scale(y, sp32, l6_wino=True)
+    assert seen == [(torch.bfloat16, True), (torch.float32, False)]
 
 
-def test_v_rounded_once_is_exact_for_bf16_sums(monkeypatch):
+def test_v_rounded_once_is_exact_for_bf16_sums():
     """Where a window holds values k/8 (bf16-exact sums), V needs no
-    rounding: the kernel's arithmetic equals the FFMA form's to the f32
-    sums' spread."""
+    rounding: the kernel's arithmetic equals the transform's with V kept in
+    f32 to the f32 sums' spread."""
     sp = _random_sp(15, torch.bfloat16)
     rng = np.random.default_rng(16)
     x5 = torch.from_numpy(rng.integers(0, 9, (1, 10, 10, 128)).astype(
         np.float32) / 8).to(torch.bfloat16)
     got = stack.wino_layer_plain(x5, sp.w6m, sp[5][1], round_out=False)
-    monkeypatch.setattr(stack, "MID_MMA", False)
     ref = stack._l6_wino_plain(x5.float().permute(0, 3, 1, 2), sp,
                                torch.bfloat16, round_out=False
                                ).permute(0, 2, 3, 1)
@@ -189,13 +176,12 @@ def test_v_rounded_once_is_exact_for_bf16_sums(monkeypatch):
 # --- against the JAX kernel -------------------------------------------------
 
 def test_wino_bf16_stack_matches_pallas_interpret(params_np, sp16, sp32,
-                                                  rng, monkeypatch):
-    """The bf16 B5 stack (MID_MMA on: V rounded once) against the JAX
+                                                  rng):
+    """The bf16 B5 stack (V rounded once) against the JAX
     kernel in interpret mode with bf16 weights and l6_wino=True (V formed
     with bf16 adds) at 2 x 13 x 22: the two differ only in where V is
     rounded. max |diff| <= 2^-4 (the JAX suite's bf16 bar) and both >= 50 dB
     against the f32 direct stack."""
-    monkeypatch.setattr(stack, "MID_MMA", True)
     ylow = rng.random((2, 13, 22), dtype=np.float32)
     y16 = torch.from_numpy(ylow).to(torch.bfloat16)
     got = stack.stack_scale(y16, sp16, l6_wino=True).float()
@@ -255,66 +241,57 @@ class _FakeLib:
         return lambda *args: self.calls.append((fn, args)) or 0
 
 
-@pytest.mark.parametrize("bf16,mid_mma,entry,kind", [
-    (True, True, "w2x_l6_wino_mma", "mma"),
-    (True, False, "w2x_l6_wino", "ffma"),
-    (False, True, "w2x_l6_wino_tf32", "mma_tf32"),
-    (False, False, "w2x_l6_wino", "ffma")])
-def test_wino_dispatch(sp16, sp32, monkeypatch, bf16, mid_mma, entry, kind):
-    """While MID_MMA is on, bf16 calls reach the bf16 tensor-core Winograd
-    kernel and f32 calls the 3xTF32 one; with it off both reach the FFMA
-    one. Each launch counts under L6_LAUNCHES["wino"] (the form) and
-    WINO_LAUNCHES by kernel; the tensor-core entries get w6m or w6t's two
-    halves and no shared-memory count."""
-    monkeypatch.setattr(stack, "MID_MMA", mid_mma)
+@pytest.mark.parametrize("bf16,plane", [
+    (True, (3, 20, 36)), (True, (2, 78, 110)),
+    (False, (3, 20, 36)), (False, (2, 78, 110))],
+    ids=["bf16", "bf16-37x53", "f32", "f32-37x53"])
+def test_wino_dispatch(sp16, sp32, bf16, plane):
+    """bf16 calls reach the bf16 tensor-core Winograd kernel and f32 calls
+    the 3xTF32 one, on a small layer-5 plane and on the one of a 37 x 53
+    scale stack. Each launch counts under L6_LAUNCHES["wino"] (the form) and
+    WINO_LAUNCHES by kernel; the entries get w6m or w6t's two halves and no
+    shared-memory count."""
     stack.reset_launches()
     sp = sp16 if bf16 else sp32
+    kind = "mma" if bf16 else "mma_tf32"
     calls = []
     run = object.__new__(stack._Launcher)
     run.kind, run.events, run.step = "scale", None, 0
-    run.libs = {name: _FakeLib(calls) for name in ("stack", "l6", "wino")}
+    run.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
     run.bf16, run.stream = int(bf16), 0
     x = torch.zeros(1, dtype=sp[0][0].dtype)
-    run.wino(x, sp, x, 3, 20, 36, "wino")
-    assert [fn for fn, _ in calls] == [entry]
+    run.wino(x, sp, x, *plane, "wino")
+    assert [fn for fn, _ in calls] == [
+        "w2x_l6_wino_mma" if bf16 else "w2x_l6_wino_tf32"]
     assert stack.L6_LAUNCHES["wino"] == 1 and stack.LAUNCHES == 1
     assert stack.WINO_LAUNCHES == {k: int(k == kind)
-                                   for k in ("mma", "mma_tf32", "ffma")}
+                                   for k in ("mma", "mma_tf32")}
     args = calls[0][1]
-    if kind == "mma":
+    if bf16:
         # (bf16, x5, um, b, y6, n, H5, W5, stream)
         assert args[0] == 1 and args[2] == sp.w6m.data_ptr()
-        assert args[5:] == (3, 20, 36, 0)
-    elif kind == "mma_tf32":
+        assert args[5:] == (*plane, 0)
+    else:
         # (bf16, x5, uhi, ulo, b, y6, n, H5, W5, stream)
         assert args[0] == 0 and args[2:4] == tuple(
             t.data_ptr() for t in sp.w6t)
         assert args[4] == sp[5][1].data_ptr()
-        assert args[6:] == (3, 20, 36, 0)
-    else:
-        assert args[2] == sp.w6w.data_ptr() and args[5:] == (3, 20, 36, 0)
+        assert args[6:] == (*plane, 0)
     stack.reset_launches()
-    assert stack.WINO_LAUNCHES == {"mma": 0, "mma_tf32": 0, "ffma": 0}
+    assert stack.WINO_LAUNCHES == {"mma": 0, "mma_tf32": 0}
 
 
-def test_wino_layer_on_cpu(monkeypatch):
-    """wino_layer on CPU tensors is its plain version (the FFMA form's with
-    MID_MMA off), adds no launch, and refuses what the kernel does not
-    take."""
+def test_wino_layer_on_cpu():
+    """wino_layer on CPU tensors is its plain version, adds no launch, and
+    refuses what the kernel does not take."""
     sp = _random_sp(17, torch.bfloat16)
     rng = np.random.default_rng(18)
     x5 = torch.from_numpy(rng.random((1, 8, 12, 128), dtype=np.float32)
                           ).to(torch.bfloat16)
-    monkeypatch.setattr(stack, "MID_MMA", True)
     stack.reset_launches()
     assert torch.equal(stack.wino_layer(x5, sp),
                        stack.wino_layer_plain(x5, sp.w6m, sp[5][1]))
-    monkeypatch.setattr(stack, "MID_MMA", False)
-    ffma = stack.wino_layer(x5, sp)
-    ref = stack._l6_wino_plain(x5.float().permute(0, 3, 1, 2), sp,
-                               torch.bfloat16).permute(0, 2, 3, 1)
-    assert torch.equal(ffma.float(), ref)
-    assert stack.WINO_LAUNCHES == {"mma": 0, "mma_tf32": 0, "ffma": 0}
+    assert stack.WINO_LAUNCHES == {"mma": 0, "mma_tf32": 0}
     assert stack.LAUNCHES == 0
     with pytest.raises(ValueError, match="even"):
         stack.wino_layer(x5[:, :7], sp)
@@ -327,13 +304,18 @@ def test_wino_layer_on_cpu(monkeypatch):
 
 
 def test_bf16_stacks_under_both_kernels_agree(sp16, rng, monkeypatch):
-    """The bf16 stack's plain version with V rounded (the tensor-core
-    kernel's) against V in f32 (the FFMA kernel's): within 2^-4, the bar
-    that chip_smoke holds the two kernels' stacks to."""
+    """The bf16 stack's plain version with V rounded once (the tensor-core
+    kernel's) against the same stack with V kept in f32: within 2^-4, the
+    bf16 bar."""
     y = torch.from_numpy(rng.random((1, 11, 17), dtype=np.float32)
                          ).to(torch.bfloat16)
-    out = {}
-    for mid in (True, False):
-        monkeypatch.setattr(stack, "MID_MMA", mid)
-        out[mid] = stack.stack_scale(y, sp16, l6_wino=True).float()
-    assert (out[True] - out[False]).abs().max().item() <= 2.0 ** -4
+    rounded = stack.stack_scale(y, sp16, l6_wino=True).float()
+    plain = stack._l6_wino_plain
+
+    def v_in_f32(*args, **kw):
+        return plain(*args, **{**kw, "round_v": False})
+
+    monkeypatch.setattr(stack, "_l6_wino_plain", v_in_f32)
+    kept = stack.stack_scale(y, sp16, l6_wino=True).float()
+    assert not torch.equal(rounded, kept)
+    assert (rounded - kept).abs().max().item() <= 2.0 ** -4

@@ -262,8 +262,7 @@ def fake_card(monkeypatch):
 
     def init(self, kind, x, events):
         self.kind, self.events, self.step = kind, events, 0
-        self.libs = {name: _FakeLib(calls)
-                     for name in ("stack", *stack._ARGTYPES)}
+        self.libs = {name: _FakeLib(calls) for name in stack._ARGTYPES}
         self.bf16 = int(x.dtype == torch.bfloat16)
         self.stream = 0
 
@@ -275,34 +274,30 @@ def fake_card(monkeypatch):
     stack.reset_launches()
 
 
-@pytest.mark.parametrize("mid_mma", [True, False])
+@pytest.mark.parametrize("shape", [(1, 20, 36), (2, 37, 53)],
+                         ids=["20x36", "37x53"])
 @pytest.mark.parametrize("kind", ["scale", "noise", "dense", "fused_u8"])
-def test_f32_wino_stack_dispatch(sp32, fake_card, monkeypatch, kind,
-                                 mid_mma):
+def test_f32_wino_stack_dispatch(sp32, fake_card, kind, shape):
     """Layer 6 of every f32 stack call under l6_wino reaches the 3xTF32
     Winograd kernel (w2x_l6_wino_tf32, with w6t's halves and layer 5's
-    plane) while MID_MMA is on, counted under WINO_LAUNCHES["mma_tf32"];
-    only with MID_MMA off does it reach l6.cu's FFMA l6_wino<float>."""
-    monkeypatch.setattr(stack, "MID_MMA", mid_mma)
-    n, h, w = 1, 20, 36
+    plane, rounded up to even on the noise stack), counted under
+    WINO_LAUNCHES["mma_tf32"]."""
+    n, h, w = shape
     x = torch.zeros((n, h, w))
     uvp = torch.zeros((n, h, w, 8))
     stack._launch(x, sp32, kind, None, uvp=uvp if kind == "fused_u8" else None,
                   tc=32 if kind == "dense" else 0, form="wino")
     names = [fn for fn, _ in fake_card]
-    entry = "w2x_l6_wino_tf32" if mid_mma else "w2x_l6_wino"
-    assert names[5] == entry and names.count(entry) == 1
-    assert "w2x_l6_wino" not in names or not mid_mma
-    assert stack.WINO_LAUNCHES == {"mma": 0, "mma_tf32": int(mid_mma),
-                                   "ffma": int(not mid_mma)}
+    assert names[5] == "w2x_l6_wino_tf32"
+    assert names.count("w2x_l6_wino_tf32") == 1
+    assert stack.WINO_LAUNCHES == {"mma": 0, "mma_tf32": 1}
     assert stack.L6_LAUNCHES["wino"] == 1
-    hg, wg = (h // 2, w // 2) if kind == "noise" else (h, w)
+    hg, wg = (-(-h // 2), -(-w // 2)) if kind == "noise" else (h, w)
     args = fake_card[5][1]
-    if mid_mma:
-        # (bf16, x5, uhi, ulo, b, y6, n, H5, W5, stream)
-        assert args[0] == 0
-        assert args[2:4] == tuple(t.data_ptr() for t in sp32.w6t)
-        assert args[6:] == (n, 2 * hg + 4, 2 * wg + 4, 0)
+    # (bf16, x5, uhi, ulo, b, y6, n, H5, W5, stream)
+    assert args[0] == 0
+    assert args[2:4] == tuple(t.data_ptr() for t in sp32.w6t)
+    assert args[6:] == (n, 2 * hg + 4, 2 * wg + 4, 0)
 
 
 # --- the probe tool ----------------------------------------------------------

@@ -22,9 +22,9 @@ Package layout:
              _build.py         nvcc build + ctypes load of csrc/*.cu
              color.py resize.py s2d.py   colour maps, resizes, layouts,
                                weight packers
-  csrc/      *.cu *.cuh        the CUDA kernels (sm_90a): stack.cu, l1.cu,
-                               mma.cu, mma_tf32.cu, l6.cu, i8.cu, wino.cu,
-                               l7.cu, probe.cu, tmm.cu
+  csrc/      *.cu *.cuh        the CUDA kernels (sm_90a): l1.cu, mma.cu,
+                               mma_tf32.cu, i8.cu, wino.cu, l7.cu,
+                               gather.cu, epi.cu, probe.cu, tmm.cu
   parallel/  mesh.py           devices on named axes, sharded tensors, halos
              sharded.py fast_sharded.py mesh_pipeline.py   the mesh paths
              multihost.py      several processes (torch.distributed)

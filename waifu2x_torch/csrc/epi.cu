@@ -50,10 +50,7 @@
 //     shared memory (62-66% of the bound; 16-byte vectors whose channels
 //     rotate read 81-82%, worth 0.1% of a dispatch: not taken).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <stdint.h>
+#include "common.cuh"   // w2x_error_string
 
 namespace {
 

@@ -3,28 +3,26 @@
 // plain C interface and loaded with ctypes (waifu2x_torch/ops/_build.py).
 // The Python side is waifu2x_torch/ops/stack.py: _Launcher.l6_i8 runs
 // this kernel for every stack call under l6_i8, from the tile maxima that
-// layer 5 took in its epilogue (and l6_i8_layer alone, after l6.cu's
-// tile_absmax unless it is given them); l6_i8_layer_plain is the plain version,
-// ops/s2d.py:pack_mma_i8 the weight packer. With
-// stack.MID_MMA False the same calls take l6.cu's __dp4a kernel
-// (l6_i8_conv), the timing yardstick.
+// layer 5 took in its epilogue (and l6_i8_layer alone, given them);
+// l6_i8_layer_plain is the plain version, ops/s2d.py:pack_mma_i8 the weight
+// packer.
 //
 // Replaces: waifu2x_tpu/ops/pallas_stack.py:_stack_body's layer 6 with
 // l6_i8=True (the int8 matrix unit with a per-tile activation scale).
 //
-// What it computes: exactly l6.cu:l6_i8_conv's function. The stack runs on
+// What it computes: l6_i8_layer_plain's function. The stack runs on
 // the plane edge-extended to a grid of (tr, tc)-cell tiles; tile (ti, tj)
 // reads the window of layer 5's output x5 at rows [2 ti tr, 2 ti tr + 2tr
 // + 4) and columns [2 tj tc, 2 tj tc + 2tc + 4):
 //   sx = max(m, 1e-8) * (1/127)  (m = max |x5| over the window, from
-//        layer 5's epilogue or tile_absmax),  x5q = clip(rint(x5 * (1/sx)),
+//        layer 5's epilogue),  x5q = clip(rint(x5 * (1/sx)),
 //        +-127)
 //   x6 = leaky(float(sum_int32(x5q * w6q)) * (sx * sw[co]) + b6[co])
 // over the window's (2tr+2) x (2tc+2) outputs, rounded to the storage type
 // and stored tile-major, [N, ny, nx, 2tr+2, 2tc+2, 128]. rint is round half
 // to even; the int32 sums are exact (1152 * 127^2 < 2^31), whatever their
 // order; the dequantisation is written with __fmul_rn / __fadd_rn. So the
-// output is bit for bit that of the __dp4a kernel and of the plain version.
+// output is bit for bit that of the plain version.
 //
 // What bounds it on an H100: the int8 multiply-adds of the tile windows
 // (1152 a value; 2.53e12 at scale512's default tile, 2.56 ms at the 1,979
@@ -350,10 +348,8 @@ cudaError_t launch_i8_mma(const void* x5, const void* wp, const void* sw,
   const int nty = (2 * qt.tr + 2 + QT - 1) / QT;
   const long long units = (long long)n * qt.ny * qt.nx * nty * ntx;
   if (units <= 0 || units > INT_MAX) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
   if (err != cudaSuccess) return err;
   auto kernel = l6_i8_mma<T>;
   // over 48 KB of dynamic shared memory is refused without this
@@ -378,8 +374,8 @@ extern "C" {
 // from x5 [n, 2 ny tr + 4, 2 nx tc + 4, 128] (bf16 != 0: bf16, else f32),
 // the packed int8 weights wp [8][9][128][16] (pack_mma_i8), their scales
 // sw [128] f32, the bias b [128] f32 and the tiles' max |x5| m [n, ny, nx]
-// f32 (w2x_mma_layer_max / w2x_tf32_layer_max, or l6.cu's
-// w2x_tile_absmax). The kernel owns its geometry (Q_SMEM
+// f32 (w2x_mma_layer_max / w2x_tf32_layer_max). The kernel owns its
+// geometry (Q_SMEM
 // bytes of shared memory, Q_THREADS threads a block). Returns the
 // cudaError_t of the launch.
 int w2x_l6_i8_mma(int bf16, const void* x5, const void* wp, const void* sw,

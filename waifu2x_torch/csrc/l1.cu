@@ -9,9 +9,7 @@
 // ops/s2d.py:pack_l1_scale packs the scale path's weights.
 //
 // Replaces: layer 1 of waifu2x_tpu/ops/pallas_stack.py:_stack_body (the
-// `l1q` products at :395-421 on the im2col of _xcol_scale / _xcol_noise),
-// which stack.cu's FFMA conv3x3_bias_leaky<1, 32, T, IN_LOWRES / IN_FULLRES>
-// ran before (they stay only as the timing yardstick, l1_layer(ffma=True)).
+// `l1q` products at :395-421 on the im2col of _xcol_scale / _xcol_noise).
 //
 // What it computes: x1 [N, 2hg+12, 2wg+12, 32] in the storage type T (f32
 // or bf16), NHWC, the output of layer 1 over the stack's padded input plane:
@@ -217,10 +215,8 @@ cudaError_t launch_l1(const void* x, const void* w, const void* b, void* y,
   const long long tiles = (long long)n * nty * ntx;
   if (tiles <= 0 || tiles > INT_MAX) return cudaErrorInvalidValue;
   auto kernel = l1_conv<T, FULL_RES>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0, per_sm = 0;
+  cudaError_t err = sm_count(sms);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         L1_THREADS, 0);

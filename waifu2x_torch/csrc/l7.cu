@@ -15,10 +15,7 @@
 // Dy*fy, Dx*fx: the same fold with a factor forced to 0); and the
 // truncation's two tap forms (stack_scale_upto at upto 6, the JAX body's
 // :600-601 with zt from l7_tap; tools/layer_time_probe.py:78,
-// fused_strip_probe.py:162), which the cell kernel of common.cuh computed
-// with FFMA before (now w2x_last_cell, stack_scale_upto(fold=False), the
-// timing yardstick, as are last_layer(fold=False) and
-// last_layer_tiles(fold=False)).
+// fused_strip_probe.py:162).
 //
 // What it computes, on x6 [P, 2hl+2, 2wl+2, 128] (NHWC, bf16 or f32) and
 // the folded weights W [512, 16] (ops/s2d.py:pack_l7_fold) in x6's type:
@@ -584,10 +581,8 @@ template <typename T>
 cudaError_t launch(void (*kernel)(const CUtensorMap, L7Args<T>),
                    uint32_t smem, int threads, int cells, const void* x,
                    int planes, const L7Args<T>& a, cudaStream_t s) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
   if (err != cudaSuccess) return err;
   // over 48 KB of dynamic shared memory is refused without this
   err = cudaFuncSetAttribute(kernel,
@@ -659,11 +654,12 @@ extern "C" {
 // layer 6's tile-major x [n, ny, nx, 2tr+2, 2tc+2, 128] with ny*tr >= hl and
 // nx*tc >= wl (tr > 0), in the storage type (bf16 != 0: bf16, else f32),
 // for bf16 w the folded weights [512, 16] bf16, for f32 w the layer's
-// weights [128, 9] f32 (w2x_stack_layer's), b [1] f32, and out_mode 0 (y
+// weights [128, 9] f32 (StackParams' w7), b [1] f32, and out_mode 0 (y
 // [n, hl, wl, 4] in the storage type), 1 (y [n, hl, ceil(wl/dense_tc)*4*
 // dense_tc] in the storage type, dense_tc a multiple of 32) or 2 (y u8
 // [n, hl, wl, 16] from the device array uvp [n, hl, wl, 8] f32 and the host
-// array cmap[12], w2x_stack_layer's), or the tap forms 3 (OUT_TAPS) and 4
+// array cmap[12]: the 3 x 3 YUV -> BGR matrix row by row, then its 3
+// offsets), or the tap forms 3 (OUT_TAPS) and 4
 // (OUT_PTAPS: for bf16 w pack_l7_ptaps' [512, 16]), y [n, hl, wl, 4] in the
 // storage type; zs the zero-shift mask 0..3 (bit 0 columns, bit 1 rows),
 // not 0 only with out_mode 0 and tr == 0. x, w, y and uvp 16-byte aligned.

@@ -19,11 +19,11 @@
 // tools/vmem_bound_probe.py:make. f32 storage runs these layers as 3xTF32
 // (mma_tf32.cu).
 //
-// What it computes: exactly conv3x3_bias_leaky<CI, CO, bf16, IN_ACT>:
+// What it computes:
 //   x [N, hin, win, CI] bf16 NHWC  ->  y [N, hin-2, win-2, CO] bf16,
 // 3x3 VALID correlation + f32 bias + LeakyReLU(0.1), bf16 x bf16 products
-// (exact in f32), f32 sums, one rounding to bf16 when y is stored. Only
-// the order of the f32 sums differs from the FFMA kernel.
+// (exact in f32), f32 sums in the kernel's own order, one rounding to bf16
+// when y is stored.
 //
 // Two kernels, one arithmetic. Both compute a 16 x 16 output tile for all
 // CO channels as an implicit GEMM, D[256, CO] = sum over the 9 taps of
@@ -175,8 +175,8 @@ __host__ __device__ constexpr int mma_smem_bytes(int co, int kc, int stages,
 // max of the stored values' |x|), into a 16 x 16 f32 array past the output
 // tile, and after the barrier, before the stores, reduces it per tile window
 // that the block meets and adds it to `tm` by atomicMax (common.cuh:
-// tile_max_block). That is csrc/l6.cu's tile_absmax without its second
-// read of x5: m is the same, bit for bit. The other instances take the
+// tile_max_block): tile_max_plain's m, bit for bit, without a second read
+// of x5. The other instances take the
 // argument and do not read it.
 //
 // PP (two accumulators; tools/accpp_probe.py): the CO outputs in two halves,
@@ -770,7 +770,7 @@ cudaError_t launch_mma(const void* x, const void* wp, const void* b, void* y,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::SMEM);
     if (err != cudaSuccess) return err;
     int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = sm_count(sms);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, kernel, RES_THREADS, P::SMEM);
@@ -898,8 +898,8 @@ int w2x_mma_layer_variant(int bf16, int layer, int zs, int pp, const void* x,
 // Layer 5 (64 -> 128, `layer` 4 of the variant entry) with B4's tile maxima in
 // its epilogue (AM), on the tile kernel, and m [n, ny, nx] f32
 // (zeros on entry) gets max |x5| of each tile window of its output x5
-// [n, 2 ny tr + 4, 2 nx tc + 4, 128], as csrc/l6.cu's w2x_tile_absmax
-// computes it; x must be [n, 2 ny tr + 6, 2 nx tc + 6, 64]. smem_bytes is
+// [n, 2 ny tr + 4, 2 nx tc + 4, 128], as stack.tile_max_plain computes
+// it; x must be [n, 2 ny tr + 6, 2 nx tc + 6, 64]. smem_bytes is
 // mma_plan(64, 128, persistent=False)'s.
 int w2x_mma_layer_max(int bf16, const void* x, const void* wp, const void* b,
                       void* y, int n, int hin, int win, int smem_bytes,

@@ -7,12 +7,11 @@
 // stack_noise_s2d, stack_noise, stack_scale_upto, layer5_plane, and layers
 // 2-5 under l6_i8 / l6_wino), mma_layer runs one alone, tf32_plan is the
 // shared-memory plan and ops/s2d.py:pack_mma_tf32 packs and splits the
-// weights (StackParams.wt). With ops.stack.MID_MMA False the f32 calls go
-// to stack.cu's FFMA conv3x3_bias_leaky<CI, CO, float, IN_ACT> instead.
+// weights (StackParams.wt).
 //
 // Replaces: the mid layers of waifu2x_tpu/ops/pallas_stack.py:_stack_body
 // in f32 (prep_params(dtype=float32)), whose MXU passes run f32 at full
-// precision; stack.cu's FFMA layers ran them on this card until now.
+// precision.
 //
 // What it computes: conv3x3_bias_leaky<CI, CO, float, IN_ACT>'s function,
 //   x [N, hin, win, CI] f32 NHWC  ->  y [N, hin-2, win-2, CO] f32,
@@ -30,8 +29,8 @@
 // TF32 changes none of them; what is left out (a_lo*w_lo and the two lo
 // roundings) is about 2^-22 of each product and unbiased. Emulated on the
 // shipped models at full width, the stack lands within 3e-5 of f32, and
-// one TF32 product does not (tests/test_torch_tf32.py); the f32 sums'
-// order differs from the FFMA kernel's.
+// one TF32 product does not (tests/test_torch_tf32.py); the f32 sums
+// are in the kernel's own order.
 //
 // Design: csrc/mma.cu's implicit GEMM with TF32 operands.
 //   * A block computes a 16 x 16 pixel tile for all CO channels: four
@@ -67,8 +66,8 @@
 //     stores, into a 16 x 16 f32 array past the output tile, and after the
 //     barrier, before the stores, adds each tile window's max over the block
 //     to m by atomicMax (common.cuh: tile_max_block): B4's tile maxima,
-//     bit for bit those of csrc/l6.cu's tile_absmax, without its second
-//     read of x5. The other instances take the argument and do not read it.
+//     bit for bit those of stack.tile_max_plain, without a second read of
+//     x5. The other instances take the argument and do not read it.
 //
 // What bounds it on an H100: operations. Three TF32 products a term at the
 // 494.7 TFLOP/s dense TF32 peak are 3 x 2 x 9 x CI x CO FLOP a pixel: 28.7
@@ -333,8 +332,8 @@ int w2x_tf32_layer(int bf16, int layer, const void* x, const void* whi,
 // Layer 5 (64 -> 128, `layer` 4 of w2x_tf32_layer) with B4's tile maxima
 // in its epilogue (AM): as w2x_tf32_layer launches it, and m [n, ny, nx]
 // f32 (zeros on entry) gets max |x5| of each tile window of its output x5
-// [n, 2 ny tr + 4, 2 nx tc + 4, 128], as csrc/l6.cu's w2x_tile_absmax
-// computes it; x must be [n, 2 ny tr + 6, 2 nx tc + 6, 64]. smem_bytes is
+// [n, 2 ny tr + 4, 2 nx tc + 4, 128], as stack.tile_max_plain computes
+// it; x must be [n, 2 ny tr + 6, 2 nx tc + 6, 64]. smem_bytes is
 // tf32_plan(64, 128)'s.
 int w2x_tf32_layer_max(int bf16, const void* x, const void* whi,
                        const void* wlo, const void* b, void* y, int n,

@@ -59,7 +59,8 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "mma.cuh"   // cp.async
+#include "common.cuh"   // sm_count, w2x_error_string
+#include "mma.cuh"     // cp.async
 
 namespace {
 
@@ -1194,14 +1195,6 @@ int launched(cudaError_t err) {
   return (int)(err != cudaSuccess ? err : last);
 }
 
-// The number of SMs of the current device (the persistent grids' size).
-cudaError_t sm_count(int& sms) {
-  int dev;
-  const cudaError_t err = cudaGetDevice(&dev);
-  return err != cudaSuccess ? err : cudaDeviceGetAttribute(
-      &sms, cudaDevAttrMultiProcessorCount, dev);
-}
-
 // The compiled lane-inner map for (input lanes, output lanes, type, map),
 // or null where probe_fetch_map takes the form.
 const void* direct_map(int la, int lg, int dtype, int op) {
@@ -1456,10 +1449,6 @@ int w2x_probe_l1_mm(const void* x, const long long* id, const void* w,
                              mm_smem(a.x.cols),
                              static_cast<cudaStream_t>(stream), args,
                              MM_THREADS));
-}
-
-const char* w2x_probe_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -458,10 +458,8 @@ cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t d0,
 template <int POSLANE>
 cudaError_t launch(const void* x, const void* wf, void* out, int b,
                    const Geo& g, cudaStream_t s) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
   if (err != cudaSuccess) return err;
   constexpr int need = (int)smem_bytes<POSLANE>();
   auto kernel = tap_mm<POSLANE>;
@@ -521,10 +519,6 @@ int w2x_tap_mm(int layout, const void* x, const void* wf, void* out, int b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(layout ? launch<1>(x, wf, out, b, g, s)
                       : launch<0>(x, wf, out, b, g, s));
-}
-
-const char* w2x_tmm_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -4,8 +4,7 @@
 // nvcc into a shared library with a plain C interface and loaded with
 // ctypes (waifu2x_torch/ops/_build.py). The Python side is waifu2x_torch/
 // ops/stack.py: _launch sends layer 6 of every stack call with
-// l6_wino=True here (while MID_MMA is on; with it off, to csrc/l6.cu's FFMA
-// l6_wino, the yardstick), wino_layer runs it alone, wino_layer_plain is the
+// l6_wino=True here, wino_layer runs it alone, wino_layer_plain is the
 // plain version of this kernel's arithmetic, wino_plan the unit and chunk
 // plan of each kernel (each owns its shared-memory count), StackParams.w6m
 // the bf16 weights (ops/s2d.py:pack_mma of pack_wino's U as a 4 x 4 kernel,
@@ -642,16 +641,9 @@ l6_wino_tf32(const float* __restrict__ x5, const float* __restrict__ uhi,
 // The grid of a persistent launch over `units` units: one block an SM, at
 // most one a unit (0 with the error in *err).
 int persistent_grid(long long units, cudaError_t* err) {
-  static int sms = 0;
-  *err = cudaSuccess;
-  if (sms == 0) {
-    int dev = 0;
-    *err = cudaGetDevice(&dev);
-    if (*err == cudaSuccess)
-      *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev);
-    if (*err != cudaSuccess) return 0;
-  }
+  int sms = 0;
+  *err = sm_count(sms);
+  if (*err != cudaSuccess) return 0;
   return units < sms ? (int)units : sms;
 }
 

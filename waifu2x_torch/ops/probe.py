@@ -31,7 +31,7 @@ csrc/tmm.cu: tap_mm, tap_mm_plain and measure_tap_mm below.
 
 The last three (accpp_probe.py:127, shift_cost_probe.py:156,
 l4_shift_probe.py:130) are the scale stack with variants of its
-tensor-core layer (csrc/mma.cu) and of layer 7 (csrc/stack.cu):
+tensor-core layer (csrc/mma.cu) and of layer 7 (csrc/l7.cu):
 stack_scale_pp (two accumulators per layer, B1's function), shift_stack
 (the cell offsets of layers 2-7 forced to 0 on one or both axes, wrong by
 design) and l4_shift (layers 1-3, then layer 4 by mode). Each has a plain
@@ -510,7 +510,7 @@ def _lib(name: str = "probe") -> ctypes.CDLL:
         for fn, argtypes in fns.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        err = getattr(lib, f"w2x_{name}_error_string")
+        err = lib.w2x_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _LIBS[name] = lib
@@ -646,7 +646,7 @@ def _prepare(v: Variant, g: Grid, args: dict, out=None, device=None,
         # on the stream current at the call, so that a graph captures it
         err = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
         if err:
-            msg = lib.w2x_probe_error_string(err).decode()
+            msg = lib.w2x_error_string(err).decode()
             raise RuntimeError(f"probe kernel {v.kernel}, {v.name}: {msg}")
         LAUNCHES[v.kernel] += 1
         if route is not None:
@@ -1054,7 +1054,7 @@ def prepare_tap_mm(x: torch.Tensor, w: torch.Tensor, layout: str,
                              out.data_ptr(), b, rows, cols, ny, nx, tr, tc,
                              torch.cuda.current_stream(x.device).cuda_stream)
         if err:
-            msg = lib.w2x_tmm_error_string(err).decode()
+            msg = lib.w2x_error_string(err).decode()
             raise RuntimeError(f"tap_mm kernel, {layout}: {msg}")
         LAUNCHES["tap_mm"] += 1
 

@@ -50,46 +50,43 @@ sums, from weights packed by ops/s2d.py:pack_mma into StackParams.wm: a
 persistent kernel, layers 2-5 with their weights resident in shared memory
 and layer 6 with its outputs in two halves, each block keeping one half's
 weights resident; its first form, one block a tile, is the timing
-yardstick, mma_layer(..., persistent=False)); an f32 call as 3xTF32 on csrc/mma_tf32.cu (conv3x3_bias_leaky_tf32: each
-product a*w as a_lo*w_hi + a_hi*w_lo + a_hi*w_hi in TF32, within 3e-5 of
-f32, from StackParams.wt = pack_mma_tf32; tf32_plan its plan). The f32 FFMA
-kernel of csrc/stack.cu computes the same layers with no tensor cores;
-MID_MMA = False sends both dtypes' calls there; only tests and
-chip_smoke.py flip it, to hold one kernel against the other and time them
-in one run. mma_layer is one such layer alone (either dtype),
-mma_layer_plain its plain version from the packed weights, mma_plan the
-bf16 kernels' tile, chunk and shared-memory plan, mma_walk the persistent
-kernel's walk over the tiles; mma_chain is the probe
-of its inner loop (tools/mma_probe.py). The C entry of the persistent
-kernel is keyed by the layer's widths (ci, co), not by vgg_7's layer index:
-vgg_7's layers and conv3x3_mma (UpCUNet's 3x3 layers of widths 32 -> 64,
-64 -> 64, 64 -> 128 and 128 -> 64) launch it alike, and MMA_SHAPES counts
-its launches by (ci, co, route). The probes of ops/probe.py also
-run variants that no product path takes: the tensor-core layer under a
-zero-shift mask (zs: a tap on a zeroed axis reads its own s2d cell) or with
-two accumulators (pp: the same function), and layer 7 under a mask, folded
-(mma_layer(zs=, pp=), last_layer(zs=), mma_plan(ci, co, zs, pp)).
+yardstick, mma_layer(..., persistent=False)); an f32 call as 3xTF32 on
+csrc/mma_tf32.cu (conv3x3_bias_leaky_tf32: each product a*w as
+a_lo*w_hi + a_hi*w_lo + a_hi*w_hi in TF32, within 3e-5 of f32, from
+StackParams.wt = pack_mma_tf32; tf32_plan its plan). mma_layer is one such
+layer alone (either dtype), mma_layer_plain its plain version from the
+packed weights, mma_plan the bf16 kernels' tile, chunk and shared-memory
+plan, mma_walk the persistent kernel's walk over the tiles; mma_chain is
+the probe of its inner loop (tools/mma_probe.py). The C entry of the
+persistent kernel is keyed by the layer's widths (ci, co), not by vgg_7's
+layer index: vgg_7's layers and conv3x3_mma (UpCUNet's 3x3 layers of
+widths 32 -> 64, 64 -> 64, 64 -> 128 and 128 -> 64) launch it alike, and
+MMA_SHAPES counts its launches by (ci, co, route). The probes of
+ops/probe.py also run variants that no product path takes: the
+tensor-core layer under a zero-shift mask (zs: a tap on a zeroed axis
+reads its own s2d cell) or with two accumulators (pp: the same function),
+and layer 7 under a mask, folded (mma_layer(zs=, pp=), last_layer(zs=),
+mma_plan(ci, co, zs, pp)).
 
 Layer 7 (128 -> 1) of every stack call is the JAX body's folded tap
 product (csrc/l7.cu): per s2d cell of the layer-6 plane one f32 product
 [512] x [512, 16] with StackParams.w7f = pack_l7_fold(w7), then Y as four
 shifted 4-lane slices of those partials added in order, the bias, LeakyReLU
-and the output form; l7_fold_plain is its plain version. A bf16 call runs it
-on the tensor cores (l7_fold), an f32 call with FFMA on the 4 x 9 x 128
-entries of w7f that are not zero, read from w7 itself (l7_fold_f32). The
-int8 layer 6's tile-major planes take the same kernels, each tile a plane,
-its Y written at the image's cells and cropped (l7_tiles_plain;
+and the output form; l7_fold_plain is its plain version (last_layer_plain
+the same layer as nine taps summed per pixel). A bf16 call runs it on the
+tensor cores (l7_fold), an f32 call with FFMA on the 4 x 9 x 128 entries
+of w7f that are not zero, read from w7 itself (l7_fold_f32). The int8
+layer 6's tile-major planes take the same kernels, each tile a plane, its
+Y written at the image's cells and cropped (l7_tiles_plain;
 last_layer_tiles alone). Under a zero-shift mask (the probes' layer 7, s2d
 on a plane) the fold's shift-sum reads a zeroed axis' own cell of Zt
 (l7_fold_plain(zs=)). The truncation's two tap forms (stack_scale_upto at
 upto 6) are output forms of the same fold: out="cell" stores Zt's lanes 0-3
-(l7_fold_plain(taps=True)), out="phase_taps" the same lanes from
-StackParams.w7p = pack_l7_ptaps(w7), whose rows 0-127 hold w7's taps 0-3,
-the kernel reading pixel (0, 0) of each cell alone. fold=False keeps the FFMA
-kernels (csrc/stack.cu per pixel, common.cuh per cell) in stack_scale_upto,
-last_layer and last_layer_tiles, layer 7 alone in either kernel
-(l7_fold_chosen decides), the timing yardsticks.
-L7_LAUNCHES counts every layer-7 launch by kernel.
+(l7_fold_plain(taps=True); _taps_plain the same partials as taps summed
+per phase), out="phase_taps" the same lanes from StackParams.w7p =
+pack_l7_ptaps(w7), whose rows 0-127 hold w7's taps 0-3, the kernel reading
+pixel (0, 0) of each cell alone (_phase_taps_plain). L7_LAUNCHES counts
+every layer-7 launch by kernel.
 
 Layer 6 (128 -> 128, half of the stack's multiply-adds) has three forms,
 chosen by the arguments `l6_i8` and `l6_wino` of every wrapper; None, the
@@ -97,7 +94,7 @@ default, reads the module switches L6_I8 and L6_WINO, which are set from
 the environment variables W2X_L6_I8=1 and W2X_L6_WINO=1 when this module
 is imported (the JAX package's names, so a user's setting carries over).
 Both at once raise ValueError.
-  direct  3x3 correlation in f32 FFMA, like every other layer (B1/B2).
+  direct  the tensor-core layer of layers 2-5 (B1/B2).
   wino    (B5) Winograd F(2x2, 3x3): the weights U = G g G^T (ops/s2d.py:
           pack_wino) are rounded to the storage dtype as in the JAX
           package; V = B^T d B is formed in f32 from the stored layer-5
@@ -106,12 +103,11 @@ Both at once raise ValueError.
           bf16 once before the products; an f32 call on l6_wino_tf32 from
           StackParams.w6t, V kept in f32 and each product V*U taken as three
           TF32 products (the split of the f32 layers 2-6), within 3e-5 of
-          f32. With MID_MMA False both run it as FFMA (csrc/l6.cu:l6_wino),
-          with V kept in f32, the yardstick. The JAX kernel forms V with
-          bf16 adds, up to three roundings; the port rounds it once on
-          purpose. wino_layer is layer 6 alone in either kernel,
-          wino_layer_plain the plain version of their arithmetic (A^T folded
-          per output row), wino_plan their units and chunks.
+          f32. The JAX kernel forms V with bf16 adds, up to three roundings;
+          the port rounds it once on purpose. wino_layer is layer 6 alone,
+          wino_layer_plain the plain version of the kernels' arithmetic
+          (A^T folded per output row), _l6_wino_plain the transform's own
+          (A^T M A), wino_plan their units and chunks.
   i8      (B4) int8 x int8 with exact int32 sums. Weights: per output
           channel sw = max(|w6|, 1e-12) / 127, w6q = clip(round(w6 / sw)).
           Activations: per TILE of (tr, tc) s2d cells, over the tile's
@@ -126,26 +122,20 @@ Both at once raise ValueError.
           from the x5 it holds on chip: the layer-5 kernel's instance with
           them (csrc/mma.cu in bf16, csrc/mma_tf32.cu in f32;
           layer5_maxima alone, layer5_maxima_plain its plain version) adds
-          each block's share of every tile window to m by atomicMax. With
-          L5_MAXIMA False, or with MID_MMA False (layer 5 on FFMA), csrc/
-          l6.cu's tile_absmax takes them in a pass of its own that reads x5
-          again (tile_maxima alone), the timing yardstick; both give
+          each block's share of every tile window to m by atomicMax, giving
           tile_max_plain's maxima bit for bit. The layer runs on the int8
           tensor cores (csrc/i8.cu: l6_i8_mma, wgmma s8 x s8 -> s32, from
-          StackParams.w6i = pack_mma_i8), or with
-          MID_MMA False on csrc/l6.cu's __dp4a kernel (l6_i8_conv), the
-          timing yardstick; both give l6_i8_layer_plain's values bit for
-          bit. I8_LAUNCHES counts the layer's launches by kernel, and the
-          maxima's by where they were taken.
+          StackParams.w6i = pack_mma_i8), l6_i8_layer_plain's values bit for
+          bit. I8_LAUNCHES counts the layer's launches and the maxima's.
 
-The kernels (csrc/l1.cu, csrc/stack.cu, csrc/mma.cu, csrc/mma_tf32.cu,
-csrc/l6.cu, csrc/i8.cu, csrc/wino.cu and csrc/l7.cu, which replace
+The kernels (csrc/l1.cu, csrc/mma.cu, csrc/mma_tf32.cu, csrc/i8.cu,
+csrc/wino.cu, csrc/l7.cu and csrc/gather.cu, which replace
 waifu2x_tpu/ops/pallas_stack.py:_run_stack/_stack_body in its
 configurations B1, B2, B3, B6 and B7, B4, B5) launch once per layer: 7
-times per call (8 with `l6_i8` where tile_absmax takes the tile maxima),
-upto + 1 for stack_scale_upto. See the notes at the top of those files for
-design and bounds. csrc/epi.cu, UpCUNet's library-layer epilogue
-(ops/unet.py:cunet_epilogue), is built and loaded with them.
+times per call, upto + 1 for stack_scale_upto. See the notes at the top of
+those files for design and bounds. csrc/epi.cu, UpCUNet's library-layer
+epilogue (ops/unet.py:cunet_epilogue), is built and loaded with them. Each
+library answers for its own error codes (w2x_error_string, common.cuh).
 
 The wrappers take the plain version for a tensor on the CPU only. For a
 CUDA tensor they launch the kernel or raise; nothing falls back.
@@ -163,7 +153,7 @@ import torch
 import torch.nn.functional as F
 
 from waifu2x_torch.ops import _build, color
-from waifu2x_torch.ops.convstack import leaky_relu, no_tf32, pad_replicate
+from waifu2x_torch.ops.convstack import leaky_relu, no_tf32
 from waifu2x_torch.ops.s2d import (
     _WINO_AT,
     _WINO_BT_TAPS,
@@ -193,7 +183,7 @@ I8_TILE = (64, 128)   # largest default int8 tile, in s2d cells
 # launches of the stack wrappers' kernels; the plain versions add none, nor
 # do the standalone wrappers mma_layer, mma_chain (these count under
 # MID_LAUNCHES only), layer5_plane (MID_LAUNCHES and L1_LAUNCHES), l1_layer
-# (L1_LAUNCHES only) and l6_i8_layer (L6_LAUNCHES only)
+# (L1_LAUNCHES only) and l6_i8_layer (L6_LAUNCHES and I8_LAUNCHES only)
 LAUNCHES = 0
 # the same launches by the wrapper that made them: "scale" (stack_scale,
 # stack_scale_upto), "noise" (stack_noise, stack_noise_s2d), "dense"
@@ -201,27 +191,21 @@ LAUNCHES = 0
 # probes' stacks of ops/probe.py: stack_scale_pp, shift_stack, l4_shift)
 KERNEL_LAUNCHES = {"scale": 0, "noise": 0, "dense": 0, "fused_u8": 0,
                    "probe": 0}
-# layer 6's launches by its form ("i8" counts two a call: the tile maxima
-# and the int8 layer), under "upto" the launches of stack_scale_upto's own
-# last kernel, and under "last_zs" those of layer 7 under a zero-shift mask
-# on the per-pixel kernel (fold=False, the yardstick)
-L6_LAUNCHES = {"direct": 0, "i8": 0, "wino": 0, "upto": 0, "last_zs": 0}
-# layers 2-6 and the Winograd layer 6 run on the tensor cores for bf16
-# storage; False sends them to the FFMA kernels like an f32 call (tests and
-# chip_smoke.py only)
-MID_MMA = True
+# layer 6's launches by its form, and under "upto" the launches of
+# stack_scale_upto's own last kernel
+L6_LAUNCHES = {"direct": 0, "i8": 0, "wino": 0, "upto": 0}
 # the launches of layers 2-6 by the kernel that ran them ("mma": bf16 on
 # the tensor cores, csrc/mma.cu; "mma_tf32": f32 on the tensor cores as
-# 3xTF32, csrc/mma_tf32.cu; "ffma": csrc/stack.cu; "mma_zs" and "mma_pp":
-# the bf16 tile kernel under a zero-shift mask or with two accumulators,
-# which only the probes run), and under "chain" those of the mma_chain
-# probe (which count nowhere else). Each "mma" launch also counts under its
-# route (MID_ROUTES): "mma_resident" the persistent kernel with all the
-# layer's weights resident (layers 2-5), "mma_split" the persistent kernel
-# with the outputs in two halves, a block keeping one half's weights
-# resident (layer 6), "mma_tile" the tile kernel (persistent=False, the
-# yardstick, and layer 5 with B4's tile maxima)
-MID_LAUNCHES = {"mma": 0, "ffma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0,
+# 3xTF32, csrc/mma_tf32.cu; "mma_zs" and "mma_pp": the bf16 tile kernel
+# under a zero-shift mask or with two accumulators, which only the probes
+# run), and under "chain" those of the mma_chain probe (which count nowhere
+# else). Each "mma" launch also counts under its route (MID_ROUTES):
+# "mma_resident" the persistent kernel with all the layer's weights
+# resident (layers 2-5), "mma_split" the persistent kernel with the outputs
+# in two halves, a block keeping one half's weights resident (layer 6),
+# "mma_tile" the tile kernel (persistent=False, the yardstick, and layer 5
+# with B4's tile maxima)
+MID_LAUNCHES = {"mma": 0, "chain": 0, "mma_zs": 0, "mma_pp": 0,
                 "mma_tf32": 0, "mma_resident": 0, "mma_split": 0,
                 "mma_tile": 0}
 MID_ROUTES = ("mma_resident", "mma_split", "mma_tile")
@@ -229,40 +213,28 @@ MID_ROUTES = ("mma_resident", "mma_split", "mma_tile")
 # MID_LAUNCHES "mma" ones), by (ci, co, route): route "resident", "split"
 # or "tile" as MID_ROUTES less its "mma_"
 MMA_SHAPES: dict = {}
-# the launches of layer 1 by the kernel that ran them: "l1" csrc/l1.cu (every
-# stack call, l1_layer alone), "ffma" stack.cu's plane modes (l1_layer with
-# ffma=True only, the timing yardstick)
-L1_LAUNCHES = {"l1": 0, "ffma": 0}
+# the launches of layer 1 (csrc/l1.cu: every stack call, l1_layer alone)
+L1_LAUNCHES = {"l1": 0}
 # the Winograd layer 6's launches by the kernel that ran them: "mma" bf16 on
 # the tensor cores, "mma_tf32" f32 on them as 3xTF32 (both csrc/wino.cu;
-# also wino_layer alone, which counts here only), "ffma" csrc/l6.cu (MID_MMA
-# False); L6_LAUNCHES["wino"] counts the form
-WINO_LAUNCHES = {"mma": 0, "mma_tf32": 0, "ffma": 0}
-# the int8 layer 6's launches by the kernel that ran them: "mma" the int8
-# tensor cores (csrc/i8.cu), "dp4a" csrc/l6.cu (MID_MMA False); and the
-# tile maxima's by where they were taken: "l5max" layer 5's instance with
-# them in its epilogue (csrc/mma.cu, mma_tf32.cu; counted under
-# MID_LAUNCHES too), "absmax" csrc/l6.cu's tile_absmax pass (L5_MAXIMA or
-# MID_MMA False, and l6_i8_layer or tile_maxima alone). L6_LAUNCHES["i8"]
-# counts the form (with a tile_absmax launch)
-I8_LAUNCHES = {"mma": 0, "dp4a": 0, "l5max": 0, "absmax": 0}
-# B4's tile maxima in layer 5's epilogue; False takes them in csrc/l6.cu's
-# tile_absmax pass after layer 5, the timing yardstick (chip_smoke.py and
-# the tests only, like MID_MMA)
-L5_MAXIMA = True
-# stack_scale_upto's gather (upto 0..5) by kernel: "tiled" csrc/l6.cu's
-# upto_gather_tiled, "cell" its one-thread-a-cell upto_gather (tiled=False,
-# the yardstick); counted under L6_LAUNCHES["upto"] too
-GATHER_LAUNCHES = {"tiled": 0, "cell": 0}
+# also wino_layer alone, which counts here only); L6_LAUNCHES["wino"]
+# counts the form
+WINO_LAUNCHES = {"mma": 0, "mma_tf32": 0}
+# the int8 layer 6's launches ("mma": the int8 tensor cores, csrc/i8.cu)
+# and the tile maxima's ("l5max": layer 5's instance with them in its
+# epilogue, csrc/mma.cu, mma_tf32.cu; counted under MID_LAUNCHES too).
+# L6_LAUNCHES["i8"] counts the form
+I8_LAUNCHES = {"mma": 0, "l5max": 0}
+# stack_scale_upto's gather (upto 0..5, csrc/gather.cu:upto_gather_tiled);
+# counted under L6_LAUNCHES["upto"] too
+GATHER_LAUNCHES = {"tiled": 0}
 # every launch of a layer-7 kernel (of a stack, of last_layer and
 # last_layer_tiles alone, of the probes' stacks, and the truncation's tap
 # forms) by the kernel that ran it: "fold" the tensor-core fold (csrc/l7.cu,
 # bf16, on a plane or the int8 layer's tiles), "fold_f32" the FFMA fold
 # (csrc/l7.cu, f32, likewise; both under a zero-shift mask and in the tap
-# forms too), "cell" common.cuh's cell kernel (with fold=False: the taps,
-# dense and u8, and every form of last_layer_tiles), "pixel" stack.cu's
-# per-pixel kernel (s2d with fold=False, under a mask or not)
-L7_LAUNCHES = {"fold": 0, "fold_f32": 0, "cell": 0, "pixel": 0}
+# forms too)
+L7_LAUNCHES = {"fold": 0, "fold_f32": 0}
 # the fold's launches in the truncation's two tap forms (stack_scale_upto at
 # upto 6; counted under L7_LAUNCHES "fold" / "fold_f32" too): "taps"
 # OUT_TAPS, the same-cell taps, "ptaps" OUT_PTAPS, the phase taps
@@ -273,7 +245,7 @@ _OUT_S2D, _OUT_DENSE, _OUT_U8, _OUT_TAPS, _OUT_PTAPS = 0, 1, 2, 3, 4
 # stack_scale_upto's output forms -> the upto values that take each
 UPTO_OUTS = {"cell": range(7), "whole": range(6), "lane0": (0,),
              "phase_taps": (6,)}
-# csrc/l6.cu:upto_gather's modes at upto = 0, by output form
+# csrc/gather.cu's modes at upto = 0, by output form
 _GATHER_LOWRES = {"cell": 1, "lane0": 2, "whole": 3}
 _OUT_MODES = {"scale": _OUT_S2D, "noise": _OUT_S2D, "dense": _OUT_DENSE,
               "fused_u8": _OUT_U8}
@@ -609,16 +581,6 @@ def wino_plan(dtype=torch.bfloat16) -> WinoPlan:
     return WinoPlan((t, t), co, kc)
 
 
-def l7_fold_chosen(zs: int = 0, fold=None) -> bool:
-    """Whether layer 7 runs folded (csrc/l7.cu: on the tensor cores in bf16,
-    with FFMA in f32): by default on every plane, under a zero-shift mask
-    zs (0..3) too, in both types; fold=False asks for the per-pixel and
-    per-cell FFMA kernels, fold=True for the fold."""
-    if zs not in range(4):
-        raise ValueError(f"zs must be 0..3, got {zs!r}")
-    return True if fold is None else bool(fold)
-
-
 def l6_form(l6_i8=None, l6_wino=None) -> str:
     """Layer 6's form, "direct", "i8" or "wino", from a wrapper's two
     arguments (None reads the module switch)."""
@@ -892,29 +854,10 @@ def _l1_values(x: torch.Tensor, sp, full_res: bool = False) -> torch.Tensor:
     return leaky_relu(acc).to(x.dtype).float()
 
 
-def _l1_ffma_values(x: torch.Tensor, sp, full_res: bool = False):
-    """stack.cu's layer 1 (l1_layer(ffma=True)) as f32 values: the 9 taps of
-    w1 over the nearest-2x upscale padded by 7 (scale; w1's own weights, each
-    rounded to the storage dtype apart) or over the full-res plane padded to
-    even and by 7 (noise; l1.cu's function), F.conv2d with TF32 off ->
-    [N, 2hg+12, 2wg+12, 32] NHWC."""
-    if full_res:
-        n, ph, pw = x.shape
-        x = _edge_extend(x, 2 * -(-ph // 2), 2 * -(-pw // 2))
-    else:
-        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-    with no_tf32():
-        y = _plain_layer(pad_replicate(x.float(), 7), *sp[0], x.dtype)
-    return y.permute(0, 2, 3, 1)
-
-
-def l1_plain(x: torch.Tensor, sp, full_res: bool = False,
-             ffma: bool = False) -> torch.Tensor:
+def l1_plain(x: torch.Tensor, sp, full_res: bool = False) -> torch.Tensor:
     """Plain PyTorch version of layer 1 (l1_layer): x [N, ph, pw] -> x1
-    [N, 2hg+12, 2wg+12, 32] NHWC in x's dtype (_l1_values; with ffma,
-    stack.cu's plane modes, _l1_ffma_values)."""
-    vals = (_l1_ffma_values if ffma else _l1_values)(x, sp, full_res)
-    return vals.to(x.dtype)
+    [N, 2hg+12, 2wg+12, 32] NHWC in x's dtype (_l1_values)."""
+    return _l1_values(x, sp, full_res).to(x.dtype)
 
 
 def zs_index(n_out: int, k: int, device=None) -> torch.Tensor:
@@ -973,11 +916,11 @@ def _last_layer_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def last_layer_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      zs: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of layer 7 in s2d layout (csrc/stack.cu:
-    conv3x3_bias_leaky_s2d) on the stored layer-6 plane: x [N, 2hl+2, 2wl+2,
-    128] NHWC, w [128, 9, 1], b [1] f32 -> [N, hl, wl, 4] in x's dtype: the 9
-    taps summed in f32, bias, LeakyReLU, one rounding; zs as in
-    mma_layer_plain."""
+    """Layer 7 in s2d layout as nine taps summed per pixel, the function the
+    fold (l7_fold_plain) computes in another order, on the stored layer-6
+    plane: x [N, 2hl+2, 2wl+2, 128] NHWC, w [128, 9, 1], b [1] f32 ->
+    [N, hl, wl, 4] in x's dtype: the 9 taps summed in f32, bias, LeakyReLU,
+    one rounding; zs as in mma_layer_plain."""
     return _last_layer_f32(x, w, b, zs).to(x.dtype)
 
 
@@ -1203,7 +1146,7 @@ def _taps_plain(x6: torch.Tensor, w7: torch.Tensor, dtype) -> torch.Tensor:
 
 def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
                  form: str = "direct", tiling=None, upto=None,
-                 mma: bool = False, out: str = "cell", fold=None):
+                 mma: bool = False, out: str = "cell"):
     """The stack from layer 1's output x1 [N, 32, 2hg+12, 2wg+12] (f32
     values, _l1_values) -> [N, hg, wg, 4] in s2d layout (f32 values):
     F.conv2d + bias + LeakyReLU per layer in f32 with TF32 off, each stored
@@ -1214,23 +1157,19 @@ def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
     upto (1..6) stops after that layer and gives its 4 values per cell
     (stack_scale_upto), in the form `out`: with "whole" (upto 1..5) the
     layer's whole NHWC plane, with "phase_taps" (upto 6) the unfolded taps;
-    at upto 6 the fold's tap forms (l7_fold_plain(taps=True)) unless
-    fold=False, which takes the cell kernel's FFMA sums (_taps_plain,
-    _phase_taps_plain).
+    at upto 6 the fold's tap forms (l7_fold_plain(taps=True)).
     With `mma`, layers 2-6 are mma_layer_plain from the packed weights
     sp.wm (layer 6 only in its direct form). Layer 7 is the folded tap
     product, as csrc/l7.cu computes it: l7_fold_plain on layer 6's plane,
     l7_tiles_plain on the int8 layer's tile-major planes. With "wino", V is
-    rounded where the kernel that the call reaches rounds it (bf16 and
-    MID_MMA on)."""
+    rounded where the kernel rounds it (bf16)."""
     hg, wg = (x1.shape[2] - 12) // 2, (x1.shape[3] - 12) // 2
     b7 = sp[6][1]
 
     def last(x6):
         if upto == 6:
-            return _last_taps_plain(x6.permute(0, 2, 3, 1), sp, out,
-                                    l7_fold_chosen(0, fold)).to(
-                                        dtype).float()
+            return _last_taps_plain(x6.permute(0, 2, 3, 1), sp,
+                                    out).to(dtype).float()
         if x6.dim() == 6:
             y = l7_tiles_plain(x6, _w7f(sp, x6), b7)
         else:
@@ -1246,8 +1185,8 @@ def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
                 return x.permute(0, 2, 3, 1)
             return x[:, :4, 0:2 * hg:2, 0:2 * wg:2].permute(0, 2, 3, 1)
         if form == "wino":
-            return last(_l6_wino_plain(
-                x, sp, dtype, round_v=dtype == torch.bfloat16 and MID_MMA))
+            return last(_l6_wino_plain(x, sp, dtype,
+                                       round_v=dtype == torch.bfloat16))
         if form != "i8":
             return last(_plain_mid(x, sp, 5, dtype, mma))
         tr, tc, ny, nx = tiling
@@ -1270,7 +1209,7 @@ def _plain_stack(x1: torch.Tensor, sp, dtype, round_last: bool = True,
 
 def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
                      form: str = "direct", tile=None, upto=None,
-                     mma: bool = False, out: str = "cell", fold=None):
+                     mma: bool = False, out: str = "cell"):
     """Layer 1 on the low-res plane (edge-extended to the int8 tile grid,
     where there is one; _l1_values), the stack (_plain_stack), cropped ->
     [N, hl, wl, 4] as f32 values (out="whole": the uncropped plane)."""
@@ -1278,7 +1217,7 @@ def _scale_plain_f32(ylow: torch.Tensor, sp, round_last: bool = True,
         ylow, False, form if upto in (None, 6) else "direct", tile)
     x1 = _l1_values(ylow, sp).permute(0, 3, 1, 2)
     y = _plain_stack(x1, sp, ylow.dtype, round_last, form, tiling, upto, mma,
-                     out, fold)
+                     out)
     return y if out == "whole" else y[:, :hl, :wl]
 
 
@@ -1302,10 +1241,9 @@ def _lowres_window(ylow: torch.Tensor, dy: int, dx: int, rows: int,
 
 
 def stack_scale_upto_plain(ylow: torch.Tensor, sp, upto: int, l6_i8=None,
-                           l6_wino=None, tile=None, out: str = "cell",
-                           fold=None) -> torch.Tensor:
-    """Plain PyTorch version of stack_scale_upto, in each output form, of
-    the kernel that `fold` chooses at upto 6."""
+                           l6_wino=None, tile=None,
+                           out: str = "cell") -> torch.Tensor:
+    """Plain PyTorch version of stack_scale_upto, in each output form."""
     form = l6_form(l6_i8, l6_wino)
     _check(ylow, sp, form if upto == 6 else "direct")
     _check_upto(upto, out)
@@ -1318,7 +1256,7 @@ def stack_scale_upto_plain(ylow: torch.Tensor, sp, upto: int, l6_i8=None,
         return torch.stack([_lowres_window(ylow, dy, dx, hl, wl)
                             for dy, dx in taps], dim=-1)
     return _scale_plain_f32(ylow, sp, form=form, tile=tile, upto=upto,
-                            out=out, fold=fold).to(ylow.dtype)
+                            out=out).to(ylow.dtype)
 
 
 def s2d_to_dense(y_s2d: torch.Tensor, tc: int) -> torch.Tensor:
@@ -1455,11 +1393,6 @@ def l6_i8_layer_plain(x5: torch.Tensor, sp, tile):
 _INT, _PTR = ctypes.c_int, ctypes.c_void_p
 _FLOATS = ctypes.POINTER(ctypes.c_float)
 _ARGTYPES = {
-    "stack": {"w2x_stack_layer": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
-                                  _INT, _INT, _INT, _INT, _PTR, _FLOATS, _INT,
-                                  _PTR],
-              "w2x_stack_last_zs": [_INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT,
-                                    _INT, _INT, _PTR]},
     "mma": {"w2x_mma_layer": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _INT,
                               _INT, _INT, _INT, _PTR],
             "w2x_mma_chain": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR],
@@ -1469,19 +1402,8 @@ _ARGTYPES = {
             "w2x_mma_layer_max": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
                                   _INT, _INT, _PTR, _INT, _INT, _INT, _INT,
                                   _PTR]},
-    "l6": {"w2x_upto_gather": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
-                               _INT, _INT, _PTR],
-           "w2x_upto_gather_cell": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                                    _INT, _INT, _INT, _PTR],
-           "w2x_tile_absmax": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
-                               _PTR],
-           "w2x_l6_i8": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                         _INT, _INT, _INT, _PTR],
-           "w2x_l6_wino": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                           _PTR],
-           "w2x_last_cell": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                             _INT, _PTR, _FLOATS, _INT, _INT, _INT, _INT,
-                             _INT, _PTR]},
+    "gather": {"w2x_upto_gather": [_INT, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                                   _INT, _INT, _INT, _PTR]},
     "i8": {"w2x_l6_i8_mma": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT,
                              _INT, _INT, _INT, _INT, _PTR]},
     "wino": {"w2x_l6_wino_mma": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
@@ -1508,15 +1430,16 @@ _LIBS: dict = {}
 
 def _libs() -> dict:
     """The kernel libraries by source name, built together at first use
-    and kept for the process."""
+    and kept for the process; each exports w2x_error_string for its own
+    error codes."""
     if not _LIBS:
         libs = dict(zip(_ARGTYPES, _build.load(*_ARGTYPES)))
         for name, fns in _ARGTYPES.items():
             for fn, argtypes in fns.items():
                 getattr(libs[name], fn).argtypes = argtypes
                 getattr(libs[name], fn).restype = ctypes.c_int
-        libs["stack"].w2x_error_string.argtypes = [ctypes.c_int]
-        libs["stack"].w2x_error_string.restype = ctypes.c_char_p
+            libs[name].w2x_error_string.argtypes = [ctypes.c_int]
+            libs[name].w2x_error_string.restype = ctypes.c_char_p
         _LIBS.update(libs)
     return _LIBS
 
@@ -1550,7 +1473,7 @@ class _Launcher:
         global LAUNCHES
         err = getattr(self.libs[lib], fn)(self.bf16, *args, self.stream)
         if err:
-            msg = self.libs["stack"].w2x_error_string(err).decode()
+            msg = self.libs[lib].w2x_error_string(err).decode()
             raise RuntimeError(f"stack kernel, {what}: {msg}")
         if self.kind is not None:
             LAUNCHES += 1
@@ -1569,80 +1492,42 @@ class _Launcher:
             I8_LAUNCHES[i8] += 1
 
     def taps(self, x6, sp, y, n, hl, wl, out: str = "cell", tiling=None,
-             fold=None, l6=None) -> None:
+             l6=None) -> None:
         """stack_scale_upto's tap form `out` ("cell" or "phase_taps") from
         the layer-6 plane x6 (tile-major with tiling, as l7_fold) into y
         [n, hl, wl, 4]: the fold's tap form (l7_fold, _OUT_TAPS or
-        _OUT_PTAPS), or with fold=False common.cuh's cell kernel
-        (w2x_last_cell, counted L7_LAUNCHES["cell"]), the yardstick. l6 is
-        the launch's L6_LAUNCHES key, if any."""
+        _OUT_PTAPS). l6 is the launch's L6_LAUNCHES key, if any."""
         mode = _OUT_PTAPS if out == "phase_taps" else _OUT_TAPS
-        if l7_fold_chosen(0, fold):
-            self.l7_fold(x6, sp, y, n, hl, wl, mode, tiling=tiling, l6=l6)
-        else:
-            w7, b7 = sp[6]
-            self.run("l6", "w2x_last_cell", "layer 7 (cell taps)", l6,
-                     x6.data_ptr(), w7.data_ptr(), b7.data_ptr(),
-                     y.data_ptr(), n, hl, wl, mode, None, None, 0,
-                     *(tiling or (0, 0, 0, 0)), l7="cell")
+        self.l7_fold(x6, sp, y, n, hl, wl, mode, tiling=tiling, l6=l6)
 
     def layer(self, k: int, full_res: bool, src, sp, dst, n, ph, pw,
               out_mode=_OUT_S2D, uvp=None, cmap=None, tc=0, zs: int = 0,
-              pp: bool = False, fold=None) -> None:
+              pp: bool = False) -> None:
         """Layer k + 1: layer 1 on csrc/l1.cu; layers 2-6 on the tensor
         cores, a bf16 call's on csrc/mma.cu and an f32 call's as 3xTF32 on
-        csrc/mma_tf32.cu (both on stack.cu's FFMA kernel with MID_MMA
-        False); layer 7 folded (csrc/l7.cu, on the tensor cores in bf16,
-        FFMA in f32; l7_fold_chosen with `fold`), or on stack.cu's FFMA
-        kernels with fold=False. zs, a zero-shift mask, and pp, two
-        accumulators, are the probes' variants of the bf16 tensor-core
-        layers (zs also of layer 7 in s2d layout, in either type: folded,
-        or with fold=False on stack.cu's per-pixel kernel)."""
-        w, b = sp[k]
+        csrc/mma_tf32.cu; layer 7 folded (csrc/l7.cu, on the tensor cores in
+        bf16, FFMA in f32). zs, a zero-shift mask, and pp, two accumulators,
+        are the probes' variants of the bf16 tensor-core layers (zs also of
+        the folded layer 7 in s2d layout, in either type)."""
         hg, wg = ((ph + 1) // 2, (pw + 1) // 2) if full_res else (ph, pw)
-        if k == 6 and not pp and l7_fold_chosen(zs, fold):
-            self.l7_fold(src, sp, dst, n, hg, wg, out_mode, uvp, cmap, tc,
-                         zs=zs)
-            return
-        if zs or pp:
-            if k == 0 or (k == 6 and pp) or (k < 6 and not self.bf16):
-                raise ValueError(f"layer {k + 1}: no variant zs={zs}, "
-                                 f"pp={pp} (bf16 layers 2-6; zs on layer 7, "
-                                 f"f32 or bf16)")
-            if k == 6:
-                self.run("stack", "w2x_stack_last_zs", f"layer 7 (zs {zs})",
-                         "last_zs", zs, src.data_ptr(), w.data_ptr(),
-                         b.data_ptr(), dst.data_ptr(), n, hg, wg,
-                         l7="pixel")
-                return
+        if zs not in range(4) or (zs or pp) and (
+                k == 0 or (k == 6 and pp) or (k < 6 and not self.bf16)):
+            raise ValueError(f"layer {k + 1}: no variant zs={zs}, pp={pp} "
+                             f"(bf16 layers 2-6; zs 0..3 on layer 7, f32 or "
+                             f"bf16)")
         if k == 0:
             self.l1(full_res, src, sp, dst, n, ph, pw)
-            return
-        if 1 <= k <= 5 and (MID_MMA or zs or pp):
+        elif k == 6:
+            self.l7_fold(src, sp, dst, n, hg, wg, out_mode, uvp, cmap, tc,
+                         zs=zs)
+        else:
             (self.mma_layer if self.bf16 else self.tf32_layer)(
                 k, src, sp, dst, n, 2 * hg + 14 - 2 * k, 2 * wg + 14 - 2 * k,
                 l6="direct" if k == 5 else None, zs=zs, pp=pp)
-            return
-        self.run("stack", "w2x_stack_layer", f"layer {k + 1}",
-                 "direct" if k == 5 else None, int(full_res), k,
-                 src.data_ptr(), w.data_ptr(), b.data_ptr(), dst.data_ptr(),
-                 n, ph, pw, out_mode,
-                 None if uvp is None else uvp.data_ptr(), cmap, tc,
-                 mid="ffma" if 1 <= k <= 5 else None,
-                 l7=None if k < 6 else "pixel" if out_mode == _OUT_S2D
-                 else "cell")
 
-    def l1(self, full_res: bool, x, sp, y, n, ph, pw,
-           ffma: bool = False) -> None:
+    def l1(self, full_res: bool, x, sp, y, n, ph, pw) -> None:
         """Layer 1 from the [n, ph, pw] plane x (low-res, or full-res with
-        full_res) into y [n, 2hg+12, 2wg+12, 32] on csrc/l1.cu, or with
-        ffma on stack.cu's plane modes (l1_layer's yardstick)."""
-        if ffma:
-            self.run("stack", "w2x_stack_layer", "layer 1 (FFMA)", None,
-                     int(full_res), 0, x.data_ptr(), sp[0][0].data_ptr(),
-                     sp[0][1].data_ptr(), y.data_ptr(), n, ph, pw, _OUT_S2D,
-                     None, None, 0, l1="ffma")
-            return
+        full_res) into y [n, 2hg+12, 2wg+12, 32] on csrc/l1.cu."""
         w = sp[0][0] if full_res else _w1s(sp, x)
         self.run("l1", "w2x_l1", "layer 1", None, int(full_res),
                  x.data_ptr(), w.data_ptr(), sp[0][1].data_ptr(),
@@ -1739,10 +1624,9 @@ class _Launcher:
         MMA_SHAPES[key] = MMA_SHAPES.get(key, 0) + 1
 
     def wino(self, x5, sp, y6, n, h5, w5, l6=None) -> None:
-        """Layer 6 as Winograd on an [n, h5, w5, 128] plane: on the tensor
-        cores (csrc/wino.cu; bf16 from w6m, f32 as 3xTF32 from w6t) while
-        MID_MMA is on, else as FFMA (csrc/l6.cu)."""
-        if self.bf16 and MID_MMA:
+        """Layer 6 as Winograd on an [n, h5, w5, 128] plane on the tensor
+        cores (csrc/wino.cu; bf16 from w6m, f32 as 3xTF32 from w6t)."""
+        if self.bf16:
             w6m = getattr(sp, "w6m", None)
             if w6m is None or w6m.dtype != x5.dtype or (
                     w6m.device != x5.device) or not w6m.is_contiguous():
@@ -1753,16 +1637,11 @@ class _Launcher:
                      l6, x5.data_ptr(), w6m.data_ptr(), sp[5][1].data_ptr(),
                      y6.data_ptr(), n, h5, w5, wino="mma")
             return
-        if MID_MMA:
-            uhi, ulo = _w6t(sp, x5)
-            self.run("wino", "w2x_l6_wino_tf32",
-                     "layer 6, Winograd (3xTF32)", l6, x5.data_ptr(),
-                     uhi.data_ptr(), ulo.data_ptr(), sp[5][1].data_ptr(),
-                     y6.data_ptr(), n, h5, w5, wino="mma_tf32")
-            return
-        self.run("l6", "w2x_l6_wino", "layer 6, Winograd", l6,
-                 x5.data_ptr(), sp.w6w.data_ptr(), sp[5][1].data_ptr(),
-                 y6.data_ptr(), n, h5, w5, wino="ffma")
+        uhi, ulo = _w6t(sp, x5)
+        self.run("wino", "w2x_l6_wino_tf32", "layer 6, Winograd (3xTF32)",
+                 l6, x5.data_ptr(), uhi.data_ptr(), ulo.data_ptr(),
+                 sp[5][1].data_ptr(), y6.data_ptr(), n, h5, w5,
+                 wino="mma_tf32")
 
     def layer5_max(self, src, sp, dst, n, hin, win, m, tiling) -> None:
         """Layer 5 on the [n, hin, win, 64] plane src into dst with B4's
@@ -1791,51 +1670,32 @@ class _Launcher:
                  tf32_plan(*WIDTHS[4]).smem_bytes, *tile_args,
                  mid="mma_tf32", i8="l5max")
 
-    def tile_absmax(self, x5, n, tiling, l6=None) -> torch.Tensor:
-        """B4's tile maxima in a pass of their own (csrc/l6.cu:
-        tile_absmax, which reads x5 again) -> m [n, ny, nx] f32."""
-        m = torch.zeros((n, tiling[2], tiling[3]), dtype=torch.float32,
-                        device=x5.device)
-        self.run("l6", "w2x_tile_absmax", "layer 6, tile maxima", l6,
-                 x5.data_ptr(), m.data_ptr(), n, *tiling, i8="absmax")
-        return m
+    def gather(self, src, out, n, hl, wl, hk, wk, ck, mode: int) -> None:
+        """stack_scale_upto's gather at upto 0..5 (csrc/gather.cu)."""
+        self.run("gather", "w2x_upto_gather", f"upto gather, mode {mode}",
+                 "upto", src.data_ptr(), out.data_ptr(), n, hl, wl, hk, wk,
+                 ck, mode)
+        GATHER_LAUNCHES["tiled"] += 1
 
-    def gather(self, src, out, n, hl, wl, hk, wk, ck, mode: int,
-               tiled=None) -> None:
-        """stack_scale_upto's gather at upto 0..5 (csrc/l6.cu): the tiled
-        form, or with tiled=False one thread a cell, the yardstick."""
-        cell = tiled is not None and not tiled
-        self.run("l6", "w2x_upto_gather_cell" if cell else "w2x_upto_gather",
-                 f"upto gather, mode {mode}", "upto", src.data_ptr(),
-                 out.data_ptr(), n, hl, wl, hk, wk, ck, mode)
-        GATHER_LAUNCHES["cell" if cell else "tiled"] += 1
-
-    def l6_i8(self, x5, sp, n, tiling, m=None):
-        """The int8 layer 6 on the tensor cores (csrc/i8.cu), or with
-        MID_MMA False on csrc/l6.cu's __dp4a kernel -> (x6t tile-major, m),
-        from the tile maxima m that layer 5's epilogue took, or where m is
-        None after tile_absmax takes them."""
+    def l6_i8(self, x5, sp, n, tiling, m) -> torch.Tensor:
+        """The int8 layer 6 on the tensor cores (csrc/i8.cu) from the tile
+        maxima m [n, ny, nx] f32 that layer 5's epilogue took -> x6t,
+        tile-major."""
         tr, tc, ny, nx = tiling
-        if m is None:
-            m = self.tile_absmax(x5, n, tiling, "i8")
+        w6i = getattr(sp, "w6i", None)
+        if w6i is None or tuple(w6i.shape) != (8, 9, 128, 16) or (
+                w6i.dtype != torch.int8 or w6i.device != x5.device
+                or not w6i.is_contiguous()):
+            raise ValueError("the int8 tensor-core layer needs prep_params' "
+                             f"StackParams.w6i, contiguous int8 on "
+                             f"{x5.device}")
         x6t = torch.empty((n, ny, nx, 2 * tr + 2, 2 * tc + 2, 128),
                           dtype=x5.dtype, device=x5.device)
-        args = (sp.w6s.data_ptr(), sp[5][1].data_ptr(), m.data_ptr(),
-                x6t.data_ptr(), n, tr, tc, ny, nx)
-        if MID_MMA:
-            w6i = getattr(sp, "w6i", None)
-            if w6i is None or tuple(w6i.shape) != (8, 9, 128, 16) or (
-                    w6i.dtype != torch.int8 or w6i.device != x5.device
-                    or not w6i.is_contiguous()):
-                raise ValueError("the int8 tensor-core layer needs "
-                                 "prep_params' StackParams.w6i, contiguous "
-                                 f"int8 on {x5.device}")
-            self.run("i8", "w2x_l6_i8_mma", "layer 6, int8 (mma)", "i8",
-                     x5.data_ptr(), w6i.data_ptr(), *args, i8="mma")
-        else:
-            self.run("l6", "w2x_l6_i8", "layer 6, int8 (dp4a)", "i8",
-                     x5.data_ptr(), sp.w6q.data_ptr(), *args, i8="dp4a")
-        return x6t, m
+        self.run("i8", "w2x_l6_i8_mma", "layer 6, int8 (mma)", "i8",
+                 x5.data_ptr(), w6i.data_ptr(), sp.w6s.data_ptr(),
+                 sp[5][1].data_ptr(), m.data_ptr(), x6t.data_ptr(), n, tr,
+                 tc, ny, nx, i8="mma")
+        return x6t
 
 
 def _last_buffer(out_mode: int, x: torch.Tensor, n: int, hl: int, wl: int,
@@ -1855,15 +1715,9 @@ def _last_buffer(out_mode: int, x: torch.Tensor, n: int, hl: int, wl: int,
     return torch.empty((n, hl, wl, 4), dtype=x.dtype, device=x.device), None
 
 
-def l5_maxima_chosen() -> bool:
-    """Whether B4's tile maxima come from layer 5's epilogue: while layer 5
-    runs on the tensor cores (MID_MMA) and L5_MAXIMA is on."""
-    return MID_MMA and L5_MAXIMA
-
-
 def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             form: str = "direct", tile=None, upto=None,
-            out_form: str = "cell", fold=None, tiled=None) -> torch.Tensor:
+            out_form: str = "cell") -> torch.Tensor:
     """One call's launches on the current stream, no synchronisation: x is
     the low-res plane [N, hl, wl] (kinds "scale", "dense", "fused_u8") or
     the full-res plane [N, h, w] ("noise": any size, computed on the
@@ -1871,11 +1725,9 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
     [N, hl, wl, 4], or for "dense" Y [N, hl, nx*4*tc], or for "fused_u8"
     u8 BGR [N, hl, wl, 16] from `uvp`; with `upto` (0..6) the stack stops
     after that layer and its 4 values per cell are written instead, or the
-    other form `out_form` of stack_scale_upto (at upto 6 on the fold, or
-    with fold=False on the cell kernel). `form` is layer 6's; "i8" runs on
-    the plane edge-extended to the tile grid, and there layer 5 also takes
-    the tile maxima (l5_maxima_chosen). `tiled` picks the gather's kernel
-    at upto 0..5 (stack_scale_upto). `events`, a list of
+    other form `out_form` of stack_scale_upto (at upto 6 on the fold).
+    `form` is layer 6's; "i8" runs on the plane edge-extended to the tile
+    grid, and there layer 5 also takes the tile maxima. `events`, a list of
     timing-enabled CUDA events, is recorded before the first launch and
     after each layer's launches (8 events for a whole stack, upto + 2 with
     `upto`)."""
@@ -1900,7 +1752,7 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             out, cmap = _last_buffer(out_mode, x, n, hl, wl, tc)
         src = x
         for k in range(5 if upto is None else min(upto, 5)):
-            if k == 4 and tiling is not None and l5_maxima_chosen():
+            if k == 4 and tiling is not None:
                 m = torch.zeros((n, *tiling[2:]), dtype=torch.float32,
                                 device=x.device)
                 run.layer5_max(src, sp, bufs[0], n, 2 * hg + 6, 2 * wg + 6,
@@ -1915,12 +1767,12 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
             if out is None:
                 return src[:n * hk * wk * ck].view(n, hk, wk, ck)
             run.gather(src, out, n, hl, wl, hk, wk, ck,
-                       _GATHER_LOWRES[out_form] if upto == 0 else 0, tiled)
+                       _GATHER_LOWRES[out_form] if upto == 0 else 0)
             run.mark()
             return out
         # layer 6 in its form, layer 5's output being in bufs[0]
         if form == "i8":
-            x6, _ = run.l6_i8(src, sp, n, tiling, m)
+            x6 = run.l6_i8(src, sp, n, tiling, m)
         elif form == "wino":
             x6 = bufs[1]
             run.wino(src, sp, x6, n, 2 * hg + 4, 2 * wg + 4, "wino")
@@ -1934,8 +1786,8 @@ def _launch(x: torch.Tensor, sp, kind: str, events, uvp=None, tc: int = 0,
         elif upto is None:   # folded, from the tile-major layer 6
             run.l7_fold(x6, sp, out, n, hl, wl, out_mode, uvp, cmap, tc,
                         tiling)
-        else:   # the tap forms, folded or on the cell kernel
-            run.taps(x6, sp, out, n, hl, wl, out_form, tiling, fold, "upto")
+        else:   # the tap forms, folded
+            run.taps(x6, sp, out, n, hl, wl, out_form, tiling, "upto")
         run.mark()
     return out
 
@@ -1946,13 +1798,12 @@ def l6_i8_layer(x5: torch.Tensor, sp, tile, m=None):
     plane that is a whole grid of tile = (tr, tc) cells -> (x6t
     [N, ny, nx, 2tr+2, 2tc+2, 128] in x5's dtype: each tile's layer-6
     activation with its one-pixel halo, quantised with that tile's scale;
-    sx [N, ny, nx] f32: the tiles' activation scales). m, the tiles' max
-    |x5| [N, ny, nx] f32 as layer5_maxima gives them, spares the kernel
-    path its own maxima. CPU tensors take the plain version; CUDA tensors
-    take the kernels (without m csrc/l6.cu's tile_absmax, then csrc/i8.cu
-    on the int8 tensor cores, or with MID_MMA False csrc/l6.cu's __dp4a
-    kernel), whose launches count under L6_LAUNCHES["i8"] and
-    I8_LAUNCHES only."""
+    sx [N, ny, nx] f32: the tiles' activation scales). m is the tiles' max
+    |x5| [N, ny, nx] f32 as layer5_maxima gives them, as the stacks take
+    them from layer 5's epilogue. CPU tensors take the plain version, which
+    takes the maxima itself (m may be None); CUDA tensors need m and take
+    csrc/i8.cu on the int8 tensor cores, whose launch counts under
+    L6_LAUNCHES["i8"] and I8_LAUNCHES only."""
     tiling = _check_x5(x5, sp, tile)
     if m is not None and (tuple(m.shape) != (x5.shape[0], *tiling[2:])
                           or m.dtype != torch.float32
@@ -1961,10 +1812,12 @@ def l6_i8_layer(x5: torch.Tensor, sp, tile, m=None):
                          f"{(x5.shape[0], *tiling[2:])} on {x5.device}")
     if x5.device.type == "cpu":
         return l6_i8_layer_plain(x5, sp, tile)
+    if m is None:
+        raise ValueError("on the card l6_i8_layer needs the tile maxima m "
+                         "(layer5_maxima)")
+    m = m.contiguous()
     with torch.cuda.device(x5.device):
-        x6t, m = _Launcher(None, x5, None).l6_i8(
-            x5, sp, x5.shape[0], tiling,
-            None if m is None else m.contiguous())
+        x6t = _Launcher(None, x5, None).l6_i8(x5, sp, x5.shape[0], tiling, m)
     return x6t, torch.clamp(m, min=1e-8) * _INV127
 
 
@@ -1985,26 +1838,6 @@ def tile_max_plain(x5: torch.Tensor, tile) -> torch.Tensor:
                              2 * tj * tc:2 * (tj + 1) * tc + 4].amax(
                                  dim=(1, 2, 3))
     return m
-
-
-def tile_maxima(x5: torch.Tensor, tile) -> torch.Tensor:
-    """B4's tile maxima in a pass of their own: x5 as l6_i8_layer takes
-    it -> m [N, ny, nx] f32. CPU tensors take tile_max_plain; CUDA tensors
-    csrc/l6.cu's tile_absmax (I8_LAUNCHES["absmax"] only), the yardstick of
-    layer 5's epilogue."""
-    tr, tc = tile
-    ny, nx = (x5.shape[1] - 4) // (2 * tr), (x5.shape[2] - 4) // (2 * tc)
-    if (x5.dim() != 4 or min(ny, nx) < 1 or tuple(x5.shape[1:]) != (
-            2 * ny * tr + 4, 2 * nx * tc + 4, 128)
-            or x5.dtype not in DTYPES or not x5.is_contiguous()):
-        raise ValueError(f"x5 must be contiguous f32 or bf16 [N, 2*ny*{tr}+4,"
-                         f" 2*nx*{tc}+4, 128], got {tuple(x5.shape)} "
-                         f"{x5.dtype}")
-    if x5.device.type == "cpu":
-        return tile_max_plain(x5, tile)
-    with torch.cuda.device(x5.device):
-        return _Launcher(None, x5, None).tile_absmax(
-            x5, x5.shape[0], (tr, tc, ny, nx))
 
 
 def _check_x4(x4: torch.Tensor, sp, tile) -> tuple:
@@ -2041,7 +1874,7 @@ def layer5_maxima(x4: torch.Tensor, sp, tile):
     output [N, 2*ny*tr + 6, 2*nx*tc + 6, 64] of a plane that is a whole grid
     of tile = (tr, tc) cells (NHWC, contiguous) -> (x5 [N, 2*ny*tr + 4,
     2*nx*tc + 4, 128] in x4's dtype, as mma_layer(x4, sp, 5) computes it;
-    m [N, ny, nx] f32, max |x5| over each tile window, as tile_maxima(x5)
+    m [N, ny, nx] f32, max |x5| over each tile window, as tile_max_plain(x5)
     gives it). CPU tensors take the plain version; CUDA tensors the
     layer-5 kernel's instance with the maxima (bf16 csrc/mma.cu, f32
     csrc/mma_tf32.cu), counted under MID_LAUNCHES and I8_LAUNCHES["l5max"]
@@ -2182,25 +2015,22 @@ def conv3x3_mma(x: torch.Tensor, wp: torch.Tensor,
     return y
 
 
-def l1_layer(x: torch.Tensor, sp, full_res: bool = False,
-             ffma: bool = False) -> torch.Tensor:
+def l1_layer(x: torch.Tensor, sp, full_res: bool = False) -> torch.Tensor:
     """Layer 1 alone: x [N, ph, pw] (f32 or bf16, contiguous; the low-res
     plane, or with full_res the noise stack's full-res plane, any size) ->
     x1 [N, 2hg+12, 2wg+12, 32] NHWC in x's dtype, what the stack's layer 2
     reads (hg = ph, or ceil(ph/2) with full_res). The kernel is csrc/l1.cu,
-    the stack's; ffma=True takes stack.cu's FFMA plane modes instead, the
-    timing yardstick, whose scale mode applies w1's taps apart on the
-    nearest-2x upscale. CPU tensors take l1_plain; CUDA tensors take the
-    kernel, whose launch counts under L1_LAUNCHES only."""
+    the stack's. CPU tensors take l1_plain; CUDA tensors take the kernel,
+    whose launch counts under L1_LAUNCHES only."""
     _check(x, sp)
     if x.device.type == "cpu":
-        return l1_plain(x, sp, full_res, ffma)
+        return l1_plain(x, sp, full_res)
     n, ph, pw = x.shape
     hg, wg = (-(-ph // 2), -(-pw // 2)) if full_res else (ph, pw)
     with torch.cuda.device(x.device):
         y = torch.empty((n, 2 * hg + 12, 2 * wg + 12, 32), dtype=x.dtype,
                         device=x.device)
-        _Launcher(None, x, None).l1(full_res, x, sp, y, n, ph, pw, ffma)
+        _Launcher(None, x, None).l1(full_res, x, sp, y, n, ph, pw)
     return y
 
 
@@ -2211,9 +2041,7 @@ def wino_layer(x5: torch.Tensor, sp) -> torch.Tensor:
     (csrc/wino.cu: bf16 from StackParams.w6m, counted under
     WINO_LAUNCHES["mma"]; f32 as 3xTF32 from StackParams.w6t, under
     "mma_tf32") and count nowhere else; CPU tensors take wino_layer_plain
-    (from w6m, which for f32 storage holds the f32 U: the f32 function).
-    With MID_MMA False it is the FFMA form instead (csrc/l6.cu, V in f32;
-    _l6_wino_plain's on the CPU), counted under WINO_LAUNCHES["ffma"]."""
+    (from w6m, which for f32 storage holds the f32 U: the f32 function)."""
     if (x5.dim() != 4 or x5.shape[3] != 128 or x5.shape[1] % 2
             or x5.shape[2] % 2 or min(x5.shape[1:3]) < 4):
         raise ValueError(f"x5 must be [N, H5, W5, 128] with H5, W5 even "
@@ -2231,9 +2059,6 @@ def wino_layer(x5: torch.Tensor, sp) -> torch.Tensor:
                         f"{x5.device}, the weights {x5.dtype}; got "
                         f"{w6m.dtype} on {w6m.device}")
     if x5.device.type == "cpu":
-        if not MID_MMA:
-            return _l6_wino_plain(x5.float().permute(0, 3, 1, 2), sp,
-                                  x5.dtype).permute(0, 2, 3, 1).to(x5.dtype)
         return wino_layer_plain(x5, w6m, sp[5][1])
     n, h5, w5, _ = x5.shape
     with torch.cuda.device(x5.device):
@@ -2246,35 +2071,25 @@ def wino_layer(x5: torch.Tensor, sp) -> torch.Tensor:
 _LAST_OUTS = {"s2d": _OUT_S2D, "dense": _OUT_DENSE, "u8": _OUT_U8}
 
 
-def _last_taps_plain(x: torch.Tensor, sp, out: str,
-                     folded: bool) -> torch.Tensor:
+def _last_taps_plain(x: torch.Tensor, sp, out: str) -> torch.Tensor:
     """stack_scale_upto's tap form `out` at upto 6 ("cell", the same-cell
     taps, or "phase_taps") as f32 partials [P, hl, wl, 4] on the planes x
     [P, 2hl+2, 2wl+2, 128] NHWC: the fold's (l7_fold_plain(taps=True), from
-    w7f or, for "phase_taps", w7p) or, with folded False, the cell kernel's
-    FFMA sums (_taps_plain, _phase_taps_plain), not rounded."""
-    if folded:
-        return l7_fold_plain(x, _w7f(sp, x, out == "phase_taps"), None,
-                             taps=True)
-    fn = _phase_taps_plain if out == "phase_taps" else _taps_plain
-    return fn(x.permute(0, 3, 1, 2).float(), sp[6][0], torch.float32)
+    w7f or, for "phase_taps", w7p), not rounded."""
+    return l7_fold_plain(x, _w7f(sp, x, out == "phase_taps"), None,
+                         taps=True)
 
 
 def last_layer(x: torch.Tensor, sp, zs: int = 0, out: str = "s2d",
-               uvp=None, tc=None, fold=None):
+               uvp=None, tc=None):
     """Layer 7 alone on the stored layer-6 plane x [N, 2hl+2, 2wl+2, 128]
     NHWC (f32 or bf16, contiguous), in the output form `out` of last_out:
     "s2d" [N, hl, wl, 4] in x's dtype, "dense" (ydense, tc), "u8"
-    [N, hl, wl, 16] from uvp [N, hl, wl, 8] f32. The kernel is the stack's
-    (l7_fold_chosen): the fold (csrc/l7.cu: bf16 on the tensor cores, f32
-    with FFMA), under the zero-shift mask zs too (0..3, s2d only; see
-    l7_fold_plain), unless fold=False, which takes the FFMA kernels the
-    stacks ran before (csrc/stack.cu's per-pixel kernel for s2d, under zs
-    too, common.cuh's cell kernel for the other forms). CPU tensors take the
-    plain version of the kernel chosen (l7_fold_plain or
-    last_layer_plain's f32 Y, then last_out); CUDA tensors take the kernel,
-    whose launch counts under L7_LAUNCHES (and, per pixel under a mask,
-    L6_LAUNCHES["last_zs"]) only."""
+    [N, hl, wl, 16] from uvp [N, hl, wl, 8] f32. The kernel is the stack's:
+    the fold (csrc/l7.cu: bf16 on the tensor cores, f32 with FFMA), under
+    the zero-shift mask zs too (0..3, s2d only; see l7_fold_plain). CPU
+    tensors take its plain version (l7_fold_plain, then last_out); CUDA
+    tensors take the kernel, whose launch counts under L7_LAUNCHES only."""
     if zs not in range(4) or (zs and out != "s2d"):
         raise ValueError(f"zs must be 0..3, and 0 for out={out!r}; got "
                          f"{zs!r}")
@@ -2297,32 +2112,28 @@ def last_layer(x: torch.Tensor, sp, zs: int = 0, out: str = "s2d",
         if uvp is None:
             raise ValueError("out='u8' needs uvp [N, hl, wl, 8]")
         _check_uvp(uvp, x[..., :hl, :wl, 0])
-    folded = l7_fold_chosen(zs, fold)
     if x.device.type == "cpu":
-        y = (l7_fold_plain(x, _w7f(sp, x), b, zs) if folded
-             else _last_layer_f32(x, w, b, zs))
-        return last_out(y, out, x.dtype, uvp, tc)
+        return last_out(l7_fold_plain(x, _w7f(sp, x), b, zs), out, x.dtype,
+                        uvp, tc)
     tc = _dense_tc(wl, tc) if out == "dense" else 0
     with torch.cuda.device(x.device):
         y, cmap = _last_buffer(_LAST_OUTS[out], x, n, hl, wl, tc)
         _Launcher(None, x, None).layer(
             6, False, x, sp, y, n, hl, wl, _LAST_OUTS[out], uvp, cmap, tc,
-            zs=zs, fold=folded)
+            zs=zs)
     return (y, tc) if out == "dense" else y
 
 
 def last_layer_tiles(x6t: torch.Tensor, sp, hl: int, wl: int,
-                     out: str = "s2d", uvp=None, tc=None, fold=None):
+                     out: str = "s2d", uvp=None, tc=None):
     """Layer 7 alone on the int8 layer 6's tile-major planes x6t [N, ny, nx,
     2tr+2, 2tc+2, 128] NHWC (f32 or bf16, contiguous: what l6_i8_layer
     returns), each tile's Y at its cells of the image, cropped to hl x wl
     (ny*tr >= hl > (ny-1)*tr, likewise wl), in the output form `out` of
     last_out ("dense" with the chunk tc). The kernel is the int8 stacks':
-    the fold (csrc/l7.cu) unless fold=False, which takes common.cuh's cell
-    kernel, the FFMA layer 7 they ran before (the yardstick). CPU tensors
-    take the plain version of the kernel chosen (l7_tiles_plain, or the
-    9-tap sum of each tile), then last_out; CUDA tensors take the kernel,
-    whose launch counts under L7_LAUNCHES only."""
+    the fold (csrc/l7.cu). CPU tensors take its plain version
+    (l7_tiles_plain, then last_out); CUDA tensors take the kernel, whose
+    launch counts under L7_LAUNCHES only."""
     if out not in _LAST_OUTS:
         raise ValueError(f"out must be one of {sorted(_LAST_OUTS)}, got "
                          f"{out!r}")
@@ -2345,24 +2156,15 @@ def last_layer_tiles(x6t: torch.Tensor, sp, hl: int, wl: int,
         if uvp is None:
             raise ValueError("out='u8' needs uvp [N, hl, wl, 8]")
         _check_uvp(uvp, x6t.new_empty(1).expand(n, hl, wl))
-    folded = l7_fold_chosen(0, fold)
     if x6t.device.type == "cpu":
-        y = (l7_tiles_plain(x6t, _w7f(sp, x6t), b) if folded
-             else _tiles_image(_last_layer_f32(
-                 x6t.reshape(-1, h6, w6, 128), w, b), n, ny, nx))
+        y = l7_tiles_plain(x6t, _w7f(sp, x6t), b)
         return last_out(y[:, :hl, :wl], out, x6t.dtype, uvp, tc)
     dtc = _dense_tc(wl, tc) if out == "dense" else 0
     mode, tiling = _LAST_OUTS[out], (tr, ttc, ny, nx)
     with torch.cuda.device(x6t.device):
         y, cmap = _last_buffer(mode, x6t, n, hl, wl, dtc)
-        run = _Launcher(None, x6t, None)
-        if folded:
-            run.l7_fold(x6t, sp, y, n, hl, wl, mode, uvp, cmap, dtc, tiling)
-        else:
-            run.run("l6", "w2x_last_cell", "layer 7 (cell)", None,
-                    x6t.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                    n, hl, wl, mode, None if uvp is None else uvp.data_ptr(),
-                    cmap, dtc, *tiling, l7="cell")
+        _Launcher(None, x6t, None).l7_fold(x6t, sp, y, n, hl, wl, mode, uvp,
+                                           cmap, dtc, tiling)
     return (y, dtc) if out == "dense" else y
 
 
@@ -2415,7 +2217,7 @@ def mma_chain(x: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
             1, x.data_ptr(), wp.data_ptr(), out.data_ptr(), x.shape[0],
             wp.shape[0], torch.cuda.current_stream(x.device).cuda_stream)
         if err:
-            msg = libs["stack"].w2x_error_string(err).decode()
+            msg = libs["mma"].w2x_error_string(err).decode()
             raise RuntimeError(f"mma_chain: {msg}")
         MID_LAUNCHES["chain"] += 1
     return out
@@ -2470,8 +2272,7 @@ def _check_upto(upto, out: str = "cell") -> None:
 
 def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
                      l6_i8=None, l6_wino=None, tile=None,
-                     out: str = "cell", fold=None,
-                     tiled=None) -> torch.Tensor:
+                     out: str = "cell") -> torch.Tensor:
     """The scale stack stopped after layer `upto` (B7): ylow [N, hl, wl] ->
     [N, hl, wl, 4] in ylow's dtype, 4 values of that stage per s2d cell
     (i, j), with act_k the output of layer k, whose row r is image row
@@ -2513,23 +2314,18 @@ def stack_scale_upto(ylow: torch.Tensor, sp, upto: int, events=None,
     the tile-major planes), Zt's lanes 0-3 of the cell, rounded once; the
     phase taps read pixel (0, 0) of each cell alone (StackParams.w7p).
     Their launches count under L7_LAUNCHES "fold" / "fold_f32" and
-    TAP_LAUNCHES. fold=False runs them on common.cuh's cell kernel instead,
-    one thread an s2d cell on FFMA (w2x_last_cell, L7_LAUNCHES["cell"]), the
-    timing yardstick; the two differ in the order of their f32 sums. At
-    upto 0..5 the last launch is csrc/l6.cu's tiled gather (a band of rows
-    a block, 16-byte vectors, the low-res modes staged in shared memory),
-    or with tiled=False its one-thread-a-cell form, the timing yardstick;
-    both only move values (GATHER_LAUNCHES counts them). CPU tensors take
-    the plain version of the kernel chosen; CUDA tensors take the
-    kernels."""
+    TAP_LAUNCHES. At upto 0..5 the last launch is csrc/gather.cu's gather (a
+    band of rows a block, 16-byte vectors, the low-res modes staged in
+    shared memory), which only moves values (GATHER_LAUNCHES counts it). CPU
+    tensors take the plain version; CUDA tensors take the kernels."""
     _check_upto(upto, out)
     form = l6_form(l6_i8, l6_wino)
     _check(ylow, sp, form if upto == 6 else "direct")
     if ylow.device.type == "cpu":
         return stack_scale_upto_plain(ylow, sp, upto, l6_i8, l6_wino, tile,
-                                      out, fold)
+                                      out)
     return _launch(ylow, sp, "scale", events, form=form, tile=tile,
-                   upto=upto, out_form=out, fold=fold, tiled=tiled)
+                   upto=upto, out_form=out)
 
 
 @_spanned("dense")

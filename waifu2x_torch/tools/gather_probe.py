@@ -1,12 +1,11 @@
-"""How B7's tiled gather (csrc/l6.cu:upto_gather_tiled, stack_scale_upto at
+"""How B7's gather (csrc/gather.cu:upto_gather_tiled, stack_scale_upto at
 upto 0..5) depends on its grid and its walk.
 
-csrc/l6.cu is built once a variant with its tuning macros set otherwise
+csrc/gather.cu is built once a variant with its tuning macros set otherwise
 (W2X_GT_BLOCKS and W2X_GT_ACT_BLOCKS: blocks an SM of the persistent grid
 in the low-res modes and in GATHER_ACT; W2X_GT_UNROLL: vectors a lane
 builds before it stores), and each build's w2x_upto_gather is timed in
-turns with the others and with the one-thread-a-cell form
-(w2x_upto_gather_cell) at scale512 (16 x 512^2, the shipped scale2.0x
+turns with the others at scale512 (16 x 512^2, the shipped scale2.0x
 weights, a plane drawn from --seed), in every mode and both storage types,
 each output held bit for bit against the default build's.
 
@@ -45,24 +44,24 @@ _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
 
 
 def build_variants(names) -> dict:
-    """csrc/l6.cu built once a variant, all at once -> loaded libraries."""
+    """csrc/gather.cu built once a variant, all at once -> loaded
+    libraries."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        so = _build.BUILD_DIR / f"libl6-gather-{name}.so"
+        so = _build.BUILD_DIR / f"libgather-{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, *VARIANTS[name], "-o",
-             str(so), str(_build.CSRC_DIR / "l6.cu")],
+             str(so), str(_build.CSRC_DIR / "gather.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for l6.cu {name}:\n{out}")
+            raise RuntimeError(f"nvcc failed for gather.cu {name}:\n{out}")
         lib = ctypes.CDLL(str(so))
-        for fn in ("w2x_upto_gather", "w2x_upto_gather_cell"):
-            getattr(lib, fn).argtypes = _ARGS
-            getattr(lib, fn).restype = ctypes.c_int
+        lib.w2x_upto_gather.argtypes = _ARGS
+        lib.w2x_upto_gather.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -111,19 +110,18 @@ def main(argv=None) -> int:
             hk, wk = 2 * hl + 14 - 2 * k, 2 * wl + 14 - 2 * k
             ck = stack.WIDTHS[k - 1][1] if k else 1
 
-            def launch(lib, fn="w2x_upto_gather"):
+            def launch(lib):
                 def run(_):
-                    err = getattr(lib, fn)(
+                    err = lib.w2x_upto_gather(
                         int(dtype == torch.bfloat16), src.data_ptr(),
                         y.data_ptr(), n, hl, wl, hk, wk, ck, mode, stream)
                     if err:
-                        raise RuntimeError(f"{fn}: error {err}")
+                        raise RuntimeError(f"w2x_upto_gather: error {err}")
                 return run
 
             launch(libs["default"])(0)
             want = y.clone()
             runs = {name: launch(libs[name]) for name in names}
-            runs["cell"] = launch(libs["default"], "w2x_upto_gather_cell")
             for name, run in runs.items():
                 y.zero_()
                 run(0)

@@ -6,7 +6,7 @@ builds of csrc/mma.cu that compile one of its parts out (W2X_AM_PARTS):
   pixels   1: the pixel maxima in the epilogue, no windows' reduction;
   windows  2: the windows' reduction and its atomics over zeros.
 Their maxima mean nothing; only their times do. The whole instance is
-first held to tile_maxima (csrc/l6.cu:tile_absmax) bit for bit. The plane
+first held to tile_max_plain bit for bit. The plane
 is layer 4's output shape at scale512 (16 x 1030^2 x 64, drawn from
 --seed), the shipped scale2.0x weights, the default tile or --tile.
 
@@ -79,8 +79,8 @@ def main(argv=None) -> int:
     x4 = torch.rand((args.batch, 2 * ny * tr + 6, 2 * nx * tc + 6, 64),
                     device=dev, generator=gen).to(dtype)
     x5, m = stack.layer5_maxima(x4, sp, tile)
-    if not torch.equal(m, stack.tile_maxima(x5, tile)):
-        print("layer5_maxima's maxima differ from tile_absmax's")
+    if not torch.equal(m, stack.tile_max_plain(x5, tile)):
+        print("layer5_maxima's maxima differ from tile_max_plain's")
         return 1
     if dev.type != "cuda":
         print(f"x4 {tuple(x4.shape)} -> x5 {tuple(x5.shape)}, m "
@@ -88,7 +88,7 @@ def main(argv=None) -> int:
         return 0
     libs = build_variants()
     n, hin, win, _ = x4.shape
-    smem = stack.mma_plan(64, 128).smem_bytes
+    smem = stack.mma_plan(64, 128, persistent=False).smem_bytes
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def variant(lib):
